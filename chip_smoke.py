@@ -1,0 +1,317 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch) on sr_x2.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc and the repository around this file; fails
+(non-zero exit, no "ok" line) without them. Phases:
+
+1. the card: nvidia-smi's name and power limit, torch's device name;
+2. build the fused kernels from csrc/ (nvcc), with the -Xptxas -v report;
+3. each kernel against its plain PyTorch version on numpy-seeded inputs:
+   K1 (sesr_pe_exact_net) and K2 (sesr_fast_net) at 540x960 and 27x45,
+   K2 at batch 4, both at 27x45 with zero points off the shipped -128,
+   and on the sr_x4, nrdm_3 and nrdm_6 artifacts at 27x45; the int8
+   outputs must be equal;
+4. the main path with the launch counters set to 0: ``serve`` (behind
+   ``infer``) on four synthetic 540x960 -> 1080x1920 frames at batch 1
+   and batch 4, then ``simulate`` (behind ``sim``) on one 540x960 frame;
+   both kernels must have launched;
+5. CUDA-event timings at 540x960 of each kernel and its plain version,
+   against the least time the card could take (int8 operations at
+   1,979 TOP/s, or bytes at 3.35 TB/s, whichever is larger);
+6. where a served frame's time goes, at batch 1 and 4: the forward on an
+   input already on the card, and the round trip from a numpy input to a
+   numpy output; wall ms/frame by CUDA events, device ms/frame of every
+   kernel and copy by torch.profiler, and the idle share 1 - busy / wall.
+
+The line before the last is the ``kernels`` JSON; the last is
+{"ok": true, "device": {...}}.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+TASK = "sr_x2"
+FRAME = (540, 960)                 # deployment input; 1080x1920 output
+INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
+BYTES_PER_S = 3.35e12              # H100 SXM HBM3
+REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
+            "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238"}
+
+
+def fail(msg):
+    print(f"chip_smoke FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line():
+    res = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi: {res.returncode} {res.stderr.strip()}")
+    return res.stdout.strip()
+
+
+def cuda_ms(torch, fn, iters, warmup=2):
+    """Median milliseconds of fn() by CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def _short(name):
+    """A device event's name without its template arguments' bodies."""
+    if "sesr_net_kernel" in name:
+        return "K1 sesr_net_kernel<true>" if "<true" in name else "K2 sesr_net_kernel<false>"
+    if name.startswith("Memcpy"):
+        return name
+    for functor in ("DivFunctor", "MulFunctor", "CUDAFunctorOnSelf_add", "round_kernel",
+                    "clamp", "direct_copy"):
+        if functor in name:
+            src = (" from int8" if "(signed char)" in name
+                   else " from f32" if "(float)" in name else "")
+            return f"aten {functor}{src}"
+    return name[:80]
+
+
+def breakdown(torch, fn, frames, iters=20):
+    """(wall ms/frame, busy ms/frame, {event: device ms/frame}) of fn()."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / (iters * frames)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = _short(e.name)
+            per[k] = per.get(k, 0.0) + e.device_time_total / 1e3 / (iters * frames)
+    return wall, sum(per.values()), dict(sorted(per.items(), key=lambda kv: -kv[1]))
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this run needs the card "
+             "and has no CPU fallback")
+    sys.path.insert(0, REPO)
+    try:
+        from sesr_tpu_torch.cli import serve, simulate
+        from sesr_tpu_torch.config import spec_for_task
+        from sesr_tpu_torch.data import SyntheticDataset
+        from sesr_tpu_torch.ops import _build
+        from sesr_tpu_torch.ops.fast import fast_forward
+        from sesr_tpu_torch.ops.kernels import (NET_KERNELS, fast_net,
+                                                pe_exact_net,
+                                                reset_launch_counts)
+        from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+        from sesr_tpu_torch.quant.integer import (dequantize_output,
+                                                  integer_forward,
+                                                  integer_forward_int8,
+                                                  quantize_input)
+        from sesr_tpu_torch.quant.params import QuantParams
+    except ImportError as e:
+        fail(f"the port is not next to this script ({e})")
+
+    # 1. the card
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    print(f"[1] card: {card} | torch: {name} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False       # the plain version's convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 2. build
+    t0 = time.perf_counter()
+    build = _build.build()
+    print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
+          f"(call {time.perf_counter() - t0:.1f} s)\n{build.log.strip()}", flush=True)
+
+    spec = spec_for_task(TASK)
+    qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
+    L = spec.num_convs
+    rng = np.random.default_rng(0)
+
+    # 3. kernels against their plain versions
+    modes = {"sesr_pe_exact_net": dict(corrected=False, compute="exact"),
+             "sesr_fast_net": dict(corrected=True, compute="fast")}
+    max_err = {k.symbol: 0.0 for k in NET_KERNELS}
+    # zero points off the shipped -128: a floored one (restoration and pads
+    # use -128, the fused bias the raw zero), odd and positive ones
+    odd = dataclasses.replace(qp, a_zero=[-120, -131, -100, 5, -127, -128])
+    cases = [(pe_exact_net, (1,) + FRAME, qp), (pe_exact_net, (1, 27, 45), qp),
+             (pe_exact_net, (2, 27, 45), odd), (fast_net, (1,) + FRAME, qp),
+             (fast_net, (1, 27, 45), qp), (fast_net, (2, 27, 45), odd),
+             (fast_net, (4,) + FRAME, qp)]
+    for kern, shape, cqp in cases:
+        label = f"{shape}{' odd zeros' if cqp is odd else ''}"
+        x = rng.random(shape + (spec.in_channels,), dtype=np.float32)
+        xt = torch.from_numpy(x).to(dev)
+        x_q = quantize_input(xt, cqp).to(torch.int8).contiguous()
+        out = kern(spec, cqp, x_q)
+        torch.cuda.synchronize()
+        _, dumps = integer_forward(spec, cqp, xt, collect_dumps=True, **modes[kern.symbol])
+        ref = dumps[f"input.{L}"].to(torch.int8)
+        err = float((dequantize_output(out, cqp) - dequantize_output(ref, cqp)).abs().max())
+        max_err[kern.symbol] = max(max_err[kern.symbol], err)
+        equal = torch.equal(out, ref)
+        print(f"[3] {kern.symbol} {label}: array_equal with plain (cuda) = {equal}, "
+              f"max_abs_err {err}", flush=True)
+        if not equal:
+            fail(f"{kern.symbol} disagrees with its plain version at {label}: "
+                 f"{int((out != ref).sum())} values differ")
+        if shape == (1, 27, 45):
+            # the whole wrapper on the card against the plain version on the CPU
+            if kern is pe_exact_net:
+                got = pe_exact_forward(spec, qp, xt).cpu()
+                want = integer_forward(spec, qp, x, device="cpu")[0]
+            else:
+                got = fast_forward(spec, qp, xt, out_dtype="int8").cpu()
+                want = integer_forward_int8(spec, qp, x, corrected=True,
+                                            compute="fast", device="cpu")
+            if not torch.equal(got, want):
+                fail(f"{kern.symbol} wrapper on cuda != plain version on cpu at {shape}")
+            print(f"[3] {kern.symbol} wrapper (cuda) == plain (cpu) at {shape}", flush=True)
+    # the other instantiations (1 input channel, 3 or 16 output channels,
+    # 8 convs) on the other shipped artifacts, small
+    for task in ("sr_x4", "nrdm_3", "nrdm_6"):
+        tspec = spec_for_task(task)
+        tqp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{task}.npz"))
+        x = torch.from_numpy(rng.random((2, 27, 45, tspec.in_channels),
+                                        dtype=np.float32)).to(dev)
+        x_q = quantize_input(x, tqp).to(torch.int8).contiguous()
+        for kern in NET_KERNELS:
+            if kern is fast_net and not tqp.fast_cert_ok:
+                continue
+            out = kern(tspec, tqp, x_q)
+            torch.cuda.synchronize()
+            _, dumps = integer_forward(tspec, tqp, x, collect_dumps=True,
+                                       **modes[kern.symbol])
+            if not torch.equal(out, dumps[f"input.{tspec.num_convs}"].to(torch.int8)):
+                fail(f"{kern.symbol} disagrees with its plain version on {task}")
+            print(f"[3] {kern.symbol} {task} (2, 27, 45): array_equal with plain (cuda)",
+                  flush=True)
+    small = SyntheticDataset(TASK, n=2)
+    r_gpu = serve(spec, qp, small, device="cuda")
+    r_cpu = serve(spec, qp, small, device="cpu")
+    if r_gpu.psnr != r_cpu.psnr or r_gpu.ssim != r_cpu.ssim:
+        fail(f"serve on cuda {r_gpu.psnr} != serve on cpu {r_cpu.psnr}")
+    print(f"[3] serve on cuda == serve on cpu on 2 synthetic 96x128 frames: "
+          f"psnr {r_gpu.psnr}", flush=True)
+
+    # 4. the main path, with the launch counters at 0
+    reset_launch_counts()
+    frames = SyntheticDataset(TASK, n=4, hw=(2 * FRAME[0], 2 * FRAME[1]))
+    r1 = serve(spec, qp, frames, batch=1, device="cuda")
+    k2_b1 = fast_net.launches
+    r4 = serve(spec, qp, frames, batch=4, device="cuda")
+    k2_b4 = fast_net.launches - k2_b1
+    sim = simulate(spec, qp, frames[0][0], device="cuda")
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in NET_KERNELS}
+    sim_frames = int(sim.y.shape[0])
+    per_frame = {"sesr_pe_exact_net": {"sim": launches["sesr_pe_exact_net"] / sim_frames},
+                 "sesr_fast_net": {"infer_batch1": k2_b1 / r1.n, "infer_batch4": k2_b4 / r4.n}}
+    print(f"[4] infer {r1.mode} batch 1: {r1.n} frames, mean psnr {r1.mean_psnr:.4f} "
+          f"ssim {r1.mean_ssim:.4f}, outputs {r1.out_shapes[0]}, forward "
+          f"{r1.forward_seconds / r1.n * 1e3:.3f} ms/frame; K2 launches {k2_b1}", flush=True)
+    print(f"[4] infer {r4.mode} batch 4: {r4.n} frames, mean psnr {r4.mean_psnr:.4f} "
+          f"ssim {r4.mean_ssim:.4f}, outputs {r4.out_shapes[0]}, forward "
+          f"{r4.forward_seconds / r4.n * 1e3:.3f} ms/frame; K2 launches {k2_b4}", flush=True)
+    print(f"[4] sim: output {tuple(sim.y.shape)} from {sim.source}; "
+          f"launches over the main path {launches}; per frame {per_frame}", flush=True)
+    if r1.mode != "fast":
+        fail(f"sr_x2 should serve the certified fast mode, got {r1.mode}")
+    if k2_b1 < 1 or k2_b4 < 1 or launches["sesr_pe_exact_net"] < 1:
+        fail(f"the main path did not go through both kernels: {launches}")
+    out_hw = (2 * FRAME[0], 2 * FRAME[1], 3)
+    if r1.out_shapes != [(1,) + out_hw] * 4 or r4.out_shapes != [(4,) + out_hw]:
+        fail(f"unexpected output shapes {r1.out_shapes} {r4.out_shapes}")
+    if not (r1.finite and r4.finite and bool(torch.isfinite(sim.y).all())):
+        fail("non-finite output")
+    if r1.psnr != r4.psnr:
+        fail(f"batch 4 scores {r4.psnr} differ from batch 1 {r1.psnr}")
+    if not r1.mean_psnr > 20.0:
+        fail(f"implausible sr_x2 psnr {r1.mean_psnr}")
+
+    # 5. timing at 540x960, batch 1
+    x = torch.from_numpy(rng.random((1,) + FRAME + (spec.in_channels,),
+                                    dtype=np.float32)).to(dev)
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    macs = sum(int(np.prod(w.shape)) for w in qp.w_int) * FRAME[0] * FRAME[1]
+    moved = (x_q.numel() + FRAME[0] * FRAME[1] * spec.conv_out_channels
+             + sum(int(np.prod(w.shape)) for w in qp.w_int))
+    t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S * 1e3, moved / BYTES_PER_S * 1e3
+    entries = []
+    for kern in NET_KERNELS:
+        ms = cuda_ms(torch, lambda: kern(spec, qp, x_q), iters=30, warmup=3)
+        plain_ms = cuda_ms(torch, lambda: integer_forward(spec, qp, x, **modes[kern.symbol]),
+                           iters=5, warmup=1)
+        entries.append(dict(
+            name=kern.symbol, route="cuda", source="sesr_tpu_torch/csrc/sesr_net.cu",
+            replaces=REPLACES[kern.symbol], launches=launches[kern.symbol],
+            launches_per_frame=per_frame[kern.symbol], max_abs_err=max_err[kern.symbol], ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None))
+        print(f"[5] {kern.symbol}: {ms:.4f} ms/frame (plain {plain_ms:.3f} ms), bound "
+              f"{max(t_ops, t_bytes) * 1e3:.3f} us = {2 * macs:.4g} int8 ops "
+              f"({t_ops * 1e3:.3f} us) vs {moved} bytes ({t_bytes * 1e3:.3f} us)", flush=True)
+    fwd_ms = cuda_ms(torch, lambda: fast_forward(spec, qp, x), iters=20, warmup=3)
+    print(f"[5] fast_forward end to end (quantize, K2, dequantize, shuffle): "
+          f"{fwd_ms:.4f} ms/frame", flush=True)
+
+    # 6. where a served frame's time goes
+    for batch in (1, 4):
+        x_np = rng.random((batch,) + FRAME + (spec.in_channels,), dtype=np.float32)
+        x = torch.from_numpy(x_np).to(dev)
+        windows = {"forward": lambda: fast_forward(spec, qp, x),
+                   "round trip": lambda: fast_forward(
+                       spec, qp, torch.from_numpy(x_np).to(dev)).cpu().numpy()}
+        for window, fn in windows.items():
+            wall, busy, per = breakdown(torch, fn, batch)
+            idle = f"{1.0 - busy / wall}" if busy else "not measured (no device events)"
+            print(f"[6] {window}, batch {batch}: wall {wall} ms/frame, device busy {busy} "
+                  f"ms/frame, idle share {idle}", flush=True)
+            for k, t in per.items():
+                print(f"[6]     {t:.4f} ms  {k}", flush=True)
+
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

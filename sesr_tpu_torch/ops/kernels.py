@@ -1,0 +1,93 @@
+"""ctypes wrappers of the two fused whole-network kernels of
+``csrc/sesr_net.cu``, each with its launch counter.
+
+``pe_exact_net``  replaces sesr_tpu/ops/pallas_pipeline.py build_pallas_forward
+``fast_net``      replaces sesr_tpu/ops/pallas_packed.py build_pallas_packed_forward
+
+A wrapper takes the quantized int8 input on the card and returns the int8
+output of the last conv (before the pixel shuffle); ``ops/pe_exact.py``
+and ``ops/fast.py`` put the quantization, dequantization and shuffle
+around it. The kernel is built (nvcc, at first use) and launched on
+PyTorch's current stream; the wrapper raises if the launch is refused.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sesr_tpu_torch.config import SESRSpec
+from sesr_tpu_torch.convert import device_constants
+from sesr_tpu_torch.ops import _build
+from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
+from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
+from sesr_tpu_torch.quant.params import QuantParams
+
+# output tile (rows, columns; columns even) of one thread block: 86.5 KB of
+# shared memory for sr_x2, so two blocks share an SM (csrc/sesr_net.cu
+# smem_plan)
+TILE = (16, 32)
+OUT_DTYPES = ("f32", "int8")
+
+
+class NetKernel:
+    """One entry point of the kernels' library. ``launches`` counts the
+    launches this wrapper made."""
+
+    def __init__(self, symbol: str, exact: bool):
+        self.symbol = symbol
+        self.exact = exact
+        self.launches = 0
+
+    def __call__(self, spec: SESRSpec, qp: QuantParams,
+                 x_q: torch.Tensor) -> torch.Tensor:
+        """x_q: int8 (N, H, W, C_in) contiguous on a CUDA device. Returns the
+        int8 (N, H, W, C_out) output of the last conv."""
+        if x_q.device.type != "cuda":
+            raise ValueError(f"{self.symbol} runs on a CUDA tensor, got {x_q.device}")
+        if x_q.dtype != torch.int8 or x_q.dim() != 4 \
+                or x_q.shape[3] != spec.in_channels or not x_q.is_contiguous():
+            raise ValueError(f"{self.symbol} takes a contiguous int8 (N, H, W, "
+                             f"{spec.in_channels}) tensor, got {x_q.dtype} "
+                             f"{tuple(x_q.shape)}")
+        kc, weights, params = device_constants(spec, qp, self.exact, x_q.device)
+        n, h, w, _ = x_q.shape
+        out = torch.empty((n, h, w, kc.out_channels), dtype=torch.int8,
+                          device=x_q.device)
+        if out.numel() == 0:
+            return out
+        lib = _build.load()
+        with torch.cuda.device(x_q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(lib, self.symbol)(
+                x_q.data_ptr(), out.data_ptr(), weights.data_ptr(),
+                params.data_ptr(), n, h, w, kc.num_layers, kc.in_channels,
+                kc.out_channels, *TILE, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: "
+                               f"{lib.sesr_error_string(err).decode()} ({err})")
+        self.launches += 1
+        return out
+
+
+pe_exact_net = NetKernel("sesr_pe_exact_net", exact=True)
+fast_net = NetKernel("sesr_fast_net", exact=False)
+NET_KERNELS = (pe_exact_net, fast_net)
+
+
+def reset_launch_counts() -> None:
+    for k in NET_KERNELS:
+        k.launches = 0
+
+
+def run_net(kernel: NetKernel, spec: SESRSpec, qp: QuantParams,
+            x: torch.Tensor, out_dtype: str = "f32") -> torch.Tensor:
+    """Quantize x (NHWC float on a CUDA device), launch ``kernel``, and
+    return the output in the ``out_dtype`` contract: dequantized float32
+    ("f32") or the raw int8 image ("int8"), pixel-shuffled."""
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    y = kernel(spec, qp, x_q)
+    if out_dtype == "f32":
+        y = dequantize_output(y, qp)
+    if spec.has_pixel_shuffle:
+        y = pixel_shuffle_nhwc(y, spec.scaling_factor)
+    return y

@@ -1,0 +1,155 @@
+"""The port's sr_x2 slice end to end on the CPU: ``infer`` (serve) and
+``sim`` (simulate) against the JAX package, the import boundary of the
+port and of chip_smoke.py, and chip_smoke.py refusing to run without a
+card or without the repository around it."""
+
+import ast
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sesr_tpu import cli as jcli
+from sesr_tpu.config import spec_for_task as jspec_for_task
+from sesr_tpu.data.datasets import SyntheticDataset as JSyntheticDataset
+from sesr_tpu.metrics import evaluate_pair as jevaluate_pair
+from sesr_tpu.quant.integer import integer_forward as jinteger_forward
+from sesr_tpu.quant.params import QuantParams as JQuantParams
+from sesr_tpu_torch import cli, metrics
+from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.data import SyntheticDataset
+from sesr_tpu_torch.ops.fast import fast_forward
+from sesr_tpu_torch.quant.params import QuantParams
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+QP = os.path.join(REPO, "artifacts", "qparams_sr_x2.npz")
+FORBIDDEN = {"jax", "jaxlib", "sesr_tpu"}
+
+
+def _psnr_line(text):
+    m = re.search(r"mean psnr: (\S+)\s+ssim: (\S+)\s+\((\d+) images\)", text)
+    return m.groups()
+
+
+def test_synthetic_data_and_metrics_match_jax():
+    for task in ("sr_x2", "sr_x4"):
+        for (i_t, g_t), (i_j, g_j) in zip(SyntheticDataset(task, n=2),
+                                          JSyntheticDataset(task, n=2)):
+            np.testing.assert_array_equal(i_t, i_j)
+            np.testing.assert_array_equal(g_t, g_j)
+    with pytest.raises(NotImplementedError, match="Bayer"):
+        SyntheticDataset("nr", n=1)[0]
+    rng = np.random.default_rng(2)
+    gt = rng.random((32, 48, 3))
+    pred = np.clip(gt + rng.normal(0, 0.05, gt.shape), -0.1, 1.1)
+    inp = 0.1 * gt[::2, ::2]                # the sr_x2 global skip's input
+    for task in ("sr_x2", "sr_x4", "nr", "dm", "nrdm_3"):
+        p, g = (pred[:, :, :1], gt[:, :, :1]) if task == "sr_x4" else (pred, gt)
+        kw = {"inp_hwc": inp} if task == "sr_x2" else {}
+        assert metrics.evaluate_pair(task, p, g, **kw) == \
+            jevaluate_pair(task, p, g, **kw), task
+
+
+def test_serve_matches_jax_fast_path():
+    """The dequantized outputs serve() scores are array-equal to the JAX
+    certified fast interpreter's, and so are the scores."""
+    spec, jspec = spec_for_task("sr_x2"), jspec_for_task("sr_x2")
+    qp, jqp = QuantParams.load(QP), JQuantParams.load(QP)
+    data = list(SyntheticDataset("sr_x2", n=3))
+    res = cli.serve(spec, qp, data, batch=2, device="cpu")
+    assert res.mode == "fast" and res.finite and res.n == 3
+    assert res.out_shapes == [(2, 96, 128, 3), (1, 96, 128, 3)]
+    want_p = []
+    for inp, gt in data:
+        y_j, _ = jinteger_forward(jspec, jqp, jnp.asarray(inp), corrected=True,
+                                  compute="fast")
+        y_t = fast_forward(spec, qp, inp, device="cpu")
+        np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+        want_p.append(jevaluate_pair("sr_x2", np.asarray(y_j)[0], gt[0], inp[0]))
+    assert [(p, s) for p, s in zip(res.psnr, res.ssim)] == want_p
+    res8 = cli.serve(spec, qp, data, batch=1, out_dtype="int8", device="cpu")
+    assert res8.psnr == res.psnr and res8.ssim == res.ssim
+
+
+def test_infer_command_prints_the_jax_scores(capsys):
+    cli.main(["infer", "--task", "sr_x2", "--qparams", QP, "--n-images", "2",
+              "--device", "cpu"])
+    port = capsys.readouterr().out
+    assert port.startswith("sr_x2 cpu(fast) mean psnr")
+    jcli.main(["infer", "--task", "sr_x2", "--qparams", QP, "--n-images", "2"])
+    jax_out = capsys.readouterr().out
+    assert _psnr_line(port) == _psnr_line(jax_out)
+
+
+def test_sim_command_matches_jax_reference(tmp_path, capsys):
+    spec, jspec = spec_for_task("sr_x2"), jspec_for_task("sr_x2")
+    jqp = JQuantParams.load(QP)
+    x = np.random.default_rng(9).random((1, 30, 44, 3), dtype=np.float32)
+    np.save(tmp_path / "x.npy", x)
+    res = cli.main(["sim", "--task", "sr_x2", "--qparams", QP, "--fixture",
+                    str(tmp_path / "x.npy"), "--dump-dir", str(tmp_path / "d"),
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "plain interpreter on cpu" in out and "overflow counts" in out
+    y_j, d_j = jinteger_forward(jspec, jqp, jnp.asarray(x), collect_dumps=True)
+    np.testing.assert_array_equal(res.y.numpy(), np.asarray(y_j))
+    assert res.matches_plain is True
+    assert res.overflow_counts == [int(v) for v in d_j["overflow_counts"]]
+    saved = np.load(tmp_path / "d" / "dumps.npz")
+    for k in d_j:
+        np.testing.assert_array_equal(saved[k], np.asarray(d_j[k]), err_msg=k)
+    # without a dump dir nothing but the forward runs
+    res2 = cli.simulate(spec, QuantParams.load(QP), x, device="cpu")
+    assert res2.overflow_counts is None and torch.equal(res2.y, res.y)
+    cli.main(["sim", "--task", "sr_x2", "--qparams", QP, "--device", "cpu"])
+    assert "not computed" in capsys.readouterr().out
+
+
+def test_import_boundary():
+    code = ("import sys, sesr_tpu_torch, sesr_tpu_torch.cli, sesr_tpu_torch.convert, "
+            "sesr_tpu_torch.__main__\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "print(bad)\n"
+            "assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_import_neither_jax_nor_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "sesr_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        assert not (_imported_roots(path) & FORBIDDEN), path
+    assert "sesr_tpu_torch" in _imported_roots(os.path.join(REPO, "chip_smoke.py"))
+
+
+def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for script, cwd in ((os.path.join(REPO, "chip_smoke.py"), REPO),
+                        (str(alone), str(tmp_path))):
+        res = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout

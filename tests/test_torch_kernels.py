@@ -1,0 +1,238 @@
+"""The two fused kernels' Python side: their plain paths against the JAX
+package's Pallas kernels (interpret mode, as tests/test_pallas.py and
+tests/test_packed_pallas.py run them), the weights carried across by
+sesr_tpu_torch/convert.py, the kernels' packed constants, and the
+wrappers' device rule: a CPU tensor takes the plain path and builds
+nothing; any other device never falls back to it. The kernels themselves
+are held against their plain versions on the card by chip_smoke.py."""
+
+import dataclasses
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sesr_tpu.config import spec_for_task as jspec_for_task
+from sesr_tpu.ops.packed import packed_hybrid_forward, select_packed_forward
+from sesr_tpu.ops.pallas_packed import build_pallas_packed_forward
+from sesr_tpu.ops.pallas_pipeline import build_pallas_forward
+from sesr_tpu.quant.params import QuantParams as JQuantParams
+from sesr_tpu_torch import convert, deploy
+from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.ops import _build, kernels
+from sesr_tpu_torch.ops.fast import fast_forward
+from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+from sesr_tpu_torch.quant.params import QuantParams
+from tests.test_integer_bitexact import _golden_qparams, _load_golden
+from tests.test_torch_params import ARTIFACTS, _same
+
+ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
+
+
+def _carry(jqp):
+    fields = {f.name: getattr(jqp, f.name) for f in dataclasses.fields(jqp)}
+    return convert.quantparams_from_fields(fields)
+
+
+def _artifact(task):
+    path = os.path.join(ARTIFACT_DIR, f"qparams_{task}.npz")
+    return QuantParams.load(path), JQuantParams.load(path)
+
+
+@pytest.mark.parametrize("task,hw", [("sr_x2", (40, 72)), ("sr_x4", (40, 72)),
+                                     ("nrdm_3", (40, 72)), ("nrdm_3", (27, 45))])
+def test_pe_exact_plain_matches_pallas(task, hw):
+    g = _load_golden(task)
+    jspec, _, jqp = _golden_qparams(task, g)
+    x = np.random.default_rng(1234).random((1,) + hw + (jspec.in_channels,),
+                                           dtype=np.float32)
+    want = build_pallas_forward(jspec, jqp, *hw, tile_h=16, tile_w=32,
+                                interpret=True)(jnp.asarray(x))
+    got = pe_exact_forward(spec_for_task(task), _carry(jqp), x, device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("task,batch,hw", [("sr_x2", 1, (40, 72)),
+                                           ("sr_x4", 1, (40, 72)),
+                                           ("sr_x2", 3, (32, 48))])
+def test_fast_plain_matches_pallas(task, batch, hw):
+    qp, jqp = _artifact(task)
+    spec = spec_for_task(task)
+    x = np.random.default_rng(11).random((batch,) + hw + (spec.in_channels,),
+                                         dtype=np.float32)
+    want = build_pallas_packed_forward(jspec_for_task(task), jqp, *hw, tile_h=16,
+                                       tile_w=24, batch=batch,
+                                       interpret=True)(jnp.asarray(x))
+    got = fast_forward(spec, qp, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the int8 contract: the raw quantized image, dequantized by the consumer
+    q = fast_forward(spec, qp, torch.from_numpy(x), out_dtype="int8")
+    assert q.dtype == torch.int8 and q.shape == got.shape
+    L = spec.num_convs
+    deq = (q.numpy().astype(np.float32) - np.float32(qp.a_zero[L])) \
+        * np.float32(qp.a_scale[L])
+    np.testing.assert_array_equal(deq, np.asarray(want))
+
+
+def test_fast_refuses_uncertified():
+    qp, _ = _artifact("sr_x2")
+    bad = dataclasses.replace(qp, fast_cert_ok=False)
+    with pytest.raises(ValueError, match="certified"):
+        fast_forward(spec_for_task("sr_x2"), bad, np.zeros((1, 8, 8, 3), np.float32),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("path", ARTIFACTS, ids=os.path.basename)
+def test_convert_carries_jax_quantparams(path):
+    jqp = JQuantParams.load(path)
+    _same(_carry(jqp), QuantParams.load(path))
+
+
+def test_convert_carries_golden_quantparams():
+    _, _, jqp = _golden_qparams("sr_x2", _load_golden("sr_x2"))
+    qp = _carry(jqp)
+    _same(qp, jqp)
+    hw = {f.name: getattr(jqp.hw, f.name) for f in dataclasses.fields(jqp.hw)}
+    fields = {f.name: getattr(jqp, f.name) for f in dataclasses.fields(jqp)}
+    _same(convert.quantparams_from_fields({**fields, "hw": hw}), jqp)
+
+
+def _unpack(words):
+    """int32 words -> (..., 4) signed bytes."""
+    return np.ascontiguousarray(words, np.int32).view(np.int8).reshape(words.shape + (4,))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_kernel_constants_layout(exact):
+    """Every weight of every layer sits once in the packed words, in the byte
+    where the activation word holds its input channel; the per-pass
+    channel sets are the PE round-robin where the kernel clamps per PE."""
+    task = "sr_x2"
+    spec, (qp, _) = spec_for_task(task), _artifact(task)
+    kc = convert.kernel_constants(spec, qp, exact)
+    lay = convert.PARAM_LAYOUT
+    assert kc.params.shape == (convert.PARAM_WORDS,)
+    assert (kc.num_layers, kc.in_channels, kc.out_channels) == (5, 3, 12)
+    offsets = list(kc.params[lay["w_off"]: lay["w_off"] + 5]) + [kc.weights.size]
+    for i, w in enumerate(qp.w_int):
+        k, _, ic, oc = w.shape
+        ocp = -(-oc // 4) * 4
+        assert offsets[i] % 4 == 0
+        chunk = kc.weights[offsets[i]: offsets[i + 1]]
+        b = _unpack(chunk.reshape(-1, k * k, ocp))           # (pass, tap, ocp, 4)
+        taps = w.reshape(k * k, ic, oc)
+        rebuilt = np.zeros_like(taps)
+        for g in range(b.shape[0]):
+            # a 16-channel pass reads word g: channels g, g+4, g+8, g+12
+            for c in (range(ic) if ic <= 4 else range(g, ic, 4)):
+                rebuilt[:, c, :] += b[g, :, :oc, c if ic <= 4 else c // 4]
+        np.testing.assert_array_equal(rebuilt, taps, err_msg=f"layer {i}")
+        assert not b[:, :, oc:, :].any()
+        n_pass = ic if (exact and ic <= 4) else (4 if ic > 4 else 1)
+        assert b.shape[0] == n_pass
+        if ic <= 4 and exact:                # one PE's channel per pass
+            for g in range(ic):
+                assert not np.delete(b[g], g, axis=-1).any()
+        bias = kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc]
+        zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc]
+        if exact:
+            np.testing.assert_array_equal(bias, qp.fused_bias(i))
+            assert not zc.any()
+        else:
+            np.testing.assert_array_equal(bias, np.clip(qp.bias_int[i], -32768, 32767))
+            np.testing.assert_array_equal(zc, qp.effective_zero(i) * w.sum(axis=(0, 1, 2)))
+        assert kc.params[lay["z_eff"] + i] == qp.effective_zero(i)
+        assert kc.params[lay["z_in"]: lay["z_in"] + 8].view(np.float32)[i] == qp.a_zero[i]
+        m_f, p_f = kc.params[[lay["rq_m"] + i, lay["rq_p"] + i]].view(np.float32)
+        assert (m_f, p_f) == (np.float32(qp.requant_m[i]),
+                              np.float32(2.0 ** -qp.requant_n[i]))
+    assert kc.params[lay["acc_hi"]] == 2 ** 17 - 1
+    assert kc.params[lay["add_hi"]] == 2 ** 19 - 1
+
+
+def test_kernel_constants_refuse_what_the_kernels_cannot_run():
+    spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
+    az = list(qp.a_zero)
+    az[2] = 200                                  # z_eff does not fit the int8 pads
+    with pytest.raises(NotImplementedError, match="does not fit int8"):
+        convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), True)
+    with pytest.raises(NotImplementedError, match="pe=4"):
+        convert.kernel_constants(spec, dataclasses.replace(
+            qp, hw=dataclasses.replace(qp.hw, pe=2)), True)
+    wide = dataclasses.replace(spec, num_lblocks=7)
+    with pytest.raises(NotImplementedError, match="outside"):
+        convert.kernel_constants(wide, qp, False)
+    for task in ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4"):
+        tspec, (tqp, _) = spec_for_task(task), _artifact(task)
+        for exact in (True, False):
+            convert.kernel_constants(tspec, tqp, exact)
+
+
+def test_device_constants_cached_per_instance():
+    spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
+    a = convert.device_constants(spec, qp, True, torch.device("cpu"))
+    assert convert.device_constants(spec, qp, True, torch.device("cpu")) is a
+    copy = dataclasses.replace(qp)
+    assert convert.device_constants(spec, copy, True, torch.device("cpu")) is not a
+    assert a[1].dtype == a[2].dtype == torch.int32
+
+
+def test_cpu_tensors_take_the_plain_path_without_building(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU call reached the kernel build")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "find_nvcc", refuse)
+    kernels.reset_launch_counts()
+    spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 12, 20, 3),
+                                                         dtype=np.float32))
+    assert pe_exact_forward(spec, qp, x).shape == (1, 24, 40, 3)
+    assert fast_forward(spec, qp, x, out_dtype="int8").dtype == torch.int8
+    for task in ("sr_x2", "nr"):                 # fast, hybrid
+        tqp, _ = _artifact(task)
+        _, fn = deploy.select_forward(tqp)
+        fn(spec_for_task(task), tqp, torch.zeros((1, 12, 20, 3)))
+    assert [k.launches for k in kernels.NET_KERNELS] == [0, 0]
+    assert "triton" not in sys.modules
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.fast_net(spec, qp, torch.zeros((1, 8, 8, 3), dtype=torch.int8))
+
+
+def test_other_devices_never_fall_back():
+    spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
+    nr_qp, _ = _artifact("nr")
+    x = torch.zeros((1, 8, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pe_exact_forward(spec, qp, x)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fast_forward(spec, qp, x)
+    mode, fn = deploy.select_forward(nr_qp)
+    assert mode == "hybrid"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fn(spec_for_task("nr"), nr_qp, x)
+
+
+@pytest.mark.parametrize("path", ARTIFACTS, ids=os.path.basename)
+def test_select_forward_matches_jax(path):
+    mode, _ = deploy.select_forward(QuantParams.load(path))
+    assert mode == select_packed_forward(JQuantParams.load(path))[0]
+
+
+def test_hybrid_plain_matches_jax_hybrid():
+    qp, jqp = _artifact("nr")
+    x = np.random.default_rng(5).random((1, 24, 40, 3), dtype=np.float32)
+    mode, fn = deploy.select_forward(qp)
+    want = packed_hybrid_forward(jspec_for_task("nr"), jqp, jnp.asarray(x))
+    np.testing.assert_array_equal(fn(spec_for_task("nr"), qp, x, device="cpu").numpy(),
+                                  np.asarray(want))
+    exact = dataclasses.replace(qp, fast_cert_layers=None)
+    mode, fn = deploy.select_forward(exact)
+    assert mode == "pe-exact"
+    np.testing.assert_array_equal(fn(spec_for_task("nr"), exact, x, device="cpu").numpy(),
+                                  np.asarray(want))
