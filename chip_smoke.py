@@ -9,17 +9,23 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 1. the card: nvidia-smi's name and power limit, torch's device name;
 2. build the fused kernels from csrc/ (nvcc), with the -Xptxas -v report;
 3. each kernel against its plain PyTorch version on numpy-seeded inputs:
-   K1 (sesr_pe_exact_net) and K2 (sesr_fast_net) at 540x960 and 27x45,
-   K2 at batch 4, both at 27x45 with zero points off the shipped -128,
-   and on the sr_x4, nrdm_3 and nrdm_6 artifacts at 27x45; the int8
-   outputs must be equal;
+   K1 (sesr_pe_exact_net) and K2 (sesr_fast_net) at 540x960, 27x45 and a
+   ragged 37x53 at batch 2, K2 at batch 4, both at 27x45 with zero points
+   off the shipped -128, both with two convs' weights at +-127 so that
+   the clamps fire (K1's 18-bit per-PE clamp; K2's 20-bit clamp), and on
+   the sr_x4, nrdm_3, nrdm_6 and dm artifacts at 27x45; the int8 outputs
+   must be equal;
 4. the main path with the launch counters set to 0: ``serve`` (behind
    ``infer``) on four synthetic 540x960 -> 1080x1920 frames at batch 1
    and batch 4, then ``simulate`` (behind ``sim``) on one 540x960 frame;
    both kernels must have launched;
-5. CUDA-event timings at 540x960 of each kernel and its plain version,
-   against the least time the card could take (int8 operations at
-   1,979 TOP/s, or bytes at 3.35 TB/s, whichever is larger);
+5. CUDA-event timings at 540x960 of each kernel at every tile of the
+   sweep (each tile's output equal to the shipped tile's) and of its
+   plain version, against the least time the card could take (int8
+   operations at 1,979 TOP/s, or bytes at 3.35 TB/s, whichever is
+   larger); each tile's registers and shared memory as CUPTI reports them
+   (torch.profiler), and its tensor-core MMAs per frame as computed from
+   the tile geometry;
 6. where a served frame's time goes, at batch 1 and 4: the forward on an
    input already on the card, and the round trip from a numpy input to a
    numpy output; wall ms/frame by CUDA events, device ms/frame of every
@@ -45,6 +51,7 @@ INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238"}
+TILE_SWEEP = ((16, 32), (24, 32), (32, 32), (16, 64), (24, 48), (32, 64))
 
 
 def fail(msg):
@@ -93,6 +100,54 @@ def _short(name):
     return name[:80]
 
 
+def mma_count(spec, pe_split, n, h, w, tile):
+    """mma.sync instructions (m16n8k32) one launch issues over an (n, h, w)
+    input, computed from the tile geometry of conv_layer in
+    sesr_tpu_torch/csrc/sesr_net.cu (the card does not count them): per
+    block and layer, the layer's output extent (the tile and the halo of
+    the convs after it) cut into sixteens, times the passes and k32 chunks
+    of its implicit GEMM and its n-tiles of 8 output channels.
+    ``pe_split``: per layer, one pass per PE (KernelConstants.pe_split)."""
+    from sesr_tpu_torch.convert import layer_geometry
+
+    th, tw = tile
+    L = spec.num_convs
+    per_block = 0
+    for i, k in enumerate(spec.kernel_sizes):
+        ic = spec.in_channels if i == 0 else spec.num_channels
+        oc = spec.conv_out_channels if i == L - 1 else spec.num_channels
+        passes, chunks, _ = layer_geometry(k, ic, pe_split[i])
+        r = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
+        rows = -(-(th + 2 * r) * (tw + 2 * r) // 16)
+        per_block += rows * passes * chunks * -(-oc // 8)
+    return per_block * n * -(-h // th) * -(-w // tw)
+
+
+def launch_attrs(torch, launches):
+    """{key: (registers per thread, shared memory bytes per block)} of the
+    one fused-kernel launch each fn of ``launches`` ({key: fn}) makes, as
+    CUPTI reports them in torch.profiler's trace; (None, None) where the
+    trace does not hold them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in launches.values():
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(REPO, "build", "chip_smoke_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.unlink(path)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and "sesr_net_kernel" in e.get("name", "")), key=lambda e: e["ts"])
+    if len(kernels) != len(launches):
+        return {key: (None, None) for key in launches}
+    return {key: (e.get("args", {}).get("registers per thread"),
+                  e.get("args", {}).get("shared memory"))
+            for key, e in zip(launches, kernels)}
+
+
 def breakdown(torch, fn, frames, iters=20):
     """(wall ms/frame, busy ms/frame, {event: device ms/frame}) of fn()."""
     for _ in range(3):
@@ -128,12 +183,12 @@ def main():
     try:
         from sesr_tpu_torch.cli import serve, simulate
         from sesr_tpu_torch.config import spec_for_task
+        from sesr_tpu_torch.convert import kernel_constants
         from sesr_tpu_torch.data import SyntheticDataset
         from sesr_tpu_torch.ops import _build
         from sesr_tpu_torch.ops.fast import fast_forward
-        from sesr_tpu_torch.ops.kernels import (NET_KERNELS, fast_net,
-                                                pe_exact_net,
-                                                reset_launch_counts)
+        from sesr_tpu_torch.ops.kernels import (NET_KERNELS, TILE, fast_net,
+                                                pe_exact_net, reset_launch_counts)
         from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
         from sesr_tpu_torch.quant.integer import (dequantize_output,
                                                   integer_forward,
@@ -170,12 +225,22 @@ def main():
     # zero points off the shipped -128: a floored one (restoration and pads
     # use -128, the fused bias the raw zero), odd and positive ones
     odd = dataclasses.replace(qp, a_zero=[-120, -131, -100, 5, -127, -128])
+    # convs 1 and 4 with weights at +-127: K1's 18-bit per-PE clamp fires (its
+    # 20-bit clamp cannot: 4 x (2^17 - 1) < 2^19 - 1), and so does K2's 20-bit
+    # one; both kernels then run those convs in their clamping form
+    w_sat = list(qp.w_int)
+    for i in (1, 4):
+        w_sat[i] = np.where(np.asarray(w_sat[i]) >= 0, 127, -127).astype(np.asarray(w_sat[i]).dtype)
+    sat = dataclasses.replace(qp, w_int=w_sat)
+    ragged = (2, 37, 53)                     # no multiple of 16 or of a tile
     cases = [(pe_exact_net, (1,) + FRAME, qp), (pe_exact_net, (1, 27, 45), qp),
-             (pe_exact_net, (2, 27, 45), odd), (fast_net, (1,) + FRAME, qp),
-             (fast_net, (1, 27, 45), qp), (fast_net, (2, 27, 45), odd),
+             (pe_exact_net, ragged, qp), (pe_exact_net, (2, 27, 45), odd),
+             (pe_exact_net, (1, 27, 45), sat), (fast_net, (1,) + FRAME, qp),
+             (fast_net, (1, 27, 45), qp), (fast_net, ragged, qp),
+             (fast_net, (2, 27, 45), odd), (fast_net, (1, 27, 45), sat),
              (fast_net, (4,) + FRAME, qp)]
     for kern, shape, cqp in cases:
-        label = f"{shape}{' odd zeros' if cqp is odd else ''}"
+        label = f"{shape}{' odd zeros' if cqp is odd else ' saturating' if cqp is sat else ''}"
         x = rng.random(shape + (spec.in_channels,), dtype=np.float32)
         xt = torch.from_numpy(x).to(dev)
         x_q = quantize_input(xt, cqp).to(torch.int8).contiguous()
@@ -191,7 +256,17 @@ def main():
         if not equal:
             fail(f"{kern.symbol} disagrees with its plain version at {label}: "
                  f"{int((out != ref).sum())} values differ")
-        if shape == (1, 27, 45):
+        if cqp is sat:
+            add_hi = 2 ** (qp.hw.pe_add_bits - 1) - 1
+            at_20 = int(((dumps["pe_add.1"] == add_hi) | (dumps["pe_add.1"] == -add_hi - 1)).sum())
+            ovf18, ovf20 = dumps["overflow_18"].tolist(), dumps["overflow_20"].tolist()
+            print(f"[3]     plain dumps: overflow_18 {ovf18}, overflow_20 {ovf20}, "
+                  f"layer-1 sums at the 20-bit clamp {at_20}", flush=True)
+            if kern is pe_exact_net and not ovf18[1] > 0:
+                fail("the saturating case did not fire K1's 18-bit clamp")
+            if kern is fast_net and not at_20 > 0:
+                fail("the saturating case did not fire K2's 20-bit clamp")
+        if shape == (1, 27, 45) and cqp is qp:
             # the whole wrapper on the card against the plain version on the CPU
             if kern is pe_exact_net:
                 got = pe_exact_forward(spec, qp, xt).cpu()
@@ -204,8 +279,9 @@ def main():
                 fail(f"{kern.symbol} wrapper on cuda != plain version on cpu at {shape}")
             print(f"[3] {kern.symbol} wrapper (cuda) == plain (cpu) at {shape}", flush=True)
     # the other instantiations (1 input channel, 3 or 16 output channels,
-    # 8 convs) on the other shipped artifacts, small
-    for task in ("sr_x4", "nrdm_3", "nrdm_6"):
+    # 8 convs) and forms (dm and nrdm_6: K1 per PE on conv 0; dm: K2's
+    # 20-bit clamp on its last conv) on the other shipped artifacts, small
+    for task in ("sr_x4", "nrdm_3", "nrdm_6", "dm"):
         tspec = spec_for_task(task)
         tqp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{task}.npz"))
         x = torch.from_numpy(rng.random((2, 27, 45, tspec.in_channels),
@@ -275,18 +351,37 @@ def main():
     t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S * 1e3, moved / BYTES_PER_S * 1e3
     entries = []
     for kern in NET_KERNELS:
+        split = kernel_constants(spec, qp, kern is pe_exact_net).pe_split
+        ref = kern(spec, qp, x_q)
+        attrs = launch_attrs(torch, {tile: (lambda t=tile: kern(spec, qp, x_q, tile=t))
+                                     for tile in TILE_SWEEP})
+        for tile in TILE_SWEEP:
+            if not torch.equal(kern(spec, qp, x_q, tile=tile), ref):
+                fail(f"{kern.symbol} at tile {tile} differs from tile {TILE}")
+            tile_ms = cuda_ms(torch, lambda: kern(spec, qp, x_q, tile=tile), iters=30, warmup=3)
+            regs, smem = attrs[tile]
+            print(f"[5] {kern.symbol} tile {tile[0]}x{tile[1]}: {tile_ms:.4f} ms/frame; "
+                  f"CUPTI: {regs if regs is not None else 'not measured'} registers per "
+                  f"thread, {smem if smem is not None else 'not measured'} B shared memory "
+                  f"per block; {mma_count(spec, split, 1, *FRAME, tile)} MMAs per frame "
+                  f"(computed from the tile geometry)", flush=True)
         ms = cuda_ms(torch, lambda: kern(spec, qp, x_q), iters=30, warmup=3)
         plain_ms = cuda_ms(torch, lambda: integer_forward(spec, qp, x, **modes[kern.symbol]),
                            iters=5, warmup=1)
+        mmas = mma_count(spec, split, 1, *FRAME, TILE)
         entries.append(dict(
             name=kern.symbol, route="cuda", source="sesr_tpu_torch/csrc/sesr_net.cu",
             replaces=REPLACES[kern.symbol], launches=launches[kern.symbol],
             launches_per_frame=per_frame[kern.symbol], max_abs_err=max_err[kern.symbol], ms=ms,
             plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None))
-        print(f"[5] {kern.symbol}: {ms:.4f} ms/frame (plain {plain_ms:.3f} ms), bound "
-              f"{max(t_ops, t_bytes) * 1e3:.3f} us = {2 * macs:.4g} int8 ops "
-              f"({t_ops * 1e3:.3f} us) vs {moved} bytes ({t_bytes * 1e3:.3f} us)", flush=True)
+        print(f"[5] {kern.symbol}: {ms:.4f} ms/frame at tile {TILE[0]}x{TILE[1]}, per-PE "
+              f"passes on convs {[i for i in range(L) if split[i]]} (plain {plain_ms:.3f} "
+              f"ms); computed from the tile geometry: {mmas} MMAs "
+              f"({mmas * 16 * 8 * 32:.4g} tensor-core MACs); "
+              f"bound {max(t_ops, t_bytes) * 1e3:.3f} us = {2 * macs:.4g} int8 ops "
+              f"({t_ops * 1e3:.3f} us) vs {moved} bytes ({t_bytes * 1e3:.3f} us), "
+              f"share of bound {max(t_ops, t_bytes) / ms:.4f}", flush=True)
     fwd_ms = cuda_ms(torch, lambda: fast_forward(spec, qp, x), iters=20, warmup=3)
     print(f"[5] fast_forward end to end (quantize, K2, dequantize, shuffle): "
           f"{fwd_ms:.4f} ms/frame", flush=True)

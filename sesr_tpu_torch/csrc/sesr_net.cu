@@ -1,8 +1,8 @@
 // Fused whole-network SESR inference on Hopper (sm_90a): one thread block
 // runs every conv of the collapsed network over one output tile of one
 // frame, with all intermediates in shared memory. Device memory sees one
-// int8 read of the input tile (with its halo) and one int8 write of the
-// output tile.
+// int8 read of the input tile (with its halo), the weights, and one int8
+// write of the output tile.
 //
 // Replaces the two Pallas TPU kernels of the JAX package:
 //   sesr_pe_exact_net  <- sesr_tpu/ops/pallas_pipeline.py build_pallas_forward
@@ -15,33 +15,54 @@
 // What bounds it on this card: operations. sr_x2 needs 12,912 int8 MACs per
 // input pixel against 15 bytes of device traffic, far above the H100's
 // ratio of int8 tensor-core rate to memory rate, so the floor is the int8
-// rate. This first version runs on the CUDA cores (__dp4a, 4 MACs per
-// instruction; no tensor cores), so it sits far above that floor; a later
-// version moves the convs onto wgmma. What the design does about the bound:
-//   - activations stay int8 from layer to layer: each layer's epilogue
-//     applies the next layer's domain-in (round, zero add, int8 clamp) so
-//     the next conv reads raw q packed four channels to a 32-bit word, the
-//     operand form of __dp4a;
+// tensor-core rate. What the design does about the bound:
+//   - every conv is an implicit GEMM on the int8 tensor cores
+//     (mma.sync.m16n8k32 s8 x s8 -> s32, exact int32 sums): a row of A is
+//     one pixel of the layer's output extent (the extent flattened and cut
+//     into sixteens, the tail masked), k runs over (tap, input byte), n
+//     over output channels. Padded taps carry zero weights;
+//   - two forms of a layer. One pass over all channels, k = (tap, word,
+//     byte), 2 taps per k32 chunk: K2 everywhere, and K1 wherever convert.py
+//     proves from the weights that no PE's 18-bit clamp can fire (then the
+//     sum of the clamped PE sums is the full sum). One pass per PE, k =
+//     (tap, byte of word p), 8 taps per chunk, each PE's sum clamped to 18
+//     bits before adding: K1 on the other layers. Layer 0 (one word of <= 4
+//     channels) takes 8 taps per chunk, once per input channel when split.
+//     K2's 20-bit clamp runs only where it can fire; K1's never can;
+//   - activations stay int8 from layer to layer, packed four channels to a
+//     32-bit word: word p of a 16-channel pixel holds channels p, p+4, p+8,
+//     p+12 (PE p's). An A register is one such word, loaded from a planar
+//     buffer with no repacking; convert.py orders the weights into B
+//     fragments (pass, chunk, lane, n-tile, reg) and permutes the output
+//     channels so that the four values a lane holds for a pixel are word t
+//     of the next layer's input: the epilogue stores one word per pixel;
 //   - the zero shift q - z_eff is never materialized: positions outside
 //     the image hold z_eff instead of 0, so conv(q, pads = z_eff) equals
 //     conv(q - z_eff) + z_eff * sum(W). Per PE that sum is exactly the
-//     reference's zero-restored partial (K1); the fast datapath subtracts
-//     z_eff * sum(W) before its 20-bit clamp (K2). This needs
-//     -128 <= z_eff <= 127, which the host checks;
-//   - the words of a 16-channel pixel group channels by PE (word p holds
-//     channels p, p+4, p+8, p+12), so one __dp4a per tap and output
-//     channel yields one PE's partial: K1's per-PE 18-bit clamp is one
-//     clamp per pass, not a separate accumulation;
-//   - extents shrink by k/2 per layer (no recomputed ring beyond the
-//     receptive field); buffers are planar (one plane per word) so the
-//     consecutive pixels of a warp hit consecutive banks; every weight
-//     read is a warp-wide broadcast; each thread computes two pixels of a
-//     row so a weight read feeds two MAC chains.
+//     reference's zero-restored partial (K1); the fast datapath starts its
+//     accumulator from -z_eff * sum(W) (K2). This needs -128 <= z_eff <=
+//     127, which the host checks. The accumulator also starts from the bias
+//     plus kMagicBits, so requantization is one FFMA on its bits;
+//   - extents shrink by k/2 per layer; a layer's weights are held in
+//     registers over its whole extent, and the next layer's weights are
+//     staged with cp.async while the current layer computes; the residual
+//     shortcut is kept as int8 (K1: clip(round(s - 128))) or int16 (K2:
+//     round(s), its range proven by convert.py) so that 32x32 tiles fit.
+// What is left: the CUDA-core epilogue (requantization and the int8 clamp of
+// every value, half of it on the half-rate ALU pipe) takes more of a layer's
+// time than its MMAs and loads; the mma.sync forms reach the tensor cores
+// from sm_80 PTX, and Hopper's full int8 rate needs wgmma (64-row warpgroup
+// tiles, A and B in shared memory in its K-major layout) with TMA loads.
 //
-// Numerics: requantization is (y * m) * 2^-n as two separately rounded
-// float32 multiplies (__fmul_rn; built with -fmad=false), rounding is
-// half-to-even (rintf), and every float add of the datapath is __fadd_rn,
-// in the order of the plain version.
+// Numerics: requantization is (y * m) * 2^-n, two float32 multiplies in the
+// plain version; the kernel rounds y * (m * 2^-n) once, which is the same
+// float whenever every product is a normal float (a power-of-two scale is
+// exact; convert.py refuses exponents where it might not be, and
+// tests/test_torch_kernels.py holds both forms to the plain version's two
+// roundings for the shipped and edge (m, n) on the CPU). Rounding is
+// half-to-even, every other float op of the datapath is one __fadd_rn or
+// __fmul_rn in the order of the plain version, built with -fmad=false, and
+// int <-> float conversions go through kMagic (exact in their range).
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (sesr_tpu_torch/ops/_build.py). Each entry point
@@ -55,7 +76,8 @@ namespace {
 constexpr int kC = 16;          // hidden width of the network
 constexpr int kMaxL = 8;        // deepest supported network (nrdm_6)
 constexpr int kThreads = 256;
-constexpr int kP = 2;           // pixels per thread per work item
+constexpr int kWarps = kThreads / 32;
+constexpr int kLoadBatch = 9;   // input pixels per thread in flight: a 32x32 tile's 46x46 in one round
 
 // Layout of the int32 parameter block (kept in sync with
 // sesr_tpu_torch/convert.py PARAM_LAYOUT).
@@ -69,11 +91,11 @@ constexpr int P_RESP = 41;                // f32 bits: residual 2^-n
 constexpr int P_ZOUT = 42;                // f32 bits: zero of the output domain
 constexpr int P_ACC_HI = 43;              // per-PE accumulator max (18 bits)
 constexpr int P_ADD_HI = 44;              // PE adder max (20 bits)
+constexpr int P_SPLIT = 45;               // bit i: conv i runs one pass per PE (K1)
+constexpr int P_CLAMP = 46;               // bit i: conv i's 20-bit clamp can fire (K2)
 constexpr int P_BIAS = 48;                // [kMaxL][kC] bias added after the adder clamp
 constexpr int P_ZC = P_BIAS + kMaxL * kC; // [kMaxL][kC] z_eff * sum(W), subtracted before it
 constexpr int P_WORDS = P_ZC + kMaxL * kC;
-
-constexpr int kMaxLayerWords = 4 * 25 * kC;   // 4 passes x 5x5 taps x 16 oc
 
 enum Kind { FIRST = 0, MID = 1, LAST = 2 };
 
@@ -83,10 +105,6 @@ struct Tile {
   int H, W;           // frame extent
 };
 
-__device__ __forceinline__ float clamp_q(float v) {
-  return fminf(fmaxf(v, -128.f), 127.f);
-}
-
 __device__ __forceinline__ int pad_word(int z) {
   unsigned b = static_cast<unsigned>(z) & 0xffu;
   return static_cast<int>(b | (b << 8) | (b << 16) | (b << 24));
@@ -94,169 +112,345 @@ __device__ __forceinline__ int pad_word(int z) {
 
 __device__ __forceinline__ float as_f32(int bits) { return __int_as_float(bits); }
 
-// (y * m) * 2^-n with float32 rounding after each multiply.
-__device__ __forceinline__ float requant(int y, float m, float p) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(y), m), p);
+// Exact int <-> float32 conversions on the full-rate pipes (the conversion
+// instructions run at a quarter of the rate): kMagic = 1.5 * 2^23 has ulp 1,
+// so for |v| < 2^22 the bits of kMagic + v are kMagicBits + v, and a float
+// add of kMagic rounds to an integer, half to even, as rintf does.
+constexpr float kMagic = 12582912.f;
+constexpr int kMagicBits = 0x4B400000;
+
+// The float of (v - kMagicBits), for the int v - kMagicBits in (-2^22, 2^22).
+__device__ __forceinline__ float magic_to_f32(int v) {
+  return __fsub_rn(__int_as_float(v), kMagic);
 }
 
-// One conv layer over the output extent eh x ew (both in this layer's
-// output frame, which is the next layer's input frame). `in` holds NW
-// planes of (eh + K - 1) x (ew + K - 1) packed words; `w` holds npass x
-// K*K x OCP weight words. The epilogue writes the next layer's input
-// planes (FIRST, MID), the shortcut terms (FIRST) or the int8 output
-// (LAST).
-template <bool EXACT, int K, int NW, int OC, Kind KIND>
+// clip(rintf(v), -128, 127) in the low byte of the result, for any finite v
+// (rounding is monotone, so clamping kMagic + v to kMagic -+ 128 / 127
+// clamps the rounded value).
+__device__ __forceinline__ int q8_bits(float v) {
+  return __float_as_int(fminf(fmaxf(__fadd_rn(v, kMagic), kMagic - 128.f), kMagic + 127.f));
+}
+
+// Bytes 0 of four words into one word.
+__device__ __forceinline__ int pack_bytes(int b0, int b1, int b2, int b3) {
+  return static_cast<int>(__byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
+                                      0x5410));
+}
+
+// c += A (16x32 s8, row) * B (32x8 s8, col), exact in int32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3,
+                                       int b0, int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// A lane's B registers of one (pass, chunk): FW = 2 per n-tile.
+template <int FW>
+__device__ __forceinline__ void load_frag(int (&b)[FW], const int* p) {
+  if constexpr (FW == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+  } else {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    b[0] = v.x; b[1] = v.y;
+  }
+}
+
+// k32 chunks of a layer: 8 taps each (one word per tap), or 2 (four words).
+__host__ __device__ constexpr int tap_chunks(int k) { return (k * k + 7) / 8; }
+__host__ __device__ constexpr int word_chunks(int k) { return (k * k + 1) / 2; }
+
+// Words of one layer's B fragments: passes x chunks x 32 lanes x n-tiles x 2
+// (convert.py _fragment_words builds them in this order), with one pass
+// per PE (split) or one pass over all channels.
+__host__ __device__ inline int layer_words(bool split, int layer, int L, int in_ch, int ocl) {
+  if (layer == 0) return (split ? in_ch : 1) * tap_chunks(5) * 32 * 4;
+  if (layer < L - 1) return (split ? 4 * tap_chunks(3) : word_chunks(3)) * 32 * 4;
+  return (split ? 4 * tap_chunks(5) : word_chunks(5)) * 32 * 2 * ((ocl + 7) / 8);
+}
+
+__device__ __forceinline__ bool pe_split(const int* prm, int layer) {
+  return (prm[P_SPLIT] >> layer) & 1;
+}
+
+// The form of conv i: K1 runs it per PE where its 18-bit clamp can fire;
+// K2 clamps it to 20 bits where that clamp can fire (convert.py proves the
+// others idle; K1's 20-bit clamp never fires: four 18-bit sums fit 20 bits).
+template <bool EXACT>
+__device__ __forceinline__ bool special(const int* prm, int layer) {
+  return (prm[EXACT ? P_SPLIT : P_CLAMP] >> layer) & 1;
+}
+
+// One conv layer over the output extent eh x ew (in this layer's output
+// frame, which is the next layer's input frame), as an implicit GEMM. `in`
+// holds the input extent (eh + K - 1) x (ew + K - 1): one word per pixel
+// (FIRST) or four planes `in_ps` words apart; `w` the layer's B fragments.
+// SPLIT (K1 only) runs one pass per PE and clamps each PE's sum to 18 bits;
+// else one pass over all channels, which K1 takes where convert.py proves
+// that clamp cannot fire. CLAMP (K2 only) clamps the sum to 20 bits. The
+// epilogue writes the next layer's input planes (FIRST, MID), the shortcut
+// terms (FIRST) or the int8 output (LAST).
+template <bool EXACT, bool SPLIT, bool CLAMP, int K, Kind KIND, int OC>
 __device__ __forceinline__ void conv_layer(
-    const int* __restrict__ in, const int* __restrict__ w, int npass,
+    const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
-    const int* __restrict__ prm, int* __restrict__ next, float* __restrict__ sc,
-    int sc_off, int sc_w, int sc_h, int8_t* __restrict__ out, int frame) {
-  constexpr int OCP = (OC + 3) & ~3;
+    const int* __restrict__ prm, int* __restrict__ next, int next_ps,
+    int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
+    int8_t* __restrict__ out, int frame) {
+  constexpr int KK = K * K;
+  constexpr int NT = (OC + 7) / 8;                   // n-tiles of 8 channels
+  constexpr int FW = 2 * NT;                         // B registers per (pass, chunk)
+  constexpr bool TAPS = SPLIT || KIND == FIRST;      // k = (tap, byte of one word)
+  constexpr int NCH = TAPS ? tap_chunks(K) : word_chunks(K);
+  constexpr int NP = SPLIT ? 4 : 1;                  // passes (FIRST: up to 4)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int iw = ew + K - 1;
-  const int plane = (eh + K - 1) * iw;
-  const int half = ew / kP;            // ew is even: pixel x and x + half
-  const int items = eh * half;
+  const int npix = eh * ew;
+  const unsigned ew_magic = 0xffffffffu / ew + 1;    // r / ew == umulhi(r, ew_magic)
   const int r_out = (eh - t.th) / 2;   // ring of this output frame
   const int acc_hi = prm[P_ACC_HI];
   const int add_hi = prm[P_ADD_HI];
-  const int* bias = prm + P_BIAS + layer * kC;
-  const int* zc = prm + P_ZC + layer * kC;
-  const float rq_m = as_f32(prm[P_RQM + layer]);
-  const float rq_p = as_f32(prm[P_RQP + layer]);
+  // (y * m) * 2^-n == y * (m * 2^-n) in float32: scaling by a power of two
+  // is exact, so both round the same real product (convert.py keeps every
+  // product normal). With y read as the float kMagic + y, one FFMA:
+  // fl(a * s - kMagic * s) for s = m * 2^-n (kMagic * s is exact).
+  const float rq_s = __fmul_rn(as_f32(prm[P_RQM + layer]), as_f32(prm[P_RQP + layer]));
+  const float rq_c = -kMagic * rq_s;
+  // accumulator (n, i) of this lane is channel chan(2n + (i & 1)): the last
+  // layer's columns are in order (channels 8n + 2tq, 8n + 2tq + 1), a
+  // hidden layer's permuted (channel tq + 4j, byte j of word tq). It starts
+  // from bias + kMagicBits - z_eff * sum(W) (K1: z_eff * sum(W) is 0), so it
+  // ends as kMagicBits + y_int; the 20-bit clamp of conv(q - z_eff), where
+  // it runs, is shifted by the same constant.
+  int init[2 * NT], lo_c[2 * NT], hi_c[2 * NT];
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    const int o = KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j;
+    const int b = (o < OC ? prm[P_BIAS + layer * kC + o] : 0) + kMagicBits;
+    init[j] = b - (o < OC ? prm[P_ZC + layer * kC + o] : 0);
+    lo_c[j] = b - add_hi - 1;
+    hi_c[j] = b + add_hi;
+  }
 
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int y = it / half;
-    const int xa = it - y * half;
-    int tot[kP][OC];
+  // input offsets of this lane's k-slots tq (a0, a1) and tq + 4 (a2, a3):
+  // taps 8c + tq and 8c + tq + 4 of one word (TAPS), or word tq of taps 2c
+  // and 2c + 1. A padded tap reads tap 0 against zero weights.
+  int oa[NCH], ob[NCH];
 #pragma unroll
-    for (int q = 0; q < kP; ++q)
+  for (int c = 0; c < NCH; ++c) {
+    const int ta = TAPS ? 8 * c + tq : 2 * c, tb = TAPS ? ta + 4 : ta + 1;
+    const int plane = TAPS ? 0 : tq * in_ps;
+    oa[c] = plane + (ta < KK ? (ta / K) * iw + ta % K : 0);
+    ob[c] = plane + (tb < KK ? (tb / K) * iw + tb % K : 0);
+  }
+  // the layer's B fragments are held in registers, except K1's layer 0
+  // (up to 4 passes), which reads them from shared memory per chunk
+  constexpr bool WSMEM = SPLIT && KIND == FIRST;
+  constexpr int WP = WSMEM ? 1 : NP, WC = WSMEM ? 1 : NCH;
+  int wr[WP][WC][FW];
+  if constexpr (!WSMEM) {
 #pragma unroll
-      for (int o = 0; o < OC; ++o) tot[q][o] = 0;
+    for (int p = 0; p < WP; ++p)
+#pragma unroll
+      for (int c = 0; c < WC; ++c) load_frag<FW>(wr[p][c], w + ((p * NCH + c) * 32 + lane) * FW);
+  }
 
-    for (int pass = 0; pass < npass; ++pass) {
-      int acc[kP][OC];
+  for (int mt = warp; mt * 16 < npix; mt += kWarps) {
+    int ys[2], xs[2], bases[2];
 #pragma unroll
-      for (int q = 0; q < kP; ++q)
+    for (int h = 0; h < 2; ++h) {
+      const int r = min(mt * 16 + g + 8 * h, npix - 1);
+      ys[h] = static_cast<int>(__umulhi(static_cast<unsigned>(r), ew_magic));
+      xs[h] = r - ys[h] * ew;
+      bases[h] = r + ys[h] * (K - 1);
+    }
+    int tot[NT][4];
 #pragma unroll
-        for (int o = 0; o < OC; ++o) acc[q][o] = 0;
-      const int* src = in + (NW == 4 ? pass : 0) * plane;
-      const int* wp = w + pass * K * K * OCP;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-        const int* row = src + (y + dy) * iw + xa;
+      for (int i = 0; i < 4; ++i) tot[n][i] = init[2 * n + (i & 1)];
+
+    if constexpr (!SPLIT) {
 #pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          int a[kP];
+      for (int c = 0; c < NCH; ++c) {
+        const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
+        const int a2 = in[bases[0] + ob[c]], a3 = in[bases[1] + ob[c]];
 #pragma unroll
-          for (int q = 0; q < kP; ++q) a[q] = row[dx + q * half];
-          const int4* wv = reinterpret_cast<const int4*>(wp + (dy * K + dx) * OCP);
+        for (int n = 0; n < NT; ++n)
+          mma_s8(tot[n], a0, a1, a2, a3, wr[0][c][2 * n], wr[0][c][2 * n + 1]);
+      }
+    } else if constexpr (KIND == FIRST) {
+      // one input word per pixel: every PE's pass reads the same A
+      int acc[NP][NT][4];
 #pragma unroll
-          for (int o4 = 0; o4 < OCP / 4; ++o4) {
-            const int4 w4 = wv[o4];
-            const int ws[4] = {w4.x, w4.y, w4.z, w4.w};
+      for (int p = 0; p < NP; ++p)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (o4 * 4 + e < OC) {
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-                for (int q = 0; q < kP; ++q)
-                  acc[q][o4 * 4 + e] = __dp4a(a[q], ws[e], acc[q][o4 * 4 + e]);
-              }
-            }
+          for (int i = 0; i < 4; ++i) acc[p][n][i] = 0;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
+        const int a2 = in[bases[0] + ob[c]], a3 = in[bases[1] + ob[c]];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          if (p < npass) {
+            int b[FW];
+            load_frag<FW>(b, w + ((p * NCH + c) * 32 + lane) * FW);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) mma_s8(acc[p][n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
           }
         }
       }
 #pragma unroll
-      for (int q = 0; q < kP; ++q)
+      for (int p = 0; p < NP; ++p)
+        if (p < npass)
 #pragma unroll
-        for (int o = 0; o < OC; ++o)
-          tot[q][o] += EXACT ? min(max(acc[q][o], -acc_hi - 1), acc_hi) : acc[q][o];
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[p][n][i], -acc_hi - 1), acc_hi);
+    } else {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        int acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][i] = 0;
+        const int* src = in + p * in_ps;               // PE p reads word p
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const int a0 = src[bases[0] + oa[c]], a1 = src[bases[1] + oa[c]];
+          const int a2 = src[bases[0] + ob[c]], a3 = src[bases[1] + ob[c]];
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            mma_s8(acc[n], a0, a1, a2, a3, wr[p][c][2 * n], wr[p][c][2 * n + 1]);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[n][i], -acc_hi - 1), acc_hi);
+      }
     }
 
-    // ---- epilogue -------------------------------------------------------
+    // ---- epilogue: this lane holds rows g (c0, c1) and g + 8 (c2, c3) ----
 #pragma unroll
-    for (int q = 0; q < kP; ++q) {
-      const int x = xa + q * half;
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      if (r >= npix) continue;
+      const int y = ys[h], x = xs[h];
       const int gy = t.oy0 - r_out + y;
       const int gx = t.ox0 - r_out + x;
       const bool inside = gy >= 0 && gy < t.H && gx >= 0 && gx < t.W;
-      if (KIND == LAST) {
+      // (y_int * m) * 2^-n
+      float hq[2 * NT];
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        int yi = tot[j >> 1][2 * h + (j & 1)];
+        if constexpr (CLAMP) yi = min(max(yi, lo_c[j]), hi_c[j]);
+        hq[j] = __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
+      }
+      if constexpr (KIND == LAST) {
         if (!inside || y >= t.th || x >= t.tw) continue;
         const float z_out = as_f32(prm[P_ZOUT]);
         int8_t* dst = out + ((static_cast<size_t>(frame) * t.H + gy) * t.W + gx) * OC;
-        int packed[OCP / 4];
 #pragma unroll
-        for (int o4 = 0; o4 < OCP / 4; ++o4) packed[o4] = 0;
-#pragma unroll
-        for (int o = 0; o < OC; ++o) {
-          const int yi = min(max(tot[q][o] - zc[o], -add_hi - 1), add_hi) + bias[o];
-          const float v = clamp_q(rintf(__fadd_rn(requant(yi, rq_m, rq_p), z_out)));
-          packed[o / 4] |= (static_cast<int>(v) & 0xff) << (8 * (o % 4));
+        for (int n = 0; n < NT; ++n) {
+          const int o = 8 * n + 2 * tq;
+          const int v0 = q8_bits(__fadd_rn(hq[2 * n], z_out));
+          const int v1 = q8_bits(__fadd_rn(hq[2 * n + 1], z_out));
+          if constexpr (OC % 2 == 0) {
+            if (o < OC)
+              *reinterpret_cast<uint16_t*>(dst + o) = static_cast<uint16_t>(__byte_perm(v0, v1, 0x0040));
+          } else {
+            if (o < OC) dst[o] = static_cast<int8_t>(v0);
+            if (o + 1 < OC) dst[o + 1] = static_cast<int8_t>(v1);
+          }
         }
-        if (OC % 4 == 0) {
-#pragma unroll
-          for (int o4 = 0; o4 < OCP / 4; ++o4)
-            reinterpret_cast<int*>(dst)[o4] = packed[o4];
-        } else {
-#pragma unroll
-          for (int o = 0; o < OC; ++o)
-            dst[o] = static_cast<int8_t>((packed[o / 4] >> (8 * (o % 4))) & 0xff);
+      } else {
+        if (!inside) {
+          next[tq * next_ps + r] = pad_word(prm[P_ZEFF + layer + 1]);
+          continue;
         }
-        continue;
-      }
-      // FIRST / MID: the next conv's input, channel o -> word o % 4, byte o / 4
-      const int pix = y * ew + x;
-      const int nplane = eh * ew;
-      if (!inside) {
-        const int pw = pad_word(prm[P_ZEFF + layer + 1]);
+        const float z_next = as_f32(prm[P_ZIN + layer + 1]);
+        int v[4];
+        if (KIND == FIRST || prelast) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) next[j * nplane + pix] = pw;
-        continue;
-      }
-      const float z_next = as_f32(prm[P_ZIN + layer + 1]);
-      const float res_m = as_f32(prm[P_RESM]);
-      const float res_p = as_f32(prm[P_RESP]);
-      const int sy = y - sc_off, sx = x - sc_off;
-      const bool in_sc = sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w;
-      int words[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int o = 0; o < OC; ++o) {
-        const int yi = min(max(tot[q][o] - zc[o], -add_hi - 1), add_hi) + bias[o];
-        const float h = fmaxf(requant(yi, rq_m, rq_p), 0.f);      // ReLU
-        float v;
-        if (KIND == FIRST && in_sc) {
-          // the residual shortcut, as the last conv's domain-in consumes it:
-          // reference: clip(round(s - 128)); corrected: round(s)
-          sc[o * sc_h * sc_w + sy * sc_w + sx] =
-              EXACT ? clamp_q(rintf(__fsub_rn(h, 128.f))) : rintf(h);
+          for (int j = 0; j < 4; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
         }
         if (KIND == MID && prelast) {
           // the last conv's domain-in: the integer residual add, rescaled
           // by s_1 / s_{L-1}, into domain L-1 (this frame is the shortcut's)
-          const float s = sc[o * sc_h * sc_w + pix];
-          const float tr = EXACT
-              ? __fadd_rn(__fadd_rn(s, clamp_q(rintf(__fsub_rn(h, 128.f)))), 256.f)
-              : __fadd_rn(s, rintf(h));
-          v = clamp_q(rintf(__fadd_rn(__fmul_rn(__fmul_rn(tr, res_m), res_p), z_next)));
-        } else {
-          v = clamp_q(rintf(__fadd_rn(h, z_next)));
-        }
-        words[o % 4] |= (static_cast<int>(v) & 0xff) << (8 * (o / 4));
-      }
+          const float res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) next[j * nplane + pix] = words[j];
+          for (int j = 0; j < 4; ++j) {
+            float tr;
+            if constexpr (EXACT) {
+              const int s = static_cast<int8_t>(sc[tq * sc_ps + r] >> (8 * j));
+              const float c = magic_to_f32(q8_bits(__fsub_rn(hq[j], 128.f)));
+              tr = __fadd_rn(__fadd_rn(magic_to_f32(s + kMagicBits), c), 256.f);
+            } else {
+              const int s = static_cast<int16_t>(sc[(tq + 4 * (j >> 1)) * sc_ps + r] >> (16 * (j & 1)));
+              tr = __fadd_rn(magic_to_f32(s + kMagicBits), rintf(hq[j]));
+            }
+            v[j] = q8_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next));
+          }
+        } else if (KIND == FIRST) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
+        } else {
+          // ReLU folded into the low bound: fl(max(h, 0) + z) = max(fl(h + z), z)
+          // and rounding is monotone, so clip(rint(.), max(z, -128), 127)
+          const float lo = kMagic + fmaxf(z_next, -128.f);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = __float_as_int(
+                fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo), kMagic + 127.f));
+        }
+        next[tq * next_ps + r] = pack_bytes(v[0], v[1], v[2], v[3]);
+        if (KIND == FIRST) {
+          // the residual shortcut, as the last conv's domain-in consumes it:
+          // reference: clip(round(s - 128)) as int8; corrected: round(s) as
+          // int16 (0 <= round(s) <= 32767, convert.py shortcut_bound)
+          const int sy = y - sc_off, sx = x - sc_off;
+          if (sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w) {
+            const int sp = sy * sc_w + sx;
+            if constexpr (EXACT) {
+              int b[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) b[j] = q8_bits(__fsub_rn(hq[j], 128.f));
+              sc[tq * sc_ps + sp] = pack_bytes(b[0], b[1], b[2], b[3]);
+            } else {
+              int b[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) b[j] = __float_as_int(__fadd_rn(hq[j], kMagic));
+              sc[tq * sc_ps + sp] = static_cast<int>(__byte_perm(b[0], b[1], 0x5410));
+              sc[(tq + 4) * sc_ps + sp] = static_cast<int>(__byte_perm(b[2], b[3], 0x5410));
+            }
+          }
+        }
+      }
     }
   }
 }
 
-__device__ __forceinline__ void stage_weights(int* dst, const int* __restrict__ src, int words) {
-  const int4* s4 = reinterpret_cast<const int4*>(src);
-  int4* d4 = reinterpret_cast<int4*>(dst);
-  for (int i = threadIdx.x; i < words / 4; i += blockDim.x) d4[i] = s4[i];
+// cp.async of `words` (a multiple of 4) int32 from device memory into
+// shared memory, as one commit group; wait_staged() waits for all groups.
+__device__ __forceinline__ void stage_async(int* dst, const int* __restrict__ src, int words) {
+  for (int i = threadIdx.x * 4; i < words; i += blockDim.x * 4) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-struct Smem {
-  int a_words, b_words, sc_words;
-};
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 __host__ __device__ inline int ring(int layer, int L) {
   // sum of k/2 over convs layer..L-1 for kernel sizes (5, 3, ..., 3, 5)
@@ -270,13 +464,31 @@ __host__ __device__ inline int extent(int layer, int L, int th, int tw) {
   return (th + 2 * r) * (tw + 2 * r);
 }
 
-__host__ __device__ inline Smem smem_plan(int L, int th, int tw) {
+// plane stride of a 4-plane buffer: >= n and 8 mod 32 words, so that the
+// lanes (g, tq) of a warp, touching word tq of 8 consecutive pixels, hit 32
+// distinct banks
+__host__ __device__ inline int plane_stride(int n) { return ((n + 23) & ~31) + 8; }
+
+struct Smem {
+  int w_words, a_words, b_words, sc_words;
+};
+
+__host__ __device__ inline Smem smem_plan(bool exact, int L, int in_ch, int ocl, int th, int tw) {
   Smem s;
-  s.a_words = 4 * extent(1, L, th, tw);
-  const int b0 = extent(0, L, th, tw);
-  const int b2 = 4 * extent(2, L, th, tw);
-  s.b_words = ((b0 > b2 ? b0 : b2) + 3) & ~3;
-  s.sc_words = kC * extent(L - 1, L, th, tw);
+  s.w_words = 0;                         // a split layer's fragments are the larger
+  for (int i = 0; i < L; ++i) {
+    const int lw = layer_words(exact, i, L, in_ch, ocl);
+    s.w_words = s.w_words > lw ? s.w_words : lw;
+  }
+  // layer i's input: buf_b for even i (layer 0: one word per pixel), buf_a for odd
+  s.a_words = 0;
+  s.b_words = (extent(0, L, th, tw) + 3) & ~3;
+  for (int i = 1; i < L; ++i) {
+    const int words = 4 * plane_stride(extent(i, L, th, tw));
+    int& dst = (i % 2) ? s.a_words : s.b_words;
+    dst = dst > words ? dst : words;
+  }
+  s.sc_words = (exact ? 4 : 8) * plane_stride(extent(L - 1, L, th, tw));
   return s;
 }
 
@@ -286,12 +498,12 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                 const int* __restrict__ weights, const int* __restrict__ params,
                 int H, int W, int L, int in_ch, int th, int tw) {
   extern __shared__ int4 smem4[];
-  const Smem plan = smem_plan(L, th, tw);
+  const Smem plan = smem_plan(EXACT, L, in_ch, OCL, th, tw);
   int* prm = reinterpret_cast<int*>(smem4);
-  int* wsm = prm + P_WORDS;
-  int* buf_a = wsm + kMaxLayerWords;
+  int* wbuf = prm + P_WORDS;            // two weight buffers of plan.w_words
+  int* buf_a = wbuf + 2 * plan.w_words;
   int* buf_b = buf_a + plan.a_words;
-  float* sc = reinterpret_cast<float*>(buf_b + plan.b_words);
+  int* sc = buf_b + plan.b_words;
 
   Tile t;
   t.oy0 = blockIdx.y * th;
@@ -302,67 +514,109 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   t.W = W;
   const int frame = blockIdx.z;
 
+  stage_async(wbuf, weights + params[P_WOFF],
+              layer_words(EXACT && (params[P_SPLIT] & 1), 0, L, in_ch, OCL));
   for (int i = threadIdx.x; i < P_WORDS; i += blockDim.x) prm[i] = params[i];
 
   // layer-0 input: one word per pixel, channel c in byte c; z_eff outside
   const int r0 = ring(0, L);
   const int ih0 = th + 2 * r0, iw0 = tw + 2 * r0;
   const int pad0 = pad_word(params[P_ZEFF]);
-  for (int i = threadIdx.x; i < ih0 * iw0; i += blockDim.x) {
-    const int yy = i / iw0, xx = i - yy * iw0;
-    const int gy = t.oy0 - r0 + yy, gx = t.ox0 - r0 + xx;
-    int v = pad0;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const int8_t* p = x + ((static_cast<size_t>(frame) * H + gy) * W + gx) * in_ch;
-      v = 0;
-      for (int c = 0; c < in_ch; ++c)
-        v |= (static_cast<int>(p[c]) & 0xff) << (8 * c);
+  // kLoadBatch pixels per thread at a time, their loads issued together
+  for (int i0 = threadIdx.x; i0 < ih0 * iw0; i0 += kLoadBatch * blockDim.x) {
+    int v[kLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int yy = i / iw0, xx = i - yy * iw0;
+      const int gy = t.oy0 - r0 + yy, gx = t.ox0 - r0 + xx;
+      v[u] = pad0;
+      if (i < ih0 * iw0 && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const int8_t* p = x + ((static_cast<size_t>(frame) * H + gy) * W + gx) * in_ch;
+        v[u] = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c < in_ch) v[u] |= (static_cast<int>(__ldg(p + c)) & 0xff) << (8 * c);
+      }
     }
-    buf_b[i] = v;
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u)
+      if (i0 + u * blockDim.x < ih0 * iw0) buf_b[i0 + u * blockDim.x] = v[u];
   }
-  const int npass0 = EXACT ? in_ch : 1;
-  stage_weights(wsm, weights + params[P_WOFF], npass0 * 25 * kC);
+  wait_staged();
   __syncthreads();
 
   const int r_sc = ring(L - 1, L);
   const int sc_h = th + 2 * r_sc, sc_w = tw + 2 * r_sc;
+  const int sc_ps = plane_stride(sc_h * sc_w);
+  // each layer stages the next one's weights into the other buffer while it
+  // computes; K1 runs a layer per PE (SPLIT) only where its bit is set
+  stage_async(wbuf + plan.w_words, weights + prm[P_WOFF + 1],
+              layer_words(EXACT && pe_split(prm, 1), 1, L, in_ch, OCL));
   {
     const int r1 = ring(1, L);
-    conv_layer<EXACT, 5, 1, kC, FIRST>(buf_b, wsm, npass0, th + 2 * r1, tw + 2 * r1, t, 0,
-                                       false, prm, buf_a, sc, r1 - r_sc, sc_w, sc_h,
-                                       nullptr, frame);
+    const int ps1 = plane_stride(extent(1, L, th, tw));
+    if (EXACT && pe_split(prm, 0))
+      conv_layer<EXACT, EXACT, false, 5, FIRST, kC>(buf_b, 0, wbuf, in_ch, th + 2 * r1,
+                                                    tw + 2 * r1, t, 0, false, prm, buf_a, ps1,
+                                                    sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
+                                                    frame);
+    else
+      conv_layer<EXACT, false, false, 5, FIRST, kC>(buf_b, 0, wbuf, 1, th + 2 * r1,
+                                                    tw + 2 * r1, t, 0, false, prm, buf_a, ps1,
+                                                    sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
+                                                    frame);
   }
+  wait_staged();
   __syncthreads();
 
   int* cur = buf_a;
   int* nxt = buf_b;
   for (int i = 1; i <= L - 2; ++i) {
-    stage_weights(wsm, weights + prm[P_WOFF + i], 4 * 9 * kC);
-    __syncthreads();
+    stage_async(wbuf + ((i + 1) & 1) * plan.w_words, weights + prm[P_WOFF + i + 1],
+                layer_words(EXACT && pe_split(prm, i + 1), i + 1, L, in_ch, OCL));
     const int r = ring(i + 1, L);
-    conv_layer<EXACT, 3, 4, kC, MID>(cur, wsm, 4, th + 2 * r, tw + 2 * r, t, i,
-                                     i == L - 2, prm, nxt, sc, 0, sc_w, sc_h,
-                                     nullptr, frame);
+    const int* w = wbuf + (i & 1) * plan.w_words;
+    const int ps_in = plane_stride(extent(i, L, th, tw));
+    const int ps_out = plane_stride(extent(i + 1, L, th, tw));
+    if (special<EXACT>(prm, i))
+      conv_layer<EXACT, EXACT, !EXACT, 3, MID, kC>(cur, ps_in, w, 4, th + 2 * r, tw + 2 * r, t,
+                                                   i, i == L - 2, prm, nxt, ps_out, sc, sc_ps,
+                                                   0, sc_w, sc_h, nullptr, frame);
+    else
+      conv_layer<EXACT, false, false, 3, MID, kC>(cur, ps_in, w, 1, th + 2 * r, tw + 2 * r, t,
+                                                  i, i == L - 2, prm, nxt, ps_out, sc, sc_ps,
+                                                  0, sc_w, sc_h, nullptr, frame);
+    wait_staged();
     __syncthreads();
     int* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
 
-  constexpr int OCLP = (OCL + 3) & ~3;
-  stage_weights(wsm, weights + prm[P_WOFF + L - 1], 4 * 25 * OCLP);
-  __syncthreads();
-  conv_layer<EXACT, 5, 4, OCL, LAST>(cur, wsm, 4, th, tw, t, L - 1, false, prm,
-                                     nullptr, sc, 0, sc_w, sc_h, out, frame);
+  const int* w_last = wbuf + ((L - 1) & 1) * plan.w_words;
+  const int ps_last = plane_stride(extent(L - 1, L, th, tw));
+  if (special<EXACT>(prm, L - 1))
+    conv_layer<EXACT, EXACT, !EXACT, 5, LAST, OCL>(cur, ps_last, w_last, 4, th, tw, t, L - 1,
+                                                   false, prm, nullptr, 0, sc, sc_ps, 0, sc_w,
+                                                   sc_h, out, frame);
+  else
+    conv_layer<EXACT, false, false, 5, LAST, OCL>(cur, ps_last, w_last, 1, th, tw, t, L - 1,
+                                                  false, prm, nullptr, 0, sc, sc_ps, 0, sc_w,
+                                                  sc_h, out, frame);
+}
+
+size_t shared_bytes(bool exact, int L, int in_ch, int ocl, int th, int tw) {
+  const Smem plan = smem_plan(exact, L, in_ch, ocl, th, tw);
+  return sizeof(int) * (static_cast<size_t>(P_WORDS) + 2 * plan.w_words + plan.a_words +
+                        plan.b_words + plan.sc_words);
 }
 
 template <bool EXACT, int OCL>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
                        int n, int h, int wd, int L, int in_ch, int th, int tw,
                        cudaStream_t stream) {
-  const Smem plan = smem_plan(L, th, tw);
-  const size_t bytes = sizeof(int) * (static_cast<size_t>(P_WORDS) + kMaxLayerWords +
-                                      plan.a_words + plan.b_words + plan.sc_words);
+  const size_t bytes = shared_bytes(EXACT, L, in_ch, OCL, th, tw);
   cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<EXACT, OCL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -376,7 +630,7 @@ cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* pr
 template <bool EXACT>
 int launch(const void* x, void* out, const void* weights, const void* params, int n,
            int h, int w, int L, int in_ch, int out_ch, int th, int tw, void* stream) {
-  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 2 || tw % 2 != 0)
+  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);

@@ -22,10 +22,11 @@ from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
 from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
 
-# output tile (rows, columns; columns even) of one thread block: 86.5 KB of
-# shared memory for sr_x2, so two blocks share an SM (csrc/sesr_net.cu
-# smem_plan)
-TILE = (16, 32)
+# output tile (rows, columns) of one thread block: the fastest of the
+# sweep in chip_smoke.py phase 5 for both kernels; about 108 KB (K2) and
+# 91 KB (K1) of shared memory for sr_x2, so two blocks share an SM
+# (csrc/sesr_net.cu smem_plan)
+TILE = (32, 32)
 OUT_DTYPES = ("f32", "int8")
 
 
@@ -38,10 +39,11 @@ class NetKernel:
         self.exact = exact
         self.launches = 0
 
-    def __call__(self, spec: SESRSpec, qp: QuantParams,
-                 x_q: torch.Tensor) -> torch.Tensor:
+    def __call__(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor,
+                 tile=TILE) -> torch.Tensor:
         """x_q: int8 (N, H, W, C_in) contiguous on a CUDA device. Returns the
-        int8 (N, H, W, C_out) output of the last conv."""
+        int8 (N, H, W, C_out) output of the last conv. ``tile``: the output
+        tile (rows, columns) of one thread block."""
         if x_q.device.type != "cuda":
             raise ValueError(f"{self.symbol} runs on a CUDA tensor, got {x_q.device}")
         if x_q.dtype != torch.int8 or x_q.dim() != 4 \
@@ -61,7 +63,7 @@ class NetKernel:
             err = getattr(lib, self.symbol)(
                 x_q.data_ptr(), out.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), n, h, w, kc.num_layers, kc.in_channels,
-                kc.out_channels, *TILE, stream)
+                kc.out_channels, *tile, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: "
                                f"{lib.sesr_error_string(err).decode()} ({err})")

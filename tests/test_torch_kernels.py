@@ -22,12 +22,13 @@ from sesr_tpu.ops.pallas_pipeline import build_pallas_forward
 from sesr_tpu.quant.params import QuantParams as JQuantParams
 from sesr_tpu_torch import convert, deploy
 from sesr_tpu_torch.config import spec_for_task
-from sesr_tpu_torch.ops import _build, kernels
+from sesr_tpu_torch.ops import _build, fixedpoint, kernels
 from sesr_tpu_torch.ops.fast import fast_forward
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+from sesr_tpu_torch.quant.integer import integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
 from tests.test_integer_bitexact import _golden_qparams, _load_golden
-from tests.test_torch_params import ARTIFACTS, _same
+from tests.test_torch_params import ARTIFACTS, SIM_GOLDENS, _same
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
 
@@ -108,35 +109,49 @@ def _unpack(words):
 
 @pytest.mark.parametrize("exact", [True, False])
 def test_kernel_constants_layout(exact):
-    """Every weight of every layer sits once in the packed words, in the byte
-    where the activation word holds its input channel; the per-pass
-    channel sets are the PE round-robin where the kernel clamps per PE."""
+    """Every weight of every layer sits once in the B fragments, in the byte
+    where the activation word holds its input channel, at the k-slot and
+    column where the kernel's MMA meets that tap and output channel (lane
+    4g + t, reg s: k-slot word t + 4s, column g); padded taps and channels
+    are zero; a per-PE pass holds only its PE's channels."""
     task = "sr_x2"
     spec, (qp, _) = spec_for_task(task), _artifact(task)
     kc = convert.kernel_constants(spec, qp, exact)
     lay = convert.PARAM_LAYOUT
+    L = spec.num_convs
     assert kc.params.shape == (convert.PARAM_WORDS,)
     assert (kc.num_layers, kc.in_channels, kc.out_channels) == (5, 3, 12)
     offsets = list(kc.params[lay["w_off"]: lay["w_off"] + 5]) + [kc.weights.size]
     for i, w in enumerate(qp.w_int):
         k, _, ic, oc = w.shape
-        ocp = -(-oc // 4) * 4
+        split = kc.pe_split[i]
+        assert split == (exact and i == L - 1)          # sr_x2: the last conv only
+        n_pass, chunks, tap_major = convert.layer_geometry(k, ic, split)
+        assert n_pass == ((ic if ic <= 4 else 4) if split else 1)
+        assert tap_major == (split or ic <= 4)
+        nt = -(-oc // 8)
         assert offsets[i] % 4 == 0
         chunk = kc.weights[offsets[i]: offsets[i + 1]]
-        b = _unpack(chunk.reshape(-1, k * k, ocp))           # (pass, tap, ocp, 4)
+        b = _unpack(chunk.reshape(n_pass, chunks, 32, nt, 2))   # (..., 4 bytes)
         taps = w.reshape(k * k, ic, oc)
         rebuilt = np.zeros_like(taps)
-        for g in range(b.shape[0]):
-            # a 16-channel pass reads word g: channels g, g+4, g+8, g+12
-            for c in (range(ic) if ic <= 4 else range(g, ic, 4)):
-                rebuilt[:, c, :] += b[g, :, :oc, c if ic <= 4 else c // 4]
+        seen = np.zeros(taps.shape, int)
+        for p, c, lane, n, reg in np.ndindex(b.shape[:-1]):
+            g, t = divmod(lane, 4)
+            slot = t + 4 * reg
+            tap, word = ((8 * c + slot, p if ic > 4 else 0) if tap_major
+                         else (2 * c + slot // 4, slot % 4))
+            o = 8 * n + g if i == L - 1 else (g >> 1) + 4 * (g & 1) + 8 * n
+            for j, v in enumerate(b[p, c, lane, n, reg]):
+                ch = j if ic <= 4 else word + 4 * j
+                owned = not split or ch % 4 == p
+                if tap >= k * k or o >= oc or ch >= ic or not owned:
+                    assert v == 0, (i, p, c, lane, n, reg, j)
+                    continue
+                rebuilt[tap, ch, o] += v
+                seen[tap, ch, o] += 1
         np.testing.assert_array_equal(rebuilt, taps, err_msg=f"layer {i}")
-        assert not b[:, :, oc:, :].any()
-        n_pass = ic if (exact and ic <= 4) else (4 if ic > 4 else 1)
-        assert b.shape[0] == n_pass
-        if ic <= 4 and exact:                # one PE's channel per pass
-            for g in range(ic):
-                assert not np.delete(b[g], g, axis=-1).any()
+        assert (seen == 1).all()
         bias = kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc]
         zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc]
         if exact:
@@ -170,6 +185,102 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
         tspec, (tqp, _) = spec_for_task(task), _artifact(task)
         for exact in (True, False):
             convert.kernel_constants(tspec, tqp, exact)
+
+
+KMAGIC = np.float32(12582912.0)             # csrc/sesr_net.cu kMagic = 1.5 * 2^23
+TOP_M = (1 << 22) - 1
+
+
+def _requant_pairs(source):
+    """(m, n) of every requantization of the shipped artifacts, of the
+    goldens, or the edges kernel_constants still admits."""
+    pairs = set()
+    if source == "artifacts":
+        for path in ARTIFACTS:
+            qp = QuantParams.load(path)
+            pairs.update(zip(qp.requant_m, qp.requant_n))
+            pairs.add((qp.res_requant_m, qp.res_requant_n))
+    elif source == "goldens":
+        for task in SIM_GOLDENS:
+            g = _load_golden(task)
+            pairs.update((int(g[f"requan_m_{i}"]), int(g[f"requan_n_{i}"]))
+                         for i in range(int(g["num_convs"])))
+            pairs.add((int(g["res_requant_m"]), int(g["res_requant_n"])))
+    else:
+        pairs.update((m, n) for m in (1, 3, 40961, TOP_M - 1, TOP_M)
+                     for n in (-64, -63, -1, 0, 1, 16, 31, 63, 64))
+    return sorted(pairs)
+
+
+@pytest.mark.parametrize("source", ["artifacts", "goldens", "edges"])
+def test_single_rounding_requant_matches_plain(source):
+    """The kernels requantize with one rounding of y * (m * 2^-n): the FFMA
+    fl(a * s - kMagic * s) on the accumulator's bits a = kMagic + y, and the
+    residual rescale fl(t * s). The plain version rounds twice, (y * m) *
+    2^-n. For every (m, n) and y over +-2^20 they must give the same float32.
+    The model of the FFMA is exact: a * s fits 46 bits and y * s 43 bits of
+    a float64, so its one rounding is the cast to float32."""
+    pairs = _requant_pairs(source)
+    assert pairs
+    rng = np.random.default_rng(17)
+    y = np.concatenate([np.arange(-2 ** 20, 2 ** 20 + 1, 4097),
+                        rng.integers(-2 ** 20, 2 ** 20 + 1, 8192),
+                        [0, 1, -1, 2 ** 20, -2 ** 20, 2 ** 20 - 1, 1 - 2 ** 20]])
+    y32 = y.astype(np.float32)
+    assert (y32.astype(np.int64) == y).all()
+    a = KMAGIC + y32                                        # bits kMagicBits + y
+    assert (a.astype(np.float64) - np.float64(KMAGIC) == y).all()
+    for m, n in pairs:
+        assert 0 <= m <= TOP_M and -64 <= n <= 64, (m, n)
+        m_f, p_f = (np.float32(v) for v in fixedpoint.requant_factors(m, n))
+        s = m_f * p_f                                       # rq_s: __fmul_rn, exact
+        c = -KMAGIC * s                                     # rq_c, exact
+        assert float(s) == m * 2.0 ** -n and float(c) == -1.5 * 2.0 ** 23 * m * 2.0 ** -n
+        want = fixedpoint.apply_requant_f32(torch.from_numpy(y32), m, n).numpy()
+        ffma = (a.astype(np.float64) * np.float64(s) + np.float64(c)).astype(np.float32)
+        np.testing.assert_array_equal(ffma, want, err_msg=f"FFMA m={m} n={n}")
+        fmul = (y32.astype(np.float64) * np.float64(s)).astype(np.float32)
+        np.testing.assert_array_equal(fmul, want, err_msg=f"residual m={m} n={n}")
+
+
+@pytest.mark.parametrize("field,index,value", [
+    ("requant_m", 2, 1 << 22), ("requant_n", 3, 65), ("requant_n", 1, -65),
+    ("res_requant_m", None, 1 << 22), ("res_requant_n", None, -65)])
+def test_kernel_constants_refuse_requant_beyond_one_rounding(field, index, value):
+    """An (m, n) outside m < 2^22, |n| <= 64 is refused by both kernels; the
+    edges inside are taken."""
+    spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
+
+    def with_value(v):
+        if index is None:
+            return dataclasses.replace(qp, **{field: v})
+        vals = list(getattr(qp, field))
+        vals[index] = v
+        return dataclasses.replace(qp, **{field: vals})
+
+    for exact in (True, False):
+        with pytest.raises(NotImplementedError, match="requantization"):
+            convert.kernel_constants(spec, with_value(value), exact)
+    edge = TOP_M if field.endswith("_m") else (64 if value > 0 else -64)
+    convert.kernel_constants(spec, with_value(edge), True)
+
+
+def test_fast_shortcut_int16_bound():
+    """The fast kernel keeps conv 0's rounded ReLU output as int16: the
+    static bound holds on data and an artifact beyond int16 is refused (the
+    PE-exact kernel stores clip(round(s - 128)) as int8 and needs no bound)."""
+    spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
+    bound = convert.shortcut_bound(qp)
+    assert 0 < bound <= 32767
+    x = np.random.default_rng(3).random((1, 24, 40, 3), dtype=np.float32)
+    _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
+                               compute="fast", device="cpu")
+    assert float(torch.round(dumps["shortcut"]).max()) <= bound
+    big = dataclasses.replace(qp, requant_m=[qp.requant_m[0] * 8] + list(qp.requant_m[1:]))
+    assert convert.shortcut_bound(big) > 32767
+    with pytest.raises(NotImplementedError, match="int16"):
+        convert.kernel_constants(spec, big, False)
+    convert.kernel_constants(spec, big, True)
 
 
 def test_device_constants_cached_per_instance():

@@ -1,0 +1,243 @@
+"""A numpy model of the fused kernels' tensor-core operand mapping
+(sesr_tpu_torch/csrc/sesr_net.cu conv_layer). One layer runs as an
+implicit GEMM of mma.sync.m16n8k32.row.col s8 x s8 -> s32: the A registers
+of lane 4g + t are activation words read from the planar input buffers at
+the kernel's offsets, the B registers come from convert.py's
+fragment-ordered weight words, and the accumulators go back to (pixel,
+channel) as the kernel's epilogue reads them. Every layer's per-PE
+partials (the split form, which K1 runs where its 18-bit clamp can fire)
+and full sums (the one-pass form of K2, and of K1 elsewhere) must equal
+the plain version's exact integer conv (quant/integer.py ``_conv_int``)
+on the PE's channels or on all of them, for every instantiation the
+kernels build: sr_x2 (3 in, 12 out), sr_x4 (1 in, 16 out), nrdm_3 (3
+out) and nrdm_6 (8 convs), at an extent whose pixel count is no multiple
+of 16."""
+
+import dataclasses
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from sesr_tpu_torch import convert
+from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.quant.integer import _conv_int, integer_forward, pe_channel_mask
+from sesr_tpu_torch.quant.params import QuantParams
+
+ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
+EXTENT = (5, 11)            # a layer's output extent: 55 pixels, 3 sixteens and 7
+
+
+def _bytes(words):
+    """int32 words (...) -> signed bytes (..., 4), byte 0 first."""
+    return np.ascontiguousarray(words, np.int32).view(np.int8).reshape(np.shape(words) + (4,))
+
+
+def _mma(a, b):
+    """One warp's mma.sync.m16n8k32.row.col.s32.s8.s8.s32 (PTX ISA fragment
+    layouts). a: (32, 4) A registers, b: (32, 2) B registers of lanes
+    4g + t. Returns (32, 4): c0, c1 at row g, columns 2t, 2t+1; c2, c3 at
+    row g + 8."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    ab, bb = _bytes(a), _bytes(b)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        A[g, 4 * t:4 * t + 4] = ab[lane, 0]
+        A[g + 8, 4 * t:4 * t + 4] = ab[lane, 1]
+        A[g, 16 + 4 * t:20 + 4 * t] = ab[lane, 2]
+        A[g + 8, 16 + 4 * t:20 + 4 * t] = ab[lane, 3]
+        B[4 * t:4 * t + 4, g] = bb[lane, 0]
+        B[16 + 4 * t:20 + 4 * t, g] = bb[lane, 1]
+    C = A @ B
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    return np.stack([C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t], C[g + 8, 2 * t + 1]], -1)
+
+
+def _plane_stride(n):
+    return ((n + 23) & ~31) + 8
+
+
+def _pack(q):
+    """Planar activation words of an int8 (h, w, ic) extent, as the
+    kernel's buffers hold them: one plane (channel c in byte c) for ic <= 4,
+    else four planes, word p holding channels p, p+4, p+8, p+12."""
+    h, w, ic = q.shape
+    if ic <= 4:
+        b = np.zeros((h * w, 4), np.int8)
+        b[:, :ic] = q.reshape(h * w, ic)
+        return b.view(np.int32).reshape(-1), 0
+    ps = _plane_stride(h * w)
+    words = np.zeros(4 * ps, np.int32)
+    for p in range(4):
+        b = np.ascontiguousarray(q.reshape(h * w, ic)[:, p::4])
+        words[p * ps:p * ps + h * w] = b.view(np.int32).reshape(-1)
+    return words, ps
+
+
+def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew):
+    """Per-pass int32 sums (pass, eh * ew, oc) of one layer, through the
+    kernel's A offsets, the B fragments and the MMA model. Returns them
+    and the number of MMAs issued."""
+    npass, chunks, tap_major = convert.layer_geometry(k, ic, split)
+    nt = -(-oc // 8)
+    frag = frag.reshape(npass, chunks, 32, nt, 2)
+    kk, iw, npix = k * k, ew + k - 1, eh * ew
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+
+    def off(tap):
+        return np.where(tap < kk, (tap // k) * iw + tap % k, 0)
+
+    out = np.zeros((npass, npix, oc), np.int64)
+    mmas = 0
+    for mt in range(-(-npix // 16)):
+        rows = mt * 16 + g[:, None] + 8 * np.arange(2)             # (lane, g / g + 8)
+        rc = np.minimum(rows, npix - 1)
+        base = (rc // ew) * iw + rc % ew
+        for p in range(npass):
+            acc = np.zeros((32, nt, 4), np.int64)
+            for c in range(chunks):
+                if tap_major:           # k-slot s: tap 8c + s of the pass's word
+                    plane = (p if ic > 4 else 0) * ps
+                    oa, ob = plane + off(8 * c + t), plane + off(8 * c + t + 4)
+                else:                   # k-slot s: tap 2c + s // 4, word s % 4
+                    oa, ob = t * ps + off(np.full(32, 2 * c)), t * ps + off(np.full(32, 2 * c + 1))
+                a = np.stack([words[base[:, 0] + oa], words[base[:, 1] + oa],
+                              words[base[:, 0] + ob], words[base[:, 1] + ob]], -1)
+                for n in range(nt):
+                    acc[:, n] += _mma(a, frag[p, c, :, n])
+                    mmas += 1
+            for n in range(nt):
+                for i in range(4):
+                    # the kernel's epilogue: a hidden layer's lane t holds
+                    # channel t + 4j in accumulator (n, i), j = 2n + (i & 1)
+                    # (byte j of word t); the last layer's n-tile n, column
+                    # 2t + (i & 1) is channel 8n + 2t + (i & 1)
+                    r = rows[:, i // 2]
+                    o = 8 * n + 2 * t + (i & 1) if last else t + 4 * (2 * n + (i & 1))
+                    ok = (r < npix) & (o < oc)
+                    out[p, r[ok], o[ok]] = acc[ok, n, i]
+    return out, mmas
+
+
+def _valid_conv(q, w):
+    """The plain version's exact integer conv, cropped to the valid extent."""
+    k = w.shape[0]
+    y = _conv_int(torch.from_numpy(q[None].astype(np.float64)), w)[0].numpy()
+    return y[k // 2:y.shape[0] - k // 2, k // 2:y.shape[1] - k // 2]
+
+
+def _artifact(task):
+    return spec_for_task(task), QuantParams.load(
+        os.path.join(ARTIFACT_DIR, f"qparams_{task}.npz"))
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["per-PE", "one-pass"])
+@pytest.mark.parametrize("task", ["sr_x2", "sr_x4", "nrdm_3", "nrdm_6"])
+def test_mma_fragments_compute_the_layer_convs(task, split):
+    spec, qp = _artifact(task)
+    L = spec.num_convs
+    rng = np.random.default_rng(7)
+    eh, ew = EXTENT
+    for i, w in enumerate(qp.w_int):
+        w = np.asarray(w)
+        k, _, ic, oc = w.shape
+        q = rng.integers(-128, 128, size=(eh + k - 1, ew + k - 1, ic)).astype(np.int8)
+        words, ps = _pack(q)
+        frag = convert._fragment_words(w, split, qp.hw.pe, last=i == L - 1)
+        got, mmas = _model_layer(words, ps, frag, k, ic, oc, split, i == L - 1, eh, ew)
+        got = got.reshape(-1, eh, ew, oc)
+        if split:                               # one pass per PE
+            want = [_valid_conv(q[..., m], w[:, :, m, :])
+                    for m in (pe_channel_mask(ic, qp.hw.pe, p) for p in range(qp.hw.pe))
+                    if m.any()]
+        else:
+            want = [_valid_conv(q, w)]
+        np.testing.assert_array_equal(got, np.stack(want), err_msg=f"{task} layer {i}")
+        passes, chunks, _ = convert.layer_geometry(k, ic, split)
+        assert mmas == -(-eh * ew // 16) * passes * chunks * -(-oc // 8)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["K1", "K2"])
+@pytest.mark.parametrize("task", ["sr_x2", "sr_x4", "nrdm_3", "nrdm_6"])
+def test_kernel_constants_take_each_layers_form(task, exact):
+    """K2 runs every layer in one pass and clamps to 20 bits exactly where
+    that clamp can fire; K1 splits exactly the layers where the 18-bit clamp
+    can fire, never clamps to 20 bits, and its weights are those layers'
+    per-PE fragments and the others' one-pass fragments."""
+    spec, qp = _artifact(task)
+    kc = convert.kernel_constants(spec, qp, exact)
+    L = spec.num_convs
+    assert kc.pe_split == (convert.pe_split_layers(qp) if exact else (False,) * L)
+    assert kc.clamp20 == ((False,) * L if exact else convert.clamp20_layers(qp))
+    for key, flags in (("pe_split", kc.pe_split), ("clamp20", kc.clamp20)):
+        assert kc.params[convert.PARAM_LAYOUT[key]] == sum(1 << i for i in range(L) if flags[i])
+    want = [convert._fragment_words(np.asarray(w), kc.pe_split[i], qp.hw.pe, i == L - 1)
+            for i, w in enumerate(qp.w_int)]
+    np.testing.assert_array_equal(kc.weights, np.concatenate(want))
+
+
+def test_pe_split_proof():
+    """A layer left unsplit never saturates a PE's 18-bit sum on data; a
+    layer with weights at +-127 must be split, and then does saturate."""
+    spec, qp = _artifact("sr_x2")
+    assert convert.pe_split_layers(qp) == (False, False, False, False, True)
+    w = list(qp.w_int)
+    w[1] = np.where(np.asarray(w[1]) >= 0, 127, -127).astype(np.asarray(w[1]).dtype)
+    sat = dataclasses.replace(qp, w_int=w)
+    assert convert.pe_split_layers(sat)[1]
+    x = np.random.default_rng(5).random((1, 20, 28, 3), dtype=np.float32)
+    for cqp in (qp, sat):
+        _, dumps = integer_forward(spec, cqp, x, collect_dumps=True, device="cpu")
+        ovf = dumps["overflow_18"].numpy()
+        split = convert.pe_split_layers(cqp)
+        assert not any(ovf[i] for i in range(spec.num_convs) if not split[i])
+    assert ovf[1] > 0
+
+
+def test_clamp20_proof():
+    """A layer the fast kernel runs without its 20-bit clamp never reaches
+    it on data; weights at +-127 need it, and the fast kernel refuses an
+    artifact whose conv 0 could reach it."""
+    spec, qp = _artifact("sr_x2")
+    assert convert.clamp20_layers(qp) == (False,) * 5
+    hi = 2 ** (qp.hw.pe_add_bits - 1) - 1
+    w = list(qp.w_int)
+    for i in (1, 4):
+        w[i] = np.where(np.asarray(w[i]) >= 0, 127, -127).astype(np.asarray(w[i]).dtype)
+    sat = dataclasses.replace(qp, w_int=w)
+    assert convert.clamp20_layers(sat) == (False, True, False, False, True)
+    x = np.random.default_rng(6).random((1, 20, 28, 3), dtype=np.float32)
+    for cqp in (qp, sat):
+        _, dumps = integer_forward(spec, cqp, x, collect_dumps=True, corrected=True,
+                                   compute="fast", device="cpu")
+        clamp = convert.clamp20_layers(cqp)
+        at = [int(((dumps[f"pe_add.{i}"] == hi) | (dumps[f"pe_add.{i}"] == -hi - 1)).sum())
+              for i in range(spec.num_convs)]
+        assert not any(at[i] for i in range(spec.num_convs) if not clamp[i])
+    assert at[1] > 0
+    w0 = list(qp.w_int)
+    w0[0] = np.where(np.asarray(w0[0]) >= 0, 127, -127).astype(np.asarray(w0[0]).dtype)
+    with pytest.raises(NotImplementedError, match="conv 0"):
+        convert.kernel_constants(spec, dataclasses.replace(qp, w_int=w0), False)
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("split,want", [((False,) * 5, 3_023_280), ((True,) * 5, 5_312_160),
+                                        ((False,) * 4 + (True,), 3_219_120)],
+                         ids=["K2", "all-split", "K1"])
+def test_mma_count_sr_x2_frame(split, want):
+    """MMAs per 540x960 sr_x2 frame at the 16x32 tile, as chip_smoke.py
+    computes them from the tile geometry: 1020 blocks, each over the
+    extents 26x42, 24x40, 22x38, 20x36 and 16x32."""
+    mma_count = _chip_smoke().mma_count
+    assert mma_count(spec_for_task("sr_x2"), split, 1, 540, 960, (16, 32)) == want
