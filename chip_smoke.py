@@ -7,7 +7,8 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 (non-zero exit, no "ok" line) without them. Phases:
 
 1. the card: nvidia-smi's name and power limit, torch's device name;
-2. build the fused kernels from csrc/ (nvcc), with the -Xptxas -v report;
+2. build every kernel library from csrc/ (one nvcc per source, all started
+   together), with the -Xptxas -v report;
 3. each kernel against its plain PyTorch version on numpy-seeded inputs:
    K1 (sesr_pe_exact_net) and K2 (sesr_fast_net) at 540x960, 27x45 and a
    ragged 37x53 at batch 2, K2 at batch 4, both at 27x45 with zero points
@@ -29,7 +30,17 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 6. where a served frame's time goes, at batch 1 and 4: the forward on an
    input already on the card, and the round trip from a numpy input to a
    numpy output; wall ms/frame by CUDA events, device ms/frame of every
-   kernel and copy by torch.profiler, and the idle share 1 - busy / wall.
+   kernel and copy by torch.profiler, and the idle share 1 - busy / wall;
+7. the probes (csrc/probes.cu, the counterparts of the TPU-compiler probes
+   in tools/): ``python -m sesr_tpu_torch.probes`` conv, gemm and bitcast
+   with the probe kernels' launch counters at 0, every kernel at the
+   probes' full sizes against its plain version (int8 and int32 outputs
+   torch.equal, bf16 conv steps after 3 steps within 2^-7 max|plain|, r3a's
+   own shapes refused with no launch), and each kernel's device time (CUDA
+   events, the device kept busy while the host enqueues) beside its plain
+   version's, its library call's (torch._int_mm timed with B row-major and
+   column-major, the faster reported) and its bound; registers and shared
+   memory from CUPTI.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -52,6 +63,19 @@ BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238"}
 TILE_SWEEP = ((16, 32), (24, 32), (32, 32), (16, 64), (24, 48), (32, 64))
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
+PROBE_SOURCE = "sesr_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {
+    "probe_gemm": "tools/bench_probe_pallas_int8.py:65; the dots of "
+                  "tools/bench_probe_pallas_conv.py:122 (mm variants) and "
+                  "tools/bench_probe_r3a.py:343",
+    "probe_conv_step": "tools/bench_probe_pallas_conv.py:122",
+    "probe_unpack_words": "tools/bench_probe_r3b.py:82; the bitcast of "
+                          "tools/bench_probe_r3a.py:343",
+    "probe_packed_dot": "tools/bench_probe_r3b.py:147; tools/bench_probe_r3b.py:164",
+}
+BF16_ITERS = 3                     # bf16 conv probes are compared after 3 steps,
+BF16_TOL = 2.0 ** -7               # within 2^-7 max|plain| elementwise
 
 
 def fail(msg):
@@ -68,21 +92,10 @@ def card_line():
     return res.stdout.strip()
 
 
-def cuda_ms(torch, fn, iters, warmup=2):
-    """Median milliseconds of fn() by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
+def bound(ops, nbytes, ops_per_s):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _short(name):
@@ -123,29 +136,31 @@ def mma_count(spec, pe_split, n, h, w, tile):
     return per_block * n * -(-h // th) * -(-w // tw)
 
 
-def launch_attrs(torch, launches):
+def launch_attrs(torch, launches, pattern="sesr_net_kernel"):
     """{key: (registers per thread, shared memory bytes per block)} of the
-    one fused-kernel launch each fn of ``launches`` ({key: fn}) makes, as
-    CUPTI reports them in torch.profiler's trace; (None, None) where the
-    trace does not hold them."""
+    launch of a kernel whose name holds ``pattern`` that each fn of
+    ``launches`` ({key: fn}) makes, as CUPTI reports them in torch.profiler's
+    trace; (None, None) where the trace does not hold them. Each fn is
+    traced on its own and its last such kernel read: a trace may carry
+    kernels of an earlier trace, or miss one."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for fn in launches.values():
-            fn()
-        torch.cuda.synchronize()
     path = os.path.join(REPO, "build", "chip_smoke_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
+    attrs = {}
+    for key, fn in launches.items():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                          and pattern in e.get("name", "")), key=lambda e: e["ts"])
+        args = kernels[-1].get("args", {}) if kernels else {}
+        attrs[key] = (args.get("registers per thread"), args.get("shared memory"))
     os.unlink(path)
-    kernels = sorted((e for e in events if e.get("cat") == "kernel"
-                      and "sesr_net_kernel" in e.get("name", "")), key=lambda e: e["ts"])
-    if len(kernels) != len(launches):
-        return {key: (None, None) for key in launches}
-    return {key: (e.get("args", {}).get("registers per thread"),
-                  e.get("args", {}).get("shared memory"))
-            for key, e in zip(launches, kernels)}
+    return attrs
 
 
 def breakdown(torch, fn, frames, iters=20):
@@ -173,6 +188,290 @@ def breakdown(torch, fn, frames, iters=20):
     return wall, sum(per.values()), dict(sorted(per.items(), key=lambda kv: -kv[1]))
 
 
+def probes_phase(torch, dev):
+    """Phase 7, the probes: the probe path with the launch counters at 0,
+    each kernel of csrc/probes.cu against its plain version, and the times.
+    Returns the four kernels' entries of the ``kernels`` line; an entry's
+    max_abs_err is the largest difference over every comparison of that
+    kernel with its plain version in this phase."""
+    import torch.nn.functional as F
+
+    from sesr_tpu_torch.probes import bitcast, conv, int8_gemm, plain
+    from sesr_tpu_torch.probes import kernels as pk
+    from sesr_tpu_torch.probes.__main__ import main as probes_main
+    from sesr_tpu_torch.timing import median_ms
+
+    # 7a. the probe path a user runs, with the launch counters at 0
+    pk.reset_launch_counts()
+    for probe in ("conv", "gemm", "bitcast"):
+        print(f"[7] python -m sesr_tpu_torch.probes {probe} --reps 2:", flush=True)
+        probes_main([probe, "--reps", "2"])
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in pk.PROBE_KERNELS}
+    print(f"[7] launches over the probe path (warm-up + 2 timed calls of each variant): "
+          f"{launches}", flush=True)
+    if min(launches.values()) < 1:
+        fail(f"the probe path did not go through every probe kernel: {launches}")
+
+    def counts():
+        return {k.symbol: k.launches for k in pk.PROBE_KERNELS}
+
+    def on_card(arr, dtype=None):
+        t = torch.from_numpy(arr).to(dev)
+        return t if dtype is None else t.to(dtype)
+
+    def device_ms(fn, reps=20, lead_ms=1.0):
+        return median_ms(fn, dev, reps, lead_ms=lead_ms)
+
+    # 7b. every kernel against its plain version
+    err = {k.symbol: 0.0 for k in pk.PROBE_KERNELS}
+
+    def compare(sym, got, want):
+        """max |got - want|, kept as the kernel's max_abs_err if larger."""
+        diff = float((got.double() - want.double()).abs().max())
+        err[sym] = max(err[sym], diff)
+        return diff
+
+    c = conv.C
+    p1 = {}
+    for name, (x, w) in conv.make_inputs().items():
+        form, dtype = conv.VARIANTS[name]
+        xt, wt = on_card(x, dtype), on_card(w, dtype)
+        p1[name] = (xt, wt)
+        iters = conv.ITERS if dtype == torch.int8 else BF16_ITERS
+        got = conv.conv_probe(xt, wt, name, iters)
+        want = conv.plain_probe(xt, wt.reshape(9 * c, c), form, iters)
+        sym = "probe_gemm" if form == "mm" else "probe_conv_step"
+        diff = compare(sym, got, want)
+        top = float(want.abs().max())
+        ok = torch.equal(got, want) if dtype == torch.int8 else diff <= BF16_TOL * top
+        print(f"[7] P1 {name} ({sym}), {iters} steps: "
+              f"{'torch.equal' if dtype == torch.int8 else f'max |diff| {diff} <= 2^-7 * {top}'}"
+              f" with plain (cuda) = {ok}; max|plain| {top}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version after {iters} steps")
+    p2 = {}
+    for name, (a, b) in int8_gemm.make_inputs().items():
+        dtype, out_dtype = int8_gemm.VARIANTS[name]
+        at, bt = on_card(a, dtype), on_card(b, dtype)
+        p2[name] = (at, bt)
+        got = int8_gemm.gemm_probe(at, bt, name)
+        want = plain.gemm(at, bt, out_dtype)
+        diff = compare("probe_gemm", got, want)
+        equal = torch.equal(got, want)
+        print(f"[7] P2 {name} at {int8_gemm.SIZE}^3: torch.equal with plain (cuda) = {equal}, "
+              f"max |diff| {diff}", flush=True)
+        if not equal:
+            fail(f"probe_gemm {name} disagrees with its plain version")
+    words, w_r3a = (on_card(t) for t in bitcast.r3a_inputs())
+    before = counts()
+    try:
+        bitcast.bitcast_dot(words, w_r3a)
+        fail("r3a's own shapes (words (256, 128), w (512, 256)) did not raise")
+    except TypeError as e:
+        print(f"[7] P3 on r3a's shapes raises before any launch: {e}", flush=True)
+    if counts() != before:
+        fail(f"P3 on r3a's shapes launched: {before} -> {counts()}")
+    w_ok = on_card(bitcast.r3a_inputs(bitcast.CONSISTENT_W_ROWS)[1])
+    a8_r3a = plain.unpack_words(words, 1)
+    words_l = on_card(bitcast.layout_inputs()[1])
+    layout = bitcast.bitcast_layout_probe(dev)
+    a8, w8, packed, wb = bitcast.byteplane_inputs()
+    packed, wb, w8t = on_card(packed), on_card(wb), on_card(w8)
+    got = bitcast.byteplane_dot(packed, wb)
+    checks = {
+        "P3 unpack (256, 128) roll 1": ("probe_unpack_words", bitcast.unpack_words(words, 1),
+                                        a8_r3a),
+        "P3 dot, w (128, 256)": ("probe_gemm", bitcast.bitcast_dot(words, w_ok),
+                                 plain.gemm(a8_r3a, w_ok, torch.int32)),
+        "P4 unpack (8, 128)": ("probe_unpack_words", bitcast.unpack_words(words_l),
+                               plain.unpack_words(words_l)),
+        "P5 byte-plane dot": ("probe_packed_dot", got, plain.packed_dot(packed, wb)),
+        "P5 byte-plane dot against numpy a8 @ w8": (
+            "probe_packed_dot", got.cpu(),
+            torch.from_numpy(a8.astype(np.int32) @ w8.astype(np.int32))),
+        "P6 byte-plane dot, f32": ("probe_packed_dot",
+                                   bitcast.byteplane_dot(packed, wb, torch.float32),
+                                   plain.packed_dot(packed, wb, torch.float32))}
+    for label, (sym, g, want) in checks.items():
+        diff = compare(sym, g, want)
+        equal = torch.equal(g, want)
+        print(f"[7] {label} ({sym}): torch.equal = {equal}, max |diff| {diff}", flush=True)
+        if not equal:
+            fail(f"{label} disagrees with its plain version")
+    print(f"[7] P4 bitcast layout probe: {layout}", flush=True)
+    if layout != "m*4+b":
+        fail(f"the unpack's row layout is {layout}, not m*4+b")
+    print(f"[7] max_abs_err over every comparison, per kernel: {err}", flush=True)
+
+    # 7c. times: kernel, plain version and library call, each against its bound
+    entries = []
+
+    def entry(sym, work, ms, plain_ms, bnd, library_ms):
+        entries.append(dict(
+            name=sym, route="cuda", source=PROBE_SOURCE, replaces=PROBE_REPLACES[sym],
+            launches=launches[sym], max_abs_err=err[sym], ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms, work=work))
+
+    def report(label, ms, bnd, plain_ms=None, library_ms=None, library=""):
+        lib = f"{library_ms:.5f} ms ({library})" if library_ms is not None else "none"
+        pl_ = f"{plain_ms:.5f} ms" if plain_ms is not None else "-"
+        print(f"[7] {label}: {ms:.5f} ms, bound {bnd[0] * 1e3:.4f} us ({bnd[1]}), share "
+              f"{bnd[0] / ms:.4f}; plain {pl_}; library {lib}", flush=True)
+
+    def int_mm(a, b, f32=False):
+        """(device ms, label) of the faster of torch._int_mm(a, b) with b
+        row-major and column-major (transposed outside the timed region)."""
+        b_cm = b.t().contiguous().t()
+        want = torch._int_mm(a, b)
+        if not torch.equal(torch._int_mm(a, b_cm), want):
+            fail("torch._int_mm with a column-major B computes another product")
+        times = {}
+        for layout, bb in (("B row-major", b), ("B column-major", b_cm)):
+            times[layout] = device_ms((lambda: torch._int_mm(a, bb).float()) if f32 else
+                                      (lambda: torch._int_mm(a, bb)))
+        best = min(times, key=times.get)
+        print(f"[7]     torch._int_mm{'(..).float()' if f32 else ''} {tuple(a.shape)} x "
+              f"{tuple(b.shape)}: {times} ms", flush=True)
+        return times[best], f"torch._int_mm{'(..).float()' if f32 else ''}, {best}"
+
+    n = int8_gemm.SIZE
+    for name, (at, bt) in p2.items():
+        dtype, out_dtype = int8_gemm.VARIANTS[name]
+        ms = device_ms(lambda: pk.probe_gemm(at, bt, out_dtype))
+        plain_ms = device_ms(lambda: plain.gemm(at, bt, out_dtype), reps=5)
+        if dtype == torch.bfloat16:
+            lib_ms, lib_name = device_ms(lambda: torch.matmul(at, bt)), \
+                "torch.matmul, bf16 output"
+        else:
+            lib_ms, lib_name = int_mm(at, bt, f32=out_dtype == torch.float32)
+        bnd = bound(2 * n ** 3, 2 * n * n * at.element_size() + 4 * n * n,
+                    BF16_OPS_PER_S if dtype == torch.bfloat16 else INT8_OPS_PER_S)
+        report(f"P2 probe_gemm {name} {n}^3 (device time)", ms, bnd, plain_ms, lib_ms,
+               lib_name)
+        if name == "pallas_mm_int8":
+            entry("probe_gemm", f"int8 {n}^3 -> int32 (P2 pallas_mm_int8)", ms, plain_ms, bnd,
+                  lib_ms)
+
+    eh, ew = conv.E_H, conv.E_W
+    m = eh * ew
+    for name, (xt, wt) in p1.items():
+        form, dtype = conv.VARIANTS[name]
+        w9 = wt.reshape(9 * c, c)
+        call_ms = median_ms(lambda: conv.conv_probe(xt, wt, name), dev, 10, warmup=2)
+        dev_ms = device_ms(lambda: conv.conv_probe(xt, wt, name), reps=10, lead_ms=5.0)
+        plain_ms = median_ms(lambda: conv.plain_probe(xt, w9, form, conv.ITERS), dev, 3)
+        es = xt.element_size()
+        bnd = bound(conv.step_ops((eh, ew, c), form) * conv.ITERS,
+                    m * c * es + 9 * c * c * es + m * c * 4,
+                    INT8_OPS_PER_S if dtype == torch.int8 else BF16_OPS_PER_S)
+        print(f"[7] P1 {name}, one probe call ({conv.ITERS} launches): {call_ms:.5f} ms as the "
+              f"host issues it, {dev_ms:.5f} ms of device time (launches queued); bound "
+              f"{bnd[0] * 1e3:.4f} us ({bnd[1]}), share {bnd[0] / dev_ms:.4f} of the device "
+              f"time; plain {plain_ms:.5f} ms", flush=True)
+    # one step, one launch, in each type
+    for dtype in (torch.int8, torch.bfloat16):
+        name = "v2_int8_concat3" if dtype == torch.int8 else "v1_bf16_concat3"
+        xt, wt = p1[name]
+        w9 = wt.reshape(9 * c, c)
+        buf = torch.empty_like(xt)
+        step = plain.conv_step(xt, w9)
+        diff = compare("probe_conv_step", pk.probe_conv_step(xt, w9, out_x=buf)[0], step)
+        if diff != 0.0:
+            fail(f"one {dtype} probe_conv_step differs from its plain version by {diff}")
+        ms = device_ms(lambda: pk.probe_conv_step(xt, w9, out_x=buf), reps=30)
+        plain_ms = device_ms(lambda: plain.conv_step(xt, w9), reps=10)
+        es = xt.element_size()
+        bnd = bound(conv.step_ops((eh, ew, c)), 2 * m * c * es + 9 * c * c * es,
+                    INT8_OPS_PER_S if dtype == torch.int8 else BF16_OPS_PER_S)
+        lib_ms, lib_name = None, "none: PyTorch has no int8 conv on CUDA"
+        if dtype == torch.bfloat16:
+            x_nchw = xt.permute(2, 0, 1)[None].contiguous()
+            w_oihw = wt.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous()
+
+            def lib():
+                return F.conv2d(F.pad(x_nchw, (1, 1, 1, 1), mode="circular"), w_oihw)
+
+            # the library call computes the same conv: in f32 on these
+            # integer inputs its sums are exact, so its write-back is the plain step's
+            same = plain.write_back(F.conv2d(F.pad(x_nchw.float(), (1, 1, 1, 1), mode="circular"),
+                                             w_oihw.float())[0].permute(1, 2, 0), torch.bfloat16)
+            if not torch.equal(same, step):
+                fail("F.conv2d on the circularly padded tile is not the probe's conv")
+            lib_ms, lib_name = device_ms(lib), \
+                "F.pad circular + F.conv2d, bf16 NCHW, no write-back"
+        report(f"P1 probe_conv_step, one {str(dtype)[6:]} step, equal to plain (device time)",
+               ms, bnd, plain_ms, lib_ms, lib_name)
+        if dtype == torch.bfloat16:
+            entry("probe_conv_step", f"one bf16 step of P1 on ({eh}, {ew}, {c})", ms, plain_ms,
+                  bnd, lib_ms)
+    for name in ("v5_int8_mm", "v6_bf16_mm"):
+        xt, wt = p1[name]
+        a = xt.reshape(m // 9, 9 * c)
+        buf = torch.empty_like(xt).view(m, c)
+        ms = device_ms(lambda: pk.probe_gemm.write_back(a, wt, 9, out_x=buf), reps=30)
+        plain_ms = device_ms(lambda: plain.gemm_write_back(a, wt, 9), reps=10)
+        if xt.dtype == torch.int8:
+            lib_ms, lib_name = int_mm(a, wt)
+        else:
+            lib_ms, lib_name = device_ms(lambda: torch.matmul(a, wt)), "torch.matmul, bf16"
+        es = xt.element_size()
+        bnd = bound(conv.step_ops((eh, ew, c), "mm"), 2 * m * c * es + 9 * c * c * es,
+                    INT8_OPS_PER_S if xt.dtype == torch.int8 else BF16_OPS_PER_S)
+        report(f"P1 probe_gemm write-back, one {name} step (device time)", ms, bnd, plain_ms,
+               lib_ms, lib_name)
+
+    for label, wds, roll in (("P3 (256, 128) roll 1", words, 1), ("P4 (8, 128)", words_l, 0)):
+        ms = device_ms(lambda: pk.probe_unpack_words(wds, roll), reps=30)
+        plain_ms = device_ms(lambda: plain.unpack_words(wds, roll))
+        bnd = bound(0, 2 * wds.numel() * 4, INT8_OPS_PER_S)
+        report(f"{label} probe_unpack_words (device time)", ms, bnd, plain_ms)
+        if roll:
+            entry("probe_unpack_words", "P3's unpack: (256, 128) int32 words, roll 1", ms,
+                  plain_ms, bnd, None)
+    ms = device_ms(lambda: bitcast.bitcast_dot(words, w_ok), reps=30)
+    plain_ms = device_ms(lambda: plain.gemm(plain.unpack_words(words, 1), w_ok, torch.int32))
+    lib_ms, lib_name = int_mm(a8_r3a, w_ok)
+    bnd = bound(2 * a8_r3a.shape[0] * a8_r3a.shape[1] * w_ok.shape[1],
+                words.numel() * 4 + w_ok.numel() + a8_r3a.shape[0] * w_ok.shape[1] * 4,
+                INT8_OPS_PER_S)
+    report("P3 bitcast_dot on consistent shapes (unpack + probe_gemm, device time)", ms, bnd,
+           plain_ms, lib_ms, f"{lib_name}, on the unpacked operand")
+    mb, kb, nb = bitcast.BYTEPLANE_SHAPES
+    lib_a8 = packed.view(torch.int8).reshape(mb, kb)
+    for out_dtype in (torch.int32, torch.float32):
+        ms = device_ms(lambda: pk.probe_packed_dot(packed, wb, out_dtype), reps=30)
+        plain_ms = device_ms(lambda: plain.packed_dot(packed, wb, out_dtype))
+        lib_ms, lib_name = int_mm(lib_a8, w8t, f32=out_dtype == torch.float32)
+        bnd = bound(2 * mb * kb * nb, packed.numel() * 4 + wb.numel() + mb * nb * 4,
+                    INT8_OPS_PER_S)
+        label = "P5" if out_dtype == torch.int32 else "P6 (f32 output)"
+        report(f"{label} probe_packed_dot (device time)", ms, bnd, plain_ms, lib_ms,
+               f"{lib_name}, words viewed int8 (1024, 512) x w8")
+        if out_dtype == torch.int32:
+            entry("probe_packed_dot", "P5: words (1024, 128) int32 x wb (4, 128, 128) -> int32",
+                  ms, plain_ms, bnd, lib_ms)
+
+    # registers and shared memory per block, as CUPTI reports them
+    x_i8, w_i8 = p1["v2_int8_concat3"]
+    x_bf, w_bf = p1["v1_bf16_concat3"]
+    a_p2, b_p2 = p2["pallas_mm_int8"]
+    a_bf, b_bf = p2["pallas_mm_bf16"]
+    attrs = launch_attrs(torch, {
+        "probe_gemm int8 128x128 tiles (P2)": lambda: pk.probe_gemm(a_p2, b_p2),
+        "probe_gemm bf16 128x128 tiles (P2)": lambda: pk.probe_gemm(a_bf, b_bf, torch.float32),
+        "probe_gemm int8 64x64 tiles (P3 dot)": lambda: pk.probe_gemm(a8_r3a, w_ok),
+        "probe_conv_step int8": lambda: pk.probe_conv_step(x_i8, w_i8.reshape(9 * c, c)),
+        "probe_conv_step bf16": lambda: pk.probe_conv_step(x_bf, w_bf.reshape(9 * c, c)),
+        "probe_unpack_words": lambda: pk.probe_unpack_words(words, 1),
+        "probe_packed_dot": lambda: pk.probe_packed_dot(packed, wb)}, pattern="probe_")
+    for key, (regs, smem) in attrs.items():
+        print(f"[7] CUPTI {key}: {regs if regs is not None else 'not measured'} registers "
+              f"per thread, {smem if smem is not None else 'not measured'} B shared memory "
+              f"per block", flush=True)
+    return entries
+
+
 def main():
     import torch
 
@@ -195,6 +494,7 @@ def main():
                                                   integer_forward_int8,
                                                   quantize_input)
         from sesr_tpu_torch.quant.params import QuantParams
+        from sesr_tpu_torch.timing import median_ms
     except ImportError as e:
         fail(f"the port is not next to this script ({e})")
 
@@ -207,11 +507,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False       # the plain version's convs
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build
+    # 2. build every library, one nvcc per source, all started together
     t0 = time.perf_counter()
-    build = _build.build()
-    print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
-          f"(call {time.perf_counter() - t0:.1f} s)\n{build.log.strip()}", flush=True)
+    for build in _build.build_all().values():
+        print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
+              f"\n{build.log.strip()}", flush=True)
+    print(f"[2] both builds took {time.perf_counter() - t0:.1f} s", flush=True)
 
     spec = spec_for_task(TASK)
     qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
@@ -358,16 +659,16 @@ def main():
         for tile in TILE_SWEEP:
             if not torch.equal(kern(spec, qp, x_q, tile=tile), ref):
                 fail(f"{kern.symbol} at tile {tile} differs from tile {TILE}")
-            tile_ms = cuda_ms(torch, lambda: kern(spec, qp, x_q, tile=tile), iters=30, warmup=3)
+            tile_ms = median_ms(lambda: kern(spec, qp, x_q, tile=tile), dev, 30, warmup=3)
             regs, smem = attrs[tile]
             print(f"[5] {kern.symbol} tile {tile[0]}x{tile[1]}: {tile_ms:.4f} ms/frame; "
                   f"CUPTI: {regs if regs is not None else 'not measured'} registers per "
                   f"thread, {smem if smem is not None else 'not measured'} B shared memory "
                   f"per block; {mma_count(spec, split, 1, *FRAME, tile)} MMAs per frame "
                   f"(computed from the tile geometry)", flush=True)
-        ms = cuda_ms(torch, lambda: kern(spec, qp, x_q), iters=30, warmup=3)
-        plain_ms = cuda_ms(torch, lambda: integer_forward(spec, qp, x, **modes[kern.symbol]),
-                           iters=5, warmup=1)
+        ms = median_ms(lambda: kern(spec, qp, x_q), dev, 30, warmup=3)
+        plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **modes[kern.symbol]),
+                             dev, 5)
         mmas = mma_count(spec, split, 1, *FRAME, TILE)
         entries.append(dict(
             name=kern.symbol, route="cuda", source="sesr_tpu_torch/csrc/sesr_net.cu",
@@ -382,7 +683,7 @@ def main():
               f"bound {max(t_ops, t_bytes) * 1e3:.3f} us = {2 * macs:.4g} int8 ops "
               f"({t_ops * 1e3:.3f} us) vs {moved} bytes ({t_bytes * 1e3:.3f} us), "
               f"share of bound {max(t_ops, t_bytes) / ms:.4f}", flush=True)
-    fwd_ms = cuda_ms(torch, lambda: fast_forward(spec, qp, x), iters=20, warmup=3)
+    fwd_ms = median_ms(lambda: fast_forward(spec, qp, x), dev, 20, warmup=3)
     print(f"[5] fast_forward end to end (quantize, K2, dequantize, shuffle): "
           f"{fwd_ms:.4f} ms/frame", flush=True)
 
@@ -400,6 +701,9 @@ def main():
                   f"ms/frame, idle share {idle}", flush=True)
             for k, t in per.items():
                 print(f"[6]     {t:.4f} ms  {k}", flush=True)
+
+    # 7. the probes
+    entries += probes_phase(torch, dev)
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -23,7 +23,7 @@ from sesr_tpu_torch.quant.integer import (as_input, integer_forward,
                                           integer_forward_int8)
 from sesr_tpu_torch.quant.params import QuantParams
 
-ROADMAP_ITEM = ("ROADMAP.md queue 1, item 1: corrected PE-exact and "
+ROADMAP_ITEM = ("ROADMAP.md queue 1, item 2: corrected PE-exact and "
                 "layer-hybrid deployment modes on the card")
 
 

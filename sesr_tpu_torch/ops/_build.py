@@ -1,11 +1,12 @@
-"""Build ``csrc/*.cu`` with nvcc into ``build/kernels/`` and load it.
+"""Build each ``csrc/<name>.cu`` with nvcc into ``build/kernels/`` and load it.
 
-Route (b) of a hand-written kernel: a shared library with a plain C
-interface (no PyTorch header, so nvcc takes seconds), loaded with ctypes.
-The library's name carries a hash of its source and flags, so an edited
-source builds anew and an unchanged one loads from the build directory.
-Nothing is built when this module is imported: ``load()`` builds at first
-use.
+Route (b) of a hand-written kernel: one shared library per source, with a
+plain C interface (no PyTorch header, so nvcc takes seconds), loaded with
+ctypes. A library's file name carries a hash of its own source and the
+flags, so an edited source builds anew, an unchanged one loads from the
+build directory, and editing one source leaves the other libraries' names
+as they were. Nothing is built when this module is imported: ``load(name)``
+builds at first use.
 """
 
 from __future__ import annotations
@@ -19,19 +20,37 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE / "csrc" / "sesr_net.cu"
+CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# the two network entry points share one signature:
-# (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, stream)
-NET_ARGTYPES = [_PTR, _PTR, _PTR, _PTR] + [_INT] * 8 + [_PTR]
+# every entry point of each library, with its argument types; each returns
+# a cudaError_t as int, and each library exports <prefix>_error_string
+SIGNATURES = {
+    "sesr_net": {
+        # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, stream)
+        "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
+        "sesr_fast_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
+    },
+    "probes": {
+        # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)
+        "probe_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+        # (x, w, out_x, out_f32, eh, ew, c, in_bf16, stream)
+        "probe_conv_step": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        # (words, out, m, n, roll, stream)
+        "probe_unpack_words": [_PTR] * 2 + [_INT] * 3 + [_PTR],
+        # (words, wb, out, m, k_words, n, out_f32, stream)
+        "probe_packed_dot": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    },
+}
+ERROR_STRING = {"sesr_net": "sesr_error_string", "probes": "probe_error_string"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,16 +67,24 @@ def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
         raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): "
-                           "the fused kernels are built from source at first use")
+                           "the kernels are built from source at first use")
     return nvcc
 
 
-def build() -> Build:
-    """Compile the kernels' library unless a build of this exact source and
-    flag set exists. Raises RuntimeError with nvcc's output on failure."""
-    src = SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built: the
+    name carries a hash of that source and of the flags."""
+    if name not in SIGNATURES:
+        raise ValueError(f"no kernel library {name!r}; known: {sorted(SIGNATURES)}")
+    src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libsesr_net-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Build:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    flag set exists. Raises RuntimeError with nvcc's output on failure."""
+    lib = library_path(name)
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
@@ -65,7 +92,7 @@ def build() -> Build:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
@@ -81,15 +108,26 @@ def build() -> Build:
     return Build(lib, seconds, log)
 
 
+def build_all() -> dict[str, Build]:
+    """Every library, one nvcc per source, all started together."""
+    with ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        return dict(zip(SIGNATURES, pool.map(build, SIGNATURES)))
+
+
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The kernels' library, built if needed, with every entry point's
-    argument and result types declared."""
-    lib = ctypes.CDLL(str(build().path))
-    for name in ("sesr_pe_exact_net", "sesr_fast_net"):
-        fn = getattr(lib, name)
-        fn.argtypes = NET_ARGTYPES
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built if needed, with every entry
+    point's argument and result types declared."""
+    lib = ctypes.CDLL(str(build(name).path))
+    for symbol, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = _INT
-    lib.sesr_error_string.argtypes = [_INT]
-    lib.sesr_error_string.restype = ctypes.c_char_p
+    err = getattr(lib, ERROR_STRING[name])
+    err.argtypes = [_INT]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def error_string(name: str, err: int) -> str:
+    return getattr(load(name), ERROR_STRING[name])(err).decode()

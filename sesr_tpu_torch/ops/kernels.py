@@ -57,7 +57,7 @@ class NetKernel:
                           device=x_q.device)
         if out.numel() == 0:
             return out
-        lib = _build.load()
+        lib = _build.load("sesr_net")
         with torch.cuda.device(x_q.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, self.symbol)(
@@ -66,7 +66,7 @@ class NetKernel:
                 kc.out_channels, *tile, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: "
-                               f"{lib.sesr_error_string(err).decode()} ({err})")
+                               f"{_build.error_string('sesr_net', err)} ({err})")
         self.launches += 1
         return out
 

@@ -1,0 +1,183 @@
+"""ctypes wrappers of the four probe kernels of ``csrc/probes.cu``, each with
+its launch counter.
+
+``probe_gemm``          replaces tools/bench_probe_pallas_int8.py:65 and the dots
+                        of tools/bench_probe_pallas_conv.py:122 (mm variants)
+                        and tools/bench_probe_r3a.py:343
+``probe_conv_step``     replaces tools/bench_probe_pallas_conv.py:122
+``probe_unpack_words``  replaces the bitcast of tools/bench_probe_r3b.py:82 and
+                        tools/bench_probe_r3a.py:343
+``probe_packed_dot``    replaces tools/bench_probe_r3b.py:147 and :164
+
+A wrapper takes tensors on a CUDA device, checks their types and shapes,
+allocates its outputs and launches on PyTorch's current stream. It refuses
+a CPU tensor with ValueError (the probe functions in ``conv.py``,
+``int8_gemm.py`` and ``bitcast.py`` take the plain version, ``plain.py``,
+for those) and raises RuntimeError when a launch is refused. ``launches``
+counts the launches it made.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sesr_tpu_torch.ops import _build
+
+K_BYTES = 64        # bytes of K per pipeline stage of the GEMM tile
+N_TILE = 64         # the GEMM's narrowest block tile of N
+EPI_S32, EPI_F32, EPI_WB = 0, 1, 2
+IN_TYPES = (torch.int8, torch.bfloat16)
+
+
+class ProbeKernel:
+    """One entry point of the probes' library."""
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+
+    def _launch(self, device: torch.device, *args) -> None:
+        fn = getattr(_build.load("probes"), self.symbol)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: "
+                               f"{_build.error_string('probes', err)} ({err})")
+        self.launches += 1
+
+    def _check(self, *tensors: torch.Tensor) -> torch.device:
+        dev = tensors[0].device
+        for t in tensors:
+            if t.device.type != "cuda" or t.device != dev:
+                raise ValueError(f"{self.symbol} runs on CUDA tensors of one device, "
+                                 f"got {[str(u.device) for u in tensors]}")
+            if not t.is_contiguous():
+                raise ValueError(f"{self.symbol} takes contiguous tensors")
+        return dev
+
+
+def _gemm_operands(kern: ProbeKernel, a: torch.Tensor, b: torch.Tensor):
+    dev = kern._check(a, b)
+    if a.dtype not in IN_TYPES or b.dtype != a.dtype or a.dim() != 2 or b.dim() != 2 \
+            or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{kern.symbol} takes a (M, K) and b (K, N) of one type "
+                         f"int8 or bfloat16, got {a.dtype} {tuple(a.shape)}, "
+                         f"{b.dtype} {tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if (k * a.element_size()) % K_BYTES or n % N_TILE:
+        raise ValueError(f"{kern.symbol} needs K * element bytes % {K_BYTES} == 0 and "
+                         f"N % {N_TILE} == 0, got K={k} N={n}")
+    return dev, m, n, k
+
+
+class ProbeGemm(ProbeKernel):
+    def __call__(self, a: torch.Tensor, b: torch.Tensor,
+                 out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+        """(M, N) a @ b in ``out_dtype``: int32 (int8 inputs only) or
+        float32. int8 inputs are summed exactly in int32."""
+        dev, m, n, k = _gemm_operands(self, a, b)
+        if out_dtype not in (torch.int32, torch.float32) or \
+                (out_dtype == torch.int32 and a.dtype != torch.int8):
+            raise ValueError(f"{self.symbol}: out_dtype {out_dtype} for {a.dtype} inputs")
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        self._launch(dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), None, None, m, n, k,
+                     int(a.dtype == torch.bfloat16),
+                     EPI_S32 if out_dtype == torch.int32 else EPI_F32, 1)
+        return out
+
+    def write_back(self, a: torch.Tensor, b: torch.Tensor, rep: int,
+                   out_x: torch.Tensor | None = None, f32: bool = False):
+        """The conv probe's mm step: a @ b, written back as the probe does
+        (int8: clip to [-128, 127]; bf16: acc * f32(1e-3) rounded to bf16),
+        each result row to ``rep`` consecutive rows. Returns (x, f32 copy or
+        None): x is (M * rep, N) in the input type, into ``out_x`` if given."""
+        dev, m, n, k = _gemm_operands(self, a, b)
+        if out_x is None:
+            out_x = torch.empty((m * rep, n), dtype=a.dtype, device=dev)
+        elif out_x.shape != (m * rep, n) or out_x.dtype != a.dtype:
+            raise ValueError(f"{self.symbol}: out_x must be {a.dtype} {(m * rep, n)}")
+        self._check(a, out_x)
+        out_f = torch.empty((m * rep, n), dtype=torch.float32, device=dev) if f32 else None
+        self._launch(dev, a.data_ptr(), b.data_ptr(), None, out_x.data_ptr(),
+                     out_f.data_ptr() if f32 else None, m, n, k,
+                     int(a.dtype == torch.bfloat16), EPI_WB, rep)
+        return out_x, out_f
+
+
+class ProbeConvStep(ProbeKernel):
+    def __call__(self, x: torch.Tensor, w: torch.Tensor,
+                 out_x: torch.Tensor | None = None, f32: bool = False):
+        """One step of the conv probe: x (E_H, E_W, C) int8 or bf16, w
+        (9C, C), row (3 qy + qx) C + ci. Returns (next x, f32 copy or None);
+        the next x goes into ``out_x`` if given, which must not be x."""
+        dev = self._check(x, w)
+        if x.dtype not in IN_TYPES or w.dtype != x.dtype or x.dim() != 3:
+            raise ValueError(f"{self.symbol} takes x (E_H, E_W, C) and w (9C, C) of one "
+                             f"type int8 or bfloat16, got {x.dtype} {tuple(x.shape)}, "
+                             f"{w.dtype} {tuple(w.shape)}")
+        eh, ew, c = x.shape
+        if tuple(w.shape) != (9 * c, c) or (c * x.element_size()) % K_BYTES or c % N_TILE:
+            raise ValueError(f"{self.symbol} needs w (9C, C) and C a multiple of {N_TILE}, "
+                             f"got x {tuple(x.shape)}, w {tuple(w.shape)}")
+        if out_x is None:
+            out_x = torch.empty_like(x)
+        elif out_x.shape != x.shape or out_x.dtype != x.dtype or out_x.data_ptr() == x.data_ptr():
+            raise ValueError(f"{self.symbol}: out_x must be a second {x.dtype} "
+                             f"{tuple(x.shape)} buffer")
+        self._check(x, out_x)
+        out_f = torch.empty(x.shape, dtype=torch.float32, device=dev) if f32 else None
+        self._launch(dev, x.data_ptr(), w.data_ptr(), out_x.data_ptr(),
+                     out_f.data_ptr() if f32 else None, eh, ew, c,
+                     int(x.dtype == torch.bfloat16))
+        return out_x, out_f
+
+
+class ProbeUnpackWords(ProbeKernel):
+    def __call__(self, words: torch.Tensor, roll: int = 0) -> torch.Tensor:
+        """(4M, N) int8: row 4m + b holds byte b of words[m, (n - roll) mod N]."""
+        dev = self._check(words)
+        if words.dtype != torch.int32 or words.dim() != 2:
+            raise ValueError(f"{self.symbol} takes int32 (M, N) words, got "
+                             f"{words.dtype} {tuple(words.shape)}")
+        m, n = words.shape
+        out = torch.empty((4 * m, n), dtype=torch.int8, device=dev)
+        if out.numel():
+            self._launch(dev, words.data_ptr(), out.data_ptr(), m, n, roll)
+        return out
+
+
+class ProbePackedDot(ProbeKernel):
+    def __call__(self, words: torch.Tensor, wb: torch.Tensor,
+                 out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+        """(M, N) exact sum over b of plane_b @ wb[b]: words int32 (M, K/4),
+        plane_b[m, j] byte b of word (m, j), wb int8 (4, K/4, N); int32, or
+        float32 (the probe's timed form)."""
+        dev = self._check(words, wb)
+        if words.dtype != torch.int32 or wb.dtype != torch.int8 or words.dim() != 2 \
+                or wb.dim() != 3 or tuple(wb.shape[:2]) != (4, words.shape[1]):
+            raise ValueError(f"{self.symbol} takes int32 words (M, K/4) and int8 byte-plane "
+                             f"weights (4, K/4, N), got {words.dtype} {tuple(words.shape)}, "
+                             f"{wb.dtype} {tuple(wb.shape)}")
+        m, kw = words.shape
+        n = wb.shape[2]
+        if (4 * kw) % K_BYTES or n % N_TILE or out_dtype not in (torch.int32, torch.float32):
+            raise ValueError(f"{self.symbol} needs K % {K_BYTES} == 0, N % {N_TILE} == 0 "
+                             f"and an int32 or float32 output, got K={4 * kw} N={n} "
+                             f"{out_dtype}")
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+        self._launch(dev, words.data_ptr(), wb.data_ptr(), out.data_ptr(), m, kw, n,
+                     int(out_dtype == torch.float32))
+        return out
+
+
+probe_gemm = ProbeGemm("probe_gemm")
+probe_conv_step = ProbeConvStep("probe_conv_step")
+probe_unpack_words = ProbeUnpackWords("probe_unpack_words")
+probe_packed_dot = ProbePackedDot("probe_packed_dot")
+PROBE_KERNELS = (probe_gemm, probe_conv_step, probe_unpack_words, probe_packed_dot)
+
+
+def reset_launch_counts() -> None:
+    for k in PROBE_KERNELS:
+        k.launches = 0

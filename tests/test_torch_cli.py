@@ -29,7 +29,7 @@ from sesr_tpu_torch.quant.params import QuantParams
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 QP = os.path.join(REPO, "artifacts", "qparams_sr_x2.npz")
-FORBIDDEN = {"jax", "jaxlib", "sesr_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "sesr_tpu", "tools"}
 
 
 def _psnr_line(text):
@@ -113,7 +113,9 @@ def test_sim_command_matches_jax_reference(tmp_path, capsys):
 
 def test_import_boundary():
     code = ("import sys, sesr_tpu_torch, sesr_tpu_torch.cli, sesr_tpu_torch.convert, "
-            "sesr_tpu_torch.__main__\n"
+            "sesr_tpu_torch.__main__, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "
+            "sesr_tpu_torch.probes.int8_gemm, sesr_tpu_torch.probes.bitcast, "
+            "sesr_tpu_torch.probes.__main__\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\n"
