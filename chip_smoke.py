@@ -36,11 +36,17 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    with the probe kernels' launch counters at 0, every kernel at the
    probes' full sizes against its plain version (int8 and int32 outputs
    torch.equal, bf16 conv steps after 3 steps within 2^-7 max|plain|, r3a's
-   own shapes refused with no launch), and each kernel's device time (CUDA
+   own shapes refused with no launch), the wgmma GEMM tile on its edges
+   (ragged M, N off the big tile, K of one stage or less, write-back rep >
+   1; torch.equal) and a 16-byte misaligned view refused with no launch,
+   the SASS of each probe kernel (cuobjdump: probe_gemm and
+   probe_packed_dot on HGMMA / IGMMA with UTMALDG and no HMMA / IMMA,
+   probe_conv_step on HMMA / IMMA), and each kernel's device time (CUDA
    events, the device kept busy while the host enqueues) beside its plain
-   version's, its library call's (torch._int_mm timed with B row-major and
-   column-major, the faster reported) and its bound; registers and shared
-   memory from CUPTI.
+   version's, its library call's (torch._int_mm timed with B row-major
+   and column-major, the faster reported; for bf16 torch.mm with a
+   float32 output, torch.matmul's bf16 output beside it) and its bound;
+   registers and shared memory from CUPTI.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -49,6 +55,7 @@ The line before the last is the ``kernels`` JSON; the last is
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,6 +195,118 @@ def breakdown(torch, fn, frames, iters=20):
     return wall, sum(per.values()), dict(sorted(per.items(), key=lambda kv: -kv[1]))
 
 
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+
+
+def sass_counts(lib):
+    """{kernel function (mangled): {opcode: count}} of the probe kernels in
+    the library, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+    from sesr_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {lib}: {res.returncode} {res.stderr.strip()[:400]}")
+    counts, current = {}, None
+    op = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = dict.fromkeys(SASS_OPS, 0)
+        elif current is not None and "/*" in line:
+            for hit in op.findall(line.split(";")[0]):
+                counts[current][hit] += 1
+    return counts
+
+
+def sass_check(lib):
+    """probe_gemm and probe_packed_dot on wgmma (HGMMA / IGMMA) with TMA
+    loads (UTMALDG) and no mma.sync (HMMA / IMMA); probe_conv_step on
+    mma.sync. Prints each kernel's counts; fails on a missing opcode."""
+    counts = sass_counts(lib)
+    seen = dict.fromkeys(("probe_gemm_kernel", "probe_packed_dot_kernel",
+                          "probe_conv_step_kernel"), 0)
+    for fn, c in sorted(counts.items()):
+        family = next((k for k in seen if k in fn), None)
+        if family is None:
+            continue
+        seen[family] += 1
+        print(f"[7] SASS {family} {fn[fn.index(family) + len(family):][:48]}: "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+        mma_sync = c["HMMA"] + c["IMMA"]
+        if family == "probe_conv_step_kernel":
+            if not mma_sync:
+                fail(f"{fn} shows no HMMA / IMMA: {c}")
+        elif not (c["HGMMA"] + c["IGMMA"]) or not c["UTMALDG"] or mma_sync:
+            fail(f"{fn} is not on wgmma with TMA loads alone: {c}")
+    print(f"[7] SASS kernels per family: {seen}", flush=True)
+    if min(seen.values()) < 1:
+        fail(f"a probe kernel is missing from the library: {seen}")
+
+
+# the GEMM tile's edges: (M, K bytes, N). 4352 = 17 x 256 columns give the
+# 128 x 256 tile >= 132 blocks at M = 1000; 192 columns take the 64 x 64
+# tile; M 100 and 1000 are no multiple of 64 or 128; K of 64 bytes is half
+# a stage and 128 one stage
+EDGE_SHAPES = ((1000, 256, 4352), (100, 512, 192), (1000, 64, 4352), (100, 64, 192),
+               (1000, 128, 4352), (1000, 1152, 192))
+EDGE_REP = 3
+
+
+def gemm_edge_checks(torch, dev, compare):
+    """probe_gemm (every epilogue, both types) and probe_packed_dot on the
+    tile's edges, each torch.equal with its plain version; then a 16-byte
+    misaligned view refused with no launch."""
+    from sesr_tpu_torch.probes import bitcast, plain
+    from sesr_tpu_torch.probes import kernels as pk
+
+    rng = np.random.default_rng(7)
+    for m, kb, n in EDGE_SHAPES:
+        for dtype in (torch.int8, torch.bfloat16):
+            k = kb // (2 if dtype == torch.bfloat16 else 1)
+            a = torch.from_numpy(rng.integers(-8, 8, (m, k)).astype(np.float32)).to(dev, dtype)
+            b = torch.from_numpy(rng.integers(-8, 8, (k, n)).astype(np.float32)).to(dev, dtype)
+            outs = [torch.float32] + ([torch.int32] if dtype == torch.int8 else [])
+            for out_dtype in outs:
+                got, want = pk.probe_gemm(a, b, out_dtype), plain.gemm(a, b, out_dtype)
+                compare("probe_gemm", got, want)
+                if not torch.equal(got, want):
+                    fail(f"probe_gemm {dtype} -> {out_dtype} at (M, K, N) {(m, k, n)} "
+                         f"disagrees with its plain version")
+            x, f = pk.probe_gemm.write_back(a, b, EDGE_REP, f32=True)
+            want = plain.gemm_write_back(a, b, EDGE_REP)
+            compare("probe_gemm", x, want)
+            if not (torch.equal(x, want) and torch.equal(f, want.float())):
+                fail(f"probe_gemm {dtype} write-back rep {EDGE_REP} at {(m, k, n)} disagrees")
+        _, _, words, wb = bitcast.byteplane_inputs((m, kb, n), seed=kb)
+        words, wb = torch.from_numpy(words).to(dev), torch.from_numpy(wb).to(dev)
+        for out_dtype in (torch.int32, torch.float32):
+            got = pk.probe_packed_dot(words, wb, out_dtype)
+            want = plain.packed_dot(words, wb, out_dtype)
+            compare("probe_packed_dot", got, want)
+            if not torch.equal(got, want):
+                fail(f"probe_packed_dot -> {out_dtype} at (M, K, N) {(m, kb, n)} disagrees")
+    print(f"[7] edge cases {EDGE_SHAPES} (M, K bytes, N), both types, every epilogue "
+          f"(write-back rep {EDGE_REP}), and probe_packed_dot: torch.equal with plain",
+          flush=True)
+    before = {k.symbol: k.launches for k in pk.PROBE_KERNELS}
+    a = torch.zeros(128 * 256 + 16, dtype=torch.int8, device=dev)[1:1 + 128 * 256].view(128, 256)
+    words = torch.zeros(128 * 64 + 4, dtype=torch.int32, device=dev)[1:1 + 128 * 64].view(128, 64)
+    b = torch.zeros((256, 128), dtype=torch.int8, device=dev)
+    for label, call in (("probe_gemm", lambda: pk.probe_gemm(a, b)),
+                        ("probe_packed_dot", lambda: pk.probe_packed_dot(
+                            words, torch.zeros((4, 64, 128), dtype=torch.int8, device=dev)))):
+        try:
+            call()
+            fail(f"{label} took a view that is not 16-byte aligned")
+        except ValueError as e:
+            print(f"[7] {label} refuses a misaligned view: {e}", flush=True)
+    after = {k.symbol: k.launches for k in pk.PROBE_KERNELS}
+    if after != before:
+        fail(f"a refused misaligned view launched: {before} -> {after}")
+
+
 def probes_phase(torch, dev):
     """Phase 7, the probes: the probe path with the launch counters at 0,
     each kernel of csrc/probes.cu against its plain version, and the times.
@@ -196,6 +315,7 @@ def probes_phase(torch, dev):
     kernel with its plain version in this phase."""
     import torch.nn.functional as F
 
+    from sesr_tpu_torch.ops import _build
     from sesr_tpu_torch.probes import bitcast, conv, int8_gemm, plain
     from sesr_tpu_torch.probes import kernels as pk
     from sesr_tpu_torch.probes.__main__ import main as probes_main
@@ -302,6 +422,8 @@ def probes_phase(torch, dev):
     print(f"[7] P4 bitcast layout probe: {layout}", flush=True)
     if layout != "m*4+b":
         fail(f"the unpack's row layout is {layout}, not m*4+b")
+    gemm_edge_checks(torch, dev, compare)
+    sass_check(_build.library_path("probes"))
     print(f"[7] max_abs_err over every comparison, per kernel: {err}", flush=True)
 
     # 7c. times: kernel, plain version and library call, each against its bound
@@ -335,14 +457,32 @@ def probes_phase(torch, dev):
               f"{tuple(b.shape)}: {times} ms", flush=True)
         return times[best], f"torch._int_mm{'(..).float()' if f32 else ''}, {best}"
 
+    def mm_f32(a, b):
+        """(device ms, label) of torch.mm(a, b, out_dtype=torch.float32), the
+        bf16 -> f32 product the kernel computes (it must equal the plain
+        version); torch.matmul's bf16 output, half the bytes, is printed
+        beside it."""
+        try:
+            same = torch.equal(torch.mm(a, b, out_dtype=torch.float32),
+                               plain.gemm(a, b, torch.float32))
+        except (TypeError, RuntimeError) as e:
+            fail(f"torch.mm(..., out_dtype=torch.float32) is not available: {e}")
+        if not same:
+            fail("torch.mm(..., out_dtype=torch.float32) computes another product")
+        ms = device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
+        bf16_ms = device_ms(lambda: torch.matmul(a, b))
+        print(f"[7]     bf16 {tuple(a.shape)} x {tuple(b.shape)}: torch.mm(.., out_dtype=f32) "
+              f"{ms:.5f} ms (equal to plain); torch.matmul, bf16 output, {bf16_ms:.5f} ms",
+              flush=True)
+        return ms, "torch.mm(.., out_dtype=torch.float32)"
+
     n = int8_gemm.SIZE
     for name, (at, bt) in p2.items():
         dtype, out_dtype = int8_gemm.VARIANTS[name]
         ms = device_ms(lambda: pk.probe_gemm(at, bt, out_dtype))
         plain_ms = device_ms(lambda: plain.gemm(at, bt, out_dtype), reps=5)
         if dtype == torch.bfloat16:
-            lib_ms, lib_name = device_ms(lambda: torch.matmul(at, bt)), \
-                "torch.matmul, bf16 output"
+            lib_ms, lib_name = mm_f32(at, bt)
         else:
             lib_ms, lib_name = int_mm(at, bt, f32=out_dtype == torch.float32)
         bnd = bound(2 * n ** 3, 2 * n * n * at.element_size() + 4 * n * n,
@@ -414,7 +554,7 @@ def probes_phase(torch, dev):
         if xt.dtype == torch.int8:
             lib_ms, lib_name = int_mm(a, wt)
         else:
-            lib_ms, lib_name = device_ms(lambda: torch.matmul(a, wt)), "torch.matmul, bf16"
+            lib_ms, lib_name = mm_f32(a, wt)
         es = xt.element_size()
         bnd = bound(conv.step_ops((eh, ew, c), "mm"), 2 * m * c * es + 9 * c * c * es,
                     INT8_OPS_PER_S if xt.dtype == torch.int8 else BF16_OPS_PER_S)
@@ -458,9 +598,11 @@ def probes_phase(torch, dev):
     a_p2, b_p2 = p2["pallas_mm_int8"]
     a_bf, b_bf = p2["pallas_mm_bf16"]
     attrs = launch_attrs(torch, {
-        "probe_gemm int8 128x128 tiles (P2)": lambda: pk.probe_gemm(a_p2, b_p2),
-        "probe_gemm bf16 128x128 tiles (P2)": lambda: pk.probe_gemm(a_bf, b_bf, torch.float32),
+        "probe_gemm int8 128x256 tiles (P2)": lambda: pk.probe_gemm(a_p2, b_p2),
+        "probe_gemm bf16 128x256 tiles (P2)": lambda: pk.probe_gemm(a_bf, b_bf, torch.float32),
         "probe_gemm int8 64x64 tiles (P3 dot)": lambda: pk.probe_gemm(a8_r3a, w_ok),
+        "probe_gemm bf16 64x64 tiles (P1 mm step)": lambda: pk.probe_gemm.write_back(
+            x_bf.reshape(-1, 9 * c), w_bf.reshape(9 * c, c), 9),
         "probe_conv_step int8": lambda: pk.probe_conv_step(x_i8, w_i8.reshape(9 * c, c)),
         "probe_conv_step bf16": lambda: pk.probe_conv_step(x_bf, w_bf.reshape(9 * c, c)),
         "probe_unpack_words": lambda: pk.probe_unpack_words(words, 1),

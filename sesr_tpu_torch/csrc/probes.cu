@@ -17,13 +17,17 @@
 //
 // Their plain versions are sesr_tpu_torch/probes/plain.py.
 //
-// probe_gemm, probe_conv_step and probe_packed_dot share one tile
-// (gemm_tile); they differ in where a stage's rows of A and B come from
-// (Form). A block computes a BM x BN tile of C = A * B with A (M, K) and
-// B (K, N) row-major in device memory; 64 bytes of K per stage are
-// staged into shared memory with cp.async (zero-filled past M), three or
-// four stages in flight; each warp computes a (16 MT) x 32 sub-tile with
-// mma.sync on the tensor cores:
+// probe_gemm and probe_packed_dot run the wgmma tile of wgmma_gemm.cuh (TMA
+// loads, a producer warp and consumer warpgroups; its note says what bounds
+// them and what the design does about it).
+//
+// probe_conv_step runs the mma.sync tile below (conv_tile). A block computes
+// a BM x BN tile of the conv as an implicit GEMM: M = E_H * E_W pixels, K = 9
+// taps x C channels (a 64-byte k slice lies inside one tap, so a row of A is
+// 64 contiguous bytes of the source pixel (h + qy - 1, w + qx - 1), both mod
+// the tile), N = C. 64 bytes of K per stage are staged into shared memory
+// with cp.async, six stages in flight; each warp computes a 16 x 32 sub-tile
+// with mma.sync on the tensor cores:
 //   int8  m16n8k32.row.col.s32.s8.s8.s32   (exact int32 sums)
 //   bf16  m16n8k16.row.col.f32.bf16.bf16.f32
 // A's fragments come from shared memory by ldmatrix.x4 (the int8 and bf16
@@ -33,42 +37,33 @@
 // (4 x 4 bytes for int8, 2 x 2 halves for bf16). That makes n-tile t of a
 // warp hold columns 4j + t (int8) or 16 (t / 2) + 2j + t % 2 (bf16),
 // j = 0..7, which the epilogue undoes: it stages the C tile in shared
-// memory and stores rows of 16 bytes.
+// memory and stores rows of 16 bytes. The conv step is operation-bound
+// (1,979 int8 TOP/s, 989 bf16 TFLOP/s); mma.sync issues from sm_80 PTX and
+// does not reach Hopper's full rate.
 //
-// What bounds them on this card: the int8 and bf16 GEMMs at 4096^3 and the
-// conv steps are operation-bound (1,979 int8 TOP/s, 989 bf16 TFLOP/s); the
-// small dots of r3a/r3b and the unpack are byte-bound and far below a
-// launch's latency. mma.sync issues from sm_80 PTX and does not reach
-// Hopper's full rate, which needs wgmma with TMA-fed shared-memory
-// operands; these kernels are the simple, right first version.
+// One launch is one step; the caller ping-pongs two buffers in device memory
+// (the 0.44 / 0.88 MB tile stays in L2, where the TPU kernel kept it in VMEM
+// scratch). The TPU probe's concat3 and dot9 forms differ only in how the
+// TPU relayouts the rolled copies, so both run this kernel; their weights
+// are (9C, C) reshapes of the probe's layouts. The write-back is the
+// probe's: int8 clip(acc, -128, 127); bf16 bf16_rn(acc * f32(1e-3)); with
+// -fmad=false and an explicit __fmul_rn.
 //
 // probe_gemm with int8 inputs and f32 output accumulates in int32 and
 // converts once. This equals the TPU probe's f32 accumulation wherever
 // every partial sum is below 2^24 in magnitude, which holds for the
 // probe's data: |a|, |b| <= 8 and K = 4096 give |sum| <= 2^18.
 //
-// probe_conv_step is the conv as an implicit GEMM: M = E_H * E_W pixels,
-// K = 9 taps x C channels (a 64-byte k slice lies inside one tap, so a row
-// of A is 64 contiguous bytes of the source pixel (h + qy - 1, w + qx - 1),
-// both mod the tile), N = C. One launch is one step; the caller ping-pongs
-// two buffers in device memory (the 0.44 / 0.88 MB tile stays in L2, where
-// the TPU kernel kept it in VMEM scratch). The TPU probe's concat3 and dot9
-// forms differ only in how the TPU relayouts the rolled copies, so both run
-// this kernel; their weights are (9C, C) reshapes of the probe's layouts.
-// The write-back is the probe's: int8 clip(acc, -128, 127); bf16
-// bf16_rn(acc * f32(1e-3)); with -fmad=false and an explicit __fmul_rn.
-//
-// probe_packed_dot needs no byte-plane split: word (m, j) of the packed
-// operand holds k = 4j .. 4j + 3 in bytes 0 .. 3, which is, unchanged, one
-// A register of m16n8k32, so the words are the (M, 4 K_words) int8 A
-// operand. It takes the TPU probe's weights as they are, byte planes wb
-// (4, K_words, N): row k = 4j + b of the int8 B operand is row j of plane
-// b, and the B loader reads it from there. The result is the exact s32
-// sum, the value of the TPU probe's four byte-plane dots.
+// probe_packed_dot takes the TPU probe's weights as they are, byte planes wb
+// (4, K_words, N), and the packed words as the (M, 4 K_words) int8 A
+// operand; the result is the exact s32 sum, the value of the TPU probe's
+// four byte-plane dots.
 //
 // Built with route (b): nvcc into a shared library with a plain C
 // interface, loaded with ctypes (sesr_tpu_torch/ops/_build.py). Each entry
-// point returns cudaGetLastError() after its launch.
+// point returns cudaGetLastError() after its launch, and refuses
+// (cudaErrorInvalidValue) a pointer that is not 16-byte aligned, which TMA
+// and the 16-byte stores need.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,16 +71,12 @@
 
 #include <type_traits>
 
+#include "wgmma_gemm.cuh"
+
 namespace {
 
 constexpr int kKBytes = 64;                // bytes of K per pipeline stage
 constexpr int kAStride = kKBytes / 4 + 4;  // words per A row: ldmatrix without bank conflicts
-constexpr int kBigBlocks = 2 * 132;        // two waves of the H100's 132 SMs
-
-enum Epi { EPI_S32 = 0, EPI_F32 = 1, EPI_WB = 2 };
-// where a stage's rows come from: A and B dense (k, n) rows; A the conv's
-// circular taps; B the rows 4j + b of the byte planes wb (4, K / 4, N)
-enum Form { DENSE = 0, CONV = 1, PLANES = 2 };
 
 // WM x WN warps, each a (16 MT) x 32 tile of the output.
 template <int MT_, int WM_, int WN_, int STAGES_>
@@ -95,10 +86,8 @@ struct Tiling {
   static constexpr int BM = 16 * MT * WM;
   static constexpr int BN = 32 * WN;
 };
-using Small = Tiling<2, 2, 2, 3>;  // 64 x 64 tiles, 128 threads
-using Big = Tiling<4, 2, 4, 4>;    // 128 x 128 tiles, 256 threads
 // the conv step's tile: 32 x 64 with 6 stages, 216 blocks for the 48 x 72 x 128
-// tile (the 64 x 64 tile of the GEMMs gives 108 and was slower on the H100)
+// tile (a 64 x 64 tile gives 108 and was slower on the H100)
 using ConvTile = Tiling<1, 2, 2, 6>;
 
 // Shared memory of one block, in 32-bit words.
@@ -115,16 +104,12 @@ struct Smem {
   static constexpr int WORDS = PIPE_WORDS > C_WORDS ? PIPE_WORDS : C_WORDS;
 };
 
-struct Args {
-  const uint8_t* a;   // dense: (m, k) row-major; conv: the (eh, ew, c) tile
-  const uint8_t* b;   // (k, n) row-major; PLANES: wb (4, k / 4, n)
-  int m, n, k;        // in elements
-  int eh, ew, c;      // conv only
-  void* out;          // EPI_S32 / EPI_F32: (m, n)
-  void* out_x;        // EPI_WB: (m * rep, n) in the input type, or null
-  float* out_f32;     // EPI_WB: (m * rep, n) float copy, or null
-  int rep;            // EPI_WB: each result row goes to rep consecutive rows
-};
+// The GEMM tiles (wgmma_gemm.cuh): 128 x 256 with two consumer warpgroups
+// where that still fills the card, else 64 x 64 with one.
+using BigTile = wg::Tile<2, 256, 3>;    // int8: 3 stages + 2 K-major B tiles
+using BigTileBf16 = wg::Tile<2, 256, 4>;
+using SmallTile = wg::Tile<1, 64, 4>;
+constexpr int kSms = 132;               // the H100's SMs
 
 // 16 bytes from device to shared memory; zero-filled when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -164,9 +149,9 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsig
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One stage: A (BM rows x 64 bytes) and B (KB rows x BN columns) of k
-// slice kt.
-template <class TL, bool BF16, int FORM>
+// One stage: A (BM rows x 64 bytes, the conv's circular taps) and B (KB rows
+// x BN columns) of k slice kt.
+template <class TL, bool BF16>
 __device__ __forceinline__ void load_stage(int* st, const Args& p, int m0, int n0, int kt) {
   using S = Smem<TL, BF16>;
   const int kb = kt * kKBytes;  // byte offset along k
@@ -176,18 +161,14 @@ __device__ __forceinline__ void load_stage(int* st, const Args& p, int m0, int n
     const bool ok = m < p.m;
     const uint8_t* src = p.a;
     if (ok) {
-      if constexpr (FORM == CONV) {
-        // pixel m reads tap (qy, qx) at ((h + qy - 1) mod eh, (w + qx - 1) mod ew)
-        const int cb = p.c * S::es;
-        const int tap = kb / cb;
-        const int h = m / p.ew, w = m - h * p.ew;
-        int sh = h + tap / 3 - 1, sw = w + tap % 3 - 1;
-        sh += sh < 0 ? p.eh : (sh >= p.eh ? -p.eh : 0);
-        sw += sw < 0 ? p.ew : (sw >= p.ew ? -p.ew : 0);
-        src = p.a + (static_cast<size_t>(sh) * p.ew + sw) * cb + (kb - tap * cb) + 16 * ch;
-      } else {
-        src = p.a + static_cast<size_t>(m) * p.k * S::es + kb + 16 * ch;
-      }
+      // pixel m reads tap (qy, qx) at ((h + qy - 1) mod eh, (w + qx - 1) mod ew)
+      const int cb = p.c * S::es;
+      const int tap = kb / cb;
+      const int h = m / p.ew, w = m - h * p.ew;
+      int sh = h + tap / 3 - 1, sw = w + tap % 3 - 1;
+      sh += sh < 0 ? p.eh : (sh >= p.eh ? -p.eh : 0);
+      sw += sw < 0 ? p.ew : (sw >= p.ew ? -p.ew : 0);
+      src = p.a + (static_cast<size_t>(sh) * p.ew + sw) * cb + (kb - tap * cb) + 16 * ch;
     }
     cp_async16(st + r * kAStride + 4 * ch, src, ok);
   }
@@ -197,13 +178,7 @@ __device__ __forceinline__ void load_stage(int* st, const Args& p, int m0, int n
   int* sb = st + S::A_WORDS;
   for (int i = threadIdx.x; i < S::KB * CPR; i += TL::kThreads) {
     const int r = i / CPR, ch = i - r * CPR;
-    const uint8_t* src = b0 + r * ldb;
-    if constexpr (FORM == PLANES) {
-      // k = 4j + b is row j of plane b (int8: one byte per element)
-      const int k = kt * S::KB + r;
-      src = p.b + (static_cast<size_t>(k & 3) * (p.k >> 2) + (k >> 2)) * ldb + n0;
-    }
-    cp_async16(sb + r * S::BS + 4 * ch, src + 16 * ch, true);
+    cp_async16(sb + r * S::BS + 4 * ch, b0 + r * ldb + 16 * ch, true);
   }
 }
 
@@ -244,56 +219,9 @@ __device__ __forceinline__ int real_col(int t, int lc) {
   return BF16 ? 16 * (t >> 1) + 2 * lc + (t & 1) : 4 * lc + t;
 }
 
-__device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// Four consecutive results (row m, columns n .. n + 3) to device memory.
-template <bool BF16, int EPI, class AccT>
-__device__ __forceinline__ void store4(const Args& p, int m, int n, const AccT* v) {
-  if constexpr (EPI == EPI_S32) {
-    *reinterpret_cast<int4*>(static_cast<int*>(p.out) + static_cast<size_t>(m) * p.n + n) =
-        make_int4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (EPI == EPI_F32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(p.out) + static_cast<size_t>(m) * p.n + n) =
-        make_float4(to_f32(v[0]), to_f32(v[1]), to_f32(v[2]), to_f32(v[3]));
-  } else {
-    // the probe's write-back, then each result row to rep consecutive rows
-    float f[4];
-    uint2 x2 = make_uint2(0, 0);
-    unsigned x1 = 0;
-    if constexpr (BF16) {
-      unsigned short h[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16 q = __float2bfloat16_rn(__fmul_rn(v[j], 1e-3f));
-        f[j] = __bfloat162float(q);
-        h[j] = __bfloat16_as_ushort(q);
-      }
-      x2 = make_uint2(h[0] | (static_cast<unsigned>(h[1]) << 16),
-                      h[2] | (static_cast<unsigned>(h[3]) << 16));
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = min(max(v[j], -128), 127);
-        f[j] = static_cast<float>(q);
-        x1 |= (static_cast<unsigned>(q) & 0xffu) << (8 * j);
-      }
-    }
-    for (int r = 0; r < p.rep; ++r) {
-      const size_t o = (static_cast<size_t>(m) * p.rep + r) * p.n + n;
-      if (p.out_x) {
-        if constexpr (BF16)
-          *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out_x) + o) = x2;
-        else
-          *reinterpret_cast<unsigned*>(static_cast<int8_t*>(p.out_x) + o) = x1;
-      }
-      if (p.out_f32) *reinterpret_cast<float4*>(p.out_f32 + o) = make_float4(f[0], f[1], f[2], f[3]);
-    }
-  }
-}
-
-template <class TL, bool BF16, int FORM, int EPI>
-__device__ __forceinline__ void gemm_tile(const Args& p) {
+// The conv step: C tile (BM x BN) of the implicit GEMM, with the write-back.
+template <class TL, bool BF16>
+__device__ __forceinline__ void conv_tile(const Args& p) {
   using S = Smem<TL, BF16>;
   using AccT = typename std::conditional<BF16, float, int>::type;
   extern __shared__ int4 smem4[];
@@ -314,7 +242,7 @@ __device__ __forceinline__ void gemm_tile(const Args& p) {
 
 #pragma unroll
   for (int s = 0; s < TL::STAGES - 1; ++s) {
-    if (s < KT) load_stage<TL, BF16, FORM>(smem + s * S::STAGE_WORDS, p, m0, n0, s);
+    if (s < KT) load_stage<TL, BF16>(smem + s * S::STAGE_WORDS, p, m0, n0, s);
     cp_commit();
   }
   // ldmatrix row of this lane: matrices (rows 0-7 | 8-15) x (bytes 0-15 | 16-31)
@@ -324,7 +252,7 @@ __device__ __forceinline__ void gemm_tile(const Args& p) {
     cp_wait<TL::STAGES - 2>();
     __syncthreads();  // stage kt has landed, and every warp is done with kt - 1
     const int nk = kt + TL::STAGES - 1;
-    if (nk < KT) load_stage<TL, BF16, FORM>(smem + (nk % TL::STAGES) * S::STAGE_WORDS, p, m0, n0, nk);
+    if (nk < KT) load_stage<TL, BF16>(smem + (nk % TL::STAGES) * S::STAGE_WORDS, p, m0, n0, nk);
     cp_commit();
     const int* st = smem + (kt % TL::STAGES) * S::STAGE_WORDS;
 #pragma unroll
@@ -359,23 +287,13 @@ __device__ __forceinline__ void gemm_tile(const Args& p) {
   __syncthreads();
   for (int i = threadIdx.x; i < TL::BM * TL::BN / 4; i += TL::kThreads) {
     const int r = i / (TL::BN / 4), c4 = 4 * (i - r * (TL::BN / 4));
-    if (m0 + r < p.m) store4<BF16, EPI>(p, m0 + r, n0 + c4, ct + r * S::CS + c4);
+    if (m0 + r < p.m) store4<BF16, EPI_WB>(p, m0 + r, n0 + c4, ct + r * S::CS + c4);
   }
-}
-
-template <class TL, bool BF16, int EPI>
-__global__ void __launch_bounds__(TL::kThreads) probe_gemm_kernel(Args p) {
-  gemm_tile<TL, BF16, DENSE, EPI>(p);
 }
 
 template <class TL, bool BF16>
 __global__ void __launch_bounds__(TL::kThreads) probe_conv_step_kernel(Args p) {
-  gemm_tile<TL, BF16, CONV, EPI_WB>(p);
-}
-
-template <class TL, int EPI>
-__global__ void __launch_bounds__(TL::kThreads) probe_packed_dot_kernel(Args p) {
-  gemm_tile<TL, false, PLANES, EPI>(p);
+  conv_tile<TL, BF16>(p);
 }
 
 __global__ void __launch_bounds__(256)
@@ -391,35 +309,34 @@ probe_unpack_words_kernel(const int* __restrict__ words, int8_t* __restrict__ ou
     out[(4 * static_cast<size_t>(r) + b) * n + c] = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
 }
 
-template <class TL, bool BF16>
-cudaError_t launch_tile(void (*kernel)(Args), const Args& p, cudaStream_t s) {
-  const size_t bytes = sizeof(int) * static_cast<size_t>(Smem<TL, BF16>::WORDS);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <bool BF16>
+cudaError_t launch_conv(const Args& p, cudaStream_t s) {
+  const size_t bytes = sizeof(int) * static_cast<size_t>(Smem<ConvTile, BF16>::WORDS);
+  cudaError_t err = cudaFuncSetAttribute(probe_conv_step_kernel<ConvTile, BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.n / TL::BN, (p.m + TL::BM - 1) / TL::BM);
-  kernel<<<grid, TL::kThreads, bytes, s>>>(p);
+  const dim3 grid(p.n / ConvTile::BN, (p.m + ConvTile::BM - 1) / ConvTile::BM);
+  probe_conv_step_kernel<ConvTile, BF16><<<grid, ConvTile::kThreads, bytes, s>>>(p);
   return cudaGetLastError();
 }
 
-// Big tiles where they still give the grid two waves of the card's SMs.
+// The 128 x 256 tile where it gives every SM a block, else 64 x 64.
 bool use_big(const Args& p) {
-  return p.n % Big::BN == 0 &&
-         static_cast<long long>((p.m + Big::BM - 1) / Big::BM) * (p.n / Big::BN) >= kBigBlocks;
+  return p.n % BigTile::BN == 0 &&
+         static_cast<long long>((p.m + BigTile::BM - 1) / BigTile::BM) * (p.n / BigTile::BN) >= kSms;
 }
 
-template <class TL, bool BF16>
-cudaError_t gemm_launch(const Args& p, int epi, cudaStream_t s) {
-  switch (epi) {
-    case EPI_S32:
-      if constexpr (!BF16) return launch_tile<TL, BF16>(probe_gemm_kernel<TL, BF16, EPI_S32>, p, s);
-      return cudaErrorInvalidValue;
-    case EPI_F32:
-      return launch_tile<TL, BF16>(probe_gemm_kernel<TL, BF16, EPI_F32>, p, s);
-    default:
-      return launch_tile<TL, BF16>(probe_gemm_kernel<TL, BF16, EPI_WB>, p, s);
-  }
+template <bool BF16, bool PLANES, int EPI>
+cudaError_t gemm_launch(const Args& p, cudaStream_t s) {
+  if (!use_big(p)) return wg::launch<SmallTile, BF16, PLANES, EPI>(p, s);
+  if constexpr (BF16)
+    return wg::launch<BigTileBf16, BF16, PLANES, EPI>(p, s);
+  else
+    return wg::launch<BigTile, BF16, PLANES, EPI>(p, s);
 }
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
@@ -429,23 +346,27 @@ extern "C" {
 // epilogue 0: out = int32 (m, n) (int8 only); 1: out = float32 (m, n);
 // 2: the conv probe's write-back, each result row to rep consecutive rows
 // of out_x ((m * rep, n), the input type) and / or out_f32 (float32).
-// Needs k * element bytes % 64 == 0 and n % 64 == 0.
+// Needs k * element bytes % 64 == 0, n % 64 == 0 and 16-byte aligned pointers.
 int probe_gemm(const void* a, const void* b, void* out, void* out_x, void* out_f32, int m, int n,
                int k, int in_bf16, int epilogue, int rep, void* stream) {
   const int es = in_bf16 ? 2 : 1;
-  if (m < 1 || n < 1 || k < 1 || (k * es) % kKBytes || n % Small::BN || rep < 1 ||
+  if (m < 1 || n < 1 || k < 1 || (k * es) % kKBytes || n % SmallTile::BN || rep < 1 ||
       epilogue < EPI_S32 || epilogue > EPI_WB || (in_bf16 && epilogue == EPI_S32) ||
-      (epilogue == EPI_WB ? !out_x && !out_f32 : !out))
+      (epilogue == EPI_WB ? !out_x && !out_f32 : !out) || !aligned16(a) || !aligned16(b) ||
+      !aligned16(out) || !aligned16(out_x) || !aligned16(out_f32))
     return static_cast<int>(cudaErrorInvalidValue);
   Args p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), m, n, k, 0, 0, 0,
          out, out_x, static_cast<float*>(out_f32), rep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool big = use_big(p);
+  cudaError_t err;
   if (in_bf16)
-    return static_cast<int>(big ? gemm_launch<Big, true>(p, epilogue, s)
-                                : gemm_launch<Small, true>(p, epilogue, s));
-  return static_cast<int>(big ? gemm_launch<Big, false>(p, epilogue, s)
-                              : gemm_launch<Small, false>(p, epilogue, s));
+    err = epilogue == EPI_F32 ? gemm_launch<true, false, EPI_F32>(p, s)
+                              : gemm_launch<true, false, EPI_WB>(p, s);
+  else
+    err = epilogue == EPI_S32   ? gemm_launch<false, false, EPI_S32>(p, s)
+          : epilogue == EPI_F32 ? gemm_launch<false, false, EPI_F32>(p, s)
+                                : gemm_launch<false, false, EPI_WB>(p, s);
+  return static_cast<int>(err);
 }
 
 // One step of the conv probe: x (eh, ew, c) -> its write-back into out_x
@@ -460,9 +381,7 @@ int probe_conv_step(const void* x, const void* w, void* out_x, void* out_f32, in
   Args p{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w), eh * ew, c, 9 * c, eh, ew,
          c, nullptr, out_x, static_cast<float*>(out_f32), 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      in_bf16 ? launch_tile<ConvTile, true>(probe_conv_step_kernel<ConvTile, true>, p, s)
-              : launch_tile<ConvTile, false>(probe_conv_step_kernel<ConvTile, false>, p, s));
+  return static_cast<int>(in_bf16 ? launch_conv<true>(p, s) : launch_conv<false>(p, s));
 }
 
 // out[4 r + b, c] = byte b of words[r, (c - roll) mod n]: words (m, n) int32,
@@ -480,22 +399,18 @@ int probe_unpack_words(const void* words, void* out, int m, int n, int roll, voi
 
 // out (m, n) = sum over b of plane_b(words) * wb[b]: words (m, k_words)
 // int32, plane_b[r, j] byte b of word (r, j); wb (4, k_words, n) int8; int32
-// out, or float32 when out_f32. Needs 4 k_words % 64 == 0 and n % 64 == 0.
+// out, or float32 when out_f32. Needs 4 k_words % 64 == 0, n % 64 == 0 and
+// 16-byte aligned pointers.
 int probe_packed_dot(const void* words, const void* wb, void* out, int m, int k_words, int n,
                      int out_f32, void* stream) {
-  if (m < 1 || n < 1 || k_words < 1 || (4 * k_words) % kKBytes || n % Small::BN || !out)
+  if (m < 1 || n < 1 || k_words < 1 || (4 * k_words) % kKBytes || n % SmallTile::BN || !out ||
+      !aligned16(words) || !aligned16(wb) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   Args p{static_cast<const uint8_t*>(words), static_cast<const uint8_t*>(wb), m, n, 4 * k_words,
          0, 0, 0, out, nullptr, nullptr, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (use_big(p))
-    err = out_f32 ? launch_tile<Big, false>(probe_packed_dot_kernel<Big, EPI_F32>, p, s)
-                  : launch_tile<Big, false>(probe_packed_dot_kernel<Big, EPI_S32>, p, s);
-  else
-    err = out_f32 ? launch_tile<Small, false>(probe_packed_dot_kernel<Small, EPI_F32>, p, s)
-                  : launch_tile<Small, false>(probe_packed_dot_kernel<Small, EPI_S32>, p, s);
-  return static_cast<int>(err);
+  return static_cast<int>(out_f32 ? gemm_launch<false, true, EPI_F32>(p, s)
+                                  : gemm_launch<false, true, EPI_S32>(p, s));
 }
 
 const char* probe_error_string(int err) {

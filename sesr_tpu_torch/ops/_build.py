@@ -2,11 +2,12 @@
 
 Route (b) of a hand-written kernel: one shared library per source, with a
 plain C interface (no PyTorch header, so nvcc takes seconds), loaded with
-ctypes. A library's file name carries a hash of its own source and the
-flags, so an edited source builds anew, an unchanged one loads from the
-build directory, and editing one source leaves the other libraries' names
-as they were. Nothing is built when this module is imported: ``load(name)``
-builds at first use.
+ctypes. A library's file name carries a hash of its own source, of every
+``csrc/`` header that source includes (``#include "x.cuh"``, followed into
+headers), and of the flags, so an edited source or header builds anew, an
+unchanged one loads from the build directory, and editing one source
+leaves the other libraries' names as they were. Nothing is built when
+this module is imported: ``load(name)`` builds at first use.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -71,14 +73,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly or
+    through another header, in the order first included."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / inc.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built: the
-    name carries a hash of that source and of the flags."""
+    name carries a hash of that source, the headers it includes and the
+    flags."""
     if name not in SIGNATURES:
         raise ValueError(f"no kernel library {name!r}; known: {sorted(SIGNATURES)}")
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Build:

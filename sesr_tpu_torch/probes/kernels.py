@@ -9,9 +9,10 @@ its launch counter.
                         tools/bench_probe_r3a.py:343
 ``probe_packed_dot``    replaces tools/bench_probe_r3b.py:147 and :164
 
-A wrapper takes tensors on a CUDA device, checks their types and shapes,
-allocates its outputs and launches on PyTorch's current stream. It refuses
-a CPU tensor with ValueError (the probe functions in ``conv.py``,
+A wrapper takes tensors on a CUDA device, checks their types, shapes and
+16-byte alignment (TMA and the 16-byte stores need it), allocates its
+outputs and launches on PyTorch's current stream. It refuses a CPU tensor,
+or a view that does not start on a 16-byte boundary, with ValueError (the probe functions in ``conv.py``,
 ``int8_gemm.py`` and ``bitcast.py`` take the plain version, ``plain.py``,
 for those) and raises RuntimeError when a launch is refused. ``launches``
 counts the launches it made.
@@ -23,8 +24,9 @@ import torch
 
 from sesr_tpu_torch.ops import _build
 
-K_BYTES = 64        # bytes of K per pipeline stage of the GEMM tile
+K_BYTES = 64        # K * element bytes must be a multiple of this
 N_TILE = 64         # the GEMM's narrowest block tile of N
+ALIGN = 16          # bytes: every pointer a kernel takes
 EPI_S32, EPI_F32, EPI_WB = 0, 1, 2
 IN_TYPES = (torch.int8, torch.bfloat16)
 
@@ -53,6 +55,9 @@ class ProbeKernel:
                                  f"got {[str(u.device) for u in tensors]}")
             if not t.is_contiguous():
                 raise ValueError(f"{self.symbol} takes contiguous tensors")
+            if t.data_ptr() % ALIGN:
+                raise ValueError(f"{self.symbol} takes tensors that start on a {ALIGN}-byte "
+                                 f"boundary, got a view at {t.data_ptr():#x}")
         return dev
 
 

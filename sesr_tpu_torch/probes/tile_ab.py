@@ -1,0 +1,122 @@
+"""python -m sesr_tpu_torch.probes.tile_ab [--size N] [--reps R] [--rounds K]
+
+An A/B of the probes' wgmma GEMM tile (``csrc/wgmma_gemm.cuh``) on the card:
+``csrc/`` as it is ("base") and variants, each a copy of ``csrc/`` with one
+text edit, built side by side (one nvcc each, all started together) into
+``build/variants/<name>/`` and timed in turns, ``--rounds`` times over, at
+N^3 through ``probe_gemm``'s C entry point: int8 -> int32 and bf16 ->
+float32, device time (CUDA events, the device kept busy while the host
+enqueues). Each line says whether the output equals the plain version.
+
+Variants:
+  no_transpose    the int8 transposing pass removed: wgmma reads whatever
+                  the K-major ring holds, so the int8 product is wrong, and
+                  the time says what the pass costs
+  bf16_3_stages   the bf16 128 x 256 tile with 3 stages in flight, not 4
+
+Needs the card and nvcc; prints one JSON line per measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from sesr_tpu_torch.ops import _build
+from sesr_tpu_torch.probes import plain
+from sesr_tpu_torch.timing import median_ms
+
+VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
+# name: [(file in csrc/, text, replacement)]
+VARIANTS = {
+    "base": [],
+    "no_transpose": [(
+        "wgmma_gemm.cuh",
+        "        transpose_stage<BN, PLANES>(smem_u32(smem + s * TL::STAGE_BYTES + TL::A_BYTES),\n"
+        "                                    smem_u32(bt_ring + t * TL::B_BYTES), tt);\n",
+        "")],
+    "bf16_3_stages": [(
+        "probes.cu", "using BigTileBf16 = wg::Tile<2, 256, 4>;",
+        "using BigTileBf16 = wg::Tile<2, 256, 3>;")],
+}
+
+
+def variant_sources(name: str) -> dict[str, str]:
+    """{file name: text} of csrc/ with the variant's edits; raises if an edit
+    no longer applies to the source."""
+    files = {p.name: p.read_text() for p in _build.sources("probes")}
+    for fname, old, new in VARIANTS[name]:
+        if files[fname].count(old) != 1:
+            raise ValueError(f"variant {name}: the edit of {fname} does not apply")
+        files[fname] = files[fname].replace(old, new)
+    return files
+
+
+def build_variant(name: str) -> Path:
+    out = VARIANT_DIR / name
+    out.mkdir(parents=True, exist_ok=True)
+    for fname, text in variant_sources(name).items():
+        (out / fname).write_text(text)
+    lib = out / "libprobes.so"
+    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                          str(out / "probes.cu")], capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on variant {name}:\n{res.stdout}{res.stderr}")
+    return lib
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(prog="python -m sesr_tpu_torch.probes.tile_ab")
+    ap.add_argument("--size", type=int, default=4096)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        ap.error("no CUDA device: the A/B runs on the card")
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        libs = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    fns = {}
+    for name, path in libs.items():
+        fn = ctypes.CDLL(str(path)).probe_gemm
+        fn.argtypes = _build.SIGNATURES["probes"]["probe_gemm"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    dev = torch.device("cuda", 0)
+    n = args.size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a8 = torch.randint(-8, 8, (n, n), device=dev, generator=gen).to(torch.int8)
+    b8 = torch.randint(-8, 8, (n, n), device=dev, generator=gen).to(torch.int8)
+    operands = {"int8": (a8, b8, torch.int32), "bf16": (a8.bfloat16(), b8.bfloat16(),
+                                                         torch.float32)}
+    wants = {k: plain.gemm(a, b, out) for k, (a, b, out) in operands.items()}
+    results = []
+    for rnd in range(args.rounds):
+        for name, fn in fns.items():
+            for kind, (a, b, out_dtype) in operands.items():
+                out = torch.empty((n, n), dtype=out_dtype, device=dev)
+
+                def call():
+                    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), None, None, n, n, n,
+                             int(kind == "bf16"), int(kind == "bf16"), 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"variant {name} launch failed ({err})")
+
+                ms = median_ms(call, dev, args.reps, lead_ms=1.0)
+                res = {"device": torch.cuda.get_device_name(dev), "round": rnd,
+                       "variant": name, "type": kind, "size": n, "ms": ms,
+                       "TOP/s": 2 * n ** 3 / (ms * 1e-3) / 1e12,
+                       "equal_to_plain": bool(torch.equal(out, wants[kind]))}
+                print(json.dumps(res), flush=True)
+                results.append(res)
+    return results
+
+
+if __name__ == "__main__":
+    main()

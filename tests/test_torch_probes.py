@@ -24,7 +24,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from sesr_tpu_torch.ops import _build
-from sesr_tpu_torch.probes import bitcast, conv, int8_gemm, kernels, plain
+from sesr_tpu_torch.probes import bitcast, conv, int8_gemm, kernels, plain, tile_ab
 from sesr_tpu_torch.probes.__main__ import main as probes_main
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
@@ -278,13 +278,14 @@ def test_probe_cli_on_cpu(capsys):
 
 
 def test_build_is_keyed_by_library(monkeypatch, tmp_path):
-    """One library per csrc/<name>.cu: its file name hashes its own source,
-    so editing one source renames only its library; build() reuses a
-    library it finds and build_all() builds every one."""
+    """One library per csrc/<name>.cu: its file name hashes its own source
+    and the csrc/ headers it includes, so editing one source, or a header
+    only it includes, renames only its library; build() reuses a library it
+    finds and build_all() builds every one."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in _build.SIGNATURES:
-        (csrc / f"{name}.cu").write_bytes((_build.CSRC / f"{name}.cu").read_bytes())
+    for src in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     nvcc = tmp_path / "nvcc"
@@ -296,9 +297,16 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
     assert set(paths) == {"sesr_net", "probes"}
     for name, path in paths.items():
         assert path.parent == tmp_path / "kernels" and path.name.startswith(f"lib{name}-")
+    assert _build.sources("probes") == [csrc / "probes.cu", csrc / "wgmma_gemm.cuh"]
+    assert _build.sources("sesr_net") == [csrc / "sesr_net.cu"]
+    with (csrc / "wgmma_gemm.cuh").open("a") as f:
+        f.write("// edited\n")
+    edited_header = _build.library_path("probes")
+    assert edited_header != paths["probes"]
+    assert _build.library_path("sesr_net") == paths["sesr_net"]
     with (csrc / "probes.cu").open("a") as f:
         f.write("// edited\n")
-    assert _build.library_path("probes") != paths["probes"]
+    assert _build.library_path("probes") not in (paths["probes"], edited_header)
     assert _build.library_path("sesr_net") == paths["sesr_net"]
     builds = _build.build_all()
     assert {n: b.path for n, b in builds.items()} == {
@@ -318,13 +326,25 @@ def test_importing_the_probes_builds_and_loads_nothing():
             "import sesr_tpu_torch.probes, sesr_tpu_torch.probes.kernels, "
             "sesr_tpu_torch.probes.plain, sesr_tpu_torch.probes.conv, "
             "sesr_tpu_torch.probes.int8_gemm, sesr_tpu_torch.probes.bitcast, "
-            "sesr_tpu_torch.probes.__main__, sesr_tpu_torch.ops.kernels, "
+            "sesr_tpu_torch.probes.__main__, sesr_tpu_torch.probes.tile_ab, "
+            "sesr_tpu_torch.ops.kernels, "
             "sesr_tpu_torch.timing\n"
             "print('ok')")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("variant", list(tile_ab.VARIANTS))
+def test_tile_ab_variants_apply_to_the_source(variant):
+    """Each A/B variant of the GEMM tile is csrc/ with its edits, and each
+    edit still finds its text (python -m sesr_tpu_torch.probes.tile_ab)."""
+    files = tile_ab.variant_sources(variant)
+    assert set(files) == {"probes.cu", "wgmma_gemm.cuh"}
+    changed = {f for f, text in files.items() if text != (_build.CSRC / f).read_text()}
+    assert changed == {f for f, _, _ in tile_ab.VARIANTS[variant]}
+    assert len(changed) == (variant != "base")
 
 
 def _byte_perm(x, y, sel):
@@ -335,9 +355,10 @@ def _byte_perm(x, y, sel):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
 def test_gemm_tile_b_fragments(bf16):
-    """A model of load_b and real_col in csrc/probes.cu, which the CPU cannot
-    compile: a lane (g, tq) builds its B registers of a warp's four n-tiles
-    from the (k, n) rows in shared memory with byte_perm, and register b_h of
+    """A model of load_b and real_col in csrc/probes.cu (probe_conv_step's
+    mma.sync tile), which the CPU cannot compile: a lane (g, tq) builds its
+    B registers of a warp's four n-tiles from the (k, n) rows in shared
+    memory with byte_perm, and register b_h of
     n-tile t must hold, in the order the mma.sync instruction reads them, the
     k values of its fragment (int8 m16n8k32: 4 tq + 16 h + i, i = 0..3; bf16
     m16n8k16: 2 tq + 8 h + i, i = 0, 1) at column real_col(t, g)."""
