@@ -35,18 +35,24 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    in tools/): ``python -m sesr_tpu_torch.probes`` conv, gemm and bitcast
    with the probe kernels' launch counters at 0, every kernel at the
    probes' full sizes against its plain version (int8 and int32 outputs
-   torch.equal, bf16 conv steps after 3 steps within 2^-7 max|plain|, r3a's
-   own shapes refused with no launch), the wgmma GEMM tile on its edges
-   (ragged M, N off the big tile, K of one stage or less, write-back rep >
-   1; torch.equal) and a 16-byte misaligned view refused with no launch,
-   the SASS of each probe kernel (cuobjdump: probe_gemm and
-   probe_packed_dot on HGMMA / IGMMA with UTMALDG and no HMMA / IMMA,
-   probe_conv_step on HMMA / IMMA), and each kernel's device time (CUDA
-   events, the device kept busy while the host enqueues) beside its plain
-   version's, its library call's (torch._int_mm timed with B row-major
-   and column-major, the faster reported; for bf16 torch.mm with a
-   float32 output, torch.matmul's bf16 output beside it) and its bound;
-   registers and shared memory from CUPTI.
+   torch.equal, bf16 conv probes after 1-3 steps within 2^-7 max|plain|,
+   r3a's own shapes refused with no launch); the conv probe's persistent
+   kernel (probe_conv_run) at 1, 2, 3 and 50 steps, its int8 50-step
+   check five times over (a missing proxy fence shows as a stale read only
+   sometimes), on edge shapes, one launch per probe call, and the shapes
+   it does not take refused with no launch; the wgmma GEMM tile on its
+   edges (ragged M, N off the big tile, K of one stage or less, write-back
+   rep > 1; torch.equal) and a 16-byte misaligned view refused with no
+   launch; the SASS of each probe kernel (cuobjdump: probe_gemm,
+   probe_packed_dot and probe_conv_run on HGMMA / IGMMA with UTMALDG and
+   no HMMA / IMMA); and each kernel's device time (CUDA events, the
+   device kept busy while the host enqueues) beside its plain version's,
+   its library call's (torch._int_mm timed with B row-major and
+   column-major, the faster reported; for bf16 torch.mm with a float32
+   output, torch.matmul's bf16 output beside it; F.pad + F.conv2d for a
+   bf16 conv step) and its bound; a conv step's time is the K-difference
+   (T(50) - T(1)) / 49 of 50- and 1-step probe calls; registers and
+   shared memory from CUPTI.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -76,7 +82,7 @@ PROBE_REPLACES = {
     "probe_gemm": "tools/bench_probe_pallas_int8.py:65; the dots of "
                   "tools/bench_probe_pallas_conv.py:122 (mm variants) and "
                   "tools/bench_probe_r3a.py:343",
-    "probe_conv_step": "tools/bench_probe_pallas_conv.py:122",
+    "probe_conv_run": "tools/bench_probe_pallas_conv.py:122",
     "probe_unpack_words": "tools/bench_probe_r3b.py:82; the bitcast of "
                           "tools/bench_probe_r3a.py:343",
     "probe_packed_dot": "tools/bench_probe_r3b.py:147; tools/bench_probe_r3b.py:164",
@@ -221,12 +227,12 @@ def sass_counts(lib):
 
 
 def sass_check(lib):
-    """probe_gemm and probe_packed_dot on wgmma (HGMMA / IGMMA) with TMA
-    loads (UTMALDG) and no mma.sync (HMMA / IMMA); probe_conv_step on
-    mma.sync. Prints each kernel's counts; fails on a missing opcode."""
+    """probe_gemm, probe_packed_dot and probe_conv_run on wgmma (HGMMA /
+    IGMMA) with TMA loads (UTMALDG) and no mma.sync (HMMA / IMMA). Prints
+    each kernel's counts; fails on a missing opcode."""
     counts = sass_counts(lib)
     seen = dict.fromkeys(("probe_gemm_kernel", "probe_packed_dot_kernel",
-                          "probe_conv_step_kernel"), 0)
+                          "probe_conv_run_kernel"), 0)
     for fn, c in sorted(counts.items()):
         family = next((k for k in seen if k in fn), None)
         if family is None:
@@ -234,11 +240,7 @@ def sass_check(lib):
         seen[family] += 1
         print(f"[7] SASS {family} {fn[fn.index(family) + len(family):][:48]}: "
               f"{ {k: v for k, v in c.items() if v} }", flush=True)
-        mma_sync = c["HMMA"] + c["IMMA"]
-        if family == "probe_conv_step_kernel":
-            if not mma_sync:
-                fail(f"{fn} shows no HMMA / IMMA: {c}")
-        elif not (c["HGMMA"] + c["IGMMA"]) or not c["UTMALDG"] or mma_sync:
+        if not (c["HGMMA"] + c["IGMMA"]) or not c["UTMALDG"] or c["HMMA"] + c["IMMA"]:
             fail(f"{fn} is not on wgmma with TMA loads alone: {c}")
     print(f"[7] SASS kernels per family: {seen}", flush=True)
     if min(seen.values()) < 1:
@@ -307,6 +309,70 @@ def gemm_edge_checks(torch, dev, compare):
         fail(f"a refused misaligned view launched: {before} -> {after}")
 
 
+# probe_conv_run off the probe's own shape: (shape, type, steps)
+CONV_EDGES = (((16, 24, 128), "int8", (1, 3, 50)), ((16, 24, 128), "bfloat16", (1, 3)),
+              ((16, 24, 64), "bfloat16", (1, 3)), ((8, 8, 256), "int8", (1, 3, 50)))
+# shapes it refuses: (shape, type, what)
+CONV_REFUSED = (((9, 16, 128), "int8", "E_H not a multiple of 8"),
+                ((8, 12, 128), "int8", "E_W not a multiple of 8"),
+                ((8, 8, 96), "bfloat16", "C not a multiple of 64"),
+                ((8, 8, 64), "int8", "int8 C not a multiple of 128"),
+                ((8, 8, 256), "bfloat16", "bf16 weights beyond shared memory"),
+                ((96, 96, 128), "int8", "288 blocks, more than the SMs"))
+CONV_REPEATS = 5
+
+
+def conv_run_checks(torch, dev, compare, counts, p1):
+    """probe_conv_run beyond the probe calls: the int8 50-step calls
+    CONV_REPEATS times over each (a missing proxy fence would show as a
+    stale read only sometimes), the edge shapes against the plain version,
+    and the refused shapes, with no launch."""
+    from sesr_tpu_torch.probes import conv
+    from sesr_tpu_torch.probes import kernels as pk
+
+    c = conv.C
+    for rep in range(CONV_REPEATS):
+        for name in ("v2_int8_concat3", "v3_int8_dot9"):
+            xt, wt = p1[name]
+            got = conv.conv_probe(xt, wt, name)
+            want = conv.plain_probe(xt, wt.reshape(9 * c, c), conv.VARIANTS[name][0], conv.ITERS)
+            compare("probe_conv_run", got, want)
+            if not torch.equal(got, want):
+                fail(f"{name}, {conv.ITERS} steps, repeat {rep}: not equal to its plain version")
+    print(f"[7] int8 {conv.ITERS}-step probe calls, v2 and v3, {CONV_REPEATS} times each: all "
+          f"torch.equal with plain", flush=True)
+    rng = np.random.default_rng(11)
+    for shape, tname, steps in CONV_EDGES:
+        dtype = getattr(torch, tname)
+        x = torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float32)).to(dev, dtype)
+        w9 = torch.from_numpy(rng.integers(-2, 3, (9 * shape[2], shape[2])).astype(np.float32)
+                              ).to(dev, dtype)
+        for iters in steps:
+            xn, got = pk.probe_conv_run(x, w9, iters)
+            want = conv.plain_probe(x, w9, "dot9", iters)
+            diff = compare("probe_conv_run", got, want)
+            top = float(want.abs().max())
+            exact = dtype == torch.int8 or iters == 1
+            ok = torch.equal(got, want) if exact else diff <= BF16_TOL * top
+            ok = ok and torch.equal(xn.float(), got)
+            print(f"[7] probe_conv_run edge {shape} {tname}, {iters} steps: "
+                  f"{'torch.equal' if exact else f'max |diff| {diff} <= 2^-7 * {top}'} with "
+                  f"plain = {ok}", flush=True)
+            if not ok:
+                fail(f"probe_conv_run at {shape} {tname}, {iters} steps, disagrees")
+    before = counts()
+    for shape, tname, what in CONV_REFUSED:
+        dtype = getattr(torch, tname)
+        x = torch.zeros(shape, dtype=dtype, device=dev)
+        try:
+            pk.probe_conv_run(x, torch.zeros((9 * shape[2], shape[2]), dtype=dtype, device=dev), 2)
+            fail(f"probe_conv_run took {shape} {tname} ({what})")
+        except ValueError as e:
+            print(f"[7] probe_conv_run refuses {shape} {tname} ({what}): {e}", flush=True)
+    if counts() != before:
+        fail(f"a refused probe_conv_run shape launched: {before} -> {counts()}")
+
+
 def probes_phase(torch, dev):
     """Phase 7, the probes: the probe path with the launch counters at 0,
     each kernel of csrc/probes.cu against its plain version, and the times.
@@ -354,22 +420,39 @@ def probes_phase(torch, dev):
 
     c = conv.C
     p1 = {}
+
+    def conv_check(label, sym, got, want, dtype, iters):
+        """int8: torch.equal; bf16: within 2^-7 max|plain|."""
+        diff = compare(sym, got, want)
+        top = float(want.abs().max())
+        ok = torch.equal(got, want) if dtype == torch.int8 else diff <= BF16_TOL * top
+        print(f"[7] {label} ({sym}), {iters} steps: "
+              f"{'torch.equal' if dtype == torch.int8 else f'max |diff| {diff} <= 2^-7 * {top}'}"
+              f" with plain (cuda) = {ok}; max|plain| {top}", flush=True)
+        if not ok:
+            fail(f"{label} disagrees with its plain version after {iters} steps")
+
     for name, (x, w) in conv.make_inputs().items():
         form, dtype = conv.VARIANTS[name]
         xt, wt = on_card(x, dtype), on_card(w, dtype)
         p1[name] = (xt, wt)
-        iters = conv.ITERS if dtype == torch.int8 else BF16_ITERS
-        got = conv.conv_probe(xt, wt, name, iters)
-        want = conv.plain_probe(xt, wt.reshape(9 * c, c), form, iters)
-        sym = "probe_gemm" if form == "mm" else "probe_conv_step"
-        diff = compare(sym, got, want)
-        top = float(want.abs().max())
-        ok = torch.equal(got, want) if dtype == torch.int8 else diff <= BF16_TOL * top
-        print(f"[7] P1 {name} ({sym}), {iters} steps: "
-              f"{'torch.equal' if dtype == torch.int8 else f'max |diff| {diff} <= 2^-7 * {top}'}"
-              f" with plain (cuda) = {ok}; max|plain| {top}", flush=True)
-        if not ok:
-            fail(f"{name} disagrees with its plain version after {iters} steps")
+        w9 = wt.reshape(9 * c, c)
+        if form == "mm":
+            iters = conv.ITERS if dtype == torch.int8 else BF16_ITERS
+            conv_check(f"P1 {name}", "probe_gemm", conv.conv_probe(xt, wt, name, iters),
+                       conv.plain_probe(xt, w9, form, iters), dtype, iters)
+            continue
+        for iters in (1, 2, 3, conv.ITERS) if dtype == torch.int8 else (1, 2, BF16_ITERS):
+            before = counts()
+            got = conv.conv_probe(xt, wt, name, iters)
+            launched = {k: counts()[k] - before[k] for k in before}
+            if launched != {**dict.fromkeys(before, 0), "probe_conv_run": 1}:
+                fail(f"a {name} probe call of {iters} steps launched {launched}, not one "
+                     f"probe_conv_run")
+            conv_check(f"P1 {name}", "probe_conv_run", got,
+                       conv.plain_probe(xt, w9, form, iters), dtype, iters)
+    print("[7] every v1-v4 probe call above was one probe_conv_run launch", flush=True)
+    conv_run_checks(torch, dev, compare, counts, p1)
     p2 = {}
     for name, (a, b) in int8_gemm.make_inputs().items():
         dtype, out_dtype = int8_gemm.VARIANTS[name]
@@ -495,6 +578,11 @@ def probes_phase(torch, dev):
 
     eh, ew = conv.E_H, conv.E_W
     m = eh * ew
+
+    def ops_per_s(dtype):
+        return INT8_OPS_PER_S if dtype == torch.int8 else BF16_OPS_PER_S
+
+    step_ms = {}
     for name, (xt, wt) in p1.items():
         form, dtype = conv.VARIANTS[name]
         w9 = wt.reshape(9 * c, c)
@@ -503,27 +591,34 @@ def probes_phase(torch, dev):
         plain_ms = median_ms(lambda: conv.plain_probe(xt, w9, form, conv.ITERS), dev, 3)
         es = xt.element_size()
         bnd = bound(conv.step_ops((eh, ew, c), form) * conv.ITERS,
-                    m * c * es + 9 * c * c * es + m * c * 4,
-                    INT8_OPS_PER_S if dtype == torch.int8 else BF16_OPS_PER_S)
-        print(f"[7] P1 {name}, one probe call ({conv.ITERS} launches): {call_ms:.5f} ms as the "
-              f"host issues it, {dev_ms:.5f} ms of device time (launches queued); bound "
+                    m * c * es + 9 * c * c * es + m * c * 4, ops_per_s(dtype))
+        sym = "probe_gemm" if form == "mm" else "probe_conv_run"
+        n_launch = conv.ITERS if form == "mm" else 1
+        line = ""
+        if form != "mm":
+            # one step: the K-difference of 50- and 1-step calls, which takes
+            # the prologue and the weight load out
+            one_ms = device_ms(lambda: conv.conv_probe(xt, wt, name, 1), reps=20)
+            step_ms[name] = (dev_ms - one_ms) / (conv.ITERS - 1)
+            sb = bound(conv.step_ops((eh, ew, c)), 2 * m * c * es + 9 * c * c * es,
+                       ops_per_s(dtype))
+            line = (f"; 1-step call {one_ms:.5f} ms, one step (T({conv.ITERS}) - T(1)) / "
+                    f"{conv.ITERS - 1} = {step_ms[name] * 1e3:.4f} us, share of its "
+                    f"{sb[0] * 1e3:.4f} us bound {sb[0] / step_ms[name]:.4f}")
+        print(f"[7] P1 {name}, one probe call ({n_launch} {sym} launch"
+              f"{'es' if n_launch > 1 else ''}): {call_ms:.5f} ms as the host issues it, "
+              f"{dev_ms:.5f} ms of device time (launches queued); bound "
               f"{bnd[0] * 1e3:.4f} us ({bnd[1]}), share {bnd[0] / dev_ms:.4f} of the device "
-              f"time; plain {plain_ms:.5f} ms", flush=True)
-    # one step, one launch, in each type
+              f"time; plain {plain_ms:.5f} ms{line}", flush=True)
+    # one step of each type beside its plain version and the library's conv
     for dtype in (torch.int8, torch.bfloat16):
         name = "v2_int8_concat3" if dtype == torch.int8 else "v1_bf16_concat3"
         xt, wt = p1[name]
         w9 = wt.reshape(9 * c, c)
-        buf = torch.empty_like(xt)
         step = plain.conv_step(xt, w9)
-        diff = compare("probe_conv_step", pk.probe_conv_step(xt, w9, out_x=buf)[0], step)
-        if diff != 0.0:
-            fail(f"one {dtype} probe_conv_step differs from its plain version by {diff}")
-        ms = device_ms(lambda: pk.probe_conv_step(xt, w9, out_x=buf), reps=30)
         plain_ms = device_ms(lambda: plain.conv_step(xt, w9), reps=10)
         es = xt.element_size()
-        bnd = bound(conv.step_ops((eh, ew, c)), 2 * m * c * es + 9 * c * c * es,
-                    INT8_OPS_PER_S if dtype == torch.int8 else BF16_OPS_PER_S)
+        bnd = bound(conv.step_ops((eh, ew, c)), 2 * m * c * es + 9 * c * c * es, ops_per_s(dtype))
         lib_ms, lib_name = None, "none: PyTorch has no int8 conv on CUDA"
         if dtype == torch.bfloat16:
             x_nchw = xt.permute(2, 0, 1)[None].contiguous()
@@ -540,11 +635,13 @@ def probes_phase(torch, dev):
                 fail("F.conv2d on the circularly padded tile is not the probe's conv")
             lib_ms, lib_name = device_ms(lib), \
                 "F.pad circular + F.conv2d, bf16 NCHW, no write-back"
-        report(f"P1 probe_conv_step, one {str(dtype)[6:]} step, equal to plain (device time)",
-               ms, bnd, plain_ms, lib_ms, lib_name)
+        report(f"P1 probe_conv_run, one {str(dtype)[6:]} step of {name} "
+               f"((T({conv.ITERS}) - T(1)) / {conv.ITERS - 1}, device time)",
+               step_ms[name], bnd, plain_ms, lib_ms, lib_name)
         if dtype == torch.bfloat16:
-            entry("probe_conv_step", f"one bf16 step of P1 on ({eh}, {ew}, {c})", ms, plain_ms,
-                  bnd, lib_ms)
+            entry("probe_conv_run", f"one bf16 step of P1 on ({eh}, {ew}, {c}): the "
+                  f"K-difference (T({conv.ITERS}) - T(1)) / {conv.ITERS - 1} of v1 probe calls",
+                  step_ms[name], plain_ms, bnd, lib_ms)
     for name in ("v5_int8_mm", "v6_bf16_mm"):
         xt, wt = p1[name]
         a = xt.reshape(m // 9, 9 * c)
@@ -603,8 +700,10 @@ def probes_phase(torch, dev):
         "probe_gemm int8 64x64 tiles (P3 dot)": lambda: pk.probe_gemm(a8_r3a, w_ok),
         "probe_gemm bf16 64x64 tiles (P1 mm step)": lambda: pk.probe_gemm.write_back(
             x_bf.reshape(-1, 9 * c), w_bf.reshape(9 * c, c), 9),
-        "probe_conv_step int8": lambda: pk.probe_conv_step(x_i8, w_i8.reshape(9 * c, c)),
-        "probe_conv_step bf16": lambda: pk.probe_conv_step(x_bf, w_bf.reshape(9 * c, c)),
+        "probe_conv_run int8, 50 steps": lambda: pk.probe_conv_run(
+            x_i8, w_i8.reshape(9 * c, c), conv.ITERS),
+        "probe_conv_run bf16, 50 steps": lambda: pk.probe_conv_run(
+            x_bf, w_bf.reshape(9 * c, c), conv.ITERS),
         "probe_unpack_words": lambda: pk.probe_unpack_words(words, 1),
         "probe_packed_dot": lambda: pk.probe_packed_dot(packed, wb)}, pattern="probe_")
     for key, (regs, smem) in attrs.items():

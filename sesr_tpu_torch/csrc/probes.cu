@@ -6,9 +6,10 @@
 //                          dot of tools/bench_probe_pallas_conv.py:122's mm
 //                          variants (its write-back is a store epilogue here) and
 //                          of tools/bench_probe_r3a.py:343
-//   probe_conv_step     <- tools/bench_probe_pallas_conv.py:122 (one grid step of
-//                          make()'s kernel: a circular 3x3 C -> C conv of the
-//                          (E_H, E_W, C) tile with its int8 / bf16 write-back)
+//   probe_conv_run      <- tools/bench_probe_pallas_conv.py:122 (make()'s kernel,
+//                          all ITERS grid steps: a circular 3x3 C -> C conv of the
+//                          (E_H, E_W, C) tile with its int8 / bf16 write-back, step
+//                          after step, then f32 of the tile)
 //   probe_unpack_words  <- the pltpu.bitcast int32 -> int8 of
 //                          tools/bench_probe_r3b.py:82 and r3a.py:343 (with its roll)
 //   probe_packed_dot    <- tools/bench_probe_r3b.py:147 / :164 (the byte-plane dot
@@ -21,33 +22,48 @@
 // loads, a producer warp and consumer warpgroups; its note says what bounds
 // them and what the design does about it).
 //
-// probe_conv_step runs the mma.sync tile below (conv_tile). A block computes
-// a BM x BN tile of the conv as an implicit GEMM: M = E_H * E_W pixels, K = 9
-// taps x C channels (a 64-byte k slice lies inside one tap, so a row of A is
-// 64 contiguous bytes of the source pixel (h + qy - 1, w + qx - 1), both mod
-// the tile), N = C. 64 bytes of K per stage are staged into shared memory
-// with cp.async, six stages in flight; each warp computes a 16 x 32 sub-tile
-// with mma.sync on the tensor cores:
-//   int8  m16n8k32.row.col.s32.s8.s8.s32   (exact int32 sums)
-//   bf16  m16n8k16.row.col.f32.bf16.bf16.f32
-// A's fragments come from shared memory by ldmatrix.x4 (the int8 and bf16
-// fragments of a 32-byte k slice have the same word layout). B is kept as
-// it lies in memory, (k, n) rows: a lane reads the words of consecutive k
-// rows at one column word and transposes them in registers with byte_perm
-// (4 x 4 bytes for int8, 2 x 2 halves for bf16). That makes n-tile t of a
-// warp hold columns 4j + t (int8) or 16 (t / 2) + 2j + t % 2 (bf16),
-// j = 0..7, which the epilogue undoes: it stages the C tile in shared
-// memory and stores rows of 16 bytes. The conv step is operation-bound
-// (1,979 int8 TOP/s, 989 bf16 TFLOP/s); mma.sync issues from sm_80 PTX and
-// does not reach Hopper's full rate.
-//
-// One launch is one step; the caller ping-pongs two buffers in device memory
-// (the 0.44 / 0.88 MB tile stays in L2, where the TPU kernel kept it in VMEM
-// scratch). The TPU probe's concat3 and dot9 forms differ only in how the
-// TPU relayouts the rolled copies, so both run this kernel; their weights
-// are (9C, C) reshapes of the probe's layouts. The write-back is the
-// probe's: int8 clip(acc, -128, 127); bf16 bf16_rn(acc * f32(1e-3)); with
-// -fmad=false and an explicit __fmul_rn.
+// probe_conv_run runs every step of one probe call in one persistent,
+// cooperative launch, as the TPU kernel runs its sequential grid in one
+// pallas_call with the tile in VMEM scratch. The conv is an implicit GEMM
+// (M = the tile's pixels, K = 9 taps x C, N = C) on wgmma, operation-bound
+// (1.02e9 operations a step at 48 x 72 x 128: 0.515 us int8 at 1,979
+// TOP/s, 1.03 us bf16 at 989 TFLOP/s). The design:
+//   - one block per 8 x 8-pixel patch x 64 output channels (wgmma's M = 64,
+//     one consumer warpgroup): 108 blocks for the probe's tile, one per SM,
+//     all resident; a shape whose grid could not all be resident is refused;
+//   - the block's 9C x 64 weight columns load once, by TMA, and stay in
+//     shared memory for every step: bf16 as they lie (MN-major, read
+//     transposed by the descriptor), int8 turned K-major once by
+//     transpose_stage into swizzled 64 x 128-byte tiles;
+//   - the tile ping-pongs between two padded buffers (E_H + 2, E_W + 2, C)
+//     in device memory (L2-resident: 0.5 / 1.0 MB), whose border holds the
+//     circular halo, so tap (qy, qx) of a patch is one in-bounds 3-D TMA box
+//     (128 bytes of C, 8, 8) at (c0, w0 + qx, h0 + qy): 64 swizzled 128-byte
+//     rows, wgmma's K-major A as it lands. A prologue writes x and its halo
+//     into buffer 0; each step's epilogue writes a border pixel to its halo
+//     copies as well (pad_src, halo_copy);
+//   - a producer lane keeps kRing tap boxes in flight (full / empty
+//     mbarriers whose phases run on across steps), the consumer warpgroup
+//     issues m64n64k32 s8 (exact int32) or m64n64k16 bf16 -> f32, and its
+//     epilogue stages the fragments in shared memory and writes back the
+//     probe's way (write_back4) into the other buffer; the last step also
+//     writes the f32 output;
+//   - between steps a grid barrier: a word in device memory that only grows
+//     (barrier_target); the writers fence their generic stores against the
+//     async proxy (fence.proxy.async.global) before the block arrives with
+//     a release, and the producer acquires, fences again, then issues the
+//     next step's TMA loads. Step s reads buffer s % 2 and writes the other;
+//     a block arrives only after its consumer has waited for every box of
+//     step s, so no box of step s is in flight when any block passes the
+//     barrier and overwrites buffer s % 2 in step s + 1.
+// Shared memory per block: the resident B (9 C 64 bytes int8, twice that
+// bf16), kRing stages of 8,192 B, the staged C tile of 18,432 B, 1,024 B
+// to align the base and 72 B of barriers: at C = 128, 126,024 B int8 and
+// 199,752 B bf16. The TPU probe's concat3 and dot9 forms differ only in
+// how the TPU relayouts the rolled copies, so both run this kernel; their
+// weights are (9C, C) reshapes of the probe's layouts. The write-back is
+// the probe's: int8 clip(acc, -128, 127); bf16 bf16_rn(acc * f32(1e-3));
+// with -fmad=false and an explicit __fmul_rn.
 //
 // probe_gemm with int8 inputs and f32 output accumulates in int32 and
 // converts once. This equals the TPU probe's f32 accumulation wherever
@@ -75,34 +91,7 @@
 
 namespace {
 
-constexpr int kKBytes = 64;                // bytes of K per pipeline stage
-constexpr int kAStride = kKBytes / 4 + 4;  // words per A row: ldmatrix without bank conflicts
-
-// WM x WN warps, each a (16 MT) x 32 tile of the output.
-template <int MT_, int WM_, int WN_, int STAGES_>
-struct Tiling {
-  static constexpr int MT = MT_, WM = WM_, WN = WN_, STAGES = STAGES_;
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int BM = 16 * MT * WM;
-  static constexpr int BN = 32 * WN;
-};
-// the conv step's tile: 32 x 64 with 6 stages, 216 blocks for the 48 x 72 x 128
-// tile (a 64 x 64 tile gives 108 and was slower on the H100)
-using ConvTile = Tiling<1, 2, 2, 6>;
-
-// Shared memory of one block, in 32-bit words.
-template <class TL, bool BF16>
-struct Smem {
-  static constexpr int es = BF16 ? 2 : 1;                 // bytes per element
-  static constexpr int KB = kKBytes / es;                 // k rows of B per stage
-  static constexpr int BS = TL::BN * es / 4 + 4;          // words per B row
-  static constexpr int A_WORDS = TL::BM * kAStride;
-  static constexpr int STAGE_WORDS = A_WORDS + KB * BS;
-  static constexpr int CS = TL::BN + 4;                   // words per row of the C tile
-  static constexpr int PIPE_WORDS = STAGE_WORDS * TL::STAGES;
-  static constexpr int C_WORDS = TL::BM * CS;
-  static constexpr int WORDS = PIPE_WORDS > C_WORDS ? PIPE_WORDS : C_WORDS;
-};
+constexpr int kKBytes = 64;  // probe_gemm / probe_packed_dot: K * element bytes % kKBytes == 0
 
 // The GEMM tiles (wgmma_gemm.cuh): 128 x 256 with two consumer warpgroups
 // where that still fills the card, else 64 x 64 with one.
@@ -111,191 +100,263 @@ using BigTileBf16 = wg::Tile<2, 256, 4>;
 using SmallTile = wg::Tile<1, 64, 4>;
 constexpr int kSms = 132;               // the H100's SMs
 
-// 16 bytes from device to shared memory; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
+namespace conv {
+
+constexpr int kPatch = 8;                     // a block's patch: 8 x 8 pixels, wgmma's M of 64
+constexpr int kBn = 64;                       // output channels per block
+constexpr int kRing = 4;                      // A stages in flight
+constexpr int kStageBytes = 8192;             // an A stage, or a resident B tile: 64 x 128 bytes
+constexpr int kCs = kBn + 8;                  // words per row of the staged C tile
+constexpr int kCBytes = 64 * kCs * 4;
+constexpr int kThreads = 256;                 // the producer warpgroup and one consumer warpgroup
+constexpr int kSmemLimit = 232448;            // a block's shared memory on the H100
+
+// The padded (haloed) tile: padded index hp of a dimension of n pixels
+// holds pixel pad_src(hp, n); pixel h is also written to its halo copy
+// halo_copy(h, n) (n + 1 for h = 0, 0 for h = n - 1, else -1: none).
+__host__ __device__ __forceinline__ int pad_src(int hp, int n) { return (hp + n - 1) % n; }
+__host__ __device__ __forceinline__ int halo_copy(int h, int n) {
+  return (h == 0) * (n + 2) + (h == n - 1) - 1;
+}
+// Stage j of a step (cpt 128-byte chunks of C a tap): its tap 3 qy + qx and
+// its chunk of C; it reads weight rows 128 / es * j onwards.
+__host__ __device__ __forceinline__ int stage_tap(int j, int cpt) { return j / cpt; }
+__host__ __device__ __forceinline__ int stage_chunk(int j, int cpt) { return j % cpt; }
+// The grid barrier: a word in device memory that only grows (mod 2^32).
+// Barrier b of a launch whose word started at base completes when every
+// block has arrived at it: the word reads barrier_target(base, b, nblocks).
+__host__ __device__ __forceinline__ unsigned barrier_target(unsigned base, unsigned b,
+                                                            unsigned nblocks) {
+  return base + (b + 1u) * nblocks;
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__host__ __device__ constexpr int smem_bytes(int c, int es) {
+  return 9 * c * kBn * es + kRing * kStageBytes + kCBytes + 1024 + 8 * (2 * kRing + 1);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const int* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+struct Args {
+  const int4* x;        // (eh, ew, c) input tile
+  uint8_t* bufs;        // two padded tiles (eh + 2, ew + 2, c), one after the other
+  float* out_f32;       // (eh, ew, c): f32 of the tile after the last step
+  unsigned* count;      // the grid barrier's word
+  unsigned base;        // its value when this launch starts
+  int eh, ew, c, iters;
+};
+
+__device__ __forceinline__ void grid_arrive(unsigned* count) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// Waits until the word has reached target (mod 2^32). Every block is
+// resident (a cooperative launch), so a barrier that has not completed
+// after two seconds never will: trap, as mbar_wait does.
+__device__ __forceinline__ void grid_wait(const unsigned* count, unsigned target) {
+  if (static_cast<int>(ld_acquire(count) - target) >= 0) return;
+  const uint64_t t0 = wg::global_ns();
+  while (static_cast<int>(ld_acquire(count) - target) < 0)
+    if (wg::global_ns() - t0 > 2000000000ull) __trap();
+}
+// Generic-proxy stores to device memory, made visible to later TMA loads
+// (the async proxy) of this or another block.
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// c += A (16x32 s8, row) * B (32x8 s8, col), exact in int32.
-__device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-               : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += A (16x16 bf16, row) * B (16x8 bf16, col), in float32.
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One stage: A (BM rows x 64 bytes, the conv's circular taps) and B (KB rows
-// x BN columns) of k slice kt.
-template <class TL, bool BF16>
-__device__ __forceinline__ void load_stage(int* st, const Args& p, int m0, int n0, int kt) {
-  using S = Smem<TL, BF16>;
-  const int kb = kt * kKBytes;  // byte offset along k
-  for (int i = threadIdx.x; i < TL::BM * 4; i += TL::kThreads) {
-    const int r = i >> 2, ch = i & 3;
-    const int m = m0 + r;
-    const bool ok = m < p.m;
-    const uint8_t* src = p.a;
-    if (ok) {
-      // pixel m reads tap (qy, qx) at ((h + qy - 1) mod eh, (w + qx - 1) mod ew)
-      const int cb = p.c * S::es;
-      const int tap = kb / cb;
-      const int h = m / p.ew, w = m - h * p.ew;
-      int sh = h + tap / 3 - 1, sw = w + tap % 3 - 1;
-      sh += sh < 0 ? p.eh : (sh >= p.eh ? -p.eh : 0);
-      sw += sw < 0 ? p.ew : (sw >= p.ew ? -p.ew : 0);
-      src = p.a + (static_cast<size_t>(sh) * p.ew + sw) * cb + (kb - tap * cb) + 16 * ch;
-    }
-    cp_async16(st + r * kAStride + 4 * ch, src, ok);
-  }
-  constexpr int CPR = TL::BN * S::es / 16;  // 16-byte chunks per B row
-  const size_t ldb = static_cast<size_t>(p.n) * S::es;
-  const uint8_t* b0 = p.b + static_cast<size_t>(kt) * S::KB * ldb + static_cast<size_t>(n0) * S::es;
-  int* sb = st + S::A_WORDS;
-  for (int i = threadIdx.x; i < S::KB * CPR; i += TL::kThreads) {
-    const int r = i / CPR, ch = i - r * CPR;
-    cp_async16(sb + r * S::BS + 4 * ch, b0 + r * ldb + 16 * ch, true);
-  }
-}
-
-// B registers (b0, b1) of this lane for the warp's four n-tiles, 32-byte k
-// step ks. int8: words of rows 4 tq + i (i = 0..3) at column word g,
-// transposed 4 x 4 by bytes; byte t of word i is column 4g + t at k 4 tq + i.
-// bf16: words of rows 2 tq, 2 tq + 1 at column words g and 8 + g, transposed
-// 2 x 2 by halves.
+// All `iters` steps of the conv probe (concat3 / dot9): see the note above
+// probe_conv_run.
 template <bool BF16>
-__device__ __forceinline__ void load_b(unsigned (&b)[4][2], const int* sb, int bs, int ks, int wn,
-                                       int g, int tq) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if constexpr (!BF16) {
-      const int* p = sb + (ks * 32 + 16 * half + 4 * tq) * bs + wn * 8 + g;
-      const unsigned w0 = p[0], w1 = p[bs], w2 = p[2 * bs], w3 = p[3 * bs];
-      const unsigned x01 = __byte_perm(w0, w1, 0x5140), x23 = __byte_perm(w2, w3, 0x5140);
-      const unsigned y01 = __byte_perm(w0, w1, 0x7362), y23 = __byte_perm(w2, w3, 0x7362);
-      b[0][half] = __byte_perm(x01, x23, 0x5410);
-      b[1][half] = __byte_perm(x01, x23, 0x7632);
-      b[2][half] = __byte_perm(y01, y23, 0x5410);
-      b[3][half] = __byte_perm(y01, y23, 0x7632);
-    } else {
-#pragma unroll
-      for (int grp = 0; grp < 2; ++grp) {
-        const int* p = sb + (ks * 16 + 8 * half + 2 * tq) * bs + wn * 16 + grp * 8 + g;
-        const unsigned w0 = p[0], w1 = p[bs];
-        b[2 * grp][half] = __byte_perm(w0, w1, 0x5410);
-        b[2 * grp + 1][half] = __byte_perm(w0, w1, 0x7632);
-      }
-    }
-  }
-}
-
-// The column, within the warp's 32, of logical column lc of n-tile t.
-template <bool BF16>
-__device__ __forceinline__ int real_col(int t, int lc) {
-  return BF16 ? 16 * (t >> 1) + 2 * lc + (t & 1) : 4 * lc + t;
-}
-
-// The conv step: C tile (BM x BN) of the implicit GEMM, with the write-back.
-template <class TL, bool BF16>
-__device__ __forceinline__ void conv_tile(const Args& p) {
-  using S = Smem<TL, BF16>;
+__global__ void __launch_bounds__(kThreads, 1)
+    probe_conv_run_kernel(const __grid_constant__ CUtensorMap map_x0,
+                          const __grid_constant__ CUtensorMap map_x1,
+                          const __grid_constant__ CUtensorMap map_w, Args p) {
+  using namespace wg;
   using AccT = typename std::conditional<BF16, float, int>::type;
-  extern __shared__ int4 smem4[];
-  int* smem = reinterpret_cast<int*>(smem4);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / TL::WN, wn = warp % TL::WN;
-  const int g = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * TL::BN;
-  const int KT = p.k * S::es / kKBytes;
+  constexpr int es = BF16 ? 2 : 1, S = kRing;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int cpt = p.c * es / kStageK;  // 128-byte chunks of C a tap
+  const int KT = 9 * cpt;              // stages a step, and resident B tiles
+  uint8_t* bres = smem;                // B: tile j holds weight rows 128 / es * j onwards
+  uint8_t* ring = bres + KT * kStageBytes;
+  uint32_t* ct = reinterpret_cast<uint32_t*>(ring + S * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kStageBytes + kCBytes);
+  uint64_t* empty = full + S;
+  uint64_t* wbar = empty + S;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBn, w0 = blockIdx.y * kPatch, h0 = blockIdx.z * kPatch;
+  const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
+  const size_t plane = static_cast<size_t>(p.eh + 2) * (p.ew + 2) * p.c * es;  // bytes a buffer
 
-  AccT acc[TL::MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < TL::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-
-#pragma unroll
-  for (int s = 0; s < TL::STAGES - 1; ++s) {
-    if (s < KT) load_stage<TL, BF16>(smem + s * S::STAGE_WORDS, p, m0, n0, s);
-    cp_commit();
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // ldmatrix row of this lane: matrices (rows 0-7 | 8-15) x (bytes 0-15 | 16-31)
-  const int a_row = wm * TL::MT * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int a_col = 4 * (lane >> 4);
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_wait<TL::STAGES - 2>();
-    __syncthreads();  // stage kt has landed, and every warp is done with kt - 1
-    const int nk = kt + TL::STAGES - 1;
-    if (nk < KT) load_stage<TL, BF16>(smem + (nk % TL::STAGES) * S::STAGE_WORDS, p, m0, n0, nk);
-    cp_commit();
-    const int* st = smem + (kt % TL::STAGES) * S::STAGE_WORDS;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      unsigned a[TL::MT][4];
-#pragma unroll
-      for (int mt = 0; mt < TL::MT; ++mt)
-        ldmatrix_x4(a[mt], st + (a_row + 16 * mt) * kAStride + 8 * ks + a_col);
-      unsigned b[4][2];
-      load_b<BF16>(b, st + S::A_WORDS, S::BS, ks, wn, g, tq);
-#pragma unroll
-      for (int mt = 0; mt < TL::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+  __syncthreads();
+
+  // 1. the block's weight columns n0 .. n0 + 63, by TMA, once. bf16: as they
+  // lie (MN-major, read transposed by the descriptor), straight into their
+  // resident tiles. int8: rounds of S raw (128 k x 64 n) tiles through the
+  // ring, each turned K-major into its resident tile below.
+  auto load_w_round = [&](int r) {
+    const int j0 = r * S, nj = min(S, KT - j0);
+    mbar_expect_tx(wbar, nj * kStageBytes);
+    for (int j = j0; j < j0 + nj; ++j)
+      tma_2d(ring + (j - j0) * kStageBytes, &map_w, wbar, n0, kStageK * j);
+  };
+  if (tid == 0) {
+    if constexpr (BF16) {
+      mbar_expect_tx(wbar, KT * kStageBytes);
+      for (int j = 0; j < KT; ++j) tma_2d(bres + j * kStageBytes, &map_w, wbar, n0, 64 * j);
+    } else {
+      load_w_round(0);
     }
   }
-  cp_wait<0>();
-  __syncthreads();
 
-  // epilogue: fragments -> C tile in shared memory -> rows of 16 bytes
-  AccT* ct = reinterpret_cast<AccT*>(smem);
-#pragma unroll
-  for (int mt = 0; mt < TL::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = wm * TL::MT * 16 + 16 * mt + g + 8 * (i >> 1);
-        const int col = wn * 32 + real_col<BF16>(nt, 2 * tq + (i & 1));
-        ct[row * S::CS + col] = acc[mt][nt][i];
-      }
+  // 2. the prologue, every block a share: buffer 0 <- x with its circular halo
+  {
+    const int chunks = p.c * es / 16, wp_n = p.ew + 2;
+    const long long total = static_cast<long long>(p.eh + 2) * wp_n * chunks;
+    const long long bid =
+        blockIdx.x + gridDim.x * (blockIdx.y + static_cast<long long>(gridDim.y) * blockIdx.z);
+    const long long step = static_cast<long long>(nblocks) * kThreads;
+    int4* buf0 = reinterpret_cast<int4*>(p.bufs);
+    for (long long i = bid * kThreads + tid; i < total; i += step) {
+      const int ch = static_cast<int>(i % chunks);
+      const long long pix = i / chunks;
+      const int wp = static_cast<int>(pix % wp_n), hp = static_cast<int>(pix / wp_n);
+      const long long src = static_cast<long long>(pad_src(hp, p.eh)) * p.ew + pad_src(wp, p.ew);
+      buf0[i] = p.x[src * chunks + ch];
+    }
+    fence_proxy_global();
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < TL::BM * TL::BN / 4; i += TL::kThreads) {
-    const int r = i / (TL::BN / 4), c4 = 4 * (i - r * (TL::BN / 4));
-    if (m0 + r < p.m) store4<BF16, EPI_WB>(p, m0 + r, n0 + c4, ct + r * S::CS + c4);
+  if (tid == 0) {
+    __threadfence();
+    grid_arrive(p.count);  // barrier 0: buffer 0 is whole
+  }
+
+  // 3. int8: each raw weight tile -> its K-major resident tile (warps 0-2)
+  if constexpr (!BF16) {
+    for (int r = 0; r * S < KT; ++r) {
+      if (r > 0 && tid == 0) load_w_round(r);  // the ring is free again (the __syncthreads below)
+      mbar_wait(wbar, r & 1);
+      if (tid < kTransposers)
+        for (int j = r * S; j < min(KT, r * S + S); ++j)
+          transpose_stage<kBn, false>(smem_u32(ring + (j - r * S) * kStageBytes),
+                                      smem_u32(bres + j * kStageBytes), tid);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+  } else {
+    mbar_wait(wbar, 0);
+  }
+
+  const int wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  if (wgi == 0) {
+    // 4. the producer: step s's tap boxes from buffer s % 2, once barrier s
+    // (buffer s % 2 whole in every block) has completed
+    if (tid == 0) {
+      int it = 0;  // stages since the launch began: the ring's phases run on across steps
+      for (int s = 0; s < p.iters; ++s) {
+        grid_wait(p.count, barrier_target(p.base, s, nblocks));
+        fence_proxy_global();
+        const CUtensorMap* map = (s & 1) ? &map_x1 : &map_x0;
+        for (int j = 0; j < KT; ++j, ++it) {
+          const int slot = it % S, tap = stage_tap(j, cpt);
+          mbar_wait(empty + slot, ((it / S) & 1) ^ 1);
+          mbar_expect_tx(full + slot, kStageBytes);
+          tma_3d(ring + slot * kStageBytes, map, full + slot, stage_chunk(j, cpt) * (kStageK / es),
+                 w0 + tap % 3, h0 + tap / 3);
+        }
+      }
+    }
+    return;
+  }
+
+  // 5. the consumer warpgroup: wgmma on each landed tap box and its resident
+  // B tile; the write-back into buffer (s + 1) % 2 and its halo; then
+  // barrier s + 1
+  const int ctid = tid - 128;
+  int it = 0;
+  uint32_t d[kBn / 2];
+  for (int s = 0; s < p.iters; ++s) {
+#pragma unroll
+    for (int r = 0; r < kBn / 2; ++r) d[r] = 0;
+    for (int j = 0; j < KT; ++j, ++it) {
+      const int slot = it % S;
+      mbar_wait(full + slot, (it / S) & 1);
+      const uint64_t da = make_desc(ring + slot * kStageBytes, 16, kSbo);
+      const uint64_t db = make_desc(bres + j * kStageBytes, BF16 ? kMnLbo : 16, kSbo);
+      fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kStageK / kKStep; ++ks)
+        wgmma<kBn, BF16>(d, da + ((ks * kKStep) >> 4),
+                         db + (((BF16 ? kMnKStep : kKStep) * ks) >> 4));
+      wgmma_commit();
+      fence_acc(d);
+      wgmma_wait<1>();  // the group of stage it - 1 is done: hand that stage back
+      fence_acc(d);
+      if (j > 0) mbar_arrive(empty + (it - 1) % S);
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+    mbar_arrive(empty + (it - 1) % S);
+
+#pragma unroll
+    for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 2 * h;
+        *reinterpret_cast<uint2*>(ct + acc_row(warp, lane, i) * kCs + acc_col(j, lane, i)) =
+            make_uint2(d[4 * j + i], d[4 * j + i + 1]);
+      }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    uint8_t* dst = p.bufs + ((s & 1) ? 0 : plane);  // step s writes buffer (s + 1) % 2
+    const bool last = s + 1 == p.iters;
+    for (int idx = ctid; idx < 64 * (kBn / 4); idx += 128) {
+      const int r = idx / (kBn / 4), c4 = 4 * (idx % (kBn / 4));
+      const int h = h0 + r / kPatch, w = w0 + r % kPatch;
+      float f[4];
+      uint2 x2;
+      unsigned x1;
+      write_back4<BF16>(reinterpret_cast<const AccT*>(ct + r * kCs + c4), f, x2, x1);
+      const int hs[2] = {h + 1, halo_copy(h, p.eh)}, ws[2] = {w + 1, halo_copy(w, p.ew)};
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          if (hs[a] < 0 || ws[b] < 0) continue;
+          const size_t o = (static_cast<size_t>(hs[a]) * (p.ew + 2) + ws[b]) * p.c + n0 + c4;
+          if constexpr (BF16)
+            *reinterpret_cast<uint2*>(dst + 2 * o) = x2;
+          else
+            *reinterpret_cast<unsigned*>(dst + o) = x1;
+        }
+      if (last)
+        *reinterpret_cast<float4*>(p.out_f32 + (static_cast<size_t>(h) * p.ew + w) * p.c + n0 +
+                                   c4) = make_float4(f[0], f[1], f[2], f[3]);
+    }
+    if (!last) {
+      fence_proxy_global();
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");  // also: ct is free again
+      if (ctid == 0) {
+        __threadfence();
+        grid_arrive(p.count);  // barrier s + 1: this block's part of buffer (s + 1) % 2 is written
+      }
+    }
   }
 }
 
-template <class TL, bool BF16>
-__global__ void __launch_bounds__(TL::kThreads) probe_conv_step_kernel(Args p) {
-  conv_tile<TL, BF16>(p);
-}
-
+}  // namespace conv
 __global__ void __launch_bounds__(256)
 probe_unpack_words_kernel(const int* __restrict__ words, int8_t* __restrict__ out, int m, int n,
                           int roll) {
@@ -309,16 +370,46 @@ probe_unpack_words_kernel(const int* __restrict__ words, int8_t* __restrict__ ou
     out[(4 * static_cast<size_t>(r) + b) * n + c] = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
 }
 
+// Encodes the three tensor maps and launches probe_conv_run_kernel
+// cooperatively: all blocks resident, or the launch is refused.
 template <bool BF16>
-cudaError_t launch_conv(const Args& p, cudaStream_t s) {
-  const size_t bytes = sizeof(int) * static_cast<size_t>(Smem<ConvTile, BF16>::WORDS);
-  cudaError_t err = cudaFuncSetAttribute(probe_conv_step_kernel<ConvTile, BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+cudaError_t launch_conv_run(const conv::Args& p, const void* w, cudaStream_t s) {
+  constexpr int es = BF16 ? 2 : 1;
+  const cuuint64_t c = static_cast<cuuint64_t>(p.c);
+  const cuuint64_t dims[3] = {c, static_cast<cuuint64_t>(p.ew + 2),
+                             static_cast<cuuint64_t>(p.eh + 2)};
+  const cuuint64_t strides[2] = {c * es, c * es * (p.ew + 2)};
+  const cuuint32_t box[3] = {wg::kStageK / es, conv::kPatch, conv::kPatch};
+  const size_t plane = static_cast<size_t>(p.eh + 2) * (p.ew + 2) * p.c * es;
+  CUtensorMap m0, m1, mw;
+  bool ok = wg::encode(&m0, BF16, 3, p.bufs, dims, strides, box, true) &&
+            wg::encode(&m1, BF16, 3, p.bufs + plane, dims, strides, box, true);
+  const cuuint64_t w_dims[2] = {c, 9 * c}, w_strides[1] = {c * es};
+  const cuuint32_t w_box[2] = {conv::kBn, BF16 ? 64u : static_cast<cuuint32_t>(wg::kStageK)};
+  ok = ok && wg::encode(&mw, BF16, 2, w, w_dims, w_strides, w_box, BF16);
+  if (!ok) return cudaErrorInvalidValue;
+  const int bytes = conv::smem_bytes(p.c, es);
+  // the shared-memory limit is set once per kernel (on the current device)
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv::probe_conv_run_kernel<BF16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, conv::kSmemLimit);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(p.c / conv::kBn, p.ew / conv::kPatch, p.eh / conv::kPatch);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv::probe_conv_run_kernel<BF16>,
+                                                        conv::kThreads, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.n / ConvTile::BN, (p.m + ConvTile::BM - 1) / ConvTile::BM);
-  probe_conv_step_kernel<ConvTile, BF16><<<grid, ConvTile::kThreads, bytes, s>>>(p);
-  return cudaGetLastError();
+  if (static_cast<long long>(grid.x) * grid.y * grid.z > static_cast<long long>(per_sm) * sms)
+    return cudaErrorInvalidValue;  // not every block could be resident
+  conv::Args args = p;
+  void* params[] = {&m0, &m1, &mw, &args};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(conv::probe_conv_run_kernel<BF16>), grid,
+      dim3(conv::kThreads), params, bytes, s);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // The 128 x 256 tile where it gives every SM a block, else 64 x 64.
@@ -355,7 +446,7 @@ int probe_gemm(const void* a, const void* b, void* out, void* out_x, void* out_f
       (epilogue == EPI_WB ? !out_x && !out_f32 : !out) || !aligned16(a) || !aligned16(b) ||
       !aligned16(out) || !aligned16(out_x) || !aligned16(out_f32))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), m, n, k, 0, 0, 0,
+  Args p{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), m, n, k,
          out, out_x, static_cast<float*>(out_f32), rep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -369,19 +460,31 @@ int probe_gemm(const void* a, const void* b, void* out, void* out_x, void* out_f
   return static_cast<int>(err);
 }
 
-// One step of the conv probe: x (eh, ew, c) -> its write-back into out_x
-// (same shape and type) and / or out_f32; w: (9 c, c), row (3 qy + qx) c + ci.
-// out_x must not alias x. Needs c * element bytes % 64 == 0 and c % 64 == 0.
-int probe_conv_step(const void* x, const void* w, void* out_x, void* out_f32, int eh, int ew,
-                    int c, int in_bf16, void* stream) {
+// The conv probe, all `iters` steps in one launch: x (eh, ew, c) ->
+// out_f32 (eh, ew, c), the tile after the last step in float32; bufs holds
+// two padded tiles (eh + 2, ew + 2, c) of x's type, one after the other,
+// and after the launch buffer iters % 2 holds that tile in x's type
+// (interior [1:-1, 1:-1]). w: (9 c, c), row (3 qy + qx) c + ci. count is
+// the grid barrier's word and base its value now; the launch adds
+// iters * (c / 64) (ew / 8) (eh / 8) to it. Needs eh, ew % 8 == 0,
+// c % 64 == 0, c * element bytes % 128 == 0, the weights resident
+// (conv::smem_bytes <= 227 KB: c <= 256 int8, <= 128 bf16), every block
+// resident, and 16-byte aligned pointers.
+int probe_conv_run(const void* x, const void* w, void* bufs, void* out_f32, void* count,
+                   unsigned base, int eh, int ew, int c, int iters, int in_bf16, void* stream) {
   const int es = in_bf16 ? 2 : 1;
-  if (eh < 1 || ew < 1 || c < 1 || (c * es) % kKBytes || c % ConvTile::BN ||
-      (!out_x && !out_f32) || out_x == x)
+  if (eh < conv::kPatch || ew < conv::kPatch || eh % conv::kPatch || ew % conv::kPatch ||
+      c < conv::kBn || c % conv::kBn || (c * es) % wg::kStageK || iters < 1 ||
+      conv::smem_bytes(c, es) > conv::kSmemLimit || !x || !w || !bufs || !out_f32 || !count ||
+      !aligned16(x) || !aligned16(w) || !aligned16(bufs) || !aligned16(out_f32) ||
+      (reinterpret_cast<uintptr_t>(count) & 3))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args p{static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w), eh * ew, c, 9 * c, eh, ew,
-         c, nullptr, out_x, static_cast<float*>(out_f32), 1};
+  conv::Args p{static_cast<const int4*>(x), static_cast<uint8_t*>(bufs),
+               static_cast<float*>(out_f32), static_cast<unsigned*>(count), base, eh, ew, c,
+               iters};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(in_bf16 ? launch_conv<true>(p, s) : launch_conv<false>(p, s));
+  return static_cast<int>(in_bf16 ? launch_conv_run<true>(p, w, s)
+                                  : launch_conv_run<false>(p, w, s));
 }
 
 // out[4 r + b, c] = byte b of words[r, (c - roll) mod n]: words (m, n) int32,
@@ -407,7 +510,7 @@ int probe_packed_dot(const void* words, const void* wb, void* out, int m, int k_
       !aligned16(words) || !aligned16(wb) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   Args p{static_cast<const uint8_t*>(words), static_cast<const uint8_t*>(wb), m, n, 4 * k_words,
-         0, 0, 0, out, nullptr, nullptr, 1};
+         out, nullptr, nullptr, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(out_f32 ? gemm_launch<false, true, EPI_F32>(p, s)
                                   : gemm_launch<false, true, EPI_S32>(p, s));

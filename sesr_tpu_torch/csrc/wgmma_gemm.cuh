@@ -59,10 +59,11 @@
 // to rep consecutive rows.
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint (no -lcuda), and passed as
-// __grid_constant__ kernel parameters. tests/test_torch_wgmma_layout.py
-// models swizzle128, the descriptors' addressing, the transposing pass,
-// b_row and the fragment map in numpy, reading them from this file.
+// reached through cudaGetDriverEntryPoint (no -lcuda), cached by what they
+// encode (encode), and passed as __grid_constant__ kernel parameters.
+// tests/test_torch_wgmma_layout.py models swizzle128, the descriptors'
+// addressing, the transposing pass, b_row and the fragment map in numpy,
+// reading them from this file.
 
 #pragma once
 
@@ -70,7 +71,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -78,10 +81,9 @@ namespace {
 enum Epi { EPI_S32 = 0, EPI_F32 = 1, EPI_WB = 2 };
 
 struct Args {
-  const uint8_t* a;   // (m, k) row-major; the conv step: the (eh, ew, c) tile
+  const uint8_t* a;   // (m, k) row-major
   const uint8_t* b;   // (k, n) row-major; probe_packed_dot: wb (4, k / 4, n)
   int m, n, k;        // in elements
-  int eh, ew, c;      // conv only
   void* out;          // EPI_S32 / EPI_F32: (m, n)
   void* out_x;        // EPI_WB: (m * rep, n) in the input type, or null
   float* out_f32;     // EPI_WB: (m * rep, n) float copy, or null
@@ -90,6 +92,32 @@ struct Args {
 
 __device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// The conv probe's write-back of four consecutive results: their values in
+// x's type as bytes (bf16: x2; int8: x1) and as floats (f).
+template <bool BF16, class AccT>
+__device__ __forceinline__ void write_back4(const AccT* v, float (&f)[4], uint2& x2, unsigned& x1) {
+  x2 = make_uint2(0, 0);
+  x1 = 0;
+  if constexpr (BF16) {
+    unsigned short h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat16 q = __float2bfloat16_rn(__fmul_rn(v[j], 1e-3f));
+      f[j] = __bfloat162float(q);
+      h[j] = __bfloat16_as_ushort(q);
+    }
+    x2 = make_uint2(h[0] | (static_cast<unsigned>(h[1]) << 16),
+                    h[2] | (static_cast<unsigned>(h[3]) << 16));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = min(max(v[j], -128), 127);
+      f[j] = static_cast<float>(q);
+      x1 |= (static_cast<unsigned>(q) & 0xffu) << (8 * j);
+    }
+  }
+}
 
 // Four consecutive results (row m, columns n .. n + 3) to device memory.
 template <bool BF16, int EPI, class AccT>
@@ -103,26 +131,9 @@ __device__ __forceinline__ void store4(const Args& p, int m, int n, const AccT* 
   } else {
     // the probe's write-back, then each result row to rep consecutive rows
     float f[4];
-    uint2 x2 = make_uint2(0, 0);
-    unsigned x1 = 0;
-    if constexpr (BF16) {
-      unsigned short h[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16 q = __float2bfloat16_rn(__fmul_rn(v[j], 1e-3f));
-        f[j] = __bfloat162float(q);
-        h[j] = __bfloat16_as_ushort(q);
-      }
-      x2 = make_uint2(h[0] | (static_cast<unsigned>(h[1]) << 16),
-                      h[2] | (static_cast<unsigned>(h[3]) << 16));
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = min(max(v[j], -128), 127);
-        f[j] = static_cast<float>(q);
-        x1 |= (static_cast<unsigned>(q) & 0xffu) << (8 * j);
-      }
-    }
+    uint2 x2;
+    unsigned x1;
+    write_back4<BF16>(v, f, x2, x1);
     for (int r = 0; r < p.rep; ++r) {
       const size_t o = (static_cast<size_t>(m) * p.rep + r) * p.n + n;
       if (p.out_x) {
@@ -535,17 +546,58 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of `rank` dims (innermost first), strides in bytes of dims 1..
+// Everything a tensor map encodes; zero-filled first, so that two keys of
+// equal fields are equal bytes.
+struct MapKey {
+  const void* base;
+  cuuint64_t dims[3], strides[2];
+  cuuint32_t box[3];
+  int rank, bf16, swizzle;
+};
+
+// A tensor map of `rank` (<= 3) dims (innermost first), strides in bytes of
+// dims 1... Maps are cached by everything they encode (kMapCache of them,
+// the oldest replaced first), so a launch on the same buffers and shapes
+// as an earlier one skips cuTensorMapEncodeTiled; ctypes drops the GIL
+// during a call, hence the lock.
+constexpr int kMapCache = 64;
 inline bool encode(CUtensorMap* map, bool bf16, int rank, const void* base, const cuuint64_t* dims,
                    const cuuint64_t* strides, const cuuint32_t* box, bool swizzle) {
+  MapKey key;
+  memset(&key, 0, sizeof(key));
+  key.base = base;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i > 0) key.strides[i - 1] = strides[i - 1];
+  }
+  key.rank = rank;
+  key.bf16 = bf16;
+  key.swizzle = swizzle;
+  static std::mutex lock;
+  static MapKey keys[kMapCache];
+  static CUtensorMap maps[kMapCache];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i)
+    if (memcmp(&keys[i], &key, sizeof(key)) == 0) {
+      *map = maps[i];
+      return true;
+    }
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint32_t ones[3] = {1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-            static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+         static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides, box, ones,
+         CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  used = used < kMapCache ? used + 1 : used;
+  return true;
 }
 
 }  // namespace wg

@@ -44,8 +44,8 @@ SIGNATURES = {
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)
         "probe_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
-        # (x, w, out_x, out_f32, eh, ew, c, in_bf16, stream)
-        "probe_conv_step": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        # (x, w, bufs, out_f32, count, base, eh, ew, c, iters, in_bf16, stream)
+        "probe_conv_run": [_PTR] * 5 + [ctypes.c_uint] + [_INT] * 5 + [_PTR],
         # (words, out, m, n, roll, stream)
         "probe_unpack_words": [_PTR] * 2 + [_INT] * 3 + [_PTR],
         # (words, wb, out, m, k_words, n, out_f32, stream)

@@ -15,9 +15,10 @@ f32(x). The six variants keep the TPU probe's names and weight layouts:
                                        times w, each result row repeated to 9
                                        consecutive pixels (no im2col)
 
-On the card the concat and dot9 forms run ``probe_conv_step`` (one launch
-per step) and the mm forms ``probe_gemm``'s write-back epilogue, ping-ponging
-two buffers; on the CPU the plain versions run.
+On the card the concat and dot9 forms run ``probe_conv_run`` (one launch
+for all steps) and the mm forms ``probe_gemm``'s write-back epilogue (one
+launch per step, ping-ponging two buffers); on the CPU the plain versions
+run.
 """
 
 from __future__ import annotations
@@ -77,16 +78,13 @@ def conv_probe(x: torch.Tensor, w: torch.Tensor, variant: str,
     w9 = w.to(dtype).reshape(9 * c, c).contiguous()
     if x.device.type == "cpu":
         return plain_probe(x, w9, form, iters)
+    if form != "mm":
+        return kernels.probe_conv_run(x, w9, iters)[1]
     bufs = (torch.empty_like(x), torch.empty_like(x))
     for i in range(iters):
-        last = i == iters - 1
-        if form == "mm":
-            nxt, f32 = kernels.probe_gemm.write_back(
-                x.reshape(m // 9, 9 * c), w9, plain.MM_REP, out_x=bufs[i % 2].view(m, c),
-                f32=last)
-        else:
-            nxt, f32 = kernels.probe_conv_step(x, w9, out_x=bufs[i % 2], f32=last)
-        x = nxt.view(eh, ew, c)
+        x, f32 = kernels.probe_gemm.write_back(
+            x.reshape(m // 9, 9 * c), w9, plain.MM_REP, out_x=bufs[i % 2].view(m, c),
+            f32=i == iters - 1)
     return f32.view(eh, ew, c)
 
 

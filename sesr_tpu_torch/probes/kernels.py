@@ -4,7 +4,8 @@ its launch counter.
 ``probe_gemm``          replaces tools/bench_probe_pallas_int8.py:65 and the dots
                         of tools/bench_probe_pallas_conv.py:122 (mm variants)
                         and tools/bench_probe_r3a.py:343
-``probe_conv_step``     replaces tools/bench_probe_pallas_conv.py:122
+``probe_conv_run``      replaces tools/bench_probe_pallas_conv.py:122 (all of
+                        its steps in one launch)
 ``probe_unpack_words``  replaces the bitcast of tools/bench_probe_r3b.py:82 and
                         tools/bench_probe_r3a.py:343
 ``probe_packed_dot``    replaces tools/bench_probe_r3b.py:147 and :164
@@ -27,6 +28,11 @@ from sesr_tpu_torch.ops import _build
 K_BYTES = 64        # K * element bytes must be a multiple of this
 N_TILE = 64         # the GEMM's narrowest block tile of N
 ALIGN = 16          # bytes: every pointer a kernel takes
+CONV_PATCH = 8      # probe_conv_run: a block's patch is 8 x 8 pixels ...
+CONV_BN = 64        # ... by 64 output channels
+CONV_RING = 4       # tap boxes in flight
+STAGE_K = 128       # bytes of C a tap box holds
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
 EPI_S32, EPI_F32, EPI_WB = 0, 1, 2
 IN_TYPES = (torch.int8, torch.bfloat16)
 
@@ -37,11 +43,13 @@ class ProbeKernel:
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
+        self._fn = None         # the ctypes function, looked up at the first launch
 
     def _launch(self, device: torch.device, *args) -> None:
-        fn = getattr(_build.load("probes"), self.symbol)
+        if self._fn is None:
+            self._fn = getattr(_build.load("probes"), self.symbol)
         with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: "
                                f"{_build.error_string('probes', err)} ({err})")
@@ -110,32 +118,69 @@ class ProbeGemm(ProbeKernel):
         return out_x, out_f
 
 
-class ProbeConvStep(ProbeKernel):
-    def __call__(self, x: torch.Tensor, w: torch.Tensor,
-                 out_x: torch.Tensor | None = None, f32: bool = False):
-        """One step of the conv probe: x (E_H, E_W, C) int8 or bf16, w
-        (9C, C), row (3 qy + qx) C + ci. Returns (next x, f32 copy or None);
-        the next x goes into ``out_x`` if given, which must not be x."""
-        dev = self._check(x, w)
+def conv_smem_bytes(c: int, element_size: int) -> int:
+    """Shared memory of a ``probe_conv_run`` block (``conv::smem_bytes``):
+    the resident weights, the ring, the staged C tile, alignment, barriers."""
+    return 9 * c * CONV_BN * element_size + CONV_RING * 8192 + 64 * (CONV_BN + 8) * 4 \
+        + 1024 + 8 * (2 * CONV_RING + 1)
+
+
+def barrier_base_after(base: int, nblocks: int, iters: int) -> int:
+    """The grid barrier's word after a launch that started at ``base``:
+    ``iters`` barriers (the prologue's and one between each two steps), one
+    arrival per block each, mod 2^32."""
+    return (base + iters * nblocks) & 0xFFFFFFFF
+
+
+class ProbeConvRun(ProbeKernel):
+    def __init__(self, symbol: str):
+        super().__init__(symbol)
+        self._barriers = {}     # (device index, stream): [barrier word, its value]
+
+    def __call__(self, x: torch.Tensor, w: torch.Tensor, iters: int):
+        """``iters`` steps of the conv probe in one launch: x (E_H, E_W, C)
+        int8 or bf16, w (9C, C), row (3 qy + qx) C + ci. Returns (x after
+        ``iters`` steps, an (E_H, E_W, C) view into the kernel's padded
+        buffer; its float32 copy). Needs E_H, E_W % 8 == 0, C % 64 == 0,
+        C * element bytes % 128 == 0, the block's weights within shared
+        memory (C <= 256 int8, <= 128 bf16) and a grid of (C / 64) (E_W /
+        8) (E_H / 8) blocks no larger than the card's SMs."""
         if x.dtype not in IN_TYPES or w.dtype != x.dtype or x.dim() != 3:
             raise ValueError(f"{self.symbol} takes x (E_H, E_W, C) and w (9C, C) of one "
                              f"type int8 or bfloat16, got {x.dtype} {tuple(x.shape)}, "
                              f"{w.dtype} {tuple(w.shape)}")
         eh, ew, c = x.shape
-        if tuple(w.shape) != (9 * c, c) or (c * x.element_size()) % K_BYTES or c % N_TILE:
-            raise ValueError(f"{self.symbol} needs w (9C, C) and C a multiple of {N_TILE}, "
-                             f"got x {tuple(x.shape)}, w {tuple(w.shape)}")
-        if out_x is None:
-            out_x = torch.empty_like(x)
-        elif out_x.shape != x.shape or out_x.dtype != x.dtype or out_x.data_ptr() == x.data_ptr():
-            raise ValueError(f"{self.symbol}: out_x must be a second {x.dtype} "
-                             f"{tuple(x.shape)} buffer")
-        self._check(x, out_x)
-        out_f = torch.empty(x.shape, dtype=torch.float32, device=dev) if f32 else None
-        self._launch(dev, x.data_ptr(), w.data_ptr(), out_x.data_ptr(),
-                     out_f.data_ptr() if f32 else None, eh, ew, c,
+        es = x.element_size()
+        if tuple(w.shape) != (9 * c, c) or iters < 1:
+            raise ValueError(f"{self.symbol} takes w (9C, C) and iters >= 1, got x "
+                             f"{tuple(x.shape)}, w {tuple(w.shape)}, iters {iters}")
+        if eh % CONV_PATCH or ew % CONV_PATCH or c % CONV_BN or (c * es) % STAGE_K \
+                or min(eh, ew, c) < 1:
+            raise ValueError(f"{self.symbol} needs E_H and E_W multiples of {CONV_PATCH}, C a "
+                             f"multiple of {CONV_BN} and C * element bytes of {STAGE_K}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if conv_smem_bytes(c, es) > SMEM_LIMIT:
+            raise ValueError(f"{self.symbol}: a block's {9 * c} x {CONV_BN} {x.dtype} weights "
+                             f"do not fit in shared memory ({conv_smem_bytes(c, es)} > "
+                             f"{SMEM_LIMIT} bytes) at C = {c}")
+        dev = self._check(x, w)
+        nblocks = (c // CONV_BN) * (ew // CONV_PATCH) * (eh // CONV_PATCH)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if nblocks > sms:
+            raise ValueError(f"{self.symbol}: {nblocks} blocks at {tuple(x.shape)} cannot all "
+                             f"be resident on {sms} SMs (one block per SM)")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        barrier = self._barriers.get((dev.index, stream))
+        if barrier is None:
+            barrier = [torch.zeros(1, dtype=torch.int32, device=dev), 0]
+            self._barriers[(dev.index, stream)] = barrier
+        bufs = torch.empty((2, eh + 2, ew + 2, c), dtype=x.dtype, device=dev)
+        out_f = torch.empty((eh, ew, c), dtype=torch.float32, device=dev)
+        self._launch(dev, x.data_ptr(), w.data_ptr(), bufs.data_ptr(), out_f.data_ptr(),
+                     barrier[0].data_ptr(), barrier[1], eh, ew, c, iters,
                      int(x.dtype == torch.bfloat16))
-        return out_x, out_f
+        barrier[1] = barrier_base_after(barrier[1], nblocks, iters)
+        return bufs[iters % 2, 1:-1, 1:-1], out_f
 
 
 class ProbeUnpackWords(ProbeKernel):
@@ -177,10 +222,10 @@ class ProbePackedDot(ProbeKernel):
 
 
 probe_gemm = ProbeGemm("probe_gemm")
-probe_conv_step = ProbeConvStep("probe_conv_step")
+probe_conv_run = ProbeConvRun("probe_conv_run")
 probe_unpack_words = ProbeUnpackWords("probe_unpack_words")
 probe_packed_dot = ProbePackedDot("probe_packed_dot")
-PROBE_KERNELS = (probe_gemm, probe_conv_step, probe_unpack_words, probe_packed_dot)
+PROBE_KERNELS = (probe_gemm, probe_conv_run, probe_unpack_words, probe_packed_dot)
 
 
 def reset_launch_counts() -> None:

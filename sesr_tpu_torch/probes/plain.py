@@ -49,7 +49,7 @@ def gemm_write_back(a: torch.Tensor, b: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def conv_step(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``kernels.probe_conv_step``: x (E_H, E_W, C), w (9C, C) with row
+    """One step of ``kernels.probe_conv_run``: x (E_H, E_W, C), w (9C, C) with row
     (3 qy + qx) C + ci; pixel (h, w) sums x[(h + qy - 1) mod E_H,
     (w + qx - 1) mod E_W, ci] * w over (qy, qx, ci)."""
     eh, ew, c = x.shape

@@ -1,18 +1,29 @@
-"""python -m sesr_tpu_torch.probes.tile_ab [--size N] [--reps R] [--rounds K]
+"""python -m sesr_tpu_torch.probes.tile_ab [--tile gemm|conv] [--size N] [--reps R] [--rounds K]
 
-An A/B of the probes' wgmma GEMM tile (``csrc/wgmma_gemm.cuh``) on the card:
-``csrc/`` as it is ("base") and variants, each a copy of ``csrc/`` with one
-text edit, built side by side (one nvcc each, all started together) into
-``build/variants/<name>/`` and timed in turns, ``--rounds`` times over, at
-N^3 through ``probe_gemm``'s C entry point: int8 -> int32 and bf16 ->
-float32, device time (CUDA events, the device kept busy while the host
-enqueues). Each line says whether the output equals the plain version.
+An A/B of the probes' wgmma kernels on the card: ``csrc/`` as it is
+("base") and variants, each a copy of ``csrc/`` with one text edit, built
+side by side (one nvcc each, all started together) into
+``build/variants/<name>/`` and timed in turns, ``--rounds`` times over,
+device time (CUDA events, the device kept busy while the host enqueues).
+Each line says whether the output equals the plain version.
 
-Variants:
+``--tile gemm`` (the default): the GEMM tile (``csrc/wgmma_gemm.cuh``) at
+N^3 through ``probe_gemm``'s C entry point, int8 -> int32 and bf16 ->
+float32. Variants:
   no_transpose    the int8 transposing pass removed: wgmma reads whatever
                   the K-major ring holds, so the int8 product is wrong, and
                   the time says what the pass costs
   bf16_3_stages   the bf16 128 x 256 tile with 3 stages in flight, not 4
+
+``--tile conv``: the conv probe's persistent kernel (``probe_conv_run``) on
+the probe's (48, 72, 128) tile, int8 and bf16, calls of 1 and 50 steps and
+their K-difference, the time of one step. Variants (each but ring_6 gives
+a wrong result, timed):
+  conv_ring_6          6 tap boxes in flight, not 4
+  conv_no_grid_wait    the producer does not wait for the grid barrier: the
+                       time without the barriers between steps
+  conv_no_mma          no wgmma: the time of the loads, barriers and
+                       epilogues alone
 
 Needs the card and nvcc; prints one JSON line per measurement.
 """
@@ -29,7 +40,7 @@ from pathlib import Path
 import torch
 
 from sesr_tpu_torch.ops import _build
-from sesr_tpu_torch.probes import plain
+from sesr_tpu_torch.probes import conv, kernels, plain
 from sesr_tpu_torch.timing import median_ms
 
 VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
@@ -44,7 +55,16 @@ VARIANTS = {
     "bf16_3_stages": [(
         "probes.cu", "using BigTileBf16 = wg::Tile<2, 256, 4>;",
         "using BigTileBf16 = wg::Tile<2, 256, 3>;")],
+    "conv_ring_6": [(
+        "probes.cu", "constexpr int kRing = 4;", "constexpr int kRing = 6;")],
+    "conv_no_grid_wait": [(
+        "probes.cu", "        grid_wait(p.count, barrier_target(p.base, s, nblocks));\n", "")],
+    "conv_no_mma": [(
+        "probes.cu",
+        "        wgmma<kBn, BF16>(d, da + ((ks * kKStep) >> 4),\n"
+        "                         db + (((BF16 ? kMnKStep : kKStep) * ks) >> 4));\n", "")],
 }
+CONV_VARIANTS = ("conv_ring_6", "conv_no_grid_wait", "conv_no_mma")
 
 
 def variant_sources(name: str) -> dict[str, str]:
@@ -71,22 +91,73 @@ def build_variant(name: str) -> Path:
     return lib
 
 
+def _entry_points(names, symbol: str) -> dict:
+    """{variant: its library's C entry point ``symbol``}, every library built
+    together."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(build_variant, names)))
+    fns = {}
+    for name, path in libs.items():
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = _build.SIGNATURES["probes"][symbol]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def conv_ab(reps: int, rounds: int) -> list:
+    """The conv probe's kernel and its variants, in turns: device ms of 1-
+    and 50-step calls, and one step (T(50) - T(1)) / 49."""
+    fns = _entry_points(("base",) + CONV_VARIANTS, "probe_conv_run")
+    dev = torch.device("cuda", 0)
+    eh, ew, c = conv.E_H, conv.E_W, conv.C
+    nblocks = (c // kernels.CONV_BN) * (ew // kernels.CONV_PATCH) * (eh // kernels.CONV_PATCH)
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    base = [0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for rnd in range(rounds):
+        for name, fn in fns.items():
+            for dtype in (torch.int8, torch.bfloat16):
+                x = torch.randint(-3, 4, (eh, ew, c), device=dev, generator=gen).to(dtype)
+                w9 = torch.randint(-2, 3, (9 * c, c), device=dev, generator=gen).to(dtype)
+                bufs = torch.empty((2, eh + 2, ew + 2, c), dtype=dtype, device=dev)
+                out = torch.empty((eh, ew, c), dtype=torch.float32, device=dev)
+
+                def call(iters):
+                    err = fn(x.data_ptr(), w9.data_ptr(), bufs.data_ptr(), out.data_ptr(),
+                             word.data_ptr(), base[0], eh, ew, c, iters,
+                             int(dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"variant {name} launch failed ({err})")
+                    base[0] = kernels.barrier_base_after(base[0], nblocks, iters)
+
+                ms = {it: median_ms(lambda: call(it), dev, reps, lead_ms=2.0)
+                      for it in (1, conv.ITERS)}
+                call(conv.ITERS)
+                equal = torch.equal(out, conv.plain_probe(x, w9, "dot9", conv.ITERS))
+                res = {"device": torch.cuda.get_device_name(dev), "round": rnd, "variant": name,
+                       "type": str(dtype)[6:], "shape": [eh, ew, c], "ms_1_step": ms[1],
+                       f"ms_{conv.ITERS}_steps": ms[conv.ITERS],
+                       "us_per_step": (ms[conv.ITERS] - ms[1]) / (conv.ITERS - 1) * 1e3,
+                       "equal_to_plain": bool(equal)}
+                print(json.dumps(res), flush=True)
+                results.append(res)
+    return results
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(prog="python -m sesr_tpu_torch.probes.tile_ab")
+    ap.add_argument("--tile", default="gemm", choices=["gemm", "conv"])
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         ap.error("no CUDA device: the A/B runs on the card")
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
-    fns = {}
-    for name, path in libs.items():
-        fn = ctypes.CDLL(str(path)).probe_gemm
-        fn.argtypes = _build.SIGNATURES["probes"]["probe_gemm"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    if args.tile == "conv":
+        return conv_ab(args.reps, args.rounds)
+    fns = _entry_points([v for v in VARIANTS if v not in CONV_VARIANTS], "probe_gemm")
     dev = torch.device("cuda", 0)
     n = args.size
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -12,7 +12,6 @@ plain versions on the card by chip_smoke.py phase 7.
 
 import importlib
 import os
-import re
 import subprocess
 import sys
 
@@ -245,11 +244,11 @@ def test_wrappers_refuse_cpu_tensors_without_building(monkeypatch, call):
     for fn in ("build", "load", "find_nvcc"):
         monkeypatch.setattr(_build, fn, refuse)
     a8 = torch.zeros((64, 64), dtype=torch.int8)
-    x = torch.zeros((9, 16, 64), dtype=torch.int8)
+    x = torch.zeros((8, 16, 128), dtype=torch.int8)
     calls = {"gemm": lambda: kernels.probe_gemm(a8, a8),
              "gemm_write_back": lambda: kernels.probe_gemm.write_back(a8, a8, 9),
-             "conv_step": lambda: kernels.probe_conv_step(x, torch.zeros((576, 64),
-                                                                         dtype=torch.int8)),
+             "conv_step": lambda: kernels.probe_conv_run(x, torch.zeros((1152, 128),
+                                                                        dtype=torch.int8), 2),
              "unpack": lambda: kernels.probe_unpack_words(torch.zeros((4, 64), dtype=torch.int32)),
              "packed_dot": lambda: kernels.probe_packed_dot(
                  torch.zeros((64, 16), dtype=torch.int32), torch.zeros((4, 16, 64),
@@ -345,63 +344,3 @@ def test_tile_ab_variants_apply_to_the_source(variant):
     changed = {f for f, text in files.items() if text != (_build.CSRC / f).read_text()}
     assert changed == {f for f, _, _ in tile_ab.VARIANTS[variant]}
     assert len(changed) == (variant != "base")
-
-
-def _byte_perm(x, y, sel):
-    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4i) & 7 of (y:x)."""
-    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
-    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
-
-
-@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
-def test_gemm_tile_b_fragments(bf16):
-    """A model of load_b and real_col in csrc/probes.cu (probe_conv_step's
-    mma.sync tile), which the CPU cannot compile: a lane (g, tq) builds its
-    B registers of a warp's four n-tiles from the (k, n) rows in shared
-    memory with byte_perm, and register b_h of
-    n-tile t must hold, in the order the mma.sync instruction reads them, the
-    k values of its fragment (int8 m16n8k32: 4 tq + 16 h + i, i = 0..3; bf16
-    m16n8k16: 2 tq + 8 h + i, i = 0, 1) at column real_col(t, g)."""
-    es = 2 if bf16 else 1
-    per = 4 // es                                   # elements per 32-bit word
-    k_rows = 16 if bf16 else 32                     # one mma's k depth
-    rng = np.random.default_rng(5)
-    elems = rng.integers(0, 1 << (8 * es), (k_rows, 32))   # raw bits, one warp's 32 columns
-    words = sum(elems[:, i::per] << (8 * es * i) for i in range(per))   # (k_rows, 32 / per)
-
-    def real_col(t, lc):
-        return 16 * (t >> 1) + 2 * lc + (t & 1) if bf16 else 4 * lc + t
-
-    for g in range(8):
-        for tq in range(4):
-            for half in range(2):
-                b = {}
-                if not bf16:
-                    w = [int(words[16 * half + 4 * tq + i, g]) for i in range(4)]
-                    x01, x23 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[2], w[3], 0x5140)
-                    y01, y23 = _byte_perm(w[0], w[1], 0x7362), _byte_perm(w[2], w[3], 0x7362)
-                    b = {0: _byte_perm(x01, x23, 0x5410), 1: _byte_perm(x01, x23, 0x7632),
-                         2: _byte_perm(y01, y23, 0x5410), 3: _byte_perm(y01, y23, 0x7632)}
-                else:
-                    for grp in range(2):
-                        w0, w1 = (int(words[8 * half + 2 * tq + i, grp * 8 + g]) for i in range(2))
-                        b[2 * grp] = _byte_perm(w0, w1, 0x5410)
-                        b[2 * grp + 1] = _byte_perm(w0, w1, 0x7632)
-                for t, reg in b.items():
-                    for i in range(per):
-                        k = (2 * tq + 8 * half + i) if bf16 else (4 * tq + 16 * half + i)
-                        got = (reg >> (8 * es * i)) & ((1 << (8 * es)) - 1)
-                        assert got == elems[k, real_col(t, g)], (g, tq, half, t, i)
-    cols = sorted(real_col(t, lc) for t in range(4) for lc in range(8))
-    assert cols == list(range(32))                  # every column exactly once
-
-
-def test_gemm_tile_model_matches_the_source():
-    """The selectors and column map modelled above are the ones in
-    csrc/probes.cu (load_b, real_col), in the order the model uses them."""
-    src = (_build.CSRC / "probes.cu").read_text()
-    load_b = src[src.index("__device__ __forceinline__ void load_b"):src.index("// The column, within")]
-    sels = [int(s, 16) for s in re.findall(r"__byte_perm\([^)]*?(0x[0-9a-f]{4})\)", load_b)]
-    assert sels == [0x5140, 0x5140, 0x7362, 0x7362, 0x5410, 0x7632, 0x5410, 0x7632,
-                    0x5410, 0x7632]
-    assert "return BF16 ? 16 * (t >> 1) + 2 * lc + (t & 1) : 4 * lc + t;" in src
