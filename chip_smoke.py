@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch) on sr_x2.
+"""On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch): sr_x2, nr
+and nrdm_6 served and simulated, every task's infer, and the probes.
 
     python3 chip_smoke.py
 
@@ -9,28 +10,41 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 1. the card: nvidia-smi's name and power limit, torch's device name;
 2. build every kernel library from csrc/ (one nvcc per source, all started
    together), with the -Xptxas -v report;
-3. each kernel against its plain PyTorch version on numpy-seeded inputs:
-   K1 (sesr_pe_exact_net) and K2 (sesr_fast_net) at 540x960, 27x45 and a
-   ragged 37x53 at batch 2, K2 at batch 4, both at 27x45 with zero points
-   off the shipped -128, both with two convs' weights at +-127 so that
-   the clamps fire (K1's 18-bit per-PE clamp; K2's 20-bit clamp), and on
-   the sr_x4, nrdm_3, nrdm_6 and dm artifacts at 27x45; the int8 outputs
-   must be equal;
-4. the main path with the launch counters set to 0: ``serve`` (behind
-   ``infer``) on four synthetic 540x960 -> 1080x1920 frames at batch 1
-   and batch 4, then ``simulate`` (behind ``sim``) on one 540x960 frame;
-   both kernels must have launched;
-5. CUDA-event timings at 540x960 of each kernel at every tile of the
-   sweep (each tile's output equal to the shipped tile's) and of its
-   plain version, against the least time the card could take (int8
-   operations at 1,979 TOP/s, or bytes at 3.35 TB/s, whichever is
-   larger); each tile's registers and shared memory as CUPTI reports them
-   (torch.profiler), and its tensor-core MMAs per frame as computed from
-   the tile geometry;
-6. where a served frame's time goes, at batch 1 and 4: the forward on an
-   input already on the card, and the round trip from a numpy input to a
-   numpy output; wall ms/frame by CUDA events, device ms/frame of every
-   kernel and copy by torch.profiler, and the idle share 1 - busy / wall;
+3. each kernel against its plain PyTorch version on numpy-seeded inputs
+   (the int8 outputs must be equal): K1 (sesr_pe_exact_net) and K2
+   (sesr_fast_net) on sr_x2 at 540x960, 27x45 and a ragged 37x53 at batch
+   2, K2 at batch 4, both at 27x45 with zero points off the shipped -128,
+   both with two convs' weights at +-127 so that the clamps fire (K1's
+   18-bit per-PE clamp; K2's 20-bit clamp); the corrected kernel
+   (sesr_corrected_net) on nr and nrdm_6 in their hybrid mode at 27x45 and
+   37x53, on every artifact in the PE-exact mode (stamps removed), on nr
+   with odd zero points and ragged at batch 2, and on nr with convs 0 and
+   4 at +127 (hybrid: the 20-bit clamp fires on one-pass conv 0 and the
+   18-bit clamp on split conv 4; pe-exact: the 18-bit clamp on split conv
+   0); every kernel on the sr_x4, nrdm_3, nrdm_6, dm and nr artifacts at
+   27x45; each wrapper on the card against the plain version on the CPU;
+   and ``infer --n-images 2`` on every task, cuda against cpu;
+4. the main paths, each with the launch counters set to 0 before it and
+   read after it. sr_x2: ``serve`` (behind ``infer``) on four synthetic
+   540x960 -> 1080x1920 frames at batch 1 and batch 4 (K2), then
+   ``simulate`` (behind ``sim``) on one 540x960 frame (K1). The Bayer
+   tasks: nr and nrdm_6 served (hybrid mode, the corrected kernel) on four
+   1080x1920 Bayer-sparse frames at batch 1 and 4, and nr simulated (K1)
+   and simulated ``--corrected`` (the corrected kernel); then the served
+   frames, batch 1 and 4, and the simulations against the plain version;
+5. CUDA-event device timings, batch 1, of each kernel (K1 and K2 on sr_x2
+   at 540x960, the corrected kernel on nr and nrdm_6 at 1080x1920, hybrid,
+   and on nr pe-exact) at every tile of the sweep (each tile's output
+   equal to the default tile's) and of its plain version, against the
+   least time the card could take (int8 operations at 1,979 TOP/s, or
+   bytes at 3.35 TB/s, whichever is larger); each tile's registers and
+   shared memory as CUPTI reports them (torch.profiler), and its
+   tensor-core MMAs per frame as computed from the tile geometry;
+6. where a served frame's time goes, sr_x2 (540x960) and nr (1080x1920),
+   at batch 1 and 4: the forward on an input already on the card, and the
+   round trip from a numpy input to a numpy output; wall ms/frame by CUDA
+   events, device ms/frame of every kernel and copy by torch.profiler,
+   and the idle share 1 - busy / wall;
 7. the probes (csrc/probes.cu, the counterparts of the TPU-compiler probes
    in tools/): ``python -m sesr_tpu_torch.probes`` conv, gemm and bitcast
    with the probe kernels' launch counters at 0, every kernel at the
@@ -73,8 +87,12 @@ TASK = "sr_x2"
 FRAME = (540, 960)                 # deployment input; 1080x1920 output
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
+BAYER_FRAME = (1080, 1920)         # nr / nrdm_6: the sr_x2 output frame, Bayer-sparse
 REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
-            "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238"}
+            "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238",
+            # XLA with no Pallas kernel, reached from :723 packed_exact_forward
+            # (corrected) and :749 packed_hybrid_forward
+            "sesr_corrected_net": "sesr_tpu/ops/packed.py:562"}
 TILE_SWEEP = ((16, 32), (24, 32), (32, 32), (16, 64), (24, 48), (32, 64))
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 PROBE_SOURCE = "sesr_tpu_torch/csrc/probes.cu"
@@ -113,8 +131,10 @@ def bound(ops, nbytes, ops_per_s):
 
 def _short(name):
     """A device event's name without its template arguments' bodies."""
-    if "sesr_net_kernel" in name:
-        return "K1 sesr_net_kernel<true>" if "<true" in name else "K2 sesr_net_kernel<false>"
+    m = re.search(r"sesr_net_kernel<\(?[a-z ]*\)?(\d)", name)
+    if m:
+        return {"0": "K1 sesr_pe_exact_net", "1": "K2 sesr_fast_net",
+                "2": "sesr_corrected_net"}.get(m.group(1), name[:80])
     if name.startswith("Memcpy"):
         return name
     for functor in ("DivFunctor", "MulFunctor", "CUDAFunctorOnSelf_add", "round_kernel",
@@ -174,6 +194,68 @@ def launch_attrs(torch, launches, pattern="sesr_net_kernel"):
         attrs[key] = (args.get("registers per thread"), args.get("shared memory"))
     os.unlink(path)
     return attrs
+
+
+def plain_kwargs(kern, qp, mode=None):
+    """integer_forward's arguments for the plain version of ``kern`` (the
+    corrected kernel in ``mode``, "hybrid" or "pe-exact")."""
+    if kern.datapath == "exact":
+        return dict(corrected=False, compute="exact")
+    if kern.datapath == "fast":
+        return dict(corrected=True, compute="fast")
+    return dict(corrected=True, fast_layers=tuple(qp.fast_cert_layers)
+                if mode == "hybrid" else None)
+
+
+def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
+    """Phase 5 for one kernel on one network and batch-1 frame x: with
+    ``sweep``, every tile of TILE_SWEEP (its output equal to the default
+    tile's; registers and shared memory from CUPTI; MMAs computed from the
+    tile geometry), then the default tile's time, the plain version's and
+    the bound. A kernel's time is device time (the card kept busy while
+    the host enqueues the launch: the wrapper's Python, about as long as
+    K2 itself, stays out). Returns (ms, plain ms, (bound ms, bound by))."""
+    from sesr_tpu_torch.convert import kernel_constants
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
+    from sesr_tpu_torch.timing import median_ms
+
+    split_arg = split_layers(qp, mode) if kern.datapath == "corrected" else None
+    split = kernel_constants(spec, qp, kern.datapath, split_arg).pe_split
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    n, h, w = x_q.shape[:3]
+    label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''} {h}x{w}"
+    tile0 = kern.tile(spec)
+    ref = kern(spec, qp, x_q, split=split_arg)
+    if sweep:
+        attrs = launch_attrs(torch, {tile: (lambda t=tile: kern(spec, qp, x_q, tile=t,
+                                                                split=split_arg))
+                                     for tile in TILE_SWEEP})
+        for tile in TILE_SWEEP:
+            if not torch.equal(kern(spec, qp, x_q, tile=tile, split=split_arg), ref):
+                fail(f"{label} at tile {tile} differs from tile {tile0}")
+            tile_ms = median_ms(lambda: kern(spec, qp, x_q, tile=tile, split=split_arg), dev,
+                                30, warmup=3, lead_ms=1.0)
+            regs, smem = attrs[tile]
+            print(f"[5] {label} tile {tile[0]}x{tile[1]}: {tile_ms:.4f} ms/frame; CUPTI: "
+                  f"{regs if regs is not None else 'not measured'} registers per thread, "
+                  f"{smem if smem is not None else 'not measured'} B shared memory per "
+                  f"block; {mma_count(spec, split, n, h, w, tile)} MMAs per frame (computed "
+                  f"from the tile geometry)", flush=True)
+    ms = median_ms(lambda: kern(spec, qp, x_q, split=split_arg), dev, 30, warmup=3, lead_ms=1.0)
+    kw = plain_kwargs(kern, qp, mode)
+    plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev, 5)
+    weights = sum(int(np.prod(np.shape(wl))) for wl in qp.w_int)
+    macs = weights * n * h * w
+    moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
+    bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
+    mmas = mma_count(spec, split, n, h, w, tile0)
+    print(f"[5] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, per-PE passes on "
+          f"convs {[i for i in range(spec.num_convs) if split[i]]} (plain {plain_ms:.3f} ms); "
+          f"computed from the tile geometry: {mmas} MMAs ({mmas * 16 * 8 * 32:.4g} "
+          f"tensor-core MACs); bound {bnd[0] * 1e3:.3f} us ({bnd[1]}) = {2 * macs:.4g} int8 "
+          f"ops vs {moved} bytes, share of bound {bnd[0] / ms:.4f}", flush=True)
+    return ms, plain_ms, bnd
 
 
 def breakdown(torch, fn, frames, iters=20):
@@ -721,13 +803,15 @@ def main():
              "and has no CPU fallback")
     sys.path.insert(0, REPO)
     try:
+        from sesr_tpu_torch.cli import main as cli_main
         from sesr_tpu_torch.cli import serve, simulate
         from sesr_tpu_torch.config import spec_for_task
         from sesr_tpu_torch.convert import kernel_constants
         from sesr_tpu_torch.data import SyntheticDataset
         from sesr_tpu_torch.ops import _build
+        from sesr_tpu_torch.ops.corrected import hybrid_forward, split_layers
         from sesr_tpu_torch.ops.fast import fast_forward
-        from sesr_tpu_torch.ops.kernels import (NET_KERNELS, TILE, fast_net,
+        from sesr_tpu_torch.ops.kernels import (NET_KERNELS, corrected_net, fast_net,
                                                 pe_exact_net, reset_launch_counts)
         from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
         from sesr_tpu_torch.quant.integer import (dequantize_output,
@@ -757,16 +841,43 @@ def main():
 
     spec = spec_for_task(TASK)
     qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
-    L = spec.num_convs
     rng = np.random.default_rng(0)
 
+    def artifact(task):
+        return spec_for_task(task), QuantParams.load(
+            os.path.join(REPO, "artifacts", f"qparams_{task}.npz"))
+
     # 3. kernels against their plain versions
-    modes = {"sesr_pe_exact_net": dict(corrected=False, compute="exact"),
-             "sesr_fast_net": dict(corrected=True, compute="fast")}
     max_err = {k.symbol: 0.0 for k in NET_KERNELS}
+
+    def check(kern, kspec, cqp, x, label, mode=None):
+        """``kern`` (in the corrected kernel's ``mode``) on x against its
+        plain version on the card; returns the plain dumps."""
+        x_q = quantize_input(x, cqp).to(torch.int8).contiguous()
+        split = split_layers(cqp, mode) if kern is corrected_net else None
+        out = kern(kspec, cqp, x_q, split=split)
+        torch.cuda.synchronize()
+        _, dumps = integer_forward(kspec, cqp, x, collect_dumps=True,
+                                   **plain_kwargs(kern, cqp, mode))
+        ref = dumps[f"input.{kspec.num_convs}"].to(torch.int8)
+        err = float((dequantize_output(out, cqp) - dequantize_output(ref, cqp)).abs().max())
+        max_err[kern.symbol] = max(max_err[kern.symbol], err)
+        equal = torch.equal(out, ref)
+        how = f" {mode}, split {[i for i, f in enumerate(split) if f]}" if split else ""
+        print(f"[3] {kern.symbol} {kspec.name}{how} {label}: array_equal with plain (cuda) = "
+              f"{equal}, max_abs_err {err}", flush=True)
+        if not equal:
+            fail(f"{kern.symbol} disagrees with its plain version on {kspec.name} {label}: "
+                 f"{int((out != ref).sum())} values differ")
+        return dumps
+
+    def frames(shape, channels):
+        return torch.from_numpy(rng.random(shape + (channels,), dtype=np.float32)).to(dev)
+
     # zero points off the shipped -128: a floored one (restoration and pads
     # use -128, the fused bias the raw zero), odd and positive ones
-    odd = dataclasses.replace(qp, a_zero=[-120, -131, -100, 5, -127, -128])
+    odd_zeros = [-120, -131, -100, 5, -127, -128]
+    odd = dataclasses.replace(qp, a_zero=odd_zeros)
     # convs 1 and 4 with weights at +-127: K1's 18-bit per-PE clamp fires (its
     # 20-bit clamp cannot: 4 x (2^17 - 1) < 2^19 - 1), and so does K2's 20-bit
     # one; both kernels then run those convs in their clamping form
@@ -783,21 +894,8 @@ def main():
              (fast_net, (4,) + FRAME, qp)]
     for kern, shape, cqp in cases:
         label = f"{shape}{' odd zeros' if cqp is odd else ' saturating' if cqp is sat else ''}"
-        x = rng.random(shape + (spec.in_channels,), dtype=np.float32)
-        xt = torch.from_numpy(x).to(dev)
-        x_q = quantize_input(xt, cqp).to(torch.int8).contiguous()
-        out = kern(spec, cqp, x_q)
-        torch.cuda.synchronize()
-        _, dumps = integer_forward(spec, cqp, xt, collect_dumps=True, **modes[kern.symbol])
-        ref = dumps[f"input.{L}"].to(torch.int8)
-        err = float((dequantize_output(out, cqp) - dequantize_output(ref, cqp)).abs().max())
-        max_err[kern.symbol] = max(max_err[kern.symbol], err)
-        equal = torch.equal(out, ref)
-        print(f"[3] {kern.symbol} {label}: array_equal with plain (cuda) = {equal}, "
-              f"max_abs_err {err}", flush=True)
-        if not equal:
-            fail(f"{kern.symbol} disagrees with its plain version at {label}: "
-                 f"{int((out != ref).sum())} values differ")
+        xt = frames(shape, spec.in_channels)
+        dumps = check(kern, spec, cqp, xt, label)
         if cqp is sat:
             add_hi = 2 ** (qp.hw.pe_add_bits - 1) - 1
             at_20 = int(((dumps["pe_add.1"] == add_hi) | (dumps["pe_add.1"] == -add_hi - 1)).sum())
@@ -810,6 +908,7 @@ def main():
                 fail("the saturating case did not fire K2's 20-bit clamp")
         if shape == (1, 27, 45) and cqp is qp:
             # the whole wrapper on the card against the plain version on the CPU
+            x = xt.cpu().numpy()
             if kern is pe_exact_net:
                 got = pe_exact_forward(spec, qp, xt).cpu()
                 want = integer_forward(spec, qp, x, device="cpu")[0]
@@ -820,42 +919,88 @@ def main():
             if not torch.equal(got, want):
                 fail(f"{kern.symbol} wrapper on cuda != plain version on cpu at {shape}")
             print(f"[3] {kern.symbol} wrapper (cuda) == plain (cpu) at {shape}", flush=True)
+
+    # the corrected kernel: nr and nrdm_6 in their hybrid mode (the last
+    # conv per PE), every artifact in the PE-exact mode (stamps removed: the
+    # split layers are those its proof cannot clear), odd zero points,
+    # ragged shapes, batch 2, and a saturating nr whose plain dumps show the
+    # 18-bit clamp firing on a split conv and the 20-bit clamp on a one-pass
+    # conv
+    nr_spec, nr_qp = artifact("nr")
+    for task in ("nr", "nrdm_6"):
+        tspec, tqp = artifact(task)
+        for shape in ((2, 27, 45), (1, 37, 53)):
+            check(corrected_net, tspec, tqp, frames(shape, 3), str(shape), "hybrid")
+    for task in ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2"):
+        tspec, tqp = artifact(task)
+        unstamped = dataclasses.replace(tqp, fast_cert_layers=None, fast_cert_ok=False)
+        check(corrected_net, tspec, unstamped, frames((2, 27, 45), tspec.in_channels),
+              "(2, 27, 45) stamps removed", "pe-exact")
+    nr_odd = dataclasses.replace(nr_qp, a_zero=odd_zeros)
+    for mode in ("hybrid", "pe-exact"):
+        check(corrected_net, nr_spec, nr_odd, frames(ragged, 3), f"{ragged} odd zeros", mode)
+    nr_sat = dataclasses.replace(nr_qp, w_int=[
+        np.full_like(np.asarray(w), 127) if i in (0, nr_spec.num_convs - 1) else np.asarray(w)
+        for i, w in enumerate(nr_qp.w_int)])
+    last = nr_spec.num_convs - 1
+    for mode in ("hybrid", "pe-exact"):
+        dumps = check(corrected_net, nr_spec, nr_sat, frames((1, 27, 45), 3),
+                      "(1, 27, 45) saturating: convs 0 and 4 at +127", mode)
+        kc = kernel_constants(nr_spec, nr_sat, "corrected", split_layers(nr_sat, mode))
+        add_hi = 2 ** (nr_qp.hw.pe_add_bits - 1) - 1
+        at_20 = int(((dumps["pe_add.0"] == add_hi) | (dumps["pe_add.0"] == -add_hi - 1)).sum())
+        ovf18 = dumps["overflow_18"].tolist()
+        print(f"[3]     plain dumps: overflow_18 {ovf18}; conv-0 sums at the 20-bit clamp "
+              f"{at_20}; split {kc.pe_split}, 20-bit clamp {kc.clamp20}", flush=True)
+        if mode == "hybrid" and not (kc.clamp20[0] and kc.pe_split[last] and at_20 > 0
+                                     and ovf18[last] > 0):
+            fail("the saturating hybrid case did not fire the 20-bit clamp on one-pass conv 0 "
+                 "and the 18-bit clamp on split conv 4")
+        if mode == "pe-exact" and not (kc.pe_split[0] and ovf18[0] > 0):
+            fail("the saturating pe-exact case did not fire the 18-bit clamp on split conv 0")
+    xt = frames((1, 27, 45), 3)
+    x = xt.cpu().numpy()
+    for out_dtype in ("int8", "f32"):
+        got = hybrid_forward(nr_spec, nr_qp, xt, out_dtype=out_dtype).cpu()
+        want = hybrid_forward(nr_spec, nr_qp, x, out_dtype=out_dtype, device="cpu")
+        if not torch.equal(got, want):
+            fail(f"sesr_corrected_net wrapper on cuda != plain version on cpu ({out_dtype})")
+    print("[3] sesr_corrected_net wrapper (cuda) == plain (cpu) on nr (1, 27, 45), int8 and "
+          "f32", flush=True)
+
     # the other instantiations (1 input channel, 3 or 16 output channels,
-    # 8 convs) and forms (dm and nrdm_6: K1 per PE on conv 0; dm: K2's
-    # 20-bit clamp on its last conv) on the other shipped artifacts, small
-    for task in ("sr_x4", "nrdm_3", "nrdm_6", "dm"):
-        tspec = spec_for_task(task)
-        tqp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{task}.npz"))
-        x = torch.from_numpy(rng.random((2, 27, 45, tspec.in_channels),
-                                        dtype=np.float32)).to(dev)
-        x_q = quantize_input(x, tqp).to(torch.int8).contiguous()
+    # 8 convs) and forms (dm, nrdm_6 and nr: K1 per PE on conv 0 or the last;
+    # dm: K2's 20-bit clamp on its last conv) on the other shipped artifacts
+    for task in ("sr_x4", "nrdm_3", "nrdm_6", "dm", "nr"):
+        tspec, tqp = artifact(task)
+        x = frames((2, 27, 45), tspec.in_channels)
         for kern in NET_KERNELS:
             if kern is fast_net and not tqp.fast_cert_ok:
                 continue
-            out = kern(tspec, tqp, x_q)
-            torch.cuda.synchronize()
-            _, dumps = integer_forward(tspec, tqp, x, collect_dumps=True,
-                                       **modes[kern.symbol])
-            if not torch.equal(out, dumps[f"input.{tspec.num_convs}"].to(torch.int8)):
-                fail(f"{kern.symbol} disagrees with its plain version on {task}")
-            print(f"[3] {kern.symbol} {task} (2, 27, 45): array_equal with plain (cuda)",
-                  flush=True)
-    small = SyntheticDataset(TASK, n=2)
-    r_gpu = serve(spec, qp, small, device="cuda")
-    r_cpu = serve(spec, qp, small, device="cpu")
-    if r_gpu.psnr != r_cpu.psnr or r_gpu.ssim != r_cpu.ssim:
-        fail(f"serve on cuda {r_gpu.psnr} != serve on cpu {r_cpu.psnr}")
-    print(f"[3] serve on cuda == serve on cpu on 2 synthetic 96x128 frames: "
-          f"psnr {r_gpu.psnr}", flush=True)
+            check(kern, tspec, tqp, x, "(2, 27, 45)",
+                  "hybrid" if kern is corrected_net else None)
+    # infer on every task through the command a user runs: the same mode
+    # and scores on the card as on the CPU
+    for task in ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2"):
+        args = ["infer", "--task", task, "--qparams",
+                os.path.join(REPO, "artifacts", f"qparams_{task}.npz"), "--n-images", "2"]
+        r_gpu = cli_main(args)
+        r_cpu = cli_main(args + ["--device", "cpu"])
+        if (r_gpu.mode, r_gpu.psnr, r_gpu.ssim) != (r_cpu.mode, r_cpu.psnr, r_cpu.ssim):
+            fail(f"infer --task {task}: cuda {r_gpu.mode} {r_gpu.psnr} != cpu {r_cpu.mode} "
+                 f"{r_cpu.psnr}")
+    print("[3] infer --n-images 2 on every task: the same mode and scores on cuda as on cpu",
+          flush=True)
 
-    # 4. the main path, with the launch counters at 0
+    # 4. the main path, with the launch counters at 0: sr_x2 (infer through
+    # K2, sim through K1)
     reset_launch_counts()
-    frames = SyntheticDataset(TASK, n=4, hw=(2 * FRAME[0], 2 * FRAME[1]))
-    r1 = serve(spec, qp, frames, batch=1, device="cuda")
+    sr_frames = SyntheticDataset(TASK, n=4, hw=(2 * FRAME[0], 2 * FRAME[1]))
+    r1 = serve(spec, qp, sr_frames, batch=1, device="cuda")
     k2_b1 = fast_net.launches
-    r4 = serve(spec, qp, frames, batch=4, device="cuda")
+    r4 = serve(spec, qp, sr_frames, batch=4, device="cuda")
     k2_b4 = fast_net.launches - k2_b1
-    sim = simulate(spec, qp, frames[0][0], device="cuda")
+    sim = simulate(spec, qp, sr_frames[0][0], device="cuda")
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in NET_KERNELS}
     sim_frames = int(sim.y.shape[0])
@@ -868,11 +1013,11 @@ def main():
           f"ssim {r4.mean_ssim:.4f}, outputs {r4.out_shapes[0]}, forward "
           f"{r4.forward_seconds / r4.n * 1e3:.3f} ms/frame; K2 launches {k2_b4}", flush=True)
     print(f"[4] sim: output {tuple(sim.y.shape)} from {sim.source}; "
-          f"launches over the main path {launches}; per frame {per_frame}", flush=True)
+          f"launches over the sr_x2 path {launches}; per frame {per_frame}", flush=True)
     if r1.mode != "fast":
         fail(f"sr_x2 should serve the certified fast mode, got {r1.mode}")
     if k2_b1 < 1 or k2_b4 < 1 or launches["sesr_pe_exact_net"] < 1:
-        fail(f"the main path did not go through both kernels: {launches}")
+        fail(f"the sr_x2 path did not go through both of its kernels: {launches}")
     out_hw = (2 * FRAME[0], 2 * FRAME[1], 3)
     if r1.out_shapes != [(1,) + out_hw] * 4 or r4.out_shapes != [(4,) + out_hw]:
         fail(f"unexpected output shapes {r1.out_shapes} {r4.out_shapes}")
@@ -883,65 +1028,126 @@ def main():
     if not r1.mean_psnr > 20.0:
         fail(f"implausible sr_x2 psnr {r1.mean_psnr}")
 
-    # 5. timing at 540x960, batch 1
-    x = torch.from_numpy(rng.random((1,) + FRAME + (spec.in_channels,),
-                                    dtype=np.float32)).to(dev)
-    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
-    macs = sum(int(np.prod(w.shape)) for w in qp.w_int) * FRAME[0] * FRAME[1]
-    moved = (x_q.numel() + FRAME[0] * FRAME[1] * spec.conv_out_channels
-             + sum(int(np.prod(w.shape)) for w in qp.w_int))
-    t_ops, t_bytes = 2 * macs / INT8_OPS_PER_S * 1e3, moved / BYTES_PER_S * 1e3
+    # the Bayer path, with the launch counters at 0 again: nr and nrdm_6
+    # served (hybrid, sesr_corrected_net) on 1080x1920 Bayer-sparse frames
+    # (the sr_x2 output frame of the same camera pipeline) at batch 1 and 4,
+    # nr simulated (sim through K1, sim --corrected through the corrected
+    # kernel)
+    reset_launch_counts()
+    bayer = {}
+    for task in ("nr", "nrdm_6"):
+        tspec, tqp = artifact(task)
+        data = list(SyntheticDataset(task, n=4, hw=BAYER_FRAME))
+        c0 = corrected_net.launches
+        b1 = serve(tspec, tqp, data, batch=1, device="cuda")
+        c1 = corrected_net.launches - c0
+        b4 = serve(tspec, tqp, data, batch=4, device="cuda")
+        c4 = corrected_net.launches - c0 - c1
+        bayer[task] = (tspec, tqp, data, b1, b4, c1, c4)
+    nr_frame = bayer["nr"][2][0][0]
+    nr_sim = simulate(nr_spec, nr_qp, nr_frame, device="cuda")
+    nr_sim_c = simulate(nr_spec, nr_qp, nr_frame, device="cuda", corrected=True)
+    torch.cuda.synchronize()
+    bayer_launches = {k.symbol: k.launches for k in NET_KERNELS}
+    print(f"[4] launches over the Bayer path: {bayer_launches}", flush=True)
+    for task, (tspec, tqp, data, b1, b4, c1, c4) in bayer.items():
+        per_frame.setdefault("sesr_corrected_net", {}).update(
+            {f"{task}_infer_batch1": c1 / b1.n, f"{task}_infer_batch4": c4 / b4.n})
+        for b, n_launch, batch in ((b1, c1, 1), (b4, c4, 4)):
+            print(f"[4] infer {task} {b.mode} batch {batch}: {b.n} frames, mean psnr "
+                  f"{b.mean_psnr:.4f} ssim {b.mean_ssim:.4f}, outputs {b.out_shapes[0]}, "
+                  f"forward {b.forward_seconds / b.n * 1e3:.3f} ms/frame; sesr_corrected_net "
+                  f"launches {n_launch}", flush=True)
+        if b1.mode != "hybrid" or b4.mode != "hybrid":
+            fail(f"{task} should serve the hybrid mode, got {b1.mode}")
+        if c1 != 4 or c4 != 1:
+            fail(f"{task}: {c1} / {c4} sesr_corrected_net launches for 4 dispatches at batch 1 "
+                 f"and 1 at batch 4")
+        if b1.out_shapes != [(1,) + BAYER_FRAME + (3,)] * 4 or \
+                b4.out_shapes != [(4,) + BAYER_FRAME + (3,)]:
+            fail(f"{task}: unexpected output shapes {b1.out_shapes} {b4.out_shapes}")
+        # (the synthetic Bayer sets score 17-18 dB, on the CPU and in JAX alike)
+        if not (b1.finite and b4.finite) or b1.psnr != b4.psnr or not b1.mean_psnr > 10.0:
+            fail(f"{task}: batch 1 {b1.psnr} / batch 4 {b4.psnr} scores (finite "
+                 f"{b1.finite} {b4.finite})")
+    print(f"[4] sim nr: {tuple(nr_sim.y.shape)} from {nr_sim.source}; sim --corrected nr: "
+          f"{tuple(nr_sim_c.y.shape)} from {nr_sim_c.source}", flush=True)
+    if bayer_launches["sesr_corrected_net"] < 9 or bayer_launches["sesr_pe_exact_net"] < 1:
+        fail(f"the Bayer path did not go through its kernels: {bayer_launches}")
+    if not (bool(torch.isfinite(nr_sim.y).all()) and bool(torch.isfinite(nr_sim_c.y).all())):
+        fail("non-finite nr simulation")
+    # the served frames against the plain version (these launches are not
+    # counted): batch 1 and 4, int8 outputs equal
+    for task, (tspec, tqp, data, *_) in bayer.items():
+        x4 = torch.from_numpy(np.concatenate([d[0] for d in data])).to(dev)
+        for xb in (x4[:1], x4):
+            got = hybrid_forward(tspec, tqp, xb, out_dtype="int8")
+            want = integer_forward_int8(tspec, tqp, xb, corrected=True, compute="exact",
+                                        fast_layers=tuple(tqp.fast_cert_layers))
+            if not torch.equal(got, want):
+                fail(f"{task} at {tuple(xb.shape)}: sesr_corrected_net != plain")
+            del got, want
+        print(f"[4] {task} served frames {tuple(x4.shape)}, batch 1 and 4: array_equal "
+              f"with plain (cuda)", flush=True)
+    want = integer_forward(nr_spec, nr_qp, torch.from_numpy(nr_frame).to(dev), corrected=True)[0]
+    if not torch.equal(nr_sim_c.y, want):
+        fail("sim --corrected on nr != the plain corrected interpreter")
+    want = integer_forward(nr_spec, nr_qp, torch.from_numpy(nr_frame).to(dev))[0]
+    if not torch.equal(nr_sim.y, want):
+        fail("sim on nr != the plain reference interpreter")
+    del want
+    print("[4] sim nr and sim --corrected nr at 1080x1920: array_equal with plain (cuda)",
+          flush=True)
+
+    # 5. timing: K1 and K2 at sr_x2 540x960, the corrected kernel on nr's
+    # and nrdm_6's 1080x1920 frame in their hybrid mode; batch 1
     entries = []
+    x = frames((1,) + FRAME, spec.in_channels)
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    xb = torch.from_numpy(bayer["nr"][2][0][0]).to(dev)
+    timed = {"sesr_pe_exact_net": (spec, qp, x, None), "sesr_fast_net": (spec, qp, x, None),
+             "sesr_corrected_net": (nr_spec, nr_qp, xb, "hybrid")}
+    total = {k: launches[k] + bayer_launches[k] for k in launches}
     for kern in NET_KERNELS:
-        split = kernel_constants(spec, qp, kern is pe_exact_net).pe_split
-        ref = kern(spec, qp, x_q)
-        attrs = launch_attrs(torch, {tile: (lambda t=tile: kern(spec, qp, x_q, tile=t))
-                                     for tile in TILE_SWEEP})
-        for tile in TILE_SWEEP:
-            if not torch.equal(kern(spec, qp, x_q, tile=tile), ref):
-                fail(f"{kern.symbol} at tile {tile} differs from tile {TILE}")
-            tile_ms = median_ms(lambda: kern(spec, qp, x_q, tile=tile), dev, 30, warmup=3)
-            regs, smem = attrs[tile]
-            print(f"[5] {kern.symbol} tile {tile[0]}x{tile[1]}: {tile_ms:.4f} ms/frame; "
-                  f"CUPTI: {regs if regs is not None else 'not measured'} registers per "
-                  f"thread, {smem if smem is not None else 'not measured'} B shared memory "
-                  f"per block; {mma_count(spec, split, 1, *FRAME, tile)} MMAs per frame "
-                  f"(computed from the tile geometry)", flush=True)
-        ms = median_ms(lambda: kern(spec, qp, x_q), dev, 30, warmup=3)
-        plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **modes[kern.symbol]),
-                             dev, 5)
-        mmas = mma_count(spec, split, 1, *FRAME, TILE)
+        kspec, kqp, kx, mode = timed[kern.symbol]
+        ms, plain_ms, bnd = time_kernel(torch, dev, kern, kspec, kqp, kx, mode, sweep=True)
         entries.append(dict(
             name=kern.symbol, route="cuda", source="sesr_tpu_torch/csrc/sesr_net.cu",
-            replaces=REPLACES[kern.symbol], launches=launches[kern.symbol],
-            launches_per_frame=per_frame[kern.symbol], max_abs_err=max_err[kern.symbol], ms=ms,
-            plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None))
-        print(f"[5] {kern.symbol}: {ms:.4f} ms/frame at tile {TILE[0]}x{TILE[1]}, per-PE "
-              f"passes on convs {[i for i in range(L) if split[i]]} (plain {plain_ms:.3f} "
-              f"ms); computed from the tile geometry: {mmas} MMAs "
-              f"({mmas * 16 * 8 * 32:.4g} tensor-core MACs); "
-              f"bound {max(t_ops, t_bytes) * 1e3:.3f} us = {2 * macs:.4g} int8 ops "
-              f"({t_ops * 1e3:.3f} us) vs {moved} bytes ({t_bytes * 1e3:.3f} us), "
-              f"share of bound {max(t_ops, t_bytes) / ms:.4f}", flush=True)
+            replaces=REPLACES[kern.symbol], launches=total[kern.symbol],
+            launches_per_frame=per_frame[kern.symbol], max_abs_err=max_err[kern.symbol],
+            ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+            work=f"{kspec.name}, {tuple(kx.shape[1:3])} frame, batch 1"
+                 f"{f', {mode} mode' if mode else ''}"))
+    # the corrected kernel's other network (nrdm_6: 8 convs, the 24x32
+    # tile) and its PE-exact mode on nr
+    nrdm6_spec, nrdm6_qp = bayer["nrdm_6"][:2]
+    time_kernel(torch, dev, corrected_net, nrdm6_spec, nrdm6_qp, xb, "hybrid", sweep=True)
+    time_kernel(torch, dev, corrected_net, nr_spec,
+                dataclasses.replace(nr_qp, fast_cert_layers=None), xb, "pe-exact", sweep=False)
     fwd_ms = median_ms(lambda: fast_forward(spec, qp, x), dev, 20, warmup=3)
     print(f"[5] fast_forward end to end (quantize, K2, dequantize, shuffle): "
           f"{fwd_ms:.4f} ms/frame", flush=True)
+    fwd_ms = median_ms(lambda: hybrid_forward(nr_spec, nr_qp, xb), dev, 20, warmup=3)
+    print(f"[5] hybrid_forward on nr 1080x1920 end to end (quantize, sesr_corrected_net, "
+          f"dequantize): {fwd_ms:.4f} ms/frame", flush=True)
 
     # 6. where a served frame's time goes
-    for batch in (1, 4):
-        x_np = rng.random((batch,) + FRAME + (spec.in_channels,), dtype=np.float32)
-        x = torch.from_numpy(x_np).to(dev)
-        windows = {"forward": lambda: fast_forward(spec, qp, x),
-                   "round trip": lambda: fast_forward(
-                       spec, qp, torch.from_numpy(x_np).to(dev)).cpu().numpy()}
-        for window, fn in windows.items():
-            wall, busy, per = breakdown(torch, fn, batch)
-            idle = f"{1.0 - busy / wall}" if busy else "not measured (no device events)"
-            print(f"[6] {window}, batch {batch}: wall {wall} ms/frame, device busy {busy} "
-                  f"ms/frame, idle share {idle}", flush=True)
-            for k, t in per.items():
-                print(f"[6]     {t:.4f} ms  {k}", flush=True)
+    for task, tspec, tqp, fwd, frame in (
+            (TASK, spec, qp, fast_forward, FRAME),
+            ("nr", nr_spec, nr_qp, hybrid_forward, BAYER_FRAME)):
+        for batch in (1, 4):
+            x_np = rng.random((batch,) + frame + (tspec.in_channels,), dtype=np.float32)
+            x = torch.from_numpy(x_np).to(dev)
+            windows = {"forward": lambda: fwd(tspec, tqp, x),
+                       "round trip": lambda: fwd(
+                           tspec, tqp, torch.from_numpy(x_np).to(dev)).cpu().numpy()}
+            for window, fn in windows.items():
+                wall, busy, per = breakdown(torch, fn, batch)
+                idle = f"{1.0 - busy / wall}" if busy else "not measured (no device events)"
+                print(f"[6] {task} {window}, batch {batch}: wall {wall} ms/frame, device busy "
+                      f"{busy} ms/frame, idle share {idle}", flush=True)
+                for k, t in per.items():
+                    print(f"[6]     {t:.4f} ms  {k}", flush=True)
 
     # 7. the probes
     entries += probes_phase(torch, dev)

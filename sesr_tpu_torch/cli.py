@@ -1,14 +1,18 @@
 """Command-line entry points of the port:
 
-    python -m sesr_tpu_torch infer --task sr_x2 --qparams artifacts/qparams_sr_x2.npz \
-        --n-images N [--batch B] [--out-dtype int8] [--device cuda]
+    python -m sesr_tpu_torch infer --task nr --qparams artifacts/qparams_nr.npz \
+        --n-images N [--data DIR] [--batch B] [--out-dtype int8] [--save-dir D] \
+        [--device cuda]
     python -m sesr_tpu_torch sim --task sr_x2 --qparams artifacts/qparams_sr_x2.npz \
-        [--fixture X.npy] [--dump-dir D] [--device cuda]
+        [--fixture X.npy] [--corrected] [--dump-dir D] [--device cuda]
 
-``infer`` serves the synthetic set through the certificate-selected
-deployment forward and scores it; ``sim`` runs the reference-exact
-simulation. Each command is a thin shell around one function (``serve``,
-``simulate``) that callers can drive with their own data.
+``infer`` serves a dataset (the synthetic set, or ``--data``: a
+GTmod12 folder for the super-resolution tasks, a folder of ``.raw`` Bayer
+planes for the others) through the certificate-selected deployment
+forward and scores it; ``sim`` runs the reference-exact simulation, or
+with ``--corrected`` the corrected datapath. Each command is a thin shell
+around one function (``serve``, ``simulate``) that callers can drive with
+their own data.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import numpy as np
 import torch
 
 from sesr_tpu_torch.config import SESRSpec, spec_for_task
-from sesr_tpu_torch.data import SyntheticDataset
+from sesr_tpu_torch.data import RawBayerDataset, SRFolderDataset, SyntheticDataset
+from sesr_tpu_torch.data.datasets import SR_SCALE
 from sesr_tpu_torch.deploy import select_forward
 from sesr_tpu_torch.metrics import evaluate_pair
+from sesr_tpu_torch.ops.corrected import pe_exact_corrected_forward
 from sesr_tpu_torch.ops.kernels import OUT_DTYPES
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+from sesr_tpu_torch.png import save_png
 from sesr_tpu_torch.quant.integer import dequantize_output, integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
 
@@ -60,11 +67,13 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(spec: SESRSpec, qp: QuantParams, dataset, batch: int = 1,
-          out_dtype: str = "f32", device="cuda") -> ServeResult:
-    """Serve every (input, ground truth) pair of ``dataset`` through the
-    deployment forward the artifact's certificate selects, ``batch``
+          out_dtype: str = "f32", device="cuda",
+          save_dir: Optional[str] = None) -> ServeResult:
+    """Serve every (input, ground truth, ...) item of ``dataset`` through
+    the deployment forward the artifact's certificate selects, ``batch``
     frames per dispatch (equal shapes batch together), and score each
-    output against its ground truth."""
+    output against its ground truth. With ``save_dir`` each output is
+    also written there as ``out_{n:04d}.png``."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     device = torch.device(device)
@@ -91,8 +100,11 @@ def serve(spec: SESRSpec, qp: QuantParams, dataset, batch: int = 1,
             y = dequantize_output(y, qp)
         y = y.cpu().numpy()
         finite = finite and bool(np.isfinite(y).all())
-        for j, (inp, gt) in enumerate(group):
+        for j, (inp, gt, *_) in enumerate(group):
             p, s = evaluate_pair(spec.name, y[j], gt[0], inp[0])
+            if save_dir:
+                os.makedirs(save_dir, exist_ok=True)
+                save_png(y[j], os.path.join(save_dir, f"out_{len(psnrs):04d}.png"))
             psnrs.append(float(p))
             ssims.append(float(s))
         i += len(group)
@@ -108,20 +120,25 @@ class SimResult:
 
 
 def simulate(spec: SESRSpec, qp: QuantParams, x, device="cuda",
-             dump_dir: Optional[str] = None) -> SimResult:
-    """The reference-exact simulation of one input. Its output comes from
-    the fused kernel on the card (the plain interpreter on the CPU). With
+             dump_dir: Optional[str] = None, corrected: bool = False) -> SimResult:
+    """The reference-exact simulation of one input, or with ``corrected``
+    the corrected datapath (the corrected PE-exact mode). Its output comes
+    from a fused kernel on the card (sesr_pe_exact_net, or
+    sesr_corrected_net) and from the plain interpreter on the CPU. With
     ``dump_dir`` the plain interpreter also runs, for the stage dumps and
-    the per-layer saturation counts the kernel does not keep, and its
-    output is compared with the served one."""
+    the per-layer saturation counts the kernels do not keep, and its
+    output is compared with the simulated one."""
     device = torch.device(device)
     x = torch.as_tensor(np.asarray(x, np.float32), device=device)
-    y = pe_exact_forward(spec, qp, x)
-    source = ("kernel sesr_pe_exact_net" if device.type == "cuda"
-              else "plain interpreter")
+    if corrected:
+        y = pe_exact_corrected_forward(spec, qp, x)
+    else:
+        y = pe_exact_forward(spec, qp, x)
+    source = (("kernel sesr_corrected_net" if corrected else "kernel sesr_pe_exact_net")
+              if device.type == "cuda" else "plain interpreter")
     if dump_dir is None:
         return SimResult(y, source, None, None)
-    y_plain, dumps = integer_forward(spec, qp, x, collect_dumps=True)
+    y_plain, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=corrected)
     os.makedirs(dump_dir, exist_ok=True)
     np.savez_compressed(os.path.join(dump_dir, "dumps.npz"),
                         y=y.cpu().numpy(),
@@ -130,16 +147,34 @@ def simulate(spec: SESRSpec, qp: QuantParams, x, device="cuda",
                      bool(torch.equal(y, y_plain)))
 
 
+def dataset_for(task: str, data: Optional[str], n_images: int):
+    """The set ``infer`` serves: a GTmod12 folder (super-resolution) or a
+    folder of ``.raw`` Bayer planes (the other tasks) when ``data`` is
+    given, else ``n_images`` synthetic pairs."""
+    if data:
+        if task in SR_SCALE:
+            return SRFolderDataset(data, scale=SR_SCALE[task])
+        return RawBayerDataset(data)
+    return SyntheticDataset(task, n=n_images)
+
+
 def cmd_infer(args) -> ServeResult:
     spec = spec_for_task(args.task)
     qp = QuantParams.load(args.qparams)
-    res = serve(spec, qp, SyntheticDataset(args.task, n=args.n_images),
-                batch=args.batch, out_dtype=args.out_dtype, device=args.device)
+    if args.out_dtype is None:
+        # the PNGs are 8-bit whatever the output, so --save-dir takes the
+        # int8 contract and skips the full-resolution float32 output
+        args.out_dtype = "int8" if args.save_dir else "f32"
+    res = serve(spec, qp, dataset_for(args.task, args.data, args.n_images),
+                batch=args.batch, out_dtype=args.out_dtype, device=args.device,
+                save_dir=args.save_dir)
     print(f"{args.task} {torch.device(args.device).type}({res.mode}"
           f"{', int8' if args.out_dtype == 'int8' else ''}"
           f"{f', batch {args.batch}' if args.batch > 1 else ''}) "
           f"mean psnr: {res.mean_psnr:.4f}  ssim: {res.mean_ssim:.4f}  "
           f"({res.n} images)")
+    if args.save_dir:
+        print(f"outputs -> {args.save_dir}/")
     return res
 
 
@@ -151,7 +186,8 @@ def cmd_sim(args) -> SimResult:
     else:
         # the reference's fixture is not shipped: the first synthetic input
         x = SyntheticDataset(args.task, n=1)[0][0]
-    res = simulate(spec, qp, x, device=args.device, dump_dir=args.dump_dir)
+    res = simulate(spec, qp, x, device=args.device, dump_dir=args.dump_dir,
+                   corrected=args.corrected)
     print(f"sim: input {tuple(x.shape)} -> output {tuple(res.y.shape)} "
           f"({res.source} on {args.device})")
     if res.overflow_counts is None:
@@ -180,20 +216,32 @@ def main(argv=None):
                        help="cuda (default: the fused kernels) or cpu (their "
                             "plain PyTorch version)")
 
-    p = sub.add_parser("infer", help="deployment inference, scored on the "
-                                     "synthetic set")
+    p = sub.add_parser("infer", help="deployment inference, scored on a "
+                                     "dataset (default: the synthetic set)")
     common(p)
-    p.add_argument("--n-images", type=int, default=4)
+    p.add_argument("--data", default=None,
+                   help="a GTmod12 folder beside its LRbicx{2,4} folder "
+                        "(sr_x2, sr_x4) or a folder of name_H_W.raw Bayer "
+                        "planes with name.png ground truth (the other "
+                        "tasks); omit for the synthetic set")
+    p.add_argument("--n-images", type=int, default=4,
+                   help="synthetic images (without --data)")
     p.add_argument("--batch", type=int, default=1,
                    help="frames per dispatch (1 = latency mode)")
-    p.add_argument("--out-dtype", default="f32", choices=list(OUT_DTYPES),
+    p.add_argument("--out-dtype", default=None, choices=list(OUT_DTYPES),
                    help="int8 = the raw quantized image contract; scoring "
-                        "dequantizes it")
+                        "dequantizes it. Default: int8 with --save-dir, "
+                        "else f32")
+    p.add_argument("--save-dir", default=None,
+                   help="write the outputs here as out_NNNN.png (8-bit)")
     p.set_defaults(fn=cmd_infer)
 
     p = sub.add_parser("sim", help="bit-exact reference integer simulation")
     common(p)
     p.add_argument("--fixture", default=None, help=".npy NHWC input")
+    p.add_argument("--corrected", action="store_true",
+                   help="the corrected deployment datapath (its PE-exact "
+                        "mode) instead of the reference-exact one")
     p.add_argument("--dump-dir", default=None,
                    help="also run the plain interpreter: stage dumps and "
                         "per-layer saturation counts")

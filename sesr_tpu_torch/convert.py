@@ -20,15 +20,20 @@ from sesr_tpu_torch.quant.integer import pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
 # The int32 parameter block of the kernels (csrc/sesr_net.cu P_*): offset
-# of each field, in words. Float fields travel as their float32 bits.
+# of each field, in words. Float fields travel as their float32 bits. A
+# block copies the words before ``zc_pe`` into shared memory; the corrected
+# kernel reads ``zc_pe`` (per layer, PE and channel) from device memory.
 MAX_LAYERS = 8
 HIDDEN = 16
+PES = 4
 PARAM_LAYOUT = dict(w_off=0, z_eff=8, z_in=16, rq_m=24, rq_p=32, res_m=40,
                     res_p=41, z_out=42, acc_hi=43, add_hi=44, pe_split=45,
-                    clamp20=46, bias=48, zc=48 + MAX_LAYERS * HIDDEN)
-PARAM_WORDS = PARAM_LAYOUT["zc"] + MAX_LAYERS * HIDDEN
+                    clamp20=46, bias=48, zc=48 + MAX_LAYERS * HIDDEN,
+                    zc_pe=48 + 2 * MAX_LAYERS * HIDDEN)
+PARAM_WORDS = PARAM_LAYOUT["zc_pe"] + MAX_LAYERS * PES * HIDDEN
+DATAPATHS = ("exact", "fast", "corrected")
 # the kernels' datapath widths
-_KERNEL_HW = dict(pe=4, quan_bits=8)
+_KERNEL_HW = dict(pe=PES, quan_bits=8)
 
 
 def quantparams_from_fields(fields: Mapping[str, Any]) -> QuantParams:
@@ -70,7 +75,7 @@ class KernelConstants:
     in_channels: int
     out_channels: int
     pe_split: tuple              # per layer: one accumulation pass per PE
-    clamp20: tuple               # per layer: the fast datapath's 20-bit clamp can fire
+    clamp20: tuple               # per layer: a one-pass layer's 20-bit clamp can fire
 
 
 def _f32_bits(v: float) -> int:
@@ -162,6 +167,31 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
     return frag.view(np.int32).reshape(-1)
 
 
+def _conv_range(w: np.ndarray, z: int):
+    """(lo, hi) per output channel of conv(q - z) with weights w (k, k, ic,
+    oc) over every int8 q: q - z lies in [-128 - z, 127 - z], and so does
+    the 0 that a position outside the image contributes (-128 <= z <= 127)."""
+    w = np.asarray(w, np.int64)
+    pos, neg = np.maximum(w, 0), np.minimum(w, 0)
+    hi = ((127 - z) * pos + (-128 - z) * neg).sum(axis=(0, 1, 2))
+    lo = ((-128 - z) * pos + (127 - z) * neg).sum(axis=(0, 1, 2))
+    return lo, hi
+
+
+def _pe_ranges(qp: QuantParams, i: int, z: int) -> list:
+    """_conv_range of conv i over each PE's input channels."""
+    w = np.asarray(qp.w_int[i])
+    return [_conv_range(w[:, :, pe_channel_mask(w.shape[2], qp.hw.pe, p), :], z)
+            for p in range(qp.hw.pe)]
+
+
+def _pe_clamp_fires(qp: QuantParams, z_of) -> tuple:
+    acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
+    return tuple(any(bool((hi > acc_hi).any() or (lo < -acc_hi - 1).any())
+                     for lo, hi in _pe_ranges(qp, i, z_of(i)))
+                 for i in range(len(qp.w_int)))
+
+
 def pe_split_layers(qp: QuantParams) -> tuple:
     """Per layer: whether the PE-exact datapath's 18-bit clamp of a PE's
     partial sum can fire. The kernels' partial is conv(q, pads = z_eff) on
@@ -171,52 +201,56 @@ def pe_split_layers(qp: QuantParams) -> tuple:
     identity and the sum of the clamped partials is the full conv: the
     PE-exact kernel then runs the layer in one pass, as the fast kernel
     does."""
-    hw = qp.hw
-    lo_acc, hi_acc = -(1 << (hw.pe_acc_bits - 1)), (1 << (hw.pe_acc_bits - 1)) - 1
-    split = []
-    for w in qp.w_int:
-        w = np.asarray(w, np.int64)
-        pos, neg = np.maximum(w, 0), np.minimum(w, 0)
-        fire = False
-        for p in range(hw.pe):
-            m = pe_channel_mask(w.shape[2], hw.pe, p)
-            hi = (127 * pos[:, :, m] - 128 * neg[:, :, m]).sum(axis=(0, 1, 2))
-            lo = (-128 * pos[:, :, m] + 127 * neg[:, :, m]).sum(axis=(0, 1, 2))
-            fire |= bool((hi > hi_acc).any() or (lo < lo_acc).any())
-        split.append(fire)
-    return tuple(split)
+    return _pe_clamp_fires(qp, lambda i: 0)
+
+
+def corrected_split_layers(qp: QuantParams) -> tuple:
+    """Per layer: whether the corrected datapath's 18-bit clamp of a PE's
+    partial can fire. That partial is conv(q - z_eff) over the PE's input
+    channels (no zero restoration), bounded per output channel by
+    ``_conv_range`` with z = z_eff: a bound over q - z_eff, not over q as
+    in ``pe_split_layers``. Where every PE's range fits 18 bits, the
+    clamped partials sum to the full conv(q - z_eff), which also fits 20
+    bits: one pass computes the layer exactly."""
+    return _pe_clamp_fires(qp, qp.effective_zero)
 
 
 def clamp20_layers(qp: QuantParams) -> tuple:
     """Per layer: whether the fast datapath's 20-bit clamp of conv(q -
-    z_eff) can fire. Over every int8 input that sum lies in [sum_{w>0}
-    (-128 - z_eff) w + sum_{w<0} (127 - z_eff) w, sum_{w>0} (127 - z_eff) w
-    + sum_{w<0} (-128 - z_eff) w] per output channel; where that fits 20
-    bits the fast kernel skips the clamp. (The PE-exact datapath's 20-bit
-    clamp never fires: four 18-bit PE sums fit 20 bits.)"""
-    hw = qp.hw
-    lo_add, hi_add = -(1 << (hw.pe_add_bits - 1)), (1 << (hw.pe_add_bits - 1)) - 1
+    z_eff) can fire: where ``_conv_range`` with z = z_eff fits 20 bits for
+    every output channel the fast kernel skips the clamp. (The PE-exact
+    datapath's 20-bit clamp never fires: four 18-bit PE sums fit 20 bits.)"""
+    add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
     fire = []
     for i, w in enumerate(qp.w_int):
-        w = np.asarray(w, np.int64)
-        z = qp.effective_zero(i)
-        pos, neg = np.maximum(w, 0), np.minimum(w, 0)
-        hi = ((127 - z) * pos + (-128 - z) * neg).sum(axis=(0, 1, 2))
-        lo = ((-128 - z) * pos + (127 - z) * neg).sum(axis=(0, 1, 2))
-        fire.append(bool((hi > hi_add).any() or (lo < lo_add).any()))
+        lo, hi = _conv_range(w, qp.effective_zero(i))
+        fire.append(bool((hi > add_hi).any() or (lo < -add_hi - 1).any()))
     return tuple(fire)
 
 
-def shortcut_bound(qp: QuantParams) -> float:
-    """The largest round(h) the fast kernel can store as its residual
-    shortcut (conv 0's ReLU output, kept as int16): over every int8 input,
-    conv(q - z_eff) is at most sum_{w>0} w (127 - z_eff) + sum_{w<0} w
-    (-128 - z_eff) per channel, then the 20-bit clamp, the clipped bias
-    and the float32 requantization, all monotone."""
+def pe_zero_terms(qp: QuantParams, i: int) -> np.ndarray:
+    """(PE, OC) int64: z_eff * sum(W_p) of conv i, each PE's share of the
+    layer's zero term z_eff * sum(W) (the rows sum to it)."""
+    w = np.asarray(qp.w_int[i], np.int64)
+    return np.stack([qp.effective_zero(i)
+                     * w[:, :, pe_channel_mask(w.shape[2], qp.hw.pe, p), :].sum(axis=(0, 1, 2))
+                     for p in range(qp.hw.pe)])
+
+
+def shortcut_bound(qp: QuantParams, split0: bool = False) -> float:
+    """The largest round(h) the corrected datapath's kernels can store as
+    their residual shortcut (conv 0's ReLU output, kept as int16): over
+    every int8 input, conv(q - z_eff) is at most ``_conv_range``'s hi per
+    channel; or, where conv 0 runs one pass per PE (``split0``), the sum
+    over PEs of each PE's hi clamped to 18 bits. Then the 20-bit clamp, the
+    clipped bias and the float32 requantization, all monotone."""
     hw = qp.hw
-    w = np.asarray(qp.w_int[0], np.int64)
     z = qp.effective_zero(0)
-    hi = np.where(w > 0, w * (127 - z), w * (-128 - z)).sum(axis=(0, 1, 2))
+    if split0:
+        acc_hi = (1 << (hw.pe_acc_bits - 1)) - 1
+        hi = sum(np.clip(h, -acc_hi - 1, acc_hi) for _, h in _pe_ranges(qp, 0, z))
+    else:
+        hi = _conv_range(qp.w_int[0], z)[1]
     hi16 = (1 << (hw.bias_bits - 1)) - 1
     y = np.minimum(hi, (1 << (hw.pe_add_bits - 1)) - 1) \
         + np.clip(np.asarray(qp.bias_int[0], np.int64), -hi16 - 1, hi16)
@@ -225,25 +259,39 @@ def shortcut_bound(qp: QuantParams) -> float:
     return float(np.rint(max(float(h.max()), 0.0)))
 
 
-def kernel_constants(spec: SESRSpec, qp: QuantParams, exact: bool) -> KernelConstants:
-    """Constants of the PE-exact kernel (``exact``, the reference datapath)
-    or the fast kernel (the certified corrected datapath).
+def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
+                     split=None) -> KernelConstants:
+    """Constants of one fused kernel: the PE-exact kernel ("exact", the
+    reference datapath), the fast kernel ("fast", the certified corrected
+    datapath) or the corrected kernel ("corrected", the corrected datapath
+    with one pass per PE on the layers flagged in ``split``, one flag per
+    layer, which the caller chooses: ops/corrected.py ``split_layers``).
 
     The kernels keep raw int8 activations and hold z_eff at positions
     outside the image, so conv(q, pads=z_eff) = conv(q - z_eff) +
     z_eff * sum(W). Per PE that is the reference's zero-restored partial,
-    so the PE-exact kernel needs no restoration term; the fast kernel
-    subtracts ``zc`` = z_eff * sum(W) before its 20-bit clamp. The
-    PE-exact kernel runs one pass per PE only on the layers where the
-    18-bit clamp can fire (``pe_split_layers``), and the fast kernel clamps
-    to 20 bits only where that clamp can fire (``clamp20_layers``). Raises
-    NotImplementedError for a network or artifact outside what the kernels
-    were built for (including a fast-kernel shortcut that may not fit
-    int16, ``shortcut_bound``).
+    so the PE-exact kernel needs no restoration term; the corrected
+    datapath's kernels subtract ``zc`` = z_eff * sum(W) before the 20-bit
+    clamp, or on a split layer each PE's share ``zc_pe`` = z_eff * sum(W_p)
+    before that PE's 18-bit clamp (``pe_zero_terms``). The PE-exact kernel
+    runs one pass per PE only on the layers where the 18-bit clamp can fire
+    (``pe_split_layers``); the fast and corrected kernels clamp a one-pass
+    layer to 20 bits only where that clamp can fire (``clamp20_layers``).
+    Raises NotImplementedError for a network or artifact outside what the
+    kernels were built for (including an int16 shortcut that may not hold
+    round(s), ``shortcut_bound``).
     """
+    if datapath not in DATAPATHS:
+        raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
     hw = qp.hw
     L = spec.num_convs
     ks = spec.kernel_sizes
+    exact = datapath == "exact"
+    if datapath == "corrected":
+        if split is None or len(split) != L:
+            raise ValueError(f"the corrected kernel takes one split flag per layer "
+                             f"({L}), got {split!r}")
+        split = tuple(bool(f) for f in split)
     for name, want in _KERNEL_HW.items():
         if getattr(hw, name) != want:
             raise NotImplementedError(
@@ -269,25 +317,29 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, exact: bool) -> KernelCons
                 f"requantization (m={m}, n={n}): the kernels round y * (m * 2^-n) "
                 f"once, which equals the reference's (y * m) * 2^-n only while "
                 f"m < 2^22 and |n| <= 64 keep every product a normal float")
-    if exact and hw.pe << (hw.pe_acc_bits - 1) > 1 << (hw.pe_add_bits - 1):
+    if exact:
+        split, clamp = pe_split_layers(qp), (False,) * L
+    elif datapath == "fast":
+        split, clamp = (False,) * L, clamp20_layers(qp)
+    else:
+        clamp = tuple(c and not f for c, f in zip(clamp20_layers(qp), split))
+    if (exact or any(split)) and hw.pe << (hw.pe_acc_bits - 1) > 1 << (hw.pe_add_bits - 1):
         raise NotImplementedError(
-            f"the PE-exact kernel has no 20-bit clamp: it needs {hw.pe} PE sums "
+            f"the kernels clamp no sum of PE sums to 20 bits: that needs {hw.pe} PE sums "
             f"of {hw.pe_acc_bits} bits to fit {hw.pe_add_bits} bits")
-    if not exact and clamp20_layers(qp)[0]:
+    if datapath == "fast" and clamp[0]:
         raise NotImplementedError(
             "the fast kernel runs conv 0 without its 20-bit clamp; this "
             "artifact's conv 0 can reach it")
-    if not exact and shortcut_bound(qp) > 32767:
+    if not exact and shortcut_bound(qp, split[0]) > 32767:
         raise NotImplementedError(
-            f"the fast kernel keeps the residual shortcut round(s) as int16; "
-            f"this artifact bounds it only by {shortcut_bound(qp)}")
+            f"the {datapath} kernel keeps the residual shortcut round(s) as int16; "
+            f"this artifact bounds it only by {shortcut_bound(qp, split[0])}")
 
     lay = PARAM_LAYOUT
     prm = np.zeros(PARAM_WORDS, np.int32)
     chunks, off = [], 0
     hi16 = (1 << (hw.bias_bits - 1)) - 1
-    split = pe_split_layers(qp) if exact else (False,) * L
-    clamp = (False,) * L if exact else clamp20_layers(qp)
     prm[lay["pe_split"]] = sum(1 << i for i in range(L) if split[i])
     prm[lay["clamp20"]] = sum(1 << i for i in range(L) if clamp[i])
     for i in range(L):
@@ -302,14 +354,23 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, exact: bool) -> KernelCons
         prm[lay["rq_m"] + i] = _f32_bits(m_f)
         prm[lay["rq_p"] + i] = _f32_bits(p_f)
         oc = w.shape[3]
+        zc_pe = np.zeros((hw.pe, oc), np.int64)
         if exact:
             bias = qp.fused_bias(i)
             zc = np.zeros(oc, np.int64)
         else:
             bias = np.clip(np.asarray(qp.bias_int[i]), -hi16 - 1, hi16)
-            zc = qp.effective_zero(i) * w.sum(axis=(0, 1, 2)).astype(np.int64)
+            zc_pe = pe_zero_terms(qp, i)
+            zc = zc_pe.sum(axis=0)
+            if split[i]:
+                zc = np.zeros(oc, np.int64)
+            else:
+                zc_pe[:] = 0
         prm[lay["bias"] + i * HIDDEN: lay["bias"] + i * HIDDEN + oc] = bias
         prm[lay["zc"] + i * HIDDEN: lay["zc"] + i * HIDDEN + oc] = zc
+        for p in range(hw.pe):
+            at = lay["zc_pe"] + (i * hw.pe + p) * HIDDEN
+            prm[at: at + oc] = zc_pe[p]
     res_m, res_p = requant_factors(qp.res_requant_m, qp.res_requant_n)
     prm[lay["res_m"]] = _f32_bits(res_m)
     prm[lay["res_p"]] = _f32_bits(res_p)
@@ -320,15 +381,17 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, exact: bool) -> KernelCons
                            spec.conv_out_channels, split, clamp)
 
 
-def device_constants(spec: SESRSpec, qp: QuantParams, exact: bool,
-                     device: torch.device):
-    """(weights, params) int32 tensors of kernel_constants on ``device``,
-    built once per QuantParams instance and device, and kept on the
-    instance (a ``dataclasses.replace`` copy builds its own)."""
+def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
+                     device: torch.device, split=None):
+    """(KernelConstants, weights, params) of kernel_constants, the last two
+    as int32 tensors on ``device``, built once per QuantParams instance,
+    datapath, split mask and device, and kept on the instance (a
+    ``dataclasses.replace`` copy builds its own)."""
     cache = qp.__dict__.setdefault("_kernel_constants", {})
-    key = (spec.name, exact, str(device))
+    key = (spec.name, datapath, None if split is None else tuple(map(bool, split)),
+           str(device))
     if key not in cache:
-        kc = kernel_constants(spec, qp, exact)
+        kc = kernel_constants(spec, qp, datapath, split)
         cache[key] = (kc, torch.as_tensor(kc.weights, device=device),
                       torch.as_tensor(kc.params, device=device))
     return cache[key]

@@ -4,13 +4,19 @@
 // int8 read of the input tile (with its halo), the weights, and one int8
 // write of the output tile.
 //
-// Replaces the two Pallas TPU kernels of the JAX package:
+// Replaces the two Pallas TPU kernels of the JAX package, and the XLA
+// lowering of its other two deployment modes:
 //   sesr_pe_exact_net  <- sesr_tpu/ops/pallas_pipeline.py build_pallas_forward
 //                         (the reference-exact 4-PE datapath, K1)
 //   sesr_fast_net      <- sesr_tpu/ops/pallas_packed.py build_pallas_packed_forward
 //                         (the certified fast deployment datapath, K2)
+//   sesr_corrected_net <- sesr_tpu/ops/packed.py _packed_exact_impl(corrected=True),
+//                         behind packed_hybrid_forward and
+//                         packed_exact_forward(corrected=True) (the corrected
+//                         datapath, one pass per PE on the layers the caller flags)
 // Their plain version is sesr_tpu_torch/quant/integer.py integer_forward
-// (corrected=False / compute="fast" with corrected=True).
+// (corrected=False / compute="fast" with corrected=True / corrected=True,
+// with fast_layers in the hybrid mode).
 //
 // What bounds it on this card: operations. sr_x2 needs 12,912 int8 MACs per
 // input pixel against 15 bytes of device traffic, far above the H100's
@@ -26,9 +32,13 @@
 //     proves from the weights that no PE's 18-bit clamp can fire (then the
 //     sum of the clamped PE sums is the full sum). One pass per PE, k =
 //     (tap, byte of word p), 8 taps per chunk, each PE's sum clamped to 18
-//     bits before adding: K1 on the other layers. Layer 0 (one word of <= 4
+//     bits before adding: K1 on the other layers, and the corrected kernel
+//     on the layers its caller flags (the hybrid mode: those without a
+//     certificate stamp; the PE-exact mode: those where convert.py cannot
+//     rule the clamp of conv(q - z_eff) out). Layer 0 (one word of <= 4
 //     channels) takes 8 taps per chunk, once per input channel when split.
-//     K2's 20-bit clamp runs only where it can fire; K1's never can;
+//     The 20-bit clamp of a one-pass layer of the corrected datapath runs
+//     only where it can fire; a split layer's never can;
 //   - activations stay int8 from layer to layer, packed four channels to a
 //     32-bit word: word p of a 16-channel pixel holds channels p, p+4, p+8,
 //     p+12 (PE p's). An A register is one such word, loaded from a planar
@@ -39,15 +49,19 @@
 //   - the zero shift q - z_eff is never materialized: positions outside
 //     the image hold z_eff instead of 0, so conv(q, pads = z_eff) equals
 //     conv(q - z_eff) + z_eff * sum(W). Per PE that sum is exactly the
-//     reference's zero-restored partial (K1); the fast datapath starts its
-//     accumulator from -z_eff * sum(W) (K2). This needs -128 <= z_eff <=
+//     reference's zero-restored partial (K1); the corrected datapath starts
+//     its accumulator from -z_eff * sum(W) (K2, and the corrected kernel's
+//     one-pass layers), or each PE's from -z_eff * sum(W_p) before its 18-bit
+//     clamp (the corrected kernel's split layers). This needs -128 <= z_eff <=
 //     127, which the host checks. The accumulator also starts from the bias
 //     plus kMagicBits, so requantization is one FFMA on its bits;
 //   - extents shrink by k/2 per layer; a layer's weights are held in
 //     registers over its whole extent, and the next layer's weights are
 //     staged with cp.async while the current layer computes; the residual
-//     shortcut is kept as int8 (K1: clip(round(s - 128))) or int16 (K2:
-//     round(s), its range proven by convert.py) so that 32x32 tiles fit.
+//     shortcut is kept as int8 (K1: clip(round(s - 128))) or int16 (the
+//     corrected datapath: round(s), its range proven by convert.py) so that
+//     32x32 tiles fit. The corrected kernel sizes its weight buffers by the
+//     layers it splits (the split mask is a launch argument).
 // What is left: the CUDA-core epilogue (requantization and the int8 clamp of
 // every value, half of it on the half-rate ALU pipe) takes more of a layer's
 // time than its MMAs and loads; the mma.sync forms reach the tensor cores
@@ -95,7 +109,15 @@ constexpr int P_SPLIT = 45;               // bit i: conv i runs one pass per PE 
 constexpr int P_CLAMP = 46;               // bit i: conv i's 20-bit clamp can fire (K2)
 constexpr int P_BIAS = 48;                // [kMaxL][kC] bias added after the adder clamp
 constexpr int P_ZC = P_BIAS + kMaxL * kC; // [kMaxL][kC] z_eff * sum(W), subtracted before it
-constexpr int P_WORDS = P_ZC + kMaxL * kC;
+constexpr int P_WORDS = P_ZC + kMaxL * kC;  // the words a block copies to shared memory
+// [kMaxL][4][kC] z_eff * sum(W_p), a split layer's per PE (the corrected
+// kernel only, read from device memory once per layer: 2 KB more shared
+// memory would cost the block its second slot on an SM at 32x32)
+constexpr int P_ZCP = P_WORDS;
+
+// The datapath of a kernel: K1's reference numerics, K2's certified one-pass
+// corrected datapath, or the corrected datapath with per-PE passes.
+enum Datapath { REFERENCE = 0, FAST = 1, CORRECTED = 2 };
 
 enum Kind { FIRST = 0, MID = 1, LAST = 2 };
 
@@ -175,29 +197,28 @@ __device__ __forceinline__ bool pe_split(const int* prm, int layer) {
   return (prm[P_SPLIT] >> layer) & 1;
 }
 
-// The form of conv i: K1 runs it per PE where its 18-bit clamp can fire;
-// K2 clamps it to 20 bits where that clamp can fire (convert.py proves the
-// others idle; K1's 20-bit clamp never fires: four 18-bit sums fit 20 bits).
-template <bool EXACT>
-__device__ __forceinline__ bool special(const int* prm, int layer) {
-  return (prm[EXACT ? P_SPLIT : P_CLAMP] >> layer) & 1;
+// Whether conv i runs one pass per PE (its B fragments are the per-PE ones)
+template <int DP>
+__device__ __forceinline__ bool split_of(const int* prm, int layer) {
+  return DP != FAST && pe_split(prm, layer);
 }
 
 // One conv layer over the output extent eh x ew (in this layer's output
 // frame, which is the next layer's input frame), as an implicit GEMM. `in`
 // holds the input extent (eh + K - 1) x (ew + K - 1): one word per pixel
 // (FIRST) or four planes `in_ps` words apart; `w` the layer's B fragments.
-// SPLIT (K1 only) runs one pass per PE and clamps each PE's sum to 18 bits;
-// else one pass over all channels, which K1 takes where convert.py proves
-// that clamp cannot fire. CLAMP (K2 only) clamps the sum to 20 bits. The
-// epilogue writes the next layer's input planes (FIRST, MID), the shortcut
-// terms (FIRST) or the int8 output (LAST).
-template <bool EXACT, bool SPLIT, bool CLAMP, int K, Kind KIND, int OC>
+// SPLIT (K1, the corrected kernel) runs one pass per PE and clamps each PE's
+// sum to 18 bits; else one pass over all channels, which K1 takes where
+// convert.py proves that clamp cannot fire. CLAMP (the corrected datapath's
+// one-pass layers) clamps the sum to 20 bits. The epilogue writes the next
+// layer's input planes (FIRST, MID), the shortcut terms (FIRST) or the int8
+// output (LAST).
+template <int DP, bool SPLIT, bool CLAMP, int K, Kind KIND, int OC>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
-    const int* __restrict__ prm, int* __restrict__ next, int next_ps,
-    int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
+    const int* __restrict__ prm, const int* __restrict__ zcp, int* __restrict__ next,
+    int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
     int8_t* __restrict__ out, int frame) {
   constexpr int KK = K * K;
   constexpr int NT = (OC + 7) / 8;                   // n-tiles of 8 channels
@@ -223,18 +244,30 @@ __device__ __forceinline__ void conv_layer(
   // accumulator (n, i) of this lane is channel chan(2n + (i & 1)): the last
   // layer's columns are in order (channels 8n + 2tq, 8n + 2tq + 1), a
   // hidden layer's permuted (channel tq + 4j, byte j of word tq). It starts
-  // from bias + kMagicBits - z_eff * sum(W) (K1: z_eff * sum(W) is 0), so it
-  // ends as kMagicBits + y_int; the 20-bit clamp of conv(q - z_eff), where
-  // it runs, is shifted by the same constant.
+  // from bias + kMagicBits - z_eff * sum(W) (K1 and a split layer: that term
+  // is 0), so it ends as kMagicBits + y_int; the 20-bit clamp of conv(q -
+  // z_eff), where it runs, is shifted by the same constant.
+  auto chan = [&](int j) { return KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j; };
   int init[2 * NT], lo_c[2 * NT], hi_c[2 * NT];
 #pragma unroll
   for (int j = 0; j < 2 * NT; ++j) {
-    const int o = KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j;
+    const int o = chan(j);
     const int b = (o < OC ? prm[P_BIAS + layer * kC + o] : 0) + kMagicBits;
     init[j] = b - (o < OC ? prm[P_ZC + layer * kC + o] : 0);
     lo_c[j] = b - add_hi - 1;
     hi_c[j] = b + add_hi;
   }
+  // a split layer's PE p starts from 0 (K1: the pads restore the zero) or
+  // from -z_eff * sum(W_p) (the corrected datapath: the PE's partial is
+  // conv(q - z_eff) when it is clamped to 18 bits)
+  auto pe_start = [&](int p, int j) {
+    if constexpr (DP == CORRECTED) {
+      const int o = chan(j);
+      return o < OC ? -__ldg(zcp + (layer * 4 + p) * kC + o) : 0;
+    } else {
+      return 0;
+    }
+  };
 
   // input offsets of this lane's k-slots tq (a0, a1) and tq + 4 (a2, a3):
   // taps 8c + tq and 8c + tq + 4 of one word (TAPS), or word tq of taps 2c
@@ -291,7 +324,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[p][n][i] = 0;
+          for (int i = 0; i < 4; ++i) acc[p][n][i] = pe_start(p, 2 * n + (i & 1));
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
@@ -320,7 +353,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[n][i] = 0;
+          for (int i = 0; i < 4; ++i) acc[n][i] = pe_start(p, 2 * n + (i & 1));
         const int* src = in + p * in_ps;               // PE p reads word p
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
@@ -389,7 +422,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             float tr;
-            if constexpr (EXACT) {
+            if constexpr (DP == REFERENCE) {
               const int s = static_cast<int8_t>(sc[tq * sc_ps + r] >> (8 * j));
               const float c = magic_to_f32(q8_bits(__fsub_rn(hq[j], 128.f)));
               tr = __fadd_rn(__fadd_rn(magic_to_f32(s + kMagicBits), c), 256.f);
@@ -419,7 +452,7 @@ __device__ __forceinline__ void conv_layer(
           const int sy = y - sc_off, sx = x - sc_off;
           if (sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w) {
             const int sp = sy * sc_w + sx;
-            if constexpr (EXACT) {
+            if constexpr (DP == REFERENCE) {
               int b[4];
 #pragma unroll
               for (int j = 0; j < 4; ++j) b[j] = q8_bits(__fsub_rn(hq[j], 128.f));
@@ -473,11 +506,17 @@ struct Smem {
   int w_words, a_words, b_words, sc_words;
 };
 
-__host__ __device__ inline Smem smem_plan(bool exact, int L, int in_ch, int ocl, int th, int tw) {
+// Shared memory of one block: the parameter block (P_WORDS), two weight
+// buffers (each the size of the largest layer's fragments: every layer split
+// for K1, the layers of `split` for the corrected kernel), the ping-pong
+// activation buffers and the shortcut.
+__host__ __device__ inline Smem smem_plan(int dp, int split, int L, int in_ch, int ocl, int th,
+                                          int tw) {
   Smem s;
   s.w_words = 0;                         // a split layer's fragments are the larger
   for (int i = 0; i < L; ++i) {
-    const int lw = layer_words(exact, i, L, in_ch, ocl);
+    const bool sp = dp == REFERENCE || (dp == CORRECTED && ((split >> i) & 1));
+    const int lw = layer_words(sp, i, L, in_ch, ocl);
     s.w_words = s.w_words > lw ? s.w_words : lw;
   }
   // layer i's input: buf_b for even i (layer 0: one word per pixel), buf_a for odd
@@ -488,17 +527,49 @@ __host__ __device__ inline Smem smem_plan(bool exact, int L, int in_ch, int ocl,
     int& dst = (i % 2) ? s.a_words : s.b_words;
     dst = dst > words ? dst : words;
   }
-  s.sc_words = (exact ? 4 : 8) * plane_stride(extent(L - 1, L, th, tw));
+  s.sc_words = (dp == REFERENCE ? 4 : 8) * plane_stride(extent(L - 1, L, th, tw));
   return s;
 }
 
-template <bool EXACT, int OCL>
+// conv `layer` in its form: one pass per PE where its split bit is set (K1,
+// the corrected kernel), else one pass, clamped to 20 bits where its clamp
+// bit is set (K2 from conv 1 on, whose conv 0 convert.py proves idle; the
+// corrected kernel). The arguments are conv_layer's.
+template <int DP, int K, Kind KIND, int OC>
+__device__ __forceinline__ void conv_form(
+    const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
+    int eh, int ew, const Tile& t, int layer, bool prelast,
+    const int* __restrict__ prm, const int* __restrict__ zcp, int* __restrict__ next,
+    int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
+    int8_t* __restrict__ out, int frame) {
+  if constexpr (DP != FAST) {
+    if (pe_split(prm, layer)) {
+      conv_layer<DP, true, false, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer, prelast,
+                                               prm, zcp, next, next_ps, sc, sc_ps, sc_off, sc_w,
+                                               sc_h, out, frame);
+      return;
+    }
+  }
+  if constexpr (DP == CORRECTED || (DP == FAST && KIND != FIRST)) {
+    if ((prm[P_CLAMP] >> layer) & 1) {
+      conv_layer<DP, false, true, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm,
+                                               zcp, next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
+                                               out, frame);
+      return;
+    }
+  }
+  conv_layer<DP, false, false, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm,
+                                            zcp, next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
+                                            out, frame);
+}
+
+template <int DP, int OCL>
 __global__ void __launch_bounds__(kThreads, 2)
 sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                 const int* __restrict__ weights, const int* __restrict__ params,
-                int H, int W, int L, int in_ch, int th, int tw) {
+                int H, int W, int L, int in_ch, int th, int tw, int split) {
   extern __shared__ int4 smem4[];
-  const Smem plan = smem_plan(EXACT, L, in_ch, OCL, th, tw);
+  const Smem plan = smem_plan(DP, split, L, in_ch, OCL, th, tw);
   int* prm = reinterpret_cast<int*>(smem4);
   int* wbuf = prm + P_WORDS;            // two weight buffers of plan.w_words
   int* buf_a = wbuf + 2 * plan.w_words;
@@ -515,8 +586,9 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int frame = blockIdx.z;
 
   stage_async(wbuf, weights + params[P_WOFF],
-              layer_words(EXACT && (params[P_SPLIT] & 1), 0, L, in_ch, OCL));
+              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL));
   for (int i = threadIdx.x; i < P_WORDS; i += blockDim.x) prm[i] = params[i];
+  const int* zcp = params + P_ZCP;
 
   // layer-0 input: one word per pixel, channel c in byte c; z_eff outside
   const int r0 = ring(0, L);
@@ -550,22 +622,15 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int sc_h = th + 2 * r_sc, sc_w = tw + 2 * r_sc;
   const int sc_ps = plane_stride(sc_h * sc_w);
   // each layer stages the next one's weights into the other buffer while it
-  // computes; K1 runs a layer per PE (SPLIT) only where its bit is set
+  // computes, per PE only where the layer is split
   stage_async(wbuf + plan.w_words, weights + prm[P_WOFF + 1],
-              layer_words(EXACT && pe_split(prm, 1), 1, L, in_ch, OCL));
+              layer_words(split_of<DP>(prm, 1), 1, L, in_ch, OCL));
   {
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
-    if (EXACT && pe_split(prm, 0))
-      conv_layer<EXACT, EXACT, false, 5, FIRST, kC>(buf_b, 0, wbuf, in_ch, th + 2 * r1,
-                                                    tw + 2 * r1, t, 0, false, prm, buf_a, ps1,
-                                                    sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
-                                                    frame);
-    else
-      conv_layer<EXACT, false, false, 5, FIRST, kC>(buf_b, 0, wbuf, 1, th + 2 * r1,
-                                                    tw + 2 * r1, t, 0, false, prm, buf_a, ps1,
-                                                    sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
-                                                    frame);
+    conv_form<DP, 5, FIRST, kC>(buf_b, 0, wbuf, in_ch, th + 2 * r1, tw + 2 * r1, t, 0, false,
+                                prm, zcp, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
+                                frame);
   }
   wait_staged();
   __syncthreads();
@@ -574,19 +639,13 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   int* nxt = buf_b;
   for (int i = 1; i <= L - 2; ++i) {
     stage_async(wbuf + ((i + 1) & 1) * plan.w_words, weights + prm[P_WOFF + i + 1],
-                layer_words(EXACT && pe_split(prm, i + 1), i + 1, L, in_ch, OCL));
+                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL));
     const int r = ring(i + 1, L);
     const int* w = wbuf + (i & 1) * plan.w_words;
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
-    if (special<EXACT>(prm, i))
-      conv_layer<EXACT, EXACT, !EXACT, 3, MID, kC>(cur, ps_in, w, 4, th + 2 * r, tw + 2 * r, t,
-                                                   i, i == L - 2, prm, nxt, ps_out, sc, sc_ps,
-                                                   0, sc_w, sc_h, nullptr, frame);
-    else
-      conv_layer<EXACT, false, false, 3, MID, kC>(cur, ps_in, w, 1, th + 2 * r, tw + 2 * r, t,
-                                                  i, i == L - 2, prm, nxt, ps_out, sc, sc_ps,
-                                                  0, sc_w, sc_h, nullptr, frame);
+    conv_form<DP, 3, MID, kC>(cur, ps_in, w, 4, th + 2 * r, tw + 2 * r, t, i, i == L - 2, prm,
+                              zcp, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
     wait_staged();
     __syncthreads();
     int* tmp = cur;
@@ -596,41 +655,35 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
   const int* w_last = wbuf + ((L - 1) & 1) * plan.w_words;
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
-  if (special<EXACT>(prm, L - 1))
-    conv_layer<EXACT, EXACT, !EXACT, 5, LAST, OCL>(cur, ps_last, w_last, 4, th, tw, t, L - 1,
-                                                   false, prm, nullptr, 0, sc, sc_ps, 0, sc_w,
-                                                   sc_h, out, frame);
-  else
-    conv_layer<EXACT, false, false, 5, LAST, OCL>(cur, ps_last, w_last, 1, th, tw, t, L - 1,
-                                                  false, prm, nullptr, 0, sc, sc_ps, 0, sc_w,
-                                                  sc_h, out, frame);
+  conv_form<DP, 5, LAST, OCL>(cur, ps_last, w_last, 4, th, tw, t, L - 1, false, prm, zcp,
+                              nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
 }
 
-size_t shared_bytes(bool exact, int L, int in_ch, int ocl, int th, int tw) {
-  const Smem plan = smem_plan(exact, L, in_ch, ocl, th, tw);
+size_t shared_bytes(int dp, int split, int L, int in_ch, int ocl, int th, int tw) {
+  const Smem plan = smem_plan(dp, split, L, in_ch, ocl, th, tw);
   return sizeof(int) * (static_cast<size_t>(P_WORDS) + 2 * plan.w_words + plan.a_words +
                         plan.b_words + plan.sc_words);
 }
 
-template <bool EXACT, int OCL>
+template <int DP, int OCL>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
-                       int n, int h, int wd, int L, int in_ch, int th, int tw,
+                       int n, int h, int wd, int L, int in_ch, int th, int tw, int split,
                        cudaStream_t stream) {
-  const size_t bytes = shared_bytes(EXACT, L, in_ch, OCL, th, tw);
-  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<EXACT, OCL>,
+  const size_t bytes = shared_bytes(DP, split, L, in_ch, OCL, th, tw);
+  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, n);
-  sesr_net_kernel<EXACT, OCL><<<grid, kThreads, bytes, stream>>>(
-      x, out, w, prm, h, wd, L, in_ch, th, tw);
+  sesr_net_kernel<DP, OCL><<<grid, kThreads, bytes, stream>>>(
+      x, out, w, prm, h, wd, L, in_ch, th, tw, split);
   return cudaGetLastError();
 }
 
-template <bool EXACT>
+template <int DP>
 int launch(const void* x, void* out, const void* weights, const void* params, int n,
-           int h, int w, int L, int in_ch, int out_ch, int th, int tw, void* stream) {
-  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1)
+           int h, int w, int L, int in_ch, int out_ch, int th, int tw, int split, void* stream) {
+  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1 || split >> L)
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
@@ -638,9 +691,9 @@ int launch(const void* x, void* out, const void* weights, const void* params, in
   const int* pi = static_cast<const int*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_ch) {
-    case 3: return static_cast<int>(launch_one<EXACT, 3>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
-    case 12: return static_cast<int>(launch_one<EXACT, 12>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
-    case 16: return static_cast<int>(launch_one<EXACT, 16>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
+    case 3: return static_cast<int>(launch_one<DP, 3>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, split, s));
+    case 12: return static_cast<int>(launch_one<DP, 12>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, split, s));
+    case 16: return static_cast<int>(launch_one<DP, 16>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, split, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -654,15 +707,24 @@ extern "C" {
 int sesr_pe_exact_net(const void* x, void* out, const void* weights, const void* params,
                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
                       int tile_h, int tile_w, void* stream) {
-  return launch<true>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                      tile_h, tile_w, stream);
+  return launch<REFERENCE>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
+                           tile_h, tile_w, 0, stream);
 }
 
 int sesr_fast_net(const void* x, void* out, const void* weights, const void* params,
                   int n, int h, int w, int num_layers, int in_ch, int out_ch,
                   int tile_h, int tile_w, void* stream) {
-  return launch<false>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                       tile_h, tile_w, stream);
+  return launch<FAST>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
+                      tile_h, tile_w, 0, stream);
+}
+
+// split: bit i set where conv i runs one pass per PE, the params' pe_split
+// word (the weight buffers are sized by it).
+int sesr_corrected_net(const void* x, void* out, const void* weights, const void* params,
+                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
+                       int tile_h, int tile_w, int split, void* stream) {
+  return launch<CORRECTED>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
+                           tile_h, tile_w, split, stream);
 }
 
 const char* sesr_error_string(int err) {

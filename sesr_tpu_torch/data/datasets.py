@@ -1,0 +1,171 @@
+"""Datasets (numpy only), as the JAX package's ``sesr_tpu/data/datasets.py``:
+the synthetic set (smooth random images through the task's degradation:
+stride subsampling for super-resolution, the Bayer mosaic and shot/read
+noise for nr, dm, nrdm_3 and nrdm_6), Set5/Set14-style super-resolution
+folders, and DIV2K-RAW-style Bayer planes. Images are read with the
+port's own PNG reader (``sesr_tpu_torch/png.py``). Every item is NHWC
+float32 in [0, 1].
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from sesr_tpu_torch.data.bayer import (add_noise, expand_bayer_plane, four2three,
+                                       mosaic, random_noise_levels)
+from sesr_tpu_torch.png import imread_rgb
+
+SR_SCALE = {"sr_x2": 2, "sr_x4": 4}
+BAYER_TASKS = ("nr", "dm", "nrdm_3", "nrdm_6")
+
+
+def _to_y(img_hwc: np.ndarray) -> np.ndarray:
+    """BT.601 Y in [0,1]."""
+    y = (65.481 * img_hwc[:, :, 0] + 128.553 * img_hwc[:, :, 1]
+         + 24.966 * img_hwc[:, :, 2] + 16.0) / 255.0
+    return np.clip(y, 0, 1)
+
+
+class SRFolderDataset:
+    """Set5/Set14-style GTmod12 + LRbicx{2,4} folder pairs: x4 yields
+    Y-channel pairs, x2 RGB pairs."""
+
+    def __init__(self, gt_dir: str, scale: int):
+        if scale not in SR_SCALE.values():
+            raise ValueError(f"scale must be 2 or 4, got {scale}")
+        self.scale = scale
+        self.gt_paths: List[str] = sorted(glob.glob(os.path.join(gt_dir, "*.png")))
+        if not self.gt_paths:
+            raise FileNotFoundError(f"no PNGs under {gt_dir}")
+        self.lr_dir = gt_dir.replace("GTmod12", f"LRbicx{scale}")
+        if self.lr_dir == gt_dir:
+            # otherwise the ground truth would silently become the input
+            raise ValueError(
+                f"{gt_dir}: cannot derive the LRbicx{scale} directory — the "
+                f"layout pairs .../GTmod12 with .../LRbicx{scale}; point "
+                f"--data at the GTmod12 folder")
+        if not os.path.isdir(self.lr_dir):
+            raise FileNotFoundError(
+                f"LR directory {self.lr_dir} missing next to {gt_dir}")
+
+    def __len__(self):
+        return len(self.gt_paths)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, np.ndarray]:
+        gt_path = self.gt_paths[i]
+        lr_path = os.path.join(self.lr_dir, os.path.basename(gt_path))
+        gt = imread_rgb(gt_path)
+        inp = imread_rgb(lr_path)
+        if self.scale == 4:
+            gt, inp = _to_y(gt)[:, :, None], _to_y(inp)[:, :, None]
+        return inp[None].astype(np.float32), gt[None].astype(np.float32)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class RawBayerDataset:
+    """DIV2K-RAW-style triples: ``.raw`` uint16 Bayer planes named
+    name_H_W.raw (12-bit values) beside a 12-bit PNG ground truth
+    name.png (in ``png_dir``, else the raw file's folder). The plane is
+    expanded to the sparse 3-channel input.
+
+    Yields (inp, gt, variance), the variance the per-pixel noise variance
+    computed from the noisy input (zeros without ``add_test_noise``)."""
+
+    def __init__(self, raw_dir: str, png_dir: Optional[str] = None,
+                 add_test_noise: bool = False, seed: int = 0):
+        self.raw_paths = sorted(glob.glob(os.path.join(raw_dir, "*.raw")))
+        if not self.raw_paths:
+            raise FileNotFoundError(f"no .raw files under {raw_dir}")
+        self.png_dir = png_dir
+        self.add_test_noise = add_test_noise
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.raw_paths)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        path = self.raw_paths[i]
+        base = os.path.basename(path)
+        ww, hh = int(base.split("_")[1]), int(base.split("_")[-1][:-4])
+        raw = np.fromfile(path, dtype=np.uint16).reshape(ww, hh)
+        inp = expand_bayer_plane(raw.astype(np.float32) / (2 ** 12 - 1))
+        if self.add_test_noise:
+            shot, read = random_noise_levels(self.rng)
+            inp, _ = add_noise(inp, shot, read, self.rng)
+            # the variance of the noisy, unclamped input
+            variance = (shot * inp + read).astype(np.float32)
+        else:
+            variance = np.zeros_like(inp, dtype=np.float32)
+        png = os.path.join(self.png_dir or os.path.dirname(path),
+                           base.split("_")[0] + ".png")
+        gt = np.clip(imread_rgb(png, bit_depth=12), 0, 1)
+        inp = np.clip(inp, 0, 1).transpose(1, 2, 0)           # CHW -> HWC
+        return (inp[None].astype(np.float32), gt[None].astype(np.float32),
+                variance.transpose(1, 2, 0)[None])
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class SyntheticDataset:
+    """Procedural (input, ground truth) pairs: smooth random images, 8x8
+    blocks of uniform noise, at ground-truth size ``hw``."""
+
+    def __init__(self, task: str, n: int = 8, hw=(96, 128), seed: int = 0):
+        self.task, self.n, self.hw = task, n, hw
+        self.seed = seed
+
+    def __len__(self):
+        return self.n
+
+    def _smooth_image(self, rng, h, w, c=3):
+        small = rng.random((h // 8, w // 8, c), dtype=np.float32)
+        img = np.kron(small, np.ones((8, 8, 1), np.float32))
+        return np.clip(img, 0, 1)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed + i)
+        h, w = self.hw
+        linrgb = self._smooth_image(rng, h, w)
+        return task_pair_from_image(self.task, linrgb, rng)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+def task_pair_from_image(task: str, img_hwc: np.ndarray,
+                         rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+    """(inp, gt) NHWC pair for ``task`` from one HWC RGB image in [0, 1].
+    Bayer tasks: the RGGB mosaic re-packed sparse, with shot/read noise
+    drawn from ``rng`` for nr and nrdm (nr's ground truth is the clean
+    sparse mosaic, dm's and nrdm's the image). Super-resolution: the
+    stride-subsampled image (the synthetic pipeline's downscale); sr_x4
+    works on BT.601 luma."""
+    if task in BAYER_TASKS:
+        four = mosaic(img_hwc.transpose(2, 0, 1))
+        if task == "dm":
+            gt, inp = img_hwc, four2three(four)
+        else:
+            gt = four2three(four).transpose(1, 2, 0) if task == "nr" else img_hwc
+            noisy, _ = add_noise(four, *random_noise_levels(rng), rng)
+            inp = four2three(noisy)
+        inp = np.clip(inp.transpose(1, 2, 0), 0, 1)
+        gt = np.clip(np.asarray(gt), 0, 1)
+        return inp[None].astype(np.float32), gt[None].astype(np.float32)
+    if task not in SR_SCALE:
+        raise ValueError(f"unknown task {task!r}")
+    scale = SR_SCALE[task]
+    gt = img_hwc
+    inp = gt[::scale, ::scale, :]
+    if task == "sr_x4":
+        gt, inp = _to_y(gt)[:, :, None], _to_y(inp)[:, :, None]
+    return inp[None].astype(np.float32), gt[None].astype(np.float32)

@@ -40,6 +40,8 @@ SIGNATURES = {
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, stream)
         "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
         "sesr_fast_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
+        # (..., tile_h, tile_w, split, stream)
+        "sesr_corrected_net": [_PTR] * 4 + [_INT] * 9 + [_PTR],
     },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)

@@ -1,0 +1,79 @@
+"""The corrected PE-exact and layer-hybrid deployment forwards: one kernel.
+
+Port of sesr_tpu/ops/packed.py ``packed_exact_forward(corrected=True)`` and
+``packed_hybrid_forward`` (both ``_packed_exact_impl``, XLA with no Pallas
+kernel): the computation, not its space-to-depth layout. On a CUDA tensor
+both run the fused kernel ``sesr_corrected_net`` (csrc/sesr_net.cu) over
+the whole batch, with one pass per PE on the layers ``split_layers``
+flags; on a CPU tensor their plain version, ``integer_forward(corrected=
+True)`` (with ``fast_layers`` in the hybrid mode).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sesr_tpu_torch.config import SESRSpec
+from sesr_tpu_torch.convert import corrected_split_layers
+from sesr_tpu_torch.ops.kernels import OUT_DTYPES, corrected_net, run_net
+from sesr_tpu_torch.quant.integer import (as_input, integer_forward,
+                                          integer_forward_int8)
+from sesr_tpu_torch.quant.params import QuantParams
+
+MODES = ("hybrid", "pe-exact")
+
+
+def _stamps(qp: QuantParams) -> tuple:
+    if qp.fast_cert_layers is None:
+        raise ValueError(
+            "the hybrid mode requires per-layer certification stamps "
+            "(fast_cert_layers): a layer runs as one full-channel conv only "
+            "where its stamp proves the 18-bit clamp idle")
+    return tuple(bool(s) for s in qp.fast_cert_layers)
+
+
+def split_layers(qp: QuantParams, mode: str) -> tuple:
+    """Per layer: whether the kernel runs it one pass per PE, each PE's
+    partial clamped to 18 bits. "hybrid": the layers without a certificate
+    stamp (the others run as one conv, as the JAX hybrid lowering runs
+    them). "pe-exact": the layers where ``corrected_split_layers`` cannot
+    rule that clamp out; on the others one pass gives the same sums."""
+    if mode == "hybrid":
+        return tuple(not s for s in _stamps(qp))
+    if mode == "pe-exact":
+        return corrected_split_layers(qp)
+    raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def corrected_forward(spec: SESRSpec, qp: QuantParams, x, mode: str,
+                      out_dtype: str = "f32", device=None) -> torch.Tensor:
+    """The corrected datapath in ``mode``. x: NHWC float in [0, 1] (numpy or
+    tensor), on ``device`` (default: x's device, else ``cuda``).
+    ``out_dtype``: "f32" (the dequantized image) or "int8" (the raw
+    quantized image; dequantize with (a_zero[L], a_scale[L]))."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {OUT_DTYPES}, got {out_dtype!r}")
+    split = split_layers(qp, mode)
+    x = as_input(x, device)
+    if x.device.type == "cpu":
+        fast_layers = _stamps(qp) if mode == "hybrid" else None
+        if out_dtype == "int8":
+            return integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
+                                        fast_layers=fast_layers)
+        return integer_forward(spec, qp, x, corrected=True, fast_layers=fast_layers)[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"corrected_forward runs on cuda or cpu, got {x.device}")
+    return run_net(corrected_net, spec, qp, x, out_dtype, split=split)
+
+
+def hybrid_forward(spec: SESRSpec, qp: QuantParams, x, out_dtype: str = "f32",
+                   device=None) -> torch.Tensor:
+    """The layer-hybrid deployment forward (JAX ``packed_hybrid_forward``)."""
+    return corrected_forward(spec, qp, x, "hybrid", out_dtype, device)
+
+
+def pe_exact_corrected_forward(spec: SESRSpec, qp: QuantParams, x,
+                               out_dtype: str = "f32", device=None) -> torch.Tensor:
+    """The corrected PE-exact deployment forward (JAX
+    ``packed_exact_forward(corrected=True)``)."""
+    return corrected_forward(spec, qp, x, "pe-exact", out_dtype, device)

@@ -19,10 +19,12 @@ wiring, per conv i:
 ``corrected=True`` is the deployment datapath: no restoration, the clipped
 ``bias_int`` as the bias, and the residual add of the rounded operands at
 full width. ``compute="fast"`` (corrected only, certified artifacts only)
-runs one full-channel conv per layer with no per-PE stage.
+runs one full-channel conv per layer with no per-PE stage; ``fast_layers``
+(corrected only) does so on the flagged layers alone, as the layer-hybrid
+lowering of the JAX package does (``packed_hybrid_forward``).
 
-This module is the plain version behind both hand-written kernels
-(``ops/pe_exact.py``, ``ops/fast.py``). Its convolutions run in float64 on
+This module is the plain version behind the three hand-written kernels
+(``ops/pe_exact.py``, ``ops/fast.py``, ``ops/corrected.py``). Its convolutions run in float64 on
 integer values, where every partial sum is exact, then round: no TF32 and
 no fast convolution algorithm can change a value.
 """
@@ -116,7 +118,7 @@ def _conv_int(x64: torch.Tensor, w: np.ndarray) -> torch.Tensor:
 
 
 def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
-                     corrected: bool, compute: str):
+                     corrected: bool, dense: bool):
     """Steps 2-5. Returns (pe_out (PE, N, H, W, OC), pe_add, y, ovf18,
     ovf20), all integer-valued int32 tensors (counts as int64)."""
     hw = qp.hw
@@ -127,7 +129,7 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
     dev = x_shift.device
     zero_count = torch.zeros((), dtype=torch.int64, device=dev)
 
-    if compute == "fast":
+    if dense:
         pe_add = saturate(_conv_int(x64, w), hw.pe_add_bits)
         y = pe_add + torch.as_tensor(clipped_bias.astype(np.float64), device=dev)
         pe_add = pe_add.to(torch.int32)
@@ -157,7 +159,7 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
 
 def integer_forward(spec: SESRSpec, qp: QuantParams, x,
                     collect_dumps: bool = False, corrected: bool = False,
-                    compute: str = "exact", device=None):
+                    compute: str = "exact", device=None, fast_layers=None):
     """Bit-exact integer forward. x: NHWC float in [0, 1] (numpy or tensor).
 
     Returns (y, dumps): y is the dequantized float32 output, pixel-shuffled
@@ -171,6 +173,9 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     ``compute``: "exact" (the PE split; the values of the JAX package's
     "bf16" and "int32" modes) or "fast" (one full-channel conv per layer;
     requires ``corrected=True`` and a certified artifact).
+    ``fast_layers`` (corrected only): one flag per layer; a flagged layer
+    runs as one full-channel conv, with no per-PE stage (a certificate
+    stamp says where that is exact; the result is this whatever the input).
     """
     if compute not in COMPUTE_MODES:
         raise ValueError(f"compute must be one of {COMPUTE_MODES}, got {compute!r}")
@@ -182,8 +187,12 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
             "compute='exact' (PE-exact) for this artifact.")
     if compute == "fast" and not corrected:
         raise ValueError("compute='fast' is a mode of the corrected datapath")
-    qmin, qmax = quant_limits(qp)
     L = spec.num_convs
+    if fast_layers is not None and (not corrected or len(fast_layers) != L):
+        raise ValueError(f"fast_layers takes one flag per layer ({L}) of the "
+                         f"corrected datapath, got {fast_layers!r}")
+    dense = [compute == "fast" or bool(fast_layers and fast_layers[i]) for i in range(L)]
+    qmin, qmax = quant_limits(qp)
     h = as_input(x, device)
     shortcut = None
     dumps: Dict[str, torch.Tensor] = {}
@@ -192,7 +201,7 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
         x_q = _domain_in(h, i, L, qp, shortcut, corrected)
         x_shift = x_q - float(qp.effective_zero(i))
         pe_out, pe_add, y, ovf18, ovf20 = _integer_conv_pe(
-            x_shift, i, qp, corrected, compute)
+            x_shift, i, qp, corrected, dense[i])
         overflows.append(torch.stack([ovf18, ovf20]))
         h = apply_requant_f32(y, qp.requant_m[i], qp.requant_n[i])
         if i == 0:
@@ -222,12 +231,13 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
 
 
 def integer_forward_int8(spec: SESRSpec, qp: QuantParams, x,
-                         corrected: bool, compute: str, device=None):
+                         corrected: bool, compute: str, device=None,
+                         fast_layers=None):
     """The raw int8 output image (pixel-shuffled) of integer_forward: the
     plain version of the kernels' int8 output contract."""
     _, dumps = integer_forward(spec, qp, x, collect_dumps=True,
                                corrected=corrected, compute=compute,
-                               device=device)
+                               device=device, fast_layers=fast_layers)
     out_q = dumps[f"input.{spec.num_convs}"].to(torch.int8)
     if spec.has_pixel_shuffle:
         out_q = pixel_shuffle_nhwc(out_q, spec.scaling_factor)

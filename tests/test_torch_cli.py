@@ -1,5 +1,6 @@
-"""The port's sr_x2 slice end to end on the CPU: ``infer`` (serve) and
-``sim`` (simulate) against the JAX package, the import boundary of the
+"""The port end to end on the CPU: ``infer`` (serve) on sr_x2 and nr,
+with and without ``--save-dir``, and ``sim`` (simulate), reference-exact
+and ``--corrected``, against the JAX package; the import boundary of the
 port and of chip_smoke.py, and chip_smoke.py refusing to run without a
 card or without the repository around it."""
 
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from sesr_tpu import cli as jcli
 from sesr_tpu.config import spec_for_task as jspec_for_task
@@ -21,7 +23,7 @@ from sesr_tpu.data.datasets import SyntheticDataset as JSyntheticDataset
 from sesr_tpu.metrics import evaluate_pair as jevaluate_pair
 from sesr_tpu.quant.integer import integer_forward as jinteger_forward
 from sesr_tpu.quant.params import QuantParams as JQuantParams
-from sesr_tpu_torch import cli, metrics
+from sesr_tpu_torch import cli, metrics, png
 from sesr_tpu_torch.config import spec_for_task
 from sesr_tpu_torch.data import SyntheticDataset
 from sesr_tpu_torch.ops.fast import fast_forward
@@ -29,6 +31,7 @@ from sesr_tpu_torch.quant.params import QuantParams
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 QP = os.path.join(REPO, "artifacts", "qparams_sr_x2.npz")
+QP_NR = os.path.join(REPO, "artifacts", "qparams_nr.npz")
 FORBIDDEN = {"jax", "jaxlib", "sesr_tpu", "tools"}
 
 
@@ -38,13 +41,12 @@ def _psnr_line(text):
 
 
 def test_synthetic_data_and_metrics_match_jax():
-    for task in ("sr_x2", "sr_x4"):
+    # every task's synthetic set, the Bayer tasks' mosaic and noise included
+    for task in ("sr_x2", "sr_x4", "nr", "dm", "nrdm_3", "nrdm_6"):
         for (i_t, g_t), (i_j, g_j) in zip(SyntheticDataset(task, n=2),
                                           JSyntheticDataset(task, n=2)):
             np.testing.assert_array_equal(i_t, i_j)
             np.testing.assert_array_equal(g_t, g_j)
-    with pytest.raises(NotImplementedError, match="Bayer"):
-        SyntheticDataset("nr", n=1)[0]
     rng = np.random.default_rng(2)
     gt = rng.random((32, 48, 3))
     pred = np.clip(gt + rng.normal(0, 0.05, gt.shape), -0.1, 1.1)
@@ -111,9 +113,100 @@ def test_sim_command_matches_jax_reference(tmp_path, capsys):
     assert "not computed" in capsys.readouterr().out
 
 
+def _mode_and_scores(text):
+    """(mode, psnr, ssim, n) of an infer line, the port's
+    "nr cpu(hybrid, int8) mean psnr: ..." or JAX's "nr packed(1x8,
+    hybrid, int8) mean psnr: ..."."""
+    m = re.search(r"\((?:\d+x\d+, )?([a-z-]+)[^)]*\) mean psnr", text)
+    return (m.group(1),) + _psnr_line(text)
+
+
+def test_infer_nr_prints_the_jax_mode_and_scores(tmp_path, capsys):
+    """nr serves in the hybrid mode on the CPU, with JAX's scores; with
+    --save-dir both write the int8 contract's outputs as the same 8-bit
+    PNGs."""
+    args = ["infer", "--task", "nr", "--qparams", QP_NR, "--n-images", "2"]
+    cli.main(args + ["--device", "cpu"])
+    port = capsys.readouterr().out
+    assert port.startswith("nr cpu(hybrid) mean psnr")
+    jcli.main(args)
+    assert _mode_and_scores(port) == _mode_and_scores(capsys.readouterr().out)
+    res = cli.main(args + ["--device", "cpu", "--save-dir", str(tmp_path / "port")])
+    port = capsys.readouterr().out
+    assert port.startswith("nr cpu(hybrid, int8) mean psnr") and res.out_shapes[0][0] == 1
+    jcli.main(args + ["--save-dir", str(tmp_path / "jax")])
+    assert _mode_and_scores(port) == _mode_and_scores(capsys.readouterr().out)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) == ["out_0000.png", "out_0001.png"]
+    for name in names:
+        got = png.read_png(str(tmp_path / "port" / name))
+        want = np.asarray(Image.open(tmp_path / "jax" / name))
+        assert got.shape == want.shape == (96, 128, 3)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("task", ["nr", "sr_x2"])
+def test_infer_data_folder_matches_jax(tmp_path, capsys, task):
+    """infer --data on a folder: .raw Bayer planes with 12-bit PNG ground
+    truth (nr), a GTmod12 / LRbicx2 pair of folders (sr_x2); the same
+    scores as the JAX command on the same files."""
+    rng = np.random.default_rng(13)
+    if task == "nr":
+        data = tmp_path / "raw"
+        data.mkdir()
+        for name in ("0801", "0802"):
+            rng.integers(0, 4096, (24, 40)).astype(np.uint16).tofile(data / f"{name}_24_40.raw")
+            Image.fromarray(rng.integers(0, 4096, (24, 40)).astype(np.uint16)).save(
+                data / f"{name}.png")
+    else:
+        data = tmp_path / "GTmod12"
+        (tmp_path / "LRbicx2").mkdir()
+        data.mkdir()
+        for name in ("a.png", "b.png"):
+            Image.fromarray(rng.integers(0, 256, (24, 40, 3)).astype(np.uint8)).save(data / name)
+            Image.fromarray(rng.integers(0, 256, (12, 20, 3)).astype(np.uint8)).save(
+                tmp_path / "LRbicx2" / name)
+    args = ["infer", "--task", task, "--qparams",
+            os.path.join(REPO, "artifacts", f"qparams_{task}.npz"), "--data", str(data)]
+    res = cli.main(args + ["--device", "cpu"])
+    port = capsys.readouterr().out
+    assert res.n == 2 and res.finite
+    jcli.main(args)
+    assert _mode_and_scores(port) == _mode_and_scores(capsys.readouterr().out)
+
+
+def test_sim_corrected_matches_jax(tmp_path, capsys):
+    """sim --corrected runs the corrected datapath: output and every dump
+    array-equal to JAX's integer_forward(corrected=True), and to the JAX
+    command's dump file."""
+    jspec = jspec_for_task("nr")
+    jqp = JQuantParams.load(QP_NR)
+    x = np.random.default_rng(10).random((1, 26, 34, 3), dtype=np.float32)
+    np.save(tmp_path / "x.npy", x)
+    args = ["sim", "--task", "nr", "--qparams", QP_NR, "--fixture", str(tmp_path / "x.npy"),
+            "--corrected"]
+    res = cli.main(args + ["--dump-dir", str(tmp_path / "port"), "--device", "cpu"])
+    assert "plain interpreter on cpu" in capsys.readouterr().out
+    y_j, d_j = jinteger_forward(jspec, jqp, jnp.asarray(x), collect_dumps=True,
+                                corrected=True)
+    np.testing.assert_array_equal(res.y.numpy(), np.asarray(y_j))
+    assert res.matches_plain is True
+    assert res.overflow_counts == [int(v) for v in d_j["overflow_counts"]]
+    jcli.main(args + ["--dump-dir", str(tmp_path / "jax")])
+    port, jax_dumps = np.load(tmp_path / "port" / "dumps.npz"), np.load(tmp_path / "jax" / "dumps.npz")
+    assert sorted(port.files) == sorted(jax_dumps.files)
+    for k in jax_dumps.files:
+        np.testing.assert_array_equal(port[k], jax_dumps[k], err_msg=k)
+    # the reference-exact simulation of the same input differs
+    ref = cli.simulate(spec_for_task("nr"), QuantParams.load(QP_NR), x, device="cpu")
+    assert not torch.equal(ref.y, res.y)
+
+
 def test_import_boundary():
     code = ("import sys, sesr_tpu_torch, sesr_tpu_torch.cli, sesr_tpu_torch.convert, "
-            "sesr_tpu_torch.__main__, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "
+            "sesr_tpu_torch.__main__, sesr_tpu_torch.deploy, sesr_tpu_torch.png, "
+            "sesr_tpu_torch.data.bayer, sesr_tpu_torch.data.datasets, "
+            "sesr_tpu_torch.ops.corrected, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "
             "sesr_tpu_torch.probes.int8_gemm, sesr_tpu_torch.probes.bitcast, "
             "sesr_tpu_torch.probes.__main__\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -1,6 +1,7 @@
-"""The two fused kernels' Python side: their plain paths against the JAX
+"""The three fused kernels' Python side: their plain paths against the JAX
 package's Pallas kernels (interpret mode, as tests/test_pallas.py and
-tests/test_packed_pallas.py run them), the weights carried across by
+tests/test_packed_pallas.py run them) and, for the corrected kernel, its
+XLA hybrid and corrected PE-exact forwards, the weights carried across by
 sesr_tpu_torch/convert.py, the kernels' packed constants, and the
 wrappers' device rule: a CPU tensor takes the plain path and builds
 nothing; any other device never falls back to it. The kernels themselves
@@ -16,14 +17,16 @@ import pytest
 import torch
 
 from sesr_tpu.config import spec_for_task as jspec_for_task
-from sesr_tpu.ops.packed import packed_hybrid_forward, select_packed_forward
+from sesr_tpu.ops.packed import (packed_exact_forward, packed_hybrid_forward,
+                                 select_packed_forward)
 from sesr_tpu.ops.pallas_packed import build_pallas_packed_forward
 from sesr_tpu.ops.pallas_pipeline import build_pallas_forward
 from sesr_tpu.quant.params import QuantParams as JQuantParams
 from sesr_tpu_torch import convert, deploy
 from sesr_tpu_torch.config import spec_for_task
-from sesr_tpu_torch.ops import _build, fixedpoint, kernels
+from sesr_tpu_torch.ops import _build, corrected, fixedpoint, kernels
 from sesr_tpu_torch.ops.fast import fast_forward
+from sesr_tpu_torch.ops.kernels import OUT_DTYPES
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
 from sesr_tpu_torch.quant.integer import integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
@@ -116,7 +119,7 @@ def test_kernel_constants_layout(exact):
     are zero; a per-PE pass holds only its PE's channels."""
     task = "sr_x2"
     spec, (qp, _) = spec_for_task(task), _artifact(task)
-    kc = convert.kernel_constants(spec, qp, exact)
+    kc = convert.kernel_constants(spec, qp, "exact" if exact else "fast")
     lay = convert.PARAM_LAYOUT
     L = spec.num_convs
     assert kc.params.shape == (convert.PARAM_WORDS,)
@@ -174,17 +177,23 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     az = list(qp.a_zero)
     az[2] = 200                                  # z_eff does not fit the int8 pads
     with pytest.raises(NotImplementedError, match="does not fit int8"):
-        convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), True)
+        convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), "exact")
     with pytest.raises(NotImplementedError, match="pe=4"):
         convert.kernel_constants(spec, dataclasses.replace(
-            qp, hw=dataclasses.replace(qp.hw, pe=2)), True)
+            qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact")
     wide = dataclasses.replace(spec, num_lblocks=7)
     with pytest.raises(NotImplementedError, match="outside"):
-        convert.kernel_constants(wide, qp, False)
+        convert.kernel_constants(wide, qp, "fast")
+    with pytest.raises(ValueError, match="datapath"):
+        convert.kernel_constants(spec, qp, True)
+    with pytest.raises(ValueError, match="split flag"):
+        convert.kernel_constants(spec, qp, "corrected")
     for task in ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4"):
         tspec, (tqp, _) = spec_for_task(task), _artifact(task)
-        for exact in (True, False):
-            convert.kernel_constants(tspec, tqp, exact)
+        for datapath in ("exact", "fast"):
+            convert.kernel_constants(tspec, tqp, datapath)
+        for split in (convert.corrected_split_layers(tqp), (True,) * tspec.num_convs):
+            convert.kernel_constants(tspec, tqp, "corrected", split)
 
 
 KMAGIC = np.float32(12582912.0)             # csrc/sesr_net.cu kMagic = 1.5 * 2^23
@@ -258,11 +267,11 @@ def test_kernel_constants_refuse_requant_beyond_one_rounding(field, index, value
         vals[index] = v
         return dataclasses.replace(qp, **{field: vals})
 
-    for exact in (True, False):
+    for datapath in ("exact", "fast"):
         with pytest.raises(NotImplementedError, match="requantization"):
-            convert.kernel_constants(spec, with_value(value), exact)
+            convert.kernel_constants(spec, with_value(value), datapath)
     edge = TOP_M if field.endswith("_m") else (64 if value > 0 else -64)
-    convert.kernel_constants(spec, with_value(edge), True)
+    convert.kernel_constants(spec, with_value(edge), "exact")
 
 
 def test_fast_shortcut_int16_bound():
@@ -279,17 +288,26 @@ def test_fast_shortcut_int16_bound():
     big = dataclasses.replace(qp, requant_m=[qp.requant_m[0] * 8] + list(qp.requant_m[1:]))
     assert convert.shortcut_bound(big) > 32767
     with pytest.raises(NotImplementedError, match="int16"):
-        convert.kernel_constants(spec, big, False)
-    convert.kernel_constants(spec, big, True)
+        convert.kernel_constants(spec, big, "fast")
+    with pytest.raises(NotImplementedError, match="int16"):
+        convert.kernel_constants(spec, big, "corrected", (True,) * spec.num_convs)
+    convert.kernel_constants(spec, big, "exact")
 
 
 def test_device_constants_cached_per_instance():
     spec, (qp, _) = spec_for_task("sr_x2"), _artifact("sr_x2")
-    a = convert.device_constants(spec, qp, True, torch.device("cpu"))
-    assert convert.device_constants(spec, qp, True, torch.device("cpu")) is a
+    cpu = torch.device("cpu")
+    a = convert.device_constants(spec, qp, "exact", cpu)
+    assert convert.device_constants(spec, qp, "exact", cpu) is a
     copy = dataclasses.replace(qp)
-    assert convert.device_constants(spec, copy, True, torch.device("cpu")) is not a
+    assert convert.device_constants(spec, copy, "exact", cpu) is not a
     assert a[1].dtype == a[2].dtype == torch.int32
+    # the corrected kernel's constants are kept per split mask
+    one, every = (False,) * 4 + (True,), (True,) * 5
+    b = convert.device_constants(spec, qp, "corrected", cpu, one)
+    assert convert.device_constants(spec, qp, "corrected", cpu, list(one)) is b
+    c = convert.device_constants(spec, qp, "corrected", cpu, every)
+    assert c is not b and b[0].pe_split == one and c[0].pe_split == every
 
 
 def test_cpu_tensors_take_the_plain_path_without_building(monkeypatch):
@@ -309,7 +327,7 @@ def test_cpu_tensors_take_the_plain_path_without_building(monkeypatch):
         tqp, _ = _artifact(task)
         _, fn = deploy.select_forward(tqp)
         fn(spec_for_task(task), tqp, torch.zeros((1, 12, 20, 3)))
-    assert [k.launches for k in kernels.NET_KERNELS] == [0, 0]
+    assert [k.launches for k in kernels.NET_KERNELS] == [0, 0, 0]
     assert "triton" not in sys.modules
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.fast_net(spec, qp, torch.zeros((1, 8, 8, 3), dtype=torch.int8))
@@ -325,8 +343,15 @@ def test_other_devices_never_fall_back():
         fast_forward(spec, qp, x)
     mode, fn = deploy.select_forward(nr_qp)
     assert mode == "hybrid"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         fn(spec_for_task("nr"), nr_qp, x)
+    mode, fn = deploy.select_forward(dataclasses.replace(nr_qp, fast_cert_layers=None))
+    assert mode == "pe-exact"
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fn(spec_for_task("nr"), nr_qp, x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.corrected_net(spec, qp, torch.zeros((1, 8, 8, 3), dtype=torch.int8),
+                              split=(False,) * 5)
 
 
 @pytest.mark.parametrize("path", ARTIFACTS, ids=os.path.basename)
@@ -335,15 +360,32 @@ def test_select_forward_matches_jax(path):
     assert mode == select_packed_forward(JQuantParams.load(path))[0]
 
 
-def test_hybrid_plain_matches_jax_hybrid():
-    qp, jqp = _artifact("nr")
-    x = np.random.default_rng(5).random((1, 24, 40, 3), dtype=np.float32)
+@pytest.mark.parametrize("stamped", [True, False], ids=["stamped", "unstamped"])
+@pytest.mark.parametrize("task", ["nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2"])
+def test_hybrid_plain_matches_jax_hybrid(task, stamped):
+    """The plain hybrid forward (the artifact's stamps) and the corrected
+    PE-exact one (its stamps removed) are array-equal to the JAX package's
+    packed_hybrid_forward and packed_exact_forward(corrected=True), in both
+    output contracts; select_forward picks them as JAX does."""
+    qp, jqp = _artifact(task)
+    spec, jspec = spec_for_task(task), jspec_for_task(task)
+    x = np.random.default_rng(5).random((1, 24, 40, spec.in_channels), dtype=np.float32)
+    if not stamped:
+        qp = dataclasses.replace(qp, fast_cert_layers=None, fast_cert_ok=False)
+        jqp = dataclasses.replace(jqp, fast_cert_layers=None, fast_cert_ok=False)
     mode, fn = deploy.select_forward(qp)
-    want = packed_hybrid_forward(jspec_for_task("nr"), jqp, jnp.asarray(x))
-    np.testing.assert_array_equal(fn(spec_for_task("nr"), qp, x, device="cpu").numpy(),
-                                  np.asarray(want))
-    exact = dataclasses.replace(qp, fast_cert_layers=None)
-    mode, fn = deploy.select_forward(exact)
-    assert mode == "pe-exact"
-    np.testing.assert_array_equal(fn(spec_for_task("nr"), exact, x, device="cpu").numpy(),
-                                  np.asarray(want))
+    assert mode == select_packed_forward(jqp)[0]
+    if stamped:
+        assert mode in ("fast", "hybrid")
+        fn = corrected.hybrid_forward
+    else:
+        assert mode == "pe-exact"
+    for out_dtype in OUT_DTYPES:
+        if stamped:
+            want = packed_hybrid_forward(jspec, jqp, jnp.asarray(x), out_dtype=out_dtype)
+        else:
+            want = packed_exact_forward(jspec, jqp, jnp.asarray(x), corrected=True,
+                                        out_dtype=out_dtype)
+        got = fn(spec, qp, x, out_dtype=out_dtype, device="cpu")
+        assert got.dtype == (torch.int8 if out_dtype == "int8" else torch.float32)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -168,7 +168,7 @@ def test_kernel_constants_take_each_layers_form(task, exact):
     can fire, never clamps to 20 bits, and its weights are those layers'
     per-PE fragments and the others' one-pass fragments."""
     spec, qp = _artifact(task)
-    kc = convert.kernel_constants(spec, qp, exact)
+    kc = convert.kernel_constants(spec, qp, "exact" if exact else "fast")
     L = spec.num_convs
     assert kc.pe_split == (convert.pe_split_layers(qp) if exact else (False,) * L)
     assert kc.clamp20 == ((False,) * L if exact else convert.clamp20_layers(qp))
@@ -221,7 +221,7 @@ def test_clamp20_proof():
     w0 = list(qp.w_int)
     w0[0] = np.where(np.asarray(w0[0]) >= 0, 127, -127).astype(np.asarray(w0[0]).dtype)
     with pytest.raises(NotImplementedError, match="conv 0"):
-        convert.kernel_constants(spec, dataclasses.replace(qp, w_int=w0), False)
+        convert.kernel_constants(spec, dataclasses.replace(qp, w_int=w0), "fast")
 
 
 def _chip_smoke():
