@@ -16,14 +16,19 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    2, K2 at batch 4, both at 27x45 with zero points off the shipped -128,
    both with two convs' weights at +-127 so that the clamps fire (K1's
    18-bit per-PE clamp; K2's 20-bit clamp); the corrected kernel
-   (sesr_corrected_net) on nr and nrdm_6 in their hybrid mode at 27x45 and
-   37x53, on every artifact in the PE-exact mode (stamps removed), on nr
-   with odd zero points and ragged at batch 2, and on nr with convs 0 and
-   4 at +127 (hybrid: the 20-bit clamp fires on one-pass conv 0 and the
-   18-bit clamp on split conv 4; pe-exact: the 18-bit clamp on split conv
-   0); every kernel on the sr_x4, nrdm_3, nrdm_6, dm and nr artifacts at
-   27x45; each wrapper on the card against the plain version on the CPU;
-   and ``infer --n-images 2`` on every task, cuda against cpu;
+   (sesr_corrected_net, csrc/sesr_corrected.cu, on wgmma) on nr and nrdm_6
+   in their hybrid mode at 27x45 and 37x53, on every artifact in the
+   PE-exact mode (stamps removed), on nr with odd zero points and ragged at
+   batch 2, on nr with convs 0 and 4 at +127 (hybrid: the 20-bit clamp
+   fires on one-pass conv 0 and the 18-bit clamp on split conv 4; pe-exact:
+   the 18-bit clamp on split conv 0), and on the edges of its wide rows
+   (frames 1, 7, 63, 65 and 1921 columns wide, a frame smaller than one
+   tile, a batch whose last tile is ragged) in both modes; every kernel on
+   the sr_x4, nrdm_3, nrdm_6, dm and nr artifacts at 27x45; each wrapper on
+   the card against the plain version on the CPU; ``infer --n-images 2`` on
+   every task, cuda against cpu; and the SASS of the network libraries
+   (cuobjdump): the corrected kernel on IGMMA with no IMMA, K1 and K2 on
+   IMMA;
 4. the main paths, each with the launch counters set to 0 before it and
    read after it. sr_x2: ``serve`` (behind ``infer``) on four synthetic
    540x960 -> 1080x1920 frames at batch 1 and batch 4 (K2), then
@@ -34,12 +39,15 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    frames, batch 1 and 4, and the simulations against the plain version;
 5. CUDA-event device timings, batch 1, of each kernel (K1 and K2 on sr_x2
    at 540x960, the corrected kernel on nr and nrdm_6 at 1080x1920, hybrid,
-   and on nr pe-exact) at every tile of the sweep (each tile's output
+   and on nr pe-exact) at every tile of its sweep (each tile's output
    equal to the default tile's) and of its plain version, against the
-   least time the card could take (int8 operations at 1,979 TOP/s, or
-   bytes at 3.35 TB/s, whichever is larger); each tile's registers and
-   shared memory as CUPTI reports them (torch.profiler), and its
-   tensor-core MMAs per frame as computed from the tile geometry;
+   least time the card could take (int8 operations at 1,979 TOP/s over the
+   network's MACs, or bytes at 3.35 TB/s, whichever is larger); each tile's
+   registers and shared memory as CUPTI reports them (torch.profiler; the
+   corrected kernel's also against its plan in the wrapper and in the
+   library), and its tensor-core instructions per frame as computed from
+   the tile geometry (mma.sync for K1 / K2, wgmma for the corrected
+   kernel);
 6. where a served frame's time goes, sr_x2 (540x960) and nr (1080x1920),
    at batch 1 and 4: the forward on an input already on the card, and the
    round trip from a numpy input to a numpy output; wall ms/frame by CUDA
@@ -93,7 +101,16 @@ REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             # XLA with no Pallas kernel, reached from :723 packed_exact_forward
             # (corrected) and :749 packed_hybrid_forward
             "sesr_corrected_net": "sesr_tpu/ops/packed.py:562"}
+SOURCES = {"sesr_pe_exact_net": "sesr_tpu_torch/csrc/sesr_net.cu",
+           "sesr_fast_net": "sesr_tpu_torch/csrc/sesr_net.cu",
+           "sesr_corrected_net": "sesr_tpu_torch/csrc/sesr_corrected.cu"}
 TILE_SWEEP = ((16, 32), (24, 32), (32, 32), (16, 64), (24, 48), (32, 64))
+# the corrected kernel's (one block an SM, persistent): tiles past a
+# block's shared memory are reported and skipped
+CORRECTED_SWEEP = ((16, 64), (24, 64), (32, 32), (32, 48), (48, 48), (32, 64))
+# the corrected kernel's wide-row edges: (n, h, w), in both modes
+CORRECTED_EDGES = ((1, 33, 1), (1, 33, 7), (1, 33, 63), (1, 33, 65), (1, 9, 1921),
+                   (1, 5, 9), (3, 40, 70))
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 PROBE_SOURCE = "sesr_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {
@@ -133,8 +150,9 @@ def _short(name):
     """A device event's name without its template arguments' bodies."""
     m = re.search(r"sesr_net_kernel<\(?[a-z ]*\)?(\d)", name)
     if m:
-        return {"0": "K1 sesr_pe_exact_net", "1": "K2 sesr_fast_net",
-                "2": "sesr_corrected_net"}.get(m.group(1), name[:80])
+        return {"0": "K1 sesr_pe_exact_net", "1": "K2 sesr_fast_net"}.get(m.group(1), name[:80])
+    if "sesr_corrected_kernel" in name:
+        return "sesr_corrected_net"
     if name.startswith("Memcpy"):
         return name
     for functor in ("DivFunctor", "MulFunctor", "CUDAFunctorOnSelf_add", "round_kernel",
@@ -167,6 +185,31 @@ def mma_count(spec, pe_split, n, h, w, tile):
         rows = -(-(th + 2 * r) * (tw + 2 * r) // 16)
         per_block += rows * passes * chunks * -(-oc // 8)
     return per_block * n * -(-h // th) * -(-w // tw)
+
+
+def wgmma_count(spec, pe_split, n, h, w, tile):
+    """(wgmma instructions, tensor-core MACs) one launch of the corrected
+    kernel (csrc/sesr_corrected.cu) issues over an (n, h, w) input, computed
+    from its tile geometry (the card does not count them): per tile and
+    layer, the wide GEMM's rows (the output extent's height times the input
+    extent's width) cut into m-tiles of 64, times the layer's k32 steps;
+    each wgmma is 64 x N x 32 MACs, N the layer's columns (convert.py
+    wgmma_geometry; x4 on a split layer)."""
+    from sesr_tpu_torch.convert import wgmma_geometry
+
+    th, tw = tile
+    L = spec.num_convs
+    count = macs = 0
+    for i, k in enumerate(spec.kernel_sizes):
+        ic = spec.in_channels if i == 0 else spec.num_channels
+        oc = spec.conv_out_channels if i == L - 1 else spec.num_channels
+        steps, _, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1)
+        r = sum(kk // 2 for kk in spec.kernel_sizes[i:])
+        rows = (th + 2 * r - k + 1) * (tw + 2 * r)
+        count += -(-rows // 64) * steps
+        macs += -(-rows // 64) * steps * 64 * n_cols * 32
+    tiles = n * -(-h // th) * -(-w // tw)
+    return count * tiles, macs * tiles
 
 
 def launch_attrs(torch, launches, pattern="sesr_net_kernel"):
@@ -207,41 +250,78 @@ def plain_kwargs(kern, qp, mode=None):
                 if mode == "hybrid" else None)
 
 
+def tensor_count(kern, spec, split, n, h, w, tile):
+    """(tensor-core instructions, their MACs, the instruction's name) of one
+    launch of ``kern``, computed from its tile geometry."""
+    if kern.datapath == "corrected":
+        return (*wgmma_count(spec, split, n, h, w, tile), "wgmma")
+    mmas = mma_count(spec, split, n, h, w, tile)
+    return mmas, mmas * 16 * 8 * 32, "mma.sync"
+
+
 def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
     """Phase 5 for one kernel on one network and batch-1 frame x: with
-    ``sweep``, every tile of TILE_SWEEP (its output equal to the default
-    tile's; registers and shared memory from CUPTI; MMAs computed from the
-    tile geometry), then the default tile's time, the plain version's and
-    the bound. A kernel's time is device time (the card kept busy while
-    the host enqueues the launch: the wrapper's Python, about as long as
-    K2 itself, stays out). Returns (ms, plain ms, (bound ms, bound by))."""
+    ``sweep``, every tile of its sweep (TILE_SWEEP; the corrected kernel's
+    CORRECTED_SWEEP, skipping tiles past a block's shared memory) with its
+    output equal to the default tile's, its registers and shared memory
+    from CUPTI (the corrected kernel's also against the plan of the wrapper
+    and of the library) and its tensor-core instructions computed from the
+    tile geometry; then the default tile's time, the plain version's and the
+    bound. A kernel's time is device time (the card kept busy while the host
+    enqueues the launch: the wrapper's Python, about as long as K2 itself,
+    stays out). Returns (ms, plain ms, (bound ms, bound by))."""
     from sesr_tpu_torch.convert import kernel_constants
+    from sesr_tpu_torch.ops import _build
     from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import SMEM_LIMIT
     from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
     from sesr_tpu_torch.timing import median_ms
 
-    split_arg = split_layers(qp, mode) if kern.datapath == "corrected" else None
+    corrected = kern.datapath == "corrected"
+    split_arg = split_layers(qp, mode) if corrected else None
     split = kernel_constants(spec, qp, kern.datapath, split_arg).pe_split
     x_q = quantize_input(x, qp).to(torch.int8).contiguous()
     n, h, w = x_q.shape[:3]
     label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''} {h}x{w}"
-    tile0 = kern.tile(spec)
+    tile0 = kern.tile(spec, split)
     ref = kern(spec, qp, x_q, split=split_arg)
     if sweep:
+        tiles = TILE_SWEEP
+        if corrected:
+            lib = _build.load(kern.library)
+            mask = sum(1 << i for i, f in enumerate(split) if f)
+            tiles = []
+            for tile in CORRECTED_SWEEP:
+                plan = kern.smem_bytes(spec, tile, split)
+                built = lib.sesr_corrected_smem(spec.num_convs, spec.in_channels,
+                                                spec.conv_out_channels, *tile, mask)
+                if plan != (built or plan) or (plan <= SMEM_LIMIT) != (built > 0):
+                    fail(f"{label} tile {tile}: the wrapper plans {plan} B of shared memory, "
+                         f"the library {built}")
+                if plan > SMEM_LIMIT:
+                    print(f"[5] {label} tile {tile[0]}x{tile[1]}: needs {plan} B of shared "
+                          f"memory, more than a block's {SMEM_LIMIT}: not taken", flush=True)
+                else:
+                    tiles.append(tile)
         attrs = launch_attrs(torch, {tile: (lambda t=tile: kern(spec, qp, x_q, tile=t,
                                                                 split=split_arg))
-                                     for tile in TILE_SWEEP})
-        for tile in TILE_SWEEP:
+                                     for tile in tiles},
+                             "sesr_corrected_kernel" if corrected else "sesr_net_kernel")
+        for tile in tiles:
             if not torch.equal(kern(spec, qp, x_q, tile=tile, split=split_arg), ref):
                 fail(f"{label} at tile {tile} differs from tile {tile0}")
             tile_ms = median_ms(lambda: kern(spec, qp, x_q, tile=tile, split=split_arg), dev,
                                 30, warmup=3, lead_ms=1.0)
             regs, smem = attrs[tile]
+            count, _, instr = tensor_count(kern, spec, split, n, h, w, tile)
+            if corrected and smem is not None and smem != kern.smem_bytes(spec, tile, split):
+                fail(f"{label} tile {tile}: CUPTI reports {smem} B of shared memory, the plan "
+                     f"{kern.smem_bytes(spec, tile, split)}")
             print(f"[5] {label} tile {tile[0]}x{tile[1]}: {tile_ms:.4f} ms/frame; CUPTI: "
                   f"{regs if regs is not None else 'not measured'} registers per thread, "
                   f"{smem if smem is not None else 'not measured'} B shared memory per "
-                  f"block; {mma_count(spec, split, n, h, w, tile)} MMAs per frame (computed "
-                  f"from the tile geometry)", flush=True)
+                  f"block; {count} {instr} per frame (computed from the tile geometry)",
+                  flush=True)
     ms = median_ms(lambda: kern(spec, qp, x_q, split=split_arg), dev, 30, warmup=3, lead_ms=1.0)
     kw = plain_kwargs(kern, qp, mode)
     plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev, 5)
@@ -249,12 +329,13 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
     macs = weights * n * h * w
     moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
     bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
-    mmas = mma_count(spec, split, n, h, w, tile0)
+    count, tc_macs, instr = tensor_count(kern, spec, split, n, h, w, tile0)
     print(f"[5] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, per-PE passes on "
           f"convs {[i for i in range(spec.num_convs) if split[i]]} (plain {plain_ms:.3f} ms); "
-          f"computed from the tile geometry: {mmas} MMAs ({mmas * 16 * 8 * 32:.4g} "
-          f"tensor-core MACs); bound {bnd[0] * 1e3:.3f} us ({bnd[1]}) = {2 * macs:.4g} int8 "
-          f"ops vs {moved} bytes, share of bound {bnd[0] / ms:.4f}", flush=True)
+          f"computed from the tile geometry: {count} {instr} ({tc_macs:.4g} tensor-core MACs, "
+          f"{tc_macs / macs:.3f}x the network's); bound {bnd[0] * 1e3:.3f} us ({bnd[1]}) = "
+          f"{2 * macs:.4g} int8 ops vs {moved} bytes, share of bound {bnd[0] / ms:.4f}",
+          flush=True)
     return ms, plain_ms, bnd
 
 
@@ -287,8 +368,8 @@ SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 
 
 def sass_counts(lib):
-    """{kernel function (mangled): {opcode: count}} of the probe kernels in
-    the library, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
+    """{kernel function (mangled): {opcode: count}} of the kernels in the
+    library, from ``cuobjdump -sass`` (the toolkit's, beside nvcc)."""
     from sesr_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -306,6 +387,27 @@ def sass_counts(lib):
             for hit in op.findall(line.split(";")[0]):
                 counts[current][hit] += 1
     return counts
+
+
+def net_sass_check(build):
+    """The network kernels' tensor-core instructions, from ``cuobjdump -sass``
+    of their libraries: the corrected kernel (sesr_corrected_kernel) on
+    wgmma (IGMMA) and no mma.sync (IMMA); K1 and K2 (sesr_net_kernel) on
+    mma.sync. Prints each kernel's counts; fails otherwise."""
+    want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 1),
+            "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 6)}
+    for name, (family, has, lacks, instances) in want.items():
+        seen = 0
+        for fn, c in sorted(sass_counts(build.library_path(name)).items()):
+            if family not in fn:
+                continue
+            seen += 1
+            print(f"[3] SASS {family} {fn[fn.index(family) + len(family):][:40]}: "
+                  f"{ {k: v for k, v in c.items() if v} }", flush=True)
+            if not c[has] or c[lacks]:
+                fail(f"{fn}: {has} expected and no {lacks}, got {c}")
+        if seen != instances:
+            fail(f"{name}: {seen} {family} instantiations in the library, {instances} expected")
 
 
 def sass_check(lib):
@@ -837,7 +939,7 @@ def main():
     for build in _build.build_all().values():
         print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
               f"\n{build.log.strip()}", flush=True)
-    print(f"[2] both builds took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[2] the builds took {time.perf_counter() - t0:.1f} s", flush=True)
 
     spec = spec_for_task(TASK)
     qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
@@ -958,6 +1060,17 @@ def main():
                  "and the 18-bit clamp on split conv 4")
         if mode == "pe-exact" and not (kc.pe_split[0] and ovf18[0] > 0):
             fail("the saturating pe-exact case did not fire the 18-bit clamp on split conv 0")
+    # the edges of the wide rows: a frame 1 column wide (narrower than a
+    # tile's halo), 7, one short of and one past 64, 1921 (30 tiles and a
+    # ragged one), a frame smaller than one tile, and a batch of 3 whose
+    # last tile is ragged; nr in both modes, nrdm_6 hybrid
+    nr_pe = dataclasses.replace(nr_qp, fast_cert_layers=None)
+    nrdm6_spec, nrdm6_qp = artifact("nrdm_6")
+    for shape in CORRECTED_EDGES:
+        xt = frames(shape, 3)
+        check(corrected_net, nr_spec, nr_qp, xt, f"{shape} edge", "hybrid")
+        check(corrected_net, nr_spec, nr_pe, xt, f"{shape} edge", "pe-exact")
+        check(corrected_net, nrdm6_spec, nrdm6_qp, xt, f"{shape} edge", "hybrid")
     xt = frames((1, 27, 45), 3)
     x = xt.cpu().numpy()
     for out_dtype in ("int8", "f32"):
@@ -991,6 +1104,7 @@ def main():
                  f"{r_cpu.psnr}")
     print("[3] infer --n-images 2 on every task: the same mode and scores on cuda as on cpu",
           flush=True)
+    net_sass_check(_build)
 
     # 4. the main path, with the launch counters at 0: sr_x2 (infer through
     # K2, sim through K1)
@@ -1112,7 +1226,7 @@ def main():
         kspec, kqp, kx, mode = timed[kern.symbol]
         ms, plain_ms, bnd = time_kernel(torch, dev, kern, kspec, kqp, kx, mode, sweep=True)
         entries.append(dict(
-            name=kern.symbol, route="cuda", source="sesr_tpu_torch/csrc/sesr_net.cu",
+            name=kern.symbol, route="cuda", source=SOURCES[kern.symbol],
             replaces=REPLACES[kern.symbol], launches=total[kern.symbol],
             launches_per_frame=per_frame[kern.symbol], max_abs_err=max_err[kern.symbol],
             ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,

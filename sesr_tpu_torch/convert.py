@@ -1,6 +1,6 @@
 """Carrying weights across: from the JAX package's parameters to the port's
 ``QuantParams``, and from a ``QuantParams`` to the device constants of the
-fused kernels in ``csrc/sesr_net.cu``.
+fused kernels in ``csrc/sesr_net.cu`` (K1, K2) and ``csrc/sesr_corrected.cu``.
 
 The JAX side is given as plain numpy arrays and Python scalars (the fields
 of a ``sesr_tpu`` QuantParams), so nothing here imports JAX.
@@ -19,10 +19,10 @@ from sesr_tpu_torch.ops.fixedpoint import requant_factors
 from sesr_tpu_torch.quant.integer import pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
-# The int32 parameter block of the kernels (csrc/sesr_net.cu P_*): offset
-# of each field, in words. Float fields travel as their float32 bits. A
-# block copies the words before ``zc_pe`` into shared memory; the corrected
-# kernel reads ``zc_pe`` (per layer, PE and channel) from device memory.
+# The int32 parameter block of the kernels (csrc/sesr_common.cuh P_*):
+# offset of each field, in words. Float fields travel as their float32 bits.
+# K1 and K2 copy the words before ``zc_pe`` into shared memory; the corrected
+# kernel copies them all (``zc_pe``: per layer, PE and channel).
 MAX_LAYERS = 8
 HIDDEN = 16
 PES = 4
@@ -69,7 +69,7 @@ class KernelConstants:
     """What one fused kernel needs besides its input: the packed weight
     words of every layer, the parameter block, and the shapes."""
 
-    weights: np.ndarray          # int32 B-fragment words of every layer (_fragment_words)
+    weights: np.ndarray          # int32 B words of every layer (_fragment_words; corrected: _wgmma_b_words)
     params: np.ndarray           # int32 (PARAM_WORDS,)
     num_layers: int
     in_channels: int
@@ -115,8 +115,8 @@ def _tap_words(w_hwio: np.ndarray, split: bool, pe: int) -> np.ndarray:
 
 
 def layer_geometry(k: int, ic: int, split: bool, pe: int = 4):
-    """(passes, k32 chunks, tap_major) of one layer's implicit GEMM in the
-    kernels, with one pass per PE (``split``) or one over all channels.
+    """(passes, k32 chunks, tap_major) of one layer's implicit GEMM in K1
+    and K2, with one pass per PE (``split``) or one over all channels.
     Tap-major (per-PE passes, and any layer that reads one word per pixel):
     k-slot word s of chunk c is tap 8c + s of the pass's input word; else
     (one pass over 16 channels): tap 2c + s // 4, word s % 4."""
@@ -165,6 +165,66 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
                 frag[p, c, :, n, :] = np.where(
                     ok, words[p, np.minimum(tap, k * k - 1), word, np.maximum(o, 0)], 0)
     return frag.view(np.int32).reshape(-1)
+
+
+def _wgmma_columns(oc: int, last: bool) -> np.ndarray:
+    """Output channel of each column of one PE group of the corrected
+    kernel's B (csrc/sesr_corrected.cu ``col_chan``), -1 past OC: 16
+    columns, or 8 for a last layer of <= 8 channels. The last layer's are in
+    order; a hidden layer's are permuted so that the four accumulators a
+    thread holds for one row (wgmma columns 8j + 2t + e, j and e in {0, 1})
+    are channels 4t + 2j + e, the bytes of the next layer's input word t."""
+    n = np.arange(8 if last and oc <= 8 else 16)
+    cols = n if last else ((n >> 1) & 3) * 4 + (n >> 3) * 2 + (n & 1)
+    return np.where(cols < oc, cols, -1)
+
+
+def wgmma_geometry(k: int, ic: int, oc: int, split: bool, last: bool, pe: int = 4):
+    """(k32 steps, PE groups of columns, N) of one layer's GEMM in the
+    corrected kernel: layer 0 (ic <= 4, its pixels widened to four
+    horizontal neighbours) takes one step per kernel row, a 16-channel layer
+    two taps a step; a split layer has one group of columns per PE (layer 0:
+    per input channel), a one-pass layer one."""
+    wide = ic <= 4
+    steps = k if wide else -(-k * k // 2)
+    groups = (ic if wide else pe) if split else 1
+    return steps, groups, groups * len(_wgmma_columns(oc, last))
+
+
+def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.ndarray:
+    """B of one layer of the corrected kernel (csrc/sesr_corrected.cu), the
+    bytes as int32 words: byte ``b_byte(s, n, kb, N)`` holds the weight that
+    k byte kb of step s meets in column n. Column n is output channel
+    ``_wgmma_columns[n % G]`` of PE group n // G (G columns a group); k byte
+    16h + b of step s is channel b of tap 2s + h (a 16-channel layer), or
+    channel b % 4 of tap (s, 4h + b // 4) (layer 0, widened pixels). A
+    split layer's group p holds only PE p's channels (layer 0: input channel
+    p); a padded tap or channel, or a column past OC, is zero."""
+    k, _, ic, oc = w_hwio.shape
+    wide = ic <= 4
+    cols = _wgmma_columns(oc, last)
+    g = len(cols)
+    steps, groups, n_cols = wgmma_geometry(k, ic, oc, split, last, pe)
+    w = np.asarray(w_hwio, np.int64)
+    s, kb, n = np.meshgrid(np.arange(steps), np.arange(32), np.arange(n_cols), indexing="ij")
+    h, b = kb >> 4, kb & 15
+    if wide:
+        dy, dx, ch = s, 4 * h + b // 4, b % 4
+        ok = (dx < k) & (ch < ic)
+    else:
+        tap = 2 * s + h
+        dy, dx, ch = tap // k, tap % k, b
+        ok = tap < k * k
+    o = cols[n % g]
+    ok &= o >= 0
+    if split:
+        ok &= (ch % pe if not wide else ch) == n // g
+    vals = np.where(ok, w[np.minimum(dy, k - 1), np.minimum(dx, k - 1),
+                          np.minimum(ch, ic - 1), np.maximum(o, 0)], 0)
+    at = s * n_cols * 32 + (n >> 3) * 256 + (kb >> 4) * 128 + (n & 7) * 16 + (kb & 15)
+    out = np.zeros(steps * n_cols * 32, np.uint8)
+    out[at.reshape(-1)] = (vals.reshape(-1) & 0xFF).astype(np.uint8)
+    return out.view(np.int32)
 
 
 def _conv_range(w: np.ndarray, z: int):
@@ -342,9 +402,10 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     hi16 = (1 << (hw.bias_bits - 1)) - 1
     prm[lay["pe_split"]] = sum(1 << i for i in range(L) if split[i])
     prm[lay["clamp20"]] = sum(1 << i for i in range(L) if clamp[i])
+    b_words = _wgmma_b_words if datapath == "corrected" else _fragment_words
     for i in range(L):
         w = np.asarray(qp.w_int[i])
-        words = _fragment_words(w, split[i], hw.pe, last=i == L - 1)
+        words = b_words(w, split[i], hw.pe, last=i == L - 1)
         prm[lay["w_off"] + i] = off
         chunks.append(words)
         off += words.size

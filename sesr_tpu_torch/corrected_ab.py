@@ -1,0 +1,219 @@
+"""python -m sesr_tpu_torch.corrected_ab [--base DIR] [--variants NAMES [--tiles TILES]] [--reps R]
+
+An A/B of the corrected kernel (``sesr_corrected_net``) on the card: device
+time per 1080x1920 frame at batch 1 (CUDA events, the device kept busy
+while the host enqueues) on nr hybrid, nrdm_6 hybrid and nr pe-exact, the
+inputs made from one numpy seed.
+
+``--base DIR``: against another checkout of the repository, e.g. an
+earlier commit unpacked with ``git archive <commit> | tar -x -C DIR`` into
+a directory that .gitignore lists. Each tree's own wrapper and kernel run
+in their own process (``python -c`` from the tree's root, which builds the
+tree's ``csrc/`` into its own ``build/``), in turns base, this, this, base;
+each prints its times and a digest of its int8 outputs, and the digests of
+the two trees must agree.
+
+``--variants NAMES``: against edited copies of ``csrc/sesr_corrected.cu``,
+each with the text edits of VARIANTS, built side by side (one nvcc each,
+all started together) into ``build/variants/corrected/<name>/`` and timed
+in turns in this process, each output held against the plain version, at
+the default tile or at each of ``--tiles`` (e.g. 32x64,32x48) that fits.
+``no_epilogue`` and ``no_mma`` give a wrong output and say what the rest
+costs; the others must be equal.
+
+Needs the card and nvcc; prints one JSON line per measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+VARIANT_DIR = Path(__file__).resolve().parent.parent / "build" / "variants" / "corrected"
+# name: [(text, replacement)] in csrc/sesr_corrected.cu
+VARIANTS = {
+    "base": [],
+    "warpgroups_3": [("constexpr int kWarpgroups = 4;", "constexpr int kWarpgroups = 3;")],
+    "warpgroups_5": [("constexpr int kWarpgroups = 4;", "constexpr int kWarpgroups = 5;")],
+    "no_epilogue": [("    f.epilogue(d, mt);\n", "")],
+    "no_mma": [("      wgmma<N>(d, a_hi", "      if constexpr (false) wgmma<N>(d, a_hi")],
+}
+FRAME = (1080, 1920)
+CASES = (("nr", "hybrid"), ("nrdm_6", "hybrid"), ("nr", "pe-exact"))
+
+# Times this tree's corrected kernel: run with ``python -c`` from a tree's
+# root, so that it imports that tree's package (whose wrapper API is
+# corrected_net(spec, qp, x_q, split=...) in every version).
+WORKER = r"""
+import dataclasses, hashlib, json, sys
+import numpy as np, torch
+from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.ops.corrected import split_layers
+from sesr_tpu_torch.ops.kernels import corrected_net
+from sesr_tpu_torch.quant.integer import quantize_input
+from sesr_tpu_torch.quant.params import QuantParams
+from sesr_tpu_torch.timing import median_ms
+reps, frame, cases = json.loads(sys.argv[1])
+dev = torch.device("cuda")
+x = torch.from_numpy(np.random.default_rng(0).random((1, *frame, 3), dtype=np.float32)).to(dev)
+out = {"device": torch.cuda.get_device_name(0)}
+for task, mode in cases:
+    spec = spec_for_task(task)
+    qp = QuantParams.load(f"artifacts/qparams_{task}.npz")
+    if mode == "pe-exact":
+        qp = dataclasses.replace(qp, fast_cert_layers=None)
+    split = split_layers(qp, mode)
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    y = corrected_net(spec, qp, x_q, split=split)
+    ms = median_ms(lambda: corrected_net(spec, qp, x_q, split=split), dev, reps, warmup=3,
+                   lead_ms=1.0)
+    out[f"{task} {mode}"] = {"ms": ms,
+                             "digest": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]}
+print(json.dumps(out))
+"""
+
+
+def run_tree(tree: Path, reps: int) -> dict:
+    res = subprocess.run([sys.executable, "-c", WORKER, json.dumps([reps, FRAME, CASES])],
+                         cwd=tree, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"the worker in {tree} failed:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def tree_ab(base: Path, reps: int) -> None:
+    """base, this, this, base: each tree's kernel in its own process."""
+    this = Path(__file__).resolve().parent.parent
+    runs = []
+    for label, tree in (("base", base), ("this", this), ("this", this), ("base", base)):
+        r = run_tree(tree, reps)
+        runs.append((label, r))
+        print(json.dumps({"tree": label, "path": str(tree), **r}), flush=True)
+    for t, m in CASES:
+        key = f"{t} {m}"
+        digests = {r[key]["digest"] for _, r in runs}
+        if len(digests) != 1:
+            raise SystemExit(f"{key}: the two trees' kernels give different outputs {digests}")
+        ms = {lab: [r[key]["ms"] for lb, r in runs if lb == lab] for lab in ("base", "this")}
+        print(json.dumps({"case": key, "base_ms": ms["base"], "this_ms": ms["this"],
+                          "ratio": min(ms["this"]) / min(ms["base"]),
+                          "outputs_equal": True}), flush=True)
+
+
+def build_variant(name: str) -> Path:
+    from sesr_tpu_torch.ops import _build
+
+    out = VARIANT_DIR / name
+    out.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "sesr_corrected.cu").read_text()
+    for text, repl in VARIANTS[name]:
+        if text not in src:
+            raise ValueError(f"variant {name}: {text!r} is not in the source")
+        src = src.replace(text, repl)
+    (out / "sesr_corrected.cu").write_text(src)
+    for header in _build.sources("sesr_corrected")[1:]:
+        shutil.copy(header, out / header.name)
+    lib = out / "libsesr_corrected.so"
+    t0 = time.perf_counter()
+    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                          str(out / "sesr_corrected.cu")], capture_output=True, text=True,
+                         timeout=900)
+    (out / "nvcc.log").write_text(res.stdout + res.stderr
+                                  + f"\nnvcc seconds {time.perf_counter() - t0:.1f}\n")
+    if res.returncode != 0:
+        raise RuntimeError(f"variant {name}: nvcc failed\n{res.stderr[-4000:]}")
+    return lib
+
+
+def variant_ab(names, reps: int, tiles=None) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sesr_tpu_torch.config import spec_for_task
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import SMEM_LIMIT, corrected_net
+    from sesr_tpu_torch.quant.integer import integer_forward_int8, quantize_input
+    from sesr_tpu_torch.quant.params import QuantParams
+    from sesr_tpu_torch.timing import median_ms
+
+    names = ["base"] + [n for n in names if n != "base"]
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(build_variant, names)))
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for symbol, argtypes in _build.SIGNATURES["sesr_corrected"].items():
+            getattr(lib, symbol).argtypes = argtypes
+            getattr(lib, symbol).restype = ctypes.c_int
+        lib.sesr_corrected_error_string.argtypes = [ctypes.c_int]
+        lib.sesr_corrected_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+        log = (path.parent / "nvcc.log").read_text()
+        print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in log.splitlines()
+                                                     if "Used" in ln or "erialized" in ln
+                                                     or "spill" in ln or "nvcc sec" in ln]}),
+              flush=True)
+    load = _build.load
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(0).random((1, *FRAME, 3), dtype=np.float32)).to(dev)
+    try:
+        for task, mode in CASES:
+            spec = spec_for_task(task)
+            qp = QuantParams.load(Path(__file__).resolve().parent.parent / "artifacts"
+                                  / f"qparams_{task}.npz")
+            if mode == "pe-exact":
+                qp = dataclasses.replace(qp, fast_cert_layers=None)
+            split = split_layers(qp, mode)
+            x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+            plain = integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
+                                         fast_layers=tuple(qp.fast_cert_layers)
+                                         if mode == "hybrid" else None)
+            for tile in tiles or [corrected_net.tile(spec, split)]:
+                if corrected_net.smem_bytes(spec, tile, split) > SMEM_LIMIT:
+                    continue
+                for name in names:
+                    _build.load = lambda n, lib=libs[name]: lib if n == "sesr_corrected" \
+                        else load(n)
+                    y = corrected_net(spec, qp, x_q, split=split, tile=tile)
+                    ms = median_ms(lambda: corrected_net(spec, qp, x_q, split=split, tile=tile),
+                                   dev, reps, warmup=3, lead_ms=1.0)
+                    print(json.dumps({"case": f"{task} {mode}", "variant": name,
+                                      "tile": list(tile), "ms": ms,
+                                      "equal_to_plain": bool(torch.equal(y, plain)),
+                                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    finally:
+        _build.load = load
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
+    ap.add_argument("--base", type=Path, help="another checkout to A/B against")
+    ap.add_argument("--variants", help=f"comma-separated names of {sorted(VARIANTS)}")
+    ap.add_argument("--tiles", help="comma-separated tiles, e.g. 32x64,32x48 (--variants)")
+    ap.add_argument("--reps", type=int, default=30)
+    args = ap.parse_args(argv)
+    if args.base is None and args.variants is None:
+        ap.error("give --base, --variants or both")
+    if args.base is not None:
+        tree_ab(args.base.resolve(), args.reps)
+    if args.variants is not None:
+        names = args.variants.split(",")
+        unknown = set(names) - set(VARIANTS)
+        if unknown:
+            ap.error(f"unknown variants {sorted(unknown)}")
+        tiles = args.tiles and [tuple(int(v) for v in t.split("x")) for t in args.tiles.split(",")]
+        variant_ab(names, args.reps, tiles)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+// What the fused whole-network kernels share: the network's limits, the
+// layout of the int32 parameter block that sesr_tpu_torch/convert.py builds
+// (PARAM_LAYOUT), the exact int <-> float32 conversions through kMagic, the
+// byte packing of int8 activations, and the geometry of a tile's extents.
+// Included by sesr_net.cu (K1, K2) and sesr_corrected.cu (the corrected
+// kernel); each source is its own library, and ops/_build.py hashes this
+// header into both libraries' names.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kC = 16;          // hidden width of the network
+constexpr int kMaxL = 8;        // deepest supported network (nrdm_6)
+
+// Layout of the int32 parameter block (kept in sync with
+// sesr_tpu_torch/convert.py PARAM_LAYOUT).
+constexpr int P_WOFF = 0;                 // [kMaxL] weight word offset per layer
+constexpr int P_ZEFF = 8;                 // [kMaxL] pad value (z_eff) of conv i's input
+constexpr int P_ZIN = 16;                 // [kMaxL] f32 bits: domain-in zero of conv i
+constexpr int P_RQM = 24;                 // [kMaxL] f32 bits: requant mantissa of conv i
+constexpr int P_RQP = 32;                 // [kMaxL] f32 bits: 2^-n of conv i
+constexpr int P_RESM = 40;                // f32 bits: residual requant mantissa
+constexpr int P_RESP = 41;                // f32 bits: residual 2^-n
+constexpr int P_ZOUT = 42;                // f32 bits: zero of the output domain
+constexpr int P_ACC_HI = 43;              // per-PE accumulator max (18 bits)
+constexpr int P_ADD_HI = 44;              // PE adder max (20 bits)
+constexpr int P_SPLIT = 45;               // bit i: conv i runs one pass per PE
+constexpr int P_CLAMP = 46;               // bit i: conv i's 20-bit clamp can fire
+constexpr int P_BIAS = 48;                // [kMaxL][kC] bias added after the adder clamp
+constexpr int P_ZC = P_BIAS + kMaxL * kC; // [kMaxL][kC] z_eff * sum(W), subtracted before it
+constexpr int P_WORDS = P_ZC + kMaxL * kC;  // the words K1 and K2 read
+// [kMaxL][4][kC] z_eff * sum(W_p), a split layer's per PE (the corrected
+// kernel only)
+constexpr int P_ZCP = P_WORDS;
+constexpr int P_ALL = P_ZCP + kMaxL * 4 * kC;
+
+enum Kind { FIRST = 0, MID = 1, LAST = 2 };
+
+struct Tile {
+  int oy0, ox0;       // image coordinates of the output tile's origin
+  int th, tw;         // output tile extent
+  int H, W;           // frame extent
+};
+
+__device__ __forceinline__ int pad_word(int z) {
+  unsigned b = static_cast<unsigned>(z) & 0xffu;
+  return static_cast<int>(b | (b << 8) | (b << 16) | (b << 24));
+}
+
+__device__ __forceinline__ float as_f32(int bits) { return __int_as_float(bits); }
+
+// Exact int <-> float32 conversions on the full-rate pipes (the conversion
+// instructions run at a quarter of the rate): kMagic = 1.5 * 2^23 has ulp 1,
+// so for |v| < 2^22 the bits of kMagic + v are kMagicBits + v, and a float
+// add of kMagic rounds to an integer, half to even, as rintf does.
+constexpr float kMagic = 12582912.f;
+constexpr int kMagicBits = 0x4B400000;
+
+// The float of (v - kMagicBits), for the int v - kMagicBits in (-2^22, 2^22).
+__device__ __forceinline__ float magic_to_f32(int v) {
+  return __fsub_rn(__int_as_float(v), kMagic);
+}
+
+// clip(rintf(v), -128, 127) in the low byte of the result, for any finite v
+// (rounding is monotone, so clamping kMagic + v to kMagic -+ 128 / 127
+// clamps the rounded value).
+__device__ __forceinline__ int q8_bits(float v) {
+  return __float_as_int(fminf(fmaxf(__fadd_rn(v, kMagic), kMagic - 128.f), kMagic + 127.f));
+}
+
+// Bytes 0 of four words into one word.
+__device__ __forceinline__ int pack_bytes(int b0, int b1, int b2, int b3) {
+  return static_cast<int>(__byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
+                                      0x5410));
+}
+
+__host__ __device__ inline int ring(int layer, int L) {
+  // sum of k/2 over convs layer..L-1 for kernel sizes (5, 3, ..., 3, 5)
+  if (layer >= L) return 0;
+  if (layer == 0) return L + 2;
+  return L + 1 - layer;
+}
+
+__host__ __device__ inline int extent(int layer, int L, int th, int tw) {
+  const int r = ring(layer, L);
+  return (th + 2 * r) * (tw + 2 * r);
+}
+
+}  // namespace

@@ -1,0 +1,706 @@
+// The corrected datapath's fused whole-network kernel for Hopper (sm_90a),
+// on wgmma: one thread block runs every conv of the collapsed network over
+// one output tile at a time, with every intermediate in shared memory.
+//
+// Replaces the XLA lowering of the JAX package's corrected deployment modes:
+//   sesr_corrected_net <- sesr_tpu/ops/packed.py _packed_exact_impl(corrected=True),
+//                         behind packed_hybrid_forward and
+//                         packed_exact_forward(corrected=True)
+// Its plain version is sesr_tpu_torch/quant/integer.py integer_forward(
+// corrected=True), with fast_layers in the hybrid mode: per layer, either one
+// pass per PE, each PE's partial conv(q - z_eff) clamped to 18 bits before
+// the four are added (the layers the caller flags: the hybrid mode's
+// unstamped ones, the PE-exact mode's where convert.py cannot rule that
+// clamp out), or one pass over all channels, clamped to 20 bits where that
+// clamp can fire; then the clipped bias, the float32 requantization, ReLU,
+// the int16 residual shortcut and the int8 output.
+//
+// What bounds it on this card: operations. nr needs 9,312 int8 MACs per
+// pixel against 6 bytes of device traffic, far above the H100's ratio of
+// int8 tensor-core rate to memory rate. The design:
+//   - every conv is an implicit GEMM on wgmma (m64nNk32 s8 x s8 -> s32, exact
+//     int32 sums), both operands read from shared memory by descriptor: no
+//     operand passes through registers. Activations lie pixel-major, 16 int8
+//     channels = 16 bytes a pixel. A layer's output is computed over rows of
+//     its input extent's width iw (the "wide" GEMM: the K - 1 columns past
+//     each output row are computed and dropped), so output row r of tap
+//     (dy, dx) reads input pixel r + dy iw + dx: for 64 consecutive rows that
+//     is 64 consecutive 16-byte pixels, a K-major A operand without swizzle
+//     (core matrices of 8 rows x 16 bytes, SBO = 128 bytes). A k32 step takes
+//     two taps: its start moves by the first tap's offset, and LBO (the
+//     distance between the two 16-byte halves of k) is the second tap's
+//     offset from the first, so the two halves' core matrices may overlap
+//     (16 bytes apart for horizontal neighbours). half_off gives both;
+//   - layer 0 reads <= 4 channels a pixel. Its input is widened once per
+//     tile: entry p holds the words of pixels p .. p + 3, so one 16-byte
+//     half is four horizontal taps and a step is one kernel row (taps 0-3,
+//     then 4-7 at LBO = 64 bytes, 5-7 against zero weights): 5 steps for the
+//     5x5 conv, where 25 taps of 4 bytes need 100 of its 160 bytes of k;
+//   - each PE's partial in its own accumulator columns: a split layer is one
+//     pass with N = 4 x OC columns (layer 0: in_ch x 16), column (p, o)
+//     holding W[o] on PE p's channel bytes and zero elsewhere
+//     (convert.py _wgmma_b_words). A is read once, not once per PE; the
+//     epilogue adds -z_eff * sum(W_p) (pe_zero_terms) to each group, clamps
+//     it to 18 bits and adds the four. The tensor cores do 4x the MACs on a
+//     split layer, which they have room for;
+//   - every layer's B (K-major, no swizzle: b_byte) and the parameter block
+//     are loaded into shared memory once per block; the grid is persistent
+//     (one block per SM, the blocks walk the tiles), so that happens once
+//     per SM;
+//   - four warpgroups take a layer's 64-row m-tiles in turn, each m-tile
+//     one commit group of wgmmas and then its epilogue on the CUDA cores:
+//     one warpgroup's epilogue runs while the others' wgmmas do. Everything
+//     is inlined into the kernel (ptxas serializes every wgmma of a pipeline
+//     that crosses a function call), and the warpgroup's index is made
+//     uniform with a shuffle. A second accumulator set per warpgroup, to
+//     overlap its own epilogue with its next m-tile, was serialized by
+//     ptxas too (the epilogue's divergent paths; without them, the
+//     registers: 512 threads leave 128 each), and was slower. The epilogue
+//     has no branch that depends on the row (stores that are not made go
+//     to a scratch word), which ptxas schedules better;
+//   - the epilogue writes the next layer's pixel row directly: B's columns
+//     are permuted (col_chan) so that the four values a thread holds for one
+//     row (acc_row / acc_col) are channels 4 tq .. 4 tq + 3 of that pixel,
+//     one 32-bit store, eight rows of a warp 128 contiguous bytes. Positions
+//     outside the image get z_eff in every byte, so conv(q, pads = z_eff) =
+//     conv(q - z_eff) + z_eff * sum(W): a one-pass layer subtracts z_eff *
+//     sum(W), a split layer's PE p z_eff * sum(W_p). This needs -128 <= z_eff
+//     <= 127, which the host checks. Generic stores are read by wgmma
+//     through the async proxy: fence.proxy.async and a barrier between
+//     layers;
+//   - the residual shortcut round(s) (conv 0's ReLU output, 0 <= round(s)
+//     <= 32767, convert.py shortcut_bound) is kept as int16, 32 bytes a
+//     pixel of the last conv's input extent.
+// Shared memory per block (smem_plan): the parameter block, every layer's
+// B (23,552 bytes for nr hybrid), two ping-pong activation buffers (16 bytes
+// a pixel, with the rows the last m-tile reads past the extent), the
+// shortcut and a 16-byte scratch word: 214,160 bytes for nr at 32x64.
+// What is left: the epilogue. Without it the kernel takes about a sixth of
+// its time on nr's frame, without the wgmmas about three quarters (python
+// -m sesr_tpu_torch.corrected_ab --variants no_epilogue,no_mma); the tensor
+// cores run 3.1x the network's MACs (halo, wide rows, padded k, 4 x N on
+// split layers) and are still mostly idle.
+//
+// Numerics: requantization is (y * m) * 2^-n, two float32 multiplies in the
+// plain version; the kernel rounds y * (m * 2^-n) once, which is the same
+// float whenever every product is a normal float (convert.py refuses
+// exponents where it might not be). Rounding is half-to-even, every other
+// float op is one __fadd_rn or __fmul_rn in the order of the plain version,
+// built with -fmad=false, and int <-> float conversions go through kMagic
+// (sesr_common.cuh).
+//
+// Built with route (b): nvcc into a shared library with a plain C interface,
+// loaded with ctypes (sesr_tpu_torch/ops/_build.py). The entry point returns
+// cudaGetLastError() after its launch. tests/test_torch_corrected.py models
+// the descriptors' addressing, B's layout and the accumulator map in numpy,
+// reading half_off, steps_of, b_byte, col_chan, acc_row and acc_col from this
+// file.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sesr_common.cuh"
+
+namespace {
+
+constexpr int kWarpgroups = 4;              // a block's warpgroups, all of them consumers
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kRows = 64;                   // wgmma's M: output rows of an m-tile
+constexpr int kPix = 16;                    // bytes of one pixel: 16 int8 channels
+constexpr int kSboA = 128;                  // A: bytes between core matrices along M (8 pixels)
+constexpr int kLboB = 128;                  // B: bytes between the two 16-byte halves of k
+constexpr int kSboB = 256;                  // B: bytes between 8-column core matrices
+constexpr int kAlign = 128;                 // alignment of each shared-memory region
+constexpr int kScratch = 16;                // bytes that the epilogue's stores not made go to
+constexpr int kSmemLimit = 232448;          // a block's shared memory on the H100
+constexpr int kLoadBatch = 8;               // input pixels per thread in flight
+
+// k32 steps of a K x K layer: one per kernel row for layer 0 (its pixels
+// widened to four horizontal neighbours), else two taps a step.
+__host__ __device__ constexpr int steps_of(int K, int wide) { return wide * K + (1 - wide) * ((K * K + 1) / 2); }
+
+// Pixel offset, from the output row it serves, of half h (k bytes 16 h ..
+// 16 h + 15) of step s of a K x K layer over an input of width iw. Layer 0
+// (wide): row s, columns 4 h .. 4 h + 3; a 16-channel layer: tap 2 s + h (a
+// pad tap past K * K reads one pixel past tap K * K - 1, against zero
+// weights).
+__host__ __device__ __forceinline__ int half_off(int s, int h, int K, int iw, int wide) { return wide * (s * iw + 4 * h) + (1 - wide) * ((2 * s + h - (2 * s + h >= K * K)) / K * iw + (2 * s + h - (2 * s + h >= K * K)) % K + (2 * s + h >= K * K)); }
+
+// Byte of (step s, GEMM column n, k byte kb) in a layer's B of N columns:
+// K-major, no swizzle, core matrices of 8 columns x 16 bytes of k.
+__host__ __device__ __forceinline__ int b_byte(int s, int n, int kb, int N) { return s * N * 32 + (n >> 3) * kSboB + (kb >> 4) * kLboB + (n & 7) * 16 + (kb & 15); }
+
+// Output channel of column n (0 .. 15) of a PE group: the last layer's in
+// order; a hidden layer's permuted, so that the four a thread holds for one
+// row (columns 8 j + 2 tq + e, j and e in {0, 1}) are channels 4 tq + 2 j + e.
+__host__ __device__ __forceinline__ int col_chan(int n, int last) { return last * n + (1 - last) * (((n >> 1) & 3) * 4 + (n >> 3) * 2 + (n & 1)); }
+
+// wgmma's m64nN accumulator fragment: register 4 j + i of lane `lane` of warp
+// `warp` (of the warpgroup) holds C[acc_row][acc_col].
+__host__ __device__ __forceinline__ int acc_row(int warp, int lane, int i) { return 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1); }
+__host__ __device__ __forceinline__ int acc_col(int j, int lane, int i) { return 8 * j + 2 * (lane & 3) + (i & 1); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int G>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(G) : "memory");
+}
+// keeps the compiler from moving accumulator registers while wgmma owns them
+template <int R>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// generic-proxy stores to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#define D4(i) "+r"(d[(i)]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3])
+
+// d (+)= A (64 x 32 bytes, desc a) * B (32 bytes x N, desc b), s8 x s8 ->
+// s32; d is overwritten where acc is 0.
+template <int N>
+__device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 48 || N == 64, "the layers use these widths");
+  if constexpr (N == 8) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+                 : D4(0)
+                 : "l"(a), "l"(b), "r"(acc));
+  } else if constexpr (N == 16) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+                 : D4(0), D4(4)
+                 : "l"(a), "l"(b), "r"(acc));
+  } else if constexpr (N == 32) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+                 "%16, %17, p;\n}\n"
+                 : D4(0), D4(4), D4(8), D4(12)
+                 : "l"(a), "l"(b), "r"(acc));
+  } else if constexpr (N == 48) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p;\n}\n"
+                 : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20)
+                 : "l"(a), "l"(b), "r"(acc));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+                 "%31}, %32, %33, p;\n}\n"
+                 : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28)
+                 : "l"(a), "l"(b), "r"(acc));
+  }
+}
+
+#undef D4
+
+__host__ __device__ inline int round_up(int v, int a) { return (v + a - 1) / a * a; }
+
+// Bytes of conv `layer`'s B: steps x N columns x 32 bytes of k, N = the
+// PE groups (split: in_ch for layer 0, else 4; one pass: 1) x 16 columns (8
+// for a last layer of <= 8 channels).
+__host__ __device__ inline int layer_b_bytes(int layer, int L, int in_ch, int ocl, int split) {
+  const int sp = (split >> layer) & 1;
+  if (layer == 0) return steps_of(5, 1) * 32 * kC * (sp ? in_ch : 1);
+  const int last = layer == L - 1;
+  const int ocp = last && ocl <= 8 ? 8 : kC;
+  return steps_of(last ? 5 : 3, 0) * 32 * ocp * (sp ? 4 : 1);
+}
+
+// Pixels of conv `layer`'s input buffer that its GEMM reads: the rows of its
+// last m-tile at its last step's second half, past the input extent.
+__host__ __device__ inline int layer_cap(int layer, int L, int th, int tw) {
+  const int r = ring(layer, L), ih = th + 2 * r, iw = tw + 2 * r;
+  const int K = (layer == 0 || layer == L - 1) ? 5 : 3, wide = layer == 0;
+  return round_up((ih - K + 1) * iw, kRows) + half_off(steps_of(K, wide) - 1, 1, K, iw, wide);
+}
+
+struct Plan {
+  int w_at, w_bytes;   // every layer's B
+  int x_at, y_at;      // the ping-pong buffers: layer i reads x (even i) or y (odd i)
+  int sc_at;           // the shortcut
+  int scratch_at;      // kScratch bytes
+  int bytes;
+};
+
+// Shared memory of one block: the parameter block (P_ALL words), every
+// layer's B, the buffers (y also holds layer 0's input as one word a pixel
+// while it is widened into x), the shortcut and the scratch word.
+__host__ __device__ inline Plan smem_plan(int split, int L, int in_ch, int ocl, int th, int tw) {
+  Plan p;
+  p.w_at = round_up(P_ALL * 4, kAlign);
+  p.w_bytes = 0;
+  for (int i = 0; i < L; ++i) p.w_bytes += layer_b_bytes(i, L, in_ch, ocl, split);
+  int x = 0, y = extent(0, L, th, tw) * 4;
+  for (int i = 0; i < L; ++i) {
+    const int b = layer_cap(i, L, th, tw) * kPix;
+    int& dst = (i % 2) ? y : x;
+    dst = dst > b ? dst : b;
+  }
+  const int r_sc = ring(L - 1, L);
+  p.x_at = round_up(p.w_at + p.w_bytes, kAlign);
+  p.y_at = round_up(p.x_at + x, kAlign);
+  p.sc_at = round_up(p.y_at + y, kAlign);
+  p.scratch_at = p.sc_at + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * kC;
+  p.bytes = p.scratch_at + kScratch;
+  return p;
+}
+
+// What every layer of one tile shares.
+struct Net {
+  Tile t;
+  int frame, L, oc;    // oc: the last conv's output channels
+  const int* prm;      // the parameter block, in shared memory
+  uint2* sc;           // the shortcut: round(s) as int16, a pixel's 16 channels in 4 uint2
+  int* scratch;        // kScratch bytes that the epilogue's stores not made go to
+  int sc_w, sc_h;      // its extent: the last conv's input extent
+  int8_t* out;         // (n, H, W, OC) int8
+};
+
+// One conv layer.
+struct Layer {
+  const uint8_t* in;   // input extent ih x iw, kPix bytes a pixel (layer 0: widened)
+  int ih, iw;
+  const uint8_t* w;    // B (b_byte)
+  int* next;           // FIRST / MID: the next layer's input, 4 words a pixel
+  int layer;
+};
+
+// A thread's view of conv `ly.layer` in one form: NG PE groups of columns,
+// each PE's partial clamped to 18 bits (SPLIT), or one group, clamped to 20
+// bits where CLAMP. Everything a warpgroup's m-tile needs is held here, and
+// issue / epilogue are inlined, so the accumulators stay in registers.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP>
+struct Form {
+  static constexpr int WIDE = KIND == FIRST;
+  static constexpr int J = OCP / 8;                              // 8-column tiles of a group
+  static constexpr int N = NG * OCP;
+  static constexpr int R = N / 2;                                // accumulator registers
+  static constexpr int S = steps_of(K, WIDE);
+  static constexpr int V = 2 * J;                                // values a thread holds per row and group
+
+  int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, frame, L;
+  unsigned iw_magic;
+  float rq_s, rq_c;
+  float z_next, res_s;   // the next layer's domain-in zero (z_out for LAST); s_1 / s_{L-1}
+  int pad_next;          // a pad word of the next layer's input
+  bool prelast;
+  int* next;
+  uint2* sc;
+  int* scratch;          // where a store that is not made goes
+  int sc_w, sc_h, sc_off;
+  int8_t* out;
+  int base[V], lo[V], hi[V], start[NG][V];
+  uint32_t a_lo[S], b_lo;
+
+  __device__ __forceinline__ Form(const Layer& ly, const Net& net) {
+    const int* prm = net.prm;
+    const int tid = threadIdx.x & 127;
+    warp = tid >> 5;
+    lane = tid & 31;
+    tq = lane & 3;
+    layer = ly.layer;
+    oc = KIND == LAST ? net.oc : kC;
+    iw = ly.iw;
+    oh = ly.ih - K + 1;
+    ow = iw - K + 1;
+    const int r_out = (oh - net.t.th) / 2;              // ring of this output frame
+    oy0 = net.t.oy0 - r_out;
+    ox0 = net.t.ox0 - r_out;
+    H = net.t.H;
+    W = net.t.W;
+    frame = net.frame;
+    L = net.L;
+    iw_magic = 0xffffffffu / iw + 1;                    // r / iw == umulhi(r, iw_magic)
+    acc_hi = prm[P_ACC_HI];
+    const int add_hi = prm[P_ADD_HI];
+    // (y * m) * 2^-n == y * (m * 2^-n) in float32 (see the note); with y
+    // read as the float kMagic + y, one FFMA: fl(a * s - kMagic * s)
+    rq_s = __fmul_rn(as_f32(prm[P_RQM + layer]), as_f32(prm[P_RQP + layer]));
+    rq_c = -kMagic * rq_s;
+    prelast = KIND == MID && layer == L - 2;
+    z_next = as_f32(prm[KIND == LAST ? P_ZOUT : P_ZIN + layer + 1]);
+    res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
+    pad_next = KIND == LAST ? 0 : pad_word(prm[P_ZEFF + layer + 1]);
+    next = ly.next;
+    sc = net.sc;
+    scratch = net.scratch;
+    sc_off = ring(1, L) - ring(L - 1, L);
+    sc_w = net.sc_w;
+    sc_h = net.sc_h;
+    out = net.out;
+    // value v = 2 j + e of a group is column acc_col(j, lane, e): a row's sum
+    // ends as kMagicBits + y_int. A one-pass layer adds base = bias +
+    // kMagicBits - z_eff * sum(W) (its 20-bit clamp, where it runs, shifted
+    // by bias + kMagicBits); a split layer adds bias + kMagicBits to the sum
+    // of its PEs' clamped partials, PE p's started from -z_eff * sum(W_p)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int o = col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST);
+      const bool ok = o < oc;
+      const int b = (ok ? prm[P_BIAS + layer * kC + o] : 0) + kMagicBits;
+      base[v] = b - (ok ? prm[P_ZC + layer * kC + o] : 0);
+      lo[v] = b - add_hi - 1;
+      hi[v] = b + add_hi;
+#pragma unroll
+      for (int p = 0; p < NG; ++p) start[p][v] = ok ? -prm[P_ZCP + (layer * 4 + p) * kC + o] : 0;
+    }
+    // descriptors: A's start and LBO per step (m-tile 0), B's start
+    const uint32_t in_s = smem_u32(ly.in);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int o0 = half_off(s, 0, K, iw, WIDE), o1 = half_off(s, 1, K, iw, WIDE);
+      a_lo[s] = (((in_s + o0 * kPix) & 0x3FFFF) >> 4) |
+                ((static_cast<uint32_t>((o1 - o0) * kPix) >> 4) << 16);
+    }
+    b_lo = ((smem_u32(ly.w) & 0x3FFFF) >> 4) | ((kLboB >> 4) << 16);
+  }
+
+  // m-tile mt's wgmmas, one commit group
+  __device__ __forceinline__ void issue(uint32_t (&d)[R], int mt) const {
+    constexpr uint64_t a_hi = static_cast<uint64_t>(kSboA >> 4) << 32;
+    constexpr uint64_t b_hi = static_cast<uint64_t>(kSboB >> 4) << 32;
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      wgmma<N>(d, a_hi | (a_lo[s] + mt * (kRows * kPix >> 4)),
+               b_hi | (b_lo + (b_byte(s, 0, 0, N) >> 4)), s);
+    wgmma_commit();
+  }
+
+  // m-tile mt's rows of this thread: the next layer's input (FIRST, MID),
+  // the shortcut (FIRST) or the int8 output (LAST). Without a branch that
+  // depends on the row, which ptxas schedules better: a store that is not
+  // made goes to the block's scratch word.
+  __device__ __forceinline__ void epilogue(const uint32_t (&d)[R], int mt) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * kRows + acc_row(warp, lane, 2 * h);
+      const int y = static_cast<int>(__umulhi(static_cast<unsigned>(r), iw_magic));
+      const int x = r - y * iw;
+      const bool kept = y < oh && x < ow;          // else past the extent, or a wide row's tail
+      const int gy = oy0 + y, gx = ox0 + x;
+      const bool inside = kept && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      // (y_int * m) * 2^-n
+      float hq[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int i = 2 * h + (v & 1);
+        int yi;
+        if constexpr (SPLIT) {
+          yi = base[v];
+#pragma unroll
+          for (int p = 0; p < NG; ++p)
+            yi += min(max(static_cast<int>(d[4 * (p * J + (v >> 1)) + i]) + start[p][v], -acc_hi - 1),
+                      acc_hi);
+        } else {
+          yi = static_cast<int>(d[4 * (v >> 1) + i]) + base[v];
+          if constexpr (CLAMP) yi = min(max(yi, lo[v]), hi[v]);
+        }
+        hq[v] = __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
+      }
+      if constexpr (KIND == LAST) {
+        int8_t* dst = out + ((static_cast<size_t>(frame) * H + gy) * W + gx) * oc;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int o = 8 * j + 2 * tq;
+          const int v0 = q8_bits(__fadd_rn(hq[2 * j], z_next));
+          const int v1 = q8_bits(__fadd_rn(hq[2 * j + 1], z_next));
+          if ((oc & 1) == 0) {
+            uint16_t* p = inside && o < oc ? reinterpret_cast<uint16_t*>(dst + o)
+                                           : reinterpret_cast<uint16_t*>(scratch);
+            *p = static_cast<uint16_t>(__byte_perm(v0, v1, 0x0040));
+          } else {
+            int8_t* p0 = inside && o < oc ? dst + o : reinterpret_cast<int8_t*>(scratch);
+            int8_t* p1 = inside && o + 1 < oc ? dst + o + 1 : reinterpret_cast<int8_t*>(scratch);
+            *p0 = static_cast<int8_t>(v0);
+            *p1 = static_cast<int8_t>(v1);
+          }
+        }
+      } else {
+        int v[4];
+        if (KIND == FIRST || prelast) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
+        }
+        if (prelast) {
+          // the last conv's domain-in: the integer residual add, rescaled
+          // by s_1 / s_{L-1}, into domain L-1 (this frame is the shortcut's)
+          const uint2 s2 = sc[kept ? (y * sc_w + x) * 4 + tq : tq];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int s = static_cast<int16_t>((j < 2 ? s2.x : s2.y) >> (16 * (j & 1)));
+            const float tr = __fadd_rn(magic_to_f32(s + kMagicBits), rintf(hq[j]));
+            v[j] = q8_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next));
+          }
+        } else if (KIND == FIRST) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
+        } else {
+          // ReLU folded into the low bound: fl(max(h, 0) + z) = max(fl(h + z), z)
+          // and rounding is monotone, so clip(rint(.), max(z, -128), 127)
+          const float lo_q = kMagic + fmaxf(z_next, -128.f);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = __float_as_int(
+                fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo_q), kMagic + 127.f));
+        }
+        // this thread's word of the pixel, channels 4 tq .. 4 tq + 3; z_eff
+        // in every byte outside the frame
+        int* word = kept ? next + (y * ow + x) * 4 + tq : scratch;
+        *word = inside ? pack_bytes(v[0], v[1], v[2], v[3]) : pad_next;
+        if (KIND == FIRST) {
+          // the residual shortcut, as the last conv's domain-in consumes it:
+          // round(s) as int16 (0 <= round(s) <= 32767, convert.py
+          // shortcut_bound), the low half of kMagicBits + round(s); the
+          // last conv never reads it outside the frame
+          const int sy = y - sc_off, sx = x - sc_off;
+          const bool in_sc = kept && sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w;
+          int b[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = __float_as_int(__fadd_rn(hq[j], kMagic));
+          uint2* sp = in_sc ? sc + (sy * sc_w + sx) * 4 + tq : reinterpret_cast<uint2*>(scratch);
+          *sp = make_uint2(__byte_perm(b[0], b[1], 0x5410), __byte_perm(b[2], b[3], 0x5410));
+        }
+      }
+    }
+  }
+};
+
+// Conv `ly.layer` over its output extent (ih - K + 1) x (iw - K + 1) in the
+// form of Form<...>. The warpgroup takes m-tiles wgi, wgi + kWarpgroups, ...,
+// each one commit group of wgmmas, then its epilogue: one warpgroup's
+// epilogue runs while the others' wgmmas do. (Two or four m-tiles a group,
+// their epilogues after it, need more registers than 128 a thread beside
+// the epilogue's, and ptxas serializes the wgmmas.) Inlined into the kernel:
+// ptxas serializes every wgmma of a pipeline that crosses a function call.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP>
+__device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP>;
+  const F f(ly, net);
+  const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
+  // the warpgroup's index, uniform to the compiler as well
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  uint32_t d[F::R];
+  for (int mt = wgi; mt < nmt; mt += kWarpgroups) {
+    f.issue(d, mt);
+    wgmma_wait<0>();
+    fence_acc(d);
+    f.epilogue(d, mt);
+  }
+}
+
+// conv `ly.layer` in its form: one pass per PE where its split bit is set
+// (layer 0: one group per input channel), else one pass, clamped to 20 bits
+// where its clamp bit is set; OCP columns a group (8 for a last layer of
+// <= 8 channels, else 16).
+template <Kind KIND, int K, int OCP>
+__device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
+  const int* prm = net.prm;
+  if ((prm[P_SPLIT] >> ly.layer) & 1) {
+    if constexpr (KIND == FIRST) {
+      switch (in_ch) {
+        case 1: conv_layer<KIND, K, OCP, 1, true, false>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, false>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, false>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, false>(ly, net); return;
+      }
+    } else {
+      conv_layer<KIND, K, OCP, 4, true, false>(ly, net);
+      return;
+    }
+  }
+  if ((prm[P_CLAMP] >> ly.layer) & 1) {
+    conv_layer<KIND, K, OCP, 1, false, true>(ly, net);
+    return;
+  }
+  conv_layer<KIND, K, OCP, 1, false, false>(ly, net);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                      const int* __restrict__ weights, const int* __restrict__ params,
+                      int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
+                      int split) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Plan pl = smem_plan(split, L, in_ch, out_ch, th, tw);
+  int* prm = reinterpret_cast<int*>(smem);
+  uint8_t* wsm = smem + pl.w_at;
+  uint8_t* bx = smem + pl.x_at;
+  uint8_t* by = smem + pl.y_at;
+
+  // the parameter block and every layer's B, once per block
+  for (int i = threadIdx.x; i < P_ALL; i += kThreads) prm[i] = __ldg(params + i);
+  const int4* w4 = reinterpret_cast<const int4*>(weights);
+  for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
+    reinterpret_cast<int4*>(wsm)[i] = __ldg(w4 + i);
+  fence_proxy_async();
+  __syncthreads();
+
+  const int r0 = ring(0, L), r_sc = ring(L - 1, L);
+  const int ih0 = th + 2 * r0, iw0 = tw + 2 * r0, n0 = ih0 * iw0;
+  const int cap0 = layer_cap(0, L, th, tw);
+  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + th - 1) / th;
+  const int per_frame = tiles_x * tiles_y;
+  const int pad0 = pad_word(prm[P_ZEFF]);
+  Net net;
+  net.t.th = th;
+  net.t.tw = tw;
+  net.t.H = H;
+  net.t.W = W;
+  net.L = L;
+  net.oc = out_ch;
+  net.prm = prm;
+  net.sc = reinterpret_cast<uint2*>(smem + pl.sc_at);
+  net.scratch = reinterpret_cast<int*>(smem + pl.scratch_at);
+  net.sc_w = tw + 2 * r_sc;
+  net.sc_h = th + 2 * r_sc;
+  net.out = out;
+
+  // a persistent grid: block b takes tiles b, b + gridDim.x, ...
+  for (int tile = blockIdx.x; tile < n * per_frame; tile += gridDim.x) {
+    net.frame = tile / per_frame;
+    const int rem = tile - net.frame * per_frame;
+    net.t.oy0 = (rem / tiles_x) * th;
+    net.t.ox0 = (rem % tiles_x) * tw;
+
+    // layer 0's input, one word a pixel (channel c in byte c; z_eff outside
+    // the frame), into y; kLoadBatch pixels per thread at a time, their
+    // loads issued together
+    int* raw = reinterpret_cast<int*>(by);
+    for (int i0 = threadIdx.x; i0 < n0; i0 += kLoadBatch * kThreads) {
+      int v[kLoadBatch];
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        const int yy = i / iw0, xx = i - yy * iw0;
+        const int gy = net.t.oy0 - r0 + yy, gx = net.t.ox0 - r0 + xx;
+        v[u] = pad0;
+        if (i < n0 && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const int8_t* p = x + ((static_cast<size_t>(net.frame) * H + gy) * W + gx) * in_ch;
+          v[u] = 0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < in_ch) v[u] |= (static_cast<int>(__ldg(p + c)) & 0xff) << (8 * c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u)
+        if (i0 + u * kThreads < n0) raw[i0 + u * kThreads] = v[u];
+    }
+    __syncthreads();
+    // widened into x: entry p holds the words of pixels p .. p + 3, so that
+    // a 16-byte half of k is four horizontal taps (entries past the extent
+    // repeat its last pixel: only rows that are dropped read them)
+    int4* wide = reinterpret_cast<int4*>(bx);
+    for (int p = threadIdx.x; p < cap0; p += kThreads)
+      wide[p] = make_int4(raw[min(p, n0 - 1)], raw[min(p + 1, n0 - 1)], raw[min(p + 2, n0 - 1)],
+                          raw[min(p + 3, n0 - 1)]);
+    fence_proxy_async();
+    __syncthreads();
+
+    uint8_t* cur = bx;
+    uint8_t* nxt = by;
+    for (int i = 0; i < L; ++i) {
+      Layer ly;
+      const int r = ring(i, L);
+      ly.in = cur;
+      ly.ih = th + 2 * r;
+      ly.iw = tw + 2 * r;
+      ly.w = wsm + 4 * prm[P_WOFF + i];
+      ly.next = reinterpret_cast<int*>(nxt);
+      ly.layer = i;
+      if (i == 0)
+        conv_form<FIRST, 5, kC>(ly, net, in_ch);
+      else if (i < L - 1)
+        conv_form<MID, 3, kC>(ly, net, in_ch);
+      else if (out_ch <= 8)
+        conv_form<LAST, 5, 8>(ly, net, in_ch);
+      else
+        conv_form<LAST, 5, kC>(ly, net, in_ch);
+      fence_proxy_async();
+      __syncthreads();
+      uint8_t* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  }
+}
+
+bool takes(int L, int in_ch, int out_ch, int th, int tw, int split) {
+  return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
+         (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
+         tw <= 1024 && (split >> L) == 0 &&
+         smem_plan(split, L, in_ch, out_ch, th, tw).bytes <= kSmemLimit;
+}
+
+cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
+                   int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
+                   cudaStream_t stream) {
+  const int bytes = smem_plan(split, L, in_ch, out_ch, th, tw).bytes;
+  cudaError_t err = cudaFuncSetAttribute(sesr_corrected_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sesr_corrected_kernel, kThreads,
+                                                      bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = static_cast<long long>(n) * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+  const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
+  sesr_corrected_kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, n, h, wd, L, in_ch,
+                                                           out_ch, th, tw, split);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: int8 (n, h, w, in_ch) quantized input; out: int8 (n, h, w, out_ch);
+// weights / params: int32 device arrays built by sesr_tpu_torch/convert.py
+// (weights 16-byte aligned); split: bit i set where conv i runs one pass per
+// PE, the params' pe_split word (B's size depends on it).
+int sesr_corrected_net(const void* x, void* out, const void* weights, const void* params,
+                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
+                       int tile_h, int tile_w, int split, void* stream) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split) ||
+      (reinterpret_cast<uintptr_t>(weights) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(static_cast<const int8_t*>(x), static_cast<int8_t*>(out),
+                                 static_cast<const int*>(weights), static_cast<const int*>(params),
+                                 n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// Shared memory of one block of sesr_corrected_net in bytes, or 0 where it
+// refuses the network, the tile or the split mask.
+int sesr_corrected_smem(int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split)) return 0;
+  return smem_plan(split, num_layers, in_ch, out_ch, tile_h, tile_w).bytes;
+}
+
+const char* sesr_corrected_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -4,19 +4,15 @@
 // int8 read of the input tile (with its halo), the weights, and one int8
 // write of the output tile.
 //
-// Replaces the two Pallas TPU kernels of the JAX package, and the XLA
-// lowering of its other two deployment modes:
+// Replaces the two Pallas TPU kernels of the JAX package:
 //   sesr_pe_exact_net  <- sesr_tpu/ops/pallas_pipeline.py build_pallas_forward
 //                         (the reference-exact 4-PE datapath, K1)
 //   sesr_fast_net      <- sesr_tpu/ops/pallas_packed.py build_pallas_packed_forward
 //                         (the certified fast deployment datapath, K2)
-//   sesr_corrected_net <- sesr_tpu/ops/packed.py _packed_exact_impl(corrected=True),
-//                         behind packed_hybrid_forward and
-//                         packed_exact_forward(corrected=True) (the corrected
-//                         datapath, one pass per PE on the layers the caller flags)
 // Their plain version is sesr_tpu_torch/quant/integer.py integer_forward
-// (corrected=False / compute="fast" with corrected=True / corrected=True,
-// with fast_layers in the hybrid mode).
+// (corrected=False / compute="fast" with corrected=True). The corrected
+// datapath's kernel (the hybrid and corrected PE-exact modes) is
+// sesr_corrected.cu, on wgmma.
 //
 // What bounds it on this card: operations. sr_x2 needs 12,912 int8 MACs per
 // input pixel against 15 bytes of device traffic, far above the H100's
@@ -32,13 +28,9 @@
 //     proves from the weights that no PE's 18-bit clamp can fire (then the
 //     sum of the clamped PE sums is the full sum). One pass per PE, k =
 //     (tap, byte of word p), 8 taps per chunk, each PE's sum clamped to 18
-//     bits before adding: K1 on the other layers, and the corrected kernel
-//     on the layers its caller flags (the hybrid mode: those without a
-//     certificate stamp; the PE-exact mode: those where convert.py cannot
-//     rule the clamp of conv(q - z_eff) out). Layer 0 (one word of <= 4
+//     bits before adding: K1 on the other layers. Layer 0 (one word of <= 4
 //     channels) takes 8 taps per chunk, once per input channel when split.
-//     The 20-bit clamp of a one-pass layer of the corrected datapath runs
-//     only where it can fire; a split layer's never can;
+//     K2's 20-bit clamp runs only where it can fire;
 //   - activations stay int8 from layer to layer, packed four channels to a
 //     32-bit word: word p of a 16-channel pixel holds channels p, p+4, p+8,
 //     p+12 (PE p's). An A register is one such word, loaded from a planar
@@ -50,18 +42,14 @@
 //     the image hold z_eff instead of 0, so conv(q, pads = z_eff) equals
 //     conv(q - z_eff) + z_eff * sum(W). Per PE that sum is exactly the
 //     reference's zero-restored partial (K1); the corrected datapath starts
-//     its accumulator from -z_eff * sum(W) (K2, and the corrected kernel's
-//     one-pass layers), or each PE's from -z_eff * sum(W_p) before its 18-bit
-//     clamp (the corrected kernel's split layers). This needs -128 <= z_eff <=
+//     its accumulator from -z_eff * sum(W) (K2). This needs -128 <= z_eff <=
 //     127, which the host checks. The accumulator also starts from the bias
 //     plus kMagicBits, so requantization is one FFMA on its bits;
 //   - extents shrink by k/2 per layer; a layer's weights are held in
 //     registers over its whole extent, and the next layer's weights are
 //     staged with cp.async while the current layer computes; the residual
-//     shortcut is kept as int8 (K1: clip(round(s - 128))) or int16 (the
-//     corrected datapath: round(s), its range proven by convert.py) so that
-//     32x32 tiles fit. The corrected kernel sizes its weight buffers by the
-//     layers it splits (the split mask is a launch argument).
+//     shortcut is kept as int8 (K1: clip(round(s - 128))) or int16 (K2:
+//     round(s), its range proven by convert.py) so that 32x32 tiles fit.
 // What is left: the CUDA-core epilogue (requantization and the int8 clamp of
 // every value, half of it on the half-rate ALU pipe) takes more of a layer's
 // time than its MMAs and loads; the mma.sync forms reach the tensor cores
@@ -85,79 +73,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sesr_common.cuh"
+
 namespace {
 
-constexpr int kC = 16;          // hidden width of the network
-constexpr int kMaxL = 8;        // deepest supported network (nrdm_6)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLoadBatch = 9;   // input pixels per thread in flight: a 32x32 tile's 46x46 in one round
 
-// Layout of the int32 parameter block (kept in sync with
-// sesr_tpu_torch/convert.py PARAM_LAYOUT).
-constexpr int P_WOFF = 0;                 // [kMaxL] weight word offset per layer
-constexpr int P_ZEFF = 8;                 // [kMaxL] pad value (z_eff) of conv i's input
-constexpr int P_ZIN = 16;                 // [kMaxL] f32 bits: domain-in zero of conv i
-constexpr int P_RQM = 24;                 // [kMaxL] f32 bits: requant mantissa of conv i
-constexpr int P_RQP = 32;                 // [kMaxL] f32 bits: 2^-n of conv i
-constexpr int P_RESM = 40;                // f32 bits: residual requant mantissa
-constexpr int P_RESP = 41;                // f32 bits: residual 2^-n
-constexpr int P_ZOUT = 42;                // f32 bits: zero of the output domain
-constexpr int P_ACC_HI = 43;              // per-PE accumulator max (18 bits)
-constexpr int P_ADD_HI = 44;              // PE adder max (20 bits)
-constexpr int P_SPLIT = 45;               // bit i: conv i runs one pass per PE (K1)
-constexpr int P_CLAMP = 46;               // bit i: conv i's 20-bit clamp can fire (K2)
-constexpr int P_BIAS = 48;                // [kMaxL][kC] bias added after the adder clamp
-constexpr int P_ZC = P_BIAS + kMaxL * kC; // [kMaxL][kC] z_eff * sum(W), subtracted before it
-constexpr int P_WORDS = P_ZC + kMaxL * kC;  // the words a block copies to shared memory
-// [kMaxL][4][kC] z_eff * sum(W_p), a split layer's per PE (the corrected
-// kernel only, read from device memory once per layer: 2 KB more shared
-// memory would cost the block its second slot on an SM at 32x32)
-constexpr int P_ZCP = P_WORDS;
-
-// The datapath of a kernel: K1's reference numerics, K2's certified one-pass
-// corrected datapath, or the corrected datapath with per-PE passes.
-enum Datapath { REFERENCE = 0, FAST = 1, CORRECTED = 2 };
-
-enum Kind { FIRST = 0, MID = 1, LAST = 2 };
-
-struct Tile {
-  int oy0, ox0;       // image coordinates of the output tile's origin
-  int th, tw;         // output tile extent
-  int H, W;           // frame extent
-};
-
-__device__ __forceinline__ int pad_word(int z) {
-  unsigned b = static_cast<unsigned>(z) & 0xffu;
-  return static_cast<int>(b | (b << 8) | (b << 16) | (b << 24));
-}
-
-__device__ __forceinline__ float as_f32(int bits) { return __int_as_float(bits); }
-
-// Exact int <-> float32 conversions on the full-rate pipes (the conversion
-// instructions run at a quarter of the rate): kMagic = 1.5 * 2^23 has ulp 1,
-// so for |v| < 2^22 the bits of kMagic + v are kMagicBits + v, and a float
-// add of kMagic rounds to an integer, half to even, as rintf does.
-constexpr float kMagic = 12582912.f;
-constexpr int kMagicBits = 0x4B400000;
-
-// The float of (v - kMagicBits), for the int v - kMagicBits in (-2^22, 2^22).
-__device__ __forceinline__ float magic_to_f32(int v) {
-  return __fsub_rn(__int_as_float(v), kMagic);
-}
-
-// clip(rintf(v), -128, 127) in the low byte of the result, for any finite v
-// (rounding is monotone, so clamping kMagic + v to kMagic -+ 128 / 127
-// clamps the rounded value).
-__device__ __forceinline__ int q8_bits(float v) {
-  return __float_as_int(fminf(fmaxf(__fadd_rn(v, kMagic), kMagic - 128.f), kMagic + 127.f));
-}
-
-// Bytes 0 of four words into one word.
-__device__ __forceinline__ int pack_bytes(int b0, int b1, int b2, int b3) {
-  return static_cast<int>(__byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
-                                      0x5410));
-}
+// The datapath of a kernel: K1's reference numerics or K2's certified
+// one-pass corrected datapath.
+enum Datapath { REFERENCE = 0, FAST = 1 };
 
 // c += A (16x32 s8, row) * B (32x8 s8, col), exact in int32.
 __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3,
@@ -200,24 +126,23 @@ __device__ __forceinline__ bool pe_split(const int* prm, int layer) {
 // Whether conv i runs one pass per PE (its B fragments are the per-PE ones)
 template <int DP>
 __device__ __forceinline__ bool split_of(const int* prm, int layer) {
-  return DP != FAST && pe_split(prm, layer);
+  return DP == REFERENCE && pe_split(prm, layer);
 }
 
 // One conv layer over the output extent eh x ew (in this layer's output
 // frame, which is the next layer's input frame), as an implicit GEMM. `in`
 // holds the input extent (eh + K - 1) x (ew + K - 1): one word per pixel
 // (FIRST) or four planes `in_ps` words apart; `w` the layer's B fragments.
-// SPLIT (K1, the corrected kernel) runs one pass per PE and clamps each PE's
-// sum to 18 bits; else one pass over all channels, which K1 takes where
-// convert.py proves that clamp cannot fire. CLAMP (the corrected datapath's
-// one-pass layers) clamps the sum to 20 bits. The epilogue writes the next
+// SPLIT (K1) runs one pass per PE and clamps each PE's sum to 18 bits; else
+// one pass over all channels, which K1 takes where convert.py proves that
+// clamp cannot fire. CLAMP (K2) clamps the sum to 20 bits. The epilogue writes the next
 // layer's input planes (FIRST, MID), the shortcut terms (FIRST) or the int8
 // output (LAST).
 template <int DP, bool SPLIT, bool CLAMP, int K, Kind KIND, int OC>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
-    const int* __restrict__ prm, const int* __restrict__ zcp, int* __restrict__ next,
+    const int* __restrict__ prm, int* __restrict__ next,
     int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
     int8_t* __restrict__ out, int frame) {
   constexpr int KK = K * K;
@@ -244,7 +169,7 @@ __device__ __forceinline__ void conv_layer(
   // accumulator (n, i) of this lane is channel chan(2n + (i & 1)): the last
   // layer's columns are in order (channels 8n + 2tq, 8n + 2tq + 1), a
   // hidden layer's permuted (channel tq + 4j, byte j of word tq). It starts
-  // from bias + kMagicBits - z_eff * sum(W) (K1 and a split layer: that term
+  // from bias + kMagicBits - z_eff * sum(W) (K1: that term
   // is 0), so it ends as kMagicBits + y_int; the 20-bit clamp of conv(q -
   // z_eff), where it runs, is shifted by the same constant.
   auto chan = [&](int j) { return KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j; };
@@ -257,17 +182,6 @@ __device__ __forceinline__ void conv_layer(
     lo_c[j] = b - add_hi - 1;
     hi_c[j] = b + add_hi;
   }
-  // a split layer's PE p starts from 0 (K1: the pads restore the zero) or
-  // from -z_eff * sum(W_p) (the corrected datapath: the PE's partial is
-  // conv(q - z_eff) when it is clamped to 18 bits)
-  auto pe_start = [&](int p, int j) {
-    if constexpr (DP == CORRECTED) {
-      const int o = chan(j);
-      return o < OC ? -__ldg(zcp + (layer * 4 + p) * kC + o) : 0;
-    } else {
-      return 0;
-    }
-  };
 
   // input offsets of this lane's k-slots tq (a0, a1) and tq + 4 (a2, a3):
   // taps 8c + tq and 8c + tq + 4 of one word (TAPS), or word tq of taps 2c
@@ -324,7 +238,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[p][n][i] = pe_start(p, 2 * n + (i & 1));
+          for (int i = 0; i < 4; ++i) acc[p][n][i] = 0;   // the pads restore the zero
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
@@ -353,7 +267,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[n][i] = pe_start(p, 2 * n + (i & 1));
+          for (int i = 0; i < 4; ++i) acc[n][i] = 0;
         const int* src = in + p * in_ps;               // PE p reads word p
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
@@ -447,7 +361,7 @@ __device__ __forceinline__ void conv_layer(
         next[tq * next_ps + r] = pack_bytes(v[0], v[1], v[2], v[3]);
         if (KIND == FIRST) {
           // the residual shortcut, as the last conv's domain-in consumes it:
-          // reference: clip(round(s - 128)) as int8; corrected: round(s) as
+          // reference: clip(round(s - 128)) as int8; K2: round(s) as
           // int16 (0 <= round(s) <= 32767, convert.py shortcut_bound)
           const int sy = y - sc_off, sx = x - sc_off;
           if (sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w) {
@@ -485,18 +399,6 @@ __device__ __forceinline__ void wait_staged() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__host__ __device__ inline int ring(int layer, int L) {
-  // sum of k/2 over convs layer..L-1 for kernel sizes (5, 3, ..., 3, 5)
-  if (layer >= L) return 0;
-  if (layer == 0) return L + 2;
-  return L + 1 - layer;
-}
-
-__host__ __device__ inline int extent(int layer, int L, int th, int tw) {
-  const int r = ring(layer, L);
-  return (th + 2 * r) * (tw + 2 * r);
-}
-
 // plane stride of a 4-plane buffer: >= n and 8 mod 32 words, so that the
 // lanes (g, tq) of a warp, touching word tq of 8 consecutive pixels, hit 32
 // distinct banks
@@ -508,14 +410,12 @@ struct Smem {
 
 // Shared memory of one block: the parameter block (P_WORDS), two weight
 // buffers (each the size of the largest layer's fragments: every layer split
-// for K1, the layers of `split` for the corrected kernel), the ping-pong
-// activation buffers and the shortcut.
-__host__ __device__ inline Smem smem_plan(int dp, int split, int L, int in_ch, int ocl, int th,
-                                          int tw) {
+// for K1), the ping-pong activation buffers and the shortcut.
+__host__ __device__ inline Smem smem_plan(int dp, int L, int in_ch, int ocl, int th, int tw) {
   Smem s;
   s.w_words = 0;                         // a split layer's fragments are the larger
   for (int i = 0; i < L; ++i) {
-    const bool sp = dp == REFERENCE || (dp == CORRECTED && ((split >> i) & 1));
+    const bool sp = dp == REFERENCE;
     const int lw = layer_words(sp, i, L, in_ch, ocl);
     s.w_words = s.w_words > lw ? s.w_words : lw;
   }
@@ -531,35 +431,34 @@ __host__ __device__ inline Smem smem_plan(int dp, int split, int L, int in_ch, i
   return s;
 }
 
-// conv `layer` in its form: one pass per PE where its split bit is set (K1,
-// the corrected kernel), else one pass, clamped to 20 bits where its clamp
-// bit is set (K2 from conv 1 on, whose conv 0 convert.py proves idle; the
-// corrected kernel). The arguments are conv_layer's.
+// conv `layer` in its form: one pass per PE where its split bit is set (K1),
+// else one pass, clamped to 20 bits where its clamp bit is set (K2 from conv
+// 1 on, whose conv 0 convert.py proves idle). The arguments are conv_layer's.
 template <int DP, int K, Kind KIND, int OC>
 __device__ __forceinline__ void conv_form(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
-    const int* __restrict__ prm, const int* __restrict__ zcp, int* __restrict__ next,
+    const int* __restrict__ prm, int* __restrict__ next,
     int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
     int8_t* __restrict__ out, int frame) {
-  if constexpr (DP != FAST) {
+  if constexpr (DP == REFERENCE) {
     if (pe_split(prm, layer)) {
       conv_layer<DP, true, false, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer, prelast,
-                                               prm, zcp, next, next_ps, sc, sc_ps, sc_off, sc_w,
+                                               prm, next, next_ps, sc, sc_ps, sc_off, sc_w,
                                                sc_h, out, frame);
       return;
     }
   }
-  if constexpr (DP == CORRECTED || (DP == FAST && KIND != FIRST)) {
+  if constexpr (DP == FAST && KIND != FIRST) {
     if ((prm[P_CLAMP] >> layer) & 1) {
       conv_layer<DP, false, true, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm,
-                                               zcp, next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
+                                               next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
                                                out, frame);
       return;
     }
   }
   conv_layer<DP, false, false, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm,
-                                            zcp, next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
+                                            next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
                                             out, frame);
 }
 
@@ -567,9 +466,9 @@ template <int DP, int OCL>
 __global__ void __launch_bounds__(kThreads, 2)
 sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                 const int* __restrict__ weights, const int* __restrict__ params,
-                int H, int W, int L, int in_ch, int th, int tw, int split) {
+                int H, int W, int L, int in_ch, int th, int tw) {
   extern __shared__ int4 smem4[];
-  const Smem plan = smem_plan(DP, split, L, in_ch, OCL, th, tw);
+  const Smem plan = smem_plan(DP, L, in_ch, OCL, th, tw);
   int* prm = reinterpret_cast<int*>(smem4);
   int* wbuf = prm + P_WORDS;            // two weight buffers of plan.w_words
   int* buf_a = wbuf + 2 * plan.w_words;
@@ -588,7 +487,6 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   stage_async(wbuf, weights + params[P_WOFF],
               layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL));
   for (int i = threadIdx.x; i < P_WORDS; i += blockDim.x) prm[i] = params[i];
-  const int* zcp = params + P_ZCP;
 
   // layer-0 input: one word per pixel, channel c in byte c; z_eff outside
   const int r0 = ring(0, L);
@@ -629,7 +527,7 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
     conv_form<DP, 5, FIRST, kC>(buf_b, 0, wbuf, in_ch, th + 2 * r1, tw + 2 * r1, t, 0, false,
-                                prm, zcp, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
+                                prm, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
                                 frame);
   }
   wait_staged();
@@ -645,7 +543,7 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
     conv_form<DP, 3, MID, kC>(cur, ps_in, w, 4, th + 2 * r, tw + 2 * r, t, i, i == L - 2, prm,
-                              zcp, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
+                              nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
     wait_staged();
     __syncthreads();
     int* tmp = cur;
@@ -655,35 +553,35 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
   const int* w_last = wbuf + ((L - 1) & 1) * plan.w_words;
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
-  conv_form<DP, 5, LAST, OCL>(cur, ps_last, w_last, 4, th, tw, t, L - 1, false, prm, zcp,
-                              nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
+  conv_form<DP, 5, LAST, OCL>(cur, ps_last, w_last, 4, th, tw, t, L - 1, false, prm, nullptr,
+                              0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
 }
 
-size_t shared_bytes(int dp, int split, int L, int in_ch, int ocl, int th, int tw) {
-  const Smem plan = smem_plan(dp, split, L, in_ch, ocl, th, tw);
+size_t shared_bytes(int dp, int L, int in_ch, int ocl, int th, int tw) {
+  const Smem plan = smem_plan(dp, L, in_ch, ocl, th, tw);
   return sizeof(int) * (static_cast<size_t>(P_WORDS) + 2 * plan.w_words + plan.a_words +
                         plan.b_words + plan.sc_words);
 }
 
 template <int DP, int OCL>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
-                       int n, int h, int wd, int L, int in_ch, int th, int tw, int split,
+                       int n, int h, int wd, int L, int in_ch, int th, int tw,
                        cudaStream_t stream) {
-  const size_t bytes = shared_bytes(DP, split, L, in_ch, OCL, th, tw);
+  const size_t bytes = shared_bytes(DP, L, in_ch, OCL, th, tw);
   cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, n);
   sesr_net_kernel<DP, OCL><<<grid, kThreads, bytes, stream>>>(
-      x, out, w, prm, h, wd, L, in_ch, th, tw, split);
+      x, out, w, prm, h, wd, L, in_ch, th, tw);
   return cudaGetLastError();
 }
 
 template <int DP>
 int launch(const void* x, void* out, const void* weights, const void* params, int n,
-           int h, int w, int L, int in_ch, int out_ch, int th, int tw, int split, void* stream) {
-  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1 || split >> L)
+           int h, int w, int L, int in_ch, int out_ch, int th, int tw, void* stream) {
+  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
@@ -691,9 +589,9 @@ int launch(const void* x, void* out, const void* weights, const void* params, in
   const int* pi = static_cast<const int*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_ch) {
-    case 3: return static_cast<int>(launch_one<DP, 3>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, split, s));
-    case 12: return static_cast<int>(launch_one<DP, 12>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, split, s));
-    case 16: return static_cast<int>(launch_one<DP, 16>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, split, s));
+    case 3: return static_cast<int>(launch_one<DP, 3>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
+    case 12: return static_cast<int>(launch_one<DP, 12>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
+    case 16: return static_cast<int>(launch_one<DP, 16>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -708,23 +606,14 @@ int sesr_pe_exact_net(const void* x, void* out, const void* weights, const void*
                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
                       int tile_h, int tile_w, void* stream) {
   return launch<REFERENCE>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                           tile_h, tile_w, 0, stream);
+                           tile_h, tile_w, stream);
 }
 
 int sesr_fast_net(const void* x, void* out, const void* weights, const void* params,
                   int n, int h, int w, int num_layers, int in_ch, int out_ch,
                   int tile_h, int tile_w, void* stream) {
   return launch<FAST>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                      tile_h, tile_w, 0, stream);
-}
-
-// split: bit i set where conv i runs one pass per PE, the params' pe_split
-// word (the weight buffers are sized by it).
-int sesr_corrected_net(const void* x, void* out, const void* weights, const void* params,
-                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                       int tile_h, int tile_w, int split, void* stream) {
-  return launch<CORRECTED>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                           tile_h, tile_w, split, stream);
+                      tile_h, tile_w, stream);
 }
 
 const char* sesr_error_string(int err) {

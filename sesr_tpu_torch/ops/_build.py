@@ -40,8 +40,13 @@ SIGNATURES = {
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, stream)
         "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
         "sesr_fast_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
-        # (..., tile_h, tile_w, split, stream)
+    },
+    "sesr_corrected": {
+        # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
+        #  stream)
         "sesr_corrected_net": [_PTR] * 4 + [_INT] * 9 + [_PTR],
+        # (num_layers, in_ch, out_ch, tile_h, tile_w, split) -> shared memory bytes, 0: refused
+        "sesr_corrected_smem": [_INT] * 6,
     },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)
@@ -54,7 +59,8 @@ SIGNATURES = {
         "probe_packed_dot": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     },
 }
-ERROR_STRING = {"sesr_net": "sesr_error_string", "probes": "probe_error_string"}
+ERROR_STRING = {"sesr_net": "sesr_error_string", "sesr_corrected": "sesr_corrected_error_string",
+                "probes": "probe_error_string"}
 
 
 @dataclasses.dataclass(frozen=True)

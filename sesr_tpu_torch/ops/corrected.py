@@ -3,10 +3,11 @@
 Port of sesr_tpu/ops/packed.py ``packed_exact_forward(corrected=True)`` and
 ``packed_hybrid_forward`` (both ``_packed_exact_impl``, XLA with no Pallas
 kernel): the computation, not its space-to-depth layout. On a CUDA tensor
-both run the fused kernel ``sesr_corrected_net`` (csrc/sesr_net.cu) over
-the whole batch, with one pass per PE on the layers ``split_layers``
-flags; on a CPU tensor their plain version, ``integer_forward(corrected=
-True)`` (with ``fast_layers`` in the hybrid mode).
+both run the fused kernel ``sesr_corrected_net`` (csrc/sesr_corrected.cu,
+on wgmma) over the whole batch, each PE's partial clamped on its own on the
+layers ``split_layers`` flags; on a CPU tensor their plain version,
+``integer_forward(corrected=True)`` (with ``fast_layers`` in the hybrid
+mode).
 """
 
 from __future__ import annotations

@@ -7,17 +7,27 @@ choice of its layer forms (sesr_tpu_torch/ops/corrected.py), on the CPU:
 - the per-PE zero terms z_eff * sum(W_p), which sum to the layer's;
 - the split masks of the hybrid and PE-exact modes on every artifact;
 - ``shortcut_bound`` on a conv 0 that runs one pass per PE;
-- a model of the kernel's per-layer datapath (csrc/sesr_net.cu conv_layer
-  with DP == CORRECTED): the MMA sums of tests/test_torch_mma_layout.py
-  over z_eff-padded int8 inputs, each PE's accumulator started from
-  -z_eff * sum(W_p) and clamped to 18 bits on a split layer, the one-pass
-  sum started from bias - z_eff * sum(W) and clamped to 20 bits where its
-  bit is set, equal to the plain interpreter's bias + pe_add at every
-  layer. The kernel itself is held against its plain version on the card
-  by chip_smoke.py."""
+- a numpy model of the kernel (csrc/sesr_corrected.cu), which the CPU
+  cannot compile: the wide implicit GEMM of each layer over the z_eff-padded
+  input (layer 0's pixels widened to four neighbours), the wgmma
+  descriptors' addressing (start, LBO and SBO over no-swizzle K-major core
+  matrices) of A and of convert.py's per-PE-expanded B, the accumulator
+  fragment, and the epilogue: each PE's column group started from -z_eff *
+  sum(W_p) and clamped to 18 bits on a split layer, the one-pass sum started
+  from bias - z_eff * sum(W) and clamped to 20 bits where its bit is set,
+  equal to the plain interpreter's bias + pe_add at every layer. The index
+  maps are read from the source, so the model and the kernel cannot drift
+  apart; the hardware's side (the descriptor's addressing, the fragment) is
+  written here from the PTX ISA;
+- that the accumulator map gives one thread four consecutive channels of a
+  pixel (the epilogue's 32-bit store is the next layer's input word), and
+  the shared-memory plan and default tiles.
+The kernel itself is held against its plain version on the card by
+chip_smoke.py."""
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -25,15 +35,33 @@ import torch
 
 from sesr_tpu_torch import convert
 from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import MODES, split_layers
-from sesr_tpu_torch.ops.kernels import corrected_net
+from sesr_tpu_torch.ops.kernels import (CORRECTED_TILES, SMEM_LIMIT, corrected_net,
+                                        corrected_smem_bytes)
 from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
-from tests.test_torch_mma_layout import _model_layer, _pack
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
 TASKS = ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2")
 ACC_HI, ADD_HI = 2 ** 17 - 1, 2 ** 19 - 1
+SRC = (_build.CSRC / "sesr_corrected.cu").read_text()
+CONST = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", SRC)}
+
+
+def _expr(fn):
+    """The return expression of the one-line function ``fn`` of the kernel's
+    source as a Python function (C's integer division translated; every
+    operand is non-negative, and C's comparisons give 0 or 1 as Python's
+    give False or True)."""
+    m = re.search(rf"int {fn}\(([^)]*)\) \{{ return (.*?); \}}", SRC)
+    assert m, fn
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    return eval(f"lambda {', '.join(args)}: {m.group(2).replace(' / ', ' // ')}", dict(CONST))
+
+
+steps_of, half_off, b_byte, col_chan, acc_row, acc_col = (
+    _expr(f) for f in ("steps_of", "half_off", "b_byte", "col_chan", "acc_row", "acc_col"))
 
 
 def _artifact(task):
@@ -155,11 +183,20 @@ def test_split_masks_of_both_modes(task):
         kc = convert.kernel_constants(spec, qp, "corrected", split)
         assert kc.pe_split == split
         assert kc.clamp20 == tuple(c and not s for c, s in zip(clamp, split))
-        want_w = [convert._fragment_words(np.asarray(w), split[i], qp.hw.pe, i == L - 1)
+        want_w = [convert._wgmma_b_words(np.asarray(w), split[i], qp.hw.pe, i == L - 1)
                   for i, w in enumerate(qp.w_int)]
         np.testing.assert_array_equal(kc.weights, np.concatenate(want_w))
-    # the corrected kernel's tile keeps two blocks an SM: 24x32 for 8 convs
-    assert corrected_net.tile(spec) == ((24, 32) if L == 8 else (32, 32))
+        # the corrected kernel's tile: the first of CORRECTED_TILES whose
+        # plan fits a block (nr hybrid 48x48, the sweep's fastest)
+        tile = corrected_net.tile(spec, split)
+        fits = [t for t in CORRECTED_TILES if corrected_smem_bytes(
+            L, spec.in_channels, spec.conv_out_channels, t, split) <= SMEM_LIMIT]
+        assert tile == fits[0]
+        if task in ("nr", "nrdm_6"):
+            mode = "hybrid" if split == hybrid else "pe-exact"
+            assert tile == {("nr", "hybrid"): (48, 48), ("nr", "pe-exact"): (32, 64),
+                            ("nrdm_6", "hybrid"): (32, 48),
+                            ("nrdm_6", "pe-exact"): (32, 48)}[task, mode]
     with pytest.raises(ValueError, match="stamps"):
         split_layers(dataclasses.replace(qp, fast_cert_layers=None), "hybrid")
     with pytest.raises(ValueError, match="mode"):
@@ -195,34 +232,110 @@ def test_shortcut_bound_on_a_split_conv0():
         assert convert.shortcut_bound(tqp, True) <= convert.shortcut_bound(tqp) <= 32767
 
 
-def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last):
+def _hw_a(buf, start, lbo, sbo):
+    """The 64 x 32-byte A operand that a wgmma descriptor without swizzle
+    (K-major) reads at byte ``start``: row r, k byte kb at start + (r / 8)
+    SBO + (r % 8) 16 + (kb / 16) LBO + kb % 16 (8 x 16-byte core matrices;
+    LBO between the two k halves, SBO between 8-row groups)."""
+    r, kb = np.arange(64)[:, None], np.arange(32)[None, :]
+    return buf[start + (r // 8) * sbo + (r % 8) * 16 + (kb // 16) * lbo + kb % 16]
+
+
+def _hw_b(buf, start, n_cols, lbo, sbo):
+    """The 32-byte x N B operand (K-major) the same descriptor reads: k byte
+    kb of column n at start + (n / 8) SBO + (n % 8) 16 + (kb / 16) LBO +
+    kb % 16."""
+    kb, n = np.arange(32)[:, None], np.arange(n_cols)[None, :]
+    return buf[start + (n // 8) * sbo + (n % 8) * 16 + (kb // 16) * lbo + kb % 16]
+
+
+def _smem_input(x_q, k, z_eff, wide, rng):
+    """Layer input as the kernel holds it in shared memory (bytes, int8):
+    the z_eff-padded extent, 16 bytes a pixel (layer 0: each pixel's word,
+    channel c in byte c, widened to the words of pixels p .. p + 3; a pad's
+    word is z_eff in every byte), then the pixels the GEMM reads past the
+    extent, holding whatever the buffer held before (random bytes here).
+    Returns the bytes, the extent and the number of GEMM rows."""
+    h, w, ic = x_q.shape
+    r = k // 2
+    ih, iw = h + 2 * r, w + 2 * r
+    s_n = steps_of(k, int(wide))
+    rows = -(-h * iw // 64) * 64
+    cap = rows + half_off(s_n - 1, 1, k, iw, int(wide))
+    buf = rng.integers(-128, 128, (cap, 16)).astype(np.int8)
+    if wide:
+        raw = np.full((ih, iw, 4), z_eff, np.int8)
+        raw[r:r + h, r:r + w] = 0
+        raw[r:r + h, r:r + w, :ic] = x_q
+        raw = raw.reshape(-1, 4)
+        at = np.minimum(np.arange(cap)[:, None] + np.arange(4), len(raw) - 1)
+        buf[:] = raw[at].reshape(cap, 16)
+    else:
+        buf[:ih * iw] = np.pad(x_q, ((r, r), (r, r), (0, 0)),
+                               constant_values=z_eff).reshape(-1, 16)
+    return buf.reshape(-1), ih, iw, rows
+
+
+def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
     """The corrected kernel's y = bias + pe_add of conv i over the int8
-    input x_q (H, W, ic), from its constants: the MMA model's per-pass sums
-    over the z_eff-padded input, then the kernel's accumulator rules."""
+    input x_q (H, W, ic), from its constants: the layer's wide GEMM through
+    the descriptors, the accumulator fragment, and the epilogue's rules,
+    with the extent of one tile over the whole input."""
     lay = convert.PARAM_LAYOUT
     h, w, ic = x_q.shape
     oc = np.asarray(qp.w_int[i]).shape[3]
-    r = k // 2
-    q = np.pad(x_q, ((r, r), (r, r), (0, 0)), constant_values=z_eff).astype(np.int8)
-    words, ps = _pack(q)
-    offs = list(kc.params[lay["w_off"]: lay["w_off"] + kc.num_layers]) + [kc.weights.size]
-    frag = kc.weights[offs[i]: offs[i + 1]]
     split = kc.pe_split[i]
-    sums, _ = _model_layer(words, ps, frag, k, ic, oc, split, last, h, w)
+    wide = i == 0
+    steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split, last)
+    assert steps == steps_of(k, int(wide))
+    ocp = n_cols // groups
+    buf, ih, iw, rows = _smem_input(x_q.astype(np.int8), k, z_eff, wide, rng)
+    offs = list(kc.params[lay["w_off"]: lay["w_off"] + kc.num_layers]) + [kc.weights.size]
+    bsm = kc.weights[offs[i]: offs[i + 1]].view(np.int8)
+    assert bsm.size == steps * n_cols * 32
+    acc = np.zeros((rows, n_cols), np.int64)                 # the GEMM's D, m-tile by m-tile
+    for mt in range(rows // 64):
+        for s in range(steps):
+            o0, o1 = half_off(s, 0, k, iw, int(wide)), half_off(s, 1, k, iw, int(wide))
+            a = _hw_a(buf, (mt * 64 + o0) * CONST["kPix"], (o1 - o0) * CONST["kPix"],
+                      CONST["kSboA"])
+            b = _hw_b(bsm, b_byte(s, 0, 0, n_cols), n_cols, CONST["kLboB"], CONST["kSboB"])
+            acc[mt * 64:mt * 64 + 64] += a.astype(np.int64) @ b.astype(np.int64)
     bias = kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc].astype(np.int64)
     zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc].astype(np.int64)
-    tot = bias - zc
-    if split:
-        pes = [p for p in range(qp.hw.pe) if pe_channel_mask(ic, qp.hw.pe, p).any()]
-        for s, p in zip(sums, pes):
-            at = lay["zc_pe"] + 16 * (4 * i + p)
-            start = -kc.params[at: at + oc].astype(np.int64)
-            tot = tot + np.clip(start + s, -ACC_HI - 1, ACC_HI)
-    else:
-        tot = tot + sums[0]
-        if kc.clamp20[i]:
-            tot = np.clip(tot, bias - ADD_HI - 1, bias + ADD_HI)
-    return tot.reshape(h, w, oc)
+    zc_pe = [kc.params[lay["zc_pe"] + 16 * (4 * i + p): lay["zc_pe"] + 16 * (4 * i + p) + oc]
+             .astype(np.int64) for p in range(4)]
+    got = np.full((h, w, oc), np.iinfo(np.int64).min)
+    j_n = ocp // 8
+    # each thread's registers (warp, lane, 4 j + i) of each m-tile, as the
+    # epilogue reads them: value v = 2 j' + e of group p is register
+    # 4 (p J + j') + 2 h + e for the row acc_row(warp, lane, 2 h)
+    for mt in range(rows // 64):
+        for warp in range(4):
+            for lane in range(32):
+                d = {(j, ii): acc[mt * 64 + acc_row(warp, lane, ii), acc_col(j, lane, ii)]
+                     for j in range(n_cols // 8) for ii in range(4)}
+                for hh in range(2):
+                    r = mt * 64 + acc_row(warp, lane, 2 * hh)
+                    y, x = r // iw, r % iw
+                    if y >= ih - k + 1 or x >= iw - k + 1:
+                        continue
+                    for v in range(2 * j_n):
+                        o = col_chan(acc_col(v >> 1, lane, v & 1), int(last))
+                        if o >= oc:
+                            continue
+                        reg = lambda p: d[(p * j_n + (v >> 1), 2 * hh + (v & 1))]
+                        if split:
+                            val = bias[o] - zc[o] + sum(
+                                np.clip(reg(p) - zc_pe[p][o], -ACC_HI - 1, ACC_HI)
+                                for p in range(groups))
+                        else:
+                            val = reg(0) + bias[o] - zc[o]
+                            if kc.clamp20[i]:
+                                val = np.clip(val, bias[o] - ADD_HI - 1, bias[o] + ADD_HI)
+                        assert got[y, x, o] == np.iinfo(np.int64).min   # written once
+                        got[y, x, o] = val
+    return got
 
 
 def _all_127(qp, layers):
@@ -253,11 +366,12 @@ def test_corrected_kernel_layers_model_the_plain_sums(case):
     kc = convert.kernel_constants(spec, qp, "corrected", split)
     fast_layers = tuple(qp.fast_cert_layers) if mode == "hybrid" else None
     x = np.random.default_rng(12).random((1, 6, 11, spec.in_channels), dtype=np.float32)
+    rng = np.random.default_rng(13)
     _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
                                fast_layers=fast_layers, device="cpu")
     for i, k in enumerate(spec.kernel_sizes):
         x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
-        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
         want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
             np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
         np.testing.assert_array_equal(got, want, err_msg=f"{case} layer {i}")
@@ -267,3 +381,116 @@ def test_corrected_kernel_layers_model_the_plain_sums(case):
         assert int((dumps["pe_add.0"] == ADD_HI).sum()) > 0 and ovf18[L - 1] > 0
     if case == "nr-saturating-pe-exact":
         assert kc.pe_split[0] and ovf18[0] > 0
+
+
+def test_accumulator_map_gives_a_thread_one_word_of_a_pixel():
+    """wgmma's fragment (acc_row / acc_col) through the hidden layers'
+    column permutation (col_chan): the four values a thread holds for one
+    row are channels 4 tq .. 4 tq + 3 in byte order, so its one 32-bit store
+    at word (pixel * 4 + tq) is that word of the next layer's input, and
+    the 32 lanes of a warp store 32 consecutive words (8 pixels, no bank
+    conflict). The last layer keeps the columns in order. Over every warp,
+    lane and register the fragment covers the 64 x N tile once."""
+    for n_cols in (8, 16, 32, 48, 64):
+        seen = np.zeros((64, n_cols), int)
+        for warp in range(4):
+            for lane in range(32):
+                for j in range(n_cols // 8):
+                    for i in range(4):
+                        seen[acc_row(warp, lane, i), acc_col(j, lane, i)] += 1
+        assert (seen == 1).all(), n_cols
+    for warp in range(4):
+        for h in range(2):
+            words = []
+            for lane in range(32):
+                tq = lane & 3
+                row = acc_row(warp, lane, 2 * h)
+                assert row == 16 * warp + (lane >> 2) + 8 * h
+                chans = [col_chan(acc_col(v >> 1, lane, v & 1), 0) for v in range(4)]
+                assert chans == [4 * tq + v for v in range(4)]
+                assert [col_chan(acc_col(v >> 1, lane, v & 1), 1) for v in range(4)] == \
+                    [2 * tq, 2 * tq + 1, 8 + 2 * tq, 9 + 2 * tq]
+                words.append((row - 16 * warp - 8 * h) * 4 + tq)
+            assert sorted(words) == list(range(32))
+    assert sorted(col_chan(n, 0) for n in range(16)) == list(range(16))
+    # the epilogue stores value v of the thread's word at byte v (pack_bytes)
+    assert "int* word = kept ? next + (y * ow + x) * 4 + tq : scratch;" in SRC
+    assert "*word = inside ? pack_bytes(v[0], v[1], v[2], v[3]) : pad_next;" in SRC
+    np.testing.assert_array_equal(convert._wgmma_columns(16, False),
+                                  [col_chan(n, 0) for n in range(16)])
+    np.testing.assert_array_equal(convert._wgmma_columns(12, True),
+                                  [n if n < 12 else -1 for n in range(16)])
+    np.testing.assert_array_equal(convert._wgmma_columns(3, True), [0, 1, 2] + [-1] * 5)
+
+
+@pytest.mark.parametrize("task", TASKS)
+def test_wgmma_b_holds_each_weight_once(task):
+    """convert.py's B for the corrected kernel, read back through the
+    source's b_byte: every weight of every layer sits once, in the column
+    group of its PE on a split layer (layer 0: of its input channel), at the
+    k byte of its tap and channel (layer 0: 4 taps of a widened pixel in
+    each 16-byte half); everything else is zero."""
+    spec, qp = _artifact(task)
+    L = spec.num_convs
+    for split in (convert.corrected_split_layers(qp), (True,) * L, (False,) * L):
+        for i, w in enumerate(qp.w_int):
+            w = np.asarray(w, np.int64)
+            k, _, ic, oc = w.shape
+            last = i == L - 1
+            steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split[i], last)
+            g = n_cols // groups
+            raw = convert._wgmma_b_words(w, split[i], qp.hw.pe, last).view(np.int8)
+            assert raw.size == steps * n_cols * 32
+            rebuilt = np.zeros_like(w)
+            seen = np.zeros(w.shape, int)
+            for s in range(steps):
+                for n in range(n_cols):
+                    o = col_chan(n % g, int(last))
+                    for kb in range(32):
+                        val = int(raw[b_byte(s, n, kb, n_cols)])
+                        hh, b = kb >> 4, kb & 15
+                        if i == 0:
+                            dy, dx, ch = s, 4 * hh + b // 4, b % 4
+                            ok = dx < k and ch < ic
+                        else:
+                            tap = 2 * s + hh
+                            dy, dx, ch = tap // k, tap % k, b
+                            ok = tap < k * k
+                        owner = (ch if i == 0 else ch % 4) if split[i] else 0
+                        if not ok or o >= oc or owner != n // g:
+                            assert val == 0, (task, i, s, n, kb)
+                            continue
+                        rebuilt[dy, dx, ch, o] += val
+                        seen[dy, dx, ch, o] += 1
+            np.testing.assert_array_equal(rebuilt, w, err_msg=f"{task} layer {i}")
+            assert (seen == 1).all()
+
+
+def test_smem_plan_and_its_limit():
+    """The wrapper's shared-memory plan (kernels.corrected_smem_bytes,
+    csrc/sesr_corrected.cu smem_plan; chip_smoke.py checks the two agree on
+    the card) gives the bytes the source note states, grows with the tile,
+    and a tile beyond a block's shared memory is refused before any build
+    or launch."""
+    assert (CONST["kSmemLimit"], CONST["kRows"], CONST["kPix"]) == (SMEM_LIMIT, 64, 16)
+    nr, nr_qp = _artifact("nr")
+    hybrid = split_layers(nr_qp, "hybrid")
+    assert corrected_smem_bytes(5, 3, 3, (32, 64), hybrid) == 214160
+    assert "214,160 bytes for nr at 32x64" in SRC
+    sizes = [corrected_smem_bytes(5, 3, 3, t, hybrid) for t in ((16, 16), (32, 32), (32, 64))]
+    assert sizes == sorted(sizes)
+    assert corrected_smem_bytes(5, 3, 3, (48, 64), hybrid) > SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        corrected_net.check_tile(nr, (48, 64), hybrid)
+    corrected_net.check_tile(nr, (32, 64), hybrid)
+
+
+def test_ab_variants_apply_to_the_source():
+    """Every edit of ``python -m sesr_tpu_torch.corrected_ab --variants``
+    finds its text in csrc/sesr_corrected.cu exactly once, so a variant
+    differs from the kernel only as its name says."""
+    from sesr_tpu_torch import corrected_ab
+
+    for name, edits in corrected_ab.VARIANTS.items():
+        for text, _ in edits:
+            assert SRC.count(text) == 1, (name, text)
