@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch): sr_x2, nr
-and nrdm_6 served and simulated, every task's infer, and the probes.
+and nrdm_6 served and simulated, every task's infer, the probes, and the
+artifact toolchain (eval-float, calibrate, certify, infer --audit).
 
     python3 chip_smoke.py
 
@@ -74,7 +75,26 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    output, torch.matmul's bf16 output beside it; F.pad + F.conv2d for a
    bf16 conv step) and its bound; a conv step's time is the K-difference
    (T(50) - T(1)) / 49 of 50- and 1-step probe calls; registers and
-   shared memory from CUPTI.
+   shared memory from CUPTI;
+8. the artifact toolchain from float weights (the sr_x2 and nr golden
+   bundles' collapsed weights, written to a collapsed .npz), with TF32 on
+   around it (the float paths turn it off for their own convs):
+   ``eval-float`` on sr_x2 at 540x960 cuda against cpu; ``calibrate``
+   (minmax) of sr_x2 at 540x960 and nr at 1080x1920, twice on the card
+   (equal artifacts) and once on the CPU (scales within rel 3e-3, zeros
+   within 2), and KL on nr at 272x480 (the same guardrail decision); ``certify`` of
+   the two fresh and the shipped sr_x2, nr and nrdm_6 artifacts on four
+   full-size frames on the card (sr_x2 fully certified through K2, one
+   launch a frame; nr and nrdm_6 hybrid with the last conv ``x``, through
+   the corrected kernel, one launch a frame), their stamps on 96x128 crops
+   equal on cuda and cpu, and the seconds of the interpreter, strict and
+   kernel-equality parts; the strict interpreter on nr's 1080x1920 frame;
+   ``infer --audit 1`` on nr at 1080x1920: four synthetic frames (no
+   violation, outputs equal to the plain version) and the adversarial
+   frame then a synthetic one (layer 0 flagged, the stream degraded to
+   pe-exact with its launches counted by split mask, both outputs equal to
+   the CPU interpreter's), with the audit's shadow cost per frame. Each
+   time is printed with the card's name and power limit.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -96,6 +116,7 @@ FRAME = (540, 960)                 # deployment input; 1080x1920 output
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 BAYER_FRAME = (1080, 1920)         # nr / nrdm_6: the sr_x2 output frame, Bayer-sparse
+KL_FRAME = (272, 480)              # phase 8's KL guardrail check, cuda against cpu
 REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238",
             # XLA with no Pallas kernel, reached from :723 packed_exact_forward
@@ -897,6 +918,221 @@ def probes_phase(torch, dev):
     return entries
 
 
+def same_artifact(a, b):
+    """Field-for-field equality of two QuantParams."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if f.name in ("w_int", "bias_f", "bias_int"):
+            if len(va) != len(vb) or not all(np.array_equal(x, y) for x, y in zip(va, vb)):
+                return False
+        elif va != vb:
+            return False
+    return True
+
+
+def stamps(qp):
+    return (qp.fast_cert_ok, qp.fast_cert_images, qp.fast_cert_layers, qp.fast_cert_static,
+            qp.shortcut_static, qp.cert_grade, qp.cert_stamps)
+
+
+def toolchain_phase(torch, dev, card):
+    """Phase 8, the artifact toolchain from float weights: eval-float,
+    calibrate and certify, and infer --audit, each on the card against the
+    port's CPU run. TF32 is left on (PyTorch's default) around the phase:
+    the float paths must turn it off for their own convs. Returns, per
+    network kernel and path, (launches, frames served)."""
+    import tempfile
+    import warnings
+
+    from sesr_tpu_torch.cli import evaluate_float, serve
+    from sesr_tpu_torch.config import spec_for_task
+    from sesr_tpu_torch.data import SyntheticDataset
+    from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, reset_launch_counts
+    from sesr_tpu_torch.quant.calibrate import (ObserverRegressionWarning, calibrate,
+                                                guarded_calibrate)
+    from sesr_tpu_torch.quant.certify import adversarial_image, certify_fast
+    from sesr_tpu_torch.quant.integer import integer_forward
+    from sesr_tpu_torch.quant.params import QuantParams
+    from sesr_tpu_torch.quant.strict import strict_integer_forward
+
+    torch.backends.cudnn.allow_tf32 = True
+    tag = f"({card})"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def tf32_left_on(what):
+        if not torch.backends.cudnn.allow_tf32:
+            fail(f"{what} left the caller's TF32 setting changed")
+
+    def frames_of(task, hw, n=4):
+        data = list(SyntheticDataset(task, n=n, hw=hw))
+        return data, [d[0] for d in data]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        params = {}
+        for task in ("sr_x2", "nr"):
+            with np.load(os.path.join(REPO, "tests", "goldens", f"{task}.npz")) as g:
+                L = int(g["num_convs"])
+                path = os.path.join(tmp, f"{task}_collapsed.npz")
+                np.savez(path, **{f"w_{i}": np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0))
+                                  for i in range(L)},
+                         **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
+            params[task] = load_reference_checkpoint(task, path=path)
+
+    # 8a. eval-float: sr_x2 on four 540x960 -> 1080x1920 frames
+    sr_spec, nr_spec = spec_for_task("sr_x2"), spec_for_task("nr")
+    sr_data, sr_x = frames_of("sr_x2", (2 * FRAME[0], 2 * FRAME[1]))
+    ev_gpu, t_gpu = timed(lambda: evaluate_float(sr_spec, params["sr_x2"], sr_data, "cuda",
+                                                 keep_outputs=True))
+    tf32_left_on("evaluate_float")
+    ev_cpu, t_cpu = timed(lambda: evaluate_float(sr_spec, params["sr_x2"], sr_data, "cpu",
+                                                 keep_outputs=True))
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(ev_gpu.outputs, ev_cpu.outputs))
+    dpsnr = max(abs(a - b) for a, b in zip(ev_gpu.psnr, ev_cpu.psnr))
+    print(f"[8] eval-float sr_x2, 4 frames {sr_x[0].shape[1:3]} -> {ev_gpu.outputs[0].shape}: "
+          f"mean psnr cuda {ev_gpu.mean_psnr:.4f} cpu {ev_cpu.mean_psnr:.4f} (largest per-frame "
+          f"difference {dpsnr:.2e} dB), max abs output difference {diff:.3e}; {t_gpu:.3f} s "
+          f"cuda, {t_cpu:.3f} s cpu {tag}", flush=True)
+    if not (diff <= 1e-4 and dpsnr <= 0.01):
+        fail(f"eval-float cuda vs cpu: max abs {diff} (bound 1e-4), psnr {dpsnr} dB (bound 0.01)")
+
+    # 8b. calibrate (minmax): sr_x2 at 540x960, nr at 1080x1920; two card
+    # runs and the CPU run
+    nr_data, nr_x = frames_of("nr", BAYER_FRAME)
+    fresh = {}
+    for task, spec, images in (("sr_x2", sr_spec, sr_x), ("nr", nr_spec, nr_x)):
+        q1, t1 = timed(lambda: calibrate(spec, params[task], images, device="cuda"))
+        tf32_left_on("calibrate")
+        q2, _ = timed(lambda: calibrate(spec, params[task], images, device="cuda"))
+        qc, tc = timed(lambda: calibrate(spec, params[task], images, device="cpu"))
+        rel = max(abs(a / b - 1) for a, b in zip(q1.a_scale, qc.a_scale))
+        dz = max(abs(a - b) for a, b in zip(q1.a_zero, qc.a_zero))
+        print(f"[8] calibrate {task} minmax, 4 frames {images[0].shape[1:3]}: {t1:.3f} s cuda, "
+              f"{tc:.3f} s cpu {tag}; cuda vs cpu: scales within rel {rel:.2e}, zeros within "
+              f"{dz}; two cuda runs equal: {same_artifact(q1, q2)}; zeros {q1.a_zero}", flush=True)
+        if not (rel <= 3e-3 and dz <= 2):
+            fail(f"calibrate {task}: cuda vs cpu scales rel {rel} (3e-3), zeros {dz} (2)")
+        if not same_artifact(q1, q2):
+            fail(f"calibrate {task}: two card runs wrote different artifacts")
+        fresh[task] = q1
+    # the KL guardrail on nr (four 272x480 frames; the CPU run scores both
+    # observers' artifacts through the interpreter): the same decision
+    kl_data = list(SyntheticDataset("nr", n=4, hw=KL_FRAME))
+    decisions = {}
+    for device in ("cuda", "cpu"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", ObserverRegressionWarning)
+            _, t = timed(lambda: guarded_calibrate(nr_spec, params["nr"], kl_data, "nr",
+                                                   observer="kl", device=device))
+        msgs = [str(w.message) for w in caught if w.category is ObserverRegressionWarning]
+        decisions[device] = bool(msgs)
+        print(f"[8] calibrate nr --observer kl, 4 frames {KL_FRAME} on {device}: {t:.3f} s {tag}; "
+              f"guardrail {'fires: ' + msgs[0][:90] if msgs else 'silent'}", flush=True)
+    if decisions["cuda"] != decisions["cpu"]:
+        fail(f"the KL guardrail decides differently on cuda and cpu: {decisions}")
+    tf32_left_on("guarded_calibrate")
+
+    # 8c. certify at full size on the card (launch counters at 0 around each
+    # run), and on 96x128 crops on the card and the CPU
+    nrdm6_spec = spec_for_task("nrdm_6")
+    _, nrdm6_x = frames_of("nrdm_6", BAYER_FRAME)
+    shipped = {t: QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{t}.npz"))
+               for t in ("sr_x2", "nr", "nrdm_6")}
+    runs = [("fresh sr_x2", sr_spec, fresh["sr_x2"], sr_x),
+            ("fresh nr", nr_spec, fresh["nr"], nr_x),
+            ("shipped sr_x2", sr_spec, shipped["sr_x2"], sr_x),
+            ("shipped nr", nr_spec, shipped["nr"], nr_x),
+            ("shipped nrdm_6", nrdm6_spec, shipped["nrdm_6"], nrdm6_x)]
+    launches = {"sesr_fast_net": {}, "sesr_corrected_net": {}}
+    for label, spec, qp, images in runs:
+        seconds = {}
+        reset_launch_counts()
+        cert, t = timed(lambda: certify_fast(spec, qp, images, device="cuda", seconds=seconds))
+        k2, kc = fast_net.launches, corrected_net.launches
+        crops = [x[:, :96, :128] for x in images]
+        small_gpu = certify_fast(spec, qp, crops, device="cuda")
+        small_cpu = certify_fast(spec, qp, crops, device="cpu")
+        print(f"[8] certify {label}, 4 frames {images[0].shape[1:3]}: grade {cert.cert_grade} "
+              f"layers {cert.cert_stamps}; {t:.3f} s (interpreter {seconds['interpreter']:.3f}, "
+              f"strict {seconds['strict']:.3f}, kernel equality {seconds['equality']:.3f}) {tag}; "
+              f"launches K2 {k2}, sesr_corrected_net {kc}; at 96x128 cuda {small_gpu.cert_stamps} "
+              f"cpu {small_cpu.cert_stamps}", flush=True)
+        if stamps(small_gpu) != stamps(small_cpu):
+            fail(f"certify {label} at 96x128: cuda {stamps(small_gpu)} != cpu {stamps(small_cpu)}")
+        n = len(images)
+        if spec is sr_spec:
+            if not (cert.fast_cert_ok and k2 == n and kc == 0):
+                fail(f"certify {label}: fully certified {cert.fast_cert_ok}, K2 launches {k2} "
+                     f"and corrected {kc} for {n} images")
+            launches["sesr_fast_net"][f"certify_{label.replace(' ', '_')}"] = (k2, n)
+        else:
+            if not (cert.cert_grade == "partial" and cert.cert_stamps.endswith("x")
+                    and all(cert.fast_cert_layers[:-1]) and kc == n and k2 == 0):
+                fail(f"certify {label}: {cert.cert_grade} {cert.cert_stamps}, corrected "
+                     f"launches {kc} and K2 {k2} for {n} images (want hybrid, last conv x)")
+            launches["sesr_corrected_net"][f"certify_{label.replace(' ', '_')}"] = (kc, n)
+
+    # the strict interpreter alone on nr's 1080x1920 frame
+    x0 = torch.from_numpy(nr_x[0]).to(dev)
+    y_strict, t = timed(lambda: strict_integer_forward(nr_spec, shipped["nr"], x0))
+    print(f"[8] strict_integer_forward nr {BAYER_FRAME}: {t:.3f} s {tag}", flush=True)
+    del y_strict
+
+    # 8d. infer --audit 1 on nr at 1080x1920 (launch counters at 0 around
+    # each stream): four synthetic frames, then the adversarial frame and
+    # one synthetic frame
+    qp = shipped["nr"]
+    reset_launch_counts()
+    clean = serve(nr_spec, qp, nr_data, device="cuda", audit_every=1, keep_outputs=True)
+    torch.cuda.synchronize()
+    kc_clean = corrected_net.launches
+    for (x, _), y in zip(nr_data, clean.outputs):
+        want = integer_forward(nr_spec, qp, torch.from_numpy(x).to(dev), corrected=True,
+                               fast_layers=tuple(qp.fast_cert_layers))[0]
+        if not torch.equal(torch.from_numpy(y).to(dev), want[0]):
+            fail("infer --audit 1 on nr: a served frame differs from the plain version")
+    shadow = clean.audit_seconds / clean.audited
+    print(f"[8] infer --audit 1 nr, 4 frames {BAYER_FRAME}: mode {clean.mode}, "
+          f"{clean.audited} audited, violations {clean.violations}; sesr_corrected_net launches "
+          f"{kc_clean}; forward {clean.forward_seconds / clean.n * 1e3:.3f} ms/frame, audit "
+          f"shadow {shadow * 1e3:.3f} ms/frame {tag}", flush=True)
+    if clean.violations or clean.mode != "hybrid" or clean.audited != 4 or kc_clean != 4:
+        fail(f"infer --audit 1 on in-distribution nr frames: {clean.violations}, {clean.mode}, "
+             f"{clean.audited} audited, {kc_clean} launches")
+    adv = adversarial_image(qp, hw=BAYER_FRAME)
+    stream = [(adv, np.zeros_like(adv)), nr_data[0]]
+    reset_launch_counts()
+    res = serve(nr_spec, qp, stream, device="cuda", audit_every=1, keep_outputs=True)
+    torch.cuda.synchronize()
+    pe_split = split_layers(qp, "pe-exact")
+    kc_adv, kc_pe = corrected_net.launches, corrected_net.split_launches[pe_split]
+    print(f"[8] infer --audit 1 nr, adversarial frame then a synthetic one: violations "
+          f"{res.violations}, served {res.mode} from then on; "
+          f"sesr_corrected_net launches {kc_adv}, of them pe-exact (split {pe_split}) {kc_pe}",
+          flush=True)
+    if not (res.violations == [(0, (0,))] and res.mode == "pe-exact" and kc_adv == 3
+            and kc_pe == 2):
+        fail(f"the adversarial stream: violations {res.violations}, mode {res.mode}, "
+             f"{kc_adv} launches, {kc_pe} pe-exact")
+    for (x, _), y in zip(stream, res.outputs):
+        want = integer_forward(nr_spec, qp, x, corrected=True, device="cpu")[0][0]
+        if not torch.equal(torch.from_numpy(y), want):
+            fail("the degraded stream's output differs from the CPU interpreter's")
+    print("[8] both frames of the degraded stream: torch.equal with integer_forward(corrected) "
+          "on the CPU", flush=True)
+    launches["sesr_corrected_net"]["infer_audit_nr"] = (kc_clean, clean.n)
+    launches["sesr_corrected_net"]["infer_audit_nr_adversarial"] = (kc_adv, res.n)
+    torch.backends.cudnn.allow_tf32 = False
+    return launches
+
+
 def main():
     import torch
 
@@ -1265,6 +1501,15 @@ def main():
 
     # 7. the probes
     entries += probes_phase(torch, dev)
+
+    # 8. the artifact toolchain: its launches join the network kernels'
+    t0 = time.perf_counter()
+    toolchain_launches = toolchain_phase(torch, dev, card)
+    print(f"[8] the toolchain phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    for e in entries:
+        for path, (count, n_frames) in toolchain_launches.get(e["name"], {}).items():
+            e["launches"] += count
+            e["launches_per_frame"][path] = count / n_frames
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

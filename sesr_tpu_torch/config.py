@@ -99,3 +99,15 @@ def spec_for_task(task: str) -> SESRSpec:
     if task not in TASKS:
         raise KeyError(f"unknown task {task!r}; known: {sorted(TASKS)}")
     return TASKS[task]
+
+
+# Checkpoint files shipped with the reference, per task, under its
+# model_params/ (its test.py:64-69).
+REFERENCE_CHECKPOINTS = {
+    "nr": "nr_G.pth",
+    "dm": "dm_G.pth",
+    "nrdm_3": "nrdm_3_raw_G.pth",
+    "nrdm_6": "nrdm_6_G.pth",
+    "sr_x4": "x4sesr.pth",
+    "sr_x2": "x2sesr.pth.tar",
+}

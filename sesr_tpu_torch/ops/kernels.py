@@ -19,6 +19,8 @@ launch is refused.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from sesr_tpu_torch.config import SESRSpec
@@ -84,13 +86,16 @@ def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split) -> int:
 
 class NetKernel:
     """One entry point of a kernel library (``csrc/<library>.cu``).
-    ``launches`` counts the launches this wrapper made."""
+    ``launches`` counts the launches this wrapper made, ``split_launches``
+    the same launches by their per-layer split mask (the corrected kernel's
+    modes; None for the other kernels)."""
 
     def __init__(self, symbol: str, datapath: str, library: str = "sesr_net"):
         self.symbol = symbol
         self.datapath = datapath
         self.library = library
         self.launches = 0
+        self.split_launches = collections.Counter()
 
     def tile(self, spec: SESRSpec, split=None) -> tuple:
         """The default output tile for ``spec``'s network."""
@@ -139,6 +144,7 @@ class NetKernel:
             raise RuntimeError(f"{self.symbol} launch failed: "
                                f"{_build.error_string(self.library, err)} ({err})")
         self.launches += 1
+        self.split_launches[None if split is None else tuple(kc.pe_split)] += 1
         return out
 
 
@@ -176,6 +182,7 @@ NET_KERNELS = (pe_exact_net, fast_net, corrected_net)
 def reset_launch_counts() -> None:
     for k in NET_KERNELS:
         k.launches = 0
+        k.split_launches.clear()
 
 
 def run_net(kernel: NetKernel, spec: SESRSpec, qp: QuantParams,

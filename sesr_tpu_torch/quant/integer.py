@@ -16,6 +16,13 @@ wiring, per conv i:
      each multiply; ReLU; conv 0's output is the residual shortcut; the
      last conv re-quantizes into the output domain and dequantizes.
 
+``residual_mode`` wires the residual as the reference's compositions do:
+"sim" (the default, the integer residual add above), "graph_add" (the
+MFLAG 1/2 composition, where the model's float AddOp stays in the graph
+ahead of the last conv, so the shortcut is added twice: a quirk the nr and
+dm goldens pin) and "graph_add_qat" (that AddOp swapped for the frozen
+QuantAdd of the qatf="qat_" composition, ``quant/qat.py``).
+
 ``corrected=True`` is the deployment datapath: no restoration, the clipped
 ``bias_int`` as the bias, and the residual add of the rounded operands at
 full width. ``compute="fast"`` (corrected only, certified artifacts only)
@@ -40,8 +47,10 @@ from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, pixel_shuffle_nhwc
 from sesr_tpu_torch.ops.fixedpoint import apply_requant_f32, saturate
 from sesr_tpu_torch.quant.params import QuantParams
+from sesr_tpu_torch.quant.qat import quant_add_frozen
 
 COMPUTE_MODES = ("exact", "fast")
+RESIDUAL_MODES = ("sim", "graph_add", "graph_add_qat")
 
 
 def pe_channel_mask(ic: int, pe: int, p: int) -> np.ndarray:
@@ -108,6 +117,16 @@ def _domain_in(h, i: int, L: int, qp: QuantParams, shortcut,
     return torch.clamp(torch.round(h + zero), qmin, qmax)
 
 
+def graph_residual(h: torch.Tensor, shortcut: torch.Tensor, qp: QuantParams,
+                   residual_mode: str, qat_add_bounds) -> torch.Tensor:
+    """The graph's own residual add ahead of the last conv in the
+    "graph_add" modes: h + shortcut, or the frozen QuantAdd of the two; the
+    last conv's domain-in then adds the shortcut again."""
+    if residual_mode == "graph_add_qat":
+        return quant_add_frozen(h, shortcut, *qat_add_bounds, qp.hw.quan_bits)
+    return h + shortcut
+
+
 def _conv_int(x64: torch.Tensor, w: np.ndarray) -> torch.Tensor:
     """Exact integer SAME conv of float64 integer values, as float64."""
     n, hh, ww, _ = x64.shape
@@ -159,7 +178,8 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
 
 def integer_forward(spec: SESRSpec, qp: QuantParams, x,
                     collect_dumps: bool = False, corrected: bool = False,
-                    compute: str = "exact", device=None, fast_layers=None):
+                    compute: str = "exact", device=None, fast_layers=None,
+                    residual_mode: str = "sim", qat_add_bounds=None):
     """Bit-exact integer forward. x: NHWC float in [0, 1] (numpy or tensor).
 
     Returns (y, dumps): y is the dequantized float32 output, pixel-shuffled
@@ -176,7 +196,17 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     ``fast_layers`` (corrected only): one flag per layer; a flagged layer
     runs as one full-channel conv, with no per-PE stage (a certificate
     stamp says where that is exact; the result is this whatever the input).
+    ``residual_mode``: "sim", "graph_add" or "graph_add_qat" (see the
+    module docstring); the last needs ``qat_add_bounds`` = (union_lo,
+    union_hi), the checkpoint's QuantAdd observer bounds
+    (``io/torch_import.py`` ``load_qat_add_bounds``), which the other two
+    modes ignore.
     """
+    if residual_mode not in RESIDUAL_MODES:
+        raise ValueError(f"residual_mode must be one of {RESIDUAL_MODES}, "
+                         f"got {residual_mode!r}")
+    if residual_mode == "graph_add_qat" and qat_add_bounds is None:
+        raise ValueError("residual_mode='graph_add_qat' needs qat_add_bounds")
     if compute not in COMPUTE_MODES:
         raise ValueError(f"compute must be one of {COMPUTE_MODES}, got {compute!r}")
     if compute == "fast" and not qp.fast_cert_ok:
@@ -198,6 +228,8 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     dumps: Dict[str, torch.Tensor] = {}
     overflows = []
     for i in range(L):
+        if i == L - 1 and residual_mode != "sim":
+            h = graph_residual(h, shortcut, qp, residual_mode, qat_add_bounds)
         x_q = _domain_in(h, i, L, qp, shortcut, corrected)
         x_shift = x_q - float(qp.effective_zero(i))
         pe_out, pe_add, y, ovf18, ovf20 = _integer_conv_pe(

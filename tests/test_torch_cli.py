@@ -1,6 +1,7 @@
 """The port end to end on the CPU: ``infer`` (serve) on sr_x2 and nr,
-with and without ``--save-dir``, and ``sim`` (simulate), reference-exact
-and ``--corrected``, against the JAX package; the import boundary of the
+with and without ``--save-dir``, ``sim`` (simulate), reference-exact
+and ``--corrected``, ``eval-float`` and ``calibrate`` from collapsed
+float weights, against the JAX package; the import boundary of the
 port and of chip_smoke.py, and chip_smoke.py refusing to run without a
 card or without the repository around it."""
 
@@ -28,6 +29,7 @@ from sesr_tpu_torch.config import spec_for_task
 from sesr_tpu_torch.data import SyntheticDataset
 from sesr_tpu_torch.ops.fast import fast_forward
 from sesr_tpu_torch.quant.params import QuantParams
+from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 QP = os.path.join(REPO, "artifacts", "qparams_sr_x2.npz")
@@ -202,8 +204,82 @@ def test_sim_corrected_matches_jax(tmp_path, capsys):
     assert not torch.equal(ref.y, res.y)
 
 
+def _numbers(text):
+    return [float(v) for v in re.findall(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?", text)]
+
+
+def _collapsed_npz(tmp_path, task):
+    """The golden bundle's collapsed float weights as a w_i (HWIO) / b_i .npz."""
+    from tests.test_integer_bitexact import _load_golden
+    g = _load_golden(task)
+    L = int(g["num_convs"])
+    path = str(tmp_path / f"{task}_collapsed.npz")
+    np.savez(path, **{f"w_{i}": np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0))
+                      for i in range(L)},
+             **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
+    return path
+
+
+@pytest.mark.parametrize("task", ["sr_x2", "nr"])
+def test_eval_float_prints_jax_numbers(tmp_path, capsys, task):
+    args = ["eval-float", "--task", task, "--checkpoint", _collapsed_npz(tmp_path, task),
+            "--n-images", "2"]
+    res = cli.main(args + ["--device", "cpu"])
+    port = capsys.readouterr().out
+    jcli.main(args)
+    jax_out = capsys.readouterr().out
+    assert len(port.splitlines()) == len(jax_out.splitlines()) == 3
+    np.testing.assert_allclose(_numbers(port), _numbers(jax_out), rtol=0, atol=2e-4)
+    assert f"{task} mean psnr: {res.mean_psnr:.4f}" in port
+
+
+@pytest.mark.parametrize("observer", ["minmax", "kl"])
+def test_calibrate_prints_jax_numbers(tmp_path, capsys, observer):
+    """sr_x4 from the shipped collapsed QAT weights: the fake-quant psnr and
+    every domain's scale and zero, and the artifact; KL on nr is refused
+    without --force in both, and kept with it."""
+    ck = os.path.join(REPO, "artifacts", "sr_x4_qat_collapsed.npz")
+    args = ["calibrate", "--task", "sr_x4", "--checkpoint", ck, "--n-images", "2",
+            "--observer", observer]
+    qp = cli.main(args + ["--out", str(tmp_path / "port.npz"), "--device", "cpu"])
+    port = capsys.readouterr().out
+    jcli.main(args + ["--out", str(tmp_path / "jax.npz")])
+    jax_out = capsys.readouterr().out
+    p_lines, j_lines = port.splitlines(), jax_out.splitlines()
+    assert len(p_lines) == len(j_lines) == 2 + qp.num_convs + 1
+    np.testing.assert_allclose(_numbers(p_lines[1]), _numbers(j_lines[1]), atol=0.01)
+    jqp = JQuantParams.load(str(tmp_path / "jax.npz"))
+    for d, (pl, jl) in enumerate(zip(p_lines[2:], j_lines[2:])):
+        (ps, pz), (js, jz) = _numbers(pl)[1:], _numbers(jl)[1:]
+        assert ps == pytest.approx(js, rel=3e-3) and abs(pz - jz) <= 2, d
+        assert pl == f"domain {d}: scale={qp.a_scale[d]:.6g} zero={qp.a_zero[d]}"
+        assert qp.a_scale[d] == pytest.approx(jqp.a_scale[d], rel=3e-3)
+    saved = QuantParams.load(str(tmp_path / "port.npz"))
+    assert (saved.a_scale, saved.a_zero) == (qp.a_scale, qp.a_zero)
+
+
+def test_calibrate_kl_guardrail_and_adaround_refused(tmp_path, capsys):
+    args = ["calibrate", "--task", "nr", "--checkpoint", _collapsed_npz(tmp_path, "nr"),
+            "--n-images", "2", "--observer", "kl", "--no-eval"]
+    with pytest.raises(SystemExit, match="--force"):
+        cli.main(args + ["--out", str(tmp_path / "kl.npz"), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--force"):
+        jcli.main(args + ["--out", str(tmp_path / "jkl.npz")])
+    qp = cli.main(args + ["--out", str(tmp_path / "kl.npz"), "--device", "cpu", "--force"])
+    assert "WARNING (forced)" in capsys.readouterr().err
+    assert QuantParams.load(str(tmp_path / "kl.npz")).a_scale == qp.a_scale
+    with pytest.raises(SystemExit):
+        cli.main(args + ["--out", str(tmp_path / "x.npz"), "--weight-rounding", "adaround"])
+    assert "invalid choice: 'adaround'" in capsys.readouterr().err
+
+
 def test_import_boundary():
     code = ("import sys, sesr_tpu_torch, sesr_tpu_torch.cli, sesr_tpu_torch.convert, "
+            "sesr_tpu_torch.models.sesr, sesr_tpu_torch.models.blocks, "
+            "sesr_tpu_torch.io.torch_import, sesr_tpu_torch.quant.qat, "
+            "sesr_tpu_torch.quant.observers, sesr_tpu_torch.quant.calibrate, "
+            "sesr_tpu_torch.quant.strict, sesr_tpu_torch.quant.certify, "
+            "sesr_tpu_torch.quant.audit, "
             "sesr_tpu_torch.__main__, sesr_tpu_torch.deploy, sesr_tpu_torch.png, "
             "sesr_tpu_torch.data.bayer, sesr_tpu_torch.data.datasets, "
             "sesr_tpu_torch.ops.corrected, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "

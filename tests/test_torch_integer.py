@@ -19,6 +19,7 @@ from sesr_tpu_torch.config import spec_for_task
 from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 from tests.test_torch_params import SIM_GOLDENS, _port_golden_qparams
+from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 from tests.test_integer_bitexact import SPEC_TASK, _load_golden
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")

@@ -32,6 +32,7 @@ from sesr_tpu_torch.quant.integer import integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
 from tests.test_integer_bitexact import _golden_qparams, _load_golden
 from tests.test_torch_params import ARTIFACTS, SIM_GOLDENS, _same
+from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
 

@@ -1,7 +1,7 @@
 """The port's QuantParams (sesr_tpu_torch/quant/params.py): the artifact
 format in both directions with the JAX package, and the golden exact tier
 (weights, scales, zeros, requant constants, fused bias) on the
-reference-generated goldens of the sim-wiring tasks."""
+reference-generated goldens of all ten bundles."""
 
 import dataclasses
 import glob
@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from sesr_tpu.quant.params import QuantParams as JQuantParams
 from sesr_tpu_torch.config import spec_for_task
@@ -20,6 +21,21 @@ from tests.test_integer_bitexact import SPEC_TASK, _load_golden
 ARTIFACTS = sorted(glob.glob(os.path.join(os.path.dirname(__file__), os.pardir,
                                           "artifacts", "qparams_*.npz")))
 SIM_GOLDENS = ["nrdm_3", "sr_x4", "sr_x2", "nrdm_3_qat", "sr_x4_qat", "sr_x2_qat"]
+# with the bundles of the graph_add compositions (tests/test_torch_residual.py)
+GOLDENS = SIM_GOLDENS + ["nr", "dm", "nr_qat", "dm_qat"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for torch in a test module: the suite runs six
+    xdist workers on the machine's cores, and torch's default of one
+    thread per core in each of them oversubscribes it several times over.
+    The caller's count comes back after the module. Port test modules
+    import this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _same(a, b):
@@ -105,7 +121,7 @@ def _port_golden_qparams(task, g):
     return tparams.finalize(spec, w_int, w_scale, biases, calib)
 
 
-@pytest.mark.parametrize("task", SIM_GOLDENS)
+@pytest.mark.parametrize("task", GOLDENS)
 def test_golden_exact_tier(task):
     g = _load_golden(task)
     qp = _port_golden_qparams(task, g)

@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.probes import bitcast, conv, int8_gemm, kernels, plain, tile_ab
 from sesr_tpu_torch.probes.__main__ import main as probes_main
+from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 REAL_PALLAS_CALL = pl.pallas_call
