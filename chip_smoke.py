@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch): sr_x2, nr
-and nrdm_6 served and simulated, every task's infer, the probes, and the
-artifact toolchain (eval-float, calibrate, certify, infer --audit).
+and nrdm_6 served and simulated, every task's infer, the probes, the
+artifact toolchain (eval-float, calibrate, certify, infer --audit), and
+training, QAT, AdaRound and make_qparams.
 
     python3 chip_smoke.py
 
@@ -93,8 +94,27 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    violation, outputs equal to the plain version) and the adversarial
    frame then a synthetic one (layer 0 flagged, the stream degraded to
    pe-exact with its launches counted by split mask, both outputs equal to
-   the CPU interpreter's), with the audit's shadow cost per frame. Each
-   time is printed with the card's name and power limit.
+   the CPU interpreter's), with the audit's shadow cost per frame;
+9. training and make_qparams, with TF32 on around them: the STE
+   round and fake-quant on the card against the CPU (values and
+   gradients torch.equal, clip ties at 0.5); float training of the
+   expanded sr_x4 through ``train`` (the first step's loss and gradients
+   within rel 1e-4 of the CPU's, the loss falling, two card runs and a
+   run saved and resumed torch.equal, steps per second); the QAT recipe
+   from those weights (fine-tune, fake-quant-delta collapse, percentile
+   calibration, certify through the kernel the certificate selects, one
+   launch a frame) and ``infer`` of the result on four 270x480 frames;
+   ``make_qparams`` on sr_x4 (AdaRound, 800 steps a layer, percentile:
+   fully certified, K2) and nr (nearest, minmax: partial, the corrected
+   kernel) from the golden bundles' float weights, per layer the
+   seconds, the share moved and the calibration error, both artifacts
+   served with every output equal to the plain version; ``calibrate
+   --weight-rounding adaround`` on sr_x4 (every weight within a
+   neighbour of nearest); one layer of AdaRound at 120 steps on the card
+   against the CPU (at most 1 % of its weights differ); where the time
+   of a float, a QAT and an AdaRound step goes (torch.profiler: wall,
+   device busy, idle share, device events a step). Each time is printed
+   with the card's name and power limit.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -117,6 +137,10 @@ INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 BAYER_FRAME = (1080, 1920)         # nr / nrdm_6: the sr_x2 output frame, Bayer-sparse
 KL_FRAME = (272, 480)              # phase 8's KL guardrail check, cuda against cpu
+SR4_FRAME = (270, 480)             # phase 9: sr_x4 served, 1080x1920 out
+TRAIN_STEPS, RESUME_AT = 200, 80   # phase 9's float training runs
+QAT_STEPS = 300                    # the QAT recipe's fine-tune
+ADAROUND_CHECK_STEPS = 120         # one layer, card against CPU
 REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238",
             # XLA with no Pallas kernel, reached from :723 packed_exact_forward
@@ -361,7 +385,8 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
 
 
 def breakdown(torch, fn, frames, iters=20):
-    """(wall ms/frame, busy ms/frame, {event: device ms/frame}) of fn()."""
+    """(wall ms/frame, busy ms/frame, {event: device ms/frame}, device
+    events per frame) of fn()."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -377,12 +402,17 @@ def breakdown(torch, fn, frames, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    per = {}
+    per, events = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (the optimizer's "Optimizer.step#Adam.step")
+        # spans the kernels it launched on the device timeline: not work
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             k = _short(e.name)
             per[k] = per.get(k, 0.0) + e.device_time_total / 1e3 / (iters * frames)
-    return wall, sum(per.values()), dict(sorted(per.items(), key=lambda kv: -kv[1]))
+            events += 1
+    return (wall, sum(per.values()), dict(sorted(per.items(), key=lambda kv: -kv[1])),
+            events / (iters * frames))
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
@@ -1133,6 +1163,277 @@ def toolchain_phase(torch, dev, card):
     return launches
 
 
+def expect_launches(what, mode, k2, kc, n):
+    """One launch a frame of the kernel the certificate's ``mode`` selects
+    (K2 for "fast", the corrected kernel otherwise), none of the other."""
+    want = (n, 0) if mode == "fast" else (0, n)
+    if (k2, kc) != want:
+        fail(f"{what}: {mode} mode launched K2 {k2} and sesr_corrected_net {kc} times "
+             f"for {n} frames (want {want})")
+
+
+def training_phase(torch, dev, card):
+    """Phase 9, training and make_qparams on the card: the STE and
+    fake-quant against the CPU, float training of the expanded sr_x4 (cuda
+    against cpu, determinism, save and resume), the QAT recipe from those
+    weights, AdaRound and make_qparams from golden weights, each fresh
+    artifact certified and served through the kernel its certificate
+    selects. TF32 is left on around the phase. Returns, per network kernel
+    and path, (launches, frames)."""
+    import tempfile
+
+    from sesr_tpu_torch import make_qparams
+    from sesr_tpu_torch.cli import main as cli_main
+    from sesr_tpu_torch.cli import serve, training_set
+    from sesr_tpu_torch.config import spec_for_task
+    from sesr_tpu_torch.data import SyntheticDataset
+    from sesr_tpu_torch.deploy import select_forward
+    from sesr_tpu_torch.io.checkpoint import tensor_leaves
+    from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
+    from sesr_tpu_torch.models.expanded import ExpandedBlock, ExpandedParams, init_expanded
+    from sesr_tpu_torch.ops.conv import float_exact
+    from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, reset_launch_counts
+    from sesr_tpu_torch.quant import qat
+    from sesr_tpu_torch.quant.adaround import layer_inputs, optimize_layer_rounding
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.integer import integer_forward, layer_step
+    from sesr_tpu_torch.quant.params import quantize_weights
+
+    torch.backends.cudnn.allow_tf32 = True
+    tag = f"({card})"
+    launches = {"sesr_fast_net": {}, "sesr_corrected_net": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        reset_launch_counts()
+        out, t = timed(fn)
+        return out, t, fast_net.launches, corrected_net.launches
+
+    def served(label, spec, qp, data):
+        """serve() on the card, one launch a frame of the selected kernel,
+        every output equal to its plain version's on the card."""
+        res, t, k2, kc = counted(lambda: serve(spec, qp, data, device="cuda",
+                                               keep_outputs=True))
+        expect_launches(f"infer {label}", res.mode, k2, kc, len(data))
+        kw = {"fast": dict(compute="fast"), "hybrid": dict(
+            fast_layers=tuple(qp.fast_cert_layers)), "pe-exact": {}}[res.mode]
+        for (x, _), y in zip(data, res.outputs):
+            want = integer_forward(spec, qp, torch.from_numpy(x).to(dev), corrected=True,
+                                   **kw)[0]
+            if not torch.equal(torch.from_numpy(y).to(dev), want[0]):
+                fail(f"infer {label}: a served frame differs from the plain version")
+        print(f"[9] infer {label}, {len(data)} frames {data[0][0].shape[1:3]} -> "
+              f"{res.outputs[0].shape}: mode {res.mode}, K2 launches {k2}, sesr_corrected_net "
+              f"{kc}, every output equal to the plain version; mean psnr {res.mean_psnr:.4f}; "
+              f"forward {res.forward_seconds / res.n * 1e3:.3f} ms/frame {tag}", flush=True)
+        launches["sesr_fast_net" if res.mode == "fast" else "sesr_corrected_net"][
+            f"infer_{label.replace(' ', '_')}"] = (k2 + kc, len(data))
+
+    def certified(label, qp, k2, kc, n, seconds):
+        mode = select_forward(qp)[0]
+        expect_launches(f"certify {label}", mode, k2, kc, n)
+        launches["sesr_fast_net" if mode == "fast" else "sesr_corrected_net"][
+            f"certify_{label.replace(' ', '_')}"] = (k2 + kc, n)
+        print(f"[9] {label}: grade {qp.cert_grade} layers {qp.cert_stamps} (mode {mode}) over "
+              f"{qp.fast_cert_images} images; certify's launches K2 {k2}, "
+              f"sesr_corrected_net {kc}; {seconds:.3f} s {tag}", flush=True)
+        return mode
+
+    # 9a. the STE round and fake-quant, values and gradients, card against
+    # CPU; values on the clip bounds included
+    rng = np.random.default_rng(90)
+    ties = 0
+    for q_type, is_weight, lo, hi in ((0, True, -1.0, 1.0), (0, False, -0.7, 1.3),
+                                      (1, False, -0.7, 1.3), (1, True, -0.7, 1.3)):
+        x = rng.uniform(2 * lo, 2 * hi, 1 << 16).astype(np.float32)
+        x[:3] = [lo, hi, 0.5]
+        cot = rng.standard_normal(x.shape).astype(np.float32)
+        got = {}
+        for d in ("cuda", "cpu"):
+            st = qat.QuantizerState(torch.tensor([lo], device=d), torch.tensor([hi], device=d),
+                                    torch.ones((), dtype=torch.int32, device=d))
+            xt = torch.tensor(x, device=d, requires_grad=True)
+            y = qat.fake_quant(xt, st, 8, q_type, is_weight)
+            y.backward(torch.tensor(cot, device=d))
+            got[d] = (y.detach().cpu(), xt.grad.cpu())
+        if not (torch.equal(got["cuda"][0], got["cpu"][0])
+                and torch.equal(got["cuda"][1], got["cpu"][1])):
+            fail(f"fake_quant q_type {q_type} weight {is_weight}: card and CPU differ")
+        half = int((got["cuda"][1] == 0.5 * torch.from_numpy(cot)).sum())
+        ties += half
+        print(f"[9] fake_quant q_type {q_type} weight {is_weight}, {x.size} values: values and "
+              f"STE gradients torch.equal card vs CPU; {half} clip-tie gradients at 0.5",
+              flush=True)
+    if ties == 0:
+        fail("no clip-tie gradient of 0.5 (trap: torch.clamp gives 1)")
+
+    # 9b. float training of the expanded sr_x4 at full width
+    spec = spec_for_task("sr_x4")
+    data = training_set("sr_x4", None, 4)
+    x0, gt0 = data[0][:2]
+    first = {}
+    for d in ("cuda", "cpu"):
+        p = init_expanded(spec, torch.Generator().manual_seed(0))
+        p = ExpandedParams([ExpandedBlock(*(v.to(d).requires_grad_() for v in blk))
+                            for blk in p.blocks])
+        with float_exact():
+            loss, _ = qat.train_loss(spec, None, p, None, torch.from_numpy(x0).to(d),
+                                     torch.from_numpy(gt0).to(d))
+            loss.backward()
+        first[d] = (float(loss), [v.grad.cpu() for v in tensor_leaves(p)])
+    rel_loss = abs(first["cuda"][0] / first["cpu"][0] - 1)
+    rel_grad = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(first["cuda"][1], first["cpu"][1]))
+    print(f"[9] first train step of sr_x4 (expanded, {spec.num_channels} channels, "
+          f"{spec.tmp_channels} expanded), input {x0.shape[1:3]}: loss cuda {first['cuda'][0]:.7f} "
+          f"cpu {first['cpu'][0]:.7f} (rel {rel_loss:.2e}); gradients within rel {rel_grad:.2e} "
+          f"of the largest", flush=True)
+    if not (rel_loss <= 1e-4 and rel_grad <= 1e-4):
+        fail(f"first train step card vs CPU: loss rel {rel_loss}, gradients rel {rel_grad} "
+             f"(bound 1e-4)")
+    train = ["train", "--task", "sr_x4", "--lr", "1e-3", "--seed", "0", "--n-images", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, ta = timed(lambda: cli_main(train + ["--steps", str(TRAIN_STEPS)]))
+        b = cli_main(train + ["--steps", str(TRAIN_STEPS)])
+        state = os.path.join(tmp, "state.pt")
+        cli_main(train + ["--steps", str(RESUME_AT), "--resume", state,
+                          "--save-every", str(RESUME_AT)])
+        c = cli_main(train + ["--steps", str(TRAIN_STEPS - RESUME_AT), "--resume", state])
+    same = all(torch.equal(u, v)
+               for u, v in zip(tensor_leaves(a.params), tensor_leaves(b.params)))
+    resumed = c.start == RESUME_AT and all(
+        torch.equal(u, v) for u, v in zip(tensor_leaves(a.params), tensor_leaves(c.params)))
+    head, tail = float(np.mean(a.losses[:4])), float(np.mean(a.losses[-4:]))
+    print(f"[9] train sr_x4 float, {TRAIN_STEPS} steps of Adam(1e-3) on the CLI's synthetic "
+          f"pairs: {a.steps_per_second:.2f} steps/s ({ta:.3f} s with set-up) {tag}; loss "
+          f"{head:.6f} -> {tail:.6f} (mean of the first and last 4 steps); two card runs "
+          f"torch.equal: {same}; saved at {RESUME_AT} and resumed: torch.equal {resumed}",
+          flush=True)
+    if not (tail < head and same and resumed):
+        fail(f"float training: loss {head} -> {tail}, deterministic {same}, resume {resumed}")
+    if not torch.backends.cudnn.allow_tf32:
+        fail("training left the caller's TF32 setting changed")
+
+    # where a training step's time goes: the float and the QAT step on the
+    # first training pair, and AdaRound's step (50 a call) on layer 1
+    p = ExpandedParams([ExpandedBlock(*(v.detach().clone().requires_grad_() for v in blk))
+                        for blk in a.params.blocks])
+    batch = (torch.from_numpy(x0).to(dev), torch.from_numpy(gt0).to(dev))
+    steps_of = {}
+    for label, cfg in (("float", None), ("QAT", qat.QATConfig())):
+        step = qat.make_train_step(spec, cfg, p, qat.adam(p, 1e-6))
+        qs = qat.prepare(spec, qat.QATConfig(), dev)
+        steps_of[f"train step, {label}"] = (lambda step=step, qs=qs: step(qs, batch), 1)
+
+    def step_breakdown(what, fn, n, iters):
+        wall, busy, per, events = breakdown(torch, fn, n, iters=iters)
+        top = "; ".join(f"{k} {t:.4f}" for k, t in list(per.items())[:4])
+        print(f"[9] where the time goes, {what}: wall {wall:.4f} ms, device busy {busy:.4f} "
+              f"ms, idle share {1.0 - busy / wall:.3f}, {events:.0f} device events a step; "
+              f"largest (device ms a step): {top} {tag}", flush=True)
+
+    for what, (fn, n) in steps_of.items():
+        step_breakdown(what, fn, n, 10)
+
+    # 9c. the QAT recipe from those weights: fine-tune, fake-quant-delta
+    # collapse, calibrate (percentile, safe_zero_floor), certify, serve
+    expanded = ExpandedParams([ExpandedBlock(*(v.detach().cpu() for v in blk))
+                               for blk in a.params.blocks])
+    held_out = list(SyntheticDataset("sr_x4", n=6, hw=(96, 128), seed=77))
+    calib = make_qparams.calibration_images("sr_x4", 8)
+    q, tq, k2, kc = counted(lambda: make_qparams.build_qat_artifact(
+        "sr_x4", expanded, data, held_out, calib, steps=QAT_STEPS, lr=1e-4, device="cuda"))
+    print(f"[9] QAT fine-tune sr_x4, {QAT_STEPS} steps of Adam(1e-4): "
+          f"{QAT_STEPS / q.train_seconds:.2f} steps/s {tag}; loss {q.losses[0]:.6f} -> "
+          f"{q.losses[-1]:.6f}; held-out own-float {q.float_psnr:.3f} dB, int8 "
+          f"{q.int8_psnr:.3f} dB (gap {q.gap:+.3f}); recipe {tq:.3f} s", flush=True)
+    certified("QAT sr_x4", q.built.qp, k2, kc, len(calib), q.built.seconds)
+    sr_frames = list(SyntheticDataset("sr_x4", n=4, hw=(4 * SR4_FRAME[0], 4 * SR4_FRAME[1])))
+    served("QAT sr_x4", spec, q.built.qp, sr_frames)
+
+    # 9d. AdaRound and make_qparams from the golden bundles' float weights
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for task in ("sr_x4", "nr"):
+            with np.load(os.path.join(REPO, "tests", "goldens", f"{task}.npz")) as g:
+                L = int(g["num_convs"])
+                paths[task] = os.path.join(tmp, f"{task}_collapsed.npz")
+                np.savez(paths[task],
+                         **{f"w_{i}": np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0))
+                            for i in range(L)},
+                         **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
+        out = os.path.join(tmp, "built")
+        built = {}
+        for task in ("sr_x4", "nr"):
+            res, t, k2, kc = counted(lambda: make_qparams.main(
+                ["--out-dir", out, "--tasks", task, "--checkpoint", paths[task]]))
+            art = res[task]
+            print(f"[9] make_qparams {task} ({art.rounding}, {art.observer}), {art.images} "
+                  f"calibration images: {t:.3f} s {tag}", flush=True)
+            for i, layer in enumerate(art.layers):
+                print(f"[9]   adaround layer {i}: {layer.seconds:.3f} s, "
+                      f"{layer.moved * 100:.2f}% off nearest, calibration rounding mse "
+                      f"{layer.mse_nearest:.6g} -> {layer.mse_final:.6g} {tag}", flush=True)
+                if layer.mse_final > layer.mse_nearest:
+                    fail(f"adaround {task} layer {i}: mse_final above mse_nearest")
+            mode = certified(f"built {task}", art.qp, k2, kc, art.images, art.seconds)
+            want = "fast" if task == "sr_x4" else "hybrid"
+            if mode != want:
+                fail(f"the built {task} artifact serves {mode}, expected {want}")
+            built[task] = art
+        params_sr = load_reference_checkpoint("sr_x4", path=paths["sr_x4"])
+        # the calibrate command with AdaRound, on the card by default
+        qp_cli, t = timed(lambda: cli_main(
+            ["calibrate", "--task", "sr_x4", "--checkpoint", paths["sr_x4"], "--out",
+             os.path.join(tmp, "qp_cli.npz"), "--weight-rounding", "adaround",
+             "--adaround-steps", "200", "--observer", "percentile", "--no-eval"]))
+    nearest, _ = quantize_weights(params_sr.weights)
+    moved = [float(np.mean(q != n)) for q, n in zip(qp_cli.w_int, nearest)]
+    if not all(np.abs(q.astype(np.int64) - n).max() <= 1
+               for q, n in zip(qp_cli.w_int, nearest)):
+        fail("calibrate --weight-rounding adaround moved a weight beyond a neighbour")
+    print(f"[9] calibrate sr_x4 --weight-rounding adaround --adaround-steps 200 (percentile, "
+          f"4 synthetic images): {t:.3f} s {tag}; share off nearest per layer "
+          f"{[round(m, 4) for m in moved]}", flush=True)
+    if len(built["sr_x4"].layers) != spec.num_convs:
+        fail("the sr_x4 recipe did not run AdaRound on every layer")
+    if not torch.backends.cudnn.allow_tf32:
+        fail("make_qparams left the caller's TF32 setting changed")
+    served("built sr_x4", spec, built["sr_x4"].qp, sr_frames)
+    served("built nr", spec_for_task("nr"), built["nr"].qp,
+           list(SyntheticDataset("nr", n=4, hw=BAYER_FRAME)))
+
+    # 9e. one layer of AdaRound, card against CPU, on the same inputs
+    qp0 = calibrate(spec, params_sr, calib, safe_zero_floor=True, observer="percentile",
+                    device="cuda")
+    states = [(torch.from_numpy(img).to(dev), None) for img in calib]
+    x_in = layer_inputs(qp0, states, 0)
+    states = [layer_step(xs, 0, spec.num_convs, qp0, None, True, False)[2:4] for xs in x_in]
+    xs1 = torch.cat(layer_inputs(qp0, states, 1))
+    r_gpu, t_gpu = timed(lambda: optimize_layer_rounding(
+        params_sr.weights[1], qp0.w_scale[1], xs1, steps=ADAROUND_CHECK_STEPS))
+    r_cpu = optimize_layer_rounding(params_sr.weights[1], qp0.w_scale[1], xs1.cpu(),
+                                    steps=ADAROUND_CHECK_STEPS)
+    differ = float(np.mean(r_gpu.w_int != r_cpu.w_int))
+    print(f"[9] adaround sr_x4 layer 1 ({r_gpu.w_int.size} weights, inputs "
+          f"{tuple(xs1.shape)}), {ADAROUND_CHECK_STEPS} steps: card {t_gpu:.3f} s, "
+          f"{r_gpu.moved * 100:.2f}% moved, cpu {r_cpu.moved * 100:.2f}% moved; w_int differs "
+          f"card vs CPU on {differ * 100:.3f}% of the weights; mse_nearest card "
+          f"{r_gpu.mse_nearest:.6g} cpu {r_cpu.mse_nearest:.6g} {tag}", flush=True)
+    if differ > 0.01:
+        fail(f"adaround card vs CPU: {differ * 100:.2f}% of layer 1's w_int differ (bound 1%)")
+    step_breakdown("AdaRound step (layer 1, 50 steps a call)", lambda: optimize_layer_rounding(
+        params_sr.weights[1], qp0.w_scale[1], xs1, steps=50), 50, 2)
+    torch.backends.cudnn.allow_tf32 = False
+    return launches
+
+
 def main():
     import torch
 
@@ -1492,7 +1793,7 @@ def main():
                        "round trip": lambda: fwd(
                            tspec, tqp, torch.from_numpy(x_np).to(dev)).cpu().numpy()}
             for window, fn in windows.items():
-                wall, busy, per = breakdown(torch, fn, batch)
+                wall, busy, per, _ = breakdown(torch, fn, batch)
                 idle = f"{1.0 - busy / wall}" if busy else "not measured (no device events)"
                 print(f"[6] {task} {window}, batch {batch}: wall {wall} ms/frame, device busy "
                       f"{busy} ms/frame, idle share {idle}", flush=True)
@@ -1506,10 +1807,15 @@ def main():
     t0 = time.perf_counter()
     toolchain_launches = toolchain_phase(torch, dev, card)
     print(f"[8] the toolchain phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    # 9. training, QAT, AdaRound and make_qparams: their launches join too
+    t0 = time.perf_counter()
+    training_launches = training_phase(torch, dev, card)
+    print(f"[9] the training phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     for e in entries:
-        for path, (count, n_frames) in toolchain_launches.get(e["name"], {}).items():
-            e["launches"] += count
-            e["launches_per_frame"][path] = count / n_frames
+        for phase in (toolchain_launches, training_launches):
+            for path, (count, n_frames) in phase.get(e["name"], {}).items():
+                e["launches"] += count
+                e["launches_per_frame"][path] = count / n_frames
 
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

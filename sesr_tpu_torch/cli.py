@@ -2,7 +2,11 @@
 
     python -m sesr_tpu_torch eval-float --task sr_x2 --checkpoint W.npz [--data DIR]
     python -m sesr_tpu_torch calibrate --task sr_x2 --checkpoint W.npz --out QP.npz \
-        [--observer minmax|percentile|kl] [--force] [--no-eval]
+        [--observer minmax|percentile|kl] [--force] [--no-eval] \
+        [--weight-rounding nearest|adaround] [--adaround-steps N]
+    python -m sesr_tpu_torch train --task sr_x4 --steps N [--qat] [--lr LR] [--seed S] \
+        [--init-checkpoint X.pth] [--resume STATE] [--save-every K] [--out W.npz] \
+        [--preview-dir D --preview-every K]
     python -m sesr_tpu_torch certify --task sr_x2 --qparams QP.npz [--out STAMPED.npz]
     python -m sesr_tpu_torch infer --task nr --qparams artifacts/qparams_nr.npz \
         --n-images N [--data DIR] [--batch B] [--out-dtype int8] [--save-dir D] \
@@ -17,15 +21,19 @@ synthetic set of ``--n-images``) and ``--checkpoint`` (float weights: a
 reference ``.pth`` or a collapsed ``.npz`` with ``w_i`` HWIO and ``b_i``;
 default the reference's own checkpoint).
 
-``eval-float`` scores the float network; ``calibrate`` turns its weights
-into an artifact; ``certify`` stamps an artifact with the proofs of where
+``train`` trains the expanded network (float, or fake-quant with
+``--qat``), saves and resumes its whole state, and writes the collapsed
+weights the other commands read; ``eval-float`` scores the float network;
+``calibrate`` turns its weights into an artifact, re-rounding them with
+AdaRound on request; ``certify`` stamps an artifact with the proofs of where
 the fast datapath is exact; ``infer`` serves a dataset through the
 certificate-selected deployment forward and scores it, with ``--audit N``
 shadow-running the PE-exact interpreter on every Nth dispatch; ``sim`` runs
 the reference-exact simulation, or with ``--corrected`` the corrected
 datapath. Each command is a thin shell around a function (``evaluate_float``,
-``serve``, ``simulate``, ``calibrate``, ``certify_fast``) that callers can
-drive with their own data.
+``serve``, ``simulate``, ``calibrate``, ``adaround_weights``,
+``certify_fast``, ``make_train_step``) that callers can drive with their
+own data. ``python -m sesr_tpu_torch.make_qparams`` builds artifacts.
 """
 
 from __future__ import annotations
@@ -41,24 +49,34 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from sesr_tpu_torch.config import SESRSpec, spec_for_task
-from sesr_tpu_torch.data import RawBayerDataset, SRFolderDataset, SyntheticDataset
+from sesr_tpu_torch.config import REFERENCE_CHECKPOINTS, SESRSpec, spec_for_task
+from sesr_tpu_torch.data import (RawBayerDataset, SRFolderDataset, SyntheticDataset,
+                                 TrainBayerDataset)
 from sesr_tpu_torch.data.datasets import SR_SCALE
 from sesr_tpu_torch.deploy import select_forward
-from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
+from sesr_tpu_torch.io.checkpoint import (load_training_state, save_training_state,
+                                          tensor_leaves)
+from sesr_tpu_torch.io.torch_import import (checkpoint_path, load_reference_checkpoint,
+                                            numpy_state_dict, save_collapsed_npz)
 from sesr_tpu_torch.metrics import evaluate_pair
+from sesr_tpu_torch.models.expanded import (ExpandedParams, ExpandedSESR, collapse_expanded,
+                                            collapse_expanded_qat, expanded_from_state_dict,
+                                            forward_expanded, init_expanded)
 from sesr_tpu_torch.models.sesr import CollapsedParams, forward_float
 from sesr_tpu_torch.ops.corrected import pe_exact_corrected_forward
 from sesr_tpu_torch.ops.kernels import OUT_DTYPES
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
 from sesr_tpu_torch.png import save_png
 from sesr_tpu_torch.quant.audit import audit_frame, empirically_trusted_layers
-from sesr_tpu_torch.quant.calibrate import (OBSERVERS, ObserverRegressionWarning,
+from sesr_tpu_torch.quant.adaround import adaround_weights
+from sesr_tpu_torch.quant.calibrate import (OBSERVERS, ObserverRegressionWarning, calibrate,
                                             fake_quant_forward, guarded_calibrate)
 from sesr_tpu_torch.quant.certify import (certify_fast, static_layer_stamps,
                                           static_shortcut_safe)
 from sesr_tpu_torch.quant.integer import dequantize_output, integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
+from sesr_tpu_torch.quant.qat import (QATConfig, QATState, adam, device_batches,
+                                     make_train_step, prepare, run_steps)
 
 
 @dataclasses.dataclass
@@ -265,12 +283,21 @@ def cmd_calibrate(args) -> QuantParams:
     spec = spec_for_task(args.task)
     params = _load_params(args)
     data = list(dataset_for(args.task, args.data, args.n_images))
+    extra = {}
+    if args.weight_rounding == "adaround":
+        # a nearest-rounding calibration drives the layer-by-layer rounding;
+        # the guarded calibration and its minmax control then both run at
+        # the optimized w_int, so the observer comparison stays fair
+        images = [d[0] for d in data]
+        qp0 = calibrate(spec, params, images, observer=args.observer, device=args.device)
+        extra["w_int_override"] = [r.w_int for r in adaround_weights(
+            spec, params, qp0, images, steps=args.adaround_steps, device=args.device)]
     # the observer guardrail: a loss of more than 1 dB of ground-truth PSNR
     # against minmax is an error unless --force keeps the observer anyway
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always", ObserverRegressionWarning)
         qp = guarded_calibrate(spec, params, data, args.task, observer=args.observer,
-                               device=args.device)
+                               device=args.device, **extra)
     for w in caught:
         if not issubclass(w.category, ObserverRegressionWarning):
             warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
@@ -320,6 +347,106 @@ def cmd_certify(args) -> QuantParams:
         qp2.save(args.out)
         print(f"stamped artifact -> {args.out}")
     return qp2
+
+
+@dataclasses.dataclass
+class TrainResult:
+    params: ExpandedParams            # trained, on the run's device
+    qstate: QATState                  # the QAT observers (fresh when not --qat)
+    losses: List[float]               # per step of this run
+    start: int                        # the step this run started from (resume)
+    seconds: float                    # host clock around the steps, synchronized
+    collapsed: Optional[CollapsedParams] = None   # what --out wrote
+
+    @property
+    def steps_per_second(self) -> float:
+        return len(self.losses) / self.seconds
+
+
+def training_set(task: str, data: Optional[str], n_images: int) -> list:
+    """(inp, gt[, variance]) items: random crops of a .raw Bayer tree for
+    the Bayer tasks with ``data``, else ``dataset_for``'s set."""
+    if data and task not in SR_SCALE:
+        return list(TrainBayerDataset(data))
+    return list(dataset_for(task, data, n_images))
+
+
+def _initial_weights(spec: SESRSpec, args) -> ExpandedParams:
+    if not args.init_checkpoint:
+        return init_expanded(spec, torch.Generator().manual_seed(args.seed))
+    # a warm start from an uncollapsed float checkpoint (expand / squeeze
+    # shapes), the reference's own training recipe
+    ckpt = args.init_checkpoint
+    if ckpt == "reference":
+        ckpt = checkpoint_path(REFERENCE_CHECKPOINTS[args.task], None)
+    try:
+        params = expanded_from_state_dict(spec, numpy_state_dict(ckpt))
+    except KeyError as e:
+        raise SystemExit(f"--init-checkpoint {ckpt}: missing {e}; a warm start needs an "
+                         f"UNCOLLAPSED (expand / squeeze) float checkpoint like the "
+                         f"reference's *_raw_G.pth / *_G.pth files")
+    print(f"warm start from {ckpt}")
+    return params
+
+
+def cmd_train(args) -> TrainResult:
+    """Float or QAT training of the expanded network: Adam + MSE, with
+    save / resume of the whole training state (--resume), preview PNGs and
+    the collapsed weights (--out) that eval-float, calibrate and certify
+    read."""
+    spec = spec_for_task(args.task)
+    device = torch.device(args.device)
+    model = ExpandedSESR(spec, _initial_weights(spec, args)).to(device)
+    params = model.params()
+    cfg = QATConfig() if args.qat else None
+    qstate = prepare(spec, cfg or QATConfig(), device)
+    opt = adam(params, args.lr)
+    start = 0
+    if args.resume and os.path.exists(args.resume):
+        saved, qstate, opt_state, start = load_training_state(args.resume, params, qstate)
+        with torch.no_grad():
+            for p, v in zip(tensor_leaves(params), tensor_leaves(saved)):
+                p.copy_(v)
+        opt.load_state_dict(opt_state)
+        print(f"resumed from {args.resume} at step {start}")
+    step = make_train_step(spec, cfg, params, opt)
+    data = training_set(args.task, args.data, args.n_images)
+
+    def preview(it):
+        # the output on the first training input, as a PNG
+        os.makedirs(args.preview_dir, exist_ok=True)
+        inp = data[0][0]
+        with torch.no_grad():
+            y = forward_expanded(spec, params, inp, device=device)[0].cpu().numpy()
+        if spec.global_input_skip:
+            # sr_x2 predicts a residual: preview the image
+            r = spec.scaling_factor
+            y = y + np.repeat(np.repeat(inp[0], r, axis=0), r, axis=1)
+        save_png(y, os.path.join(args.preview_dir, f"preview_{it:06d}.png"))
+
+    def after(it, qstate, loss):
+        if (it - start) % max(1, args.steps // 10) == 0:
+            print(f"step {it}: loss {float(loss):.6f}")
+        if args.preview_dir and args.preview_every > 0 and (it + 1) % args.preview_every == 0:
+            preview(it + 1)
+        if args.resume and (it + 1) % args.save_every == 0:
+            save_training_state(args.resume, params, qstate, opt.state_dict(), it + 1)
+
+    qstate, losses, seconds = run_steps(step, qstate, device_batches(data, device), start,
+                                        args.steps, after)
+    if args.resume:
+        save_training_state(args.resume, params, qstate, opt.state_dict(), start + args.steps)
+    print(f"{args.steps} steps in {seconds:.1f}s ({args.steps / max(seconds, 1e-9):.2f} "
+          f"steps/s on {device.type})")
+    res = TrainResult(params, qstate, losses, start, seconds)
+    if args.out:
+        # QAT-trained weights collapse through the fake-quant delta
+        # response, the reference's own qat deployment composition
+        res.collapsed = (collapse_expanded_qat if args.qat else collapse_expanded)(spec, params)
+        save_collapsed_npz(args.out, res.collapsed)
+        print(f"collapsed checkpoint -> {args.out}"
+              + (" (fake-quant-delta collapse)" if args.qat else ""))
+    return res
 
 
 def cmd_infer(args) -> ServeResult:
@@ -414,9 +541,11 @@ def main(argv=None):
                    help="keep the chosen observer even when it loses more than 1 dB "
                         "against minmax on the calibration set")
     p.add_argument("--no-eval", action="store_true")
-    p.add_argument("--weight-rounding", default="nearest", choices=["nearest"],
-                   help="round-to-nearest weights; adaptive rounding (adaround) is "
-                        "not ported yet")
+    p.add_argument("--weight-rounding", default="nearest", choices=["nearest", "adaround"],
+                   help="round-to-nearest weights, or adaptive rounding fitted layer by "
+                        "layer on the calibration set (quant/adaround.py)")
+    p.add_argument("--adaround-steps", type=int, default=800,
+                   help="optimizer steps per layer of --weight-rounding adaround")
     p.set_defaults(fn=cmd_calibrate)
 
     p = sub.add_parser("certify", help="stamp an artifact with the proofs of where "
@@ -424,6 +553,29 @@ def main(argv=None):
     common(p, qparams=True)
     p.add_argument("--out", default=None, help="write the stamped artifact here")
     p.set_defaults(fn=cmd_certify)
+
+    p = sub.add_parser("train", help="float / QAT training of the expanded network")
+    common(p)
+    p.add_argument("--qat", action="store_true",
+                   help="fake-quant training (quant/qat.py); --out then collapses "
+                        "through the fake-quant delta response")
+    p.add_argument("--init-checkpoint", default=None,
+                   help="warm start from an uncollapsed reference .pth ('reference': "
+                        "the task's own under SESR_REFERENCE_ROOT); default random "
+                        "weights from --seed")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=None,
+                   help="write the collapsed weights (w_i HWIO, b_i) to exactly this path")
+    p.add_argument("--resume", default=None,
+                   help="training-state file to save to and resume from")
+    p.add_argument("--save-every", type=int, default=50)
+    p.add_argument("--preview-dir", default=None,
+                   help="write the output on the first training input here as a PNG")
+    p.add_argument("--preview-every", type=int, default=0,
+                   help="steps between preview PNGs (0 = off)")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("infer", help="deployment inference, scored on a "
                                      "dataset (default: the synthetic set)")

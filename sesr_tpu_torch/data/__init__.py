@@ -2,7 +2,8 @@
 conversions behind them."""
 
 from sesr_tpu_torch.data.datasets import (RawBayerDataset, SRFolderDataset,
-                                          SyntheticDataset, task_pair_from_image)
+                                          SyntheticDataset, TrainBayerDataset,
+                                          TrainMatDataset, task_pair_from_image)
 
-__all__ = ["RawBayerDataset", "SRFolderDataset", "SyntheticDataset",
-           "task_pair_from_image"]
+__all__ = ["RawBayerDataset", "SRFolderDataset", "SyntheticDataset", "TrainBayerDataset",
+           "TrainMatDataset", "task_pair_from_image"]

@@ -60,3 +60,42 @@ def add_noise(image: np.ndarray, shot_noise: float, read_noise: float,
     variance = image * shot_noise + read_noise
     noisy = image + rng.normal(size=image.shape) * np.sqrt(variance)
     return noisy.astype(np.float32), variance.astype(np.float32)
+
+
+def expand_bayer_plane_dense(raw_hw: np.ndarray) -> np.ndarray:
+    """Single Bayer plane (H, W) -> DENSE 3-channel (3, H, W), the train
+    loader's packing (the test loader's is sparse): red and blue fill all
+    four sites of their 2x2 cell, each green fills its own row of the
+    cell (G_r row 0, G_b row 1)."""
+    out = np.zeros((3,) + raw_hw.shape, np.float32)
+    r, b = raw_hw[0::2, 0::2], raw_hw[1::2, 1::2]
+    gr, gb = raw_hw[0::2, 1::2], raw_hw[1::2, 0::2]
+    for dy in (0, 1):
+        for dx in (0, 1):
+            out[0, dy::2, dx::2] = r
+            out[2, dy::2, dx::2] = b
+    out[1, 0::2, 1::2] = gr
+    out[1, 0::2, 0::2] = gr
+    out[1, 1::2, 0::2] = gb
+    out[1, 1::2, 1::2] = gb
+    return out
+
+
+def augment_8way(img: np.ndarray, mode: int) -> np.ndarray:
+    """The reference's 8-way dihedral augmentation: identity, flipud, and
+    rot90 k = 1..3, each without and with flipud."""
+    if mode == 0:
+        return img
+    if mode == 1:
+        return np.ascontiguousarray(np.flipud(img))
+    out = np.rot90(img, k=mode // 2)
+    if mode % 2 == 1:
+        out = np.flipud(out)
+    return np.ascontiguousarray(out)
+
+
+def rggb_to_linrgb(rggb_hw4: np.ndarray) -> np.ndarray:
+    """(H, W, 4) RGGB planes -> (H, W, 3) linear RGB, the two greens
+    averaged."""
+    return np.stack((rggb_hw4[:, :, 0], np.mean(rggb_hw4[:, :, 1:3], axis=-1),
+                     rggb_hw4[:, :, 3]), axis=2)

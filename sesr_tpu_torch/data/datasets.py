@@ -2,7 +2,8 @@
 the synthetic set (smooth random images through the task's degradation:
 stride subsampling for super-resolution, the Bayer mosaic and shot/read
 noise for nr, dm, nrdm_3 and nrdm_6), Set5/Set14-style super-resolution
-folders, and DIV2K-RAW-style Bayer planes. Images are read with the
+folders, DIV2K-RAW-style Bayer planes, and the two training loaders
+(random crops of Bayer planes, and of 14-bit RGGB ``.mat`` crops). Images are read with the
 port's own PNG reader (``sesr_tpu_torch/png.py``). Every item is NHWC
 float32 in [0, 1].
 """
@@ -15,8 +16,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from sesr_tpu_torch.data.bayer import (add_noise, expand_bayer_plane, four2three,
-                                       mosaic, random_noise_levels)
+from sesr_tpu_torch.data.bayer import (add_noise, augment_8way, expand_bayer_plane,
+                                       expand_bayer_plane_dense, four2three, mosaic,
+                                       random_noise_levels, rggb_to_linrgb)
 from sesr_tpu_torch.png import imread_rgb
 
 SR_SCALE = {"sr_x2": 2, "sr_x4": 4}
@@ -93,7 +95,7 @@ class RawBayerDataset:
     def __getitem__(self, i) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         path = self.raw_paths[i]
         base = os.path.basename(path)
-        ww, hh = int(base.split("_")[1]), int(base.split("_")[-1][:-4])
+        ww, hh = _raw_size(path)
         raw = np.fromfile(path, dtype=np.uint16).reshape(ww, hh)
         inp = expand_bayer_plane(raw.astype(np.float32) / (2 ** 12 - 1))
         if self.add_test_noise:
@@ -109,6 +111,159 @@ class RawBayerDataset:
         inp = np.clip(inp, 0, 1).transpose(1, 2, 0)           # CHW -> HWC
         return (inp[None].astype(np.float32), gt[None].astype(np.float32),
                 variance.transpose(1, 2, 0)[None])
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+def _raw_size(path: str) -> Tuple[int, int]:
+    """(rows, columns) from a name_R_C.raw file name."""
+    base = os.path.basename(path)
+    return int(base.split("_")[1]), int(base.split("_")[-1][:-4])
+
+
+class TrainBayerDataset:
+    """Training triples from a DIV2K-RAW-style tree: random even-aligned
+    ``ps`` x ``ps`` crops of name_R_C.raw uint16 Bayer planes (12-bit)
+    beside name.png, the 12-bit ground truth, with shot/read noise.
+
+    Items are (inp, gt, variance), NHWC float32. Reference quirks kept:
+    the variance is computed from the NOISY input, and the train-time
+    packing is the DENSE 2x2 replication (``expand_bayer_plane_dense``),
+    not the test loader's sparse one. The crop and the noise come from one
+    generator seeded with ``seed``, in the JAX loader's order."""
+
+    def __init__(self, raw_dir: str, png_dir: Optional[str] = None, ps: int = 128,
+                 seed: int = 0):
+        self.raw_paths = sorted(glob.glob(os.path.join(raw_dir, "*.raw")))
+        if not self.raw_paths:
+            raise FileNotFoundError(f"no .raw files under {raw_dir}")
+        self.png_dir = png_dir
+        self.ps = ps
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.raw_paths)
+
+    def __getitem__(self, i) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        path = self.raw_paths[i]
+        ww, hh = _raw_size(path)
+        raw = np.fromfile(path, dtype=np.uint16).reshape(ww, hh)
+        png = os.path.join(self.png_dir or os.path.dirname(path),
+                           os.path.basename(path).split("_")[0] + ".png")
+        gt = imread_rgb(png, bit_depth=12)
+        ps = self.ps
+        # an even-aligned crop keeps the RGGB phase
+        bii = int(self.rng.integers(0, max(ww - ps, 1))) // 2 * 2
+        bjj = int(self.rng.integers(0, max(hh - ps, 1))) // 2 * 2
+        patch = raw[bii:bii + ps, bjj:bjj + ps]
+        gt = gt[bii:bii + ps, bjj:bjj + ps]
+        inp = expand_bayer_plane_dense(patch.astype(np.float32) / (2 ** 12 - 1))
+        shot, read = random_noise_levels(self.rng)
+        inp, _ = add_noise(inp, shot, read, self.rng)
+        variance = shot * inp + read
+        inp = np.clip(inp, 0, 1).transpose(1, 2, 0)
+        return (inp[None].astype(np.float32), np.clip(gt, 0, 1)[None].astype(np.float32),
+                variance.transpose(1, 2, 0)[None].astype(np.float32))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+def _cubic_taps(n_src: int, n_dst: int, scale: float):
+    """Per output position, the four source indices (edge-replicated) and
+    the float32 weights of OpenCV's INTER_CUBIC (A = -0.75) at the
+    half-pixel-centred source coordinate."""
+    a = np.float32(-0.75)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    x = (f - s.astype(np.float32)).astype(np.float32)
+    one = np.float32(1)
+    c0 = ((a * (x + one) - 5 * a) * (x + one) + 8 * a) * (x + one) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + one
+    c2 = ((a + 2) * (one - x) - (a + 3)) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(s[:, None] + np.arange(-1, 3)[None, :], 0, n_src - 1)
+    return idx, [c.astype(np.float32) for c in (c0, c1, c2, c3)]
+
+
+def bicubic_resize(img_hw: np.ndarray, factor: float) -> np.ndarray:
+    """Bicubic resize of a 2-D float image by ``factor``, OpenCV
+    INTER_CUBIC's taps and float32 weights (the reference's downscale),
+    in the image's own precision: the rows first, then the columns, four
+    taps each, edges replicated."""
+    img = np.asarray(img_hw)
+    if img.dtype not in (np.float32, np.float64):
+        img = img.astype(np.float32)
+    h, w = img.shape
+    oh, ow = int(round(h * factor)), int(round(w * factor))
+    xi, (a0, a1, a2, a3) = _cubic_taps(w, ow, 1.0 / factor)
+    a0, a1, a2, a3 = (a.astype(img.dtype) for a in (a0, a1, a2, a3))
+    rows = (((img[:, xi[:, 0]] * a0 + img[:, xi[:, 1]] * a1) + img[:, xi[:, 2]] * a2)
+            + img[:, xi[:, 3]] * a3)
+    yi, (b0, b1, b2, b3) = _cubic_taps(h, oh, 1.0 / factor)
+    b0, b1, b2, b3 = (b.astype(img.dtype)[:, None] for b in (b0, b1, b2, b3))
+    return (((rows[yi[:, 0]] * b0 + rows[yi[:, 1]] * b1) + rows[yi[:, 2]] * b2)
+            + rows[yi[:, 3]] * b3)
+
+
+class TrainMatDataset:
+    """Training triples from 14-bit RGGB-plane ``.mat`` crops, the
+    reference's primary train loader: a random ``ps`` crop, the greens
+    averaged into linear RGB, the 8-way dihedral augmentation, then the
+    task's degradation (gamma, luma and a bicubic 1/4 downscale for sr_x4;
+    the RGGB mosaic and shot/read noise for nr and nrdm, the mosaic alone
+    for dm). Items are (inp, gt, variance) NHWC float32; the variance is
+    computed from the NOISY planes (the reference's quirk), a 0-d zero
+    where there is no noise. ``.mat`` files are read with scipy."""
+
+    TASKS = ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4")
+
+    def __init__(self, mat_dir: str, task: str, ps: int = 128, key: str = "mat_crop",
+                 seed: int = 0):
+        if task not in self.TASKS:
+            raise ValueError(f"TrainMatDataset serves {self.TASKS}, got {task!r}")
+        self.paths = sorted(glob.glob(os.path.join(mat_dir, "*.mat")))
+        if not self.paths:
+            raise FileNotFoundError(f"no .mat files under {mat_dir}")
+        self.task, self.ps, self.key = task, ps, key
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        import scipy.io
+
+        img = np.asarray(scipy.io.loadmat(self.paths[i])[self.key]) / (2 ** 14 - 1.0)
+        ww, hh = img.shape[:2]
+        ps = self.ps
+        bii = int(self.rng.integers(0, max(ww - ps, 1)))
+        bjj = int(self.rng.integers(0, max(hh - ps, 1)))
+        linrgb = rggb_to_linrgb(img[bii:bii + ps, bjj:bjj + ps, :])
+        linrgb = np.clip(augment_8way(linrgb, int(self.rng.integers(0, 8))), 0, 1)
+        if self.task == "sr_x4":
+            linrgb = linrgb ** (1 / 2.2)
+            gt = 0.299 * linrgb[:, :, 0] + 0.587 * linrgb[:, :, 1] + 0.114 * linrgb[:, :, 2]
+            inp = bicubic_resize(gt, 1 / 4.0)
+            return (inp[None, :, :, None].astype(np.float32),
+                    gt[None, :, :, None].astype(np.float32), np.zeros((), np.float32))
+        four = mosaic(np.clip(linrgb, 0, 1).transpose(2, 0, 1))
+        shot, read = random_noise_levels(self.rng)
+        if self.task == "dm":
+            gt, inp, variance = linrgb, four2three(four), np.zeros((), np.float32)
+        else:
+            gt = four2three(four).transpose(1, 2, 0) if self.task == "nr" else linrgb
+            noisy, _ = add_noise(four, shot, read, self.rng)
+            variance = (shot * noisy + read).astype(np.float32)
+            inp = four2three(noisy)
+        inp = np.clip(inp.transpose(1, 2, 0), 0, 1)
+        if variance.ndim:
+            variance = variance.transpose(1, 2, 0)[None]
+        return (inp[None].astype(np.float32), np.clip(np.asarray(gt), 0, 1)[None]
+                .astype(np.float32), variance)
 
     def __iter__(self):
         for i in range(len(self)):

@@ -46,7 +46,9 @@ QAT_CHECKPOINTS = {
 _F32EPS = np.float32(np.finfo(np.float32).eps)
 
 
-def _checkpoint_path(name: str, reference_root: Optional[str]) -> str:
+def checkpoint_path(name: str, reference_root: Optional[str]) -> str:
+    """The reference's checkpoint ``name`` under ``reference_root`` (else
+    SESR_REFERENCE_ROOT, else ./reference); FileNotFoundError if absent."""
     root = reference_root or os.environ.get("SESR_REFERENCE_ROOT", "reference")
     path = os.path.join(root, "model_params", name)
     if not os.path.exists(path):
@@ -57,7 +59,8 @@ def _checkpoint_path(name: str, reference_root: Optional[str]) -> str:
     return path
 
 
-def _to_numpy_state(path: str) -> Dict[str, np.ndarray]:
+def numpy_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reference .pth (or the dict-wrapped .pth.tar) as numpy arrays."""
     state = torch.load(path, map_location="cpu", weights_only=False)
     if "state_dict" in state and not any(k.endswith(".weight") for k in state):
         state = state["state_dict"]
@@ -65,7 +68,7 @@ def _to_numpy_state(path: str) -> Dict[str, np.ndarray]:
             if hasattr(v, "detach")}
 
 
-def _block_names(spec: SESRSpec):
+def block_names(spec: SESRSpec):
     return (["conv_first"] + [f"residual_block.{i}" for i in range(spec.num_lblocks)]
             + ["conv_last"])
 
@@ -73,7 +76,7 @@ def _block_names(spec: SESRSpec):
 def collapse_state_dict(spec: SESRSpec, state: Dict[str, np.ndarray]) -> CollapsedParams:
     """Collapse an (uncollapsed) reference state dict into CollapsedParams."""
     weights, biases = [], []
-    for i, name in enumerate(_block_names(spec)):
+    for i, name in enumerate(block_names(spec)):
         w_exp = state[f"{name}.conv_expand.weight"]
         if w_exp.ndim != 4:
             raise ValueError(f"unexpected shape for {name}: {w_exp.shape}")
@@ -135,7 +138,7 @@ def collapse_state_dict_qat(spec: SESRSpec, state: Dict[str, np.ndarray]) -> Col
     """collapse_state_dict for the qatf="qat_" composition: every block
     through the fake-quant delta response."""
     weights, biases = [], []
-    for i, name in enumerate(_block_names(spec)):
+    for i, name in enumerate(block_names(spec)):
         w, b = qat_collapse_block(state[f"{name}.conv_expand.weight"],
                                   state[f"{name}.conv_squeeze.weight"],
                                   state[f"{name}.conv_squeeze.bias"])
@@ -157,7 +160,7 @@ def load_qat_add_bounds(task: str, reference_root: Optional[str] = None):
     name = QAT_CHECKPOINTS[task]
     if name is None:
         return 0.0, 0.0
-    ck = torch.load(_checkpoint_path(name, reference_root), map_location="cpu")
+    ck = torch.load(checkpoint_path(name, reference_root), map_location="cpu")
     lo = min(float(ck["add_residual.observer_res.min_val"]),
              float(ck["add_residual.observer_shortcut.min_val"]))
     hi = max(float(ck["add_residual.observer_res.max_val"]),
@@ -188,6 +191,15 @@ def load_collapsed_npz(task: str, path: str) -> CollapsedParams:
     return CollapsedParams(ws, bs)
 
 
+def save_collapsed_npz(path: str, params: CollapsedParams) -> None:
+    """Write collapsed weights as w_i (HWIO) / b_i to exactly ``path``
+    (through an open file: ``np.savez`` given a name appends ``.npz`` to a
+    path without that suffix)."""
+    with open(path, "wb") as f:
+        np.savez(f, **{f"w_{i}": np.asarray(w) for i, w in enumerate(params.weights)},
+                 **{f"b_{i}": np.asarray(b) for i, b in enumerate(params.biases)})
+
+
 def load_reference_checkpoint(task: str, path: Optional[str] = None,
                               reference_root: Optional[str] = None,
                               qat: bool = False) -> CollapsedParams:
@@ -205,6 +217,6 @@ def load_reference_checkpoint(task: str, path: Optional[str] = None,
         return load_collapsed_npz(task, path)
     if path is None:
         name = (QAT_CHECKPOINTS.get(task) if qat else None) or REFERENCE_CHECKPOINTS[task]
-        path = _checkpoint_path(name, reference_root)
-    state = _to_numpy_state(path)
+        path = checkpoint_path(name, reference_root)
+    state = numpy_state_dict(path)
     return collapse_state_dict_qat(spec, state) if qat else collapse_state_dict(spec, state)

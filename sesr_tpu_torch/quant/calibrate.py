@@ -38,7 +38,7 @@ from sesr_tpu_torch.quant.integer import (as_input, integer_forward, pe_channel_
 from sesr_tpu_torch.quant.observers import (BINS_NUM, histogram_on_device, kl_bounds,
                                             percentile_bounds)
 from sesr_tpu_torch.quant.params import CalibState, QuantParams, finalize, quantize_weights
-from sesr_tpu_torch.quant.qat import quant_add_frozen
+from sesr_tpu_torch.quant.frozen_add import quant_add_frozen
 
 OBSERVERS = ("minmax", "percentile", "kl")
 

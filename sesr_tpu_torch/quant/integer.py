@@ -21,7 +21,7 @@ wiring, per conv i:
 MFLAG 1/2 composition, where the model's float AddOp stays in the graph
 ahead of the last conv, so the shortcut is added twice: a quirk the nr and
 dm goldens pin) and "graph_add_qat" (that AddOp swapped for the frozen
-QuantAdd of the qatf="qat_" composition, ``quant/qat.py``).
+QuantAdd of the qatf="qat_" composition, ``quant/frozen_add.py``).
 
 ``corrected=True`` is the deployment datapath: no restoration, the clipped
 ``bias_int`` as the bias, and the residual add of the rounded operands at
@@ -47,7 +47,7 @@ from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, pixel_shuffle_nhwc
 from sesr_tpu_torch.ops.fixedpoint import apply_requant_f32, saturate
 from sesr_tpu_torch.quant.params import QuantParams
-from sesr_tpu_torch.quant.qat import quant_add_frozen
+from sesr_tpu_torch.quant.frozen_add import quant_add_frozen
 
 COMPUTE_MODES = ("exact", "fast")
 RESIDUAL_MODES = ("sim", "graph_add", "graph_add_qat")
@@ -176,6 +176,34 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
             ovf18, ovf20)
 
 
+def layer_input(h, i: int, L: int, qp: QuantParams, shortcut, corrected: bool):
+    """Step 1 of conv i: (x_q, x_shift), the int8 value the conv reads and
+    x_q - max(zero, -128), the value it convolves."""
+    x_q = _domain_in(h, i, L, qp, shortcut, corrected)
+    return x_q, x_q - float(qp.effective_zero(i))
+
+
+def layer_step(x_shift: torch.Tensor, i: int, L: int, qp: QuantParams, shortcut,
+               corrected: bool, dense: bool):
+    """Steps 2-6 of conv i, the one layer step of ``integer_forward`` and of
+    adaptive rounding's input collection: (pe_out, pe_add, h, shortcut,
+    out_q, ovf18, ovf20). h is the next conv's input (after the ReLU), or
+    for the last conv the dequantized output; conv 0 sets the shortcut;
+    out_q is the last conv's int8 output (None before it)."""
+    pe_out, pe_add, y, ovf18, ovf20 = _integer_conv_pe(x_shift, i, qp, corrected, dense)
+    h = apply_requant_f32(y, qp.requant_m[i], qp.requant_n[i])
+    if i == 0:
+        shortcut = torch.relu(h)
+    out_q = None
+    if i == L - 1:
+        qmin, qmax = quant_limits(qp)
+        out_q = torch.clamp(torch.round(h + float(qp.a_zero[L])), qmin, qmax)
+        h = dequantize_output(out_q, qp)
+    else:
+        h = torch.relu(h)
+    return pe_out, pe_add, h, shortcut, out_q, ovf18, ovf20
+
+
 def integer_forward(spec: SESRSpec, qp: QuantParams, x,
                     collect_dumps: bool = False, corrected: bool = False,
                     compute: str = "exact", device=None, fast_layers=None,
@@ -222,7 +250,6 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
         raise ValueError(f"fast_layers takes one flag per layer ({L}) of the "
                          f"corrected datapath, got {fast_layers!r}")
     dense = [compute == "fast" or bool(fast_layers and fast_layers[i]) for i in range(L)]
-    qmin, qmax = quant_limits(qp)
     h = as_input(x, device)
     shortcut = None
     dumps: Dict[str, torch.Tensor] = {}
@@ -230,19 +257,10 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     for i in range(L):
         if i == L - 1 and residual_mode != "sim":
             h = graph_residual(h, shortcut, qp, residual_mode, qat_add_bounds)
-        x_q = _domain_in(h, i, L, qp, shortcut, corrected)
-        x_shift = x_q - float(qp.effective_zero(i))
-        pe_out, pe_add, y, ovf18, ovf20 = _integer_conv_pe(
-            x_shift, i, qp, corrected, dense[i])
+        x_q, x_shift = layer_input(h, i, L, qp, shortcut, corrected)
+        pe_out, pe_add, h, shortcut, out_q, ovf18, ovf20 = layer_step(
+            x_shift, i, L, qp, shortcut, corrected, dense[i])
         overflows.append(torch.stack([ovf18, ovf20]))
-        h = apply_requant_f32(y, qp.requant_m[i], qp.requant_n[i])
-        if i == 0:
-            shortcut = torch.relu(h)
-        if i == L - 1:
-            out_q = torch.clamp(torch.round(h + float(qp.a_zero[L])), qmin, qmax)
-            h = dequantize_output(out_q, qp)
-        else:
-            h = torch.relu(h)
         if collect_dumps:
             dumps[f"input.{i}"] = x_q
             dumps[f"pe_out.{i}"] = pe_out

@@ -34,7 +34,7 @@ from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 QP = os.path.join(REPO, "artifacts", "qparams_sr_x2.npz")
 QP_NR = os.path.join(REPO, "artifacts", "qparams_nr.npz")
-FORBIDDEN = {"jax", "jaxlib", "sesr_tpu", "tools"}
+FORBIDDEN = {"jax", "jaxlib", "sesr_tpu", "tools", "optax", "flax"}
 
 
 def _psnr_line(text):
@@ -268,9 +268,11 @@ def test_calibrate_kl_guardrail_and_adaround_refused(tmp_path, capsys):
     qp = cli.main(args + ["--out", str(tmp_path / "kl.npz"), "--device", "cpu", "--force"])
     assert "WARNING (forced)" in capsys.readouterr().err
     assert QuantParams.load(str(tmp_path / "kl.npz")).a_scale == qp.a_scale
+    # adaround is a choice since the rounding was ported
+    # (tests/test_torch_adaround.py); another name is still refused
     with pytest.raises(SystemExit):
-        cli.main(args + ["--out", str(tmp_path / "x.npz"), "--weight-rounding", "adaround"])
-    assert "invalid choice: 'adaround'" in capsys.readouterr().err
+        cli.main(args + ["--out", str(tmp_path / "x.npz"), "--weight-rounding", "stochastic"])
+    assert "invalid choice: 'stochastic'" in capsys.readouterr().err
 
 
 def test_import_boundary():
@@ -279,7 +281,9 @@ def test_import_boundary():
             "sesr_tpu_torch.io.torch_import, sesr_tpu_torch.quant.qat, "
             "sesr_tpu_torch.quant.observers, sesr_tpu_torch.quant.calibrate, "
             "sesr_tpu_torch.quant.strict, sesr_tpu_torch.quant.certify, "
-            "sesr_tpu_torch.quant.audit, "
+            "sesr_tpu_torch.quant.audit, sesr_tpu_torch.quant.adaround, "
+            "sesr_tpu_torch.quant.frozen_add, sesr_tpu_torch.models.expanded, "
+            "sesr_tpu_torch.io.checkpoint, sesr_tpu_torch.make_qparams, "
             "sesr_tpu_torch.__main__, sesr_tpu_torch.deploy, sesr_tpu_torch.png, "
             "sesr_tpu_torch.data.bayer, sesr_tpu_torch.data.datasets, "
             "sesr_tpu_torch.ops.corrected, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "

@@ -204,3 +204,64 @@ def test_raw_bayer_dataset_matches_jax(tmp_path, noise):
     for a, b in zip(got, want):
         assert len(a) == 3
         _equal_items(a, b)
+
+
+def test_train_bayer_dataset_matches_jax(tmp_path):
+    """Random even-aligned crops of .raw planes beside 12-bit PNGs, the
+    dense packing, the noise and the noisy-input variance: equal items
+    from equal seeds."""
+    from sesr_tpu_torch.data import TrainBayerDataset
+
+    rng = np.random.default_rng(11)
+    h, w = 40, 52
+    for name in ("0801", "0802", "0803"):
+        rng.integers(0, 4096, (h, w)).astype(np.uint16).tofile(tmp_path / f"{name}_{h}_{w}.raw")
+        _cv2_write(tmp_path / f"{name}.png", rng.integers(0, 4096, (h, w, 3)).astype(np.uint16))
+    got = TrainBayerDataset(str(tmp_path), ps=16, seed=5)
+    want = jdatasets.TrainBayerDataset(str(tmp_path), ps=16, seed=5)
+    assert len(got) == len(want) == 3
+    for _ in range(2):              # the generator runs on across epochs
+        for a, b in zip(got, want):
+            assert len(a) == 3 and a[0].shape == (1, 16, 16, 3)
+            _equal_items(a, b)
+
+
+@pytest.mark.parametrize("task", ["nr", "dm", "nrdm_3", "sr_x4"])
+def test_train_mat_dataset_matches_jax(tmp_path, task):
+    """14-bit RGGB .mat crops (scipy.io.savemat), the 8-way augmentation
+    and each task's degradation, sr_x4's bicubic 1/4 downscale included
+    (float64, as OpenCV's INTER_CUBIC computes it): equal items from
+    equal seeds."""
+    import scipy.io
+
+    from sesr_tpu_torch.data import TrainMatDataset
+    from sesr_tpu_torch.data.datasets import bicubic_resize
+
+    rng = np.random.default_rng(12)
+    for name in ("a", "b"):
+        scipy.io.savemat(str(tmp_path / f"{name}.mat"),
+                         {"mat_crop": rng.integers(0, 2 ** 14, (48, 56, 4)).astype(np.uint16)})
+    got = TrainMatDataset(str(tmp_path), task, ps=32, seed=4)
+    want = jdatasets.TrainMatDataset(str(tmp_path), task, ps=32, seed=4)
+    for _ in range(2):
+        for a, b in zip(got, want):
+            _equal_items(a, b)
+    img = rng.random((37, 45))
+    np.testing.assert_array_equal(bicubic_resize(img, 0.25),
+                                  cv2.resize(img, (0, 0), fx=0.25, fy=0.25,
+                                             interpolation=cv2.INTER_CUBIC))
+    with pytest.raises(ValueError, match="sr_x2"):
+        TrainMatDataset(str(tmp_path), "sr_x2")
+
+
+def test_train_bayer_helpers_match_jax():
+    rng = np.random.default_rng(13)
+    raw = rng.integers(0, 4096, (12, 20)).astype(np.float32) / 4095
+    np.testing.assert_array_equal(bayer.expand_bayer_plane_dense(raw),
+                                  jbayer.expand_bayer_plane_dense(raw))
+    img = rng.random((6, 10, 3)).astype(np.float32)
+    for mode in range(8):
+        np.testing.assert_array_equal(bayer.augment_8way(img, mode),
+                                      jbayer.augment_8way(img, mode))
+    planes = rng.random((6, 10, 4))
+    np.testing.assert_array_equal(bayer.rggb_to_linrgb(planes), jbayer.rggb_to_linrgb(planes))
