@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch): sr_x2, nr
 and nrdm_6 served and simulated, every task's infer, the probes, the
-artifact toolchain (eval-float, calibrate, certify, infer --audit), and
-training, QAT, AdaRound and make_qparams.
+artifact toolchain (eval-float, calibrate, certify, infer --audit),
+training, QAT, AdaRound and make_qparams, and the RTL vector export,
+hist and the experimental models.
 
     python3 chip_smoke.py
 
@@ -114,7 +115,25 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    against the CPU (at most 1 % of its weights differ); where the time
    of a float, a QAT and an AdaRound step goes (torch.profiler: wall,
    device busy, idle share, device events a step). Each time is printed
-   with the card's name and power limit.
+   with the card's name and power limit;
+10. the RTL vector export, ``hist`` and the experimental models: the
+   fixture of each of the ten golden bundles exported on the card in its
+   residual mode (the plain interpreter's dumps), every reference-generated
+   text file byte-equal (sr_x2_qat: the golden prefix, then ``1f``); the
+   six shipped artifacts exported through ``export_vectors`` (behind
+   ``export``) at 80x960, the reference fixture's size (the fixture itself
+   when SESR_REFERENCE_ROOT holds it, else a seeded uniform frame): K1's
+   output equal to the interpreter's, the card's dumps array_equal with
+   the CPU's, nrdm_6's whole tree sha256-equal cuda vs cpu, and per task
+   the interpreter's time with dumps (CUDA events and torch.profiler's
+   device busy), K1's device time, the host formatting's seconds and MB/s;
+   ``export`` from the command line on nr; ``hist`` from the sr_x2 and nr
+   golden float weights on four full-size frames on the card, and at
+   272x480 on the card against the CPU (weight histograms equal, counts
+   equal, activation histograms within 1 % of each domain's count in L1,
+   the input domain's equal; each PNG decodes); the experimental forwards
+   (inception, one inception path, split, anchor; sr_x4 base, 64x64 in) on
+   the card within 1e-5 of the CPU. K1's export launches join its entry.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -136,7 +155,7 @@ FRAME = (540, 960)                 # deployment input; 1080x1920 output
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 BAYER_FRAME = (1080, 1920)         # nr / nrdm_6: the sr_x2 output frame, Bayer-sparse
-KL_FRAME = (272, 480)              # phase 8's KL guardrail check, cuda against cpu
+KL_FRAME = (272, 480)              # phase 8's KL check and phase 10's hist, cuda against cpu
 SR4_FRAME = (270, 480)             # phase 9: sr_x4 served, 1080x1920 out
 TRAIN_STEPS, RESUME_AT = 200, 80   # phase 9's float training runs
 QAT_STEPS = 300                    # the QAT recipe's fine-tune
@@ -1434,6 +1453,258 @@ def training_phase(torch, dev, card):
     return launches
 
 
+# phase 10: the golden bundles, their model spec and residual mode
+GOLDENS = ("nrdm_3", "sr_x4", "sr_x2", "nr", "dm", "nr_qat", "dm_qat", "nrdm_3_qat",
+           "sr_x4_qat", "sr_x2_qat")
+GOLDEN_RESIDUAL = {"nr": "graph_add", "dm": "graph_add", "nr_qat": "graph_add_qat",
+                   "dm_qat": "graph_add_qat"}
+EXPORT_FRAME = (80, 960)           # the reference's own sim fixture's size
+HIST_BOUND = 1e-2                  # card vs CPU activation histograms, L1 / count
+
+
+def golden_qparams(g, spec):
+    """The port's QuantParams from a golden bundle's collapsed float
+    weights and recorded min / max."""
+    from sesr_tpu_torch.quant.params import CalibState, finalize, quantize_weights
+
+    L = int(g["num_convs"])
+    w_int, w_scale = quantize_weights(
+        [np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0)) for i in range(L)])
+    calib = CalibState.fresh(L + 1)
+    for d in range(L + 1):
+        calib.update(d, float(g[f"min_val_{d}"]), float(g[f"max_val_{d}"]))
+    return finalize(spec, w_int, w_scale, [g[f"b_collapsed_{i}"] for i in range(L)], calib)
+
+
+def export_phase(torch, dev, card):
+    """Phase 10, the RTL vector export, ``hist`` and the experimental
+    models, on the card against the CPU. Returns, per network kernel and
+    path, (launches, frames)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from sesr_tpu_torch.cli import export_vectors, main as cli_main, simulate
+    from sesr_tpu_torch.config import spec_for_task
+    from sesr_tpu_torch.data import SyntheticDataset
+    from sesr_tpu_torch.data.datasets import load_reference_fixture, reference_fixture_path
+    from sesr_tpu_torch.export.vectors import export_tree
+    from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
+    from sesr_tpu_torch.models import experimental as exp
+    from sesr_tpu_torch.models.sesr import CollapsedParams, init_params
+    from sesr_tpu_torch.ops.kernels import pe_exact_net, reset_launch_counts
+    from sesr_tpu_torch.png import read_png
+    from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
+    from sesr_tpu_torch.quant.observers import CHART_HEIGHT, dump_histograms
+    from sesr_tpu_torch.quant.params import QuantParams
+    from sesr_tpu_torch.timing import median_ms
+
+    tag = f"({card})"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        # 10a. every golden bundle's fixture on the card, in its residual
+        # mode: every reference-generated text file, byte for byte
+        compared = 0
+        for name in GOLDENS:
+            with np.load(os.path.join(REPO, "tests", "goldens", f"{name}.npz")) as g:
+                g = dict(g)
+            spec = spec_for_task(name.replace("_qat", ""))
+            qp = golden_qparams(g, spec)
+            bounds = ((float(g["qat_add_lo"]), float(g["qat_add_hi"]))
+                      if "qat_add_lo" in g else None)
+            _, dumps = integer_forward(spec, qp, g["fixture"].transpose(0, 2, 3, 1),
+                                       collect_dumps=True, device=dev,
+                                       residual_mode=GOLDEN_RESIDUAL.get(name, "sim"),
+                                       qat_add_bounds=bounds)
+            tree = export_tree(qp, {k: v.cpu().numpy() for k, v in dumps.items()},
+                               list(spec.kernel_sizes))
+            n = 0
+            for sub, files in tree.items():
+                for fname, text in files.items():
+                    key = (f"e2e_txt:output_txt/input/{fname}" if sub == "end2end"
+                           else f"txt:output_txt/{sub}/{fname}")
+                    if key not in g:
+                        fail(f"golden {name} has no {key}")
+                    want = bytes(g[key])
+                    if "upstream_output_crash" in g and sub == "requan_shift_n":
+                        # upstream crashed writing the negative res_requant_n:
+                        # the golden holds the prefix, the value is -1 at 5 bits
+                        want += b"1f"
+                    if text != want:
+                        fail(f"export of golden {name} on the card: {sub}/{fname} differs "
+                             f"({len(text)} bytes, golden {len(want)})")
+                    n += 1
+            compared += n
+        print(f"[10] golden parity on the card: {compared} files of {len(GOLDENS)} bundles "
+              f"byte-equal to the reference's", flush=True)
+
+        # 10b. the six shipped artifacts at the reference fixture's size
+        fixture = {}
+        reset_launch_counts()
+        k1_exports = 0
+        for task in ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2"):
+            spec, qp = spec_for_task(task), QuantParams.load(
+                os.path.join(REPO, "artifacts", f"qparams_{task}.npz"))
+            if os.path.exists(reference_fixture_path(task)):
+                x, src = load_reference_fixture(task), reference_fixture_path(task)
+            else:
+                x = np.random.default_rng(10).random((1,) + EXPORT_FRAME + (spec.in_channels,),
+                                                     dtype=np.float32)
+                src = "seeded uniform (the reference's .pt is absent)"
+            fixture[task] = x
+            out = os.path.join(tmp, task)
+            k0 = pe_exact_net.launches
+            res = export_vectors(spec, qp, x, out, device="cuda")
+            k1_exports += pe_exact_net.launches - k0
+            mb = res.nbytes / 1e6
+            # the card's dumps against the CPU's (the launch is not counted)
+            on_card = simulate(spec, qp, x, device="cuda", keep_dumps=True).dumps
+            _, on_cpu = integer_forward(spec, qp, x, collect_dumps=True, device="cpu")
+            for k, v in on_cpu.items():
+                if not np.array_equal(on_card[k], v.numpy()):
+                    fail(f"export {task}: the interpreter's {k} on the card != the CPU's")
+            xt = torch.from_numpy(x).to(dev)
+            x_q = quantize_input(xt, qp).to(torch.int8).contiguous()
+            k1_ms = median_ms(lambda: pe_exact_net(spec, qp, x_q), dev, 30, warmup=3,
+                              lead_ms=1.0)
+            wall, busy, _, events = breakdown(
+                torch, lambda: integer_forward(spec, qp, xt, collect_dumps=True), 1, iters=5)
+            print(f"[10] export {task} {x.shape[1:3]} ({src}): {len(res.files)} files, "
+                  f"{mb:.1f} MB; K1 == interpreter; dumps array_equal with the CPU's; "
+                  f"interpreter with dumps {wall:.3f} ms wall, {busy:.3f} ms device busy "
+                  f"({events:.0f} device events), with the copy to the host "
+                  f"{res.interpreter_seconds * 1e3:.1f} ms; K1 {k1_ms:.4f} ms device; "
+                  f"formatting and writing {res.format_seconds:.3f} s, "
+                  f"{mb / res.format_seconds:.1f} MB/s {tag}", flush=True)
+            if task != "nrdm_6":
+                shutil.rmtree(out)
+        if k1_exports != 6:
+            fail(f"six exports launched K1 {k1_exports} times")
+        # nrdm_6, the largest tree: the CUDA export against the CPU's
+        spec6, qp6 = spec_for_task("nrdm_6"), QuantParams.load(
+            os.path.join(REPO, "artifacts", "qparams_nrdm_6.npz"))
+        res_cpu = export_vectors(spec6, qp6, fixture["nrdm_6"], os.path.join(tmp, "cpu"),
+                                 device="cpu")
+
+        def digests(root):
+            out = {}
+            for d, _, names in os.walk(root):
+                for n in names:
+                    with open(os.path.join(d, n), "rb") as f:
+                        out[os.path.relpath(os.path.join(d, n), root)] = \
+                            hashlib.sha256(f.read()).hexdigest()
+            return out
+
+        on_card, on_cpu = digests(os.path.join(tmp, "nrdm_6")), digests(os.path.join(tmp, "cpu"))
+        if on_card != on_cpu or len(on_card) != 61:
+            fail(f"nrdm_6's export: {len(on_card)} files on the card, {len(on_cpu)} on the "
+                 f"CPU, {sum(on_card.get(k) != v for k, v in on_cpu.items())} differ")
+        print(f"[10] nrdm_6's tree, {len(on_card)} files: sha256 equal cuda vs cpu; the CPU "
+              f"interpreter {res_cpu.interpreter_seconds:.3f} s, formatting "
+              f"{res_cpu.format_seconds:.3f} s {tag}", flush=True)
+        shutil.rmtree(os.path.join(tmp, "nrdm_6"))
+        shutil.rmtree(os.path.join(tmp, "cpu"))
+        # the command a user runs, with --fixture
+        np.save(os.path.join(tmp, "x.npy"), fixture["nr"])
+        reset_launch_counts()
+        r = cli_main(["export", "--task", "nr", "--qparams",
+                      os.path.join(REPO, "artifacts", "qparams_nr.npz"), "--fixture",
+                      os.path.join(tmp, "x.npy"), "--out-dir", os.path.join(tmp, "cli")])
+        if pe_exact_net.launches != 1 or len(r.files) != 40:
+            fail(f"export --task nr: {pe_exact_net.launches} K1 launches, {len(r.files)} files")
+        k1_exports += 1
+        shutil.rmtree(os.path.join(tmp, "cli"))
+
+        # 10c. hist from the sr_x2 and nr golden float weights: four
+        # full-size frames on the card, then 272x480 on the card and the CPU
+        for task, frame in (("sr_x2", (2 * FRAME[0], 2 * FRAME[1])), ("nr", BAYER_FRAME)):
+            spec = spec_for_task(task)
+            with np.load(os.path.join(REPO, "tests", "goldens", f"{task}.npz")) as g:
+                L = int(g["num_convs"])
+                params = CollapsedParams(
+                    [np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0)) for i in range(L)],
+                    [np.array(g[f"b_collapsed_{i}"]) for i in range(L)])
+            images = [d[0] for d in SyntheticDataset(task, n=4, hw=frame)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = dump_histograms(spec, params, images, os.path.join(tmp, "hist_full"),
+                                   device="cuda")
+            t_full = time.perf_counter() - t0
+            small = [x[:, :KL_FRAME[0], :KL_FRAME[1]] for x in images]
+            t0 = time.perf_counter()
+            gpu = dump_histograms(spec, params, small, os.path.join(tmp, "hist_gpu"),
+                                  device="cuda")
+            t_gpu = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = dump_histograms(spec, params, small, os.path.join(tmp, "hist_cpu"),
+                                  device="cpu")
+            t_cpu = time.perf_counter() - t0
+            if not all(np.array_equal(a, b) for a, b in zip(gpu.weight + gpu.weight_quan,
+                                                            cpu.weight + cpu.weight_quan)):
+                fail(f"hist {task}: the weight histograms differ cuda vs cpu")
+            l1 = []
+            for d in range(L + 1):
+                n = int(cpu.activation[d].sum())
+                if int(gpu.activation[d].sum()) != n:
+                    fail(f"hist {task} domain {d}: {int(gpu.activation[d].sum())} values on "
+                         f"the card, {n} on the CPU")
+                l1.append(float(np.abs(gpu.activation[d] - cpu.activation[d]).sum()) / n)
+            rel = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(gpu.lo + gpu.hi, cpu.lo + cpu.hi))
+            for path in full.files + gpu.files:
+                if read_png(path).shape[0] != CHART_HEIGHT:
+                    fail(f"hist {task}: {path} does not decode to a {CHART_HEIGHT}-row chart")
+            print(f"[10] hist {task}: 4 frames {images[0].shape[1:3]} on the card "
+                  f"{t_full:.3f} s, {len(full.files)} PNGs (each decodes); at {KL_FRAME} "
+                  f"card {t_gpu:.3f} s, cpu {t_cpu:.3f} s: weight histograms equal, bounds "
+                  f"within rel {rel:.2e}, activation L1 / count per domain "
+                  f"{[f'{v:.2e}' for v in l1]} {tag}", flush=True)
+            if max(l1) > HIST_BOUND or l1[0] != 0.0:
+                fail(f"hist {task}: activation histograms cuda vs cpu L1 {l1} (input domain "
+                     f"0, others {HIST_BOUND})")
+            for sub in ("hist_full", "hist_gpu", "hist_cpu"):
+                shutil.rmtree(os.path.join(tmp, sub))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 10d. the experimental models on the card against the CPU (sr_x4 base)
+    base = spec_for_task("sr_x4")
+    gen = torch.Generator().manual_seed(3)
+    paths = []
+    for s in exp.inception_path_spec(base):
+        pre = dataclasses.replace(s, out_channels=s.out_channels * s.scaling_factor ** 2,
+                                  scaling_factor=1)
+        paths.append(init_params(pre, gen))
+    inception = exp.InceptionSESRParams(paths)
+    rng = np.random.default_rng(11)
+
+    def conv_p(ic, oc, k, scale=0.1):
+        return CollapsedParams([rng.standard_normal((k, k, ic, oc)).astype(np.float32) * scale],
+                               [rng.standard_normal(oc).astype(np.float32) * 0.01])
+
+    t = 8
+    trunk = CollapsedParams(
+        [rng.standard_normal((3, 3, 2 * t, 2 * t)).astype(np.float32) * 0.05 for _ in range(3)],
+        [np.zeros(2 * t, np.float32) for _ in range(3)])
+    split = exp.SplitSESRParams([conv_p(1, t, 5), conv_p(1, t // 2, 5), conv_p(1, t // 2, 5)],
+                                trunk, [conv_p(t, 16, 5), conv_p(t // 2, 16, 5),
+                                        conv_p(t // 2, 16, 5)])
+    x = rng.random((1, 64, 64, 1), dtype=np.float32)
+    runs = {"inception": lambda d: exp.forward_inception(base, inception, x, device=d),
+            "inception path 2": lambda d: exp.forward_inception(
+                base, inception, x, single_path=True, conv_scale=2, device=d),
+            "split": lambda d: exp.forward_split(base, split, x, tiny_channels=t, device=d),
+            "anchor": lambda d: exp.anchor_upsample(x, 4, device=d)}
+    for label, fn in runs.items():
+        y_gpu, y_cpu = fn("cuda").cpu(), fn("cpu")
+        err = float((y_gpu - y_cpu).abs().max())
+        print(f"[10] experimental {label}: {tuple(y_gpu.shape)}, max abs cuda vs cpu {err:.3e}",
+              flush=True)
+        if y_gpu.shape != (1, 256, 256, 1) or not err <= 1e-5:
+            fail(f"experimental {label}: shape {tuple(y_gpu.shape)}, max abs {err} (1e-5)")
+    return {"sesr_pe_exact_net": {"export": (k1_exports, k1_exports)}}
+
+
 def main():
     import torch
 
@@ -1811,8 +2082,13 @@ def main():
     t0 = time.perf_counter()
     training_launches = training_phase(torch, dev, card)
     print(f"[9] the training phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    # 10. the RTL vector export, hist and the experimental models: K1's
+    # export launches join its entry
+    t0 = time.perf_counter()
+    export_launches = export_phase(torch, dev, card)
+    print(f"[10] the export phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     for e in entries:
-        for phase in (toolchain_launches, training_launches):
+        for phase in (toolchain_launches, training_launches, export_launches):
             for path, (count, n_frames) in phase.get(e["name"], {}).items():
                 e["launches"] += count
                 e["launches_per_frame"][path] = count / n_frames

@@ -13,6 +13,9 @@
         [--audit N]
     python -m sesr_tpu_torch sim --task sr_x2 --qparams artifacts/qparams_sr_x2.npz \
         [--fixture X.npy] [--corrected] [--dump-dir D]
+    python -m sesr_tpu_torch export --task nr --qparams artifacts/qparams_nr.npz \
+        --out-dir D [--fixture X.npy]
+    python -m sesr_tpu_torch hist --task sr_x2 --checkpoint W.npz --out D
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions), ``--data`` (a GTmod12 folder for the super-resolution
@@ -30,10 +33,15 @@ the fast datapath is exact; ``infer`` serves a dataset through the
 certificate-selected deployment forward and scores it, with ``--audit N``
 shadow-running the PE-exact interpreter on every Nth dispatch; ``sim`` runs
 the reference-exact simulation, or with ``--corrected`` the corrected
-datapath. Each command is a thin shell around a function (``evaluate_float``,
-``serve``, ``simulate``, ``calibrate``, ``adaround_weights``,
-``certify_fast``, ``make_train_step``) that callers can drive with their
-own data. ``python -m sesr_tpu_torch.make_qparams`` builds artifacts.
+datapath; ``export`` writes the simulation's RTL hex test vectors (the
+input is ``--fixture``, else the reference's own 80x960 sim input, which
+``sim`` also takes when it is present); ``hist`` draws the weight and
+activation histograms of the float network's fake-quant forward. Each
+command is a thin shell around a function (``evaluate_float``, ``serve``,
+``simulate``, ``export_vectors``, ``dump_histograms``, ``calibrate``,
+``adaround_weights``, ``certify_fast``, ``make_train_step``) that callers
+can drive with their own data. ``python -m sesr_tpu_torch.make_qparams``
+builds artifacts.
 """
 
 from __future__ import annotations
@@ -52,8 +60,10 @@ import torch
 from sesr_tpu_torch.config import REFERENCE_CHECKPOINTS, SESRSpec, spec_for_task
 from sesr_tpu_torch.data import (RawBayerDataset, SRFolderDataset, SyntheticDataset,
                                  TrainBayerDataset)
-from sesr_tpu_torch.data.datasets import SR_SCALE
+from sesr_tpu_torch.data.datasets import (SR_SCALE, load_reference_fixture,
+                                          reference_fixture_path)
 from sesr_tpu_torch.deploy import select_forward
+from sesr_tpu_torch.export.vectors import export_all
 from sesr_tpu_torch.io.checkpoint import (load_training_state, save_training_state,
                                           tensor_leaves)
 from sesr_tpu_torch.io.torch_import import (checkpoint_path, load_reference_checkpoint,
@@ -74,6 +84,7 @@ from sesr_tpu_torch.quant.calibrate import (OBSERVERS, ObserverRegressionWarning
 from sesr_tpu_torch.quant.certify import (certify_fast, static_layer_stamps,
                                           static_shortcut_safe)
 from sesr_tpu_torch.quant.integer import dequantize_output, integer_forward
+from sesr_tpu_torch.quant.observers import HistogramDump, dump_histograms
 from sesr_tpu_torch.quant.params import QuantParams
 from sesr_tpu_torch.quant.qat import (QATConfig, QATState, adam, device_batches,
                                      make_train_step, prepare, run_steps)
@@ -224,17 +235,21 @@ class SimResult:
     source: str                           # what computed y
     overflow_counts: Optional[List[int]]  # from the plain interpreter, if run
     matches_plain: Optional[bool]         # y == the plain interpreter's, if run
+    dumps: Optional[dict] = None          # the plain interpreter's, on the host (keep_dumps)
+    interpreter_seconds: float = 0.0      # host clock around it, synchronized
 
 
 def simulate(spec: SESRSpec, qp: QuantParams, x, device="cuda",
-             dump_dir: Optional[str] = None, corrected: bool = False) -> SimResult:
+             dump_dir: Optional[str] = None, corrected: bool = False,
+             keep_dumps: bool = False) -> SimResult:
     """The reference-exact simulation of one input, or with ``corrected``
     the corrected datapath (the corrected PE-exact mode). Its output comes
     from a fused kernel on the card (sesr_pe_exact_net, or
     sesr_corrected_net) and from the plain interpreter on the CPU. With
-    ``dump_dir`` the plain interpreter also runs, for the stage dumps and
-    the per-layer saturation counts the kernels do not keep, and its
-    output is compared with the simulated one."""
+    ``dump_dir`` or ``keep_dumps`` the plain interpreter also runs, for the
+    stage dumps and the per-layer saturation counts the kernels do not
+    keep, and its output is compared with the simulated one; ``dump_dir``
+    writes the dumps there, ``keep_dumps`` returns them as numpy."""
     device = torch.device(device)
     x = torch.as_tensor(np.asarray(x, np.float32), device=device)
     if corrected:
@@ -243,15 +258,46 @@ def simulate(spec: SESRSpec, qp: QuantParams, x, device="cuda",
         y = pe_exact_forward(spec, qp, x)
     source = (("kernel sesr_corrected_net" if corrected else "kernel sesr_pe_exact_net")
               if device.type == "cuda" else "plain interpreter")
-    if dump_dir is None:
+    if dump_dir is None and not keep_dumps:
         return SimResult(y, source, None, None)
+    _sync(device)
+    t0 = time.perf_counter()
     y_plain, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=corrected)
-    os.makedirs(dump_dir, exist_ok=True)
-    np.savez_compressed(os.path.join(dump_dir, "dumps.npz"),
-                        y=y.cpu().numpy(),
-                        **{k: v.cpu().numpy() for k, v in dumps.items()})
-    return SimResult(y, source, [int(v) for v in dumps["overflow_counts"]],
-                     bool(torch.equal(y, y_plain)))
+    host = {k: v.cpu().numpy() for k, v in dumps.items()}
+    seconds = time.perf_counter() - t0
+    if dump_dir is not None:
+        os.makedirs(dump_dir, exist_ok=True)
+        np.savez_compressed(os.path.join(dump_dir, "dumps.npz"), y=y.cpu().numpy(), **host)
+    return SimResult(y, source, [int(v) for v in host["overflow_counts"]],
+                     bool(torch.equal(y, y_plain)), host if keep_dumps else None, seconds)
+
+
+@dataclasses.dataclass
+class ExportResult:
+    files: List[str]                      # the paths written
+    nbytes: int                           # their total size
+    source: str                           # what computed the checked output
+    interpreter_seconds: float            # the plain interpreter with dumps
+    format_seconds: float                 # formatting and writing the files
+
+
+def export_vectors(spec: SESRSpec, qp: QuantParams, x, out_dir: str,
+                   device="cuda") -> ExportResult:
+    """The RTL test vectors of one input (NHWC, batch 1) under ``out_dir``,
+    in the reference's output_txt/ layout (``export/vectors.py``). The
+    route of ``simulate`` with dumps: the reference-exact output from K1
+    on the card (the plain interpreter on the CPU) and the plain
+    interpreter's stage dumps, which must give the same output, else
+    nothing is written."""
+    res = simulate(spec, qp, x, device=device, keep_dumps=True)
+    if not res.matches_plain:
+        raise RuntimeError(f"export: the output of {res.source} differs from the plain "
+                           f"interpreter's; no vectors written")
+    t0 = time.perf_counter()
+    files = export_all(qp, res.dumps, list(spec.kernel_sizes), out_dir)
+    seconds = time.perf_counter() - t0
+    return ExportResult(files, sum(os.path.getsize(f) for f in files), res.source,
+                        res.interpreter_seconds, seconds)
 
 
 def dataset_for(task: str, data: Optional[str], n_images: int):
@@ -478,14 +524,24 @@ def cmd_infer(args) -> ServeResult:
     return res
 
 
+def _fixture(args) -> Tuple[np.ndarray, str]:
+    """(input, where it came from): ``--fixture`` (an NHWC .npy), else the
+    reference's own sim input (FileNotFoundError when it is absent)."""
+    if args.fixture:
+        return np.load(args.fixture), args.fixture
+    return load_reference_fixture(args.task), reference_fixture_path(args.task)
+
+
 def cmd_sim(args) -> SimResult:
     spec = spec_for_task(args.task)
     qp = QuantParams.load(args.qparams)
-    if args.fixture:
-        x = np.load(args.fixture)
+    if args.fixture or os.path.exists(reference_fixture_path(args.task)):
+        x, what = _fixture(args)
     else:
-        # the reference's fixture is not shipped: the first synthetic input
         x = SyntheticDataset(args.task, n=1)[0][0]
+        what = (f"the first synthetic input ({reference_fixture_path(args.task)} "
+                f"is absent)")
+    print(f"sim input: {what}")
     res = simulate(spec, qp, x, device=args.device, dump_dir=args.dump_dir,
                    corrected=args.corrected)
     print(f"sim: input {tuple(x.shape)} -> output {tuple(res.y.shape)} "
@@ -501,6 +557,36 @@ def cmd_sim(args) -> SimResult:
           f"REQUAN_BIT: {qp.hw.requant_bits}\nREQUAN_N_MAX: {qp.hw.requant_n_max}")
     if args.dump_dir:
         print(f"dumps -> {args.dump_dir}/dumps.npz")
+    return res
+
+
+def cmd_export(args) -> ExportResult:
+    spec = spec_for_task(args.task)
+    qp = QuantParams.load(args.qparams)
+    try:
+        x, _ = _fixture(args)
+    except FileNotFoundError as e:
+        # a synthetic frame would write hundreds of MB of vectors at a size
+        # the RTL bench never runs
+        raise SystemExit(f"export: {e}; pass the input as --fixture X.npy (NHWC)")
+    res = export_vectors(spec, qp, x, args.out_dir, device=args.device)
+    print(f"export: input {tuple(x.shape)}; the output of {res.source} on {args.device} "
+          f"equals the interpreter's whose dumps were written")
+    print(f"hex vectors -> {args.out_dir}/: {len(res.files)} files, {res.nbytes / 1e6:.1f} MB; "
+          f"interpreter {res.interpreter_seconds:.3f} s, formatting "
+          f"{res.format_seconds:.3f} s")
+    return res
+
+
+def cmd_hist(args) -> HistogramDump:
+    spec = spec_for_task(args.task)
+    data = dataset_for(args.task, args.data, args.n_images)
+    res = dump_histograms(spec, _load_params(args), [d[0] for d in data], args.out,
+                          device=args.device)
+    for d in range(spec.num_convs + 1):
+        print(f"domain {d}: range [{res.lo[d]:.6g}, {res.hi[d]:.6g}], "
+              f"{int(res.activation[d].sum())} values")
+    print(f"wrote {len(res.files)} histogram PNGs under {args.out}")
     return res
 
 
@@ -597,7 +683,9 @@ def main(argv=None):
 
     p = sub.add_parser("sim", help="bit-exact reference integer simulation")
     common(p, qparams=True)
-    p.add_argument("--fixture", default=None, help=".npy NHWC input")
+    p.add_argument("--fixture", default=None,
+                   help=".npy NHWC input (default: the reference's sim input when "
+                        "present, else the first synthetic input)")
     p.add_argument("--corrected", action="store_true",
                    help="the corrected deployment datapath (its PE-exact "
                         "mode) instead of the reference-exact one")
@@ -605,6 +693,19 @@ def main(argv=None):
                    help="also run the plain interpreter: stage dumps and "
                         "per-layer saturation counts")
     p.set_defaults(fn=cmd_sim)
+
+    p = sub.add_parser("export", help="RTL hex test vectors of one simulated input")
+    common(p, qparams=True)
+    p.add_argument("--fixture", default=None,
+                   help=".npy NHWC input (default: the reference's 80x960 sim input "
+                        "under SESR_REFERENCE_ROOT)")
+    p.add_argument("--out-dir", required=True)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("hist", help="weight and activation histogram PNGs")
+    common(p)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_hist)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -10,6 +10,8 @@ and an optional pixel shuffle).
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,3 +113,9 @@ REFERENCE_CHECKPOINTS = {
     "sr_x4": "x4sesr.pth",
     "sr_x2": "x2sesr.pth.tar",
 }
+
+
+def find_reference_root(root: Optional[str] = None) -> str:
+    """The reference checkout: ``root``, else the SESR_REFERENCE_ROOT
+    environment variable, else ``reference`` under the current directory."""
+    return root or os.environ.get("SESR_REFERENCE_ROOT", "reference")

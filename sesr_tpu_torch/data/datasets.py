@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from sesr_tpu_torch.config import find_reference_root
 from sesr_tpu_torch.data.bayer import (add_noise, augment_8way, expand_bayer_plane,
                                        expand_bayer_plane_dense, four2three, mosaic,
                                        random_noise_levels, rggb_to_linrgb)
@@ -324,3 +325,24 @@ def task_pair_from_image(task: str, img_hwc: np.ndarray,
     if task == "sr_x4":
         gt, inp = _to_y(gt)[:, :, None], _to_y(inp)[:, :, None]
     return inp[None].astype(np.float32), gt[None].astype(np.float32)
+
+
+def reference_fixture_path(task: str, reference_root: Optional[str] = None) -> str:
+    """The reference's golden sim input for ``task`` (its sim.py:197-205):
+    rand_SR_Input_80x960.pt for sr_x4, rand_DM_Input_80x960.pt for every
+    other task, sr_x2 included; the file may be absent."""
+    name = "rand_SR_Input_80x960.pt" if task == "sr_x4" else "rand_DM_Input_80x960.pt"
+    return os.path.join(find_reference_root(reference_root), name)
+
+
+def load_reference_fixture(task: str, reference_root: Optional[str] = None) -> np.ndarray:
+    """The reference's golden sim input (``reference_fixture_path``) as NHWC
+    float32 numpy; FileNotFoundError naming the file when it is absent."""
+    import torch
+
+    path = reference_fixture_path(task, reference_root)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"reference fixture {path} not found: point "
+                                f"SESR_REFERENCE_ROOT at the reference checkout")
+    x = torch.load(path, map_location="cpu")
+    return np.ascontiguousarray(x.numpy().transpose(0, 2, 3, 1), np.float32)

@@ -25,7 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from sesr_tpu_torch.config import REFERENCE_CHECKPOINTS, SESRSpec, spec_for_task
+from sesr_tpu_torch.config import (REFERENCE_CHECKPOINTS, SESRSpec, find_reference_root,
+                                   spec_for_task)
 from sesr_tpu_torch.models.blocks import (collapse_block, fold_residual_identity,
                                           oihw_to_hwio)
 from sesr_tpu_torch.models.sesr import CollapsedParams
@@ -49,8 +50,7 @@ _F32EPS = np.float32(np.finfo(np.float32).eps)
 def checkpoint_path(name: str, reference_root: Optional[str]) -> str:
     """The reference's checkpoint ``name`` under ``reference_root`` (else
     SESR_REFERENCE_ROOT, else ./reference); FileNotFoundError if absent."""
-    root = reference_root or os.environ.get("SESR_REFERENCE_ROOT", "reference")
-    path = os.path.join(root, "model_params", name)
+    path = os.path.join(find_reference_root(reference_root), "model_params", name)
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"reference checkpoint {path} not found: pass path= (a .pth, or a "

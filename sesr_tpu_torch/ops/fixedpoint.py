@@ -8,7 +8,8 @@
 - requantization in float32: two multiplies, each rounded to float32,
   never a pre-folded ``m * 2^-n`` (the intermediate rounding is observable
   once |x * m| exceeds 2^24);
-- two's-complement hex formatting for the RTL vector exporters.
+- two's-complement hex of one value, the scalar spec of the RTL vector
+  exporters' formatter (``export/hexfmt.py``).
 """
 
 from __future__ import annotations

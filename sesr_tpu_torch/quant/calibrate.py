@@ -147,6 +147,27 @@ def _prep_fq_weights(params: CollapsedParams, hw: HardwareConfig, device,
     return (w_fq, tuple(w_scale), biases), w_int, w_scale
 
 
+def observe_domains(fwd, images, num_domains: int, device, histograms: bool = True):
+    """The calibration set's two passes over the calibration forward
+    ``fwd(img, hist_bounds=None)``: each domain's min / max over
+    ``images``, then (``histograms``) its BINS_NUM-bin histogram over those
+    bounds, summed over the images. Returns (CalibState, (num_domains,
+    BINS_NUM) int64 counts, or None)."""
+    calib = CalibState.fresh(num_domains)
+    for img in images:
+        mm = fwd(img)[1].cpu().numpy().astype(np.float64)
+        for d in range(num_domains):
+            calib.update(d, mm[0, d], mm[1, d])
+    if not histograms:
+        return calib, None
+    bounds = torch.as_tensor(np.stack([calib.min_vals, calib.max_vals], axis=1),
+                             dtype=torch.float32, device=device)
+    total = np.zeros((num_domains, BINS_NUM), np.int64)
+    for img in images:
+        total += fwd(img, bounds)[2].cpu().numpy()
+    return calib, total
+
+
 def calibration_forward(spec: SESRSpec, params: CollapsedParams, x,
                         hw: HardwareConfig = DEFAULT_HW, exact_pe: bool = True,
                         qat_add_bounds=None, device=None):
@@ -256,17 +277,9 @@ def calibrate(spec: SESRSpec, params: CollapsedParams, images: Sequence[np.ndarr
             return _calibration_forward_impl(spec, fq_weights, as_input(img, dev), hw,
                                              exact_pe, hist_bounds, qat_add_bounds)
 
-        calib = CalibState.fresh(L + 1)
-        for img in images:
-            mm = fwd(img)[1].cpu().numpy().astype(np.float64)
-            for d in range(L + 1):
-                calib.update(d, mm[0, d], mm[1, d])
+        calib, total = observe_domains(fwd, images, L + 1, dev,
+                                       histograms=observer != "minmax")
         if observer != "minmax":
-            bounds = torch.as_tensor(np.stack([calib.min_vals, calib.max_vals], axis=1),
-                                     dtype=torch.float32, device=dev)
-            total = np.zeros((L + 1, BINS_NUM), np.int64)
-            for img in images:
-                total += fwd(img, bounds)[2].cpu().numpy()
             for d in range(L + 1):
                 lo, hi = calib.min_vals[d], calib.max_vals[d]
                 if observer == "percentile":

@@ -8,10 +8,14 @@ The same observers as the JAX package's ``sesr_tpu/quant/observers.py``:
                (its define.py keeps only BINS_NUM=2048 / TGT_BINS_NUM=128).
 
 Histograms are taken on the device, one per domain and image, and summed
-on the host; the sweeps run on the host in numpy.
+on the host; the sweeps run on the host in numpy. ``dump_histograms``
+draws them, with the weights', as the reference's histogram PNGs.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import List
 
 import numpy as np
 import torch
@@ -86,3 +90,78 @@ def kl_bounds(hist: np.ndarray, lo: float, hi: float,
     t = kl_threshold(np.asarray(hist, np.float64), num_quantized_bins)
     width = (hi - lo) / np.asarray(hist).size
     return lo, float(lo + t * width)
+
+
+@dataclasses.dataclass
+class HistogramDump:
+    files: List[str]                  # the PNGs written
+    weight: List[np.ndarray]          # per conv, np.histogram counts of the float weights
+    weight_quan: List[np.ndarray]     # per conv, the same of the int8 weights
+    lo: List[float]                   # per activation domain, its min over the images
+    hi: List[float]                   # and its max
+    activation: np.ndarray            # (L + 1, BINS_NUM) int64 counts over [lo, hi]
+
+
+CHART_HEIGHT = 240
+
+
+def bar_chart(counts: np.ndarray) -> np.ndarray:
+    """A bar per count, scaled to the largest, black on white, no text:
+    float32 (CHART_HEIGHT, bars x 600 // bars (at least 1), 1) in [0, 1]."""
+    counts = np.asarray(counts, np.float64)
+    top = counts.max()
+    bars = (np.round(counts / top * CHART_HEIGHT).astype(np.int64) if top > 0
+            else np.zeros(counts.size, np.int64))
+    rows = np.arange(CHART_HEIGHT)[:, None]
+    img = np.where(rows >= CHART_HEIGHT - bars[None, :], 0.0, 1.0).astype(np.float32)
+    return np.repeat(img, max(1, 600 // counts.size), axis=1)[:, :, None]
+
+
+def dump_histograms(spec, params, images, out_dir: str, hw=None, bins: int = 300,
+                    device=None) -> HistogramDump:
+    """Weight, quantized-weight and per-domain activation histogram PNGs
+    of the fake-quant forward, in the reference's tree (its
+    WEIGHT_W_HIST_PNG / INPUT_W_HIST_PNG flags, define.py:34-36):
+    ``weight/conv.weight.{i}.png``, ``weight_quan/conv.weightquan.{i}.png``
+    and ``input/conv.input.{d}.png`` under ``out_dir``.
+
+    Weight histograms are ``np.histogram(values, bins)``, what the
+    reference's ``plt.hist(..., bins=300)`` counts. Activation histograms
+    take calibration's two passes on ``device`` (default ``cuda``): each
+    domain's min / max over ``images``, then BINS_NUM-bin histograms on
+    the device over those bounds (the PE-exact fake-quant forward). Each
+    chart is a plain bar chart (``bar_chart``) written with ``png.py``: the
+    bounds and counts are in the returned ``HistogramDump``."""
+    import os
+
+    from sesr_tpu_torch.config import DEFAULT_HW
+    from sesr_tpu_torch.ops.conv import float_exact
+    from sesr_tpu_torch.png import save_png
+    from sesr_tpu_torch.quant.calibrate import (_calibration_forward_impl, _np,
+                                                _prep_fq_weights, observe_domains)
+    from sesr_tpu_torch.quant.integer import as_input, resolve_device
+
+    hw = hw or DEFAULT_HW
+    dev = resolve_device(None, device)
+    L = spec.num_convs
+    with torch.inference_mode(), float_exact():
+        fq_weights, w_int, _ = _prep_fq_weights(params, hw, dev)
+
+        def fwd(img, hist_bounds=None):
+            return _calibration_forward_impl(spec, fq_weights, as_input(img, dev), hw, True,
+                                             hist_bounds)
+
+        calib, total = observe_domains(fwd, images, L + 1, dev)
+    weight = [np.histogram(_np(w).reshape(-1), bins=bins)[0] for w in params.weights]
+    weight_quan = [np.histogram(np.asarray(q).reshape(-1), bins=bins)[0] for q in w_int]
+    charts = ([(c, "weight", f"conv.weight.{i}.png") for i, c in enumerate(weight)]
+              + [(c, "weight_quan", f"conv.weightquan.{i}.png")
+                 for i, c in enumerate(weight_quan)]
+              + [(c, "input", f"conv.input.{d}.png") for d, c in enumerate(total)])
+    files = []
+    for counts, sub, name in charts:
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+        files.append(os.path.join(out_dir, sub, name))
+        save_png(bar_chart(counts), files[-1])
+    return HistogramDump(files, weight, weight_quan, list(calib.min_vals),
+                         list(calib.max_vals), total)

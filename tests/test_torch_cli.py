@@ -1,7 +1,8 @@
 """The port end to end on the CPU: ``infer`` (serve) on sr_x2 and nr,
 with and without ``--save-dir``, ``sim`` (simulate), reference-exact
-and ``--corrected``, ``eval-float`` and ``calibrate`` from collapsed
-float weights, against the JAX package; the import boundary of the
+and ``--corrected``, ``export`` and ``hist``, ``eval-float`` and
+``calibrate`` from collapsed float weights, against the JAX package; the
+reference fixture loader; the import boundary of the
 port and of chip_smoke.py, and chip_smoke.py refusing to run without a
 card or without the repository around it."""
 
@@ -28,6 +29,7 @@ from sesr_tpu_torch import cli, metrics, png
 from sesr_tpu_torch.config import spec_for_task
 from sesr_tpu_torch.data import SyntheticDataset
 from sesr_tpu_torch.ops.fast import fast_forward
+from sesr_tpu_torch.quant.observers import CHART_HEIGHT
 from sesr_tpu_torch.quant.params import QuantParams
 from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 
@@ -275,6 +277,81 @@ def test_calibrate_kl_guardrail_and_adaround_refused(tmp_path, capsys):
     assert "invalid choice: 'stochastic'" in capsys.readouterr().err
 
 
+def _tree(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def test_export_command_matches_jax(tmp_path, capsys):
+    """export on a ragged input: the JAX command's tree, byte for byte."""
+    x = np.random.default_rng(12).random((1, 33, 47, 3), dtype=np.float32)
+    np.save(tmp_path / "x.npy", x)
+    args = ["export", "--task", "nr", "--qparams", QP_NR, "--fixture", str(tmp_path / "x.npy")]
+    res = cli.main(args + ["--out-dir", str(tmp_path / "port"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "the output of plain interpreter on cpu equals the interpreter's" in out
+    assert f"{len(res.files)} files" in out and len(res.files) == 40
+    jcli.main(args + ["--out-dir", str(tmp_path / "jax")])
+    port, jax = _tree(tmp_path / "port"), _tree(tmp_path / "jax")
+    assert sorted(port) == sorted(jax) and all(port[k] == jax[k] for k in jax)
+    assert res.nbytes == sum(len(v) for v in port.values())
+
+
+def test_reference_fixture_loader(tmp_path, monkeypatch, capsys):
+    """The reference's sim input under SESR_REFERENCE_ROOT: sr_x4 reads
+    rand_SR_Input_80x960.pt, every other task rand_DM_Input_80x960.pt;
+    sim and export take it without --fixture. Without it, sim keeps the
+    first synthetic input and export refuses, naming --fixture."""
+    from sesr_tpu_torch.data.datasets import load_reference_fixture
+    x = np.random.default_rng(13).random((1, 3, 20, 36), dtype=np.float32)
+    torch.save(torch.from_numpy(x), tmp_path / "rand_DM_Input_80x960.pt")
+    monkeypatch.setenv("SESR_REFERENCE_ROOT", str(tmp_path))
+    got = load_reference_fixture("sr_x2")
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, x.transpose(0, 2, 3, 1))
+    with pytest.raises(FileNotFoundError, match="rand_SR_Input_80x960.pt"):
+        load_reference_fixture("sr_x4")
+    res = cli.main(["sim", "--task", "nr", "--qparams", QP_NR, "--device", "cpu"])
+    assert f"sim input: {tmp_path / 'rand_DM_Input_80x960.pt'}" in capsys.readouterr().out
+    want = cli.simulate(spec_for_task("nr"), QuantParams.load(QP_NR), x.transpose(0, 2, 3, 1),
+                        device="cpu")
+    assert torch.equal(res.y, want.y)
+    exp = cli.main(["export", "--task", "nr", "--qparams", QP_NR, "--out-dir",
+                    str(tmp_path / "vectors"), "--device", "cpu"])
+    assert "input (1, 20, 36, 3)" in capsys.readouterr().out and len(exp.files) == 40
+    monkeypatch.setenv("SESR_REFERENCE_ROOT", str(tmp_path / "absent"))
+    with pytest.raises(SystemExit, match="--fixture"):
+        cli.main(["export", "--task", "nr", "--qparams", QP_NR, "--out-dir",
+                  str(tmp_path / "none"), "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "none")
+    res = cli.main(["sim", "--task", "nr", "--qparams", QP_NR, "--device", "cpu"])
+    assert "the first synthetic input" in capsys.readouterr().out
+    first = SyntheticDataset("nr", n=1)[0][0]
+    want = cli.simulate(spec_for_task("nr"), QuantParams.load(QP_NR), first, device="cpu")
+    assert torch.equal(res.y, want.y)
+
+
+def test_hist_command_writes_the_jax_tree(tmp_path, capsys):
+    """hist from collapsed float weights: the JAX command's PNG tree, and
+    each domain's range and count printed."""
+    args = ["hist", "--task", "sr_x2", "--checkpoint", _collapsed_npz(tmp_path, "sr_x2"),
+            "--n-images", "2"]
+    res = cli.main(args + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    jcli.main(args + ["--out", str(tmp_path / "jax")])
+    assert sorted(_tree(tmp_path / "port")) == sorted(_tree(tmp_path / "jax"))
+    assert f"wrote {len(res.files)} histogram PNGs" in out and len(res.files) == 16
+    for d in range(6):
+        assert (f"domain {d}: range [{res.lo[d]:.6g}, {res.hi[d]:.6g}], "
+                f"{int(res.activation[d].sum())} values") in out
+    for path in res.files:
+        assert png.read_png(path).shape[0] == CHART_HEIGHT
+
+
 def test_import_boundary():
     code = ("import sys, sesr_tpu_torch, sesr_tpu_torch.cli, sesr_tpu_torch.convert, "
             "sesr_tpu_torch.models.sesr, sesr_tpu_torch.models.blocks, "
@@ -288,7 +365,8 @@ def test_import_boundary():
             "sesr_tpu_torch.data.bayer, sesr_tpu_torch.data.datasets, "
             "sesr_tpu_torch.ops.corrected, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "
             "sesr_tpu_torch.probes.int8_gemm, sesr_tpu_torch.probes.bitcast, "
-            "sesr_tpu_torch.probes.__main__\n"
+            "sesr_tpu_torch.probes.__main__, sesr_tpu_torch.export.vectors, "
+            "sesr_tpu_torch.models.experimental\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\n"
