@@ -2,8 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (sesr_tpu_torch): sr_x2, nr
 and nrdm_6 served and simulated, every task's infer, the probes, the
 artifact toolchain (eval-float, calibrate, certify, infer --audit),
-training, QAT, AdaRound and make_qparams, and the RTL vector export,
-hist and the experimental models.
+training, QAT, AdaRound and make_qparams, the RTL vector export, hist and
+the experimental models, and sharded execution.
 
     python3 chip_smoke.py
 
@@ -133,7 +133,23 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    equal, activation histograms within 1 % of each domain's count in L1,
    the input domain's equal; each PNG decodes); the experimental forwards
    (inception, one inception path, split, anchor; sr_x4 base, 64x64 in) on
-   the card within 1e-5 of the CPU. K1's export launches join its entry.
+   the card within 1e-5 of the CPU. K1's export launches join its entry;
+11. sharded execution (``sesr_tpu_torch/parallel``): on NCCL at world size
+   1 (a FileStore; NCCL takes one rank per device) the sharded integer
+   forwards (1D, 2D, multihost, tail) array_equal with integer_forward, the
+   float forwards within rtol / atol 1e-5 of forward_float, sharded_calibrate
+   within rel 3e-3 / 2 zero steps of the CPU's calibrate, every sharded
+   deployment forward (1D, 2D, pinned, multihost, forced pe-exact, tail;
+   f32 and int8) array_equal with the monolithic one in one launch, a CUDA
+   tensor on a gloo group refused, and stream_frames on five nr frames with
+   the adversarial frame third, audited every batch (hybrid until it, then
+   pe-exact: 3 + 3 launches); then every rank's window of sp = 4 and 2 x 2
+   grids in turn on the card (virtual ranks: nr and nrdm_6 hybrid and nr
+   pe-exact at 1080x1920, sr_x2 through K2 at 540x960, f32 and int8) and
+   slabs (nr and nrdm_6 at 1080x1920 in pick_slab_h's four, sr_x2 at
+   540x960 in four of 136 rows), each array_equal with the monolithic
+   kernel, one launch a window or slab, each window's and slab's device
+   time against the monolithic frame's.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -1705,6 +1721,265 @@ def export_phase(torch, dev, card):
     return {"sesr_pe_exact_net": {"export": (k1_exports, k1_exports)}}
 
 
+SLAB_SR = 136                      # phase 11: sr_x2's slab height at 540x960, four slabs
+VIRTUAL_GRIDS = ((1, 4), (2, 2))   # phase 11: sp = 4 and a 2 x 2 grid of virtual ranks
+
+
+def sharding_phase(torch, dev, card):
+    """Phase 11, sharded execution on the card: the sharded forwards on
+    NCCL at world size 1 (NCCL takes one rank per device), every rank's
+    window of a 4-card deployment in turn on this card (virtual ranks),
+    slabs, and an audited stream_frames. Returns, per network kernel and
+    path, (launches, frames served)."""
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from sesr_tpu_torch.config import spec_for_task
+    from sesr_tpu_torch.data import SyntheticDataset
+    from sesr_tpu_torch.deploy import select_forward
+    from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
+    from sesr_tpu_torch.models.sesr import forward_float, init_params
+    from sesr_tpu_torch.ops.corrected import pe_exact_corrected_forward, split_layers
+    from sesr_tpu_torch.ops.halo import halo_exchange
+    from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, reset_launch_counts
+    from sesr_tpu_torch.ops.slab import blocks, pick_slab_h, slab_forward, window
+    from sesr_tpu_torch.parallel import multihost as mh
+    from sesr_tpu_torch.parallel import tiling
+    from sesr_tpu_torch.parallel.launch import process_group
+    from sesr_tpu_torch.quant.audit import OODSaturationWarning
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.certify import adversarial_image
+    from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
+    from sesr_tpu_torch.quant.params import QuantParams
+    from sesr_tpu_torch.timing import median_ms
+
+    tag = f"({card})"
+    kernel_of = {"fast": fast_net, "hybrid": corrected_net, "pe-exact": corrected_net}
+    arts = {t: (spec_for_task(t), QuantParams.load(
+        os.path.join(REPO, "artifacts", f"qparams_{t}.npz"))) for t in ("sr_x2", "nr", "nrdm_6")}
+    sr_data = list(SyntheticDataset("sr_x2", n=4, hw=(2 * FRAME[0], 2 * FRAME[1])))
+    nr_data = list(SyntheticDataset("nr", n=4, hw=BAYER_FRAME))
+    frame = {"sr_x2": torch.from_numpy(sr_data[0][0]).to(dev),
+             "nr": torch.from_numpy(nr_data[0][0]).to(dev)}
+    frame["nrdm_6"] = frame["nr"]
+    launches = {"sesr_fast_net": {}, "sesr_corrected_net": {}}
+
+    def counted(fn, want, what, path, frames=1):
+        """fn() with the counters at 0 before it: ``want`` launches of the
+        kernels (K2, corrected); the count joins the phase's launches."""
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = (fast_net.launches, corrected_net.launches)
+        if got != want:
+            fail(f"[11] {what}: launches K2 / sesr_corrected_net {got}, want {want}")
+        for kern, n in zip((fast_net, corrected_net), got):
+            if n:
+                n0, f0 = launches[kern.symbol].get(path, (0, 0))
+                launches[kern.symbol][path] = (n0 + n, f0 + frames)
+        return out
+
+    def equal(got, want, what):
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"[11] {what}: differs from the monolithic forward")
+
+    # 11a. NCCL at world size 1, through a FileStore
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store, process_group("nccl", 0, 1, store):
+        m2, m3 = tiling.make_mesh(1, 1), tiling.make_mesh_2d(1, 1, 1)
+        mh3 = mh.make_mesh_multihost(n_hosts=1, dp=1, sp=1)
+        mh4 = mh.make_mesh_multihost_2d(n_hosts=1, dp=1, sp_h=1, sp_w=1)
+        print(f"[11] NCCL world of {dist.get_world_size()}: meshes {m2.mesh.shape} "
+              f"{m3.mesh.shape} {mh3.mesh.shape} {mh4.mesh.shape} on {m2.device_type}",
+              flush=True)
+        for task, build, mesh in (("sr_x2", tiling.sharded_integer_forward, m2),
+                                  ("nr", tiling.sharded_integer_forward_2d, m3),
+                                  ("sr_x2", mh.multihost_integer_forward, mh3)):
+            spec, qp = arts[task]
+            want = integer_forward(spec, qp, frame[task])[0]
+            equal(build(spec, qp, mesh)(frame[task]), want, f"{build.__name__} {task}")
+        spec, qp = arts["nr"]
+        equal(mh.multihost_tail_forward(spec, qp, mh3)(frame["nr"]),
+              integer_forward(spec, qp, frame["nr"])[0], "multihost_tail_forward nr")
+        print("[11] sharded_integer_forward (sr_x2), _2d (nr), multihost_integer_forward "
+              "(sr_x2), multihost_tail_forward (nr): array_equal with integer_forward",
+              flush=True)
+        spec = arts["sr_x2"][0]
+        params = init_params(spec, torch.Generator().manual_seed(0))
+        got = tiling.sharded_float_forward(spec, params, m2)(frame["sr_x2"])
+        got_2d = tiling.sharded_float_forward_2d(spec, params, m3)(frame["sr_x2"])
+        want = forward_float(spec, params, frame["sr_x2"])
+        err = max(float((g - want).abs().max()) for g in (got, got_2d))
+        print(f"[11] sharded_float_forward and _2d sr_x2 {FRAME}: max abs difference from "
+              f"forward_float {err:.3e}", flush=True)
+        if not all(torch.allclose(g, want, rtol=1e-5, atol=1e-5) for g in (got, got_2d)):
+            fail(f"[11] sharded_float_forward: {err} past rtol / atol 1e-5")
+        with np.load(os.path.join(REPO, "tests", "goldens", "sr_x2.npz")) as g, \
+                tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sr_x2_collapsed.npz")
+            L = int(g["num_convs"])
+            np.savez(path, **{f"w_{i}": np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0))
+                              for i in range(L)},
+                     **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
+            golden = load_reference_checkpoint("sr_x2", path=path)
+        images = [d[0] for d in sr_data[:2]]
+        tc = time.perf_counter()
+        q_shard = tiling.sharded_calibrate(spec, golden, images, m2)
+        tc = time.perf_counter() - tc
+        q_cpu = calibrate(spec, golden, images, device="cpu")
+        rel = max(abs(a / b - 1) for a, b in zip(q_shard.a_scale, q_cpu.a_scale))
+        dz = max(abs(a - b) for a, b in zip(q_shard.a_zero, q_cpu.a_zero))
+        print(f"[11] sharded_calibrate sr_x2, 2 frames {FRAME}: {tc:.3f} s {tag}; against the "
+              f"CPU's calibrate: scales within rel {rel:.2e}, zeros within {dz}", flush=True)
+        if not (rel <= 3e-3 and dz <= 2):
+            fail(f"[11] sharded_calibrate: scales rel {rel} (3e-3), zeros {dz} (2) of the CPU")
+        deploy = (
+            ("sharded_deployment_forward", tiling.sharded_deployment_forward, m2, {}),
+            ("sharded_deployment_forward_2d", tiling.sharded_deployment_forward_2d, m3, {}),
+            ("multihost_packed_forward", mh.multihost_packed_forward, mh3, {}),
+            ("multihost_packed_forward_2d", mh.multihost_packed_forward_2d, mh4, {}),
+            ("multihost_tail_forward", mh.multihost_tail_forward, mh3,
+             {"lowering": "deployment"}))
+        for task in ("sr_x2", "nr"):
+            spec, qp = arts[task]
+            mode, fwd = select_forward(qp)
+            want = fwd(spec, qp, frame[task])
+            want8 = fwd(spec, qp, frame[task], out_dtype="int8")
+            k2_kc = (1, 0) if mode == "fast" else (0, 1)
+            pinned = (("sharded_packed_forward", tiling.sharded_packed_forward, m2, {}),) \
+                if mode == "fast" else \
+                (("sharded_hybrid_forward", tiling.sharded_hybrid_forward, m2, {}),)
+            for name, build, mesh, kw in deploy + pinned:
+                got = counted(lambda: build(spec, qp, mesh, **kw)(frame[task]), k2_kc,
+                              f"{name} {task}", f"nccl_world1_{task}")
+                equal(got, want, f"{name} {task}")
+            got = counted(lambda: tiling.sharded_deployment_forward(
+                spec, qp, m2, out_dtype="int8")(frame[task]), k2_kc, f"int8 {task}",
+                f"nccl_world1_{task}")
+            equal(got, want8, f"sharded_deployment_forward int8 {task}")
+            print(f"[11] {task} ({mode}): every sharded deployment forward at world size 1 "
+                  f"array_equal with the monolithic one, one launch each, f32 and int8",
+                  flush=True)
+        spec, qp = arts["nr"]
+        want = pe_exact_corrected_forward(spec, qp, frame["nr"])
+        got = counted(lambda: mh.multihost_packed_forward(spec, qp, mh3, force_mode="pe-exact")(
+            frame["nr"]), (0, 1), "multihost_packed_forward pe-exact nr", "nccl_world1_nr")
+        equal(got, want, "multihost_packed_forward pe-exact nr")
+        if corrected_net.split_launches[split_layers(qp, "pe-exact")] != 1:
+            fail("[11] forced pe-exact did not launch the pe-exact split")
+        print("[11] multihost_packed_forward(force_mode='pe-exact') nr: array_equal, one "
+              "pe-exact launch", flush=True)
+        gloo = dist.new_group(backend="gloo")
+        try:
+            halo_exchange(frame["nr"], 2, gloo)
+            fail("[11] a CUDA tensor on a gloo group was not refused")
+        except ValueError as e:
+            print(f"[11] a CUDA tensor on a gloo group raises: {e}", flush=True)
+
+        # 11d. stream_frames at world size 1: five nr frames, the adversarial
+        # frame third, audited every batch
+        spec, qp = arts["nr"]
+        adv = adversarial_image(qp, hw=BAYER_FRAME).astype(np.float32)
+        stream = [d[0] for d in nr_data[:2]] + [adv] + [d[0] for d in nr_data[2:]]
+        log = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", OODSaturationWarning)
+            ts = time.perf_counter()
+            outs = counted(lambda: [b.y for b in mh.stream_frames(
+                spec, qp, mh3, stream, lowering="deployment", audit_every=1, audit_log=log)],
+                (0, 6), "stream_frames nr audited", "stream_frames_nr_audited", len(stream))
+            ts = time.perf_counter() - ts
+        by_split = {m: corrected_net.split_launches[split_layers(qp, m)]
+                    for m in ("hybrid", "pe-exact")}
+        summary = [(i, m, None if r is None else r.ok) for i, m, r in log]
+        print(f"[11] stream_frames nr, 5 frames {BAYER_FRAME}, adversarial third, audit_every=1: "
+              f"log {summary}; sesr_corrected_net launches by mode {by_split}; "
+              f"{len(caught)} OODSaturationWarning; {ts:.3f} s {tag}", flush=True)
+        if summary != [(0, "hybrid", True), (1, "hybrid", True), (2, "hybrid", False),
+                       (3, "pe-exact", None), (4, "pe-exact", None)] \
+                or by_split != {"hybrid": 3, "pe-exact": 3} or len(caught) != 1:
+            fail("[11] the audited stream did not degrade to pe-exact at the adversarial frame")
+        for x, y in zip(stream, outs):
+            equal(y, integer_forward(spec, qp, torch.from_numpy(x).to(dev), corrected=True)[0],
+                  "stream_frames against the corrected interpreter")
+        print("[11] every streamed frame array_equal with integer_forward(corrected)", flush=True)
+    print(f"[11] NCCL world-size-1 part: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11b. virtual ranks at full width: every rank's window in turn
+    def windows_ms(kern, spec, qp, x, split, h_blocks, w_blocks):
+        """Device ms of the kernel on each window, and on the whole frame."""
+        x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+        R = spec.halo_width()
+        H, W = x_q.shape[1:3]
+        per = []
+        for ha, hb in h_blocks:
+            for wa, wb in w_blocks:
+                (h0, h1), (w0, w1) = window(ha, hb, H, R), window(wa, wb, W, R)
+                win = x_q[:, h0:h1, w0:w1].contiguous()
+                per.append(median_ms(lambda: kern(spec, qp, win, split=split), dev, 20,
+                                     warmup=2, lead_ms=1.0))
+        mono = median_ms(lambda: kern(spec, qp, x_q, split=split), dev, 20, warmup=2,
+                         lead_ms=1.0)
+        return per, mono
+
+    t0 = time.perf_counter()
+    runs = [("nr", None, g, "f32") for g in VIRTUAL_GRIDS] + \
+        [("nrdm_6", None, g, "f32") for g in VIRTUAL_GRIDS] + \
+        [("nr", "pe-exact", (1, 4), "f32")] + \
+        [("sr_x2", None, g, dt) for g in VIRTUAL_GRIDS for dt in ("f32", "int8")]
+    for task, force, grid, out_dtype in runs:
+        spec, qp = arts[task]
+        mode, fwd = ("pe-exact", pe_exact_corrected_forward) if force else select_forward(qp)
+        kern = kernel_of[mode]
+        split = split_layers(qp, mode) if kern is corrected_net else None
+        x = frame[task]
+        want = fwd(spec, qp, x, out_dtype=out_dtype)
+        n_win = grid[0] * grid[1]
+        got = counted(lambda: tiling.virtual_rank_forward(spec, qp, x, grid, fwd, out_dtype),
+                      (n_win, 0) if kern is fast_net else (0, n_win),
+                      f"virtual ranks {task} {grid}", f"virtual_ranks_{task}_{mode}")
+        equal(got, want, f"virtual ranks {task} {mode} {grid} {out_dtype}")
+        H, W = x.shape[1:3]
+        per, mono = windows_ms(kern, spec, qp, x, split, blocks(H, grid[0]), blocks(W, grid[1]))
+        e2e = median_ms(lambda: tiling.virtual_rank_forward(spec, qp, x, grid, fwd, out_dtype),
+                        dev, 10, warmup=2)
+        e2e_mono = median_ms(lambda: fwd(spec, qp, x, out_dtype=out_dtype), dev, 10, warmup=2)
+        print(f"[11] virtual ranks {task} {mode} {H}x{W} grid {grid[0]}x{grid[1]} {out_dtype}: "
+              f"array_equal, {n_win} launches; {kern.symbol} device ms per window "
+              f"{[round(t, 4) for t in per]}, largest / monolithic {max(per) / mono:.3f}, "
+              f"sum {sum(per):.4f} vs monolithic {mono:.4f} ms ({sum(per) / mono:.3f}x); "
+              f"end to end as the host issues them {e2e:.4f} vs {e2e_mono:.4f} ms {tag}",
+              flush=True)
+
+    # 11c. slabs
+    for task, slab_h in (("nr", None), ("nrdm_6", None), ("sr_x2", SLAB_SR)):
+        spec, qp = arts[task]
+        mode, fwd = select_forward(qp)
+        kern = kernel_of[mode]
+        split = split_layers(qp, mode) if kern is corrected_net else None
+        x = frame[task]
+        H, W = x.shape[1:3]
+        slab_h = slab_h or pick_slab_h(spec, H)
+        h_blocks = [(a, min(a + slab_h, H)) for a in range(0, H, slab_h)]
+        want = fwd(spec, qp, x)
+        got = counted(lambda: slab_forward(spec, qp, x, slab_h),
+                      (len(h_blocks), 0) if kern is fast_net else (0, len(h_blocks)),
+                      f"slabs {task}", f"slabs_{task}")
+        equal(got, want, f"slab_forward {task}")
+        per, mono = windows_ms(kern, spec, qp, x, split, h_blocks, [(0, W)])
+        e2e = median_ms(lambda: slab_forward(spec, qp, x, slab_h), dev, 10, warmup=2)
+        e2e_mono = median_ms(lambda: fwd(spec, qp, x), dev, 10, warmup=2)
+        print(f"[11] slab_forward {task} {mode} {H}x{W}, slab_h {slab_h}: array_equal, "
+              f"{len(h_blocks)} launches; {kern.symbol} device ms per slab "
+              f"{[round(t, 4) for t in per]}, sum {sum(per):.4f} vs monolithic {mono:.4f} ms "
+              f"({sum(per) / mono:.3f}x); end to end as the host issues them {e2e:.4f} vs "
+              f"{e2e_mono:.4f} ms {tag}", flush=True)
+    print(f"[11] virtual ranks and slabs: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2087,8 +2362,14 @@ def main():
     t0 = time.perf_counter()
     export_launches = export_phase(torch, dev, card)
     print(f"[10] the export phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    # 11. sharded execution: the windows' and slabs' launches join K2's and
+    # the corrected kernel's entries
+    t0 = time.perf_counter()
+    sharding_launches = sharding_phase(torch, dev, card)
+    print(f"[11] the sharding phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     for e in entries:
-        for phase in (toolchain_launches, training_launches, export_launches):
+        for phase in (toolchain_launches, training_launches, export_launches,
+                      sharding_launches):
             for path, (count, n_frames) in phase.get(e["name"], {}).items():
                 e["launches"] += count
                 e["launches_per_frame"][path] = count / n_frames

@@ -22,7 +22,7 @@ from sesr_tpu_torch.quant.params import QuantParams
 def select_forward(qp: QuantParams):
     """(mode, fn): the fastest certificate-sound deployment forward for
     this artifact. Every fn has the signature
-    fn(spec, qp, x, out_dtype="f32", device=None)."""
+    fn(spec, qp, x, out_dtype="f32", device=None, quantized=False)."""
     if qp.fast_cert_ok:
         return "fast", fast_forward
     layers = qp.fast_cert_layers

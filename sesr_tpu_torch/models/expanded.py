@@ -27,6 +27,7 @@ from sesr_tpu_torch.models.blocks import (collapse_block, fold_residual_identity
                                           hwio_to_oihw, oihw_to_hwio)
 from sesr_tpu_torch.models.sesr import CollapsedParams
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, float_exact, pixel_shuffle_nhwc
+from sesr_tpu_torch.ops.halo import exchange_for_conv
 from sesr_tpu_torch.quant.integer import as_input
 
 
@@ -98,16 +99,23 @@ def expanded_graph(spec: SESRSpec, x: torch.Tensor, block, outer_add) -> torch.T
 
 
 def forward_expanded(spec: SESRSpec, params: ExpandedParams, x,
-                     device=None) -> torch.Tensor:
+                     device=None, halo_group=None) -> torch.Tensor:
     """Float32 forward of the uncollapsed network. x: NHWC (numpy or
     tensor) on ``device`` (default: x's device, else ``cuda``). The convs
     run without TF32 (``float_exact``); the parameters keep their autograd
-    graph."""
+    graph. ``halo_group``: x is this rank's spatial block (as
+    ``forward_float`` takes it); each k x k expand conv exchanges its halo,
+    differentiably."""
     x = as_input(x, device)
 
     def block(h, i):
         b = params.blocks[i]
-        y = conv2d_nhwc(h, b.w_expand.to(h.device))
+        w_e = b.w_expand.to(h.device)
+        if halo_group is None:
+            y = conv2d_nhwc(h, w_e)
+        else:
+            h, w_valid, h_valid = exchange_for_conv(h, w_e.shape[0], halo_group)
+            y = conv2d_nhwc(h, w_e, w_valid=w_valid, h_valid=h_valid)
         return conv2d_nhwc(y, b.w_squeeze.to(h.device), b.b_squeeze.to(h.device))
 
     with float_exact():

@@ -24,6 +24,7 @@ from torch import nn
 
 from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, float_exact, pixel_shuffle_nhwc
+from sesr_tpu_torch.ops.halo import exchange_for_conv
 from sesr_tpu_torch.quant.integer import as_input
 
 
@@ -57,17 +58,26 @@ def init_params(spec: SESRSpec, generator: torch.Generator,
 
 
 def forward_float(spec: SESRSpec, params: CollapsedParams, x,
-                  device=None) -> torch.Tensor:
+                  device=None, halo_group=None) -> torch.Tensor:
     """Float32 forward of the collapsed network. x: NHWC in [0, 1] (numpy or
     tensor), on ``device`` (default: x's device, else ``cuda``). The convs
-    run without TF32 (``float_exact``)."""
+    run without TF32 (``float_exact``).
+
+    ``halo_group``: this rank's spatial block, sharded along W (a process
+    group) or along H and W (an (h_group, w_group) pair): each conv
+    exchanges its k // 2 halo with the neighbouring ranks in place of the
+    zero padding (``ops/halo.py``)."""
     x = as_input(x, device)
 
     def param(v):
         return torch.as_tensor(v, dtype=torch.float32, device=x.device)
 
     def conv(h, i):
-        return conv2d_nhwc(h, param(params.weights[i]), param(params.biases[i]))
+        w, b = param(params.weights[i]), param(params.biases[i])
+        if halo_group is None:
+            return conv2d_nhwc(h, w, b)
+        h, w_valid, h_valid = exchange_for_conv(h, w.shape[0], halo_group)
+        return conv2d_nhwc(h, w, b, w_valid=w_valid, h_valid=h_valid)
 
     n = params.num_convs
     with float_exact():

@@ -13,9 +13,15 @@ import torch.nn.functional as F
 
 
 def conv2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
-                bias: torch.Tensor = None) -> torch.Tensor:
+                bias: torch.Tensor = None, w_valid: bool = False,
+                h_valid: bool = False) -> torch.Tensor:
     """Stride-1 SAME-padded 2D convolution, NHWC x HWIO -> NHWC, then
     ``+ bias`` (OC,) when given, as a separate add after the conv.
+
+    ``w_valid`` / ``h_valid``: VALID padding along W / H, the mode of
+    spatially sharded execution, where each shard carries a halo of its
+    neighbours' columns / rows (``ops/halo.py``) in place of the zeros; the
+    output is then k // 2 narrower on each side of that axis.
 
     The dtype is the caller's. The integer datapath calls it in float64 on
     integer-valued operands, where every sum is exact and any algorithm
@@ -23,8 +29,9 @@ def conv2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
     inside ``float_exact()``.
     """
     k = w_hwio.shape[0]
+    pad = (0 if h_valid else k // 2, 0 if w_valid else k // 2)
     y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
-                 padding=k // 2).permute(0, 2, 3, 1)
+                 padding=pad).permute(0, 2, 3, 1)
     return y if bias is None else y + bias
 
 

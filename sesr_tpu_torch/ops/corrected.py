@@ -18,7 +18,7 @@ from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.convert import corrected_split_layers
 from sesr_tpu_torch.ops.kernels import OUT_DTYPES, corrected_net, run_net
 from sesr_tpu_torch.quant.integer import (as_input, integer_forward,
-                                          integer_forward_int8)
+                                          integer_forward_int8, resolve_device)
 from sesr_tpu_torch.quant.params import QuantParams
 
 MODES = ("hybrid", "pe-exact")
@@ -47,34 +47,39 @@ def split_layers(qp: QuantParams, mode: str) -> tuple:
 
 
 def corrected_forward(spec: SESRSpec, qp: QuantParams, x, mode: str,
-                      out_dtype: str = "f32", device=None) -> torch.Tensor:
+                      out_dtype: str = "f32", device=None,
+                      quantized: bool = False) -> torch.Tensor:
     """The corrected datapath in ``mode``. x: NHWC float in [0, 1] (numpy or
-    tensor), on ``device`` (default: x's device, else ``cuda``).
+    tensor), on ``device`` (default: x's device, else ``cuda``); with
+    ``quantized`` the int8 input image instead.
     ``out_dtype``: "f32" (the dequantized image) or "int8" (the raw
     quantized image; dequantize with (a_zero[L], a_scale[L]))."""
     if out_dtype not in OUT_DTYPES:
         raise ValueError(f"out_dtype must be one of {OUT_DTYPES}, got {out_dtype!r}")
     split = split_layers(qp, mode)
-    x = as_input(x, device)
+    x = torch.as_tensor(x, device=resolve_device(x, device)) if quantized else \
+        as_input(x, device)
     if x.device.type == "cpu":
         fast_layers = _stamps(qp) if mode == "hybrid" else None
         if out_dtype == "int8":
             return integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
-                                        fast_layers=fast_layers)
-        return integer_forward(spec, qp, x, corrected=True, fast_layers=fast_layers)[0]
+                                        fast_layers=fast_layers, quantized=quantized)
+        return integer_forward(spec, qp, x, corrected=True, fast_layers=fast_layers,
+                               quantized=quantized)[0]
     if x.device.type != "cuda":
         raise ValueError(f"corrected_forward runs on cuda or cpu, got {x.device}")
-    return run_net(corrected_net, spec, qp, x, out_dtype, split=split)
+    return run_net(corrected_net, spec, qp, x, out_dtype, split=split, quantized=quantized)
 
 
 def hybrid_forward(spec: SESRSpec, qp: QuantParams, x, out_dtype: str = "f32",
-                   device=None) -> torch.Tensor:
+                   device=None, quantized: bool = False) -> torch.Tensor:
     """The layer-hybrid deployment forward (JAX ``packed_hybrid_forward``)."""
-    return corrected_forward(spec, qp, x, "hybrid", out_dtype, device)
+    return corrected_forward(spec, qp, x, "hybrid", out_dtype, device, quantized)
 
 
 def pe_exact_corrected_forward(spec: SESRSpec, qp: QuantParams, x,
-                               out_dtype: str = "f32", device=None) -> torch.Tensor:
+                               out_dtype: str = "f32", device=None,
+                               quantized: bool = False) -> torch.Tensor:
     """The corrected PE-exact deployment forward (JAX
     ``packed_exact_forward(corrected=True)``)."""
-    return corrected_forward(spec, qp, x, "pe-exact", out_dtype, device)
+    return corrected_forward(spec, qp, x, "pe-exact", out_dtype, device, quantized)

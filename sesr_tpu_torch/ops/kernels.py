@@ -186,13 +186,15 @@ def reset_launch_counts() -> None:
 
 
 def run_net(kernel: NetKernel, spec: SESRSpec, qp: QuantParams,
-            x: torch.Tensor, out_dtype: str = "f32", split=None) -> torch.Tensor:
-    """Quantize x (NHWC float on a CUDA device), launch ``kernel`` (with
-    ``split``, the corrected kernel's mask), and return the output in the
-    ``out_dtype`` contract: dequantized float32 ("f32") or the raw int8
-    image ("int8"), pixel-shuffled."""
-    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
-    y = kernel(spec, qp, x_q, split=split)
+            x: torch.Tensor, out_dtype: str = "f32", split=None,
+            quantized: bool = False) -> torch.Tensor:
+    """Quantize x (NHWC float on a CUDA device; with ``quantized`` x is the
+    int8 input already), launch ``kernel`` (with ``split``, the corrected
+    kernel's mask), and return the output in the ``out_dtype`` contract:
+    dequantized float32 ("f32") or the raw int8 image ("int8"),
+    pixel-shuffled."""
+    x_q = x if quantized else quantize_input(x, qp).to(torch.int8)
+    y = kernel(spec, qp, x_q.contiguous(), split=split)
     if out_dtype == "f32":
         y = dequantize_output(y, qp)
     if spec.has_pixel_shuffle:

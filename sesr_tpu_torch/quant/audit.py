@@ -53,7 +53,7 @@ def empirically_trusted_layers(qp: QuantParams, mode: str) -> Tuple[int, ...]:
 
 def audit_frame(spec: SESRSpec, qp: QuantParams, x, y_served=None,
                 mode: Optional[str] = None, warn: bool = True,
-                device=None) -> AuditResult:
+                device=None, halo_group=None) -> AuditResult:
     """Audit one frame (or batch) against the PE-exact interpreter
     (``integer_forward(corrected=True, collect_dumps=True)``, the form the
     certification's empirical obligations run), on ``device`` (default: x's
@@ -61,13 +61,15 @@ def audit_frame(spec: SESRSpec, qp: QuantParams, x, y_served=None,
     ``empirically_trusted_layers(qp, mode)`` and, when ``y_served`` (the
     float32 dequantized output) is given, a served output that differs.
     ``mode`` defaults to the certificate-selected serving mode. Warns
-    (OODSaturationWarning) on failure when ``warn``."""
+    (OODSaturationWarning) on failure when ``warn``. ``halo_group``: x is
+    this rank's W block of a sharded frame (``integer_forward``'s hook); the
+    counts and the result are then this rank's."""
     if mode is None:
         mode, _ = select_forward(qp)
     trusted = empirically_trusted_layers(qp, mode)
     with torch.inference_mode():
         y_exact, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
-                                         device=device)
+                                         device=device, halo_group=halo_group)
     ovf18 = dumps["overflow_18"].cpu().numpy()
     violations = tuple(i for i in trusted if ovf18[i] != 0)
     diverged = None

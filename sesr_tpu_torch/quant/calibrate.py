@@ -19,6 +19,12 @@ The dynamic scale, zero, s_eff and the clamp limits are float32 scalars
 on the device, and every division is by a tensor on the device (a CUDA
 division by a Python scalar is a multiply by its reciprocal). The float32
 convs run inside ``float_exact()``: no TF32, deterministic algorithms.
+
+Sharded calibration (``parallel/tiling.py`` ``sharded_calibrate``) runs
+the same forward on each rank's block: every min and max is reduced over
+the whole mesh (``reduce_group``) before it is used, the histograms are
+summed over it, and each conv exchanges its W halo (``halo_group``), so
+every rank computes the monolithic values.
 """
 
 from __future__ import annotations
@@ -28,11 +34,13 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sesr_tpu_torch.config import DEFAULT_HW, HardwareConfig, SESRSpec
 from sesr_tpu_torch.metrics import evaluate_pair
 from sesr_tpu_torch.models.sesr import CollapsedParams, forward_float
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, float_exact, pixel_shuffle_nhwc
+from sesr_tpu_torch.ops.halo import check_backend, halo_exchange_w
 from sesr_tpu_torch.quant.integer import (as_input, integer_forward, pe_channel_mask,
                                           resolve_device)
 from sesr_tpu_torch.quant.observers import (BINS_NUM, histogram_on_device, kl_bounds,
@@ -52,14 +60,27 @@ def _np(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def _dynamic_fake_quant(x: torch.Tensor, bits: int):
+def reduce_range(lo: torch.Tensor, hi: torch.Tensor, group):
+    """(lo, hi), float32 scalars, reduced to the minimum and the maximum
+    over the ranks of ``group`` (None: as they are): one MIN all-reduce of
+    (lo, -hi)."""
+    if group is None:
+        return lo, hi
+    check_backend(lo, group)
+    t = torch.stack([lo, -hi])
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return t[0], -t[1]
+
+
+def _dynamic_fake_quant(x: torch.Tensor, bits: int, group=None):
     """Per-tensor dynamic asymmetric fake-quant. Returns (x_fq, lo, hi,
     scale, zero), float32 scalars on x's device. An all-equal tensor gets
     the scale floor 1e-30 (the quantized tensor is then constant, not NaN;
-    ``finalize`` refuses the degenerate range)."""
+    ``finalize`` refuses the degenerate range). With a ``group`` the range
+    is the whole mesh's (``reduce_range``)."""
     qmax = float(2 ** (bits - 1) - 1)
     qmin = float(-(2 ** (bits - 1)))
-    lo, hi = x.min(), x.max()
+    lo, hi = reduce_range(x.min(), x.max(), group)
     scale = torch.clamp_min((hi - lo) / _f32(qmax - qmin, x.device), 1e-30)
     zero = qmin - torch.round(lo / scale)
     q = torch.clamp(torch.round(x / scale + zero), qmin, qmax)
@@ -67,9 +88,10 @@ def _dynamic_fake_quant(x: torch.Tensor, bits: int):
 
 
 def _fq_conv_layer(x_fq, w_fq, bias_f, scale, zero, w_scale: float,
-                   hw: HardwareConfig, exact_pe: bool) -> torch.Tensor:
+                   hw: HardwareConfig, exact_pe: bool, w_valid: bool = False) -> torch.Tensor:
     """One conv of the fake-quant pipeline: the (PE-split) conv with float
-    saturation clamps, plus the quantized bias."""
+    saturation clamps, plus the quantized bias (``w_valid``: VALID along
+    W, on an input that carries its W halo)."""
     acc_hi, acc_lo = float(2 ** (hw.pe_acc_bits - 1) - 1), float(-(2 ** (hw.pe_acc_bits - 1)))
     add_hi, add_lo = float(2 ** (hw.pe_add_bits - 1) - 1), float(-(2 ** (hw.pe_add_bits - 1)))
     s_eff = scale * _f32(w_scale, x_fq.device)
@@ -79,11 +101,11 @@ def _fq_conv_layer(x_fq, w_fq, bias_f, scale, zero, w_scale: float,
         for p in range(hw.pe):
             mask = torch.as_tensor(pe_channel_mask(ic, hw.pe, p).astype(np.float32),
                                    device=x_fq.device)
-            y_p = conv2d_nhwc(x_fq, w_fq * mask[None, None, :, None])
+            y_p = conv2d_nhwc(x_fq, w_fq * mask[None, None, :, None], w_valid=w_valid)
             y_p = torch.clamp(y_p, (acc_lo - zero) * s_eff, (acc_hi - zero) * s_eff)
             y = y_p if y is None else y + y_p
     else:
-        y = conv2d_nhwc(x_fq, w_fq)
+        y = conv2d_nhwc(x_fq, w_fq, w_valid=w_valid)
     y = torch.clamp(y, (add_lo - zero) * s_eff, (add_hi - zero) * s_eff)
     b_hi, b_lo = float(2 ** (hw.bias_bits - 1) - 1), float(-(2 ** (hw.bias_bits - 1)))
     b_q = torch.clamp(torch.round(bias_f / s_eff), b_lo, b_hi) * s_eff
@@ -92,18 +114,24 @@ def _fq_conv_layer(x_fq, w_fq, bias_f, scale, zero, w_scale: float,
 
 def _calibration_forward_impl(spec: SESRSpec, fq_weights, x: torch.Tensor,
                               hw: HardwareConfig, exact_pe: bool, hist_bounds=None,
-                              qat_add_bounds=None):
+                              qat_add_bounds=None, reduce_group=None, halo_group=None):
     """(y, minmax (2, L+1)), and with ``hist_bounds`` ((L+1, 2) float32 on
-    the device) also the (L+1, BINS_NUM) histograms of every domain."""
+    the device) also the (L+1, BINS_NUM) histograms of every domain.
+    Sharded (x: this rank's block): ``reduce_group`` spans the whole mesh,
+    ``halo_group`` the ranks along W."""
     w_fq, w_scales, biases = fq_weights
     L = spec.num_convs
     lows, highs, hists = [], [], []
 
     def observe(h, d):
-        lows.append(h.min())
-        highs.append(h.max())
+        lo, hi = reduce_range(h.min(), h.max(), reduce_group)
+        lows.append(lo)
+        highs.append(hi)
         if hist_bounds is not None:
-            hists.append(histogram_on_device(h, hist_bounds[d, 0], hist_bounds[d, 1]))
+            hist = histogram_on_device(h, hist_bounds[d, 0], hist_bounds[d, 1])
+            if reduce_group is not None:
+                dist.all_reduce(hist, group=reduce_group)
+            hists.append(hist)
 
     h = x
     c0 = None
@@ -114,15 +142,19 @@ def _calibration_forward_impl(spec: SESRSpec, fq_weights, x: torch.Tensor,
             h = (quant_add_frozen(h, c0, *qat_add_bounds, hw.quan_bits)
                  if qat_add_bounds is not None else h + c0)
         observe(h, i)
-        h_fq, _, _, scale, zero = _dynamic_fake_quant(h, hw.quan_bits)
-        h = _fq_conv_layer(h_fq, w_fq[i], biases[i], scale, zero, w_scales[i], hw, exact_pe)
+        h_fq, _, _, scale, zero = _dynamic_fake_quant(h, hw.quan_bits, reduce_group)
+        if halo_group is not None:
+            h_fq = halo_exchange_w(h_fq, w_fq[i].shape[0] // 2, halo_group)
+        h = _fq_conv_layer(h_fq, w_fq[i], biases[i], scale, zero, w_scales[i], hw, exact_pe,
+                           w_valid=halo_group is not None)
         if i < L - 1:
             h = torch.relu(h)
         if i == 0:
             c0 = h
     observe(h, L)
     if spec.has_pixel_shuffle:
-        h = pixel_shuffle_nhwc(_dynamic_fake_quant(h, hw.quan_bits)[0], spec.scaling_factor)
+        h = pixel_shuffle_nhwc(_dynamic_fake_quant(h, hw.quan_bits, reduce_group)[0],
+                               spec.scaling_factor)
     minmax = torch.stack([torch.stack(lows), torch.stack(highs)])
     if hist_bounds is not None:
         return h, minmax, torch.stack(hists)

@@ -45,6 +45,7 @@ import torch
 
 from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, pixel_shuffle_nhwc
+from sesr_tpu_torch.ops.halo import exchange_for_conv
 from sesr_tpu_torch.ops.fixedpoint import apply_requant_f32, saturate
 from sesr_tpu_torch.quant.params import QuantParams
 from sesr_tpu_torch.quant.frozen_add import quant_add_frozen
@@ -98,12 +99,13 @@ def dequantize_output(y_q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
 
 
 def _domain_in(h, i: int, L: int, qp: QuantParams, shortcut,
-               corrected: bool) -> torch.Tensor:
-    """The int8 value x_q that conv i reads (as float32)."""
+               corrected: bool, quantized: bool = False) -> torch.Tensor:
+    """The int8 value x_q that conv i reads (as float32); conv 0's input h
+    is that value already when ``quantized``."""
     qmin, qmax = quant_limits(qp)
     zero = float(qp.a_zero[i])
     if i == 0:
-        return quantize_input(h, qp)
+        return h if quantized else quantize_input(h, qp)
     if i == L - 1:
         half = -qmin
         if corrected:
@@ -127,21 +129,31 @@ def graph_residual(h: torch.Tensor, shortcut: torch.Tensor, qp: QuantParams,
     return h + shortcut
 
 
-def _conv_int(x64: torch.Tensor, w: np.ndarray) -> torch.Tensor:
-    """Exact integer SAME conv of float64 integer values, as float64."""
+def _conv_int(x64: torch.Tensor, w: np.ndarray, w_valid: bool = False,
+              h_valid: bool = False) -> torch.Tensor:
+    """Exact integer conv of float64 integer values, as float64: SAME, or
+    VALID along W / H (``w_valid``, ``h_valid``)."""
     n, hh, ww, _ = x64.shape
     if w.shape[2] == 0:                    # a PE that owns no channel
-        return x64.new_zeros((n, hh, ww, w.shape[3]))
+        cut = w.shape[0] - 1               # a VALID axis loses k // 2 on each side
+        return x64.new_zeros((n, hh - cut * h_valid, ww - cut * w_valid, w.shape[3]))
     w_t = torch.as_tensor(np.asarray(w, np.float64), device=x64.device)
-    return torch.round(conv2d_nhwc(x64, w_t))
+    return torch.round(conv2d_nhwc(x64, w_t, w_valid=w_valid, h_valid=h_valid))
 
 
 def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
-                     corrected: bool, dense: bool):
+                     corrected: bool, dense: bool, halo_group=None):
     """Steps 2-5. Returns (pe_out (PE, N, H, W, OC), pe_add, y, ovf18,
-    ovf20), all integer-valued int32 tensors (counts as int64)."""
+    ovf20), all integer-valued int32 tensors (counts as int64). With a
+    ``halo_group`` (``ops/halo.py`` ``exchange_for_conv``) the shifted input
+    is first extended by its neighbours' k // 2 halo and the convs are
+    VALID along the sharded axes."""
     hw = qp.hw
     w = np.asarray(qp.w_int[i])
+    valid = {}
+    if halo_group is not None:
+        x_shift, w_valid, h_valid = exchange_for_conv(x_shift, w.shape[0], halo_group)
+        valid = dict(w_valid=w_valid, h_valid=h_valid)
     x64 = x_shift.to(torch.float64)
     hi16 = (1 << (hw.bias_bits - 1)) - 1
     clipped_bias = np.clip(np.asarray(qp.bias_int[i]), -hi16 - 1, hi16)
@@ -149,7 +161,7 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
     zero_count = torch.zeros((), dtype=torch.int64, device=dev)
 
     if dense:
-        pe_add = saturate(_conv_int(x64, w), hw.pe_add_bits)
+        pe_add = saturate(_conv_int(x64, w, **valid), hw.pe_add_bits)
         y = pe_add + torch.as_tensor(clipped_bias.astype(np.float64), device=dev)
         pe_add = pe_add.to(torch.int32)
         return pe_add[None], pe_add, y.to(torch.int32), zero_count, zero_count
@@ -159,7 +171,7 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
     ovf18 = zero_count
     for p in range(hw.pe):
         w_p = w[:, :, pe_channel_mask(w.shape[2], hw.pe, p), :]
-        y_p = _conv_int(x64[..., pe_channel_mask(x64.shape[-1], hw.pe, p)], w_p)
+        y_p = _conv_int(x64[..., pe_channel_mask(x64.shape[-1], hw.pe, p)], w_p, **valid)
         if not corrected:
             zsum = w_p.sum(axis=(0, 1, 2)).astype(np.int64) * z_eff
             y_p = y_p + torch.as_tensor(zsum.astype(np.float64), device=dev)
@@ -176,21 +188,24 @@ def _integer_conv_pe(x_shift: torch.Tensor, i: int, qp: QuantParams,
             ovf18, ovf20)
 
 
-def layer_input(h, i: int, L: int, qp: QuantParams, shortcut, corrected: bool):
+def layer_input(h, i: int, L: int, qp: QuantParams, shortcut, corrected: bool,
+                quantized: bool = False):
     """Step 1 of conv i: (x_q, x_shift), the int8 value the conv reads and
-    x_q - max(zero, -128), the value it convolves."""
-    x_q = _domain_in(h, i, L, qp, shortcut, corrected)
+    x_q - max(zero, -128), the value it convolves (``quantized``: conv 0's
+    h is x_q already)."""
+    x_q = _domain_in(h, i, L, qp, shortcut, corrected, quantized)
     return x_q, x_q - float(qp.effective_zero(i))
 
 
 def layer_step(x_shift: torch.Tensor, i: int, L: int, qp: QuantParams, shortcut,
-               corrected: bool, dense: bool):
+               corrected: bool, dense: bool, halo_group=None):
     """Steps 2-6 of conv i, the one layer step of ``integer_forward`` and of
     adaptive rounding's input collection: (pe_out, pe_add, h, shortcut,
     out_q, ovf18, ovf20). h is the next conv's input (after the ReLU), or
     for the last conv the dequantized output; conv 0 sets the shortcut;
     out_q is the last conv's int8 output (None before it)."""
-    pe_out, pe_add, y, ovf18, ovf20 = _integer_conv_pe(x_shift, i, qp, corrected, dense)
+    pe_out, pe_add, y, ovf18, ovf20 = _integer_conv_pe(x_shift, i, qp, corrected, dense,
+                                                       halo_group)
     h = apply_requant_f32(y, qp.requant_m[i], qp.requant_n[i])
     if i == 0:
         shortcut = torch.relu(h)
@@ -207,8 +222,10 @@ def layer_step(x_shift: torch.Tensor, i: int, L: int, qp: QuantParams, shortcut,
 def integer_forward(spec: SESRSpec, qp: QuantParams, x,
                     collect_dumps: bool = False, corrected: bool = False,
                     compute: str = "exact", device=None, fast_layers=None,
-                    residual_mode: str = "sim", qat_add_bounds=None):
-    """Bit-exact integer forward. x: NHWC float in [0, 1] (numpy or tensor).
+                    residual_mode: str = "sim", qat_add_bounds=None,
+                    halo_group=None, quantized: bool = False):
+    """Bit-exact integer forward. x: NHWC float in [0, 1] (numpy or tensor),
+    or with ``quantized`` the int8 input image (the kernels' input).
 
     Returns (y, dumps): y is the dequantized float32 output, pixel-shuffled
     where the task has a shuffle, on the call's device (``device``, else
@@ -229,6 +246,13 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     union_hi), the checkpoint's QuantAdd observer bounds
     (``io/torch_import.py`` ``load_qat_add_bounds``), which the other two
     modes ignore.
+
+    ``halo_group``: spatially sharded execution on this rank's block of
+    the image (``parallel/tiling.py``): a process group along W, an
+    (h_group, w_group) pair along both axes, or (None, w_group). Every conv
+    then exchanges its k // 2 halo with the neighbouring ranks in place of
+    the zero padding (``ops/halo.py``); the result is the monolithic
+    forward's block, value for value.
     """
     if residual_mode not in RESIDUAL_MODES:
         raise ValueError(f"residual_mode must be one of {RESIDUAL_MODES}, "
@@ -257,9 +281,9 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     for i in range(L):
         if i == L - 1 and residual_mode != "sim":
             h = graph_residual(h, shortcut, qp, residual_mode, qat_add_bounds)
-        x_q, x_shift = layer_input(h, i, L, qp, shortcut, corrected)
+        x_q, x_shift = layer_input(h, i, L, qp, shortcut, corrected, quantized)
         pe_out, pe_add, h, shortcut, out_q, ovf18, ovf20 = layer_step(
-            x_shift, i, L, qp, shortcut, corrected, dense[i])
+            x_shift, i, L, qp, shortcut, corrected, dense[i], halo_group)
         overflows.append(torch.stack([ovf18, ovf20]))
         if collect_dumps:
             dumps[f"input.{i}"] = x_q
@@ -282,12 +306,13 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
 
 def integer_forward_int8(spec: SESRSpec, qp: QuantParams, x,
                          corrected: bool, compute: str, device=None,
-                         fast_layers=None):
+                         fast_layers=None, quantized: bool = False):
     """The raw int8 output image (pixel-shuffled) of integer_forward: the
     plain version of the kernels' int8 output contract."""
     _, dumps = integer_forward(spec, qp, x, collect_dumps=True,
                                corrected=corrected, compute=compute,
-                               device=device, fast_layers=fast_layers)
+                               device=device, fast_layers=fast_layers,
+                               quantized=quantized)
     out_q = dumps[f"input.{spec.num_convs}"].to(torch.int8)
     if spec.has_pixel_shuffle:
         out_q = pixel_shuffle_nhwc(out_q, spec.scaling_factor)

@@ -34,6 +34,16 @@ multiply by the reciprocal), and the convs run inside ``float_exact()``.
 ``make_train_step`` is Adam + MSE; the step holds ``float_exact()``
 around the forward AND the backward, so that cuDNN's data and weight
 gradients do not run in TF32 either.
+
+Sharded training (``parallel/tiling.py`` ``sharded_train_step``, the
+counterpart of the JAX step under GSPMD): each rank runs its block of the
+batch; the k x k convs exchange their halo (``halo_group``, through the
+differentiable exchange of ``ops/halo.py``), the activation observers'
+current ranges reduce over the mesh (``reduce_group``), each rank's loss
+is its local sum over the global count, and the gradients are summed over
+the mesh before the optimizer's step, so every rank takes the same step.
+The percentile observer's order statistic does not reduce exactly over a
+mesh: it raises NotImplementedError under a group.
 """
 
 from __future__ import annotations
@@ -44,12 +54,15 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.io.torch_import import block_names
 from sesr_tpu_torch.models.expanded import (ExpandedParams, block_channels, expanded_graph,
                                             forward_expanded)
 from sesr_tpu_torch.ops.conv import conv2d_nhwc, float_exact
+from sesr_tpu_torch.ops.halo import exchange_for_conv
+from sesr_tpu_torch.quant.calibrate import reduce_range
 from sesr_tpu_torch.quant.frozen_add import (quant_add_frozen,  # noqa: F401 (this module's API
                                              quant_add_scale_from_bounds)  # in the JAX package)
 from sesr_tpu_torch.quant.integer import as_input
@@ -128,14 +141,16 @@ def _f32(v, device) -> torch.Tensor:
     return torch.full((), v, dtype=torch.float32, device=device)
 
 
-def _current_range(state: QuantizerState, x: torch.Tensor, per_channel: bool):
+def _current_range(state: QuantizerState, x: torch.Tensor, per_channel: bool, group=None):
+    """x's range (per output channel, or over the whole mesh's tensor when
+    ``group`` holds the ranks sharing it)."""
     if per_channel:
         flat = x.reshape(x.shape[0], -1) if x.ndim == 2 else \
             torch.movedim(x, -1, 0).reshape(x.shape[-1], -1)
         return (flat.amin(dim=1).reshape(state.min_val.shape),
                 flat.amax(dim=1).reshape(state.max_val.shape))
-    return (torch.full_like(state.min_val, 0) + x.min(),
-            torch.full_like(state.max_val, 0) + x.max())
+    lo, hi = reduce_range(x.min(), x.max(), group)
+    return torch.full_like(state.min_val, 0) + lo, torch.full_like(state.max_val, 0) + hi
 
 
 def _next_flag(state: QuantizerState, first: torch.Tensor) -> torch.Tensor:
@@ -157,8 +172,8 @@ def _moving_average(old, cur, momentum: float):
 
 
 def _moving_avg_update(state: QuantizerState, x, momentum: float,
-                       per_channel: bool) -> QuantizerState:
-    cur_min, cur_max = _current_range(state, x, per_channel)
+                       per_channel: bool, group=None) -> QuantizerState:
+    cur_min, cur_max = _current_range(state, x, per_channel, group)
     first = state.num_flag == 0
     return QuantizerState(
         torch.where(first, cur_min, _moving_average(state.min_val, cur_min, momentum)),
@@ -244,13 +259,16 @@ def fake_quant(x: torch.Tensor, state: QuantizerState, bits: int, q_type: int,
 # the QAT forward
 
 
-def _observe_act(cfg: QATConfig, state: QuantizerState, x, training: bool):
+def _observe_act(cfg: QATConfig, state: QuantizerState, x, training: bool, group=None):
     if not training:
         return state
     xs = x.detach()
     if cfg.ptq:
+        if group is not None:
+            raise NotImplementedError("the percentile observer's order statistic does not "
+                                      "reduce exactly over a mesh")
         return _percentile_update(state, xs, cfg.momentum, cfg.percentile)
-    return _moving_avg_update(state, xs, cfg.momentum, False)
+    return _moving_avg_update(state, xs, cfg.momentum, False, group)
 
 
 def _observe_weight(cfg: QATConfig, state: QuantizerState, w, training: bool):
@@ -262,9 +280,11 @@ def _observe_weight(cfg: QATConfig, state: QuantizerState, w, training: bool):
     return _moving_avg_update(state, ws, cfg.momentum, cfg.per_channel)
 
 
-def _quant_conv(cfg: QATConfig, cstate: ConvQuantState, x, w_hwio, bias, training: bool):
-    """QuantConv2d: fake-quant the input and the weight, then the conv."""
-    astate = _observe_act(cfg, cstate.act, x, training)
+def _quant_conv(cfg: QATConfig, cstate: ConvQuantState, x, w_hwio, bias, training: bool,
+                halo_group=None, reduce_group=None):
+    """QuantConv2d: fake-quant the input and the weight, then the conv
+    (sharded: the fake-quantized input extended by its halo)."""
+    astate = _observe_act(cfg, cstate.act, x, training, reduce_group)
     wstate = _observe_weight(cfg, cstate.weight, w_hwio, training)
     x_fq = fake_quant(x, astate, cfg.a_bits, cfg.q_type, is_weight=False)
     w_scale_state = wstate
@@ -273,14 +293,19 @@ def _quant_conv(cfg: QATConfig, cstate: ConvQuantState, x, w_hwio, bias, trainin
         w_scale_state = QuantizerState(wstate.min_val.reshape(1, 1, 1, -1),
                                        wstate.max_val.reshape(1, 1, 1, -1), wstate.num_flag)
     w_fq = fake_quant(w_hwio, w_scale_state, cfg.w_bits, 0, is_weight=True)
-    return conv2d_nhwc(x_fq, w_fq, bias), ConvQuantState(astate, wstate)
+    if halo_group is None:
+        return conv2d_nhwc(x_fq, w_fq, bias), ConvQuantState(astate, wstate)
+    x_fq, w_valid, h_valid = exchange_for_conv(x_fq, w_hwio.shape[0], halo_group)
+    return (conv2d_nhwc(x_fq, w_fq, bias, w_valid=w_valid, h_valid=h_valid),
+            ConvQuantState(astate, wstate))
 
 
-def _quant_add(cfg: QATConfig, astate: AddQuantState, res, shortcut, training: bool):
+def _quant_add(cfg: QATConfig, astate: AddQuantState, res, shortcut, training: bool,
+               reduce_group=None):
     """QuantAdd: both operands fake-quantized over the union of their
     observers' ranges, then added."""
-    rs = _observe_act(cfg, astate.res, res, training)
-    ss = _observe_act(cfg, astate.shortcut, shortcut, training)
+    rs = _observe_act(cfg, astate.res, res, training, reduce_group)
+    ss = _observe_act(cfg, astate.shortcut, shortcut, training, reduce_group)
     union = QuantizerState(torch.minimum(rs.min_val, ss.min_val),
                            torch.maximum(rs.max_val, ss.max_val), rs.num_flag)
     q_res = fake_quant(res, union, cfg.a_bits, cfg.q_type, is_weight=False)
@@ -289,10 +314,12 @@ def _quant_add(cfg: QATConfig, astate: AddQuantState, res, shortcut, training: b
 
 
 def qat_forward(spec: SESRSpec, cfg: QATConfig, params: ExpandedParams, state: QATState,
-                x, training: bool = True, device=None):
+                x, training: bool = True, device=None, halo_group=None, reduce_group=None):
     """The fake-quant forward of the uncollapsed network: (y, state'). x:
     NHWC (numpy or tensor) on ``device`` (default: the state's device); the
-    state and the parameters must lie there."""
+    state and the parameters must lie there. Sharded (x: this rank's block):
+    ``halo_group`` as ``forward_expanded`` takes it, ``reduce_group`` the
+    ranks over which the observers' ranges reduce."""
     x = as_input(x, device or state.add.res.min_val.device)
     convs = list(state.convs)
     add = [state.add]
@@ -300,13 +327,13 @@ def qat_forward(spec: SESRSpec, cfg: QATConfig, params: ExpandedParams, state: Q
     def block(h, i):
         blk = params.blocks[i]
         y, convs[2 * i] = _quant_conv(cfg, state.convs[2 * i], h, blk.w_expand, None,
-                                      training)
+                                      training, halo_group, reduce_group)
         y, convs[2 * i + 1] = _quant_conv(cfg, state.convs[2 * i + 1], y, blk.w_squeeze,
-                                          blk.b_squeeze, training)
+                                          blk.b_squeeze, training, None, reduce_group)
         return y
 
     def outer_add(h, c0):
-        y, add[0] = _quant_add(cfg, state.add, h, c0, training)
+        y, add[0] = _quant_add(cfg, state.add, h, c0, training, reduce_group)
         return y
 
     with float_exact():
@@ -362,38 +389,54 @@ def adam(params: ExpandedParams, lr: float) -> torch.optim.Adam:
 
 
 def train_loss(spec: SESRSpec, cfg: Optional[QATConfig], params: ExpandedParams,
-               qstate: QATState, x: torch.Tensor, gt: torch.Tensor):
+               qstate: QATState, x: torch.Tensor, gt: torch.Tensor,
+               halo_group=None, reduce_group=None):
     """(MSE loss, qstate') of one batch: the float network when ``cfg`` is
     None, else the fake-quant one. Specs with ``global_input_skip``
     (sr_x2) predict a residual: the loss scores y + nearest_up(x) against
     the full image. Call inside ``float_exact()`` when the backward runs
-    too."""
+    too. Sharded (x, gt: this rank's blocks; see ``qat_forward``): this
+    rank's squared error summed, over the whole mesh's count, a division
+    by a one-element tensor."""
     if cfg is None:
-        y, qstate = forward_expanded(spec, params, x), qstate
+        y, qstate = forward_expanded(spec, params, x, halo_group=halo_group), qstate
     else:
-        y, qstate = qat_forward(spec, cfg, params, qstate, x, training=True)
+        y, qstate = qat_forward(spec, cfg, params, qstate, x, training=True,
+                                halo_group=halo_group, reduce_group=reduce_group)
     if spec.global_input_skip:
         r = spec.scaling_factor
         y = y + x.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
-    return torch.mean((y - gt) ** 2), qstate
+    if reduce_group is None:
+        return torch.mean((y - gt) ** 2), qstate
+    count = torch.tensor([float(y.numel())], device=y.device)
+    dist.all_reduce(count, group=reduce_group)
+    return ((y - gt) ** 2).sum() / count[0], qstate
 
 
 def make_train_step(spec: SESRSpec, cfg: Optional[QATConfig], params: ExpandedParams,
-                    optimizer: torch.optim.Optimizer):
+                    optimizer: torch.optim.Optimizer, halo_group=None, reduce_group=None):
     """A train step over ``params`` (leaf tensors the optimizer updates in
     place): ``step(qstate, (x, gt)) -> (qstate', loss)``, MSE + the
     optimizer's update. ``cfg`` None trains the float network (the
     reference's default path; its QAT trigger is dead code). The forward
-    and the backward run inside one ``float_exact()``."""
+    and the backward run inside one ``float_exact()``. Sharded (see
+    ``train_loss``): the gradients and the loss are summed over
+    ``reduce_group`` before the update."""
 
     def step(qstate: QATState, batch):
         x, gt = batch
         optimizer.zero_grad(set_to_none=True)
         with float_exact():
-            loss, qstate = train_loss(spec, cfg, params, qstate, x, gt)
+            loss, qstate = train_loss(spec, cfg, params, qstate, x, gt, halo_group,
+                                      reduce_group)
             loss.backward()
+        loss = loss.detach()
+        if reduce_group is not None:
+            for v in (v for blk in params.blocks for v in blk):
+                dist.all_reduce(v.grad, group=reduce_group)
+            dist.all_reduce(loss, group=reduce_group)
         optimizer.step()
-        return qstate, loss.detach()
+        return qstate, loss
 
     return step
 

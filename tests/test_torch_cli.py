@@ -366,7 +366,10 @@ def test_import_boundary():
             "sesr_tpu_torch.ops.corrected, sesr_tpu_torch.probes, sesr_tpu_torch.probes.conv, "
             "sesr_tpu_torch.probes.int8_gemm, sesr_tpu_torch.probes.bitcast, "
             "sesr_tpu_torch.probes.__main__, sesr_tpu_torch.export.vectors, "
-            "sesr_tpu_torch.models.experimental\n"
+            "sesr_tpu_torch.models.experimental, sesr_tpu_torch.parallel, "
+            "sesr_tpu_torch.parallel.launch, sesr_tpu_torch.parallel.tiling, "
+            "sesr_tpu_torch.parallel.multihost, sesr_tpu_torch.ops.halo, "
+            "sesr_tpu_torch.ops.slab\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\n"
