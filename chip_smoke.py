@@ -3,7 +3,8 @@
 and nrdm_6 served and simulated, every task's infer, the probes, the
 artifact toolchain (eval-float, calibrate, certify, infer --audit),
 training, QAT, AdaRound and make_qparams, the RTL vector export, hist and
-the experimental models, and sharded execution.
+the experimental models, sharded execution, and the HardwareConfig
+family.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,24 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    slabs (nr and nrdm_6 at 1080x1920 in pick_slab_h's four, sr_x2 at
    540x960 in four of 136 rows), each array_equal with the monolithic
    kernel, one launch a window or slab, each window's and slab's device
-   time against the monolithic frame's.
+   time against the monolithic frame's; and the sharded QAT step with the
+   percentile observer, its observers' state torch.equal with the
+   unsharded step's;
+12. the HardwareConfig family (tests/test_hwconfig_sweep.py's four
+   configs, copied here): the sr_x2 and nr golden float weights and the
+   sweep's sparse 8-channel net calibrated, certified, saved and reloaded
+   on the card at each config and at the reference point; with the
+   counters at 0 before and read after, each served at full frame size
+   at batch 1 and 4 in the mode its certificate selects, simulated (K1)
+   and simulated --corrected; every output array_equal with the plain
+   interpreter, slabs and 2 x 2 virtual ranks equal to the served frame,
+   ``infer --qparams`` cuda against cpu; the corrected kernel with every
+   layer split and a saturating nr through K1 and the corrected kernel
+   (the accumulator clamp firing, and at 8 PEs the adder clamp), K2's
+   general instantiation where sr_x2's conv 0 can reach the adder clamp;
+   then each kernel's device time per frame at each config, its
+   registers (CUPTI and ptxas) and its ratio to the same kernel on the
+   same network at 4 PEs. One ``kernels`` entry per (kernel, config).
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -244,46 +262,47 @@ def _short(name):
     return name[:80]
 
 
-def mma_count(spec, pe_split, n, h, w, tile):
+def mma_count(spec, pe_split, n, h, w, tile, pe):
     """mma.sync instructions (m16n8k32) one launch issues over an (n, h, w)
     input, computed from the tile geometry of conv_layer in
     sesr_tpu_torch/csrc/sesr_net.cu (the card does not count them): per
     block and layer, the layer's output extent (the tile and the halo of
     the convs after it) cut into sixteens, times the passes and k32 chunks
     of its implicit GEMM and its n-tiles of 8 output channels.
-    ``pe_split``: per layer, one pass per PE (KernelConstants.pe_split)."""
-    from sesr_tpu_torch.convert import layer_geometry
+    ``pe_split``: per layer, one pass per PE (KernelConstants.pe_split) of
+    ``pe``; a network narrower than 16 channels runs padded to 16."""
+    from sesr_tpu_torch.convert import HIDDEN, layer_geometry
 
     th, tw = tile
     L = spec.num_convs
     per_block = 0
     for i, k in enumerate(spec.kernel_sizes):
-        ic = spec.in_channels if i == 0 else spec.num_channels
-        oc = spec.conv_out_channels if i == L - 1 else spec.num_channels
-        passes, chunks, _ = layer_geometry(k, ic, pe_split[i])
+        ic = spec.in_channels if i == 0 else HIDDEN
+        oc = spec.conv_out_channels if i == L - 1 else HIDDEN
+        passes, chunks, _ = layer_geometry(k, ic, pe_split[i], pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
         rows = -(-(th + 2 * r) * (tw + 2 * r) // 16)
         per_block += rows * passes * chunks * -(-oc // 8)
     return per_block * n * -(-h // th) * -(-w // tw)
 
 
-def wgmma_count(spec, pe_split, n, h, w, tile):
+def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     """(wgmma instructions, tensor-core MACs) one launch of the corrected
     kernel (csrc/sesr_corrected.cu) issues over an (n, h, w) input, computed
     from its tile geometry (the card does not count them): per tile and
     layer, the wide GEMM's rows (the output extent's height times the input
     extent's width) cut into m-tiles of 64, times the layer's k32 steps;
     each wgmma is 64 x N x 32 MACs, N the layer's columns (convert.py
-    wgmma_geometry; x4 on a split layer)."""
-    from sesr_tpu_torch.convert import wgmma_geometry
+    wgmma_geometry at ``pe`` PEs; x4 on a split layer at 4)."""
+    from sesr_tpu_torch.convert import HIDDEN, wgmma_geometry
 
     th, tw = tile
     L = spec.num_convs
     count = macs = 0
     for i, k in enumerate(spec.kernel_sizes):
-        ic = spec.in_channels if i == 0 else spec.num_channels
-        oc = spec.conv_out_channels if i == L - 1 else spec.num_channels
-        steps, _, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1)
+        ic = spec.in_channels if i == 0 else HIDDEN
+        oc = spec.conv_out_channels if i == L - 1 else HIDDEN
+        steps, _, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1, pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i:])
         rows = (th + 2 * r - k + 1) * (tw + 2 * r)
         count += -(-rows // 64) * steps
@@ -330,12 +349,12 @@ def plain_kwargs(kern, qp, mode=None):
                 if mode == "hybrid" else None)
 
 
-def tensor_count(kern, spec, split, n, h, w, tile):
+def tensor_count(kern, spec, split, n, h, w, tile, pe):
     """(tensor-core instructions, their MACs, the instruction's name) of one
-    launch of ``kern``, computed from its tile geometry."""
+    launch of ``kern`` at ``pe`` PEs, computed from its tile geometry."""
     if kern.datapath == "corrected":
-        return (*wgmma_count(spec, split, n, h, w, tile), "wgmma")
-    mmas = mma_count(spec, split, n, h, w, tile)
+        return (*wgmma_count(spec, split, n, h, w, tile, pe), "wgmma")
+    mmas = mma_count(spec, split, n, h, w, tile, pe)
     return mmas, mmas * 16 * 8 * 32, "mma.sync"
 
 
@@ -363,7 +382,8 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
     x_q = quantize_input(x, qp).to(torch.int8).contiguous()
     n, h, w = x_q.shape[:3]
     label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''} {h}x{w}"
-    tile0 = kern.tile(spec, split)
+    pe = qp.hw.pe
+    tile0 = kern.tile(spec, split, pe)
     ref = kern(spec, qp, x_q, split=split_arg)
     if sweep:
         tiles = TILE_SWEEP
@@ -372,9 +392,9 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
             mask = sum(1 << i for i, f in enumerate(split) if f)
             tiles = []
             for tile in CORRECTED_SWEEP:
-                plan = kern.smem_bytes(spec, tile, split)
+                plan = kern.smem_bytes(spec, tile, split, pe)
                 built = lib.sesr_corrected_smem(spec.num_convs, spec.in_channels,
-                                                spec.conv_out_channels, *tile, mask)
+                                                spec.conv_out_channels, *tile, mask, pe)
                 if plan != (built or plan) or (plan <= SMEM_LIMIT) != (built > 0):
                     fail(f"{label} tile {tile}: the wrapper plans {plan} B of shared memory, "
                          f"the library {built}")
@@ -393,10 +413,10 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
             tile_ms = median_ms(lambda: kern(spec, qp, x_q, tile=tile, split=split_arg), dev,
                                 30, warmup=3, lead_ms=1.0)
             regs, smem = attrs[tile]
-            count, _, instr = tensor_count(kern, spec, split, n, h, w, tile)
-            if corrected and smem is not None and smem != kern.smem_bytes(spec, tile, split):
+            count, _, instr = tensor_count(kern, spec, split, n, h, w, tile, pe)
+            if corrected and smem is not None and smem != kern.smem_bytes(spec, tile, split, pe):
                 fail(f"{label} tile {tile}: CUPTI reports {smem} B of shared memory, the plan "
-                     f"{kern.smem_bytes(spec, tile, split)}")
+                     f"{kern.smem_bytes(spec, tile, split, pe)}")
             print(f"[5] {label} tile {tile[0]}x{tile[1]}: {tile_ms:.4f} ms/frame; CUPTI: "
                   f"{regs if regs is not None else 'not measured'} registers per thread, "
                   f"{smem if smem is not None else 'not measured'} B shared memory per "
@@ -409,7 +429,7 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
     macs = weights * n * h * w
     moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
     bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
-    count, tc_macs, instr = tensor_count(kern, spec, split, n, h, w, tile0)
+    count, tc_macs, instr = tensor_count(kern, spec, split, n, h, w, tile0, pe)
     print(f"[5] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, per-PE passes on "
           f"convs {[i for i in range(spec.num_convs) if split[i]]} (plain {plain_ms:.3f} ms); "
           f"computed from the tile geometry: {count} {instr} ({tc_macs:.4g} tensor-core MACs, "
@@ -475,13 +495,31 @@ def sass_counts(lib):
     return counts
 
 
+def ptxas_report(log, family):
+    """{template arguments as mangled, e.g. "Li0ELi12ELb1": (registers,
+    spill store bytes)} of each instantiation of the kernel ``family`` in a
+    library's -Xptxas -v build log."""
+    report, lines = {}, log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(family + r"I(.*?)EE", line)
+        if "Compiling entry function" in line and m:
+            near = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", near)
+            spill = re.search(r"(\d+) bytes spill stores", near)
+            report[m.group(1)] = (int(regs.group(1)) if regs else None,
+                                  int(spill.group(1)) if spill else None)
+    return report
+
+
 def net_sass_check(build):
     """The network kernels' tensor-core instructions, from ``cuobjdump -sass``
-    of their libraries: the corrected kernel (sesr_corrected_kernel) on
-    wgmma (IGMMA) and no mma.sync (IMMA); K1 and K2 (sesr_net_kernel) on
-    mma.sync. Prints each kernel's counts; fails otherwise."""
-    want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 1),
-            "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 6)}
+    of their libraries: the corrected kernel (sesr_corrected_kernel: the
+    shipped instantiation and the general ones of 4 and 8 PE groups) on
+    wgmma (IGMMA) and no mma.sync (IMMA); K1 and K2 (sesr_net_kernel, three
+    output widths, shipped and general) on mma.sync. Prints each kernel's
+    counts; fails otherwise."""
+    want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 3),
+            "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 12)}
     for name, (family, has, lacks, instances) in want.items():
         seen = 0
         for fn, c in sorted(sass_counts(build.library_path(name)).items()):
@@ -1835,6 +1873,31 @@ def sharding_phase(torch, dev, card):
               f"CPU's calibrate: scales within rel {rel:.2e}, zeros within {dz}", flush=True)
         if not (rel <= 3e-3 and dz <= 2):
             fail(f"[11] sharded_calibrate: scales rel {rel} (3e-3), zeros {dz} (2) of the CPU")
+        # the sharded QAT step with the percentile observer (its order
+        # statistic a radix select whose counts reduce over the group): every
+        # observer's state after one step equal to the unsharded step's
+        from sesr_tpu_torch.models.expanded import ExpandedBlock, ExpandedParams, init_expanded
+        from sesr_tpu_torch.quant import qat
+
+        qat_blocks = init_expanded(spec, torch.Generator().manual_seed(4)).blocks
+        xq = torch.from_numpy(sr_data[0][0][:, :128, :192]).to(dev)
+        gq = torch.from_numpy(sr_data[0][1][:, :256, :384]).to(dev)
+        states = []
+        for step_of in (lambda p, o: tiling.sharded_train_step(spec, qat.QATConfig(ptq=True), p,
+                                                               o, m2),
+                        lambda p, o: qat.make_train_step(spec, qat.QATConfig(ptq=True), p, o)):
+            p = ExpandedParams([ExpandedBlock(*(v.to(dev).requires_grad_() for v in blk))
+                                for blk in qat_blocks])
+            qs, loss = step_of(p, qat.adam(p, 1e-5))(qat.prepare(spec, qat.QATConfig(), dev),
+                                                    (xq, gq))
+            states.append([t for c in qs.convs for o in (c.act, c.weight)
+                           for t in (o.min_val, o.max_val)])
+        same = all(torch.equal(a, b) for a, b in zip(*states))
+        print(f"[11] sharded QAT step, percentile observer (ptq=True), sr_x2 "
+              f"{tuple(xq.shape[1:3])}: every observer's state torch.equal with the unsharded "
+              f"step's: {same}", flush=True)
+        if not same:
+            fail("[11] the sharded percentile observer differs from the unsharded one")
         deploy = (
             ("sharded_deployment_forward", tiling.sharded_deployment_forward, m2, {}),
             ("sharded_deployment_forward_2d", tiling.sharded_deployment_forward_2d, m3, {}),
@@ -1978,6 +2041,324 @@ def sharding_phase(torch, dev, card):
               f"{e2e_mono:.4f} ms {tag}", flush=True)
     print(f"[11] virtual ranks and slabs: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+# phase 12: tests/test_hwconfig_sweep.py's four HardwareConfigs (copied:
+# this script imports no JAX) and its 8-channel sweep net, whose sparse
+# weights certify fully (K2) where the golden networks do not
+HW_CONFIGS = {"pe2_narrow": dict(pe=2, pe_acc_bits=16, pe_add_bits=18, bias_bits=12,
+                                 requant_bits=12, requant_n_max=24),
+              "pe8_wide": dict(pe=8, pe_acc_bits=20, pe_add_bits=22),
+              "pe3_nondivisible": dict(pe=3),
+              "pe2_servable": dict(pe=2, bias_bits=12, requant_bits=12, requant_n_max=24)}
+SWEEP_NET = dict(name="sweep", in_channels=3, out_channels=3, num_channels=8, num_lblocks=2)
+CERT_FRAME = (96, 128)             # phase 12's certification frames
+
+
+def hwconfig_phase(torch, dev, card):
+    """Phase 12, the HardwareConfig family on the card: at each of the four
+    configs, the sr_x2 and nr golden float weights and the sparse sweep net
+    calibrated on the card (the goldens on their calibration images),
+    certified on two 96x128 frames, saved and reloaded; then, with the
+    launch counters at 0 before and read after, served at full frame size
+    (sr_x2 540x960, nr and the sweep net 1080x1920) at batch 1 and 4
+    through the mode the certificate selects, simulated (K1) and simulated
+    --corrected; every output array_equal with the plain interpreter on the
+    card, and ``infer --qparams`` on the goldens cuda against cpu. Then each
+    kernel's device time per frame at each config (K1 on sr_x2, the
+    corrected kernel on nr, K2 on a network the config certifies fully),
+    its registers and shared memory (CUPTI) and its ratio to the same
+    kernel on the same network calibrated at the reference point (4 PEs).
+    Returns the kernels-line entries of every (kernel, config) pair."""
+    import tempfile
+
+    from sesr_tpu_torch.cli import main as cli_main
+    from sesr_tpu_torch.cli import serve, simulate
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
+    from sesr_tpu_torch.convert import clamp20_layers, kernel_constants, pe_groups
+    from sesr_tpu_torch.data import SyntheticDataset
+    from sesr_tpu_torch.deploy import select_forward
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
+    from sesr_tpu_torch.models.sesr import CollapsedParams, init_params
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import (NET_KERNELS, corrected_net, fast_net, pe_exact_net,
+                                            reset_launch_counts)
+    from sesr_tpu_torch.ops.slab import slab_forward
+    from sesr_tpu_torch.parallel.tiling import virtual_rank_forward
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.certify import certify_fast
+    from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
+    from sesr_tpu_torch.quant.params import QuantParams
+    from sesr_tpu_torch.timing import median_ms
+
+    tag = f"({card})"
+    t_phase = time.perf_counter()
+    configs = {k: HardwareConfig(**v) for k, v in HW_CONFIGS.items()}
+    nets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task in ("sr_x2", "nr"):
+            with np.load(os.path.join(REPO, "tests", "goldens", f"{task}.npz")) as g:
+                L = int(g["num_convs"])
+                path = os.path.join(tmp, f"{task}_collapsed.npz")
+                np.savez(path, **{f"w_{i}": np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0))
+                                  for i in range(L)},
+                         **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
+                calib = [g[f"calib_img_{j}"].transpose(0, 2, 3, 1)
+                         for j in range(int(g["n_calib"]))]
+            out_hw = (2 * FRAME[0], 2 * FRAME[1]) if task == "sr_x2" else BAYER_FRAME
+            nets[task] = (spec_for_task(task), load_reference_checkpoint(task, path=path),
+                          calib, False, list(SyntheticDataset(task, n=4, hw=out_hw)))
+    # the sweep net (tests/test_hwconfig_sweep.py _params_sparse's recipe: the
+    # largest tenth of each tensor's weights kept) on the nr frames
+    sweep = SESRSpec(**SWEEP_NET)
+    base = init_params(sweep, torch.Generator().manual_seed(0))
+    sparse = []
+    for w in base.weights:
+        a = w.numpy()
+        sparse.append(a * (np.abs(a) >= np.quantile(np.abs(a), 0.9)))
+    rng = np.random.default_rng(12)
+    nets["sweep"] = (sweep, CollapsedParams(sparse, [b.numpy() for b in base.biases]),
+                     [rng.random((1, 24, 32, 3), dtype=np.float32) for _ in range(2)], True,
+                     nets["nr"][4])
+    plain_of = {"fast": lambda q: dict(corrected=True, compute="fast"),
+                "hybrid": lambda q: dict(corrected=True, fast_layers=tuple(q.fast_cert_layers)),
+                "pe-exact": lambda q: dict(corrected=True)}
+
+    def artifact(task, hw, tmp):
+        """calibrate, certify, save and reload: the artifact a user builds."""
+        spec, params, calib, floor, _ = nets[task]
+        qp = calibrate(spec, params, calib, hw=hw, safe_zero_floor=floor, device="cuda")
+        cert = [d[0] for d in SyntheticDataset("nr" if task == "sweep" else task, n=2,
+                                               hw=CERT_FRAME)]
+        qp = certify_fast(spec, qp, cert, device="cuda")
+        path = os.path.join(tmp, f"qparams_{task}_{hw.pe}_{hw.pe_acc_bits}.npz")
+        qp.save(path)
+        back = QuantParams.load(path)
+        if back.hw != hw or back.cert_stamps != qp.cert_stamps:
+            fail(f"[12] {task}: the saved artifact reloads as {back.hw} {back.cert_stamps}")
+        return back, path
+
+    def equal(got, want, what):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"[12] {what}: differs from the plain interpreter")
+
+    launches = {k.symbol: {} for k in NET_KERNELS}
+    arts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cname, hw in {"pe4": HardwareConfig(), **configs}.items():
+            for task in ("sr_x2", "nr", "sweep"):
+                arts[cname, task] = artifact(task, hw, tmp)
+            if cname == "pe4":
+                continue
+            for task in ("sr_x2", "nr", "sweep"):
+                spec, _, _, _, data = nets[task]
+                qp, path = arts[cname, task]
+                # the main path at this config, counters at 0 before it
+                reset_launch_counts()
+                r1 = serve(spec, qp, data, batch=1, device="cuda", keep_outputs=True)
+                r4 = serve(spec, qp, data, batch=4, device="cuda", keep_outputs=True)
+                sim = simulate(spec, qp, data[0][0], device="cuda")
+                sim_c = simulate(spec, qp, data[0][0], device="cuda", corrected=True)
+                torch.cuda.synchronize()
+                got = {k.symbol: k.launches for k in NET_KERNELS}
+                mode = r1.mode
+                want = {"sesr_pe_exact_net": 1, "sesr_fast_net": 5 * (mode == "fast"),
+                        "sesr_corrected_net": 1 + 5 * (mode != "fast")}
+                if got != want or r4.mode != mode:
+                    fail(f"[12] {task} {cname}: mode {mode} / {r4.mode}, launches {got}, "
+                         f"want {want}")
+                for sym, n in got.items():
+                    if n:
+                        n0, f0 = launches[sym].get(cname, (0, 0))
+                        frames = 1 if sym == "sesr_pe_exact_net" else \
+                            (8 if sym == "sesr_fast_net" else 8 * (mode != "fast") + 1)
+                        launches[sym][cname] = (n0 + n, f0 + frames)
+                # the same outputs from the plain interpreter on the card
+                x4 = torch.from_numpy(np.concatenate([d[0] for d in data])).to(dev)
+                want_y = integer_forward(spec, qp, x4, **plain_of[mode](qp))[0].cpu().numpy()
+                equal(np.stack(r1.outputs), want_y, f"{task} {cname} {mode} batch 1")
+                equal(np.stack(r4.outputs), want_y, f"{task} {cname} {mode} batch 4")
+                del want_y
+                x0 = x4[:1]
+                equal(sim.y.cpu().numpy(), integer_forward(spec, qp, x0)[0].cpu().numpy(),
+                      f"{task} {cname} sim")
+                equal(sim_c.y.cpu().numpy(),
+                      integer_forward(spec, qp, x0, corrected=True)[0].cpu().numpy(),
+                      f"{task} {cname} sim --corrected")
+                # the same frame as four slabs and as a 2 x 2 grid of virtual
+                # ranks (each window R = spec.halo_width() past its cuts)
+                mono = select_forward(qp)[1](spec, qp, x0).cpu().numpy()
+                slab_h = -(-x0.shape[1] // 8) * 2
+                equal(slab_forward(spec, qp, x0, slab_h=slab_h).cpu().numpy(), mono,
+                      f"{task} {cname} {mode} slabs of {slab_h} rows")
+                equal(virtual_rank_forward(spec, qp, x0, (2, 2)).cpu().numpy(), mono,
+                      f"{task} {cname} {mode} 2 x 2 virtual ranks")
+                cli = ""
+                if task != "sweep":
+                    args = ["infer", "--task", task, "--qparams", path, "--n-images", "2"]
+                    a_gpu, a_cpu = cli_main(args), cli_main(args + ["--device", "cpu"])
+                    if (a_gpu.mode, a_gpu.psnr) != (a_cpu.mode, a_cpu.psnr) or \
+                            a_gpu.mode != mode:
+                        fail(f"[12] infer --qparams {task} {cname}: cuda {a_gpu.mode} "
+                             f"{a_gpu.psnr}, cpu {a_cpu.mode} {a_cpu.psnr}, served {mode}")
+                    cli = f"; infer --qparams cuda == cpu ({mode}, psnr {a_gpu.mean_psnr:.4f})"
+                kc1 = kernel_constants(spec, qp, "exact")
+                print(f"[12] {task} {cname} {qp.hw}: certificate {qp.cert_grade} "
+                      f"{qp.cert_stamps}, mode {mode}; served 4 frames "
+                      f"{tuple(x4.shape[1:3])} at batch 1 and 4, sim and sim --corrected: "
+                      f"array_equal with plain (cuda); slabs of {slab_h} rows and 2 x 2 "
+                      f"virtual ranks equal the served frame; launches {got}; K1 split "
+                      f"{kc1.pe_split}, general {kc1.general}{cli}", flush=True)
+                del x4
+        # the forms the served paths may not reach at a config: the corrected
+        # kernel with every layer split (its pe_groups column groups), and a
+        # saturating nr (convs 0, 1 and the last at +127: the accumulator
+        # clamp fires on split layers, and at 8 PEs the adder clamp) through
+        # K1 and the corrected kernel, each against its plain version
+        nr_spec = nets["nr"][0]
+        L = nr_spec.num_convs
+        for cname in configs:
+            qp = arts[cname, "nr"][0]
+            sat = dataclasses.replace(qp, w_int=[
+                np.full_like(np.asarray(w), 127) if i in (0, 1, L - 1) else np.asarray(w)
+                for i, w in enumerate(qp.w_int)])
+            for shape in ((2, 27, 45), (1, 37, 53)):
+                x = torch.from_numpy(rng.random(shape + (3,), dtype=np.float32)).to(dev)
+                for what, cqp, kern, split in (
+                        ("all split", qp, corrected_net, (True,) * L),
+                        ("saturating", sat, pe_exact_net, None),
+                        ("saturating, all split", sat, corrected_net, (True,) * L),
+                        ("saturating pe-exact", sat, corrected_net,
+                         split_layers(sat, "pe-exact"))):
+                    x_q = quantize_input(x, cqp).to(torch.int8).contiguous()
+                    out = kern(nr_spec, cqp, x_q, split=split)
+                    kw = dict(corrected=False) if split is None else \
+                        dict(corrected=True, fast_layers=tuple(not f for f in split))
+                    _, dumps = integer_forward(nr_spec, cqp, x, collect_dumps=True, **kw)
+                    if not torch.equal(out, dumps[f"input.{L}"].to(torch.int8)):
+                        fail(f"[12] {kern.symbol} nr {cname} {what} {shape}: differs from plain")
+                    kc = kernel_constants(nr_spec, cqp, kern.datapath, split)
+                    ovf18, ovf20 = dumps["overflow_18"].tolist(), dumps["overflow_20"].tolist()
+                    if what.startswith("saturating") and not any(ovf18) or \
+                            (what.startswith("saturating") and cqp.hw.pe == 8 and not any(ovf20)):
+                        fail(f"[12] nr {cname} {what}: the clamps did not fire ({ovf18}, {ovf20})")
+                    print(f"[12] {kern.symbol} nr {cname} {what} {shape}: array_equal with "
+                          f"plain (cuda); split {kc.pe_split}, overflow_18 {ovf18}, "
+                          f"overflow_20 {ovf20}", flush=True)
+        # K2's general instantiation (a conv 0 that can reach the adder
+        # clamp, as at pe2_narrow's 18 bits): sr_x2 at each config where it
+        # is so, held to the fast datapath's plain version (the certificate
+        # is set here only so that the plain version runs; the kernel does
+        # not read it)
+        k2_general = []
+        for cname in configs:
+            spec, qp = nets["sr_x2"][0], arts[cname, "sr_x2"][0]
+            if not clamp20_layers(qp)[0]:
+                continue
+            cqp = dataclasses.replace(qp, fast_cert_ok=True)
+            kc = kernel_constants(spec, cqp, "fast")
+            x = torch.from_numpy(rng.random((2, 37, 53, 3), dtype=np.float32)).to(dev)
+            out = fast_net(spec, cqp, quantize_input(x, cqp).to(torch.int8).contiguous())
+            _, dumps = integer_forward(spec, cqp, x, collect_dumps=True, corrected=True,
+                                       compute="fast")
+            if not (kc.general and torch.equal(out, dumps[f"input.{spec.num_convs}"]
+                                               .to(torch.int8))):
+                fail(f"[12] sesr_fast_net sr_x2 {cname}, general {kc.general}: differs from "
+                     f"plain")
+            k2_general.append(cname)
+            print(f"[12] sesr_fast_net sr_x2 {cname} (2, 37, 53), conv 0 can reach the adder "
+                  f"clamp: general instantiation, array_equal with plain (cuda); overflow_20 "
+                  f"{dumps['overflow_20'].tolist()}", flush=True)
+        if not k2_general:
+            fail("[12] no config ran K2's general instantiation")
+    fast_at = {c: [t for t in ("sr_x2", "sweep") if arts[c, t][0].fast_cert_ok]
+               for c in ["pe4", *configs]}
+    print(f"[12] fully certified (K2): {fast_at}", flush=True)
+    for sym in launches:
+        if not launches[sym]:
+            fail(f"[12] {sym} launched at no alternate config")
+
+    # timing: each kernel at each config, against the same kernel on the same
+    # network at the reference point
+    def timed(kern, cname, task, mode=None, attrs=True):
+        """(device ms per frame, registers, shared memory, tile, constants,
+        frame) of kern on the network of ``task`` at config ``cname``."""
+        spec, _, _, _, data = nets[task]
+        qp = arts[cname, task][0]
+        x = torch.from_numpy(data[0][0]).to(dev)
+        split = split_layers(qp, mode) if kern is corrected_net else None
+        kc = kernel_constants(spec, qp, kern.datapath, split)
+        x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+        fn = (lambda: kern(spec, qp, x_q, split=split))
+        ms = median_ms(fn, dev, 30, warmup=3, lead_ms=1.0)
+        regs = smem = None
+        if attrs:
+            regs, smem = launch_attrs(torch, {0: lambda: [fn() for _ in range(3)]},
+                                      "sesr_corrected_kernel" if kern is corrected_net
+                                      else "sesr_net_kernel")[0]
+        return ms, regs, smem, kern.tile(spec, kc.pe_split, kc.pe), kc, x
+
+    # registers and spills of each instantiation from ptxas (CUPTI's trace
+    # may miss a launch: then its values read "not measured")
+    reports = {lib: ptxas_report(_build.build(lib).log, fam) for lib, fam in (
+        ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
+
+    def ptxas_of(kern, spec, kc):
+        if kern is corrected_net:
+            key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}"
+            return key, reports["sesr_corrected"].get(key, (None, None))
+        key = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}")
+        return key, reports["sesr_net"].get(key, (None, None))
+
+    entries = []
+    cases = [(pe_exact_net, "sr_x2", None), (corrected_net, "nr", "pe-exact"),
+             (corrected_net, "nr", "hybrid")]
+    for cname in configs:
+        for kern, task, mode in cases + [(fast_net, t, None) for t in fast_at[cname][:1]]:
+            spec = nets[task][0]
+            qp = arts[cname, task][0]
+            if mode == "hybrid" and not any(qp.fast_cert_layers or ()):
+                continue
+            ms, regs, smem, tile, kc, x = timed(kern, cname, task, mode)
+            ref = "not measured (the reference point does not certify it)"
+            if kern is not fast_net or task in fast_at["pe4"]:
+                if mode != "hybrid" or any(arts["pe4", task][0].fast_cert_layers or ()):
+                    ms4 = timed(kern, "pe4", task, mode, attrs=False)[0]
+                    ref = f"{ms / ms4:.4f} (at 4 PEs {ms4:.4f} ms)"
+            kw = plain_kwargs(kern, qp, mode)
+            plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev, 3)
+            weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
+            n, h, w = x.shape[:3]
+            macs = weights * n * h * w
+            moved = n * h * w * (spec.in_channels + spec.conv_out_channels) + weights
+            bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
+            count, tc_macs, instr = tensor_count(kern, spec, kc.pe_split, n, h, w, tile, kc.pe)
+            n_launch, n_frames = launches[kern.symbol].get(cname, (0, 0))
+            key_p, (p_regs, p_spill) = ptxas_of(kern, spec, kc)
+            label = f"{kern.symbol} {task}{f' {mode}' if mode else ''} {cname}"
+            key = f"{cname}, {mode}" if mode else cname
+            print(f"[12] {label}: {ms:.4f} ms/frame at {h}x{w}, tile {tile[0]}x{tile[1]}, "
+                  f"{'general' if kc.general else 'shipped'} instantiation, per-PE passes on "
+                  f"convs {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; CUPTI: "
+                  f"{regs if regs is not None else 'not measured'} registers per thread, "
+                  f"{smem if smem is not None else 'not measured'} B shared memory per block; "
+                  f"ptxas <{key_p}>: {p_regs} registers, {p_spill} B spill stores; "
+                  f"{count} {instr} per frame ({tc_macs / macs:.3f}x the network's MACs, "
+                  f"computed from the tile geometry); ratio to the same kernel at 4 PEs {ref}; "
+                  f"plain {plain_ms:.3f} ms; launches on the phase's path {n_launch} "
+                  f"{tag}", flush=True)
+            entries.append(dict(
+                name=f"{kern.symbol}[{key}]", route="cuda", source=SOURCES[kern.symbol],
+                replaces=REPLACES[kern.symbol], launches=n_launch,
+                launches_per_frame={cname: n_launch / n_frames if n_frames else 0.0},
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=None, config=cname,
+                work=f"{spec.name}, {(h, w)} frame, batch 1{f', {mode} mode' if mode else ''}, "
+                     f"{HW_CONFIGS[cname]}"))
+    print(f"[12] the hwconfig phase took {time.perf_counter() - t_phase:.1f} s {tag}",
+          flush=True)
+    return entries
 
 
 def main():
@@ -2367,6 +2748,8 @@ def main():
     t0 = time.perf_counter()
     sharding_launches = sharding_phase(torch, dev, card)
     print(f"[11] the sharding phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    # 12. the HardwareConfig family: one entry per (kernel, config)
+    hw_entries = hwconfig_phase(torch, dev, card)
     for e in entries:
         for phase in (toolchain_launches, training_launches, export_launches,
                       sharding_launches):
@@ -2374,6 +2757,7 @@ def main():
                 e["launches"] += count
                 e["launches_per_frame"][path] = count / n_frames
 
+    entries += hw_entries
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,18 +22,33 @@ from sesr_tpu_torch.quant.params import QuantParams
 # The int32 parameter block of the kernels (csrc/sesr_common.cuh P_*):
 # offset of each field, in words. Float fields travel as their float32 bits.
 # K1 and K2 copy the words before ``zc_pe`` into shared memory; the corrected
-# kernel copies them all (``zc_pe``: per layer, PE and channel).
+# kernel copies them all (``zc_pe``: per layer, PE and channel, so the
+# block's size depends on the PE count: ``param_words``).
 MAX_LAYERS = 8
 HIDDEN = 16
-PES = 4
+MAX_PES = 8
 PARAM_LAYOUT = dict(w_off=0, z_eff=8, z_in=16, rq_m=24, rq_p=32, res_m=40,
                     res_p=41, z_out=42, acc_hi=43, add_hi=44, pe_split=45,
                     clamp20=46, bias=48, zc=48 + MAX_LAYERS * HIDDEN,
                     zc_pe=48 + 2 * MAX_LAYERS * HIDDEN)
-PARAM_WORDS = PARAM_LAYOUT["zc_pe"] + MAX_LAYERS * PES * HIDDEN
 DATAPATHS = ("exact", "fast", "corrected")
-# the kernels' datapath widths
-_KERNEL_HW = dict(pe=PES, quan_bits=8)
+# the kernels' magic-number conversions (sesr_common.cuh kMagic) hold an
+# integer exactly while |y| < 2^22
+MAGIC_RANGE = 1 << 22
+
+
+def param_words(pe: int) -> int:
+    """Words of the parameter block at ``pe`` PEs (sesr_common.cuh
+    param_words): ``zc_pe`` holds MAX_LAYERS x pe x HIDDEN words."""
+    return PARAM_LAYOUT["zc_pe"] + MAX_LAYERS * pe * HIDDEN
+
+
+def pe_groups(pe: int) -> int:
+    """PE column groups of a split 16-channel layer in the corrected kernel
+    (sesr_corrected.cu pe_groups): 4 up to four PEs, else 8, so that every
+    PE count runs in one of two instantiations; the groups past ``pe`` hold
+    zero weights."""
+    return 4 if pe <= 4 else 8
 
 
 def quantparams_from_fields(fields: Mapping[str, Any]) -> QuantParams:
@@ -70,12 +85,14 @@ class KernelConstants:
     words of every layer, the parameter block, and the shapes."""
 
     weights: np.ndarray          # int32 B words of every layer (_fragment_words; corrected: _wgmma_b_words)
-    params: np.ndarray           # int32 (PARAM_WORDS,)
+    params: np.ndarray           # int32 (param_words(pe),)
     num_layers: int
     in_channels: int
     out_channels: int
     pe_split: tuple              # per layer: one accumulation pass per PE
-    clamp20: tuple               # per layer: a one-pass layer's 20-bit clamp can fire
+    clamp20: tuple               # per layer: the kernel clamps the layer's sum to pe_add_bits
+    pe: int                      # PEs of the artifact's datapath
+    general: bool                # K1 / corrected: the instantiation for any PE count and widths
 
 
 def _f32_bits(v: float) -> int:
@@ -85,14 +102,16 @@ def _f32_bits(v: float) -> int:
 def _act_byte(ic: int, c: int) -> int:
     """Byte of input channel c in its 32-bit activation word: a pixel of a
     <= 4-channel input is one word (channel c in byte c); a 16-channel pixel
-    is four words, word p holding channels p, p+4, p+8, p+12 (one PE)."""
+    is four words, word p holding channels p, p+4, p+8, p+12 (PE p's at
+    four PEs)."""
     return c if ic <= 4 else c // 4
 
 
 def _passes(ic: int, split: bool, pe: int):
     """The input channels of each accumulation pass of a layer: one PE's
-    channels per pass where the kernel clamps each PE's sum to 18 bits
-    (``split``), else one pass over all channels."""
+    channels per pass (the PEs that own a channel) where the kernel clamps
+    each PE's sum to pe_acc_bits (``split``), else one pass over all
+    channels."""
     if split:
         groups = [np.flatnonzero(pe_channel_mask(ic, pe, p)) for p in range(pe)]
         return [g for g in groups if len(g)]
@@ -114,13 +133,16 @@ def _tap_words(w_hwio: np.ndarray, split: bool, pe: int) -> np.ndarray:
     return words
 
 
-def layer_geometry(k: int, ic: int, split: bool, pe: int = 4):
+def layer_geometry(k: int, ic: int, split: bool, pe: int):
     """(passes, k32 chunks, tap_major) of one layer's implicit GEMM in K1
     and K2, with one pass per PE (``split``) or one over all channels.
-    Tap-major (per-PE passes, and any layer that reads one word per pixel):
-    k-slot word s of chunk c is tap 8c + s of the pass's input word; else
-    (one pass over 16 channels): tap 2c + s // 4, word s % 4."""
-    tap_major = split or ic <= 4
+    Tap-major (any layer that reads one word per pixel, and a split
+    16-channel layer at four PEs, whose pass p reads word p: PE p's
+    channels): k-slot word s of chunk c is tap 8c + s of the pass's input
+    word; else (one pass over 16 channels, or a split layer at another PE
+    count, each pass over all four words with zero weights outside the PE's
+    channels): tap 2c + s // 4, word s % 4."""
+    tap_major = ic <= 4 or (split and pe == 4)
     passes = len(_passes(ic, split, pe))
     chunks = -(-k * k // 8) if tap_major else -(-k * k // 2)
     return passes, chunks, tap_major
@@ -179,15 +201,16 @@ def _wgmma_columns(oc: int, last: bool) -> np.ndarray:
     return np.where(cols < oc, cols, -1)
 
 
-def wgmma_geometry(k: int, ic: int, oc: int, split: bool, last: bool, pe: int = 4):
+def wgmma_geometry(k: int, ic: int, oc: int, split: bool, last: bool, pe: int):
     """(k32 steps, PE groups of columns, N) of one layer's GEMM in the
     corrected kernel: layer 0 (ic <= 4, its pixels widened to four
     horizontal neighbours) takes one step per kernel row, a 16-channel layer
-    two taps a step; a split layer has one group of columns per PE (layer 0:
-    per input channel), a one-pass layer one."""
+    two taps a step; a split layer has one group of columns per PE that
+    owns an input channel (layer 0: min(ic, pe); a 16-channel layer
+    ``pe_groups``), a one-pass layer one."""
     wide = ic <= 4
     steps = k if wide else -(-k * k // 2)
-    groups = (ic if wide else pe) if split else 1
+    groups = (min(ic, pe) if wide else pe_groups(pe)) if split else 1
     return steps, groups, groups * len(_wgmma_columns(oc, last))
 
 
@@ -198,8 +221,9 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     ``_wgmma_columns[n % G]`` of PE group n // G (G columns a group); k byte
     16h + b of step s is channel b of tap 2s + h (a 16-channel layer), or
     channel b % 4 of tap (s, 4h + b // 4) (layer 0, widened pixels). A
-    split layer's group p holds only PE p's channels (layer 0: input channel
-    p); a padded tap or channel, or a column past OC, is zero."""
+    split layer's group p holds only PE p's channels (c % pe == p); a
+    padded tap or channel, a group past the PEs, or a column past OC, is
+    zero."""
     k, _, ic, oc = w_hwio.shape
     wide = ic <= 4
     cols = _wgmma_columns(oc, last)
@@ -218,7 +242,7 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     o = cols[n % g]
     ok &= o >= 0
     if split:
-        ok &= (ch % pe if not wide else ch) == n // g
+        ok &= ch % pe == n // g
     vals = np.where(ok, w[np.minimum(dy, k - 1), np.minimum(dx, k - 1),
                           np.minimum(ch, ic - 1), np.maximum(o, 0)], 0)
     at = s * n_cols * 32 + (n >> 3) * 256 + (kb >> 4) * 128 + (n & 7) * 16 + (kb & 15)
@@ -275,17 +299,33 @@ def corrected_split_layers(qp: QuantParams) -> tuple:
     return _pe_clamp_fires(qp, qp.effective_zero)
 
 
+def adder_clamp_layers(qp: QuantParams, z_of, split) -> tuple:
+    """Per layer: whether the PE adder's clamp (pe_add_bits) can fire on the
+    sum a kernel forms: conv over every int8 q with pads z_of(i) in a
+    one-pass layer (``_conv_range``), or on a layer flagged in ``split`` the
+    sum of each PE's range clamped to pe_acc_bits. z_of(i) = z_eff for the
+    corrected datapath's conv(q - z_eff), 0 for the reference datapath's
+    zero-restored partials."""
+    hw = qp.hw
+    acc_hi = (1 << (hw.pe_acc_bits - 1)) - 1
+    add_hi = (1 << (hw.pe_add_bits - 1)) - 1
+    fire = []
+    for i, w in enumerate(qp.w_int):
+        if split[i]:
+            ranges = _pe_ranges(qp, i, z_of(i))
+            lo = sum(np.clip(r[0], -acc_hi - 1, acc_hi) for r in ranges)
+            hi = sum(np.clip(r[1], -acc_hi - 1, acc_hi) for r in ranges)
+        else:
+            lo, hi = _conv_range(w, z_of(i))
+        fire.append(bool((hi > add_hi).any() or (lo < -add_hi - 1).any()))
+    return tuple(fire)
+
+
 def clamp20_layers(qp: QuantParams) -> tuple:
     """Per layer: whether the fast datapath's 20-bit clamp of conv(q -
     z_eff) can fire: where ``_conv_range`` with z = z_eff fits 20 bits for
-    every output channel the fast kernel skips the clamp. (The PE-exact
-    datapath's 20-bit clamp never fires: four 18-bit PE sums fit 20 bits.)"""
-    add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
-    fire = []
-    for i, w in enumerate(qp.w_int):
-        lo, hi = _conv_range(w, qp.effective_zero(i))
-        fire.append(bool((hi > add_hi).any() or (lo < -add_hi - 1).any()))
-    return tuple(fire)
+    every output channel the fast kernel skips the clamp."""
+    return adder_clamp_layers(qp, qp.effective_zero, (False,) * len(qp.w_int))
 
 
 def pe_zero_terms(qp: QuantParams, i: int) -> np.ndarray:
@@ -319,6 +359,18 @@ def shortcut_bound(qp: QuantParams, split0: bool = False) -> float:
     return float(np.rint(max(float(h.max()), 0.0)))
 
 
+def _padded(w: np.ndarray, ic: int, oc: int) -> np.ndarray:
+    """w (k, k, i, o) with zero weights for the input channels i..ic - 1 and
+    output channels o..oc - 1: a network narrower than HIDDEN runs in the
+    16-channel kernels, its padded channels adding nothing to any sum (their
+    weights in and out are zero) and keeping the real channels' indices,
+    and with them each channel's PE."""
+    k = w.shape[0]
+    out = np.zeros((k, k, ic, oc), w.dtype)
+    out[:, :, :w.shape[2], :w.shape[3]] = w
+    return out
+
+
 def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                      split=None) -> KernelConstants:
     """Constants of one fused kernel: the PE-exact kernel ("exact", the
@@ -331,15 +383,23 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     outside the image, so conv(q, pads=z_eff) = conv(q - z_eff) +
     z_eff * sum(W). Per PE that is the reference's zero-restored partial,
     so the PE-exact kernel needs no restoration term; the corrected
-    datapath's kernels subtract ``zc`` = z_eff * sum(W) before the 20-bit
+    datapath's kernels subtract ``zc`` = z_eff * sum(W) before the adder
     clamp, or on a split layer each PE's share ``zc_pe`` = z_eff * sum(W_p)
-    before that PE's 18-bit clamp (``pe_zero_terms``). The PE-exact kernel
-    runs one pass per PE only on the layers where the 18-bit clamp can fire
-    (``pe_split_layers``); the fast and corrected kernels clamp a one-pass
-    layer to 20 bits only where that clamp can fire (``clamp20_layers``).
-    Raises NotImplementedError for a network or artifact outside what the
-    kernels were built for (including an int16 shortcut that may not hold
-    round(s), ``shortcut_bound``).
+    before that PE's accumulator clamp (``pe_zero_terms``). The PE-exact
+    kernel runs one pass per PE only on the layers where the accumulator
+    clamp can fire (``pe_split_layers``); the fast and corrected kernels
+    clamp a one-pass layer to pe_add_bits only where that clamp can fire
+    (``clamp20_layers``).
+
+    Any PE count from 1 to MAX_PES and any widths whose sums the kernels'
+    float conversions hold (|pe_add + bias| < 2^22) run: at four PEs with
+    no adder clamp that can fire on a K1 layer, a split corrected layer or
+    K2's conv 0, in the instantiations the shipped artifacts use; otherwise
+    in the ``general`` ones, which clamp every layer's sum to pe_add_bits
+    (the identity where it cannot fire). A hidden width below HIDDEN runs padded
+    with zero channels (``_padded``). Raises NotImplementedError for a
+    network or artifact outside that (quan_bits != 8, a hidden width above
+    HIDDEN, an int16 shortcut that may not hold round(s), ``shortcut_bound``).
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -352,17 +412,23 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
             raise ValueError(f"the corrected kernel takes one split flag per layer "
                              f"({L}), got {split!r}")
         split = tuple(bool(f) for f in split)
-    for name, want in _KERNEL_HW.items():
-        if getattr(hw, name) != want:
-            raise NotImplementedError(
-                f"the fused kernels are built for {name}={want}, "
-                f"this artifact has {getattr(hw, name)}")
+    if hw.quan_bits != 8:
+        raise NotImplementedError(
+            f"the fused kernels hold int8 activations (quan_bits=8), this artifact has "
+            f"quan_bits={hw.quan_bits}")
+    if not 1 <= hw.pe <= MAX_PES:
+        raise NotImplementedError(f"the fused kernels run 1 to {MAX_PES} PEs, this "
+                                  f"artifact has {hw.pe}")
+    if (1 << (hw.pe_add_bits - 1)) + (1 << (hw.bias_bits - 1)) >= MAGIC_RANGE:
+        raise NotImplementedError(
+            f"a {hw.pe_add_bits}-bit PE sum plus a {hw.bias_bits}-bit bias can reach 2^22, "
+            f"past the kernels' exact int <-> float32 conversions")
     if not (3 <= L <= MAX_LAYERS and ks[0] == 5 and ks[-1] == 5
             and all(k == 3 for k in ks[1:-1])
-            and spec.num_channels == HIDDEN and spec.in_channels <= 4
+            and spec.num_channels <= HIDDEN and spec.in_channels <= 4
             and spec.conv_out_channels in (3, 12, 16)):
         raise NotImplementedError(
-            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs of width "
+            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs of width at most "
             f"{HIDDEN}, 1-4 input and 3, 12 or 16 output channels, at most "
             f"{MAX_LAYERS} convs; {spec.name} is outside that")
     for i in range(L):
@@ -378,26 +444,25 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                 f"once, which equals the reference's (y * m) * 2^-n only while "
                 f"m < 2^22 and |n| <= 64 keep every product a normal float")
     if exact:
-        split, clamp = pe_split_layers(qp), (False,) * L
+        split = pe_split_layers(qp)
+        clamp = adder_clamp_layers(qp, lambda i: 0, split)
+        general = hw.pe != 4 or any(clamp)
     elif datapath == "fast":
-        split, clamp = (False,) * L, clamp20_layers(qp)
+        split = (False,) * L
+        clamp = clamp20_layers(qp)
+        general = clamp[0]
     else:
-        clamp = tuple(c and not f for c, f in zip(clamp20_layers(qp), split))
-    if (exact or any(split)) and hw.pe << (hw.pe_acc_bits - 1) > 1 << (hw.pe_add_bits - 1):
-        raise NotImplementedError(
-            f"the kernels clamp no sum of PE sums to 20 bits: that needs {hw.pe} PE sums "
-            f"of {hw.pe_acc_bits} bits to fit {hw.pe_add_bits} bits")
-    if datapath == "fast" and clamp[0]:
-        raise NotImplementedError(
-            "the fast kernel runs conv 0 without its 20-bit clamp; this "
-            "artifact's conv 0 can reach it")
+        clamp = adder_clamp_layers(qp, qp.effective_zero, split)
+        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split))
+    if general:
+        clamp = (True,) * L
     if not exact and shortcut_bound(qp, split[0]) > 32767:
         raise NotImplementedError(
             f"the {datapath} kernel keeps the residual shortcut round(s) as int16; "
             f"this artifact bounds it only by {shortcut_bound(qp, split[0])}")
 
     lay = PARAM_LAYOUT
-    prm = np.zeros(PARAM_WORDS, np.int32)
+    prm = np.zeros(param_words(hw.pe), np.int32)
     chunks, off = [], 0
     hi16 = (1 << (hw.bias_bits - 1)) - 1
     prm[lay["pe_split"]] = sum(1 << i for i in range(L) if split[i])
@@ -405,7 +470,10 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     b_words = _wgmma_b_words if datapath == "corrected" else _fragment_words
     for i in range(L):
         w = np.asarray(qp.w_int[i])
-        words = b_words(w, split[i], hw.pe, last=i == L - 1)
+        oc = w.shape[3]
+        padded = _padded(w, spec.in_channels if i == 0 else HIDDEN,
+                         spec.conv_out_channels if i == L - 1 else HIDDEN)
+        words = b_words(padded, split[i], hw.pe, last=i == L - 1)
         prm[lay["w_off"] + i] = off
         chunks.append(words)
         off += words.size
@@ -414,7 +482,6 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         m_f, p_f = requant_factors(qp.requant_m[i], qp.requant_n[i])
         prm[lay["rq_m"] + i] = _f32_bits(m_f)
         prm[lay["rq_p"] + i] = _f32_bits(p_f)
-        oc = w.shape[3]
         zc_pe = np.zeros((hw.pe, oc), np.int64)
         if exact:
             bias = qp.fused_bias(i)
@@ -439,7 +506,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     prm[lay["acc_hi"]] = (1 << (hw.pe_acc_bits - 1)) - 1
     prm[lay["add_hi"]] = (1 << (hw.pe_add_bits - 1)) - 1
     return KernelConstants(np.concatenate(chunks), prm, L, spec.in_channels,
-                           spec.conv_out_channels, split, clamp)
+                           spec.conv_out_channels, split, clamp, hw.pe, general)
 
 
 def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,

@@ -178,8 +178,8 @@ def variant_ab(names, reps: int, tiles=None) -> None:
             plain = integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
                                          fast_layers=tuple(qp.fast_cert_layers)
                                          if mode == "hybrid" else None)
-            for tile in tiles or [corrected_net.tile(spec, split)]:
-                if corrected_net.smem_bytes(spec, tile, split) > SMEM_LIMIT:
+            for tile in tiles or [corrected_net.tile(spec, split, qp.hw.pe)]:
+                if corrected_net.smem_bytes(spec, tile, split, qp.hw.pe) > SMEM_LIMIT:
                     continue
                 for name in names:
                     _build.load = lambda n, lib=libs[name]: lib if n == "sesr_corrected" \

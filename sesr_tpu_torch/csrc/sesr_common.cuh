@@ -13,8 +13,9 @@
 
 namespace {
 
-constexpr int kC = 16;          // hidden width of the network
+constexpr int kC = 16;          // hidden width of the kernels (a narrower network is padded)
 constexpr int kMaxL = 8;        // deepest supported network (nrdm_6)
+constexpr int kMaxPE = 8;       // most PEs of a datapath
 
 // Layout of the int32 parameter block (kept in sync with
 // sesr_tpu_torch/convert.py PARAM_LAYOUT).
@@ -26,17 +27,19 @@ constexpr int P_RQP = 32;                 // [kMaxL] f32 bits: 2^-n of conv i
 constexpr int P_RESM = 40;                // f32 bits: residual requant mantissa
 constexpr int P_RESP = 41;                // f32 bits: residual 2^-n
 constexpr int P_ZOUT = 42;                // f32 bits: zero of the output domain
-constexpr int P_ACC_HI = 43;              // per-PE accumulator max (18 bits)
-constexpr int P_ADD_HI = 44;              // PE adder max (20 bits)
+constexpr int P_ACC_HI = 43;              // per-PE accumulator max (pe_acc_bits; 18 shipped)
+constexpr int P_ADD_HI = 44;              // PE adder max (pe_add_bits; 20 shipped)
 constexpr int P_SPLIT = 45;               // bit i: conv i runs one pass per PE
-constexpr int P_CLAMP = 46;               // bit i: conv i's 20-bit clamp can fire
+constexpr int P_CLAMP = 46;               // bit i: conv i's adder clamp can fire
 constexpr int P_BIAS = 48;                // [kMaxL][kC] bias added after the adder clamp
 constexpr int P_ZC = P_BIAS + kMaxL * kC; // [kMaxL][kC] z_eff * sum(W), subtracted before it
 constexpr int P_WORDS = P_ZC + kMaxL * kC;  // the words K1 and K2 read
-// [kMaxL][4][kC] z_eff * sum(W_p), a split layer's per PE (the corrected
-// kernel only)
+// [kMaxL][pe][kC] z_eff * sum(W_p), a split layer's per PE (the corrected
+// kernel only): PE p of conv i at P_ZCP + (i * pe + p) * kC
 constexpr int P_ZCP = P_WORDS;
-constexpr int P_ALL = P_ZCP + kMaxL * 4 * kC;
+
+// Words of the parameter block at `pe` PEs (convert.py param_words).
+__host__ __device__ constexpr int param_words(int pe) { return P_ZCP + kMaxL * pe * kC; }
 
 enum Kind { FIRST = 0, MID = 1, LAST = 2 };
 

@@ -8,12 +8,16 @@
 //                         packed_exact_forward(corrected=True)
 // Its plain version is sesr_tpu_torch/quant/integer.py integer_forward(
 // corrected=True), with fast_layers in the hybrid mode: per layer, either one
-// pass per PE, each PE's partial conv(q - z_eff) clamped to 18 bits before
-// the four are added (the layers the caller flags: the hybrid mode's
-// unstamped ones, the PE-exact mode's where convert.py cannot rule that
-// clamp out), or one pass over all channels, clamped to 20 bits where that
-// clamp can fire; then the clipped bias, the float32 requantization, ReLU,
-// the int16 residual shortcut and the int8 output.
+// pass per PE, each PE's partial conv(q - z_eff) clamped to pe_acc_bits
+// (18 shipped) before the PEs' partials are added (the layers the caller
+// flags: the hybrid mode's unstamped ones, the PE-exact mode's where
+// convert.py cannot rule that clamp out), or one pass over all channels;
+// the sum clamped to pe_add_bits (20 shipped) where that clamp can fire;
+// then the clipped bias, the float32 requantization, ReLU, the int16
+// residual shortcut and the int8 output. Any HardwareConfig with 1 to 8
+// PEs and int8 activations runs: the 4-PE artifacts in the shipped
+// instantiation (<4, false>), every other in a general one (<4, true> up to
+// four PEs, <8, true> past them), which clamps every sum to pe_add_bits.
 //
 // What bounds it on this card: operations. nr needs 9,312 int8 MACs per
 // pixel against 6 bytes of device traffic, far above the H100's ratio of
@@ -37,12 +41,13 @@
 //     then 4-7 at LBO = 64 bytes, 5-7 against zero weights): 5 steps for the
 //     5x5 conv, where 25 taps of 4 bytes need 100 of its 160 bytes of k;
 //   - each PE's partial in its own accumulator columns: a split layer is one
-//     pass with N = 4 x OC columns (layer 0: in_ch x 16), column (p, o)
-//     holding W[o] on PE p's channel bytes and zero elsewhere
-//     (convert.py _wgmma_b_words). A is read once, not once per PE; the
-//     epilogue adds -z_eff * sum(W_p) (pe_zero_terms) to each group, clamps
-//     it to 18 bits and adds the four. The tensor cores do 4x the MACs on a
-//     split layer, which they have room for;
+//     pass with N = G x OC columns, G = pe_groups(pe) (4, or 8 past four
+//     PEs; layer 0: min(in_ch, pe) x 16), column (p, o) holding W[o] on PE
+//     p's channel bytes (c % pe == p) and zero elsewhere, a group past the
+//     PEs all zero (convert.py _wgmma_b_words). A is read once, not once
+//     per PE; the epilogue adds -z_eff * sum(W_p) (pe_zero_terms) to each
+//     group, clamps it to pe_acc_bits and adds the groups. The tensor cores
+//     do G x the MACs on a split layer, which they have room for;
 //   - every layer's B (K-major, no swizzle: b_byte) and the parameter block
 //     are loaded into shared memory once per block; the grid is persistent
 //     (one block per SM, the blocks walk the tiles), so that happens once
@@ -115,6 +120,10 @@ constexpr int kScratch = 16;                // bytes that the epilogue's stores 
 constexpr int kSmemLimit = 232448;          // a block's shared memory on the H100
 constexpr int kLoadBatch = 8;               // input pixels per thread in flight
 
+// PE column groups of a split 16-channel layer: 4 up to four PEs, else 8
+// (convert.py pe_groups); the groups past the PE count hold zero weights.
+__host__ __device__ constexpr int pe_groups(int pe) { return 4 + 4 * (pe > 4); }
+
 // k32 steps of a K x K layer: one per kernel row for layer 0 (its pixels
 // widened to four horizontal neighbours), else two taps a step.
 __host__ __device__ constexpr int steps_of(int K, int wide) { return wide * K + (1 - wide) * ((K * K + 1) / 2); }
@@ -169,7 +178,8 @@ __device__ __forceinline__ void fence_proxy_async() {
 // s32; d is overwritten where acc is 0.
 template <int N>
 __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 48 || N == 64, "the layers use these widths");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 48 || N == 64 || N == 128,
+                "the layers use these widths");
   if constexpr (N == 8) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
@@ -196,13 +206,24 @@ __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t
                  "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p;\n}\n"
                  : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20)
                  : "l"(a), "l"(b), "r"(acc));
-  } else {
+  } else if constexpr (N == 64) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
                  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
                  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
                  "%31}, %32, %33, p;\n}\n"
                  : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28)
+                 : "l"(a), "l"(b), "r"(acc));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+                 "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+                 "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63}, %64, %65, p;\n}\n"
+                 : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28), D4(32), D4(36),
+                   D4(40), D4(44), D4(48), D4(52), D4(56), D4(60)
                  : "l"(a), "l"(b), "r"(acc));
   }
 }
@@ -212,14 +233,15 @@ __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t
 __host__ __device__ inline int round_up(int v, int a) { return (v + a - 1) / a * a; }
 
 // Bytes of conv `layer`'s B: steps x N columns x 32 bytes of k, N = the
-// PE groups (split: in_ch for layer 0, else 4; one pass: 1) x 16 columns (8
-// for a last layer of <= 8 channels).
-__host__ __device__ inline int layer_b_bytes(int layer, int L, int in_ch, int ocl, int split) {
+// PE groups (split: min(in_ch, pe) for layer 0, else pe_groups(pe); one
+// pass: 1) x 16 columns (8 for a last layer of <= 8 channels).
+__host__ __device__ inline int layer_b_bytes(int layer, int L, int in_ch, int ocl, int split,
+                                             int pe) {
   const int sp = (split >> layer) & 1;
-  if (layer == 0) return steps_of(5, 1) * 32 * kC * (sp ? in_ch : 1);
+  if (layer == 0) return steps_of(5, 1) * 32 * kC * (sp ? (in_ch < pe ? in_ch : pe) : 1);
   const int last = layer == L - 1;
   const int ocp = last && ocl <= 8 ? 8 : kC;
-  return steps_of(last ? 5 : 3, 0) * 32 * ocp * (sp ? 4 : 1);
+  return steps_of(last ? 5 : 3, 0) * 32 * ocp * (sp ? pe_groups(pe) : 1);
 }
 
 // Pixels of conv `layer`'s input buffer that its GEMM reads: the rows of its
@@ -238,14 +260,15 @@ struct Plan {
   int bytes;
 };
 
-// Shared memory of one block: the parameter block (P_ALL words), every
+// Shared memory of one block: the parameter block (param_words(pe)), every
 // layer's B, the buffers (y also holds layer 0's input as one word a pixel
 // while it is widened into x), the shortcut and the scratch word.
-__host__ __device__ inline Plan smem_plan(int split, int L, int in_ch, int ocl, int th, int tw) {
+__host__ __device__ inline Plan smem_plan(int split, int pe, int L, int in_ch, int ocl, int th,
+                                          int tw) {
   Plan p;
-  p.w_at = round_up(P_ALL * 4, kAlign);
+  p.w_at = round_up(param_words(pe) * 4, kAlign);
   p.w_bytes = 0;
-  for (int i = 0; i < L; ++i) p.w_bytes += layer_b_bytes(i, L, in_ch, ocl, split);
+  for (int i = 0; i < L; ++i) p.w_bytes += layer_b_bytes(i, L, in_ch, ocl, split, pe);
   int x = 0, y = extent(0, L, th, tw) * 4;
   for (int i = 0; i < L; ++i) {
     const int b = layer_cap(i, L, th, tw) * kPix;
@@ -265,6 +288,7 @@ __host__ __device__ inline Plan smem_plan(int split, int L, int in_ch, int ocl, 
 struct Net {
   Tile t;
   int frame, L, oc;    // oc: the last conv's output channels
+  int pe;              // the datapath's PEs
   const int* prm;      // the parameter block, in shared memory
   uint2* sc;           // the shortcut: round(s) as int16, a pixel's 16 channels in 4 uint2
   int* scratch;        // kScratch bytes that the epilogue's stores not made go to
@@ -282,10 +306,13 @@ struct Layer {
 };
 
 // A thread's view of conv `ly.layer` in one form: NG PE groups of columns,
-// each PE's partial clamped to 18 bits (SPLIT), or one group, clamped to 20
-// bits where CLAMP. Everything a warpgroup's m-tile needs is held here, and
-// issue / epilogue are inlined, so the accumulators stay in registers.
-template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP>
+// each PE's partial clamped to pe_acc_bits (SPLIT), or one group; the sum
+// clamped to pe_add_bits where CLAMP. GEN: the general instantiation (any
+// PE count, NG past it padded with zero groups). Everything a warpgroup's
+// m-tile needs is held here, and issue / epilogue are inlined, so the
+// accumulators stay in registers; past four groups the PE zero terms are
+// read from shared memory in the epilogue.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN>
 struct Form {
   static constexpr int WIDE = KIND == FIRST;
   static constexpr int J = OCP / 8;                              // 8-column tiles of a group
@@ -293,8 +320,9 @@ struct Form {
   static constexpr int R = N / 2;                                // accumulator registers
   static constexpr int S = steps_of(K, WIDE);
   static constexpr int V = 2 * J;                                // values a thread holds per row and group
+  static constexpr bool START_REGS = NG <= 4;                    // the PE zero terms in registers
 
-  int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, frame, L;
+  int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, frame, L, pe;
   unsigned iw_magic;
   float rq_s, rq_c;
   float z_next, res_s;   // the next layer's domain-in zero (z_out for LAST); s_1 / s_{L-1}
@@ -305,11 +333,13 @@ struct Form {
   int* scratch;          // where a store that is not made goes
   int sc_w, sc_h, sc_off;
   int8_t* out;
-  int base[V], lo[V], hi[V], start[NG][V];
+  int base[V], lo[V], hi[V], start[START_REGS ? NG : 1][V];
+  int zcp[START_REGS ? 1 : V];   // past four groups: PE 0's zero term's word
+  const int* prm;
   uint32_t a_lo[S], b_lo;
 
   __device__ __forceinline__ Form(const Layer& ly, const Net& net) {
-    const int* prm = net.prm;
+    prm = net.prm;
     const int tid = threadIdx.x & 127;
     warp = tid >> 5;
     lane = tid & 31;
@@ -326,6 +356,7 @@ struct Form {
     W = net.t.W;
     frame = net.frame;
     L = net.L;
+    pe = GEN ? net.pe : 4;
     iw_magic = 0xffffffffu / iw + 1;                    // r / iw == umulhi(r, iw_magic)
     acc_hi = prm[P_ACC_HI];
     const int add_hi = prm[P_ADD_HI];
@@ -346,9 +377,10 @@ struct Form {
     out = net.out;
     // value v = 2 j + e of a group is column acc_col(j, lane, e): a row's sum
     // ends as kMagicBits + y_int. A one-pass layer adds base = bias +
-    // kMagicBits - z_eff * sum(W) (its 20-bit clamp, where it runs, shifted
+    // kMagicBits - z_eff * sum(W) (its adder clamp, where it runs, shifted
     // by bias + kMagicBits); a split layer adds bias + kMagicBits to the sum
     // of its PEs' clamped partials, PE p's started from -z_eff * sum(W_p)
+    // (0 for a group past the PEs)
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int o = col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST);
@@ -357,8 +389,13 @@ struct Form {
       base[v] = b - (ok ? prm[P_ZC + layer * kC + o] : 0);
       lo[v] = b - add_hi - 1;
       hi[v] = b + add_hi;
+      if constexpr (START_REGS) {
 #pragma unroll
-      for (int p = 0; p < NG; ++p) start[p][v] = ok ? -prm[P_ZCP + (layer * 4 + p) * kC + o] : 0;
+        for (int p = 0; p < NG; ++p)
+          start[p][v] = ok && p < pe ? -prm[P_ZCP + (layer * pe + p) * kC + o] : 0;
+      } else {
+        zcp[v] = P_ZCP + layer * pe * kC + o;     // words past OC hold 0
+      }
     }
     // descriptors: A's start and LBO per step (m-tile 0), B's start
     const uint32_t in_s = smem_u32(ly.in);
@@ -406,9 +443,14 @@ struct Form {
         if constexpr (SPLIT) {
           yi = base[v];
 #pragma unroll
-          for (int p = 0; p < NG; ++p)
-            yi += min(max(static_cast<int>(d[4 * (p * J + (v >> 1)) + i]) + start[p][v], -acc_hi - 1),
+          for (int p = 0; p < NG; ++p) {
+            int st;
+            if constexpr (START_REGS) st = start[p][v];
+            else st = p < pe ? -prm[zcp[v] + p * kC] : 0;
+            yi += min(max(static_cast<int>(d[4 * (p * J + (v >> 1)) + i]) + st, -acc_hi - 1),
                       acc_hi);
+          }
+          if constexpr (CLAMP) yi = min(max(yi, lo[v]), hi[v]);
         } else {
           yi = static_cast<int>(d[4 * (v >> 1) + i]) + base[v];
           if constexpr (CLAMP) yi = min(max(yi, lo[v]), hi[v]);
@@ -490,9 +532,9 @@ struct Form {
 // their epilogues after it, need more registers than 128 a thread beside
 // the epilogue's, and ptxas serializes the wgmmas.) Inlined into the kernel:
 // ptxas serializes every wgmma of a pipeline that crosses a function call.
-template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP>
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN>
 __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN>;
   const F f(ly, net);
   const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
   // the warpgroup's index, uniform to the compiler as well
@@ -507,46 +549,52 @@ __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
 }
 
 // conv `ly.layer` in its form: one pass per PE where its split bit is set
-// (layer 0: one group per input channel), else one pass, clamped to 20 bits
-// where its clamp bit is set; OCP columns a group (8 for a last layer of
-// <= 8 channels, else 16).
-template <Kind KIND, int K, int OCP>
+// (layer 0: one group per PE that owns an input channel, min(in_ch, pe);
+// else G groups), else one pass, clamped to pe_add_bits where its clamp bit
+// is set; OCP columns a group (8 for a last layer of <= 8 channels, else
+// 16). The general instantiation (GEN) clamps every layer's sum to
+// pe_add_bits, the identity where that clamp cannot fire.
+template <Kind KIND, int K, int OCP, int G, bool GEN>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
   if ((prm[P_SPLIT] >> ly.layer) & 1) {
     if constexpr (KIND == FIRST) {
-      switch (in_ch) {
-        case 1: conv_layer<KIND, K, OCP, 1, true, false>(ly, net); return;
-        case 2: conv_layer<KIND, K, OCP, 2, true, false>(ly, net); return;
-        case 3: conv_layer<KIND, K, OCP, 3, true, false>(ly, net); return;
-        default: conv_layer<KIND, K, OCP, 4, true, false>(ly, net); return;
+      switch (GEN ? min(in_ch, net.pe) : in_ch) {
+        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN>(ly, net); return;
       }
     } else {
-      conv_layer<KIND, K, OCP, 4, true, false>(ly, net);
+      conv_layer<KIND, K, OCP, G, true, GEN, GEN>(ly, net);
       return;
     }
   }
-  if ((prm[P_CLAMP] >> ly.layer) & 1) {
-    conv_layer<KIND, K, OCP, 1, false, true>(ly, net);
+  if (GEN || ((prm[P_CLAMP] >> ly.layer) & 1)) {
+    conv_layer<KIND, K, OCP, 1, false, true, GEN>(ly, net);
     return;
   }
-  conv_layer<KIND, K, OCP, 1, false, false>(ly, net);
+  conv_layer<KIND, K, OCP, 1, false, false, GEN>(ly, net);
 }
 
+// G: PE groups of a split 16-channel layer (pe_groups); GEN: the general
+// instantiation (any PE count and widths, convert.py KernelConstants.general).
+// The shipped artifacts run <4, false>.
+template <int G, bool GEN>
 __global__ void __launch_bounds__(kThreads, 1)
 sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                       const int* __restrict__ weights, const int* __restrict__ params,
                       int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
-                      int split) {
+                      int split, int pe) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const Plan pl = smem_plan(split, L, in_ch, out_ch, th, tw);
+  const Plan pl = smem_plan(split, pe, L, in_ch, out_ch, th, tw);
   int* prm = reinterpret_cast<int*>(smem);
   uint8_t* wsm = smem + pl.w_at;
   uint8_t* bx = smem + pl.x_at;
   uint8_t* by = smem + pl.y_at;
 
   // the parameter block and every layer's B, once per block
-  for (int i = threadIdx.x; i < P_ALL; i += kThreads) prm[i] = __ldg(params + i);
+  for (int i = threadIdx.x; i < param_words(pe); i += kThreads) prm[i] = __ldg(params + i);
   const int4* w4 = reinterpret_cast<const int4*>(weights);
   for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
     reinterpret_cast<int4*>(wsm)[i] = __ldg(w4 + i);
@@ -566,6 +614,7 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   net.t.W = W;
   net.L = L;
   net.oc = out_ch;
+  net.pe = pe;
   net.prm = prm;
   net.sc = reinterpret_cast<uint2*>(smem + pl.sc_at);
   net.scratch = reinterpret_cast<int*>(smem + pl.scratch_at);
@@ -627,13 +676,13 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
       ly.next = reinterpret_cast<int*>(nxt);
       ly.layer = i;
       if (i == 0)
-        conv_form<FIRST, 5, kC>(ly, net, in_ch);
+        conv_form<FIRST, 5, kC, G, GEN>(ly, net, in_ch);
       else if (i < L - 1)
-        conv_form<MID, 3, kC>(ly, net, in_ch);
+        conv_form<MID, 3, kC, G, GEN>(ly, net, in_ch);
       else if (out_ch <= 8)
-        conv_form<LAST, 5, 8>(ly, net, in_ch);
+        conv_form<LAST, 5, 8, G, GEN>(ly, net, in_ch);
       else
-        conv_form<LAST, 5, kC>(ly, net, in_ch);
+        conv_form<LAST, 5, kC, G, GEN>(ly, net, in_ch);
       fence_proxy_async();
       __syncthreads();
       uint8_t* tmp = cur;
@@ -643,32 +692,33 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   }
 }
 
-bool takes(int L, int in_ch, int out_ch, int th, int tw, int split) {
+bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe) {
   return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
          (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
-         tw <= 1024 && (split >> L) == 0 &&
-         smem_plan(split, L, in_ch, out_ch, th, tw).bytes <= kSmemLimit;
+         tw <= 1024 && (split >> L) == 0 && pe >= 1 && pe <= kMaxPE &&
+         smem_plan(split, pe, L, in_ch, out_ch, th, tw).bytes <= kSmemLimit;
 }
 
+template <int G, bool GEN>
 cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
-                   int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
+                   int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                    cudaStream_t stream) {
-  const int bytes = smem_plan(split, L, in_ch, out_ch, th, tw).bytes;
-  cudaError_t err = cudaFuncSetAttribute(sesr_corrected_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int bytes = smem_plan(split, pe, L, in_ch, out_ch, th, tw).bytes;
+  auto* kernel = sesr_corrected_kernel<G, GEN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sesr_corrected_kernel, kThreads,
-                                                      bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = static_cast<long long>(n) * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
   const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
-  sesr_corrected_kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, n, h, wd, L, in_ch,
-                                                           out_ch, th, tw, split);
+  kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw,
+                                            split, pe);
   return cudaGetLastError();
 }
 
@@ -679,24 +729,39 @@ extern "C" {
 // x: int8 (n, h, w, in_ch) quantized input; out: int8 (n, h, w, out_ch);
 // weights / params: int32 device arrays built by sesr_tpu_torch/convert.py
 // (weights 16-byte aligned); split: bit i set where conv i runs one pass per
-// PE, the params' pe_split word (B's size depends on it).
+// PE, the params' pe_split word (B's size depends on it); pe: the
+// datapath's PEs; general: the instantiation for any PE count and widths
+// (KernelConstants.general; required where pe != 4).
 int sesr_corrected_net(const void* x, void* out, const void* weights, const void* params,
                        int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                       int tile_h, int tile_w, int split, void* stream) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split) ||
+                       int tile_h, int tile_w, int split, int pe, int general, void* stream) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe) || (!general && pe != 4) ||
       (reinterpret_cast<uintptr_t>(weights) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(static_cast<const int8_t*>(x), static_cast<int8_t*>(out),
-                                 static_cast<const int*>(weights), static_cast<const int*>(params),
-                                 n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
-                                 static_cast<cudaStream_t>(stream)));
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  int8_t* oi = static_cast<int8_t*>(out);
+  const int* wi = static_cast<const int*>(weights);
+  const int* pi = static_cast<const int*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (!general)
+    err = launch<4, false>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
+                           split, pe, s);
+  else if (pe_groups(pe) == 4)
+    err = launch<4, true>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
+                          split, pe, s);
+  else
+    err = launch<8, true>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
+                          split, pe, s);
+  return static_cast<int>(err);
 }
 
 // Shared memory of one block of sesr_corrected_net in bytes, or 0 where it
-// refuses the network, the tile or the split mask.
-int sesr_corrected_smem(int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split)) return 0;
-  return smem_plan(split, num_layers, in_ch, out_ch, tile_h, tile_w).bytes;
+// refuses the network, the tile, the split mask or the PE count.
+int sesr_corrected_smem(int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
+                        int pe) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe)) return 0;
+  return smem_plan(split, pe, num_layers, in_ch, out_ch, tile_h, tile_w).bytes;
 }
 
 const char* sesr_corrected_error_string(int err) {

@@ -25,15 +25,21 @@
 //     over output channels. Padded taps carry zero weights;
 //   - two forms of a layer. One pass over all channels, k = (tap, word,
 //     byte), 2 taps per k32 chunk: K2 everywhere, and K1 wherever convert.py
-//     proves from the weights that no PE's 18-bit clamp can fire (then the
-//     sum of the clamped PE sums is the full sum). One pass per PE, k =
-//     (tap, byte of word p), 8 taps per chunk, each PE's sum clamped to 18
-//     bits before adding: K1 on the other layers. Layer 0 (one word of <= 4
-//     channels) takes 8 taps per chunk, once per input channel when split.
-//     K2's 20-bit clamp runs only where it can fire;
+//     proves from the weights that no PE's accumulator clamp (18 bits
+//     shipped) can fire (then the sum of the clamped PE sums is the full
+//     sum). One pass per PE, each PE's sum clamped before adding: K1 on the
+//     other layers; at 4 PEs k = (tap, byte of word p), 8 taps per chunk,
+//     at any other PE count k as in the one-pass form with B zero outside
+//     the PE's channels (c % pe == p). Layer 0 (one word of <= 4 channels)
+//     takes 8 taps per chunk, once per PE that owns an input channel when
+//     split. The adder clamp (20 bits shipped) runs only where it can fire
+//     (K2), or on every layer in the general instantiation that any other
+//     HardwareConfig runs (K1 off 4 PEs; a K1 or K2 whose adder clamp can
+//     fire);
 //   - activations stay int8 from layer to layer, packed four channels to a
 //     32-bit word: word p of a 16-channel pixel holds channels p, p+4, p+8,
-//     p+12 (PE p's). An A register is one such word, loaded from a planar
+//     p+12 (PE p's at 4 PEs; a network narrower than 16 channels runs
+//     padded with zero weights). An A register is one such word, loaded from a
 //     buffer with no repacking; convert.py orders the weights into B
 //     fragments (pass, chunk, lane, n-tile, reg) and permutes the output
 //     channels so that the four values a lane holds for a pixel are word t
@@ -112,11 +118,17 @@ __host__ __device__ constexpr int word_chunks(int k) { return (k * k + 1) / 2; }
 
 // Words of one layer's B fragments: passes x chunks x 32 lanes x n-tiles x 2
 // (convert.py _fragment_words builds them in this order), with one pass
-// per PE (split) or one pass over all channels.
-__host__ __device__ inline int layer_words(bool split, int layer, int L, int in_ch, int ocl) {
-  if (layer == 0) return (split ? in_ch : 1) * tap_chunks(5) * 32 * 4;
-  if (layer < L - 1) return (split ? 4 * tap_chunks(3) : word_chunks(3)) * 32 * 4;
-  return (split ? 4 * tap_chunks(5) : word_chunks(5)) * 32 * 2 * ((ocl + 7) / 8);
+// per PE (split) or one pass over all channels. A split layer's passes:
+// layer 0 one per PE that owns an input channel, min(in_ch, pe), 8 taps a
+// chunk; a 16-channel layer at 4 PEs one per word (PE p's channels are word
+// p), 8 taps a chunk; at any other PE count one per PE over all four words
+// (the other PEs' weights zero), 2 taps a chunk.
+__host__ __device__ inline int layer_words(bool split, int layer, int L, int in_ch, int ocl,
+                                           int pe) {
+  if (layer == 0) return (split ? (in_ch < pe ? in_ch : pe) : 1) * tap_chunks(5) * 32 * 4;
+  const int k = layer < L - 1 ? 3 : 5;
+  const int chunks = split ? (pe == 4 ? 4 * tap_chunks(k) : pe * word_chunks(k)) : word_chunks(k);
+  return chunks * 32 * (layer < L - 1 ? 4 : 2 * ((ocl + 7) / 8));
 }
 
 __device__ __forceinline__ bool pe_split(const int* prm, int layer) {
@@ -133,12 +145,15 @@ __device__ __forceinline__ bool split_of(const int* prm, int layer) {
 // frame, which is the next layer's input frame), as an implicit GEMM. `in`
 // holds the input extent (eh + K - 1) x (ew + K - 1): one word per pixel
 // (FIRST) or four planes `in_ps` words apart; `w` the layer's B fragments.
-// SPLIT (K1) runs one pass per PE and clamps each PE's sum to 18 bits; else
-// one pass over all channels, which K1 takes where convert.py proves that
-// clamp cannot fire. CLAMP (K2) clamps the sum to 20 bits. The epilogue writes the next
-// layer's input planes (FIRST, MID), the shortcut terms (FIRST) or the int8
-// output (LAST).
-template <int DP, bool SPLIT, bool CLAMP, int K, Kind KIND, int OC>
+// SPLIT (K1) runs `npass` passes, one per PE, and clamps each PE's sum to
+// pe_acc_bits; else one pass over all channels, which K1 takes where
+// convert.py proves that clamp cannot fire. A split 16-channel layer reads
+// word p in pass p (4 PEs), or all four words in each pass (MASKED: any
+// other PE count, B zero outside the PE's channels). CLAMP (K2, and K1's
+// general instantiation) clamps the sum to pe_add_bits. The epilogue writes
+// the next layer's input planes (FIRST, MID), the shortcut terms (FIRST) or
+// the int8 output (LAST).
+template <int DP, bool SPLIT, bool MASKED, bool CLAMP, int K, Kind KIND, int OC>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -148,9 +163,10 @@ __device__ __forceinline__ void conv_layer(
   constexpr int KK = K * K;
   constexpr int NT = (OC + 7) / 8;                   // n-tiles of 8 channels
   constexpr int FW = 2 * NT;                         // B registers per (pass, chunk)
-  constexpr bool TAPS = SPLIT || KIND == FIRST;      // k = (tap, byte of one word)
+  static_assert(!MASKED || (SPLIT && KIND != FIRST), "a masked pass is a split 16-channel layer's");
+  constexpr bool TAPS = (SPLIT && !MASKED) || KIND == FIRST;   // k = (tap, byte of one word)
   constexpr int NCH = TAPS ? tap_chunks(K) : word_chunks(K);
-  constexpr int NP = SPLIT ? 4 : 1;                  // passes (FIRST: up to 4)
+  constexpr int NP = SPLIT && !MASKED ? 4 : 1;       // passes unrolled (FIRST: up to 4)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -195,8 +211,9 @@ __device__ __forceinline__ void conv_layer(
     ob[c] = plane + (tb < KK ? (tb / K) * iw + tb % K : 0);
   }
   // the layer's B fragments are held in registers, except K1's layer 0
-  // (up to 4 passes), which reads them from shared memory per chunk
-  constexpr bool WSMEM = SPLIT && KIND == FIRST;
+  // (up to 4 passes) and its masked passes (up to 8), which read them from
+  // shared memory per chunk
+  constexpr bool WSMEM = SPLIT && (KIND == FIRST || MASKED);
   constexpr int WP = WSMEM ? 1 : NP, WC = WSMEM ? 1 : NCH;
   int wr[WP][WC][FW];
   if constexpr (!WSMEM) {
@@ -260,6 +277,29 @@ __device__ __forceinline__ void conv_layer(
           for (int n = 0; n < NT; ++n)
 #pragma unroll
             for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[p][n][i], -acc_hi - 1), acc_hi);
+    } else if constexpr (MASKED) {
+      // PE p's pass reads all four words of each tap against B holding its
+      // channels only
+      for (int p = 0; p < npass; ++p) {
+        int acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][i] = 0;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
+          const int a2 = in[bases[0] + ob[c]], a3 = in[bases[1] + ob[c]];
+          int b[FW];
+          load_frag<FW>(b, w + ((p * NCH + c) * 32 + lane) * FW);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_s8(acc[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[n][i], -acc_hi - 1), acc_hi);
+      }
     } else {
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
@@ -410,13 +450,15 @@ struct Smem {
 
 // Shared memory of one block: the parameter block (P_WORDS), two weight
 // buffers (each the size of the largest layer's fragments: every layer split
-// for K1), the ping-pong activation buffers and the shortcut.
-__host__ __device__ inline Smem smem_plan(int dp, int L, int in_ch, int ocl, int th, int tw) {
+// for K1 at 4 PEs, the split layers of the mask `split` in K1's general
+// instantiation), the ping-pong activation buffers and the shortcut.
+__host__ __device__ inline Smem smem_plan(int dp, bool gen, int split, int pe, int L, int in_ch,
+                                          int ocl, int th, int tw) {
   Smem s;
   s.w_words = 0;                         // a split layer's fragments are the larger
   for (int i = 0; i < L; ++i) {
-    const bool sp = dp == REFERENCE;
-    const int lw = layer_words(sp, i, L, in_ch, ocl);
+    const bool sp = gen ? (split >> i) & 1 : dp == REFERENCE;
+    const int lw = layer_words(sp, i, L, in_ch, ocl, pe);
     s.w_words = s.w_words > lw ? s.w_words : lw;
   }
   // layer i's input: buf_b for even i (layer 0: one word per pixel), buf_a for odd
@@ -431,10 +473,13 @@ __host__ __device__ inline Smem smem_plan(int dp, int L, int in_ch, int ocl, int
   return s;
 }
 
-// conv `layer` in its form: one pass per PE where its split bit is set (K1),
-// else one pass, clamped to 20 bits where its clamp bit is set (K2 from conv
-// 1 on, whose conv 0 convert.py proves idle). The arguments are conv_layer's.
-template <int DP, int K, Kind KIND, int OC>
+// conv `layer` in its form: one pass per PE where its split bit is set (K1;
+// `npass` passes), else one pass, clamped to pe_add_bits where its clamp bit
+// is set (K2 from conv 1 on, where convert.py proves conv 0's idle). The
+// general instantiation (GEN: any PE count, any widths) clamps every
+// layer's sum to pe_add_bits, the identity where that clamp cannot fire.
+// The arguments are conv_layer's.
+template <int DP, bool GEN, int K, Kind KIND, int OC>
 __device__ __forceinline__ void conv_form(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -443,32 +488,43 @@ __device__ __forceinline__ void conv_form(
     int8_t* __restrict__ out, int frame) {
   if constexpr (DP == REFERENCE) {
     if (pe_split(prm, layer)) {
-      conv_layer<DP, true, false, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer, prelast,
-                                               prm, next, next_ps, sc, sc_ps, sc_off, sc_w,
-                                               sc_h, out, frame);
+      if (KIND == FIRST || npass == 4) {
+        conv_layer<DP, true, false, GEN, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer,
+                                                      prelast, prm, next, next_ps, sc, sc_ps,
+                                                      sc_off, sc_w, sc_h, out, frame);
+      } else if constexpr (GEN && KIND != FIRST) {
+        conv_layer<DP, true, true, true, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer,
+                                                      prelast, prm, next, next_ps, sc, sc_ps,
+                                                      sc_off, sc_w, sc_h, out, frame);
+      }
       return;
     }
   }
-  if constexpr (DP == FAST && KIND != FIRST) {
-    if ((prm[P_CLAMP] >> layer) & 1) {
-      conv_layer<DP, false, true, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm,
-                                               next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
-                                               out, frame);
+  if constexpr (GEN || (DP == FAST && KIND != FIRST)) {
+    if (GEN || ((prm[P_CLAMP] >> layer) & 1)) {
+      conv_layer<DP, false, false, true, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast,
+                                                      prm, next, next_ps, sc, sc_ps, sc_off,
+                                                      sc_w, sc_h, out, frame);
       return;
     }
   }
-  conv_layer<DP, false, false, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm,
-                                            next, next_ps, sc, sc_ps, sc_off, sc_w, sc_h,
-                                            out, frame);
+  conv_layer<DP, false, false, false, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast,
+                                                   prm, next, next_ps, sc, sc_ps, sc_off, sc_w,
+                                                   sc_h, out, frame);
 }
 
-template <int DP, int OCL>
+// GEN: the instantiation for any PE count and widths (convert.py
+// KernelConstants.general: K1 off 4 PEs or where an adder clamp can fire,
+// K2 where its conv 0's can); the shipped artifacts run the other, at 4
+// PEs.
+template <int DP, int OCL, bool GEN>
 __global__ void __launch_bounds__(kThreads, 2)
 sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                 const int* __restrict__ weights, const int* __restrict__ params,
-                int H, int W, int L, int in_ch, int th, int tw) {
+                int H, int W, int L, int in_ch, int th, int tw, int split, int pe_in) {
   extern __shared__ int4 smem4[];
-  const Smem plan = smem_plan(DP, L, in_ch, OCL, th, tw);
+  const int pe = GEN ? pe_in : 4;
+  const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCL, th, tw);
   int* prm = reinterpret_cast<int*>(smem4);
   int* wbuf = prm + P_WORDS;            // two weight buffers of plan.w_words
   int* buf_a = wbuf + 2 * plan.w_words;
@@ -485,7 +541,7 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int frame = blockIdx.z;
 
   stage_async(wbuf, weights + params[P_WOFF],
-              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL));
+              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL, pe));
   for (int i = threadIdx.x; i < P_WORDS; i += blockDim.x) prm[i] = params[i];
 
   // layer-0 input: one word per pixel, channel c in byte c; z_eff outside
@@ -522,13 +578,13 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   // each layer stages the next one's weights into the other buffer while it
   // computes, per PE only where the layer is split
   stage_async(wbuf + plan.w_words, weights + prm[P_WOFF + 1],
-              layer_words(split_of<DP>(prm, 1), 1, L, in_ch, OCL));
+              layer_words(split_of<DP>(prm, 1), 1, L, in_ch, OCL, pe));
   {
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
-    conv_form<DP, 5, FIRST, kC>(buf_b, 0, wbuf, in_ch, th + 2 * r1, tw + 2 * r1, t, 0, false,
-                                prm, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
-                                frame);
+    conv_form<DP, GEN, 5, FIRST, kC>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1, tw + 2 * r1, t,
+                                     0, false, prm, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w,
+                                     sc_h, nullptr, frame);
   }
   wait_staged();
   __syncthreads();
@@ -537,13 +593,13 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   int* nxt = buf_b;
   for (int i = 1; i <= L - 2; ++i) {
     stage_async(wbuf + ((i + 1) & 1) * plan.w_words, weights + prm[P_WOFF + i + 1],
-                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL));
+                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL, pe));
     const int r = ring(i + 1, L);
     const int* w = wbuf + (i & 1) * plan.w_words;
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
-    conv_form<DP, 3, MID, kC>(cur, ps_in, w, 4, th + 2 * r, tw + 2 * r, t, i, i == L - 2, prm,
-                              nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
+    conv_form<DP, GEN, 3, MID, kC>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i, i == L - 2,
+                                   prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
     wait_staged();
     __syncthreads();
     int* tmp = cur;
@@ -553,47 +609,63 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
   const int* w_last = wbuf + ((L - 1) & 1) * plan.w_words;
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
-  conv_form<DP, 5, LAST, OCL>(cur, ps_last, w_last, 4, th, tw, t, L - 1, false, prm, nullptr,
-                              0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
+  conv_form<DP, GEN, 5, LAST, OCL>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false, prm,
+                                   nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
 }
 
-size_t shared_bytes(int dp, int L, int in_ch, int ocl, int th, int tw) {
-  const Smem plan = smem_plan(dp, L, in_ch, ocl, th, tw);
+size_t shared_bytes(int dp, bool gen, int split, int pe, int L, int in_ch, int ocl, int th,
+                    int tw) {
+  const Smem plan = smem_plan(dp, gen, split, pe, L, in_ch, ocl, th, tw);
   return sizeof(int) * (static_cast<size_t>(P_WORDS) + 2 * plan.w_words + plan.a_words +
                         plan.b_words + plan.sc_words);
 }
 
-template <int DP, int OCL>
+template <int DP, int OCL, bool GEN>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
-                       int n, int h, int wd, int L, int in_ch, int th, int tw,
-                       cudaStream_t stream) {
-  const size_t bytes = shared_bytes(DP, L, in_ch, OCL, th, tw);
-  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL>,
+                       int n, int h, int wd, int L, int in_ch, int th, int tw, int split,
+                       int pe, cudaStream_t stream) {
+  const size_t bytes = shared_bytes(DP, GEN, split, pe, L, in_ch, OCL, th, tw);
+  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL, GEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, n);
-  sesr_net_kernel<DP, OCL><<<grid, kThreads, bytes, stream>>>(
-      x, out, w, prm, h, wd, L, in_ch, th, tw);
+  sesr_net_kernel<DP, OCL, GEN><<<grid, kThreads, bytes, stream>>>(
+      x, out, w, prm, h, wd, L, in_ch, th, tw, split, pe);
   return cudaGetLastError();
 }
 
+template <int DP, bool GEN>
+cudaError_t launch_oc(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
+                      int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
+                      cudaStream_t s) {
+  switch (out_ch) {
+    case 3: return launch_one<DP, 3, GEN>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 12: return launch_one<DP, 12, GEN>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 16: return launch_one<DP, 16, GEN>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Each kernel has the shipped instantiation (gen = 0; K1 at 4 PEs) and the
+// general one.
 template <int DP>
 int launch(const void* x, void* out, const void* weights, const void* params, int n,
-           int h, int w, int L, int in_ch, int out_ch, int th, int tw, void* stream) {
-  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1)
+           int h, int w, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
+           int gen, void* stream) {
+  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1 || pe < 1 ||
+      pe > kMaxPE || (split >> L) != 0 || (!gen && pe != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
   const int* wi = static_cast<const int*>(weights);
   const int* pi = static_cast<const int*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (out_ch) {
-    case 3: return static_cast<int>(launch_one<DP, 3>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
-    case 12: return static_cast<int>(launch_one<DP, 12>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
-    case 16: return static_cast<int>(launch_one<DP, 16>(xi, oi, wi, pi, n, h, w, L, in_ch, th, tw, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (gen)
+    return static_cast<int>(
+        launch_oc<DP, true>(xi, oi, wi, pi, n, h, w, L, in_ch, out_ch, th, tw, split, pe, s));
+  return static_cast<int>(
+      launch_oc<DP, false>(xi, oi, wi, pi, n, h, w, L, in_ch, out_ch, th, tw, split, pe, s));
 }
 
 }  // namespace
@@ -601,19 +673,22 @@ int launch(const void* x, void* out, const void* weights, const void* params, in
 extern "C" {
 
 // x: int8 (n, h, w, in_ch) quantized input; out: int8 (n, h, w, out_ch);
-// weights / params: int32 device arrays built by sesr_tpu_torch/convert.py.
+// weights / params: int32 device arrays built by sesr_tpu_torch/convert.py;
+// split: bit i set where conv i runs one pass per PE (the params' pe_split
+// word); pe: the datapath's PEs; general: the instantiation for any PE
+// count and widths (KernelConstants.general; K1 needs it where pe != 4).
 int sesr_pe_exact_net(const void* x, void* out, const void* weights, const void* params,
                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                      int tile_h, int tile_w, void* stream) {
+                      int tile_h, int tile_w, int split, int pe, int general, void* stream) {
   return launch<REFERENCE>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                           tile_h, tile_w, stream);
+                           tile_h, tile_w, split, pe, general, stream);
 }
 
 int sesr_fast_net(const void* x, void* out, const void* weights, const void* params,
                   int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                  int tile_h, int tile_w, void* stream) {
+                  int tile_h, int tile_w, int general, void* stream) {
   return launch<FAST>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                      tile_h, tile_w, stream);
+                      tile_h, tile_w, 0, 4, general, stream);
 }
 
 const char* sesr_error_string(int err) {

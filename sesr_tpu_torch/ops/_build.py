@@ -37,16 +37,20 @@ _INT = ctypes.c_int
 # a cudaError_t as int, and each library exports <prefix>_error_string
 SIGNATURES = {
     "sesr_net": {
-        # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, stream)
-        "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
-        "sesr_fast_net": [_PTR] * 4 + [_INT] * 8 + [_PTR],
+        # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
+        #  pe, general, stream)
+        "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
+        #  general, stream)
+        "sesr_fast_net": [_PTR] * 4 + [_INT] * 9 + [_PTR],
     },
     "sesr_corrected": {
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
-        #  stream)
-        "sesr_corrected_net": [_PTR] * 4 + [_INT] * 9 + [_PTR],
-        # (num_layers, in_ch, out_ch, tile_h, tile_w, split) -> shared memory bytes, 0: refused
-        "sesr_corrected_smem": [_INT] * 6,
+        #  pe, general, stream)
+        "sesr_corrected_net": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        # (num_layers, in_ch, out_ch, tile_h, tile_w, split, pe) -> shared memory bytes,
+        # 0: refused
+        "sesr_corrected_smem": [_INT] * 7,
     },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)

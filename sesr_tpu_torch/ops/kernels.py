@@ -24,7 +24,7 @@ import collections
 import torch
 
 from sesr_tpu_torch.config import SESRSpec
-from sesr_tpu_torch.convert import PARAM_WORDS, device_constants, wgmma_geometry
+from sesr_tpu_torch.convert import device_constants, param_words, wgmma_geometry
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
 from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
@@ -54,19 +54,20 @@ def _ring(i: int, L: int) -> int:
     return 0 if i >= L else L + 2 if i == 0 else L + 1 - i
 
 
-def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split) -> int:
-    """Shared memory of one block of the corrected kernel at ``tile``
-    (csrc/sesr_corrected.cu smem_plan; chip_smoke.py checks the two agree):
-    the parameter block, every layer's B, two ping-pong buffers of 16 bytes
-    a pixel (each holding the pixels its layers' GEMMs read, past the extent
-    too), the int16 shortcut of 32 bytes a pixel and 16 bytes of scratch."""
+def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int) -> int:
+    """Shared memory of one block of the corrected kernel at ``tile`` and
+    ``pe`` PEs (csrc/sesr_corrected.cu smem_plan; chip_smoke.py checks the
+    two agree): the parameter block, every layer's B, two ping-pong buffers
+    of 16 bytes a pixel (each holding the pixels its layers' GEMMs read,
+    past the extent too), the int16 shortcut of 32 bytes a pixel and 16
+    bytes of scratch."""
     th, tw = tile
     w_bytes, bufs = 0, [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
     for i in range(L):
         last = i == L - 1
         k = 5 if i in (0, L - 1) else 3
         ic = in_ch if i == 0 else 16
-        steps, _, n = wgmma_geometry(k, ic, out_ch if last else 16, bool(split[i]), last)
+        steps, _, n = wgmma_geometry(k, ic, out_ch if last else 16, bool(split[i]), last, pe)
         w_bytes += steps * n * 32
         r = _ring(i, L)
         ih, iw = th + 2 * r, tw + 2 * r
@@ -76,7 +77,7 @@ def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split) -> int:
             reach = (k - 1) * (iw + 1) + (k * k) % 2
         cap = (_round_up((ih - k + 1) * iw, 64) + reach) * 16
         bufs[i % 2] = max(bufs[i % 2], cap)
-    w_at = _round_up(PARAM_WORDS * 4, 128)
+    w_at = _round_up(param_words(pe) * 4, 128)
     x_at = _round_up(w_at + w_bytes, 128)
     y_at = _round_up(x_at + bufs[0], 128)
     sc_at = _round_up(y_at + bufs[1], 128)
@@ -97,21 +98,29 @@ class NetKernel:
         self.launches = 0
         self.split_launches = collections.Counter()
 
-    def tile(self, spec: SESRSpec, split=None) -> tuple:
-        """The default output tile for ``spec``'s network."""
+    def tile(self, spec: SESRSpec, split, pe: int) -> tuple:
+        """The default output tile for ``spec``'s network at ``pe`` PEs."""
         return TILE
 
-    def check_tile(self, spec: SESRSpec, tile, split) -> None:
+    def check_tile(self, spec: SESRSpec, tile, split, pe: int) -> None:
         """Raises ValueError for a tile the kernel does not take."""
         if not (1 <= tile[0] <= 1024 and 1 <= tile[1] <= 1024):
             raise ValueError(f"{self.symbol}: tile {tuple(tile)} outside 1..1024")
+
+    def extra_args(self, kc) -> tuple:
+        """The entry point's arguments after the tile: the split mask, the
+        PE count and the instantiation (KernelConstants.general); K2 takes
+        the instantiation only."""
+        if self.datapath == "fast":
+            return (int(kc.general),)
+        return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, int(kc.general))
 
     def __call__(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor,
                  tile=None, split=None) -> torch.Tensor:
         """x_q: int8 (N, H, W, C_in) contiguous on a CUDA device. Returns the
         int8 output (N, H, W, C_out) of the last conv. ``tile``: the output
         tile (rows, columns) of one thread block (default ``self.tile(spec,
-        split)``). ``split`` (the corrected kernel only, and required there):
+        split, pe)``). ``split`` (the corrected kernel only, and required there):
         one flag per layer, set where the layer runs one pass per PE
         (ops/corrected.py ``split_layers``)."""
         if x_q.device.type != "cuda":
@@ -125,21 +134,20 @@ class NetKernel:
             raise ValueError(f"{self.symbol}: a split mask is "
                              f"{'required' if split is None else 'not taken'}")
         kc, weights, params = device_constants(spec, qp, self.datapath, x_q.device, split)
-        tile = tuple(tile or self.tile(spec, kc.pe_split))
-        self.check_tile(spec, tile, kc.pe_split)
+        tile = tuple(tile or self.tile(spec, kc.pe_split, kc.pe))
+        self.check_tile(spec, tile, kc.pe_split, kc.pe)
         n, h, w, _ = x_q.shape
         out = torch.empty((n, h, w, kc.out_channels), dtype=torch.int8,
                           device=x_q.device)
         if out.numel() == 0:
             return out
-        extra = () if split is None else (sum(1 << i for i, f in enumerate(kc.pe_split) if f),)
         lib = _build.load(self.library)
         with torch.cuda.device(x_q.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, self.symbol)(
                 x_q.data_ptr(), out.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), n, h, w, kc.num_layers, kc.in_channels,
-                kc.out_channels, *tile, *extra, stream)
+                kc.out_channels, *tile, *self.extra_args(kc), stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: "
                                f"{_build.error_string(self.library, err)} ({err})")
@@ -153,21 +161,21 @@ class CorrectedKernel(NetKernel):
     shared memory fits a block, and a tile that does not fit is refused
     before any launch."""
 
-    def tile(self, spec: SESRSpec, split=None) -> tuple:
+    def tile(self, spec: SESRSpec, split, pe: int) -> tuple:
         split = split or (False,) * spec.num_convs
         for tile in CORRECTED_TILES:
-            if self.smem_bytes(spec, tile, split) <= SMEM_LIMIT:
+            if self.smem_bytes(spec, tile, split, pe) <= SMEM_LIMIT:
                 return tile
         raise ValueError(f"{self.symbol}: no tile of {CORRECTED_TILES} fits {spec.name}")
 
     @staticmethod
-    def smem_bytes(spec: SESRSpec, tile, split) -> int:
+    def smem_bytes(spec: SESRSpec, tile, split, pe: int) -> int:
         return corrected_smem_bytes(spec.num_convs, spec.in_channels, spec.conv_out_channels,
-                                    tile, split)
+                                    tile, split, pe)
 
-    def check_tile(self, spec: SESRSpec, tile, split) -> None:
-        super().check_tile(spec, tile, split)
-        need = self.smem_bytes(spec, tile, split)
+    def check_tile(self, spec: SESRSpec, tile, split, pe: int) -> None:
+        super().check_tile(spec, tile, split, pe)
+        need = self.smem_bytes(spec, tile, split, pe)
         if need > SMEM_LIMIT:
             raise ValueError(f"{self.symbol}: tile {tuple(tile)} needs {need} B of shared "
                              f"memory for {spec.name}, more than a block's {SMEM_LIMIT}")

@@ -42,8 +42,9 @@ differentiable exchange of ``ops/halo.py``), the activation observers'
 current ranges reduce over the mesh (``reduce_group``), each rank's loss
 is its local sum over the global count, and the gradients are summed over
 the mesh before the optimizer's step, so every rank takes the same step.
-The percentile observer's order statistic does not reduce exactly over a
-mesh: it raises NotImplementedError under a group.
+The percentile observer takes the exact order statistic of the whole
+mesh's tensor (``global_order_statistic``: a radix select whose bin counts
+are summed over the group), the element the unsharded observer picks.
 """
 
 from __future__ import annotations
@@ -181,13 +182,53 @@ def _moving_avg_update(state: QuantizerState, x, momentum: float,
         _next_flag(state, first))
 
 
+RADIX_BITS = 16                 # two rounds of 65,536 bins over a float's 32 bits
+
+
+def global_order_statistic(a: torch.Tensor, index: int, group) -> torch.Tensor:
+    """The ``index``-th smallest (from 0) of the non-negative float32 values
+    of ``a`` over every rank of ``group``, each rank passing its own block
+    (one element tensor, the same on every rank). A radix select over the
+    values' int32 bits, which order non-negative floats as the floats do:
+    each round counts the candidates by their next 16 bits, sums the counts
+    over the group, and keeps the bin that holds the index-th. Exact (it
+    returns the element itself) and it moves 2 x 65,536 counts, not the
+    tensor."""
+    bits = a.detach().reshape(-1).to(torch.float32).view(torch.int32).to(torch.int64)
+    bins = 1 << RADIX_BITS
+    hi, lo = bits >> RADIX_BITS, bits & (bins - 1)
+
+    def counts(keys, weight):
+        c = torch.zeros(bins, dtype=torch.int64, device=a.device).scatter_add_(0, keys, weight)
+        dist.all_reduce(c, group=group)
+        return c
+
+    left = torch.full((1,), index, dtype=torch.int64, device=a.device)
+    c_hi = counts(hi, torch.ones_like(hi))
+    cum = torch.cumsum(c_hi, 0)
+    b_hi = torch.searchsorted(cum, left, right=True)           # the bin of the index-th
+    left = left - (cum[b_hi] - c_hi[b_hi])
+    c_lo = counts(lo, (hi == b_hi).to(torch.int64))
+    b_lo = torch.searchsorted(torch.cumsum(c_lo, 0), left, right=True)
+    return ((b_hi << RADIX_BITS) | b_lo).to(torch.int32).view(torch.float32)
+
+
 def _percentile_update(state: QuantizerState, x, momentum: float,
-                       percentile: float) -> QuantizerState:
+                       percentile: float, group=None) -> QuantizerState:
     """The moving average of the percentile-th |x| order statistic; the
-    minimum stays at -max (symmetric use)."""
-    flat = torch.sort(torch.abs(x).reshape(-1)).values
-    k = int(percentile * flat.shape[0])
-    cur_max = torch.full_like(state.max_val, 0) + flat[max(k - 1, 0)]
+    minimum stays at -max (symmetric use). With a ``group`` the statistic
+    is over every rank's block of x, the unsharded tensor's."""
+    a = torch.abs(x)
+    if group is None:
+        flat = torch.sort(a.reshape(-1)).values
+        k = int(percentile * flat.shape[0])
+        stat = flat[max(k - 1, 0)]
+    else:
+        n = torch.full((1,), a.numel(), dtype=torch.int64, device=a.device)
+        dist.all_reduce(n, group=group)
+        k = int(percentile * int(n.item()))
+        stat = global_order_statistic(a, max(k - 1, 0), group)
+    cur_max = torch.full_like(state.max_val, 0) + stat
     first = state.num_flag == 0
     new_max = torch.where(first, cur_max, _moving_average(state.max_val, cur_max, momentum))
     return QuantizerState(-new_max, new_max, _next_flag(state, first))
@@ -264,10 +305,7 @@ def _observe_act(cfg: QATConfig, state: QuantizerState, x, training: bool, group
         return state
     xs = x.detach()
     if cfg.ptq:
-        if group is not None:
-            raise NotImplementedError("the percentile observer's order statistic does not "
-                                      "reduce exactly over a mesh")
-        return _percentile_update(state, xs, cfg.momentum, cfg.percentile)
+        return _percentile_update(state, xs, cfg.momentum, cfg.percentile, group)
     return _moving_avg_update(state, xs, cfg.momentum, False, group)
 
 

@@ -34,7 +34,9 @@ import pytest
 import torch
 
 from sesr_tpu_torch import convert
-from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
+from sesr_tpu_torch.models.sesr import CollapsedParams, init_params
+from sesr_tpu_torch.quant.calibrate import calibrate
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import MODES, split_layers
 from sesr_tpu_torch.ops.kernels import (CORRECTED_TILES, SMEM_LIMIT, corrected_net,
@@ -60,8 +62,9 @@ def _expr(fn):
     return eval(f"lambda {', '.join(args)}: {m.group(2).replace(' / ', ' // ')}", dict(CONST))
 
 
-steps_of, half_off, b_byte, col_chan, acc_row, acc_col = (
-    _expr(f) for f in ("steps_of", "half_off", "b_byte", "col_chan", "acc_row", "acc_col"))
+steps_of, half_off, b_byte, col_chan, acc_row, acc_col, pe_groups = (
+    _expr(f) for f in ("steps_of", "half_off", "b_byte", "col_chan", "acc_row", "acc_col",
+                       "pe_groups"))
 
 
 def _artifact(task):
@@ -142,7 +145,7 @@ def test_pe_zero_terms_sum_to_the_layer_zc(task):
     split = convert.corrected_split_layers(qp)
     kc = convert.kernel_constants(spec, qp, "corrected", split)
     lay = convert.PARAM_LAYOUT
-    assert kc.params.shape == (convert.PARAM_WORDS,)
+    assert kc.params.shape == (convert.param_words(qp.hw.pe),)
     assert kc.params[lay["pe_split"]] == sum(1 << i for i in range(L) if split[i])
     for i, w in enumerate(qp.w_int):
         w = np.asarray(w, np.int64)
@@ -188,9 +191,9 @@ def test_split_masks_of_both_modes(task):
         np.testing.assert_array_equal(kc.weights, np.concatenate(want_w))
         # the corrected kernel's tile: the first of CORRECTED_TILES whose
         # plan fits a block (nr hybrid 48x48, the sweep's fastest)
-        tile = corrected_net.tile(spec, split)
+        tile = corrected_net.tile(spec, split, qp.hw.pe)
         fits = [t for t in CORRECTED_TILES if corrected_smem_bytes(
-            L, spec.in_channels, spec.conv_out_channels, t, split) <= SMEM_LIMIT]
+            L, spec.in_channels, spec.conv_out_channels, t, split, qp.hw.pe) <= SMEM_LIMIT]
         assert tile == fits[0]
         if task in ("nr", "nrdm_6"):
             mode = "hybrid" if split == hybrid else "pe-exact"
@@ -280,13 +283,21 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
     """The corrected kernel's y = bias + pe_add of conv i over the int8
     input x_q (H, W, ic), from its constants: the layer's wide GEMM through
     the descriptors, the accumulator fragment, and the epilogue's rules,
-    with the extent of one tile over the whole input."""
+    with the extent of one tile over the whole input. A network narrower
+    than 16 channels runs padded: its padded input channels hold random
+    bytes here (their weights are zero)."""
     lay = convert.PARAM_LAYOUT
+    acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
+    add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
     h, w, ic = x_q.shape
     oc = np.asarray(qp.w_int[i]).shape[3]
     split = kc.pe_split[i]
     wide = i == 0
-    steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split, last)
+    if not wide and ic < 16:
+        x_q = np.concatenate([x_q, rng.integers(-128, 128, (h, w, 16 - ic))], axis=-1)
+        ic = 16
+    steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc if last else 16, split, last,
+                                                   qp.hw.pe)
     assert steps == steps_of(k, int(wide))
     ocp = n_cols // groups
     buf, ih, iw, rows = _smem_input(x_q.astype(np.int8), k, z_eff, wide, rng)
@@ -303,8 +314,9 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
             acc[mt * 64:mt * 64 + 64] += a.astype(np.int64) @ b.astype(np.int64)
     bias = kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc].astype(np.int64)
     zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc].astype(np.int64)
-    zc_pe = [kc.params[lay["zc_pe"] + 16 * (4 * i + p): lay["zc_pe"] + 16 * (4 * i + p) + oc]
-             .astype(np.int64) for p in range(4)]
+    zc_pe = [kc.params[lay["zc_pe"] + 16 * (kc.pe * i + p): lay["zc_pe"] + 16 * (kc.pe * i + p)
+                       + oc].astype(np.int64) if p < kc.pe else np.zeros(oc, np.int64)
+             for p in range(groups)]
     got = np.full((h, w, oc), np.iinfo(np.int64).min)
     j_n = ocp // 8
     # each thread's registers (warp, lane, 4 j + i) of each m-tile, as the
@@ -327,15 +339,77 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
                         reg = lambda p: d[(p * j_n + (v >> 1), 2 * hh + (v & 1))]
                         if split:
                             val = bias[o] - zc[o] + sum(
-                                np.clip(reg(p) - zc_pe[p][o], -ACC_HI - 1, ACC_HI)
+                                np.clip(reg(p) - zc_pe[p][o], -acc_hi - 1, acc_hi)
                                 for p in range(groups))
                         else:
                             val = reg(0) + bias[o] - zc[o]
-                            if kc.clamp20[i]:
-                                val = np.clip(val, bias[o] - ADD_HI - 1, bias[o] + ADD_HI)
+                        if kc.clamp20[i]:
+                            val = np.clip(val, bias[o] - add_hi - 1, bias[o] + add_hi)
                         assert got[y, x, o] == np.iinfo(np.int64).min   # written once
                         got[y, x, o] = val
     return got
+
+
+# the JAX sweep's configurations (tests/test_hwconfig_sweep.py ALT_CONFIGS)
+ALT_HW = {"pe2_narrow": HardwareConfig(pe=2, pe_acc_bits=16, pe_add_bits=18, bias_bits=12,
+                                       requant_bits=12, requant_n_max=24),
+          "pe8_wide": HardwareConfig(pe=8, pe_acc_bits=20, pe_add_bits=22),
+          "pe3_nondivisible": HardwareConfig(pe=3)}
+
+
+def _alt_artifact(hw, width, in_ch, seed):
+    """A random network ``width`` channels wide (3 convs of the sweep's
+    nrdm-family shape, 1 or 3 input channels, 3 out) calibrated at ``hw``
+    on the CPU, with half its hidden weights cut to a tenth so that some
+    layers' clamps cannot fire and others can."""
+    spec = SESRSpec("sweep", in_channels=in_ch, out_channels=3, num_channels=width,
+                    num_lblocks=2)
+    params = init_params(spec, torch.Generator().manual_seed(seed))
+    ws = [w * (0.1 if j % 2 else 1.0) for j, w in enumerate(params.weights)]
+    images = [np.random.default_rng(seed).random((1, 12, 16, in_ch), dtype=np.float32)]
+    qp = calibrate(spec, CollapsedParams(ws, params.biases), images, hw=hw,
+                   safe_zero_floor=True, device="cpu")
+    return spec, qp
+
+
+@pytest.mark.parametrize("split_of", ["proof", "all", "saturating"])
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("config", list(ALT_HW))
+def test_corrected_kernel_layers_at_other_configs(config, width, split_of):
+    """The numpy model of the kernel at 2, 3 and 8 PEs with the sweep's
+    widths (16/18-bit accumulator / adder and a 12-bit bias at 2 PEs;
+    20/22 at 8), for networks 8 (padded) and 16 channels wide with 3 and 1
+    input channels: the layers the corrected proof splits, or all of them,
+    in the general instantiation (pe_groups column groups, the groups past
+    the PE count zero; every sum clamped to pe_add_bits), each layer's
+    y = bias + pe_add equal to the plain interpreter's with the same
+    layers split; "saturating": every layer split, convs 0, 1 and 3 at
+    +127, where conv 1's accumulator clamp fires (and at 8 PEs, whose
+    eight 20-bit sums can pass 22 bits, its adder clamp)."""
+    hw = ALT_HW[config]
+    for in_ch, seed in ((3, 1), (1, 2)):
+        spec, qp = _alt_artifact(hw, width, in_ch, seed)
+        L = spec.num_convs
+        if split_of == "saturating":
+            qp = _all_127(qp, (0, 1, L - 1))
+        split = (convert.corrected_split_layers(qp) if split_of == "proof" else (True,) * L)
+        kc = convert.kernel_constants(spec, qp, "corrected", split)
+        assert kc.general and kc.pe == hw.pe and kc.clamp20 == (True,) * L
+        assert [pe_groups(p) for p in range(1, 9)] == [convert.pe_groups(p) for p in range(1, 9)]
+        x = np.random.default_rng(seed + 10).random((1, 6, 11, in_ch), dtype=np.float32)
+        _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
+                                   fast_layers=tuple(not f for f in split), device="cpu")
+        rng = np.random.default_rng(seed + 20)
+        for i, k in enumerate(spec.kernel_sizes):
+            x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
+            got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
+            want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
+                np.asarray(qp.bias_int[i], np.int64), -(1 << (hw.bias_bits - 1)),
+                (1 << (hw.bias_bits - 1)) - 1)
+            np.testing.assert_array_equal(got, want, err_msg=f"{config} {width} layer {i}")
+        if split_of == "saturating":
+            ovf = dumps["overflow_20" if hw.pe == 8 else "overflow_18"]
+            assert ovf[1] > 0, (config, width, dumps["overflow_18"], dumps["overflow_20"])
 
 
 def _all_127(qp, layers):
@@ -437,7 +511,7 @@ def test_wgmma_b_holds_each_weight_once(task):
             w = np.asarray(w, np.int64)
             k, _, ic, oc = w.shape
             last = i == L - 1
-            steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split[i], last)
+            steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split[i], last, qp.hw.pe)
             g = n_cols // groups
             raw = convert._wgmma_b_words(w, split[i], qp.hw.pe, last).view(np.int8)
             assert raw.size == steps * n_cols * 32
@@ -475,14 +549,14 @@ def test_smem_plan_and_its_limit():
     assert (CONST["kSmemLimit"], CONST["kRows"], CONST["kPix"]) == (SMEM_LIMIT, 64, 16)
     nr, nr_qp = _artifact("nr")
     hybrid = split_layers(nr_qp, "hybrid")
-    assert corrected_smem_bytes(5, 3, 3, (32, 64), hybrid) == 214160
+    assert corrected_smem_bytes(5, 3, 3, (32, 64), hybrid, 4) == 214160
     assert "214,160 bytes for nr at 32x64" in SRC
-    sizes = [corrected_smem_bytes(5, 3, 3, t, hybrid) for t in ((16, 16), (32, 32), (32, 64))]
+    sizes = [corrected_smem_bytes(5, 3, 3, t, hybrid, 4) for t in ((16, 16), (32, 32), (32, 64))]
     assert sizes == sorted(sizes)
-    assert corrected_smem_bytes(5, 3, 3, (48, 64), hybrid) > SMEM_LIMIT
+    assert corrected_smem_bytes(5, 3, 3, (48, 64), hybrid, 4) > SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        corrected_net.check_tile(nr, (48, 64), hybrid)
-    corrected_net.check_tile(nr, (32, 64), hybrid)
+        corrected_net.check_tile(nr, (48, 64), hybrid, 4)
+    corrected_net.check_tile(nr, (32, 64), hybrid, 4)
 
 
 def test_ab_variants_apply_to_the_source():

@@ -123,14 +123,14 @@ def test_kernel_constants_layout(exact):
     kc = convert.kernel_constants(spec, qp, "exact" if exact else "fast")
     lay = convert.PARAM_LAYOUT
     L = spec.num_convs
-    assert kc.params.shape == (convert.PARAM_WORDS,)
+    assert kc.params.shape == (convert.param_words(qp.hw.pe),)
     assert (kc.num_layers, kc.in_channels, kc.out_channels) == (5, 3, 12)
     offsets = list(kc.params[lay["w_off"]: lay["w_off"] + 5]) + [kc.weights.size]
     for i, w in enumerate(qp.w_int):
         k, _, ic, oc = w.shape
         split = kc.pe_split[i]
         assert split == (exact and i == L - 1)          # sr_x2: the last conv only
-        n_pass, chunks, tap_major = convert.layer_geometry(k, ic, split)
+        n_pass, chunks, tap_major = convert.layer_geometry(k, ic, split, qp.hw.pe)
         assert n_pass == ((ic if ic <= 4 else 4) if split else 1)
         assert tap_major == (split or ic <= 4)
         nt = -(-oc // 8)
@@ -179,9 +179,15 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     az[2] = 200                                  # z_eff does not fit the int8 pads
     with pytest.raises(NotImplementedError, match="does not fit int8"):
         convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), "exact")
-    with pytest.raises(NotImplementedError, match="pe=4"):
-        convert.kernel_constants(spec, dataclasses.replace(
-            qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact")
+    # any PE count from 1 to 8 runs (the general instantiation off 4 PEs);
+    # int8 activations and widths up to 16 are what the kernels hold
+    assert convert.kernel_constants(spec, dataclasses.replace(
+        qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact").general
+    for hw in (dataclasses.replace(qp.hw, pe=9), dataclasses.replace(qp.hw, quan_bits=16)):
+        with pytest.raises(NotImplementedError, match="PEs|quan_bits"):
+            convert.kernel_constants(spec, dataclasses.replace(qp, hw=hw), "exact")
+    with pytest.raises(NotImplementedError, match="outside"):
+        convert.kernel_constants(dataclasses.replace(spec, num_channels=32), qp, "fast")
     wide = dataclasses.replace(spec, num_lblocks=7)
     with pytest.raises(NotImplementedError, match="outside"):
         convert.kernel_constants(wide, qp, "fast")

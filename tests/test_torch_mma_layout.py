@@ -11,7 +11,8 @@ the plain version's exact integer conv (quant/integer.py ``_conv_int``)
 on the PE's channels or on all of them, for every instantiation the
 kernels build: sr_x2 (3 in, 12 out), sr_x4 (1 in, 16 out), nrdm_3 (3
 out) and nrdm_6 (8 convs), at an extent whose pixel count is no multiple
-of 16."""
+of 16; and at 2, 3 and 8 PEs, for networks 8 (padded) and 16 channels
+wide."""
 
 import dataclasses
 import importlib.util
@@ -77,11 +78,11 @@ def _pack(q):
     return words, ps
 
 
-def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew):
+def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew, pe=4):
     """Per-pass int32 sums (pass, eh * ew, oc) of one layer, through the
     kernel's A offsets, the B fragments and the MMA model. Returns them
     and the number of MMAs issued."""
-    npass, chunks, tap_major = convert.layer_geometry(k, ic, split)
+    npass, chunks, tap_major = convert.layer_geometry(k, ic, split, pe)
     nt = -(-oc // 8)
     frag = frag.reshape(npass, chunks, 32, nt, 2)
     kk, iw, npix = k * k, ew + k - 1, eh * ew
@@ -156,8 +157,45 @@ def test_mma_fragments_compute_the_layer_convs(task, split):
         else:
             want = [_valid_conv(q, w)]
         np.testing.assert_array_equal(got, np.stack(want), err_msg=f"{task} layer {i}")
-        passes, chunks, _ = convert.layer_geometry(k, ic, split)
+        passes, chunks, _ = convert.layer_geometry(k, ic, split, qp.hw.pe)
         assert mmas == -(-eh * ew // 16) * passes * chunks * -(-oc // 8)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["per-PE", "one-pass"])
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("pe", [2, 3, 8])
+def test_mma_fragments_at_other_pe_counts(pe, width, split):
+    """The same model at 2, 3 and 8 PEs (K1's general instantiation: a
+    split 16-channel layer takes one pass per PE over all four words, B
+    zero outside the PE's channels), for a network ``width`` channels wide,
+    padded to the kernels' 16 with zero weights (convert._padded): layer 0
+    with 1 and 3 input channels, a hidden layer, and last layers of 3 and 12
+    channels. Each per-PE partial and the full sum equal the plain
+    version's conv on the PE's real channels, whatever the padded channels'
+    activations hold; the padded output channels' sums are zero."""
+    rng = np.random.default_rng(100 * pe + width)
+    eh, ew = EXTENT
+    for k, ic, oc, last in ((5, 1, width, False), (5, 3, width, False),
+                            (3, width, width, False), (5, width, 3, True),
+                            (5, width, 12, True)):
+        w = rng.integers(-127, 128, (k, k, ic, oc))
+        kic, koc = (ic if ic <= 4 else convert.HIDDEN), (oc if last else convert.HIDDEN)
+        q = rng.integers(-128, 128, size=(eh + k - 1, ew + k - 1, kic)).astype(np.int8)
+        words, ps = _pack(q)
+        frag = convert._fragment_words(convert._padded(w, kic, koc), split, pe, last)
+        got, mmas = _model_layer(words, ps, frag, k, kic, koc, split, last, eh, ew, pe)
+        got = got.reshape(-1, eh, ew, koc)
+        np.testing.assert_array_equal(got[..., oc:], 0)
+        if split:                               # one pass per PE owning a channel
+            want = [_valid_conv(q[..., :ic][..., m], w[:, :, m, :])
+                    for m in (pe_channel_mask(ic, pe, p) for p in range(pe)) if m.any()]
+        else:
+            want = [_valid_conv(q[..., :ic], w)]
+        np.testing.assert_array_equal(got[..., :oc], np.stack(want),
+                                      err_msg=f"pe {pe} width {width} {ic}->{oc}")
+        passes, chunks, tap_major = convert.layer_geometry(k, kic, split, pe)
+        assert passes == len(want) and tap_major == (kic <= 4)
+        assert mmas == -(-eh * ew // 16) * passes * chunks * -(-koc // 8)
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["K1", "K2"])
@@ -199,8 +237,9 @@ def test_pe_split_proof():
 
 def test_clamp20_proof():
     """A layer the fast kernel runs without its 20-bit clamp never reaches
-    it on data; weights at +-127 need it, and the fast kernel refuses an
-    artifact whose conv 0 could reach it."""
+    it on data; weights at +-127 need it. An artifact whose conv 0 could
+    reach it would run in the general instantiation (which clamps every
+    conv); with conv 0 at +-127 it is refused for its int16 shortcut."""
     spec, qp = _artifact("sr_x2")
     assert convert.clamp20_layers(qp) == (False,) * 5
     hi = 2 ** (qp.hw.pe_add_bits - 1) - 1
@@ -220,8 +259,10 @@ def test_clamp20_proof():
     assert at[1] > 0
     w0 = list(qp.w_int)
     w0[0] = np.where(np.asarray(w0[0]) >= 0, 127, -127).astype(np.asarray(w0[0]).dtype)
-    with pytest.raises(NotImplementedError, match="conv 0"):
+    assert convert.clamp20_layers(dataclasses.replace(qp, w_int=w0))[0]
+    with pytest.raises(NotImplementedError, match="shortcut"):
         convert.kernel_constants(spec, dataclasses.replace(qp, w_int=w0), "fast")
+    assert not convert.kernel_constants(spec, qp, "fast").general
 
 
 def _chip_smoke():
@@ -240,4 +281,4 @@ def test_mma_count_sr_x2_frame(split, want):
     computes them from the tile geometry: 1020 blocks, each over the
     extents 26x42, 24x40, 22x38, 20x36 and 16x32."""
     mma_count = _chip_smoke().mma_count
-    assert mma_count(spec_for_task("sr_x2"), split, 1, 540, 960, (16, 32)) == want
+    assert mma_count(spec_for_task("sr_x2"), split, 1, 540, 960, (16, 32), 4) == want

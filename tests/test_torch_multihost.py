@@ -32,7 +32,7 @@ from sesr_tpu_torch.quant.params import QuantParams
 from tests.test_integer_bitexact import _golden_qparams, _load_golden
 from tests.test_torch_expanded import jax_params, seeded_blocks
 from tests.test_torch_params import _port_golden_qparams
-from tests.test_torch_ranks import REPO, multihost_world
+from tests.test_torch_ranks import REPO, multihost_world, observer_arrays
 
 ARTIFACT = REPO + "/artifacts/qparams_{}.npz"
 ADV_HW = (64, 96)
@@ -62,9 +62,16 @@ def setup(tmp_path_factory):
         "frames_adv": np.stack([clean[0], clean[1], adv.astype(np.float32), *clean[2:]]),
     }
     spec = spec_for_task("sr_x2")
+    # |x| with ties (eight levels and a run of zeros) in uneven blocks, one
+    # of a single element, for the percentile observer's order statistic
+    ties = (np.round(rng.random(1001) * 7) / 7).astype(np.float32)
+    ties[300:340] = 0.0
+    n = len(ties)
     qat_in = {"params": seeded_blocks(spec, seed=0),
               "x": rng.random((2, 16, 32, 3), dtype=np.float32),
-              "gt": rng.random((2, 32, 64, 3), dtype=np.float32)}
+              "gt": rng.random((2, 32, 64, 3), dtype=np.float32),
+              "ties": ties, "bounds": [0, 100, 450, 451, n],
+              "indices": [0, 1, 339, 340, 500, n - 2, n - 1, int(0.9999 * n) - 1]}
     return paths, inputs, qat_in
 
 
@@ -161,13 +168,15 @@ def unsharded_step(setup):
     qat_in = setup[2]
     spec = spec_for_task("sr_x2")
     out = {}
-    for name, cfg in (("qat", qat.QATConfig()), ("float", None)):
+    for name, cfg in (("qat", qat.QATConfig()), ("ptq", qat.QATConfig(ptq=True)),
+                      ("float", None)):
         params = expanded_from_arrays(qat_in["params"])
         leaves = [v.requires_grad_() for blk in params.blocks for v in blk]
         step = qat.make_train_step(spec, cfg, params, qat.adam(params, 1e-5))
-        _, loss = step(qat.prepare(spec, qat.QATConfig(), "cpu"),
-                       (torch.from_numpy(qat_in["x"]), torch.from_numpy(qat_in["gt"])))
-        out[f"port/{name}"] = (float(loss), [v.detach().numpy() for v in leaves])
+        qstate, loss = step(qat.prepare(spec, qat.QATConfig(), "cpu"),
+                            (torch.from_numpy(qat_in["x"]), torch.from_numpy(qat_in["gt"])))
+        out[f"port/{name}"] = (float(loss), [v.detach().numpy() for v in leaves],
+                               observer_arrays(qstate))
     jspec = jspec_for_task("sr_x2")
     opt = optax.adam(1e-5)
     jp = jax_params(qat_in["params"])
@@ -184,23 +193,36 @@ def test_sharded_train_step_matches_unsharded(world, unsharded_step, mesh, again
     """Every rank takes the same step, the unsharded one's within the JAX
     test's bounds (loss rel 1e-5; parameters rtol 1e-4, atol 1e-6)."""
     key = f"{mesh}/{against.split('/')[1]}"
-    loss0, params0 = world[0][2][key]
+    loss0, params0 = world[0][2][key][:2]
     for _, _, res in world[1:]:
         assert res[key][0] == loss0
         for a, b in zip(res[key][1], params0):
             np.testing.assert_array_equal(a, b)
-    want_loss, want = unsharded_step[against]
+    want_loss, want = unsharded_step[against][:2]
     np.testing.assert_allclose(loss0, want_loss, rtol=1e-5, atol=1e-8)
     for a, b in zip(params0, want):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
 
 
-def test_percentile_observer_refuses_a_mesh():
-    """The percentile observer's order statistic does not reduce exactly
-    over ranks: under a group it raises (ROADMAP queue 1)."""
-    spec = spec_for_task("sr_x2")
-    cfg = qat.QATConfig(ptq=True)
-    state = qat.prepare(spec, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="percentile"):
-        qat._observe_act(cfg, state.convs[0].act, torch.zeros(1, 4, 4, 3), True,
-                         group=object())
+@pytest.mark.parametrize("mesh", ["2x2", "2x1x2"])
+def test_sharded_percentile_observer_matches_unsharded(world, unsharded_step, mesh):
+    """The percentile observer under a mesh takes the order statistic of
+    the whole tensor: after a sharded ptq=True step every observer's state
+    on every rank is equal to the unsharded step's."""
+    want = unsharded_step["port/ptq"][2]
+    for _, _, res in world:
+        got = res[f"{mesh}/ptq"][2]
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+
+
+def test_radix_select_equals_sort_on_tied_uneven_blocks(world, setup):
+    """global_order_statistic over four ranks' uneven blocks of a tensor
+    with ties (a run of zeros, eight levels) gives torch.sort's value at
+    every index, on every rank."""
+    qat_in = setup[2]
+    flat = torch.sort(torch.from_numpy(qat_in["ties"])).values
+    want = [float(flat[i]) for i in qat_in["indices"]]
+    for _, _, res in world:
+        assert res["order_statistics"] == want

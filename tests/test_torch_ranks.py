@@ -230,13 +230,22 @@ def multihost_world(rank, world, paths, inputs, qat):
                                                                  device_type="cpu"))
     del os.environ["LOCAL_WORLD_SIZE"]
     qat_out = qat_steps(rank, qat, m212)
+    qat_out["order_statistics"] = order_statistics(rank, qat["ties"], qat["bounds"],
+                                                   qat["indices"])
     return (out if rank == 0 else None), audit, qat_out
 
 
+def observer_arrays(qstate):
+    """Every observer's (min, max) of a QATState, in order, as numpy."""
+    states = [s for c in qstate.convs for s in (c.act, c.weight)] + list(qstate.add)
+    return [a.detach().numpy() for s in states for a in (s.min_val, s.max_val)]
+
+
 def qat_steps(rank, qat, m212):
-    """The sharded train step (sr_x2; QAT with the default QATConfig, and
-    float) on a (2, 2) and a (2, 1, 2) mesh: this rank's loss and updated
-    parameters."""
+    """The sharded train step (sr_x2; QAT with the default QATConfig, QAT
+    with the percentile observer, and float) on a (2, 2) and a (2, 1, 2)
+    mesh: this rank's loss and updated parameters, and for the percentile
+    observer the observer state after the step."""
     from sesr_tpu_torch.quant.qat import QATConfig, adam, prepare
 
     spec = spec_for_task("sr_x2")
@@ -244,14 +253,25 @@ def qat_steps(rank, qat, m212):
     for key, mesh, layout in (("2x2", tiling.make_mesh(2, 2, "cpu"), tiling.DP_SP),
                               ("2x1x2", m212, mh.HOST_DP_SP)):
         x, gt = (torch.as_tensor(tiling.local_block(qat[k], mesh, layout)) for k in ("x", "gt"))
-        for name, cfg in (("qat", QATConfig()), ("float", None)):
+        for name, cfg in (("qat", QATConfig()), ("ptq", QATConfig(ptq=True)), ("float", None)):
             params = ExpandedParams([ExpandedBlock(*(torch.tensor(a).requires_grad_(True)
                                                      for a in blk)) for blk in qat["params"]])
             step = tiling.sharded_train_step(spec, cfg, params, adam(params, 1e-5), mesh)
-            _, loss = step(prepare(spec, QATConfig(), device="cpu"), (x, gt))
+            qstate, loss = step(prepare(spec, QATConfig(), device="cpu"), (x, gt))
             res[f"{key}/{name}"] = (float(loss),
-                                    [t.detach().numpy() for blk in params.blocks for t in blk])
+                                    [t.detach().numpy() for blk in params.blocks for t in blk],
+                                    observer_arrays(qstate) if name == "ptq" else None)
     return res
+
+
+def order_statistics(rank, ties, bounds, indices):
+    """``quant/qat.py`` ``global_order_statistic`` over the world: rank r
+    holds ties[bounds[r]:bounds[r + 1]] (uneven blocks, one of a single
+    element); the statistic at each of ``indices``."""
+    from sesr_tpu_torch.quant.qat import global_order_statistic
+
+    block = torch.from_numpy(ties[bounds[rank]:bounds[rank + 1]])
+    return [float(global_order_statistic(block, i, dist.group.WORLD)) for i in indices]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 and the virtual ranks of the sharded deployment forwards
 (parallel/tiling.py ``virtual_rank_forward``) must equal the monolithic
 deployment forward value for value, and the JAX package's; the mirror of
-tests/test_slab.py on the plain version."""
+tests/test_slab.py on the plain version, and the windows at other
+HardwareConfigs."""
 
 import os
 
@@ -14,14 +15,17 @@ from sesr_tpu.config import spec_for_task as jspec_for_task
 from sesr_tpu.ops import slab as jslab
 from sesr_tpu.ops.packed import packed_fast_forward, packed_hybrid_forward, select_packed_forward
 from sesr_tpu.quant.params import QuantParams as JQuantParams
-from sesr_tpu_torch.config import SESRSpec, spec_for_task
+from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
 from sesr_tpu_torch.data import SyntheticDataset
 from sesr_tpu_torch.deploy import select_forward
 from sesr_tpu_torch.ops.corrected import hybrid_forward
 from sesr_tpu_torch.ops.fast import fast_forward
 from sesr_tpu_torch.ops.slab import pick_slab_h, receptive_radius, slab_forward
 from sesr_tpu_torch.parallel.tiling import virtual_rank_forward
+from sesr_tpu_torch.quant.calibrate import calibrate
+from sesr_tpu_torch.quant.certify import certify_fast
 from sesr_tpu_torch.quant.params import QuantParams
+from tests.test_torch_calibrate import _golden
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
 
@@ -107,6 +111,28 @@ def test_virtual_ranks_equal_monolithic(task, grid):
         y = virtual_rank_forward(spec, qp, x, grid, out_dtype=out_dtype, device="cpu").numpy()
         want = select_forward(qp)[1](spec, qp, x, out_dtype=out_dtype, device="cpu").numpy()
         np.testing.assert_array_equal(y, want)
+
+
+@pytest.mark.parametrize("task,hw", [
+    ("sr_x2", HardwareConfig(pe=2, bias_bits=12, requant_bits=12, requant_n_max=24)),
+    ("nr", HardwareConfig(pe=8, pe_acc_bits=20, pe_add_bits=22)),
+    ("nr", HardwareConfig(pe=3))], ids=["sr_x2-pe2_servable", "nr-pe8_wide", "nr-pe3"])
+def test_windows_at_other_configs(task, hw):
+    """The windows keep R = spec.halo_width() at any HardwareConfig: the
+    golden float weights calibrated and certified at one of
+    tests/test_hwconfig_sweep.py's configs, served as slabs and as virtual
+    ranks, equal the monolithic forward of the mode their certificate
+    selects."""
+    _, spec, params, _, images, _ = _golden(task)
+    qp = calibrate(spec, params, images, hw=hw, device="cpu")
+    qp = certify_fast(spec, qp, [x for x, _ in SyntheticDataset(task, n=1, hw=(48, 64))],
+                      device="cpu")
+    x = np.random.default_rng(17).random((1, 45, 58, spec.in_channels), dtype=np.float32)
+    want = select_forward(qp)[1](spec, qp, x, device="cpu").numpy()
+    np.testing.assert_array_equal(slab_forward(spec, qp, x, slab_h=16, device="cpu").numpy(),
+                                  want)
+    np.testing.assert_array_equal(virtual_rank_forward(spec, qp, x, (2, 2),
+                                                       device="cpu").numpy(), want)
 
 
 def test_an_overlap_of_r_minus_one_is_not_exact(monkeypatch):
