@@ -4,7 +4,7 @@ and nrdm_6 served and simulated, every task's infer, the probes, the
 artifact toolchain (eval-float, calibrate, certify, infer --audit),
 training, QAT, AdaRound and make_qparams, the RTL vector export, hist and
 the experimental models, sharded execution, and the HardwareConfig
-family.
+family, and the benchmark and cost analysis (``bench``, ``profile``).
 
     python3 chip_smoke.py
 
@@ -168,6 +168,17 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    then each kernel's device time per frame at each config, its
    registers (CUPTI and ptxas) and its ratio to the same kernel on the
    same network at 4 PEs. One ``kernels`` entry per (kernel, config).
+13. ``bench`` and ``profile`` (``sesr_tpu_torch/bench.py``, ``costs.py``):
+   ``run_bench`` with the default rows, ``--per-task`` and ``--all-paths``
+   at full size (fewer repeats and calls than the command), with the plain
+   interpreters barred from the forwards it times; each row launched one of
+   its mode's kernel per call and nothing else, and each row's output on
+   its own input array_equal with the plain version on the card; then
+   ``profile`` of sr_x2 at 540x960 (deployment, interpreter and float, the
+   golden collapsed weights) and of nr at 1080x1920 (deployment) through
+   the command: FLOPs equal to 2 x the convs' MACs and peak memory measured.
+   The bench's launches stay out of the ``kernels`` line, which counts the
+   main paths.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -194,6 +205,7 @@ SR4_FRAME = (270, 480)             # phase 9: sr_x4 served, 1080x1920 out
 TRAIN_STEPS, RESUME_AT = 200, 80   # phase 9's float training runs
 QAT_STEPS = 300                    # the QAT recipe's fine-tune
 ADAROUND_CHECK_STEPS = 120         # one layer, card against CPU
+BENCH_REPEATS, BENCH_CALLS = 2, 20  # phase 13's run_bench (the command: 5 and 50)
 REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             "sesr_fast_net": "sesr_tpu/ops/pallas_packed.py:238",
             # XLA with no Pallas kernel, reached from :723 packed_exact_forward
@@ -2361,6 +2373,86 @@ def hwconfig_phase(torch, dev, card):
     return entries
 
 
+def bench_phase(torch, dev, card):
+    """Phase 13: ``bench`` and ``profile`` on the card (see the module
+    docstring). Fails on a row that launched anything but one launch of its
+    mode's kernel a call, on a row whose output differs from the plain
+    version, and on a profile whose FLOPs are not the convs' or whose peak
+    memory was not measured."""
+    import contextlib
+    import tempfile
+    from unittest import mock
+
+    from sesr_tpu_torch import bench
+    from sesr_tpu_torch.cli import main as cli_main
+    from sesr_tpu_torch.config import spec_for_task
+    from sesr_tpu_torch.costs import conv_flops
+    from sesr_tpu_torch.ops import corrected, fast, pe_exact
+    from sesr_tpu_torch.quant.integer import integer_forward, integer_forward_int8
+
+    t_phase = time.perf_counter()
+
+    def barred(*args, **kwargs):
+        raise AssertionError("a timed bench row reached the plain interpreter")
+
+    # the forwards take their plain version only on a CPU tensor: bar it
+    # while the rows are timed (the CPU baseline calls bench.integer_forward)
+    with contextlib.ExitStack() as stack:
+        for mod in (fast, corrected, pe_exact):
+            for fn in ("integer_forward", "integer_forward_int8"):
+                if hasattr(mod, fn):
+                    stack.enter_context(mock.patch.object(mod, fn, barred))
+        res = bench.run_bench(device=dev, repeats=BENCH_REPEATS, calls=BENCH_CALLS,
+                              all_paths=True, per_task=True)
+    print(f"[13] run_bench: {len(res.rows)} rows, {BENCH_REPEATS} samples of {BENCH_CALLS} "
+          f"calls each; value {res.result['value']} Mpx/s, baseline {res.baseline_mpxs} "
+          f"Mpx/s ({card})", flush=True)
+    for row in res.rows:
+        expect = {row.kernel.symbol: row.calls}
+        if dict(row.launches) != expect:
+            fail(f"[13] bench row {row.name}: launches {dict(row.launches)}, not {expect}")
+        kw = plain_kwargs(row.kernel, row.qp, row.mode)
+        got = row()
+        if row.out_dtype == "int8":
+            want = integer_forward_int8(row.spec, row.qp, row.x,
+                                        compute=kw.pop("compute", "exact"), **kw)
+        else:
+            want = integer_forward(row.spec, row.qp, row.x, **kw)[0]
+        if not torch.equal(got, want):
+            fail(f"[13] bench row {row.name}: the output differs from the plain version")
+        print(f"[13] {row.name} ({row.mode}): {row.median_mpxs} Mpx/s, {row.ms_per_frame} "
+              f"ms/frame as the host issues it, device busy {row.busy_ms / row.x.shape[0]} "
+              f"ms/frame; {row.calls} calls launched {dict(row.launches)}; output "
+              f"{tuple(got.shape)} {got.dtype} array_equal with plain (cuda)", flush=True)
+        del got, want
+    if [r.mode for r in res.rows if r.name.startswith("per-task ")] != \
+            ["fast", "fast", "fast", "fast", "hybrid", "hybrid", "fast"]:
+        fail("[13] the per-task rows do not serve the modes JAX's select_packed_forward picks")
+
+    artifacts = os.path.join(REPO, "artifacts")
+    with np.load(os.path.join(REPO, "tests", "goldens", "sr_x2.npz")) as g, \
+            tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sr_x2_collapsed.npz")
+        L = int(g["num_convs"])
+        np.savez(ckpt, **{f"w_{i}": np.transpose(g[f"w_collapsed_{i}"], (2, 3, 1, 0))
+                          for i in range(L)},
+                 **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
+        sr_qp = os.path.join(artifacts, "qparams_sr_x2.npz")
+        for task, extra, hw in (
+                ("sr_x2", ["--qparams", sr_qp, "--path", "deployment"], FRAME),
+                ("sr_x2", ["--qparams", sr_qp, "--path", "interpreter"], FRAME),
+                ("sr_x2", ["--checkpoint", ckpt, "--path", "float"], FRAME),
+                ("nr", ["--qparams", os.path.join(artifacts, "qparams_nr.npz"), "--path",
+                        "deployment"], BAYER_FRAME)):
+            c = cli_main(["profile", "--task", task, *extra, "--height", str(hw[0]),
+                          "--width", str(hw[1])])
+            if c.flops != conv_flops(spec_for_task(task), 1, *hw) or c.peak_temp_bytes is None:
+                fail(f"[13] profile {task} {extra}: flops {c.flops}, peak temporaries "
+                     f"{c.peak_temp_bytes}")
+    print(f"[13] the bench and profile phase took {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+
+
 def main():
     import torch
 
@@ -2758,6 +2850,8 @@ def main():
                 e["launches_per_frame"][path] = count / n_frames
 
     entries += hw_entries
+    # 13. bench and profile (their launches stay out of the kernels line)
+    bench_phase(torch, dev, card)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,6 +16,9 @@
     python -m sesr_tpu_torch export --task nr --qparams artifacts/qparams_nr.npz \
         --out-dir D [--fixture X.npy]
     python -m sesr_tpu_torch hist --task sr_x2 --checkpoint W.npz --out D
+    python -m sesr_tpu_torch profile --task sr_x2 --qparams artifacts/qparams_sr_x2.npz \
+        [--path deployment|interpreter|float] [--height 540] [--width 960]
+    python -m sesr_tpu_torch bench [--all-paths] [--per-task]
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions), ``--data`` (a GTmod12 folder for the super-resolution
@@ -36,7 +39,10 @@ the reference-exact simulation, or with ``--corrected`` the corrected
 datapath; ``export`` writes the simulation's RTL hex test vectors (the
 input is ``--fixture``, else the reference's own 80x960 sim input, which
 ``sim`` also takes when it is present); ``hist`` draws the weight and
-activation histograms of the float network's fake-quant forward. Each
+activation histograms of the float network's fake-quant forward;
+``profile`` prints the FLOPs, bytes and peak memory of one forward of a
+path (``costs.py``); ``bench`` is the single-card throughput benchmark
+(``bench.py``; it takes no ``--task``). Each
 command is a thin shell around a function (``evaluate_float``, ``serve``,
 ``simulate``, ``export_vectors``, ``dump_histograms``, ``calibrate``,
 ``adaround_weights``, ``certify_fast``, ``make_train_step``) that callers
@@ -57,7 +63,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from sesr_tpu_torch.bench import BenchResult, run_bench
 from sesr_tpu_torch.config import REFERENCE_CHECKPOINTS, SESRSpec, spec_for_task
+from sesr_tpu_torch.costs import PATHS, Cost, profile_path
 from sesr_tpu_torch.data import (RawBayerDataset, SRFolderDataset, SyntheticDataset,
                                  TrainBayerDataset)
 from sesr_tpu_torch.data.datasets import (SR_SCALE, load_reference_fixture,
@@ -590,6 +598,33 @@ def cmd_hist(args) -> HistogramDump:
     return res
 
 
+def cmd_profile(args) -> Cost:
+    """FLOPs, bytes accessed and peak memory of one forward of a path at
+    --height x --width (costs.py)."""
+    spec = spec_for_task(args.task)
+    if args.path in ("deployment", "interpreter") and not args.qparams:
+        raise SystemExit(f"--path {args.path} requires --qparams "
+                         "(e.g. artifacts/qparams_<task>.npz)")
+    qp = QuantParams.load(args.qparams) if args.path != "float" else None
+    params = _load_params(args) if args.path == "float" else None
+    c = profile_path(spec, args.path, args.height, args.width, args.device, qp=qp,
+                     params=params)
+    px = args.height * args.width
+    print(f"{args.task} {c.label} @ {args.height}x{args.width}:")
+    print(f"  flops/frame:          {c.flops:.3e}  ({c.flops / px:.0f}/px; {c.flops_how})")
+    print(f"  bytes accessed/frame: {c.bytes:.3e}  (arithmetic intensity "
+          f"{c.flops / max(c.bytes, 1):.1f}; {c.bytes_how})")
+    temp = ("not measured on cpu" if c.peak_temp_bytes is None
+            else f"{c.peak_temp_bytes / 1e6:.1f} MB")
+    print(f"  peak temp allocation: {temp}; argument {c.argument_bytes / 1e6:.1f} MB; "
+          f"output {c.output_bytes / 1e6:.1f} MB")
+    return c
+
+
+def cmd_bench(args) -> BenchResult:
+    return run_bench(device=args.device, all_paths=args.all_paths, per_task=args.per_task)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="sesr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -706,6 +741,27 @@ def main(argv=None):
     common(p)
     p.add_argument("--out", required=True)
     p.set_defaults(fn=cmd_hist)
+
+    p = sub.add_parser("profile", help="FLOPs, bytes accessed and peak memory of one "
+                                       "forward of a path")
+    common(p)
+    p.add_argument("--qparams", default=None,
+                   help="the artifact (required for the deployment and interpreter paths)")
+    p.add_argument("--path", default="deployment", choices=list(PATHS))
+    p.add_argument("--height", type=int, default=540)
+    p.add_argument("--width", type=int, default=960)
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("bench", help="single-card throughput benchmark")
+    p.add_argument("--all-paths", action="store_true",
+                   help="also measure the other lowerings (stderr rows)")
+    p.add_argument("--per-task", action="store_true",
+                   help="also measure every shipped artifact in the mode its "
+                        "certificate selects (stderr rows)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default: the fused kernels) or cpu (their plain "
+                        "PyTorch version)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,5 +1,6 @@
 """Median time of a call: CUDA events on the card, the host clock on the CPU
-(where it is a time of PyTorch's CPU kernels, never of the card)."""
+(where it is a time of PyTorch's CPU kernels, never of the card); and a
+call's device busy time from torch.profiler."""
 
 from __future__ import annotations
 
@@ -42,6 +43,25 @@ def median_ms(fn, device: torch.device, reps: int, warmup: int = 1,
             torch.cuda.synchronize(device)
     torch.cuda.synchronize(device)
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def device_busy_ms(fn, device: torch.device, calls: int):
+    """(device ms per call, device events per call) of fn on the card, from
+    torch.profiler's trace of ``calls`` calls after a warm-up call: every
+    kernel and copy the calls ran on the card, gaps left out. Unlike
+    ``median_ms`` with ``lead_ms``, this holds for a function that waits
+    for the card inside (a pageable host-to-device copy does)."""
+    fn()
+    torch.cuda.synchronize(device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+    # a user annotation spans the kernels it launched on the device timeline
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return sum(e.device_time_total for e in events) / 1e3 / calls, len(events) / calls
 
 
 def device_label(device: torch.device) -> str:

@@ -369,7 +369,7 @@ def test_import_boundary():
             "sesr_tpu_torch.models.experimental, sesr_tpu_torch.parallel, "
             "sesr_tpu_torch.parallel.launch, sesr_tpu_torch.parallel.tiling, "
             "sesr_tpu_torch.parallel.multihost, sesr_tpu_torch.ops.halo, "
-            "sesr_tpu_torch.ops.slab\n"
+            "sesr_tpu_torch.ops.slab, sesr_tpu_torch.bench, sesr_tpu_torch.costs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\n"
