@@ -69,16 +69,24 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    it does not take refused with no launch; the wgmma GEMM tile on its
    edges (ragged M, N off the big tile, K of one stage or less, write-back
    rep > 1; torch.equal) and a 16-byte misaligned view refused with no
-   launch; the SASS of each probe kernel (cuobjdump: probe_gemm,
-   probe_packed_dot and probe_conv_run on HGMMA / IGMMA with UTMALDG and
-   no HMMA / IMMA); and each kernel's device time (CUDA events, the
+   launch; P3 whole (probe_bitcast_dot: the roll, bitcast and dot in one
+   launch, one per bitcast_dot call) on its edges at six rolls and at the
+   sized shape (words (4096, 4096) x w (4096, 1024)), P4's unpack
+   (probe_unpack_words) at (8, 128), (256, 128) and (4096, 4096) at rolls
+   0, 1 and 5 and on its edges, all torch.equal; the SASS of each probe
+   kernel (cuobjdump: probe_gemm, probe_packed_dot, probe_bitcast_dot and
+   probe_conv_run on HGMMA / IGMMA with UTMALDG and no HMMA / IMMA) and
+   ptxas's registers; and each kernel's device time (CUDA events, the
    device kept busy while the host enqueues) beside its plain version's,
    its library call's (torch._int_mm timed with B row-major and
    column-major, the faster reported; for bf16 torch.mm with a float32
    output, torch.matmul's bf16 output beside it; F.pad + F.conv2d for a
-   bf16 conv step) and its bound; a conv step's time is the K-difference
-   (T(50) - T(1)) / 49 of 50- and 1-step probe calls; registers and
-   shared memory from CUPTI;
+   bf16 conv step; for P3 torch.roll + the unpacked view's copy +
+   torch._int_mm, for P4 the same without the product) and its bound,
+   P3 and P4 at the probes' shapes beside a launch floor (a one-element
+   fill_) and sized; a conv step's time is the K-difference (T(50) -
+   T(1)) / 49 of 50- and 1-step probe calls; registers and shared memory
+   from CUPTI;
 8. the artifact toolchain from float weights (the sr_x2 and nr golden
    bundles' collapsed weights, written to a collapsed .npz), with TF32 on
    around it (the float paths turn it off for their own convs):
@@ -225,13 +233,15 @@ BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 PROBE_SOURCE = "sesr_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {
     "probe_gemm": "tools/bench_probe_pallas_int8.py:65; the dots of "
-                  "tools/bench_probe_pallas_conv.py:122 (mm variants) and "
-                  "tools/bench_probe_r3a.py:343",
+                  "tools/bench_probe_pallas_conv.py:122 (mm variants)",
     "probe_conv_run": "tools/bench_probe_pallas_conv.py:122",
-    "probe_unpack_words": "tools/bench_probe_r3b.py:82; the bitcast of "
-                          "tools/bench_probe_r3a.py:343",
+    "probe_bitcast_dot": "tools/bench_probe_r3a.py:343",
+    "probe_unpack_words": "tools/bench_probe_r3b.py:82",
     "probe_packed_dot": "tools/bench_probe_r3b.py:147; tools/bench_probe_r3b.py:164",
 }
+# the sized rows of P3 and P4, where the work and not a launch sets the
+# time: words (M, N) int32, w (N, P) int8
+P3_SIZED = (4096, 4096, 1024)
 BF16_ITERS = 3                     # bf16 conv probes are compared after 3 steps,
 BF16_TOL = 2.0 ** -7               # within 2^-7 max|plain| elementwise
 
@@ -547,12 +557,12 @@ def net_sass_check(build):
 
 
 def sass_check(lib):
-    """probe_gemm, probe_packed_dot and probe_conv_run on wgmma (HGMMA /
-    IGMMA) with TMA loads (UTMALDG) and no mma.sync (HMMA / IMMA). Prints
-    each kernel's counts; fails on a missing opcode."""
+    """probe_gemm, probe_packed_dot, probe_bitcast_dot and probe_conv_run on
+    wgmma (HGMMA / IGMMA) with TMA loads (UTMALDG) and no mma.sync (HMMA /
+    IMMA). Prints each kernel's counts; fails on a missing opcode."""
     counts = sass_counts(lib)
     seen = dict.fromkeys(("probe_gemm_kernel", "probe_packed_dot_kernel",
-                          "probe_conv_run_kernel"), 0)
+                          "probe_bitcast_dot_kernel", "probe_conv_run_kernel"), 0)
     for fn, c in sorted(counts.items()):
         family = next((k for k in seen if k in fn), None)
         if family is None:
@@ -618,7 +628,10 @@ def gemm_edge_checks(torch, dev, compare):
     b = torch.zeros((256, 128), dtype=torch.int8, device=dev)
     for label, call in (("probe_gemm", lambda: pk.probe_gemm(a, b)),
                         ("probe_packed_dot", lambda: pk.probe_packed_dot(
-                            words, torch.zeros((4, 64, 128), dtype=torch.int8, device=dev)))):
+                            words, torch.zeros((4, 64, 128), dtype=torch.int8, device=dev))),
+                        ("probe_bitcast_dot", lambda: pk.probe_bitcast_dot(
+                            words, torch.zeros((64, 64), dtype=torch.int8, device=dev))),
+                        ("probe_unpack_words", lambda: pk.probe_unpack_words(words))):
         try:
             call()
             fail(f"{label} took a view that is not 16-byte aligned")
@@ -627,6 +640,78 @@ def gemm_edge_checks(torch, dev, compare):
     after = {k.symbol: k.launches for k in pk.PROBE_KERNELS}
     if after != before:
         fail(f"a refused misaligned view launched: {before} -> {after}")
+
+
+# probe_bitcast_dot off the probe's shape: words (M, N), w (N, P). 4M =
+# 1000 rows by P = 4352 columns take the 128 x 256 tile (8 x 17 = 136
+# blocks), P = 192 the 64 x 64 one; M 25 and 250 are no multiple of a
+# tile's 16 or 32 word rows; N = 64 is half a stage, 128 one, 1152 nine;
+# M = 1 is four output rows. At each roll (N - 1 and N + 5 by N).
+BITCAST_EDGES = ((250, 256, 4352), (25, 512, 192), (250, 64, 4352), (25, 64, 192),
+                 (250, 128, 4352), (250, 1152, 192), (1, 192, 64))
+BITCAST_ROLLS = (0, 1, 63, "N-1", "N+5", -3)
+# probe_unpack_words: the probes' shapes and the sized one at these rolls
+# (5: the 16-byte groups start 3 words before a run, as at roll 1), and
+# edges: (shape, rolls), the runs kernel at every (-roll) mod 4, and widths
+# no multiple of 16 (a word a thread)
+UNPACK_ROLLS = (0, 1, 5)
+UNPACK_EDGES = (((33, 48), (2, 3, -3, 130)), ((5, 12), (0, 1, 7)), ((3, 100), (0, 5)),
+                ((1, 1), (0, 1)), ((2, 16), (0, 6, 15)))
+
+
+def bitcast_checks(torch, dev, compare, counts):
+    """probe_bitcast_dot against its plain version (torch.equal) on its edges
+    at every roll of BITCAST_ROLLS and at the sized shape, each through
+    bitcast.bitcast_dot with exactly one probe_bitcast_dot launch and no other;
+    probe_unpack_words against its plain version at the probes' shapes and
+    the sized one at UNPACK_ROLLS and on UNPACK_EDGES. Returns the sized
+    operands (words, w)."""
+    from sesr_tpu_torch.probes import bitcast, plain
+    from sesr_tpu_torch.probes import kernels as pk
+
+    rng = np.random.default_rng(13)
+
+    def seeded_words(m, n):
+        words = rng.integers(-2 ** 31, 2 ** 31, (m, n), dtype=np.int64).astype(np.int32)
+        return torch.from_numpy(words).to(dev)
+
+    def seeded(m, n, p):
+        return (seeded_words(m, n),
+                torch.from_numpy(rng.integers(-128, 128, (n, p)).astype(np.int8)).to(dev))
+
+    def one_launch(label, wds, w, roll):
+        before = counts()
+        got = bitcast.bitcast_dot(wds, w, roll)
+        launched = {k: counts()[k] - before[k] for k in before}
+        if launched != {**dict.fromkeys(before, 0), "probe_bitcast_dot": 1}:
+            fail(f"bitcast_dot {label} launched {launched}, not one probe_bitcast_dot")
+        want = plain.bitcast_dot(wds, w, roll)
+        compare("probe_bitcast_dot", got, want)
+        if not torch.equal(got, want):
+            fail(f"probe_bitcast_dot {label} disagrees with its plain version")
+
+    for m, n, p in BITCAST_EDGES:
+        wds, w = seeded(m, n, p)
+        for roll in BITCAST_ROLLS:
+            roll = {"N-1": n - 1, "N+5": n + 5}.get(roll, roll)
+            one_launch(f"words {(m, n)} w {(n, p)} roll {roll}", wds, w, roll)
+    print(f"[7] probe_bitcast_dot edges {BITCAST_EDGES} (M, N, P) at rolls {BITCAST_ROLLS}: "
+          f"torch.equal with plain, one launch a bitcast_dot", flush=True)
+    big_words, big_w = seeded(*P3_SIZED)
+    one_launch(f"sized words {P3_SIZED[:2]} w {P3_SIZED[1:]} roll 1", big_words, big_w, 1)
+    print(f"[7] probe_bitcast_dot sized, words {P3_SIZED[:2]} x w {P3_SIZED[1:]} roll 1: "
+          f"torch.equal with plain, one launch", flush=True)
+    cases = [(shape, UNPACK_ROLLS) for shape in ((8, 128), (256, 128), P3_SIZED[:2])]
+    for shape, rolls in cases + list(UNPACK_EDGES):
+        wds = big_words if shape == P3_SIZED[:2] else seeded_words(*shape)
+        for roll in rolls:
+            got, want = pk.probe_unpack_words(wds, roll), plain.unpack_words(wds, roll)
+            compare("probe_unpack_words", got, want)
+            if not torch.equal(got, want):
+                fail(f"probe_unpack_words {shape} roll {roll} disagrees with its plain version")
+    print(f"[7] probe_unpack_words at {[c[0] for c in cases]} x rolls {UNPACK_ROLLS} and edges "
+          f"{UNPACK_EDGES}: torch.equal with plain", flush=True)
+    return big_words, big_w
 
 
 # probe_conv_run off the probe's own shape: (shape, type, steps)
@@ -805,8 +890,8 @@ def probes_phase(torch, dev):
     checks = {
         "P3 unpack (256, 128) roll 1": ("probe_unpack_words", bitcast.unpack_words(words, 1),
                                         a8_r3a),
-        "P3 dot, w (128, 256)": ("probe_gemm", bitcast.bitcast_dot(words, w_ok),
-                                 plain.gemm(a8_r3a, w_ok, torch.int32)),
+        "P3 whole, w (128, 256)": ("probe_bitcast_dot", bitcast.bitcast_dot(words, w_ok),
+                                   plain.bitcast_dot(words, w_ok, 1)),
         "P4 unpack (8, 128)": ("probe_unpack_words", bitcast.unpack_words(words_l),
                                plain.unpack_words(words_l)),
         "P5 byte-plane dot": ("probe_packed_dot", got, plain.packed_dot(packed, wb)),
@@ -826,7 +911,14 @@ def probes_phase(torch, dev):
     if layout != "m*4+b":
         fail(f"the unpack's row layout is {layout}, not m*4+b")
     gemm_edge_checks(torch, dev, compare)
+    big_words, big_w = bitcast_checks(torch, dev, compare, counts)
     sass_check(_build.library_path("probes"))
+    log = _build.build("probes").log
+    for family in ("probe_bitcast_dot_kernel", "probe_unpack_runs_kernel", "probe_gemm_kernel"):
+        print(f"[7] ptxas {family} (template arguments: registers, spill store bytes): "
+              f"{ptxas_report(log, family)}", flush=True)
+    print(f"[7] ptxas lines on wgmma: {[ln.strip() for ln in log.splitlines() if 'wgmma' in ln]}",
+          flush=True)
     print(f"[7] max_abs_err over every comparison, per kernel: {err}", flush=True)
 
     # 7c. times: kernel, plain version and library call, each against its bound
@@ -978,22 +1070,65 @@ def probes_phase(torch, dev):
         report(f"P1 probe_gemm write-back, one {name} step (device time)", ms, bnd, plain_ms,
                lib_ms, lib_name)
 
-    for label, wds, roll in (("P3 (256, 128) roll 1", words, 1), ("P4 (8, 128)", words_l, 0)):
+    # P3 and P4 at the probes' shapes, where a launch sets the time (beside
+    # the launch floor), and sized, where the work does
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(0), reps=30)
+    print(f"[7] launch floor: one launch of a one-element fill_, {floor_ms:.5f} ms (device "
+          f"time)", flush=True)
+
+    def unpack_lib(wds, roll):
+        """The function of probe_unpack_words in PyTorch: torch.roll (roll !=
+        0), then the int8 view's permute made contiguous, one copy."""
+        m_, n_ = wds.shape
+        rolled = torch.roll(wds, roll, 1) if roll else wds
+        return rolled.view(torch.int8).reshape(m_, n_, 4).permute(0, 2, 1).contiguous() \
+            .view(4 * m_, n_)
+
+    for label, wds, roll in (("P4 (8, 128) roll 0", words_l, 0),
+                             ("P3's unpack (256, 128) roll 1", words, 1),
+                             (f"P4 sized {P3_SIZED[:2]} roll 0", big_words, 0),
+                             (f"P4 sized {P3_SIZED[:2]} roll 1", big_words, 1)):
+        if not torch.equal(unpack_lib(wds, roll), plain.unpack_words(wds, roll)):
+            fail(f"the library unpack computes another function at {label}")
         ms = device_ms(lambda: pk.probe_unpack_words(wds, roll), reps=30)
         plain_ms = device_ms(lambda: plain.unpack_words(wds, roll))
+        lib_ms = device_ms(lambda: unpack_lib(wds, roll), reps=30)
         bnd = bound(0, 2 * wds.numel() * 4, INT8_OPS_PER_S)
-        report(f"{label} probe_unpack_words (device time)", ms, bnd, plain_ms)
-        if roll:
-            entry("probe_unpack_words", "P3's unpack: (256, 128) int32 words, roll 1", ms,
-                  plain_ms, bnd, None)
-    ms = device_ms(lambda: bitcast.bitcast_dot(words, w_ok), reps=30)
-    plain_ms = device_ms(lambda: plain.gemm(plain.unpack_words(words, 1), w_ok, torch.int32))
-    lib_ms, lib_name = int_mm(a8_r3a, w_ok)
-    bnd = bound(2 * a8_r3a.shape[0] * a8_r3a.shape[1] * w_ok.shape[1],
-                words.numel() * 4 + w_ok.numel() + a8_r3a.shape[0] * w_ok.shape[1] * 4,
-                INT8_OPS_PER_S)
-    report("P3 bitcast_dot on consistent shapes (unpack + probe_gemm, device time)", ms, bnd,
-           plain_ms, lib_ms, f"{lib_name}, on the unpacked operand")
+        report(f"{label} probe_unpack_words (device time)", ms, bnd, plain_ms, lib_ms,
+               f"{'torch.roll + ' if roll else ''}view / permute / contiguous")
+        if label.startswith("P4") and roll == 0:
+            entry("probe_unpack_words", f"P4: {tuple(wds.shape)} int32 words, roll 0", ms,
+                  plain_ms, bnd, lib_ms)
+
+    for label, wds, w_, roll in (("P3 words (256, 128) x w (128, 256) roll 1", words, w_ok, 1),
+                                 (f"P3 sized words {P3_SIZED[:2]} x w {P3_SIZED[1:]} roll 1",
+                                  big_words, big_w, 1)):
+        a8 = plain.unpack_words(wds, roll)
+        w_cm = w_.t().contiguous().t()
+        if not torch.equal(torch._int_mm(unpack_lib(wds, roll), w_cm),
+                           plain.bitcast_dot(wds, w_, roll)):
+            fail(f"the library composition computes another function at {label}")
+        ms = device_ms(lambda: bitcast.bitcast_dot(wds, w_, roll), reps=30)
+        two_ms = device_ms(lambda: pk.probe_gemm(pk.probe_unpack_words(wds, roll), w_), reps=30)
+        gemm_ms = device_ms(lambda: pk.probe_gemm(a8, w_), reps=30)
+        plain_ms = device_ms(lambda: plain.bitcast_dot(wds, w_, roll), reps=5)
+        libs = {layout: device_ms(lambda: torch._int_mm(unpack_lib(wds, roll), b), reps=30)
+                for layout, b in (("w row-major", w_), ("w column-major", w_cm))}
+        lib_name = min(libs, key=libs.get)
+        int_mm_ms, _ = int_mm(a8, w_)
+        rows, p_ = a8.shape[0], w_.shape[1]
+        bnd = bound(2 * rows * wds.shape[1] * p_, wds.numel() * 4 + w_.numel() + rows * p_ * 4,
+                    INT8_OPS_PER_S)
+        report(f"{label} probe_bitcast_dot, one launch (device time)", ms, bnd, plain_ms,
+               libs[lib_name], f"torch.roll + view / permute / contiguous + torch._int_mm, "
+               f"{lib_name}")
+        print(f"[7]     {label}: the earlier two-launch form (probe_unpack_words, then "
+              f"probe_gemm) {two_ms:.5f} ms; probe_gemm on the unpacked operand {gemm_ms:.5f} "
+              f"ms; torch._int_mm on it {int_mm_ms:.5f} ms; library composition {libs} ms",
+              flush=True)
+        entry("probe_bitcast_dot", f"{label}: the roll, bitcast and int8 dot in one launch", ms,
+              plain_ms, bnd, libs[lib_name])
     mb, kb, nb = bitcast.BYTEPLANE_SHAPES
     lib_a8 = packed.view(torch.int8).reshape(mb, kb)
     for out_dtype in (torch.int32, torch.float32):
@@ -1017,14 +1152,17 @@ def probes_phase(torch, dev):
     attrs = launch_attrs(torch, {
         "probe_gemm int8 128x256 tiles (P2)": lambda: pk.probe_gemm(a_p2, b_p2),
         "probe_gemm bf16 128x256 tiles (P2)": lambda: pk.probe_gemm(a_bf, b_bf, torch.float32),
-        "probe_gemm int8 64x64 tiles (P3 dot)": lambda: pk.probe_gemm(a8_r3a, w_ok),
+        "probe_bitcast_dot 64x64 tiles (P3)": lambda: pk.probe_bitcast_dot(words, w_ok),
+        "probe_bitcast_dot 128x256 tiles (P3 sized)": lambda: pk.probe_bitcast_dot(big_words,
+                                                                                   big_w),
+        "probe_unpack_words, sized, roll 1": lambda: pk.probe_unpack_words(big_words, 1),
         "probe_gemm bf16 64x64 tiles (P1 mm step)": lambda: pk.probe_gemm.write_back(
             x_bf.reshape(-1, 9 * c), w_bf.reshape(9 * c, c), 9),
         "probe_conv_run int8, 50 steps": lambda: pk.probe_conv_run(
             x_i8, w_i8.reshape(9 * c, c), conv.ITERS),
         "probe_conv_run bf16, 50 steps": lambda: pk.probe_conv_run(
             x_bf, w_bf.reshape(9 * c, c), conv.ITERS),
-        "probe_unpack_words": lambda: pk.probe_unpack_words(words, 1),
+        "probe_unpack_words (8, 128)": lambda: pk.probe_unpack_words(words_l),
         "probe_packed_dot": lambda: pk.probe_packed_dot(packed, wb)}, pattern="probe_")
     for key, (regs, smem) in attrs.items():
         print(f"[7] CUPTI {key}: {regs if regs is not None else 'not measured'} registers "

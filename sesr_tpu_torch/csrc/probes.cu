@@ -1,26 +1,43 @@
-// The TPU-compiler probes of the JAX package's tools/ as four kernels for
+// The TPU-compiler probes of the JAX package's tools/ as five kernels for
 // Hopper (sm_90a). Each replaces the Pallas kernel(s) of one probe:
 //
 //   probe_gemm          <- tools/bench_probe_pallas_int8.py:65 (make_mm: a tiled
 //                          GEMM, bf16 -> f32, int8 -> s32, int8 -> f32), and the
 //                          dot of tools/bench_probe_pallas_conv.py:122's mm
-//                          variants (its write-back is a store epilogue here) and
-//                          of tools/bench_probe_r3a.py:343
+//                          variants (its write-back is a store epilogue here)
+//   probe_bitcast_dot   <- tools/bench_probe_r3a.py:343 (the roll of int32 words,
+//                          their bitcast to int8 and the exact int8 dot, in one
+//                          launch)
 //   probe_conv_run      <- tools/bench_probe_pallas_conv.py:122 (make()'s kernel,
 //                          all ITERS grid steps: a circular 3x3 C -> C conv of the
 //                          (E_H, E_W, C) tile with its int8 / bf16 write-back, step
 //                          after step, then f32 of the tile)
 //   probe_unpack_words  <- the pltpu.bitcast int32 -> int8 of
-//                          tools/bench_probe_r3b.py:82 and r3a.py:343 (with its roll)
+//                          tools/bench_probe_r3b.py:82 (and, with a roll, of
+//                          r3a.py:343 alone)
 //   probe_packed_dot    <- tools/bench_probe_r3b.py:147 / :164 (the byte-plane dot
 //                          of packed words with the byte-plane weights, and its
 //                          timed form with the f32 cast)
 //
 // Their plain versions are sesr_tpu_torch/probes/plain.py.
 //
-// probe_gemm and probe_packed_dot run the wgmma tile of wgmma_gemm.cuh (TMA
-// loads, a producer warp and consumer warpgroups; its note says what bounds
-// them and what the design does about it).
+// probe_gemm, probe_packed_dot and probe_bitcast_dot run the wgmma tile of
+// wgmma_gemm.cuh (TMA loads, a producer warp and consumer warpgroups; its
+// note says what bounds them and what the design does about it).
+//
+// probe_unpack_words moves bytes and computes nothing: its bound is 8 bytes
+// of device memory a word (read 4, write 4), 40.1 us at (4096, 4096) words.
+// Where n % 16 == 0 a thread takes a run of 16 consecutive output columns of
+// one word row: it loads the run's 16 source words as 16-byte groups (4
+// groups, or 5 when the roll leaves the run D = (-roll) mod 4 words into a
+// group: a kernel per D, so that every register index is a constant; a
+// group wraps at n whole, since n % 4 == 0), turns each four words into
+// four 32-bit words of its four byte rows with six __byte_perm (byte_rows),
+// and stores 16 bytes to each output row. Neighbouring threads take
+// neighbouring runs, so a warp's stores are four runs of 512 contiguous
+// bytes and its loads 2 KB contiguous. A grid of 8 blocks of 256 threads an
+// SM strides over the runs. Widths that are no multiple of 16 take a word a
+// thread and four byte stores.
 //
 // probe_conv_run runs every step of one probe call in one persistent,
 // cooperative launch, as the TPU kernel runs its sequential grid in one
@@ -85,6 +102,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "wgmma_gemm.cuh"
@@ -357,18 +375,77 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 }  // namespace conv
-__global__ void __launch_bounds__(256)
-probe_unpack_words_kernel(const int* __restrict__ words, int8_t* __restrict__ out, int m, int n,
-                          int roll) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m * n) return;
-  const int r = i / n, c = i - r * n;
-  const int src = c >= roll ? c - roll : c - roll + n;  // roll in [0, n)
-  const unsigned w = static_cast<unsigned>(__ldg(words + static_cast<size_t>(r) * n + src));
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    out[(4 * static_cast<size_t>(r) + b) * n + c] = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
+
+namespace unpack {
+
+constexpr int kThreads = 256;
+constexpr int kRun = 16;         // output columns (words) a thread takes at once
+constexpr int kBlocksPerSm = 8;
+
+// The word column whose bytes land in output column c (roll in [0, n)).
+__host__ __device__ __forceinline__ int src_col(int c, int roll, int n) {
+  return c >= roll ? c - roll : c - roll + n;
 }
+
+// o[b] = byte b of x, y, z and w, in that order: a 32-bit word of output row b.
+__device__ __forceinline__ void byte_rows(uint32_t x, uint32_t y, uint32_t z, uint32_t w,
+                                          uint32_t (&o)[4]) {
+  const uint32_t xy01 = __byte_perm(x, y, 0x5140), zw01 = __byte_perm(z, w, 0x5140);
+  const uint32_t xy23 = __byte_perm(x, y, 0x7362), zw23 = __byte_perm(z, w, 0x7362);
+  o[0] = __byte_perm(xy01, zw01, 0x5410);
+  o[1] = __byte_perm(xy01, zw01, 0x7632);
+  o[2] = __byte_perm(xy23, zw23, 0x5410);
+  o[3] = __byte_perm(xy23, zw23, 0x7632);
+}
+
+// n % 16 == 0: runs of 16 columns (see the note above); D = (-roll) mod 4.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    probe_unpack_runs_kernel(const uint4* __restrict__ words, uint4* __restrict__ out, int m,
+                             int n, int roll) {
+  constexpr int G = D ? 5 : 4;  // 16-byte groups a run reads
+  const int groups = n / 4, runs = n / kRun, total = m * runs;
+  for (int u = blockIdx.x * kThreads + threadIdx.x; u < total; u += gridDim.x * kThreads) {
+    const int r = u / runs, c0 = (u - r * runs) * kRun;
+    const int q = src_col(c0, roll, n) / 4;  // the run's first group
+    const uint4* row = words + static_cast<size_t>(r) * groups;
+    uint32_t v[4 * G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const uint4 x = __ldg(row + (q + g < groups ? q + g : q + g - groups));
+      v[4 * g] = x.x;
+      v[4 * g + 1] = x.y;
+      v[4 * g + 2] = x.z;
+      v[4 * g + 3] = x.w;
+    }
+    uint32_t o[4][4];  // o[j][b]: columns c0 + 4 j .. c0 + 4 j + 3 of row 4 r + b
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      byte_rows(v[D + 4 * j], v[D + 4 * j + 1], v[D + 4 * j + 2], v[D + 4 * j + 3], o[j]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      out[((4 * static_cast<size_t>(r) + b) * n + c0) / 16] =
+          make_uint4(o[0][b], o[1][b], o[2][b], o[3][b]);
+  }
+}
+
+// Any n: a word a thread, four byte stores.
+__global__ void __launch_bounds__(kThreads)
+    probe_unpack_words_kernel(const int* __restrict__ words, int8_t* __restrict__ out, int m,
+                              int n, int roll) {
+  const long long total = static_cast<long long>(m) * n;
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    const int r = static_cast<int>(i / n), c = static_cast<int>(i - static_cast<long long>(r) * n);
+    const unsigned w =
+        static_cast<unsigned>(__ldg(words + static_cast<size_t>(r) * n + src_col(c, roll, n)));
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      out[(4 * static_cast<size_t>(r) + b) * n + c] = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
+  }
+}
+
+}  // namespace unpack
 
 // Encodes the three tensor maps and launches probe_conv_run_kernel
 // cooperatively: all blocks resident, or the launch is refused.
@@ -488,16 +565,51 @@ int probe_conv_run(const void* x, const void* w, void* bufs, void* out_f32, void
 }
 
 // out[4 r + b, c] = byte b of words[r, (c - roll) mod n]: words (m, n) int32,
-// out (4 m, n) int8.
+// out (4 m, n) int8. Needs m n < 2^31 and 16-byte aligned pointers.
 int probe_unpack_words(const void* words, void* out, int m, int n, int roll, void* stream) {
-  if (m < 1 || n < 1 || static_cast<long long>(m) * n > 0x7fffffffLL)
+  using namespace unpack;
+  if (m < 1 || n < 1 || static_cast<long long>(m) * n > 0x7fffffffLL || !aligned16(words) ||
+      !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   roll = ((roll % n) + n) % n;
-  const int threads = 256;
-  const int blocks = static_cast<int>((static_cast<long long>(m) * n + threads - 1) / threads);
-  probe_unpack_words_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(words), static_cast<int8_t*>(out), m, n, roll);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool runs = n % kRun == 0;
+  const long long work = static_cast<long long>(m) * (runs ? n / kRun : n);
+  const int blocks =
+      static_cast<int>(std::min<long long>((work + kThreads - 1) / kThreads, sms * kBlocksPerSm));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!runs) {
+    probe_unpack_words_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int*>(words),
+                                                          static_cast<int8_t*>(out), m, n, roll);
+  } else {
+    // the kernel of D = (-roll) mod 4
+    void (*const by_d[4])(const uint4*, uint4*, int, int, int) = {
+        probe_unpack_runs_kernel<0>, probe_unpack_runs_kernel<1>, probe_unpack_runs_kernel<2>,
+        probe_unpack_runs_kernel<3>};
+    by_d[(n - roll) % 4]<<<blocks, kThreads, 0, s>>>(static_cast<const uint4*>(words),
+                                                      static_cast<uint4*>(out), m, n, roll);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// P3 whole: out (4 m, p) int32, out[4 r + b, c] = sum over j of byte b of
+// words[r, (j - roll) mod n] * w[j, c], exactly; words (m, n) int32, w (n,
+// p) int8. Needs n % 64 == 0, p % 64 == 0, 4 m within the grid (4 m <=
+// 64 x 65535) and 16-byte aligned pointers.
+int probe_bitcast_dot(const void* words, const void* w, void* out, int m, int n, int p, int roll,
+                      void* stream) {
+  if (m < 1 || n < 1 || p < 1 || n % kKBytes || p % SmallTile::BN ||
+      static_cast<long long>(m) * 4 > 64LL * 65535 || !out || !aligned16(words) ||
+      !aligned16(w) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const uint8_t*>(words), static_cast<const uint8_t*>(w), 4 * m, p, n,
+         out, nullptr, nullptr, 1, ((roll % n) + n) % n};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(use_big(a) ? wg::launch_bitcast_dot<BigTile>(a, s)
+                                     : wg::launch_bitcast_dot<SmallTile>(a, s));
 }
 
 // out (m, n) = sum over b of plane_b(words) * wb[b]: words (m, k_words)

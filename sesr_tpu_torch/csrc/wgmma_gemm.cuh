@@ -6,7 +6,9 @@
 //           int8 -> s32, int8 -> f32), through probe_gemm
 //   P1 mm   the dot of tools/bench_probe_pallas_conv.py:122's mm variants, with
 //           the probe's write-back as an epilogue (EPI_WB), through probe_gemm
-//   P3      the int8 dot of tools/bench_probe_r3a.py:343, through probe_gemm
+//   P3      tools/bench_probe_r3a.py:343 (a roll of int32 words, their bitcast
+//           to int8 rows and an exact int8 dot), whole, through
+//           probe_bitcast_dot (words_tile)
 //   P5, P6  tools/bench_probe_r3b.py:147 / :164 (the byte-plane dot of packed
 //           words, and its timed form with the f32 cast), through probe_packed_dot
 //
@@ -49,8 +51,51 @@
 //          row k from plane b (b_row), so four plane rows j at one column
 //          make one 32-bit word of K-major B. The packed words are, unchanged,
 //          the int8 A operand (byte b of word j is k = 4 j + b).
-// setmaxnreg is not used: 384 threads leave each 168 registers, and the
-// consumers need 156 with their 128 accumulators.
+//   words  probe_bitcast_dot (words_tile) computes P3 in one launch:
+//          out[4 m + b, p] = sum_n byte b of words[m, (n - roll) mod N] *
+//          w[n, p] = sum_j byte b of words[m, j] * w[(j + roll) mod N, p].
+//          So K is the word column j, A row 4 m + b holds byte b of word
+//          row m, and the roll moves onto B's rows (b_src_row): no rolled or
+//          unpacked copy of either operand exists. The unpack through device
+//          memory that it replaces (probe_unpack_words, then probe_gemm)
+//          wrote and read A, four bytes for each word byte: 128 MiB more at
+//          (4096, 4096) words.
+//          A: TMA lands each stage's words as four boxes of 32 words (128
+//          bytes, BM / 4 word rows, swizzled): box ks is the k32 step ks.
+//          The consumers take A from registers (wgmma's A may lie there),
+//          not through a K-major A tile in shared memory: a transposing pass
+//          like B's costs two more trips of every byte through shared memory,
+//          and B's pass already bounds the tile. The rows of a 64-row wgmma
+//          tile are ours to order (the epilogue puts them back): fragment
+//          row g (+ 8 h) of warp w holds word row a_word_row(w, g) and byte
+//          a_word_byte(w, h), so a thread's two rows are two bytes of one
+//          word row, and each of its 16-byte loads of four words gives two
+//          registers after four __byte_perm (load_a_words). a_word_row puts
+//          a quarter warp's two word rows four swizzle chunks apart: its
+//          16-byte loads are free of bank conflicts. Each k32 step loads its
+//          registers, fences, issues its wgmma and waits for the previous
+//          one, two register sets in turn, so that at most two wgmmas are in
+//          flight a warpgroup and none of their registers is rewritten.
+//          B: the box of stage i lands from w's row b_src_row(128 i, roll,
+//          N); rows past N come zero-filled, and the transposing pass reads
+//          those (the wrap, in one stage) from device memory instead
+//          (b_src_row again). k32 steps past N (N % 128 == 64) are skipped.
+//          What the A/B (python -m sesr_tpu_torch.probes.tile_ab --tile
+//          bitcast, H100 80GB HBM3 at 700 W, words (4096, 4096) x w (4096,
+//          1024)) found: 0.196 ms, against 0.166 for probe_gemm on the
+//          unpacked operand. The 128 x 256 tile's 168 registers a thread
+//          leave too few beside its 128 accumulators, and ptxas serializes
+//          its wgmmas (C7512): one register set times the same (0.197), and
+//          setmaxnreg (208 a consumer thread) leaves the serialization and
+//          gains 1.5 % (0.193), so it is not used; 128 x 128 tiles, with no
+//          such shortage, take 0.260 (A's loads per operation double). A
+//          test for the wrap on every row, not once a stage, kept the
+//          pass's row loads from issuing together: 0.358. A K-major A tile
+//          in shared memory (the descriptor path) would add two trips of
+//          every A byte through shared memory, which B's pass and wgmma's B
+//          reads already bound.
+// gemm_tile does not use setmaxnreg: 384 threads leave each 168
+// registers, and its consumers need 156 with their 128 accumulators.
 // TMA zero-fills rows past M and K; the epilogue masks rows past M. The
 // accumulator fragments go to shared memory (acc_row / acc_col), then rows
 // of 16 bytes to device memory in one of three epilogues: s32, f32, or the
@@ -62,8 +107,9 @@
 // reached through cudaGetDriverEntryPoint (no -lcuda), cached by what they
 // encode (encode), and passed as __grid_constant__ kernel parameters.
 // tests/test_torch_wgmma_layout.py models swizzle128, the descriptors'
-// addressing, the transposing pass, b_row and the fragment map in numpy,
-// reading them from this file.
+// addressing, the transposing pass, b_row, the fragment map and the words
+// tile's A fragments, rows and rolled B rows in numpy, reading them from
+// this file.
 
 #pragma once
 
@@ -81,13 +127,14 @@ namespace {
 enum Epi { EPI_S32 = 0, EPI_F32 = 1, EPI_WB = 2 };
 
 struct Args {
-  const uint8_t* a;   // (m, k) row-major
+  const uint8_t* a;   // (m, k) row-major; words_tile: the words (m / 4, k) int32
   const uint8_t* b;   // (k, n) row-major; probe_packed_dot: wb (4, k / 4, n)
   int m, n, k;        // in elements
   void* out;          // EPI_S32 / EPI_F32: (m, n)
   void* out_x;        // EPI_WB: (m * rep, n) in the input type, or null
   float* out_f32;     // EPI_WB: (m * rep, n) float copy, or null
   int rep;            // EPI_WB: each result row goes to rep consecutive rows
+  int roll = 0;       // words_tile: B row of k = j is w's row (j + roll) mod k, roll in [0, k)
 };
 
 __device__ __forceinline__ float to_f32(int v) { return __int2float_rn(v); }
@@ -183,6 +230,22 @@ __host__ __device__ __forceinline__ int acc_col(int j, int lane, int i) {
   return 8 * j + 2 * (lane & 3) + (i & 1);
 }
 
+// words_tile's A (see the note above): fragment row g (lane / 4) of warp
+// `warp` holds word row a_word_row(warp, g) of the warpgroup's 16, and its
+// row g + 8 h byte a_word_byte(warp, h); a_sel(warp) is the __byte_perm
+// selector that takes those two bytes of two words. Staged accumulator row
+// r (acc_row) is output row words_out_row(r) of the warpgroup's 64.
+__host__ __device__ __forceinline__ int a_word_row(int warp, int g) {
+  return 8 * (warp >> 1) + ((g >> 1) | ((g & 1) << 2));
+}
+__host__ __device__ __forceinline__ int a_word_byte(int warp, int h) { return 2 * (warp & 1) + h; }
+__host__ __device__ __forceinline__ int a_sel(int warp) { return 0x5140 + 0x2222 * (warp & 1); }
+__host__ __device__ __forceinline__ int words_out_row(int r) {
+  return 4 * a_word_row(r >> 4, r & 7) + a_word_byte(r >> 4, (r >> 3) & 1);
+}
+// The row of w that B row j pairs with (roll in [0, n)).
+__host__ __device__ __forceinline__ int b_src_row(int j, int roll, int n) { return (j + roll) % n; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -269,12 +332,18 @@ __device__ __forceinline__ void fence_acc(uint32_t (&d)[R]) {
   "+r"(d[(i)]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3]), "+r"(d[(i) + 4]), \
       "+r"(d[(i) + 5]), "+r"(d[(i) + 6]), "+r"(d[(i) + 7])
 #define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
 #define WG_D128                                                                             \
   WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72), WG_D8(80),     \
       WG_D8(88), WG_D8(96), WG_D8(104), WG_D8(112), WG_D8(120)
 #define WG_R32                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_R64                                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define WG_R128                                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
@@ -317,10 +386,38 @@ __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t
   }
 }
 
+// d += A (64 x 32, int8, wgmma's register fragment a) * B (32 x N, K-major,
+// desc b), exact in int32.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(uint32_t (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 64 || N == 128 || N == 256, "m64n64, m64n128 or m64n256");
+  if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WG_R32
+                 ", {%32, %33, %34, %35}, %36, p;\n}\n"
+                 : WG_D32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_R64
+                 ", {%64, %65, %66, %67}, %68, p;\n}\n"
+                 : WG_D64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " WG_R128
+                 ", {%128, %129, %130, %131}, %132, p;\n}\n"
+                 : WG_D128
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+}
+
 #undef WG_D8
 #undef WG_D32
+#undef WG_D64
 #undef WG_D128
 #undef WG_R32
+#undef WG_R64
 #undef WG_R128
 
 // NWG consumer warpgroups, each 64 rows of a BM x BN tile; STAGES stages of
@@ -351,6 +448,14 @@ __device__ __forceinline__ uint2 lds64(uint32_t addr) {
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
   return v;
 }
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 __device__ __forceinline__ void sts128(uint32_t addr, uint32_t x, uint32_t y, uint32_t z,
                                        uint32_t w) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(x), "r"(y), "r"(z),
@@ -358,13 +463,14 @@ __device__ __forceinline__ void sts128(uint32_t addr, uint32_t x, uint32_t y, ui
                : "memory");
 }
 
-// One int8 B stage as it landed (128 k rows by b_row, BN bytes each, at
-// shared address raw) -> the K-major swizzled tile (BN rows of 128 bytes of
-// K, at bt). Thread tt of the kTransposers takes items of 16 k rows x 8
-// columns: it reads 8 bytes of each row, transposes the 4 x 4 byte blocks
-// with __byte_perm, and stores each column's 16 k bytes as one chunk.
-template <int BN, bool PLANES>
-__device__ __forceinline__ void transpose_stage(uint32_t raw, uint32_t bt, int tt) {
+// One int8 B stage, 128 k rows of BN bytes, whose 8 bytes at k and column
+// group c2 row(k, c2) reads -> the K-major swizzled tile (BN rows of 128
+// bytes of K, at shared address bt). Thread tt of the kTransposers takes
+// items of 16 k rows x 8 columns: it reads 8 bytes of each row, transposes
+// the 4 x 4 byte blocks with __byte_perm, and stores each column's 16 k
+// bytes as one chunk.
+template <int BN, class Row>
+__device__ __forceinline__ void transpose_rows(Row row, uint32_t bt, int tt) {
   constexpr int PAIRS = BN / 8;  // 8-byte column groups per landed row
   for (int it = tt; it < (kStageK / 16) * PAIRS; it += kTransposers) {
     const int c2 = it % PAIRS, kc = item_kc(it / PAIRS, c2);
@@ -373,10 +479,7 @@ __device__ __forceinline__ void transpose_stage(uint32_t raw, uint32_t bt, int t
     for (int g = 0; g < 4; ++g) {
       uint2 w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = 16 * kc + 4 * g + i;
-        w[i] = lds64(raw + (PLANES ? b_row_planes(k) : b_row_dense(k)) * BN + 8 * c2);
-      }
+      for (int i = 0; i < 4; ++i) w[i] = row(16 * kc + 4 * g + i, c2);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         // byte t of word h of row i is column 8 c2 + 4 h + t at k + i
@@ -396,39 +499,108 @@ __device__ __forceinline__ void transpose_stage(uint32_t raw, uint32_t bt, int t
   }
 }
 
+// One int8 B stage as it landed by TMA (128 k rows by b_row, BN bytes each,
+// at shared address raw) -> its K-major tile at bt.
+template <int BN, bool PLANES>
+__device__ __forceinline__ void transpose_stage(uint32_t raw, uint32_t bt, int tt) {
+  transpose_rows<BN>(
+      [raw](int k, int c2) {
+        return lds64(raw + (PLANES ? b_row_planes(k) : b_row_dense(k)) * BN + 8 * c2);
+      },
+      bt, tt);
+}
+
+// words_tile's A fragment of one k32 step (box: the step's box of landed
+// words; row: the thread's word row in it; t: lane % 4): byte sel picks of
+// the words of 16-byte chunks t (k 4 t ..) and 4 + t (k 16 + 4 t ..) into
+// wgmma's m64k32 registers (rows g and g + 8, k 4 t .. and 16 + 4 t ..).
+__device__ __forceinline__ void load_a_words(uint32_t (&a)[4], uint32_t box, int row, int t,
+                                             uint32_t sel) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint4 q = lds128(box + swizzle128(row, 4 * half + t));
+    const uint32_t xy = __byte_perm(q.x, q.y, sel), zw = __byte_perm(q.z, q.w, sel);
+    a[2 * half] = __byte_perm(xy, zw, 0x5410);
+    a[2 * half + 1] = __byte_perm(xy, zw, 0x7632);
+  }
+}
+
+// A block's shared memory: the ring of stages on a 1024-byte boundary (the
+// swizzle's period; kept a pointer into shared memory so that its accesses
+// compile to LDS / STS), int8 B's K-major tiles after it, and the four
+// barrier arrays after the larger of the ring and the staged C tile,
+// initialised before the block goes on.
+template <class TL, bool BF16>
+struct Ring {
+  uint8_t* smem;
+  uint8_t* bt_ring;
+  uint64_t *full, *empty, *tfull, *tempty;
+
+  __device__ __forceinline__ Ring() {
+    extern __shared__ uint8_t smem_raw[];
+    constexpr int S = TL::STAGES, T = TL::TRING;
+    constexpr int RING = TL::template ring_bytes<BF16>();
+    smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    bt_ring = smem + S * TL::STAGE_BYTES;
+    full = reinterpret_cast<uint64_t*>(smem + (RING > TL::C_BYTES ? RING : TL::C_BYTES));
+    empty = full + S;
+    tfull = empty + S;
+    tempty = tfull + T;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) {
+        mbar_init(full + s, 1);
+        mbar_init(empty + s, 128 * TL::NWG);
+      }
+      for (int t = 0; t < T; ++t) {
+        mbar_init(tfull + t, kTransposers);
+        mbar_init(tempty + t, 128 * TL::NWG);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+};
+
+// The epilogue, once every consumer's wgmmas are done, so that the ring's
+// shared memory holds the C tile: fragments -> staged rows -> 16-byte
+// stores, rows past M masked. Staged row r (acc_row) of consumer cw goes to
+// output row m0 + 64 cw + out_row(r).
+template <class TL, bool BF16, int EPI, class OutRow>
+__device__ __forceinline__ void store_tile(const uint32_t (&d)[TL::BN / 2], uint8_t* smem,
+                                           const Args& p, int m0, int n0, int cw, int warp,
+                                           int lane, OutRow out_row) {
+  using AccT = typename std::conditional<BF16, float, int>::type;
+  constexpr int BN = TL::BN;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * TL::NWG) : "memory");
+  uint32_t* ct = reinterpret_cast<uint32_t*>(smem) + cw * 64 * TL::CS;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 2 * h;
+      *reinterpret_cast<uint2*>(ct + acc_row(warp, lane, i) * TL::CS + acc_col(j, lane, i)) =
+          make_uint2(d[4 * j + i], d[4 * j + i + 1]);
+    }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+  for (int idx = threadIdx.x & 127; idx < 64 * (BN / 4); idx += 128) {
+    const int r = idx / (BN / 4), c4 = 4 * (idx - r * (BN / 4));
+    const int m = m0 + cw * 64 + out_row(r);
+    if (m < p.m)
+      store4<BF16, EPI>(p, m, n0 + c4, reinterpret_cast<const AccT*>(ct + r * TL::CS + c4));
+  }
+}
+
 template <class TL, bool BF16, bool PLANES, int EPI>
 __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
                                           const Args& p) {
-  using AccT = typename std::conditional<BF16, float, int>::type;
   constexpr int S = TL::STAGES, T = TL::TRING, BN = TL::BN;
-  extern __shared__ uint8_t smem_raw[];
-  // the ring's base on a 1024-byte boundary (the swizzle's period), kept a
-  // pointer into shared memory so that its accesses compile to LDS / STS
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* bt_ring = smem + S * TL::STAGE_BYTES;  // int8: the K-major B tiles
-  constexpr int RING = TL::template ring_bytes<BF16>();
-  constexpr int BAR_AT = RING > TL::C_BYTES ? RING : TL::C_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_AT);
-  uint64_t* empty = full + S;
-  uint64_t* tfull = empty + S;
-  uint64_t* tempty = tfull + T;
+  const Ring<TL, BF16> ring;
+  uint8_t *smem = ring.smem, *bt_ring = ring.bt_ring;
+  uint64_t *full = ring.full, *empty = ring.empty, *tfull = ring.tfull, *tempty = ring.tempty;
   const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * BN;
   const int es = BF16 ? 2 : 1;
   const int KT = (p.k * es + kStageK - 1) / kStageK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 128 * TL::NWG);
-    }
-    for (int t = 0; t < T; ++t) {
-      mbar_init(tfull + t, kTransposers);
-      mbar_init(tempty + t, 128 * TL::NWG);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 
   if (wgi == 0) {
     // the producer warpgroup
@@ -501,26 +673,109 @@ __device__ __forceinline__ void gemm_tile(const CUtensorMap* tma_a, const CUtens
   }
   wgmma_wait<0>();
   fence_acc(d);
+  store_tile<TL, BF16, EPI>(d, smem, p, m0, n0, cw, warp, lane, [](int r) { return r; });
+}
 
-  // epilogue: every consumer's wgmmas are done, so the ring's shared memory
-  // holds the C tile: fragments -> rows -> 16-byte stores, rows past M masked
-  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * TL::NWG) : "memory");
-  uint32_t* ct = reinterpret_cast<uint32_t*>(smem) + cw * 64 * TL::CS;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = 2 * h;
-      *reinterpret_cast<uint2*>(ct + acc_row(warp, lane, i) * TL::CS + acc_col(j, lane, i)) =
-          make_uint2(d[4 * j + i], d[4 * j + i + 1]);
+// probe_bitcast_dot's tile: P3 whole, out (p.m = 4 x word rows, p.n) int32
+// from the words p.a (p.m / 4, p.k) and w p.b (p.k, p.n) with p.roll (the
+// "words" entry of the note above). The skeleton is gemm_tile's; A comes
+// from registers (load_a_words), B's rows are rolled (b_src_row), and the
+// epilogue puts the A rows back in order (words_out_row).
+template <class TL>
+__device__ __forceinline__ void words_tile(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
+                                           const Args& p) {
+  constexpr int S = TL::STAGES, T = TL::TRING, BN = TL::BN;
+  constexpr int BOX = TL::BM / 4 * kStageK;  // a box of 32 words of the stage's word rows
+  const Ring<TL, false> ring;
+  uint8_t *smem = ring.smem, *bt_ring = ring.bt_ring;
+  uint64_t *full = ring.full, *empty = ring.empty, *tfull = ring.tfull, *tempty = ring.tempty;
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * BN;
+  const int KT = (p.k + kStageK - 1) / kStageK;
+
+  if (wgi == 0) {
+    if (warp == 0) {
+      // the producer: a stage's word boxes up to column p.k, and w's rows
+      // from b_src_row on
+      if (lane == 0) {
+        for (int i = 0; i < KT; ++i) {
+          const int s = i % S, boxes = min(kStageK, p.k - kStageK * i) / kKStep;
+          mbar_wait(empty + s, ((i / S) & 1) ^ 1);
+          mbar_expect_tx(full + s, boxes * BOX + TL::B_BYTES);
+          uint8_t* st = smem + s * TL::STAGE_BYTES;
+          for (int q = 0; q < boxes; ++q)
+            tma_2d(st + q * BOX, tma_a, full + s, 4 * (kStageK * i + kKStep * q), m0 / 4);
+          tma_2d(st + TL::A_BYTES, tma_b, full + s, n0, b_src_row(kStageK * i, p.roll, p.k));
+        }
+      }
+    } else {
+      // warps 1-3: each landed B stage -> its K-major copy; in the stage
+      // that wraps at p.k, the rows past the wrap from device memory (a
+      // branch a row there only: the other stages' row loads stay free to
+      // issue together)
+      const int tt = threadIdx.x - 32;
+      for (int i = 0; i < KT; ++i) {
+        const int s = i % S, t = i % T;
+        const int wrap = p.k - b_src_row(kStageK * i, p.roll, p.k);
+        const uint32_t raw = smem_u32(smem + s * TL::STAGE_BYTES + TL::A_BYTES);
+        const uint32_t bt = smem_u32(bt_ring + t * TL::B_BYTES);
+        mbar_wait(full + s, (i / S) & 1);
+        mbar_wait(tempty + t, ((i / T) & 1) ^ 1);
+        if (wrap >= kStageK) {
+          transpose_rows<BN>([raw](int k, int c2) { return lds64(raw + k * BN + 8 * c2); }, bt,
+                             tt);
+        } else {
+          transpose_rows<BN>(
+              [&](int k, int c2) {
+                if (k < wrap) return lds64(raw + k * BN + 8 * c2);
+                const int row = b_src_row(kStageK * i + k, p.roll, p.k);
+                return __ldg(reinterpret_cast<const uint2*>(p.b + static_cast<size_t>(row) * p.n +
+                                                           n0 + 8 * c2));
+              },
+              bt, tt);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(tfull + t);
+      }
     }
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
-  for (int idx = threadIdx.x & 127; idx < 64 * (BN / 4); idx += 128) {
-    const int r = idx / (BN / 4), c4 = 4 * (idx - r * (BN / 4));
-    const int m = m0 + cw * 64 + r;
-    if (m < p.m)
-      store4<BF16, EPI>(p, m, n0 + c4, reinterpret_cast<const AccT*>(ct + r * TL::CS + c4));
+    return;
   }
+
+  // the consumer warpgroups: per k32 step its A registers, then its wgmma
+  const int cw = wgi - 1, row = 16 * cw + a_word_row(warp, lane >> 2), t4 = lane & 3;
+  const uint32_t sel = a_sel(warp);
+  uint32_t d[BN / 2];
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) d[r] = 0;
+  for (int i = 0; i < KT; ++i) {
+    const int s = i % S, steps = min(kStageK, p.k - kStageK * i) / kKStep;
+    mbar_wait(full + s, (i / S) & 1);
+    mbar_wait(tfull + i % T, (i / T) & 1);
+    const uint32_t words = smem_u32(smem + s * TL::STAGE_BYTES);
+    const uint64_t db = make_desc(bt_ring + (i % T) * TL::B_BYTES, 16, kSbo);
+    uint32_t a[2][4];  // two register sets in turn: step ks's stay untouched while it runs
+#pragma unroll
+    for (int ks = 0; ks < kStageK / kKStep; ++ks) {
+      if (ks < steps) {
+        uint32_t(&ak)[4] = a[ks & 1];
+        load_a_words(ak, words + ks * BOX, row, t4, sel);
+        fence_acc(ak);
+        fence_acc(d);
+        wgmma_fence();
+        wgmma_rs<BN>(d, ak, db + ((ks * kKStep) >> 4));
+        wgmma_commit();
+        fence_acc(d);
+        wgmma_wait<1>();  // step ks - 1 is done
+        fence_acc(d);
+        if (ks == 0 && i > 0) mbar_arrive(tempty + (i - 1) % T);  // stage i - 1's B is read
+      }
+    }
+    mbar_arrive(empty + s);  // stage i's words are in registers and its B is transposed
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  store_tile<TL, false, EPI_S32>(d, smem, p, m0, n0, cw, warp, lane,
+                                 [](int r) { return words_out_row(r); });
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda link flag).
@@ -616,6 +871,13 @@ __global__ void __launch_bounds__(TL::kThreads, 1)
   wg::gemm_tile<TL, false, true, EPI>(&tma_a, &tma_b, p);
 }
 
+template <class TL>
+__global__ void __launch_bounds__(TL::kThreads, 1)
+    probe_bitcast_dot_kernel(const __grid_constant__ CUtensorMap tma_a,
+                             const __grid_constant__ CUtensorMap tma_b, Args p) {
+  wg::words_tile<TL>(&tma_a, &tma_b, p);
+}
+
 namespace wg {
 
 // Encodes both tensor maps and launches the tile: probe_packed_dot_kernel
@@ -657,6 +919,29 @@ cudaError_t launch(const Args& p, cudaStream_t s) {
     if (attr != cudaSuccess) return attr;
     probe_gemm_kernel<TL, BF16, EPI><<<grid, TL::kThreads, bytes, s>>>(ta, tb, p);
   }
+  return cudaGetLastError();
+}
+
+// Encodes both tensor maps and launches probe_bitcast_dot_kernel: the words
+// as bytes (4 p.k, p.m / 4) in swizzled boxes of 32 words, w as it lies.
+template <class TL>
+cudaError_t launch_bitcast_dot(const Args& p, cudaStream_t s) {
+  const cuuint64_t rows = static_cast<cuuint64_t>(p.m / 4), n = static_cast<cuuint64_t>(p.n),
+                   k = static_cast<cuuint64_t>(p.k);
+  CUtensorMap ta, tb;
+  const cuuint64_t a_dims[2] = {4 * k, rows}, a_strides[1] = {4 * k};
+  const cuuint32_t a_box[2] = {kStageK, TL::BM / 4};
+  const cuuint64_t b_dims[2] = {n, k}, b_strides[1] = {n};
+  const cuuint32_t b_box[2] = {TL::BN, kStageK};
+  if (!encode(&ta, false, 2, p.a, a_dims, a_strides, a_box, true) ||
+      !encode(&tb, false, 2, p.b, b_dims, b_strides, b_box, false))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = TL::template smem_bytes<false>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      probe_bitcast_dot_kernel<TL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(p.n / TL::BN, (p.m + TL::BM - 1) / TL::BM);
+  probe_bitcast_dot_kernel<TL><<<grid, TL::kThreads, bytes, s>>>(ta, tb, p);
   return cudaGetLastError();
 }
 

@@ -59,6 +59,8 @@ SIGNATURES = {
         "probe_conv_run": [_PTR] * 5 + [ctypes.c_uint] + [_INT] * 5 + [_PTR],
         # (words, out, m, n, roll, stream)
         "probe_unpack_words": [_PTR] * 2 + [_INT] * 3 + [_PTR],
+        # (words, w, out, m, n, p, roll, stream)
+        "probe_bitcast_dot": [_PTR] * 3 + [_INT] * 4 + [_PTR],
         # (words, wb, out, m, k_words, n, out_f32, stream)
         "probe_packed_dot": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     },

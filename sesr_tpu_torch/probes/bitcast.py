@@ -1,11 +1,11 @@
 """The packed-word probes (P3-P6) on the card:
 
 - ``mosaic_int8_bitcast_probe``: tools/bench_probe_r3a.py:323, an int32 roll,
-  the int32 -> int8 bitcast, then an int8 dot. On its own shapes (words
-  (256, 128), w (512, 256)) the bitcast gives (1024, 128), whose 128
-  columns cannot contract with w's 512 rows: the dot raises TypeError, as
-  it does in JAX, before anything is launched, and the probe prints FAILED
-  and returns False.
+  the int32 -> int8 bitcast, then an int8 dot, on the card one launch of
+  ``probe_bitcast_dot``. On its own shapes (words (256, 128), w (512, 256))
+  the bitcast gives (1024, 128), whose 128 columns cannot contract with
+  w's 512 rows: the dot raises TypeError, as it does in JAX, before
+  anything is launched, and the probe prints FAILED and returns False.
 - ``bitcast_layout_probe``: tools/bench_probe_r3b.py:63, which row of the
   (4M, N) int8 view holds byte b of word row m; the answer is 4m + b.
 - ``byteplane_dot`` / ``byteplane_dot_probe``: tools/bench_probe_r3b.py:107,
@@ -13,9 +13,9 @@
   the words are, unchanged, the int8 A operand of one exact dot
   (``probe_packed_dot``), which reads the plane weights wb as they are.
 
-The bitcast (with its roll) is ``probe_unpack_words``: row 4m + b holds byte
-b of word row m, extracted explicitly (an int8 view of the words would be
-(M, 4N), byte b of word (m, n) at column 4n + b).
+The bitcast alone (with a roll) is ``probe_unpack_words``: row 4m + b holds
+byte b of word row m, extracted explicitly (an int8 view of the words would
+be (M, 4N), byte b of word (m, n) at column 4n + b).
 """
 
 from __future__ import annotations
@@ -52,16 +52,16 @@ def unpack_words(words: torch.Tensor, roll: int = 0) -> torch.Tensor:
 
 def bitcast_dot(words: torch.Tensor, w: torch.Tensor, roll: int = 1) -> torch.Tensor:
     """r3a's kernel: roll the int32 words (M, N) by ``roll`` along axis 1,
-    bitcast to int8 (4M, N), and take the exact int32 dot with w (N', P).
-    Raises TypeError, as JAX's dot_general does, when N' != N."""
+    bitcast to int8 (4M, N), and take the exact int32 dot with w (N', P);
+    on the card one ``probe_bitcast_dot`` launch. Raises TypeError, as JAX's
+    dot_general does, when N' != N."""
     n = words.shape[1]
     if w.shape[0] != n:
         raise TypeError("dot_general requires contracting dimensions to have the same "
                         f"shape, got ({n},) and ({w.shape[0]},).")
-    a8 = unpack_words(words, roll)
     if words.device.type == "cpu":
-        return plain.gemm(a8, w, torch.int32)
-    return kernels.probe_gemm(a8, w.contiguous(), torch.int32)
+        return plain.bitcast_dot(words, w, roll)
+    return kernels.probe_bitcast_dot(words.contiguous(), w.contiguous(), roll)
 
 
 def r3a_inputs(w_rows: int = R3A_SHAPES[1]):

@@ -1,13 +1,13 @@
-"""ctypes wrappers of the four probe kernels of ``csrc/probes.cu``, each with
+"""ctypes wrappers of the five probe kernels of ``csrc/probes.cu``, each with
 its launch counter.
 
 ``probe_gemm``          replaces tools/bench_probe_pallas_int8.py:65 and the dots
                         of tools/bench_probe_pallas_conv.py:122 (mm variants)
-                        and tools/bench_probe_r3a.py:343
 ``probe_conv_run``      replaces tools/bench_probe_pallas_conv.py:122 (all of
                         its steps in one launch)
-``probe_unpack_words``  replaces the bitcast of tools/bench_probe_r3b.py:82 and
-                        tools/bench_probe_r3a.py:343
+``probe_bitcast_dot``   replaces tools/bench_probe_r3a.py:343 (its roll, bitcast
+                        and dot in one launch)
+``probe_unpack_words``  replaces the bitcast of tools/bench_probe_r3b.py:82
 ``probe_packed_dot``    replaces tools/bench_probe_r3b.py:147 and :164
 
 A wrapper takes tensors on a CUDA device, checks their types, shapes and
@@ -197,6 +197,28 @@ class ProbeUnpackWords(ProbeKernel):
         return out
 
 
+class ProbeBitcastDot(ProbeKernel):
+    def __call__(self, words: torch.Tensor, w: torch.Tensor, roll: int = 1) -> torch.Tensor:
+        """(4M, P) int32, the exact dot of the unpacked words with w:
+        out[4m + b, p] = sum over n of byte b of words[m, (n - roll) mod N]
+        times w[n, p]; words int32 (M, N), w int8 (N, P), N and P multiples
+        of 64. r3a's roll, bitcast and dot in one launch."""
+        if words.dtype != torch.int32 or w.dtype != torch.int8 or words.dim() != 2 \
+                or w.dim() != 2 or w.shape[0] != words.shape[1]:
+            raise ValueError(f"{self.symbol} takes int32 words (M, N) and int8 w (N, P), got "
+                             f"{words.dtype} {tuple(words.shape)}, {w.dtype} {tuple(w.shape)}")
+        m, n = words.shape
+        p = w.shape[1]
+        if min(n, p) < 1 or n % N_TILE or p % N_TILE:
+            raise ValueError(f"{self.symbol} needs N and P positive multiples of {N_TILE}, "
+                             f"got N={n} P={p}")
+        dev = self._check(words, w)
+        out = torch.empty((4 * m, p), dtype=torch.int32, device=dev)
+        if m:
+            self._launch(dev, words.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, p, roll % n)
+        return out
+
+
 class ProbePackedDot(ProbeKernel):
     def __call__(self, words: torch.Tensor, wb: torch.Tensor,
                  out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
@@ -223,9 +245,11 @@ class ProbePackedDot(ProbeKernel):
 
 probe_gemm = ProbeGemm("probe_gemm")
 probe_conv_run = ProbeConvRun("probe_conv_run")
+probe_bitcast_dot = ProbeBitcastDot("probe_bitcast_dot")
 probe_unpack_words = ProbeUnpackWords("probe_unpack_words")
 probe_packed_dot = ProbePackedDot("probe_packed_dot")
-PROBE_KERNELS = (probe_gemm, probe_conv_run, probe_unpack_words, probe_packed_dot)
+PROBE_KERNELS = (probe_gemm, probe_conv_run, probe_bitcast_dot, probe_unpack_words,
+                 probe_packed_dot)
 
 
 def reset_launch_counts() -> None:

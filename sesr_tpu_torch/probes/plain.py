@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four probe kernels (``kernels.py``).
+"""Plain PyTorch versions of the five probe kernels (``kernels.py``).
 
 They run on any device. Integer products are taken in float64 on integer
 values and cast: every sum is exact, since |sum| < 2^53. bf16 inputs are
@@ -67,6 +67,12 @@ def unpack_words(words: torch.Tensor, roll: int = 0) -> torch.Tensor:
     m, n = words.shape
     rolled = torch.roll(words, shifts=roll, dims=1).contiguous()
     return rolled.view(torch.int8).reshape(m, n, 4).permute(0, 2, 1).reshape(4 * m, n)
+
+
+def bitcast_dot(words: torch.Tensor, w: torch.Tensor, roll: int = 1) -> torch.Tensor:
+    """``kernels.probe_bitcast_dot``: r3a's kernel, the exact int32 dot of
+    ``unpack_words(words, roll)`` (4M, N) with w (N, P)."""
+    return gemm(unpack_words(words, roll), w, torch.int32)
 
 
 def packed_dot(words: torch.Tensor, wb: torch.Tensor,

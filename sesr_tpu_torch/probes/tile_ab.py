@@ -1,4 +1,4 @@
-"""python -m sesr_tpu_torch.probes.tile_ab [--tile gemm|conv] [--size N] [--reps R] [--rounds K]
+"""python -m sesr_tpu_torch.probes.tile_ab [--tile gemm|conv|bitcast] [--size N] [--reps R] [--rounds K]
 
 An A/B of the probes' wgmma kernels on the card: ``csrc/`` as it is
 ("base") and variants, each a copy of ``csrc/`` with one text edit, built
@@ -24,6 +24,19 @@ a wrong result, timed):
                        time without the barriers between steps
   conv_no_mma          no wgmma: the time of the loads, barriers and
                        epilogues alone
+
+``--tile bitcast``: P3 whole (``probe_bitcast_dot``, wgmma_gemm.cuh
+``words_tile``) at words (N, N) x w (N, N / 4), roll 1 (the 128 x 256
+tile), and at the probe's words (256, 128) x w (128, 256) (the 64 x 64
+one). Variants:
+  bitcast_setmaxnreg     the 128 x 256 tile with setmaxnreg: 208 registers
+                         a consumer thread, 88 a producer thread
+  bitcast_branchy        the transposing pass tests every row for the wrap
+                         in every stage, not only in the stage that wraps
+  bitcast_one_set        one A register set: each k32 step waits for the
+                         previous wgmma to finish before it loads
+  bitcast_bn128          128 x 128 tiles (64 accumulators a thread) where
+                         the kernel takes 128 x 256
 
 Needs the card and nvcc; prints one JSON line per measurement.
 """
@@ -63,8 +76,24 @@ VARIANTS = {
         "probes.cu",
         "        wgmma<kBn, BF16>(d, da + ((ks * kKStep) >> 4),\n"
         "                         db + (((BF16 ? kMnKStep : kKStep) * ks) >> 4));\n", "")],
+    "bitcast_setmaxnreg": [(
+        "wgmma_gemm.cuh", "  const int KT = (p.k + kStageK - 1) / kStageK;\n",
+        "  const int KT = (p.k + kStageK - 1) / kStageK;\n  if constexpr (TL::NWG == 2) {\n"
+        "    if (wgi == 0)\n"
+        "      asm volatile(\"setmaxnreg.dec.sync.aligned.u32 88;\\n\" ::: \"memory\");\n"
+        "    else\n"
+        "      asm volatile(\"setmaxnreg.inc.sync.aligned.u32 208;\\n\" ::: \"memory\");\n  }\n")],
+    "bitcast_bn128": [("probes.cu", "use_big(a) ? wg::launch_bitcast_dot<BigTile>(a, s)",
+                       "use_big(a) ? wg::launch_bitcast_dot<wg::Tile<2, 128, 4>>(a, s)")],
+    "bitcast_branchy": [("wgmma_gemm.cuh", "        if (wrap >= kStageK) {\n",
+                         "        if (false) {\n")],
+    "bitcast_one_set": [
+        ("wgmma_gemm.cuh", "        wgmma_wait<1>();  // step ks - 1 is done\n",
+         "        wgmma_wait<0>();\n"),
+        ("wgmma_gemm.cuh", "uint32_t(&ak)[4] = a[ks & 1];", "uint32_t(&ak)[4] = a[0];")],
 }
 CONV_VARIANTS = ("conv_ring_6", "conv_no_grid_wait", "conv_no_mma")
+BITCAST_VARIANTS = ("bitcast_setmaxnreg", "bitcast_branchy", "bitcast_one_set", "bitcast_bn128")
 
 
 def variant_sources(name: str) -> dict[str, str]:
@@ -146,9 +175,46 @@ def conv_ab(reps: int, rounds: int) -> list:
     return results
 
 
+def bitcast_ab(size: int, reps: int, rounds: int) -> list:
+    """probe_bitcast_dot and its variants, in turns: device ms at words
+    (size, size) x w (size, size / 4) and at the probe's shape, roll 1, each
+    output against the plain version."""
+    fns = _entry_points(("base",) + BITCAST_VARIANTS, "probe_bitcast_dot")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {"sized": (size, size, size // 4), "probe": (256, 128, 256)}
+    operands = {}
+    for key, (m, n, p) in shapes.items():
+        words = torch.randint(-2 ** 31, 2 ** 31 - 1, (m, n), device=dev, generator=gen,
+                              dtype=torch.int32)
+        w = torch.randint(-128, 128, (n, p), device=dev, generator=gen).to(torch.int8)
+        operands[key] = (words, w, plain.bitcast_dot(words, w, 1))
+    results = []
+    for rnd in range(rounds):
+        for name, fn in fns.items():
+            for key, (words, w, want) in operands.items():
+                (m, n), p = words.shape, w.shape[1]
+                out = torch.empty((4 * m, p), dtype=torch.int32, device=dev)
+
+                def call():
+                    err = fn(words.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, p, 1,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"variant {name} launch failed ({err})")
+
+                ms = median_ms(call, dev, reps, lead_ms=1.0)
+                res = {"device": torch.cuda.get_device_name(dev), "round": rnd, "variant": name,
+                       "shape": key, "words": [m, n], "w": [n, p], "ms": ms,
+                       "TOP/s": 2 * 4 * m * n * p / (ms * 1e-3) / 1e12,
+                       "equal_to_plain": bool(torch.equal(out, want))}
+                print(json.dumps(res), flush=True)
+                results.append(res)
+    return results
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(prog="python -m sesr_tpu_torch.probes.tile_ab")
-    ap.add_argument("--tile", default="gemm", choices=["gemm", "conv"])
+    ap.add_argument("--tile", default="gemm", choices=["gemm", "conv", "bitcast"])
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
@@ -157,7 +223,10 @@ def main(argv=None) -> list:
         ap.error("no CUDA device: the A/B runs on the card")
     if args.tile == "conv":
         return conv_ab(args.reps, args.rounds)
-    fns = _entry_points([v for v in VARIANTS if v not in CONV_VARIANTS], "probe_gemm")
+    if args.tile == "bitcast":
+        return bitcast_ab(args.size, args.reps, args.rounds)
+    fns = _entry_points([v for v in VARIANTS if v not in CONV_VARIANTS + BITCAST_VARIANTS],
+                        "probe_gemm")
     dev = torch.device("cuda", 0)
     n = args.size
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -12,6 +12,7 @@ plain versions on the card by chip_smoke.py phase 7.
 
 import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -167,6 +168,135 @@ def test_r3a_bitcast_probe_fails_on_its_shapes_and_matches_when_consistent(capsy
                                              bitcast.CONSISTENT_W_ROWS) is True
 
 
+def _r3a_kernel():
+    """(kernel, kwargs) of tools/bench_probe_r3a.py:343, captured."""
+    tool = importlib.import_module("tools.bench_probe_r3a")
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", _recorder(calls))
+        assert tool.probe_mosaic_int8_bitcast() is False
+    (kernel, kw), = calls
+    return kernel, kw
+
+
+def test_plain_bitcast_dot_matches_pallas():
+    """plain.bitcast_dot (probe_bitcast_dot's plain version) against the
+    captured r3a kernel at its own roll, 1, on seeded words and weights of
+    the consistent shape."""
+    kernel, kw = _r3a_kernel()
+    rng = np.random.default_rng(5)
+    words = rng.integers(-2 ** 31, 2 ** 31, (256, 128), dtype=np.int64).astype(np.int32)
+    w = rng.integers(-128, 128, (128, 256)).astype(np.int8)
+    want = _interpret(kernel, {**kw, "out_shape": kw["out_shape"].update(shape=(1024, 256))},
+                      jnp.asarray(words), jnp.asarray(w))
+    got = plain.bitcast_dot(torch.from_numpy(words), torch.from_numpy(w), 1)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bitcast_dot_spec(words, w, roll):
+    """out[4 m + b, p] = sum over n of byte b of words[m, (n - roll) mod N] w[n, p]."""
+    m, n = words.shape
+    out = np.zeros((4 * m, w.shape[1]), np.int64)
+    u = words.astype(np.int64) & 0xFFFFFFFF
+    for b in range(4):
+        plane = ((u >> (8 * b)) & 0xFF).astype(np.uint8).view(np.int8).astype(np.int64)
+        rolled = plane[:, (np.arange(n) - roll) % n]
+        out[b::4] = rolled @ w.astype(np.int64)
+    return out
+
+
+@pytest.mark.parametrize("m, n, p", [(100, 64, 64), (7, 192, 128)])
+@pytest.mark.parametrize("roll", [0, 1, 63, "N-1", "N+5", -3])
+def test_plain_bitcast_dot_byte_spec(m, n, p, roll):
+    roll = {"N-1": n - 1, "N+5": n + 5}.get(roll, roll)
+    rng = np.random.default_rng(m + n)
+    words = rng.integers(-2 ** 31, 2 ** 31, (m, n), dtype=np.int64).astype(np.int32)
+    w = rng.integers(-128, 128, (n, p)).astype(np.int8)
+    got = plain.bitcast_dot(torch.from_numpy(words), torch.from_numpy(w), roll)
+    np.testing.assert_array_equal(got.numpy(), _bitcast_dot_spec(words, w, roll))
+    got = bitcast.bitcast_dot(torch.from_numpy(words), torch.from_numpy(w), roll)
+    np.testing.assert_array_equal(got.numpy(), _bitcast_dot_spec(words, w, roll))
+
+
+PROBES_SRC = (_build.CSRC / "probes.cu").read_text()
+
+
+def _src_fn(name):
+    """The one-line function ``name`` of csrc/probes.cu as a Python lambda."""
+    m = re.search(rf"int {name}\(([^)]*)\) \{{\s*return (.*?);\s*\}}", PROBES_SRC, re.S)
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    body = re.sub(r"(\S+) >= (\S+) \? (.*) : (.*)", r"(\3) if \1 >= \2 else (\4)", m.group(2))
+    return eval(f"lambda {', '.join(args)}: {body}")
+
+
+def _byte_perm(x, y, sel):
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+@pytest.mark.parametrize("m, n", [(3, 16), (2, 48), (5, 64)])
+@pytest.mark.parametrize("roll", [0, 1, 2, 3, 5, -3, 130])
+def test_unpack_runs_kernel_model(m, n, roll):
+    """probe_unpack_words' run kernel (n % 16 == 0) modelled thread by
+    thread from csrc/probes.cu (src_col, the groups each run loads and their
+    wrap, byte_rows' selectors, the 16-byte stores) equals plain.unpack_words
+    for every D = (-roll) mod 4."""
+    src_col = _src_fn("src_col")
+    body = PROBES_SRC[PROBES_SRC.index("void byte_rows"):PROBES_SRC.index("template <int D>")]
+    sels = [int(v, 16) for v in re.findall(r"(0x[0-9a-f]{4})\)", body)]
+    assert sels == [0x5140, 0x5140, 0x7362, 0x7362, 0x5410, 0x7632, 0x5410, 0x7632]
+    kern = PROBES_SRC[PROBES_SRC.index("template <int D>"):PROBES_SRC.index("// Any n:")]
+    for text in ("constexpr int G = D ? 5 : 4;",
+                 "const int q = src_col(c0, roll, n) / 4;",
+                 "__ldg(row + (q + g < groups ? q + g : q + g - groups))",
+                 "byte_rows(v[D + 4 * j], v[D + 4 * j + 1], v[D + 4 * j + 2], v[D + 4 * j + 3], o[j]);",
+                 "make_uint4(o[0][b], o[1][b], o[2][b], o[3][b])"):
+        assert text in kern, text
+    assert "by_d[(n - roll) % 4]<<<" in PROBES_SRC
+    rng = np.random.default_rng(n)
+    words = rng.integers(-2 ** 31, 2 ** 31, (m, n), dtype=np.int64).astype(np.int32)
+    u = words.astype(np.int64) & 0xFFFFFFFF
+    r_ = roll % n
+    d = (n - r_) % 4
+    groups, out = n // 4, np.zeros((4 * m, n), np.uint8)
+    for unit in range(m * (n // 16)):
+        r, c0 = unit // (n // 16), unit % (n // 16) * 16
+        q = src_col(c0, r_, n) // 4
+        v = []
+        for g in range(5 if d else 4):
+            gi = q + g if q + g < groups else q + g - groups
+            v += [int(x) for x in u[r, 4 * gi:4 * gi + 4]]
+        for j in range(4):
+            x, y, z, ww = v[d + 4 * j:d + 4 * j + 4]
+            xy01, zw01 = _byte_perm(x, y, sels[0]), _byte_perm(z, ww, sels[1])
+            xy23, zw23 = _byte_perm(x, y, sels[2]), _byte_perm(z, ww, sels[3])
+            rows = [_byte_perm(xy01, zw01, sels[4]), _byte_perm(xy01, zw01, sels[5]),
+                    _byte_perm(xy23, zw23, sels[6]), _byte_perm(xy23, zw23, sels[7])]
+            for b in range(4):
+                out[4 * r + b, c0 + 4 * j:c0 + 4 * j + 4] = [(rows[b] >> (8 * e)) & 0xFF
+                                                             for e in range(4)]
+    want = plain.unpack_words(torch.from_numpy(words), roll).numpy()
+    np.testing.assert_array_equal(out.view(np.int8), want)
+
+
+@pytest.mark.parametrize("shapes, what", [
+    (((4, 96), (96, 64)), "N not a multiple of 64"), (((4, 64), (64, 96)), "P not a multiple of 64"),
+    (((4, 64), (128, 64)), "w's rows differ from N")], ids=["N", "P", "rows"])
+def test_bitcast_dot_wrapper_refuses_shapes_without_launch(monkeypatch, shapes, what):
+    def refuse(*_a, **_k):
+        raise AssertionError("a refused shape reached the kernel build")
+
+    for fn in ("build", "load", "find_nvcc"):
+        monkeypatch.setattr(_build, fn, refuse)
+    (m, n), (k, p) = shapes
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 64" if what[0] in "NP" else "takes int32"):
+        kernels.probe_bitcast_dot(torch.zeros((m, n), dtype=torch.int32),
+                                  torch.zeros((k, p), dtype=torch.int8))
+    assert all(kern.launches == 0 for kern in kernels.PROBE_KERNELS)
+
+
 def test_r3b_bitcast_layout_matches_pallas(r3b_kernels, capsys):
     """P4, tools/bench_probe_r3b.py:82: the unpack equals the TPU bitcast,
     and the port's layout probe answers m*4+b."""
@@ -237,7 +367,8 @@ def test_byteplane_weights_rows():
     np.testing.assert_array_equal(got.numpy(), a8.astype(np.int32) @ w8.astype(np.int32))
 
 
-@pytest.mark.parametrize("call", ["gemm", "gemm_write_back", "conv_step", "unpack", "packed_dot"])
+@pytest.mark.parametrize("call", ["gemm", "gemm_write_back", "conv_step", "unpack", "packed_dot",
+                                  "bitcast_dot"])
 def test_wrappers_refuse_cpu_tensors_without_building(monkeypatch, call):
     def refuse(*_a, **_k):
         raise AssertionError("a CPU call reached the kernel build")
@@ -253,7 +384,9 @@ def test_wrappers_refuse_cpu_tensors_without_building(monkeypatch, call):
              "unpack": lambda: kernels.probe_unpack_words(torch.zeros((4, 64), dtype=torch.int32)),
              "packed_dot": lambda: kernels.probe_packed_dot(
                  torch.zeros((64, 16), dtype=torch.int32), torch.zeros((4, 16, 64),
-                                                                       dtype=torch.int8))}
+                                                                       dtype=torch.int8)),
+             "bitcast_dot": lambda: kernels.probe_bitcast_dot(
+                 torch.zeros((4, 64), dtype=torch.int32), a8)}
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         calls[call]()
