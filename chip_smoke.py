@@ -187,6 +187,20 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    the command: FLOPs equal to 2 x the convs' MACs and peak memory measured.
    The bench's launches stay out of the ``kernels`` line, which counts the
    main paths.
+14. the SESR paper's deepest and widest members, SESR-M11 x2 (13 convs, 16
+   channels) and SESR-XL x2 (13 convs, 32 channels), from seeded weights:
+   each calibrated and certified on the card (both certify fast), and an
+   M11 with two convs at +127 that the certificate leaves unstamped; with
+   the counters at 0 before and read after, at 540x960, batch 1 and 4: K2
+   (the mode select_forward picks) and K1 (sim) on both, the corrected
+   kernel in the hybrid and PE-exact modes on the unstamped M11, every
+   output torch.equal with the plain interpreter on the card, one launch a
+   call; then each kernel's device time at its default tile (K1 and K2 also
+   at every tile of ops/kernels.py NET_TILES that fits a block), its bound
+   and share,
+   MACs computed over MACs needed, registers and shared memory (CUPTI,
+   ptxas, the wrapper's plan and the library's). One ``kernels`` entry per
+   (kernel, network, mode), with that network and mode's own launches.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -292,15 +306,16 @@ def mma_count(spec, pe_split, n, h, w, tile, pe):
     the convs after it) cut into sixteens, times the passes and k32 chunks
     of its implicit GEMM and its n-tiles of 8 output channels.
     ``pe_split``: per layer, one pass per PE (KernelConstants.pe_split) of
-    ``pe``; a network narrower than 16 channels runs padded to 16."""
-    from sesr_tpu_torch.convert import HIDDEN, layer_geometry
+    ``pe``; a network runs padded to its kernel width (16 or 32)."""
+    from sesr_tpu_torch.convert import kernel_width, layer_geometry
 
     th, tw = tile
     L = spec.num_convs
+    width = kernel_width(spec.num_channels)
     per_block = 0
     for i, k in enumerate(spec.kernel_sizes):
-        ic = spec.in_channels if i == 0 else HIDDEN
-        oc = spec.conv_out_channels if i == L - 1 else HIDDEN
+        ic = spec.in_channels if i == 0 else width
+        oc = spec.conv_out_channels if i == L - 1 else width
         passes, chunks, _ = layer_geometry(k, ic, pe_split[i], pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
         rows = -(-(th + 2 * r) * (tw + 2 * r) // 16)
@@ -316,14 +331,15 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     extent's width) cut into m-tiles of 64, times the layer's k32 steps;
     each wgmma is 64 x N x 32 MACs, N the layer's columns (convert.py
     wgmma_geometry at ``pe`` PEs; x4 on a split layer at 4)."""
-    from sesr_tpu_torch.convert import HIDDEN, wgmma_geometry
+    from sesr_tpu_torch.convert import kernel_width, wgmma_geometry
 
     th, tw = tile
     L = spec.num_convs
+    width = kernel_width(spec.num_channels)
     count = macs = 0
     for i, k in enumerate(spec.kernel_sizes):
-        ic = spec.in_channels if i == 0 else HIDDEN
-        oc = spec.conv_out_channels if i == L - 1 else HIDDEN
+        ic = spec.in_channels if i == 0 else width
+        oc = spec.conv_out_channels if i == L - 1 else width
         steps, _, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1, pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i:])
         rows = (th + 2 * r - k + 1) * (tw + 2 * r)
@@ -517,31 +533,16 @@ def sass_counts(lib):
     return counts
 
 
-def ptxas_report(log, family):
-    """{template arguments as mangled, e.g. "Li0ELi12ELb1": (registers,
-    spill store bytes)} of each instantiation of the kernel ``family`` in a
-    library's -Xptxas -v build log."""
-    report, lines = {}, log.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(family + r"I(.*?)EE", line)
-        if "Compiling entry function" in line and m:
-            near = " ".join(lines[i + 1:i + 4])
-            regs = re.search(r"Used (\d+) registers", near)
-            spill = re.search(r"(\d+) bytes spill stores", near)
-            report[m.group(1)] = (int(regs.group(1)) if regs else None,
-                                  int(spill.group(1)) if spill else None)
-    return report
-
-
 def net_sass_check(build):
     """The network kernels' tensor-core instructions, from ``cuobjdump -sass``
     of their libraries: the corrected kernel (sesr_corrected_kernel: the
     shipped instantiation and the general ones of 4 and 8 PE groups) on
     wgmma (IGMMA) and no mma.sync (IMMA); K1 and K2 (sesr_net_kernel, three
-    output widths, shipped and general) on mma.sync. Prints each kernel's
+    output widths, shipped and general, hidden widths 16 and 32) on
+    mma.sync. Prints each kernel's
     counts; fails otherwise."""
     want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 3),
-            "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 12)}
+            "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 24)}
     for name, (family, has, lacks, instances) in want.items():
         seen = 0
         for fn, c in sorted(sass_counts(build.library_path(name)).items()):
@@ -916,7 +917,7 @@ def probes_phase(torch, dev):
     log = _build.build("probes").log
     for family in ("probe_bitcast_dot_kernel", "probe_unpack_runs_kernel", "probe_gemm_kernel"):
         print(f"[7] ptxas {family} (template arguments: registers, spill store bytes): "
-              f"{ptxas_report(log, family)}", flush=True)
+              f"{_build.ptxas_report(log, family)}", flush=True)
     print(f"[7] ptxas lines on wgmma: {[ln.strip() for ln in log.splitlines() if 'wgmma' in ln]}",
           flush=True)
     print(f"[7] max_abs_err over every comparison, per kernel: {err}", flush=True)
@@ -2451,14 +2452,15 @@ def hwconfig_phase(torch, dev, card):
 
     # registers and spills of each instantiation from ptxas (CUPTI's trace
     # may miss a launch: then its values read "not measured")
-    reports = {lib: ptxas_report(_build.build(lib).log, fam) for lib, fam in (
+    reports = {lib: _build.ptxas_report(_build.build(lib).log, fam) for lib, fam in (
         ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
 
     def ptxas_of(kern, spec, kc):
         if kern is corrected_net:
             key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}"
             return key, reports["sesr_corrected"].get(key, (None, None))
-        key = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}")
+        key = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}"
+               f"ELi{kc.width}")
         return key, reports["sesr_net"].get(key, (None, None))
 
     entries = []
@@ -2508,6 +2510,261 @@ def hwconfig_phase(torch, dev, card):
                      f"{HW_CONFIGS[cname]}"))
     print(f"[12] the hwconfig phase took {time.perf_counter() - t_phase:.1f} s {tag}",
           flush=True)
+    return entries
+
+
+# phase 14: the SESR paper's deepest and widest members (Bhardwaj et al.,
+# "Collapsible Linear Blocks for Super-Efficient Super Resolution", MLSys
+# 2022): SESR-M11 x2 (13 convs, 16 channels) and SESR-XL x2 (13 convs, 32
+# channels), from seeded weights (the published checkpoints are not in the
+# repository), at the sr_x2 frame
+FAMILY_NETS = {"m11": dict(name="sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
+                           num_lblocks=11, scaling_factor=2),
+               "xl": dict(name="sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32,
+                          num_lblocks=11, scaling_factor=2)}
+# the unstamped M11: these convs' weights at +127, so that the 18-bit clamp
+# fires on data there and the certificate leaves them unstamped
+SATURATED = (3, 9)
+
+
+def halo_ratio(spec, tile):
+    """MACs K1 and K2 compute over the MACs the network needs, from the
+    extents of csrc/sesr_net.cu: conv i of a tile computes the tile and the
+    ring of the convs after it, (th + 2 r) x (tw + 2 r) pixels."""
+    th, tw = tile
+    L = spec.num_convs
+    chans = [spec.in_channels] + [spec.num_channels] * (L - 1) + [spec.conv_out_channels]
+    done = need = 0
+    for i, k in enumerate(spec.kernel_sizes):
+        r = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
+        macs = k * k * chans[i] * chans[i + 1]
+        done += (th + 2 * r) * (tw + 2 * r) * macs
+        need += th * tw * macs
+    return done / need
+
+
+def family_phase(torch, dev, card):
+    """Phase 14, SESR-M11 x2 and SESR-XL x2 on the card: each calibrated
+    from seeded collapsed weights and certified with the port's own
+    ``calibrate`` and ``certify_fast``, and an M11 whose convs SATURATED
+    are at +127 (its certificate leaves them unstamped); then, with the
+    launch counters at 0 before and read after, the main path at 540x960,
+    batch 1 and 4: the mode ``select_forward`` picks (K2 for the certified
+    two, hybrid for the unstamped M11) and K1 (``pe_exact_forward``, behind
+    ``sim``), and the unstamped M11's corrected PE-exact mode; every output
+    torch.equal with the plain interpreter on the card, one launch a call.
+    Then each kernel's device time (CUDA events) at its default tile and,
+    for K1 and K2, at each tile of NET_TILES that fits a block: its
+    bound and share, MACs computed over MACs needed (``halo_ratio``), the
+    tensor-core MACs over the network's, registers and shared memory
+    (CUPTI, the wrapper's plan and the library's, which must agree) and
+    ptxas's registers and spills of the instantiation. Returns the
+    kernels-line entries."""
+    from sesr_tpu_torch.config import SESRSpec
+    from sesr_tpu_torch.convert import kernel_constants
+    from sesr_tpu_torch.deploy import select_forward
+    from sesr_tpu_torch.models.sesr import init_params
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.ops.corrected import (hybrid_forward, pe_exact_corrected_forward,
+                                              split_layers)
+    from sesr_tpu_torch.ops.fast import fast_forward
+    from sesr_tpu_torch.ops.kernels import (NET_KERNELS, NET_TILES, SMEM_LIMIT, corrected_net,
+                                            fast_net, pe_exact_net, reset_launch_counts)
+    from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.certify import certify_fast
+    from sesr_tpu_torch.quant.integer import (integer_forward, integer_forward_int8,
+                                              quantize_input)
+    from sesr_tpu_torch.timing import median_ms
+
+    tag = f"({card})"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    nets = {}
+    for key, kw in FAMILY_NETS.items():
+        spec = SESRSpec(**kw)
+        params = init_params(spec, torch.Generator().manual_seed(len(nets)))
+        calib = [rng.random((1, 96, 128, 3), dtype=np.float32) for _ in range(2)]
+        cert = [rng.random((1,) + CERT_FRAME + (3,), dtype=np.float32) for _ in range(2)]
+        t0 = time.perf_counter()
+        qp = calibrate(spec, params, calib, safe_zero_floor=True, device="cuda")
+        t1 = time.perf_counter()
+        qp = certify_fast(spec, qp, cert, device="cuda")
+        t2 = time.perf_counter()
+        print(f"[14] {spec.name}: {spec.num_convs} convs of {spec.num_channels} channels; "
+              f"calibrate {t1 - t0:.2f} s, certify_fast {t2 - t1:.2f} s on the card: "
+              f"{qp.cert_grade} {qp.cert_stamps}", flush=True)
+        if not qp.fast_cert_ok:
+            fail(f"[14] {spec.name} did not certify fast: {qp.cert_stamps}")
+        nets[key] = (spec, qp, cert)
+    spec, qp, cert = nets["m11"]
+    sat = dataclasses.replace(qp, w_int=[
+        np.full_like(np.asarray(w), 127) if i in SATURATED else np.asarray(w)
+        for i, w in enumerate(qp.w_int)])
+    sat = certify_fast(spec, sat, cert, device="cuda")
+    stamped = tuple(sat.fast_cert_layers or ())
+    print(f"[14] {spec.name} with convs {SATURATED} at +127: {sat.cert_grade} "
+          f"{sat.cert_stamps}", flush=True)
+    if select_forward(sat)[0] != "hybrid" or any(stamped[i] for i in SATURATED):
+        fail(f"[14] the saturated M11 should serve hybrid with convs {SATURATED} unstamped, "
+             f"got {select_forward(sat)[0]} {stamped}")
+    nets["m11u"] = (spec, sat, cert)
+
+    x4 = torch.from_numpy(rng.random((4,) + FRAME + (3,), dtype=np.float32)).to(dev)
+    x1 = x4[:1].contiguous()
+    # the main path, counters at 0 before it: per network the served mode
+    # (int8 out) and K1, each at batch 1 and 4
+    calls = {"m11": (("fast", "fast"), ("sim", "exact")),
+             "xl": (("fast", "fast"), ("sim", "exact")),
+             "m11u": (("hybrid", "hybrid"), ("pe-exact", "pe-exact"))}
+    fwd = {"fast": lambda s, q, x: fast_forward(s, q, x, out_dtype="int8"),
+           "hybrid": lambda s, q, x: hybrid_forward(s, q, x, out_dtype="int8"),
+           "pe-exact": lambda s, q, x: pe_exact_corrected_forward(s, q, x, out_dtype="int8"),
+           "sim": lambda s, q, x: pe_exact_forward(s, q, x)}
+    kernel_of = {"fast": fast_net, "hybrid": corrected_net, "pe-exact": corrected_net,
+                 "sim": pe_exact_net}
+
+    def counts():
+        return {k.symbol: k.launches for k in NET_KERNELS}
+
+    # each (network, mode)'s own launches and frames, read from the
+    # counters around each of its calls
+    own = {(key, mode): [0, 0] for key, modes in calls.items() for mode, _ in modes}
+    reset_launch_counts()
+    outs = {}
+    for key, modes in calls.items():
+        spec, qp, _ = nets[key]
+        if select_forward(qp)[0] != modes[0][0]:
+            fail(f"[14] {key}: select_forward picks {select_forward(qp)[0]}, not {modes[0][0]}")
+        for mode, _ in modes:
+            for x in (x1, x4):
+                before = counts()
+                outs[key, mode, x.shape[0]] = fwd[mode](spec, qp, x)
+                after = counts()
+                made = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                if made != {kernel_of[mode].symbol: 1}:
+                    fail(f"[14] {key} {mode} batch {x.shape[0]} launched {made}, want one "
+                         f"launch of {kernel_of[mode].symbol}")
+                own[key, mode][0] += 1
+                own[key, mode][1] += x.shape[0]
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {"sesr_pe_exact_net": 4, "sesr_fast_net": 4, "sesr_corrected_net": 4}
+    if launches != want:
+        fail(f"[14] the main path launched {launches}, want one launch a call: {want}")
+    print(f"[14] main path at {FRAME}, batch 1 and 4: launches {launches}; per network and "
+          f"mode (launches, frames) {own}; corrected by split mask "
+          f"{dict(corrected_net.split_launches)}", flush=True)
+    # the same outputs from the plain interpreter on the card
+    plain = {"fast": dict(corrected=True, compute="fast"), "sim": dict(corrected=False),
+             "hybrid": None, "pe-exact": dict(corrected=True, compute="exact")}
+    for (key, mode, batch), got in outs.items():
+        spec, qp, _ = nets[key]
+        x = x1 if batch == 1 else x4
+        kw = plain[mode] or dict(corrected=True, compute="exact",
+                                 fast_layers=tuple(qp.fast_cert_layers))
+        if mode == "sim":
+            want_y = integer_forward(spec, qp, x, **kw)[0]
+        else:
+            want_y = integer_forward_int8(spec, qp, x, **kw)
+        if got.shape != want_y.shape or not torch.equal(got, want_y):
+            fail(f"[14] {spec.name} {mode} batch {batch}: differs from the plain interpreter")
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"[14] {spec.name} {mode} batch {batch}: non-finite output")
+        print(f"[14] {spec.name} {mode} batch {batch}: output {tuple(got.shape)} "
+              f"{got.dtype}, torch.equal with plain (cuda)", flush=True)
+        del want_y
+    del outs
+
+    # timing, each kernel batch 1 at its default tile and K1 / K2 over the sweep
+    reports = {lib: _build.ptxas_report(_build.build(lib).log, fam) for lib, fam in (
+        ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
+    lib = _build.load("sesr_net")
+    entries = []
+    cases = [(pe_exact_net, "m11", None, "sim"), (fast_net, "m11", None, "fast"),
+             (pe_exact_net, "xl", None, "sim"), (fast_net, "xl", None, "fast"),
+             (corrected_net, "m11u", "hybrid", "hybrid"),
+             (corrected_net, "m11u", "pe-exact", "pe-exact")]
+    for kern, key, mode, path_mode in cases:
+        n_launch, n_frames = own[key, path_mode]
+        spec, qp, _ = nets[key]
+        split_arg = split_layers(qp, mode) if mode else None
+        kc = kernel_constants(spec, qp, kern.datapath, split_arg)
+        x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
+        tile0 = kern.tile(spec, kc.pe_split, kc.pe, kc.general)
+        ref = kern(spec, qp, x_q, split=split_arg)
+        label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''} {FRAME[0]}x{FRAME[1]}"
+        if kern is corrected_net:
+            pkey = f"Li4ELb{int(kc.general)}"
+            p_regs, p_spill = reports["sesr_corrected"].get(pkey, (None, None))
+            tiles = [tile0]
+        else:
+            pkey = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}"
+                    f"ELi{kc.width}")
+            p_regs, p_spill = reports["sesr_net"].get(pkey, (None, None))
+            tiles = []
+            mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
+            for tile in NET_TILES:
+                plan = kern.smem_bytes(spec, tile, kc.pe_split, kc.pe, kc.general)
+                built = lib.sesr_net_smem(int(kern is pe_exact_net), spec.num_convs,
+                                          spec.in_channels, spec.conv_out_channels, *tile, mask,
+                                          kc.pe, int(kc.general), kc.width)
+                if plan != built:
+                    fail(f"[14] {label} tile {tile}: the wrapper plans {plan} B of shared "
+                         f"memory, the library {built}")
+                if plan > SMEM_LIMIT:
+                    print(f"[14] {label} tile {tile[0]}x{tile[1]}: needs {plan} B of shared "
+                          f"memory, more than a block's {SMEM_LIMIT}: not taken", flush=True)
+                else:
+                    tiles.append(tile)
+        pattern = "sesr_corrected_kernel" if kern is corrected_net else "sesr_net_kernel"
+        attrs = launch_attrs(torch, {t: (lambda t=t: kern(spec, qp, x_q, tile=t, split=split_arg))
+                                     for t in tiles}, pattern)
+        weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
+        n, h, w = x_q.shape[:3]
+        macs = weights * n * h * w
+        moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
+        bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
+        ms = None
+        for tile in tiles:
+            if not torch.equal(kern(spec, qp, x_q, tile=tile, split=split_arg), ref):
+                fail(f"[14] {label} at tile {tile} differs from tile {tile0}")
+            tile_ms = median_ms(lambda: kern(spec, qp, x_q, tile=tile, split=split_arg), dev,
+                                20, warmup=3, lead_ms=2.0)
+            regs, smem = attrs[tile]
+            plan = kern.smem_bytes(spec, tile, kc.pe_split, kc.pe, kc.general)
+            if smem is not None and smem != plan:
+                fail(f"[14] {label} tile {tile}: CUPTI reports {smem} B of shared memory, the "
+                     f"plan {plan}")
+            _, tc_macs, instr = tensor_count(kern, spec, kc.pe_split, n, h, w, tile, kc.pe)
+            print(f"[14] {label} tile {tile[0]}x{tile[1]}{' (default)' if tile == tile0 else ''}"
+                  f": {tile_ms:.4f} ms/frame, share of bound {bnd[0] / tile_ms:.4f}; MACs "
+                  f"computed / needed {halo_ratio(spec, tile):.3f} (extents), tensor-core MACs "
+                  f"{tc_macs / macs:.3f}x the network's ({instr}); CUPTI "
+                  f"{regs if regs is not None else 'not measured'} registers, "
+                  f"{smem if smem is not None else 'not measured'} B shared memory per block "
+                  f"(plan {plan}) {tag}", flush=True)
+            if tile == tile0:
+                ms = tile_ms
+        kw = plain_kwargs(kern, qp, mode)
+        plain_ms = median_ms(lambda: integer_forward(spec, qp, x1, **kw), dev, 3)
+        print(f"[14] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, "
+              f"{'general' if kc.general else 'shipped'} instantiation <{pkey}>: ptxas {p_regs} "
+              f"registers, {p_spill} B spill stores; per-PE passes on convs "
+              f"{[i for i in range(spec.num_convs) if kc.pe_split[i]]}; bound "
+              f"{bnd[0] * 1e3:.3f} us ({bnd[1]}: {2 * macs:.4g} int8 ops, {moved} bytes), share "
+              f"{bnd[0] / ms:.4f}; plain {plain_ms:.3f} ms; launches on the main path "
+              f"{n_launch} over {n_frames} frames ({launches[kern.symbol]} of every "
+              f"network) {tag}", flush=True)
+        name = f"{kern.symbol}[{spec.name}{f', {mode}' if mode else ''}]"
+        entries.append(dict(
+            name=name, route="cuda", source=SOURCES[kern.symbol],
+            replaces=REPLACES[kern.symbol], launches=n_launch,
+            launches_per_frame={"main path": n_launch / n_frames},
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=None, tile=list(tile0),
+            work=f"{spec.name}, {FRAME} frame, batch 1{f', {mode} mode' if mode else ''}"))
+    print(f"[14] the family phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
     return entries
 
 
@@ -2620,6 +2877,7 @@ def main():
         fail(f"the port is not next to this script ({e})")
 
     # 1. the card
+    t_start = time.perf_counter()
     card = card_line()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2644,6 +2902,7 @@ def main():
             os.path.join(REPO, "artifacts", f"qparams_{task}.npz"))
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     max_err = {k.symbol: 0.0 for k in NET_KERNELS}
 
     def check(kern, kspec, cqp, x, label, mode=None):
@@ -2800,6 +3059,8 @@ def main():
           flush=True)
     net_sass_check(_build)
 
+    print(f"[3] the kernel checks took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    t0 = time.perf_counter()
     # 4. the main path, with the launch counters at 0: sr_x2 (infer through
     # K2, sim through K1)
     reset_launch_counts()
@@ -2907,6 +3168,8 @@ def main():
     print("[4] sim nr and sim --corrected nr at 1080x1920: array_equal with plain (cuda)",
           flush=True)
 
+    print(f"[4] the main paths took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    t0 = time.perf_counter()
     # 5. timing: K1 and K2 at sr_x2 540x960, the corrected kernel on nr's
     # and nrdm_6's 1080x1920 frame in their hybrid mode; batch 1
     entries = []
@@ -2939,6 +3202,8 @@ def main():
     print(f"[5] hybrid_forward on nr 1080x1920 end to end (quantize, sesr_corrected_net, "
           f"dequantize): {fwd_ms:.4f} ms/frame", flush=True)
 
+    print(f"[5] the timing phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    t0 = time.perf_counter()
     # 6. where a served frame's time goes
     for task, tspec, tqp, fwd, frame in (
             (TASK, spec, qp, fast_forward, FRAME),
@@ -2957,8 +3222,11 @@ def main():
                 for k, t in per.items():
                     print(f"[6]     {t:.4f} ms  {k}", flush=True)
 
+    print(f"[6] the breakdown phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     # 7. the probes
+    t0 = time.perf_counter()
     entries += probes_phase(torch, dev)
+    print(f"[7] the probes phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
     # 8. the artifact toolchain: its launches join the network kernels'
     t0 = time.perf_counter()
@@ -2990,6 +3258,10 @@ def main():
     entries += hw_entries
     # 13. bench and profile (their launches stay out of the kernels line)
     bench_phase(torch, dev, card)
+    # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode)
+    entries += family_phase(torch, dev, card)
+    print(f"[14] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

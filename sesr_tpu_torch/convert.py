@@ -19,28 +19,67 @@ from sesr_tpu_torch.ops.fixedpoint import requant_factors
 from sesr_tpu_torch.quant.integer import pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
-# The int32 parameter block of the kernels (csrc/sesr_common.cuh P_*):
-# offset of each field, in words. Float fields travel as their float32 bits.
-# K1 and K2 copy the words before ``zc_pe`` into shared memory; the corrected
-# kernel copies them all (``zc_pe``: per layer, PE and channel, so the
-# block's size depends on the PE count: ``param_words``).
-MAX_LAYERS = 8
-HIDDEN = 16
+# The int32 parameter block of the kernels (csrc/sesr_common.cuh): a head
+# of HEAD_WORDS words, one record of ``record_words(width)`` words per conv
+# (its scalars, then its bias row and its z_eff * sum(W) row, ``width``
+# words each), then, for the corrected kernel, z_eff * sum(W_p) per conv,
+# PE and channel. Float fields travel as their float32 bits. The block of
+# an L-conv network holds L records: K1 and K2 copy the head and the
+# records (``net_words``) into shared memory, the corrected kernel all of
+# it (``param_words``).
+MAX_LAYERS = 16
+WIDTHS = (16, 32)                  # K1's and K2's hidden widths; the corrected kernel's is 16
 MAX_PES = 8
-PARAM_LAYOUT = dict(w_off=0, z_eff=8, z_in=16, rq_m=24, rq_p=32, res_m=40,
-                    res_p=41, z_out=42, acc_hi=43, add_hi=44, pe_split=45,
-                    clamp20=46, bias=48, zc=48 + MAX_LAYERS * HIDDEN,
-                    zc_pe=48 + 2 * MAX_LAYERS * HIDDEN)
+HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6)
+HEAD_WORDS = 8
+RECORD = dict(w_off=0, z_eff=1, z_in=2, rq_m=3, rq_p=4, bias=8)      # zc: bias + width
 DATAPATHS = ("exact", "fast", "corrected")
 # the kernels' magic-number conversions (sesr_common.cuh kMagic) hold an
 # integer exactly while |y| < 2^22
 MAGIC_RANGE = 1 << 22
 
 
-def param_words(pe: int) -> int:
+def kernel_width(num_channels: int) -> int:
+    """The hidden width a network of ``num_channels`` runs at in the
+    kernels: the first of WIDTHS that holds it (padded with zero
+    channels, ``_padded``). Raises NotImplementedError past the widest."""
+    for width in WIDTHS:
+        if num_channels <= width:
+            return width
+    raise NotImplementedError(
+        f"the fused kernels run hidden widths of at most {WIDTHS[-1]} channels, this "
+        f"network has {num_channels}")
+
+
+def record_words(width: int) -> int:
+    return RECORD["bias"] + 2 * width
+
+
+def param_at(field: str, layer: int = 0, width: int = 16) -> int:
+    """Word of ``field`` in the parameter block (sesr_common.cuh p_at): a
+    head field, or conv ``layer``'s record field at hidden width
+    ``width``; "bias" and "zc" are the first of ``width`` words."""
+    if field in HEAD:
+        return HEAD[field]
+    at = HEAD_WORDS + layer * record_words(width)
+    return at + (RECORD["bias"] + width if field == "zc" else RECORD[field])
+
+
+def net_words(num_layers: int, width: int) -> int:
+    """The head and the records: the words K1 and K2 read."""
+    return HEAD_WORDS + num_layers * record_words(width)
+
+
+def zc_pe_at(num_layers: int, width: int, pe: int, layer: int, p: int) -> int:
+    """First of the ``width`` words of z_eff * sum(W_p), conv ``layer``'s PE
+    p (sesr_common.cuh zcp_at)."""
+    return net_words(num_layers, width) + (layer * pe + p) * width
+
+
+def param_words(pe: int, num_layers: int, width: int = 16) -> int:
     """Words of the parameter block at ``pe`` PEs (sesr_common.cuh
-    param_words): ``zc_pe`` holds MAX_LAYERS x pe x HIDDEN words."""
-    return PARAM_LAYOUT["zc_pe"] + MAX_LAYERS * pe * HIDDEN
+    param_words)."""
+    return net_words(num_layers, width) + num_layers * pe * width
 
 
 def pe_groups(pe: int) -> int:
@@ -85,7 +124,7 @@ class KernelConstants:
     words of every layer, the parameter block, and the shapes."""
 
     weights: np.ndarray          # int32 B words of every layer (_fragment_words; corrected: _wgmma_b_words)
-    params: np.ndarray           # int32 (param_words(pe),)
+    params: np.ndarray           # int32 (param_words(pe, num_layers, width),)
     num_layers: int
     in_channels: int
     out_channels: int
@@ -93,18 +132,31 @@ class KernelConstants:
     clamp20: tuple               # per layer: the kernel clamps the layer's sum to pe_add_bits
     pe: int                      # PEs of the artifact's datapath
     general: bool                # K1 / corrected: the instantiation for any PE count and widths
+    width: int                   # the hidden width the network runs at (kernel_width)
+
+    def param(self, field: str, layer: int = 0):
+        """A field of the parameter block: a head or record word, or conv
+        ``layer``'s row of ``width`` words ("bias", "zc")."""
+        at = param_at(field, layer, self.width)
+        return self.params[at: at + self.width] if field in ("bias", "zc") else self.params[at]
+
+    def zc_pe(self, layer: int, p: int) -> np.ndarray:
+        """The row of z_eff * sum(W_p) of conv ``layer``'s PE p."""
+        at = zc_pe_at(self.num_layers, self.width, self.pe, layer, p)
+        return self.params[at: at + self.width]
 
 
 def _f32_bits(v: float) -> int:
     return int(np.array(v, np.float32).view(np.int32))
 
 
-def _act_byte(ic: int, c: int) -> int:
-    """Byte of input channel c in its 32-bit activation word: a pixel of a
-    <= 4-channel input is one word (channel c in byte c); a 16-channel pixel
-    is four words, word p holding channels p, p+4, p+8, p+12 (PE p's at
-    four PEs)."""
-    return c if ic <= 4 else c // 4
+def _act_word(ic: int, c: int) -> tuple:
+    """(word, byte) of input channel c in a pixel's 32-bit activation
+    words: a pixel of a <= 4-channel input is one word (channel c in byte
+    c); a 16- or 32-channel pixel is ic / 4 words, word w holding channels
+    w % 4 + 16 (w // 4) + 4 j in byte j, so that at four PEs PE p's
+    channels are words p and p + 4."""
+    return (0, c) if ic <= 4 else (c % 4 + 4 * (c // 16), (c // 4) % 4)
 
 
 def _passes(ic: int, split: bool, pe: int):
@@ -121,30 +173,41 @@ def _passes(ic: int, split: bool, pe: int):
 def _tap_words(w_hwio: np.ndarray, split: bool, pe: int) -> np.ndarray:
     """uint32 words (pass, k*k tap, input word, OC): in the word of pass g
     for output channel o, the byte of each channel c of the pass holds
-    w[dy, dx, c, o], in the byte where the activation word holds channel c."""
+    w[dy, dx, c, o], in the word and byte where the activations hold
+    channel c (``_act_word``)."""
     k, _, ic, oc = w_hwio.shape
     passes = _passes(ic, split, pe)
-    words = np.zeros((len(passes), k * k, 1 if ic <= 4 else 4, oc), np.uint32)
+    words = np.zeros((len(passes), k * k, 1 if ic <= 4 else ic // 4, oc), np.uint32)
     taps = np.asarray(w_hwio, np.int64).reshape(k * k, ic, oc)
     for g, chans in enumerate(passes):
         for c in chans:
-            byte = (taps[:, c, :] & 0xFF).astype(np.uint32)
-            words[g, :, 0 if ic <= 4 else c % 4, :] |= byte << np.uint32(8 * _act_byte(ic, c))
+            word, byte = _act_word(ic, c)
+            words[g, :, word, :] |= (taps[:, c, :] & 0xFF).astype(np.uint32) << np.uint32(8 * byte)
     return words
+
+
+def words_per_tap(ic: int, split: bool, pe: int) -> int:
+    """Activation words one pass of a layer reads per tap in K1 and K2:
+    one for a <= 4-channel input; a split layer at four PEs PE p's own
+    (words p and p + 4 at 32 channels: ic / 16); else all ic / 4."""
+    if ic <= 4:
+        return 1
+    return ic // 16 if split and pe == 4 else ic // 4
 
 
 def layer_geometry(k: int, ic: int, split: bool, pe: int):
     """(passes, k32 chunks, tap_major) of one layer's implicit GEMM in K1
-    and K2, with one pass per PE (``split``) or one over all channels.
-    Tap-major (any layer that reads one word per pixel, and a split
-    16-channel layer at four PEs, whose pass p reads word p: PE p's
-    channels): k-slot word s of chunk c is tap 8c + s of the pass's input
-    word; else (one pass over 16 channels, or a split layer at another PE
-    count, each pass over all four words with zero weights outside the PE's
-    channels): tap 2c + s // 4, word s % 4."""
+    and K2, with one pass per PE (``split``) or one over all channels. A
+    pass reads ``words_per_tap`` words a tap (wpt), 8 / wpt taps a chunk:
+    k-slot s of chunk c is the pass's word s % wpt of tap (8 / wpt) c + s //
+    wpt. Tap-major (any layer that reads one word per pixel, and a split
+    hidden layer at four PEs, whose pass p reads PE p's words: word j is p +
+    4 j); else (one pass over all channels, or a split layer at another PE
+    count, each pass over all ic / 4 words with zero weights outside the
+    PE's channels) word j is word j."""
     tap_major = ic <= 4 or (split and pe == 4)
     passes = len(_passes(ic, split, pe))
-    chunks = -(-k * k // 8) if tap_major else -(-k * k // 2)
+    chunks = -(-k * k * words_per_tap(ic, split, pe) // 8)
     return passes, chunks, tap_major
 
 
@@ -165,11 +228,12 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
     """B fragments of one layer for mma.sync.m16n8k32.row.col.s8: int32
     words (pass, chunk, lane, n-tile, reg), the order in which lane
     4g + t loads its registers. reg 0 is k-slot word t of the chunk, reg 1
-    word t + 4, both for column g of the n-tile; a padded tap or channel
-    is a zero word."""
+    word t + 4 (``layer_geometry``), both for column g of the n-tile; a
+    padded tap or channel is a zero word."""
     k, _, ic, oc = w_hwio.shape
     words = _tap_words(w_hwio, split, pe)
     npass, chunks, tap_major = layer_geometry(k, ic, split, pe)
+    wpt = words_per_tap(ic, split, pe)
     cols = _fragment_columns(oc, last).reshape(-1, 8)          # (n-tile, g)
     lane = np.arange(32)
     g, t = lane // 4, lane % 4
@@ -177,10 +241,8 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
     frag = np.zeros((npass, chunks, 32, cols.shape[0], 2), np.uint32)
     for p in range(npass):
         for c in range(chunks):
-            if tap_major:
-                tap, word = 8 * c + slot, np.full_like(slot, p if ic > 4 else 0)
-            else:
-                tap, word = 2 * c + slot // 4, slot % 4
+            tap, j = (8 // wpt) * c + slot // wpt, slot % wpt
+            word = (0 if ic <= 4 else p + 4 * j) if tap_major else j
             for n in range(cols.shape[0]):
                 o = cols[n, g][:, None]                        # (lane, 1)
                 ok = (tap < k * k) & (o >= 0)
@@ -361,8 +423,8 @@ def shortcut_bound(qp: QuantParams, split0: bool = False) -> float:
 
 def _padded(w: np.ndarray, ic: int, oc: int) -> np.ndarray:
     """w (k, k, i, o) with zero weights for the input channels i..ic - 1 and
-    output channels o..oc - 1: a network narrower than HIDDEN runs in the
-    16-channel kernels, its padded channels adding nothing to any sum (their
+    output channels o..oc - 1: a network narrower than a kernel width runs
+    padded to it (``kernel_width``), its padded channels adding nothing to any sum (their
     weights in and out are zero) and keeping the real channels' indices,
     and with them each channel's PE."""
     k = w.shape[0]
@@ -396,10 +458,15 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     no adder clamp that can fire on a K1 layer, a split corrected layer or
     K2's conv 0, in the instantiations the shipped artifacts use; otherwise
     in the ``general`` ones, which clamp every layer's sum to pe_add_bits
-    (the identity where it cannot fire). A hidden width below HIDDEN runs padded
-    with zero channels (``_padded``). Raises NotImplementedError for a
-    network or artifact outside that (quan_bits != 8, a hidden width above
-    HIDDEN, an int16 shortcut that may not hold round(s), ``shortcut_bound``).
+    (the identity where it cannot fire). Networks of 3 to MAX_LAYERS convs
+    run; K1 and K2 take hidden widths of 16 and 32, the corrected kernel 16,
+    and a narrower network runs padded with zero channels (``_padded``).
+    Raises NotImplementedError for a network or artifact outside that
+    (quan_bits != 8, more than MAX_LAYERS convs, a hidden width above 32, or
+    above 16 for the corrected kernel, an int16 shortcut that may not hold
+    round(s), ``shortcut_bound``, or a network whose plan at the kernel's
+    smallest tile does not fit a block's shared memory: K1's general
+    instantiation at width 32 with split layers past 4 PEs).
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -423,14 +490,21 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         raise NotImplementedError(
             f"a {hw.pe_add_bits}-bit PE sum plus a {hw.bias_bits}-bit bias can reach 2^22, "
             f"past the kernels' exact int <-> float32 conversions")
-    if not (3 <= L <= MAX_LAYERS and ks[0] == 5 and ks[-1] == 5
-            and all(k == 3 for k in ks[1:-1])
-            and spec.num_channels <= HIDDEN and spec.in_channels <= 4
-            and spec.conv_out_channels in (3, 12, 16)):
+    if not 3 <= L <= MAX_LAYERS:
         raise NotImplementedError(
-            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs of width at most "
-            f"{HIDDEN}, 1-4 input and 3, 12 or 16 output channels, at most "
-            f"{MAX_LAYERS} convs; {spec.name} is outside that")
+            f"the fused kernels run 3 to {MAX_LAYERS} convs; {spec.name} has {L}")
+    width = kernel_width(spec.num_channels)
+    if datapath == "corrected" and width != WIDTHS[0]:
+        raise NotImplementedError(
+            f"the corrected kernel keeps every layer's weights in shared memory and runs "
+            f"hidden widths of at most {WIDTHS[0]} channels; {spec.name} has "
+            f"{spec.num_channels} (ROADMAP: the corrected kernel at width 32, its weights "
+            f"streamed a layer at a time)")
+    if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])
+            and spec.in_channels <= 4 and spec.conv_out_channels in (3, 12, 16)):
+        raise NotImplementedError(
+            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs with 1-4 input and 3, 12 "
+            f"or 16 output channels; {spec.name} is outside that")
     for i in range(L):
         z = qp.effective_zero(i)
         if not -128 <= z <= 127:
@@ -460,28 +534,38 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         raise NotImplementedError(
             f"the {datapath} kernel keeps the residual shortcut round(s) as int16; "
             f"this artifact bounds it only by {shortcut_bound(qp, split[0])}")
+    # the kernels' shared-memory plans (ops/kernels.py; imported here, as
+    # that module builds on this one): a network that not even the
+    # smallest tile fits is refused before any constants are built
+    from sesr_tpu_torch.ops.kernels import SMEM_LIMIT, kernel_of
+    kern = kernel_of(datapath)
+    need = kern.smem_bytes(spec, kern.tiles[-1], split, hw.pe, general)
+    if need > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"no tile of the {datapath} kernel fits {spec.name} at {hw.pe} PEs: the smallest, "
+            f"{kern.tiles[-1]}, needs {need} B of shared memory, more than a block's "
+            f"{SMEM_LIMIT} (ROADMAP queue 1 item 2: weights streamed a layer at a time)")
 
-    lay = PARAM_LAYOUT
-    prm = np.zeros(param_words(hw.pe), np.int32)
+    prm = np.zeros(param_words(hw.pe, L, width), np.int32)
     chunks, off = [], 0
     hi16 = (1 << (hw.bias_bits - 1)) - 1
-    prm[lay["pe_split"]] = sum(1 << i for i in range(L) if split[i])
-    prm[lay["clamp20"]] = sum(1 << i for i in range(L) if clamp[i])
+    prm[HEAD["pe_split"]] = sum(1 << i for i in range(L) if split[i])
+    prm[HEAD["clamp20"]] = sum(1 << i for i in range(L) if clamp[i])
     b_words = _wgmma_b_words if datapath == "corrected" else _fragment_words
     for i in range(L):
         w = np.asarray(qp.w_int[i])
         oc = w.shape[3]
-        padded = _padded(w, spec.in_channels if i == 0 else HIDDEN,
-                         spec.conv_out_channels if i == L - 1 else HIDDEN)
+        padded = _padded(w, spec.in_channels if i == 0 else width,
+                         spec.conv_out_channels if i == L - 1 else width)
         words = b_words(padded, split[i], hw.pe, last=i == L - 1)
-        prm[lay["w_off"] + i] = off
+        prm[param_at("w_off", i, width)] = off
         chunks.append(words)
         off += words.size
-        prm[lay["z_eff"] + i] = qp.effective_zero(i)
-        prm[lay["z_in"] + i] = _f32_bits(float(qp.a_zero[i]))
+        prm[param_at("z_eff", i, width)] = qp.effective_zero(i)
+        prm[param_at("z_in", i, width)] = _f32_bits(float(qp.a_zero[i]))
         m_f, p_f = requant_factors(qp.requant_m[i], qp.requant_n[i])
-        prm[lay["rq_m"] + i] = _f32_bits(m_f)
-        prm[lay["rq_p"] + i] = _f32_bits(p_f)
+        prm[param_at("rq_m", i, width)] = _f32_bits(m_f)
+        prm[param_at("rq_p", i, width)] = _f32_bits(p_f)
         zc_pe = np.zeros((hw.pe, oc), np.int64)
         if exact:
             bias = qp.fused_bias(i)
@@ -494,19 +578,18 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                 zc = np.zeros(oc, np.int64)
             else:
                 zc_pe[:] = 0
-        prm[lay["bias"] + i * HIDDEN: lay["bias"] + i * HIDDEN + oc] = bias
-        prm[lay["zc"] + i * HIDDEN: lay["zc"] + i * HIDDEN + oc] = zc
+        prm[param_at("bias", i, width):][:oc] = bias
+        prm[param_at("zc", i, width):][:oc] = zc
         for p in range(hw.pe):
-            at = lay["zc_pe"] + (i * hw.pe + p) * HIDDEN
-            prm[at: at + oc] = zc_pe[p]
+            prm[zc_pe_at(L, width, hw.pe, i, p):][:oc] = zc_pe[p]
     res_m, res_p = requant_factors(qp.res_requant_m, qp.res_requant_n)
-    prm[lay["res_m"]] = _f32_bits(res_m)
-    prm[lay["res_p"]] = _f32_bits(res_p)
-    prm[lay["z_out"]] = _f32_bits(float(qp.a_zero[L]))
-    prm[lay["acc_hi"]] = (1 << (hw.pe_acc_bits - 1)) - 1
-    prm[lay["add_hi"]] = (1 << (hw.pe_add_bits - 1)) - 1
+    prm[HEAD["res_m"]] = _f32_bits(res_m)
+    prm[HEAD["res_p"]] = _f32_bits(res_p)
+    prm[HEAD["z_out"]] = _f32_bits(float(qp.a_zero[L]))
+    prm[HEAD["acc_hi"]] = (1 << (hw.pe_acc_bits - 1)) - 1
+    prm[HEAD["add_hi"]] = (1 << (hw.pe_add_bits - 1)) - 1
     return KernelConstants(np.concatenate(chunks), prm, L, spec.in_channels,
-                           spec.conv_out_channels, split, clamp, hw.pe, general)
+                           spec.conv_out_channels, split, clamp, hw.pe, general, width)
 
 
 def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,

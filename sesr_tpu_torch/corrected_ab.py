@@ -7,11 +7,13 @@ inputs made from one numpy seed.
 
 ``--base DIR``: against another checkout of the repository, e.g. an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR`` into
-a directory that .gitignore lists. Each tree's own wrapper and kernel run
-in their own process (``python -c`` from the tree's root, which builds the
-tree's ``csrc/`` into its own ``build/``), in turns base, this, this, base;
-each prints its times and a digest of its int8 outputs, and the digests of
-the two trees must agree.
+a directory that .gitignore lists, on those three and on K1 and K2
+(``sesr_pe_exact_net``, ``sesr_fast_net``) on sr_x2's 540x960 frame. Each
+tree's own wrappers and kernels run in their own process (``python -c``
+from the tree's root, which builds the tree's ``csrc/`` into its own
+``build/``), in turns base, this, this, base; each prints its times, a
+digest of its int8 outputs and ptxas's registers and spill stores of each
+network kernel it built, and the digests of the two trees must agree.
 
 ``--variants NAMES``: against edited copies of ``csrc/sesr_corrected.cu``,
 each with the text edits of VARIANTS, built side by side (one nvcc each,
@@ -47,45 +49,61 @@ VARIANTS = {
 }
 FRAME = (1080, 1920)
 CASES = (("nr", "hybrid"), ("nrdm_6", "hybrid"), ("nr", "pe-exact"))
+# each network library's kernel family, whose ptxas report --base prints
+PTXAS_FAMILIES = {"sesr_net": "sesr_net_kernel", "sesr_corrected": "sesr_corrected_kernel"}
+# --base only: K1 and K2 on sr_x2, at its 540x960 frame
+TREE_CASES = CASES + (("sr_x2", "K1"), ("sr_x2", "K2"))
+SR_FRAME = (540, 960)
 
-# Times this tree's corrected kernel: run with ``python -c`` from a tree's
+# Times this tree's network kernels: run with ``python -c`` from a tree's
 # root, so that it imports that tree's package (whose wrapper API is
-# corrected_net(spec, qp, x_q, split=...) in every version).
+# kernel(spec, qp, x_q, split=...) in every version, split None but for the
+# corrected kernel).
 WORKER = r"""
 import dataclasses, hashlib, json, sys
 import numpy as np, torch
 from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import split_layers
-from sesr_tpu_torch.ops.kernels import corrected_net
+from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, pe_exact_net
 from sesr_tpu_torch.quant.integer import quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
 from sesr_tpu_torch.timing import median_ms
-reps, frame, cases = json.loads(sys.argv[1])
+reps, frames, cases = json.loads(sys.argv[1])
 dev = torch.device("cuda")
-x = torch.from_numpy(np.random.default_rng(0).random((1, *frame, 3), dtype=np.float32)).to(dev)
 out = {"device": torch.cuda.get_device_name(0)}
 for task, mode in cases:
     spec = spec_for_task(task)
     qp = QuantParams.load(f"artifacts/qparams_{task}.npz")
     if mode == "pe-exact":
         qp = dataclasses.replace(qp, fast_cert_layers=None)
-    split = split_layers(qp, mode)
+    kern = {"K1": pe_exact_net, "K2": fast_net}.get(mode, corrected_net)
+    split = split_layers(qp, mode) if kern is corrected_net else None
+    x = torch.from_numpy(np.random.default_rng(0).random((1, *frames[task], 3),
+                                                         dtype=np.float32)).to(dev)
     x_q = quantize_input(x, qp).to(torch.int8).contiguous()
-    y = corrected_net(spec, qp, x_q, split=split)
-    ms = median_ms(lambda: corrected_net(spec, qp, x_q, split=split), dev, reps, warmup=3,
-                   lead_ms=1.0)
+    y = kern(spec, qp, x_q, split=split)
+    ms = median_ms(lambda: kern(spec, qp, x_q, split=split), dev, reps, warmup=3, lead_ms=1.0)
     out[f"{task} {mode}"] = {"ms": ms,
                              "digest": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]}
+out["build_logs"] = {lib: _build.build(lib).log for lib in PTXAS_FAMILIES}
 print(json.dumps(out))
-"""
+""".replace("PTXAS_FAMILIES", repr(tuple(PTXAS_FAMILIES)))
 
 
 def run_tree(tree: Path, reps: int) -> dict:
-    res = subprocess.run([sys.executable, "-c", WORKER, json.dumps([reps, FRAME, CASES])],
+    from sesr_tpu_torch.ops import _build
+
+    frames = {task: SR_FRAME if task == "sr_x2" else FRAME for task, _ in TREE_CASES}
+    res = subprocess.run([sys.executable, "-c", WORKER, json.dumps([reps, frames, TREE_CASES])],
                          cwd=tree, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"the worker in {tree} failed:\n{res.stderr[-4000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    logs = out.pop("build_logs")
+    out["ptxas"] = {f"{family}<{args}>": list(v) for lib, family in PTXAS_FAMILIES.items()
+                    for args, v in _build.ptxas_report(logs[lib], family).items()}
+    return out
 
 
 def tree_ab(base: Path, reps: int) -> None:
@@ -96,7 +114,7 @@ def tree_ab(base: Path, reps: int) -> None:
         r = run_tree(tree, reps)
         runs.append((label, r))
         print(json.dumps({"tree": label, "path": str(tree), **r}), flush=True)
-    for t, m in CASES:
+    for t, m in TREE_CASES:
         key = f"{t} {m}"
         digests = {r[key]["digest"] for _, r in runs}
         if len(digests) != 1:

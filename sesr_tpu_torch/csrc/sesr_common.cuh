@@ -13,33 +13,42 @@
 
 namespace {
 
-constexpr int kC = 16;          // hidden width of the kernels (a narrower network is padded)
-constexpr int kMaxL = 8;        // deepest supported network (nrdm_6)
+constexpr int kC = 16;          // the corrected kernel's hidden width (a narrower network is padded)
+constexpr int kMaxC = 32;       // K1's and K2's widest hidden width: 16 or 32 (padded to the next)
+constexpr int kMaxL = 16;       // deepest supported network
 constexpr int kMaxPE = 8;       // most PEs of a datapath
 
 // Layout of the int32 parameter block (kept in sync with
-// sesr_tpu_torch/convert.py PARAM_LAYOUT).
-constexpr int P_WOFF = 0;                 // [kMaxL] weight word offset per layer
-constexpr int P_ZEFF = 8;                 // [kMaxL] pad value (z_eff) of conv i's input
-constexpr int P_ZIN = 16;                 // [kMaxL] f32 bits: domain-in zero of conv i
-constexpr int P_RQM = 24;                 // [kMaxL] f32 bits: requant mantissa of conv i
-constexpr int P_RQP = 32;                 // [kMaxL] f32 bits: 2^-n of conv i
-constexpr int P_RESM = 40;                // f32 bits: residual requant mantissa
-constexpr int P_RESP = 41;                // f32 bits: residual 2^-n
-constexpr int P_ZOUT = 42;                // f32 bits: zero of the output domain
-constexpr int P_ACC_HI = 43;              // per-PE accumulator max (pe_acc_bits; 18 shipped)
-constexpr int P_ADD_HI = 44;              // PE adder max (pe_add_bits; 20 shipped)
-constexpr int P_SPLIT = 45;               // bit i: conv i runs one pass per PE
-constexpr int P_CLAMP = 46;               // bit i: conv i's adder clamp can fire
-constexpr int P_BIAS = 48;                // [kMaxL][kC] bias added after the adder clamp
-constexpr int P_ZC = P_BIAS + kMaxL * kC; // [kMaxL][kC] z_eff * sum(W), subtracted before it
-constexpr int P_WORDS = P_ZC + kMaxL * kC;  // the words K1 and K2 read
-// [kMaxL][pe][kC] z_eff * sum(W_p), a split layer's per PE (the corrected
-// kernel only): PE p of conv i at P_ZCP + (i * pe + p) * kC
-constexpr int P_ZCP = P_WORDS;
-
-// Words of the parameter block at `pe` PEs (convert.py param_words).
-__host__ __device__ constexpr int param_words(int pe) { return P_ZCP + kMaxL * pe * kC; }
+// sesr_tpu_torch/convert.py param_at): a head of kHead words, then one
+// record per conv of rec_words(C) words, C the kernel's hidden width (16 or
+// 32), then (the corrected kernel only) z_eff * sum(W_p) per layer, PE and
+// channel. The block of an L-conv network holds L records and no more, so
+// that the kernels copy only what the network uses into shared memory.
+constexpr int P_RESM = 0;                 // f32 bits: residual requant mantissa
+constexpr int P_RESP = 1;                 // f32 bits: residual 2^-n
+constexpr int P_ZOUT = 2;                 // f32 bits: zero of the output domain
+constexpr int P_ACC_HI = 3;               // per-PE accumulator max (pe_acc_bits; 18 shipped)
+constexpr int P_ADD_HI = 4;               // PE adder max (pe_add_bits; 20 shipped)
+constexpr int P_SPLIT = 5;                // bit i: conv i runs one pass per PE
+constexpr int P_CLAMP = 6;                // bit i: conv i's adder clamp can fire
+constexpr int kHead = 8;
+// fields of a conv's record
+constexpr int R_WOFF = 0;                 // weight word offset of the layer
+constexpr int R_ZEFF = 1;                 // pad value (z_eff) of the conv's input
+constexpr int R_ZIN = 2;                  // f32 bits: domain-in zero of the conv
+constexpr int R_RQM = 3;                  // f32 bits: requant mantissa
+constexpr int R_RQP = 4;                  // f32 bits: 2^-n
+constexpr int R_BIAS = 8;                 // [C] bias added after the adder clamp; then
+                                          // [C] z_eff * sum(W), subtracted before it
+__host__ __device__ constexpr int rec_words(int C) { return R_BIAS + 2 * C; }
+// word `field` of conv `layer`'s record
+__host__ __device__ constexpr int p_at(int layer, int field, int C) { return kHead + layer * rec_words(C) + field; }
+// the words K1 and K2 read (a multiple of 8: their weights follow in shared memory)
+__host__ __device__ constexpr int net_words(int L, int C) { return kHead + L * rec_words(C); }
+// z_eff * sum(W_p) of conv `layer`'s PE p, C words (the corrected kernel)
+__host__ __device__ constexpr int zcp_at(int L, int C, int pe, int layer, int p) { return net_words(L, C) + (layer * pe + p) * C; }
+// Words of the parameter block (convert.py param_words).
+__host__ __device__ constexpr int param_words(int L, int C, int pe) { return net_words(L, C) + L * pe * C; }
 
 enum Kind { FIRST = 0, MID = 1, LAST = 2 };
 

@@ -14,7 +14,9 @@
 // convert.py cannot rule that clamp out), or one pass over all channels;
 // the sum clamped to pe_add_bits (20 shipped) where that clamp can fire;
 // then the clipped bias, the float32 requantization, ReLU, the int16
-// residual shortcut and the int8 output. Any HardwareConfig with 1 to 8
+// residual shortcut and the int8 output. Networks of 3 to 16 convs at
+// hidden width 16 (SESR-M11 among them; a width of 32 needs the weights
+// streamed a layer at a time, ROADMAP). Any HardwareConfig with 1 to 8
 // PEs and int8 activations runs: the 4-PE artifacts in the shipped
 // instantiation (<4, false>), every other in a general one (<4, true> up to
 // four PEs, <8, true> past them), which clamps every sum to pe_add_bits.
@@ -79,7 +81,7 @@
 // Shared memory per block (smem_plan): the parameter block, every layer's
 // B (23,552 bytes for nr hybrid), two ping-pong activation buffers (16 bytes
 // a pixel, with the rows the last m-tile reads past the extent), the
-// shortcut and a 16-byte scratch word: 214,160 bytes for nr at 32x64.
+// shortcut and a 16-byte scratch word: 213,008 bytes for nr at 32x64.
 // What is left: the epilogue. Without it the kernel takes about a sixth of
 // its time on nr's frame, without the wgmmas about three quarters (python
 // -m sesr_tpu_torch.corrected_ab --variants no_epilogue,no_mma); the tensor
@@ -260,13 +262,13 @@ struct Plan {
   int bytes;
 };
 
-// Shared memory of one block: the parameter block (param_words(pe)), every
+// Shared memory of one block: the parameter block (param_words(L, kC, pe)), every
 // layer's B, the buffers (y also holds layer 0's input as one word a pixel
 // while it is widened into x), the shortcut and the scratch word.
 __host__ __device__ inline Plan smem_plan(int split, int pe, int L, int in_ch, int ocl, int th,
                                           int tw) {
   Plan p;
-  p.w_at = round_up(param_words(pe) * 4, kAlign);
+  p.w_at = round_up(param_words(L, kC, pe) * 4, kAlign);
   p.w_bytes = 0;
   for (int i = 0; i < L; ++i) p.w_bytes += layer_b_bytes(i, L, in_ch, ocl, split, pe);
   int x = 0, y = extent(0, L, th, tw) * 4;
@@ -362,12 +364,12 @@ struct Form {
     const int add_hi = prm[P_ADD_HI];
     // (y * m) * 2^-n == y * (m * 2^-n) in float32 (see the note); with y
     // read as the float kMagic + y, one FFMA: fl(a * s - kMagic * s)
-    rq_s = __fmul_rn(as_f32(prm[P_RQM + layer]), as_f32(prm[P_RQP + layer]));
+    rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, kC)]), as_f32(prm[p_at(layer, R_RQP, kC)]));
     rq_c = -kMagic * rq_s;
     prelast = KIND == MID && layer == L - 2;
-    z_next = as_f32(prm[KIND == LAST ? P_ZOUT : P_ZIN + layer + 1]);
+    z_next = as_f32(prm[KIND == LAST ? P_ZOUT : p_at(layer + 1, R_ZIN, kC)]);
     res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
-    pad_next = KIND == LAST ? 0 : pad_word(prm[P_ZEFF + layer + 1]);
+    pad_next = KIND == LAST ? 0 : pad_word(prm[p_at(layer + 1, R_ZEFF, kC)]);
     next = ly.next;
     sc = net.sc;
     scratch = net.scratch;
@@ -385,16 +387,16 @@ struct Form {
     for (int v = 0; v < V; ++v) {
       const int o = col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST);
       const bool ok = o < oc;
-      const int b = (ok ? prm[P_BIAS + layer * kC + o] : 0) + kMagicBits;
-      base[v] = b - (ok ? prm[P_ZC + layer * kC + o] : 0);
+      const int b = (ok ? prm[p_at(layer, R_BIAS, kC) + o] : 0) + kMagicBits;
+      base[v] = b - (ok ? prm[p_at(layer, R_BIAS, kC) + kC + o] : 0);
       lo[v] = b - add_hi - 1;
       hi[v] = b + add_hi;
       if constexpr (START_REGS) {
 #pragma unroll
         for (int p = 0; p < NG; ++p)
-          start[p][v] = ok && p < pe ? -prm[P_ZCP + (layer * pe + p) * kC + o] : 0;
+          start[p][v] = ok && p < pe ? -prm[zcp_at(L, kC, pe, layer, p) + o] : 0;
       } else {
-        zcp[v] = P_ZCP + layer * pe * kC + o;     // words past OC hold 0
+        zcp[v] = zcp_at(L, kC, pe, layer, 0) + o;     // words past OC hold 0
       }
     }
     // descriptors: A's start and LBO per step (m-tile 0), B's start
@@ -594,7 +596,7 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   uint8_t* by = smem + pl.y_at;
 
   // the parameter block and every layer's B, once per block
-  for (int i = threadIdx.x; i < param_words(pe); i += kThreads) prm[i] = __ldg(params + i);
+  for (int i = threadIdx.x; i < param_words(L, kC, pe); i += kThreads) prm[i] = __ldg(params + i);
   const int4* w4 = reinterpret_cast<const int4*>(weights);
   for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
     reinterpret_cast<int4*>(wsm)[i] = __ldg(w4 + i);
@@ -606,7 +608,7 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int cap0 = layer_cap(0, L, th, tw);
   const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + th - 1) / th;
   const int per_frame = tiles_x * tiles_y;
-  const int pad0 = pad_word(prm[P_ZEFF]);
+  const int pad0 = pad_word(prm[p_at(0, R_ZEFF, kC)]);
   Net net;
   net.t.th = th;
   net.t.tw = tw;
@@ -672,7 +674,7 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
       ly.in = cur;
       ly.ih = th + 2 * r;
       ly.iw = tw + 2 * r;
-      ly.w = wsm + 4 * prm[P_WOFF + i];
+      ly.w = wsm + 4 * prm[p_at(i, R_WOFF, kC)];
       ly.next = reinterpret_cast<int*>(nxt);
       ly.layer = i;
       if (i == 0)

@@ -14,21 +14,27 @@
 // datapath's kernel (the hybrid and corrected PE-exact modes) is
 // sesr_corrected.cu, on wgmma.
 //
+// Networks of 3 to 16 convs (kMaxL) at hidden width 16 or 32 (C, a
+// template parameter; a narrower network runs padded to the next): the
+// shipped tasks and SESR-M11 at 16, SESR-XL at 32.
+//
 // What bounds it on this card: operations. sr_x2 needs 12,912 int8 MACs per
-// input pixel against 15 bytes of device traffic, far above the H100's
-// ratio of int8 tensor-core rate to memory rate, so the floor is the int8
-// tensor-core rate. What the design does about the bound:
+// input pixel against 15 bytes of device traffic (SESR-M11 31,344, SESR-XL
+// 113,376), far above the H100's ratio of int8 tensor-core rate to memory
+// rate, so the floor is the int8 tensor-core rate. What the design does
+// about the bound:
 //   - every conv is an implicit GEMM on the int8 tensor cores
 //     (mma.sync.m16n8k32 s8 x s8 -> s32, exact int32 sums): a row of A is
 //     one pixel of the layer's output extent (the extent flattened and cut
 //     into sixteens, the tail masked), k runs over (tap, input byte), n
 //     over output channels. Padded taps carry zero weights;
 //   - two forms of a layer. One pass over all channels, k = (tap, word,
-//     byte), 2 taps per k32 chunk: K2 everywhere, and K1 wherever convert.py
+//     byte), 2 taps per k32 chunk at C = 16, 1 at C = 32: K2 everywhere, and K1 wherever convert.py
 //     proves from the weights that no PE's accumulator clamp (18 bits
 //     shipped) can fire (then the sum of the clamped PE sums is the full
 //     sum). One pass per PE, each PE's sum clamped before adding: K1 on the
-//     other layers; at 4 PEs k = (tap, byte of word p), 8 taps per chunk,
+//     other layers; at 4 PEs k = (tap, byte of PE p's words p (and p + 4 at
+//     C = 32)), 8 (4) taps per chunk,
 //     at any other PE count k as in the one-pass form with B zero outside
 //     the PE's channels (c % pe == p). Layer 0 (one word of <= 4 channels)
 //     takes 8 taps per chunk, once per PE that owns an input channel when
@@ -37,13 +43,14 @@
 //     HardwareConfig runs (K1 off 4 PEs; a K1 or K2 whose adder clamp can
 //     fire);
 //   - activations stay int8 from layer to layer, packed four channels to a
-//     32-bit word: word p of a 16-channel pixel holds channels p, p+4, p+8,
-//     p+12 (PE p's at 4 PEs; a network narrower than 16 channels runs
-//     padded with zero weights). An A register is one such word, loaded from a
-//     buffer with no repacking; convert.py orders the weights into B
-//     fragments (pass, chunk, lane, n-tile, reg) and permutes the output
-//     channels so that the four values a lane holds for a pixel are word t
-//     of the next layer's input: the epilogue stores one word per pixel;
+//     32-bit word: word w of a pixel holds channels w % 4 + 16 (w / 4) + 4 j
+//     (16 channels: word p holds p, p+4, p+8, p+12; 32 channels: eight
+//     words, PE p's channels in words p and p + 4 at 4 PEs). An A register
+//     is one such word, loaded from a buffer with no repacking; convert.py
+//     orders the weights into B fragments (pass, chunk, lane, n-tile, reg)
+//     and permutes the output channels so that the values a lane holds for
+//     a pixel are words t (and t + 4) of the next layer's input: the
+//     epilogue stores C / 16 words per lane and pixel;
 //   - the zero shift q - z_eff is never materialized: positions outside
 //     the image hold z_eff instead of 0, so conv(q, pads = z_eff) equals
 //     conv(q - z_eff) + z_eff * sum(W). Per PE that sum is exactly the
@@ -51,11 +58,17 @@
 //     its accumulator from -z_eff * sum(W) (K2). This needs -128 <= z_eff <=
 //     127, which the host checks. The accumulator also starts from the bias
 //     plus kMagicBits, so requantization is one FFMA on its bits;
-//   - extents shrink by k/2 per layer; a layer's weights are held in
-//     registers over its whole extent, and the next layer's weights are
-//     staged with cp.async while the current layer computes; the residual
-//     shortcut is kept as int8 (K1: clip(round(s - 128))) or int16 (K2:
-//     round(s), its range proven by convert.py) so that 32x32 tiles fit.
+//   - extents shrink by k/2 per layer (a tile recomputes its halo on every
+//     layer: MACs computed over MACs needed 1.29 for sr_x2 at 32x32, 1.98
+//     for SESR-M11 at 32x32, 2.48 for SESR-XL at 24x24); a layer's weights
+//     are held in registers over its whole extent (at C = 32 past layer 0,
+//     72 registers a lane for a 3x3 layer, they are read from shared memory
+//     a chunk at a time instead), and the next layer's weights are staged
+//     with cp.async while the current layer computes; the residual shortcut
+//     is kept as int8 (K1: clip(round(s - 128))) or int16 (K2: round(s),
+//     its range proven by convert.py) so that 32x32 tiles fit at C = 16.
+//     The tile is the largest of ops/kernels.py NET_TILES whose plan
+//     (smem_plan) fits a block: 32x32 but for SESR-XL (K1 24x24, K2 16x32).
 // What is left: the CUDA-core epilogue (requantization and the int8 clamp of
 // every value, half of it on the half-rate ALU pipe) takes more of a layer's
 // time than its MMAs and loads; the mma.sync forms reach the tensor cores
@@ -103,7 +116,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int 
 // A lane's B registers of one (pass, chunk): FW = 2 per n-tile.
 template <int FW>
 __device__ __forceinline__ void load_frag(int (&b)[FW], const int* p) {
-  if constexpr (FW == 4) {
+  if constexpr (FW == 8) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    const int4 u = *reinterpret_cast<const int4*>(p + 4);
+    b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+    b[4] = u.x; b[5] = u.y; b[6] = u.z; b[7] = u.w;
+  } else if constexpr (FW == 4) {
     const int4 v = *reinterpret_cast<const int4*>(p);
     b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
   } else {
@@ -112,23 +130,26 @@ __device__ __forceinline__ void load_frag(int (&b)[FW], const int* p) {
   }
 }
 
-// k32 chunks of a layer: 8 taps each (one word per tap), or 2 (four words).
-__host__ __device__ constexpr int tap_chunks(int k) { return (k * k + 7) / 8; }
-__host__ __device__ constexpr int word_chunks(int k) { return (k * k + 1) / 2; }
+// k32 chunks of a K x K layer whose pass reads `wpt` words a tap: 8 / wpt
+// taps a chunk. A pass reads one word a tap on layer 0 (<= 4 channels), C /
+// 16 on a split layer at 4 PEs (PE p's channels are words p and p + 4), and
+// all C / 4 words otherwise.
+__host__ __device__ constexpr int chunks_of(int k, int wpt) { return (k * k * wpt + 7) / 8; }
 
-// Words of one layer's B fragments: passes x chunks x 32 lanes x n-tiles x 2
-// (convert.py _fragment_words builds them in this order), with one pass
-// per PE (split) or one pass over all channels. A split layer's passes:
-// layer 0 one per PE that owns an input channel, min(in_ch, pe), 8 taps a
-// chunk; a 16-channel layer at 4 PEs one per word (PE p's channels are word
-// p), 8 taps a chunk; at any other PE count one per PE over all four words
-// (the other PEs' weights zero), 2 taps a chunk.
+// Words of one layer's B fragments at hidden width C: passes x chunks x 32
+// lanes x n-tiles x 2 (convert.py _fragment_words builds them in this
+// order), with one pass per PE (split) or one pass over all channels. A
+// split layer's passes: layer 0 one per PE that owns an input channel,
+// min(in_ch, pe); a hidden layer at 4 PEs one per PE over its C / 16
+// words; at any other PE count one per PE over all C / 4 words (the other
+// PEs' weights zero).
 __host__ __device__ inline int layer_words(bool split, int layer, int L, int in_ch, int ocl,
-                                           int pe) {
-  if (layer == 0) return (split ? (in_ch < pe ? in_ch : pe) : 1) * tap_chunks(5) * 32 * 4;
+                                           int pe, int C) {
+  if (layer == 0) return (split ? (in_ch < pe ? in_ch : pe) : 1) * chunks_of(5, 1) * 32 * (C / 4);
   const int k = layer < L - 1 ? 3 : 5;
-  const int chunks = split ? (pe == 4 ? 4 * tap_chunks(k) : pe * word_chunks(k)) : word_chunks(k);
-  return chunks * 32 * (layer < L - 1 ? 4 : 2 * ((ocl + 7) / 8));
+  const int chunks = split ? (pe == 4 ? 4 * chunks_of(k, C / 16) : pe * chunks_of(k, C / 4))
+                           : chunks_of(k, C / 4);
+  return chunks * 32 * (layer < L - 1 ? C / 4 : 2 * ((ocl + 7) / 8));
 }
 
 __device__ __forceinline__ bool pe_split(const int* prm, int layer) {
@@ -144,16 +165,16 @@ __device__ __forceinline__ bool split_of(const int* prm, int layer) {
 // One conv layer over the output extent eh x ew (in this layer's output
 // frame, which is the next layer's input frame), as an implicit GEMM. `in`
 // holds the input extent (eh + K - 1) x (ew + K - 1): one word per pixel
-// (FIRST) or four planes `in_ps` words apart; `w` the layer's B fragments.
+// (FIRST) or C / 4 planes `in_ps` words apart; `w` the layer's B fragments.
 // SPLIT (K1) runs `npass` passes, one per PE, and clamps each PE's sum to
 // pe_acc_bits; else one pass over all channels, which K1 takes where
-// convert.py proves that clamp cannot fire. A split 16-channel layer reads
-// word p in pass p (4 PEs), or all four words in each pass (MASKED: any
-// other PE count, B zero outside the PE's channels). CLAMP (K2, and K1's
-// general instantiation) clamps the sum to pe_add_bits. The epilogue writes
-// the next layer's input planes (FIRST, MID), the shortcut terms (FIRST) or
-// the int8 output (LAST).
-template <int DP, bool SPLIT, bool MASKED, bool CLAMP, int K, Kind KIND, int OC>
+// convert.py proves that clamp cannot fire. A split hidden layer reads PE
+// p's words p and p + 4 (C = 32) in pass p (4 PEs), or all C / 4 words in
+// each pass (MASKED: any other PE count, B zero outside the PE's channels).
+// CLAMP (K2, and K1's general instantiation) clamps the sum to pe_add_bits.
+// The epilogue writes the next layer's input planes (FIRST, MID), the
+// shortcut terms (FIRST) or the int8 output (LAST).
+template <int DP, bool SPLIT, bool MASKED, bool CLAMP, int K, Kind KIND, int OC, int C>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -163,9 +184,15 @@ __device__ __forceinline__ void conv_layer(
   constexpr int KK = K * K;
   constexpr int NT = (OC + 7) / 8;                   // n-tiles of 8 channels
   constexpr int FW = 2 * NT;                         // B registers per (pass, chunk)
-  static_assert(!MASKED || (SPLIT && KIND != FIRST), "a masked pass is a split 16-channel layer's");
-  constexpr bool TAPS = (SPLIT && !MASKED) || KIND == FIRST;   // k = (tap, byte of one word)
-  constexpr int NCH = TAPS ? tap_chunks(K) : word_chunks(K);
+  constexpr int NV = 2 * NT;                         // values a lane holds per pixel
+  static_assert(!MASKED || (SPLIT && KIND != FIRST), "a masked pass is a split hidden layer's");
+  static_assert(C == 16 || C == 32, "the hidden widths are 16 and 32");
+  constexpr bool TAPS = (SPLIT && !MASKED) || KIND == FIRST;   // a pass reads its own words
+  // k-slot s of chunk c is word s % WPT of the pass's words (TAPS: its
+  // word p + 4 j is j; else word j) at tap TPC c + s / WPT
+  constexpr int WPT = KIND == FIRST ? 1 : (TAPS ? C / 16 : C / 4);
+  constexpr int TPC = 8 / WPT;
+  constexpr int NCH = chunks_of(K, WPT);
   constexpr int NP = SPLIT && !MASKED ? 4 : 1;       // passes unrolled (FIRST: up to 4)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -180,40 +207,44 @@ __device__ __forceinline__ void conv_layer(
   // is exact, so both round the same real product (convert.py keeps every
   // product normal). With y read as the float kMagic + y, one FFMA:
   // fl(a * s - kMagic * s) for s = m * 2^-n (kMagic * s is exact).
-  const float rq_s = __fmul_rn(as_f32(prm[P_RQM + layer]), as_f32(prm[P_RQP + layer]));
+  const float rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, C)]),
+                               as_f32(prm[p_at(layer, R_RQP, C)]));
   const float rq_c = -kMagic * rq_s;
   // accumulator (n, i) of this lane is channel chan(2n + (i & 1)): the last
   // layer's columns are in order (channels 8n + 2tq, 8n + 2tq + 1), a
-  // hidden layer's permuted (channel tq + 4j, byte j of word tq). It starts
-  // from bias + kMagicBits - z_eff * sum(W) (K1: that term
+  // hidden layer's permuted (channel tq + 4j, byte j & 3 of word tq + 4 (j >>
+  // 2)). It starts from bias + kMagicBits - z_eff * sum(W) (K1: that term
   // is 0), so it ends as kMagicBits + y_int; the 20-bit clamp of conv(q -
   // z_eff), where it runs, is shifted by the same constant.
   auto chan = [&](int j) { return KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j; };
-  int init[2 * NT], lo_c[2 * NT], hi_c[2 * NT];
+  int init[NV], lo_c[NV], hi_c[NV];
 #pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) {
+  for (int j = 0; j < NV; ++j) {
     const int o = chan(j);
-    const int b = (o < OC ? prm[P_BIAS + layer * kC + o] : 0) + kMagicBits;
-    init[j] = b - (o < OC ? prm[P_ZC + layer * kC + o] : 0);
+    const int b = (o < OC ? prm[p_at(layer, R_BIAS, C) + o] : 0) + kMagicBits;
+    init[j] = b - (o < OC ? prm[p_at(layer, R_BIAS, C) + C + o] : 0);
     lo_c[j] = b - add_hi - 1;
     hi_c[j] = b + add_hi;
   }
 
-  // input offsets of this lane's k-slots tq (a0, a1) and tq + 4 (a2, a3):
-  // taps 8c + tq and 8c + tq + 4 of one word (TAPS), or word tq of taps 2c
-  // and 2c + 1. A padded tap reads tap 0 against zero weights.
+  // input offsets of this lane's k-slots tq (a0, a1) and tq + 4 (a2, a3),
+  // from the pass's first word: slot tq + 4 is 4 / WPT taps on in the same
+  // word, or (WPT = 8) word tq + 4 of the same tap. Written so, the
+  // compiler sees the two share their plane (a form that hid it made K2's
+  // layer-0 loop 14 % longer). A padded tap reads tap 0 against zero
+  // weights.
+  const int pa = (TAPS ? 4 : 1) * (tq % WPT) * in_ps, pb = pa + 4 % WPT * in_ps;
   int oa[NCH], ob[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
-    const int ta = TAPS ? 8 * c + tq : 2 * c, tb = TAPS ? ta + 4 : ta + 1;
-    const int plane = TAPS ? 0 : tq * in_ps;
-    oa[c] = plane + (ta < KK ? (ta / K) * iw + ta % K : 0);
-    ob[c] = plane + (tb < KK ? (tb / K) * iw + tb % K : 0);
+    const int ta = TPC * c + tq / WPT, tb = ta + 4 / WPT;
+    oa[c] = pa + (ta < KK ? (ta / K) * iw + ta % K : 0);
+    ob[c] = pb + (tb < KK ? (tb / K) * iw + tb % K : 0);
   }
   // the layer's B fragments are held in registers, except K1's layer 0
-  // (up to 4 passes) and its masked passes (up to 8), which read them from
-  // shared memory per chunk
-  constexpr bool WSMEM = SPLIT && (KIND == FIRST || MASKED);
+  // (up to 4 passes), its masked passes (up to 8) and every layer past
+  // layer 0 at width 32, which read them from shared memory per chunk
+  constexpr bool WSMEM = (SPLIT && (KIND == FIRST || MASKED)) || (C > 16 && KIND != FIRST);
   constexpr int WP = WSMEM ? 1 : NP, WC = WSMEM ? 1 : NCH;
   int wr[WP][WC][FW];
   if constexpr (!WSMEM) {
@@ -243,9 +274,16 @@ __device__ __forceinline__ void conv_layer(
       for (int c = 0; c < NCH; ++c) {
         const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
         const int a2 = in[bases[0] + ob[c]], a3 = in[bases[1] + ob[c]];
+        if constexpr (WSMEM) {
+          int b[FW];
+          load_frag<FW>(b, w + (c * 32 + lane) * FW);
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
-          mma_s8(tot[n], a0, a1, a2, a3, wr[0][c][2 * n], wr[0][c][2 * n + 1]);
+          for (int n = 0; n < NT; ++n) mma_s8(tot[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            mma_s8(tot[n], a0, a1, a2, a3, wr[0][c][2 * n], wr[0][c][2 * n + 1]);
+        }
       }
     } else if constexpr (KIND == FIRST) {
       // one input word per pixel: every PE's pass reads the same A
@@ -278,7 +316,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
             for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[p][n][i], -acc_hi - 1), acc_hi);
     } else if constexpr (MASKED) {
-      // PE p's pass reads all four words of each tap against B holding its
+      // PE p's pass reads all C / 4 words of each tap against B holding its
       // channels only
       for (int p = 0; p < npass; ++p) {
         int acc[NT][4];
@@ -308,14 +346,21 @@ __device__ __forceinline__ void conv_layer(
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[n][i] = 0;
-        const int* src = in + p * in_ps;               // PE p reads word p
+        const int* src = in + p * in_ps;               // PE p reads its words from word p
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           const int a0 = src[bases[0] + oa[c]], a1 = src[bases[1] + oa[c]];
           const int a2 = src[bases[0] + ob[c]], a3 = src[bases[1] + ob[c]];
+          if constexpr (WSMEM) {
+            int b[FW];
+            load_frag<FW>(b, w + ((p * NCH + c) * 32 + lane) * FW);
 #pragma unroll
-          for (int n = 0; n < NT; ++n)
-            mma_s8(acc[n], a0, a1, a2, a3, wr[p][c][2 * n], wr[p][c][2 * n + 1]);
+            for (int n = 0; n < NT; ++n) mma_s8(acc[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
+          } else {
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              mma_s8(acc[n], a0, a1, a2, a3, wr[p][c][2 * n], wr[p][c][2 * n + 1]);
+          }
         }
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -334,9 +379,9 @@ __device__ __forceinline__ void conv_layer(
       const int gx = t.ox0 - r_out + x;
       const bool inside = gy >= 0 && gy < t.H && gx >= 0 && gx < t.W;
       // (y_int * m) * 2^-n
-      float hq[2 * NT];
+      float hq[NV];
 #pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
+      for (int j = 0; j < NV; ++j) {
         int yi = tot[j >> 1][2 * h + (j & 1)];
         if constexpr (CLAMP) yi = min(max(yi, lo_c[j]), hi_c[j]);
         hq[j] = __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
@@ -359,25 +404,28 @@ __device__ __forceinline__ void conv_layer(
           }
         }
       } else {
+        // this lane's words of the pixel: tq + 4 m holds values 4 m .. 4 m + 3
         if (!inside) {
-          next[tq * next_ps + r] = pad_word(prm[P_ZEFF + layer + 1]);
+          const int pad = pad_word(prm[p_at(layer + 1, R_ZEFF, C)]);
+#pragma unroll
+          for (int m = 0; m < NV / 4; ++m) next[(tq + 4 * m) * next_ps + r] = pad;
           continue;
         }
-        const float z_next = as_f32(prm[P_ZIN + layer + 1]);
-        int v[4];
+        const float z_next = as_f32(prm[p_at(layer + 1, R_ZIN, C)]);
+        int v[NV];
         if (KIND == FIRST || prelast) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
+          for (int j = 0; j < NV; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
         }
         if (KIND == MID && prelast) {
           // the last conv's domain-in: the integer residual add, rescaled
           // by s_1 / s_{L-1}, into domain L-1 (this frame is the shortcut's)
           const float res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < NV; ++j) {
             float tr;
             if constexpr (DP == REFERENCE) {
-              const int s = static_cast<int8_t>(sc[tq * sc_ps + r] >> (8 * j));
+              const int s = static_cast<int8_t>(sc[(tq + 4 * (j >> 2)) * sc_ps + r] >> (8 * (j & 3)));
               const float c = magic_to_f32(q8_bits(__fsub_rn(hq[j], 128.f)));
               tr = __fadd_rn(__fadd_rn(magic_to_f32(s + kMagicBits), c), 256.f);
             } else {
@@ -388,35 +436,42 @@ __device__ __forceinline__ void conv_layer(
           }
         } else if (KIND == FIRST) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
+          for (int j = 0; j < NV; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
         } else {
           // ReLU folded into the low bound: fl(max(h, 0) + z) = max(fl(h + z), z)
           // and rounding is monotone, so clip(rint(.), max(z, -128), 127)
           const float lo = kMagic + fmaxf(z_next, -128.f);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NV; ++j)
             v[j] = __float_as_int(
                 fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo), kMagic + 127.f));
         }
-        next[tq * next_ps + r] = pack_bytes(v[0], v[1], v[2], v[3]);
+#pragma unroll
+        for (int m = 0; m < NV / 4; ++m)
+          next[(tq + 4 * m) * next_ps + r] = pack_bytes(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
         if (KIND == FIRST) {
           // the residual shortcut, as the last conv's domain-in consumes it:
-          // reference: clip(round(s - 128)) as int8; K2: round(s) as
-          // int16 (0 <= round(s) <= 32767, convert.py shortcut_bound)
+          // reference: clip(round(s - 128)) as int8, plane tq + 4 m holding
+          // values 4 m .. 4 m + 3; K2: round(s) as int16 (0 <= round(s) <=
+          // 32767, convert.py shortcut_bound), plane tq + 4 m values 2 m and
+          // 2 m + 1
           const int sy = y - sc_off, sx = x - sc_off;
           if (sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w) {
             const int sp = sy * sc_w + sx;
             if constexpr (DP == REFERENCE) {
-              int b[4];
+              int b[NV];
 #pragma unroll
-              for (int j = 0; j < 4; ++j) b[j] = q8_bits(__fsub_rn(hq[j], 128.f));
-              sc[tq * sc_ps + sp] = pack_bytes(b[0], b[1], b[2], b[3]);
+              for (int j = 0; j < NV; ++j) b[j] = q8_bits(__fsub_rn(hq[j], 128.f));
+#pragma unroll
+              for (int m = 0; m < NV / 4; ++m)
+                sc[(tq + 4 * m) * sc_ps + sp] = pack_bytes(b[4 * m], b[4 * m + 1], b[4 * m + 2], b[4 * m + 3]);
             } else {
-              int b[4];
+              int b[NV];
 #pragma unroll
-              for (int j = 0; j < 4; ++j) b[j] = __float_as_int(__fadd_rn(hq[j], kMagic));
-              sc[tq * sc_ps + sp] = static_cast<int>(__byte_perm(b[0], b[1], 0x5410));
-              sc[(tq + 4) * sc_ps + sp] = static_cast<int>(__byte_perm(b[2], b[3], 0x5410));
+              for (int j = 0; j < NV; ++j) b[j] = __float_as_int(__fadd_rn(hq[j], kMagic));
+#pragma unroll
+              for (int m = 0; m < NV / 2; ++m)
+                sc[(tq + 4 * m) * sc_ps + sp] = static_cast<int>(__byte_perm(b[2 * m], b[2 * m + 1], 0x5410));
             }
           }
         }
@@ -439,37 +494,44 @@ __device__ __forceinline__ void wait_staged() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// plane stride of a 4-plane buffer: >= n and 8 mod 32 words, so that the
+// plane stride of a planar buffer: >= n and 8 mod 32 words, so that the
 // lanes (g, tq) of a warp, touching word tq of 8 consecutive pixels, hit 32
 // distinct banks
 __host__ __device__ inline int plane_stride(int n) { return ((n + 23) & ~31) + 8; }
 
 struct Smem {
-  int w_words, a_words, b_words, sc_words;
+  int prm_words, w_words, a_words, b_words, sc_words;
 };
 
-// Shared memory of one block: the parameter block (P_WORDS), two weight
-// buffers (each the size of the largest layer's fragments: every layer split
-// for K1 at 4 PEs, the split layers of the mask `split` in K1's general
-// instantiation), the ping-pong activation buffers and the shortcut.
+// Shared memory of one block at hidden width C: room for the parameter
+// block's words that K1 and K2 read at the deepest network (net_words(kMaxL,
+// C); a fixed offset keeps the buffers' addresses as the compiler had them
+// before the depth was raised, and a shallower network copies fewer), two
+// weight buffers (each the size of the
+// largest layer's fragments: every layer split for K1 at 4 PEs, the split
+// layers of the mask `split` in K1's general instantiation), the ping-pong
+// activation buffers (C / 4 planes) and the shortcut (C / 4 planes of int8
+// for K1, C / 2 of int16 pairs for K2). ops/kernels.py net_smem_bytes
+// mirrors it.
 __host__ __device__ inline Smem smem_plan(int dp, bool gen, int split, int pe, int L, int in_ch,
-                                          int ocl, int th, int tw) {
+                                          int ocl, int th, int tw, int C) {
   Smem s;
+  s.prm_words = net_words(kMaxL, C);
   s.w_words = 0;                         // a split layer's fragments are the larger
   for (int i = 0; i < L; ++i) {
     const bool sp = gen ? (split >> i) & 1 : dp == REFERENCE;
-    const int lw = layer_words(sp, i, L, in_ch, ocl, pe);
+    const int lw = layer_words(sp, i, L, in_ch, ocl, pe, C);
     s.w_words = s.w_words > lw ? s.w_words : lw;
   }
   // layer i's input: buf_b for even i (layer 0: one word per pixel), buf_a for odd
   s.a_words = 0;
   s.b_words = (extent(0, L, th, tw) + 3) & ~3;
   for (int i = 1; i < L; ++i) {
-    const int words = 4 * plane_stride(extent(i, L, th, tw));
+    const int words = C / 4 * plane_stride(extent(i, L, th, tw));
     int& dst = (i % 2) ? s.a_words : s.b_words;
     dst = dst > words ? dst : words;
   }
-  s.sc_words = (dp == REFERENCE ? 4 : 8) * plane_stride(extent(L - 1, L, th, tw));
+  s.sc_words = (dp == REFERENCE ? C / 4 : C / 2) * plane_stride(extent(L - 1, L, th, tw));
   return s;
 }
 
@@ -479,7 +541,7 @@ __host__ __device__ inline Smem smem_plan(int dp, bool gen, int split, int pe, i
 // general instantiation (GEN: any PE count, any widths) clamps every
 // layer's sum to pe_add_bits, the identity where that clamp cannot fire.
 // The arguments are conv_layer's.
-template <int DP, bool GEN, int K, Kind KIND, int OC>
+template <int DP, bool GEN, int K, Kind KIND, int OC, int C>
 __device__ __forceinline__ void conv_form(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -489,44 +551,45 @@ __device__ __forceinline__ void conv_form(
   if constexpr (DP == REFERENCE) {
     if (pe_split(prm, layer)) {
       if (KIND == FIRST || npass == 4) {
-        conv_layer<DP, true, false, GEN, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer,
-                                                      prelast, prm, next, next_ps, sc, sc_ps,
-                                                      sc_off, sc_w, sc_h, out, frame);
+        conv_layer<DP, true, false, GEN, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t, layer,
+                                                         prelast, prm, next, next_ps, sc, sc_ps,
+                                                         sc_off, sc_w, sc_h, out, frame);
       } else if constexpr (GEN && KIND != FIRST) {
-        conv_layer<DP, true, true, true, K, KIND, OC>(in, in_ps, w, npass, eh, ew, t, layer,
-                                                      prelast, prm, next, next_ps, sc, sc_ps,
-                                                      sc_off, sc_w, sc_h, out, frame);
+        conv_layer<DP, true, true, true, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t, layer,
+                                                         prelast, prm, next, next_ps, sc, sc_ps,
+                                                         sc_off, sc_w, sc_h, out, frame);
       }
       return;
     }
   }
   if constexpr (GEN || (DP == FAST && KIND != FIRST)) {
     if (GEN || ((prm[P_CLAMP] >> layer) & 1)) {
-      conv_layer<DP, false, false, true, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast,
-                                                      prm, next, next_ps, sc, sc_ps, sc_off,
-                                                      sc_w, sc_h, out, frame);
+      conv_layer<DP, false, false, true, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
+                                                         prelast, prm, next, next_ps, sc, sc_ps,
+                                                         sc_off, sc_w, sc_h, out, frame);
       return;
     }
   }
-  conv_layer<DP, false, false, false, K, KIND, OC>(in, in_ps, w, 1, eh, ew, t, layer, prelast,
-                                                   prm, next, next_ps, sc, sc_ps, sc_off, sc_w,
-                                                   sc_h, out, frame);
+  conv_layer<DP, false, false, false, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer, prelast,
+                                                      prm, next, next_ps, sc, sc_ps, sc_off, sc_w,
+                                                      sc_h, out, frame);
 }
 
 // GEN: the instantiation for any PE count and widths (convert.py
 // KernelConstants.general: K1 off 4 PEs or where an adder clamp can fire,
 // K2 where its conv 0's can); the shipped artifacts run the other, at 4
-// PEs.
-template <int DP, int OCL, bool GEN>
+// PEs. C: the hidden width, 16 (the shipped networks, SESR-M11) or 32
+// (SESR-XL); a narrower network runs padded to the next.
+template <int DP, int OCL, bool GEN, int C>
 __global__ void __launch_bounds__(kThreads, 2)
 sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                 const int* __restrict__ weights, const int* __restrict__ params,
                 int H, int W, int L, int in_ch, int th, int tw, int split, int pe_in) {
   extern __shared__ int4 smem4[];
   const int pe = GEN ? pe_in : 4;
-  const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCL, th, tw);
+  const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCL, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem4);
-  int* wbuf = prm + P_WORDS;            // two weight buffers of plan.w_words
+  int* wbuf = prm + plan.prm_words;     // two weight buffers of plan.w_words
   int* buf_a = wbuf + 2 * plan.w_words;
   int* buf_b = buf_a + plan.a_words;
   int* sc = buf_b + plan.b_words;
@@ -540,14 +603,14 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   t.W = W;
   const int frame = blockIdx.z;
 
-  stage_async(wbuf, weights + params[P_WOFF],
-              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL, pe));
-  for (int i = threadIdx.x; i < P_WORDS; i += blockDim.x) prm[i] = params[i];
+  stage_async(wbuf, weights + params[p_at(0, R_WOFF, C)],
+              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL, pe, C));
+  for (int i = threadIdx.x; i < net_words(L, C); i += blockDim.x) prm[i] = params[i];
 
   // layer-0 input: one word per pixel, channel c in byte c; z_eff outside
   const int r0 = ring(0, L);
   const int ih0 = th + 2 * r0, iw0 = tw + 2 * r0;
-  const int pad0 = pad_word(params[P_ZEFF]);
+  const int pad0 = pad_word(params[p_at(0, R_ZEFF, C)]);
   // kLoadBatch pixels per thread at a time, their loads issued together
   for (int i0 = threadIdx.x; i0 < ih0 * iw0; i0 += kLoadBatch * blockDim.x) {
     int v[kLoadBatch];
@@ -577,14 +640,14 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int sc_ps = plane_stride(sc_h * sc_w);
   // each layer stages the next one's weights into the other buffer while it
   // computes, per PE only where the layer is split
-  stage_async(wbuf + plan.w_words, weights + prm[P_WOFF + 1],
-              layer_words(split_of<DP>(prm, 1), 1, L, in_ch, OCL, pe));
+  stage_async(wbuf + plan.w_words, weights + prm[p_at(1, R_WOFF, C)],
+              layer_words(split_of<DP>(prm, 1), 1, L, in_ch, OCL, pe, C));
   {
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
-    conv_form<DP, GEN, 5, FIRST, kC>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1, tw + 2 * r1, t,
-                                     0, false, prm, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w,
-                                     sc_h, nullptr, frame);
+    conv_form<DP, GEN, 5, FIRST, C, C>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1, tw + 2 * r1,
+                                       t, 0, false, prm, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w,
+                                       sc_h, nullptr, frame);
   }
   wait_staged();
   __syncthreads();
@@ -592,14 +655,14 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   int* cur = buf_a;
   int* nxt = buf_b;
   for (int i = 1; i <= L - 2; ++i) {
-    stage_async(wbuf + ((i + 1) & 1) * plan.w_words, weights + prm[P_WOFF + i + 1],
-                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL, pe));
+    stage_async(wbuf + ((i + 1) & 1) * plan.w_words, weights + prm[p_at(i + 1, R_WOFF, C)],
+                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL, pe, C));
     const int r = ring(i + 1, L);
     const int* w = wbuf + (i & 1) * plan.w_words;
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
-    conv_form<DP, GEN, 3, MID, kC>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i, i == L - 2,
-                                   prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
+    conv_form<DP, GEN, 3, MID, C, C>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i, i == L - 2,
+                                     prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
     wait_staged();
     __syncthreads();
     int* tmp = cur;
@@ -609,63 +672,73 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
   const int* w_last = wbuf + ((L - 1) & 1) * plan.w_words;
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
-  conv_form<DP, GEN, 5, LAST, OCL>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false, prm,
-                                   nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
+  conv_form<DP, GEN, 5, LAST, OCL, C>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false, prm,
+                                      nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
 }
 
 size_t shared_bytes(int dp, bool gen, int split, int pe, int L, int in_ch, int ocl, int th,
-                    int tw) {
-  const Smem plan = smem_plan(dp, gen, split, pe, L, in_ch, ocl, th, tw);
-  return sizeof(int) * (static_cast<size_t>(P_WORDS) + 2 * plan.w_words + plan.a_words +
+                    int tw, int C) {
+  const Smem plan = smem_plan(dp, gen, split, pe, L, in_ch, ocl, th, tw, C);
+  return sizeof(int) * (static_cast<size_t>(plan.prm_words) + 2 * plan.w_words + plan.a_words +
                         plan.b_words + plan.sc_words);
 }
 
-template <int DP, int OCL, bool GEN>
+template <int DP, int OCL, bool GEN, int C>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
                        int n, int h, int wd, int L, int in_ch, int th, int tw, int split,
                        int pe, cudaStream_t stream) {
-  const size_t bytes = shared_bytes(DP, GEN, split, pe, L, in_ch, OCL, th, tw);
-  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL, GEN>,
+  const size_t bytes = shared_bytes(DP, GEN, split, pe, L, in_ch, OCL, th, tw, C);
+  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL, GEN, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, n);
-  sesr_net_kernel<DP, OCL, GEN><<<grid, kThreads, bytes, stream>>>(
+  sesr_net_kernel<DP, OCL, GEN, C><<<grid, kThreads, bytes, stream>>>(
       x, out, w, prm, h, wd, L, in_ch, th, tw, split, pe);
   return cudaGetLastError();
 }
 
-template <int DP, bool GEN>
+template <int DP, bool GEN, int C>
 cudaError_t launch_oc(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                       int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                       cudaStream_t s) {
   switch (out_ch) {
-    case 3: return launch_one<DP, 3, GEN>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    case 12: return launch_one<DP, 12, GEN>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    case 16: return launch_one<DP, 16, GEN>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 3: return launch_one<DP, 3, GEN, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 12: return launch_one<DP, 12, GEN, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 16: return launch_one<DP, 16, GEN, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int gen, int width) {
+  return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
+         (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
+         tw <= 1024 && pe >= 1 && pe <= kMaxPE && (split >> L) == 0 && (gen || pe == 4) &&
+         (width == 16 || width == kMaxC);
+}
+
 // Each kernel has the shipped instantiation (gen = 0; K1 at 4 PEs) and the
-// general one.
+// general one, each at hidden width 16 and 32.
 template <int DP>
 int launch(const void* x, void* out, const void* weights, const void* params, int n,
            int h, int w, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
-           int gen, void* stream) {
-  if (L < 3 || L > kMaxL || in_ch < 1 || in_ch > 4 || th < 1 || tw < 1 || pe < 1 ||
-      pe > kMaxPE || (split >> L) != 0 || (!gen && pe != 4))
+           int gen, int width, void* stream) {
+  if (!takes(L, in_ch, out_ch, th, tw, split, pe, gen, width))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
   const int* wi = static_cast<const int*>(weights);
   const int* pi = static_cast<const int*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gen)
-    return static_cast<int>(
-        launch_oc<DP, true>(xi, oi, wi, pi, n, h, w, L, in_ch, out_ch, th, tw, split, pe, s));
-  return static_cast<int>(
-      launch_oc<DP, false>(xi, oi, wi, pi, n, h, w, L, in_ch, out_ch, th, tw, split, pe, s));
+  if (width == 16)
+    return static_cast<int>(gen ? launch_oc<DP, true, 16>(xi, oi, wi, pi, n, h, w, L, in_ch,
+                                                           out_ch, th, tw, split, pe, s)
+                                : launch_oc<DP, false, 16>(xi, oi, wi, pi, n, h, w, L, in_ch,
+                                                            out_ch, th, tw, split, pe, s));
+  return static_cast<int>(gen ? launch_oc<DP, true, kMaxC>(xi, oi, wi, pi, n, h, w, L, in_ch,
+                                                            out_ch, th, tw, split, pe, s)
+                              : launch_oc<DP, false, kMaxC>(xi, oi, wi, pi, n, h, w, L, in_ch,
+                                                             out_ch, th, tw, split, pe, s));
 }
 
 }  // namespace
@@ -676,19 +749,32 @@ extern "C" {
 // weights / params: int32 device arrays built by sesr_tpu_torch/convert.py;
 // split: bit i set where conv i runs one pass per PE (the params' pe_split
 // word); pe: the datapath's PEs; general: the instantiation for any PE
-// count and widths (KernelConstants.general; K1 needs it where pe != 4).
+// count and widths (KernelConstants.general; K1 needs it where pe != 4);
+// width: the hidden width the network runs at, 16 or 32
+// (KernelConstants.width).
 int sesr_pe_exact_net(const void* x, void* out, const void* weights, const void* params,
                       int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                      int tile_h, int tile_w, int split, int pe, int general, void* stream) {
+                      int tile_h, int tile_w, int split, int pe, int general, int width,
+                      void* stream) {
   return launch<REFERENCE>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                           tile_h, tile_w, split, pe, general, stream);
+                           tile_h, tile_w, split, pe, general, width, stream);
 }
 
 int sesr_fast_net(const void* x, void* out, const void* weights, const void* params,
                   int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                  int tile_h, int tile_w, int general, void* stream) {
+                  int tile_h, int tile_w, int general, int width, void* stream) {
   return launch<FAST>(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch,
-                      tile_h, tile_w, 0, 4, general, stream);
+                      tile_h, tile_w, 0, 4, general, width, stream);
+}
+
+// Shared memory of one block of K1 (exact = 1) or K2 (exact = 0) in bytes,
+// or 0 where the entry point refuses the arguments (K2 takes split 0 and
+// pe 4).
+int sesr_net_smem(int exact, int num_layers, int in_ch, int out_ch, int tile_h, int tile_w,
+                  int split, int pe, int general, int width) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, general, width)) return 0;
+  return static_cast<int>(shared_bytes(exact ? REFERENCE : FAST, general, split, pe, num_layers,
+                                       in_ch, out_ch, tile_h, tile_w, width));
 }
 
 const char* sesr_error_string(int err) {

@@ -28,8 +28,11 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "kernels"
+# --split-compile 0: the optimizer runs on every CPU at once, kernel by kernel
+# (sesr_net.cu holds 24 instantiations since the 32-channel ones)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -38,11 +41,14 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "sesr_net": {
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
-        #  pe, general, stream)
-        "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        #  pe, general, width, stream)
+        "sesr_pe_exact_net": [_PTR] * 4 + [_INT] * 12 + [_PTR],
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
-        #  general, stream)
-        "sesr_fast_net": [_PTR] * 4 + [_INT] * 9 + [_PTR],
+        #  general, width, stream)
+        "sesr_fast_net": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+        # (exact, num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, general, width) ->
+        # shared memory bytes, 0: refused
+        "sesr_net_smem": [_INT] * 10,
     },
     "sesr_corrected": {
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
@@ -165,3 +171,19 @@ def load(name: str) -> ctypes.CDLL:
 
 def error_string(name: str, err: int) -> str:
     return getattr(load(name), ERROR_STRING[name])(err).decode()
+
+
+def ptxas_report(log: str, family: str) -> dict:
+    """{template arguments as mangled, e.g. "Li0ELi12ELb1": (registers,
+    spill store bytes)} of each instantiation of the kernel ``family`` in a
+    library's -Xptxas -v build log (``Build.log``)."""
+    report, lines = {}, log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(family + r"I(.*?)EE", line)
+        if "Compiling entry function" in line and m:
+            near = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", near)
+            spill = re.search(r"(\d+) bytes spill stores", near)
+            report[m.group(1)] = (int(regs.group(1)) if regs else None,
+                                  int(spill.group(1)) if spill else None)
+    return report

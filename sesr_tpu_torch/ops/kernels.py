@@ -24,22 +24,27 @@ import collections
 import torch
 
 from sesr_tpu_torch.config import SESRSpec
-from sesr_tpu_torch.convert import device_constants, param_words, wgmma_geometry
+from sesr_tpu_torch.convert import (MAX_LAYERS, device_constants, kernel_width, layer_geometry,
+                                    net_words, param_words, wgmma_geometry)
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
 from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
 
 # output tile (rows, columns) of one thread block of K1 and K2: the fastest
-# of the sweep in chip_smoke.py phase 5 on the 5-conv networks; about 108 KB
-# (K2) and 91 KB (K1) of shared memory for sr_x2, so two blocks share an SM
-# (csrc/sesr_net.cu smem_plan)
+# of the sweep in chip_smoke.py phase 5 on the 5-conv networks; about 112 KB
+# (K2) and 94 KB (K1) of shared memory for sr_x2, so two blocks share an SM
+# (csrc/sesr_net.cu smem_plan). A network whose plan at TILE does not fit a
+# block (SESR-XL: 32 channels, 13 convs) takes the first of NET_TILES that
+# does: the largest, since every tile recomputes its halo on every layer
 TILE = (32, 32)
+NET_TILES = (TILE, (24, 32), (24, 24), (16, 32), (16, 24), (16, 16), (8, 16), (8, 8))
 # the corrected kernel's tiles in order of preference (one block an SM, so
 # a larger tile only cuts the halo's share): it takes the first whose
 # shared memory (corrected_smem_bytes) fits a block. nr hybrid takes 48x48
-# (230,032 B), nr pe-exact 32x64, nrdm_6 32x48 (chip_smoke.py phase 5 sweeps
+# (228,880 B), nr pe-exact 32x64, nrdm_6 32x48 (chip_smoke.py phase 5 sweeps
 # them); a network whose weights leave less room takes a smaller one
+# (SESR-M11's 13 convs: 24x32 hybrid, 16x16 with every conv split)
 CORRECTED_TILES = ((48, 48), (32, 64), (32, 48), (32, 32), (24, 32), (16, 32), (16, 16), (8, 16))
 SMEM_LIMIT = 232448                 # a block's shared memory on the H100
 OUT_DTYPES = ("f32", "int8")
@@ -52,6 +57,38 @@ def _round_up(v: int, a: int) -> int:
 def _ring(i: int, L: int) -> int:
     """sum of k // 2 over convs i..L-1 (5, 3, ..., 3, 5): csrc/sesr_common.cuh ring."""
     return 0 if i >= L else L + 2 if i == 0 else L + 1 - i
+
+
+def _plane_stride(n: int) -> int:
+    """csrc/sesr_net.cu plane_stride."""
+    return ((n + 23) & ~31) + 8
+
+
+def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, pe: int,
+                   general: bool, width: int) -> int:
+    """Shared memory of one block of K1 (``datapath`` "exact") or K2
+    ("fast") at ``tile`` (csrc/sesr_net.cu smem_plan; chip_smoke.py checks
+    the two agree): room for the head and records of the parameter block at
+    MAX_LAYERS convs, two weight buffers of the largest layer's B fragments
+    (every layer split for K1 at 4 PEs in the shipped instantiation, the
+    layers of ``split`` in the general one), two ping-pong buffers of
+    width / 4 planes, and the shortcut: width / 4 planes of int8 (K1) or
+    width / 2 of int16 pairs (K2)."""
+    th, tw = tile
+    exact = datapath == "exact"
+    w_words = 0
+    for i in range(L):
+        sp = bool(split[i]) if general else exact
+        k, ic = (5 if i in (0, L - 1) else 3), (in_ch if i == 0 else width)
+        passes, chunks, _ = layer_geometry(k, ic, sp, pe)
+        w_words = max(w_words, passes * chunks * 32 * 2 * -(-(out_ch if i == L - 1 else width)
+                                                             // 8))
+    ext = [(th + 2 * _ring(i, L)) * (tw + 2 * _ring(i, L)) for i in range(L)]
+    bufs = [0, _round_up(ext[0], 4)]                 # layer i reads bufs[i % 2 == 0]
+    for i in range(1, L):
+        bufs[i % 2 == 0] = max(bufs[i % 2 == 0], width // 4 * _plane_stride(ext[i]))
+    sc = (width // 4 if exact else width // 2) * _plane_stride(ext[L - 1])
+    return 4 * (net_words(MAX_LAYERS, width) + 2 * w_words + sum(bufs) + sc)
 
 
 def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int) -> int:
@@ -77,7 +114,7 @@ def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int) 
             reach = (k - 1) * (iw + 1) + (k * k) % 2
         cap = (_round_up((ih - k + 1) * iw, 64) + reach) * 16
         bufs[i % 2] = max(bufs[i % 2], cap)
-    w_at = _round_up(param_words(pe) * 4, 128)
+    w_at = _round_up(param_words(pe, L) * 4, 128)
     x_at = _round_up(w_at + w_bytes, 128)
     y_at = _round_up(x_at + bufs[0], 128)
     sc_at = _round_up(y_at + bufs[1], 128)
@@ -89,7 +126,11 @@ class NetKernel:
     """One entry point of a kernel library (``csrc/<library>.cu``).
     ``launches`` counts the launches this wrapper made, ``split_launches``
     the same launches by their per-layer split mask (the corrected kernel's
-    modes; None for the other kernels)."""
+    modes; None for the other kernels). Its tile is the first of ``tiles``
+    whose shared memory (``smem_bytes``) fits a block, and a tile that does
+    not fit is refused before any launch."""
+
+    tiles = NET_TILES
 
     def __init__(self, symbol: str, datapath: str, library: str = "sesr_net"):
         self.symbol = symbol
@@ -97,32 +138,62 @@ class NetKernel:
         self.library = library
         self.launches = 0
         self.split_launches = collections.Counter()
+        self._plans = {}
 
-    def tile(self, spec: SESRSpec, split, pe: int) -> tuple:
-        """The default output tile for ``spec``'s network at ``pe`` PEs."""
-        return TILE
+    def smem_bytes(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
+        """Shared memory of one block at ``tile`` (K1 and K2: ``net_smem_bytes``)."""
+        return net_smem_bytes(self.datapath, spec.num_convs, spec.in_channels,
+                              spec.conv_out_channels, tile, split, pe, general,
+                              kernel_width(spec.num_channels))
 
-    def check_tile(self, spec: SESRSpec, tile, split, pe: int) -> None:
-        """Raises ValueError for a tile the kernel does not take."""
+    def tile(self, spec: SESRSpec, split, pe: int, general: bool = False) -> tuple:
+        """The default output tile for ``spec``'s network at ``pe`` PEs in
+        the ``general`` instantiation or the shipped one."""
+        split = split or (False,) * spec.num_convs
+        for tile in self.tiles:
+            if self.smem_bytes(spec, tile, split, pe, general) <= SMEM_LIMIT:
+                return tile
+        raise ValueError(f"{self.symbol}: no tile of {self.tiles} fits {spec.name}")
+
+    def check_tile(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
+        """The tile's shared memory (``smem_bytes``); raises ValueError for a
+        tile the kernel does not take."""
         if not (1 <= tile[0] <= 1024 and 1 <= tile[1] <= 1024):
             raise ValueError(f"{self.symbol}: tile {tuple(tile)} outside 1..1024")
+        need = self.smem_bytes(spec, tile, split, pe, general)
+        if need > SMEM_LIMIT:
+            raise ValueError(f"{self.symbol}: tile {tuple(tile)} needs {need} B of shared "
+                             f"memory for {spec.name}, more than a block's {SMEM_LIMIT}")
+        return need
+
+    def plan(self, spec: SESRSpec, split, pe: int, general: bool = False, tile=None) -> tuple:
+        """(tile, shared memory bytes) of a launch at ``tile``, or at the
+        default tile (``self.tile``) when it is None; raises ValueError for a
+        tile the kernel does not take. Kept per (spec, split, pe, general,
+        tile), so that a call after the first costs a dict lookup."""
+        key = (spec, tuple(split), pe, general, None if tile is None else tuple(tile))
+        if key not in self._plans:
+            tile = tuple(tile or self.tile(spec, split, pe, general))
+            self._plans[key] = (tile, self.check_tile(spec, tile, split, pe, general))
+        return self._plans[key]
 
     def extra_args(self, kc) -> tuple:
         """The entry point's arguments after the tile: the split mask, the
-        PE count and the instantiation (KernelConstants.general); K2 takes
-        the instantiation only."""
+        PE count, the instantiation (KernelConstants.general) and, for K1
+        and K2, the hidden width; K2 takes the last two only."""
         if self.datapath == "fast":
-            return (int(kc.general),)
-        return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, int(kc.general))
+            return (int(kc.general), kc.width)
+        return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, int(kc.general),
+                *(() if self.datapath == "corrected" else (kc.width,)))
 
     def __call__(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor,
                  tile=None, split=None) -> torch.Tensor:
         """x_q: int8 (N, H, W, C_in) contiguous on a CUDA device. Returns the
         int8 output (N, H, W, C_out) of the last conv. ``tile``: the output
         tile (rows, columns) of one thread block (default ``self.tile(spec,
-        split, pe)``). ``split`` (the corrected kernel only, and required there):
-        one flag per layer, set where the layer runs one pass per PE
-        (ops/corrected.py ``split_layers``)."""
+        split, pe, general)``). ``split`` (the corrected kernel only, and
+        required there): one flag per layer, set where the layer runs one
+        pass per PE (ops/corrected.py ``split_layers``)."""
         if x_q.device.type != "cuda":
             raise ValueError(f"{self.symbol} runs on a CUDA tensor, got {x_q.device}")
         if x_q.dtype != torch.int8 or x_q.dim() != 4 \
@@ -134,8 +205,7 @@ class NetKernel:
             raise ValueError(f"{self.symbol}: a split mask is "
                              f"{'required' if split is None else 'not taken'}")
         kc, weights, params = device_constants(spec, qp, self.datapath, x_q.device, split)
-        tile = tuple(tile or self.tile(spec, kc.pe_split, kc.pe))
-        self.check_tile(spec, tile, kc.pe_split, kc.pe)
+        tile, _ = self.plan(spec, kc.pe_split, kc.pe, kc.general, tile)
         n, h, w, _ = x_q.shape
         out = torch.empty((n, h, w, kc.out_channels), dtype=torch.int8,
                           device=x_q.device)
@@ -157,34 +227,25 @@ class NetKernel:
 
 
 class CorrectedKernel(NetKernel):
-    """The corrected kernel: its tile is the first of CORRECTED_TILES whose
-    shared memory fits a block, and a tile that does not fit is refused
-    before any launch."""
+    """The corrected kernel: its tiles are CORRECTED_TILES, its shared
+    memory ``corrected_smem_bytes`` (the same in every instantiation)."""
 
-    def tile(self, spec: SESRSpec, split, pe: int) -> tuple:
-        split = split or (False,) * spec.num_convs
-        for tile in CORRECTED_TILES:
-            if self.smem_bytes(spec, tile, split, pe) <= SMEM_LIMIT:
-                return tile
-        raise ValueError(f"{self.symbol}: no tile of {CORRECTED_TILES} fits {spec.name}")
+    tiles = CORRECTED_TILES
 
-    @staticmethod
-    def smem_bytes(spec: SESRSpec, tile, split, pe: int) -> int:
+    def smem_bytes(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
         return corrected_smem_bytes(spec.num_convs, spec.in_channels, spec.conv_out_channels,
                                     tile, split, pe)
-
-    def check_tile(self, spec: SESRSpec, tile, split, pe: int) -> None:
-        super().check_tile(spec, tile, split, pe)
-        need = self.smem_bytes(spec, tile, split, pe)
-        if need > SMEM_LIMIT:
-            raise ValueError(f"{self.symbol}: tile {tuple(tile)} needs {need} B of shared "
-                             f"memory for {spec.name}, more than a block's {SMEM_LIMIT}")
 
 
 pe_exact_net = NetKernel("sesr_pe_exact_net", "exact")
 fast_net = NetKernel("sesr_fast_net", "fast")
 corrected_net = CorrectedKernel("sesr_corrected_net", "corrected", "sesr_corrected")
 NET_KERNELS = (pe_exact_net, fast_net, corrected_net)
+
+
+def kernel_of(datapath: str) -> NetKernel:
+    """The kernel that runs ``datapath`` (convert.DATAPATHS)."""
+    return {k.datapath: k for k in NET_KERNELS}[datapath]
 
 
 def reset_launch_counts() -> None:

@@ -19,6 +19,7 @@ choice of its layer forms (sesr_tpu_torch/ops/corrected.py), on the CPU:
   maps are read from the source, so the model and the kernel cannot drift
   apart; the hardware's side (the descriptor's addressing, the fragment) is
   written here from the PTX ISA;
+- the same model on SESR-M11's 13 convs in both modes;
 - that the accumulator map gives one thread four consecutive channels of a
   pixel (the epilogue's 32-bit store is the next layer's input word), and
   the shared-memory plan and default tiles.
@@ -144,9 +145,8 @@ def test_pe_zero_terms_sum_to_the_layer_zc(task):
     L = spec.num_convs
     split = convert.corrected_split_layers(qp)
     kc = convert.kernel_constants(spec, qp, "corrected", split)
-    lay = convert.PARAM_LAYOUT
-    assert kc.params.shape == (convert.param_words(qp.hw.pe),)
-    assert kc.params[lay["pe_split"]] == sum(1 << i for i in range(L) if split[i])
+    assert kc.params.shape == (convert.param_words(qp.hw.pe, L),)
+    assert kc.param("pe_split") == sum(1 << i for i in range(L) if split[i])
     for i, w in enumerate(qp.w_int):
         w = np.asarray(w, np.int64)
         oc = w.shape[3]
@@ -154,15 +154,14 @@ def test_pe_zero_terms_sum_to_the_layer_zc(task):
         assert terms.shape == (qp.hw.pe, oc)
         np.testing.assert_array_equal(terms.sum(axis=0),
                                       qp.effective_zero(i) * w.sum(axis=(0, 1, 2)))
-        zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc]
-        zc_pe = np.stack([kc.params[lay["zc_pe"] + 16 * (4 * i + p):
-                                    lay["zc_pe"] + 16 * (4 * i + p) + oc] for p in range(4)])
+        zc = kc.param("zc", i)[:oc]
+        zc_pe = np.stack([kc.zc_pe(i, p)[:oc] for p in range(4)])
         # a split layer subtracts each PE's share before its 18-bit clamp,
         # a one-pass layer the layer's term before its 20-bit clamp
         np.testing.assert_array_equal(zc_pe, terms if split[i] else 0)
         np.testing.assert_array_equal(zc, 0 if split[i] else terms.sum(axis=0))
         np.testing.assert_array_equal(
-            kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc],
+            kc.param("bias", i)[:oc],
             np.clip(qp.bias_int[i], -32768, 32767))
 
 
@@ -286,7 +285,6 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
     with the extent of one tile over the whole input. A network narrower
     than 16 channels runs padded: its padded input channels hold random
     bytes here (their weights are zero)."""
-    lay = convert.PARAM_LAYOUT
     acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
     add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
     h, w, ic = x_q.shape
@@ -301,7 +299,7 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
     assert steps == steps_of(k, int(wide))
     ocp = n_cols // groups
     buf, ih, iw, rows = _smem_input(x_q.astype(np.int8), k, z_eff, wide, rng)
-    offs = list(kc.params[lay["w_off"]: lay["w_off"] + kc.num_layers]) + [kc.weights.size]
+    offs = [kc.param("w_off", j) for j in range(kc.num_layers)] + [kc.weights.size]
     bsm = kc.weights[offs[i]: offs[i + 1]].view(np.int8)
     assert bsm.size == steps * n_cols * 32
     acc = np.zeros((rows, n_cols), np.int64)                 # the GEMM's D, m-tile by m-tile
@@ -312,10 +310,9 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
                       CONST["kSboA"])
             b = _hw_b(bsm, b_byte(s, 0, 0, n_cols), n_cols, CONST["kLboB"], CONST["kSboB"])
             acc[mt * 64:mt * 64 + 64] += a.astype(np.int64) @ b.astype(np.int64)
-    bias = kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc].astype(np.int64)
-    zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc].astype(np.int64)
-    zc_pe = [kc.params[lay["zc_pe"] + 16 * (kc.pe * i + p): lay["zc_pe"] + 16 * (kc.pe * i + p)
-                       + oc].astype(np.int64) if p < kc.pe else np.zeros(oc, np.int64)
+    bias = kc.param("bias", i)[:oc].astype(np.int64)
+    zc = kc.param("zc", i)[:oc].astype(np.int64)
+    zc_pe = [kc.zc_pe(i, p)[:oc].astype(np.int64) if p < kc.pe else np.zeros(oc, np.int64)
              for p in range(groups)]
     got = np.full((h, w, oc), np.iinfo(np.int64).min)
     j_n = ocp // 8
@@ -457,6 +454,38 @@ def test_corrected_kernel_layers_model_the_plain_sums(case):
         assert kc.pe_split[0] and ovf18[0] > 0
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_corrected_kernel_layers_on_sesr_m11(mode):
+    """The model at SESR-M11 x2's 13 convs (Bhardwaj et al., MLSys 2022),
+    seeded weights calibrated on the CPU, convs 3 and 9 at +127 as in
+    chip_smoke.py phase 14: hybrid with the stamps its certificate gives
+    there (convs 3, 4 and 9-11 unstamped, so split), pe-exact where the
+    proof splits; every layer 0..12 equal to the plain interpreter's
+    bias + pe_add, in the shipped instantiation."""
+    spec = SESRSpec("sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
+                    num_lblocks=11, scaling_factor=2)
+    L = spec.num_convs
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    images = [np.random.default_rng(3).random((1, 24, 32, 3), dtype=np.float32)]
+    qp = _all_127(calibrate(spec, params, images, safe_zero_floor=True, device="cpu"), (3, 9))
+    stamps = tuple(i not in (3, 4, 9, 10, 11) for i in range(L))
+    qp = dataclasses.replace(qp, fast_cert_layers=stamps, fast_cert_ok=False)
+    split = split_layers(qp, mode)
+    kc = convert.kernel_constants(spec, qp, "corrected", split)
+    assert not kc.general and kc.pe_split == split and any(split)
+    x = np.random.default_rng(14).random((1, 6, 11, 3), dtype=np.float32)
+    _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
+                               fast_layers=stamps if mode == "hybrid" else None, device="cpu")
+    rng = np.random.default_rng(15)
+    for i, k in enumerate(spec.kernel_sizes):
+        x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
+        want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
+            np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
+        np.testing.assert_array_equal(got, want, err_msg=f"m11 {mode} layer {i}")
+    assert corrected_net.tile(spec, split, 4) in CORRECTED_TILES
+
+
 def test_accumulator_map_gives_a_thread_one_word_of_a_pixel():
     """wgmma's fragment (acc_row / acc_col) through the hidden layers'
     column permutation (col_chan): the four values a thread holds for one
@@ -549,8 +578,8 @@ def test_smem_plan_and_its_limit():
     assert (CONST["kSmemLimit"], CONST["kRows"], CONST["kPix"]) == (SMEM_LIMIT, 64, 16)
     nr, nr_qp = _artifact("nr")
     hybrid = split_layers(nr_qp, "hybrid")
-    assert corrected_smem_bytes(5, 3, 3, (32, 64), hybrid, 4) == 214160
-    assert "214,160 bytes for nr at 32x64" in SRC
+    assert corrected_smem_bytes(5, 3, 3, (32, 64), hybrid, 4) == 213008
+    assert "213,008 bytes for nr at 32x64" in SRC
     sizes = [corrected_smem_bytes(5, 3, 3, t, hybrid, 4) for t in ((16, 16), (32, 32), (32, 64))]
     assert sizes == sorted(sizes)
     assert corrected_smem_bytes(5, 3, 3, (48, 64), hybrid, 4) > SMEM_LIMIT
@@ -568,3 +597,26 @@ def test_ab_variants_apply_to_the_source():
     for name, edits in corrected_ab.VARIANTS.items():
         for text, _ in edits:
             assert SRC.count(text) == 1, (name, text)
+
+
+def test_ab_tree_worker_reports_ptxas(monkeypatch, tmp_path):
+    """``corrected_ab --base``: each tree's worker returns its libraries'
+    build logs, and ``run_tree`` reads them with ``_build.ptxas_report``
+    into one report per kernel instantiation."""
+    import json
+    import subprocess
+
+    from sesr_tpu_torch import corrected_ab
+    from tests.test_torch_probes import PTXAS_LOG
+
+    def worker(cmd, cwd, **_kw):
+        assert cmd[1:3] == ["-c", corrected_ab.WORKER] and cwd == tmp_path
+        out = {"device": "card", "nr hybrid": {"ms": 1.0, "digest": "d"},
+               "build_logs": {lib: PTXAS_LOG for lib in corrected_ab.PTXAS_FAMILIES}}
+        return subprocess.CompletedProcess(cmd, 0, stdout=json.dumps(out) + "\n", stderr="")
+
+    monkeypatch.setattr(subprocess, "run", worker)
+    got = corrected_ab.run_tree(tmp_path, 3)
+    assert got["ptxas"] == {"sesr_net_kernel<Li1ELi16ELb0ELi32>": [128, 4],
+                            "sesr_corrected_kernel<Li4ELb0>": [90, 0]}
+    assert "build_logs" not in got and got["nr hybrid"]["digest"] == "d"

@@ -171,7 +171,7 @@ def test_kernel_constants_take_the_config(config, width):
     """Every datapath's constants build at every config and width <= 16;
     off 4 PEs K1's and the corrected kernel's are the general
     instantiation's, and K2's where its conv 0 can reach the adder clamp.
-    quan_bits != 8 and a width above 16 are refused."""
+    quan_bits != 8 and a width above 32 are refused."""
     spec = dataclasses.replace(SPEC, num_channels=width)
     hw = _hw(CONFIGS[config])
     rng = np.random.default_rng(width)
@@ -188,12 +188,12 @@ def test_kernel_constants_take_the_config(config, width):
     for datapath, split in (("exact", None), ("corrected", convert.corrected_split_layers(qp)),
                             ("corrected", (True,) * L), ("fast", None)):
         kc = convert.kernel_constants(spec, qp, datapath, split)
-        assert kc.pe == hw.pe and kc.params.shape == (convert.param_words(hw.pe),)
+        assert kc.pe == hw.pe and kc.params.shape == (convert.param_words(hw.pe, L),)
         assert kc.general == (convert.clamp20_layers(qp)[0] if datapath == "fast"
                               else hw.pe != 4)
         assert kc.weights.dtype == np.int32 and kc.weights.size > 0
     for bad in (dataclasses.replace(hw, quan_bits=16), dataclasses.replace(hw, pe=9)):
         with pytest.raises(NotImplementedError, match="quan_bits|PEs"):
             convert.kernel_constants(spec, dataclasses.replace(qp, hw=bad), "exact")
-    with pytest.raises(NotImplementedError, match="width at most 16"):
-        convert.kernel_constants(dataclasses.replace(spec, num_channels=32), qp, "exact")
+    with pytest.raises(NotImplementedError, match="widths of at most 32"):
+        convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "exact")

@@ -121,11 +121,10 @@ def test_kernel_constants_layout(exact):
     task = "sr_x2"
     spec, (qp, _) = spec_for_task(task), _artifact(task)
     kc = convert.kernel_constants(spec, qp, "exact" if exact else "fast")
-    lay = convert.PARAM_LAYOUT
     L = spec.num_convs
-    assert kc.params.shape == (convert.param_words(qp.hw.pe),)
+    assert kc.params.shape == (convert.param_words(qp.hw.pe, L),)
     assert (kc.num_layers, kc.in_channels, kc.out_channels) == (5, 3, 12)
-    offsets = list(kc.params[lay["w_off"]: lay["w_off"] + 5]) + [kc.weights.size]
+    offsets = [kc.param("w_off", i) for i in range(5)] + [kc.weights.size]
     for i, w in enumerate(qp.w_int):
         k, _, ic, oc = w.shape
         split = kc.pe_split[i]
@@ -156,21 +155,21 @@ def test_kernel_constants_layout(exact):
                 seen[tap, ch, o] += 1
         np.testing.assert_array_equal(rebuilt, taps, err_msg=f"layer {i}")
         assert (seen == 1).all()
-        bias = kc.params[lay["bias"] + 16 * i: lay["bias"] + 16 * i + oc]
-        zc = kc.params[lay["zc"] + 16 * i: lay["zc"] + 16 * i + oc]
+        bias = kc.param("bias", i)[:oc]
+        zc = kc.param("zc", i)[:oc]
         if exact:
             np.testing.assert_array_equal(bias, qp.fused_bias(i))
             assert not zc.any()
         else:
             np.testing.assert_array_equal(bias, np.clip(qp.bias_int[i], -32768, 32767))
             np.testing.assert_array_equal(zc, qp.effective_zero(i) * w.sum(axis=(0, 1, 2)))
-        assert kc.params[lay["z_eff"] + i] == qp.effective_zero(i)
-        assert kc.params[lay["z_in"]: lay["z_in"] + 8].view(np.float32)[i] == qp.a_zero[i]
-        m_f, p_f = kc.params[[lay["rq_m"] + i, lay["rq_p"] + i]].view(np.float32)
+        assert kc.param("z_eff", i) == qp.effective_zero(i)
+        assert kc.param("z_in", i).view(np.float32) == qp.a_zero[i]
+        m_f, p_f = np.array([kc.param("rq_m", i), kc.param("rq_p", i)]).view(np.float32)
         assert (m_f, p_f) == (np.float32(qp.requant_m[i]),
                               np.float32(2.0 ** -qp.requant_n[i]))
-    assert kc.params[lay["acc_hi"]] == 2 ** 17 - 1
-    assert kc.params[lay["add_hi"]] == 2 ** 19 - 1
+    assert kc.param("acc_hi") == 2 ** 17 - 1
+    assert kc.param("add_hi") == 2 ** 19 - 1
 
 
 def test_kernel_constants_refuse_what_the_kernels_cannot_run():
@@ -180,17 +179,20 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     with pytest.raises(NotImplementedError, match="does not fit int8"):
         convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), "exact")
     # any PE count from 1 to 8 runs (the general instantiation off 4 PEs);
-    # int8 activations and widths up to 16 are what the kernels hold
+    # int8 activations, widths up to 32 and 3 to 16 convs are what the
+    # kernels hold
     assert convert.kernel_constants(spec, dataclasses.replace(
         qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact").general
     for hw in (dataclasses.replace(qp.hw, pe=9), dataclasses.replace(qp.hw, quan_bits=16)):
         with pytest.raises(NotImplementedError, match="PEs|quan_bits"):
             convert.kernel_constants(spec, dataclasses.replace(qp, hw=hw), "exact")
+    with pytest.raises(NotImplementedError, match="widths of at most 32"):
+        convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "fast")
+    deep = dataclasses.replace(spec, num_lblocks=15)
+    with pytest.raises(NotImplementedError, match="3 to 16 convs"):
+        convert.kernel_constants(deep, qp, "fast")
     with pytest.raises(NotImplementedError, match="outside"):
-        convert.kernel_constants(dataclasses.replace(spec, num_channels=32), qp, "fast")
-    wide = dataclasses.replace(spec, num_lblocks=7)
-    with pytest.raises(NotImplementedError, match="outside"):
-        convert.kernel_constants(wide, qp, "fast")
+        convert.kernel_constants(dataclasses.replace(spec, k_block=5), qp, "fast")
     with pytest.raises(ValueError, match="datapath"):
         convert.kernel_constants(spec, qp, True)
     with pytest.raises(ValueError, match="split flag"):
@@ -315,6 +317,26 @@ def test_device_constants_cached_per_instance():
     assert convert.device_constants(spec, qp, "corrected", cpu, list(one)) is b
     c = convert.device_constants(spec, qp, "corrected", cpu, every)
     assert c is not b and b[0].pe_split == one and c[0].pe_split == every
+
+
+@pytest.mark.parametrize("kern", kernels.NET_KERNELS, ids=lambda k: k.symbol)
+def test_launch_plan_kept_per_key(kern, monkeypatch):
+    """A wrapper reckons its tile and shared memory once per (spec, split,
+    PE count, instantiation, tile): a second call costs no reckoning, and
+    a tile that does not fit is refused each time."""
+    spec = spec_for_task("sr_x2")
+    split = (True,) * spec.num_convs
+    kern._plans.clear()
+    tile, need = kern.plan(spec, split, 4)
+    assert tile == kern.tile(spec, split, 4) and need == kern.smem_bytes(spec, tile, split, 4)
+    assert kern.plan(spec, split, 4, False, tile) == (tile, need)
+    monkeypatch.setattr(kern, "smem_bytes", lambda *a, **k: 1 / 0)
+    assert kern.plan(spec, split, 4) == (tile, need)
+    assert kern.plan(spec, list(split), 4, False, list(tile)) == (tile, need)
+    monkeypatch.undo()
+    for _ in range(2):
+        with pytest.raises(ValueError, match="more than a block's"):
+            kern.plan(spec, split, 4, False, (256, 256))
 
 
 def test_cpu_tensors_take_the_plain_path_without_building(monkeypatch):

@@ -11,10 +11,13 @@ the plain version's exact integer conv (quant/integer.py ``_conv_int``)
 on the PE's channels or on all of them, for every instantiation the
 kernels build: sr_x2 (3 in, 12 out), sr_x4 (1 in, 16 out), nrdm_3 (3
 out) and nrdm_6 (8 convs), at an extent whose pixel count is no multiple
-of 16; and at 2, 3 and 8 PEs, for networks 8 (padded) and 16 channels
-wide."""
+of 16; at 2, 3 and 8 PEs, for networks 8 (padded) and 16 channels
+wide; and on the SESR paper's deepest and widest members, SESR-M11 (13
+convs, 16 channels) and SESR-XL (13 convs, 32 channels: eight activation
+words a pixel), at 4 PEs and at 2, 3 and 8."""
 
 import dataclasses
+import functools
 import importlib.util
 import os
 
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from sesr_tpu_torch import convert
-from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.config import SESRSpec, spec_for_task
 from sesr_tpu_torch.quant.integer import _conv_int, integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
@@ -44,16 +47,15 @@ def _mma(a, b):
     A = np.zeros((16, 32), np.int64)
     B = np.zeros((32, 8), np.int64)
     ab, bb = _bytes(a), _bytes(b)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        A[g, 4 * t:4 * t + 4] = ab[lane, 0]
-        A[g + 8, 4 * t:4 * t + 4] = ab[lane, 1]
-        A[g, 16 + 4 * t:20 + 4 * t] = ab[lane, 2]
-        A[g + 8, 16 + 4 * t:20 + 4 * t] = ab[lane, 3]
-        B[4 * t:4 * t + 4, g] = bb[lane, 0]
-        B[16 + 4 * t:20 + 4 * t, g] = bb[lane, 1]
-    C = A @ B
     g, t = np.arange(32) // 4, np.arange(32) % 4
+    k = 4 * t[:, None] + np.arange(4)                       # (lane, byte)
+    A[g[:, None], k] = ab[:, 0]
+    A[g[:, None] + 8, k] = ab[:, 1]
+    A[g[:, None], k + 16] = ab[:, 2]
+    A[g[:, None] + 8, k + 16] = ab[:, 3]
+    B[k, g[:, None]] = bb[:, 0]
+    B[k + 16, g[:, None]] = bb[:, 1]
+    C = A @ B
     return np.stack([C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t], C[g + 8, 2 * t + 1]], -1)
 
 
@@ -64,16 +66,18 @@ def _plane_stride(n):
 def _pack(q):
     """Planar activation words of an int8 (h, w, ic) extent, as the
     kernel's buffers hold them: one plane (channel c in byte c) for ic <= 4,
-    else four planes, word p holding channels p, p+4, p+8, p+12."""
+    else ic / 4 planes, word p holding channels p % 4 + 16 (p // 4) + 4 j in
+    byte j (16 channels: p, p+4, p+8, p+12)."""
     h, w, ic = q.shape
     if ic <= 4:
         b = np.zeros((h * w, 4), np.int8)
         b[:, :ic] = q.reshape(h * w, ic)
         return b.view(np.int32).reshape(-1), 0
     ps = _plane_stride(h * w)
-    words = np.zeros(4 * ps, np.int32)
-    for p in range(4):
-        b = np.ascontiguousarray(q.reshape(h * w, ic)[:, p::4])
+    words = np.zeros(ic // 4 * ps, np.int32)
+    for p in range(ic // 4):
+        chans = p % 4 + 16 * (p // 4) + 4 * np.arange(4)
+        b = np.ascontiguousarray(q.reshape(h * w, ic)[:, chans])
         words[p * ps:p * ps + h * w] = b.view(np.int32).reshape(-1)
     return words, ps
 
@@ -83,6 +87,7 @@ def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew, pe=4):
     kernel's A offsets, the B fragments and the MMA model. Returns them
     and the number of MMAs issued."""
     npass, chunks, tap_major = convert.layer_geometry(k, ic, split, pe)
+    wpt = convert.words_per_tap(ic, split, pe)
     nt = -(-oc // 8)
     frag = frag.reshape(npass, chunks, 32, nt, 2)
     kk, iw, npix = k * k, ew + k - 1, eh * ew
@@ -100,11 +105,13 @@ def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew, pe=4):
         for p in range(npass):
             acc = np.zeros((32, nt, 4), np.int64)
             for c in range(chunks):
-                if tap_major:           # k-slot s: tap 8c + s of the pass's word
-                    plane = (p if ic > 4 else 0) * ps
-                    oa, ob = plane + off(8 * c + t), plane + off(8 * c + t + 4)
-                else:                   # k-slot s: tap 2c + s // 4, word s % 4
-                    oa, ob = t * ps + off(np.full(32, 2 * c)), t * ps + off(np.full(32, 2 * c + 1))
+                # k-slot s: the pass's word s % wpt (tap-major: word p + 4 j
+                # is j) of tap (8 / wpt) c + s // wpt
+                def slot(s):
+                    j = s % wpt
+                    plane = (p + 4 * j if ic > 4 else 0) if tap_major else j
+                    return plane * ps + off((8 // wpt) * c + s // wpt)
+                oa, ob = slot(t), slot(t + 4)
                 a = np.stack([words[base[:, 0] + oa], words[base[:, 1] + oa],
                               words[base[:, 0] + ob], words[base[:, 1] + ob]], -1)
                 for n in range(nt):
@@ -114,7 +121,7 @@ def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew, pe=4):
                 for i in range(4):
                     # the kernel's epilogue: a hidden layer's lane t holds
                     # channel t + 4j in accumulator (n, i), j = 2n + (i & 1)
-                    # (byte j of word t); the last layer's n-tile n, column
+                    # (byte j & 3 of word t + 4 (j >> 2)); the last layer's n-tile n, column
                     # 2t + (i & 1) is channel 8n + 2t + (i & 1)
                     r = rows[:, i // 2]
                     o = 8 * n + 2 * t + (i & 1) if last else t + 4 * (2 * n + (i & 1))
@@ -162,24 +169,26 @@ def test_mma_fragments_compute_the_layer_convs(task, split):
 
 
 @pytest.mark.parametrize("split", [True, False], ids=["per-PE", "one-pass"])
-@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("width", [8, 16, 32])
 @pytest.mark.parametrize("pe", [2, 3, 8])
 def test_mma_fragments_at_other_pe_counts(pe, width, split):
     """The same model at 2, 3 and 8 PEs (K1's general instantiation: a
-    split 16-channel layer takes one pass per PE over all four words, B
-    zero outside the PE's channels), for a network ``width`` channels wide,
-    padded to the kernels' 16 with zero weights (convert._padded): layer 0
-    with 1 and 3 input channels, a hidden layer, and last layers of 3 and 12
-    channels. Each per-PE partial and the full sum equal the plain
-    version's conv on the PE's real channels, whatever the padded channels'
-    activations hold; the padded output channels' sums are zero."""
+    split hidden layer takes one pass per PE over all its words, B zero
+    outside the PE's channels), for a network ``width`` channels wide,
+    padded to the kernels' width (16 or 32) with zero weights
+    (convert._padded): layer 0 with 1 and 3 input channels, a hidden layer,
+    and last layers of 3 and 12 channels. Each per-PE partial and the full
+    sum equal the plain version's conv on the PE's real channels, whatever
+    the padded channels' activations hold; the padded output channels'
+    sums are zero."""
     rng = np.random.default_rng(100 * pe + width)
     eh, ew = EXTENT
     for k, ic, oc, last in ((5, 1, width, False), (5, 3, width, False),
                             (3, width, width, False), (5, width, 3, True),
                             (5, width, 12, True)):
         w = rng.integers(-127, 128, (k, k, ic, oc))
-        kic, koc = (ic if ic <= 4 else convert.HIDDEN), (oc if last else convert.HIDDEN)
+        kw = convert.kernel_width(width)
+        kic, koc = (ic if ic <= 4 else kw), (oc if last else kw)
         q = rng.integers(-128, 128, size=(eh + k - 1, ew + k - 1, kic)).astype(np.int8)
         words, ps = _pack(q)
         frag = convert._fragment_words(convert._padded(w, kic, koc), split, pe, last)
@@ -198,6 +207,61 @@ def test_mma_fragments_at_other_pe_counts(pe, width, split):
         assert mmas == -(-eh * ew // 16) * passes * chunks * -(-koc // 8)
 
 
+# SESR-M11 x2 and SESR-XL x2 (Bhardwaj et al., MLSys 2022): 13 convs, 16
+# and 32 channels
+FAMILY = {"m11": SESRSpec(name="sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
+                          num_lblocks=11, scaling_factor=2),
+          "xl": SESRSpec(name="sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32,
+                         num_lblocks=11, scaling_factor=2)}
+
+
+@functools.lru_cache(maxsize=None)
+def _family_weights(net):
+    """Seeded int8 weights (HWIO) of every conv of a FAMILY network."""
+    spec = FAMILY[net]
+    rng = np.random.default_rng(13 if net == "m11" else 32)
+    L, f = spec.num_convs, spec.num_channels
+    return [rng.integers(-127, 128, (k, k, spec.in_channels if i == 0 else f,
+                                     spec.conv_out_channels if i == L - 1 else f))
+            for i, k in enumerate(spec.kernel_sizes)]
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["per-PE", "one-pass"])
+@pytest.mark.parametrize("pe", [4, 2, 3, 8])
+@pytest.mark.parametrize("net", list(FAMILY))
+def test_mma_fragments_on_the_family(net, pe, split):
+    """SESR-M11's and SESR-XL's layers through the model: layer 0 (3 -> f),
+    the first and the last hidden layer (f -> f) and the last conv (f ->
+    12) of the 13-conv network, at 4 PEs (a split XL layer's pass p reads
+    PE p's words p and p + 4, four taps a chunk; one pass reads all eight
+    words of one tap a chunk) and at 2, 3 and 8 (the masked passes). Each
+    per-PE partial and the full sum equal the plain version's conv, and
+    the MMA count is the geometry's."""
+    spec = FAMILY[net]
+    weights = _family_weights(net)
+    L = spec.num_convs
+    rng = np.random.default_rng(pe)
+    eh, ew = EXTENT
+    for i in (0, 1, L - 2, L - 1):
+        w = weights[i]
+        k, _, ic, oc = w.shape
+        q = rng.integers(-128, 128, size=(eh + k - 1, ew + k - 1, ic)).astype(np.int8)
+        words, ps = _pack(q)
+        frag = convert._fragment_words(w, split, pe, last=i == L - 1)
+        got, mmas = _model_layer(words, ps, frag, k, ic, oc, split, i == L - 1, eh, ew, pe)
+        got = got.reshape(-1, eh, ew, oc)
+        if split:
+            want = [_valid_conv(q[..., m], w[:, :, m, :])
+                    for m in (pe_channel_mask(ic, pe, p) for p in range(pe)) if m.any()]
+        else:
+            want = [_valid_conv(q, w)]
+        np.testing.assert_array_equal(got, np.stack(want), err_msg=f"{net} pe {pe} layer {i}")
+        passes, chunks, tap_major = convert.layer_geometry(k, ic, split, pe)
+        assert tap_major == (ic <= 4 or (split and pe == 4))
+        assert chunks == -(-k * k * convert.words_per_tap(ic, split, pe) // 8)
+        assert mmas == -(-eh * ew // 16) * passes * chunks * -(-oc // 8)
+
+
 @pytest.mark.parametrize("exact", [True, False], ids=["K1", "K2"])
 @pytest.mark.parametrize("task", ["sr_x2", "sr_x4", "nrdm_3", "nrdm_6"])
 def test_kernel_constants_take_each_layers_form(task, exact):
@@ -211,7 +275,7 @@ def test_kernel_constants_take_each_layers_form(task, exact):
     assert kc.pe_split == (convert.pe_split_layers(qp) if exact else (False,) * L)
     assert kc.clamp20 == ((False,) * L if exact else convert.clamp20_layers(qp))
     for key, flags in (("pe_split", kc.pe_split), ("clamp20", kc.clamp20)):
-        assert kc.params[convert.PARAM_LAYOUT[key]] == sum(1 << i for i in range(L) if flags[i])
+        assert kc.params[convert.param_at(key)] == sum(1 << i for i in range(L) if flags[i])
     want = [convert._fragment_words(np.asarray(w), kc.pe_split[i], qp.hw.pe, i == L - 1)
             for i, w in enumerate(qp.w_int)]
     np.testing.assert_array_equal(kc.weights, np.concatenate(want))

@@ -460,6 +460,31 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
         _build.library_path("nope")
 
 
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__b1e08967_11_sesr_net_cu_9aa2969415\
+sesr_net_kernelILi1ELi16ELb0ELi32EEEvPKaPaPKiS5_iiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__b1e08967_11_sesr_net_cu_9aa2969415\
+sesr_net_kernelILi1ELi16ELb0ELi32EEEvPKaPaPKiS5_iiiiiiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compile time = 15.207 ms
+ptxas info    : Compiling entry function '_Z21sesr_corrected_kernelILi4ELb0EEvPKaPaPKiS3_iiiiiii' \
+for 'sm_90a'
+ptxas info    : Function properties for _Z21sesr_corrected_kernelILi4ELb0EEvPKaPaPKiS3_iiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_reads_each_instantiation():
+    """``_build.ptxas_report`` reads registers and spill stores per
+    instantiation of one kernel family from an -Xptxas -v log."""
+    assert _build.ptxas_report(PTXAS_LOG, "sesr_net_kernel") == {"Li1ELi16ELb0ELi32": (128, 4)}
+    assert _build.ptxas_report(PTXAS_LOG, "sesr_corrected_kernel") == {"Li4ELb0": (90, 0)}
+    assert _build.ptxas_report(PTXAS_LOG, "probe_gemm_kernel") == {}
+
+
 def test_importing_the_probes_builds_and_loads_nothing():
     code = ("from sesr_tpu_torch.ops import _build\n"
             "def refuse(*a, **k):\n"
