@@ -189,18 +189,22 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    main paths.
 14. the SESR paper's deepest and widest members, SESR-M11 x2 (13 convs, 16
    channels) and SESR-XL x2 (13 convs, 32 channels), from seeded weights:
-   each calibrated and certified on the card (both certify fast), and an
-   M11 with two convs at +127 that the certificate leaves unstamped; with
-   the counters at 0 before and read after, at 540x960, batch 1 and 4: K2
-   (the mode select_forward picks) and K1 (sim) on both, the corrected
-   kernel in the hybrid and PE-exact modes on the unstamped M11, every
+   each calibrated and certified on the card (both certify fast), an M11
+   and an XL with two convs at +127 that the certificate leaves unstamped,
+   XL calibrated at phase 12's four configs and XL at 8 PEs with 12-bit
+   accumulators; with the counters at 0 before and read after each call,
+   at 540x960: K2 (the mode select_forward picks) and K1 (sim) on both,
+   the corrected kernel in the hybrid and PE-exact modes on the unstamped
+   two, at batch 1 and 4; K1 and the corrected PE-exact mode (sim
+   --corrected) on XL at each config and at 8 PEs, at batch 1; every
    output torch.equal with the plain interpreter on the card, one launch a
    call; then each kernel's device time at its default tile (K1 and K2 also
    at every tile of ops/kernels.py NET_TILES that fits a block), its bound
-   and share,
-   MACs computed over MACs needed, registers and shared memory (CUPTI,
-   ptxas, the wrapper's plan and the library's). One ``kernels`` entry per
-   (kernel, network, mode), with that network and mode's own launches.
+   and share, MACs computed over MACs needed, registers and shared memory
+   (ptxas, the wrapper's plan and the library's, and CUPTI, read at the
+   default tile in a process of its own, ``chip_smoke.py --cupti``, whose
+   shared memory must be the plan's). One ``kernels`` entry per (kernel,
+   network, mode, config), with its own launches.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -328,9 +332,10 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     kernel (csrc/sesr_corrected.cu) issues over an (n, h, w) input, computed
     from its tile geometry (the card does not count them): per tile and
     layer, the wide GEMM's rows (the output extent's height times the input
-    extent's width) cut into m-tiles of 64, times the layer's k32 steps;
-    each wgmma is 64 x N x 32 MACs, N the layer's columns (convert.py
-    wgmma_geometry at ``pe`` PEs; x4 on a split layer at 4)."""
+    extent's width) cut into m-tiles of 64, times the layer's k32 steps
+    (width 16: two taps a step, width 32: one) and its chunks of at most 128
+    columns; together 64 x N x 32 MACs a step, N the layer's columns
+    (convert.py wgmma_geometry at ``pe`` PEs; x4 on a split layer at 4)."""
     from sesr_tpu_torch.convert import kernel_width, wgmma_geometry
 
     th, tw = tile
@@ -343,7 +348,7 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
         steps, _, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1, pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i:])
         rows = (th + 2 * r - k + 1) * (tw + 2 * r)
-        count += -(-rows // 64) * steps
+        count += -(-rows // 64) * steps * -(-n_cols // 128)
         macs += -(-rows // 64) * steps * 64 * n_cols * 32
     tiles = n * -(-h // th) * -(-w // tw)
     return count * tiles, macs * tiles
@@ -407,7 +412,7 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
     bound. A kernel's time is device time (the card kept busy while the host
     enqueues the launch: the wrapper's Python, about as long as K2 itself,
     stays out). Returns (ms, plain ms, (bound ms, bound by))."""
-    from sesr_tpu_torch.convert import kernel_constants
+    from sesr_tpu_torch.convert import kernel_constants, kernel_width
     from sesr_tpu_torch.ops import _build
     from sesr_tpu_torch.ops.corrected import split_layers
     from sesr_tpu_torch.ops.kernels import SMEM_LIMIT
@@ -432,7 +437,8 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
             for tile in CORRECTED_SWEEP:
                 plan = kern.smem_bytes(spec, tile, split, pe)
                 built = lib.sesr_corrected_smem(spec.num_convs, spec.in_channels,
-                                                spec.conv_out_channels, *tile, mask, pe)
+                                                spec.conv_out_channels, *tile, mask, pe,
+                                                kernel_width(spec.num_channels))
                 if plan != (built or plan) or (plan <= SMEM_LIMIT) != (built > 0):
                     fail(f"{label} tile {tile}: the wrapper plans {plan} B of shared memory, "
                          f"the library {built}")
@@ -536,12 +542,13 @@ def sass_counts(lib):
 def net_sass_check(build):
     """The network kernels' tensor-core instructions, from ``cuobjdump -sass``
     of their libraries: the corrected kernel (sesr_corrected_kernel: the
-    shipped instantiation and the general ones of 4 and 8 PE groups) on
-    wgmma (IGMMA) and no mma.sync (IMMA); K1 and K2 (sesr_net_kernel, three
+    shipped instantiation and the general ones of 4 and 8 PE groups, at
+    hidden widths 16 and 32) on wgmma (IGMMA) and no mma.sync (IMMA); K1
+    and K2 (sesr_net_kernel, three
     output widths, shipped and general, hidden widths 16 and 32) on
     mma.sync. Prints each kernel's
     counts; fails otherwise."""
-    want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 3),
+    want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 6),
             "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 24)}
     for name, (family, has, lacks, instances) in want.items():
         seen = 0
@@ -2457,7 +2464,7 @@ def hwconfig_phase(torch, dev, card):
 
     def ptxas_of(kern, spec, kc):
         if kern is corrected_net:
-            key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}"
+            key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}ELi{kc.width}"
             return key, reports["sesr_corrected"].get(key, (None, None))
         key = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}"
                f"ELi{kc.width}")
@@ -2522,9 +2529,12 @@ FAMILY_NETS = {"m11": dict(name="sesr_m11_x2", in_channels=3, out_channels=3, nu
                            num_lblocks=11, scaling_factor=2),
                "xl": dict(name="sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32,
                           num_lblocks=11, scaling_factor=2)}
-# the unstamped M11: these convs' weights at +127, so that the 18-bit clamp
-# fires on data there and the certificate leaves them unstamped
+# the unstamped M11 and XL: these convs' weights at +127, so that the 18-bit
+# clamp fires on data there and the certificate leaves them unstamped
 SATURATED = (3, 9)
+# XL at 8 PEs with 12-bit accumulators: every conv split in K1 and in the
+# corrected kernel (a split hidden layer's 256 columns in two chunks)
+XL_PE8 = dict(pe=8, pe_acc_bits=12)
 
 
 def halo_ratio(spec, tile):
@@ -2546,22 +2556,28 @@ def halo_ratio(spec, tile):
 def family_phase(torch, dev, card):
     """Phase 14, SESR-M11 x2 and SESR-XL x2 on the card: each calibrated
     from seeded collapsed weights and certified with the port's own
-    ``calibrate`` and ``certify_fast``, and an M11 whose convs SATURATED
-    are at +127 (its certificate leaves them unstamped); then, with the
-    launch counters at 0 before and read after, the main path at 540x960,
-    batch 1 and 4: the mode ``select_forward`` picks (K2 for the certified
-    two, hybrid for the unstamped M11) and K1 (``pe_exact_forward``, behind
-    ``sim``), and the unstamped M11's corrected PE-exact mode; every output
+    ``calibrate`` and ``certify_fast``, an M11 and an XL whose convs
+    SATURATED are at +127 (their certificates leave them unstamped), XL
+    calibrated at each of phase 12's HW_CONFIGS, and XL at 8 PEs with
+    12-bit accumulators (XL_PE8, every conv split); then, with the launch
+    counters at 0 before and read after each call, the main path at
+    540x960: the mode ``select_forward`` picks (K2 for the certified two,
+    hybrid for the unstamped two), K1 (``pe_exact_forward``, behind
+    ``sim``) and the unstamped networks' corrected PE-exact mode, each at
+    batch 1 and 4; XL's corrected PE-exact mode (``sim --corrected``'s
+    path) and K1 at each config and at XL_PE8, at batch 1; every output
     torch.equal with the plain interpreter on the card, one launch a call.
-    Then each kernel's device time (CUDA events) at its default tile and,
-    for K1 and K2, at each tile of NET_TILES that fits a block: its
-    bound and share, MACs computed over MACs needed (``halo_ratio``), the
-    tensor-core MACs over the network's, registers and shared memory
-    (CUPTI, the wrapper's plan and the library's, which must agree) and
-    ptxas's registers and spills of the instantiation. Returns the
+    Then each kernel's device time (CUDA
+    events) at its default tile and, for K1 and K2, at each tile of
+    NET_TILES that fits a block: its bound and share, MACs computed over
+    MACs needed (``halo_ratio``), the tensor-core MACs over the network's,
+    registers and shared memory (CUPTI, the wrapper's plan and the
+    library's, which must agree; the corrected kernel's B regions; CUPTI
+    again at the default tile in ``cupti_process``, which must give the
+    plan) and ptxas's registers and spills of the instantiation. Returns the
     kernels-line entries."""
-    from sesr_tpu_torch.config import SESRSpec
-    from sesr_tpu_torch.convert import kernel_constants
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec
+    from sesr_tpu_torch.convert import kernel_constants, pe_groups
     from sesr_tpu_torch.deploy import select_forward
     from sesr_tpu_torch.models.sesr import init_params
     from sesr_tpu_torch.ops import _build
@@ -2569,7 +2585,8 @@ def family_phase(torch, dev, card):
                                               split_layers)
     from sesr_tpu_torch.ops.fast import fast_forward
     from sesr_tpu_torch.ops.kernels import (NET_KERNELS, NET_TILES, SMEM_LIMIT, corrected_net,
-                                            fast_net, pe_exact_net, reset_launch_counts)
+                                            corrected_plan, fast_net, pe_exact_net,
+                                            reset_launch_counts)
     from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
     from sesr_tpu_torch.quant.calibrate import calibrate
     from sesr_tpu_torch.quant.certify import certify_fast
@@ -2580,11 +2597,12 @@ def family_phase(torch, dev, card):
     tag = f"({card})"
     t_phase = time.perf_counter()
     rng = np.random.default_rng(14)
-    nets = {}
+    nets, made = {}, {}
     for key, kw in FAMILY_NETS.items():
         spec = SESRSpec(**kw)
         params = init_params(spec, torch.Generator().manual_seed(len(nets)))
         calib = [rng.random((1, 96, 128, 3), dtype=np.float32) for _ in range(2)]
+        made[key] = (params, calib)
         cert = [rng.random((1,) + CERT_FRAME + (3,), dtype=np.float32) for _ in range(2)]
         t0 = time.perf_counter()
         qp = calibrate(spec, params, calib, safe_zero_floor=True, device="cuda")
@@ -2597,32 +2615,57 @@ def family_phase(torch, dev, card):
         if not qp.fast_cert_ok:
             fail(f"[14] {spec.name} did not certify fast: {qp.cert_stamps}")
         nets[key] = (spec, qp, cert)
-    spec, qp, cert = nets["m11"]
-    sat = dataclasses.replace(qp, w_int=[
-        np.full_like(np.asarray(w), 127) if i in SATURATED else np.asarray(w)
-        for i, w in enumerate(qp.w_int)])
-    sat = certify_fast(spec, sat, cert, device="cuda")
-    stamped = tuple(sat.fast_cert_layers or ())
-    print(f"[14] {spec.name} with convs {SATURATED} at +127: {sat.cert_grade} "
-          f"{sat.cert_stamps}", flush=True)
-    if select_forward(sat)[0] != "hybrid" or any(stamped[i] for i in SATURATED):
-        fail(f"[14] the saturated M11 should serve hybrid with convs {SATURATED} unstamped, "
-             f"got {select_forward(sat)[0]} {stamped}")
-    nets["m11u"] = (spec, sat, cert)
+    for key, base in (("m11u", "m11"), ("xlu", "xl")):
+        spec, qp, cert = nets[base]
+        sat = dataclasses.replace(qp, w_int=[
+            np.full_like(np.asarray(w), 127) if i in SATURATED else np.asarray(w)
+            for i, w in enumerate(qp.w_int)])
+        t0 = time.perf_counter()
+        sat = certify_fast(spec, sat, cert, device="cuda")
+        stamped = tuple(sat.fast_cert_layers or ())
+        print(f"[14] {spec.name} with convs {SATURATED} at +127: {sat.cert_grade} "
+              f"{sat.cert_stamps}; certify_fast {time.perf_counter() - t0:.2f} s on the card; "
+              f"split hybrid {[i for i, f in enumerate(split_layers(sat, 'hybrid')) if f]}, "
+              f"pe-exact {[i for i, f in enumerate(split_layers(sat, 'pe-exact')) if f]}",
+              flush=True)
+        if select_forward(sat)[0] != "hybrid" or any(stamped[i] for i in SATURATED):
+            fail(f"[14] the saturated {spec.name} should serve hybrid with convs {SATURATED} "
+                 f"unstamped, got {select_forward(sat)[0]} {stamped}")
+        nets[key] = (spec, sat, cert)
+    # XL at phase 12's configs (calibrated on the card) and at XL_PE8
+    spec, qp, _ = nets["xl"]
+    for cname, kw in HW_CONFIGS.items():
+        t0 = time.perf_counter()
+        cqp = calibrate(spec, *made["xl"], hw=HardwareConfig(**kw), safe_zero_floor=True,
+                        device="cuda")
+        split = split_layers(cqp, "pe-exact")
+        print(f"[14] {spec.name} at {cname} {kw}: calibrate {time.perf_counter() - t0:.2f} s on "
+              f"the card; corrected PE-exact split {[i for i, f in enumerate(split) if f]}",
+              flush=True)
+        nets[f"xl_{cname}"] = (spec, cqp, None)
+    nets["xl_pe8_acc12"] = (
+        spec, dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, **XL_PE8)), None)
 
     x4 = torch.from_numpy(rng.random((4,) + FRAME + (3,), dtype=np.float32)).to(dev)
     x1 = x4[:1].contiguous()
-    # the main path, counters at 0 before it: per network the served mode
-    # (int8 out) and K1, each at batch 1 and 4
-    calls = {"m11": (("fast", "fast"), ("sim", "exact")),
-             "xl": (("fast", "fast"), ("sim", "exact")),
-             "m11u": (("hybrid", "hybrid"), ("pe-exact", "pe-exact"))}
+    # the main path: per served network the mode it serves (int8 out), K1
+    # and the unstamped networks' corrected PE-exact mode, each at batch 1
+    # and 4; at the configs the corrected PE-exact mode (sim --corrected's
+    # path, "sim-c"), at XL_PE8 that and K1, at batch 1
+    served = {"m11": (("fast", "fast"), ("sim", "exact")),
+              "xl": (("fast", "fast"), ("sim", "exact")),
+              "m11u": (("hybrid", "hybrid"), ("pe-exact", "pe-exact")),
+              "xlu": (("hybrid", "hybrid"), ("pe-exact", "pe-exact"))}
+    calls = {**served, **{f"xl_{c}": (("sim-c", "pe-exact"), ("sim", "exact"))
+                          for c in HW_CONFIGS},
+             "xl_pe8_acc12": (("sim", "exact"), ("sim-c", "pe-exact"))}
     fwd = {"fast": lambda s, q, x: fast_forward(s, q, x, out_dtype="int8"),
            "hybrid": lambda s, q, x: hybrid_forward(s, q, x, out_dtype="int8"),
            "pe-exact": lambda s, q, x: pe_exact_corrected_forward(s, q, x, out_dtype="int8"),
-           "sim": lambda s, q, x: pe_exact_forward(s, q, x)}
+           "sim": lambda s, q, x: pe_exact_forward(s, q, x),
+           "sim-c": lambda s, q, x: pe_exact_corrected_forward(s, q, x)}
     kernel_of = {"fast": fast_net, "hybrid": corrected_net, "pe-exact": corrected_net,
-                 "sim": pe_exact_net}
+                 "sim": pe_exact_net, "sim-c": corrected_net}
 
     def counts():
         return {k.symbol: k.launches for k in NET_KERNELS}
@@ -2630,26 +2673,28 @@ def family_phase(torch, dev, card):
     # each (network, mode)'s own launches and frames, read from the
     # counters around each of its calls
     own = {(key, mode): [0, 0] for key, modes in calls.items() for mode, _ in modes}
-    reset_launch_counts()
+    launches = dict.fromkeys(counts(), 0)
     outs = {}
     for key, modes in calls.items():
         spec, qp, _ = nets[key]
-        if select_forward(qp)[0] != modes[0][0]:
+        if key in served and select_forward(qp)[0] != modes[0][0]:
             fail(f"[14] {key}: select_forward picks {select_forward(qp)[0]}, not {modes[0][0]}")
         for mode, _ in modes:
-            for x in (x1, x4):
-                before = counts()
+            for x in ((x1, x4) if key in served else (x1,)):
+                reset_launch_counts()
                 outs[key, mode, x.shape[0]] = fwd[mode](spec, qp, x)
-                after = counts()
-                made = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                made = {k: v for k, v in counts().items() if v}
                 if made != {kernel_of[mode].symbol: 1}:
                     fail(f"[14] {key} {mode} batch {x.shape[0]} launched {made}, want one "
                          f"launch of {kernel_of[mode].symbol}")
+                launches[kernel_of[mode].symbol] += 1
                 own[key, mode][0] += 1
                 own[key, mode][1] += x.shape[0]
     torch.cuda.synchronize()
-    launches = counts()
-    want = {"sesr_pe_exact_net": 4, "sesr_fast_net": 4, "sesr_corrected_net": 4}
+    want = dict.fromkeys(launches, 0)
+    for key, modes in calls.items():
+        for mode, _ in modes:
+            want[kernel_of[mode].symbol] += 2 if key in served else 1
     if launches != want:
         fail(f"[14] the main path launched {launches}, want one launch a call: {want}")
     print(f"[14] main path at {FRAME}, batch 1 and 4: launches {launches}; per network and "
@@ -2657,21 +2702,22 @@ def family_phase(torch, dev, card):
           f"{dict(corrected_net.split_launches)}", flush=True)
     # the same outputs from the plain interpreter on the card
     plain = {"fast": dict(corrected=True, compute="fast"), "sim": dict(corrected=False),
-             "hybrid": None, "pe-exact": dict(corrected=True, compute="exact")}
+             "hybrid": None, "pe-exact": dict(corrected=True, compute="exact"),
+             "sim-c": dict(corrected=True)}
     for (key, mode, batch), got in outs.items():
         spec, qp, _ = nets[key]
         x = x1 if batch == 1 else x4
         kw = plain[mode] or dict(corrected=True, compute="exact",
                                  fast_layers=tuple(qp.fast_cert_layers))
-        if mode == "sim":
+        if mode in ("sim", "sim-c"):
             want_y = integer_forward(spec, qp, x, **kw)[0]
         else:
             want_y = integer_forward_int8(spec, qp, x, **kw)
         if got.shape != want_y.shape or not torch.equal(got, want_y):
-            fail(f"[14] {spec.name} {mode} batch {batch}: differs from the plain interpreter")
+            fail(f"[14] {key} {mode} batch {batch}: differs from the plain interpreter")
         if not bool(torch.isfinite(got.float()).all()):
-            fail(f"[14] {spec.name} {mode} batch {batch}: non-finite output")
-        print(f"[14] {spec.name} {mode} batch {batch}: output {tuple(got.shape)} "
+            fail(f"[14] {key} {mode} batch {batch}: non-finite output")
+        print(f"[14] {spec.name} ({key}) {mode} batch {batch}: output {tuple(got.shape)} "
               f"{got.dtype}, torch.equal with plain (cuda)", flush=True)
         del want_y
     del outs
@@ -2680,11 +2726,22 @@ def family_phase(torch, dev, card):
     reports = {lib: _build.ptxas_report(_build.build(lib).log, fam) for lib, fam in (
         ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
     lib = _build.load("sesr_net")
+    lib_c = _build.load("sesr_corrected")
     entries = []
+    # each kernel's launch at its default tile, for CUPTI in a process of its own
+    cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
+    os.makedirs(cupti_dir, exist_ok=True)
+    cupti_jobs = []
     cases = [(pe_exact_net, "m11", None, "sim"), (fast_net, "m11", None, "fast"),
              (pe_exact_net, "xl", None, "sim"), (fast_net, "xl", None, "fast"),
              (corrected_net, "m11u", "hybrid", "hybrid"),
-             (corrected_net, "m11u", "pe-exact", "pe-exact")]
+             (corrected_net, "m11u", "pe-exact", "pe-exact"),
+             (corrected_net, "xlu", "hybrid", "hybrid"),
+             (corrected_net, "xlu", "pe-exact", "pe-exact"),
+             *[(corrected_net, f"xl_{c}", "pe-exact", "sim-c") for c in HW_CONFIGS],
+             *[(pe_exact_net, f"xl_{c}", None, "sim") for c in HW_CONFIGS],
+             (pe_exact_net, "xl_pe8_acc12", None, "sim"),
+             (corrected_net, "xl_pe8_acc12", "pe-exact", "sim-c")]
     for kern, key, mode, path_mode in cases:
         n_launch, n_frames = own[key, path_mode]
         spec, qp, _ = nets[key]
@@ -2693,11 +2750,25 @@ def family_phase(torch, dev, card):
         x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
         tile0 = kern.tile(spec, kc.pe_split, kc.pe, kc.general)
         ref = kern(spec, qp, x_q, split=split_arg)
-        label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''} {FRAME[0]}x{FRAME[1]}"
+        label = (f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''}"
+                 f"{f' {key[3:]}' if key.startswith('xl_') else ''} {FRAME[0]}x{FRAME[1]}")
         if kern is corrected_net:
-            pkey = f"Li4ELb{int(kc.general)}"
+            pkey = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}ELi{kc.width}"
             p_regs, p_spill = reports["sesr_corrected"].get(pkey, (None, None))
             tiles = [tile0]
+            mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
+            plan = corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels, tile0,
+                                  kc.pe_split, kc.pe, kc.width)
+            built = lib_c.sesr_corrected_smem(spec.num_convs, spec.in_channels,
+                                              spec.conv_out_channels, *tile0, mask, kc.pe,
+                                              kc.width)
+            if plan[0] != built:
+                fail(f"[14] {label} tile {tile0}: the wrapper plans {plan[0]} B of shared "
+                     f"memory, the library {built}")
+            print(f"[14] {label}: tile {tile0[0]}x{tile0[1]}, {plan[0]} B of shared memory "
+                  f"(the wrapper's plan and the library's agree), B "
+                  f"{'resident' if plan[1] == 0 else f'staged in {plan[1]} region(s)'}",
+                  flush=True)
         else:
             pkey = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}"
                     f"ELi{kc.width}")
@@ -2746,6 +2817,12 @@ def family_phase(torch, dev, card):
                   f"(plan {plan}) {tag}", flush=True)
             if tile == tile0:
                 ms = tile_ms
+        qp_path = os.path.join(cupti_dir, f"{key}.npz")
+        qp.save(qp_path)
+        cupti_jobs.append(dict(label=label, spec=dataclasses.asdict(spec), qparams=qp_path,
+                               symbol=kern.symbol, mode=mode, tile=list(tile0),
+                               plan=kern.smem_bytes(spec, tile0, kc.pe_split, kc.pe,
+                                                    kc.general)))
         kw = plain_kwargs(kern, qp, mode)
         plain_ms = median_ms(lambda: integer_forward(spec, qp, x1, **kw), dev, 3)
         print(f"[14] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, "
@@ -2756,16 +2833,74 @@ def family_phase(torch, dev, card):
               f"{bnd[0] / ms:.4f}; plain {plain_ms:.3f} ms; launches on the main path "
               f"{n_launch} over {n_frames} frames ({launches[kern.symbol]} of every "
               f"network) {tag}", flush=True)
-        name = f"{kern.symbol}[{spec.name}{f', {mode}' if mode else ''}]"
+        at = f", {key[3:]}" if key.startswith("xl_") else ""
+        name = f"{kern.symbol}[{spec.name}{f', {mode}' if mode else ''}{at}]"
         entries.append(dict(
             name=name, route="cuda", source=SOURCES[kern.symbol],
             replaces=REPLACES[kern.symbol], launches=n_launch,
             launches_per_frame={"main path": n_launch / n_frames},
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
             library_ms=None, tile=list(tile0),
-            work=f"{spec.name}, {FRAME} frame, batch 1{f', {mode} mode' if mode else ''}"))
+            work=f"{spec.name}, {FRAME} frame, batch 1{f', {mode} mode' if mode else ''}, "
+                 f"{qp.hw.pe} PEs, {qp.hw.pe_acc_bits}-bit accumulators"))
+    # CUPTI's registers and shared memory of each kernel at its default
+    # tile, read in a process of its own (this process's trace, after the
+    # earlier phases' traces, misses them): the shared memory must be the
+    # plan's
+    jobs_path = os.path.join(cupti_dir, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(cupti_jobs, f)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--cupti", jobs_path],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"[14] the CUPTI process failed:\n{res.stdout[-2000:]}{res.stderr[-4000:]}")
+    attrs = json.loads(res.stdout.strip().splitlines()[-1])
+    for job in cupti_jobs:
+        regs, smem = attrs[job["label"]]
+        print(f"[14] {job['label']} tile {job['tile'][0]}x{job['tile'][1]}: CUPTI (a process "
+              f"of its own) {regs} registers, {smem} B shared memory per block (plan "
+              f"{job['plan']}) {tag}", flush=True)
+        if smem != job["plan"]:
+            fail(f"[14] {job['label']}: CUPTI reports {smem} B of shared memory, the plan "
+                 f"{job['plan']}")
+    print(f"[14] the CUPTI process took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[14] the family phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
     return entries
+
+
+def cupti_process(jobs_path):
+    """``chip_smoke.py --cupti JOBS``: launch each kernel of JOBS (a JSON
+    list of phase 14's default-tile launches: the network, its QuantParams
+    file, the wrapper, the corrected kernel's mode and the tile) once on a
+    seeded 540x960 frame, and print {label: [registers, shared memory]} as
+    CUPTI reports them (``launch_attrs``)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from sesr_tpu_torch.config import SESRSpec
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import NET_KERNELS, corrected_net
+    from sesr_tpu_torch.quant.integer import quantize_input
+    from sesr_tpu_torch.quant.params import QuantParams
+
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    kernels = {k.symbol: k for k in NET_KERNELS}
+    x = torch.from_numpy(np.random.default_rng(0).random((1,) + FRAME + (3,),
+                                                         dtype=np.float32)).to("cuda")
+    attrs = {}
+    for job in jobs:
+        spec, qp = SESRSpec(**job["spec"]), QuantParams.load(job["qparams"])
+        kern = kernels[job["symbol"]]
+        split = split_layers(qp, job["mode"]) if job["mode"] else None
+        x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+        tile = tuple(job["tile"])
+        kern(spec, qp, x_q, tile=tile, split=split)            # loads the library
+        pattern = "sesr_corrected_kernel" if kern is corrected_net else "sesr_net_kernel"
+        attrs.update(launch_attrs(torch, {job["label"]: lambda: kern(spec, qp, x_q, tile=tile,
+                                                                      split=split)}, pattern))
+    print(json.dumps(attrs), flush=True)
 
 
 def bench_phase(torch, dev, card):
@@ -3270,4 +3405,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cupti"]:
+        cupti_process(sys.argv[2])
+    else:
+        main()

@@ -28,7 +28,7 @@ from sesr_tpu_torch.quant.params import QuantParams
 # records (``net_words``) into shared memory, the corrected kernel all of
 # it (``param_words``).
 MAX_LAYERS = 16
-WIDTHS = (16, 32)                  # K1's and K2's hidden widths; the corrected kernel's is 16
+WIDTHS = (16, 32)                  # the hidden widths every fused kernel runs
 MAX_PES = 8
 HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6)
 HEAD_WORDS = 8
@@ -83,7 +83,7 @@ def param_words(pe: int, num_layers: int, width: int = 16) -> int:
 
 
 def pe_groups(pe: int) -> int:
-    """PE column groups of a split 16-channel layer in the corrected kernel
+    """PE column groups of a split hidden layer in the corrected kernel
     (sesr_corrected.cu pe_groups): 4 up to four PEs, else 8, so that every
     PE count runs in one of two instantiations; the groups past ``pe`` hold
     zero weights."""
@@ -253,13 +253,15 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
 
 def _wgmma_columns(oc: int, last: bool) -> np.ndarray:
     """Output channel of each column of one PE group of the corrected
-    kernel's B (csrc/sesr_corrected.cu ``col_chan``), -1 past OC: 16
-    columns, or 8 for a last layer of <= 8 channels. The last layer's are in
-    order; a hidden layer's are permuted so that the four accumulators a
-    thread holds for one row (wgmma columns 8j + 2t + e, j and e in {0, 1})
-    are channels 4t + 2j + e, the bytes of the next layer's input word t."""
-    n = np.arange(8 if last and oc <= 8 else 16)
-    cols = n if last else ((n >> 1) & 3) * 4 + (n >> 3) * 2 + (n & 1)
+    kernel's B (csrc/sesr_corrected.cu ``col_chan``), -1 past OC: a hidden
+    layer's ``oc`` (its width, 16 or 32) columns, a last layer's 16, or 8
+    for <= 8 channels. The last layer's are in order; a hidden layer's are
+    permuted so that the four accumulators a thread holds for one row in
+    n-tiles 2w and 2w + 1 (wgmma columns 8j + 2t + e, j - 2w and e in
+    {0, 1}) are channels 16w + 4t + 2(j - 2w) + e, the bytes of word t of
+    the next layer's input plane w."""
+    n = np.arange(8 if last and oc <= 8 else 16 if last else oc)
+    cols = n if last else (n >> 4) * 16 + ((n >> 1) & 3) * 4 + ((n >> 3) & 1) * 2 + (n & 1)
     return np.where(cols < oc, cols, -1)
 
 
@@ -267,11 +269,12 @@ def wgmma_geometry(k: int, ic: int, oc: int, split: bool, last: bool, pe: int):
     """(k32 steps, PE groups of columns, N) of one layer's GEMM in the
     corrected kernel: layer 0 (ic <= 4, its pixels widened to four
     horizontal neighbours) takes one step per kernel row, a 16-channel layer
-    two taps a step; a split layer has one group of columns per PE that
-    owns an input channel (layer 0: min(ic, pe); a 16-channel layer
-    ``pe_groups``), a one-pass layer one."""
+    two taps a step, a 32-channel layer one (its two planes the two halves
+    of k); a split layer has one group of columns per PE that owns an input
+    channel (layer 0: min(ic, pe); a hidden layer ``pe_groups``), a
+    one-pass layer one."""
     wide = ic <= 4
-    steps = k if wide else -(-k * k // 2)
+    steps = k if wide else -(-k * k * ic // 32)
     groups = (min(ic, pe) if wide else pe_groups(pe)) if split else 1
     return steps, groups, groups * len(_wgmma_columns(oc, last))
 
@@ -281,8 +284,9 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     bytes as int32 words: byte ``b_byte(s, n, kb, N)`` holds the weight that
     k byte kb of step s meets in column n. Column n is output channel
     ``_wgmma_columns[n % G]`` of PE group n // G (G columns a group); k byte
-    16h + b of step s is channel b of tap 2s + h (a 16-channel layer), or
-    channel b % 4 of tap (s, 4h + b // 4) (layer 0, widened pixels). A
+    16h + b of step s is channel b of tap 2s + h (a 16-channel layer),
+    channel 16h + b of tap s (a 32-channel layer: plane h), or channel
+    b % 4 of tap (s, 4h + b // 4) (layer 0, widened pixels). A
     split layer's group p holds only PE p's channels (c % pe == p); a
     padded tap or channel, a group past the PEs, or a column past OC, is
     zero."""
@@ -298,8 +302,8 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
         dy, dx, ch = s, 4 * h + b // 4, b % 4
         ok = (dx < k) & (ch < ic)
     else:
-        tap = 2 * s + h
-        dy, dx, ch = tap // k, tap % k, b
+        tap = 32 // ic * s + (32 // ic - 1) * h
+        dy, dx, ch = tap // k, tap % k, b + 16 * h * (ic // 16 - 1)
         ok = tap < k * k
     o = cols[n % g]
     ok &= o >= 0
@@ -459,14 +463,12 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     K2's conv 0, in the instantiations the shipped artifacts use; otherwise
     in the ``general`` ones, which clamp every layer's sum to pe_add_bits
     (the identity where it cannot fire). Networks of 3 to MAX_LAYERS convs
-    run; K1 and K2 take hidden widths of 16 and 32, the corrected kernel 16,
-    and a narrower network runs padded with zero channels (``_padded``).
-    Raises NotImplementedError for a network or artifact outside that
-    (quan_bits != 8, more than MAX_LAYERS convs, a hidden width above 32, or
-    above 16 for the corrected kernel, an int16 shortcut that may not hold
+    run at hidden widths of 16 and 32, and a narrower network runs padded
+    with zero channels (``_padded``). Raises NotImplementedError for a
+    network or artifact outside that (quan_bits != 8, more than MAX_LAYERS
+    convs, a hidden width above 32, an int16 shortcut that may not hold
     round(s), ``shortcut_bound``, or a network whose plan at the kernel's
-    smallest tile does not fit a block's shared memory: K1's general
-    instantiation at width 32 with split layers past 4 PEs).
+    smallest tile does not fit a block's shared memory).
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -494,12 +496,6 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         raise NotImplementedError(
             f"the fused kernels run 3 to {MAX_LAYERS} convs; {spec.name} has {L}")
     width = kernel_width(spec.num_channels)
-    if datapath == "corrected" and width != WIDTHS[0]:
-        raise NotImplementedError(
-            f"the corrected kernel keeps every layer's weights in shared memory and runs "
-            f"hidden widths of at most {WIDTHS[0]} channels; {spec.name} has "
-            f"{spec.num_channels} (ROADMAP: the corrected kernel at width 32, its weights "
-            f"streamed a layer at a time)")
     if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])
             and spec.in_channels <= 4 and spec.conv_out_channels in (3, 12, 16)):
         raise NotImplementedError(
@@ -544,7 +540,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         raise NotImplementedError(
             f"no tile of the {datapath} kernel fits {spec.name} at {hw.pe} PEs: the smallest, "
             f"{kern.tiles[-1]}, needs {need} B of shared memory, more than a block's "
-            f"{SMEM_LIMIT} (ROADMAP queue 1 item 2: weights streamed a layer at a time)")
+            f"{SMEM_LIMIT}")
 
     prm = np.zeros(param_words(hw.pe, L, width), np.int32)
     chunks, off = [], 0

@@ -7,8 +7,12 @@ inputs made from one numpy seed.
 
 ``--base DIR``: against another checkout of the repository, e.g. an
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR`` into
-a directory that .gitignore lists, on those three and on K1 and K2
-(``sesr_pe_exact_net``, ``sesr_fast_net``) on sr_x2's 540x960 frame. Each
+a directory that .gitignore lists, on those three, on nr's artifact at 3
+and at 8 PEs (the general instantiations at width 16), on K1 and K2
+(``sesr_pe_exact_net``, ``sesr_fast_net``) on sr_x2's 540x960 frame and on
+SESR-M11 x2 with convs 3 and 9 at +127 in the hybrid and the PE-exact
+mode at 540x960 (seeded weights calibrated and certified here on the
+card, saved under build/corrected_ab/ and loaded by both trees). Each
 tree's own wrappers and kernels run in their own process (``python -c``
 from the tree's root, which builds the tree's ``csrc/`` into its own
 ``build/``), in turns base, this, this, base; each prints its times, a
@@ -44,16 +48,25 @@ VARIANTS = {
     "base": [],
     "warpgroups_3": [("constexpr int kWarpgroups = 4;", "constexpr int kWarpgroups = 3;")],
     "warpgroups_5": [("constexpr int kWarpgroups = 4;", "constexpr int kWarpgroups = 5;")],
-    "no_epilogue": [("    f.epilogue(d, mt);\n", "")],
-    "no_mma": [("      wgmma<N>(d, a_hi", "      if constexpr (false) wgmma<N>(d, a_hi")],
+    "no_epilogue": [("    f.epilogue(d, mt, carry);\n", "")],
+    "no_mma": [("      wgmma<NC>(d, a_hi", "      if constexpr (false) wgmma<NC>(d, a_hi")],
 }
 FRAME = (1080, 1920)
 CASES = (("nr", "hybrid"), ("nrdm_6", "hybrid"), ("nr", "pe-exact"))
 # each network library's kernel family, whose ptxas report --base prints
 PTXAS_FAMILIES = {"sesr_net": "sesr_net_kernel", "sesr_corrected": "sesr_corrected_kernel"}
-# --base only: K1 and K2 on sr_x2, at its 540x960 frame
-TREE_CASES = CASES + (("sr_x2", "K1"), ("sr_x2", "K2"))
+# --base only: the corrected kernel on nr's artifact at 3 and 8 PEs
+# ("nr@pe3", "nr@pe8": its instantiations <4, true, 16> and <8, true, 16>)
+# at 1080x1920, K1 and K2 on sr_x2, and the corrected kernel on the
+# saturated SESR-M11 ("m11u"), at the 540x960 frame
+TREE_CASES = CASES + (("nr@pe3", "pe-exact"), ("nr@pe8", "hybrid"), ("nr@pe8", "pe-exact"),
+                      ("sr_x2", "K1"), ("sr_x2", "K2"), ("m11u", "hybrid"), ("m11u", "pe-exact"))
 SR_FRAME = (540, 960)
+# the SESR paper's M11 x2 (chip_smoke.py phase 14's seed), convs SATURATED
+# at +127
+NETS = {"m11u": (dict(name="sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
+                      num_lblocks=11, scaling_factor=2), 0)}
+SATURATED = (3, 9)
 
 # Times this tree's network kernels: run with ``python -c`` from a tree's
 # root, so that it imports that tree's package (whose wrapper API is
@@ -62,19 +75,23 @@ SR_FRAME = (540, 960)
 WORKER = r"""
 import dataclasses, hashlib, json, sys
 import numpy as np, torch
-from sesr_tpu_torch.config import spec_for_task
+from sesr_tpu_torch.config import SESRSpec, spec_for_task
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import split_layers
 from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, pe_exact_net
 from sesr_tpu_torch.quant.integer import quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
 from sesr_tpu_torch.timing import median_ms
-reps, frames, cases = json.loads(sys.argv[1])
+reps, frames, cases, nets = json.loads(sys.argv[1])
 dev = torch.device("cuda")
 out = {"device": torch.cuda.get_device_name(0)}
 for task, mode in cases:
-    spec = spec_for_task(task)
-    qp = QuantParams.load(f"artifacts/qparams_{task}.npz")
+    name, _, pe = task.partition("@pe")
+    kw, path = nets.get(task, (None, f"artifacts/qparams_{name}.npz"))
+    spec = SESRSpec(**kw) if kw else spec_for_task(name)
+    qp = QuantParams.load(path)
+    if pe:
+        qp = dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, pe=int(pe)))
     if mode == "pe-exact":
         qp = dataclasses.replace(qp, fast_cert_layers=None)
     kern = {"K1": pe_exact_net, "K2": fast_net}.get(mode, corrected_net)
@@ -91,11 +108,44 @@ print(json.dumps(out))
 """.replace("PTXAS_FAMILIES", repr(tuple(PTXAS_FAMILIES)))
 
 
+def artifact(net: str) -> Path:
+    """NETS[net] from seeded weights, calibrated on two seeded 96x128
+    images, convs SATURATED at +127, certified on two more (the card's
+    port), saved as a QuantParams file: built once, then reused."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sesr_tpu_torch.config import SESRSpec
+    from sesr_tpu_torch.models.sesr import init_params
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.certify import certify_fast
+
+    kw, seed = NETS[net]
+    path = VARIANT_DIR.parent.parent / "corrected_ab" / f"{kw['name']}_saturated.npz"
+    if not path.exists():
+        spec = SESRSpec(**kw)
+        rng = np.random.default_rng(14)
+        images = [rng.random((1, 96, 128, 3), dtype=np.float32) for _ in range(4)]
+        qp = calibrate(spec, init_params(spec, torch.Generator().manual_seed(seed)), images[:2],
+                       safe_zero_floor=True, device="cuda")
+        qp = dataclasses.replace(qp, w_int=[
+            np.full_like(np.asarray(w), 127) if i in SATURATED else np.asarray(w)
+            for i, w in enumerate(qp.w_int)])
+        path.parent.mkdir(parents=True, exist_ok=True)
+        certify_fast(spec, qp, images[2:], device="cuda").save(str(path))
+    return path
+
+
 def run_tree(tree: Path, reps: int) -> dict:
     from sesr_tpu_torch.ops import _build
 
-    frames = {task: SR_FRAME if task == "sr_x2" else FRAME for task, _ in TREE_CASES}
-    res = subprocess.run([sys.executable, "-c", WORKER, json.dumps([reps, frames, TREE_CASES])],
+    frames = {task: FRAME if task.partition("@")[0] in ("nr", "nrdm_6") else SR_FRAME
+              for task, _ in TREE_CASES}
+    nets = {"m11u": (NETS["m11u"][0], str(artifact("m11u")))}
+    res = subprocess.run([sys.executable, "-c", WORKER,
+                          json.dumps([reps, frames, TREE_CASES, nets])],
                          cwd=tree, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"the worker in {tree} failed:\n{res.stderr[-4000:]}")
@@ -177,10 +227,11 @@ def variant_ab(names, reps: int, tiles=None) -> None:
         lib.sesr_corrected_error_string.restype = ctypes.c_char_p
         libs[name] = lib
         log = (path.parent / "nvcc.log").read_text()
-        print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in log.splitlines()
-                                                     if "Used" in ln or "erialized" in ln
-                                                     or "spill" in ln or "nvcc sec" in ln]}),
-              flush=True)
+        print(json.dumps({"variant": name,
+                          "ptxas": {k: list(v) for k, v in _build.ptxas_report(
+                              log, PTXAS_FAMILIES["sesr_corrected"]).items()},
+                          "log": [ln.strip() for ln in log.splitlines()
+                                  if "erialized" in ln or "nvcc sec" in ln]}), flush=True)
     load = _build.load
     dev = torch.device("cuda")
     x = torch.from_numpy(np.random.default_rng(0).random((1, *FRAME, 3), dtype=np.float32)).to(dev)

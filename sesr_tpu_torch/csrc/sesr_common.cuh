@@ -13,8 +13,7 @@
 
 namespace {
 
-constexpr int kC = 16;          // the corrected kernel's hidden width (a narrower network is padded)
-constexpr int kMaxC = 32;       // K1's and K2's widest hidden width: 16 or 32 (padded to the next)
+constexpr int kMaxC = 32;       // the widest hidden width: 16 or 32 (a narrower network is padded to the next)
 constexpr int kMaxL = 16;       // deepest supported network
 constexpr int kMaxPE = 8;       // most PEs of a datapath
 

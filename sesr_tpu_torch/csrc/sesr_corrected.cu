@@ -15,11 +15,12 @@
 // the sum clamped to pe_add_bits (20 shipped) where that clamp can fire;
 // then the clipped bias, the float32 requantization, ReLU, the int16
 // residual shortcut and the int8 output. Networks of 3 to 16 convs at
-// hidden width 16 (SESR-M11 among them; a width of 32 needs the weights
-// streamed a layer at a time, ROADMAP). Any HardwareConfig with 1 to 8
-// PEs and int8 activations runs: the 4-PE artifacts in the shipped
-// instantiation (<4, false>), every other in a general one (<4, true> up to
-// four PEs, <8, true> past them), which clamps every sum to pe_add_bits.
+// hidden width 16 (the shipped tasks, SESR-M11) or 32 (SESR-XL), C a
+// template parameter; a narrower network runs padded to the next. Any
+// HardwareConfig with 1 to 8 PEs and int8 activations runs: the 4-PE
+// artifacts in the shipped instantiation (<4, false, C>), every other in a
+// general one (<4, true, C> up to four PEs, <8, true, C> past them), which
+// clamps every sum to pe_add_bits.
 //
 // What bounds it on this card: operations. nr needs 9,312 int8 MACs per
 // pixel against 6 bytes of device traffic, far above the H100's ratio of
@@ -27,7 +28,8 @@
 //   - every conv is an implicit GEMM on wgmma (m64nNk32 s8 x s8 -> s32, exact
 //     int32 sums), both operands read from shared memory by descriptor: no
 //     operand passes through registers. Activations lie pixel-major, 16 int8
-//     channels = 16 bytes a pixel. A layer's output is computed over rows of
+//     channels = 16 bytes a pixel (at width 32, two planes: channels 0-15,
+//     then 16-31 in a second plane). A layer's output is computed over rows of
 //     its input extent's width iw (the "wide" GEMM: the K - 1 columns past
 //     each output row are computed and dropped), so output row r of tap
 //     (dy, dx) reads input pixel r + dy iw + dx: for 64 consecutive rows that
@@ -36,7 +38,10 @@
 //     two taps: its start moves by the first tap's offset, and LBO (the
 //     distance between the two 16-byte halves of k) is the second tap's
 //     offset from the first, so the two halves' core matrices may overlap
-//     (16 bytes apart for horizontal neighbours). half_off gives both;
+//     (16 bytes apart for horizontal neighbours). half_off gives both. At
+//     width 32 a step is one tap: both halves are the same pixel, one in
+//     each plane, LBO the distance between the planes (a_lbo): 9 steps for a
+//     3x3 layer, where width 16 takes 5;
 //   - layer 0 reads <= 4 channels a pixel. Its input is widened once per
 //     tile: entry p holds the words of pixels p .. p + 3, so one 16-byte
 //     half is four horizontal taps and a step is one kernel row (taps 0-3,
@@ -44,16 +49,24 @@
 //     5x5 conv, where 25 taps of 4 bytes need 100 of its 160 bytes of k;
 //   - each PE's partial in its own accumulator columns: a split layer is one
 //     pass with N = G x OC columns, G = pe_groups(pe) (4, or 8 past four
-//     PEs; layer 0: min(in_ch, pe) x 16), column (p, o) holding W[o] on PE
+//     PEs; layer 0: min(in_ch, pe) x C), column (p, o) holding W[o] on PE
 //     p's channel bytes (c % pe == p) and zero elsewhere, a group past the
 //     PEs all zero (convert.py _wgmma_b_words). A is read once, not once
 //     per PE; the epilogue adds -z_eff * sum(W_p) (pe_zero_terms) to each
 //     group, clamps it to pe_acc_bits and adds the groups. The tensor cores
-//     do G x the MACs on a split layer, which they have room for;
-//   - every layer's B (K-major, no swizzle: b_byte) and the parameter block
-//     are loaded into shared memory once per block; the grid is persistent
-//     (one block per SM, the blocks walk the tiles), so that happens once
-//     per SM;
+//     do G x the MACs on a split layer, which they have room for. N past
+//     kMaxN (a split hidden layer at width 32 past four PEs: 256 columns,
+//     more accumulators than a thread has registers) runs as chunks of
+//     kMaxN columns, one after another over the same A, each chunk's
+//     clamped partials folded into the rows' sums before the next;
+//   - at width 16 every layer's B (K-major, no swizzle: b_byte) and the
+//     parameter block are loaded into shared memory once per block; the
+//     grid is persistent (one block per SM, the blocks walk the tiles), so
+//     that happens once per SM. At width 32 no tile holds every layer's B
+//     (SESR-XL's 13 convs need 119 to 929 KB), so B is staged a layer at a
+//     time with cp.async: into two regions, even and odd layers, the next
+//     layer's B loaded while a layer computes, where the plan has room; else
+//     into one, loaded after the layer's barrier (smem_plan, w_bufs);
 //   - four warpgroups take a layer's 64-row m-tiles in turn, each m-tile
 //     one commit group of wgmmas and then its epilogue on the CUDA cores:
 //     one warpgroup's epilogue runs while the others' wgmmas do. Everything
@@ -68,7 +81,9 @@
 //   - the epilogue writes the next layer's pixel row directly: B's columns
 //     are permuted (col_chan) so that the four values a thread holds for one
 //     row (acc_row / acc_col) are channels 4 tq .. 4 tq + 3 of that pixel,
-//     one 32-bit store, eight rows of a warp 128 contiguous bytes. Positions
+//     one 32-bit store, eight rows of a warp 128 contiguous bytes (width 32:
+//     eight values, channels 4 tq .. 4 tq + 3 and 16 + 4 tq .. 19 + 4 tq, a
+//     store to each plane). Positions
 //     outside the image get z_eff in every byte, so conv(q, pads = z_eff) =
 //     conv(q - z_eff) + z_eff * sum(W): a one-pass layer subtracts z_eff *
 //     sum(W), a split layer's PE p z_eff * sum(W_p). This needs -128 <= z_eff
@@ -76,17 +91,23 @@
 //     through the async proxy: fence.proxy.async and a barrier between
 //     layers;
 //   - the residual shortcut round(s) (conv 0's ReLU output, 0 <= round(s)
-//     <= 32767, convert.py shortcut_bound) is kept as int16, 32 bytes a
+//     <= 32767, convert.py shortcut_bound) is kept as int16, 2 C bytes a
 //     pixel of the last conv's input extent.
-// Shared memory per block (smem_plan): the parameter block, every layer's
-// B (23,552 bytes for nr hybrid), two ping-pong activation buffers (16 bytes
-// a pixel, with the rows the last m-tile reads past the extent), the
-// shortcut and a 16-byte scratch word: 213,008 bytes for nr at 32x64.
+// Shared memory per block (smem_plan): the parameter block, B (every
+// layer's at width 16: 23,552 bytes for nr hybrid; one or two layers' at
+// width 32), two ping-pong activation buffers (C bytes a pixel, with the rows
+// the last m-tile reads past the extent), the shortcut and a 16-byte scratch
+// word: 213,008 bytes for nr at 32x64.
 // What is left: the epilogue. Without it the kernel takes about a sixth of
 // its time on nr's frame, without the wgmmas about three quarters (python
 // -m sesr_tpu_torch.corrected_ab --variants no_epilogue,no_mma); the tensor
 // cores run 3.1x the network's MACs (halo, wide rows, padded k, 4 x N on
-// split layers) and are still mostly idle.
+// split layers) and are still mostly idle. At width 32 SESR-XL takes 16x16
+// tiles (3.51x its MACs in halo alone), and ptxas spills 44-516 bytes in
+// the width-32 instantiations; loading the PE zero terms into the
+// accumulators, which removes the shipped one's spills, serializes its
+// wgmmas and is slower, and so are chunks of 64 columns (corrected_ab
+// --variants start_in_acc,chunk_64 --family).
 //
 // Numerics: requantization is (y * m) * 2^-n, two float32 multiplies in the
 // plain version; the kernel rounds y * (m * 2^-n) once, which is the same
@@ -100,8 +121,8 @@
 // loaded with ctypes (sesr_tpu_torch/ops/_build.py). The entry point returns
 // cudaGetLastError() after its launch. tests/test_torch_corrected.py models
 // the descriptors' addressing, B's layout and the accumulator map in numpy,
-// reading half_off, steps_of, b_byte, col_chan, acc_row and acc_col from this
-// file.
+// reading tap_of, tap_pix, half_off, a_lbo, steps_of, b_byte, col_chan,
+// acc_row and acc_col from this file.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,7 +134,7 @@ namespace {
 constexpr int kWarpgroups = 4;              // a block's warpgroups, all of them consumers
 constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kRows = 64;                   // wgmma's M: output rows of an m-tile
-constexpr int kPix = 16;                    // bytes of one pixel: 16 int8 channels
+constexpr int kPix = 16;                    // bytes of one pixel of a plane: 16 int8 channels
 constexpr int kSboA = 128;                  // A: bytes between core matrices along M (8 pixels)
 constexpr int kLboB = 128;                  // B: bytes between the two 16-byte halves of k
 constexpr int kSboB = 256;                  // B: bytes between 8-column core matrices
@@ -121,30 +142,42 @@ constexpr int kAlign = 128;                 // alignment of each shared-memory r
 constexpr int kScratch = 16;                // bytes that the epilogue's stores not made go to
 constexpr int kSmemLimit = 232448;          // a block's shared memory on the H100
 constexpr int kLoadBatch = 8;               // input pixels per thread in flight
+constexpr int kMaxN = 128;                  // most columns of a wgmma: a wider layer runs in chunks
 
-// PE column groups of a split 16-channel layer: 4 up to four PEs, else 8
+// PE column groups of a split hidden layer: 4 up to four PEs, else 8
 // (convert.py pe_groups); the groups past the PE count hold zero weights.
 __host__ __device__ constexpr int pe_groups(int pe) { return 4 + 4 * (pe > 4); }
 
-// k32 steps of a K x K layer: one per kernel row for layer 0 (its pixels
-// widened to four horizontal neighbours), else two taps a step.
-__host__ __device__ constexpr int steps_of(int K, int wide) { return wide * K + (1 - wide) * ((K * K + 1) / 2); }
+// k32 steps of a K x K layer of input width C: one per kernel row for layer 0
+// (its pixels widened to four horizontal neighbours), else 32 / C taps a step.
+__host__ __device__ constexpr int steps_of(int K, int wide, int C) { return wide * K + (1 - wide) * ((K * K + 32 / C - 1) / (32 / C)); }
 
-// Pixel offset, from the output row it serves, of half h (k bytes 16 h ..
-// 16 h + 15) of step s of a K x K layer over an input of width iw. Layer 0
-// (wide): row s, columns 4 h .. 4 h + 3; a 16-channel layer: tap 2 s + h (a
-// pad tap past K * K reads one pixel past tap K * K - 1, against zero
-// weights).
-__host__ __device__ __forceinline__ int half_off(int s, int h, int K, int iw, int wide) { return wide * (s * iw + 4 * h) + (1 - wide) * ((2 * s + h - (2 * s + h >= K * K)) / K * iw + (2 * s + h - (2 * s + h >= K * K)) % K + (2 * s + h >= K * K)); }
+// Tap of half h (k bytes 16 h .. 16 h + 15) of step s of a hidden layer of
+// width C: 2 s + h at width 16; s at width 32, whose halves are the planes.
+__host__ __device__ constexpr int tap_of(int s, int h, int C) { return 32 / C * s + (32 / C - 1) * h; }
+
+// Pixel offset of tap t of a K x K layer over an input of width iw; a pad tap
+// past K * K reads one pixel past tap K * K - 1, against zero weights.
+__host__ __device__ constexpr int tap_pix(int t, int K, int iw) { return (t - (t >= K * K)) / K * iw + (t - (t >= K * K)) % K + (t >= K * K); }
+
+// Pixel offset, from the output row it serves, of half h of step s of a K x K
+// layer over an input of width iw. Layer 0 (wide): row s, columns 4 h .. 4 h +
+// 3; a hidden layer: its tap.
+__host__ __device__ __forceinline__ int half_off(int s, int h, int K, int iw, int wide, int C) { return wide * (s * iw + 4 * h) + (1 - wide) * tap_pix(tap_of(s, h, C), K, iw); }
+
+// A's LBO in bytes, the distance from half 0 (pixel offset o0) to half 1 (o1):
+// their pixels' distance, and at width 32 the planes' (plane bytes apart).
+__host__ __device__ __forceinline__ int a_lbo(int o0, int o1, int wide, int C, int plane) { return (o1 - o0) * kPix + (1 - wide) * (C / 16 - 1) * plane; }
 
 // Byte of (step s, GEMM column n, k byte kb) in a layer's B of N columns:
 // K-major, no swizzle, core matrices of 8 columns x 16 bytes of k.
 __host__ __device__ __forceinline__ int b_byte(int s, int n, int kb, int N) { return s * N * 32 + (n >> 3) * kSboB + (kb >> 4) * kLboB + (n & 7) * 16 + (kb & 15); }
 
-// Output channel of column n (0 .. 15) of a PE group: the last layer's in
+// Output channel of column n (0 .. C - 1) of a PE group: the last layer's in
 // order; a hidden layer's permuted, so that the four a thread holds for one
-// row (columns 8 j + 2 tq + e, j and e in {0, 1}) are channels 4 tq + 2 j + e.
-__host__ __device__ __forceinline__ int col_chan(int n, int last) { return last * n + (1 - last) * (((n >> 1) & 3) * 4 + (n >> 3) * 2 + (n & 1)); }
+// row in n-tiles 2 w and 2 w + 1 (columns 8 j + 2 tq + e, j - 2 w and e in
+// {0, 1}) are channels 16 w + 4 tq + 2 (j - 2 w) + e: word tq of plane w.
+__host__ __device__ __forceinline__ int col_chan(int n, int last) { return last * n + (1 - last) * ((n >> 4) * 16 + ((n >> 1) & 3) * 4 + ((n >> 3) & 1) * 2 + (n & 1)); }
 
 // wgmma's m64nN accumulator fragment: register 4 j + i of lane `lane` of warp
 // `warp` (of the warpgroup) holds C[acc_row][acc_col].
@@ -180,7 +213,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // s32; d is overwritten where acc is 0.
 template <int N>
 __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 48 || N == 64 || N == 128,
+  static_assert(N == 8 || N == 16 || N == 32 || N == 48 || N == 64 || N == 96 || N == 128,
                 "the layers use these widths");
   if constexpr (N == 8) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
@@ -216,6 +249,16 @@ __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t
                  "%31}, %32, %33, p;\n}\n"
                  : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28)
                  : "l"(a), "l"(b), "r"(acc));
+  } else if constexpr (N == 96) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+                 "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+                 "%46, %47}, %48, %49, p;\n}\n"
+                 : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28), D4(32), D4(36),
+                   D4(40), D4(44)
+                 : "l"(a), "l"(b), "r"(acc));
   } else {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -234,56 +277,83 @@ __device__ __forceinline__ void wgmma(uint32_t (&d)[N / 2], uint64_t a, uint64_t
 
 __host__ __device__ inline int round_up(int v, int a) { return (v + a - 1) / a * a; }
 
-// Bytes of conv `layer`'s B: steps x N columns x 32 bytes of k, N = the
-// PE groups (split: min(in_ch, pe) for layer 0, else pe_groups(pe); one
-// pass: 1) x 16 columns (8 for a last layer of <= 8 channels).
+// Bytes of conv `layer`'s B at hidden width C: steps x N columns x 32 bytes
+// of k, N = the PE groups (split: min(in_ch, pe) for layer 0, else
+// pe_groups(pe); one pass: 1) x the columns of a group (C; a last layer 16,
+// or 8 for <= 8 channels).
 __host__ __device__ inline int layer_b_bytes(int layer, int L, int in_ch, int ocl, int split,
-                                             int pe) {
+                                             int pe, int C) {
   const int sp = (split >> layer) & 1;
-  if (layer == 0) return steps_of(5, 1) * 32 * kC * (sp ? (in_ch < pe ? in_ch : pe) : 1);
+  if (layer == 0) return steps_of(5, 1, C) * 32 * C * (sp ? (in_ch < pe ? in_ch : pe) : 1);
   const int last = layer == L - 1;
-  const int ocp = last && ocl <= 8 ? 8 : kC;
-  return steps_of(last ? 5 : 3, 0) * 32 * ocp * (sp ? pe_groups(pe) : 1);
+  const int ocp = last ? (ocl <= 8 ? 8 : 16) : C;
+  return steps_of(last ? 5 : 3, 0, C) * 32 * ocp * (sp ? pe_groups(pe) : 1);
 }
 
-// Pixels of conv `layer`'s input buffer that its GEMM reads: the rows of its
-// last m-tile at its last step's second half, past the input extent.
-__host__ __device__ inline int layer_cap(int layer, int L, int th, int tw) {
+// Pixels of a plane of conv `layer`'s input buffer that its GEMM reads: the
+// rows of its last m-tile at its last step's second half, past the input
+// extent.
+__host__ __device__ inline int layer_cap(int layer, int L, int th, int tw, int C) {
   const int r = ring(layer, L), ih = th + 2 * r, iw = tw + 2 * r;
   const int K = (layer == 0 || layer == L - 1) ? 5 : 3, wide = layer == 0;
-  return round_up((ih - K + 1) * iw, kRows) + half_off(steps_of(K, wide) - 1, 1, K, iw, wide);
+  return round_up((ih - K + 1) * iw, kRows) + half_off(steps_of(K, wide, C) - 1, 1, K, iw, wide, C);
+}
+
+// Bytes from the first plane of conv `layer`'s input to the second at width
+// 32 (A's LBO); 0 where the input is one plane (width 16, layer 0).
+__host__ __device__ inline int in_plane(int layer, int L, int th, int tw, int C) {
+  return layer > 0 && C == 32 ? round_up(layer_cap(layer, L, th, tw, C) * kPix, kAlign) : 0;
 }
 
 struct Plan {
-  int w_at, w_bytes;   // every layer's B
+  int w_at, w_bytes;   // B: every layer's (width 16), or w_bufs regions of one layer's
+  int w_bufs;          // width 32: 2 (layer i's B in region i % 2) or 1
+  int w_odd;           // width 32, two regions: the odd layers' region, from w_at
   int x_at, y_at;      // the ping-pong buffers: layer i reads x (even i) or y (odd i)
   int sc_at;           // the shortcut
   int scratch_at;      // kScratch bytes
   int bytes;
 };
 
-// Shared memory of one block: the parameter block (param_words(L, kC, pe)), every
-// layer's B, the buffers (y also holds layer 0's input as one word a pixel
-// while it is widened into x), the shortcut and the scratch word.
+// Shared memory of one block: the parameter block (param_words(L, C, pe)), B
+// (width 16: every layer's; width 32: two regions, the even layers' and the
+// odd layers', where that fits a block, else one region of the largest
+// layer's), the buffers (y also holds layer 0's input as one word a pixel
+// while it is widened into x; at width 32 a layer's input is two planes of
+// in_plane bytes), the shortcut and the scratch word.
 __host__ __device__ inline Plan smem_plan(int split, int pe, int L, int in_ch, int ocl, int th,
-                                          int tw) {
+                                          int tw, int C) {
   Plan p;
-  p.w_at = round_up(param_words(L, kC, pe) * 4, kAlign);
-  p.w_bytes = 0;
-  for (int i = 0; i < L; ++i) p.w_bytes += layer_b_bytes(i, L, in_ch, ocl, split, pe);
+  p.w_at = round_up(param_words(L, C, pe) * 4, kAlign);
+  int all = 0, even = 0, odd = 0;
+  for (int i = 0; i < L; ++i) {
+    const int b = layer_b_bytes(i, L, in_ch, ocl, split, pe, C);
+    int& big = (i % 2) ? odd : even;
+    all += b;
+    big = big > b ? big : b;
+  }
   int x = 0, y = extent(0, L, th, tw) * 4;
   for (int i = 0; i < L; ++i) {
-    const int b = layer_cap(i, L, th, tw) * kPix;
+    const int b =
+        C == 32 && i > 0 ? 2 * in_plane(i, L, th, tw, C) : layer_cap(i, L, th, tw, C) * kPix;
     int& dst = (i % 2) ? y : x;
     dst = dst > b ? dst : b;
   }
   const int r_sc = ring(L - 1, L);
-  p.x_at = round_up(p.w_at + p.w_bytes, kAlign);
-  p.y_at = round_up(p.x_at + x, kAlign);
-  p.sc_at = round_up(p.y_at + y, kAlign);
-  p.scratch_at = p.sc_at + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * kC;
-  p.bytes = p.scratch_at + kScratch;
-  return p;
+  p.w_bufs = C == 16 ? 0 : 2;
+  p.w_odd = C == 16 ? 0 : round_up(even, kAlign);
+  p.w_bytes = C == 16 ? all : p.w_odd + odd;
+  for (;;) {
+    p.x_at = round_up(p.w_at + p.w_bytes, kAlign);
+    p.y_at = round_up(p.x_at + x, kAlign);
+    p.sc_at = round_up(p.y_at + y, kAlign);
+    p.scratch_at = p.sc_at + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * C;
+    p.bytes = p.scratch_at + kScratch;
+    if (p.w_bufs != 2 || p.bytes <= kSmemLimit) return p;
+    p.w_bufs = 1;
+    p.w_odd = 0;
+    p.w_bytes = even > odd ? even : odd;
+  }
 }
 
 // What every layer of one tile shares.
@@ -292,7 +362,7 @@ struct Net {
   int frame, L, oc;    // oc: the last conv's output channels
   int pe;              // the datapath's PEs
   const int* prm;      // the parameter block, in shared memory
-  uint2* sc;           // the shortcut: round(s) as int16, a pixel's 16 channels in 4 uint2
+  uint2* sc;           // the shortcut: round(s) as int16, a pixel's C channels in C / 4 uint2
   int* scratch;        // kScratch bytes that the epilogue's stores not made go to
   int sc_w, sc_h;      // its extent: the last conv's input extent
   int8_t* out;         // (n, H, W, OC) int8
@@ -302,43 +372,54 @@ struct Net {
 struct Layer {
   const uint8_t* in;   // input extent ih x iw, kPix bytes a pixel (layer 0: widened)
   int ih, iw;
+  int plane;           // width 32: bytes between the input's two planes (in_plane)
   const uint8_t* w;    // B (b_byte)
-  int* next;           // FIRST / MID: the next layer's input, 4 words a pixel
+  int* next;           // FIRST / MID: the next layer's input, 4 words a pixel and plane
+  int next_plane;      // words between its planes
   int layer;
 };
 
 // A thread's view of conv `ly.layer` in one form: NG PE groups of columns,
 // each PE's partial clamped to pe_acc_bits (SPLIT), or one group; the sum
 // clamped to pe_add_bits where CLAMP. GEN: the general instantiation (any
-// PE count, NG past it padded with zero groups). Everything a warpgroup's
-// m-tile needs is held here, and issue / epilogue are inlined, so the
-// accumulators stay in registers; past four groups the PE zero terms are
-// read from shared memory in the epilogue.
-template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN>
+// PE count, NG past it padded with zero groups). C: the hidden width.
+// Everything a warpgroup's m-tile needs is held here, and issue / epilogue
+// are inlined, so the accumulators stay in registers; past four groups, and
+// at width 32, the PE zero terms are read from shared memory in the
+// epilogue; at width 32 a hidden layer's A descriptors are formed in issue,
+// and a split layer's adder bounds in the epilogue.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C>
 struct Form {
   static constexpr int WIDE = KIND == FIRST;
   static constexpr int J = OCP / 8;                              // 8-column tiles of a group
-  static constexpr int N = NG * OCP;
-  static constexpr int R = N / 2;                                // accumulator registers
-  static constexpr int S = steps_of(K, WIDE);
-  static constexpr int V = 2 * J;                                // values a thread holds per row and group
-  static constexpr bool START_REGS = NG <= 4;                    // the PE zero terms in registers
+  static constexpr int N = NG * OCP;                             // the layer's columns
+  static constexpr int NH = (N + kMaxN - 1) / kMaxN;             // chunks, one after another
+  static constexpr int NC = N / NH;                              // columns of a chunk
+  static constexpr int GC = NG / NH;                             // PE groups of a chunk
+  static constexpr int R = NC / 2;                               // accumulator registers
+  static constexpr int S = steps_of(K, WIDE, C);
+  static constexpr int V = 2 * J;                                // values a thread holds per row
+  // in registers: the PE zero terms, A's descriptor per step, the adder clamp's bounds
+  static constexpr bool START_REGS = NG <= 4 && C == 16;
+  static constexpr bool A_REGS = C == 16 || WIDE;
+  static constexpr bool BOUNDS_REGS = C == 16 || !SPLIT;
 
-  int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, frame, L, pe;
+  int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, add_hi, frame, L, pe;
   unsigned iw_magic;
   float rq_s, rq_c;
   float z_next, res_s;   // the next layer's domain-in zero (z_out for LAST); s_1 / s_{L-1}
   int pad_next;          // a pad word of the next layer's input
   bool prelast;
   int* next;
+  int next_plane;
   uint2* sc;
   int* scratch;          // where a store that is not made goes
   int sc_w, sc_h, sc_off;
   int8_t* out;
-  int base[V], lo[V], hi[V], start[START_REGS ? NG : 1][V];
-  int zcp[START_REGS ? 1 : V];   // past four groups: PE 0's zero term's word
+  int base[V], lo[BOUNDS_REGS ? V : 1], hi[BOUNDS_REGS ? V : 1], start[START_REGS ? NG : 1][V];
+  int zc0;               // else: PE 0's zero terms, this thread's first word
   const int* prm;
-  uint32_t a_lo[S], b_lo;
+  uint32_t a_lo[A_REGS ? S : 1], b_lo;
 
   __device__ __forceinline__ Form(const Layer& ly, const Net& net) {
     prm = net.prm;
@@ -347,7 +428,7 @@ struct Form {
     lane = tid & 31;
     tq = lane & 3;
     layer = ly.layer;
-    oc = KIND == LAST ? net.oc : kC;
+    oc = KIND == LAST ? net.oc : C;
     iw = ly.iw;
     oh = ly.ih - K + 1;
     ow = iw - K + 1;
@@ -361,16 +442,17 @@ struct Form {
     pe = GEN ? net.pe : 4;
     iw_magic = 0xffffffffu / iw + 1;                    // r / iw == umulhi(r, iw_magic)
     acc_hi = prm[P_ACC_HI];
-    const int add_hi = prm[P_ADD_HI];
+    add_hi = prm[P_ADD_HI];
     // (y * m) * 2^-n == y * (m * 2^-n) in float32 (see the note); with y
     // read as the float kMagic + y, one FFMA: fl(a * s - kMagic * s)
-    rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, kC)]), as_f32(prm[p_at(layer, R_RQP, kC)]));
+    rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, C)]), as_f32(prm[p_at(layer, R_RQP, C)]));
     rq_c = -kMagic * rq_s;
     prelast = KIND == MID && layer == L - 2;
-    z_next = as_f32(prm[KIND == LAST ? P_ZOUT : p_at(layer + 1, R_ZIN, kC)]);
+    z_next = as_f32(prm[KIND == LAST ? P_ZOUT : p_at(layer + 1, R_ZIN, C)]);
     res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
-    pad_next = KIND == LAST ? 0 : pad_word(prm[p_at(layer + 1, R_ZEFF, kC)]);
+    pad_next = KIND == LAST ? 0 : pad_word(prm[p_at(layer + 1, R_ZEFF, C)]);
     next = ly.next;
+    next_plane = ly.next_plane;
     sc = net.sc;
     scratch = net.scratch;
     sc_off = ring(1, L) - ring(L - 1, L);
@@ -382,52 +464,88 @@ struct Form {
     // kMagicBits - z_eff * sum(W) (its adder clamp, where it runs, shifted
     // by bias + kMagicBits); a split layer adds bias + kMagicBits to the sum
     // of its PEs' clamped partials, PE p's started from -z_eff * sum(W_p)
-    // (0 for a group past the PEs)
+    // (0 for a group past the PEs). A split layer's z_eff * sum(W) words
+    // are 0 (convert.py), so there base is bias + kMagicBits.
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int o = col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST);
       const bool ok = o < oc;
-      const int b = (ok ? prm[p_at(layer, R_BIAS, kC) + o] : 0) + kMagicBits;
-      base[v] = b - (ok ? prm[p_at(layer, R_BIAS, kC) + kC + o] : 0);
-      lo[v] = b - add_hi - 1;
-      hi[v] = b + add_hi;
+      const int b = (ok ? prm[p_at(layer, R_BIAS, C) + o] : 0) + kMagicBits;
+      base[v] = b - (ok ? prm[p_at(layer, R_BIAS, C) + C + o] : 0);
+      if constexpr (BOUNDS_REGS) {
+        lo[v] = b - add_hi - 1;
+        hi[v] = b + add_hi;
+      }
       if constexpr (START_REGS) {
 #pragma unroll
         for (int p = 0; p < NG; ++p)
-          start[p][v] = ok && p < pe ? -prm[zcp_at(L, kC, pe, layer, p) + o] : 0;
-      } else {
-        zcp[v] = zcp_at(L, kC, pe, layer, 0) + o;     // words past OC hold 0
+          start[p][v] = ok && p < pe ? -prm[zcp_at(L, C, pe, layer, p) + o] : 0;
       }
     }
-    // descriptors: A's start and LBO per step (m-tile 0), B's start
+    // this thread's value v is channel (2 or 4) tq + col_chan(acc_col(v / 2,
+    // 0, v % 2)); words past OC hold 0
+    zc0 = zcp_at(L, C, pe, layer, 0) + (KIND == LAST ? 2 : 4) * tq;
+    // descriptors: A's start and LBO per step (m-tile 0), or at width 32 of
+    // step 0 (a step s adds its tap's pixel offset); B's start
     const uint32_t in_s = smem_u32(ly.in);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int o0 = half_off(s, 0, K, iw, WIDE), o1 = half_off(s, 1, K, iw, WIDE);
+    for (int s = 0; s < (A_REGS ? S : 1); ++s) {
+      const int o0 = half_off(s, 0, K, iw, WIDE, C), o1 = half_off(s, 1, K, iw, WIDE, C);
       a_lo[s] = (((in_s + o0 * kPix) & 0x3FFFF) >> 4) |
-                ((static_cast<uint32_t>((o1 - o0) * kPix) >> 4) << 16);
+                ((static_cast<uint32_t>(a_lbo(o0, o1, WIDE, C, ly.plane)) >> 4) << 16);
     }
     b_lo = ((smem_u32(ly.w) & 0x3FFFF) >> 4) | ((kLboB >> 4) << 16);
   }
 
-  // m-tile mt's wgmmas, one commit group
-  __device__ __forceinline__ void issue(uint32_t (&d)[R], int mt) const {
+  // m-tile mt's wgmmas over chunk hc of the columns, one commit group
+  __device__ __forceinline__ void issue(uint32_t (&d)[R], int mt, int hc) const {
     constexpr uint64_t a_hi = static_cast<uint64_t>(kSboA >> 4) << 32;
     constexpr uint64_t b_hi = static_cast<uint64_t>(kSboB >> 4) << 32;
     __syncwarp();
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < S; ++s)
-      wgmma<N>(d, a_hi | (a_lo[s] + mt * (kRows * kPix >> 4)),
-               b_hi | (b_lo + (b_byte(s, 0, 0, N) >> 4)), s);
+    for (int s = 0; s < S; ++s) {
+      uint32_t a;
+      if constexpr (A_REGS) a = a_lo[s];
+      else a = a_lo[0] + (half_off(s, 0, K, iw, WIDE, C) * kPix >> 4);
+      wgmma<NC>(d, a_hi | (a + mt * (kRows * kPix >> 4)),
+                b_hi | (b_lo + (b_byte(s, hc * NC, 0, N) >> 4)), s);
+    }
     wgmma_commit();
   }
 
-  // m-tile mt's rows of this thread: the next layer's input (FIRST, MID),
-  // the shortcut (FIRST) or the int8 output (LAST). Without a branch that
-  // depends on the row, which ptxas schedules better: a store that is not
-  // made goes to the block's scratch word.
-  __device__ __forceinline__ void epilogue(const uint32_t (&d)[R], int mt) const {
+  // PE group p's zero term for value v
+  __device__ __forceinline__ int start_of(int p, int v) const {
+    if constexpr (START_REGS) return start[p][v];
+    else return p < pe ? -prm[zc0 + col_chan(acc_col(v >> 1, 0, v & 1), KIND == LAST) + p * C] : 0;
+  }
+
+  // the clamped partials of chunk hc's PE groups for row h, value v
+  __device__ __forceinline__ int partials(const uint32_t (&d)[R], int hc, int h, int v) const {
+    int sum = 0;
+#pragma unroll
+    for (int p = 0; p < GC; ++p)
+      sum += min(max(static_cast<int>(d[4 * (p * J + (v >> 1)) + 2 * h + (v & 1)]) +
+                         start_of(hc * GC + p, v), -acc_hi - 1), acc_hi);
+    return sum;
+  }
+
+  // a split layer's chunks before the last: their clamped partials, per row
+  // half h and value v, into carry
+  __device__ __forceinline__ void fold(const uint32_t (&d)[R], int hc, int (&carry)[2][V]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int v = 0; v < V; ++v) carry[h][v] = (hc ? carry[h][v] : 0) + partials(d, hc, h, v);
+  }
+
+  // m-tile mt's rows of this thread, from the last chunk's accumulators and
+  // (NH > 1) the carry of the chunks before: the next layer's input (FIRST,
+  // MID), the shortcut (FIRST) or the int8 output (LAST). Without a branch
+  // that depends on the row, which ptxas schedules better: a store that is
+  // not made goes to the block's scratch word.
+  __device__ __forceinline__ void epilogue(const uint32_t (&d)[R], int mt,
+                                           const int (&carry)[2][V]) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = mt * kRows + acc_row(warp, lane, 2 * h);
@@ -443,16 +561,11 @@ struct Form {
         const int i = 2 * h + (v & 1);
         int yi;
         if constexpr (SPLIT) {
-          yi = base[v];
-#pragma unroll
-          for (int p = 0; p < NG; ++p) {
-            int st;
-            if constexpr (START_REGS) st = start[p][v];
-            else st = p < pe ? -prm[zcp[v] + p * kC] : 0;
-            yi += min(max(static_cast<int>(d[4 * (p * J + (v >> 1)) + i]) + st, -acc_hi - 1),
-                      acc_hi);
-          }
-          if constexpr (CLAMP) yi = min(max(yi, lo[v]), hi[v]);
+          yi = base[v] + partials(d, NH - 1, h, v);
+          if constexpr (NH > 1) yi += carry[h][v];
+          if constexpr (CLAMP && BOUNDS_REGS) yi = min(max(yi, lo[v]), hi[v]);
+          if constexpr (CLAMP && !BOUNDS_REGS)
+            yi = min(max(yi, base[v] - add_hi - 1), base[v] + add_hi);
         } else {
           yi = static_cast<int>(d[4 * (v >> 1) + i]) + base[v];
           if constexpr (CLAMP) yi = min(max(yi, lo[v]), hi[v]);
@@ -478,37 +591,43 @@ struct Form {
           }
         }
       } else {
-        int v[4];
+        int v[V];                                   // plane w (of C / 16): values 4 w .. 4 w + 3
         if (KIND == FIRST || prelast) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
+          for (int j = 0; j < V; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
         }
         if (prelast) {
           // the last conv's domain-in: the integer residual add, rescaled
           // by s_1 / s_{L-1}, into domain L-1 (this frame is the shortcut's)
-          const uint2 s2 = sc[kept ? (y * sc_w + x) * 4 + tq : tq];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = static_cast<int16_t>((j < 2 ? s2.x : s2.y) >> (16 * (j & 1)));
-            const float tr = __fadd_rn(magic_to_f32(s + kMagicBits), rintf(hq[j]));
-            v[j] = q8_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next));
+          for (int w = 0; w < C / 16; ++w) {
+            const uint2 s2 = sc[kept ? (y * sc_w + x) * (C / 4) + 4 * w + tq : 4 * w + tq];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int s = static_cast<int16_t>((j < 2 ? s2.x : s2.y) >> (16 * (j & 1)));
+              const float tr = __fadd_rn(magic_to_f32(s + kMagicBits), rintf(hq[4 * w + j]));
+              v[4 * w + j] = q8_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next));
+            }
           }
         } else if (KIND == FIRST) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
+          for (int j = 0; j < V; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
         } else {
           // ReLU folded into the low bound: fl(max(h, 0) + z) = max(fl(h + z), z)
           // and rounding is monotone, so clip(rint(.), max(z, -128), 127)
           const float lo_q = kMagic + fmaxf(z_next, -128.f);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < V; ++j)
             v[j] = __float_as_int(
                 fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo_q), kMagic + 127.f));
         }
-        // this thread's word of the pixel, channels 4 tq .. 4 tq + 3; z_eff
-        // in every byte outside the frame
-        int* word = kept ? next + (y * ow + x) * 4 + tq : scratch;
-        *word = inside ? pack_bytes(v[0], v[1], v[2], v[3]) : pad_next;
+        // this thread's word of the pixel in each plane, channels 16 w + 4 tq
+        // .. 16 w + 4 tq + 3; z_eff in every byte outside the frame
+#pragma unroll
+        for (int w = 0; w < C / 16; ++w) {
+          int* word = kept ? next + w * next_plane + (y * ow + x) * 4 + tq : scratch;
+          *word = inside ? pack_bytes(v[4 * w], v[4 * w + 1], v[4 * w + 2], v[4 * w + 3]) : pad_next;
+        }
         if (KIND == FIRST) {
           // the residual shortcut, as the last conv's domain-in consumes it:
           // round(s) as int16 (0 <= round(s) <= 32767, convert.py
@@ -516,11 +635,15 @@ struct Form {
           // last conv never reads it outside the frame
           const int sy = y - sc_off, sx = x - sc_off;
           const bool in_sc = kept && sy >= 0 && sy < sc_h && sx >= 0 && sx < sc_w;
-          int b[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = __float_as_int(__fadd_rn(hq[j], kMagic));
-          uint2* sp = in_sc ? sc + (sy * sc_w + sx) * 4 + tq : reinterpret_cast<uint2*>(scratch);
-          *sp = make_uint2(__byte_perm(b[0], b[1], 0x5410), __byte_perm(b[2], b[3], 0x5410));
+          for (int w = 0; w < C / 16; ++w) {
+            int b[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = __float_as_int(__fadd_rn(hq[4 * w + j], kMagic));
+            uint2* sp = in_sc ? sc + (sy * sc_w + sx) * (C / 4) + 4 * w + tq
+                              : reinterpret_cast<uint2*>(scratch);
+            *sp = make_uint2(__byte_perm(b[0], b[1], 0x5410), __byte_perm(b[2], b[3], 0x5410));
+          }
         }
       }
     }
@@ -529,24 +652,33 @@ struct Form {
 
 // Conv `ly.layer` over its output extent (ih - K + 1) x (iw - K + 1) in the
 // form of Form<...>. The warpgroup takes m-tiles wgi, wgi + kWarpgroups, ...,
-// each one commit group of wgmmas, then its epilogue: one warpgroup's
-// epilogue runs while the others' wgmmas do. (Two or four m-tiles a group,
-// their epilogues after it, need more registers than 128 a thread beside
-// the epilogue's, and ptxas serializes the wgmmas.) Inlined into the kernel:
-// ptxas serializes every wgmma of a pipeline that crosses a function call.
-template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN>
+// each one commit group of wgmmas a chunk of columns, then its epilogue: one
+// warpgroup's epilogue runs while the others' wgmmas do. (Two or four
+// m-tiles a group, their epilogues after it, need more registers than 128 a
+// thread beside the epilogue's, and ptxas serializes the wgmmas.) Inlined
+// into the kernel: ptxas serializes every wgmma of a pipeline that crosses a
+// function call.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C>
 __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C>;
   const F f(ly, net);
   const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
   // the warpgroup's index, uniform to the compiler as well
   const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
   uint32_t d[F::R];
+  int carry[2][F::V];
   for (int mt = wgi; mt < nmt; mt += kWarpgroups) {
-    f.issue(d, mt);
+#pragma unroll
+    for (int hc = 0; hc < F::NH - 1; ++hc) {
+      f.issue(d, mt, hc);
+      wgmma_wait<0>();
+      fence_acc(d);
+      f.fold(d, hc, carry);
+    }
+    f.issue(d, mt, F::NH - 1);
     wgmma_wait<0>();
     fence_acc(d);
-    f.epilogue(d, mt);
+    f.epilogue(d, mt, carry);
   }
 }
 
@@ -554,61 +686,80 @@ __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
 // (layer 0: one group per PE that owns an input channel, min(in_ch, pe);
 // else G groups), else one pass, clamped to pe_add_bits where its clamp bit
 // is set; OCP columns a group (8 for a last layer of <= 8 channels, else
-// 16). The general instantiation (GEN) clamps every layer's sum to
-// pe_add_bits, the identity where that clamp cannot fire.
-template <Kind KIND, int K, int OCP, int G, bool GEN>
+// 16; C for a hidden layer). The general instantiation (GEN) clamps every
+// layer's sum to pe_add_bits, the identity where that clamp cannot fire.
+template <Kind KIND, int K, int OCP, int G, bool GEN, int C>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
   if ((prm[P_SPLIT] >> ly.layer) & 1) {
     if constexpr (KIND == FIRST) {
       switch (GEN ? min(in_ch, net.pe) : in_ch) {
-        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN>(ly, net); return;
-        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN>(ly, net); return;
-        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN>(ly, net); return;
-        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN>(ly, net); return;
+        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C>(ly, net); return;
       }
     } else {
-      conv_layer<KIND, K, OCP, G, true, GEN, GEN>(ly, net);
+      conv_layer<KIND, K, OCP, G, true, GEN, GEN, C>(ly, net);
       return;
     }
   }
   if (GEN || ((prm[P_CLAMP] >> ly.layer) & 1)) {
-    conv_layer<KIND, K, OCP, 1, false, true, GEN>(ly, net);
+    conv_layer<KIND, K, OCP, 1, false, true, GEN, C>(ly, net);
     return;
   }
-  conv_layer<KIND, K, OCP, 1, false, false, GEN>(ly, net);
+  conv_layer<KIND, K, OCP, 1, false, false, GEN, C>(ly, net);
 }
 
-// G: PE groups of a split 16-channel layer (pe_groups); GEN: the general
-// instantiation (any PE count and widths, convert.py KernelConstants.general).
-// The shipped artifacts run <4, false>.
-template <int G, bool GEN>
+// cp.async of `bytes` (a multiple of 16) from device memory into shared
+// memory, as one commit group; b_wait() waits for the thread's groups.
+__device__ __forceinline__ void stage_b(uint8_t* dst, const int* __restrict__ src, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += kThreads * 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + i)),
+                 "l"(src + i / 4) : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void b_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// G: PE groups of a split hidden layer (pe_groups); GEN: the general
+// instantiation (any PE count and widths, convert.py KernelConstants.general);
+// C: the hidden width, 16 or 32. The shipped artifacts run <4, false, 16>.
+template <int G, bool GEN, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                       const int* __restrict__ weights, const int* __restrict__ params,
                       int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
                       int split, int pe) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const Plan pl = smem_plan(split, pe, L, in_ch, out_ch, th, tw);
+  const Plan pl = smem_plan(split, pe, L, in_ch, out_ch, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem);
   uint8_t* wsm = smem + pl.w_at;
   uint8_t* bx = smem + pl.x_at;
   uint8_t* by = smem + pl.y_at;
 
-  // the parameter block and every layer's B, once per block
-  for (int i = threadIdx.x; i < param_words(L, kC, pe); i += kThreads) prm[i] = __ldg(params + i);
-  const int4* w4 = reinterpret_cast<const int4*>(weights);
-  for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
-    reinterpret_cast<int4*>(wsm)[i] = __ldg(w4 + i);
-  fence_proxy_async();
+  // the parameter block and (width 16) every layer's B, once per block
+  for (int i = threadIdx.x; i < param_words(L, C, pe); i += kThreads) prm[i] = __ldg(params + i);
+  if constexpr (C == 16) {
+    const int4* w4 = reinterpret_cast<const int4*>(weights);
+    for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
+      reinterpret_cast<int4*>(wsm)[i] = __ldg(w4 + i);
+    fence_proxy_async();
+  }
   __syncthreads();
+  // width 32: where layer i's B is staged, and from where
+  auto b_region = [&](int i) { return wsm + (i % 2) * pl.w_odd; };
+  auto stage_layer = [&](int i) {
+    stage_b(b_region(i), weights + prm[p_at(i, R_WOFF, C)],
+            layer_b_bytes(i, L, in_ch, out_ch, split, pe, C));
+  };
 
   const int r0 = ring(0, L), r_sc = ring(L - 1, L);
   const int ih0 = th + 2 * r0, iw0 = tw + 2 * r0, n0 = ih0 * iw0;
-  const int cap0 = layer_cap(0, L, th, tw);
+  const int cap0 = layer_cap(0, L, th, tw, C);
   const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + th - 1) / th;
   const int per_frame = tiles_x * tiles_y;
-  const int pad0 = pad_word(prm[p_at(0, R_ZEFF, kC)]);
+  const int pad0 = pad_word(prm[p_at(0, R_ZEFF, C)]);
   Net net;
   net.t.th = th;
   net.t.tw = tw;
@@ -630,6 +781,7 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     const int rem = tile - net.frame * per_frame;
     net.t.oy0 = (rem / tiles_x) * th;
     net.t.ox0 = (rem % tiles_x) * tw;
+    if constexpr (C == 32) stage_layer(0);           // while the input loads
 
     // layer 0's input, one word a pixel (channel c in byte c; z_eff outside
     // the frame), into y; kLoadBatch pixels per thread at a time, their
@@ -663,30 +815,44 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     for (int p = threadIdx.x; p < cap0; p += kThreads)
       wide[p] = make_int4(raw[min(p, n0 - 1)], raw[min(p + 1, n0 - 1)], raw[min(p + 2, n0 - 1)],
                           raw[min(p + 3, n0 - 1)]);
+    if constexpr (C == 32) b_wait();
     fence_proxy_async();
     __syncthreads();
 
     uint8_t* cur = bx;
     uint8_t* nxt = by;
     for (int i = 0; i < L; ++i) {
+      // width 32, two regions: the next layer's B into the region the layer
+      // before this one read
+      if (C == 32 && pl.w_bufs == 2 && i + 1 < L) stage_layer(i + 1);
       Layer ly;
       const int r = ring(i, L);
       ly.in = cur;
       ly.ih = th + 2 * r;
       ly.iw = tw + 2 * r;
-      ly.w = wsm + 4 * prm[p_at(i, R_WOFF, kC)];
+      ly.plane = in_plane(i, L, th, tw, C);
+      ly.w = C == 16 ? wsm + 4 * prm[p_at(i, R_WOFF, C)] : b_region(i);
       ly.next = reinterpret_cast<int*>(nxt);
+      ly.next_plane = in_plane(i + 1, L, th, tw, C) / 4;
       ly.layer = i;
       if (i == 0)
-        conv_form<FIRST, 5, kC, G, GEN>(ly, net, in_ch);
+        conv_form<FIRST, 5, C, G, GEN, C>(ly, net, in_ch);
       else if (i < L - 1)
-        conv_form<MID, 3, kC, G, GEN>(ly, net, in_ch);
+        conv_form<MID, 3, C, G, GEN, C>(ly, net, in_ch);
       else if (out_ch <= 8)
-        conv_form<LAST, 5, 8, G, GEN>(ly, net, in_ch);
+        conv_form<LAST, 5, 8, G, GEN, C>(ly, net, in_ch);
       else
-        conv_form<LAST, 5, kC, G, GEN>(ly, net, in_ch);
+        conv_form<LAST, 5, 16, G, GEN, C>(ly, net, in_ch);
+      if constexpr (C == 32) b_wait();
       fence_proxy_async();
       __syncthreads();
+      // width 32, one region: the next layer's B once this one is done
+      if (C == 32 && pl.w_bufs == 1 && i + 1 < L) {
+        stage_layer(i + 1);
+        b_wait();
+        fence_proxy_async();
+        __syncthreads();
+      }
       uint8_t* tmp = cur;
       cur = nxt;
       nxt = tmp;
@@ -694,19 +860,20 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   }
 }
 
-bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe) {
+bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int width) {
   return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
          (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
          tw <= 1024 && (split >> L) == 0 && pe >= 1 && pe <= kMaxPE &&
-         smem_plan(split, pe, L, in_ch, out_ch, th, tw).bytes <= kSmemLimit;
+         (width == 16 || width == kMaxC) &&
+         smem_plan(split, pe, L, in_ch, out_ch, th, tw, width).bytes <= kSmemLimit;
 }
 
-template <int G, bool GEN>
+template <int G, bool GEN, int C>
 cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                    int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                    cudaStream_t stream) {
-  const int bytes = smem_plan(split, pe, L, in_ch, out_ch, th, tw).bytes;
-  auto* kernel = sesr_corrected_kernel<G, GEN>;
+  const int bytes = smem_plan(split, pe, L, in_ch, out_ch, th, tw, C).bytes;
+  auto* kernel = sesr_corrected_kernel<G, GEN, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          bytes);
   if (err != cudaSuccess) return err;
@@ -724,6 +891,18 @@ cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, i
   return cudaGetLastError();
 }
 
+// the instantiation of width C: shipped, or general at 4 or 8 PE groups
+template <int C>
+cudaError_t launch_width(const int8_t* x, int8_t* out, const int* w, const int* prm, int n,
+                         int h, int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
+                         int pe, int general, cudaStream_t s) {
+  if (!general)
+    return launch<4, false, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+  if (pe_groups(pe) == 4)
+    return launch<4, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+  return launch<8, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -733,37 +912,34 @@ extern "C" {
 // (weights 16-byte aligned); split: bit i set where conv i runs one pass per
 // PE, the params' pe_split word (B's size depends on it); pe: the
 // datapath's PEs; general: the instantiation for any PE count and widths
-// (KernelConstants.general; required where pe != 4).
+// (KernelConstants.general; required where pe != 4); width: the hidden
+// width the network runs at, 16 or 32 (KernelConstants.width).
 int sesr_corrected_net(const void* x, void* out, const void* weights, const void* params,
                        int n, int h, int w, int num_layers, int in_ch, int out_ch,
-                       int tile_h, int tile_w, int split, int pe, int general, void* stream) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe) || (!general && pe != 4) ||
-      (reinterpret_cast<uintptr_t>(weights) & 15))
+                       int tile_h, int tile_w, int split, int pe, int general, int width,
+                       void* stream) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) ||
+      (!general && pe != 4) || (reinterpret_cast<uintptr_t>(weights) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
   const int* wi = static_cast<const int*>(weights);
   const int* pi = static_cast<const int*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (!general)
-    err = launch<4, false>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
-                           split, pe, s);
-  else if (pe_groups(pe) == 4)
-    err = launch<4, true>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
-                          split, pe, s);
-  else
-    err = launch<8, true>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
-                          split, pe, s);
+  const cudaError_t err =
+      width == 16 ? launch_width<16>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h,
+                                     tile_w, split, pe, general, s)
+                  : launch_width<kMaxC>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch,
+                                        tile_h, tile_w, split, pe, general, s);
   return static_cast<int>(err);
 }
 
 // Shared memory of one block of sesr_corrected_net in bytes, or 0 where it
-// refuses the network, the tile, the split mask or the PE count.
+// refuses the network, the tile, the split mask, the PE count or the width.
 int sesr_corrected_smem(int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
-                        int pe) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe)) return 0;
-  return smem_plan(split, pe, num_layers, in_ch, out_ch, tile_h, tile_w).bytes;
+                        int pe, int width) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width)) return 0;
+  return smem_plan(split, pe, num_layers, in_ch, out_ch, tile_h, tile_w, width).bytes;
 }
 
 const char* sesr_corrected_error_string(int err) {

@@ -64,7 +64,10 @@
 //     are held in registers over its whole extent (at C = 32 past layer 0,
 //     72 registers a lane for a 3x3 layer, they are read from shared memory
 //     a chunk at a time instead), and the next layer's weights are staged
-//     with cp.async while the current layer computes; the residual shortcut
+//     with cp.async while the current layer computes (K1's general
+//     instantiation at width 32 keeps one weight buffer where two do not
+//     fit a block at the tile, and stages them after the layer: smem_plan);
+//     the residual shortcut
 //     is kept as int8 (K1: clip(round(s - 128))) or int16 (K2: round(s),
 //     its range proven by convert.py) so that 32x32 tiles fit at C = 16.
 //     The tile is the largest of ops/kernels.py NET_TILES whose plan
@@ -499,17 +502,23 @@ __device__ __forceinline__ void wait_staged() {
 // distinct banks
 __host__ __device__ inline int plane_stride(int n) { return ((n + 23) & ~31) + 8; }
 
+constexpr int kSmemLimit = 232448;          // a block's shared memory on the H100
+
 struct Smem {
-  int prm_words, w_words, a_words, b_words, sc_words;
+  int prm_words, w_words, w_bufs, a_words, b_words, sc_words;
 };
 
 // Shared memory of one block at hidden width C: room for the parameter
 // block's words that K1 and K2 read at the deepest network (net_words(kMaxL,
 // C); a fixed offset keeps the buffers' addresses as the compiler had them
-// before the depth was raised, and a shallower network copies fewer), two
-// weight buffers (each the size of the
-// largest layer's fragments: every layer split for K1 at 4 PEs, the split
-// layers of the mask `split` in K1's general instantiation), the ping-pong
+// before the depth was raised, and a shallower network copies fewer), the
+// weight buffers (each the size of the largest layer's fragments: every
+// layer split for K1 at 4 PEs, the split layers of the mask `split` in K1's
+// general instantiation; two, the next layer's staged while a layer
+// computes, but one for K1's general instantiation at width 32 where two
+// do not fit a block at the tile, its masked passes past four PEs making a
+// layer's fragments up to 102,400 bytes, and the next layer's are then
+// staged after the layer's barrier), the ping-pong
 // activation buffers (C / 4 planes) and the shortcut (C / 4 planes of int8
 // for K1, C / 2 of int16 pairs for K2). ops/kernels.py net_smem_bytes
 // mirrors it.
@@ -532,6 +541,8 @@ __host__ __device__ inline Smem smem_plan(int dp, bool gen, int split, int pe, i
     dst = dst > words ? dst : words;
   }
   s.sc_words = (dp == REFERENCE ? C / 4 : C / 2) * plane_stride(extent(L - 1, L, th, tw));
+  const int two = s.prm_words + 2 * s.w_words + s.a_words + s.b_words + s.sc_words;
+  s.w_bufs = gen && dp == REFERENCE && C == 32 && 4 * two > kSmemLimit ? 1 : 2;
   return s;
 }
 
@@ -589,8 +600,10 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int pe = GEN ? pe_in : 4;
   const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCL, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem4);
-  int* wbuf = prm + plan.prm_words;     // two weight buffers of plan.w_words
-  int* buf_a = wbuf + 2 * plan.w_words;
+  int* wbuf = prm + plan.prm_words;     // plan.w_bufs weight buffers of plan.w_words
+  int* buf_a = wbuf + plan.w_bufs * plan.w_words;
+  // one weight buffer: layer i + 1's fragments staged after layer i's barrier
+  const bool single = plan.w_bufs == 1;
   int* buf_b = buf_a + plan.a_words;
   int* sc = buf_b + plan.b_words;
 
@@ -639,9 +652,14 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   const int sc_h = th + 2 * r_sc, sc_w = tw + 2 * r_sc;
   const int sc_ps = plane_stride(sc_h * sc_w);
   // each layer stages the next one's weights into the other buffer while it
-  // computes, per PE only where the layer is split
-  stage_async(wbuf + plan.w_words, weights + prm[p_at(1, R_WOFF, C)],
-              layer_words(split_of<DP>(prm, 1), 1, L, in_ch, OCL, pe, C));
+  // computes (or, with one buffer, after its barrier), per PE only where the
+  // layer is split
+  auto stage_next = [&](int i) {
+    stage_async(wbuf + (single ? 0 : ((i + 1) & 1) * plan.w_words),
+                weights + prm[p_at(i + 1, R_WOFF, C)],
+                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL, pe, C));
+  };
+  if (!single) stage_next(0);
   {
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
@@ -651,26 +669,35 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   }
   wait_staged();
   __syncthreads();
+  if (single) {
+    stage_next(0);
+    wait_staged();
+    __syncthreads();
+  }
 
   int* cur = buf_a;
   int* nxt = buf_b;
   for (int i = 1; i <= L - 2; ++i) {
-    stage_async(wbuf + ((i + 1) & 1) * plan.w_words, weights + prm[p_at(i + 1, R_WOFF, C)],
-                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL, pe, C));
+    if (!single) stage_next(i);
     const int r = ring(i + 1, L);
-    const int* w = wbuf + (i & 1) * plan.w_words;
+    const int* w = wbuf + (single ? 0 : (i & 1) * plan.w_words);
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
     conv_form<DP, GEN, 3, MID, C, C>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i, i == L - 2,
                                      prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
     wait_staged();
     __syncthreads();
+    if (single) {
+      stage_next(i);
+      wait_staged();
+      __syncthreads();
+    }
     int* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
 
-  const int* w_last = wbuf + ((L - 1) & 1) * plan.w_words;
+  const int* w_last = wbuf + (single ? 0 : ((L - 1) & 1) * plan.w_words);
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
   conv_form<DP, GEN, 5, LAST, OCL, C>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false, prm,
                                       nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
@@ -679,8 +706,8 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 size_t shared_bytes(int dp, bool gen, int split, int pe, int L, int in_ch, int ocl, int th,
                     int tw, int C) {
   const Smem plan = smem_plan(dp, gen, split, pe, L, in_ch, ocl, th, tw, C);
-  return sizeof(int) * (static_cast<size_t>(plan.prm_words) + 2 * plan.w_words + plan.a_words +
-                        plan.b_words + plan.sc_words);
+  return sizeof(int) * (static_cast<size_t>(plan.prm_words) + plan.w_bufs * plan.w_words +
+                        plan.a_words + plan.b_words + plan.sc_words);
 }
 
 template <int DP, int OCL, bool GEN, int C>

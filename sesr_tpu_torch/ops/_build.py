@@ -52,11 +52,11 @@ SIGNATURES = {
     },
     "sesr_corrected": {
         # (x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w, split,
-        #  pe, general, stream)
-        "sesr_corrected_net": [_PTR] * 4 + [_INT] * 11 + [_PTR],
-        # (num_layers, in_ch, out_ch, tile_h, tile_w, split, pe) -> shared memory bytes,
+        #  pe, general, width, stream)
+        "sesr_corrected_net": [_PTR] * 4 + [_INT] * 12 + [_PTR],
+        # (num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) -> shared memory bytes,
         # 0: refused
-        "sesr_corrected_smem": [_INT] * 7,
+        "sesr_corrected_smem": [_INT] * 8,
     },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)

@@ -43,8 +43,11 @@ NET_TILES = (TILE, (24, 32), (24, 24), (16, 32), (16, 24), (16, 16), (8, 16), (8
 # a larger tile only cuts the halo's share): it takes the first whose
 # shared memory (corrected_smem_bytes) fits a block. nr hybrid takes 48x48
 # (228,880 B), nr pe-exact 32x64, nrdm_6 32x48 (chip_smoke.py phase 5 sweeps
-# them); a network whose weights leave less room takes a smaller one
-# (SESR-M11's 13 convs: 24x32 hybrid, 16x16 with every conv split)
+# them); a network whose weights or activations leave less room takes a
+# smaller one (SESR-M11's 13 convs: 24x32 hybrid, 16x16 with every conv
+# split; SESR-XL's 32 channels, its B staged a layer at a time: 16x32 with
+# no conv split, 16x16 up to four PEs with some or all split, and past four
+# PEs with its hybrid mask, 8x16 past four PEs with every conv split)
 CORRECTED_TILES = ((48, 48), (32, 64), (32, 48), (32, 32), (24, 32), (16, 32), (16, 16), (8, 16))
 SMEM_LIMIT = 232448                 # a block's shared memory on the H100
 OUT_DTYPES = ("f32", "int8")
@@ -71,7 +74,9 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
     the two agree): room for the head and records of the parameter block at
     MAX_LAYERS convs, two weight buffers of the largest layer's B fragments
     (every layer split for K1 at 4 PEs in the shipped instantiation, the
-    layers of ``split`` in the general one), two ping-pong buffers of
+    layers of ``split`` in the general one; one for K1's general
+    instantiation at width 32 where two do not fit a block at ``tile``, as
+    the corrected kernel decides its B regions), two ping-pong buffers of
     width / 4 planes, and the shortcut: width / 4 planes of int8 (K1) or
     width / 2 of int16 pairs (K2)."""
     th, tw = tile
@@ -88,38 +93,62 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
     for i in range(1, L):
         bufs[i % 2 == 0] = max(bufs[i % 2 == 0], width // 4 * _plane_stride(ext[i]))
     sc = (width // 4 if exact else width // 2) * _plane_stride(ext[L - 1])
-    return 4 * (net_words(MAX_LAYERS, width) + 2 * w_words + sum(bufs) + sc)
+    two = 4 * (net_words(MAX_LAYERS, width) + 2 * w_words + sum(bufs) + sc)
+    return two - 4 * w_words if exact and general and width == 32 and two > SMEM_LIMIT else two
 
 
-def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int) -> int:
-    """Shared memory of one block of the corrected kernel at ``tile`` and
-    ``pe`` PEs (csrc/sesr_corrected.cu smem_plan; chip_smoke.py checks the
-    two agree): the parameter block, every layer's B, two ping-pong buffers
-    of 16 bytes a pixel (each holding the pixels its layers' GEMMs read,
-    past the extent too), the int16 shortcut of 32 bytes a pixel and 16
-    bytes of scratch."""
+def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
+                   width: int = 16) -> tuple:
+    """(shared memory bytes, B regions) of one block of the corrected kernel
+    at ``tile``, ``pe`` PEs and hidden width ``width`` (csrc/sesr_corrected.cu
+    smem_plan; chip_smoke.py checks the two agree): the parameter block, B,
+    two ping-pong buffers of ``width`` bytes a pixel (each holding the
+    pixels its layers' GEMMs read, past the extent too; at width 32 a
+    layer's input is two planes of 16 bytes a pixel, each rounded up to 128
+    bytes), the int16 shortcut of 2 ``width`` bytes a pixel and 16 bytes of
+    scratch. B regions: 0 at width 16, where every layer's B is resident; at
+    width 32, 2 (the even layers' and the odd layers', the next layer's B
+    staged while a layer computes) where that fits a block, else 1 (the
+    largest layer's)."""
     th, tw = tile
-    w_bytes, bufs = 0, [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
+    b_bytes, bufs = [], [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
     for i in range(L):
         last = i == L - 1
         k = 5 if i in (0, L - 1) else 3
-        ic = in_ch if i == 0 else 16
-        steps, _, n = wgmma_geometry(k, ic, out_ch if last else 16, bool(split[i]), last, pe)
-        w_bytes += steps * n * 32
+        ic = in_ch if i == 0 else width
+        steps, _, n = wgmma_geometry(k, ic, out_ch if last else width, bool(split[i]), last, pe)
+        b_bytes.append(steps * n * 32)
         r = _ring(i, L)
         ih, iw = th + 2 * r, tw + 2 * r
         if i == 0:                  # the widened pixels of the last step's second half
             reach = 4 * iw + 4
-        else:                       # tap k * k - 1, and a pad tap one pixel on
+        elif width == 16:           # tap k * k - 1, and a pad tap one pixel on
             reach = (k - 1) * (iw + 1) + (k * k) % 2
+        else:                       # tap k * k - 1, in each plane
+            reach = (k - 1) * (iw + 1)
         cap = (_round_up((ih - k + 1) * iw, 64) + reach) * 16
+        if i and width == 32:
+            cap = 2 * _round_up(cap, 128)
         bufs[i % 2] = max(bufs[i % 2], cap)
-    w_at = _round_up(param_words(pe, L) * 4, 128)
-    x_at = _round_up(w_at + w_bytes, 128)
-    y_at = _round_up(x_at + bufs[0], 128)
-    sc_at = _round_up(y_at + bufs[1], 128)
+    w_at = _round_up(param_words(pe, L, width) * 4, 128)
     r_sc = _ring(L - 1, L)
-    return sc_at + (th + 2 * r_sc) * (tw + 2 * r_sc) * 32 + 16     # + the scratch word
+    rest = (_round_up(bufs[0], 128) + _round_up(bufs[1], 128)
+            + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * width + 16)     # + the scratch word
+
+    def total(w_bytes):
+        return _round_up(w_at + w_bytes, 128) + rest
+
+    if width == 16:
+        return total(sum(b_bytes)), 0
+    even, odd = max(b_bytes[0::2]), max(b_bytes[1::2])
+    two = total(_round_up(even, 128) + odd)
+    return (two, 2) if two <= SMEM_LIMIT else (total(max(even, odd)), 1)
+
+
+def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
+                         width: int = 16) -> int:
+    """Shared memory of one block of the corrected kernel (``corrected_plan``)."""
+    return corrected_plan(L, in_ch, out_ch, tile, split, pe, width)[0]
 
 
 class NetKernel:
@@ -179,12 +208,12 @@ class NetKernel:
 
     def extra_args(self, kc) -> tuple:
         """The entry point's arguments after the tile: the split mask, the
-        PE count, the instantiation (KernelConstants.general) and, for K1
-        and K2, the hidden width; K2 takes the last two only."""
+        PE count, the instantiation (KernelConstants.general) and the hidden
+        width; K2 takes the last two only."""
         if self.datapath == "fast":
             return (int(kc.general), kc.width)
         return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, int(kc.general),
-                *(() if self.datapath == "corrected" else (kc.width,)))
+                kc.width)
 
     def __call__(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor,
                  tile=None, split=None) -> torch.Tensor:
@@ -228,13 +257,14 @@ class NetKernel:
 
 class CorrectedKernel(NetKernel):
     """The corrected kernel: its tiles are CORRECTED_TILES, its shared
-    memory ``corrected_smem_bytes`` (the same in every instantiation)."""
+    memory ``corrected_smem_bytes`` (the same in every instantiation of a
+    width)."""
 
     tiles = CORRECTED_TILES
 
     def smem_bytes(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
         return corrected_smem_bytes(spec.num_convs, spec.in_channels, spec.conv_out_channels,
-                                    tile, split, pe)
+                                    tile, split, pe, kernel_width(spec.num_channels))
 
 
 pe_exact_net = NetKernel("sesr_pe_exact_net", "exact")

@@ -19,14 +19,19 @@ choice of its layer forms (sesr_tpu_torch/ops/corrected.py), on the CPU:
   maps are read from the source, so the model and the kernel cannot drift
   apart; the hardware's side (the descriptor's addressing, the fragment) is
   written here from the PTX ISA;
-- the same model on SESR-M11's 13 convs in both modes;
+- the same model on SESR-M11's 13 convs in both modes, and on SESR-XL's
+  (13 convs of 32 channels: two planes of 16 bytes a pixel, one tap a k32
+  step with LBO the planes' distance, 32 columns a PE group, and past four
+  PEs a split layer's 256 columns in two chunks of 128, one after another)
+  in both modes at 4 and 8 PEs;
 - that the accumulator map gives one thread four consecutive channels of a
-  pixel (the epilogue's 32-bit store is the next layer's input word), and
-  the shared-memory plan and default tiles.
+  pixel in each plane (the epilogue's 32-bit stores are the next layer's
+  input words), and the shared-memory plan and default tiles.
 The kernel itself is held against its plain version on the card by
 chip_smoke.py."""
 
 import dataclasses
+import functools
 import os
 import re
 
@@ -41,31 +46,37 @@ from sesr_tpu_torch.quant.calibrate import calibrate
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import MODES, split_layers
 from sesr_tpu_torch.ops.kernels import (CORRECTED_TILES, SMEM_LIMIT, corrected_net,
-                                        corrected_smem_bytes)
+                                        corrected_plan, corrected_smem_bytes)
 from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
 TASKS = ("nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2")
 ACC_HI, ADD_HI = 2 ** 17 - 1, 2 ** 19 - 1
+XL = SESRSpec("sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32, num_lblocks=11,
+              scaling_factor=2)
 SRC = (_build.CSRC / "sesr_corrected.cu").read_text()
 CONST = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", SRC)}
 
 
-def _expr(fn):
+def _expr(fn, scope):
     """The return expression of the one-line function ``fn`` of the kernel's
     source as a Python function (C's integer division translated; every
     operand is non-negative, and C's comparisons give 0 or 1 as Python's
-    give False or True)."""
+    give False or True), calling the functions of ``scope``."""
     m = re.search(rf"int {fn}\(([^)]*)\) \{{ return (.*?); \}}", SRC)
     assert m, fn
     args = [a.split()[-1] for a in m.group(1).split(",")]
-    return eval(f"lambda {', '.join(args)}: {m.group(2).replace(' / ', ' // ')}", dict(CONST))
+    return eval(f"lambda {', '.join(args)}: {m.group(2).replace(' / ', ' // ')}", scope)
 
 
-steps_of, half_off, b_byte, col_chan, acc_row, acc_col, pe_groups = (
-    _expr(f) for f in ("steps_of", "half_off", "b_byte", "col_chan", "acc_row", "acc_col",
-                       "pe_groups"))
+FNS = dict(CONST)
+for _fn in ("tap_of", "tap_pix", "half_off", "a_lbo", "steps_of", "b_byte", "col_chan",
+            "acc_row", "acc_col", "pe_groups"):
+    FNS[_fn] = _expr(_fn, FNS)
+steps_of, half_off, a_lbo, b_byte, col_chan, acc_row, acc_col, pe_groups = (
+    FNS[f] for f in ("steps_of", "half_off", "a_lbo", "b_byte", "col_chan", "acc_row",
+                     "acc_col", "pe_groups"))
 
 
 def _artifact(task):
@@ -251,79 +262,96 @@ def _hw_b(buf, start, n_cols, lbo, sbo):
     return buf[start + (n // 8) * sbo + (n % 8) * 16 + (kb // 16) * lbo + kb % 16]
 
 
-def _smem_input(x_q, k, z_eff, wide, rng):
+def _smem_input(x_q, k, z_eff, wide, rng, width=16):
     """Layer input as the kernel holds it in shared memory (bytes, int8):
     the z_eff-padded extent, 16 bytes a pixel (layer 0: each pixel's word,
     channel c in byte c, widened to the words of pixels p .. p + 3; a pad's
-    word is z_eff in every byte), then the pixels the GEMM reads past the
-    extent, holding whatever the buffer held before (random bytes here).
-    Returns the bytes, the extent and the number of GEMM rows."""
+    word is z_eff in every byte; width 32: two such planes, channels 0-15
+    and 16-31, ``plane`` bytes apart), then the pixels the GEMM reads past
+    the extent, holding whatever the buffer held before (random bytes
+    here). Returns the bytes, the extent, the number of GEMM rows and the
+    plane's bytes."""
     h, w, ic = x_q.shape
     r = k // 2
     ih, iw = h + 2 * r, w + 2 * r
-    s_n = steps_of(k, int(wide))
+    s_n = steps_of(k, int(wide), width)
     rows = -(-h * iw // 64) * 64
-    cap = rows + half_off(s_n - 1, 1, k, iw, int(wide))
-    buf = rng.integers(-128, 128, (cap, 16)).astype(np.int8)
+    cap = rows + half_off(s_n - 1, 1, k, iw, int(wide), width)
+    planes = 1 if wide else width // 16
+    plane = -(-cap * 16 // 128) * 128
+    buf = rng.integers(-128, 128, (planes, plane // 16, 16)).astype(np.int8)
     if wide:
         raw = np.full((ih, iw, 4), z_eff, np.int8)
         raw[r:r + h, r:r + w] = 0
         raw[r:r + h, r:r + w, :ic] = x_q
         raw = raw.reshape(-1, 4)
         at = np.minimum(np.arange(cap)[:, None] + np.arange(4), len(raw) - 1)
-        buf[:] = raw[at].reshape(cap, 16)
+        buf[0, :cap] = raw[at].reshape(cap, 16)
     else:
-        buf[:ih * iw] = np.pad(x_q, ((r, r), (r, r), (0, 0)),
-                               constant_values=z_eff).reshape(-1, 16)
-    return buf.reshape(-1), ih, iw, rows
+        padded = np.pad(x_q, ((r, r), (r, r), (0, 0)), constant_values=z_eff)
+        for pl in range(planes):
+            buf[pl, :ih * iw] = padded[..., 16 * pl:16 * pl + 16].reshape(-1, 16)
+    return buf.reshape(-1), ih, iw, rows, plane
 
 
 def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
     """The corrected kernel's y = bias + pe_add of conv i over the int8
     input x_q (H, W, ic), from its constants: the layer's wide GEMM through
-    the descriptors, the accumulator fragment, and the epilogue's rules,
-    with the extent of one tile over the whole input. A network narrower
-    than 16 channels runs padded: its padded input channels hold random
-    bytes here (their weights are zero)."""
+    the descriptors (a chunk of at most kMaxN columns at a time), the
+    accumulator fragment, and the epilogue's rules, with the extent of one
+    tile over the whole input. A network narrower than its kernel width
+    runs padded: its padded input channels hold random bytes here (their
+    weights are zero)."""
     acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
     add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
+    width = kc.width
     h, w, ic = x_q.shape
     oc = np.asarray(qp.w_int[i]).shape[3]
     split = kc.pe_split[i]
     wide = i == 0
-    if not wide and ic < 16:
-        x_q = np.concatenate([x_q, rng.integers(-128, 128, (h, w, 16 - ic))], axis=-1)
-        ic = 16
-    steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc if last else 16, split, last,
+    if not wide and ic < width:
+        x_q = np.concatenate([x_q, rng.integers(-128, 128, (h, w, width - ic))], axis=-1)
+        ic = width
+    steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc if last else width, split, last,
                                                    qp.hw.pe)
-    assert steps == steps_of(k, int(wide))
+    assert steps == steps_of(k, int(wide), width)
     ocp = n_cols // groups
-    buf, ih, iw, rows = _smem_input(x_q.astype(np.int8), k, z_eff, wide, rng)
+    chunks = -(-n_cols // CONST["kMaxN"])
+    nc, gc = n_cols // chunks, groups // chunks
+    buf, ih, iw, rows, plane = _smem_input(x_q.astype(np.int8), k, z_eff, wide, rng, width)
     offs = [kc.param("w_off", j) for j in range(kc.num_layers)] + [kc.weights.size]
     bsm = kc.weights[offs[i]: offs[i + 1]].view(np.int8)
     assert bsm.size == steps * n_cols * 32
-    acc = np.zeros((rows, n_cols), np.int64)                 # the GEMM's D, m-tile by m-tile
+    # the GEMM's D, m-tile by m-tile and chunk by chunk
+    acc = np.zeros((chunks, rows, nc), np.int64)
     for mt in range(rows // 64):
         for s in range(steps):
-            o0, o1 = half_off(s, 0, k, iw, int(wide)), half_off(s, 1, k, iw, int(wide))
-            a = _hw_a(buf, (mt * 64 + o0) * CONST["kPix"], (o1 - o0) * CONST["kPix"],
+            o0 = half_off(s, 0, k, iw, int(wide), width)
+            o1 = half_off(s, 1, k, iw, int(wide), width)
+            a = _hw_a(buf, (mt * 64 + o0) * CONST["kPix"], a_lbo(o0, o1, int(wide), width, plane),
                       CONST["kSboA"])
-            b = _hw_b(bsm, b_byte(s, 0, 0, n_cols), n_cols, CONST["kLboB"], CONST["kSboB"])
-            acc[mt * 64:mt * 64 + 64] += a.astype(np.int64) @ b.astype(np.int64)
+            for hc in range(chunks):
+                b = _hw_b(bsm, b_byte(s, hc * nc, 0, n_cols), nc, CONST["kLboB"], CONST["kSboB"])
+                acc[hc, mt * 64:mt * 64 + 64] += a.astype(np.int64) @ b.astype(np.int64)
     bias = kc.param("bias", i)[:oc].astype(np.int64)
     zc = kc.param("zc", i)[:oc].astype(np.int64)
-    zc_pe = [kc.zc_pe(i, p)[:oc].astype(np.int64) if p < kc.pe else np.zeros(oc, np.int64)
-             for p in range(groups)]
+    if split:
+        assert not zc.any()          # the kernel's split bounds are bias + kMagicBits +- add_hi
+    # the PE zero terms where the kernel reads them: word zcp_at(.., 0) +
+    # (2 or 4) tq + col_chan(acc_col(v / 2, 0, v % 2)) + p C of the block
+    zc_at = convert.zc_pe_at(kc.num_layers, width, kc.pe, i, 0)
     got = np.full((h, w, oc), np.iinfo(np.int64).min)
     j_n = ocp // 8
-    # each thread's registers (warp, lane, 4 j + i) of each m-tile, as the
-    # epilogue reads them: value v = 2 j' + e of group p is register
-    # 4 (p J + j') + 2 h + e for the row acc_row(warp, lane, 2 h)
+    # each thread's registers (warp, lane, 4 j + i) of each m-tile and
+    # chunk, as the epilogue reads them: value v = 2 j' + e of group p of
+    # chunk c is register 4 (p J + j') + 2 h + e for the row acc_row(warp,
+    # lane, 2 h)
     for mt in range(rows // 64):
         for warp in range(4):
             for lane in range(32):
-                d = {(j, ii): acc[mt * 64 + acc_row(warp, lane, ii), acc_col(j, lane, ii)]
-                     for j in range(n_cols // 8) for ii in range(4)}
+                tq = lane & 3
+                d = [{(j, ii): acc[hc, mt * 64 + acc_row(warp, lane, ii), acc_col(j, lane, ii)]
+                      for j in range(nc // 8) for ii in range(4)} for hc in range(chunks)]
                 for hh in range(2):
                     r = mt * 64 + acc_row(warp, lane, 2 * hh)
                     y, x = r // iw, r % iw
@@ -333,10 +361,15 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
                         o = col_chan(acc_col(v >> 1, lane, v & 1), int(last))
                         if o >= oc:
                             continue
-                        reg = lambda p: d[(p * j_n + (v >> 1), 2 * hh + (v & 1))]
+                        reg = lambda p: d[p // gc][((p % gc) * j_n + (v >> 1), 2 * hh + (v & 1))]
+                        at = zc_at + (2 if last else 4) * tq + col_chan(
+                            acc_col(v >> 1, 0, v & 1), int(last))
+                        assert at == zc_at + o
+                        start = [-int(kc.params[at + p * width]) if p < kc.pe else 0
+                                 for p in range(groups)]
                         if split:
                             val = bias[o] - zc[o] + sum(
-                                np.clip(reg(p) - zc_pe[p][o], -acc_hi - 1, acc_hi)
+                                np.clip(reg(p) + start[p], -acc_hi - 1, acc_hi)
                                 for p in range(groups))
                         else:
                             val = reg(0) + bias[o] - zc[o]
@@ -370,13 +403,13 @@ def _alt_artifact(hw, width, in_ch, seed):
 
 
 @pytest.mark.parametrize("split_of", ["proof", "all", "saturating"])
-@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("width", [8, 16, 32])
 @pytest.mark.parametrize("config", list(ALT_HW))
 def test_corrected_kernel_layers_at_other_configs(config, width, split_of):
     """The numpy model of the kernel at 2, 3 and 8 PEs with the sweep's
     widths (16/18-bit accumulator / adder and a 12-bit bias at 2 PEs;
-    20/22 at 8), for networks 8 (padded) and 16 channels wide with 3 and 1
-    input channels: the layers the corrected proof splits, or all of them,
+    20/22 at 8), for networks 8 (padded), 16 and 32 channels wide with 3 and
+    1 input channels: the layers the corrected proof splits, or all of them,
     in the general instantiation (pe_groups column groups, the groups past
     the PE count zero; every sum clamped to pe_add_bits), each layer's
     y = bias + pe_add equal to the plain interpreter's with the same
@@ -486,15 +519,63 @@ def test_corrected_kernel_layers_on_sesr_m11(mode):
     assert corrected_net.tile(spec, split, 4) in CORRECTED_TILES
 
 
-def test_accumulator_map_gives_a_thread_one_word_of_a_pixel():
+@functools.lru_cache(maxsize=None)
+def _xl_saturated(pe):
+    """SESR-XL x2 from seeded weights calibrated on the CPU at ``pe`` PEs,
+    convs 3 and 9 at +127 as in chip_smoke.py phase 14, with the stamps its
+    certificate gives at 4 PEs (convs 3-5 and 7-10 unstamped)."""
+    params = init_params(XL, torch.Generator().manual_seed(0))
+    images = [np.random.default_rng(3).random((1, 24, 32, 3), dtype=np.float32)]
+    qp = _all_127(calibrate(XL, params, images, hw=HardwareConfig(pe=pe), safe_zero_floor=True,
+                            device="cpu"), (3, 9))
+    stamps = tuple(i not in (3, 4, 5, 7, 8, 9, 10) for i in range(XL.num_convs))
+    return dataclasses.replace(qp, fast_cert_layers=stamps, fast_cert_ok=False)
+
+
+@pytest.mark.parametrize("pe", [4, 8])
+@pytest.mark.parametrize("mode", MODES)
+def test_corrected_kernel_layers_on_sesr_xl(mode, pe):
+    """The model at SESR-XL x2's 13 convs of 32 channels: two planes of 16
+    bytes a pixel, one tap a k32 step (LBO the distance between the
+    planes), 32 columns a PE group, and at 8 PEs a split hidden layer's 256
+    columns in two chunks of 128 over the same A, the first chunk's clamped
+    partials carried into the second's epilogue. Hybrid with the stamps of
+    its certificate at 4 PEs, pe-exact where the proof splits; every layer
+    0..12 equal to the plain interpreter's bias + pe_add."""
+    qp = _xl_saturated(pe)
+    L = XL.num_convs
+    split = split_layers(qp, mode)
+    kc = convert.kernel_constants(XL, qp, "corrected", split)
+    assert kc.width == 32 and kc.pe == pe and (kc.general or pe == 4)
+    assert split[3] and split[9] and any(split[1:L - 1])
+    x = np.random.default_rng(14).random((1, 6, 11, 3), dtype=np.float32)
+    _, dumps = integer_forward(XL, qp, x, collect_dumps=True, corrected=True,
+                               fast_layers=qp.fast_cert_layers if mode == "hybrid" else None,
+                               device="cpu")
+    rng = np.random.default_rng(15)
+    for i, k in enumerate(XL.kernel_sizes):
+        x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
+        want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
+            np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
+        np.testing.assert_array_equal(got, want, err_msg=f"xl {mode} {pe} PEs layer {i}")
+    # a split hidden layer runs 128 or 2 x 128 columns
+    assert convert.wgmma_geometry(3, 32, 32, True, False, pe)[2] == 32 * convert.pe_groups(pe)
+    assert int(dumps["overflow_18"][3]) > 0
+
+
+@pytest.mark.parametrize("width", [16, 32])
+def test_accumulator_map_gives_a_thread_one_word_of_a_pixel(width):
     """wgmma's fragment (acc_row / acc_col) through the hidden layers'
     column permutation (col_chan): the four values a thread holds for one
-    row are channels 4 tq .. 4 tq + 3 in byte order, so its one 32-bit store
-    at word (pixel * 4 + tq) is that word of the next layer's input, and
-    the 32 lanes of a warp store 32 consecutive words (8 pixels, no bank
-    conflict). The last layer keeps the columns in order. Over every warp,
-    lane and register the fragment covers the 64 x N tile once."""
-    for n_cols in (8, 16, 32, 48, 64):
+    row in n-tiles 2w and 2w + 1 are channels 16w + 4 tq .. 16w + 4 tq + 3
+    in byte order, so its 32-bit store at word (pixel * 4 + tq) of plane w
+    is that word of the next layer's input (width 16: one plane, width 32:
+    two), and the 32 lanes of a warp store 32 consecutive words of a plane
+    (8 pixels, no bank conflict). The last layer keeps the columns in order.
+    Over every warp, lane and register the fragment covers the 64 x N tile
+    once, at every N a layer uses."""
+    for n_cols in (8, 16, 32, 48, 64, 96, 128):
         seen = np.zeros((64, n_cols), int)
         for warp in range(4):
             for lane in range(32):
@@ -509,40 +590,64 @@ def test_accumulator_map_gives_a_thread_one_word_of_a_pixel():
                 tq = lane & 3
                 row = acc_row(warp, lane, 2 * h)
                 assert row == 16 * warp + (lane >> 2) + 8 * h
-                chans = [col_chan(acc_col(v >> 1, lane, v & 1), 0) for v in range(4)]
-                assert chans == [4 * tq + v for v in range(4)]
+                chans = [col_chan(acc_col(v >> 1, lane, v & 1), 0) for v in range(width // 4)]
+                assert chans == [16 * (v // 4) + 4 * tq + v % 4 for v in range(width // 4)]
                 assert [col_chan(acc_col(v >> 1, lane, v & 1), 1) for v in range(4)] == \
                     [2 * tq, 2 * tq + 1, 8 + 2 * tq, 9 + 2 * tq]
                 words.append((row - 16 * warp - 8 * h) * 4 + tq)
             assert sorted(words) == list(range(32))
-    assert sorted(col_chan(n, 0) for n in range(16)) == list(range(16))
-    # the epilogue stores value v of the thread's word at byte v (pack_bytes)
-    assert "int* word = kept ? next + (y * ow + x) * 4 + tq : scratch;" in SRC
-    assert "*word = inside ? pack_bytes(v[0], v[1], v[2], v[3]) : pad_next;" in SRC
-    np.testing.assert_array_equal(convert._wgmma_columns(16, False),
-                                  [col_chan(n, 0) for n in range(16)])
+    assert sorted(col_chan(n, 0) for n in range(width)) == list(range(width))
+    # the epilogue stores value 4 w + b of the thread's word of plane w at
+    # byte b (pack_bytes), the planes next_plane words apart
+    assert "int* word = kept ? next + w * next_plane + (y * ow + x) * 4 + tq : scratch;" in SRC
+    assert ("*word = inside ? pack_bytes(v[4 * w], v[4 * w + 1], v[4 * w + 2], v[4 * w + 3]) "
+            ": pad_next;") in SRC
+    np.testing.assert_array_equal(convert._wgmma_columns(width, False),
+                                  [col_chan(n, 0) for n in range(width)])
     np.testing.assert_array_equal(convert._wgmma_columns(12, True),
                                   [n if n < 12 else -1 for n in range(16)])
     np.testing.assert_array_equal(convert._wgmma_columns(3, True), [0, 1, 2] + [-1] * 5)
 
 
-@pytest.mark.parametrize("task", TASKS)
+def _xl_weights(pe):
+    """SESR-XL x2 and seeded int8 weights of its 13 convs (3 -> 32 -> ... ->
+    12)."""
+    spec = XL
+    rng = np.random.default_rng(pe)
+    chans = [3] + [32] * 12 + [12]
+    w = [rng.integers(-127, 128, (k, k, chans[i], chans[i + 1])).astype(np.int8)
+         for i, k in enumerate(spec.kernel_sizes)]
+    return spec, w
+
+
+@pytest.mark.parametrize("task", TASKS + ("xl-pe4", "xl-pe8"))
 def test_wgmma_b_holds_each_weight_once(task):
     """convert.py's B for the corrected kernel, read back through the
     source's b_byte: every weight of every layer sits once, in the column
     group of its PE on a split layer (layer 0: of its input channel), at the
     k byte of its tap and channel (layer 0: 4 taps of a widened pixel in
-    each 16-byte half); everything else is zero."""
-    spec, qp = _artifact(task)
+    each 16-byte half; a 32-channel layer: one tap a step, channels 0-15 in
+    the first half and 16-31 in the second); everything else is zero. On the
+    shipped artifacts, and on seeded SESR-XL weights at 4 and 8 PEs (32 or
+    256 columns a split hidden layer)."""
+    if task.startswith("xl"):
+        spec, w_int = _xl_weights(int(task[-1]))
+        pe = int(task[-1])
+        splits = ((True,) * spec.num_convs, (False,) * spec.num_convs)
+    else:
+        spec, qp = _artifact(task)
+        w_int, pe = qp.w_int, qp.hw.pe
+        splits = (convert.corrected_split_layers(qp), (True,) * spec.num_convs,
+                  (False,) * spec.num_convs)
     L = spec.num_convs
-    for split in (convert.corrected_split_layers(qp), (True,) * L, (False,) * L):
-        for i, w in enumerate(qp.w_int):
+    for split in splits:
+        for i, w in enumerate(w_int):
             w = np.asarray(w, np.int64)
             k, _, ic, oc = w.shape
             last = i == L - 1
-            steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split[i], last, qp.hw.pe)
+            steps, groups, n_cols = convert.wgmma_geometry(k, ic, oc, split[i], last, pe)
             g = n_cols // groups
-            raw = convert._wgmma_b_words(w, split[i], qp.hw.pe, last).view(np.int8)
+            raw = convert._wgmma_b_words(w, split[i], pe, last).view(np.int8)
             assert raw.size == steps * n_cols * 32
             rebuilt = np.zeros_like(w)
             seen = np.zeros(w.shape, int)
@@ -555,11 +660,14 @@ def test_wgmma_b_holds_each_weight_once(task):
                         if i == 0:
                             dy, dx, ch = s, 4 * hh + b // 4, b % 4
                             ok = dx < k and ch < ic
-                        else:
+                        elif ic == 16:
                             tap = 2 * s + hh
                             dy, dx, ch = tap // k, tap % k, b
                             ok = tap < k * k
-                        owner = (ch if i == 0 else ch % 4) if split[i] else 0
+                        else:
+                            dy, dx, ch = s // k, s % k, kb
+                            ok = True
+                        owner = ch % pe if split[i] else 0
                         if not ok or o >= oc or owner != n // g:
                             assert val == 0, (task, i, s, n, kb)
                             continue
@@ -586,6 +694,27 @@ def test_smem_plan_and_its_limit():
     with pytest.raises(ValueError, match="shared memory"):
         corrected_net.check_tile(nr, (48, 64), hybrid, 4)
     corrected_net.check_tile(nr, (32, 64), hybrid, 4)
+    # width 16 holds every layer's B (no regions), width 32 stages it: two
+    # regions (even and odd layers) where they fit, else one
+    assert corrected_plan(5, 3, 3, (32, 64), hybrid, 4) == (213008, 0)
+    L = XL.num_convs
+    xl_hybrid = tuple(i in (3, 4, 5, 7, 8, 9, 10) for i in range(L))
+    want = {(xl_hybrid, 4): ((16, 16), 2), ((True,) * L, 4): ((16, 16), 1),
+            (xl_hybrid, 8): ((16, 16), 1), ((True,) * L, 8): ((8, 16), 1),
+            ((False,) * L, 4): ((16, 32), 2)}
+    for (split, pe), (tile, bufs) in want.items():
+        assert corrected_net.tile(XL, split, pe) == tile
+        need, regions = corrected_plan(L, 3, 12, tile, split, pe, 32)
+        assert regions == bufs and need <= SMEM_LIMIT
+        assert corrected_net.smem_bytes(XL, tile, split, pe) == need
+        # two regions hold the largest even and the largest odd layer's B
+        # (rounded up), one the largest layer's: the plans differ by that
+        b = [convert.wgmma_geometry(k, 3 if i == 0 else 32, 12 if i == L - 1 else 32, split[i],
+                                    i == L - 1, pe) for i, k in enumerate(XL.kernel_sizes)]
+        b = [s * n * 32 for s, _, n in b]
+        two = -(-max(b[0::2]) // 128) * 128 + max(b[1::2])
+        if regions == 1:
+            assert need - max(b) + two > SMEM_LIMIT
 
 
 def test_ab_variants_apply_to_the_source():
@@ -616,6 +745,7 @@ def test_ab_tree_worker_reports_ptxas(monkeypatch, tmp_path):
         return subprocess.CompletedProcess(cmd, 0, stdout=json.dumps(out) + "\n", stderr="")
 
     monkeypatch.setattr(subprocess, "run", worker)
+    monkeypatch.setattr(corrected_ab, "artifact", lambda net: tmp_path / f"{net}.npz")
     got = corrected_ab.run_tree(tmp_path, 3)
     assert got["ptxas"] == {"sesr_net_kernel<Li1ELi16ELb0ELi32>": [128, 4],
                             "sesr_corrected_kernel<Li4ELb0>": [90, 0]}

@@ -10,14 +10,15 @@ across with ``convert.quantparams_from_fields``:
   ``fast_forward``;
 - ``certify_fast`` stamps as the JAX package's does, and
   ``deploy.select_forward`` picks the mode ``select_packed_forward`` picks;
-- an M11 with convs SATURATED at +127 is left partly unstamped and served
-  hybrid; its hybrid and corrected PE-exact forwards equal the JAX
-  package's;
-- ``convert.kernel_constants`` takes both networks for K1 and K2 and M11
-  for the corrected kernel, its parameter block decodes to the artifact's
-  per-layer constants at every conv, and it refuses 17 convs, a width of
-  48, the corrected kernel at width 32 and XL's split convs in K1 at 8
-  PEs (no tile fits), each with its own message;
+- an M11 and an XL with convs SATURATED at +127 are left partly unstamped
+  and served hybrid; their hybrid and corrected PE-exact forwards equal
+  the JAX package's;
+- ``convert.kernel_constants`` takes both networks for K1, K2 and the
+  corrected kernel (in both of its modes), its parameter block decodes to
+  the artifact's per-layer constants at every conv, and it refuses 17
+  convs and a width of 48, each with its own message; XL with every conv
+  split takes the corrected kernel's constants and a K1 tile at every PE
+  count from 1 to 8;
 - ``costs.conv_macs`` and chip_smoke.py's ``halo_ratio``.
 
 The kernels themselves are held against the plain version on the card by
@@ -93,10 +94,11 @@ def _certified(net):
 
 
 @functools.lru_cache(maxsize=None)
-def _saturated():
-    """M11 with convs SATURATED at +127, certified by the port: (spec, JAX
-    spec, the JAX QuantParams with the port's stamps, the port's)."""
-    spec, jspec, jqp, qp = _calibrated("m11")
+def _saturated(net="m11"):
+    """The network with convs SATURATED at +127, certified by the port:
+    (spec, JAX spec, the JAX QuantParams with the port's stamps, the
+    port's)."""
+    spec, jspec, jqp, qp = _calibrated(net)
     w = [np.full_like(np.asarray(a), 127) if i in SATURATED else np.asarray(a)
          for i, a in enumerate(qp.w_int)]
     sat = certify_fast(spec, dataclasses.replace(qp, w_int=w), _images(1, seed=1), device="cpu")
@@ -157,12 +159,13 @@ def test_certify_and_select_match_jax(net):
                        integer_forward(spec, qp, x, corrected=True, device="cpu")[0])
 
 
-def test_unstamped_m11_serves_hybrid_as_jax_does():
+@pytest.mark.parametrize("net", list(NETS))
+def test_unstamped_m11_serves_hybrid_as_jax_does(net):
     """The saturated convs (and those their saturation reaches) are left
-    unstamped: the hybrid mode, each layer split where it is unstamped;
-    the corrected PE-exact mode splits where the static proof cannot clear
-    the 18-bit clamp. Both outputs equal the JAX package's."""
-    spec, jspec, jsat, sat = _saturated()
+    unstamped, on M11 and on XL: the hybrid mode, each layer split where it
+    is unstamped; the corrected PE-exact mode splits where the static proof
+    cannot clear the 18-bit clamp. Both outputs equal the JAX package's."""
+    spec, jspec, jsat, sat = _saturated(net)
     stamps = tuple(sat.fast_cert_layers)
     assert not any(stamps[i] for i in SATURATED) and any(stamps)
     assert deploy.select_forward(sat)[0] == select_packed_forward(jsat)[0] == "hybrid"
@@ -188,22 +191,19 @@ def _decoded(kc, qp, i):
 @pytest.mark.parametrize("datapath", ["exact", "fast", "corrected"])
 @pytest.mark.parametrize("net", list(NETS))
 def test_kernel_constants_take_the_family(net, datapath):
-    """K1 and K2 take both networks, the corrected kernel M11 in both of
-    its modes (XL is refused: ROADMAP queues it). The parameter block
-    decodes to each conv's constants at every layer 0..12, the weights are
-    every layer's B fragments in order, and the block is as long as the
-    kernels read."""
+    """K1 and K2 take both networks, the corrected kernel both in both of
+    its modes (the saturated artifact's hybrid mask, and every conv split).
+    The parameter block decodes to each conv's constants at every layer
+    0..12, the weights are every layer's B fragments (K1, K2) or B (the
+    corrected kernel: at width 32 two planes a k32 step, 32 columns a PE
+    group) in order, and the block is as long as the kernels read."""
     spec, _, _, qp = _certified(net)
     L = spec.num_convs
     width = convert.kernel_width(spec.num_channels)
-    if datapath == "corrected" and width == 32:
-        with pytest.raises(NotImplementedError, match="corrected kernel at width 32"):
-            convert.kernel_constants(spec, qp, datapath, (False,) * L)
-        return
-    splits = ([split_layers(_saturated()[3], "hybrid"), (True,) * L]
+    splits = ([split_layers(_saturated(net)[3], "hybrid"), (True,) * L]
               if datapath == "corrected" else [None])
     for split in splits:
-        cqp = _saturated()[3] if datapath == "corrected" else qp
+        cqp = _saturated(net)[3] if datapath == "corrected" else qp
         kc = convert.kernel_constants(spec, cqp, datapath, split)
         assert (kc.num_layers, kc.width, kc.pe) == (L, width, 4)
         assert kc.params.shape == (convert.param_words(4, L, width),)
@@ -233,31 +233,48 @@ def test_kernel_constants_take_the_family(net, datapath):
 
 
 def test_kernel_constants_refuse_past_the_limits():
-    """17 convs, a hidden width of 48, the corrected kernel at width 32 and
-    K1 on XL with split convs at 8 PEs are refused, each with its own
-    message."""
+    """17 convs and a hidden width of 48 are refused, each with its own
+    message; XL with every conv split runs in the corrected kernel and in
+    K1 at every PE count from 1 to 8."""
     spec, _, _, qp = _calibrated("m11")
     with pytest.raises(NotImplementedError, match="3 to 16 convs"):
         convert.kernel_constants(dataclasses.replace(spec, num_lblocks=15), qp, "fast")
     with pytest.raises(NotImplementedError, match="widths of at most 32"):
         convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "exact")
-    xl, _, _, xqp = _calibrated("xl")
-    with pytest.raises(NotImplementedError, match="corrected kernel at width 32"):
-        convert.kernel_constants(xl, xqp, "corrected", (True,) * xl.num_convs)
     # 16 convs are taken
     assert convert.MAX_LAYERS == 16 and convert.WIDTHS == (16, 32)
-    # K1's general instantiation with split convs at 8 PEs: XL's masked
-    # passes (8 PEs x 9 chunks of B a layer, double-buffered) leave no tile
-    # a block holds, refused with the constants (ROADMAP queue 1 item 2);
-    # the wrapper's tile choice refuses the same before any launch
-    assert pe_exact_net.tile(xl, (True,) * xl.num_convs, 4) == (24, 24)
-    with pytest.raises(ValueError, match="no tile"):
-        pe_exact_net.tile(xl, (True,) * xl.num_convs, 8, True)
+    xl, _, _, xqp = _calibrated("xl")
+    L = xl.num_convs
+    tiles = {}
+    for pe in range(1, 9):
+        pqp = dataclasses.replace(xqp, hw=dataclasses.replace(xqp.hw, pe=pe))
+        # the corrected kernel: B staged a layer at a time, every layer's B
+        # in its PE groups (256 columns a hidden layer past four PEs)
+        kc = convert.kernel_constants(xl, pqp, "corrected", (True,) * L)
+        assert (kc.width, kc.pe, kc.pe_split) == (32, pe, (True,) * L)
+        assert kc.general or pe == 4
+        assert kc.params.shape == (convert.param_words(pe, L, 32),)
+        assert kc.weights.size * 4 == sum(
+            s * n * 32 for s, _, n in (convert.wgmma_geometry(
+                k, 3 if i == 0 else 32, 12 if i == L - 1 else 32, True, i == L - 1, pe)
+                for i, k in enumerate(xl.kernel_sizes)))
+        # K1's general instantiation with every conv split: a tile at every
+        # PE count (one weight buffer where two do not fit a block at the
+        # tile, the next layer's B staged after each layer), and with none
+        # split 24x32 (one buffer; two fit at 24x24)
+        tiles[pe] = pe_exact_net.tile(xl, (True,) * L, pe, True)
+        assert min(tiles[pe]) >= 16
+        assert pe_exact_net.tile(xl, (False,) * L, pe, True) == (24, 32)
+    assert tiles == {1: (24, 32), 2: (24, 24), 3: (24, 24), 4: (24, 32), 5: (16, 24),
+                     6: (16, 24), 7: (16, 16), 8: (16, 16)}
+    assert pe_exact_net.tile(xl, (True,) * L, 4) == (24, 24)
+    # XL at 8 PEs with 12-bit accumulators, every conv split: K1 takes it, and
+    # K2 (one pass a conv) too
     narrow = dataclasses.replace(xqp, hw=dataclasses.replace(xqp.hw, pe=8, pe_acc_bits=12))
-    assert any(convert.pe_split_layers(narrow))
-    with pytest.raises(NotImplementedError, match="no tile of the exact kernel.*queue 1 item 2"):
-        convert.kernel_constants(xl, narrow, "exact")
-    # K2 runs one pass a conv and takes the same artifact
+    assert convert.pe_split_layers(narrow) == (True,) * L
+    kc = convert.kernel_constants(xl, narrow, "exact")
+    assert kc.general and kc.pe_split == (True,) * L and kc.width == 32
+    assert pe_exact_net.tile(xl, kc.pe_split, 8, True) == (16, 16)
     assert convert.kernel_constants(xl, narrow, "fast").pe == 8
 
 

@@ -262,6 +262,65 @@ def test_mma_fragments_on_the_family(net, pe, split):
         assert mmas == -(-eh * ew // 16) * passes * chunks * -(-oc // 8)
 
 
+@pytest.mark.parametrize("layer", ["first", "hidden", "last"])
+@pytest.mark.parametrize("pe", [8, 5])
+def test_k1_fragments_meet_their_channels_past_four_pes(pe, layer):
+    """K1's split passes on SESR-XL past four PEs, byte by byte: every B
+    fragment byte of pass p (lane 4g + t, register r of n-tile n, chunk c)
+    meets k-slot t + 4r, i.e. byte b of word s % wpt of tap (8 / wpt) c + s
+    // wpt, and the activation byte there holds channel _act_word^-1 (word,
+    b); the fragment byte must hold that channel's weight for the column's
+    output channel where the channel is PE p's (c % pe == p), else 0. Each
+    weight of the layer sits in exactly one pass."""
+    spec = FAMILY["xl"]
+    L = spec.num_convs
+    i = {"first": 0, "hidden": 1, "last": L - 1}[layer]
+    w = np.asarray(_family_weights("xl")[i], np.int64)
+    k, _, ic, oc = w.shape
+    last = i == L - 1
+    npass, chunks, tap_major = convert.layer_geometry(k, ic, True, pe)
+    wpt = convert.words_per_tap(ic, True, pe)
+    assert not tap_major or ic <= 4
+    cols = convert._fragment_columns(oc, last).reshape(-1, 8)
+    frag = _bytes(convert._fragment_words(w, True, pe, last)).reshape(
+        npass, chunks, 32, cols.shape[0], 2, 4)
+    chan_of = {convert._act_word(ic, c): c for c in range(ic)}
+    seen = np.zeros(w.shape, int)
+    for p in range(npass):
+        for c in range(chunks):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for r in range(2):
+                    s = t + 4 * r
+                    tap, word = (8 // wpt) * c + s // wpt, s % wpt
+                    for n in range(cols.shape[0]):
+                        o = cols[n, g]
+                        for b in range(4):
+                            got = int(frag[p, c, lane, n, r, b])
+                            ch = chan_of.get((word if ic > 4 else 0, b))
+                            owner = ch is not None and tap < k * k and o >= 0 and ch % pe == p
+                            if not owner:
+                                assert got == 0, (p, c, lane, n, r, b)
+                                continue
+                            assert got == np.int8(w[tap // k, tap % k, ch, o]), (p, c, lane, b)
+                            seen[tap // k, tap % k, ch, o] += 1
+    assert (seen == 1).all()
+    # at width 32 K1's general instantiation keeps one weight buffer where
+    # two do not fit a block at the tile (at 16x16 past four PEs with every
+    # conv split), at four PEs two: the plans differ by that, and by nothing
+    # else
+    from sesr_tpu_torch.ops.kernels import net_smem_bytes
+
+    def largest(n_pe):
+        return max(int(np.prod(convert.layer_geometry(kk, 3 if j == 0 else 32, True, n_pe)[:2]))
+                   * 32 * 2 * -(-(12 if j == L - 1 else 32) // 8)
+                   for j, kk in enumerate(spec.kernel_sizes))
+
+    plans = [net_smem_bytes("exact", L, 3, 12, (16, 16), (True,) * L, n_pe, True, 32)
+             for n_pe in (pe, 4)]
+    assert plans[0] - plans[1] == 4 * (largest(pe) - 2 * largest(4))
+
+
 @pytest.mark.parametrize("exact", [True, False], ids=["K1", "K2"])
 @pytest.mark.parametrize("task", ["sr_x2", "sr_x4", "nrdm_3", "nrdm_6"])
 def test_kernel_constants_take_each_layers_form(task, exact):
