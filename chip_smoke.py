@@ -27,12 +27,16 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    fires on one-pass conv 0 and the 18-bit clamp on split conv 4; pe-exact:
    the 18-bit clamp on split conv 0), and on the edges of its wide rows
    (frames 1, 7, 63, 65 and 1921 columns wide, a frame smaller than one
-   tile, a batch whose last tile is ragged) in both modes; every kernel on
+   tile, a batch whose last tile is ragged) in both modes, and its counting
+   form (sesr_corrected_audit, the runtime audit) on the same edges with
+   nr's adversarial frame first in each batch, its counts array_equal with
+   the plain interpreter's overflow_18 and two W blocks as count regions
+   adding up to the whole frame's; every kernel on
    the sr_x4, nrdm_3, nrdm_6, dm and nr artifacts at 27x45; each wrapper on
    the card against the plain version on the CPU; ``infer --n-images 2`` on
    every task, cuda against cpu; and the SASS of the network libraries
-   (cuobjdump): the corrected kernel on IGMMA with no IMMA, K1 and K2 on
-   IMMA;
+   (cuobjdump): the corrected kernel and its counting form on IGMMA with
+   no IMMA, K1 and K2 on IMMA;
 4. the main paths, each with the launch counters set to 0 before it and
    read after it. sr_x2: ``serve`` (behind ``infer``) on four synthetic
    540x960 -> 1080x1920 frames at batch 1 and batch 4 (K2), then
@@ -104,7 +108,12 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    violation, outputs equal to the plain version) and the adversarial
    frame then a synthetic one (layer 0 flagged, the stream degraded to
    pe-exact with its launches counted by split mask, both outputs equal to
-   the CPU interpreter's), with the audit's shadow cost per frame;
+   the CPU interpreter's); each audit one launch of the counting form
+   (quant/audit.py's plain interpreter fails on a CUDA tensor while the
+   streams run; 4 + 1 counting launches beside 4 + 3 served), its counts
+   and sound output held against the plain interpreter's on the card; the
+   audit's device ms per frame beside the served PE-exact kernel's and its
+   shadow ms per frame as the host issues it;
 9. training and make_qparams, with TF32 on around them: the STE
    round and fake-quant on the card against the CPU (values and
    gradients torch.equal, clip ties at 0.5); float training of the
@@ -152,7 +161,10 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    f32 and int8) array_equal with the monolithic one in one launch, a CUDA
    tensor on a gloo group refused, and stream_frames on five nr frames with
    the adversarial frame third, audited every batch (hybrid until it, then
-   pe-exact: 3 + 3 launches); then every rank's window of sp = 4 and 2 x 2
+   pe-exact: 3 + 3 launches; three counting launches, each over the rank's
+   window with its block as the count region, the plain interpreter barred
+   on the card, each audit equal to the plain sharded audit); then every
+   rank's window of sp = 4 and 2 x 2
    grids in turn on the card (virtual ranks: nr and nrdm_6 hybrid and nr
    pe-exact at 1080x1920, sr_x2 through K2 at 540x960, f32 and int8) and
    slabs (nr and nrdm_6 at 1080x1920 in pick_slab_h's four, sr_x2 at
@@ -198,18 +210,24 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    two, at batch 1 and 4; K1 and the corrected PE-exact mode (sim
    --corrected) on XL at each config and at 8 PEs, at batch 1; every
    output torch.equal with the plain interpreter on the card, one launch a
-   call; then each kernel's device time at its default tile (K1 and K2 also
+   call; the runtime audit's counting form on the unstamped XL at 4 and 8
+   PEs (counts array_equal with the plain interpreter's overflow_18, one
+   counting launch a call), its device time beside the served PE-exact
+   kernel's and its ptxas and CUPTI lines; then each kernel's device time
+   at its default tile (K1 and K2 also
    at every tile of ops/kernels.py NET_TILES that fits a block), its bound
    and share, MACs computed over MACs needed, registers and shared memory
    (ptxas, the wrapper's plan and the library's, and CUPTI, read at the
    default tile in a process of its own, ``chip_smoke.py --cupti``, whose
    shared memory must be the plan's). One ``kernels`` entry per (kernel,
-   network, mode, config), with its own launches.
+   network, mode, config), with its own launches; the counting form has an
+   entry of its own for nr (phases 8 and 11) and for XL at 4 and 8 PEs.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -237,6 +255,10 @@ REPLACES = {"sesr_pe_exact_net": "sesr_tpu/ops/pallas_pipeline.py:143",
             # XLA with no Pallas kernel, reached from :723 packed_exact_forward
             # (corrected) and :749 packed_hybrid_forward
             "sesr_corrected_net": "sesr_tpu/ops/packed.py:562"}
+# the counting form of the corrected kernel (sesr_corrected_audit): the
+# runtime audit's shadow run, which the JAX package runs as the jitted
+# integer_forward(corrected=True, collect_dumps=True) (XLA, no Pallas kernel)
+AUDIT_REPLACES = "sesr_tpu/quant/integer.py:233 (from sesr_tpu/quant/audit.py:96)"
 SOURCES = {"sesr_pe_exact_net": "sesr_tpu_torch/csrc/sesr_net.cu",
            "sesr_fast_net": "sesr_tpu_torch/csrc/sesr_net.cu",
            "sesr_corrected_net": "sesr_tpu_torch/csrc/sesr_corrected.cu"}
@@ -392,6 +414,150 @@ def plain_kwargs(kern, qp, mode=None):
                 if mode == "hybrid" else None)
 
 
+def audit_check(torch, spec, qp, x, label, phase, region=None):
+    """The corrected kernel's counting form (``audit_forward``, one launch
+    of sesr_corrected_audit, counted in ``corrected_net.audit_launches``)
+    on the CUDA tensor x against the plain interpreter on the card
+    (``integer_forward(corrected=True, collect_dumps=True)``): counts
+    array_equal with its overflow_18 (with ``region``: the counts of the
+    region, compared by the caller), output torch.equal. Returns the
+    counts as numpy."""
+    from sesr_tpu_torch.ops.corrected import audit_forward, split_layers
+    from sesr_tpu_torch.ops.kernels import corrected_net
+    from sesr_tpu_torch.quant.integer import integer_forward
+
+    before = (corrected_net.launches, corrected_net.audit_launches)
+    y, counts = audit_forward(spec, qp, x, region=region)
+    torch.cuda.synchronize()
+    if (corrected_net.launches, corrected_net.audit_launches) != (before[0], before[1] + 1):
+        fail(f"[{phase}] audit {label}: not one counting launch")
+    if region is not None:
+        return counts.cpu().numpy()
+    want_y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True)
+    want = dumps["overflow_18"].cpu().numpy()
+    got = counts.cpu().numpy()
+    split = [i for i, f in enumerate(split_layers(qp, "pe-exact")) if f]
+    print(f"[{phase}] sesr_corrected_audit {spec.name} {label} {tuple(x.shape)}, split {split}: "
+          f"counts {got.tolist()}, plain overflow_18 {want.tolist()}, array_equal "
+          f"{np.array_equal(got, want)}; output torch.equal {torch.equal(y, want_y)}", flush=True)
+    if not np.array_equal(got, want) or not torch.equal(y, want_y):
+        fail(f"[{phase}] the counting form differs from the plain interpreter on {spec.name} "
+             f"{label}")
+    return got
+
+
+@contextlib.contextmanager
+def audit_on_the_kernel(torch):
+    """Within: quant/audit.py's plain interpreter fails on a CUDA tensor, so
+    an audit on the card must take the counting kernel; every
+    ``audit_frame`` call of ``cli.serve`` and ``multihost.stream_frames``
+    is recorded as (x, halo_group, AuditResult) in the list it yields."""
+    from sesr_tpu_torch import cli
+    from sesr_tpu_torch.parallel import multihost
+    from sesr_tpu_torch.quant import audit
+    from sesr_tpu_torch.quant.integer import resolve_device
+
+    plain, real = audit.integer_forward, audit.audit_frame
+    made = []
+
+    def barred(spec, qp, x, *a, **k):
+        if resolve_device(x, k.get("device")).type == "cuda":
+            fail("quant/audit.py ran the plain interpreter on the card")
+        return plain(spec, qp, x, *a, **k)
+
+    def recorded(spec, qp, x, *a, **k):
+        res = real(spec, qp, x, *a, **k)
+        made.append((x, k.get("halo_group"), res))
+        return res
+
+    audit.integer_forward, cli.audit_frame, multihost.audit_frame = barred, recorded, recorded
+    try:
+        yield made
+    finally:
+        audit.integer_forward, cli.audit_frame, multihost.audit_frame = plain, real, real
+
+
+def check_audits(torch, spec, qp, audits, phase):
+    """Each recorded (x, halo_group, AuditResult) against the plain
+    interpreter on the card (the rank's block with its halo group): counts
+    array_equal with its overflow_18, the sound output torch.equal. Returns
+    the counts."""
+    from sesr_tpu_torch.quant.integer import integer_forward
+
+    held = []
+    for x, halo_group, res in audits:
+        with torch.inference_mode():
+            y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
+                                       halo_group=halo_group)
+        want = dumps["overflow_18"].cpu().numpy()
+        if not np.array_equal(res.ovf18, want) or not torch.equal(res.y_exact, y):
+            fail(f"[{phase}] an audit on the card differs from the plain interpreter: counts "
+                 f"{res.ovf18.tolist()} against {want.tolist()}, outputs equal "
+                 f"{torch.equal(res.y_exact, y)}")
+        held.append(res.ovf18.tolist())
+    return held
+
+
+def audit_entry(torch, dev, spec, qp, x, name, card, phase, launches):
+    """The ``kernels``-line entry of the counting form on x (batch 1, on the
+    card): its largest output difference from the plain interpreter's (its
+    counts must be the plain overflow_18), device ms (CUDA events, the card
+    led) beside the served PE-exact kernel's in the same turn, the plain
+    interpreter's ms with its counters, the bound of the PE-exact mode's
+    operations (the network's int8 MACs) against its bytes, and ptxas's
+    registers and spill stores of its instantiation."""
+    from sesr_tpu_torch.convert import kernel_constants, pe_groups
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.ops.corrected import audit_forward, split_layers
+    from sesr_tpu_torch.ops.kernels import corrected_net
+    from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
+    from sesr_tpu_torch.timing import median_ms
+
+    y, counts = audit_forward(spec, qp, x)
+    want_y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True)
+    if not torch.equal(counts, dumps["overflow_18"]):
+        fail(f"[{phase}] {name}: counts {counts.tolist()} against the plain "
+             f"{dumps['overflow_18'].tolist()}")
+    err = float((y - want_y).abs().max())
+    del want_y, dumps
+    split = split_layers(qp, "pe-exact")
+    kc = kernel_constants(spec, qp, "corrected", split)
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    tile = corrected_net.tile(spec, kc.pe_split, kc.pe, kc.general)
+    times = {}
+    for turn in ("audit", "served", "served", "audit"):
+        fn = (lambda: corrected_net.audit(spec, qp, x_q, split)) if turn == "audit" else \
+            (lambda: corrected_net(spec, qp, x_q, split=split))
+        times.setdefault(turn, []).append(median_ms(fn, dev, 20, warmup=3, lead_ms=1.0))
+    ms, served_ms = min(times["audit"]), min(times["served"])
+    plain_ms = median_ms(lambda: integer_forward(spec, qp, x, collect_dumps=True,
+                                                 corrected=True), dev, 3)
+    weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
+    n, h, w = x_q.shape[:3]
+    macs = weights * n * h * w
+    moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights + 8 * spec.num_convs
+    bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
+    key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}ELi{kc.width}"
+    regs, spill = _build.ptxas_report(_build.build("sesr_corrected").log,
+                                      "sesr_corrected_audit_kernel").get(key, (None, None))
+    print(f"[{phase}] sesr_corrected_audit {spec.name} {h}x{w}, {kc.pe} PEs: {ms:.4f} ms/frame "
+          f"device ({times['audit']}), the served PE-exact kernel {served_ms:.4f} "
+          f"({times['served']}), ratio {ms / served_ms:.4f}; tile {tile[0]}x{tile[1]}; "
+          f"<{key}> ptxas {regs} registers, {spill} B spill stores; bound "
+          f"{bnd[0] * 1e3:.3f} us ({bnd[1]}: {2 * macs:.4g} int8 ops, {moved} bytes), share "
+          f"{bnd[0] / ms:.4f}; plain interpreter with its counters {plain_ms:.3f} ms {card}",
+          flush=True)
+    n_launch, n_frames = launches
+    return dict(name=name, route="cuda", source=SOURCES["sesr_corrected_net"],
+                replaces=AUDIT_REPLACES, launches=n_launch,
+                launches_per_frame={"main path": n_launch / n_frames},
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None, tile=list(tile),
+                served_pe_exact_ms=served_ms, ptxas=[regs, spill],
+                work=f"{spec.name}, {h}x{w} frame, batch 1, the PE-exact mode with its "
+                     f"18-bit counters, {kc.pe} PEs")
+
+
 def tensor_count(kern, spec, split, n, h, w, tile, pe):
     """(tensor-core instructions, their MACs, the instruction's name) of one
     launch of ``kern`` at ``pe`` PEs, computed from its tile geometry."""
@@ -543,14 +709,16 @@ def net_sass_check(build):
     """The network kernels' tensor-core instructions, from ``cuobjdump -sass``
     of their libraries: the corrected kernel (sesr_corrected_kernel: the
     shipped instantiation and the general ones of 4 and 8 PE groups, at
-    hidden widths 16 and 32) on wgmma (IGMMA) and no mma.sync (IMMA); K1
+    hidden widths 16 and 32) and its counting form (sesr_corrected_audit_
+    kernel, the same six) on wgmma (IGMMA) and no mma.sync (IMMA); K1
     and K2 (sesr_net_kernel, three
     output widths, shipped and general, hidden widths 16 and 32) on
     mma.sync. Prints each kernel's
     counts; fails otherwise."""
-    want = {"sesr_corrected": ("sesr_corrected_kernel", "IGMMA", "IMMA", 6),
-            "sesr_net": ("sesr_net_kernel", "IMMA", "IGMMA", 24)}
-    for name, (family, has, lacks, instances) in want.items():
+    want = (("sesr_corrected", "sesr_corrected_kernel", "IGMMA", "IMMA", 6),
+            ("sesr_corrected", "sesr_corrected_audit_kernel", "IGMMA", "IMMA", 6),
+            ("sesr_net", "sesr_net_kernel", "IMMA", "IGMMA", 24))
+    for name, family, has, lacks, instances in want:
         seen = 0
         for fn, c in sorted(sass_counts(build.library_path(name)).items()):
             if family not in fn:
@@ -1348,50 +1516,71 @@ def toolchain_phase(torch, dev, card):
 
     # 8d. infer --audit 1 on nr at 1080x1920 (launch counters at 0 around
     # each stream): four synthetic frames, then the adversarial frame and
-    # one synthetic frame
+    # one synthetic frame. On the card the audit is one launch of the
+    # corrected kernel's counting form: quant/audit.py's plain interpreter
+    # fails on a CUDA tensor while the streams run, and every audit the
+    # streams made is held against the plain interpreter after them
     qp = shipped["nr"]
-    reset_launch_counts()
-    clean = serve(nr_spec, qp, nr_data, device="cuda", audit_every=1, keep_outputs=True)
-    torch.cuda.synchronize()
-    kc_clean = corrected_net.launches
+    with audit_on_the_kernel(torch) as audits:
+        reset_launch_counts()
+        clean = serve(nr_spec, qp, nr_data, device="cuda", audit_every=1, keep_outputs=True)
+        torch.cuda.synchronize()
+        kc_clean, ka_clean = corrected_net.launches, corrected_net.audit_launches
     for (x, _), y in zip(nr_data, clean.outputs):
         want = integer_forward(nr_spec, qp, torch.from_numpy(x).to(dev), corrected=True,
                                fast_layers=tuple(qp.fast_cert_layers))[0]
         if not torch.equal(torch.from_numpy(y).to(dev), want[0]):
             fail("infer --audit 1 on nr: a served frame differs from the plain version")
+    held = check_audits(torch, nr_spec, qp, audits, 8)
     shadow = clean.audit_seconds / clean.audited
     print(f"[8] infer --audit 1 nr, 4 frames {BAYER_FRAME}: mode {clean.mode}, "
           f"{clean.audited} audited, violations {clean.violations}; sesr_corrected_net launches "
-          f"{kc_clean}; forward {clean.forward_seconds / clean.n * 1e3:.3f} ms/frame, audit "
-          f"shadow {shadow * 1e3:.3f} ms/frame {tag}", flush=True)
-    if clean.violations or clean.mode != "hybrid" or clean.audited != 4 or kc_clean != 4:
+          f"{kc_clean}, sesr_corrected_audit launches {ka_clean}; every audit's counts "
+          f"{held} array_equal with the plain interpreter's (cuda); forward "
+          f"{clean.forward_seconds / clean.n * 1e3:.3f} ms/frame, audit shadow "
+          f"{shadow * 1e3:.3f} ms/frame as the host issues it {tag}", flush=True)
+    if clean.violations or clean.mode != "hybrid" or clean.audited != 4 or kc_clean != 4 \
+            or ka_clean != 4 or len(audits) != 4:
         fail(f"infer --audit 1 on in-distribution nr frames: {clean.violations}, {clean.mode}, "
-             f"{clean.audited} audited, {kc_clean} launches")
+             f"{clean.audited} audited, {kc_clean} served and {ka_clean} counting launches")
     adv = adversarial_image(qp, hw=BAYER_FRAME)
     stream = [(adv, np.zeros_like(adv)), nr_data[0]]
-    reset_launch_counts()
-    res = serve(nr_spec, qp, stream, device="cuda", audit_every=1, keep_outputs=True)
-    torch.cuda.synchronize()
-    pe_split = split_layers(qp, "pe-exact")
-    kc_adv, kc_pe = corrected_net.launches, corrected_net.split_launches[pe_split]
+    with audit_on_the_kernel(torch) as audits:
+        reset_launch_counts()
+        res = serve(nr_spec, qp, stream, device="cuda", audit_every=1, keep_outputs=True)
+        torch.cuda.synchronize()
+        pe_split = split_layers(qp, "pe-exact")
+        kc_adv, kc_pe = corrected_net.launches, corrected_net.split_launches[pe_split]
+        ka_adv = corrected_net.audit_launches
+    held = check_audits(torch, nr_spec, qp, audits, 8)
     print(f"[8] infer --audit 1 nr, adversarial frame then a synthetic one: violations "
           f"{res.violations}, served {res.mode} from then on; "
-          f"sesr_corrected_net launches {kc_adv}, of them pe-exact (split {pe_split}) {kc_pe}",
+          f"sesr_corrected_net launches {kc_adv}, of them pe-exact (split {pe_split}) {kc_pe}; "
+          f"sesr_corrected_audit launches {ka_adv}, counts {held} (plain's on cuda)",
           flush=True)
     if not (res.violations == [(0, (0,))] and res.mode == "pe-exact" and kc_adv == 3
-            and kc_pe == 2):
+            and kc_pe == 2 and ka_adv == 1 and len(audits) == 1 and held[0][0] > 0):
         fail(f"the adversarial stream: violations {res.violations}, mode {res.mode}, "
-             f"{kc_adv} launches, {kc_pe} pe-exact")
+             f"{kc_adv} launches, {kc_pe} pe-exact, {ka_adv} counting, counts {held}")
     for (x, _), y in zip(stream, res.outputs):
         want = integer_forward(nr_spec, qp, x, corrected=True, device="cpu")[0][0]
         if not torch.equal(torch.from_numpy(y), want):
             fail("the degraded stream's output differs from the CPU interpreter's")
     print("[8] both frames of the degraded stream: torch.equal with integer_forward(corrected) "
           "on the CPU", flush=True)
+    # the audit's time on one frame: the counting launch against the served
+    # PE-exact kernel, and the plain interpreter with its counters
+    audit_e = audit_entry(torch, dev, nr_spec, qp, torch.from_numpy(adv).to(dev),
+                          "sesr_corrected_audit", tag, 8, (ka_clean + ka_adv, clean.n + res.n))
+    audit_e["launches_per_frame"] = {"infer_audit_nr": ka_clean / clean.n,
+                                     "infer_audit_nr_adversarial": ka_adv / res.n}
+    print(f"[8] the audit per nr frame: {audit_e['ms']:.4f} ms device, {shadow * 1e3:.3f} ms "
+          f"shadow as the host issues it (plain interpreter {audit_e['plain_ms']:.3f} ms) {tag}",
+          flush=True)
     launches["sesr_corrected_net"]["infer_audit_nr"] = (kc_clean, clean.n)
     launches["sesr_corrected_net"]["infer_audit_nr_adversarial"] = (kc_adv, res.n)
     torch.backends.cudnn.allow_tf32 = False
-    return launches
+    return launches, audit_e
 
 
 def expect_launches(what, mode, k2, kc, n):
@@ -2100,28 +2289,41 @@ def sharding_phase(torch, dev, card):
             print(f"[11] a CUDA tensor on a gloo group raises: {e}", flush=True)
 
         # 11d. stream_frames at world size 1: five nr frames, the adversarial
-        # frame third, audited every batch
+        # frame third, audited every batch: each audit one counting launch
+        # over the rank's window (its block the count region), the plain
+        # interpreter barred from quant/audit.py on the card while it runs,
+        # and each audit's counts and output the plain sharded audit's
         spec, qp = arts["nr"]
         adv = adversarial_image(qp, hw=BAYER_FRAME).astype(np.float32)
         stream = [d[0] for d in nr_data[:2]] + [adv] + [d[0] for d in nr_data[2:]]
         log = []
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, \
+                audit_on_the_kernel(torch) as audits:
             warnings.simplefilter("always", OODSaturationWarning)
             ts = time.perf_counter()
             outs = counted(lambda: [b.y for b in mh.stream_frames(
                 spec, qp, mh3, stream, lowering="deployment", audit_every=1, audit_log=log)],
                 (0, 6), "stream_frames nr audited", "stream_frames_nr_audited", len(stream))
             ts = time.perf_counter() - ts
+        n_audit = corrected_net.audit_launches
         by_split = {m: corrected_net.split_launches[split_layers(qp, m)]
                     for m in ("hybrid", "pe-exact")}
         summary = [(i, m, None if r is None else r.ok) for i, m, r in log]
+        held = check_audits(torch, spec, qp, audits, 11)
         print(f"[11] stream_frames nr, 5 frames {BAYER_FRAME}, adversarial third, audit_every=1: "
-              f"log {summary}; sesr_corrected_net launches by mode {by_split}; "
-              f"{len(caught)} OODSaturationWarning; {ts:.3f} s {tag}", flush=True)
+              f"log {summary}; sesr_corrected_net launches by mode {by_split}, "
+              f"sesr_corrected_audit launches {n_audit} (one a window, the rank's block its "
+              f"count region), each audit's counts {held} array_equal with the plain sharded "
+              f"audit's (cuda); {len(caught)} OODSaturationWarning; {ts:.3f} s {tag}",
+              flush=True)
         if summary != [(0, "hybrid", True), (1, "hybrid", True), (2, "hybrid", False),
                        (3, "pe-exact", None), (4, "pe-exact", None)] \
-                or by_split != {"hybrid": 3, "pe-exact": 3} or len(caught) != 1:
-            fail("[11] the audited stream did not degrade to pe-exact at the adversarial frame")
+                or by_split != {"hybrid": 3, "pe-exact": 3} or len(caught) != 1 \
+                or n_audit != 3 or len(audits) != 3 or not held[2][0] \
+                or any(a[1] is None for a in audits):
+            fail("[11] the audited stream did not degrade to pe-exact at the adversarial frame "
+                 "through three windowed counting launches")
+        launches["sesr_corrected_audit"] = {"stream_frames_nr_audited": (n_audit, len(stream))}
         for x, y in zip(stream, outs):
             equal(y, integer_forward(spec, qp, torch.from_numpy(x).to(dev), corrected=True)[0],
                   "stream_frames against the corrected interpreter")
@@ -2576,7 +2778,7 @@ def family_phase(torch, dev, card):
     again at the default tile in ``cupti_process``, which must give the
     plan) and ptxas's registers and spills of the instantiation. Returns the
     kernels-line entries."""
-    from sesr_tpu_torch.config import HardwareConfig, SESRSpec
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
     from sesr_tpu_torch.convert import kernel_constants, pe_groups
     from sesr_tpu_torch.deploy import select_forward
     from sesr_tpu_torch.models.sesr import init_params
@@ -2592,6 +2794,7 @@ def family_phase(torch, dev, card):
     from sesr_tpu_torch.quant.certify import certify_fast
     from sesr_tpu_torch.quant.integer import (integer_forward, integer_forward_int8,
                                               quantize_input)
+    from sesr_tpu_torch.quant.params import QuantParams
     from sesr_tpu_torch.timing import median_ms
 
     tag = f"({card})"
@@ -2722,6 +2925,26 @@ def family_phase(torch, dev, card):
         del want_y
     del outs
 
+    # the runtime audit on the saturated XL at 4 and 8 PEs (its convs 3 and
+    # 9 fire the 18-bit clamp): one counting launch a call, the counters at
+    # 0 before it, counts array_equal with the plain interpreter's
+    # overflow_18 on the card and the output torch.equal
+    xl_spec, xlu_qp, _ = nets["xlu"]
+    audited = {"xlu": xlu_qp,
+               "xlu_pe8": dataclasses.replace(xlu_qp, hw=dataclasses.replace(xlu_qp.hw, pe=8))}
+    audit_entries = []
+    for key, aqp in audited.items():
+        reset_launch_counts()
+        got = audit_check(torch, xl_spec, aqp, x1, f"{aqp.hw.pe} PEs, batch 1", 14)
+        if corrected_net.audit_launches != 1 or any(counts().values()):
+            fail(f"[14] the audit of {key} launched {counts()} and "
+                 f"{corrected_net.audit_launches} counting launches, want one counting launch")
+        if not all(got[i] for i in SATURATED):
+            fail(f"[14] the audit of {key}: convs {SATURATED} did not fire ({got.tolist()})")
+        audit_entries.append(audit_entry(
+            torch, dev, xl_spec, aqp, x1, f"sesr_corrected_audit[{xl_spec.name}, {aqp.hw.pe} PEs]",
+            tag, 14, (1, 1)))
+
     # timing, each kernel batch 1 at its default tile and K1 / K2 over the sweep
     reports = {lib: _build.ptxas_report(_build.build(lib).log, fam) for lib, fam in (
         ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
@@ -2847,6 +3070,24 @@ def family_phase(torch, dev, card):
     # tile, read in a process of its own (this process's trace, after the
     # earlier phases' traces, misses them): the shared memory must be the
     # plan's
+    # the counting form at its default tile, on nr's shipped artifact (phases
+    # 8 and 11) and the XL above: the served kernel's plan
+    nr_spec = spec_for_task("nr")
+    audited["nr"] = QuantParams.load(os.path.join(REPO, "artifacts", "qparams_nr.npz"))
+    for key, aqp in audited.items():
+        aspec = nr_spec if key == "nr" else xl_spec
+        split = split_layers(aqp, "pe-exact")
+        kc = kernel_constants(aspec, aqp, "corrected", split)
+        tile0 = corrected_net.tile(aspec, kc.pe_split, kc.pe, kc.general)
+        qp_path = os.path.join(cupti_dir, f"{key}_audit.npz")
+        aqp.save(qp_path)
+        cupti_jobs.append(dict(label=f"sesr_corrected_audit {aspec.name} {aqp.hw.pe} PEs",
+                               spec=dataclasses.asdict(aspec), qparams=qp_path,
+                               symbol=corrected_net.symbol, mode="pe-exact", audit=True,
+                               tile=list(tile0),
+                               plan=corrected_net.smem_bytes(aspec, tile0, kc.pe_split, kc.pe,
+                                                             kc.general)))
+    entries += audit_entries
     jobs_path = os.path.join(cupti_dir, "jobs.json")
     with open(jobs_path, "w") as f:
         json.dump(cupti_jobs, f)
@@ -2872,7 +3113,8 @@ def family_phase(torch, dev, card):
 def cupti_process(jobs_path):
     """``chip_smoke.py --cupti JOBS``: launch each kernel of JOBS (a JSON
     list of phase 14's default-tile launches: the network, its QuantParams
-    file, the wrapper, the corrected kernel's mode and the tile) once on a
+    file, the wrapper, the corrected kernel's mode, whether the launch is
+    its counting form, and the tile) once on a
     seeded 540x960 frame, and print {label: [registers, shared memory]} as
     CUPTI reports them (``launch_attrs``)."""
     import torch
@@ -2896,10 +3138,16 @@ def cupti_process(jobs_path):
         split = split_layers(qp, job["mode"]) if job["mode"] else None
         x_q = quantize_input(x, qp).to(torch.int8).contiguous()
         tile = tuple(job["tile"])
-        kern(spec, qp, x_q, tile=tile, split=split)            # loads the library
-        pattern = "sesr_corrected_kernel" if kern is corrected_net else "sesr_net_kernel"
-        attrs.update(launch_attrs(torch, {job["label"]: lambda: kern(spec, qp, x_q, tile=tile,
-                                                                      split=split)}, pattern))
+        if job.get("audit"):
+            def fn():
+                return corrected_net.audit(spec, qp, x_q, split, tile=tile)
+            pattern = "sesr_corrected_audit_kernel"
+        else:
+            def fn():
+                return kern(spec, qp, x_q, tile=tile, split=split)
+            pattern = "sesr_corrected_kernel" if kern is corrected_net else "sesr_net_kernel"
+        fn()                                                      # loads the library
+        attrs.update(launch_attrs(torch, {job["label"]: fn}, pattern))
     print(json.dumps(attrs), flush=True)
 
 
@@ -3006,6 +3254,7 @@ def main():
                                                   integer_forward,
                                                   integer_forward_int8,
                                                   quantize_input)
+        from sesr_tpu_torch.quant.certify import adversarial_image
         from sesr_tpu_torch.quant.params import QuantParams
         from sesr_tpu_torch.timing import median_ms
     except ImportError as e:
@@ -3159,6 +3408,24 @@ def main():
         check(corrected_net, nr_spec, nr_qp, xt, f"{shape} edge", "hybrid")
         check(corrected_net, nr_spec, nr_pe, xt, f"{shape} edge", "pe-exact")
         check(corrected_net, nrdm6_spec, nrdm6_qp, xt, f"{shape} edge", "hybrid")
+    # the counting form (sesr_corrected_audit) on the same edges, nr's
+    # adversarial frame first in each batch (layer 0 fires), the others
+    # random; then two W blocks as count regions of the (3, 40, 70) batch
+    adv_rows = {}
+    for shape in CORRECTED_EDGES:
+        xt = frames(shape, 3)
+        xt[0] = torch.from_numpy(adversarial_image(nr_qp, hw=shape[1:])[0]).to(dev)
+        adv_rows[shape] = xt
+        audit_check(torch, nr_spec, nr_qp, xt, f"{shape} edge", 3)
+    xt = adv_rows[CORRECTED_EDGES[-1]]
+    whole = audit_check(torch, nr_spec, nr_qp, xt, "(3, 40, 70) whole", 3)
+    halves = sum(audit_check(torch, nr_spec, nr_qp, xt, "block", 3, region=(0, 40, a, b))
+                 for a, b in ((0, 33), (33, 70)))
+    print(f"[3] sesr_corrected_audit nr (3, 40, 70), count regions of W columns 0-32 and "
+          f"33-69: counts {halves.tolist()} sum to the whole frame's: "
+          f"{np.array_equal(halves, whole)}", flush=True)
+    if not np.array_equal(halves, whole) or not whole[0]:
+        fail("the counting form's regions do not add up to the whole frame")
     xt = frames((1, 27, 45), 3)
     x = xt.cpu().numpy()
     for out_dtype in ("int8", "f32"):
@@ -3365,7 +3632,8 @@ def main():
 
     # 8. the artifact toolchain: its launches join the network kernels'
     t0 = time.perf_counter()
-    toolchain_launches = toolchain_phase(torch, dev, card)
+    toolchain_launches, audit_e = toolchain_phase(torch, dev, card)
+    entries.append(audit_e)
     print(f"[8] the toolchain phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     # 9. training, QAT, AdaRound and make_qparams: their launches join too
     t0 = time.perf_counter()

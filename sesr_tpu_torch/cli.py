@@ -34,7 +34,9 @@ weights the other commands read; ``eval-float`` scores the float network;
 AdaRound on request; ``certify`` stamps an artifact with the proofs of where
 the fast datapath is exact; ``infer`` serves a dataset through the
 certificate-selected deployment forward and scores it, with ``--audit N``
-shadow-running the PE-exact interpreter on every Nth dispatch; ``sim`` runs
+shadow-running the PE-exact datapath with its 18-bit event counters on
+every Nth dispatch (on the card one launch of the corrected kernel's
+counting form); ``sim`` runs
 the reference-exact simulation, or with ``--corrected`` the corrected
 datapath; ``export`` writes the simulation's RTL hex test vectors (the
 input is ``--fixture``, else the reference's own 80x960 sim input, which
@@ -142,7 +144,8 @@ def serve(spec: SESRSpec, qp: QuantParams, dataset, batch: int = 1,
     float32 outputs are kept in the result.
 
     ``audit_every`` = N > 0: every Nth dispatch also runs ``audit_frame``
-    (the PE-exact interpreter with its counters) where the serving mode
+    (the PE-exact datapath with its counters: on the card one launch of
+    the corrected kernel's counting form) where the serving mode
     trusts a layer on empirical evidence. When the audit fails, the
     dispatch is served again, and the rest of the stream served, through
     the corrected PE-exact forward (sound for every input)."""
@@ -710,8 +713,9 @@ def main(argv=None):
     p.add_argument("--save-dir", default=None,
                    help="write the outputs here as out_NNNN.png (8-bit)")
     p.add_argument("--audit", type=int, default=0, metavar="N",
-                   help="every Nth dispatch shadow-runs the PE-exact interpreter "
-                        "with its overflow counters; an 18-bit event on an "
+                   help="every Nth dispatch shadow-runs the PE-exact datapath "
+                        "with its overflow counters (on the card one launch of the "
+                        "corrected kernel's counting form); an 18-bit event on an "
                         "empirically stamped layer serves the rest of the stream "
                         "PE-exact (0 = off)")
     p.set_defaults(fn=cmd_infer)

@@ -48,7 +48,7 @@ VARIANTS = {
     "base": [],
     "warpgroups_3": [("constexpr int kWarpgroups = 4;", "constexpr int kWarpgroups = 3;")],
     "warpgroups_5": [("constexpr int kWarpgroups = 4;", "constexpr int kWarpgroups = 5;")],
-    "no_epilogue": [("    f.epilogue(d, mt, carry);\n", "")],
+    "no_epilogue": [("    f.epilogue(d, mt, carry, n);\n", "")],
     "no_mma": [("      wgmma<NC>(d, a_hi", "      if constexpr (false) wgmma<NC>(d, a_hi")],
 }
 FRAME = (1080, 1920)

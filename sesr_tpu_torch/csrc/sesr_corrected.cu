@@ -22,6 +22,16 @@
 // general one (<4, true, C> up to four PEs, <8, true, C> past them), which
 // clamps every sum to pe_add_bits.
 //
+// Its counting form, sesr_corrected_audit (sesr_corrected_audit_kernel, an
+// instantiation of the same body with COUNT set, at each <G, GEN, C>), is
+// the runtime audit's shadow run: the PE-exact mode's output, and per split
+// layer the PE partials that the 18-bit clamp changed (the plain version's
+// overflow_18; a layer convert.py leaves unsplit cannot fire the clamp).
+// Each tile counts the outputs of its own core, inside the image and a
+// count region (count_lo, count_hi), since it recomputes a ring of halo on
+// every layer; a warp sums its counts and adds them with one 64-bit atomic
+// a layer. The served kernel has no branch of it.
+//
 // What bounds it on this card: operations. nr needs 9,312 int8 MACs per
 // pixel against 6 bytes of device traffic, far above the H100's ratio of
 // int8 tensor-core rate to memory rate. The design:
@@ -183,6 +193,13 @@ __host__ __device__ __forceinline__ int col_chan(int n, int last) { return last 
 // `warp` (of the warpgroup) holds C[acc_row][acc_col].
 __host__ __device__ __forceinline__ int acc_row(int warp, int lane, int i) { return 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1); }
 __host__ __device__ __forceinline__ int acc_col(int j, int lane, int i) { return 8 * j + 2 * (lane & 3) + (i & 1); }
+
+// The counting form's window [count_lo, count_hi) along one axis of a
+// layer's output extent, which starts r before the tile's core [o0, o0 + t):
+// the core's outputs inside the image [0, E) and the count region [g0, g1).
+// Every output lies in one tile's core, so the tiles count each once.
+__device__ __forceinline__ int count_lo(int o0, int r, int g0) { return max(o0, g0) - o0 + r; }
+__device__ __forceinline__ int count_hi(int o0, int t, int r, int E, int g1) { return min(min(o0 + t, E), g1) - o0 + r; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -366,6 +383,10 @@ struct Net {
   int* scratch;        // kScratch bytes that the epilogue's stores not made go to
   int sc_w, sc_h;      // its extent: the last conv's input extent
   int8_t* out;         // (n, H, W, OC) int8
+  // the counting form: per layer, the PE partials its 18-bit clamp
+  // changed, over the count region [cy0, cy1) x [cx0, cx1) in image pixels
+  unsigned long long* counts;
+  int cy0, cy1, cx0, cx1;
 };
 
 // One conv layer.
@@ -387,8 +408,11 @@ struct Layer {
 // are inlined, so the accumulators stay in registers; past four groups, and
 // at width 32, the PE zero terms are read from shared memory in the
 // epilogue; at width 32 a hidden layer's A descriptors are formed in issue,
-// and a split layer's adder bounds in the epilogue.
-template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C>
+// and a split layer's adder bounds in the epilogue. COUNT (a split layer of
+// the counting form): each thread counts the partials the 18-bit clamp
+// changes at the outputs of its count window.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
+          bool COUNT = false>
 struct Form {
   static constexpr int WIDE = KIND == FIRST;
   static constexpr int J = OCP / 8;                              // 8-column tiles of a group
@@ -420,6 +444,7 @@ struct Form {
   int zc0;               // else: PE 0's zero terms, this thread's first word
   const int* prm;
   uint32_t a_lo[A_REGS ? S : 1], b_lo;
+  int cy0, cy1, cx0, cx1;  // COUNT: the count window in the output extent
 
   __device__ __forceinline__ Form(const Layer& ly, const Net& net) {
     prm = net.prm;
@@ -495,6 +520,12 @@ struct Form {
                 ((static_cast<uint32_t>(a_lbo(o0, o1, WIDE, C, ly.plane)) >> 4) << 16);
     }
     b_lo = ((smem_u32(ly.w) & 0x3FFFF) >> 4) | ((kLboB >> 4) << 16);
+    if constexpr (COUNT) {
+      cy0 = count_lo(net.t.oy0, r_out, net.cy0);
+      cy1 = count_hi(net.t.oy0, net.t.th, r_out, H, net.cy1);
+      cx0 = count_lo(net.t.ox0, r_out, net.cx0);
+      cx1 = count_hi(net.t.ox0, net.t.tw, r_out, W, net.cx1);
+    }
   }
 
   // m-tile mt's wgmmas over chunk hc of the columns, one commit group
@@ -520,23 +551,43 @@ struct Form {
     else return p < pe ? -prm[zc0 + col_chan(acc_col(v >> 1, 0, v & 1), KIND == LAST) + p * C] : 0;
   }
 
-  // the clamped partials of chunk hc's PE groups for row h, value v
-  __device__ __forceinline__ int partials(const uint32_t (&d)[R], int hc, int h, int v) const {
+  // COUNT: whether row half h of m-tile mt is an output of the count window
+  __device__ __forceinline__ bool owned(int mt, int h) const {
+    const int r = mt * kRows + acc_row(warp, lane, 2 * h);
+    const int y = static_cast<int>(__umulhi(static_cast<unsigned>(r), iw_magic));
+    const int x = r - y * iw;
+    return y >= cy0 && y < cy1 && x >= cx0 && x < cx1;
+  }
+
+  // the clamped partials of chunk hc's PE groups for row h, value v; COUNT:
+  // where `own`, n counts those of the real PEs and channels the clamp changed
+  __device__ __forceinline__ int partials(const uint32_t (&d)[R], int hc, int h, int v, bool own,
+                                          int& n) const {
     int sum = 0;
 #pragma unroll
-    for (int p = 0; p < GC; ++p)
-      sum += min(max(static_cast<int>(d[4 * (p * J + (v >> 1)) + 2 * h + (v & 1)]) +
-                         start_of(hc * GC + p, v), -acc_hi - 1), acc_hi);
+    for (int p = 0; p < GC; ++p) {
+      const int t = static_cast<int>(d[4 * (p * J + (v >> 1)) + 2 * h + (v & 1)]) +
+                    start_of(hc * GC + p, v);
+      const int c = min(max(t, -acc_hi - 1), acc_hi);
+      if constexpr (COUNT)
+        n += own && hc * GC + p < pe && col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST) < oc &&
+             t != c;
+      sum += c;
+    }
     return sum;
   }
 
   // a split layer's chunks before the last: their clamped partials, per row
   // half h and value v, into carry
-  __device__ __forceinline__ void fold(const uint32_t (&d)[R], int hc, int (&carry)[2][V]) const {
+  __device__ __forceinline__ void fold(const uint32_t (&d)[R], int mt, int hc,
+                                       int (&carry)[2][V], int& n) const {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) {
+      const bool own = COUNT && owned(mt, h);
 #pragma unroll
-      for (int v = 0; v < V; ++v) carry[h][v] = (hc ? carry[h][v] : 0) + partials(d, hc, h, v);
+      for (int v = 0; v < V; ++v)
+        carry[h][v] = (hc ? carry[h][v] : 0) + partials(d, hc, h, v, own, n);
+    }
   }
 
   // m-tile mt's rows of this thread, from the last chunk's accumulators and
@@ -545,7 +596,7 @@ struct Form {
   // that depends on the row, which ptxas schedules better: a store that is
   // not made goes to the block's scratch word.
   __device__ __forceinline__ void epilogue(const uint32_t (&d)[R], int mt,
-                                           const int (&carry)[2][V]) const {
+                                           const int (&carry)[2][V], int& n) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = mt * kRows + acc_row(warp, lane, 2 * h);
@@ -554,6 +605,7 @@ struct Form {
       const bool kept = y < oh && x < ow;          // else past the extent, or a wide row's tail
       const int gy = oy0 + y, gx = ox0 + x;
       const bool inside = kept && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const bool own = COUNT && y >= cy0 && y < cy1 && x >= cx0 && x < cx1;
       // (y_int * m) * 2^-n
       float hq[V];
 #pragma unroll
@@ -561,7 +613,7 @@ struct Form {
         const int i = 2 * h + (v & 1);
         int yi;
         if constexpr (SPLIT) {
-          yi = base[v] + partials(d, NH - 1, h, v);
+          yi = base[v] + partials(d, NH - 1, h, v, own, n);
           if constexpr (NH > 1) yi += carry[h][v];
           if constexpr (CLAMP && BOUNDS_REGS) yi = min(max(yi, lo[v]), hi[v]);
           if constexpr (CLAMP && !BOUNDS_REGS)
@@ -658,27 +710,36 @@ struct Form {
 // thread beside the epilogue's, and ptxas serializes the wgmmas.) Inlined
 // into the kernel: ptxas serializes every wgmma of a pipeline that crosses a
 // function call.
-template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C>
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
+          bool COUNT = false>
 __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT>;
   const F f(ly, net);
   const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
   // the warpgroup's index, uniform to the compiler as well
   const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
   uint32_t d[F::R];
   int carry[2][F::V];
+  int n = 0;                                       // COUNT: this thread's counted partials
   for (int mt = wgi; mt < nmt; mt += kWarpgroups) {
 #pragma unroll
     for (int hc = 0; hc < F::NH - 1; ++hc) {
       f.issue(d, mt, hc);
       wgmma_wait<0>();
       fence_acc(d);
-      f.fold(d, hc, carry);
+      f.fold(d, mt, hc, carry, n);
     }
     f.issue(d, mt, F::NH - 1);
     wgmma_wait<0>();
     fence_acc(d);
-    f.epilogue(d, mt, carry);
+    f.epilogue(d, mt, carry, n);
+  }
+  if constexpr (COUNT) {
+    // the warp's counts summed, then one 64-bit atomic a warp and layer
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+    if ((threadIdx.x & 31) == 0 && n != 0)
+      atomicAdd(net.counts + ly.layer, static_cast<unsigned long long>(n));
   }
 }
 
@@ -688,19 +749,21 @@ __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
 // is set; OCP columns a group (8 for a last layer of <= 8 channels, else
 // 16; C for a hidden layer). The general instantiation (GEN) clamps every
 // layer's sum to pe_add_bits, the identity where that clamp cannot fire.
-template <Kind KIND, int K, int OCP, int G, bool GEN, int C>
+// COUNT: the counting form of the split layers (a one-pass layer has no
+// 18-bit clamp to count).
+template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
   if ((prm[P_SPLIT] >> ly.layer) & 1) {
     if constexpr (KIND == FIRST) {
       switch (GEN ? min(in_ch, net.pe) : in_ch) {
-        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C>(ly, net); return;
-        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C>(ly, net); return;
-        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C>(ly, net); return;
-        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C>(ly, net); return;
+        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT>(ly, net); return;
       }
     } else {
-      conv_layer<KIND, K, OCP, G, true, GEN, GEN, C>(ly, net);
+      conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT>(ly, net);
       return;
     }
   }
@@ -722,15 +785,19 @@ __device__ __forceinline__ void stage_b(uint8_t* dst, const int* __restrict__ sr
 
 __device__ __forceinline__ void b_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-// G: PE groups of a split hidden layer (pe_groups); GEN: the general
-// instantiation (any PE count and widths, convert.py KernelConstants.general);
-// C: the hidden width, 16 or 32. The shipped artifacts run <4, false, 16>.
-template <int G, bool GEN, int C>
-__global__ void __launch_bounds__(kThreads, 1)
-sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
-                      const int* __restrict__ weights, const int* __restrict__ params,
-                      int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
-                      int split, int pe) {
+// The whole network over every tile, the body of both kernels. G: PE groups
+// of a split hidden layer (pe_groups); GEN: the general instantiation (any
+// PE count and widths, convert.py KernelConstants.general); C: the hidden
+// width, 16 or 32; COUNT: the counting form, which adds to counts[i] the PE
+// partials the 18-bit clamp changed on split layer i at the outputs in the
+// count region [cy0, cy1) x [cx0, cx1).
+template <int G, bool GEN, int C, bool COUNT>
+__device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                          const int* __restrict__ weights,
+                                          const int* __restrict__ params, int n, int H, int W,
+                                          int L, int in_ch, int out_ch, int th, int tw, int split,
+                                          int pe, unsigned long long* counts, int cy0, int cy1,
+                                          int cx0, int cx1) {
   extern __shared__ __align__(128) uint8_t smem[];
   const Plan pl = smem_plan(split, pe, L, in_ch, out_ch, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem);
@@ -774,6 +841,11 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   net.sc_w = tw + 2 * r_sc;
   net.sc_h = th + 2 * r_sc;
   net.out = out;
+  net.counts = counts;
+  net.cy0 = cy0;
+  net.cy1 = cy1;
+  net.cx0 = cx0;
+  net.cx1 = cx1;
 
   // a persistent grid: block b takes tiles b, b + gridDim.x, ...
   for (int tile = blockIdx.x; tile < n * per_frame; tile += gridDim.x) {
@@ -836,13 +908,13 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
       ly.next_plane = in_plane(i + 1, L, th, tw, C) / 4;
       ly.layer = i;
       if (i == 0)
-        conv_form<FIRST, 5, C, G, GEN, C>(ly, net, in_ch);
+        conv_form<FIRST, 5, C, G, GEN, C, COUNT>(ly, net, in_ch);
       else if (i < L - 1)
-        conv_form<MID, 3, C, G, GEN, C>(ly, net, in_ch);
+        conv_form<MID, 3, C, G, GEN, C, COUNT>(ly, net, in_ch);
       else if (out_ch <= 8)
-        conv_form<LAST, 5, 8, G, GEN, C>(ly, net, in_ch);
+        conv_form<LAST, 5, 8, G, GEN, C, COUNT>(ly, net, in_ch);
       else
-        conv_form<LAST, 5, 16, G, GEN, C>(ly, net, in_ch);
+        conv_form<LAST, 5, 16, G, GEN, C, COUNT>(ly, net, in_ch);
       if constexpr (C == 32) b_wait();
       fence_proxy_async();
       __syncthreads();
@@ -860,6 +932,30 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   }
 }
 
+// The served kernel; the shipped artifacts run <4, false, 16>.
+template <int G, bool GEN, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                      const int* __restrict__ weights, const int* __restrict__ params,
+                      int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
+                      int split, int pe) {
+  run_tiles<G, GEN, C, false>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw, split,
+                              pe, nullptr, 0, 0, 0, 0);
+}
+
+// The counting form (the runtime audit's shadow run): the served kernel's
+// output, and its 18-bit events counted per layer.
+template <int G, bool GEN, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_audit_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                            const int* __restrict__ weights, const int* __restrict__ params,
+                            int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
+                            int split, int pe, unsigned long long* counts, int cy0, int cy1,
+                            int cx0, int cx1) {
+  run_tiles<G, GEN, C, true>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw, split,
+                             pe, counts, cy0, cy1, cx0, cx1);
+}
+
 bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int width) {
   return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
          (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
@@ -868,26 +964,40 @@ bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int 
          smem_plan(split, pe, L, in_ch, out_ch, th, tw, width).bytes <= kSmemLimit;
 }
 
+// The count region and counters of a launch of the counting form; counts
+// null: the served kernel.
+struct Count {
+  unsigned long long* counts;
+  int y0, y1, x0, x1;
+};
+
 template <int G, bool GEN, int C>
 cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                    int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
-                   cudaStream_t stream) {
+                   const Count& cnt, cudaStream_t stream) {
   const int bytes = smem_plan(split, pe, L, in_ch, out_ch, th, tw, C).bytes;
   auto* kernel = sesr_corrected_kernel<G, GEN, C>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
+  auto* audit = sesr_corrected_audit_kernel<G, GEN, C>;
+  const void* fn = cnt.counts ? reinterpret_cast<const void*>(audit)
+                              : reinterpret_cast<const void*>(kernel);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = static_cast<long long>(n) * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
   const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
-  kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw,
-                                            split, pe);
+  if (cnt.counts)
+    audit<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw,
+                                             split, pe, cnt.counts, cnt.y0, cnt.y1, cnt.x0,
+                                             cnt.x1);
+  else
+    kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw,
+                                              split, pe);
   return cudaGetLastError();
 }
 
@@ -895,12 +1005,33 @@ cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, i
 template <int C>
 cudaError_t launch_width(const int8_t* x, int8_t* out, const int* w, const int* prm, int n,
                          int h, int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
-                         int pe, int general, cudaStream_t s) {
+                         int pe, int general, const Count& cnt, cudaStream_t s) {
   if (!general)
-    return launch<4, false, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+    return launch<4, false, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
+                               s);
   if (pe_groups(pe) == 4)
-    return launch<4, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
-  return launch<8, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+    return launch<4, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
+                              s);
+  return launch<8, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+}
+
+int launch_net(const void* x, void* out, const void* weights, const void* params, int n, int h,
+               int w, int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
+               int pe, int general, int width, const Count& cnt, void* stream) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) ||
+      (!general && pe != 4) || (reinterpret_cast<uintptr_t>(weights) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* xi = static_cast<const int8_t*>(x);
+  int8_t* oi = static_cast<int8_t*>(out);
+  const int* wi = static_cast<const int*>(weights);
+  const int* pi = static_cast<const int*>(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      width == 16 ? launch_width<16>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h,
+                                     tile_w, split, pe, general, cnt, s)
+                  : launch_width<kMaxC>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch,
+                                        tile_h, tile_w, split, pe, general, cnt, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -918,20 +1049,25 @@ int sesr_corrected_net(const void* x, void* out, const void* weights, const void
                        int n, int h, int w, int num_layers, int in_ch, int out_ch,
                        int tile_h, int tile_w, int split, int pe, int general, int width,
                        void* stream) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) ||
-      (!general && pe != 4) || (reinterpret_cast<uintptr_t>(weights) & 15))
+  return launch_net(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
+                    split, pe, general, width, Count{nullptr, 0, 0, 0, 0}, stream);
+}
+
+// The counting form of sesr_corrected_net (the same arguments, then the
+// counters and the count region): the same output, and counts[i] (a device
+// array of num_layers unsigned 64-bit words, 8-byte aligned) increased by
+// the PE partials that the 18-bit clamp changed on split layer i at the
+// outputs (y, x) with y0 <= y < y1 and x0 <= x < x1 of every frame; one
+// 64-bit atomic a warp and split layer of each tile.
+int sesr_corrected_audit(const void* x, void* out, const void* weights, const void* params,
+                         int n, int h, int w, int num_layers, int in_ch, int out_ch, int tile_h,
+                         int tile_w, int split, int pe, int general, int width, void* counts,
+                         int y0, int y1, int x0, int x1, void* stream) {
+  if (counts == nullptr || (reinterpret_cast<uintptr_t>(counts) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int8_t* xi = static_cast<const int8_t*>(x);
-  int8_t* oi = static_cast<int8_t*>(out);
-  const int* wi = static_cast<const int*>(weights);
-  const int* pi = static_cast<const int*>(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      width == 16 ? launch_width<16>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch, tile_h,
-                                     tile_w, split, pe, general, s)
-                  : launch_width<kMaxC>(xi, oi, wi, pi, n, h, w, num_layers, in_ch, out_ch,
-                                        tile_h, tile_w, split, pe, general, s);
-  return static_cast<int>(err);
+  return launch_net(x, out, weights, params, n, h, w, num_layers, in_ch, out_ch, tile_h, tile_w,
+                    split, pe, general, width,
+                    Count{static_cast<unsigned long long*>(counts), y0, y1, x0, x1}, stream);
 }
 
 // Shared memory of one block of sesr_corrected_net in bytes, or 0 where it

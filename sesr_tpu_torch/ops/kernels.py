@@ -7,7 +7,9 @@ launch counter.
                    build_pallas_packed_forward
 ``corrected_net``  csrc/sesr_corrected.cu, replaces sesr_tpu/ops/packed.py
                    _packed_exact_impl(corrected=True) (XLA, no Pallas kernel:
-                   packed_hybrid_forward and packed_exact_forward(corrected=True))
+                   packed_hybrid_forward and packed_exact_forward(corrected=True));
+                   ``corrected_net.audit`` launches its counting form (the
+                   runtime audit's shadow run, counted in ``audit_launches``)
 
 A wrapper takes the quantized int8 input on the card and returns the int8
 output of the last conv (before the pixel shuffle); ``ops/pe_exact.py``,
@@ -215,6 +217,10 @@ class NetKernel:
         return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, int(kc.general),
                 kc.width)
 
+    def reset(self) -> None:
+        self.launches = 0
+        self.split_launches.clear()
+
     def __call__(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor,
                  tile=None, split=None) -> torch.Tensor:
         """x_q: int8 (N, H, W, C_in) contiguous on a CUDA device. Returns the
@@ -223,6 +229,16 @@ class NetKernel:
         split, pe, general)``). ``split`` (the corrected kernel only, and
         required there): one flag per layer, set where the layer runs one
         pass per PE (ops/corrected.py ``split_layers``)."""
+        out, kc = self._launch(self.symbol, spec, qp, x_q, tile, split, ())
+        self.launches += 1
+        self.split_launches[None if split is None else tuple(kc.pe_split)] += 1
+        return out
+
+    def _launch(self, symbol: str, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, tile,
+                split, more: tuple):
+        """One launch of the library's entry point ``symbol`` with the
+        arguments of ``__call__`` and then ``more``: (int8 output,
+        KernelConstants). Counts nothing."""
         if x_q.device.type != "cuda":
             raise ValueError(f"{self.symbol} runs on a CUDA tensor, got {x_q.device}")
         if x_q.dtype != torch.int8 or x_q.dim() != 4 \
@@ -239,32 +255,59 @@ class NetKernel:
         out = torch.empty((n, h, w, kc.out_channels), dtype=torch.int8,
                           device=x_q.device)
         if out.numel() == 0:
-            return out
+            return out, kc
         lib = _build.load(self.library)
         with torch.cuda.device(x_q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = getattr(lib, self.symbol)(
+            err = getattr(lib, symbol)(
                 x_q.data_ptr(), out.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), n, h, w, kc.num_layers, kc.in_channels,
-                kc.out_channels, *tile, *self.extra_args(kc), stream)
+                kc.out_channels, *tile, *self.extra_args(kc), *more, stream)
         if err != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: "
+            raise RuntimeError(f"{symbol} launch failed: "
                                f"{_build.error_string(self.library, err)} ({err})")
-        self.launches += 1
-        self.split_launches[None if split is None else tuple(kc.pe_split)] += 1
-        return out
+        return out, kc
 
 
 class CorrectedKernel(NetKernel):
     """The corrected kernel: its tiles are CORRECTED_TILES, its shared
     memory ``corrected_smem_bytes`` (the same in every instantiation of a
-    width)."""
+    width, and in the counting form). ``audit`` launches the counting form
+    (``sesr_corrected_audit``), counted in ``audit_launches`` and not in
+    ``launches``."""
 
     tiles = CORRECTED_TILES
+    audit_symbol = "sesr_corrected_audit"
+
+    def __init__(self, symbol: str, datapath: str, library: str):
+        super().__init__(symbol, datapath, library)
+        self.audit_launches = 0
+
+    def reset(self) -> None:
+        super().reset()
+        self.audit_launches = 0
 
     def smem_bytes(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
         return corrected_smem_bytes(spec.num_convs, spec.in_channels, spec.conv_out_channels,
                                     tile, split, pe, kernel_width(spec.num_channels))
+
+    def audit(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, split,
+              region=None, tile=None) -> tuple:
+        """The counting form on x_q as ``__call__`` takes it: (the int8
+        output of ``__call__``, int64 counts (L,) on the card), counts[i]
+        the PE partials that the 18-bit clamp changed on layer i if
+        ``split`` flags it (0 elsewhere) at the outputs of ``region`` = (y0,
+        y1, x0, x1) in input pixels of every frame (default: the whole
+        frame). One launch."""
+        n, h, w = x_q.shape[:3]
+        y0, y1, x0, x1 = region or (0, h, 0, w)
+        if not (0 <= y0 <= y1 <= h and 0 <= x0 <= x1 <= w):
+            raise ValueError(f"{self.audit_symbol}: region {region} outside the {h}x{w} frame")
+        counts = torch.zeros(spec.num_convs, dtype=torch.int64, device=x_q.device)
+        out, _ = self._launch(self.audit_symbol, spec, qp, x_q, tile, split,
+                              (counts.data_ptr(), y0, y1, x0, x1))
+        self.audit_launches += 1
+        return out, counts
 
 
 pe_exact_net = NetKernel("sesr_pe_exact_net", "exact")
@@ -280,8 +323,7 @@ def kernel_of(datapath: str) -> NetKernel:
 
 def reset_launch_counts() -> None:
     for k in NET_KERNELS:
-        k.launches = 0
-        k.split_launches.clear()
+        k.reset()
 
 
 def run_net(kernel: NetKernel, spec: SESRSpec, qp: QuantParams,
@@ -293,7 +335,11 @@ def run_net(kernel: NetKernel, spec: SESRSpec, qp: QuantParams,
     dequantized float32 ("f32") or the raw int8 image ("int8"),
     pixel-shuffled."""
     x_q = x if quantized else quantize_input(x, qp).to(torch.int8)
-    y = kernel(spec, qp, x_q.contiguous(), split=split)
+    return output_of(kernel(spec, qp, x_q.contiguous(), split=split), spec, qp, out_dtype)
+
+
+def output_of(y: torch.Tensor, spec: SESRSpec, qp: QuantParams, out_dtype: str) -> torch.Tensor:
+    """A kernel's int8 output in the ``out_dtype`` contract, pixel-shuffled."""
     if out_dtype == "f32":
         y = dequantize_output(y, qp)
     if spec.has_pixel_shuffle:

@@ -34,6 +34,7 @@ import torch
 
 from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.deploy import select_forward
+from sesr_tpu_torch.ops.halo import halo_exchange
 from sesr_tpu_torch.ops.kernels import OUT_DTYPES
 from sesr_tpu_torch.quant.integer import as_input, dequantize_output, quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
@@ -70,16 +71,43 @@ def blocks(extent: int, n: int) -> list:
     return [(j * extent // n, (j + 1) * extent // n) for j in range(n)]
 
 
-def run_window(fwd, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, keep_h,
-               keep_w) -> torch.Tensor:
-    """``fwd`` on the int8 window ``x_q`` (N, h, w, C): its int8 output
-    image cropped to the block. ``keep_h`` / ``keep_w`` = (offset, length)
-    of the block inside the window in input pixels (the output's are r
-    times those, r the pixel shuffle's factor)."""
-    y = fwd(spec, qp, x_q, out_dtype="int8", quantized=True)
+def crop_block(y: torch.Tensor, spec: SESRSpec, keep_h, keep_w) -> torch.Tensor:
+    """A window's output image ``y`` cropped to the block. ``keep_h`` /
+    ``keep_w`` = (offset, length) of the block inside the window in input
+    pixels (the output's are r times those, r the pixel shuffle's factor)."""
     r = spec.scaling_factor
     (oh, lh), (ow, lw) = keep_h, keep_w
     return y[:, oh * r:(oh + lh) * r, ow * r:(ow + lw) * r]
+
+
+def run_window(fwd, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, keep_h,
+               keep_w) -> torch.Tensor:
+    """``fwd`` on the int8 window ``x_q`` (N, h, w, C): its int8 output
+    image cropped to the block (``crop_block``)."""
+    return crop_block(fwd(spec, qp, x_q, out_dtype="int8", quantized=True), spec, keep_h, keep_w)
+
+
+def rank_window(spec: SESRSpec, qp: QuantParams, x, h_group=None, w_group=None) -> tuple:
+    """This rank's window of a sharded frame: (the int8 window, keep_h,
+    keep_w). x is the rank's block; it is quantized, R =
+    ``spec.halo_width()`` rows along ``h_group`` and columns along
+    ``w_group`` are exchanged (the int8 input, once; each rank's block at
+    least R wide), and what an edge rank received from beyond the image is
+    dropped (``window``). keep_h / keep_w = (offset, length) of the block
+    inside the window."""
+    R = spec.halo_width()
+    x_q = quantize_input(as_input(x), qp).to(torch.int8)
+    keep = []
+    for dim, group in ((1, h_group), (2, w_group)):
+        ext = x_q.shape[dim]
+        if group is None or group.size() == 1:
+            keep.append((0, ext))
+            continue
+        a = group.rank() * ext
+        lo, hi = window(a, a + ext, group.size() * ext, R)
+        x_q = halo_exchange(x_q, R, group, dim).narrow(dim, lo - (a - R), hi - lo)
+        keep.append((a - lo, ext))
+    return x_q, keep[0], keep[1]
 
 
 def output_contract(y_q: torch.Tensor, qp: QuantParams, out_dtype: str) -> torch.Tensor:

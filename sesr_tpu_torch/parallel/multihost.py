@@ -161,8 +161,10 @@ def stream_frames(spec: SESRSpec, qp: QuantParams, mesh: DeviceMesh, frames,
     full batch by repeating its last frame.
 
     ``audit_every`` = N (deployment lowering): every Nth batch also runs
-    the PE-exact interpreter with its counters on each rank's block
-    (``quant/audit.py`` ``audit_frame``, sharded along "sp"). When any
+    the PE-exact datapath with its counters on each rank's block
+    (``quant/audit.py`` ``audit_frame``, sharded along "sp": on the card
+    one launch of the corrected kernel's counting form over the rank's
+    window, on the CPU the plain interpreter). When any
     rank's audit fails, every rank warns (OODSaturationWarning), serves
     the batch again and the rest of the stream through the pe-exact
     forward. ``audit_log``: (batch index, serving mode, this rank's

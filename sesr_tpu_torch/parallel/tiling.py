@@ -42,8 +42,9 @@ from sesr_tpu_torch.models.sesr import CollapsedParams, forward_float
 from sesr_tpu_torch.ops.conv import float_exact
 from sesr_tpu_torch.ops.fast import fast_forward
 from sesr_tpu_torch.ops.corrected import hybrid_forward
-from sesr_tpu_torch.ops.halo import check_backend, halo_exchange
-from sesr_tpu_torch.ops.slab import blocks, output_contract, run_window, window, windowed_forward
+from sesr_tpu_torch.ops.halo import check_backend
+from sesr_tpu_torch.ops.slab import (blocks, output_contract, rank_window, run_window,
+                                     windowed_forward)
 from sesr_tpu_torch.quant.calibrate import _calibration_forward_impl, _np, _prep_fq_weights, \
     observe_domains
 from sesr_tpu_torch.quant.integer import as_input, integer_forward, quantize_input
@@ -214,20 +215,10 @@ def window_forward(spec: SESRSpec, qp: QuantParams, x, fwd, out_dtype: str = "f3
     columns along ``w_group`` (the int8 input, once; each rank's block at
     least R wide), drop what an edge rank received from beyond the image,
     run ``fwd`` once on the window, keep the block and dequantize it
-    (``out_dtype`` "f32") or not ("int8")."""
-    R = spec.halo_width()
-    x_q = quantize_input(as_input(x), qp).to(torch.int8)
-    keep = []
-    for dim, group in ((1, h_group), (2, w_group)):
-        ext = x_q.shape[dim]
-        if group is None or group.size() == 1:
-            keep.append((0, ext))
-            continue
-        a = group.rank() * ext
-        lo, hi = window(a, a + ext, group.size() * ext, R)
-        x_q = halo_exchange(x_q, R, group, dim).narrow(dim, lo - (a - R), hi - lo)
-        keep.append((a - lo, ext))
-    return output_contract(run_window(fwd, spec, qp, x_q, keep[0], keep[1]), qp, out_dtype)
+    (``out_dtype`` "f32") or not ("int8"). The window is ``ops/slab.py``
+    ``rank_window``'s."""
+    x_q, keep_h, keep_w = rank_window(spec, qp, x, h_group, w_group)
+    return output_contract(run_window(fwd, spec, qp, x_q, keep_h, keep_w), qp, out_dtype)
 
 
 def virtual_rank_forward(spec: SESRSpec, qp: QuantParams, x, grid=(1, 4), fwd=None,

@@ -2,7 +2,13 @@
 --audit`` (sesr_tpu_torch/cli.py ``serve``) against sesr_tpu.quant.audit
 and sesr_tpu's audited stream on the same frames: the trusted layers by
 mode, the adversarial and the bright nr frames, and a stream that
-degrades to the PE-exact forward."""
+degrades to the PE-exact forward. Then the route the audit takes on the
+card, where the corrected kernel's counting form runs it
+(``ops/corrected.py`` ``audit_forward``): its CPU branch against JAX's
+audit, ``audit_frame``'s routing on a CUDA tensor (the kernel replaced by
+a recorder, no plain interpreter reached), and the sharded audit's window
+and count region on four gloo ranks with the kernel modelled on the CPU
+(``tests/test_torch_ranks.py`` ``count_region_model``)."""
 
 import dataclasses
 import os
@@ -21,12 +27,14 @@ from sesr_tpu.quant import audit as jaudit
 from sesr_tpu.quant.params import QuantParams as JQuantParams
 from sesr_tpu_torch import cli
 from sesr_tpu_torch.config import spec_for_task
-from sesr_tpu_torch.ops.corrected import hybrid_forward
+from sesr_tpu_torch.ops.corrected import audit_forward, hybrid_forward
+from sesr_tpu_torch.parallel.launch import spawn
 from sesr_tpu_torch.quant import audit
 from sesr_tpu_torch.quant.certify import adversarial_image
 from sesr_tpu_torch.quant.integer import integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
 from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
+from tests.test_torch_ranks import sharded_audit_world
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
 TASKS = ["nr", "dm", "nrdm_3", "nrdm_6", "sr_x4", "sr_x2"]
@@ -134,3 +142,96 @@ def test_cli_infer_audit_summary(capsys, tmp_path):
                     "--audit", "1", "--device", "cpu"])
     err = capsys.readouterr().err
     assert "nothing to audit" in err and res.mode == "pe-exact" and res.audited == 0
+
+
+def _nr_frame(which):
+    qp, _ = _load("nr")
+    if which == "adversarial":
+        return adversarial_image(qp, hw=(64, 96))
+    return np.ones((1, 64, 96, 3), np.float32)
+
+
+@pytest.mark.parametrize("which", ["adversarial", "bright"])
+def test_audit_forward_on_cpu_equals_jax(which):
+    """``audit_forward``'s CPU branch (the plain interpreter, the card's
+    counting kernel's plain version) gives the JAX audit's counts and sound
+    output on nr's adversarial frame (layer 0 fires) and bright frame (the
+    last conv fires); its int8 contract is the same output before
+    dequantization; a count region needs the card."""
+    spec = spec_for_task("nr")
+    qp, jqp = _load("nr")
+    x = _nr_frame(which)
+    y, counts = audit_forward(spec, qp, torch.from_numpy(x))
+    jres = jaudit.audit_frame(jspec_for_task("nr"), jqp, x, mode="hybrid", warn=False)
+    assert counts.dtype == torch.int64 and counts.shape == (spec.num_convs,)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jres.ovf18))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jres.y_exact))
+    assert counts[0 if which == "adversarial" else -1] > 0
+    y8, counts8 = audit_forward(spec, qp, x, out_dtype="int8", device="cpu")
+    assert y8.dtype == torch.int8 and torch.equal(counts8, counts)
+    np.testing.assert_array_equal(
+        ((y8.float() - float(qp.a_zero[-1])) * float(np.float32(qp.a_scale[-1]))).numpy(),
+        y.numpy())
+    with pytest.raises(ValueError, match="region"):
+        audit_forward(spec, qp, x, region=(0, 8, 0, 8), device="cpu")
+
+
+def test_audit_frame_on_the_card_takes_the_counting_kernel(monkeypatch):
+    """On a CUDA tensor ``audit_frame`` makes one call of ``audit_forward``
+    (one counting launch) and never reaches the plain interpreter; with a
+    ``halo_group`` it goes through ``sharded_audit_forward``. The device is
+    faked, so that the test runs without a card: the kernel is a recorder
+    that returns the plain version's answer."""
+    spec = spec_for_task("nr")
+    qp, _ = _load("nr")
+    x = torch.from_numpy(_nr_frame("adversarial"))
+    want_y, want_counts = audit_forward(spec, qp, x)
+    calls = []
+
+    def kernel(spec_, qp_, x_, region=None, out_dtype="f32", device=None, quantized=False):
+        calls.append((region, out_dtype, quantized))
+        return want_y, want_counts
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain interpreter ran on the card's audit path")
+
+    monkeypatch.setattr(audit, "audit_forward", kernel)
+    monkeypatch.setattr(audit, "integer_forward", refuse)
+    monkeypatch.setattr(audit, "resolve_device", lambda *_a: torch.device("cuda"))
+    res = audit.audit_frame(spec, qp, x, y_served=want_y, mode="hybrid", warn=False)
+    assert calls == [(None, "f32", False)]
+    assert res.violations == (0,) and not res.ok and res.diverged is False
+    np.testing.assert_array_equal(res.ovf18, want_counts.numpy())
+    sharded = []
+    monkeypatch.setattr(audit, "sharded_audit_forward",
+                        lambda *a: sharded.append(a[3]) or (want_y, want_counts))
+    res = audit.audit_frame(spec, qp, x, mode="hybrid", warn=False, halo_group="sp")
+    assert sharded == ["sp"] and len(calls) == 1 and res.violations == (0,)
+
+
+@pytest.fixture(scope="module")
+def sharded_audit():
+    frames = [_nr_frame("adversarial"), _nr_frame("bright")]
+    return frames, spawn(sharded_audit_world, 4, "gloo",
+                         os.path.join(ARTIFACTS, "qparams_nr.npz"), frames)
+
+
+def test_sharded_audit_counts_each_rank_block(sharded_audit):
+    """The card's sharded audit on four ranks (nr, 64x96 frames, 24
+    columns a rank): each rank's window (R = 7 columns past each cut
+    inside the image) with its block as the count region gives the rank's
+    counts and output of the plain sharded audit, and the four ranks'
+    counts add up to the monolithic frame's."""
+    frames, ranks = sharded_audit
+    spec = spec_for_task("nr")
+    qp, _ = _load("nr")
+    for j, x in enumerate(frames):
+        for r, per_frame in enumerate(ranks):
+            counts, plain, same_y = per_frame[j]
+            np.testing.assert_array_equal(counts, plain, err_msg=f"frame {j} rank {r}")
+            assert same_y, (j, r)
+        _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
+                                   device="cpu")
+        np.testing.assert_array_equal(sum(p[j][0] for p in ranks),
+                                      dumps["overflow_18"].numpy())
+    assert sum(p[0][0][0] for p in ranks) > 0 and sum(p[1][0][-1] for p in ranks) > 0

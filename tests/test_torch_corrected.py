@@ -72,11 +72,11 @@ def _expr(fn, scope):
 
 FNS = dict(CONST)
 for _fn in ("tap_of", "tap_pix", "half_off", "a_lbo", "steps_of", "b_byte", "col_chan",
-            "acc_row", "acc_col", "pe_groups"):
+            "acc_row", "acc_col", "pe_groups", "count_lo", "count_hi"):
     FNS[_fn] = _expr(_fn, FNS)
-steps_of, half_off, a_lbo, b_byte, col_chan, acc_row, acc_col, pe_groups = (
+steps_of, half_off, a_lbo, b_byte, col_chan, acc_row, acc_col, pe_groups, count_lo, count_hi = (
     FNS[f] for f in ("steps_of", "half_off", "a_lbo", "b_byte", "col_chan", "acc_row",
-                     "acc_col", "pe_groups"))
+                     "acc_col", "pe_groups", "count_lo", "count_hi"))
 
 
 def _artifact(task):
@@ -137,7 +137,11 @@ def test_corrected_split_proof_against_brute_force(seed):
 def test_corrected_split_proof_holds_on_data():
     """On data, a layer the proof leaves unsplit never saturates a PE's
     corrected partial; with weights at +-127 the layer is split and its
-    clamp does fire."""
+    clamp does fire. Also on nr's adversarial frame and on the saturated
+    SESR-XL at 4 and 8 PEs, whose events the counting form counts on the
+    split layers alone."""
+    from sesr_tpu_torch.quant.certify import adversarial_image
+
     spec, qp = _artifact("sr_x2")
     x = np.random.default_rng(8).random((1, 20, 28, 3), dtype=np.float32)
     sat = _saturated(qp, (1,))
@@ -148,6 +152,17 @@ def test_corrected_split_proof_holds_on_data():
         ovf = dumps["overflow_18"].tolist()
         assert not any(ovf[i] for i in range(spec.num_convs) if not split[i])
     assert split[1] and ovf[1] > 0
+    nr, nr_qp = _artifact("nr")
+    x_xl = np.random.default_rng(9).random((1, 20, 28, 3), dtype=np.float32)
+    for tspec, tqp, tx in ((nr, nr_qp, adversarial_image(nr_qp, hw=(20, 28))),
+                           (XL, _xl_saturated(4), x_xl), (XL, _xl_saturated(8), x_xl)):
+        split = convert.corrected_split_layers(tqp)
+        _, dumps = integer_forward(tspec, tqp, tx, collect_dumps=True, corrected=True,
+                                   device="cpu")
+        ovf = dumps["overflow_18"].tolist()
+        assert not any(ovf[i] for i in range(tspec.num_convs) if not split[i]), (tspec.name, ovf)
+        assert any(ovf), (tspec.name, tqp.hw.pe)
+    assert ovf[3] > 0
 
 
 @pytest.mark.parametrize("task", TASKS)
@@ -294,14 +309,16 @@ def _smem_input(x_q, k, z_eff, wide, rng, width=16):
     return buf.reshape(-1), ih, iw, rows, plane
 
 
-def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
+def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None):
     """The corrected kernel's y = bias + pe_add of conv i over the int8
     input x_q (H, W, ic), from its constants: the layer's wide GEMM through
     the descriptors (a chunk of at most kMaxN columns at a time), the
     accumulator fragment, and the epilogue's rules, with the extent of one
     tile over the whole input. A network narrower than its kernel width
     runs padded: its padded input channels hold random bytes here (their
-    weights are zero)."""
+    weights are zero). ``events`` (H, W), if given: the counting form's
+    rule added per output, the partials of the real PEs (p < pe) and
+    channels that the 18-bit clamp changes on a split layer."""
     acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
     add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
     width = kc.width
@@ -371,6 +388,11 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng):
                             val = bias[o] - zc[o] + sum(
                                 np.clip(reg(p) + start[p], -acc_hi - 1, acc_hi)
                                 for p in range(groups))
+                            if events is not None:
+                                events[y, x] += sum(
+                                    p < kc.pe and reg(p) + start[p] != np.clip(
+                                        reg(p) + start[p], -acc_hi - 1, acc_hi)
+                                    for p in range(groups))
                         else:
                             val = reg(0) + bias[o] - zc[o]
                         if kc.clamp20[i]:
@@ -473,13 +495,17 @@ def test_corrected_kernel_layers_model_the_plain_sums(case):
     rng = np.random.default_rng(13)
     _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
                                fast_layers=fast_layers, device="cpu")
+    ovf18 = dumps["overflow_18"].tolist()
     for i, k in enumerate(spec.kernel_sizes):
         x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
-        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
+        events = np.zeros(x_q.shape[:2], np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng,
+                                 events)
         want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
             np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
         np.testing.assert_array_equal(got, want, err_msg=f"{case} layer {i}")
-    ovf18 = dumps["overflow_18"].tolist()
+        # the counting form's rule on the same registers: the plain count
+        assert events.sum() == ovf18[i], (case, i)
     if case == "nr-saturating-hybrid":
         assert kc.clamp20[0] and not kc.pe_split[0] and kc.pe_split[L - 1]
         assert int((dumps["pe_add.0"] == ADD_HI).sum()) > 0 and ovf18[L - 1] > 0
@@ -553,15 +579,103 @@ def test_corrected_kernel_layers_on_sesr_xl(mode, pe):
                                fast_layers=qp.fast_cert_layers if mode == "hybrid" else None,
                                device="cpu")
     rng = np.random.default_rng(15)
+    ovf18 = dumps["overflow_18"].tolist()
     for i, k in enumerate(XL.kernel_sizes):
         x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
-        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
+        events = np.zeros(x_q.shape[:2], np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng,
+                                 events)
         want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
             np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
         np.testing.assert_array_equal(got, want, err_msg=f"xl {mode} {pe} PEs layer {i}")
+        # the counting form's rule, past four PEs over both chunks
+        assert events.sum() == ovf18[i], (mode, pe, i)
     # a split hidden layer runs 128 or 2 x 128 columns
     assert convert.wgmma_geometry(3, 32, 32, True, False, pe)[2] == 32 * convert.pe_groups(pe)
     assert int(dumps["overflow_18"][3]) > 0
+
+
+def _tiled_counts(spec, qp, x, regions):
+    """The corrected kernel's counting form (sesr_corrected_audit) in the
+    PE-exact mode, modelled tile by tile: per region (y0, y1, x0, x1) and
+    layer, the PE partials that the 18-bit clamp changes. The frame is cut
+    into the tiles of the wrapper's plan; on each split layer a tile
+    computes every PE's partial conv(q - z_eff) over its output extent
+    (its core and the ring r of the convs after it) from the layer's input
+    over that extent and k // 2 more, z_eff outside the image (the plain
+    interpreter's input dumps inside it), and counts those in the window
+    count_lo .. count_hi of the source: the core, inside the image and the
+    region. Returns (counts (regions, L), the plain overflow_18, tile)."""
+    L = spec.num_convs
+    split = split_layers(qp, "pe-exact")
+    kc = convert.kernel_constants(spec, qp, "corrected", split)
+    tile, _ = corrected_net.plan(spec, kc.pe_split, kc.pe, kc.general)
+    th, tw = tile
+    acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
+    _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True, device="cpu")
+    n, H, W, _ = x.shape
+    counts = np.zeros((len(regions), L), np.int64)
+    for i, k in enumerate(spec.kernel_sizes):
+        if not split[i]:
+            continue
+        r_out = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
+        r_in = r_out + k // 2
+        z = qp.effective_zero(i)
+        x_q = dumps[f"input.{i}"].numpy().astype(np.float64)
+        pad = r_in + max(th, tw)                    # past the last ragged tile's extent
+        shifted = np.pad(x_q, ((0, 0), (pad, pad), (pad, pad), (0, 0)), constant_values=z) - z
+        w = np.asarray(qp.w_int[i], np.float64)
+        for oy0 in range(0, H, th):
+            for ox0 in range(0, W, tw):
+                ext = torch.from_numpy(shifted[:, pad + oy0 - r_in:pad + oy0 + th + r_in,
+                                               pad + ox0 - r_in:pad + ox0 + tw + r_in])
+                events = 0
+                for p in range(qp.hw.pe):
+                    m = pe_channel_mask(w.shape[2], qp.hw.pe, p)
+                    if not m.any():
+                        continue
+                    part = torch.nn.functional.conv2d(
+                        ext[..., m].permute(0, 3, 1, 2),
+                        torch.from_numpy(w[:, :, m].transpose(3, 2, 0, 1).copy()))
+                    events = events + ((part > acc_hi) | (part < -acc_hi - 1)).numpy()
+                for j, (y0, y1, x0, x1) in enumerate(regions):
+                    ylo, yhi = count_lo(oy0, r_out, y0), count_hi(oy0, th, r_out, H, y1)
+                    xlo, xhi = count_lo(ox0, r_out, x0), count_hi(ox0, tw, r_out, W, x1)
+                    if ylo < yhi and xlo < xhi:         # (a negative bound would wrap)
+                        counts[j, i] += events[:, :, ylo:yhi, xlo:xhi].sum()
+    return counts, dumps["overflow_18"].numpy(), tile
+
+
+@pytest.mark.parametrize("case", ["nr-adversarial", "xl-pe4", "xl-pe8"])
+def test_counting_form_counts_each_output_once(case):
+    """The counting form's count window (count_lo / count_hi, read from the
+    source) over the tiles of the wrapper's plan, on a frame whose sides
+    are no multiple of the tile: the tiles' counts add up to the plain
+    interpreter's overflow_18 on every layer (so no halo output is counted
+    twice and none is missed), with the whole frame as one region and as
+    the sum over 2 and 4 W blocks given as regions. nr: the adversarial
+    frame (layer 0 fires); the saturated SESR-XL at 4 and 8 PEs (past four
+    PEs the tile is 8x16), each frame at least two tiles a side."""
+    from sesr_tpu_torch.ops.slab import blocks
+    from sesr_tpu_torch.quant.certify import adversarial_image
+
+    if case == "nr-adversarial":
+        spec, qp = _artifact("nr")
+        qp = dataclasses.replace(qp, fast_cert_layers=None)
+        x = adversarial_image(qp, hw=(70, 150))
+    else:
+        spec, qp = XL, _xl_saturated(int(case[-1]))
+        x = np.random.default_rng(10).random((2, 19, 37, 3), dtype=np.float32)
+    H, W = x.shape[1:3]
+    regions = [(0, H, 0, W)] + [(0, H, a, b) for n in (2, 4) for a, b in blocks(W, n)]
+    counts, want, tile = _tiled_counts(spec, qp, x, regions)
+    assert H % tile[0] and W % tile[1] and H > tile[0] and W > tile[1], tile
+    np.testing.assert_array_equal(counts[0], want)
+    np.testing.assert_array_equal(counts[1:3].sum(axis=0), want)
+    np.testing.assert_array_equal(counts[3:].sum(axis=0), want)
+    assert want.any() and (want[0] > 0 if case == "nr-adversarial" else want[3] > 0)
+    # a region past the frame counts nothing
+    assert not _tiled_counts(spec, qp, x, [(0, H, W, W)])[0].any()
 
 
 @pytest.mark.parametrize("width", [16, 32])

@@ -275,6 +275,69 @@ def order_statistics(rank, ties, bounds, indices):
 
 
 # ---------------------------------------------------------------------------
+# quant/audit.py: the card's sharded audit, its kernel modelled on the CPU
+
+
+def count_region_model(spec, qp, x, region=None, out_dtype="f32", device=None,
+                       quantized=False):
+    """``ops/corrected.py`` ``audit_forward`` as the corrected kernel's
+    counting form computes it, modelled on the CPU: the plain PE-exact
+    output ("int8" or "f32"; a network without a pixel shuffle) and per
+    layer the PE partials conv(q - z_eff) that the 18-bit clamp changes at
+    the outputs inside ``region`` = (y0, y1, x0, x1), on the layers the
+    PE-exact mode splits (0 on the others)."""
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
+
+    assert not spec.has_pixel_shuffle
+    L = spec.num_convs
+    y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
+                               quantized=quantized)
+    if out_dtype == "int8":
+        y = dumps[f"input.{L}"].to(torch.int8)
+    y0, y1, x0, x1 = region
+    acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
+    counts = torch.zeros(L, dtype=torch.int64)
+    for i, split in enumerate(split_layers(qp, "pe-exact")):
+        if not split:
+            continue
+        shifted = dumps[f"input.{i}"].double() - qp.effective_zero(i)
+        w = np.asarray(qp.w_int[i], np.float64)
+        for p in range(qp.hw.pe):
+            m = pe_channel_mask(w.shape[2], qp.hw.pe, p)
+            if m.any():
+                part = conv2d_nhwc(shifted[..., torch.from_numpy(m)],
+                                   torch.from_numpy(w[:, :, m].copy()))
+                fired = (part > acc_hi) | (part < -acc_hi - 1)
+                counts[i] += int(fired[:, y0:y1, x0:x1].sum())
+    return y, counts
+
+
+def sharded_audit_world(rank, world, path, frames):
+    """``quant/audit.py`` ``sharded_audit_forward`` (the card's sharded
+    audit: one counting launch over the rank's window, its block the count
+    region) with the kernel modelled by ``count_region_model``, on a (1, 1,
+    world) mesh, against the plain sharded audit of the same block. Per
+    frame: (its counts, the plain audit's, outputs torch.equal)."""
+    from sesr_tpu_torch.quant import audit
+
+    spec, qp = spec_for_task("nr"), QuantParams.load(path)
+    mesh = mh.make_mesh_multihost(n_hosts=1, dp=1, sp=world, device_type="cpu")
+    sp = mesh.get_group("sp")
+    out = []
+    for f in frames:
+        x = torch.as_tensor(tiling.local_block(f, mesh, mh.HOST_DP_SP))
+        plain = audit.audit_frame(spec, qp, x, mode="hybrid", warn=False, halo_group=sp)
+        kernel, audit.audit_forward = audit.audit_forward, count_region_model
+        try:
+            y, counts = audit.sharded_audit_forward(spec, qp, x, sp)
+        finally:
+            audit.audit_forward = kernel
+        out.append((counts.numpy(), plain.ovf18, bool(torch.equal(y, plain.y_exact))))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # launch.py
 
 
