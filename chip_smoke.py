@@ -184,10 +184,15 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    ``infer --qparams`` cuda against cpu; the corrected kernel with every
    layer split and a saturating nr through K1 and the corrected kernel
    (the accumulator clamp firing, and at 8 PEs the adder clamp), K2's
-   general instantiation where sr_x2's conv 0 can reach the adder clamp;
-   then each kernel's device time per frame at each config, its
-   registers (CUPTI and ptxas) and its ratio to the same kernel on the
-   same network at 4 PEs. One ``kernels`` entry per (kernel, config).
+   general instantiation where sr_x2's conv 0 can reach the adder clamp,
+   its activations are not int8 or its sums may pass 2^22; nr's ``infer
+   --audit 1`` and one counting launch; then each kernel's device time per
+   frame at each config, its registers (ptxas; CUPTI for the new configs,
+   in phase 14's process) and its ratio to the same kernel on the same
+   network at 4 PEs. One ``kernels`` entry per (kernel, config), and one
+   for the counting form at each new config. Since PR 18 the configs are
+   eight: the sweep's four, 16 PEs, 16 PEs with a 24-bit adder (sums past
+   2^22: the wide kernels), and 6- and 4-bit activations.
 13. ``bench`` and ``profile`` (``sesr_tpu_torch/bench.py``, ``costs.py``):
    ``run_bench`` with the default rows, ``--per-task`` and ``--all-paths``
    at full size (fewer repeats and calls than the command), with the plain
@@ -213,7 +218,8 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    call; the runtime audit's counting form on the unstamped XL at 4 and 8
    PEs (counts array_equal with the plain interpreter's overflow_18, one
    counting launch a call), its device time beside the served PE-exact
-   kernel's and its ptxas and CUPTI lines; then each kernel's device time
+   kernel's and its ptxas and CUPTI lines; M11 and XL at 16 PEs and the
+   wide M11 (``family_phase``); then each kernel's device time
    at its default tile (K1 and K2 also
    at every tile of ops/kernels.py NET_TILES that fits a block), its bound
    and share, MACs computed over MACs needed, registers and shared memory
@@ -376,31 +382,76 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     return count * tiles, macs * tiles
 
 
-def launch_attrs(torch, launches, pattern="sesr_net_kernel"):
+def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1):
     """{key: (registers per thread, shared memory bytes per block)} of the
     launch of a kernel whose name holds ``pattern`` that each fn of
     ``launches`` ({key: fn}) makes, as CUPTI reports them in torch.profiler's
     trace; (None, None) where the trace does not hold them. Each fn is
-    traced on its own and its last such kernel read: a trace may carry
-    kernels of an earlier trace, or miss one."""
+    traced on its own and its last such kernel read. A trace may carry
+    kernels of an earlier trace, or miss one: only a kernel whose
+    correlation id is that of a launch call in the same trace is read, and
+    a trace that holds none is taken again, up to ``tries`` times."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     path = os.path.join(REPO, "build", "chip_smoke_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     attrs = {}
     for key, fn in launches.items():
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
+        attrs[key] = (None, None)
+        for trace in range(1, tries + 1):
             torch.cuda.synchronize()
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-        kernels = sorted((e for e in events if e.get("cat") == "kernel"
-                          and pattern in e.get("name", "")), key=lambda e: e["ts"])
-        args = kernels[-1].get("args", {}) if kernels else {}
-        attrs[key] = (args.get("registers per thread"), args.get("shared memory"))
-    os.unlink(path)
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+            os.unlink(path)
+            calls = {e.get("args", {}).get("correlation") for e in events
+                     if e.get("cat") in ("cuda_runtime", "cuda_driver")} - {None}
+            named = [e for e in events if e.get("cat") == "kernel"
+                     and pattern in e.get("name", "")]
+            kernels = sorted((e for e in named
+                              if not calls or e.get("args", {}).get("correlation") in calls),
+                             key=lambda e: e["ts"])
+            if len(kernels) < len(named):
+                print(f"[cupti] {key}: trace {trace} skipped {len(named) - len(kernels)} "
+                      f"kernel(s) of an earlier trace", flush=True)
+            if kernels:
+                args = kernels[-1].get("args", {})
+                attrs[key] = (args.get("registers per thread"), args.get("shared memory"))
+                break
+            if trace < tries:
+                print(f"[cupti] {key}: trace {trace} holds no launch of its own; tracing "
+                      f"again", flush=True)
     return attrs
+
+
+def kernel_family(kern, kc, audit=False):
+    """The name of the CUDA kernel ``kern`` launches for the constants kc:
+    the served one or (``audit``) the counting form, and the general
+    instantiation's wide form where kc.wide."""
+    wide = "_wide" if kc.wide else ""
+    if kern.datapath == "corrected":
+        return f"sesr_corrected{'_audit' if audit else ''}{wide}_kernel"
+    return f"sesr_net{wide}_kernel"
+
+
+def ptxas_line(kern, spec, kc, audit=False):
+    """("family<template arguments>", (registers, spill store bytes)) of the
+    instantiation ``kern`` launches for kc, from ptxas's build log."""
+    from sesr_tpu_torch.convert import pe_groups
+    from sesr_tpu_torch.ops import _build
+
+    family = kernel_family(kern, kc, audit)
+    gen = "" if kc.wide else f"ELb{int(kc.general)}"
+    if kern.datapath == "corrected":
+        lib, key = "sesr_corrected", (f"Li{pe_groups(kc.pe) if kc.general else 4}{gen}"
+                                      f"ELi{kc.width}")
+    else:
+        lib, key = "sesr_net", (f"Li{int(kern.datapath == 'fast')}ELi{spec.conv_out_channels}"
+                                f"{gen}ELi{kc.width}")
+    report = _build.ptxas_report(_build.build(lib).log, family)
+    return f"{family}<{key}>", report.get(key, (None, None))
 
 
 def plain_kwargs(kern, qp, mode=None):
@@ -506,8 +557,7 @@ def audit_entry(torch, dev, spec, qp, x, name, card, phase, launches):
     interpreter's ms with its counters, the bound of the PE-exact mode's
     operations (the network's int8 MACs) against its bytes, and ptxas's
     registers and spill stores of its instantiation."""
-    from sesr_tpu_torch.convert import kernel_constants, pe_groups
-    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.convert import kernel_constants
     from sesr_tpu_torch.ops.corrected import audit_forward, split_layers
     from sesr_tpu_torch.ops.kernels import corrected_net
     from sesr_tpu_torch.quant.integer import integer_forward, quantize_input
@@ -537,13 +587,11 @@ def audit_entry(torch, dev, spec, qp, x, name, card, phase, launches):
     macs = weights * n * h * w
     moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights + 8 * spec.num_convs
     bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
-    key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}ELi{kc.width}"
-    regs, spill = _build.ptxas_report(_build.build("sesr_corrected").log,
-                                      "sesr_corrected_audit_kernel").get(key, (None, None))
+    key, (regs, spill) = ptxas_line(corrected_net, spec, kc, audit=True)
     print(f"[{phase}] sesr_corrected_audit {spec.name} {h}x{w}, {kc.pe} PEs: {ms:.4f} ms/frame "
           f"device ({times['audit']}), the served PE-exact kernel {served_ms:.4f} "
           f"({times['served']}), ratio {ms / served_ms:.4f}; tile {tile[0]}x{tile[1]}; "
-          f"<{key}> ptxas {regs} registers, {spill} B spill stores; bound "
+          f"{key} ptxas {regs} registers, {spill} B spill stores; bound "
           f"{bnd[0] * 1e3:.3f} us ({bnd[1]}: {2 * macs:.4g} int8 ops, {moved} bytes), share "
           f"{bnd[0] / ms:.4f}; plain interpreter with its counters {plain_ms:.3f} ms {card}",
           flush=True)
@@ -708,19 +756,26 @@ def sass_counts(lib):
 def net_sass_check(build):
     """The network kernels' tensor-core instructions, from ``cuobjdump -sass``
     of their libraries: the corrected kernel (sesr_corrected_kernel: the
-    shipped instantiation and the general ones of 4 and 8 PE groups, at
-    hidden widths 16 and 32) and its counting form (sesr_corrected_audit_
-    kernel, the same six) on wgmma (IGMMA) and no mma.sync (IMMA); K1
+    shipped instantiation and the general ones of 4, 8 and 16 PE groups,
+    at hidden widths 16 and 32) and its counting form (sesr_corrected_
+    audit_kernel, the same eight), and the general ones' wide forms (the
+    six sesr_corrected_wide_kernel and sesr_corrected_audit_wide_kernel)
+    on wgmma (IGMMA) and no mma.sync (IMMA); K1
     and K2 (sesr_net_kernel, three
-    output widths, shipped and general, hidden widths 16 and 32) on
+    output widths, shipped and general, hidden widths 16 and 32; and
+    sesr_net_wide_kernel, the general ones' wide forms) on
     mma.sync. Prints each kernel's
     counts; fails otherwise."""
-    want = (("sesr_corrected", "sesr_corrected_kernel", "IGMMA", "IMMA", 6),
-            ("sesr_corrected", "sesr_corrected_audit_kernel", "IGMMA", "IMMA", 6),
-            ("sesr_net", "sesr_net_kernel", "IMMA", "IGMMA", 24))
+    want = (("sesr_corrected", "sesr_corrected_kernel", "IGMMA", "IMMA", 8),
+            ("sesr_corrected", "sesr_corrected_audit_kernel", "IGMMA", "IMMA", 8),
+            ("sesr_corrected", "sesr_corrected_wide_kernel", "IGMMA", "IMMA", 6),
+            ("sesr_corrected", "sesr_corrected_audit_wide_kernel", "IGMMA", "IMMA", 6),
+            ("sesr_net", "sesr_net_kernel", "IMMA", "IGMMA", 24),
+            ("sesr_net", "sesr_net_wide_kernel", "IMMA", "IGMMA", 12))
+    dumps = {name: sass_counts(build.library_path(name)) for name in ("sesr_corrected", "sesr_net")}
     for name, family, has, lacks, instances in want:
         seen = 0
-        for fn, c in sorted(sass_counts(build.library_path(name)).items()):
+        for fn, c in sorted(dumps[name].items()):
             if family not in fn:
                 continue
             seen += 1
@@ -2405,12 +2460,20 @@ def sharding_phase(torch, dev, card):
 
 # phase 12: tests/test_hwconfig_sweep.py's four HardwareConfigs (copied:
 # this script imports no JAX) and its 8-channel sweep net, whose sparse
-# weights certify fully (K2) where the golden networks do not
+# weights certify fully (K2) where the golden networks do not; then the
+# rest of the family (tests/test_torch_hwconfig_family.py): 16 PEs, 16 PEs
+# whose 24-bit adder lets |pe_add + bias| pass 2^22 (every kernel's wide
+# form), and 6- and 4-bit activations
 HW_CONFIGS = {"pe2_narrow": dict(pe=2, pe_acc_bits=16, pe_add_bits=18, bias_bits=12,
                                  requant_bits=12, requant_n_max=24),
               "pe8_wide": dict(pe=8, pe_acc_bits=20, pe_add_bits=22),
               "pe3_nondivisible": dict(pe=3),
-              "pe2_servable": dict(pe=2, bias_bits=12, requant_bits=12, requant_n_max=24)}
+              "pe2_servable": dict(pe=2, bias_bits=12, requant_bits=12, requant_n_max=24),
+              "pe16": dict(pe=16),
+              "pe16_wide": dict(pe=16, pe_acc_bits=20, pe_add_bits=24),
+              "q6": dict(quan_bits=6),
+              "q4": dict(quan_bits=4)}
+NEW_CONFIGS = ("pe16", "pe16_wide", "q6", "q4")
 SWEEP_NET = dict(name="sweep", in_channels=3, out_channels=3, num_channels=8, num_lblocks=2)
 CERT_FRAME = (96, 128)             # phase 12's certification frames
 
@@ -2424,21 +2487,24 @@ def hwconfig_phase(torch, dev, card):
     (sr_x2 540x960, nr and the sweep net 1080x1920) at batch 1 and 4
     through the mode the certificate selects, simulated (K1) and simulated
     --corrected; every output array_equal with the plain interpreter on the
-    card, and ``infer --qparams`` on the goldens cuda against cpu. Then each
-    kernel's device time per frame at each config (K1 on sr_x2, the
-    corrected kernel on nr, K2 on a network the config certifies fully),
-    its registers and shared memory (CUPTI) and its ratio to the same
-    kernel on the same network calibrated at the reference point (4 PEs).
-    Returns the kernels-line entries of every (kernel, config) pair."""
+    card, and ``infer --qparams`` on the goldens cuda against cpu; nr
+    served with ``--audit 1`` (its audits on the counting kernel, held to
+    the plain interpreter) and one launch of the counting form on its
+    first frame. Then each kernel's device time per frame at each config
+    (K1 on sr_x2, the corrected kernel on nr, K2 on a network the config
+    certifies fully), ptxas's registers and spills and its ratio to the
+    same kernel on the same network calibrated at the reference point (4
+    PEs). Returns the kernels-line entries of every (kernel, config) pair
+    and, for CUPTI's registers and shared memory in phase 14's process of
+    its own, the new configs' timed launches as jobs."""
     import tempfile
 
     from sesr_tpu_torch.cli import main as cli_main
     from sesr_tpu_torch.cli import serve, simulate
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
-    from sesr_tpu_torch.convert import clamp20_layers, kernel_constants, pe_groups
+    from sesr_tpu_torch.convert import clamp20_layers, kernel_constants
     from sesr_tpu_torch.data import SyntheticDataset
     from sesr_tpu_torch.deploy import select_forward
-    from sesr_tpu_torch.ops import _build
     from sesr_tpu_torch.io.torch_import import load_reference_checkpoint
     from sesr_tpu_torch.models.sesr import CollapsedParams, init_params
     from sesr_tpu_torch.ops.corrected import split_layers
@@ -2485,14 +2551,14 @@ def hwconfig_phase(torch, dev, card):
                 "hybrid": lambda q: dict(corrected=True, fast_layers=tuple(q.fast_cert_layers)),
                 "pe-exact": lambda q: dict(corrected=True)}
 
-    def artifact(task, hw, tmp):
+    def artifact(task, cname, hw, tmp):
         """calibrate, certify, save and reload: the artifact a user builds."""
         spec, params, calib, floor, _ = nets[task]
         qp = calibrate(spec, params, calib, hw=hw, safe_zero_floor=floor, device="cuda")
         cert = [d[0] for d in SyntheticDataset("nr" if task == "sweep" else task, n=2,
                                                hw=CERT_FRAME)]
         qp = certify_fast(spec, qp, cert, device="cuda")
-        path = os.path.join(tmp, f"qparams_{task}_{hw.pe}_{hw.pe_acc_bits}.npz")
+        path = os.path.join(tmp, f"qparams_{task}_{cname}.npz")
         qp.save(path)
         back = QuantParams.load(path)
         if back.hw != hw or back.cert_stamps != qp.cert_stamps:
@@ -2503,12 +2569,43 @@ def hwconfig_phase(torch, dev, card):
         if got.shape != want.shape or not np.array_equal(got, want):
             fail(f"[12] {what}: differs from the plain interpreter")
 
+    def audited_nr(spec, qp, data, mode, x0, cname):
+        """nr served with ``--audit 1`` (``serve(audit_every=1)``, the
+        launch counters at 0 before it): every audit on the counting
+        kernel, held to the plain interpreter after the stream, one
+        counting launch an audited frame, each frame the plain version's of
+        the mode it was served in (pe-exact from a violation on); then one
+        launch of the counting form on the first frame (``audit_check``),
+        which runs even where the certificate trusts no layer empirically
+        and the stream audits nothing. Returns the line's summary."""
+        with audit_on_the_kernel(torch) as audits:
+            reset_launch_counts()
+            res = serve(spec, qp, data, batch=1, device="cuda", audit_every=1,
+                        keep_outputs=True)
+            torch.cuda.synchronize()
+            ka = corrected_net.audit_launches
+        held = check_audits(torch, spec, qp, audits, 12)
+        first = res.violations[0][0] if res.violations else len(data)
+        for k, ((x, _), y) in enumerate(zip(data, res.outputs)):
+            kw = plain_of[mode](qp) if k < first else dict(corrected=True)
+            want_y = integer_forward(spec, qp, torch.from_numpy(x).to(dev), **kw)[0]
+            equal(y, want_y[0].cpu().numpy(), f"nr {cname} --audit 1 frame {k}")
+        if ka != res.audited or len(audits) != ka:
+            fail(f"[12] nr {cname} --audit 1: {res.audited} audited, {ka} counting launches, "
+                 f"{len(audits)} audits recorded")
+        got = audit_check(torch, spec, qp, x0, f"{cname}, frame 0", 12)
+        audit_launches[cname] = (ka + 1, len(data) + 1)
+        return (f"; --audit 1: {res.audited} audited ({ka} counting launches, counts {held}), "
+                f"violations {res.violations}, served {res.mode} at the end; the counting form "
+                f"on frame 0: counts {got.tolist()}")
+
     launches = {k.symbol: {} for k in NET_KERNELS}
+    audit_launches = {}
     arts = {}
     with tempfile.TemporaryDirectory() as tmp:
         for cname, hw in {"pe4": HardwareConfig(), **configs}.items():
             for task in ("sr_x2", "nr", "sweep"):
-                arts[cname, task] = artifact(task, hw, tmp)
+                arts[cname, task] = artifact(task, cname, hw, tmp)
             if cname == "pe4":
                 continue
             for task in ("sr_x2", "nr", "sweep"):
@@ -2563,6 +2660,8 @@ def hwconfig_phase(torch, dev, card):
                         fail(f"[12] infer --qparams {task} {cname}: cuda {a_gpu.mode} "
                              f"{a_gpu.psnr}, cpu {a_cpu.mode} {a_cpu.psnr}, served {mode}")
                     cli = f"; infer --qparams cuda == cpu ({mode}, psnr {a_gpu.mean_psnr:.4f})"
+                if task == "nr":
+                    cli += audited_nr(spec, qp, data, mode, x0, cname)
                 kc1 = kernel_constants(spec, qp, "exact")
                 print(f"[12] {task} {cname} {qp.hw}: certificate {qp.cert_grade} "
                       f"{qp.cert_stamps}, mode {mode}; served 4 frames "
@@ -2575,7 +2674,10 @@ def hwconfig_phase(torch, dev, card):
         # kernel with every layer split (its pe_groups column groups), and a
         # saturating nr (convs 0, 1 and the last at +127: the accumulator
         # clamp fires on split layers, and at 8 PEs the adder clamp) through
-        # K1 and the corrected kernel, each against its plain version
+        # K1 and the corrected kernel, each against its plain version (at the
+        # new configs the clamps' events are printed: at 16 PEs with 20-bit
+        # accumulators a one-channel PE's sum cannot reach them, and 4- and
+        # 6-bit activations keep the sums small)
         nr_spec = nets["nr"][0]
         L = nr_spec.num_convs
         for cname in configs:
@@ -2600,24 +2702,25 @@ def hwconfig_phase(torch, dev, card):
                         fail(f"[12] {kern.symbol} nr {cname} {what} {shape}: differs from plain")
                     kc = kernel_constants(nr_spec, cqp, kern.datapath, split)
                     ovf18, ovf20 = dumps["overflow_18"].tolist(), dumps["overflow_20"].tolist()
-                    if what.startswith("saturating") and not any(ovf18) or \
-                            (what.startswith("saturating") and cqp.hw.pe == 8 and not any(ovf20)):
+                    if cname not in NEW_CONFIGS and (
+                            what.startswith("saturating") and not any(ovf18) or
+                            (what.startswith("saturating") and cqp.hw.pe == 8 and not any(ovf20))):
                         fail(f"[12] nr {cname} {what}: the clamps did not fire ({ovf18}, {ovf20})")
                     print(f"[12] {kern.symbol} nr {cname} {what} {shape}: array_equal with "
                           f"plain (cuda); split {kc.pe_split}, overflow_18 {ovf18}, "
                           f"overflow_20 {ovf20}", flush=True)
         # K2's general instantiation (a conv 0 that can reach the adder
-        # clamp, as at pe2_narrow's 18 bits): sr_x2 at each config where it
-        # is so, held to the fast datapath's plain version (the certificate
-        # is set here only so that the plain version runs; the kernel does
-        # not read it)
+        # clamp, as at pe2_narrow's 18 bits; activations off int8; sums that
+        # may pass 2^22): sr_x2 at each config where it is so, held to the
+        # fast datapath's plain version (the certificate is set here only so
+        # that the plain version runs; the kernel does not read it)
         k2_general = []
         for cname in configs:
             spec, qp = nets["sr_x2"][0], arts[cname, "sr_x2"][0]
-            if not clamp20_layers(qp)[0]:
-                continue
             cqp = dataclasses.replace(qp, fast_cert_ok=True)
             kc = kernel_constants(spec, cqp, "fast")
+            if not kc.general:
+                continue
             x = torch.from_numpy(rng.random((2, 37, 53, 3), dtype=np.float32)).to(dev)
             out = fast_net(spec, cqp, quantize_input(x, cqp).to(torch.int8).contiguous())
             _, dumps = integer_forward(spec, cqp, x, collect_dumps=True, corrected=True,
@@ -2628,10 +2731,11 @@ def hwconfig_phase(torch, dev, card):
                      f"plain")
             k2_general.append(cname)
             print(f"[12] sesr_fast_net sr_x2 {cname} (2, 37, 53), conv 0 can reach the adder "
-                  f"clamp: general instantiation, array_equal with plain (cuda); overflow_20 "
-                  f"{dumps['overflow_20'].tolist()}", flush=True)
-        if not k2_general:
-            fail("[12] no config ran K2's general instantiation")
+                  f"clamp {clamp20_layers(qp)[0]}, quan_bits {qp.hw.quan_bits}, wide sums "
+                  f"{kc.wide}: general instantiation, array_equal with "
+                  f"plain (cuda); overflow_20 {dumps['overflow_20'].tolist()}", flush=True)
+        if not k2_general or not set(k2_general) & set(NEW_CONFIGS):
+            fail(f"[12] K2's general instantiation ran at {k2_general}, at no new config")
     fast_at = {c: [t for t in ("sr_x2", "sweep") if arts[c, t][0].fast_cert_ok]
                for c in ["pe4", *configs]}
     print(f"[12] fully certified (K2): {fast_at}", flush=True)
@@ -2641,9 +2745,11 @@ def hwconfig_phase(torch, dev, card):
 
     # timing: each kernel at each config, against the same kernel on the same
     # network at the reference point
-    def timed(kern, cname, task, mode=None, attrs=True):
-        """(device ms per frame, registers, shared memory, tile, constants,
-        frame) of kern on the network of ``task`` at config ``cname``."""
+    def timed(kern, cname, task, mode=None):
+        """(device ms per frame, tile, constants, frame) of kern on the
+        network of ``task`` at config ``cname``. (CUPTI's registers and
+        shared memory of the new configs' launches: phase 14's process; a
+        trace this late in the run misses them.)"""
         spec, _, _, _, data = nets[task]
         qp = arts[cname, task][0]
         x = torch.from_numpy(data[0][0]).to(dev)
@@ -2652,43 +2758,32 @@ def hwconfig_phase(torch, dev, card):
         x_q = quantize_input(x, qp).to(torch.int8).contiguous()
         fn = (lambda: kern(spec, qp, x_q, split=split))
         ms = median_ms(fn, dev, 30, warmup=3, lead_ms=1.0)
-        regs = smem = None
-        if attrs:
-            regs, smem = launch_attrs(torch, {0: lambda: [fn() for _ in range(3)]},
-                                      "sesr_corrected_kernel" if kern is corrected_net
-                                      else "sesr_net_kernel")[0]
-        return ms, regs, smem, kern.tile(spec, kc.pe_split, kc.pe), kc, x
+        return ms, kern.tile(spec, kc.pe_split, kc.pe, kc.general), kc, x
 
-    # registers and spills of each instantiation from ptxas (CUPTI's trace
-    # may miss a launch: then its values read "not measured")
-    reports = {lib: _build.ptxas_report(_build.build(lib).log, fam) for lib, fam in (
-        ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
-
-    def ptxas_of(kern, spec, kc):
-        if kern is corrected_net:
-            key = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}ELi{kc.width}"
-            return key, reports["sesr_corrected"].get(key, (None, None))
-        key = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}"
-               f"ELi{kc.width}")
-        return key, reports["sesr_net"].get(key, (None, None))
-
-    entries = []
+    entries, jobs = [], []
+    cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
+    os.makedirs(cupti_dir, exist_ok=True)
     cases = [(pe_exact_net, "sr_x2", None), (corrected_net, "nr", "pe-exact"),
              (corrected_net, "nr", "hybrid")]
+    at_pe4 = {}                      # each kernel's 4-PE time, taken once
     for cname in configs:
         for kern, task, mode in cases + [(fast_net, t, None) for t in fast_at[cname][:1]]:
             spec = nets[task][0]
             qp = arts[cname, task][0]
             if mode == "hybrid" and not any(qp.fast_cert_layers or ()):
                 continue
-            ms, regs, smem, tile, kc, x = timed(kern, cname, task, mode)
+            ms, tile, kc, x = timed(kern, cname, task, mode)
             ref = "not measured (the reference point does not certify it)"
             if kern is not fast_net or task in fast_at["pe4"]:
                 if mode != "hybrid" or any(arts["pe4", task][0].fast_cert_layers or ()):
-                    ms4 = timed(kern, "pe4", task, mode, attrs=False)[0]
+                    if (kern.symbol, task, mode) not in at_pe4:
+                        at_pe4[kern.symbol, task, mode] = timed(kern, "pe4", task, mode)[0]
+                    ms4 = at_pe4[kern.symbol, task, mode]
                     ref = f"{ms / ms4:.4f} (at 4 PEs {ms4:.4f} ms)"
             kw = plain_kwargs(kern, qp, mode)
-            plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev, 3)
+            # (one timed call of the plain version at the sweep's configs)
+            plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev,
+                                 3 if cname in NEW_CONFIGS else 1)
             weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
             n, h, w = x.shape[:3]
             macs = weights * n * h * w
@@ -2696,15 +2791,13 @@ def hwconfig_phase(torch, dev, card):
             bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
             count, tc_macs, instr = tensor_count(kern, spec, kc.pe_split, n, h, w, tile, kc.pe)
             n_launch, n_frames = launches[kern.symbol].get(cname, (0, 0))
-            key_p, (p_regs, p_spill) = ptxas_of(kern, spec, kc)
+            key_p, (p_regs, p_spill) = ptxas_line(kern, spec, kc)
             label = f"{kern.symbol} {task}{f' {mode}' if mode else ''} {cname}"
             key = f"{cname}, {mode}" if mode else cname
             print(f"[12] {label}: {ms:.4f} ms/frame at {h}x{w}, tile {tile[0]}x{tile[1]}, "
                   f"{'general' if kc.general else 'shipped'} instantiation, per-PE passes on "
-                  f"convs {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; CUPTI: "
-                  f"{regs if regs is not None else 'not measured'} registers per thread, "
-                  f"{smem if smem is not None else 'not measured'} B shared memory per block; "
-                  f"ptxas <{key_p}>: {p_regs} registers, {p_spill} B spill stores; "
+                  f"convs {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; "
+                  f"ptxas {key_p}: {p_regs} registers, {p_spill} B spill stores; "
                   f"{count} {instr} per frame ({tc_macs / macs:.3f}x the network's MACs, "
                   f"computed from the tile geometry); ratio to the same kernel at 4 PEs {ref}; "
                   f"plain {plain_ms:.3f} ms; launches on the phase's path {n_launch} "
@@ -2717,9 +2810,36 @@ def hwconfig_phase(torch, dev, card):
                 library_ms=None, config=cname,
                 work=f"{spec.name}, {(h, w)} frame, batch 1{f', {mode} mode' if mode else ''}, "
                      f"{HW_CONFIGS[cname]}"))
+            if cname in NEW_CONFIGS:
+                qp_path = os.path.join(cupti_dir, f"hw_{cname}_{task}.npz")
+                qp.save(qp_path)
+                jobs.append(dict(label=label, spec=dataclasses.asdict(spec), qparams=qp_path,
+                                 symbol=kern.symbol, mode=mode, tile=list(tile),
+                                 pattern=kernel_family(kern, kc),
+                                 plan=kern.smem_bytes(spec, tile, kc.pe_split, kc.pe,
+                                                      kc.general)))
+        # the counting form at each new config, on nr's first frame: its
+        # time beside the served PE-exact kernel's, and its registers and
+        # shared memory (CUPTI in phase 14's process)
+        if cname in NEW_CONFIGS:
+            spec, qp = nets["nr"][0], arts[cname, "nr"][0]
+            entries.append(audit_entry(
+                torch, dev, spec, qp, torch.from_numpy(nets["nr"][4][0][0]).to(dev),
+                f"sesr_corrected_audit[nr, {cname}]", tag, 12, audit_launches[cname]))
+            kc = kernel_constants(spec, qp, "corrected", split_layers(qp, "pe-exact"))
+            tile = corrected_net.tile(spec, kc.pe_split, kc.pe, kc.general)
+            qp_path = os.path.join(cupti_dir, f"hw_{cname}_nr_audit.npz")
+            qp.save(qp_path)
+            jobs.append(dict(label=f"sesr_corrected_audit nr {cname}",
+                             spec=dataclasses.asdict(spec), qparams=qp_path,
+                             symbol=corrected_net.symbol, mode="pe-exact", audit=True,
+                             pattern=kernel_family(corrected_net, kc, audit=True),
+                             tile=list(tile),
+                             plan=corrected_net.smem_bytes(spec, tile, kc.pe_split, kc.pe,
+                                                           kc.general)))
     print(f"[12] the hwconfig phase took {time.perf_counter() - t_phase:.1f} s {tag}",
           flush=True)
-    return entries
+    return entries, jobs
 
 
 # phase 14: the SESR paper's deepest and widest members (Bhardwaj et al.,
@@ -2737,6 +2857,14 @@ SATURATED = (3, 9)
 # XL at 8 PEs with 12-bit accumulators: every conv split in K1 and in the
 # corrected kernel (a split hidden layer's 256 columns in two chunks)
 XL_PE8 = dict(pe=8, pe_acc_bits=12)
+# M11 at pe16_wide with these convs at +127: conv 2 drives every channel of
+# conv 3's input, and conv 11 the last conv's, to the top of its range, so
+# that conv 3's corrected sum (144 x 127 x 255 = 4.66e6) and the last conv's
+# (400 x 127 x 127 on the reference datapath) pass 2^22 (the wide form)
+WIDE_SATURATED = (2, 3, 11, 12)
+# phase 14's networks at the new configs: each network's config (their
+# labels and kernels-line names say "saturated", apart from XL's at pe16)
+NEW_FAMILY = {"m11u_pe16": "pe16", "xlu_pe16": "pe16", "m11w": "pe16_wide"}
 
 
 def halo_ratio(spec, tile):
@@ -2755,7 +2883,7 @@ def halo_ratio(spec, tile):
     return done / need
 
 
-def family_phase(torch, dev, card):
+def family_phase(torch, dev, card, hw_jobs=()):
     """Phase 14, SESR-M11 x2 and SESR-XL x2 on the card: each calibrated
     from seeded collapsed weights and certified with the port's own
     ``calibrate`` and ``certify_fast``, an M11 and an XL whose convs
@@ -2769,7 +2897,12 @@ def family_phase(torch, dev, card):
     batch 1 and 4; XL's corrected PE-exact mode (``sim --corrected``'s
     path) and K1 at each config and at XL_PE8, at batch 1; every output
     torch.equal with the plain interpreter on the card, one launch a call.
-    Then each kernel's device time (CUDA
+    Since PR 18 also the saturated M11 and XL calibrated at pe16 (K1 and
+    the corrected PE-exact mode; XL's corrected kernel is refused there,
+    its refusal naming its plan's bytes) and M11 at pe16_wide with
+    WIDE_SATURATED (K1, K2, both corrected modes and the counting form, in
+    the wide kernels), whose largest |pe_add + bias| must pass 2^22 on both
+    datapaths. Then each kernel's device time (CUDA
     events) at its default tile and, for K1 and K2, at each tile of
     NET_TILES that fits a block: its bound and share, MACs computed over
     MACs needed (``halo_ratio``), the tensor-core MACs over the network's,
@@ -2779,7 +2912,7 @@ def family_phase(torch, dev, card):
     plan) and ptxas's registers and spills of the instantiation. Returns the
     kernels-line entries."""
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
-    from sesr_tpu_torch.convert import kernel_constants, pe_groups
+    from sesr_tpu_torch.convert import kernel_constants
     from sesr_tpu_torch.deploy import select_forward
     from sesr_tpu_torch.models.sesr import init_params
     from sesr_tpu_torch.ops import _build
@@ -2848,6 +2981,29 @@ def family_phase(torch, dev, card):
         nets[f"xl_{cname}"] = (spec, cqp, None)
     nets["xl_pe8_acc12"] = (
         spec, dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, **XL_PE8)), None)
+    # the saturated M11 and XL calibrated at pe16, and the M11 at pe16_wide
+    # with WIDE_SATURATED, the M11s certified on the card (XL's certificate
+    # would check its hybrid mode on the corrected kernel, which refuses XL
+    # at 16 PEs once a conv is split: it runs K1 and the PE-exact mode here)
+    for key, net, cname, sats in (("m11u_pe16", "m11", "pe16", SATURATED),
+                                  ("xlu_pe16", "xl", "pe16", SATURATED),
+                                  ("m11w", "m11", "pe16_wide", WIDE_SATURATED)):
+        spec, _, cert = nets[net]
+        t0 = time.perf_counter()
+        cqp = calibrate(spec, *made[net], hw=HardwareConfig(**HW_CONFIGS[cname]),
+                        safe_zero_floor=True, device="cuda")
+        cqp = dataclasses.replace(cqp, w_int=[
+            np.full_like(np.asarray(w), 127) if i in sats else np.asarray(w)
+            for i, w in enumerate(cqp.w_int)])
+        if net == "m11":
+            cqp = certify_fast(spec, cqp, cert, device="cuda")
+        print(f"[14] {spec.name} at {cname} with convs {sats} at +127 ({key}): "
+              f"{cqp.cert_grade if net == 'm11' else 'not certified'} {cqp.cert_stamps}, "
+              f"{f'serves {select_forward(cqp)[0]}; ' if net == 'm11' else ''}calibrate"
+              f"{' and certify_fast' if net == 'm11' else ''} {time.perf_counter() - t0:.2f} s "
+              f"on the card; split pe-exact "
+              f"{[i for i, f in enumerate(split_layers(cqp, 'pe-exact')) if f]}", flush=True)
+        nets[key] = (spec, cqp, cert)
 
     x4 = torch.from_numpy(rng.random((4,) + FRAME + (3,), dtype=np.float32)).to(dev)
     x1 = x4[:1].contiguous()
@@ -2861,7 +3017,32 @@ def family_phase(torch, dev, card):
               "xlu": (("hybrid", "hybrid"), ("pe-exact", "pe-exact"))}
     calls = {**served, **{f"xl_{c}": (("sim-c", "pe-exact"), ("sim", "exact"))
                           for c in HW_CONFIGS},
-             "xl_pe8_acc12": (("sim", "exact"), ("sim-c", "pe-exact"))}
+             "xl_pe8_acc12": (("sim", "exact"), ("sim-c", "pe-exact")),
+             "m11u_pe16": (("sim", "exact"), ("sim-c", "pe-exact")),
+             "xlu_pe16": (("sim", "exact"), ("sim-c", "pe-exact")),
+             "m11w": (("sim", "exact"), ("pe-exact", "pe-exact"), ("hybrid", "hybrid"),
+                      *((("fast", "fast"),) if nets["m11w"][1].fast_cert_ok else ()))}
+    # a (network, mode) whose kernel refuses the network (SESR-XL's corrected
+    # kernel at 16 PEs, where a split layer's B does not fit a block at any
+    # tile) is recorded with the refusal's bytes and left out
+    refused = {}
+    datapath_of = {"fast": "fast", "sim": "exact", "hybrid": "corrected",
+                   "pe-exact": "corrected", "sim-c": "corrected"}
+    for key, modes in list(calls.items()):
+        spec, qp, _ = nets[key]
+        kept = []
+        for mode, split_mode in modes:
+            dp = datapath_of[mode]
+            split = split_layers(qp, split_mode) if dp == "corrected" else None
+            try:
+                kernel_constants(spec, qp, dp, split)
+                kept.append((mode, split_mode))
+            except NotImplementedError as e:
+                refused[key, mode] = str(e)
+                print(f"[14] {spec.name} ({key}) {mode}: refused, {e}", flush=True)
+        calls[key] = tuple(kept)
+    if set(refused) - {("xlu_pe16", "sim-c"), ("xl_pe16", "sim-c"), ("xl_pe16_wide", "sim-c")}:
+        fail(f"[14] refused past SESR-XL's corrected kernel at 16 PEs: {sorted(refused)}")
     fwd = {"fast": lambda s, q, x: fast_forward(s, q, x, out_dtype="int8"),
            "hybrid": lambda s, q, x: hybrid_forward(s, q, x, out_dtype="int8"),
            "pe-exact": lambda s, q, x: pe_exact_corrected_forward(s, q, x, out_dtype="int8"),
@@ -2944,10 +3125,43 @@ def family_phase(torch, dev, card):
         audit_entries.append(audit_entry(
             torch, dev, xl_spec, aqp, x1, f"sesr_corrected_audit[{xl_spec.name}, {aqp.hw.pe} PEs]",
             tag, 14, (1, 1)))
+    # the wide form: the saturated M11 at pe16_wide, its largest |pe_add +
+    # bias| per layer on x1 from the plain interpreter's dumps on the card,
+    # on the corrected datapath (past 2^22 on conv 3 and the last conv, the
+    # adder's 24-bit clamp on the last) and the reference one (K1: past
+    # 2^22 on the last conv); then its counting form
+    m11_spec, wqp, _ = nets["m11w"]
+    hi16 = (1 << (wqp.hw.bias_bits - 1)) - 1
+    for corrected in (True, False):
+        _, dumps = integer_forward(m11_spec, wqp, x1, collect_dumps=True, corrected=corrected)
+        big = []
+        for i in range(m11_spec.num_convs):
+            bias = np.clip(np.asarray(wqp.bias_int[i], np.int64), -hi16 - 1, hi16) \
+                if corrected else wqp.fused_bias(i)
+            y = dumps[f"pe_add.{i}"].double() + torch.as_tensor(np.asarray(bias, np.float64),
+                                                                device=dev)
+            big.append(int(y.abs().max()))
+        layer = int(np.argmax(big))
+        print(f"[14] {m11_spec.name} at pe16_wide, convs {WIDE_SATURATED} at +127, "
+              f"{'corrected' if corrected else 'reference'} datapath on {tuple(x1.shape)}: the "
+              f"largest |pe_add + bias| is {big[layer]} on conv {layer} (2^22 = {1 << 22}; per "
+              f"layer {big}); overflow_18 {dumps['overflow_18'].tolist()}, overflow_20 "
+              f"{dumps['overflow_20'].tolist()}", flush=True)
+        if big[layer] <= 1 << 22:
+            fail(f"[14] the wide M11's sums stay within 2^22 on the "
+                 f"{'corrected' if corrected else 'reference'} datapath: {big}")
+        del dumps
+    reset_launch_counts()
+    audit_check(torch, m11_spec, wqp, x1, "pe16_wide, batch 1", 14)
+    if corrected_net.audit_launches != 1 or any(counts().values()):
+        fail(f"[14] the audit of m11w launched {counts()} and {corrected_net.audit_launches} "
+             f"counting launches, want one counting launch")
+    audited["m11w"] = wqp
+    audit_entries.append(audit_entry(
+        torch, dev, m11_spec, wqp, x1, f"sesr_corrected_audit[{m11_spec.name}, pe16_wide]", tag,
+        14, (1, 1)))
 
     # timing, each kernel batch 1 at its default tile and K1 / K2 over the sweep
-    reports = {lib: _build.ptxas_report(_build.build(lib).log, fam) for lib, fam in (
-        ("sesr_net", "sesr_net_kernel"), ("sesr_corrected", "sesr_corrected_kernel"))}
     lib = _build.load("sesr_net")
     lib_c = _build.load("sesr_corrected")
     entries = []
@@ -2964,8 +3178,19 @@ def family_phase(torch, dev, card):
              *[(corrected_net, f"xl_{c}", "pe-exact", "sim-c") for c in HW_CONFIGS],
              *[(pe_exact_net, f"xl_{c}", None, "sim") for c in HW_CONFIGS],
              (pe_exact_net, "xl_pe8_acc12", None, "sim"),
-             (corrected_net, "xl_pe8_acc12", "pe-exact", "sim-c")]
+             (corrected_net, "xl_pe8_acc12", "pe-exact", "sim-c"),
+             (pe_exact_net, "m11u_pe16", None, "sim"),
+             (corrected_net, "m11u_pe16", "pe-exact", "sim-c"),
+             (pe_exact_net, "xlu_pe16", None, "sim"),
+             (corrected_net, "xlu_pe16", "pe-exact", "sim-c"),
+             (pe_exact_net, "m11w", None, "sim"), (fast_net, "m11w", None, "fast"),
+             (corrected_net, "m11w", "hybrid", "hybrid"),
+             (corrected_net, "m11w", "pe-exact", "pe-exact")]
+    config_of = {**{f"xl_{c}": c for c in HW_CONFIGS}, "xl_pe8_acc12": "pe8_acc12",
+                 **NEW_FAMILY}
     for kern, key, mode, path_mode in cases:
+        if (key, path_mode) not in own:               # refused, or not served
+            continue
         n_launch, n_frames = own[key, path_mode]
         spec, qp, _ = nets[key]
         split_arg = split_layers(qp, mode) if mode else None
@@ -2973,11 +3198,11 @@ def family_phase(torch, dev, card):
         x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
         tile0 = kern.tile(spec, kc.pe_split, kc.pe, kc.general)
         ref = kern(spec, qp, x_q, split=split_arg)
-        label = (f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''}"
-                 f"{f' {key[3:]}' if key.startswith('xl_') else ''} {FRAME[0]}x{FRAME[1]}")
+        at = f" {config_of[key]}{' saturated' if key in NEW_FAMILY else ''}" \
+            if key in config_of else ""
+        label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''}{at} {FRAME[0]}x{FRAME[1]}"
+        pkey, (p_regs, p_spill) = ptxas_line(kern, spec, kc)
         if kern is corrected_net:
-            pkey = f"Li{pe_groups(kc.pe) if kc.general else 4}ELb{int(kc.general)}ELi{kc.width}"
-            p_regs, p_spill = reports["sesr_corrected"].get(pkey, (None, None))
             tiles = [tile0]
             mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
             plan = corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels, tile0,
@@ -2993,9 +3218,6 @@ def family_phase(torch, dev, card):
                   f"{'resident' if plan[1] == 0 else f'staged in {plan[1]} region(s)'}",
                   flush=True)
         else:
-            pkey = (f"Li{int(kern is fast_net)}ELi{spec.conv_out_channels}ELb{int(kc.general)}"
-                    f"ELi{kc.width}")
-            p_regs, p_spill = reports["sesr_net"].get(pkey, (None, None))
             tiles = []
             mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
             for tile in NET_TILES:
@@ -3011,7 +3233,9 @@ def family_phase(torch, dev, card):
                           f"memory, more than a block's {SMEM_LIMIT}: not taken", flush=True)
                 else:
                     tiles.append(tile)
-        pattern = "sesr_corrected_kernel" if kern is corrected_net else "sesr_net_kernel"
+            if config_of.get(key) in NEW_CONFIGS:       # the new configs: the default tile
+                tiles = [tile0]
+        pattern = kernel_family(kern, kc)
         attrs = launch_attrs(torch, {t: (lambda t=t: kern(spec, qp, x_q, tile=t, split=split_arg))
                                      for t in tiles}, pattern)
         weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
@@ -3044,20 +3268,20 @@ def family_phase(torch, dev, card):
         qp.save(qp_path)
         cupti_jobs.append(dict(label=label, spec=dataclasses.asdict(spec), qparams=qp_path,
                                symbol=kern.symbol, mode=mode, tile=list(tile0),
+                               pattern=kernel_family(kern, kc),
                                plan=kern.smem_bytes(spec, tile0, kc.pe_split, kc.pe,
                                                     kc.general)))
         kw = plain_kwargs(kern, qp, mode)
         plain_ms = median_ms(lambda: integer_forward(spec, qp, x1, **kw), dev, 3)
         print(f"[14] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, "
-              f"{'general' if kc.general else 'shipped'} instantiation <{pkey}>: ptxas {p_regs} "
+              f"{'general' if kc.general else 'shipped'} instantiation {pkey}: ptxas {p_regs} "
               f"registers, {p_spill} B spill stores; per-PE passes on convs "
               f"{[i for i in range(spec.num_convs) if kc.pe_split[i]]}; bound "
               f"{bnd[0] * 1e3:.3f} us ({bnd[1]}: {2 * macs:.4g} int8 ops, {moved} bytes), share "
               f"{bnd[0] / ms:.4f}; plain {plain_ms:.3f} ms; launches on the main path "
               f"{n_launch} over {n_frames} frames ({launches[kern.symbol]} of every "
               f"network) {tag}", flush=True)
-        at = f", {key[3:]}" if key.startswith("xl_") else ""
-        name = f"{kern.symbol}[{spec.name}{f', {mode}' if mode else ''}{at}]"
+        name = f"{kern.symbol}[{spec.name}{f', {mode}' if mode else ''}{at.replace(' ', ', ', 1)}]"
         entries.append(dict(
             name=name, route="cuda", source=SOURCES[kern.symbol],
             replaces=REPLACES[kern.symbol], launches=n_launch,
@@ -3075,7 +3299,7 @@ def family_phase(torch, dev, card):
     nr_spec = spec_for_task("nr")
     audited["nr"] = QuantParams.load(os.path.join(REPO, "artifacts", "qparams_nr.npz"))
     for key, aqp in audited.items():
-        aspec = nr_spec if key == "nr" else xl_spec
+        aspec = {"nr": nr_spec, "m11w": m11_spec}.get(key, xl_spec)
         split = split_layers(aqp, "pe-exact")
         kc = kernel_constants(aspec, aqp, "corrected", split)
         tile0 = corrected_net.tile(aspec, kc.pe_split, kc.pe, kc.general)
@@ -3084,10 +3308,15 @@ def family_phase(torch, dev, card):
         cupti_jobs.append(dict(label=f"sesr_corrected_audit {aspec.name} {aqp.hw.pe} PEs",
                                spec=dataclasses.asdict(aspec), qparams=qp_path,
                                symbol=corrected_net.symbol, mode="pe-exact", audit=True,
+                               pattern=kernel_family(corrected_net, kc, audit=True),
                                tile=list(tile0),
                                plan=corrected_net.smem_bytes(aspec, tile0, kc.pe_split, kc.pe,
                                                              kc.general)))
     entries += audit_entries
+    cupti_jobs += hw_jobs
+    labels = [job["label"] for job in cupti_jobs]
+    if len(set(labels)) != len(labels):
+        fail(f"[14] CUPTI jobs share a label: {sorted({k for k in labels if labels.count(k) > 1})}")
     jobs_path = os.path.join(cupti_dir, "jobs.json")
     with open(jobs_path, "w") as f:
         json.dump(cupti_jobs, f)
@@ -3096,7 +3325,10 @@ def family_phase(torch, dev, card):
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         fail(f"[14] the CUPTI process failed:\n{res.stdout[-2000:]}{res.stderr[-4000:]}")
-    attrs = json.loads(res.stdout.strip().splitlines()[-1])
+    *notes, last = res.stdout.strip().splitlines()
+    for line in notes:
+        print(f"[14] the CUPTI process: {line}", flush=True)
+    attrs = json.loads(last)
     for job in cupti_jobs:
         regs, smem = attrs[job["label"]]
         print(f"[14] {job['label']} tile {job['tile'][0]}x{job['tile'][1]}: CUPTI (a process "
@@ -3141,13 +3373,12 @@ def cupti_process(jobs_path):
         if job.get("audit"):
             def fn():
                 return corrected_net.audit(spec, qp, x_q, split, tile=tile)
-            pattern = "sesr_corrected_audit_kernel"
         else:
             def fn():
                 return kern(spec, qp, x_q, tile=tile, split=split)
-            pattern = "sesr_corrected_kernel" if kern is corrected_net else "sesr_net_kernel"
+        pattern = job["pattern"]
         fn()                                                      # loads the library
-        attrs.update(launch_attrs(torch, {job["label"]: fn}, pattern))
+        attrs.update(launch_attrs(torch, {job["label"]: fn}, pattern, tries=3))
     print(json.dumps(attrs), flush=True)
 
 
@@ -3650,7 +3881,7 @@ def main():
     sharding_launches = sharding_phase(torch, dev, card)
     print(f"[11] the sharding phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     # 12. the HardwareConfig family: one entry per (kernel, config)
-    hw_entries = hwconfig_phase(torch, dev, card)
+    hw_entries, hw_jobs = hwconfig_phase(torch, dev, card)
     for e in entries:
         for phase in (toolchain_launches, training_launches, export_launches,
                       sharding_launches):
@@ -3662,7 +3893,7 @@ def main():
     # 13. bench and profile (their launches stay out of the kernels line)
     bench_phase(torch, dev, card)
     # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode)
-    entries += family_phase(torch, dev, card)
+    entries += family_phase(torch, dev, card, hw_jobs)
     print(f"[14] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
           flush=True)
     print(card_line(), flush=True)

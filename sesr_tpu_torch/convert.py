@@ -29,14 +29,16 @@ from sesr_tpu_torch.quant.params import QuantParams
 # it (``param_words``).
 MAX_LAYERS = 16
 WIDTHS = (16, 32)                  # the hidden widths every fused kernel runs
-MAX_PES = 8
-HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6)
+MAX_PES = 16
+HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6, quant=7)
 HEAD_WORDS = 8
 RECORD = dict(w_off=0, z_eff=1, z_in=2, rq_m=3, rq_p=4, bias=8)      # zc: bias + width
 DATAPATHS = ("exact", "fast", "corrected")
 # the kernels' magic-number conversions (sesr_common.cuh kMagic) hold an
-# integer exactly while |y| < 2^22
+# integer exactly while |y| < 2^22; an artifact whose sums may pass it runs
+# the wide kernels (KernelConstants.wide: a plain int32, converted once)
 MAGIC_RANGE = 1 << 22
+QUAN_BITS = (2, 8)                 # the activation widths the kernels hold (int8 lanes)
 
 
 def kernel_width(num_channels: int) -> int:
@@ -84,10 +86,10 @@ def param_words(pe: int, num_layers: int, width: int = 16) -> int:
 
 def pe_groups(pe: int) -> int:
     """PE column groups of a split hidden layer in the corrected kernel
-    (sesr_corrected.cu pe_groups): 4 up to four PEs, else 8, so that every
-    PE count runs in one of two instantiations; the groups past ``pe`` hold
-    zero weights."""
-    return 4 if pe <= 4 else 8
+    (sesr_corrected.cu pe_groups): 4 up to four PEs, 8 up to eight, else
+    16, so that every PE count runs in one of three instantiations; the
+    groups past ``pe`` hold zero weights."""
+    return 4 if pe <= 4 else 8 if pe <= 8 else 16
 
 
 def quantparams_from_fields(fields: Mapping[str, Any]) -> QuantParams:
@@ -131,8 +133,9 @@ class KernelConstants:
     pe_split: tuple              # per layer: one accumulation pass per PE
     clamp20: tuple               # per layer: the kernel clamps the layer's sum to pe_add_bits
     pe: int                      # PEs of the artifact's datapath
-    general: bool                # K1 / corrected: the instantiation for any PE count and widths
+    general: bool                # the instantiation for any PE count, widths and quan_bits
     width: int                   # the hidden width the network runs at (kernel_width)
+    wide: bool = False           # general, and |pe_add + bias| may pass 2^22: the wide kernels
 
     def param(self, field: str, layer: int = 0):
         """A field of the parameter block: a head or record word, or conv
@@ -154,8 +157,9 @@ def _act_word(ic: int, c: int) -> tuple:
     """(word, byte) of input channel c in a pixel's 32-bit activation
     words: a pixel of a <= 4-channel input is one word (channel c in byte
     c); a 16- or 32-channel pixel is ic / 4 words, word w holding channels
-    w % 4 + 16 (w // 4) + 4 j in byte j, so that at four PEs PE p's
-    channels are words p and p + 4."""
+    w % 4 + 16 (w // 4) + 4 j in byte j, so that at a PE count that is a
+    multiple of four, PE p's channels (c % pe == p, so c % 4 == p % 4) lie in
+    words p % 4 and p % 4 + 4."""
     return (0, c) if ic <= 4 else (c % 4 + 4 * (c // 16), (c // 4) % 4)
 
 
@@ -186,13 +190,21 @@ def _tap_words(w_hwio: np.ndarray, split: bool, pe: int) -> np.ndarray:
     return words
 
 
+def pe_words(split: bool, pe: int) -> bool:
+    """Whether a split hidden layer's pass reads only its PE's words in K1
+    (``_act_word``): at a PE count that is a multiple of four; at any other
+    a pass reads all of them against B zero outside the PE's channels."""
+    return split and pe % 4 == 0
+
+
 def words_per_tap(ic: int, split: bool, pe: int) -> int:
     """Activation words one pass of a layer reads per tap in K1 and K2:
-    one for a <= 4-channel input; a split layer at four PEs PE p's own
-    (words p and p + 4 at 32 channels: ic / 16); else all ic / 4."""
+    one for a <= 4-channel input; a split layer at 4, 8, 12 or 16 PEs PE
+    p's own (words p % 4 and p % 4 + 4 at 32 channels: ic / 16); else all
+    ic / 4."""
     if ic <= 4:
         return 1
-    return ic // 16 if split and pe == 4 else ic // 4
+    return ic // 16 if pe_words(split, pe) else ic // 4
 
 
 def layer_geometry(k: int, ic: int, split: bool, pe: int):
@@ -201,11 +213,12 @@ def layer_geometry(k: int, ic: int, split: bool, pe: int):
     pass reads ``words_per_tap`` words a tap (wpt), 8 / wpt taps a chunk:
     k-slot s of chunk c is the pass's word s % wpt of tap (8 / wpt) c + s //
     wpt. Tap-major (any layer that reads one word per pixel, and a split
-    hidden layer at four PEs, whose pass p reads PE p's words: word j is p +
-    4 j); else (one pass over all channels, or a split layer at another PE
-    count, each pass over all ic / 4 words with zero weights outside the
-    PE's channels) word j is word j."""
-    tap_major = ic <= 4 or (split and pe == 4)
+    hidden layer at a PE count that is a multiple of four, whose pass p
+    reads PE p's words: word j is p % 4 + 4 j); else (one pass over all
+    channels, or a split layer at another PE count, each pass over all
+    ic / 4 words with zero weights outside the PE's channels) word j is
+    word j."""
+    tap_major = ic <= 4 or pe_words(split, pe)
     passes = len(_passes(ic, split, pe))
     chunks = -(-k * k * words_per_tap(ic, split, pe) // 8)
     return passes, chunks, tap_major
@@ -242,7 +255,7 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
     for p in range(npass):
         for c in range(chunks):
             tap, j = (8 // wpt) * c + slot // wpt, slot % wpt
-            word = (0 if ic <= 4 else p + 4 * j) if tap_major else j
+            word = (0 if ic <= 4 else p % 4 + 4 * j) if tap_major else j
             for n in range(cols.shape[0]):
                 o = cols[n, g][:, None]                        # (lane, 1)
                 ok = (tap < k * k) & (o >= 0)
@@ -317,21 +330,23 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     return out.view(np.int32)
 
 
-def _conv_range(w: np.ndarray, z: int):
+def _conv_range(w: np.ndarray, z: int, hw: HardwareConfig):
     """(lo, hi) per output channel of conv(q - z) with weights w (k, k, ic,
-    oc) over every int8 q: q - z lies in [-128 - z, 127 - z], and so does
-    the 0 that a position outside the image contributes (-128 <= z <= 127)."""
+    oc) over every activation q in [quan_min, quan_max] (int8's [-128, 127]
+    at quan_bits 8): q - z lies in [quan_min - z, quan_max - z], widened to
+    hold the 0 that a position outside the image contributes."""
     w = np.asarray(w, np.int64)
     pos, neg = np.maximum(w, 0), np.minimum(w, 0)
-    hi = ((127 - z) * pos + (-128 - z) * neg).sum(axis=(0, 1, 2))
-    lo = ((-128 - z) * pos + (127 - z) * neg).sum(axis=(0, 1, 2))
+    d_lo, d_hi = min(hw.quan_min - z, 0), max(hw.quan_max - z, 0)
+    hi = (d_hi * pos + d_lo * neg).sum(axis=(0, 1, 2))
+    lo = (d_lo * pos + d_hi * neg).sum(axis=(0, 1, 2))
     return lo, hi
 
 
 def _pe_ranges(qp: QuantParams, i: int, z: int) -> list:
     """_conv_range of conv i over each PE's input channels."""
     w = np.asarray(qp.w_int[i])
-    return [_conv_range(w[:, :, pe_channel_mask(w.shape[2], qp.hw.pe, p), :], z)
+    return [_conv_range(w[:, :, pe_channel_mask(w.shape[2], qp.hw.pe, p), :], z, qp.hw)
             for p in range(qp.hw.pe)]
 
 
@@ -345,8 +360,9 @@ def _pe_clamp_fires(qp: QuantParams, z_of) -> tuple:
 def pe_split_layers(qp: QuantParams) -> tuple:
     """Per layer: whether the PE-exact datapath's 18-bit clamp of a PE's
     partial sum can fire. The kernels' partial is conv(q, pads = z_eff) on
-    int8 values, so over every input it lies in [sum_{w>0} -128 w +
-    sum_{w<0} 127 w, sum_{w>0} 127 w + sum_{w<0} -128 w]; where that range
+    activations in [quan_min, quan_max] ([-128, 127] at 8 bits), so over
+    every input it lies in [sum_{w>0} quan_min w + sum_{w<0} quan_max w,
+    sum_{w>0} quan_max w + sum_{w<0} quan_min w]; where that range
     fits 18 bits for every PE and output channel, the clamp is the
     identity and the sum of the clamped partials is the full conv: the
     PE-exact kernel then runs the layer in one pass, as the fast kernel
@@ -367,7 +383,7 @@ def corrected_split_layers(qp: QuantParams) -> tuple:
 
 def adder_clamp_layers(qp: QuantParams, z_of, split) -> tuple:
     """Per layer: whether the PE adder's clamp (pe_add_bits) can fire on the
-    sum a kernel forms: conv over every int8 q with pads z_of(i) in a
+    sum a kernel forms: conv over every activation q with pads z_of(i) in a
     one-pass layer (``_conv_range``), or on a layer flagged in ``split`` the
     sum of each PE's range clamped to pe_acc_bits. z_of(i) = z_eff for the
     corrected datapath's conv(q - z_eff), 0 for the reference datapath's
@@ -382,7 +398,7 @@ def adder_clamp_layers(qp: QuantParams, z_of, split) -> tuple:
             lo = sum(np.clip(r[0], -acc_hi - 1, acc_hi) for r in ranges)
             hi = sum(np.clip(r[1], -acc_hi - 1, acc_hi) for r in ranges)
         else:
-            lo, hi = _conv_range(w, z_of(i))
+            lo, hi = _conv_range(w, z_of(i), hw)
         fire.append(bool((hi > add_hi).any() or (lo < -add_hi - 1).any()))
     return tuple(fire)
 
@@ -406,7 +422,7 @@ def pe_zero_terms(qp: QuantParams, i: int) -> np.ndarray:
 def shortcut_bound(qp: QuantParams, split0: bool = False) -> float:
     """The largest round(h) the corrected datapath's kernels can store as
     their residual shortcut (conv 0's ReLU output, kept as int16): over
-    every int8 input, conv(q - z_eff) is at most ``_conv_range``'s hi per
+    every input, conv(q - z_eff) is at most ``_conv_range``'s hi per
     channel; or, where conv 0 runs one pass per PE (``split0``), the sum
     over PEs of each PE's hi clamped to 18 bits. Then the 20-bit clamp, the
     clipped bias and the float32 requantization, all monotone."""
@@ -416,7 +432,7 @@ def shortcut_bound(qp: QuantParams, split0: bool = False) -> float:
         acc_hi = (1 << (hw.pe_acc_bits - 1)) - 1
         hi = sum(np.clip(h, -acc_hi - 1, acc_hi) for _, h in _pe_ranges(qp, 0, z))
     else:
-        hi = _conv_range(qp.w_int[0], z)[1]
+        hi = _conv_range(qp.w_int[0], z, hw)[1]
     hi16 = (1 << (hw.bias_bits - 1)) - 1
     y = np.minimum(hi, (1 << (hw.pe_add_bits - 1)) - 1) \
         + np.clip(np.asarray(qp.bias_int[0], np.int64), -hi16 - 1, hi16)
@@ -457,18 +473,24 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     clamp a one-pass layer to pe_add_bits only where that clamp can fire
     (``clamp20_layers``).
 
-    Any PE count from 1 to MAX_PES and any widths whose sums the kernels'
-    float conversions hold (|pe_add + bias| < 2^22) run: at four PEs with
-    no adder clamp that can fire on a K1 layer, a split corrected layer or
-    K2's conv 0, in the instantiations the shipped artifacts use; otherwise
-    in the ``general`` ones, which clamp every layer's sum to pe_add_bits
-    (the identity where it cannot fire). Networks of 3 to MAX_LAYERS convs
-    run at hidden widths of 16 and 32, and a narrower network runs padded
-    with zero channels (``_padded``). Raises NotImplementedError for a
-    network or artifact outside that (quan_bits != 8, more than MAX_LAYERS
-    convs, a hidden width above 32, an int16 shortcut that may not hold
-    round(s), ``shortcut_bound``, or a network whose plan at the kernel's
-    smallest tile does not fit a block's shared memory).
+    Any PE count from 1 to MAX_PES, activations of 2 to 8 bits (QUAN_BITS)
+    and any widths whose sums fit int32 run: at four PEs with int8
+    activations, sums the kernels' kMagic conversions hold (|pe_add + bias|
+    < 2^22) and no adder clamp that can fire on a K1 layer, a split
+    corrected layer or K2's conv 0, in the instantiations the shipped
+    artifacts use; otherwise in the ``general`` ones, which clamp every
+    layer's sum to pe_add_bits (the identity where it cannot fire) and clip
+    activations to [quan_min, quan_max] (head word "quant": 2^(quan_bits -
+    1)); where a pe_add_bits sum plus a bias_bits bias can reach 2^22
+    (``wide``) they run as the wide kernels, whose sums stay plain int32,
+    converted to float32 once. Networks
+    of 3 to MAX_LAYERS convs run at hidden widths of 16 and 32, and a
+    narrower network runs padded with zero channels (``_padded``). Raises
+    NotImplementedError for a network or artifact outside that (quan_bits
+    above 8, more than MAX_PES PEs, more than MAX_LAYERS convs, a hidden
+    width above 32, an int16 shortcut that may not hold round(s),
+    ``shortcut_bound``, or a network whose plan at the kernel's smallest
+    tile does not fit a block's shared memory).
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -481,17 +503,19 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
             raise ValueError(f"the corrected kernel takes one split flag per layer "
                              f"({L}), got {split!r}")
         split = tuple(bool(f) for f in split)
-    if hw.quan_bits != 8:
+    if not QUAN_BITS[0] <= hw.quan_bits <= QUAN_BITS[1]:
         raise NotImplementedError(
-            f"the fused kernels hold int8 activations (quan_bits=8), this artifact has "
-            f"quan_bits={hw.quan_bits}")
+            f"the fused kernels hold activations and weights as int8 (quan_bits "
+            f"{QUAN_BITS[0]} to {QUAN_BITS[1]}), this artifact has quan_bits={hw.quan_bits}")
     if not 1 <= hw.pe <= MAX_PES:
         raise NotImplementedError(f"the fused kernels run 1 to {MAX_PES} PEs, this "
                                   f"artifact has {hw.pe}")
-    if (1 << (hw.pe_add_bits - 1)) + (1 << (hw.bias_bits - 1)) >= MAGIC_RANGE:
+    reach = (1 << (hw.pe_add_bits - 1)) + (1 << (hw.bias_bits - 1))
+    if reach >= 1 << 31:
         raise NotImplementedError(
-            f"a {hw.pe_add_bits}-bit PE sum plus a {hw.bias_bits}-bit bias can reach 2^22, "
-            f"past the kernels' exact int <-> float32 conversions")
+            f"a {hw.pe_add_bits}-bit PE sum plus a {hw.bias_bits}-bit bias can pass the "
+            f"kernels' int32 sums")
+    wide = reach >= MAGIC_RANGE
     if not 3 <= L <= MAX_LAYERS:
         raise NotImplementedError(
             f"the fused kernels run 3 to {MAX_LAYERS} convs; {spec.name} has {L}")
@@ -513,17 +537,20 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                 f"requantization (m={m}, n={n}): the kernels round y * (m * 2^-n) "
                 f"once, which equals the reference's (y * m) * 2^-n only while "
                 f"m < 2^22 and |n| <= 64 keep every product a normal float")
+    # the general instantiation: every config but the shipped one's int8
+    # activations and sums the kMagic conversions hold
+    other = hw.quan_bits != 8 or wide
     if exact:
         split = pe_split_layers(qp)
         clamp = adder_clamp_layers(qp, lambda i: 0, split)
-        general = hw.pe != 4 or any(clamp)
+        general = hw.pe != 4 or any(clamp) or other
     elif datapath == "fast":
         split = (False,) * L
         clamp = clamp20_layers(qp)
-        general = clamp[0]
+        general = clamp[0] or other
     else:
         clamp = adder_clamp_layers(qp, qp.effective_zero, split)
-        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split))
+        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split)) or other
     if general:
         clamp = (True,) * L
     if not exact and shortcut_bound(qp, split[0]) > 32767:
@@ -584,8 +611,9 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     prm[HEAD["z_out"]] = _f32_bits(float(qp.a_zero[L]))
     prm[HEAD["acc_hi"]] = (1 << (hw.pe_acc_bits - 1)) - 1
     prm[HEAD["add_hi"]] = (1 << (hw.pe_add_bits - 1)) - 1
+    prm[HEAD["quant"]] = -hw.quan_min
     return KernelConstants(np.concatenate(chunks), prm, L, spec.in_channels,
-                           spec.conv_out_channels, split, clamp, hw.pe, general, width)
+                           spec.conv_out_channels, split, clamp, hw.pe, general, width, wide)
 
 
 def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,

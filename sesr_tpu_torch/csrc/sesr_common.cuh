@@ -15,7 +15,7 @@ namespace {
 
 constexpr int kMaxC = 32;       // the widest hidden width: 16 or 32 (a narrower network is padded to the next)
 constexpr int kMaxL = 16;       // deepest supported network
-constexpr int kMaxPE = 8;       // most PEs of a datapath
+constexpr int kMaxPE = 16;      // most PEs of a datapath
 
 // Layout of the int32 parameter block (kept in sync with
 // sesr_tpu_torch/convert.py param_at): a head of kHead words, then one
@@ -30,6 +30,8 @@ constexpr int P_ACC_HI = 3;               // per-PE accumulator max (pe_acc_bits
 constexpr int P_ADD_HI = 4;               // PE adder max (pe_add_bits; 20 shipped)
 constexpr int P_SPLIT = 5;                // bit i: conv i runs one pass per PE
 constexpr int P_CLAMP = 6;                // bit i: conv i's adder clamp can fire
+constexpr int P_QUANT = 7;                // the activations' half range 2^(quan_bits - 1)
+                                          // (128 shipped; read by the general forms)
 constexpr int kHead = 8;
 // fields of a conv's record
 constexpr int R_WOFF = 0;                 // weight word offset of the layer
@@ -67,7 +69,10 @@ __device__ __forceinline__ float as_f32(int bits) { return __int_as_float(bits);
 // Exact int <-> float32 conversions on the full-rate pipes (the conversion
 // instructions run at a quarter of the rate): kMagic = 1.5 * 2^23 has ulp 1,
 // so for |v| < 2^22 the bits of kMagic + v are kMagicBits + v, and a float
-// add of kMagic rounds to an integer, half to even, as rintf does.
+// add of kMagic rounds to an integer, half to even, as rintf does. Where a
+// sum may pass 2^22 (the wide kernels, convert.py KernelConstants.wide) it
+// stays a plain int32 and is converted once by __int2float_rn, which
+// rounds past 2^24 as the plain version's cast does.
 constexpr float kMagic = 12582912.f;
 constexpr int kMagicBits = 0x4B400000;
 
@@ -76,11 +81,17 @@ __device__ __forceinline__ float magic_to_f32(int v) {
   return __fsub_rn(__int_as_float(v), kMagic);
 }
 
-// clip(rintf(v), -128, 127) in the low byte of the result, for any finite v
-// (rounding is monotone, so clamping kMagic + v to kMagic -+ 128 / 127
-// clamps the rounded value).
-__device__ __forceinline__ int q8_bits(float v) {
-  return __float_as_int(fminf(fmaxf(__fadd_rn(v, kMagic), kMagic - 128.f), kMagic + 127.f));
+// clip(rintf(v), -half, half - 1) in the low byte of the result, for any
+// finite v, with lo = kMagic - half and hi = kMagic + half - 1 (int8's
+// [-128, 127] at half = 128; quant_half): rounding is monotone, so clamping
+// kMagic + v to [lo, hi] clamps the rounded value.
+__device__ __forceinline__ int qn_bits(float v, float lo, float hi) {
+  return __float_as_int(fminf(fmaxf(__fadd_rn(v, kMagic), lo), hi));
+}
+
+// The activations' half range 2^(quan_bits - 1), from the parameter block.
+__device__ __forceinline__ float quant_half(const int* prm) {
+  return static_cast<float>(prm[P_QUANT]);
 }
 
 // Bytes 0 of four words into one word.

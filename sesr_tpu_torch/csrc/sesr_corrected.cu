@@ -17,10 +17,15 @@
 // residual shortcut and the int8 output. Networks of 3 to 16 convs at
 // hidden width 16 (the shipped tasks, SESR-M11) or 32 (SESR-XL), C a
 // template parameter; a narrower network runs padded to the next. Any
-// HardwareConfig with 1 to 8 PEs and int8 activations runs: the 4-PE
-// artifacts in the shipped instantiation (<4, false, C>), every other in a
-// general one (<4, true, C> up to four PEs, <8, true, C> past them), which
-// clamps every sum to pe_add_bits.
+// HardwareConfig with 1 to 16 PEs and 2- to 8-bit activations runs: the
+// 4-PE int8 artifacts whose sums stay below 2^22 in the shipped
+// instantiation (<4, false, C>), every other in a general one (<4, true, C>
+// up to four PEs, <8, true, C> up to eight, <16, true, C> past them), which
+// clamps every sum to pe_add_bits and clips activations to the artifact's
+// [-2^(b-1), 2^(b-1) - 1]; where a sum may pass 2^22 the general
+// instantiation's wide form (sesr_corrected_wide_kernel, and
+// sesr_corrected_audit_wide_kernel counting) keeps it a plain int32,
+// converted once by __int2float_rn.
 //
 // Its counting form, sesr_corrected_audit (sesr_corrected_audit_kernel, an
 // instantiation of the same body with COUNT set, at each <G, GEN, C>), is
@@ -58,23 +63,25 @@
 //     then 4-7 at LBO = 64 bytes, 5-7 against zero weights): 5 steps for the
 //     5x5 conv, where 25 taps of 4 bytes need 100 of its 160 bytes of k;
 //   - each PE's partial in its own accumulator columns: a split layer is one
-//     pass with N = G x OC columns, G = pe_groups(pe) (4, or 8 past four
-//     PEs; layer 0: min(in_ch, pe) x C), column (p, o) holding W[o] on PE
+//     pass with N = G x OC columns, G = pe_groups(pe) (4, 8 past four PEs,
+//     16 past eight; layer 0: min(in_ch, pe) x C), column (p, o) holding W[o] on PE
 //     p's channel bytes (c % pe == p) and zero elsewhere, a group past the
 //     PEs all zero (convert.py _wgmma_b_words). A is read once, not once
 //     per PE; the epilogue adds -z_eff * sum(W_p) (pe_zero_terms) to each
 //     group, clamps it to pe_acc_bits and adds the groups. The tensor cores
 //     do G x the MACs on a split layer, which they have room for. N past
-//     kMaxN (a split hidden layer at width 32 past four PEs: 256 columns,
-//     more accumulators than a thread has registers) runs as chunks of
+//     kMaxN (a split hidden layer at width 32 past four PEs or at width 16
+//     past eight: 256 or 512 columns, more accumulators than a thread has
+//     registers) runs as chunks of
 //     kMaxN columns, one after another over the same A, each chunk's
 //     clamped partials folded into the rows' sums before the next;
 //   - at width 16 every layer's B (K-major, no swizzle: b_byte) and the
 //     parameter block are loaded into shared memory once per block; the
 //     grid is persistent (one block per SM, the blocks walk the tiles), so
 //     that happens once per SM. At width 32 no tile holds every layer's B
-//     (SESR-XL's 13 convs need 119 to 929 KB), so B is staged a layer at a
-//     time with cp.async: into two regions, even and odd layers, the next
+//     (SESR-XL's 13 convs need 119 to 929 KB), and at 16 PE groups a split
+//     5x5 layer's alone is 104 KB, so there (staged_b) B is staged a layer
+//     at a time with cp.async: into two regions, even and odd layers, the next
 //     layer's B loaded while a layer computes, where the plan has room; else
 //     into one, loaded after the layer's barrier (smem_plan, w_bufs);
 //   - four warpgroups take a layer's 64-row m-tiles in turn, each m-tile
@@ -137,6 +144,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 #include "sesr_common.cuh"
 
 namespace {
@@ -154,9 +163,15 @@ constexpr int kSmemLimit = 232448;          // a block's shared memory on the H1
 constexpr int kLoadBatch = 8;               // input pixels per thread in flight
 constexpr int kMaxN = 128;                  // most columns of a wgmma: a wider layer runs in chunks
 
-// PE column groups of a split hidden layer: 4 up to four PEs, else 8
-// (convert.py pe_groups); the groups past the PE count hold zero weights.
-__host__ __device__ constexpr int pe_groups(int pe) { return 4 + 4 * (pe > 4); }
+// PE column groups of a split hidden layer: 4 up to four PEs, 8 up to eight,
+// else 16 (convert.py pe_groups); the groups past the PE count hold zero
+// weights.
+__host__ __device__ constexpr int pe_groups(int pe) { return 4 + 4 * (pe > 4) + 8 * (pe > 8); }
+
+// Whether B is staged a layer at a time (width 32, and 16 PE groups, whose
+// split layers' B is 16 times a one-pass layer's) rather than resident for
+// every layer.
+__host__ __device__ constexpr bool staged_b(int G, int C) { return C == 32 || G == 16; }
 
 // k32 steps of a K x K layer of input width C: one per kernel row for layer 0
 // (its pixels widened to four horizontal neighbours), else 32 / C taps a step.
@@ -323,9 +338,9 @@ __host__ __device__ inline int in_plane(int layer, int L, int th, int tw, int C)
 }
 
 struct Plan {
-  int w_at, w_bytes;   // B: every layer's (width 16), or w_bufs regions of one layer's
-  int w_bufs;          // width 32: 2 (layer i's B in region i % 2) or 1
-  int w_odd;           // width 32, two regions: the odd layers' region, from w_at
+  int w_at, w_bytes;   // B: every layer's (resident), or w_bufs regions of one layer's
+  int w_bufs;          // staged: 2 (layer i's B in region i % 2) or 1; resident: 0
+  int w_odd;           // staged, two regions: the odd layers' region, from w_at
   int x_at, y_at;      // the ping-pong buffers: layer i reads x (even i) or y (odd i)
   int sc_at;           // the shortcut
   int scratch_at;      // kScratch bytes
@@ -333,13 +348,14 @@ struct Plan {
 };
 
 // Shared memory of one block: the parameter block (param_words(L, C, pe)), B
-// (width 16: every layer's; width 32: two regions, the even layers' and the
-// odd layers', where that fits a block, else one region of the largest
-// layer's), the buffers (y also holds layer 0's input as one word a pixel
+// (resident: every layer's; staged, staged_b: two regions, the even layers'
+// and the odd layers', where that fits a block, else one region of the
+// largest layer's; G: the instantiation's PE column groups, pe_groups(pe)),
+// the buffers (y also holds layer 0's input as one word a pixel
 // while it is widened into x; at width 32 a layer's input is two planes of
 // in_plane bytes), the shortcut and the scratch word.
-__host__ __device__ inline Plan smem_plan(int split, int pe, int L, int in_ch, int ocl, int th,
-                                          int tw, int C) {
+__host__ __device__ inline Plan smem_plan(int G, int split, int pe, int L, int in_ch, int ocl,
+                                          int th, int tw, int C) {
   Plan p;
   p.w_at = round_up(param_words(L, C, pe) * 4, kAlign);
   int all = 0, even = 0, odd = 0;
@@ -357,9 +373,10 @@ __host__ __device__ inline Plan smem_plan(int split, int pe, int L, int in_ch, i
     dst = dst > b ? dst : b;
   }
   const int r_sc = ring(L - 1, L);
-  p.w_bufs = C == 16 ? 0 : 2;
-  p.w_odd = C == 16 ? 0 : round_up(even, kAlign);
-  p.w_bytes = C == 16 ? all : p.w_odd + odd;
+  const bool staged = staged_b(G, C);
+  p.w_bufs = staged ? 2 : 0;
+  p.w_odd = staged ? round_up(even, kAlign) : 0;
+  p.w_bytes = staged ? p.w_odd + odd : all;
   for (;;) {
     p.x_at = round_up(p.w_at + p.w_bytes, kAlign);
     p.y_at = round_up(p.x_at + x, kAlign);
@@ -403,7 +420,9 @@ struct Layer {
 // A thread's view of conv `ly.layer` in one form: NG PE groups of columns,
 // each PE's partial clamped to pe_acc_bits (SPLIT), or one group; the sum
 // clamped to pe_add_bits where CLAMP. GEN: the general instantiation (any
-// PE count, NG past it padded with zero groups). C: the hidden width.
+// PE count, NG past it padded with zero groups; activations in [-half, half
+// - 1], quant_half); WIDE (GEN only): the sum a plain int32, converted to
+// float32 once, for sums that may pass 2^22. C: the hidden width.
 // Everything a warpgroup's m-tile needs is held here, and issue / epilogue
 // are inlined, so the accumulators stay in registers; past four groups, and
 // at width 32, the PE zero terms are read from shared memory in the
@@ -412,8 +431,9 @@ struct Layer {
 // the counting form): each thread counts the partials the 18-bit clamp
 // changes at the outputs of its count window.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false>
+          bool COUNT = false, bool WIDE_SUM = false>
 struct Form {
+  static_assert(GEN || !WIDE_SUM, "the wide form is the general instantiation's");
   static constexpr int WIDE = KIND == FIRST;
   static constexpr int J = OCP / 8;                              // 8-column tiles of a group
   static constexpr int N = NG * OCP;                             // the layer's columns
@@ -431,6 +451,7 @@ struct Form {
   int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, add_hi, frame, L, pe;
   unsigned iw_magic;
   float rq_s, rq_c;
+  float half_;           // GEN: the activations' half range (quant_half)
   float z_next, res_s;   // the next layer's domain-in zero (z_out for LAST); s_1 / s_{L-1}
   int pad_next;          // a pad word of the next layer's input
   bool prelast;
@@ -472,6 +493,7 @@ struct Form {
     // read as the float kMagic + y, one FFMA: fl(a * s - kMagic * s)
     rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, C)]), as_f32(prm[p_at(layer, R_RQP, C)]));
     rq_c = -kMagic * rq_s;
+    if constexpr (GEN) half_ = quant_half(prm);
     prelast = KIND == MID && layer == L - 2;
     z_next = as_f32(prm[KIND == LAST ? P_ZOUT : p_at(layer + 1, R_ZIN, C)]);
     res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
@@ -485,17 +507,18 @@ struct Form {
     sc_h = net.sc_h;
     out = net.out;
     // value v = 2 j + e of a group is column acc_col(j, lane, e): a row's sum
-    // ends as kMagicBits + y_int. A one-pass layer adds base = bias +
-    // kMagicBits - z_eff * sum(W) (its adder clamp, where it runs, shifted
-    // by bias + kMagicBits); a split layer adds bias + kMagicBits to the sum
-    // of its PEs' clamped partials, PE p's started from -z_eff * sum(W_p)
-    // (0 for a group past the PEs). A split layer's z_eff * sum(W) words
-    // are 0 (convert.py), so there base is bias + kMagicBits.
+    // ends as kMagicBits + y_int (WIDE_SUM: y_int). A one-pass layer adds
+    // base = bias + kMagicBits - z_eff * sum(W) (its adder clamp, where it
+    // runs, shifted by bias + kMagicBits); a split layer adds bias +
+    // kMagicBits to the sum of its PEs' clamped partials, PE p's started
+    // from -z_eff * sum(W_p) (0 for a group past the PEs). A split layer's
+    // z_eff * sum(W) words are 0 (convert.py), so there base is bias +
+    // kMagicBits. WIDE_SUM leaves kMagicBits out of each.
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int o = col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST);
       const bool ok = o < oc;
-      const int b = (ok ? prm[p_at(layer, R_BIAS, C) + o] : 0) + kMagicBits;
+      const int b = (ok ? prm[p_at(layer, R_BIAS, C) + o] : 0) + (WIDE_SUM ? 0 : kMagicBits);
       base[v] = b - (ok ? prm[p_at(layer, R_BIAS, C) + C + o] : 0);
       if constexpr (BOUNDS_REGS) {
         lo[v] = b - add_hi - 1;
@@ -527,6 +550,14 @@ struct Form {
       cx1 = count_hi(net.t.ox0, net.t.tw, r_out, W, net.cx1);
     }
   }
+
+  // the activations' half range and qn_bits's clip bounds: int8's but in GEN
+  __device__ __forceinline__ float half() const {
+    if constexpr (GEN) return half_;
+    else return 128.f;
+  }
+  __device__ __forceinline__ float q_lo() const { return kMagic - half(); }
+  __device__ __forceinline__ float q_hi() const { return kMagic + (half() - 1.f); }
 
   // m-tile mt's wgmmas over chunk hc of the columns, one commit group
   __device__ __forceinline__ void issue(uint32_t (&d)[R], int mt, int hc) const {
@@ -622,15 +653,16 @@ struct Form {
           yi = static_cast<int>(d[4 * (v >> 1) + i]) + base[v];
           if constexpr (CLAMP) yi = min(max(yi, lo[v]), hi[v]);
         }
-        hq[v] = __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
+        hq[v] = WIDE_SUM ? __fmul_rn(__int2float_rn(yi), rq_s)
+                         : __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
       }
       if constexpr (KIND == LAST) {
         int8_t* dst = out + ((static_cast<size_t>(frame) * H + gy) * W + gx) * oc;
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           const int o = 8 * j + 2 * tq;
-          const int v0 = q8_bits(__fadd_rn(hq[2 * j], z_next));
-          const int v1 = q8_bits(__fadd_rn(hq[2 * j + 1], z_next));
+          const int v0 = qn_bits(__fadd_rn(hq[2 * j], z_next), q_lo(), q_hi());
+          const int v1 = qn_bits(__fadd_rn(hq[2 * j + 1], z_next), q_lo(), q_hi());
           if ((oc & 1) == 0) {
             uint16_t* p = inside && o < oc ? reinterpret_cast<uint16_t*>(dst + o)
                                            : reinterpret_cast<uint16_t*>(scratch);
@@ -658,20 +690,20 @@ struct Form {
             for (int j = 0; j < 4; ++j) {
               const int s = static_cast<int16_t>((j < 2 ? s2.x : s2.y) >> (16 * (j & 1)));
               const float tr = __fadd_rn(magic_to_f32(s + kMagicBits), rintf(hq[4 * w + j]));
-              v[4 * w + j] = q8_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next));
+              v[4 * w + j] = qn_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next), q_lo(), q_hi());
             }
           }
         } else if (KIND == FIRST) {
 #pragma unroll
-          for (int j = 0; j < V; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
+          for (int j = 0; j < V; ++j) v[j] = qn_bits(__fadd_rn(hq[j], z_next), q_lo(), q_hi());
         } else {
           // ReLU folded into the low bound: fl(max(h, 0) + z) = max(fl(h + z), z)
-          // and rounding is monotone, so clip(rint(.), max(z, -128), 127)
-          const float lo_q = kMagic + fmaxf(z_next, -128.f);
+          // and rounding is monotone, so clip(rint(.), max(z, -half), half - 1)
+          const float lo_q = kMagic + fmaxf(z_next, -half());
 #pragma unroll
           for (int j = 0; j < V; ++j)
             v[j] = __float_as_int(
-                fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo_q), kMagic + 127.f));
+                fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo_q), q_hi()));
         }
         // this thread's word of the pixel in each plane, channels 16 w + 4 tq
         // .. 16 w + 4 tq + 3; z_eff in every byte outside the frame
@@ -711,9 +743,9 @@ struct Form {
 // into the kernel: ptxas serializes every wgmma of a pipeline that crosses a
 // function call.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false>
+          bool COUNT = false, bool WIDE_SUM = false>
 __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM>;
   const F f(ly, net);
   const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
   // the warpgroup's index, uniform to the compiler as well
@@ -748,30 +780,31 @@ __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
 // else G groups), else one pass, clamped to pe_add_bits where its clamp bit
 // is set; OCP columns a group (8 for a last layer of <= 8 channels, else
 // 16; C for a hidden layer). The general instantiation (GEN) clamps every
-// layer's sum to pe_add_bits, the identity where that clamp cannot fire.
-// COUNT: the counting form of the split layers (a one-pass layer has no
-// 18-bit clamp to count).
-template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT>
+// layer's sum to pe_add_bits, the identity where that clamp cannot fire;
+// WIDE_SUM: its wide form. COUNT: the counting form of the split layers (a
+// one-pass layer has no 18-bit clamp to count).
+template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT, bool WIDE_SUM>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
+  constexpr bool W = WIDE_SUM;
   if ((prm[P_SPLIT] >> ly.layer) & 1) {
     if constexpr (KIND == FIRST) {
       switch (GEN ? min(in_ch, net.pe) : in_ch) {
-        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT>(ly, net); return;
-        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT>(ly, net); return;
-        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT>(ly, net); return;
-        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT>(ly, net); return;
+        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT, W>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT, W>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT, W>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT, W>(ly, net); return;
       }
     } else {
-      conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT>(ly, net);
+      conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>(ly, net);
       return;
     }
   }
   if (GEN || ((prm[P_CLAMP] >> ly.layer) & 1)) {
-    conv_layer<KIND, K, OCP, 1, false, true, GEN, C>(ly, net);
+    conv_layer<KIND, K, OCP, 1, false, true, GEN, C, false, W>(ly, net);
     return;
   }
-  conv_layer<KIND, K, OCP, 1, false, false, GEN, C>(ly, net);
+  conv_layer<KIND, K, OCP, 1, false, false, GEN, C, false, W>(ly, net);
 }
 
 // cp.async of `bytes` (a multiple of 16) from device memory into shared
@@ -785,13 +818,14 @@ __device__ __forceinline__ void stage_b(uint8_t* dst, const int* __restrict__ sr
 
 __device__ __forceinline__ void b_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
-// The whole network over every tile, the body of both kernels. G: PE groups
+// The whole network over every tile, the body of every kernel. G: PE groups
 // of a split hidden layer (pe_groups); GEN: the general instantiation (any
 // PE count and widths, convert.py KernelConstants.general); C: the hidden
 // width, 16 or 32; COUNT: the counting form, which adds to counts[i] the PE
 // partials the 18-bit clamp changed on split layer i at the outputs in the
-// count region [cy0, cy1) x [cx0, cx1).
-template <int G, bool GEN, int C, bool COUNT>
+// count region [cy0, cy1) x [cx0, cx1); WIDE_SUM (GEN only,
+// KernelConstants.wide): every sum a plain int32, for sums past 2^22.
+template <int G, bool GEN, int C, bool COUNT, bool WIDE_SUM>
 __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                                           const int* __restrict__ weights,
                                           const int* __restrict__ params, int n, int H, int W,
@@ -799,22 +833,23 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
                                           int pe, unsigned long long* counts, int cy0, int cy1,
                                           int cx0, int cx1) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const Plan pl = smem_plan(split, pe, L, in_ch, out_ch, th, tw, C);
+  const Plan pl = smem_plan(G, split, pe, L, in_ch, out_ch, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem);
   uint8_t* wsm = smem + pl.w_at;
   uint8_t* bx = smem + pl.x_at;
   uint8_t* by = smem + pl.y_at;
 
-  // the parameter block and (width 16) every layer's B, once per block
+  // the parameter block and (resident B) every layer's B, once per block
+  constexpr bool kStaged = staged_b(G, C);
   for (int i = threadIdx.x; i < param_words(L, C, pe); i += kThreads) prm[i] = __ldg(params + i);
-  if constexpr (C == 16) {
+  if constexpr (!kStaged) {
     const int4* w4 = reinterpret_cast<const int4*>(weights);
     for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
       reinterpret_cast<int4*>(wsm)[i] = __ldg(w4 + i);
     fence_proxy_async();
   }
   __syncthreads();
-  // width 32: where layer i's B is staged, and from where
+  // staged B: where layer i's B is staged, and from where
   auto b_region = [&](int i) { return wsm + (i % 2) * pl.w_odd; };
   auto stage_layer = [&](int i) {
     stage_b(b_region(i), weights + prm[p_at(i, R_WOFF, C)],
@@ -853,7 +888,7 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
     const int rem = tile - net.frame * per_frame;
     net.t.oy0 = (rem / tiles_x) * th;
     net.t.ox0 = (rem % tiles_x) * tw;
-    if constexpr (C == 32) stage_layer(0);           // while the input loads
+    if constexpr (kStaged) stage_layer(0);           // while the input loads
 
     // layer 0's input, one word a pixel (channel c in byte c; z_eff outside
     // the frame), into y; kLoadBatch pixels per thread at a time, their
@@ -887,39 +922,39 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
     for (int p = threadIdx.x; p < cap0; p += kThreads)
       wide[p] = make_int4(raw[min(p, n0 - 1)], raw[min(p + 1, n0 - 1)], raw[min(p + 2, n0 - 1)],
                           raw[min(p + 3, n0 - 1)]);
-    if constexpr (C == 32) b_wait();
+    if constexpr (kStaged) b_wait();
     fence_proxy_async();
     __syncthreads();
 
     uint8_t* cur = bx;
     uint8_t* nxt = by;
     for (int i = 0; i < L; ++i) {
-      // width 32, two regions: the next layer's B into the region the layer
+      // staged B, two regions: the next layer's B into the region the layer
       // before this one read
-      if (C == 32 && pl.w_bufs == 2 && i + 1 < L) stage_layer(i + 1);
+      if (kStaged && pl.w_bufs == 2 && i + 1 < L) stage_layer(i + 1);
       Layer ly;
       const int r = ring(i, L);
       ly.in = cur;
       ly.ih = th + 2 * r;
       ly.iw = tw + 2 * r;
       ly.plane = in_plane(i, L, th, tw, C);
-      ly.w = C == 16 ? wsm + 4 * prm[p_at(i, R_WOFF, C)] : b_region(i);
+      ly.w = kStaged ? b_region(i) : wsm + 4 * prm[p_at(i, R_WOFF, C)];
       ly.next = reinterpret_cast<int*>(nxt);
       ly.next_plane = in_plane(i + 1, L, th, tw, C) / 4;
       ly.layer = i;
       if (i == 0)
-        conv_form<FIRST, 5, C, G, GEN, C, COUNT>(ly, net, in_ch);
+        conv_form<FIRST, 5, C, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
       else if (i < L - 1)
-        conv_form<MID, 3, C, G, GEN, C, COUNT>(ly, net, in_ch);
+        conv_form<MID, 3, C, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
       else if (out_ch <= 8)
-        conv_form<LAST, 5, 8, G, GEN, C, COUNT>(ly, net, in_ch);
+        conv_form<LAST, 5, 8, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
       else
-        conv_form<LAST, 5, 16, G, GEN, C, COUNT>(ly, net, in_ch);
-      if constexpr (C == 32) b_wait();
+        conv_form<LAST, 5, 16, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
+      if constexpr (kStaged) b_wait();
       fence_proxy_async();
       __syncthreads();
-      // width 32, one region: the next layer's B once this one is done
-      if (C == 32 && pl.w_bufs == 1 && i + 1 < L) {
+      // staged B, one region: the next layer's B once this one is done
+      if (kStaged && pl.w_bufs == 1 && i + 1 < L) {
         stage_layer(i + 1);
         b_wait();
         fence_proxy_async();
@@ -939,8 +974,8 @@ sesr_corrected_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                       const int* __restrict__ weights, const int* __restrict__ params,
                       int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
                       int split, int pe) {
-  run_tiles<G, GEN, C, false>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw, split,
-                              pe, nullptr, 0, 0, 0, 0);
+  run_tiles<G, GEN, C, false, false>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw,
+                                     split, pe, nullptr, 0, 0, 0, 0);
 }
 
 // The counting form (the runtime audit's shadow run): the served kernel's
@@ -952,8 +987,31 @@ sesr_corrected_audit_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ o
                             int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
                             int split, int pe, unsigned long long* counts, int cy0, int cy1,
                             int cx0, int cx1) {
-  run_tiles<G, GEN, C, true>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw, split,
-                             pe, counts, cy0, cy1, cx0, cx1);
+  run_tiles<G, GEN, C, true, false>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw,
+                                    split, pe, counts, cy0, cy1, cx0, cx1);
+}
+
+// The general instantiation's wide forms (KernelConstants.wide), served and
+// counting.
+template <int G, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_wide_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                           const int* __restrict__ weights, const int* __restrict__ params,
+                           int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
+                           int split, int pe) {
+  run_tiles<G, true, C, false, true>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw,
+                                     split, pe, nullptr, 0, 0, 0, 0);
+}
+
+template <int G, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_audit_wide_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                 const int* __restrict__ weights, const int* __restrict__ params,
+                                 int n, int H, int W, int L, int in_ch, int out_ch, int th,
+                                 int tw, int split, int pe, unsigned long long* counts, int cy0,
+                                 int cy1, int cx0, int cx1) {
+  run_tiles<G, true, C, true, true>(x, out, weights, params, n, H, W, L, in_ch, out_ch, th, tw,
+                                    split, pe, counts, cy0, cy1, cx0, cx1);
 }
 
 bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int width) {
@@ -961,7 +1019,8 @@ bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int 
          (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
          tw <= 1024 && (split >> L) == 0 && pe >= 1 && pe <= kMaxPE &&
          (width == 16 || width == kMaxC) &&
-         smem_plan(split, pe, L, in_ch, out_ch, th, tw, width).bytes <= kSmemLimit;
+         smem_plan(pe_groups(pe), split, pe, L, in_ch, out_ch, th, tw, width).bytes <=
+             kSmemLimit;
 }
 
 // The count region and counters of a launch of the counting form; counts
@@ -971,13 +1030,26 @@ struct Count {
   int y0, y1, x0, x1;
 };
 
-template <int G, bool GEN, int C>
+// The served kernel and the counting form of instantiation GK: 0 shipped,
+// 1 general, 2 general and wide.
+template <int G, int GK, int C>
+auto kernels_of() {
+  if constexpr (GK == 2)
+    return std::make_pair(&sesr_corrected_wide_kernel<G, C>,
+                          &sesr_corrected_audit_wide_kernel<G, C>);
+  else
+    return std::make_pair(&sesr_corrected_kernel<G, GK == 1, C>,
+                          &sesr_corrected_audit_kernel<G, GK == 1, C>);
+}
+
+template <int G, int GK, int C>
 cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                    int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                    const Count& cnt, cudaStream_t stream) {
-  const int bytes = smem_plan(split, pe, L, in_ch, out_ch, th, tw, C).bytes;
-  auto* kernel = sesr_corrected_kernel<G, GEN, C>;
-  auto* audit = sesr_corrected_audit_kernel<G, GEN, C>;
+  const int bytes = smem_plan(G, split, pe, L, in_ch, out_ch, th, tw, C).bytes;
+  const auto pair = kernels_of<G, GK, C>();
+  auto* kernel = pair.first;
+  auto* audit = pair.second;
   const void* fn = cnt.counts ? reinterpret_cast<const void*>(audit)
                               : reinterpret_cast<const void*>(kernel);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1001,25 +1073,38 @@ cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, i
   return cudaGetLastError();
 }
 
-// the instantiation of width C: shipped, or general at 4 or 8 PE groups
+// the general instantiation GK (1, or 2 wide) of width C at 4, 8 or 16 PE
+// groups
+template <int GK, int C>
+cudaError_t launch_groups(const int8_t* x, int8_t* out, const int* w, const int* prm, int n,
+                          int h, int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
+                          int pe, const Count& cnt, cudaStream_t s) {
+  if (pe_groups(pe) == 4)
+    return launch<4, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+  if (pe_groups(pe) == 8)
+    return launch<8, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+  return launch<16, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+}
+
+// the instantiation of width C: shipped, or general (1), or its wide form (2)
 template <int C>
 cudaError_t launch_width(const int8_t* x, int8_t* out, const int* w, const int* prm, int n,
                          int h, int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
                          int pe, int general, const Count& cnt, cudaStream_t s) {
   if (!general)
-    return launch<4, false, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
+    return launch<4, 0, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+  if (general == 1)
+    return launch_groups<1, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
                                s);
-  if (pe_groups(pe) == 4)
-    return launch<4, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
-                              s);
-  return launch<8, true, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+  return launch_groups<2, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
+                             s);
 }
 
 int launch_net(const void* x, void* out, const void* weights, const void* params, int n, int h,
                int w, int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
                int pe, int general, int width, const Count& cnt, void* stream) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) ||
-      (!general && pe != 4) || (reinterpret_cast<uintptr_t>(weights) & 15))
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) || general < 0 ||
+      general > 2 || (!general && pe != 4) || (reinterpret_cast<uintptr_t>(weights) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
@@ -1042,8 +1127,9 @@ extern "C" {
 // weights / params: int32 device arrays built by sesr_tpu_torch/convert.py
 // (weights 16-byte aligned); split: bit i set where conv i runs one pass per
 // PE, the params' pe_split word (B's size depends on it); pe: the
-// datapath's PEs; general: the instantiation for any PE count and widths
-// (KernelConstants.general; required where pe != 4); width: the hidden
+// datapath's PEs; general: the instantiation, 0 the shipped one, 1 the one
+// for any PE count and widths (KernelConstants.general; required where pe
+// != 4), 2 its wide form (KernelConstants.wide); width: the hidden
 // width the network runs at, 16 or 32 (KernelConstants.width).
 int sesr_corrected_net(const void* x, void* out, const void* weights, const void* params,
                        int n, int h, int w, int num_layers, int in_ch, int out_ch,
@@ -1075,7 +1161,8 @@ int sesr_corrected_audit(const void* x, void* out, const void* weights, const vo
 int sesr_corrected_smem(int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
                         int pe, int width) {
   if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width)) return 0;
-  return smem_plan(split, pe, num_layers, in_ch, out_ch, tile_h, tile_w, width).bytes;
+  return smem_plan(pe_groups(pe), split, pe, num_layers, in_ch, out_ch, tile_h, tile_w, width)
+      .bytes;
 }
 
 const char* sesr_corrected_error_string(int err) {

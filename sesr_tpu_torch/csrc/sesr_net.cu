@@ -34,14 +34,16 @@
 //     shipped) can fire (then the sum of the clamped PE sums is the full
 //     sum). One pass per PE, each PE's sum clamped before adding: K1 on the
 //     other layers; at 4 PEs k = (tap, byte of PE p's words p (and p + 4 at
-//     C = 32)), 8 (4) taps per chunk,
+//     C = 32)), 8 (4) taps per chunk, at 8, 12 or 16 PEs the same over PE
+//     p's words p % 4 (and p % 4 + 4), whose other bytes meet zero weights,
 //     at any other PE count k as in the one-pass form with B zero outside
 //     the PE's channels (c % pe == p). Layer 0 (one word of <= 4 channels)
 //     takes 8 taps per chunk, once per PE that owns an input channel when
 //     split. The adder clamp (20 bits shipped) runs only where it can fire
 //     (K2), or on every layer in the general instantiation that any other
 //     HardwareConfig runs (K1 off 4 PEs; a K1 or K2 whose adder clamp can
-//     fire);
+//     fire, whose activations are not int8 or whose sums may pass 2^22),
+//     which clips activations to the artifact's [-2^(b-1), 2^(b-1) - 1];
 //   - activations stay int8 from layer to layer, packed four channels to a
 //     32-bit word: word w of a pixel holds channels w % 4 + 16 (w / 4) + 4 j
 //     (16 channels: word p holds p, p+4, p+8, p+12; 32 channels: eight
@@ -57,7 +59,9 @@
 //     reference's zero-restored partial (K1); the corrected datapath starts
 //     its accumulator from -z_eff * sum(W) (K2). This needs -128 <= z_eff <=
 //     127, which the host checks. The accumulator also starts from the bias
-//     plus kMagicBits, so requantization is one FFMA on its bits;
+//     plus kMagicBits, so requantization is one FFMA on its bits (the
+//     general instantiation's wide form, for sums that may pass 2^22: from
+//     the bias alone, the clamped int32 converted once, __int2float_rn);
 //   - extents shrink by k/2 per layer (a tile recomputes its halo on every
 //     layer: MACs computed over MACs needed 1.29 for sr_x2 at 32x32, 1.98
 //     for SESR-M11 at 32x32, 2.48 for SESR-XL at 24x24); a layer's weights
@@ -86,7 +90,9 @@
 // roundings for the shipped and edge (m, n) on the CPU). Rounding is
 // half-to-even, every other float op of the datapath is one __fadd_rn or
 // __fmul_rn in the order of the plain version, built with -fmad=false, and
-// int <-> float conversions go through kMagic (exact in their range).
+// int <-> float conversions go through kMagic (exact in their range; the
+// wide form's sums past it by __int2float_rn, which rounds as the plain
+// version's int32 -> float32 cast does).
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (sesr_tpu_torch/ops/_build.py). Each entry point
@@ -135,22 +141,22 @@ __device__ __forceinline__ void load_frag(int (&b)[FW], const int* p) {
 
 // k32 chunks of a K x K layer whose pass reads `wpt` words a tap: 8 / wpt
 // taps a chunk. A pass reads one word a tap on layer 0 (<= 4 channels), C /
-// 16 on a split layer at 4 PEs (PE p's channels are words p and p + 4), and
-// all C / 4 words otherwise.
+// 16 on a split layer at 4, 8, 12 or 16 PEs (PE p's channels are words p % 4
+// and p % 4 + 4), and all C / 4 words otherwise.
 __host__ __device__ constexpr int chunks_of(int k, int wpt) { return (k * k * wpt + 7) / 8; }
 
 // Words of one layer's B fragments at hidden width C: passes x chunks x 32
 // lanes x n-tiles x 2 (convert.py _fragment_words builds them in this
 // order), with one pass per PE (split) or one pass over all channels. A
 // split layer's passes: layer 0 one per PE that owns an input channel,
-// min(in_ch, pe); a hidden layer at 4 PEs one per PE over its C / 16
-// words; at any other PE count one per PE over all C / 4 words (the other
-// PEs' weights zero).
+// min(in_ch, pe); a hidden layer at a PE count that is a multiple of four
+// one per PE over its C / 16 words; at any other PE count one per PE over
+// all C / 4 words (the other PEs' weights zero).
 __host__ __device__ inline int layer_words(bool split, int layer, int L, int in_ch, int ocl,
                                            int pe, int C) {
   if (layer == 0) return (split ? (in_ch < pe ? in_ch : pe) : 1) * chunks_of(5, 1) * 32 * (C / 4);
   const int k = layer < L - 1 ? 3 : 5;
-  const int chunks = split ? (pe == 4 ? 4 * chunks_of(k, C / 16) : pe * chunks_of(k, C / 4))
+  const int chunks = split ? pe * chunks_of(k, pe % 4 == 0 ? C / 16 : C / 4)
                            : chunks_of(k, C / 4);
   return chunks * 32 * (layer < L - 1 ? C / 4 : 2 * ((ocl + 7) / 8));
 }
@@ -165,19 +171,28 @@ __device__ __forceinline__ bool split_of(const int* prm, int layer) {
   return DP == REFERENCE && pe_split(prm, layer);
 }
 
+// The pass forms of a layer: one pass over all channels (ONE); one pass per
+// PE, each PE's sum clamped to pe_acc_bits before the sums are added: up to
+// four unrolled (FOUR: layer 0, whose passes read one word a pixel, and a
+// hidden layer at 4 PEs, pass p reading PE p's words p and p + 4), a loop
+// over the PEs each reading its words p % 4 and p % 4 + 4 (WORDS: 8, 12 or
+// 16 PEs), or a loop over the PEs each reading all C / 4 words against B zero
+// outside the PE's channels (MASKED: any other PE count).
+enum Passes { ONE = 0, FOUR = 1, WORDS = 2, MASKED = 3 };
+
 // One conv layer over the output extent eh x ew (in this layer's output
 // frame, which is the next layer's input frame), as an implicit GEMM. `in`
 // holds the input extent (eh + K - 1) x (ew + K - 1): one word per pixel
 // (FIRST) or C / 4 planes `in_ps` words apart; `w` the layer's B fragments.
-// SPLIT (K1) runs `npass` passes, one per PE, and clamps each PE's sum to
-// pe_acc_bits; else one pass over all channels, which K1 takes where
-// convert.py proves that clamp cannot fire. A split hidden layer reads PE
-// p's words p and p + 4 (C = 32) in pass p (4 PEs), or all C / 4 words in
-// each pass (MASKED: any other PE count, B zero outside the PE's channels).
-// CLAMP (K2, and K1's general instantiation) clamps the sum to pe_add_bits.
-// The epilogue writes the next layer's input planes (FIRST, MID), the
-// shortcut terms (FIRST) or the int8 output (LAST).
-template <int DP, bool SPLIT, bool MASKED, bool CLAMP, int K, Kind KIND, int OC, int C>
+// A split form (PS, K1) runs `npass` passes, one per PE; ONE, which K1
+// takes where convert.py proves the accumulator clamp cannot fire, one pass
+// over all channels. CLAMP (K2, and K1's general instantiation) clamps the
+// sum to pe_add_bits. GEN: the general instantiation, whose activations lie
+// in [-half, half - 1] (quant_half; int8's otherwise); WIDE (GEN only): the
+// sum is a plain int32, converted to float32 once, for sums that may pass
+// 2^22. The epilogue writes the next layer's input planes (FIRST, MID), the
+// shortcut terms (FIRST) or the output (LAST).
+template <int DP, int PS, bool CLAMP, bool GEN, bool WIDE, int K, Kind KIND, int OC, int C>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -188,15 +203,18 @@ __device__ __forceinline__ void conv_layer(
   constexpr int NT = (OC + 7) / 8;                   // n-tiles of 8 channels
   constexpr int FW = 2 * NT;                         // B registers per (pass, chunk)
   constexpr int NV = 2 * NT;                         // values a lane holds per pixel
-  static_assert(!MASKED || (SPLIT && KIND != FIRST), "a masked pass is a split hidden layer's");
+  static_assert((PS != WORDS && PS != MASKED) || KIND != FIRST,
+                "a looped pass is a split hidden layer's");
   static_assert(C == 16 || C == 32, "the hidden widths are 16 and 32");
-  constexpr bool TAPS = (SPLIT && !MASKED) || KIND == FIRST;   // a pass reads its own words
+  static_assert(GEN || !WIDE, "the wide form is the general instantiation's");
+  constexpr bool SPLIT = PS != ONE;
+  constexpr bool TAPS = PS == FOUR || PS == WORDS || KIND == FIRST;   // a pass reads its own words
   // k-slot s of chunk c is word s % WPT of the pass's words (TAPS: its
-  // word p + 4 j is j; else word j) at tap TPC c + s / WPT
+  // word p % 4 + 4 j is j; else word j) at tap TPC c + s / WPT
   constexpr int WPT = KIND == FIRST ? 1 : (TAPS ? C / 16 : C / 4);
   constexpr int TPC = 8 / WPT;
   constexpr int NCH = chunks_of(K, WPT);
-  constexpr int NP = SPLIT && !MASKED ? 4 : 1;       // passes unrolled (FIRST: up to 4)
+  constexpr int NP = PS == FOUR ? 4 : 1;             // passes unrolled (FIRST: up to 4)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -213,18 +231,23 @@ __device__ __forceinline__ void conv_layer(
   const float rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, C)]),
                                as_f32(prm[p_at(layer, R_RQP, C)]));
   const float rq_c = -kMagic * rq_s;
+  // the activations' range [-half, half - 1], and its clip bounds for
+  // qn_bits (int8's, in the shipped instantiation)
+  const float half = GEN ? quant_half(prm) : 128.f;
+  const float q_lo = kMagic - half, q_hi = kMagic + (half - 1.f);
   // accumulator (n, i) of this lane is channel chan(2n + (i & 1)): the last
   // layer's columns are in order (channels 8n + 2tq, 8n + 2tq + 1), a
   // hidden layer's permuted (channel tq + 4j, byte j & 3 of word tq + 4 (j >>
   // 2)). It starts from bias + kMagicBits - z_eff * sum(W) (K1: that term
-  // is 0), so it ends as kMagicBits + y_int; the 20-bit clamp of conv(q -
-  // z_eff), where it runs, is shifted by the same constant.
+  // is 0), so it ends as kMagicBits + y_int (WIDE: from bias - z_eff *
+  // sum(W), ending as y_int); the 20-bit clamp of conv(q - z_eff), where it
+  // runs, is shifted by the same constant.
   auto chan = [&](int j) { return KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j; };
   int init[NV], lo_c[NV], hi_c[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int o = chan(j);
-    const int b = (o < OC ? prm[p_at(layer, R_BIAS, C) + o] : 0) + kMagicBits;
+    const int b = (o < OC ? prm[p_at(layer, R_BIAS, C) + o] : 0) + (WIDE ? 0 : kMagicBits);
     init[j] = b - (o < OC ? prm[p_at(layer, R_BIAS, C) + C + o] : 0);
     lo_c[j] = b - add_hi - 1;
     hi_c[j] = b + add_hi;
@@ -245,9 +268,10 @@ __device__ __forceinline__ void conv_layer(
     ob[c] = pb + (tb < KK ? (tb / K) * iw + tb % K : 0);
   }
   // the layer's B fragments are held in registers, except K1's layer 0
-  // (up to 4 passes), its masked passes (up to 8) and every layer past
+  // (up to 4 passes), its looped passes (up to 16) and every layer past
   // layer 0 at width 32, which read them from shared memory per chunk
-  constexpr bool WSMEM = (SPLIT && (KIND == FIRST || MASKED)) || (C > 16 && KIND != FIRST);
+  constexpr bool WSMEM = (SPLIT && (KIND == FIRST || PS == WORDS || PS == MASKED)) ||
+                         (C > 16 && KIND != FIRST);
   constexpr int WP = WSMEM ? 1 : NP, WC = WSMEM ? 1 : NCH;
   int wr[WP][WC][FW];
   if constexpr (!WSMEM) {
@@ -272,7 +296,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
       for (int i = 0; i < 4; ++i) tot[n][i] = init[2 * n + (i & 1)];
 
-    if constexpr (!SPLIT) {
+    if constexpr (PS == ONE) {
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
@@ -318,19 +342,20 @@ __device__ __forceinline__ void conv_layer(
           for (int n = 0; n < NT; ++n)
 #pragma unroll
             for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[p][n][i], -acc_hi - 1), acc_hi);
-    } else if constexpr (MASKED) {
-      // PE p's pass reads all C / 4 words of each tap against B holding its
-      // channels only
+    } else if constexpr (PS == WORDS || PS == MASKED) {
+      // PE p's pass reads its words p % 4 + 4 j (WORDS) or all C / 4 words
+      // (MASKED) of each tap, against B holding its channels only
       for (int p = 0; p < npass; ++p) {
         int acc[NT][4];
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[n][i] = 0;
+        const int* src = in + (PS == WORDS ? (p & 3) * in_ps : 0);
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
-          const int a0 = in[bases[0] + oa[c]], a1 = in[bases[1] + oa[c]];
-          const int a2 = in[bases[0] + ob[c]], a3 = in[bases[1] + ob[c]];
+          const int a0 = src[bases[0] + oa[c]], a1 = src[bases[1] + oa[c]];
+          const int a2 = src[bases[0] + ob[c]], a3 = src[bases[1] + ob[c]];
           int b[FW];
           load_frag<FW>(b, w + ((p * NCH + c) * 32 + lane) * FW);
 #pragma unroll
@@ -387,7 +412,8 @@ __device__ __forceinline__ void conv_layer(
       for (int j = 0; j < NV; ++j) {
         int yi = tot[j >> 1][2 * h + (j & 1)];
         if constexpr (CLAMP) yi = min(max(yi, lo_c[j]), hi_c[j]);
-        hq[j] = __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
+        hq[j] = WIDE ? __fmul_rn(__int2float_rn(yi), rq_s)
+                     : __fmaf_rn(__int_as_float(yi), rq_s, rq_c);
       }
       if constexpr (KIND == LAST) {
         if (!inside || y >= t.th || x >= t.tw) continue;
@@ -396,8 +422,8 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int o = 8 * n + 2 * tq;
-          const int v0 = q8_bits(__fadd_rn(hq[2 * n], z_out));
-          const int v1 = q8_bits(__fadd_rn(hq[2 * n + 1], z_out));
+          const int v0 = qn_bits(__fadd_rn(hq[2 * n], z_out), q_lo, q_hi);
+          const int v1 = qn_bits(__fadd_rn(hq[2 * n + 1], z_out), q_lo, q_hi);
           if constexpr (OC % 2 == 0) {
             if (o < OC)
               *reinterpret_cast<uint16_t*>(dst + o) = static_cast<uint16_t>(__byte_perm(v0, v1, 0x0040));
@@ -429,32 +455,32 @@ __device__ __forceinline__ void conv_layer(
             float tr;
             if constexpr (DP == REFERENCE) {
               const int s = static_cast<int8_t>(sc[(tq + 4 * (j >> 2)) * sc_ps + r] >> (8 * (j & 3)));
-              const float c = magic_to_f32(q8_bits(__fsub_rn(hq[j], 128.f)));
-              tr = __fadd_rn(__fadd_rn(magic_to_f32(s + kMagicBits), c), 256.f);
+              const float c = magic_to_f32(qn_bits(__fsub_rn(hq[j], half), q_lo, q_hi));
+              tr = __fadd_rn(__fadd_rn(magic_to_f32(s + kMagicBits), c), 2.f * half);
             } else {
               const int s = static_cast<int16_t>(sc[(tq + 4 * (j >> 1)) * sc_ps + r] >> (16 * (j & 1)));
               tr = __fadd_rn(magic_to_f32(s + kMagicBits), rintf(hq[j]));
             }
-            v[j] = q8_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next));
+            v[j] = qn_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next), q_lo, q_hi);
           }
         } else if (KIND == FIRST) {
 #pragma unroll
-          for (int j = 0; j < NV; ++j) v[j] = q8_bits(__fadd_rn(hq[j], z_next));
+          for (int j = 0; j < NV; ++j) v[j] = qn_bits(__fadd_rn(hq[j], z_next), q_lo, q_hi);
         } else {
           // ReLU folded into the low bound: fl(max(h, 0) + z) = max(fl(h + z), z)
-          // and rounding is monotone, so clip(rint(.), max(z, -128), 127)
-          const float lo = kMagic + fmaxf(z_next, -128.f);
+          // and rounding is monotone, so clip(rint(.), max(z, -half), half - 1)
+          const float lo = kMagic + fmaxf(z_next, -half);
 #pragma unroll
           for (int j = 0; j < NV; ++j)
             v[j] = __float_as_int(
-                fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo), kMagic + 127.f));
+                fminf(fmaxf(__fadd_rn(__fadd_rn(hq[j], z_next), kMagic), lo), q_hi));
         }
 #pragma unroll
         for (int m = 0; m < NV / 4; ++m)
           next[(tq + 4 * m) * next_ps + r] = pack_bytes(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
         if (KIND == FIRST) {
           // the residual shortcut, as the last conv's domain-in consumes it:
-          // reference: clip(round(s - 128)) as int8, plane tq + 4 m holding
+          // reference: clip(round(s - half)) as int8, plane tq + 4 m holding
           // values 4 m .. 4 m + 3; K2: round(s) as int16 (0 <= round(s) <=
           // 32767, convert.py shortcut_bound), plane tq + 4 m values 2 m and
           // 2 m + 1
@@ -464,7 +490,7 @@ __device__ __forceinline__ void conv_layer(
             if constexpr (DP == REFERENCE) {
               int b[NV];
 #pragma unroll
-              for (int j = 0; j < NV; ++j) b[j] = q8_bits(__fsub_rn(hq[j], 128.f));
+              for (int j = 0; j < NV; ++j) b[j] = qn_bits(__fsub_rn(hq[j], half), q_lo, q_hi);
 #pragma unroll
               for (int m = 0; m < NV / 4; ++m)
                 sc[(tq + 4 * m) * sc_ps + sp] = pack_bytes(b[4 * m], b[4 * m + 1], b[4 * m + 2], b[4 * m + 3]);
@@ -516,9 +542,9 @@ struct Smem {
 // layer split for K1 at 4 PEs, the split layers of the mask `split` in K1's
 // general instantiation; two, the next layer's staged while a layer
 // computes, but one for K1's general instantiation at width 32 where two
-// do not fit a block at the tile, its masked passes past four PEs making a
-// layer's fragments up to 102,400 bytes, and the next layer's are then
-// staged after the layer's barrier), the ping-pong
+// do not fit a block at the tile, its passes past four PEs making a split
+// layer's fragments up to pe times a one-pass layer's, and the next layer's
+// are then staged after the layer's barrier), the ping-pong
 // activation buffers (C / 4 planes) and the shortcut (C / 4 planes of int8
 // for K1, C / 2 of int16 pairs for K2). ops/kernels.py net_smem_bytes
 // mirrors it.
@@ -549,10 +575,10 @@ __host__ __device__ inline Smem smem_plan(int dp, bool gen, int split, int pe, i
 // conv `layer` in its form: one pass per PE where its split bit is set (K1;
 // `npass` passes), else one pass, clamped to pe_add_bits where its clamp bit
 // is set (K2 from conv 1 on, where convert.py proves conv 0's idle). The
-// general instantiation (GEN: any PE count, any widths) clamps every
-// layer's sum to pe_add_bits, the identity where that clamp cannot fire.
-// The arguments are conv_layer's.
-template <int DP, bool GEN, int K, Kind KIND, int OC, int C>
+// general instantiation (GEN: any PE count, widths and activation width)
+// clamps every layer's sum to pe_add_bits, the identity where that clamp
+// cannot fire; WIDE: its wide form. The arguments are conv_layer's.
+template <int DP, bool GEN, int K, Kind KIND, int OC, int C, bool WIDE>
 __device__ __forceinline__ void conv_form(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -562,40 +588,51 @@ __device__ __forceinline__ void conv_form(
   if constexpr (DP == REFERENCE) {
     if (pe_split(prm, layer)) {
       if (KIND == FIRST || npass == 4) {
-        conv_layer<DP, true, false, GEN, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t, layer,
-                                                         prelast, prm, next, next_ps, sc, sc_ps,
-                                                         sc_off, sc_w, sc_h, out, frame);
+        conv_layer<DP, FOUR, GEN, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t,
+                                                             layer, prelast, prm, next, next_ps,
+                                                             sc, sc_ps, sc_off, sc_w, sc_h, out,
+                                                             frame);
       } else if constexpr (GEN && KIND != FIRST) {
-        conv_layer<DP, true, true, true, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t, layer,
-                                                         prelast, prm, next, next_ps, sc, sc_ps,
-                                                         sc_off, sc_w, sc_h, out, frame);
+        if (npass % 4 == 0)
+          conv_layer<DP, WORDS, true, true, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t,
+                                                                  layer, prelast, prm, next,
+                                                                  next_ps, sc, sc_ps, sc_off,
+                                                                  sc_w, sc_h, out, frame);
+        else
+          conv_layer<DP, MASKED, true, true, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew,
+                                                                   t, layer, prelast, prm, next,
+                                                                   next_ps, sc, sc_ps, sc_off,
+                                                                   sc_w, sc_h, out, frame);
       }
       return;
     }
   }
   if constexpr (GEN || (DP == FAST && KIND != FIRST)) {
     if (GEN || ((prm[P_CLAMP] >> layer) & 1)) {
-      conv_layer<DP, false, false, true, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
-                                                         prelast, prm, next, next_ps, sc, sc_ps,
-                                                         sc_off, sc_w, sc_h, out, frame);
+      conv_layer<DP, ONE, true, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
+                                                           prelast, prm, next, next_ps, sc, sc_ps,
+                                                           sc_off, sc_w, sc_h, out, frame);
       return;
     }
   }
-  conv_layer<DP, false, false, false, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer, prelast,
-                                                      prm, next, next_ps, sc, sc_ps, sc_off, sc_w,
-                                                      sc_h, out, frame);
+  conv_layer<DP, ONE, false, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
+                                                        prelast, prm, next, next_ps, sc, sc_ps,
+                                                        sc_off, sc_w, sc_h, out, frame);
 }
 
-// GEN: the instantiation for any PE count and widths (convert.py
+// The whole network over one tile, the body of both kernels. GEN: the
+// instantiation for any PE count, widths and activation width (convert.py
 // KernelConstants.general: K1 off 4 PEs or where an adder clamp can fire,
-// K2 where its conv 0's can); the shipped artifacts run the other, at 4
-// PEs. C: the hidden width, 16 (the shipped networks, SESR-M11) or 32
-// (SESR-XL); a narrower network runs padded to the next.
-template <int DP, int OCL, bool GEN, int C>
-__global__ void __launch_bounds__(kThreads, 2)
-sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
-                const int* __restrict__ weights, const int* __restrict__ params,
-                int H, int W, int L, int in_ch, int th, int tw, int split, int pe_in) {
+// K2 where its conv 0's can, both off int8 activations or where a sum may
+// pass 2^22); the shipped artifacts run the other, at 4 PEs. WIDE (GEN
+// only; KernelConstants.wide): every sum a plain int32, for sums that may
+// pass 2^22. C: the hidden width, 16 (the shipped networks, SESR-M11) or
+// 32 (SESR-XL); a narrower network runs padded to the next.
+template <int DP, int OCL, bool GEN, int C, bool WIDE>
+__device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                         const int* __restrict__ weights,
+                                         const int* __restrict__ params, int H, int W, int L,
+                                         int in_ch, int th, int tw, int split, int pe_in) {
   extern __shared__ int4 smem4[];
   const int pe = GEN ? pe_in : 4;
   const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCL, th, tw, C);
@@ -663,9 +700,9 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   {
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
-    conv_form<DP, GEN, 5, FIRST, C, C>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1, tw + 2 * r1,
-                                       t, 0, false, prm, buf_a, ps1, sc, sc_ps, r1 - r_sc, sc_w,
-                                       sc_h, nullptr, frame);
+    conv_form<DP, GEN, 5, FIRST, C, C, WIDE>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1,
+                                             tw + 2 * r1, t, 0, false, prm, buf_a, ps1, sc, sc_ps,
+                                             r1 - r_sc, sc_w, sc_h, nullptr, frame);
   }
   wait_staged();
   __syncthreads();
@@ -683,8 +720,9 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
     const int* w = wbuf + (single ? 0 : (i & 1) * plan.w_words);
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
-    conv_form<DP, GEN, 3, MID, C, C>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i, i == L - 2,
-                                     prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h, nullptr, frame);
+    conv_form<DP, GEN, 3, MID, C, C, WIDE>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i,
+                                           i == L - 2, prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h,
+                                           nullptr, frame);
     wait_staged();
     __syncthreads();
     if (single) {
@@ -699,8 +737,33 @@ sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 
   const int* w_last = wbuf + (single ? 0 : ((L - 1) & 1) * plan.w_words);
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
-  conv_form<DP, GEN, 5, LAST, OCL, C>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false, prm,
-                                      nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
+  conv_form<DP, GEN, 5, LAST, OCL, C, WIDE>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false,
+                                            prm, nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
+}
+
+// The served kernels: the shipped instantiation and the general one, and
+// the general one's wide form (sums past 2^22).
+template <int DP, int OCL, bool GEN, int C>
+__global__ void __launch_bounds__(kThreads, 2)
+sesr_net_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                const int* __restrict__ weights, const int* __restrict__ params,
+                int H, int W, int L, int in_ch, int th, int tw, int split, int pe_in) {
+  net_tile<DP, OCL, GEN, C, false>(x, out, weights, params, H, W, L, in_ch, th, tw, split, pe_in);
+}
+
+template <int DP, int OCL, int C>
+__global__ void __launch_bounds__(kThreads, 2)
+sesr_net_wide_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                     const int* __restrict__ weights, const int* __restrict__ params,
+                     int H, int W, int L, int in_ch, int th, int tw, int split, int pe_in) {
+  net_tile<DP, OCL, true, C, true>(x, out, weights, params, H, W, L, in_ch, th, tw, split, pe_in);
+}
+
+// The kernel of instantiation GK: 0 shipped, 1 general, 2 general and wide.
+template <int DP, int OCL, int GK, int C>
+auto net_kernel() {
+  if constexpr (GK == 2) return &sesr_net_wide_kernel<DP, OCL, C>;
+  else return &sesr_net_kernel<DP, OCL, GK == 1, C>;
 }
 
 size_t shared_bytes(int dp, bool gen, int split, int pe, int L, int in_ch, int ocl, int th,
@@ -710,29 +773,28 @@ size_t shared_bytes(int dp, bool gen, int split, int pe, int L, int in_ch, int o
                         plan.a_words + plan.b_words + plan.sc_words);
 }
 
-template <int DP, int OCL, bool GEN, int C>
+template <int DP, int OCL, int GK, int C>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
                        int n, int h, int wd, int L, int in_ch, int th, int tw, int split,
                        int pe, cudaStream_t stream) {
-  const size_t bytes = shared_bytes(DP, GEN, split, pe, L, in_ch, OCL, th, tw, C);
-  cudaError_t err = cudaFuncSetAttribute(sesr_net_kernel<DP, OCL, GEN, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t bytes = shared_bytes(DP, GK != 0, split, pe, L, in_ch, OCL, th, tw, C);
+  const auto kernel = net_kernel<DP, OCL, GK, C>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, n);
-  sesr_net_kernel<DP, OCL, GEN, C><<<grid, kThreads, bytes, stream>>>(
-      x, out, w, prm, h, wd, L, in_ch, th, tw, split, pe);
+  kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, h, wd, L, in_ch, th, tw, split, pe);
   return cudaGetLastError();
 }
 
-template <int DP, bool GEN, int C>
+template <int DP, int GK, int C>
 cudaError_t launch_oc(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                       int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                       cudaStream_t s) {
   switch (out_ch) {
-    case 3: return launch_one<DP, 3, GEN, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    case 12: return launch_one<DP, 12, GEN, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    case 16: return launch_one<DP, 16, GEN, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 3: return launch_one<DP, 3, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 12: return launch_one<DP, 12, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    case 16: return launch_one<DP, 16, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -740,12 +802,23 @@ cudaError_t launch_oc(const int8_t* x, int8_t* out, const int* w, const int* prm
 bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int gen, int width) {
   return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
          (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
-         tw <= 1024 && pe >= 1 && pe <= kMaxPE && (split >> L) == 0 && (gen || pe == 4) &&
-         (width == 16 || width == kMaxC);
+         tw <= 1024 && pe >= 1 && pe <= kMaxPE && (split >> L) == 0 && gen >= 0 && gen <= 2 &&
+         (gen || pe == 4) && (width == 16 || width == kMaxC);
 }
 
-// Each kernel has the shipped instantiation (gen = 0; K1 at 4 PEs) and the
-// general one, each at hidden width 16 and 32.
+template <int DP, int C>
+cudaError_t launch_gen(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
+                       int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
+                       int gen, cudaStream_t s) {
+  switch (gen) {
+    case 0: return launch_oc<DP, 0, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+    case 1: return launch_oc<DP, 1, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+    default: return launch_oc<DP, 2, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, s);
+  }
+}
+
+// Each kernel has the shipped instantiation (gen = 0; K1 at 4 PEs), the
+// general one (1) and its wide form (2), each at hidden width 16 and 32.
 template <int DP>
 int launch(const void* x, void* out, const void* weights, const void* params, int n,
            int h, int w, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
@@ -757,15 +830,11 @@ int launch(const void* x, void* out, const void* weights, const void* params, in
   const int* wi = static_cast<const int*>(weights);
   const int* pi = static_cast<const int*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width == 16)
-    return static_cast<int>(gen ? launch_oc<DP, true, 16>(xi, oi, wi, pi, n, h, w, L, in_ch,
-                                                           out_ch, th, tw, split, pe, s)
-                                : launch_oc<DP, false, 16>(xi, oi, wi, pi, n, h, w, L, in_ch,
-                                                            out_ch, th, tw, split, pe, s));
-  return static_cast<int>(gen ? launch_oc<DP, true, kMaxC>(xi, oi, wi, pi, n, h, w, L, in_ch,
-                                                            out_ch, th, tw, split, pe, s)
-                              : launch_oc<DP, false, kMaxC>(xi, oi, wi, pi, n, h, w, L, in_ch,
-                                                             out_ch, th, tw, split, pe, s));
+  return static_cast<int>(
+      width == 16 ? launch_gen<DP, 16>(xi, oi, wi, pi, n, h, w, L, in_ch, out_ch, th, tw, split,
+                                       pe, gen, s)
+                  : launch_gen<DP, kMaxC>(xi, oi, wi, pi, n, h, w, L, in_ch, out_ch, th, tw,
+                                          split, pe, gen, s));
 }
 
 }  // namespace
@@ -775,8 +844,9 @@ extern "C" {
 // x: int8 (n, h, w, in_ch) quantized input; out: int8 (n, h, w, out_ch);
 // weights / params: int32 device arrays built by sesr_tpu_torch/convert.py;
 // split: bit i set where conv i runs one pass per PE (the params' pe_split
-// word); pe: the datapath's PEs; general: the instantiation for any PE
-// count and widths (KernelConstants.general; K1 needs it where pe != 4);
+// word); pe: the datapath's PEs; general: the instantiation, 0 the shipped
+// one, 1 the one for any PE count and widths (KernelConstants.general; K1
+// needs it where pe != 4), 2 its wide form (KernelConstants.wide);
 // width: the hidden width the network runs at, 16 or 32
 // (KernelConstants.width).
 int sesr_pe_exact_net(const void* x, void* out, const void* weights, const void* params,
@@ -800,8 +870,8 @@ int sesr_fast_net(const void* x, void* out, const void* weights, const void* par
 int sesr_net_smem(int exact, int num_layers, int in_ch, int out_ch, int tile_h, int tile_w,
                   int split, int pe, int general, int width) {
   if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, general, width)) return 0;
-  return static_cast<int>(shared_bytes(exact ? REFERENCE : FAST, general, split, pe, num_layers,
-                                       in_ch, out_ch, tile_h, tile_w, width));
+  return static_cast<int>(shared_bytes(exact ? REFERENCE : FAST, general != 0, split, pe,
+                                       num_layers, in_ch, out_ch, tile_h, tile_w, width));
 }
 
 const char* sesr_error_string(int err) {

@@ -6,7 +6,7 @@ kernel): the computation, not its space-to-depth layout. On a CUDA tensor
 both run the fused kernel ``sesr_corrected_net`` (csrc/sesr_corrected.cu,
 on wgmma) over the whole batch, each PE's partial clamped on its own on the
 layers ``split_layers`` flags, for networks of hidden width 16 (the
-shipped tasks, SESR-M11) or 32 (SESR-XL) at any PE count from 1 to 8; on
+shipped tasks, SESR-M11) or 32 (SESR-XL) at any PE count from 1 to 16; on
 a CPU tensor their plain version, ``integer_forward(corrected=True)``
 (with ``fast_layers`` in the hybrid mode).
 

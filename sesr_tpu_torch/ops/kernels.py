@@ -27,7 +27,7 @@ import torch
 
 from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.convert import (MAX_LAYERS, device_constants, kernel_width, layer_geometry,
-                                    net_words, param_words, wgmma_geometry)
+                                    net_words, param_words, pe_groups, wgmma_geometry)
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
 from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
@@ -108,10 +108,11 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
     pixels its layers' GEMMs read, past the extent too; at width 32 a
     layer's input is two planes of 16 bytes a pixel, each rounded up to 128
     bytes), the int16 shortcut of 2 ``width`` bytes a pixel and 16 bytes of
-    scratch. B regions: 0 at width 16, where every layer's B is resident; at
-    width 32, 2 (the even layers' and the odd layers', the next layer's B
-    staged while a layer computes) where that fits a block, else 1 (the
-    largest layer's)."""
+    scratch. B regions: 0 at width 16 up to eight PEs, where every layer's
+    B is resident; at width 32 and past eight PEs (16 PE groups, staged_b),
+    2 (the even layers' and the odd layers', the next layer's B staged
+    while a layer computes) where that fits a block, else 1 (the largest
+    layer's)."""
     th, tw = tile
     b_bytes, bufs = [], [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
     for i in range(L):
@@ -140,7 +141,7 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
     def total(w_bytes):
         return _round_up(w_at + w_bytes, 128) + rest
 
-    if width == 16:
+    if width == 16 and pe_groups(pe) < 16:
         return total(sum(b_bytes)), 0
     even, odd = max(b_bytes[0::2]), max(b_bytes[1::2])
     two = total(_round_up(even, 128) + odd)
@@ -210,12 +211,13 @@ class NetKernel:
 
     def extra_args(self, kc) -> tuple:
         """The entry point's arguments after the tile: the split mask, the
-        PE count, the instantiation (KernelConstants.general) and the hidden
+        PE count, the instantiation (0 shipped, 1 general, 2 the general
+        one's wide form: KernelConstants.general and .wide) and the hidden
         width; K2 takes the last two only."""
+        gen = 2 if kc.wide else int(kc.general)
         if self.datapath == "fast":
-            return (int(kc.general), kc.width)
-        return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, int(kc.general),
-                kc.width)
+            return (gen, kc.width)
+        return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, gen, kc.width)
 
     def reset(self) -> None:
         self.launches = 0

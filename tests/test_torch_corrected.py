@@ -23,7 +23,10 @@ choice of its layer forms (sesr_tpu_torch/ops/corrected.py), on the CPU:
   (13 convs of 32 channels: two planes of 16 bytes a pixel, one tap a k32
   step with LBO the planes' distance, 32 columns a PE group, and past four
   PEs a split layer's 256 columns in two chunks of 128, one after another)
-  in both modes at 4 and 8 PEs;
+  in both modes at 4 and 8 PEs; at 16 PEs the 16 column groups of a split
+  layer, 256 columns (width 16) or 512 (width 32) in chunks of 128, on the
+  sweep's networks and on SESR-M11, and the counting form's per-tile sums
+  on SESR-M11 at 16 PEs;
 - that the accumulator map gives one thread four consecutive channels of a
   pixel in each plane (the epilogue's 32-bit stores are the next layer's
   input words), and the shared-memory plan and default tiles.
@@ -406,7 +409,8 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None):
 ALT_HW = {"pe2_narrow": HardwareConfig(pe=2, pe_acc_bits=16, pe_add_bits=18, bias_bits=12,
                                        requant_bits=12, requant_n_max=24),
           "pe8_wide": HardwareConfig(pe=8, pe_acc_bits=20, pe_add_bits=22),
-          "pe3_nondivisible": HardwareConfig(pe=3)}
+          "pe3_nondivisible": HardwareConfig(pe=3),
+          "pe16": HardwareConfig(pe=16)}
 
 
 def _alt_artifact(hw, width, in_ch, seed):
@@ -428,9 +432,10 @@ def _alt_artifact(hw, width, in_ch, seed):
 @pytest.mark.parametrize("width", [8, 16, 32])
 @pytest.mark.parametrize("config", list(ALT_HW))
 def test_corrected_kernel_layers_at_other_configs(config, width, split_of):
-    """The numpy model of the kernel at 2, 3 and 8 PEs with the sweep's
+    """The numpy model of the kernel at 2, 3, 8 and 16 PEs with the sweep's
     widths (16/18-bit accumulator / adder and a 12-bit bias at 2 PEs;
-    20/22 at 8), for networks 8 (padded), 16 and 32 channels wide with 3 and
+    20/22 at 8; at 16 a split hidden layer's 256 or 512 columns run in
+    chunks of 128), for networks 8 (padded), 16 and 32 channels wide with 3 and
     1 input channels: the layers the corrected proof splits, or all of them,
     in the general instantiation (pe_groups column groups, the groups past
     the PE count zero; every sum clamped to pe_add_bits), each layer's
@@ -447,7 +452,8 @@ def test_corrected_kernel_layers_at_other_configs(config, width, split_of):
         split = (convert.corrected_split_layers(qp) if split_of == "proof" else (True,) * L)
         kc = convert.kernel_constants(spec, qp, "corrected", split)
         assert kc.general and kc.pe == hw.pe and kc.clamp20 == (True,) * L
-        assert [pe_groups(p) for p in range(1, 9)] == [convert.pe_groups(p) for p in range(1, 9)]
+        assert [pe_groups(p) for p in range(1, 17)] == [convert.pe_groups(p)
+                                                        for p in range(1, 17)]
         x = np.random.default_rng(seed + 10).random((1, 6, 11, in_ch), dtype=np.float32)
         _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
                                    fast_layers=tuple(not f for f in split), device="cpu")
@@ -513,25 +519,40 @@ def test_corrected_kernel_layers_model_the_plain_sums(case):
         assert kc.pe_split[0] and ovf18[0] > 0
 
 
+M11 = SESRSpec("sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16, num_lblocks=11,
+               scaling_factor=2)
+
+
+def _m11_saturated(pe):
+    """SESR-M11 x2 from seeded weights calibrated on the CPU at ``pe`` PEs,
+    convs 3 and 9 at +127 as in chip_smoke.py phase 14, with the stamps its
+    certificate gives at 4 PEs (convs 3, 4 and 9-11 unstamped)."""
+    params = init_params(M11, torch.Generator().manual_seed(0))
+    images = [np.random.default_rng(3).random((1, 24, 32, 3), dtype=np.float32)]
+    qp = _all_127(calibrate(M11, params, images, hw=HardwareConfig(pe=pe), safe_zero_floor=True,
+                            device="cpu"), (3, 9))
+    stamps = tuple(i not in (3, 4, 9, 10, 11) for i in range(M11.num_convs))
+    return dataclasses.replace(qp, fast_cert_layers=stamps, fast_cert_ok=False)
+
+
+@pytest.mark.parametrize("pe", [4, 16])
 @pytest.mark.parametrize("mode", MODES)
-def test_corrected_kernel_layers_on_sesr_m11(mode):
+def test_corrected_kernel_layers_on_sesr_m11(mode, pe):
     """The model at SESR-M11 x2's 13 convs (Bhardwaj et al., MLSys 2022),
     seeded weights calibrated on the CPU, convs 3 and 9 at +127 as in
     chip_smoke.py phase 14: hybrid with the stamps its certificate gives
     there (convs 3, 4 and 9-11 unstamped, so split), pe-exact where the
     proof splits; every layer 0..12 equal to the plain interpreter's
-    bias + pe_add, in the shipped instantiation."""
-    spec = SESRSpec("sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
-                    num_lblocks=11, scaling_factor=2)
+    bias + pe_add, in the shipped instantiation at 4 PEs and at 16 PEs in
+    the general one (16 column groups: a split hidden layer's 256 columns
+    in two chunks of 128)."""
+    spec = M11
     L = spec.num_convs
-    params = init_params(spec, torch.Generator().manual_seed(0))
-    images = [np.random.default_rng(3).random((1, 24, 32, 3), dtype=np.float32)]
-    qp = _all_127(calibrate(spec, params, images, safe_zero_floor=True, device="cpu"), (3, 9))
-    stamps = tuple(i not in (3, 4, 9, 10, 11) for i in range(L))
-    qp = dataclasses.replace(qp, fast_cert_layers=stamps, fast_cert_ok=False)
+    qp = _m11_saturated(pe)
+    stamps = qp.fast_cert_layers
     split = split_layers(qp, mode)
     kc = convert.kernel_constants(spec, qp, "corrected", split)
-    assert not kc.general and kc.pe_split == split and any(split)
+    assert kc.general == (pe != 4) and kc.pe_split == split and any(split)
     x = np.random.default_rng(14).random((1, 6, 11, 3), dtype=np.float32)
     _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True,
                                fast_layers=stamps if mode == "hybrid" else None, device="cpu")
@@ -541,8 +562,8 @@ def test_corrected_kernel_layers_on_sesr_m11(mode):
         got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
         want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
             np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
-        np.testing.assert_array_equal(got, want, err_msg=f"m11 {mode} layer {i}")
-    assert corrected_net.tile(spec, split, 4) in CORRECTED_TILES
+        np.testing.assert_array_equal(got, want, err_msg=f"m11 {mode} {pe} PEs layer {i}")
+    assert corrected_net.tile(spec, split, pe) in CORRECTED_TILES
 
 
 @functools.lru_cache(maxsize=None)
@@ -646,7 +667,7 @@ def _tiled_counts(spec, qp, x, regions):
     return counts, dumps["overflow_18"].numpy(), tile
 
 
-@pytest.mark.parametrize("case", ["nr-adversarial", "xl-pe4", "xl-pe8"])
+@pytest.mark.parametrize("case", ["nr-adversarial", "xl-pe4", "xl-pe8", "m11-pe16"])
 def test_counting_form_counts_each_output_once(case):
     """The counting form's count window (count_lo / count_hi, read from the
     source) over the tiles of the wrapper's plan, on a frame whose sides
@@ -655,7 +676,8 @@ def test_counting_form_counts_each_output_once(case):
     twice and none is missed), with the whole frame as one region and as
     the sum over 2 and 4 W blocks given as regions. nr: the adversarial
     frame (layer 0 fires); the saturated SESR-XL at 4 and 8 PEs (past four
-    PEs the tile is 8x16), each frame at least two tiles a side."""
+    PEs the tile is 8x16) and SESR-M11 at 16, each frame at least two tiles
+    a side."""
     from sesr_tpu_torch.ops.slab import blocks
     from sesr_tpu_torch.quant.certify import adversarial_image
 
@@ -663,6 +685,9 @@ def test_counting_form_counts_each_output_once(case):
         spec, qp = _artifact("nr")
         qp = dataclasses.replace(qp, fast_cert_layers=None)
         x = adversarial_image(qp, hw=(70, 150))
+    elif case == "m11-pe16":
+        spec, qp = M11, _m11_saturated(16)
+        x = np.random.default_rng(10).random((1, 45, 83, 3), dtype=np.float32)
     else:
         spec, qp = XL, _xl_saturated(int(case[-1]))
         x = np.random.default_rng(10).random((2, 19, 37, 3), dtype=np.float32)

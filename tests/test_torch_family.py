@@ -19,16 +19,21 @@ across with ``convert.quantparams_from_fields``:
   convs and a width of 48, each with its own message; XL with every conv
   split takes the corrected kernel's constants and a K1 tile at every PE
   count from 1 to 8;
-- ``costs.conv_macs`` and chip_smoke.py's ``halo_ratio``.
+- ``costs.conv_macs`` and chip_smoke.py's ``halo_ratio``;
+- chip_smoke.py's ``launch_attrs`` reads only a kernel launched in the
+  trace it reads, and takes a trace that misses it again.
 
 The kernels themselves are held against the plain version on the card by
 chip_smoke.py phase 14. Each artifact is built once (the JAX package's
 ``certify_fast`` takes 13-27 s per artifact here)."""
 
+import contextlib
 import dataclasses
 import functools
 import importlib.util
+import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -260,13 +265,15 @@ def test_kernel_constants_refuse_past_the_limits():
                 for i, k in enumerate(xl.kernel_sizes)))
         # K1's general instantiation with every conv split: a tile at every
         # PE count (one weight buffer where two do not fit a block at the
-        # tile, the next layer's B staged after each layer), and with none
-        # split 24x32 (one buffer; two fit at 24x24)
+        # tile, the next layer's B staged after each layer; at 8 PEs each
+        # pass reads its PE's words only, so B is a quarter of the masked
+        # passes' and 24x24 fits), and with none split 24x32 (one buffer;
+        # two fit at 24x24)
         tiles[pe] = pe_exact_net.tile(xl, (True,) * L, pe, True)
         assert min(tiles[pe]) >= 16
         assert pe_exact_net.tile(xl, (False,) * L, pe, True) == (24, 32)
     assert tiles == {1: (24, 32), 2: (24, 24), 3: (24, 24), 4: (24, 32), 5: (16, 24),
-                     6: (16, 24), 7: (16, 16), 8: (16, 16)}
+                     6: (16, 24), 7: (16, 16), 8: (24, 24)}
     assert pe_exact_net.tile(xl, (True,) * L, 4) == (24, 24)
     # XL at 8 PEs with 12-bit accumulators, every conv split: K1 takes it, and
     # K2 (one pass a conv) too
@@ -274,7 +281,7 @@ def test_kernel_constants_refuse_past_the_limits():
     assert convert.pe_split_layers(narrow) == (True,) * L
     kc = convert.kernel_constants(xl, narrow, "exact")
     assert kc.general and kc.pe_split == (True,) * L and kc.width == 32
-    assert pe_exact_net.tile(xl, kc.pe_split, 8, True) == (16, 16)
+    assert pe_exact_net.tile(xl, kc.pe_split, 8, True) == (24, 24)
     assert convert.kernel_constants(xl, narrow, "fast").pe == 8
 
 
@@ -298,3 +305,50 @@ def test_work_and_halo():
                                                    (m11, (32, 32)), (xl, (24, 24)),
                                                    (xl, (16, 16)))]
     assert got == [1.29, 1.98, 2.48, 3.51]
+
+
+class _Trace:
+    """A stand-in for ``torch`` whose profiler writes the given chrome
+    traces in turn, one per ``profile`` block."""
+
+    def __init__(self, traces):
+        self.traces = list(traces)
+        self.cuda = types.SimpleNamespace(synchronize=lambda: None)
+        self.profiler = types.SimpleNamespace(
+            ProfilerActivity=types.SimpleNamespace(CPU="cpu", CUDA="cuda"),
+            profile=self._profile)
+
+    @contextlib.contextmanager
+    def _profile(self, activities):
+        events = self.traces.pop(0)
+
+        def export_chrome_trace(path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+        yield types.SimpleNamespace(export_chrome_trace=export_chrome_trace)
+
+
+def _launch(corr):
+    return {"cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "args": {"correlation": corr}}
+
+
+def _kernel(corr, ts, smem):
+    return {"cat": "kernel", "name": "void sesr_net_kernel<0, 12, true, 16>", "ts": ts,
+            "args": {"correlation": corr, "registers per thread": 128, "shared memory": smem}}
+
+
+def test_launch_attrs_reads_this_trace_only(tmp_path, monkeypatch):
+    """A kernel carried over from an earlier trace (its launch call is not
+    in this one) is never read, even when it is the last; a trace that
+    holds no launch of its own is taken again, up to ``tries`` times."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "REPO", str(tmp_path))
+    stale = _kernel(3, 900, 999)
+    traces = [[_launch(7), _kernel(7, 100, 1000), stale],
+              [_launch(8), stale],
+              [_launch(9), _kernel(9, 200, 2000), stale]]
+    fns = {"a": lambda: None, "b": lambda: None}
+    assert smoke.launch_attrs(_Trace(traces), fns, tries=3) == {"a": (128, 1000),
+                                                                "b": (128, 2000)}
+    assert smoke.launch_attrs(_Trace(traces[:2]), fns) == {"a": (128, 1000),
+                                                           "b": (None, None)}

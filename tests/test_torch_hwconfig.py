@@ -171,7 +171,7 @@ def test_kernel_constants_take_the_config(config, width):
     """Every datapath's constants build at every config and width <= 16;
     off 4 PEs K1's and the corrected kernel's are the general
     instantiation's, and K2's where its conv 0 can reach the adder clamp.
-    quan_bits != 8 and a width above 32 are refused."""
+    quan_bits above 8, more than 16 PEs and a width above 32 are refused."""
     spec = dataclasses.replace(SPEC, num_channels=width)
     hw = _hw(CONFIGS[config])
     rng = np.random.default_rng(width)
@@ -192,7 +192,7 @@ def test_kernel_constants_take_the_config(config, width):
         assert kc.general == (convert.clamp20_layers(qp)[0] if datapath == "fast"
                               else hw.pe != 4)
         assert kc.weights.dtype == np.int32 and kc.weights.size > 0
-    for bad in (dataclasses.replace(hw, quan_bits=16), dataclasses.replace(hw, pe=9)):
+    for bad in (dataclasses.replace(hw, quan_bits=16), dataclasses.replace(hw, pe=17)):
         with pytest.raises(NotImplementedError, match="quan_bits|PEs"):
             convert.kernel_constants(spec, dataclasses.replace(qp, hw=bad), "exact")
     with pytest.raises(NotImplementedError, match="widths of at most 32"):

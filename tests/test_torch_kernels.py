@@ -178,12 +178,12 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     az[2] = 200                                  # z_eff does not fit the int8 pads
     with pytest.raises(NotImplementedError, match="does not fit int8"):
         convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), "exact")
-    # any PE count from 1 to 8 runs (the general instantiation off 4 PEs);
-    # int8 activations, widths up to 32 and 3 to 16 convs are what the
-    # kernels hold
+    # any PE count from 1 to 16 runs (the general instantiation off 4 PEs);
+    # 2- to 8-bit activations, widths up to 32 and 3 to 16 convs are what
+    # the kernels hold
     assert convert.kernel_constants(spec, dataclasses.replace(
         qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact").general
-    for hw in (dataclasses.replace(qp.hw, pe=9), dataclasses.replace(qp.hw, quan_bits=16)):
+    for hw in (dataclasses.replace(qp.hw, pe=17), dataclasses.replace(qp.hw, quan_bits=16)):
         with pytest.raises(NotImplementedError, match="PEs|quan_bits"):
             convert.kernel_constants(spec, dataclasses.replace(qp, hw=hw), "exact")
     with pytest.raises(NotImplementedError, match="widths of at most 32"):

@@ -11,10 +11,10 @@ the plain version's exact integer conv (quant/integer.py ``_conv_int``)
 on the PE's channels or on all of them, for every instantiation the
 kernels build: sr_x2 (3 in, 12 out), sr_x4 (1 in, 16 out), nrdm_3 (3
 out) and nrdm_6 (8 convs), at an extent whose pixel count is no multiple
-of 16; at 2, 3 and 8 PEs, for networks 8 (padded) and 16 channels
+of 16; at 2, 3, 8 and 16 PEs, for networks 8 (padded) and 16 channels
 wide; and on the SESR paper's deepest and widest members, SESR-M11 (13
 convs, 16 channels) and SESR-XL (13 convs, 32 channels: eight activation
-words a pixel), at 4 PEs and at 2, 3 and 8."""
+words a pixel), at 4 PEs and at 2, 3, 8 and 16."""
 
 import dataclasses
 import functools
@@ -105,11 +105,11 @@ def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew, pe=4):
         for p in range(npass):
             acc = np.zeros((32, nt, 4), np.int64)
             for c in range(chunks):
-                # k-slot s: the pass's word s % wpt (tap-major: word p + 4 j
-                # is j) of tap (8 / wpt) c + s // wpt
+                # k-slot s: the pass's word s % wpt (tap-major: word p % 4 +
+                # 4 j is j) of tap (8 / wpt) c + s // wpt
                 def slot(s):
                     j = s % wpt
-                    plane = (p + 4 * j if ic > 4 else 0) if tap_major else j
+                    plane = (p % 4 + 4 * j if ic > 4 else 0) if tap_major else j
                     return plane * ps + off((8 // wpt) * c + s // wpt)
                 oa, ob = slot(t), slot(t + 4)
                 a = np.stack([words[base[:, 0] + oa], words[base[:, 1] + oa],
@@ -170,17 +170,18 @@ def test_mma_fragments_compute_the_layer_convs(task, split):
 
 @pytest.mark.parametrize("split", [True, False], ids=["per-PE", "one-pass"])
 @pytest.mark.parametrize("width", [8, 16, 32])
-@pytest.mark.parametrize("pe", [2, 3, 8])
+@pytest.mark.parametrize("pe", [2, 3, 8, 16])
 def test_mma_fragments_at_other_pe_counts(pe, width, split):
-    """The same model at 2, 3 and 8 PEs (K1's general instantiation: a
-    split hidden layer takes one pass per PE over all its words, B zero
+    """The same model at 2, 3, 8 and 16 PEs (K1's general instantiation: a
+    split hidden layer takes one pass per PE, at 8 and 16 PEs over the PE's
+    words p % 4 and p % 4 + 4, at 2 and 3 over all its words, B zero
     outside the PE's channels), for a network ``width`` channels wide,
     padded to the kernels' width (16 or 32) with zero weights
     (convert._padded): layer 0 with 1 and 3 input channels, a hidden layer,
     and last layers of 3 and 12 channels. Each per-PE partial and the full
-    sum equal the plain version's conv on the PE's real channels, whatever
-    the padded channels' activations hold; the padded output channels'
-    sums are zero."""
+    sum equal the plain version's conv on the PE's real channels (zero for
+    a PE that owns only padded channels), whatever the padded channels'
+    activations hold; the padded output channels' sums are zero."""
     rng = np.random.default_rng(100 * pe + width)
     eh, ew = EXTENT
     for k, ic, oc, last in ((5, 1, width, False), (5, 3, width, False),
@@ -195,15 +196,16 @@ def test_mma_fragments_at_other_pe_counts(pe, width, split):
         got, mmas = _model_layer(words, ps, frag, k, kic, koc, split, last, eh, ew, pe)
         got = got.reshape(-1, eh, ew, koc)
         np.testing.assert_array_equal(got[..., oc:], 0)
-        if split:                               # one pass per PE owning a channel
-            want = [_valid_conv(q[..., :ic][..., m], w[:, :, m, :])
-                    for m in (pe_channel_mask(ic, pe, p) for p in range(pe)) if m.any()]
+        if split:           # one pass per PE owning a channel, padded ones included
+            want = [_valid_conv(q[..., :ic][..., pe_channel_mask(ic, pe, p)],
+                                w[:, :, pe_channel_mask(ic, pe, p), :])
+                    for p in range(pe) if pe_channel_mask(kic, pe, p).any()]
         else:
             want = [_valid_conv(q[..., :ic], w)]
         np.testing.assert_array_equal(got[..., :oc], np.stack(want),
                                       err_msg=f"pe {pe} width {width} {ic}->{oc}")
         passes, chunks, tap_major = convert.layer_geometry(k, kic, split, pe)
-        assert passes == len(want) and tap_major == (kic <= 4)
+        assert passes == len(want) and tap_major == (kic <= 4 or (split and pe % 4 == 0))
         assert mmas == -(-eh * ew // 16) * passes * chunks * -(-koc // 8)
 
 
@@ -227,14 +229,15 @@ def _family_weights(net):
 
 
 @pytest.mark.parametrize("split", [True, False], ids=["per-PE", "one-pass"])
-@pytest.mark.parametrize("pe", [4, 2, 3, 8])
+@pytest.mark.parametrize("pe", [4, 2, 3, 8, 16])
 @pytest.mark.parametrize("net", list(FAMILY))
 def test_mma_fragments_on_the_family(net, pe, split):
     """SESR-M11's and SESR-XL's layers through the model: layer 0 (3 -> f),
     the first and the last hidden layer (f -> f) and the last conv (f ->
     12) of the 13-conv network, at 4 PEs (a split XL layer's pass p reads
     PE p's words p and p + 4, four taps a chunk; one pass reads all eight
-    words of one tap a chunk) and at 2, 3 and 8 (the masked passes). Each
+    words of one tap a chunk), at 8 and 16 (pass p reads words p % 4 and
+    p % 4 + 4) and at 2 and 3 (the masked passes). Each
     per-PE partial and the full sum equal the plain version's conv, and
     the MMA count is the geometry's."""
     spec = FAMILY[net]
@@ -257,18 +260,19 @@ def test_mma_fragments_on_the_family(net, pe, split):
             want = [_valid_conv(q, w)]
         np.testing.assert_array_equal(got, np.stack(want), err_msg=f"{net} pe {pe} layer {i}")
         passes, chunks, tap_major = convert.layer_geometry(k, ic, split, pe)
-        assert tap_major == (ic <= 4 or (split and pe == 4))
+        assert tap_major == (ic <= 4 or (split and pe % 4 == 0))
         assert chunks == -(-k * k * convert.words_per_tap(ic, split, pe) // 8)
         assert mmas == -(-eh * ew // 16) * passes * chunks * -(-oc // 8)
 
 
 @pytest.mark.parametrize("layer", ["first", "hidden", "last"])
-@pytest.mark.parametrize("pe", [8, 5])
+@pytest.mark.parametrize("pe", [8, 5, 16])
 def test_k1_fragments_meet_their_channels_past_four_pes(pe, layer):
     """K1's split passes on SESR-XL past four PEs, byte by byte: every B
     fragment byte of pass p (lane 4g + t, register r of n-tile n, chunk c)
-    meets k-slot t + 4r, i.e. byte b of word s % wpt of tap (8 / wpt) c + s
-    // wpt, and the activation byte there holds channel _act_word^-1 (word,
+    meets k-slot t + 4r, i.e. byte b of the pass's word s % wpt of tap (8 /
+    wpt) c + s // wpt (a hidden layer at 8 or 16 PEs: word p % 4 + 4 (s %
+    wpt)), and the activation byte there holds channel _act_word^-1 (word,
     b); the fragment byte must hold that channel's weight for the column's
     output channel where the channel is PE p's (c % pe == p), else 0. Each
     weight of the layer sits in exactly one pass."""
@@ -280,7 +284,7 @@ def test_k1_fragments_meet_their_channels_past_four_pes(pe, layer):
     last = i == L - 1
     npass, chunks, tap_major = convert.layer_geometry(k, ic, True, pe)
     wpt = convert.words_per_tap(ic, True, pe)
-    assert not tap_major or ic <= 4
+    assert tap_major == (ic <= 4 or pe % 4 == 0)
     cols = convert._fragment_columns(oc, last).reshape(-1, 8)
     frag = _bytes(convert._fragment_words(w, True, pe, last)).reshape(
         npass, chunks, 32, cols.shape[0], 2, 4)
@@ -293,6 +297,8 @@ def test_k1_fragments_meet_their_channels_past_four_pes(pe, layer):
                 for r in range(2):
                     s = t + 4 * r
                     tap, word = (8 // wpt) * c + s // wpt, s % wpt
+                    if tap_major and ic > 4:
+                        word = p % 4 + 4 * word
                     for n in range(cols.shape[0]):
                         o = cols[n, g]
                         for b in range(4):
@@ -306,10 +312,10 @@ def test_k1_fragments_meet_their_channels_past_four_pes(pe, layer):
                             seen[tap // k, tap % k, ch, o] += 1
     assert (seen == 1).all()
     # at width 32 K1's general instantiation keeps one weight buffer where
-    # two do not fit a block at the tile (at 16x16 past four PEs with every
-    # conv split), at four PEs two: the plans differ by that, and by nothing
-    # else
-    from sesr_tpu_torch.ops.kernels import net_smem_bytes
+    # two do not fit a block at the tile (at 16x16 with every conv split at
+    # 5 and 16 PEs; at 8, whose passes read a PE's words only, two fit),
+    # at four PEs two: the plans differ by that, and by nothing else
+    from sesr_tpu_torch.ops.kernels import SMEM_LIMIT, net_smem_bytes
 
     def largest(n_pe):
         return max(int(np.prod(convert.layer_geometry(kk, 3 if j == 0 else 32, True, n_pe)[:2]))
@@ -318,7 +324,9 @@ def test_k1_fragments_meet_their_channels_past_four_pes(pe, layer):
 
     plans = [net_smem_bytes("exact", L, 3, 12, (16, 16), (True,) * L, n_pe, True, 32)
              for n_pe in (pe, 4)]
-    assert plans[0] - plans[1] == 4 * (largest(pe) - 2 * largest(4))
+    two = plans[1] + 8 * (largest(pe) - largest(4))
+    assert plans[0] == (two - 4 * largest(pe) if two > SMEM_LIMIT else two)
+    assert (two > SMEM_LIMIT) == (pe != 8)
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["K1", "K2"])
