@@ -336,10 +336,11 @@ def mma_count(spec, pe_split, n, h, w, tile, pe):
     sesr_tpu_torch/csrc/sesr_net.cu (the card does not count them): per
     block and layer, the layer's output extent (the tile and the halo of
     the convs after it) cut into sixteens, times the passes and k32 chunks
-    of its implicit GEMM and its n-tiles of 8 output channels.
-    ``pe_split``: per layer, one pass per PE (KernelConstants.pe_split) of
-    ``pe``; a network runs padded to its kernel width (16 or 32)."""
-    from sesr_tpu_torch.convert import kernel_width, layer_geometry
+    of its implicit GEMM and its n-tiles of 8 output channels (the last
+    conv's out_columns). ``pe_split``: per layer, one pass per PE
+    (KernelConstants.pe_split) of ``pe``; a network runs padded to its
+    kernel width (16 or 32)."""
+    from sesr_tpu_torch.convert import kernel_width, layer_geometry, out_columns
 
     th, tw = tile
     L = spec.num_convs
@@ -347,11 +348,11 @@ def mma_count(spec, pe_split, n, h, w, tile, pe):
     per_block = 0
     for i, k in enumerate(spec.kernel_sizes):
         ic = spec.in_channels if i == 0 else width
-        oc = spec.conv_out_channels if i == L - 1 else width
+        oc = out_columns(spec.conv_out_channels) if i == L - 1 else width
         passes, chunks, _ = layer_geometry(k, ic, pe_split[i], pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
         rows = -(-(th + 2 * r) * (tw + 2 * r) // 16)
-        per_block += rows * passes * chunks * -(-oc // 8)
+        per_block += rows * passes * chunks * (oc // 8)
     return per_block * n * -(-h // th) * -(-w // tw)
 
 
@@ -361,10 +362,13 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     from its tile geometry (the card does not count them): per tile and
     layer, the wide GEMM's rows (the output extent's height times the input
     extent's width) cut into m-tiles of 64, times the layer's k32 steps
-    (width 16: two taps a step, width 32: one) and its chunks of at most 128
-    columns; together 64 x N x 32 MACs a step, N the layer's columns
-    (convert.py wgmma_geometry at ``pe`` PEs; x4 on a split layer at 4)."""
+    (width 16: two taps a step, width 32: one) and its chunks of whole PE
+    groups (ops/kernels.py chunk_groups, at most 128 columns); together 64
+    x N x 32 MACs a step, N the layer's columns (convert.py wgmma_geometry
+    at ``pe`` PEs; x4 on a split layer at 4). B staged in pieces runs the
+    same wgmmas."""
     from sesr_tpu_torch.convert import kernel_width, wgmma_geometry
+    from sesr_tpu_torch.ops.kernels import chunk_groups
 
     th, tw = tile
     L = spec.num_convs
@@ -373,10 +377,10 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     for i, k in enumerate(spec.kernel_sizes):
         ic = spec.in_channels if i == 0 else width
         oc = spec.conv_out_channels if i == L - 1 else width
-        steps, _, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1, pe)
+        steps, groups, n_cols = wgmma_geometry(k, ic, oc, pe_split[i], i == L - 1, pe)
         r = sum(kk // 2 for kk in spec.kernel_sizes[i:])
         rows = (th + 2 * r - k + 1) * (tw + 2 * r)
-        count += -(-rows // 64) * steps * -(-n_cols // 128)
+        count += -(-rows // 64) * steps * (groups // chunk_groups(groups, n_cols // groups))
         macs += -(-rows // 64) * steps * 64 * n_cols * 32
     tiles = n * -(-h // th) * -(-w // tw)
     return count * tiles, macs * tiles
@@ -429,17 +433,32 @@ def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1):
 def kernel_family(kern, kc, audit=False):
     """The name of the CUDA kernel ``kern`` launches for the constants kc:
     the served one or (``audit``) the counting form, and the general
-    instantiation's wide form where kc.wide."""
+    instantiation's wide form where kc.wide; the corrected kernel's
+    instantiations of a last conv past 16 channels and those with piece
+    forms at width 32 and 16 PE groups (wide form or not)."""
     wide = "_wide" if kc.wide else ""
     if kern.datapath == "corrected":
+        if kc.out_channels > 16:
+            return f"sesr_corrected{'_audit' if audit else ''}_wideout_kernel"
+        if piece_forms(kc):
+            return f"sesr_corrected{'_audit' if audit else ''}_pieces_kernel"
         return f"sesr_corrected{'_audit' if audit else ''}{wide}_kernel"
     return f"sesr_net{wide}_kernel"
+
+
+def piece_forms(kc):
+    """Whether the corrected kernel's launch for kc takes its instantiation
+    with piece forms at width 32 and 16 PE groups (a split layer past layer
+    0; csrc/sesr_corrected.cu piece_kernel)."""
+    from sesr_tpu_torch.convert import pe_groups
+
+    return kc.general and kc.width == 32 and pe_groups(kc.pe) == 16 and any(kc.pe_split[1:])
 
 
 def ptxas_line(kern, spec, kc, audit=False):
     """("family<template arguments>", (registers, spill store bytes)) of the
     instantiation ``kern`` launches for kc, from ptxas's build log."""
-    from sesr_tpu_torch.convert import pe_groups
+    from sesr_tpu_torch.convert import out_columns, pe_groups
     from sesr_tpu_torch.ops import _build
 
     family = kernel_family(kern, kc, audit)
@@ -447,8 +466,15 @@ def ptxas_line(kern, spec, kc, audit=False):
     if kern.datapath == "corrected":
         lib, key = "sesr_corrected", (f"Li{pe_groups(kc.pe) if kc.general else 4}{gen}"
                                       f"ELi{kc.width}")
+        if kc.out_channels > 16:
+            key = f"Li{pe_groups(kc.pe)}ELi{kc.width}ELb{int(kc.wide)}"
+        elif piece_forms(kc):
+            key = f"Lb{int(kc.wide)}"
     else:
-        lib, key = "sesr_net", (f"Li{int(kern.datapath == 'fast')}ELi{spec.conv_out_channels}"
+        # the shipped instantiations: the count; the general ones: the
+        # padded count, negated
+        ocl = f"n{out_columns(kc.out_channels)}" if kc.general else kc.out_channels
+        lib, key = "sesr_net", (f"Li{int(kern.datapath == 'fast')}ELi{ocl}"
                                 f"{gen}ELi{kc.width}")
     report = _build.ptxas_report(_build.build(lib).log, family)
     return f"{family}<{key}>", report.get(key, (None, None))
@@ -635,7 +661,8 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
 
     corrected = kern.datapath == "corrected"
     split_arg = split_layers(qp, mode) if corrected else None
-    split = kernel_constants(spec, qp, kern.datapath, split_arg).pe_split
+    kc = kernel_constants(spec, qp, kern.datapath, split_arg)
+    split = kc.pe_split
     x_q = quantize_input(x, qp).to(torch.int8).contiguous()
     n, h, w = x_q.shape[:3]
     label = f"{kern.symbol} {spec.name}{f' {mode}' if mode else ''} {h}x{w}"
@@ -649,10 +676,10 @@ def time_kernel(torch, dev, kern, spec, qp, x, mode, sweep):
             mask = sum(1 << i for i, f in enumerate(split) if f)
             tiles = []
             for tile in CORRECTED_SWEEP:
-                plan = kern.smem_bytes(spec, tile, split, pe)
+                plan = kern.smem_bytes(spec, tile, split, pe, kc.general)
                 built = lib.sesr_corrected_smem(spec.num_convs, spec.in_channels,
                                                 spec.conv_out_channels, *tile, mask, pe,
-                                                kernel_width(spec.num_channels))
+                                                int(kc.general), kernel_width(spec.num_channels))
                 if plan != (built or plan) or (plan <= SMEM_LIMIT) != (built > 0):
                     fail(f"{label} tile {tile}: the wrapper plans {plan} B of shared memory, "
                          f"the library {built}")
@@ -759,19 +786,25 @@ def net_sass_check(build):
     shipped instantiation and the general ones of 4, 8 and 16 PE groups,
     at hidden widths 16 and 32) and its counting form (sesr_corrected_
     audit_kernel, the same eight), and the general ones' wide forms (the
-    six sesr_corrected_wide_kernel and sesr_corrected_audit_wide_kernel)
-    on wgmma (IGMMA) and no mma.sync (IMMA); K1
-    and K2 (sesr_net_kernel, three
-    output widths, shipped and general, hidden widths 16 and 32; and
-    sesr_net_wide_kernel, the general ones' wide forms) on
-    mma.sync. Prints each kernel's
-    counts; fails otherwise."""
+    six sesr_corrected_wide_kernel and sesr_corrected_audit_wide_kernel,
+    and the twelve of a last conv past 16 channels, served and
+    counting, sesr_corrected_wideout_kernel and
+    sesr_corrected_audit_wideout_kernel, and the two with piece forms at
+    width 32 and 16 PE groups, sesr_corrected_pieces_kernel and
+    sesr_corrected_audit_pieces_kernel) on wgmma (IGMMA) and no mma.sync
+    (IMMA); K1 and K2 (sesr_net_kernel, three output counts shipped and
+    four padded output widths general, at hidden widths 16 and 32; and
+    sesr_net_wide_kernel, the general ones' wide forms) on mma.sync. Prints each kernel's counts; fails otherwise."""
     want = (("sesr_corrected", "sesr_corrected_kernel", "IGMMA", "IMMA", 8),
             ("sesr_corrected", "sesr_corrected_audit_kernel", "IGMMA", "IMMA", 8),
             ("sesr_corrected", "sesr_corrected_wide_kernel", "IGMMA", "IMMA", 6),
             ("sesr_corrected", "sesr_corrected_audit_wide_kernel", "IGMMA", "IMMA", 6),
-            ("sesr_net", "sesr_net_kernel", "IMMA", "IGMMA", 24),
-            ("sesr_net", "sesr_net_wide_kernel", "IMMA", "IGMMA", 12))
+            ("sesr_corrected", "sesr_corrected_wideout_kernel", "IGMMA", "IMMA", 12),
+            ("sesr_corrected", "sesr_corrected_audit_wideout_kernel", "IGMMA", "IMMA", 12),
+            ("sesr_corrected", "sesr_corrected_pieces_kernel", "IGMMA", "IMMA", 2),
+            ("sesr_corrected", "sesr_corrected_audit_pieces_kernel", "IGMMA", "IMMA", 2),
+            ("sesr_net", "sesr_net_kernel", "IMMA", "IGMMA", 28),
+            ("sesr_net", "sesr_net_wide_kernel", "IMMA", "IGMMA", 16))
     dumps = {name: sass_counts(build.library_path(name)) for name in ("sesr_corrected", "sesr_net")}
     for name, family, has, lacks, instances in want:
         seen = 0
@@ -2862,6 +2895,51 @@ XL_PE8 = dict(pe=8, pe_acc_bits=12)
 # that conv 3's corrected sum (144 x 127 x 255 = 4.66e6) and the last conv's
 # (400 x 127 x 127 on the reference datapath) pass 2^22 (the wide form)
 WIDE_SATURATED = (2, 3, 11, 12)
+# phase 15: the SESR paper's Y-channel networks (x2: the Y channel in, 4
+# outputs before the shuffle, at SESR-M5's and SESR-XL's widths and depths),
+# and RGB networks at x3 (27 outputs) and x4 (48, the widest output of an
+# RGB SESR up to x4) at SESR-M5's, and at x4 at SESR-XL's, from seeded
+# weights, each at the input size whose output is 1080x1920 (out_frame)
+OUT_NETS = {"sesr_m5_x2_y": dict(name="sesr_m5_x2_y", in_channels=1, out_channels=1,
+                                 num_channels=16, num_lblocks=5, scaling_factor=2),
+            "sesr_xl_x2_y": dict(name="sesr_xl_x2_y", in_channels=1, out_channels=1,
+                                 num_channels=32, num_lblocks=11, scaling_factor=2),
+            "sesr_m5_x3_rgb": dict(name="sesr_m5_x3_rgb", in_channels=3, out_channels=3,
+                                   num_channels=16, num_lblocks=5, scaling_factor=3),
+            "sesr_m5_x4_rgb": dict(name="sesr_m5_x4_rgb", in_channels=3, out_channels=3,
+                                   num_channels=16, num_lblocks=5, scaling_factor=4),
+            "sesr_xl_x4_rgb": dict(name="sesr_xl_x4_rgb", in_channels=3, out_channels=3,
+                                   num_channels=32, num_lblocks=11, scaling_factor=4)}
+OUT_SIZE = (1080, 1920)
+# phase 15's corners K1 still refuses with the shared-memory message: at 16
+# PEs the split last conv's B of SESR-XL x4 (48 columns) fits no tile beside
+# the buffers (ROADMAP queue 1 item 3)
+K1_REFUSED = {("sesr_xl_x4_rgb", "pe16")}
+# phase 15's sweep of the instantiations of a last conv past the shipped
+# counts that the main path leaves unlaunched, on a small batch: K1 and K2
+# at each padded count (out_cols 8, 16, 32, 48), width and form (general
+# and wide), the corrected kernel's served and counting forms past 16
+# outputs at each PE group count, width and form; OUT_NETS and the Y
+# channel at x3 (9 outputs) at both widths and RGB at x3 at SESR-XL's, each
+# calibrated at 4 PEs on the card and run at the configs of SWEEP_HW
+SWEEP_NETS = {"sesr_m5_x3_y": dict(name="sesr_m5_x3_y", in_channels=1, out_channels=1,
+                                   num_channels=16, num_lblocks=5, scaling_factor=3),
+              "sesr_xl_x3_y": dict(name="sesr_xl_x3_y", in_channels=1, out_channels=1,
+                                   num_channels=32, num_lblocks=11, scaling_factor=3),
+              "sesr_xl_x3_rgb": dict(name="sesr_xl_x3_rgb", in_channels=3, out_channels=3,
+                                     num_channels=32, num_lblocks=11, scaling_factor=3)}
+WIDE_SUMS = dict(pe_acc_bits=20, pe_add_bits=24)
+SWEEP_HW = {"pe4": {}, "pe4_wide": WIDE_SUMS, "pe8": dict(pe=8),
+            "pe8_wide": dict(pe=8, **WIDE_SUMS), "pe16": dict(pe=16),
+            "pe16_wide": dict(pe=16, **WIDE_SUMS)}
+SWEEP_BATCH = (2, 27, 45)
+
+
+def out_frame(spec):
+    """The input frame whose output is OUT_SIZE."""
+    return OUT_SIZE[0] // spec.scaling_factor, OUT_SIZE[1] // spec.scaling_factor
+
+
 # phase 14's networks at the new configs: each network's config (their
 # labels and kernels-line names say "saturated", apart from XL's at pe16)
 NEW_FAMILY = {"m11u_pe16": "pe16", "xlu_pe16": "pe16", "m11w": "pe16_wide"}
@@ -2982,9 +3060,10 @@ def family_phase(torch, dev, card, hw_jobs=()):
     nets["xl_pe8_acc12"] = (
         spec, dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, **XL_PE8)), None)
     # the saturated M11 and XL calibrated at pe16, and the M11 at pe16_wide
-    # with WIDE_SATURATED, the M11s certified on the card (XL's certificate
-    # would check its hybrid mode on the corrected kernel, which refuses XL
-    # at 16 PEs once a conv is split: it runs K1 and the PE-exact mode here)
+    # with WIDE_SATURATED, each certified on the card (the corrected
+    # kernel takes XL at 16 PEs with split convs, its split
+    # layers' B staged in pieces, so XL's certificate checks its hybrid
+    # mode on the card too)
     for key, net, cname, sats in (("m11u_pe16", "m11", "pe16", SATURATED),
                                   ("xlu_pe16", "xl", "pe16", SATURATED),
                                   ("m11w", "m11", "pe16_wide", WIDE_SATURATED)):
@@ -2995,13 +3074,10 @@ def family_phase(torch, dev, card, hw_jobs=()):
         cqp = dataclasses.replace(cqp, w_int=[
             np.full_like(np.asarray(w), 127) if i in sats else np.asarray(w)
             for i, w in enumerate(cqp.w_int)])
-        if net == "m11":
-            cqp = certify_fast(spec, cqp, cert, device="cuda")
+        cqp = certify_fast(spec, cqp, cert, device="cuda")
         print(f"[14] {spec.name} at {cname} with convs {sats} at +127 ({key}): "
-              f"{cqp.cert_grade if net == 'm11' else 'not certified'} {cqp.cert_stamps}, "
-              f"{f'serves {select_forward(cqp)[0]}; ' if net == 'm11' else ''}calibrate"
-              f"{' and certify_fast' if net == 'm11' else ''} {time.perf_counter() - t0:.2f} s "
-              f"on the card; split pe-exact "
+              f"{cqp.cert_grade} {cqp.cert_stamps}, serves {select_forward(cqp)[0]}; calibrate "
+              f"and certify_fast {time.perf_counter() - t0:.2f} s on the card; split pe-exact "
               f"{[i for i, f in enumerate(split_layers(cqp, 'pe-exact')) if f]}", flush=True)
         nets[key] = (spec, cqp, cert)
 
@@ -3019,12 +3095,11 @@ def family_phase(torch, dev, card, hw_jobs=()):
                           for c in HW_CONFIGS},
              "xl_pe8_acc12": (("sim", "exact"), ("sim-c", "pe-exact")),
              "m11u_pe16": (("sim", "exact"), ("sim-c", "pe-exact")),
-             "xlu_pe16": (("sim", "exact"), ("sim-c", "pe-exact")),
+             "xlu_pe16": (("hybrid", "hybrid"), ("sim", "exact"), ("sim-c", "pe-exact")),
              "m11w": (("sim", "exact"), ("pe-exact", "pe-exact"), ("hybrid", "hybrid"),
                       *((("fast", "fast"),) if nets["m11w"][1].fast_cert_ok else ()))}
-    # a (network, mode) whose kernel refuses the network (SESR-XL's corrected
-    # kernel at 16 PEs, where a split layer's B does not fit a block at any
-    # tile) is recorded with the refusal's bytes and left out
+    # every (network, mode) runs: no kernel refuses one of them (SESR-XL's
+    # corrected kernel at 16 PEs stages its split layers' B in pieces)
     refused = {}
     datapath_of = {"fast": "fast", "sim": "exact", "hybrid": "corrected",
                    "pe-exact": "corrected", "sim-c": "corrected"}
@@ -3041,8 +3116,8 @@ def family_phase(torch, dev, card, hw_jobs=()):
                 refused[key, mode] = str(e)
                 print(f"[14] {spec.name} ({key}) {mode}: refused, {e}", flush=True)
         calls[key] = tuple(kept)
-    if set(refused) - {("xlu_pe16", "sim-c"), ("xl_pe16", "sim-c"), ("xl_pe16_wide", "sim-c")}:
-        fail(f"[14] refused past SESR-XL's corrected kernel at 16 PEs: {sorted(refused)}")
+    if refused:
+        fail(f"[14] a kernel refused a network: {sorted(refused)}")
     fwd = {"fast": lambda s, q, x: fast_forward(s, q, x, out_dtype="int8"),
            "hybrid": lambda s, q, x: hybrid_forward(s, q, x, out_dtype="int8"),
            "pe-exact": lambda s, q, x: pe_exact_corrected_forward(s, q, x, out_dtype="int8"),
@@ -3106,13 +3181,15 @@ def family_phase(torch, dev, card, hw_jobs=()):
         del want_y
     del outs
 
-    # the runtime audit on the saturated XL at 4 and 8 PEs (its convs 3 and
-    # 9 fire the 18-bit clamp): one counting launch a call, the counters at
-    # 0 before it, counts array_equal with the plain interpreter's
-    # overflow_18 on the card and the output torch.equal
+    # the runtime audit on the saturated XL at 4, 8 and 16 PEs (its convs 3
+    # and 9 fire the 18-bit clamp; at 16 the split layers' B in pieces): one
+    # counting launch a call, the counters at 0 before it, counts
+    # array_equal with the plain interpreter's overflow_18 on the card and
+    # the output torch.equal
     xl_spec, xlu_qp, _ = nets["xlu"]
     audited = {"xlu": xlu_qp,
-               "xlu_pe8": dataclasses.replace(xlu_qp, hw=dataclasses.replace(xlu_qp.hw, pe=8))}
+               "xlu_pe8": dataclasses.replace(xlu_qp, hw=dataclasses.replace(xlu_qp.hw, pe=8)),
+               "xlu_pe16": nets["xlu_pe16"][1]}
     audit_entries = []
     for key, aqp in audited.items():
         reset_launch_counts()
@@ -3183,6 +3260,7 @@ def family_phase(torch, dev, card, hw_jobs=()):
              (corrected_net, "m11u_pe16", "pe-exact", "sim-c"),
              (pe_exact_net, "xlu_pe16", None, "sim"),
              (corrected_net, "xlu_pe16", "pe-exact", "sim-c"),
+             (corrected_net, "xlu_pe16", "hybrid", "hybrid"),
              (pe_exact_net, "m11w", None, "sim"), (fast_net, "m11w", None, "fast"),
              (corrected_net, "m11w", "hybrid", "hybrid"),
              (corrected_net, "m11w", "pe-exact", "pe-exact")]
@@ -3206,16 +3284,17 @@ def family_phase(torch, dev, card, hw_jobs=()):
             tiles = [tile0]
             mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
             plan = corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels, tile0,
-                                  kc.pe_split, kc.pe, kc.width)
+                                  kc.pe_split, kc.pe, kc.width, kc.general)
             built = lib_c.sesr_corrected_smem(spec.num_convs, spec.in_channels,
                                               spec.conv_out_channels, *tile0, mask, kc.pe,
-                                              kc.width)
+                                              int(kc.general), kc.width)
             if plan[0] != built:
                 fail(f"[14] {label} tile {tile0}: the wrapper plans {plan[0]} B of shared "
                      f"memory, the library {built}")
             print(f"[14] {label}: tile {tile0[0]}x{tile0[1]}, {plan[0]} B of shared memory "
                   f"(the wrapper's plan and the library's agree), B "
-                  f"{'resident' if plan[1] == 0 else f'staged in {plan[1]} region(s)'}",
+                  f"{'resident' if plan[1] == 0 else f'staged in {plan[1]} region(s)'}"
+                  f"{' in pieces' if plan.pieces else ''}",
                   flush=True)
         else:
             tiles = []
@@ -3342,13 +3421,347 @@ def family_phase(torch, dev, card, hw_jobs=()):
     return entries
 
 
+def out_channels_phase(torch, dev, card):
+    """Phase 15, last convs of 1 to 48 output channels on the card: the
+    networks of OUT_NETS from seeded weights (the published checkpoints are
+    not in the repository), each calibrated and certified on the card at 4
+    PEs and at phase 12's pe16, and a copy of each with its last conv at
+    +127 (its 18-bit clamp fires, the certificate leaves it unstamped and
+    both corrected modes split it per PE: 32 or 48 columns a PE group past
+    16 outputs, B staged in pieces where a layer's does not fit). Then, with
+    the launch counters at 0 before and read after each call, at the input
+    size whose output is 1080x1920 (out_frame): K1 (``pe_exact_forward``,
+    behind ``sim``), K2 where the network certifies fully (else its
+    wrapper on the quantized frame against the plain fast datapath, "k2":
+    the kernel's instantiation checked, the main path never takes it), the hybrid and
+    corrected PE-exact modes and the counting form (``audit_forward``),
+    each at batch 1 and 4 (the saturated copies at batch 1), one launch a
+    call of its wrapper; every output torch.equal with the plain
+    interpreter on the card, the counts with its overflow_18; K1 must
+    refuse the corners of K1_REFUSED with the shared-memory message, and
+    launch nothing. Then the sweep (``out_sweep``): every instantiation of
+    a padded count or past 16 outputs launched. Then each
+    (kernel, network, config)'s device time per frame at batch 1 and its
+    default tile, the plan's shared memory (the wrapper's and the
+    library's, which must agree; CUPTI's in phase 14's process of its own
+    through the jobs returned), the bound (the network's int8 MACs at
+    1,979 TOP/s) and share, the plain interpreter's time, and ptxas's
+    registers and spills of the instantiation. Returns (the kernels-line
+    entries, the CUPTI jobs)."""
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec
+    from sesr_tpu_torch.convert import kernel_constants, out_columns
+    from sesr_tpu_torch.deploy import select_forward
+    from sesr_tpu_torch.models.sesr import init_params
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.ops.corrected import (audit_forward, hybrid_forward,
+                                              pe_exact_corrected_forward, split_layers)
+    from sesr_tpu_torch.ops.fast import fast_forward
+    from sesr_tpu_torch.ops.kernels import (NET_KERNELS, corrected_net, corrected_plan,
+                                            fast_net, pe_exact_net, reset_launch_counts)
+    from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.certify import certify_fast
+    from sesr_tpu_torch.quant.integer import (integer_forward, integer_forward_int8,
+                                              quantize_input)
+    from sesr_tpu_torch.timing import median_ms
+
+    tag = f"({card})"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    configs = {"pe4": {}, "pe16": HW_CONFIGS["pe16"]}
+    nets, frames = {}, {}
+    for seed, (name, kw) in enumerate(OUT_NETS.items()):
+        spec = SESRSpec(**kw)
+        L = spec.num_convs
+        params = init_params(spec, torch.Generator().manual_seed(seed))
+        calib = [rng.random((1, 96, 128, spec.in_channels), dtype=np.float32) for _ in range(2)]
+        cert = [rng.random((1,) + CERT_FRAME + (spec.in_channels,), dtype=np.float32)
+                for _ in range(2)]
+        for cname, hw in configs.items():
+            t0 = time.perf_counter()
+            qp = calibrate(spec, params, calib, hw=HardwareConfig(**hw), safe_zero_floor=True,
+                           device="cuda")
+            qp = certify_fast(spec, qp, cert, device="cuda")
+            sat = dataclasses.replace(qp, w_int=[
+                np.full_like(np.asarray(w), 127) if i == L - 1 else np.asarray(w)
+                for i, w in enumerate(qp.w_int)])
+            sat = certify_fast(spec, sat, cert, device="cuda")
+            print(f"[15] {name} ({spec.in_channels} in, {spec.conv_out_channels} out, "
+                  f"{out_columns(spec.conv_out_channels)} columns; {L} convs of "
+                  f"{spec.num_channels}) at {cname}: {qp.cert_grade} {qp.cert_stamps}, serves "
+                  f"{select_forward(qp)[0]}; the last conv at +127: {sat.cert_grade} "
+                  f"{sat.cert_stamps}, serves {select_forward(sat)[0]}, split hybrid "
+                  f"{[i for i, f in enumerate(split_layers(sat, 'hybrid')) if f]} pe-exact "
+                  f"{[i for i, f in enumerate(split_layers(sat, 'pe-exact')) if f]}; calibrate "
+                  f"and two certify_fast {time.perf_counter() - t0:.2f} s on the card",
+                  flush=True)
+            if not (split_layers(sat, "hybrid")[L - 1] and split_layers(sat, "pe-exact")[L - 1]):
+                fail(f"[15] {name} at {cname}: the saturated last conv is not split")
+            nets[name, cname] = (spec, qp)
+            nets[name, f"{cname}_sat"] = (spec, sat)
+        frames[name] = torch.from_numpy(rng.random((4,) + out_frame(spec) + (spec.in_channels,),
+                                                   dtype=np.float32)).to(dev)
+
+    fwd = {"sim": lambda s, q, x: pe_exact_forward(s, q, x),
+           "fast": lambda s, q, x: fast_forward(s, q, x, out_dtype="int8"),
+           "hybrid": lambda s, q, x: hybrid_forward(s, q, x, out_dtype="int8"),
+           "pe-exact": lambda s, q, x: pe_exact_corrected_forward(s, q, x, out_dtype="int8"),
+           "audit": lambda s, q, x: audit_forward(s, q, x),
+           "k2": lambda s, q, x: fast_net(s, q, quantize_input(x, q).to(torch.int8).contiguous())}
+    kernel_of = {"sim": pe_exact_net, "fast": fast_net, "hybrid": corrected_net,
+                 "pe-exact": corrected_net, "audit": corrected_net, "k2": fast_net}
+
+    def plain(mode, spec, qp, x):
+        if mode == "sim":
+            return integer_forward(spec, qp, x)[0]
+        if mode == "fast":
+            return integer_forward_int8(spec, qp, x, corrected=True, compute="fast")
+        if mode == "k2":                    # the last conv's int8 output, before the shuffle
+            _, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True), x,
+                                       collect_dumps=True, corrected=True, compute="fast")
+            return dumps[f"input.{spec.num_convs}"].to(torch.int8)
+        if mode == "hybrid":
+            return integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
+                                        fast_layers=tuple(qp.fast_cert_layers))
+        if mode == "pe-exact":
+            return integer_forward_int8(spec, qp, x, corrected=True, compute="exact")
+        y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True)
+        return y, dumps["overflow_18"]
+
+    def instance(mode, spec, qp):
+        """The instantiation (ptxas_line's name) a call of ``mode`` launches."""
+        kern = kernel_of[mode]
+        split = split_layers(qp, "pe-exact" if mode == "audit" else mode) \
+            if kern is corrected_net else None
+        kc = kernel_constants(spec, qp, kern.datapath, split)
+        return ptxas_line(kern, spec, kc, mode == "audit")[0]
+
+    # the main path: one launch a call, counters at 0 before and read after
+    own, launches, hit = {}, {k.symbol: 0 for k in NET_KERNELS}, set()
+    launches["sesr_corrected_audit"] = 0
+    for (name, cname), (spec, qp) in nets.items():
+        modes = ("hybrid", "pe-exact", "audit") if cname.endswith("_sat") else \
+            ("sim", "fast" if qp.fast_cert_ok else "k2", "hybrid", "pe-exact", "audit")
+        for mode in modes:
+            if mode == "sim" and (name, cname) in K1_REFUSED:
+                reset_launch_counts()
+                try:
+                    pe_exact_forward(spec, qp, frames[name][:1])
+                except NotImplementedError as e:
+                    made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
+                    if "no tile of the exact kernel fits" not in str(e) or made:
+                        fail(f"[15] {name} {cname} sim: refused otherwise than for shared "
+                             f"memory ({e}; launches {made})")
+                    print(f"[15] {name} {cname} sim: refused as expected, no launch: {e}",
+                          flush=True)
+                else:
+                    fail(f"[15] {name} {cname} sim: K1 took a network it should refuse")
+                continue
+            hit.add(instance(mode, spec, qp))
+            for batch in ((1,) if cname.endswith("_sat") else (1, 4)):
+                x = frames[name][:batch]
+                reset_launch_counts()
+                got = fwd[mode](spec, qp, x)
+                made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
+                if mode == "audit":
+                    if made or corrected_net.audit_launches != 1:
+                        fail(f"[15] {name} {cname} audit batch {batch} launched {made} and "
+                             f"{corrected_net.audit_launches} counting launches")
+                    launches["sesr_corrected_audit"] += 1
+                elif made != {kernel_of[mode].symbol: 1} or corrected_net.audit_launches:
+                    fail(f"[15] {name} {cname} {mode} batch {batch} launched {made}, want one "
+                         f"launch of {kernel_of[mode].symbol}")
+                else:
+                    launches[kernel_of[mode].symbol] += 1
+                entry = own.setdefault((name, cname, mode), [0, 0])
+                entry[0] += 1
+                entry[1] += batch
+                want = plain(mode, spec, qp, x)
+                if mode == "audit":
+                    (got, counts), (want, want_counts) = got, want
+                    if not torch.equal(counts, want_counts):
+                        fail(f"[15] {name} {cname} audit batch {batch}: counts "
+                             f"{counts.tolist()} against the plain {want_counts.tolist()}")
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"[15] {name} {cname} {mode} batch {batch}: differs from the plain "
+                         f"interpreter")
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"[15] {name} {cname} {mode} batch {batch}: non-finite output")
+                print(f"[15] {name} {cname} {mode} batch {batch}: output {tuple(got.shape)} "
+                      f"{got.dtype}, torch.equal with plain (cuda)"
+                      f"{f'; counts {counts.tolist()}' if mode == 'audit' else ''}", flush=True)
+                del got, want
+    torch.cuda.synchronize()
+    print(f"[15] main path: launches {launches}; per network, config and mode (launches, "
+          f"frames) {own}; corrected by split mask {dict(corrected_net.split_launches)} {tag}",
+          flush=True)
+    out_sweep(torch, dev, {name: nets[name, "pe4"] for name in OUT_NETS}, hit, fwd, plain,
+              instance, tag)
+
+    # each (kernel, network, config) at batch 1 and its default tile
+    lib_c = _build.load("sesr_corrected")
+    lib = _build.load("sesr_net")
+    cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
+    os.makedirs(cupti_dir, exist_ok=True)
+    entries, jobs, plain_ms = [], [], {}
+    for (name, cname, mode), (n_launch, n_frames) in own.items():
+        spec, qp = nets[name, cname]
+        kern = kernel_of[mode]
+        audit = mode == "audit"
+        split = split_layers(qp, "pe-exact" if audit else mode) \
+            if kern is corrected_net else None
+        kc = kernel_constants(spec, qp, kern.datapath, split)
+        x1 = frames[name][:1]
+        x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
+        tile = kern.tile(spec, kc.pe_split, kc.pe, kc.general)
+        plan = kern.smem_bytes(spec, tile, kc.pe_split, kc.pe, kc.general)
+        mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
+        if kern is corrected_net:
+            cplan = corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels,
+                                   tile, kc.pe_split, kc.pe, kc.width, kc.general)
+            built = lib_c.sesr_corrected_smem(spec.num_convs, spec.in_channels,
+                                              spec.conv_out_channels, *tile, mask, kc.pe,
+                                              int(kc.general), kc.width)
+            how = ("B resident" if cplan.regions == 0 else
+                   f"B staged in {cplan.regions} region(s){' in pieces' if cplan.pieces else ''}")
+        else:
+            built = lib.sesr_net_smem(int(kern is pe_exact_net), spec.num_convs,
+                                      spec.in_channels, spec.conv_out_channels, *tile, mask,
+                                      kc.pe, int(kc.general), kc.width)
+            how = f"{'general' if kc.general else 'shipped'} instantiation"
+        if built != plan:
+            fail(f"[15] {name} {cname} {mode}: the wrapper plans {plan} B of shared memory, the "
+                 f"library {built}")
+        symbol = "sesr_corrected_audit" if audit else kern.symbol
+        label = f"{symbol} {name} {cname}{f' {mode}' if kern is corrected_net else ''}"
+        if audit:
+            e = audit_entry(torch, dev, spec, qp, x1, f"sesr_corrected_audit[{name}, {cname}]",
+                            tag, 15, (n_launch, n_frames))
+            e.update(tile=list(tile), smem_plan=plan)
+            entries.append(e)
+        else:
+            ms = median_ms(lambda: kern(spec, qp, x_q, split=split), dev, 20, warmup=3,
+                           lead_ms=2.0)
+            pkey = (name, cname, mode if mode in ("sim", "hybrid") else "fast"
+                    if mode in ("fast", "k2") else "pe-exact")
+            if pkey not in plain_ms:
+                plain_ms[pkey] = median_ms(lambda: plain(mode, spec, qp, x1), dev, 3)
+            weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
+            n, h, w = x_q.shape[:3]
+            macs = weights * n * h * w
+            moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
+            bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
+            ikey, (regs, spill) = ptxas_line(kern, spec, kc)
+            print(f"[15] {label} {h}x{w}: {ms:.4f} ms/frame at tile {tile[0]}x{tile[1]}, "
+                  f"{plan} B of shared memory (the wrapper's plan and the library's agree), "
+                  f"{how}; {ikey} ptxas {regs} registers, {spill} B spill stores; per-PE passes "
+                  f"on convs {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; bound "
+                  f"{bnd[0] * 1e3:.3f} us ({bnd[1]}: {2 * macs:.4g} int8 ops, {moved} bytes), "
+                  f"share {bnd[0] / ms:.4f}; plain {plain_ms[pkey]:.3f} ms; launches on the "
+                  f"main path {n_launch} over {n_frames} frames {tag}", flush=True)
+            if mode == "k2":                # a kernel check, off the main path: no entry
+                continue
+            entries.append(dict(
+                name=f"{kern.symbol}[{name}, {cname}{f', {mode}' if kern is corrected_net else ''}]",
+                route="cuda", source=SOURCES[kern.symbol], replaces=REPLACES[kern.symbol],
+                launches=n_launch, launches_per_frame={"main path": n_launch / n_frames},
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms[pkey], bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=None, tile=list(tile), smem_plan=plan,
+                ptxas=[regs, spill],
+                work=f"{name}, {h}x{w} frame, batch 1"
+                     f"{f', {mode} mode' if kern is corrected_net else ''}, {qp.hw.pe} PEs"))
+        qp_path = os.path.join(cupti_dir, f"p15_{name}_{cname}.npz")
+        qp.save(qp_path)
+        jobs.append(dict(label=label, spec=dataclasses.asdict(spec), qparams=qp_path,
+                         symbol=kern.symbol, audit=audit, tile=list(tile), plan=plan,
+                         out_frame=True,
+                         mode=("pe-exact" if audit else mode) if kern is corrected_net else None,
+                         pattern=kernel_family(kern, kc, audit)))
+    print(f"[15] the output-channels phase took {time.perf_counter() - t_phase:.1f} s {tag}",
+          flush=True)
+    return entries, jobs
+
+
+def out_sweep(torch, dev, calibrated, hit, fwd, plain, instance, tag):
+    """Phase 15's sweep (SWEEP_NETS, SWEEP_HW): each network of
+    ``calibrated`` (OUT_NETS at 4 PEs) and of SWEEP_NETS (calibrated here
+    at 4 PEs on the card) at each config of SWEEP_HW (the artifact's
+    HardwareConfig replaced: the same weights and scales on another
+    datapath), on a seeded SWEEP_BATCH batch: K1 and K2 at 4 PEs (K2's
+    wrapper on the quantized batch), and past 16 outputs the corrected
+    kernel's PE-exact mode and its counting form with the last conv at
+    +127 (split), each torch.equal with the plain interpreter on the card.
+    These launches compare, off the main path. Then every instantiation of
+    a padded count (K1 / K2) and of a last conv past 16 channels (the
+    corrected kernel, served and counting) in the libraries' ptxas reports
+    must be among ``hit`` (the main path's) and the sweep's, or it fails."""
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec
+    from sesr_tpu_torch.models.sesr import init_params
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.quant.calibrate import calibrate
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(151)
+    nets = dict(calibrated)
+    for seed, (name, kw) in enumerate(SWEEP_NETS.items(), start=len(OUT_NETS)):
+        spec = SESRSpec(**kw)
+        params = init_params(spec, torch.Generator().manual_seed(seed))
+        calib = [rng.random((1, 96, 128, spec.in_channels), dtype=np.float32) for _ in range(2)]
+        nets[name] = (spec, calibrate(spec, params, calib, safe_zero_floor=True, device="cuda"))
+    runs = 0
+    for name, (spec, qp) in nets.items():
+        L = spec.num_convs
+        x = torch.from_numpy(rng.random(SWEEP_BATCH + (spec.in_channels,),
+                                        dtype=np.float32)).to(dev)
+        for hname, hw in SWEEP_HW.items():
+            hq = dataclasses.replace(qp, hw=HardwareConfig(**hw), fast_cert_layers=None,
+                                     fast_cert_ok=False)
+            sat = dataclasses.replace(hq, w_int=[
+                np.full_like(np.asarray(w), 127) if i == L - 1 else np.asarray(w)
+                for i, w in enumerate(hq.w_int)])
+            calls = [("sim", hq), ("k2", hq)] if hq.hw.pe == 4 else []
+            if spec.conv_out_channels > 16:
+                calls += [("pe-exact", hq), ("pe-exact", sat), ("audit", sat)]
+            for mode, cqp in calls:
+                got, want = fwd[mode](spec, cqp, x), plain(mode, spec, cqp, x)
+                if mode == "audit":
+                    (got, counts), (want, want_counts) = got, want
+                    if not torch.equal(counts, want_counts):
+                        fail(f"[15] sweep {name} {hname} audit: counts {counts.tolist()} "
+                             f"against the plain {want_counts.tolist()}")
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"[15] sweep {name} {hname} {mode}"
+                         f"{' (last conv at +127)' if cqp is sat else ''}: differs from the "
+                         f"plain interpreter")
+                hit.add(instance(mode, spec, cqp))
+                runs += 1
+    torch.cuda.synchronize()
+    want = set()
+    for lib, families in (("sesr_net", ("sesr_net_kernel", "sesr_net_wide_kernel")),
+                          ("sesr_corrected", ("sesr_corrected_wideout_kernel",
+                                              "sesr_corrected_audit_wideout_kernel"))):
+        log = _build.build(lib).log
+        for family in families:
+            want |= {f"{family}<{args}>" for args in _build.ptxas_report(log, family)
+                     if family != "sesr_net_kernel" or "ELin" in args}
+    missing = sorted(want - hit)
+    print(f"[15] sweep: {len(nets)} networks at {len(SWEEP_HW)} configs, {runs} calls on "
+          f"{SWEEP_BATCH}, each torch.equal with the plain interpreter (cuda); instantiations "
+          f"of a padded count or past 16 outputs launched in phase 15: "
+          f"{len(want & hit)} of {len(want)}; {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
+    if missing:
+        fail(f"[15] instantiations phase 15 never launched: {missing}")
+
+
 def cupti_process(jobs_path):
     """``chip_smoke.py --cupti JOBS``: launch each kernel of JOBS (a JSON
-    list of phase 14's default-tile launches: the network, its QuantParams
-    file, the wrapper, the corrected kernel's mode, whether the launch is
-    its counting form, and the tile) once on a
-    seeded 540x960 frame, and print {label: [registers, shared memory]} as
-    CUPTI reports them (``launch_attrs``)."""
+    list of phase 14's and 15's default-tile launches: the network, its
+    QuantParams file, the wrapper, the corrected kernel's mode, whether the
+    launch is its counting form, and the tile) once on a seeded 540x960
+    frame (phase 15's: out_frame) of the network's input channels, and print
+    {label: [registers, shared memory]} as CUPTI reports them
+    (``launch_attrs``)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -3361,13 +3774,14 @@ def cupti_process(jobs_path):
     with open(jobs_path) as f:
         jobs = json.load(f)
     kernels = {k.symbol: k for k in NET_KERNELS}
-    x = torch.from_numpy(np.random.default_rng(0).random((1,) + FRAME + (3,),
-                                                         dtype=np.float32)).to("cuda")
     attrs = {}
     for job in jobs:
         spec, qp = SESRSpec(**job["spec"]), QuantParams.load(job["qparams"])
         kern = kernels[job["symbol"]]
         split = split_layers(qp, job["mode"]) if job["mode"] else None
+        frame = out_frame(spec) if job.get("out_frame") else FRAME
+        x = torch.from_numpy(np.random.default_rng(0).random(
+            (1,) + frame + (spec.in_channels,), dtype=np.float32)).to("cuda")
         x_q = quantize_input(x, qp).to(torch.int8).contiguous()
         tile = tuple(job["tile"])
         if job.get("audit"):
@@ -3378,7 +3792,14 @@ def cupti_process(jobs_path):
                 return kern(spec, qp, x_q, tile=tile, split=split)
         pattern = job["pattern"]
         fn()                                                      # loads the library
-        attrs.update(launch_attrs(torch, {job["label"]: fn}, pattern, tries=3))
+
+        def twice(fn=fn):
+            # a trace may lose a launch's kernel record (on the H100 up to
+            # three traces in a row held none): two identical launches a
+            # trace, up to five traces
+            fn()
+            fn()
+        attrs.update(launch_attrs(torch, {job["label"]: twice}, pattern, tries=5))
     print(json.dumps(attrs), flush=True)
 
 
@@ -3892,9 +4313,13 @@ def main():
     entries += hw_entries
     # 13. bench and profile (their launches stay out of the kernels line)
     bench_phase(torch, dev, card)
+    # 15. last convs of 1 to 48 output channels, before 14, whose CUPTI
+    # process reads its launches too
+    out_entries, out_jobs = out_channels_phase(torch, dev, card)
     # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode)
-    entries += family_phase(torch, dev, card, hw_jobs)
-    print(f"[14] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+    entries += family_phase(torch, dev, card, hw_jobs + out_jobs)
+    entries += out_entries
+    print(f"[15] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

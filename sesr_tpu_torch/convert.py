@@ -23,16 +23,28 @@ from sesr_tpu_torch.quant.params import QuantParams
 # of HEAD_WORDS words, one record of ``record_words(width)`` words per conv
 # (its scalars, then its bias row and its z_eff * sum(W) row, ``width``
 # words each), then, for the corrected kernel, z_eff * sum(W_p) per conv,
-# PE and channel. Float fields travel as their float32 bits. The block of
-# an L-conv network holds L records: K1 and K2 copy the head and the
-# records (``net_words``) into shared memory, the corrected kernel all of
-# it (``param_words``).
+# PE and channel. A last conv of more output channels than ``width`` keeps
+# its rows past those (``out_rows``): its bias, z_eff * sum(W) and each
+# PE's z_eff * sum(W_p), ``out_channels`` words each, its record's "rows"
+# word the first one's offset. The last record's "out" word is the last
+# conv's output channels. Float fields travel as their float32 bits. The
+# block of an L-conv network holds L records: K1 and K2 copy the head and
+# the records (``net_words``) into shared memory, the corrected kernel all
+# of it (``block_words``).
 MAX_LAYERS = 16
 WIDTHS = (16, 32)                  # the hidden widths every fused kernel runs
 MAX_PES = 16
 HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6, quant=7)
 HEAD_WORDS = 8
-RECORD = dict(w_off=0, z_eff=1, z_in=2, rq_m=3, rq_p=4, bias=8)      # zc: bias + width
+RECORD = dict(w_off=0, z_eff=1, z_in=2, rq_m=3, rq_p=4, rows=5, out=6, bias=8)  # zc: bias + width
+# the last conv's output channels every fused kernel takes: 1 to 3 x 4^2
+# (an RGB network of scale 4), run as OUT_COLUMNS padded columns, the
+# first that holds them (``out_columns``); K1 and K2 serve 3, 12 and 16 in
+# the instantiations the shipped artifacts use, and every count in the
+# general ones, at its padded columns
+MAX_OUT = 48
+OUT_COLUMNS = (8, 16, 32, 48)
+SHIPPED_OUT = (3, 12, 16)
 DATAPATHS = ("exact", "fast", "corrected")
 # the kernels' magic-number conversions (sesr_common.cuh kMagic) hold an
 # integer exactly while |y| < 2^22; an artifact whose sums may pass it runs
@@ -79,9 +91,33 @@ def zc_pe_at(num_layers: int, width: int, pe: int, layer: int, p: int) -> int:
 
 
 def param_words(pe: int, num_layers: int, width: int = 16) -> int:
-    """Words of the parameter block at ``pe`` PEs (sesr_common.cuh
-    param_words)."""
+    """Words of the head, the records and the per-PE rows at ``pe`` PEs
+    (sesr_common.cuh param_words): where ``out_rows`` starts."""
     return net_words(num_layers, width) + num_layers * pe * width
+
+
+def out_columns(oc: int) -> int:
+    """The padded columns of a last conv of ``oc`` output channels in every
+    fused kernel (sesr_common.cuh out_cols): a count of mma.sync n-tiles
+    (K1, K2) and a wgmma N (the corrected kernel) both take."""
+    for cols in OUT_COLUMNS:
+        if oc <= cols:
+            return cols
+    raise NotImplementedError(f"the fused kernels run last convs of at most {MAX_OUT} output "
+                              f"channels, this network has {oc}")
+
+
+def out_rows(oc: int, width: int, pe: int) -> int:
+    """Words of the last conv's own rows (sesr_common.cuh out_rows): its
+    bias, z_eff * sum(W) and each PE's z_eff * sum(W_p), ``oc`` words each,
+    where ``oc`` passes the hidden width (the record's rows hold ``width``);
+    none otherwise."""
+    return (2 + pe) * oc if oc > width else 0
+
+
+def block_words(pe: int, num_layers: int, width: int, oc: int) -> int:
+    """Words of the whole parameter block."""
+    return param_words(pe, num_layers, width) + out_rows(oc, width, pe)
 
 
 def pe_groups(pe: int) -> int:
@@ -126,7 +162,7 @@ class KernelConstants:
     words of every layer, the parameter block, and the shapes."""
 
     weights: np.ndarray          # int32 B words of every layer (_fragment_words; corrected: _wgmma_b_words)
-    params: np.ndarray           # int32 (param_words(pe, num_layers, width),)
+    params: np.ndarray           # int32 (block_words(pe, num_layers, width, out_channels),)
     num_layers: int
     in_channels: int
     out_channels: int
@@ -137,14 +173,26 @@ class KernelConstants:
     width: int                   # the hidden width the network runs at (kernel_width)
     wide: bool = False           # general, and |pe_add + bias| may pass 2^22: the wide kernels
 
+    def _own_rows(self, layer: int) -> bool:
+        return layer == self.num_layers - 1 and self.out_channels > self.width
+
     def param(self, field: str, layer: int = 0):
         """A field of the parameter block: a head or record word, or conv
-        ``layer``'s row of ``width`` words ("bias", "zc")."""
+        ``layer``'s row of ``width`` words ("bias", "zc"; the last conv's
+        own rows of ``out_channels`` words where it has them)."""
+        if field in ("bias", "zc") and self._own_rows(layer):
+            oc = self.out_channels
+            at = self.param("rows", layer) + (oc if field == "zc" else 0)
+            return self.params[at: at + oc]
         at = param_at(field, layer, self.width)
         return self.params[at: at + self.width] if field in ("bias", "zc") else self.params[at]
 
     def zc_pe(self, layer: int, p: int) -> np.ndarray:
         """The row of z_eff * sum(W_p) of conv ``layer``'s PE p."""
+        if self._own_rows(layer):
+            oc = self.out_channels
+            at = self.param("rows", layer) + (2 + p) * oc
+            return self.params[at: at + oc]
         at = zc_pe_at(self.num_layers, self.width, self.pe, layer, p)
         return self.params[at: at + self.width]
 
@@ -230,8 +278,8 @@ def _fragment_columns(oc: int, last: bool) -> np.ndarray:
     (g, t) holds for a pixel (columns 2t, 2t+1 of both n-tiles) are channels
     t, t+4, t+8, t+12: word t of the next layer's input. The last layer
     keeps them in order (n-tile n, columns 2t, 2t+1 -> channels 8n + 2t,
-    8n + 2t + 1) for its NHWC int8 stores."""
-    n = np.arange(8 * -(-oc // 8))
+    8n + 2t + 1) for its NHWC int8 stores, ``out_columns(oc)`` of them."""
+    n = np.arange(out_columns(oc) if last else 8 * -(-oc // 8))
     g = n % 8
     cols = n if last else (g >> 1) + 4 * (g & 1) + 8 * (n // 8)
     return np.where(cols < oc, cols, -1)
@@ -267,13 +315,13 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
 def _wgmma_columns(oc: int, last: bool) -> np.ndarray:
     """Output channel of each column of one PE group of the corrected
     kernel's B (csrc/sesr_corrected.cu ``col_chan``), -1 past OC: a hidden
-    layer's ``oc`` (its width, 16 or 32) columns, a last layer's 16, or 8
-    for <= 8 channels. The last layer's are in order; a hidden layer's are
+    layer's ``oc`` (its width, 16 or 32) columns, a last layer's
+    ``out_columns(oc)``. The last layer's are in order; a hidden layer's are
     permuted so that the four accumulators a thread holds for one row in
     n-tiles 2w and 2w + 1 (wgmma columns 8j + 2t + e, j - 2w and e in
     {0, 1}) are channels 16w + 4t + 2(j - 2w) + e, the bytes of word t of
     the next layer's input plane w."""
-    n = np.arange(8 if last and oc <= 8 else 16 if last else oc)
+    n = np.arange(out_columns(oc) if last else oc)
     cols = n if last else (n >> 4) * 16 + ((n >> 1) & 3) * 4 + ((n >> 3) & 1) * 2 + (n & 1)
     return np.where(cols < oc, cols, -1)
 
@@ -476,19 +524,23 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     Any PE count from 1 to MAX_PES, activations of 2 to 8 bits (QUAN_BITS)
     and any widths whose sums fit int32 run: at four PEs with int8
     activations, sums the kernels' kMagic conversions hold (|pe_add + bias|
-    < 2^22) and no adder clamp that can fire on a K1 layer, a split
-    corrected layer or K2's conv 0, in the instantiations the shipped
-    artifacts use; otherwise in the ``general`` ones, which clamp every
+    < 2^22), no adder clamp that can fire on a K1 layer, a split
+    corrected layer or K2's conv 0, and a last conv of SHIPPED_OUT output
+    channels (K1, K2) or at most 16 (the corrected kernel), in the
+    instantiations the shipped artifacts use; otherwise in the ``general``
+    ones, which clamp every
     layer's sum to pe_add_bits (the identity where it cannot fire) and clip
     activations to [quan_min, quan_max] (head word "quant": 2^(quan_bits -
     1)); where a pe_add_bits sum plus a bias_bits bias can reach 2^22
     (``wide``) they run as the wide kernels, whose sums stay plain int32,
     converted to float32 once. Networks
-    of 3 to MAX_LAYERS convs run at hidden widths of 16 and 32, and a
+    of 3 to MAX_LAYERS convs run at hidden widths of 16 and 32, with 1 to
+    4 input channels and a last conv of 1 to MAX_OUT output channels, and a
     narrower network runs padded with zero channels (``_padded``). Raises
     NotImplementedError for a network or artifact outside that (quan_bits
     above 8, more than MAX_PES PEs, more than MAX_LAYERS convs, a hidden
-    width above 32, an int16 shortcut that may not hold round(s),
+    width above 32, convs other than 5x5 / 3x3 ... / 5x5, more than 4
+    input or MAX_OUT output channels, an int16 shortcut that may not hold round(s),
     ``shortcut_bound``, or a network whose plan at the kernel's smallest
     tile does not fit a block's shared memory).
     """
@@ -520,11 +572,15 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         raise NotImplementedError(
             f"the fused kernels run 3 to {MAX_LAYERS} convs; {spec.name} has {L}")
     width = kernel_width(spec.num_channels)
-    if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])
-            and spec.in_channels <= 4 and spec.conv_out_channels in (3, 12, 16)):
+    out_ch = spec.conv_out_channels
+    if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])):
         raise NotImplementedError(
-            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs with 1-4 input and 3, 12 "
-            f"or 16 output channels; {spec.name} is outside that")
+            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs; {spec.name} has {ks}, outside "
+            f"that")
+    if not (1 <= spec.in_channels <= 4 and 1 <= out_ch <= MAX_OUT):
+        raise NotImplementedError(
+            f"the fused kernels run 1-4 input channels and a last conv of 1-{MAX_OUT} output "
+            f"channels; {spec.name} has {spec.in_channels} in and {out_ch} out, outside that")
     for i in range(L):
         z = qp.effective_zero(i)
         if not -128 <= z <= 127:
@@ -543,14 +599,15 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     if exact:
         split = pe_split_layers(qp)
         clamp = adder_clamp_layers(qp, lambda i: 0, split)
-        general = hw.pe != 4 or any(clamp) or other
+        general = hw.pe != 4 or any(clamp) or other or out_ch not in SHIPPED_OUT
     elif datapath == "fast":
         split = (False,) * L
         clamp = clamp20_layers(qp)
-        general = clamp[0] or other
+        general = clamp[0] or other or out_ch not in SHIPPED_OUT
     else:
         clamp = adder_clamp_layers(qp, qp.effective_zero, split)
-        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split)) or other
+        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split)) or other \
+            or out_ch > 16
     if general:
         clamp = (True,) * L
     if not exact and shortcut_bound(qp, split[0]) > 32767:
@@ -569,7 +626,8 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
             f"{kern.tiles[-1]}, needs {need} B of shared memory, more than a block's "
             f"{SMEM_LIMIT}")
 
-    prm = np.zeros(param_words(hw.pe, L, width), np.int32)
+    prm = np.zeros(block_words(hw.pe, L, width, out_ch), np.int32)
+    rows = param_words(hw.pe, L, width)       # the last conv's own rows, if it has them
     chunks, off = [], 0
     hi16 = (1 << (hw.bias_bits - 1)) - 1
     prm[HEAD["pe_split"]] = sum(1 << i for i in range(L) if split[i])
@@ -601,10 +659,15 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                 zc = np.zeros(oc, np.int64)
             else:
                 zc_pe[:] = 0
-        prm[param_at("bias", i, width):][:oc] = bias
-        prm[param_at("zc", i, width):][:oc] = zc
-        for p in range(hw.pe):
-            prm[zc_pe_at(L, width, hw.pe, i, p):][:oc] = zc_pe[p]
+        if oc > width:                           # the last conv, past the records' rows
+            prm[param_at("rows", i, width)] = rows
+            prm[rows:rows + (2 + hw.pe) * oc] = np.concatenate([bias, zc, *zc_pe])
+        else:
+            prm[param_at("bias", i, width):][:oc] = bias
+            prm[param_at("zc", i, width):][:oc] = zc
+            for p in range(hw.pe):
+                prm[zc_pe_at(L, width, hw.pe, i, p):][:oc] = zc_pe[p]
+    prm[param_at("out", L - 1, width)] = out_ch
     res_m, res_p = requant_factors(qp.res_requant_m, qp.res_requant_n)
     prm[HEAD["res_m"]] = _f32_bits(res_m)
     prm[HEAD["res_p"]] = _f32_bits(res_p)
@@ -613,7 +676,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     prm[HEAD["add_hi"]] = (1 << (hw.pe_add_bits - 1)) - 1
     prm[HEAD["quant"]] = -hw.quan_min
     return KernelConstants(np.concatenate(chunks), prm, L, spec.in_channels,
-                           spec.conv_out_channels, split, clamp, hw.pe, general, width, wide)
+                           out_ch, split, clamp, hw.pe, general, width, wide)
 
 
 def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,

@@ -9,10 +9,13 @@ inputs made from one numpy seed.
 earlier commit unpacked with ``git archive <commit> | tar -x -C DIR`` into
 a directory that .gitignore lists, on those three, on nr's artifact at 3
 and at 8 PEs (the general instantiations at width 16), on K1 and K2
-(``sesr_pe_exact_net``, ``sesr_fast_net``) on sr_x2's 540x960 frame and on
+(``sesr_pe_exact_net``, ``sesr_fast_net``) on sr_x2's 540x960 frame, in
+the shipped instantiation and in the general ones (sr_x2's artifact at 16
+PEs, with wide sums at 16 PEs, at 6- and 4-bit activations: CONFIGS), on
 SESR-M11 x2 with convs 3 and 9 at +127 in the hybrid and the PE-exact
-mode at 540x960 (seeded weights calibrated and certified here on the
-card, saved under build/corrected_ab/ and loaded by both trees). Each
+mode at 540x960, and K1 on it and on SESR-XL x2 (the same convs at +127)
+at 16 PEs (seeded weights calibrated and certified here on the card,
+saved under build/corrected_ab/ and loaded by both trees). Each
 tree's own wrappers and kernels run in their own process (``python -c``
 from the tree's root, which builds the tree's ``csrc/`` into its own
 ``build/``), in turns base, this, this, base; each prints its times, a
@@ -60,12 +63,22 @@ PTXAS_FAMILIES = {"sesr_net": "sesr_net_kernel", "sesr_corrected": "sesr_correct
 # at 1080x1920, K1 and K2 on sr_x2, and the corrected kernel on the
 # saturated SESR-M11 ("m11u"), at the 540x960 frame
 TREE_CASES = CASES + (("nr@pe3", "pe-exact"), ("nr@pe8", "hybrid"), ("nr@pe8", "pe-exact"),
-                      ("sr_x2", "K1"), ("sr_x2", "K2"), ("m11u", "hybrid"), ("m11u", "pe-exact"))
+                      ("sr_x2", "K1"), ("sr_x2", "K2"), ("m11u", "hybrid"), ("m11u", "pe-exact"),
+                      ("sr_x2@pe16", "K1"), ("sr_x2@pe16w", "K1"), ("sr_x2@pe16w", "K2"),
+                      ("sr_x2@q6", "K1"), ("sr_x2@q6", "K2"), ("sr_x2@q4", "K1"),
+                      ("nr@pe16", "K1"), ("m11u@pe16", "K1"), ("xlu@pe16", "K1"))
+# task@config: the artifact's HardwareConfig fields replaced (the same
+# weights and scales on another datapath)
+CONFIGS = {"pe3": dict(pe=3), "pe8": dict(pe=8), "pe16": dict(pe=16),
+           "pe16w": dict(pe=16, pe_acc_bits=20, pe_add_bits=24), "q6": dict(quan_bits=6),
+           "q4": dict(quan_bits=4)}
 SR_FRAME = (540, 960)
-# the SESR paper's M11 x2 (chip_smoke.py phase 14's seed), convs SATURATED
-# at +127
+# the SESR paper's M11 x2 and XL x2 (chip_smoke.py phase 14's seeds), convs
+# SATURATED at +127
 NETS = {"m11u": (dict(name="sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
-                      num_lblocks=11, scaling_factor=2), 0)}
+                      num_lblocks=11, scaling_factor=2), 0),
+        "xlu": (dict(name="sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32,
+                     num_lblocks=11, scaling_factor=2), 1)}
 SATURATED = (3, 9)
 
 # Times this tree's network kernels: run with ``python -c`` from a tree's
@@ -82,16 +95,16 @@ from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, pe_exact_net
 from sesr_tpu_torch.quant.integer import quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
 from sesr_tpu_torch.timing import median_ms
-reps, frames, cases, nets = json.loads(sys.argv[1])
+reps, frames, cases, nets, configs = json.loads(sys.argv[1])
 dev = torch.device("cuda")
 out = {"device": torch.cuda.get_device_name(0)}
 for task, mode in cases:
-    name, _, pe = task.partition("@pe")
-    kw, path = nets.get(task, (None, f"artifacts/qparams_{name}.npz"))
+    name, _, config = task.partition("@")
+    kw, path = nets.get(name, (None, f"artifacts/qparams_{name}.npz"))
     spec = SESRSpec(**kw) if kw else spec_for_task(name)
     qp = QuantParams.load(path)
-    if pe:
-        qp = dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, pe=int(pe)))
+    if config:
+        qp = dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, **configs[config]))
     if mode == "pe-exact":
         qp = dataclasses.replace(qp, fast_cert_layers=None)
     kern = {"K1": pe_exact_net, "K2": fast_net}.get(mode, corrected_net)
@@ -143,9 +156,9 @@ def run_tree(tree: Path, reps: int) -> dict:
 
     frames = {task: FRAME if task.partition("@")[0] in ("nr", "nrdm_6") else SR_FRAME
               for task, _ in TREE_CASES}
-    nets = {"m11u": (NETS["m11u"][0], str(artifact("m11u")))}
+    nets = {net: (NETS[net][0], str(artifact(net))) for net in NETS}
     res = subprocess.run([sys.executable, "-c", WORKER,
-                          json.dumps([reps, frames, TREE_CASES, nets])],
+                          json.dumps([reps, frames, TREE_CASES, nets, CONFIGS])],
                          cwd=tree, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"the worker in {tree} failed:\n{res.stderr[-4000:]}")

@@ -16,13 +16,17 @@ namespace {
 constexpr int kMaxC = 32;       // the widest hidden width: 16 or 32 (a narrower network is padded to the next)
 constexpr int kMaxL = 16;       // deepest supported network
 constexpr int kMaxPE = 16;      // most PEs of a datapath
+constexpr int kMaxOut = 48;     // most output channels of the last conv (3 x 4^2: RGB at scale 4)
 
 // Layout of the int32 parameter block (kept in sync with
 // sesr_tpu_torch/convert.py param_at): a head of kHead words, then one
 // record per conv of rec_words(C) words, C the kernel's hidden width (16 or
 // 32), then (the corrected kernel only) z_eff * sum(W_p) per layer, PE and
-// channel. The block of an L-conv network holds L records and no more, so
-// that the kernels copy only what the network uses into shared memory.
+// channel, then, for a last conv of more output channels than C, its own
+// rows (out_rows: its bias, z_eff * sum(W) and each PE's z_eff * sum(W_p),
+// OC words each; its record's R_ROWS word is the first one's offset). The
+// block of an L-conv network holds L records and no more, so that the
+// kernels copy only what the network uses into shared memory.
 constexpr int P_RESM = 0;                 // f32 bits: residual requant mantissa
 constexpr int P_RESP = 1;                 // f32 bits: residual 2^-n
 constexpr int P_ZOUT = 2;                 // f32 bits: zero of the output domain
@@ -39,6 +43,8 @@ constexpr int R_ZEFF = 1;                 // pad value (z_eff) of the conv's inp
 constexpr int R_ZIN = 2;                  // f32 bits: domain-in zero of the conv
 constexpr int R_RQM = 3;                  // f32 bits: requant mantissa
 constexpr int R_RQP = 4;                  // f32 bits: 2^-n
+constexpr int R_ROWS = 5;                 // the last conv past C output channels: its rows' offset
+constexpr int R_OUT = 6;                  // the last conv: its output channels
 constexpr int R_BIAS = 8;                 // [C] bias added after the adder clamp; then
                                           // [C] z_eff * sum(W), subtracted before it
 __host__ __device__ constexpr int rec_words(int C) { return R_BIAS + 2 * C; }
@@ -48,8 +54,13 @@ __host__ __device__ constexpr int p_at(int layer, int field, int C) { return kHe
 __host__ __device__ constexpr int net_words(int L, int C) { return kHead + L * rec_words(C); }
 // z_eff * sum(W_p) of conv `layer`'s PE p, C words (the corrected kernel)
 __host__ __device__ constexpr int zcp_at(int L, int C, int pe, int layer, int p) { return net_words(L, C) + (layer * pe + p) * C; }
-// Words of the parameter block (convert.py param_words).
+// Words of the head, the records and the per-PE rows (convert.py param_words).
 __host__ __device__ constexpr int param_words(int L, int C, int pe) { return net_words(L, C) + L * pe * C; }
+// Words of the last conv's own rows, past param_words (convert.py out_rows).
+__host__ __device__ constexpr int out_rows(int oc, int C, int pe) { return oc > C ? (2 + pe) * oc : 0; }
+// The last conv's padded columns (convert.py out_columns): n-tiles of 8 for
+// mma.sync, a wgmma N.
+__host__ __device__ constexpr int out_cols(int oc) { return oc <= 8 ? 8 : oc <= 16 ? 16 : oc <= 32 ? 32 : 48; }
 
 enum Kind { FIRST = 0, MID = 1, LAST = 2 };
 

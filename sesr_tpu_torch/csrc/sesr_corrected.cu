@@ -16,7 +16,8 @@
 // then the clipped bias, the float32 requantization, ReLU, the int16
 // residual shortcut and the int8 output. Networks of 3 to 16 convs at
 // hidden width 16 (the shipped tasks, SESR-M11) or 32 (SESR-XL), C a
-// template parameter; a narrower network runs padded to the next. Any
+// template parameter; a narrower network runs padded to the next; a last
+// conv of 1 to 48 output channels (16 in the shipped instantiation). Any
 // HardwareConfig with 1 to 16 PEs and 2- to 8-bit activations runs: the
 // 4-PE int8 artifacts whose sums stay below 2^22 in the shipped
 // instantiation (<4, false, C>), every other in a general one (<4, true, C>
@@ -72,18 +73,35 @@
 //     do G x the MACs on a split layer, which they have room for. N past
 //     kMaxN (a split hidden layer at width 32 past four PEs or at width 16
 //     past eight: 256 or 512 columns, more accumulators than a thread has
-//     registers) runs as chunks of
-//     kMaxN columns, one after another over the same A, each chunk's
+//     registers; a split last layer of 32 or 48 columns a group) runs as
+//     chunks of whole PE groups (chunk_groups: at most kMaxN columns, an N
+//     wgmma takes for s8), one after another over the same A, each chunk's
 //     clamped partials folded into the rows' sums before the next;
-//   - at width 16 every layer's B (K-major, no swizzle: b_byte) and the
-//     parameter block are loaded into shared memory once per block; the
-//     grid is persistent (one block per SM, the blocks walk the tiles), so
-//     that happens once per SM. At width 32 no tile holds every layer's B
-//     (SESR-XL's 13 convs need 119 to 929 KB), and at 16 PE groups a split
-//     5x5 layer's alone is 104 KB, so there (staged_b) B is staged a layer
-//     at a time with cp.async: into two regions, even and odd layers, the next
-//     layer's B loaded while a layer computes, where the plan has room; else
-//     into one, loaded after the layer's barrier (smem_plan, w_bufs);
+//   - the last layer's columns a PE group (OCP): out_cols of its channels,
+//     8 or 16, and 32 or 48 (an RGB network of scale 3 or 4) in general
+//     instantiations of their own (OW: sesr_corrected_wideout_kernel), so
+//     that the others' registers stay as they were; past C channels its
+//     bias and zero terms are rows of their own at the end of the
+//     parameter block (R_ROWS);
+//   - at width 16 up to four PEs every layer's B (K-major, no swizzle:
+//     b_byte) and the parameter block are loaded into shared memory once per
+//     block; the grid is persistent (one block per SM, the blocks walk the
+//     tiles), so that happens once per SM. At width 32 no tile holds every
+//     layer's B (SESR-XL's 13 convs need 119 to 929 KB), and at 16 PE groups
+//     a split 5x5 layer's alone is 53-104 KB (at 8 past 16 output channels
+//     up to 160 KB), so there (staged_b) B is staged a layer at a time with
+//     cp.async: into two regions, even and
+//     odd layers, the next layer's B loaded while a layer computes, where
+//     the plan has room; else into one, loaded after the layer's barrier
+//     (smem_plan, w_bufs). Where not even one layer's B fits (SESR-XL at 16
+//     PEs with a split conv: conv 12's B is 204,800 bytes), the general
+//     instantiation with piece forms (PF, piece_kernel) stages a split
+//     layer's B in pieces of at most
+//     kPieceMax bytes (conv_pieces, which runs every split layer of
+//     piece_form: piece_steps k32 steps of a chunk), the warpgroups taking
+//     their m-tiles in rounds, all on one piece at a time, with the next
+//     piece staged while one computes where two regions fit; each round
+//     stages the layer's B anew;
 //   - four warpgroups take a layer's 64-row m-tiles in turn, each m-tile
 //     one commit group of wgmmas and then its epilogue on the CUDA cores:
 //     one warpgroup's epilogue runs while the others' wgmmas do. Everything
@@ -139,7 +157,8 @@
 // cudaGetLastError() after its launch. tests/test_torch_corrected.py models
 // the descriptors' addressing, B's layout and the accumulator map in numpy,
 // reading tap_of, tap_pix, half_off, a_lbo, steps_of, b_byte, col_chan,
-// acc_row and acc_col from this file.
+// acc_row, acc_col, chunk_groups, piece_count, piece_steps and piece_src
+// from this file.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,16 +181,47 @@ constexpr int kScratch = 16;                // bytes that the epilogue's stores 
 constexpr int kSmemLimit = 232448;          // a block's shared memory on the H100
 constexpr int kLoadBatch = 8;               // input pixels per thread in flight
 constexpr int kMaxN = 128;                  // most columns of a wgmma: a wider layer runs in chunks
+constexpr int kPieceMax = 53248;            // most bytes of a piece of a layer's B staged in pieces
+constexpr int kWholeMax = 106496;           // most bytes of a split layer's B that conv_layer runs
 
 // PE column groups of a split hidden layer: 4 up to four PEs, 8 up to eight,
 // else 16 (convert.py pe_groups); the groups past the PE count hold zero
 // weights.
 __host__ __device__ constexpr int pe_groups(int pe) { return 4 + 4 * (pe > 4) + 8 * (pe > 8); }
 
-// Whether B is staged a layer at a time (width 32, and 16 PE groups, whose
-// split layers' B is 16 times a one-pass layer's) rather than resident for
-// every layer.
-__host__ __device__ constexpr bool staged_b(int G, int C) { return C == 32 || G == 16; }
+// Whether B is staged a layer at a time (width 32, 16 PE groups, whose
+// split layers' B is 16 times a one-pass layer's, and 8 in the
+// instantiations of a last layer past 16 channels, OW, whose split B no
+// block holds beside the others) rather than resident for every layer.
+__host__ __device__ constexpr bool staged_b(int G, int C, bool OW) { return C == 32 || G == 16 || (OW && G == 8); }
+
+// Whether a launch takes the instantiations with piece forms (PF:
+// conv_pieces for the split layers of piece_form, and B staged in pieces
+// where the plan needs it): general, past 16 output channels (OW), or at
+// width 32 and 16 PE groups with a split layer past layer 0. Kept apart,
+// so that the others' registers stay as they were.
+__host__ __device__ constexpr bool piece_kernel(int G, int C, bool gen, bool ow, int split) { return gen && (ow || (G == 16 && C == 32 && (split >> 1) != 0)); }
+
+// PE groups of a chunk of a layer of NG groups of OCP columns: all of them
+// where they fit a wgmma (kMaxN), else kMaxN / OCP, a power of two that
+// divides NG (OCP 8, 16, 32 or 48; NG 4, 8 or 16 there), so that a chunk
+// is whole groups and its N one that wgmma takes.
+__host__ __device__ constexpr int chunk_groups(int NG, int OCP) { return (NG * OCP <= kMaxN) * NG + (NG * OCP > kMaxN) * (kMaxN / OCP); }
+
+// K32 steps of a piece of a chunk of NC columns and S k32 steps (S 5, 9,
+// 13 or 25; NC <= kMaxN): the whole chunk where it fits kPieceMax, else
+// five (S 25: a 5x5 layer at width 32), so that the pieces divide the
+// steps; and the pieces of a chunk.
+__host__ __device__ constexpr int piece_steps(int S, int NC) { return (S * NC * 32 <= kPieceMax) * S + (S * NC * 32 > kPieceMax) * 5; }
+__host__ __device__ constexpr int piece_count(int S, int NC) { return S / piece_steps(S, NC); }
+// Whether a split layer (not layer 0) of B bytes and NG PE groups at width
+// C runs conv_pieces: its B past kWholeMax, or every split layer at width 32
+// and 16 groups (SESR-XL at 16 PEs: even its 4-output last conv's 102,400
+// bytes fit no tile whole).
+__host__ __device__ constexpr bool piece_form(int B, int NG, int C) { return B > kWholeMax || (C == 32 && NG == 16); }
+// Byte of a layer's B of N columns that 16-byte unit i of its piece (steps s0
+// .., chunk hc of NC columns) holds: each step's NC columns after the last's.
+__host__ __device__ constexpr int piece_src(int i, int s0, int hc, int N, int NC) { return (s0 + i / (2 * NC)) * N * 32 + hc * NC * 32 + i % (2 * NC) * 16; }
 
 // k32 steps of a K x K layer of input width C: one per kernel row for layer 0
 // (its pixels widened to four horizontal neighbours), else 32 / C taps a step.
@@ -311,15 +361,30 @@ __host__ __device__ inline int round_up(int v, int a) { return (v + a - 1) / a *
 
 // Bytes of conv `layer`'s B at hidden width C: steps x N columns x 32 bytes
 // of k, N = the PE groups (split: min(in_ch, pe) for layer 0, else
-// pe_groups(pe); one pass: 1) x the columns of a group (C; a last layer 16,
-// or 8 for <= 8 channels).
+// pe_groups(pe); one pass: 1) x the columns of a group (C; a last layer
+// out_cols(ocl)).
 __host__ __device__ inline int layer_b_bytes(int layer, int L, int in_ch, int ocl, int split,
                                              int pe, int C) {
   const int sp = (split >> layer) & 1;
   if (layer == 0) return steps_of(5, 1, C) * 32 * C * (sp ? (in_ch < pe ? in_ch : pe) : 1);
   const int last = layer == L - 1;
-  const int ocp = last ? (ocl <= 8 ? 8 : 16) : C;
+  const int ocp = last ? out_cols(ocl) : C;
   return steps_of(last ? 5 : 3, 0, C) * 32 * ocp * (sp ? pe_groups(pe) : 1);
+}
+
+// Where B is staged in pieces: (pieces a round, bytes of the largest) of
+// conv `layer`: a split hidden or last layer that runs conv_pieces
+// (piece_form) its chunks of chunk_groups groups each in piece_count
+// pieces; any other layer one piece, its whole B (ops/kernels.py
+// layer_pieces).
+__host__ __device__ inline int2 layer_pieces(int layer, int L, int in_ch, int ocl, int split,
+                                             int pe, int C) {
+  const int b = layer_b_bytes(layer, L, in_ch, ocl, split, pe, C);
+  if (layer == 0 || !((split >> layer) & 1) || !piece_form(b, pe_groups(pe), C))
+    return make_int2(1, b);
+  const int ocp = layer == L - 1 ? out_cols(ocl) : C, g = pe_groups(pe);
+  const int s = steps_of(layer == L - 1 ? 5 : 3, 0, C), nc = chunk_groups(g, ocp) * ocp;
+  return make_int2(g * ocp / nc * piece_count(s, nc), piece_steps(s, nc) * nc * 32);
 }
 
 // Pixels of a plane of conv `layer`'s input buffer that its GEMM reads: the
@@ -341,29 +406,39 @@ struct Plan {
   int w_at, w_bytes;   // B: every layer's (resident), or w_bufs regions of one layer's
   int w_bufs;          // staged: 2 (layer i's B in region i % 2) or 1; resident: 0
   int w_odd;           // staged, two regions: the odd layers' region, from w_at
+  bool pieces;         // staged: the split layers' B in pieces (layer_pieces)
   int x_at, y_at;      // the ping-pong buffers: layer i reads x (even i) or y (odd i)
   int sc_at;           // the shortcut
   int scratch_at;      // kScratch bytes
   int bytes;
 };
 
-// Shared memory of one block: the parameter block (param_words(L, C, pe)), B
-// (resident: every layer's; staged, staged_b: two regions, the even layers'
-// and the odd layers', where that fits a block, else one region of the
-// largest layer's; G: the instantiation's PE column groups, pe_groups(pe)),
-// the buffers (y also holds layer 0's input as one word a pixel
-// while it is widened into x; at width 32 a layer's input is two planes of
-// in_plane bytes), the shortcut and the scratch word.
-__host__ __device__ inline Plan smem_plan(int G, int split, int pe, int L, int in_ch, int ocl,
-                                          int th, int tw, int C) {
+// Shared memory of one block: the parameter block (param_words(L, C, pe)
+// and, past 16 output channels, out_rows), B (resident: every layer's;
+// staged, staged_b: two regions, the even layers' and the odd layers',
+// where that fits a block, else one region of the largest layer's; where
+// not even that fits, in the instantiations with piece forms (pf,
+// piece_kernel), the split layers' B in pieces, two regions of the largest
+// piece or layer where they fit, else one; G: the instantiation's PE
+// column groups, pe_groups(pe); OW: its last layer is past 16 channels),
+// the buffers (y also
+// holds layer 0's input as one word a pixel while it is widened into x; at
+// width 32 a layer's input is two planes of in_plane bytes), the shortcut
+// and the scratch word.
+__host__ __device__ inline Plan smem_plan(int G, bool gen, bool ow, bool pf, int split, int pe,
+                                          int L, int in_ch, int ocl, int th, int tw, int C) {
   Plan p;
-  p.w_at = round_up(param_words(L, C, pe) * 4, kAlign);
-  int all = 0, even = 0, odd = 0;
+  p.w_at = round_up((param_words(L, C, pe) + (ow ? out_rows(ocl, C, pe) : 0)) * 4, kAlign);
+  int all = 0, even = 0, odd = 0, unit = 0;
   for (int i = 0; i < L; ++i) {
     const int b = layer_b_bytes(i, L, in_ch, ocl, split, pe, C);
     int& big = (i % 2) ? odd : even;
     all += b;
     big = big > b ? big : b;
+    if (pf && staged_b(G, C, ow)) {
+      const int u = layer_pieces(i, L, in_ch, ocl, split, pe, C).y;
+      unit = unit > u ? unit : u;
+    }
   }
   int x = 0, y = extent(0, L, th, tw) * 4;
   for (int i = 0; i < L; ++i) {
@@ -373,20 +448,30 @@ __host__ __device__ inline Plan smem_plan(int G, int split, int pe, int L, int i
     dst = dst > b ? dst : b;
   }
   const int r_sc = ring(L - 1, L);
-  const bool staged = staged_b(G, C);
+  const bool staged = staged_b(G, C, ow);
+  const bool in_pieces = gen && pf && staged;
   p.w_bufs = staged ? 2 : 0;
   p.w_odd = staged ? round_up(even, kAlign) : 0;
   p.w_bytes = staged ? p.w_odd + odd : all;
+  p.pieces = false;
   for (;;) {
     p.x_at = round_up(p.w_at + p.w_bytes, kAlign);
     p.y_at = round_up(p.x_at + x, kAlign);
     p.sc_at = round_up(p.y_at + y, kAlign);
     p.scratch_at = p.sc_at + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * C;
     p.bytes = p.scratch_at + kScratch;
-    if (p.w_bufs != 2 || p.bytes <= kSmemLimit) return p;
-    p.w_bufs = 1;
-    p.w_odd = 0;
-    p.w_bytes = even > odd ? even : odd;
+    if (!staged || p.bytes <= kSmemLimit || (p.w_bufs == 1 && (p.pieces || !in_pieces)))
+      return p;
+    if (p.w_bufs == 2) {                  // one region of the largest layer's, or piece's
+      p.w_bufs = 1;
+      p.w_odd = 0;
+      p.w_bytes = p.pieces ? unit : even > odd ? even : odd;
+    } else {                              // in pieces: two regions of the largest piece
+      p.pieces = true;
+      p.w_bufs = 2;
+      p.w_odd = round_up(unit, kAlign);
+      p.w_bytes = p.w_odd + unit;
+    }
   }
 }
 
@@ -415,6 +500,12 @@ struct Layer {
   int* next;           // FIRST / MID: the next layer's input, 4 words a pixel and plane
   int next_plane;      // words between its planes
   int layer;
+  // B staged in pieces (conv_pieces): its B in device memory, and the
+  // regions the pieces go to (w_bufs of them, w_odd bytes apart)
+  bool pieces;
+  const int* wg;
+  uint8_t* regions;
+  int w_odd, w_bufs;
 };
 
 // A thread's view of conv `ly.layer` in one form: NG PE groups of columns,
@@ -437,16 +528,18 @@ struct Form {
   static constexpr int WIDE = KIND == FIRST;
   static constexpr int J = OCP / 8;                              // 8-column tiles of a group
   static constexpr int N = NG * OCP;                             // the layer's columns
-  static constexpr int NH = (N + kMaxN - 1) / kMaxN;             // chunks, one after another
-  static constexpr int NC = N / NH;                              // columns of a chunk
-  static constexpr int GC = NG / NH;                             // PE groups of a chunk
+  static constexpr int GC = chunk_groups(NG, OCP);               // PE groups of a chunk
+  static constexpr int NH = NG / GC;                             // chunks, one after another
+  static constexpr int NC = GC * OCP;                            // columns of a chunk
   static constexpr int R = NC / 2;                               // accumulator registers
   static constexpr int S = steps_of(K, WIDE, C);
   static constexpr int V = 2 * J;                                // values a thread holds per row
+  // a last layer past C channels: its bias and zero terms in its own rows (R_ROWS)
+  static constexpr bool ROWS = KIND == LAST && OCP > C;
   // in registers: the PE zero terms, A's descriptor per step, the adder clamp's bounds
-  static constexpr bool START_REGS = NG <= 4 && C == 16;
+  static constexpr bool START_REGS = NG <= 4 && C == 16 && OCP <= 16;
   static constexpr bool A_REGS = C == 16 || WIDE;
-  static constexpr bool BOUNDS_REGS = C == 16 || !SPLIT;
+  static constexpr bool BOUNDS_REGS = !SPLIT || (C == 16 && OCP <= 16);
 
   int warp, lane, tq, layer, oc, iw, oh, ow, oy0, ox0, H, W, acc_hi, add_hi, frame, L, pe;
   unsigned iw_magic;
@@ -463,6 +556,8 @@ struct Form {
   int8_t* out;
   int base[V], lo[BOUNDS_REGS ? V : 1], hi[BOUNDS_REGS ? V : 1], start[START_REGS ? NG : 1][V];
   int zc0;               // else: PE 0's zero terms, this thread's first word
+  int rows;              // ROWS: the last layer's bias row in the block
+  int plane;             // width 32: bytes between the input's two planes
   const int* prm;
   uint32_t a_lo[A_REGS ? S : 1], b_lo;
   int cy0, cy1, cx0, cx1;  // COUNT: the count window in the output extent
@@ -513,13 +608,15 @@ struct Form {
     // kMagicBits to the sum of its PEs' clamped partials, PE p's started
     // from -z_eff * sum(W_p) (0 for a group past the PEs). A split layer's
     // z_eff * sum(W) words are 0 (convert.py), so there base is bias +
-    // kMagicBits. WIDE_SUM leaves kMagicBits out of each.
+    // kMagicBits. WIDE_SUM leaves kMagicBits out of each. The rows are the
+    // record's, C words each, or (ROWS) the last layer's own, oc words each.
+    rows = ROWS ? prm[p_at(layer, R_ROWS, C)] : p_at(layer, R_BIAS, C);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int o = col_chan(acc_col(v >> 1, lane, v & 1), KIND == LAST);
       const bool ok = o < oc;
-      const int b = (ok ? prm[p_at(layer, R_BIAS, C) + o] : 0) + (WIDE_SUM ? 0 : kMagicBits);
-      base[v] = b - (ok ? prm[p_at(layer, R_BIAS, C) + C + o] : 0);
+      const int b = (ok ? prm[rows + o] : 0) + (WIDE_SUM ? 0 : kMagicBits);
+      base[v] = b - (ok ? prm[rows + row_words() + o] : 0);
       if constexpr (BOUNDS_REGS) {
         lo[v] = b - add_hi - 1;
         hi[v] = b + add_hi;
@@ -532,7 +629,7 @@ struct Form {
     }
     // this thread's value v is channel (2 or 4) tq + col_chan(acc_col(v / 2,
     // 0, v % 2)); words past OC hold 0
-    zc0 = zcp_at(L, C, pe, layer, 0) + (KIND == LAST ? 2 : 4) * tq;
+    zc0 = (ROWS ? rows + 2 * oc : zcp_at(L, C, pe, layer, 0)) + (KIND == LAST ? 2 : 4) * tq;
     // descriptors: A's start and LBO per step (m-tile 0), or at width 32 of
     // step 0 (a step s adds its tap's pixel offset); B's start
     const uint32_t in_s = smem_u32(ly.in);
@@ -543,12 +640,19 @@ struct Form {
                 ((static_cast<uint32_t>(a_lbo(o0, o1, WIDE, C, ly.plane)) >> 4) << 16);
     }
     b_lo = ((smem_u32(ly.w) & 0x3FFFF) >> 4) | ((kLboB >> 4) << 16);
+    plane = ly.plane;
     if constexpr (COUNT) {
       cy0 = count_lo(net.t.oy0, r_out, net.cy0);
       cy1 = count_hi(net.t.oy0, net.t.th, r_out, H, net.cy1);
       cx0 = count_lo(net.t.ox0, r_out, net.cx0);
       cx1 = count_hi(net.t.ox0, net.t.tw, r_out, W, net.cx1);
     }
+  }
+
+  // words of a row of the layer's bias, zero terms and each PE's
+  __device__ __forceinline__ int row_words() const {
+    if constexpr (ROWS) return oc;
+    else return C;
   }
 
   // the activations' half range and qn_bits's clip bounds: int8's but in GEN
@@ -576,10 +680,36 @@ struct Form {
     wgmma_commit();
   }
 
+  // conv_pieces: m-tile mt's SP wgmmas over steps s0 .. s0 + SP - 1 of a
+  // chunk, whose B lies at `piece`, `cols` columns a step from one step to
+  // the next (b_byte: a piece's NC, or the layer's N where its B is whole),
+  // one commit group; d carries over the chunk's pieces. The steps are
+  // run-time values, so A's descriptor is formed here (its LBO from the
+  // step's two halves, half_off / a_lbo).
+  template <int SP>
+  __device__ __forceinline__ void issue_piece(uint32_t (&d)[R], int mt, const uint8_t* piece,
+                                              int s0, int cols) const {
+    constexpr uint64_t a_hi = static_cast<uint64_t>(kSboA >> 4) << 32;
+    constexpr uint64_t b_hi = static_cast<uint64_t>(kSboB >> 4) << 32;
+    const uint32_t bp = ((smem_u32(piece) & 0x3FFFF) >> 4) | ((kLboB >> 4) << 16);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < SP; ++i) {
+      const int s = s0 + i;
+      const int o0 = half_off(s, 0, K, iw, WIDE, C), o1 = half_off(s, 1, K, iw, WIDE, C);
+      const uint32_t a = ((a_lo[0] & 0xFFFFu) + (o0 * kPix >> 4)) |
+                         ((static_cast<uint32_t>(a_lbo(o0, o1, WIDE, C, plane)) >> 4) << 16);
+      const uint64_t ad = a_hi | (a + mt * (kRows * kPix >> 4));
+      wgmma<NC>(d, ad, b_hi | (bp + (b_byte(i, 0, 0, cols) >> 4)), s);
+    }
+    wgmma_commit();
+  }
+
   // PE group p's zero term for value v
   __device__ __forceinline__ int start_of(int p, int v) const {
     if constexpr (START_REGS) return start[p][v];
-    else return p < pe ? -prm[zc0 + col_chan(acc_col(v >> 1, 0, v & 1), KIND == LAST) + p * C] : 0;
+    else return p < pe ? -prm[zc0 + col_chan(acc_col(v >> 1, 0, v & 1), KIND == LAST) + p * row_words()] : 0;
   }
 
   // COUNT: whether row half h of m-tile mt is an output of the count window
@@ -754,12 +884,22 @@ __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
   int carry[2][F::V];
   int n = 0;                                       // COUNT: this thread's counted partials
   for (int mt = wgi; mt < nmt; mt += kWarpgroups) {
+    if constexpr (OCP > 16) {              // a 32- or 48-column last layer's chunks: a loop
+#pragma unroll 1
+      for (int hc = 0; hc < F::NH - 1; ++hc) {
+        f.issue(d, mt, hc);
+        wgmma_wait<0>();
+        fence_acc(d);
+        f.fold(d, mt, hc, carry, n);
+      }
+    } else {
 #pragma unroll
-    for (int hc = 0; hc < F::NH - 1; ++hc) {
-      f.issue(d, mt, hc);
-      wgmma_wait<0>();
-      fence_acc(d);
-      f.fold(d, mt, hc, carry, n);
+      for (int hc = 0; hc < F::NH - 1; ++hc) {
+        f.issue(d, mt, hc);
+        wgmma_wait<0>();
+        fence_acc(d);
+        f.fold(d, mt, hc, carry, n);
+      }
     }
     f.issue(d, mt, F::NH - 1);
     wgmma_wait<0>();
@@ -775,15 +915,108 @@ __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
   }
 }
 
+// cp.async of one piece of a layer's B of N columns (b_byte), the SP steps
+// from s0 of chunk hc (NC columns), into `dst`, each step's NC columns
+// after the last's, as one commit group
+template <int N, int NC, int SP>
+__device__ __forceinline__ void stage_piece(uint8_t* dst, const int* __restrict__ src, int hc,
+                                            int s0) {
+  for (int i = threadIdx.x; i < SP * 2 * NC; i += kThreads)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst + 16 * i)),
+                 "l"(src + piece_src(i, s0, hc, N, NC) / 4) : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void b_wait();
+
+// A split layer of piece_form (no configuration served before the pieces
+// runs one) runs here and not in conv_layer: its chunks' B whole (in the
+// layer's region, Layer::w: each chunk one commit group, as conv_layer
+// issues it) or, where the plan stages B in
+// pieces (Layer::pieces: not even one layer's B fits beside the buffers),
+// in pieces of piece_steps k32 steps of a chunk, staged into the layer's
+// regions in turn. With pieces the warpgroups take their m-tiles in
+// rounds, all of them on one piece at a time (a block barrier between
+// pieces), each m-tile's accumulators carried over its chunk's pieces;
+// with two regions the next piece is staged while one computes, with one
+// after it, and every round stages the layer's B anew. Whole, each
+// warpgroup runs its rounds on its own, as in conv_layer.
+template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
+          bool COUNT = false, bool WIDE_SUM = false>
+__device__ __forceinline__ void conv_pieces(const Layer& ly, const Net& net) {
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM>;
+  const F f(ly, net);
+  constexpr int SP = piece_steps(F::S, F::NC), P = piece_count(F::S, F::NC);
+  static_assert(P * SP == F::S, "the pieces divide the steps");
+  constexpr int U = F::NH * P;                         // pieces a round
+  const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
+  const int rounds = (nmt + kWarpgroups - 1) / kWarpgroups;
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
+  const bool pieces = ly.pieces;
+  // piece q of the layer (round q / U) lies in region q % w_bufs
+  auto region = [&](int q) { return ly.regions + (q & 1) * ly.w_odd; };
+  auto stage = [&](int q) {
+    stage_piece<F::N, F::NC, SP>(region(q), ly.wg, q % U / P, q % P * SP);
+  };
+  const int total = rounds * U;
+  uint32_t d[F::R];
+  int carry[2][F::V];
+  int n = 0;                                       // COUNT: this thread's counted partials
+  int q = 0;
+  if (pieces) stage(0);
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int mt = rd * kWarpgroups + wgi;
+    const bool active = mt < nmt;
+#pragma unroll 1
+    for (int hc = 0; hc < F::NH; ++hc) {
+      if (!pieces && active) {
+        f.template issue_piece<F::S>(d, mt, ly.w + b_byte(0, hc * F::NC, 0, F::N), 0, F::N);
+        wgmma_wait<0>();
+        fence_acc(d);
+      }
+#pragma unroll 1
+      for (int pc = 0; pieces && pc < P; ++pc, ++q) {
+        b_wait();
+        fence_proxy_async();
+        __syncthreads();
+        if (ly.w_bufs == 2 && q + 1 < total) stage(q + 1);     // into the region piece q - 1 read
+        if (active) {
+          f.template issue_piece<SP>(d, mt, region(q), pc * SP, F::NC);
+          wgmma_wait<0>();
+          fence_acc(d);
+        }
+        if (ly.w_bufs == 1 && q + 1 < total) {
+          __syncthreads();
+          stage(q + 1);
+        }
+      }
+      if (active) {
+        if (hc < F::NH - 1) f.fold(d, mt, hc, carry, n);
+        else f.epilogue(d, mt, carry, n);
+      }
+    }
+  }
+  if constexpr (COUNT) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+    if ((threadIdx.x & 31) == 0 && n != 0)
+      atomicAdd(net.counts + ly.layer, static_cast<unsigned long long>(n));
+  }
+}
+
 // conv `ly.layer` in its form: one pass per PE where its split bit is set
 // (layer 0: one group per PE that owns an input channel, min(in_ch, pe);
 // else G groups), else one pass, clamped to pe_add_bits where its clamp bit
-// is set; OCP columns a group (8 for a last layer of <= 8 channels, else
-// 16; C for a hidden layer). The general instantiation (GEN) clamps every
-// layer's sum to pe_add_bits, the identity where that clamp cannot fire;
-// WIDE_SUM: its wide form. COUNT: the counting form of the split layers (a
-// one-pass layer has no 18-bit clamp to count).
-template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT, bool WIDE_SUM>
+// is set; OCP columns a group (a last layer's out_cols: 8 or 16, and 32 or
+// 48 in GEN; C for a hidden layer). The general instantiation (GEN) clamps
+// every layer's sum to pe_add_bits, the identity where that clamp cannot
+// fire, and runs a split layer's B in pieces where the plan says so
+// (PF: conv_pieces, a split layer of piece_form); WIDE_SUM: its wide
+// form. COUNT: the
+// counting form of the split layers (a one-pass layer has no 18-bit clamp
+// to count).
+template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT, bool WIDE_SUM,
+          bool PF>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
   constexpr bool W = WIDE_SUM;
@@ -796,7 +1029,11 @@ __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int i
         default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT, W>(ly, net); return;
       }
     } else {
-      conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>(ly, net);
+      using F = Form<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>;
+      if constexpr (PF && piece_form(F::S * F::N * 32, G, C))
+        conv_pieces<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>(ly, net);
+      else
+        conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>(ly, net);
       return;
     }
   }
@@ -818,14 +1055,30 @@ __device__ __forceinline__ void stage_b(uint8_t* dst, const int* __restrict__ sr
 
 __device__ __forceinline__ void b_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
+// The last conv past 16 channels (the OW instantiations, general): 32 or
+// 48 columns a PE group.
+template <int G, bool GEN, int C, bool COUNT, bool WIDE_SUM, bool OW, bool PF>
+__device__ __forceinline__ void last_past_16(const Layer& ly, const Net& net, int in_ch) {
+  if constexpr (OW) {
+    if (net.oc <= 32)
+      conv_form<LAST, 5, 32, G, GEN, C, COUNT, WIDE_SUM, PF>(ly, net, in_ch);
+    else
+      conv_form<LAST, 5, 48, G, GEN, C, COUNT, WIDE_SUM, PF>(ly, net, in_ch);
+  }
+}
+
 // The whole network over every tile, the body of every kernel. G: PE groups
 // of a split hidden layer (pe_groups); GEN: the general instantiation (any
 // PE count and widths, convert.py KernelConstants.general); C: the hidden
 // width, 16 or 32; COUNT: the counting form, which adds to counts[i] the PE
 // partials the 18-bit clamp changed on split layer i at the outputs in the
 // count region [cy0, cy1) x [cx0, cx1); WIDE_SUM (GEN only,
-// KernelConstants.wide): every sum a plain int32, for sums past 2^22.
-template <int G, bool GEN, int C, bool COUNT, bool WIDE_SUM>
+// KernelConstants.wide): every sum a plain int32, for sums past 2^22; OW
+// (GEN only): the last conv has more than 16 output channels, and its
+// forms of 32 and 48 columns a group are compiled here instead of 8 and
+// 16 (apart, so that they leave the other instantiations' registers as
+// they were); PF (GEN only): the piece forms (piece_kernel).
+template <int G, bool GEN, int C, bool COUNT, bool WIDE_SUM, bool OW = false, bool PF = false>
 __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                                           const int* __restrict__ weights,
                                           const int* __restrict__ params, int n, int H, int W,
@@ -833,15 +1086,17 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
                                           int pe, unsigned long long* counts, int cy0, int cy1,
                                           int cx0, int cx1) {
   extern __shared__ __align__(128) uint8_t smem[];
-  const Plan pl = smem_plan(G, split, pe, L, in_ch, out_ch, th, tw, C);
+  const Plan pl = smem_plan(G, GEN, OW, PF, split, pe, L, in_ch, out_ch, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem);
   uint8_t* wsm = smem + pl.w_at;
   uint8_t* bx = smem + pl.x_at;
   uint8_t* by = smem + pl.y_at;
 
   // the parameter block and (resident B) every layer's B, once per block
-  constexpr bool kStaged = staged_b(G, C);
-  for (int i = threadIdx.x; i < param_words(L, C, pe); i += kThreads) prm[i] = __ldg(params + i);
+  constexpr bool kStaged = staged_b(G, C, OW);
+  constexpr bool kPieces = PF && kStaged;            // a split layer's B may be staged in pieces
+  const int words = param_words(L, C, pe) + (OW ? out_rows(out_ch, C, pe) : 0);
+  for (int i = threadIdx.x; i < words; i += kThreads) prm[i] = __ldg(params + i);
   if constexpr (!kStaged) {
     const int4* w4 = reinterpret_cast<const int4*>(weights);
     for (int i = threadIdx.x; i < pl.w_bytes / 16; i += kThreads)
@@ -854,6 +1109,10 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
   auto stage_layer = [&](int i) {
     stage_b(b_region(i), weights + prm[p_at(i, R_WOFF, C)],
             layer_b_bytes(i, L, in_ch, out_ch, split, pe, C));
+  };
+  // whether conv i's B is staged in pieces, by the layer itself (conv_pieces)
+  auto in_pieces = [&](int i) {
+    return kPieces && pl.pieces && layer_pieces(i, L, in_ch, out_ch, split, pe, C).x > 1;
   };
 
   const int r0 = ring(0, L), r_sc = ring(L - 1, L);
@@ -930,8 +1189,9 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
     uint8_t* nxt = by;
     for (int i = 0; i < L; ++i) {
       // staged B, two regions: the next layer's B into the region the layer
-      // before this one read
-      if (kStaged && pl.w_bufs == 2 && i + 1 < L) stage_layer(i + 1);
+      // before this one read (not where either stages its B in pieces)
+      if (kStaged && pl.w_bufs == 2 && i + 1 < L && !in_pieces(i) && !in_pieces(i + 1))
+        stage_layer(i + 1);
       Layer ly;
       const int r = ring(i, L);
       ly.in = cur;
@@ -942,19 +1202,27 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
       ly.next = reinterpret_cast<int*>(nxt);
       ly.next_plane = in_plane(i + 1, L, th, tw, C) / 4;
       ly.layer = i;
+      ly.pieces = in_pieces(i);
+      ly.wg = weights + prm[p_at(i, R_WOFF, C)];
+      ly.regions = wsm;
+      ly.w_odd = pl.w_odd;
+      ly.w_bufs = pl.w_bufs;
       if (i == 0)
-        conv_form<FIRST, 5, C, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
+        conv_form<FIRST, 5, C, G, GEN, C, COUNT, WIDE_SUM, PF>(ly, net, in_ch);
       else if (i < L - 1)
-        conv_form<MID, 3, C, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
+        conv_form<MID, 3, C, G, GEN, C, COUNT, WIDE_SUM, PF>(ly, net, in_ch);
+      else if (OW)
+        last_past_16<G, GEN, C, COUNT, WIDE_SUM, OW, PF>(ly, net, in_ch);
       else if (out_ch <= 8)
-        conv_form<LAST, 5, 8, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
+        conv_form<LAST, 5, 8, G, GEN, C, COUNT, WIDE_SUM, PF>(ly, net, in_ch);
       else
-        conv_form<LAST, 5, 16, G, GEN, C, COUNT, WIDE_SUM>(ly, net, in_ch);
+        conv_form<LAST, 5, 16, G, GEN, C, COUNT, WIDE_SUM, PF>(ly, net, in_ch);
       if constexpr (kStaged) b_wait();
       fence_proxy_async();
       __syncthreads();
-      // staged B, one region: the next layer's B once this one is done
-      if (kStaged && pl.w_bufs == 1 && i + 1 < L) {
+      // staged B, one region (or after a layer staged in pieces): the next
+      // layer's B once this one is done
+      if (kStaged && i + 1 < L && !in_pieces(i + 1) && (pl.w_bufs == 1 || in_pieces(i))) {
         stage_layer(i + 1);
         b_wait();
         fence_proxy_async();
@@ -1014,13 +1282,69 @@ sesr_corrected_audit_wide_kernel(const int8_t* __restrict__ x, int8_t* __restric
                                     split, pe, counts, cy0, cy1, cx0, cx1);
 }
 
-bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int width) {
-  return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
-         (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
-         tw <= 1024 && (split >> L) == 0 && pe >= 1 && pe <= kMaxPE &&
+// The shipped instantiation takes 4 PEs and a last conv of at most 16
+// channels; the general ones 1-16 PEs and 1-48 channels.
+// The general instantiations of a last conv past 16 channels (OW), served
+// and counting, WS: the wide form.
+template <int G, int C, bool WS>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_wideout_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                              const int* __restrict__ weights, const int* __restrict__ params,
+                              int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
+                              int split, int pe) {
+  run_tiles<G, true, C, false, WS, true, true>(x, out, weights, params, n, H, W, L, in_ch, out_ch,
+                                               th, tw, split, pe, nullptr, 0, 0, 0, 0);
+}
+
+template <int G, int C, bool WS>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_audit_wideout_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                    const int* __restrict__ weights,
+                                    const int* __restrict__ params, int n, int H, int W, int L,
+                                    int in_ch, int out_ch, int th, int tw, int split, int pe,
+                                    unsigned long long* counts, int cy0, int cy1, int cx0,
+                                    int cx1) {
+  run_tiles<G, true, C, true, WS, true, true>(x, out, weights, params, n, H, W, L, in_ch, out_ch,
+                                              th, tw, split, pe, counts, cy0, cy1, cx0, cx1);
+}
+
+// The general instantiations at width 32 and 16 PE groups with a split
+// layer past layer 0 (piece_kernel), served and counting, WS: the wide
+// form.
+template <bool WS>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_pieces_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                             const int* __restrict__ weights, const int* __restrict__ params,
+                             int n, int H, int W, int L, int in_ch, int out_ch, int th, int tw,
+                             int split, int pe) {
+  run_tiles<16, true, 32, false, WS, false, true>(x, out, weights, params, n, H, W, L, in_ch,
+                                                  out_ch, th, tw, split, pe, nullptr, 0, 0, 0, 0);
+}
+
+template <bool WS>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_audit_pieces_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                   const int* __restrict__ weights,
+                                   const int* __restrict__ params, int n, int H, int W, int L,
+                                   int in_ch, int out_ch, int th, int tw, int split, int pe,
+                                   unsigned long long* counts, int cy0, int cy1, int cx0,
+                                   int cx1) {
+  run_tiles<16, true, 32, true, WS, false, true>(x, out, weights, params, n, H, W, L, in_ch,
+                                                 out_ch, th, tw, split, pe, counts, cy0, cy1, cx0,
+                                                 cx1);
+}
+
+bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int general,
+           int width) {
+  return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 && out_ch >= 1 && out_ch <= kMaxOut &&
+         th >= 1 && tw >= 1 && th <= 1024 && tw <= 1024 && (split >> L) == 0 && pe >= 1 &&
+         pe <= kMaxPE && general >= 0 && general <= 2 && (general || (pe == 4 && out_ch <= 16)) &&
          (width == 16 || width == kMaxC) &&
-         smem_plan(pe_groups(pe), split, pe, L, in_ch, out_ch, th, tw, width).bytes <=
-             kSmemLimit;
+         smem_plan(general ? pe_groups(pe) : 4, general != 0, out_cols(out_ch) > 16,
+                   piece_kernel(general ? pe_groups(pe) : 4, width, general != 0,
+                                out_cols(out_ch) > 16, split),
+                   split, pe, L, in_ch, out_ch, th, tw, width)
+                 .bytes <= kSmemLimit;
 }
 
 // The count region and counters of a launch of the counting form; counts
@@ -1031,10 +1355,17 @@ struct Count {
 };
 
 // The served kernel and the counting form of instantiation GK: 0 shipped,
-// 1 general, 2 general and wide.
-template <int G, int GK, int C>
+// 1 general, 2 general and wide; OW: the last conv past 16 channels; PF:
+// the piece forms at width 32 and 16 PE groups.
+template <int G, int GK, int C, bool OW, bool PF>
 auto kernels_of() {
-  if constexpr (GK == 2)
+  if constexpr (PF && !OW)
+    return std::make_pair(&sesr_corrected_pieces_kernel<GK == 2>,
+                          &sesr_corrected_audit_pieces_kernel<GK == 2>);
+  else if constexpr (OW)
+    return std::make_pair(&sesr_corrected_wideout_kernel<G, C, GK == 2>,
+                          &sesr_corrected_audit_wideout_kernel<G, C, GK == 2>);
+  else if constexpr (GK == 2)
     return std::make_pair(&sesr_corrected_wide_kernel<G, C>,
                           &sesr_corrected_audit_wide_kernel<G, C>);
   else
@@ -1042,12 +1373,12 @@ auto kernels_of() {
                           &sesr_corrected_audit_kernel<G, GK == 1, C>);
 }
 
-template <int G, int GK, int C>
+template <int G, int GK, int C, bool OW = false, bool PF = false>
 cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                    int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                    const Count& cnt, cudaStream_t stream) {
-  const int bytes = smem_plan(G, split, pe, L, in_ch, out_ch, th, tw, C).bytes;
-  const auto pair = kernels_of<G, GK, C>();
+  const int bytes = smem_plan(G, GK != 0, OW, PF, split, pe, L, in_ch, out_ch, th, tw, C).bytes;
+  const auto pair = kernels_of<G, GK, C, OW, PF>();
   auto* kernel = pair.first;
   auto* audit = pair.second;
   const void* fn = cnt.counts ? reinterpret_cast<const void*>(audit)
@@ -1074,16 +1405,24 @@ cudaError_t launch(const int8_t* x, int8_t* out, const int* w, const int* prm, i
 }
 
 // the general instantiation GK (1, or 2 wide) of width C at 4, 8 or 16 PE
-// groups
-template <int GK, int C>
+// groups; OW: the last conv past 16 channels
+template <int GK, int C, bool OW>
 cudaError_t launch_groups(const int8_t* x, int8_t* out, const int* w, const int* prm, int n,
                           int h, int wd, int L, int in_ch, int out_ch, int th, int tw, int split,
                           int pe, const Count& cnt, cudaStream_t s) {
   if (pe_groups(pe) == 4)
-    return launch<4, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+    return launch<4, GK, C, OW, OW>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe,
+                                    cnt, s);
   if (pe_groups(pe) == 8)
-    return launch<8, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
-  return launch<16, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+    return launch<8, GK, C, OW, OW>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe,
+                                    cnt, s);
+  if constexpr (C == 32 && !OW) {
+    if (piece_kernel(16, C, true, false, split))
+      return launch<16, GK, C, false, true>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw,
+                                            split, pe, cnt, s);
+  }
+  return launch<16, GK, C, OW, OW>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe,
+                                   cnt, s);
 }
 
 // the instantiation of width C: shipped, or general (1), or its wide form (2)
@@ -1093,18 +1432,23 @@ cudaError_t launch_width(const int8_t* x, int8_t* out, const int* w, const int* 
                          int pe, int general, const Count& cnt, cudaStream_t s) {
   if (!general)
     return launch<4, 0, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt, s);
+  if (out_cols(out_ch) > 16)
+    return general == 1 ? launch_groups<1, C, true>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th,
+                                                    tw, split, pe, cnt, s)
+                        : launch_groups<2, C, true>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th,
+                                                    tw, split, pe, cnt, s);
   if (general == 1)
-    return launch_groups<1, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
-                               s);
-  return launch_groups<2, C>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe, cnt,
-                             s);
+    return launch_groups<1, C, false>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe,
+                                      cnt, s);
+  return launch_groups<2, C, false>(x, out, w, prm, n, h, wd, L, in_ch, out_ch, th, tw, split, pe,
+                                    cnt, s);
 }
 
 int launch_net(const void* x, void* out, const void* weights, const void* params, int n, int h,
                int w, int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
                int pe, int general, int width, const Count& cnt, void* stream) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) || general < 0 ||
-      general > 2 || (!general && pe != 4) || (reinterpret_cast<uintptr_t>(weights) & 15))
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, general, width) ||
+      (reinterpret_cast<uintptr_t>(weights) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   int8_t* oi = static_cast<int8_t*>(out);
@@ -1157,11 +1501,15 @@ int sesr_corrected_audit(const void* x, void* out, const void* weights, const vo
 }
 
 // Shared memory of one block of sesr_corrected_net in bytes, or 0 where it
-// refuses the network, the tile, the split mask, the PE count or the width.
+// refuses the network, the tile, the split mask, the PE count, the
+// instantiation (general) or the width.
 int sesr_corrected_smem(int num_layers, int in_ch, int out_ch, int tile_h, int tile_w, int split,
-                        int pe, int width) {
-  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width)) return 0;
-  return smem_plan(pe_groups(pe), split, pe, num_layers, in_ch, out_ch, tile_h, tile_w, width)
+                        int pe, int general, int width) {
+  if (!takes(num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, general, width)) return 0;
+  const int G = general ? pe_groups(pe) : 4;
+  const bool ow = out_cols(out_ch) > 16;
+  return smem_plan(G, general != 0, ow, piece_kernel(G, width, general != 0, ow, split), split, pe,
+                   num_layers, in_ch, out_ch, tile_h, tile_w, width)
       .bytes;
 }
 

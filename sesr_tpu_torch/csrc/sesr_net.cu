@@ -16,7 +16,11 @@
 //
 // Networks of 3 to 16 convs (kMaxL) at hidden width 16 or 32 (C, a
 // template parameter; a narrower network runs padded to the next): the
-// shipped tasks and SESR-M11 at 16, SESR-XL at 32.
+// shipped tasks and SESR-M11 at 16, SESR-XL at 32. The last conv has 1 to 48
+// output channels (kMaxOut): the shipped instantiations template on the
+// count (OCL = 3, 12 or 16), the general ones on the padded count out_cols
+// (OCL = -8, -16, -32, -48: 1, 2, 4 or 6 n-tiles), the count read from the
+// last conv's record (R_OUT).
 //
 // What bounds it on this card: operations. sr_x2 needs 12,912 int8 MACs per
 // input pixel against 15 bytes of device traffic (SESR-M11 31,344, SESR-XL
@@ -125,7 +129,14 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int 
 // A lane's B registers of one (pass, chunk): FW = 2 per n-tile.
 template <int FW>
 __device__ __forceinline__ void load_frag(int (&b)[FW], const int* p) {
-  if constexpr (FW == 8) {
+  if constexpr (FW == 12) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    const int4 u = *reinterpret_cast<const int4*>(p + 4);
+    const int4 t = *reinterpret_cast<const int4*>(p + 8);
+    b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
+    b[4] = u.x; b[5] = u.y; b[6] = u.z; b[7] = u.w;
+    b[8] = t.x; b[9] = t.y; b[10] = t.z; b[11] = t.w;
+  } else if constexpr (FW == 8) {
     const int4 v = *reinterpret_cast<const int4*>(p);
     const int4 u = *reinterpret_cast<const int4*>(p + 4);
     b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
@@ -158,7 +169,7 @@ __host__ __device__ inline int layer_words(bool split, int layer, int L, int in_
   const int k = layer < L - 1 ? 3 : 5;
   const int chunks = split ? pe * chunks_of(k, pe % 4 == 0 ? C / 16 : C / 4)
                            : chunks_of(k, C / 4);
-  return chunks * 32 * (layer < L - 1 ? C / 4 : 2 * ((ocl + 7) / 8));
+  return chunks * 32 * (layer < L - 1 ? C / 4 : out_cols(ocl) / 4);
 }
 
 __device__ __forceinline__ bool pe_split(const int* prm, int layer) {
@@ -191,16 +202,23 @@ enum Passes { ONE = 0, FOUR = 1, WORDS = 2, MASKED = 3 };
 // in [-half, half - 1] (quant_half; int8's otherwise); WIDE (GEN only): the
 // sum is a plain int32, converted to float32 once, for sums that may pass
 // 2^22. The epilogue writes the next layer's input planes (FIRST, MID), the
-// shortcut terms (FIRST) or the output (LAST).
+// shortcut terms (FIRST) or the output (LAST). OC: the layer's output
+// channels, or (OC < 0, the general instantiations' last conv) -OC padded
+// columns, the count read from the layer's record; past C channels its bias
+// and z_eff * sum(W) rows are read from the block in device memory, gprm
+// (R_ROWS).
 template <int DP, int PS, bool CLAMP, bool GEN, bool WIDE, int K, Kind KIND, int OC, int C>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
-    const int* __restrict__ prm, int* __restrict__ next,
+    const int* __restrict__ prm, const int* __restrict__ gprm, int* __restrict__ next,
     int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
     int8_t* __restrict__ out, int frame) {
   constexpr int KK = K * K;
-  constexpr int NT = (OC + 7) / 8;                   // n-tiles of 8 channels
+  constexpr int NT = (OC > 0 ? OC + 7 : -OC) / 8;    // n-tiles of 8 channels
+  constexpr bool ROWS = OC < -C;                     // the last conv's rows past the record's
+  static_assert(OC > 0 || KIND == LAST, "a count read at run time is the last conv's");
+  const int ocn = OC > 0 ? OC : prm[p_at(layer, R_OUT, C)];
   constexpr int FW = 2 * NT;                         // B registers per (pass, chunk)
   constexpr int NV = 2 * NT;                         // values a lane holds per pixel
   static_assert((PS != WORDS && PS != MASKED) || KIND != FIRST,
@@ -243,12 +261,14 @@ __device__ __forceinline__ void conv_layer(
   // sum(W), ending as y_int); the 20-bit clamp of conv(q - z_eff), where it
   // runs, is shifted by the same constant.
   auto chan = [&](int j) { return KIND == LAST ? 8 * (j >> 1) + 2 * tq + (j & 1) : tq + 4 * j; };
+  const int* rows = ROWS ? gprm + prm[p_at(layer, R_ROWS, C)] : prm + p_at(layer, R_BIAS, C);
+  const int zc_at = ROWS ? ocn : C;                  // the z_eff * sum(W) row, from the bias row
   int init[NV], lo_c[NV], hi_c[NV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int o = chan(j);
-    const int b = (o < OC ? prm[p_at(layer, R_BIAS, C) + o] : 0) + (WIDE ? 0 : kMagicBits);
-    init[j] = b - (o < OC ? prm[p_at(layer, R_BIAS, C) + C + o] : 0);
+    const int b = (o < ocn ? rows[o] : 0) + (WIDE ? 0 : kMagicBits);
+    init[j] = b - (o < ocn ? rows[zc_at + o] : 0);
     lo_c[j] = b - add_hi - 1;
     hi_c[j] = b + add_hi;
   }
@@ -271,7 +291,7 @@ __device__ __forceinline__ void conv_layer(
   // (up to 4 passes), its looped passes (up to 16) and every layer past
   // layer 0 at width 32, which read them from shared memory per chunk
   constexpr bool WSMEM = (SPLIT && (KIND == FIRST || PS == WORDS || PS == MASKED)) ||
-                         (C > 16 && KIND != FIRST);
+                         (C > 16 && KIND != FIRST) || NT > 2;
   constexpr int WP = WSMEM ? 1 : NP, WC = WSMEM ? 1 : NCH;
   int wr[WP][WC][FW];
   if constexpr (!WSMEM) {
@@ -418,18 +438,19 @@ __device__ __forceinline__ void conv_layer(
       if constexpr (KIND == LAST) {
         if (!inside || y >= t.th || x >= t.tw) continue;
         const float z_out = as_f32(prm[P_ZOUT]);
-        int8_t* dst = out + ((static_cast<size_t>(frame) * t.H + gy) * t.W + gx) * OC;
+        int8_t* dst = out + ((static_cast<size_t>(frame) * t.H + gy) * t.W + gx) * ocn;
+        const bool pairs = OC > 0 ? OC % 2 == 0 : (ocn & 1) == 0;   // a pixel's row even: 2-byte stores
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int o = 8 * n + 2 * tq;
           const int v0 = qn_bits(__fadd_rn(hq[2 * n], z_out), q_lo, q_hi);
           const int v1 = qn_bits(__fadd_rn(hq[2 * n + 1], z_out), q_lo, q_hi);
-          if constexpr (OC % 2 == 0) {
-            if (o < OC)
+          if (pairs) {
+            if (o < ocn)
               *reinterpret_cast<uint16_t*>(dst + o) = static_cast<uint16_t>(__byte_perm(v0, v1, 0x0040));
           } else {
-            if (o < OC) dst[o] = static_cast<int8_t>(v0);
-            if (o + 1 < OC) dst[o + 1] = static_cast<int8_t>(v1);
+            if (o < ocn) dst[o] = static_cast<int8_t>(v0);
+            if (o + 1 < ocn) dst[o + 1] = static_cast<int8_t>(v1);
           }
         }
       } else {
@@ -582,25 +603,25 @@ template <int DP, bool GEN, int K, Kind KIND, int OC, int C, bool WIDE>
 __device__ __forceinline__ void conv_form(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
-    const int* __restrict__ prm, int* __restrict__ next,
+    const int* __restrict__ prm, const int* __restrict__ gprm, int* __restrict__ next,
     int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
     int8_t* __restrict__ out, int frame) {
   if constexpr (DP == REFERENCE) {
     if (pe_split(prm, layer)) {
       if (KIND == FIRST || npass == 4) {
         conv_layer<DP, FOUR, GEN, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t,
-                                                             layer, prelast, prm, next, next_ps,
+                                                             layer, prelast, prm, gprm, next, next_ps,
                                                              sc, sc_ps, sc_off, sc_w, sc_h, out,
                                                              frame);
       } else if constexpr (GEN && KIND != FIRST) {
         if (npass % 4 == 0)
           conv_layer<DP, WORDS, true, true, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t,
-                                                                  layer, prelast, prm, next,
+                                                                  layer, prelast, prm, gprm, next,
                                                                   next_ps, sc, sc_ps, sc_off,
                                                                   sc_w, sc_h, out, frame);
         else
           conv_layer<DP, MASKED, true, true, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew,
-                                                                   t, layer, prelast, prm, next,
+                                                                   t, layer, prelast, prm, gprm, next,
                                                                    next_ps, sc, sc_ps, sc_off,
                                                                    sc_w, sc_h, out, frame);
       }
@@ -610,13 +631,13 @@ __device__ __forceinline__ void conv_form(
   if constexpr (GEN || (DP == FAST && KIND != FIRST)) {
     if (GEN || ((prm[P_CLAMP] >> layer) & 1)) {
       conv_layer<DP, ONE, true, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
-                                                           prelast, prm, next, next_ps, sc, sc_ps,
+                                                           prelast, prm, gprm, next, next_ps, sc, sc_ps,
                                                            sc_off, sc_w, sc_h, out, frame);
       return;
     }
   }
   conv_layer<DP, ONE, false, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
-                                                        prelast, prm, next, next_ps, sc, sc_ps,
+                                                        prelast, prm, gprm, next, next_ps, sc, sc_ps,
                                                         sc_off, sc_w, sc_h, out, frame);
 }
 
@@ -635,7 +656,8 @@ __device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* _
                                          int in_ch, int th, int tw, int split, int pe_in) {
   extern __shared__ int4 smem4[];
   const int pe = GEN ? pe_in : 4;
-  const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCL, th, tw, C);
+  constexpr int OCW = OCL > 0 ? OCL : -OCL;     // the last conv's count, or its padded count
+  const Smem plan = smem_plan(DP, GEN, split, pe, L, in_ch, OCW, th, tw, C);
   int* prm = reinterpret_cast<int*>(smem4);
   int* wbuf = prm + plan.prm_words;     // plan.w_bufs weight buffers of plan.w_words
   int* buf_a = wbuf + plan.w_bufs * plan.w_words;
@@ -654,7 +676,7 @@ __device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* _
   const int frame = blockIdx.z;
 
   stage_async(wbuf, weights + params[p_at(0, R_WOFF, C)],
-              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCL, pe, C));
+              layer_words(split_of<DP>(params, 0), 0, L, in_ch, OCW, pe, C));
   for (int i = threadIdx.x; i < net_words(L, C); i += blockDim.x) prm[i] = params[i];
 
   // layer-0 input: one word per pixel, channel c in byte c; z_eff outside
@@ -694,14 +716,15 @@ __device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* _
   auto stage_next = [&](int i) {
     stage_async(wbuf + (single ? 0 : ((i + 1) & 1) * plan.w_words),
                 weights + prm[p_at(i + 1, R_WOFF, C)],
-                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCL, pe, C));
+                layer_words(split_of<DP>(prm, i + 1), i + 1, L, in_ch, OCW, pe, C));
   };
   if (!single) stage_next(0);
   {
     const int r1 = ring(1, L);
     const int ps1 = plane_stride(extent(1, L, th, tw));
     conv_form<DP, GEN, 5, FIRST, C, C, WIDE>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1,
-                                             tw + 2 * r1, t, 0, false, prm, buf_a, ps1, sc, sc_ps,
+                                             tw + 2 * r1, t, 0, false, prm, params, buf_a, ps1, sc,
+                                             sc_ps,
                                              r1 - r_sc, sc_w, sc_h, nullptr, frame);
   }
   wait_staged();
@@ -721,7 +744,8 @@ __device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* _
     const int ps_in = plane_stride(extent(i, L, th, tw));
     const int ps_out = plane_stride(extent(i + 1, L, th, tw));
     conv_form<DP, GEN, 3, MID, C, C, WIDE>(cur, ps_in, w, pe, th + 2 * r, tw + 2 * r, t, i,
-                                           i == L - 2, prm, nxt, ps_out, sc, sc_ps, 0, sc_w, sc_h,
+                                           i == L - 2, prm, params, nxt, ps_out, sc, sc_ps, 0, sc_w,
+                                           sc_h,
                                            nullptr, frame);
     wait_staged();
     __syncthreads();
@@ -738,7 +762,8 @@ __device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* _
   const int* w_last = wbuf + (single ? 0 : ((L - 1) & 1) * plan.w_words);
   const int ps_last = plane_stride(extent(L - 1, L, th, tw));
   conv_form<DP, GEN, 5, LAST, OCL, C, WIDE>(cur, ps_last, w_last, pe, th, tw, t, L - 1, false,
-                                            prm, nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out, frame);
+                                            prm, params, nullptr, 0, sc, sc_ps, 0, sc_w, sc_h, out,
+                                            frame);
 }
 
 // The served kernels: the shipped instantiation and the general one, and
@@ -777,7 +802,8 @@ template <int DP, int OCL, int GK, int C>
 cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* prm,
                        int n, int h, int wd, int L, int in_ch, int th, int tw, int split,
                        int pe, cudaStream_t stream) {
-  const size_t bytes = shared_bytes(DP, GK != 0, split, pe, L, in_ch, OCL, th, tw, C);
+  const size_t bytes = shared_bytes(DP, GK != 0, split, pe, L, in_ch, OCL > 0 ? OCL : -OCL, th,
+                                    tw, C);
   const auto kernel = net_kernel<DP, OCL, GK, C>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
@@ -787,23 +813,35 @@ cudaError_t launch_one(const int8_t* x, int8_t* out, const int* w, const int* pr
   return cudaGetLastError();
 }
 
+// The shipped counts 3, 12 and 16, each in an instantiation of its own;
+// in the general ones every count at its padded count (out_cols), the count
+// read from the record.
 template <int DP, int GK, int C>
 cudaError_t launch_oc(const int8_t* x, int8_t* out, const int* w, const int* prm, int n, int h,
                       int wd, int L, int in_ch, int out_ch, int th, int tw, int split, int pe,
                       cudaStream_t s) {
-  switch (out_ch) {
-    case 3: return launch_one<DP, 3, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    case 12: return launch_one<DP, 12, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    case 16: return launch_one<DP, 16, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (GK == 0) {
+    switch (out_ch) {
+      case 3: return launch_one<DP, 3, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+      case 12: return launch_one<DP, 12, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+      case 16: return launch_one<DP, 16, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (out_cols(out_ch)) {
+      case 8: return launch_one<DP, -8, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+      case 16: return launch_one<DP, -16, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+      case 32: return launch_one<DP, -32, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+      default: return launch_one<DP, -48, GK, C>(x, out, w, prm, n, h, wd, L, in_ch, th, tw, split, pe, s);
+    }
   }
 }
 
 bool takes(int L, int in_ch, int out_ch, int th, int tw, int split, int pe, int gen, int width) {
-  return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 &&
-         (out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 && th <= 1024 &&
-         tw <= 1024 && pe >= 1 && pe <= kMaxPE && (split >> L) == 0 && gen >= 0 && gen <= 2 &&
-         (gen || pe == 4) && (width == 16 || width == kMaxC);
+  return L >= 3 && L <= kMaxL && in_ch >= 1 && in_ch <= 4 && out_ch >= 1 && out_ch <= kMaxOut &&
+         (gen || out_ch == 3 || out_ch == 12 || out_ch == 16) && th >= 1 && tw >= 1 &&
+         th <= 1024 && tw <= 1024 && pe >= 1 && pe <= kMaxPE && (split >> L) == 0 && gen >= 0 &&
+         gen <= 2 && (gen || pe == 4) && (width == 16 || width == kMaxC);
 }
 
 template <int DP, int C>

@@ -57,9 +57,9 @@ SIGNATURES = {
         # the counting form: sesr_corrected_net's arguments but the stream, then
         # (counts, y0, y1, x0, x1, stream)
         "sesr_corrected_audit": [_PTR] * 4 + [_INT] * 12 + [_PTR] + [_INT] * 4 + [_PTR],
-        # (num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, width) -> shared memory bytes,
-        # 0: refused
-        "sesr_corrected_smem": [_INT] * 8,
+        # (num_layers, in_ch, out_ch, tile_h, tile_w, split, pe, general, width) -> shared
+        # memory bytes, 0: refused
+        "sesr_corrected_smem": [_INT] * 9,
     },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)

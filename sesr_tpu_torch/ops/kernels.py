@@ -22,12 +22,14 @@ launch is refused.
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import torch
 
 from sesr_tpu_torch.config import SESRSpec
-from sesr_tpu_torch.convert import (MAX_LAYERS, device_constants, kernel_width, layer_geometry,
-                                    net_words, param_words, pe_groups, wgmma_geometry)
+from sesr_tpu_torch.convert import (MAX_LAYERS, block_words, device_constants, kernel_width,
+                                    layer_geometry, net_words, out_columns, pe_groups,
+                                    wgmma_geometry)
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
 from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
@@ -49,10 +51,16 @@ NET_TILES = (TILE, (24, 32), (24, 24), (16, 32), (16, 24), (16, 16), (8, 16), (8
 # smaller one (SESR-M11's 13 convs: 24x32 hybrid, 16x16 with every conv
 # split; SESR-XL's 32 channels, its B staged a layer at a time: 16x32 with
 # no conv split, 16x16 up to four PEs with some or all split, and past four
-# PEs with its hybrid mask, 8x16 past four PEs with every conv split)
+# PEs with its hybrid mask, 8x16 past four PEs with every conv split; at
+# 9-16 PEs with a split conv its split layers' B in pieces, 16x16). A tile
+# whose plan stages every layer's B whole is taken before one in pieces
+# (CorrectedKernel.tile)
 CORRECTED_TILES = ((48, 48), (32, 64), (32, 48), (32, 32), (24, 32), (16, 32), (16, 16), (8, 16))
 SMEM_LIMIT = 232448                 # a block's shared memory on the H100
 OUT_DTYPES = ("f32", "int8")
+MAX_N = 128                         # csrc/sesr_corrected.cu kMaxN: most columns of a wgmma
+PIECE_MAX = 53248                   # kPieceMax: most bytes of a piece of a layer's B
+WHOLE_MAX = 106496                  # kWholeMax: most bytes of a split layer's B run whole
 
 
 def _round_up(v: int, a: int) -> int:
@@ -88,8 +96,8 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
         sp = bool(split[i]) if general else exact
         k, ic = (5 if i in (0, L - 1) else 3), (in_ch if i == 0 else width)
         passes, chunks, _ = layer_geometry(k, ic, sp, pe)
-        w_words = max(w_words, passes * chunks * 32 * 2 * -(-(out_ch if i == L - 1 else width)
-                                                             // 8))
+        cols = out_columns(out_ch) if i == L - 1 else width
+        w_words = max(w_words, passes * chunks * 32 * 2 * (cols // 8))
     ext = [(th + 2 * _ring(i, L)) * (tw + 2 * _ring(i, L)) for i in range(L)]
     bufs = [0, _round_up(ext[0], 4)]                 # layer i reads bufs[i % 2 == 0]
     for i in range(1, L):
@@ -99,28 +107,77 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
     return two - 4 * w_words if exact and general and width == 32 and two > SMEM_LIMIT else two
 
 
+def chunk_groups(groups: int, ocp: int) -> int:
+    """PE groups of one chunk of a layer's columns in the corrected kernel
+    (csrc/sesr_corrected.cu chunk_groups): all of them where they fit a
+    wgmma (MAX_N columns), else MAX_N // ocp, a power of two that divides
+    them."""
+    return groups if groups * ocp <= MAX_N else MAX_N // ocp
+
+
+def pieces(steps: int, cols: int) -> tuple:
+    """(pieces, k32 steps of a piece) of a chunk of ``cols`` columns and
+    ``steps`` steps (5, 9, 13 or 25) staged in pieces of at most PIECE_MAX
+    bytes: the whole chunk where it fits, else five steps, so that the
+    pieces divide the steps (csrc/sesr_corrected.cu piece_count,
+    piece_steps)."""
+    per = steps if steps * cols * 32 <= PIECE_MAX else 5
+    return steps // per, per
+
+
+def layer_pieces(k: int, ic: int, oc: int, split: bool, last: bool, pe: int) -> tuple:
+    """(pieces a round, bytes of the largest) of one layer of the corrected
+    kernel where B is staged in pieces: a split hidden or last layer whose
+    B passes WHOLE_MAX, or any at width 32 and 16 PE groups (it runs the
+    kernel's conv_pieces: piece_form), its chunks (``chunk_groups``), each
+    in ``pieces``; any other layer one piece, its whole B."""
+    steps, groups, n = wgmma_geometry(k, ic, oc, split, last, pe)
+    if not split or ic <= 4 or (steps * n * 32 <= WHOLE_MAX
+                                and not (ic == 32 and groups == 16)):
+        return 1, steps * n * 32
+    nc = chunk_groups(groups, n // groups) * (n // groups)
+    count, per = pieces(steps, nc)
+    return n // nc * count, per * nc * 32
+
+
+class CorrectedPlan(NamedTuple):
+    bytes: int          # shared memory of one block
+    regions: int        # B regions: 0 resident, else 1 or 2
+    pieces: bool        # B staged in pieces (the general instantiation only)
+
+
 def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
-                   width: int = 16) -> tuple:
-    """(shared memory bytes, B regions) of one block of the corrected kernel
-    at ``tile``, ``pe`` PEs and hidden width ``width`` (csrc/sesr_corrected.cu
-    smem_plan; chip_smoke.py checks the two agree): the parameter block, B,
-    two ping-pong buffers of ``width`` bytes a pixel (each holding the
-    pixels its layers' GEMMs read, past the extent too; at width 32 a
-    layer's input is two planes of 16 bytes a pixel, each rounded up to 128
-    bytes), the int16 shortcut of 2 ``width`` bytes a pixel and 16 bytes of
-    scratch. B regions: 0 at width 16 up to eight PEs, where every layer's
-    B is resident; at width 32 and past eight PEs (16 PE groups, staged_b),
-    2 (the even layers' and the odd layers', the next layer's B staged
-    while a layer computes) where that fits a block, else 1 (the largest
-    layer's)."""
+                   width: int = 16, general: bool = False) -> CorrectedPlan:
+    """(shared memory bytes, B regions, pieces) of one block of the
+    corrected kernel at ``tile``, ``pe`` PEs and hidden width ``width``, in
+    the ``general`` instantiation or the shipped one (csrc/sesr_corrected.cu
+    smem_plan; chip_smoke.py checks the two agree): the parameter block
+    (``block_words``), B, two ping-pong buffers of ``width`` bytes a pixel (each
+    holding the pixels its layers' GEMMs read, past the extent too; at
+    width 32 a layer's input is two planes of 16 bytes a pixel, each
+    rounded up to 128 bytes), the int16 shortcut of 2 ``width`` bytes a
+    pixel and 16 bytes of scratch. B regions: 0 at width 16 up to eight
+    PEs (up to four past 16 output channels), where every layer's B is
+    resident; at width 32 and at 16 PE groups (and 8 past 16 output
+    channels: staged_b), 2 (the even layers' and the odd layers', the next
+    layer's B staged while a layer computes) where that fits a block, else
+    1 (the largest layer's); where not even that fits, the general
+    instantiations with piece forms (past 16 output channels, or at width
+    32 and 16 PE groups with a split layer past layer 0: piece_kernel)
+    stage each split layer's B in pieces (``layer_pieces``): 2 regions of
+    the largest piece or layer, one piece staged while the one before
+    computes, where they fit, else 1."""
     th, tw = tile
-    b_bytes, bufs = [], [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
+    b_bytes, units = [], []
+    bufs = [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
     for i in range(L):
         last = i == L - 1
         k = 5 if i in (0, L - 1) else 3
         ic = in_ch if i == 0 else width
-        steps, _, n = wgmma_geometry(k, ic, out_ch if last else width, bool(split[i]), last, pe)
+        oc = out_ch if last else width
+        steps, _, n = wgmma_geometry(k, ic, oc, bool(split[i]), last, pe)
         b_bytes.append(steps * n * 32)
+        units.append(layer_pieces(k, ic, oc, bool(split[i]), last, pe)[1])
         r = _ring(i, L)
         ih, iw = th + 2 * r, tw + 2 * r
         if i == 0:                  # the widened pixels of the last step's second half
@@ -133,7 +190,7 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
         if i and width == 32:
             cap = 2 * _round_up(cap, 128)
         bufs[i % 2] = max(bufs[i % 2], cap)
-    w_at = _round_up(param_words(pe, L, width) * 4, 128)
+    w_at = _round_up(block_words(pe, L, width, out_ch) * 4, 128)
     r_sc = _ring(L - 1, L)
     rest = (_round_up(bufs[0], 128) + _round_up(bufs[1], 128)
             + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * width + 16)     # + the scratch word
@@ -141,17 +198,24 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
     def total(w_bytes):
         return _round_up(w_at + w_bytes, 128) + rest
 
-    if width == 16 and pe_groups(pe) < 16:
-        return total(sum(b_bytes)), 0
+    groups, wide_out = pe_groups(pe), out_columns(out_ch) > 16
+    if not (width == 32 or groups == 16 or (wide_out and groups == 8)):       # staged_b
+        return CorrectedPlan(total(sum(b_bytes)), 0, False)
     even, odd = max(b_bytes[0::2]), max(b_bytes[1::2])
-    two = total(_round_up(even, 128) + odd)
-    return (two, 2) if two <= SMEM_LIMIT else (total(max(even, odd)), 1)
+    plans = [CorrectedPlan(total(_round_up(even, 128) + odd), 2, False),
+             CorrectedPlan(total(max(even, odd)), 1, False)]
+    if general and (wide_out or (groups == 16 and width == 32 and any(split[1:]))):
+        # piece_kernel
+        unit = max(units)
+        plans += [CorrectedPlan(total(_round_up(unit, 128) + unit), 2, True),
+                  CorrectedPlan(total(unit), 1, True)]
+    return next((p for p in plans if p.bytes <= SMEM_LIMIT), plans[-1])
 
 
 def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
-                         width: int = 16) -> int:
+                         width: int = 16, general: bool = False) -> int:
     """Shared memory of one block of the corrected kernel (``corrected_plan``)."""
-    return corrected_plan(L, in_ch, out_ch, tile, split, pe, width)[0]
+    return corrected_plan(L, in_ch, out_ch, tile, split, pe, width, general).bytes
 
 
 class NetKernel:
@@ -291,7 +355,21 @@ class CorrectedKernel(NetKernel):
 
     def smem_bytes(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
         return corrected_smem_bytes(spec.num_convs, spec.in_channels, spec.conv_out_channels,
-                                    tile, split, pe, kernel_width(spec.num_channels))
+                                    tile, split, pe, kernel_width(spec.num_channels), general)
+
+    def tile(self, spec: SESRSpec, split, pe: int, general: bool = False) -> tuple:
+        """The first of ``tiles`` whose plan fits a block with every layer's
+        B staged whole (or resident), else the first whose plan fits with B
+        in pieces (``corrected_plan``): a smaller tile before pieces."""
+        split = split or (False,) * spec.num_convs
+        plans = {t: corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels, t,
+                                   split, pe, kernel_width(spec.num_channels), general)
+                 for t in self.tiles}
+        for pieces in (False, True):
+            for t, plan in plans.items():
+                if plan.bytes <= SMEM_LIMIT and plan.pieces == pieces:
+                    return t
+        raise ValueError(f"{self.symbol}: no tile of {self.tiles} fits {spec.name}")
 
     def audit(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, split,
               region=None, tile=None) -> tuple:

@@ -49,7 +49,8 @@ from sesr_tpu_torch.quant.calibrate import calibrate
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import MODES, split_layers
 from sesr_tpu_torch.ops.kernels import (CORRECTED_TILES, SMEM_LIMIT, corrected_net,
-                                        corrected_plan, corrected_smem_bytes)
+                                        corrected_plan, corrected_smem_bytes, layer_pieces,
+                                        net_smem_bytes)
 from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
@@ -75,11 +76,14 @@ def _expr(fn, scope):
 
 FNS = dict(CONST)
 for _fn in ("tap_of", "tap_pix", "half_off", "a_lbo", "steps_of", "b_byte", "col_chan",
-            "acc_row", "acc_col", "pe_groups", "count_lo", "count_hi"):
+            "acc_row", "acc_col", "pe_groups", "count_lo", "count_hi", "chunk_groups",
+            "piece_count", "piece_steps", "piece_src"):
     FNS[_fn] = _expr(_fn, FNS)
-steps_of, half_off, a_lbo, b_byte, col_chan, acc_row, acc_col, pe_groups, count_lo, count_hi = (
+(steps_of, half_off, a_lbo, b_byte, col_chan, acc_row, acc_col, pe_groups, count_lo, count_hi,
+ chunk_groups, piece_count, piece_steps, piece_src) = (
     FNS[f] for f in ("steps_of", "half_off", "a_lbo", "b_byte", "col_chan", "acc_row",
-                     "acc_col", "pe_groups", "count_lo", "count_hi"))
+                     "acc_col", "pe_groups", "count_lo", "count_hi", "chunk_groups",
+                     "piece_count", "piece_steps", "piece_src"))
 
 
 def _artifact(task):
@@ -312,16 +316,20 @@ def _smem_input(x_q, k, z_eff, wide, rng, width=16):
     return buf.reshape(-1), ih, iw, rows, plane
 
 
-def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None):
+def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None, pieces=False):
     """The corrected kernel's y = bias + pe_add of conv i over the int8
     input x_q (H, W, ic), from its constants: the layer's wide GEMM through
-    the descriptors (a chunk of at most kMaxN columns at a time), the
-    accumulator fragment, and the epilogue's rules, with the extent of one
-    tile over the whole input. A network narrower than its kernel width
+    the descriptors (a chunk of whole PE groups at a time, chunk_groups),
+    the accumulator fragment, and the epilogue's rules, with the extent of
+    one tile over the whole input. A network narrower than its kernel width
     runs padded: its padded input channels hold random bytes here (their
-    weights are zero). ``events`` (H, W), if given: the counting form's
-    rule added per output, the partials of the real PEs (p < pe) and
-    channels that the 18-bit clamp changes on a split layer."""
+    weights are zero). ``pieces``: B staged in pieces (conv_pieces), each
+    piece's 16-byte units copied from the layer's B as piece_src maps them
+    into a region of random bytes, and read there by issue_piece's
+    descriptors (each step from its piece, ``cols`` columns apart).
+    ``events`` (H, W), if given: the counting form's rule
+    added per output, the partials of the real PEs (p < pe) and channels
+    that the 18-bit clamp changes on a split layer."""
     acc_hi = (1 << (qp.hw.pe_acc_bits - 1)) - 1
     add_hi = (1 << (qp.hw.pe_add_bits - 1)) - 1
     width = kc.width
@@ -336,12 +344,30 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None):
                                                    qp.hw.pe)
     assert steps == steps_of(k, int(wide), width)
     ocp = n_cols // groups
-    chunks = -(-n_cols // CONST["kMaxN"])
-    nc, gc = n_cols // chunks, groups // chunks
+    gc = chunk_groups(groups, ocp)
+    chunks, nc = groups // gc, gc * ocp
+    assert nc <= CONST["kMaxN"] and nc in (8, 16, 24, 32, 48, 64, 80, 96, 112, 128)   # wgmma's N
     buf, ih, iw, rows, plane = _smem_input(x_q.astype(np.int8), k, z_eff, wide, rng, width)
     offs = [kc.param("w_off", j) for j in range(kc.num_layers)] + [kc.weights.size]
     bsm = kc.weights[offs[i]: offs[i + 1]].view(np.int8)
     assert bsm.size == steps * n_cols * 32
+    # where B lies for step s of chunk hc: the layer's B (resident or staged
+    # whole), or the piece holding that step, copied into a region of
+    # random bytes
+    where = {}
+    for hc in range(chunks):
+        if not pieces:
+            where.update({(s, hc): (bsm, b_byte(s, hc * nc, 0, n_cols)) for s in range(steps)})
+            continue
+        per = piece_steps(steps, nc)
+        assert piece_count(steps, nc) * per == steps and per * nc * 32 <= CONST["kPieceMax"]
+        for s0 in range(0, steps, per):
+            region = rng.integers(-128, 128, CONST["kPieceMax"]).astype(np.int8)
+            for u in range(per * 2 * nc):
+                at = piece_src(u, s0, hc, n_cols, nc)
+                region[16 * u:16 * u + 16] = bsm[at:at + 16]
+            where.update({(s, hc): (region, b_byte(s - s0, 0, 0, nc))
+                          for s in range(s0, s0 + per)})
     # the GEMM's D, m-tile by m-tile and chunk by chunk
     acc = np.zeros((chunks, rows, nc), np.int64)
     for mt in range(rows // 64):
@@ -351,15 +377,21 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None):
             a = _hw_a(buf, (mt * 64 + o0) * CONST["kPix"], a_lbo(o0, o1, int(wide), width, plane),
                       CONST["kSboA"])
             for hc in range(chunks):
-                b = _hw_b(bsm, b_byte(s, hc * nc, 0, n_cols), nc, CONST["kLboB"], CONST["kSboB"])
+                src, start = where[s, hc]
+                b = _hw_b(src, start, nc, CONST["kLboB"], CONST["kSboB"])
                 acc[hc, mt * 64:mt * 64 + 64] += a.astype(np.int64) @ b.astype(np.int64)
     bias = kc.param("bias", i)[:oc].astype(np.int64)
     zc = kc.param("zc", i)[:oc].astype(np.int64)
     if split:
         assert not zc.any()          # the kernel's split bounds are bias + kMagicBits +- add_hi
     # the PE zero terms where the kernel reads them: word zcp_at(.., 0) +
-    # (2 or 4) tq + col_chan(acc_col(v / 2, 0, v % 2)) + p C of the block
-    zc_at = convert.zc_pe_at(kc.num_layers, width, kc.pe, i, 0)
+    # (2 or 4) tq + col_chan(acc_col(v / 2, 0, v % 2)) + p C of the block,
+    # or, for a last layer past C channels, of its own rows (R_ROWS): from
+    # rows + 2 OC, OC words a PE
+    own = last and oc > width
+    row_words = oc if own else width
+    zc_at = (kc.param("rows", i) + 2 * oc if own
+             else convert.zc_pe_at(kc.num_layers, width, kc.pe, i, 0))
     got = np.full((h, w, oc), np.iinfo(np.int64).min)
     j_n = ocp // 8
     # each thread's registers (warp, lane, 4 j + i) of each m-tile and
@@ -385,7 +417,7 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None):
                         at = zc_at + (2 if last else 4) * tq + col_chan(
                             acc_col(v >> 1, 0, v & 1), int(last))
                         assert at == zc_at + o
-                        start = [-int(kc.params[at + p * width]) if p < kc.pe else 0
+                        start = [-int(kc.params[at + p * row_words]) if p < kc.pe else 0
                                  for p in range(groups)]
                         if split:
                             val = bias[o] - zc[o] + sum(
@@ -521,6 +553,8 @@ def test_corrected_kernel_layers_model_the_plain_sums(case):
 
 M11 = SESRSpec("sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16, num_lblocks=11,
                scaling_factor=2)
+M5X4 = SESRSpec("sesr_m5_x4_rgb", in_channels=3, out_channels=3, num_channels=16, num_lblocks=5,
+                scaling_factor=4)
 
 
 def _m11_saturated(pe):
@@ -614,6 +648,132 @@ def test_corrected_kernel_layers_on_sesr_xl(mode, pe):
     # a split hidden layer runs 128 or 2 x 128 columns
     assert convert.wgmma_geometry(3, 32, 32, True, False, pe)[2] == 32 * convert.pe_groups(pe)
     assert int(dumps["overflow_18"][3]) > 0
+
+
+def _pieces_of(spec, kc, tile):
+    """Per layer, whether the kernel stages its B in pieces at ``tile``: the
+    plan's choice (corrected_plan), on the layers of more than one piece."""
+    L = spec.num_convs
+    plan = corrected_plan(L, spec.in_channels, spec.conv_out_channels, tile, kc.pe_split, kc.pe,
+                          kc.width, kc.general)
+    assert plan.bytes <= SMEM_LIMIT
+    return plan, [plan.pieces and layer_pieces(
+        k, spec.in_channels if i == 0 else kc.width,
+        spec.conv_out_channels if i == L - 1 else kc.width, kc.pe_split[i], i == L - 1,
+        kc.pe)[0] > 1 for i, k in enumerate(spec.kernel_sizes)]
+
+
+@pytest.mark.parametrize("split_of", ["conv12", "all"])
+def test_corrected_kernel_layers_on_sesr_xl_at_16_pes(split_of):
+    """SESR-XL at 16 PEs with a split conv, which no tile holds with a
+    layer's B whole (conv 12's B alone is 25 steps x 256 columns x 32 B):
+    the plan stages the split layers' B in pieces at 16x16 (two regions of
+    the largest piece with conv 12 split, one with every conv split), a
+    split hidden layer's 512 columns in four chunks of 128, each one piece
+    of its 9 steps, the last conv's 256 in two chunks in five pieces of 5
+    steps. The model, each piece copied into a region as piece_src maps
+    it, gives every layer 0..12 equal to the plain interpreter's bias +
+    pe_add with only conv 12 split and with every conv split, and the
+    counting form's rule the plain overflow_18."""
+    qp = _xl_saturated(16)
+    L = XL.num_convs
+    split = tuple(i == 12 for i in range(L)) if split_of == "conv12" else (True,) * L
+    kc = convert.kernel_constants(XL, qp, "corrected", split)
+    assert kc.general and kc.pe == 16 and kc.pe_split == split
+    tile = corrected_net.tile(XL, split, 16, True)
+    plan, pieces = _pieces_of(XL, kc, tile)
+    assert tile == (16, 16) and plan.pieces and plan.regions == (2 if split_of == "conv12" else 1)
+    assert pieces == [f and i > 0 for i, f in enumerate(split)]
+    assert layer_pieces(5, 32, 12, True, True, 16) == (2 * 5, 5 * 128 * 32)
+    assert layer_pieces(3, 32, 32, True, False, 16) == (4 * 1, 9 * 128 * 32)
+    # a tile with conv 12's B whole needs more than a block
+    whole = corrected_plan(L, 3, 12, (8, 8), split, 16, 32, False)
+    assert whole.bytes > SMEM_LIMIT and not whole.pieces
+    x = np.random.default_rng(16).random((1, 6, 11, 3), dtype=np.float32)
+    _, dumps = integer_forward(XL, qp, x, collect_dumps=True, corrected=True,
+                               fast_layers=tuple(not f for f in split), device="cpu")
+    rng = np.random.default_rng(17)
+    ovf18 = dumps["overflow_18"].tolist()
+    for i, k in enumerate(XL.kernel_sizes):
+        x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
+        events = np.zeros(x_q.shape[:2], np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng,
+                                 events, pieces=pieces[i])
+        want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
+            np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
+        np.testing.assert_array_equal(got, want, err_msg=f"xl {split_of} 16 PEs layer {i}")
+        assert events.sum() == (ovf18[i] if split[i] else 0), (split_of, i)
+    if split_of == "all":
+        assert ovf18[3] > 0 and ovf18[9] > 0
+
+
+XL48 = SESRSpec("sesr_xl_x4_rgb", in_channels=3, out_channels=3, num_channels=32,
+                num_lblocks=11, scaling_factor=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _xl48_saturated(pe):
+    """SESR-XL at x4 on RGB (48 outputs) from seeded weights calibrated on
+    the CPU at ``pe`` PEs, its last conv at +127."""
+    params = init_params(XL48, torch.Generator().manual_seed(0))
+    images = [np.random.default_rng(3).random((1, 24, 32, 3), dtype=np.float32)]
+    return _all_127(calibrate(XL48, params, images, hw=HardwareConfig(pe=pe),
+                              safe_zero_floor=True, device="cpu"), (XL48.num_convs - 1,))
+
+
+@pytest.mark.parametrize("pe", [4, 8, 16])
+def test_corrected_model_at_xl_width_and_48_outputs(pe):
+    """A last conv of 48 channels at width 32, every conv split: its bias,
+    zero and per-PE zero rows past the record's 32 (the block's own rows,
+    R_ROWS), 48 columns a PE group in chunks of two groups (96 columns, a
+    wgmma N), its B in pieces at 4, 8 and 16 PEs, and at 16 every split
+    layer's past layer 0 (the plan at the wrapper's tile: the 16x16 tile,
+    two regions of the largest piece at 4 PEs, one at 8 and 16). The
+    model's sums equal the plain
+    interpreter's bias + pe_add on every layer, and its counting rule the
+    plain overflow_18 (the +127 last conv fires the 18-bit clamp)."""
+    qp = _xl48_saturated(pe)
+    L = XL48.num_convs
+    split = (True,) * L
+    kc = convert.kernel_constants(XL48, qp, "corrected", split)
+    assert kc.general and kc.width == 32 and kc.pe == pe
+    assert kc.param("out", L - 1) == 48 and kc.param("rows", L - 1) == convert.param_words(pe, L, 32)
+    assert convert.wgmma_geometry(5, 32, 48, True, True, pe)[1:] == (
+        convert.pe_groups(pe), 48 * convert.pe_groups(pe))
+    tile = corrected_net.tile(XL48, split, pe, True)
+    plan, pieces = _pieces_of(XL48, kc, tile)
+    assert tile == (16, 16) and plan.pieces and plan.regions == (2 if pe == 4 else 1)
+    assert pieces == [i == L - 1 or (pe == 16 and i > 0) for i in range(L)]
+    x = np.random.default_rng(48).random((1, 6, 11, 3), dtype=np.float32)
+    _, dumps = integer_forward(XL48, qp, x, collect_dumps=True, corrected=True, device="cpu")
+    rng = np.random.default_rng(49)
+    ovf18 = dumps["overflow_18"].tolist()
+    for i, k in enumerate(XL48.kernel_sizes):
+        x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
+        events = np.zeros(x_q.shape[:2], np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng,
+                                 events, pieces=pieces[i])
+        want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
+            np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
+        np.testing.assert_array_equal(got, want, err_msg=f"xl48 {pe} PEs layer {i}")
+        assert events.sum() == ovf18[i], (pe, i)
+    assert ovf18[L - 1] > 0
+
+
+def test_k1_refuses_a_48_output_xl_at_16_pes():
+    """A corner still refused: at 16 PEs K1 runs a split conv in 16 passes,
+    and SESR-XL x4's split last conv of 48 columns fits no tile beside its
+    buffers (not even 8x8), so K1 refuses it with the shared-memory
+    message, while K2 and the corrected kernel take it."""
+    qp = _xl48_saturated(16)
+    L = XL48.num_convs
+    with pytest.raises(NotImplementedError, match="no tile of the exact kernel fits"):
+        convert.kernel_constants(XL48, qp, "exact")
+    split = convert.pe_split_layers(qp)
+    assert split[L - 1]
+    assert net_smem_bytes("exact", L, 3, 48, (8, 8), split, 16, True, 32) > SMEM_LIMIT
+    assert convert.kernel_constants(XL48, qp, "fast").general
+    assert convert.kernel_constants(XL48, qp, "corrected", (True,) * L).general
 
 
 def _tiled_counts(spec, qp, x, regions):
@@ -714,7 +874,7 @@ def test_accumulator_map_gives_a_thread_one_word_of_a_pixel(width):
     (8 pixels, no bank conflict). The last layer keeps the columns in order.
     Over every warp, lane and register the fragment covers the 64 x N tile
     once, at every N a layer uses."""
-    for n_cols in (8, 16, 32, 48, 64, 96, 128):
+    for n_cols in (8, 16, 24, 32, 48, 64, 96, 128):
         seen = np.zeros((64, n_cols), int)
         for warp in range(4):
             for lane in range(32):
@@ -731,8 +891,8 @@ def test_accumulator_map_gives_a_thread_one_word_of_a_pixel(width):
                 assert row == 16 * warp + (lane >> 2) + 8 * h
                 chans = [col_chan(acc_col(v >> 1, lane, v & 1), 0) for v in range(width // 4)]
                 assert chans == [16 * (v // 4) + 4 * tq + v % 4 for v in range(width // 4)]
-                assert [col_chan(acc_col(v >> 1, lane, v & 1), 1) for v in range(4)] == \
-                    [2 * tq, 2 * tq + 1, 8 + 2 * tq, 9 + 2 * tq]
+                assert [col_chan(acc_col(v >> 1, lane, v & 1), 1) for v in range(12)] == \
+                    [8 * (v >> 1) + 2 * tq + (v & 1) for v in range(12)]
                 words.append((row - 16 * warp - 8 * h) * 4 + tq)
             assert sorted(words) == list(range(32))
     assert sorted(col_chan(n, 0) for n in range(width)) == list(range(width))
@@ -746,20 +906,31 @@ def test_accumulator_map_gives_a_thread_one_word_of_a_pixel(width):
     np.testing.assert_array_equal(convert._wgmma_columns(12, True),
                                   [n if n < 12 else -1 for n in range(16)])
     np.testing.assert_array_equal(convert._wgmma_columns(3, True), [0, 1, 2] + [-1] * 5)
+    # a last layer past 16 channels: 32 or 48 columns a group, in order,
+    # and its chunks whole groups whose N wgmma takes (s8: 8, 16, 24, 32,
+    # 48, 64, 80, ... 256)
+    for oc, cols in ((1, 8), (4, 8), (9, 16), (17, 32), (27, 32), (33, 48), (48, 48)):
+        np.testing.assert_array_equal(convert._wgmma_columns(oc, True),
+                                      [n if n < oc else -1 for n in range(cols)])
+        for groups in (1, 4, 8, 16):
+            gc = chunk_groups(groups, cols)
+            assert groups % gc == 0 and gc * cols <= 128 and gc * cols in (
+                8, 16, 24, 32, 48, 64, 80, 96, 112, 128), (oc, groups, gc)
+            assert gc == groups or (gc * cols > 64 and 2 * gc * cols > 128)
 
 
-def _xl_weights(pe):
+def _xl_weights(pe, out=12):
     """SESR-XL x2 and seeded int8 weights of its 13 convs (3 -> 32 -> ... ->
-    12)."""
+    12), or of its layers with a last conv of ``out`` channels."""
     spec = XL
     rng = np.random.default_rng(pe)
-    chans = [3] + [32] * 12 + [12]
+    chans = [3] + [32] * 12 + [out]
     w = [rng.integers(-127, 128, (k, k, chans[i], chans[i + 1])).astype(np.int8)
          for i, k in enumerate(spec.kernel_sizes)]
     return spec, w
 
 
-@pytest.mark.parametrize("task", TASKS + ("xl-pe4", "xl-pe8"))
+@pytest.mark.parametrize("task", TASKS + ("xl-pe4", "xl-pe8", "xl-pe16", "xl48-pe16", "xl27-pe8"))
 def test_wgmma_b_holds_each_weight_once(task):
     """convert.py's B for the corrected kernel, read back through the
     source's b_byte: every weight of every layer sits once, in the column
@@ -767,11 +938,14 @@ def test_wgmma_b_holds_each_weight_once(task):
     k byte of its tap and channel (layer 0: 4 taps of a widened pixel in
     each 16-byte half; a 32-channel layer: one tap a step, channels 0-15 in
     the first half and 16-31 in the second); everything else is zero. On the
-    shipped artifacts, and on seeded SESR-XL weights at 4 and 8 PEs (32 or
-    256 columns a split hidden layer)."""
+    shipped artifacts, and on seeded SESR-XL weights at 4, 8 and 16 PEs
+    (32, 256 or 512 columns a split hidden layer), also with a last conv of
+    48 channels (48 columns a group) at 16 PEs and of 27 (32 columns, five
+    past the channels zero) at 8."""
     if task.startswith("xl"):
-        spec, w_int = _xl_weights(int(task[-1]))
-        pe = int(task[-1])
+        head, pe = task.split("-pe")
+        pe = int(pe)
+        spec, w_int = _xl_weights(pe, int(head[2:] or 12))
         splits = ((True,) * spec.num_convs, (False,) * spec.num_convs)
     else:
         spec, qp = _artifact(task)
@@ -833,19 +1007,30 @@ def test_smem_plan_and_its_limit():
     with pytest.raises(ValueError, match="shared memory"):
         corrected_net.check_tile(nr, (48, 64), hybrid, 4)
     corrected_net.check_tile(nr, (32, 64), hybrid, 4)
-    # width 16 holds every layer's B (no regions), width 32 stages it: two
-    # regions (even and odd layers) where they fit, else one
-    assert corrected_plan(5, 3, 3, (32, 64), hybrid, 4) == (213008, 0)
+    # width 16 holds every layer's B (no regions) up to four PEs, width 32
+    # and past four PEs stage it: two regions (even and odd layers) where
+    # they fit, else one; past that, in the general instantiation, in
+    # pieces (two regions of the largest piece where they fit, else one)
+    assert corrected_plan(5, 3, 3, (32, 64), hybrid, 4) == (213008, 0, False)
     L = XL.num_convs
     xl_hybrid = tuple(i in (3, 4, 5, 7, 8, 9, 10) for i in range(L))
-    want = {(xl_hybrid, 4): ((16, 16), 2), ((True,) * L, 4): ((16, 16), 1),
-            (xl_hybrid, 8): ((16, 16), 1), ((True,) * L, 8): ((8, 16), 1),
-            ((False,) * L, 4): ((16, 32), 2)}
-    for (split, pe), (tile, bufs) in want.items():
-        assert corrected_net.tile(XL, split, pe) == tile
-        need, regions = corrected_plan(L, 3, 12, tile, split, pe, 32)
-        assert regions == bufs and need <= SMEM_LIMIT
-        assert corrected_net.smem_bytes(XL, tile, split, pe) == need
+    conv12 = tuple(i == 12 for i in range(L))
+    want = {(xl_hybrid, 4): ((16, 16), 2, False), ((True,) * L, 4): ((16, 16), 1, False),
+            (xl_hybrid, 8): ((16, 16), 1, False), ((True,) * L, 8): ((8, 16), 1, False),
+            ((False,) * L, 4): ((16, 32), 2, False), (xl_hybrid, 16): ((16, 16), 1, True),
+            ((True,) * L, 16): ((16, 16), 1, True), (conv12, 16): ((16, 16), 2, True)}
+    for (split, pe), (tile, bufs, pieces) in want.items():
+        general = pe != 4
+        assert corrected_net.tile(XL, split, pe, general) == tile
+        need, regions, in_pieces = corrected_plan(L, 3, 12, tile, split, pe, 32, general)
+        assert (regions, in_pieces) == (bufs, pieces) and need <= SMEM_LIMIT
+        assert corrected_net.smem_bytes(XL, tile, split, pe, general) == need
+        if pieces:
+            # not even one region of the largest layer's B fits at any tile,
+            # and the shipped instantiation has no pieces
+            assert all(corrected_plan(L, 3, 12, t, split, pe, 32).bytes > SMEM_LIMIT
+                       for t in CORRECTED_TILES)
+            continue
         # two regions hold the largest even and the largest odd layer's B
         # (rounded up), one the largest layer's: the plans differ by that
         b = [convert.wgmma_geometry(k, 3 if i == 0 else 32, 12 if i == L - 1 else 32, split[i],
@@ -854,6 +1039,24 @@ def test_smem_plan_and_its_limit():
         two = -(-max(b[0::2]) // 128) * 128 + max(b[1::2])
         if regions == 1:
             assert need - max(b) + two > SMEM_LIMIT
+    # XL at 16 PEs, conv 12 split (25 steps x 256 columns x 32 B = 204,800
+    # B): the room B leaves at 8x16 and 16x16, and its pieces fit it
+    b12 = 25 * 256 * 32
+    unit = layer_pieces(5, 32, 12, True, True, 16)[1]
+    for tile, total, room in (((8, 16), 338192, 99056), ((16, 16), 370960, 66288)):
+        whole = corrected_plan(L, 3, 12, tile, conv12, 16, 32)
+        assert (whole.bytes, whole.regions, SMEM_LIMIT - (whole.bytes - b12)) == (total, 1, room)
+        assert b12 > room >= -(-unit // 128) * 128 + unit
+    # a 48-output network (SESR-M5's widths, RGB at scale 4) with a split
+    # last layer: 13 steps x G x 48 columns x 32 B, resident at 4 PEs,
+    # staged a layer at a time at 8 (a smaller tile before pieces), in
+    # pieces at 16
+    for pe, (tile, regions, pieces) in {4: ((32, 32), 0, False), 8: ((16, 16), 2, False),
+                                        16: ((32, 48), 1, True)}.items():
+        split = (False,) * 6 + (True,)
+        assert corrected_net.tile(M5X4, split, pe, True) == tile, pe
+        plan = corrected_plan(7, 3, 48, tile, split, pe, 16, True)
+        assert (plan.regions, plan.pieces) == (regions, pieces) and plan.bytes <= SMEM_LIMIT
 
 
 def test_ab_variants_apply_to_the_source():

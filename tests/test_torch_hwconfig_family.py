@@ -22,6 +22,11 @@ package on two seeded 24x32 images and carried across with
   per-PE passes and of the
   corrected kernel's column groups hold the plain interpreter's sums on
   the carried artifact; it refuses quan_bits above 8 and more than 16 PEs;
+- the corrected kernel's model on the sweep net at scale 4 (48 outputs:
+  48 columns a PE group, chunks of whole groups) with its last conv at
+  +127, every layer split, at 4, 8 and 16 PEs (B resident, staged a layer
+  at a time, and in pieces), each layer's sums and the counting form's
+  counts equal to the plain interpreter's;
 - a numpy float32 model of the wide form's conversion (the clamped int32
   sum, one round-to-nearest-even cast, one multiply by m 2^-n) equals the
   plain version's requantization at sums past 2^22 and 2^24, where the
@@ -56,7 +61,8 @@ from sesr_tpu_torch.quant.certify import certify_fast
 from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import CalibState, finalize
 from tests.test_hwconfig_sweep import _images, numpy_integer_forward
-from tests.test_torch_corrected import _kernel_layer_sums
+from sesr_tpu_torch.ops.kernels import corrected_net
+from tests.test_torch_corrected import _kernel_layer_sums, _pieces_of
 from tests.test_torch_mma_layout import _model_layer, _pack, _valid_conv
 from tests.test_torch_params import _same
 from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
@@ -242,6 +248,59 @@ def test_kernel_models_hold_the_plain_sums(config):
             want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
                 np.asarray(qp.bias_int[i], np.int64), -hi16 - 1, hi16)
             np.testing.assert_array_equal(got, want, err_msg=f"{config} {split} layer {i}")
+
+
+NET48 = dict(NET, name="sweep16_x4", scaling_factor=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _calibrated48(pe: int):
+    """The sweep net at scale 4 (48 outputs) calibrated by the JAX package
+    at ``pe`` PEs, carried across, its last conv at +127."""
+    jspec = JSESRSpec(**NET48)
+    jqp = jcalibrate(jspec, jinit_params(jspec, jax.random.PRNGKey(0)), _images(),
+                     hw=JHardwareConfig(pe=pe), safe_zero_floor=True)
+    qp = convert.quantparams_from_fields({f.name: getattr(jqp, f.name)
+                                          for f in dataclasses.fields(jqp)})
+    L = jspec.num_convs
+    return SESRSpec(**NET48), dataclasses.replace(qp, w_int=[
+        np.full_like(np.asarray(w), 127) if i == L - 1 else np.asarray(w)
+        for i, w in enumerate(qp.w_int)])
+
+
+@pytest.mark.parametrize("pe", [4, 8, 16])
+def test_corrected_model_at_48_outputs(pe):
+    """A last conv of 48 channels split per PE: 48 columns a group, its
+    4, 8 or 16 groups in chunks of two (96 columns, a wgmma N), B resident
+    at 4 PEs, staged a layer at a time at 8 and in pieces at 16 (the plan at
+    the wrapper's tile); every layer split. The model's sums equal the plain
+    interpreter's bias + pe_add on every layer, and its counting rule the
+    plain overflow_18 (the +127 last conv fires the 18-bit clamp)."""
+    spec, qp = _calibrated48(pe)
+    L = spec.num_convs
+    split = (True,) * L
+    kc = convert.kernel_constants(spec, qp, "corrected", split)
+    assert kc.general and kc.out_channels == 48 and kc.param("out", L - 1) == 48
+    assert convert.wgmma_geometry(5, 16, 48, True, True, pe)[1:] == (
+        convert.pe_groups(pe), 48 * convert.pe_groups(pe))
+    tile = corrected_net.tile(spec, split, pe, True)
+    plan, pieces = _pieces_of(spec, kc, tile)
+    assert (plan.regions, plan.pieces) == {4: (0, False), 8: (1, False), 16: (1, True)}[pe]
+    assert pieces[L - 1] == (pe == 16)
+    x = np.random.default_rng(41).random((1, 6, 11, 3), dtype=np.float32)
+    _, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True, device="cpu")
+    rng = np.random.default_rng(42)
+    ovf18 = dumps["overflow_18"].tolist()
+    for i, k in enumerate(spec.kernel_sizes):
+        x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
+        events = np.zeros(x_q.shape[:2], np.int64)
+        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng,
+                                 events, pieces=pieces[i])
+        want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
+            np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
+        np.testing.assert_array_equal(got, want, err_msg=f"{pe} PEs layer {i}")
+        assert events.sum() == ovf18[i], (pe, i)
+    assert ovf18[L - 1] > 0
 
 
 def _magic_form(y, m, n):
