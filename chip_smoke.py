@@ -13,7 +13,8 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 
 1. the card: nvidia-smi's name and power limit, torch's device name;
 2. build every kernel library from csrc/ (one nvcc per source, all started
-   together), with the -Xptxas -v report;
+   together; the two layer-group libraries at a lower priority, beside
+   phases 3-13, waited for before phase 15), with the -Xptxas -v report;
 3. each kernel against its plain PyTorch version on numpy-seeded inputs
    (the int8 outputs must be equal): K1 (sesr_pe_exact_net) and K2
    (sesr_fast_net) on sr_x2 at 540x960, 27x45 and a ragged 37x53 at batch
@@ -228,6 +229,28 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    shared memory must be the plan's). One ``kernels`` entry per (kernel,
    network, mode, config), with its own launches; the counting form has an
    entry of its own for nr (phases 8 and 11) and for XL at 4 and 8 PEs.
+15. last convs of 1 to 48 output channels (``out_channels_phase``): the
+   SESR paper's Y-channel x2, RGB x3 and x4 networks through every kernel
+   at 4 PEs and 16, plain and with the last conv at +127, every output
+   1080x1920 (K1 takes SESR-XL x4 RGB at 16 PEs as one layer group, its
+   split last conv staged a PE pass at a time), then a sweep of every
+   padded and past-16 instantiation on a small batch;
+16. networks deeper than one launch runs (``deep_phase``): sesr_m16_x2 (18
+   convs) and sesr_xl22_x2 (24) from seeded weights, calibrated and
+   certified on the card at 4 PEs, 16 and a sweep config and saturated at
+   +127 in each group, through K1, K2, both corrected modes and the
+   counting form at 540x960 as chains of layer groups (one launch a group,
+   every output and count equal to the plain interpreter), ``infer --audit
+   1``, two virtual ranks, then every layer-group instantiation launched
+   on a small batch by 33-conv networks (three groups or more: first,
+   middle and last) with its boundary tensors held to the plain
+   interpreter's; each chain's device time, bound, groups' tiles and
+   plans (the library's; CUPTI's in phase 14's process, for every group
+   of the main path and a middle group of every instantiation), MACs
+   computed over needed beside one launch's, and the bytes crossing the
+   boundaries.
+   Phases 15 and 16 run before 14, whose CUPTI process reads their
+   launches too.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -241,6 +264,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -386,7 +410,7 @@ def wgmma_count(spec, pe_split, n, h, w, tile, pe):
     return count * tiles, macs * tiles
 
 
-def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1):
+def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1, index=-1, need=1):
     """{key: (registers per thread, shared memory bytes per block)} of the
     launch of a kernel whose name holds ``pattern`` that each fn of
     ``launches`` ({key: fn}) makes, as CUPTI reports them in torch.profiler's
@@ -394,7 +418,10 @@ def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1):
     traced on its own and its last such kernel read. A trace may carry
     kernels of an earlier trace, or miss one: only a kernel whose
     correlation id is that of a launch call in the same trace is read, and
-    a trace that holds none is taken again, up to ``tries`` times."""
+    a trace that holds none is taken again, up to ``tries`` times. ``index``
+    / ``need``: read the kernel at ``index`` of the trace's, in launch order,
+    from a trace that holds at least ``need`` of them (a chain of layer
+    groups: one kernel a group)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     path = os.path.join(REPO, "build", "chip_smoke_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -420,8 +447,8 @@ def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1):
             if len(kernels) < len(named):
                 print(f"[cupti] {key}: trace {trace} skipped {len(named) - len(kernels)} "
                       f"kernel(s) of an earlier trace", flush=True)
-            if kernels:
-                args = kernels[-1].get("args", {})
+            if len(kernels) >= need:
+                args = kernels[index].get("args", {})
                 attrs[key] = (args.get("registers per thread"), args.get("shared memory"))
                 break
             if trace < tries:
@@ -437,6 +464,9 @@ def kernel_family(kern, kc, audit=False):
     instantiations of a last conv past 16 channels and those with piece
     forms at width 32 and 16 PE groups (wide form or not)."""
     wide = "_wide" if kc.wide else ""
+    if kc.groups:                       # the layer-group form's kernels
+        return (f"sesr_corrected_group{'_audit' if audit else ''}_kernel"
+                if kern.datapath == "corrected" else "sesr_net_group_kernel")
     if kern.datapath == "corrected":
         if kc.out_channels > 16:
             return f"sesr_corrected{'_audit' if audit else ''}_wideout_kernel"
@@ -463,7 +493,13 @@ def ptxas_line(kern, spec, kc, audit=False):
 
     family = kernel_family(kern, kc, audit)
     gen = "" if kc.wide else f"ELb{int(kc.general)}"
-    if kern.datapath == "corrected":
+    if kc.groups:
+        # sesr_net_group_kernel<DP, OCL, C, WIDE>, sesr_corrected_group(_audit)_kernel<G, C, WS>
+        lib, key = ("sesr_corrected_group", f"Li{pe_groups(kc.pe)}ELi{kc.width}ELb{int(kc.wide)}") \
+            if kern.datapath == "corrected" else \
+            ("sesr_net_group", f"Li{int(kern.datapath == 'fast')}ELin{out_columns(kc.out_channels)}"
+                               f"ELi{kc.width}ELb{int(kc.wide)}")
+    elif kern.datapath == "corrected":
         lib, key = "sesr_corrected", (f"Li{pe_groups(kc.pe) if kc.general else 4}{gen}"
                                       f"ELi{kc.width}")
         if kc.out_channels > 16:
@@ -478,6 +514,41 @@ def ptxas_line(kern, spec, kc, audit=False):
                                 f"{gen}ELi{kc.width}")
     report = _build.ptxas_report(_build.build(lib).log, family)
     return f"{family}<{key}>", report.get(key, (None, None))
+
+
+def chain_plans(kern, spec, kc, phase, tile=None):
+    """[(group, tile, shared memory bytes)] of a call with the constants kc
+    (``launch_plans``: one launch, or one per layer group), each plan held
+    to the library's own (sesr_net_smem, sesr_corrected_smem, and the
+    layer-group libraries' sesr_net_group_smem, sesr_corrected_group_smem):
+    the run fails where they differ."""
+    from sesr_tpu_torch.ops import _build
+
+    plans = kern.launch_plans(spec, kc, tile)
+    mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
+    exact = int(kern.datapath == "exact")
+    for g, t, need in plans:
+        if g is None and kern.datapath == "corrected":
+            built = _build.load("sesr_corrected").sesr_corrected_smem(
+                spec.num_convs, spec.in_channels, spec.conv_out_channels, *t, mask, kc.pe,
+                int(kc.general), kc.width)
+        elif g is None:
+            built = _build.load("sesr_net").sesr_net_smem(
+                exact, spec.num_convs, spec.in_channels, spec.conv_out_channels, *t, mask, kc.pe,
+                int(kc.general), kc.width)
+        elif kern.datapath == "corrected":
+            built = _build.load("sesr_corrected_group").sesr_corrected_group_smem(
+                g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t, g.split, kc.pe,
+                kc.width)
+        else:
+            built = _build.load("sesr_net_group").sesr_net_group_smem(
+                exact, g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t, g.split,
+                kc.pe, kc.width)
+        if built != need:
+            fail(f"[{phase}] {kern.symbol} {spec.name}"
+                 f"{'' if g is None else f' convs {g.first}-{g.last}'} tile {t}: the wrapper "
+                 f"plans {need} B of shared memory, the library {built}")
+    return plans
 
 
 def plain_kwargs(kern, qp, mode=None):
@@ -2911,10 +2982,6 @@ OUT_NETS = {"sesr_m5_x2_y": dict(name="sesr_m5_x2_y", in_channels=1, out_channel
             "sesr_xl_x4_rgb": dict(name="sesr_xl_x4_rgb", in_channels=3, out_channels=3,
                                    num_channels=32, num_lblocks=11, scaling_factor=4)}
 OUT_SIZE = (1080, 1920)
-# phase 15's corners K1 still refuses with the shared-memory message: at 16
-# PEs the split last conv's B of SESR-XL x4 (48 columns) fits no tile beside
-# the buffers (ROADMAP queue 1 item 3)
-K1_REFUSED = {("sesr_xl_x4_rgb", "pe16")}
 # phase 15's sweep of the instantiations of a last conv past the shipped
 # counts that the main path leaves unlaunched, on a small batch: K1 and K2
 # at each padded count (out_cols 8, 16, 32, 48), width and form (general
@@ -2935,6 +3002,16 @@ SWEEP_HW = {"pe4": {}, "pe4_wide": WIDE_SUMS, "pe8": dict(pe=8),
 SWEEP_BATCH = (2, 27, 45)
 
 
+# phase 16: networks deeper than one launch of any kernel runs (Bhardwaj
+# et al., MLSys 2022: SESR-M11's width 16 at m = 16 linear blocks, and
+# SESR-XL's width 32 at m = 22), x2 RGB at the sr_x2 frame, from seeded
+# weights, each run as a chain of layer groups
+DEEP_NETS = {"m16": dict(name="sesr_m16_x2", in_channels=3, out_channels=3, num_channels=16,
+                         num_lblocks=16, scaling_factor=2),
+             "xl22": dict(name="sesr_xl22_x2", in_channels=3, out_channels=3, num_channels=32,
+                          num_lblocks=22, scaling_factor=2)}
+
+
 def out_frame(spec):
     """The input frame whose output is OUT_SIZE."""
     return OUT_SIZE[0] // spec.scaling_factor, OUT_SIZE[1] // spec.scaling_factor
@@ -2946,19 +3023,9 @@ NEW_FAMILY = {"m11u_pe16": "pe16", "xlu_pe16": "pe16", "m11w": "pe16_wide"}
 
 
 def halo_ratio(spec, tile):
-    """MACs K1 and K2 compute over the MACs the network needs, from the
-    extents of csrc/sesr_net.cu: conv i of a tile computes the tile and the
-    ring of the convs after it, (th + 2 r) x (tw + 2 r) pixels."""
-    th, tw = tile
-    L = spec.num_convs
-    chans = [spec.in_channels] + [spec.num_channels] * (L - 1) + [spec.conv_out_channels]
-    done = need = 0
-    for i, k in enumerate(spec.kernel_sizes):
-        r = sum(kk // 2 for kk in spec.kernel_sizes[i + 1:])
-        macs = k * k * chans[i] * chans[i + 1]
-        done += (th + 2 * r) * (tw + 2 * r) * macs
-        need += th * tw * macs
-    return done / need
+    """MACs K1 and K2 compute over the MACs the network needs in one launch
+    at ``tile`` (``chain_halo``)."""
+    return chain_halo(spec, [(None, tile, 0)])
 
 
 def family_phase(torch, dev, card, hw_jobs=()):
@@ -3437,9 +3504,10 @@ def out_channels_phase(torch, dev, card):
     corrected PE-exact modes and the counting form (``audit_forward``),
     each at batch 1 and 4 (the saturated copies at batch 1), one launch a
     call of its wrapper; every output torch.equal with the plain
-    interpreter on the card, the counts with its overflow_18; K1 must
-    refuse the corners of K1_REFUSED with the shared-memory message, and
-    launch nothing. Then the sweep (``out_sweep``): every instantiation of
+    interpreter on the card, the counts with its overflow_18 (K1 takes
+    SESR-XL x4 RGB at pe16, whose split last conv's B fits no tile of its
+    one-launch kernel, as one group of its layer-group form, that conv
+    staged a PE pass at a time: one launch). Then the sweep (``out_sweep``): every instantiation of
     a padded count or past 16 outputs launched. Then each
     (kernel, network, config)'s device time per frame at batch 1 and its
     default tile, the plan's shared memory (the wrapper's and the
@@ -3452,17 +3520,12 @@ def out_channels_phase(torch, dev, card):
     from sesr_tpu_torch.convert import kernel_constants, out_columns
     from sesr_tpu_torch.deploy import select_forward
     from sesr_tpu_torch.models.sesr import init_params
-    from sesr_tpu_torch.ops import _build
-    from sesr_tpu_torch.ops.corrected import (audit_forward, hybrid_forward,
-                                              pe_exact_corrected_forward, split_layers)
-    from sesr_tpu_torch.ops.fast import fast_forward
+    from sesr_tpu_torch.ops.corrected import split_layers
     from sesr_tpu_torch.ops.kernels import (NET_KERNELS, corrected_net, corrected_plan,
-                                            fast_net, pe_exact_net, reset_launch_counts)
-    from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+                                            reset_launch_counts)
     from sesr_tpu_torch.quant.calibrate import calibrate
     from sesr_tpu_torch.quant.certify import certify_fast
-    from sesr_tpu_torch.quant.integer import (integer_forward, integer_forward_int8,
-                                              quantize_input)
+    from sesr_tpu_torch.quant.integer import quantize_input
     from sesr_tpu_torch.timing import median_ms
 
     tag = f"({card})"
@@ -3502,31 +3565,7 @@ def out_channels_phase(torch, dev, card):
         frames[name] = torch.from_numpy(rng.random((4,) + out_frame(spec) + (spec.in_channels,),
                                                    dtype=np.float32)).to(dev)
 
-    fwd = {"sim": lambda s, q, x: pe_exact_forward(s, q, x),
-           "fast": lambda s, q, x: fast_forward(s, q, x, out_dtype="int8"),
-           "hybrid": lambda s, q, x: hybrid_forward(s, q, x, out_dtype="int8"),
-           "pe-exact": lambda s, q, x: pe_exact_corrected_forward(s, q, x, out_dtype="int8"),
-           "audit": lambda s, q, x: audit_forward(s, q, x),
-           "k2": lambda s, q, x: fast_net(s, q, quantize_input(x, q).to(torch.int8).contiguous())}
-    kernel_of = {"sim": pe_exact_net, "fast": fast_net, "hybrid": corrected_net,
-                 "pe-exact": corrected_net, "audit": corrected_net, "k2": fast_net}
-
-    def plain(mode, spec, qp, x):
-        if mode == "sim":
-            return integer_forward(spec, qp, x)[0]
-        if mode == "fast":
-            return integer_forward_int8(spec, qp, x, corrected=True, compute="fast")
-        if mode == "k2":                    # the last conv's int8 output, before the shuffle
-            _, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True), x,
-                                       collect_dumps=True, corrected=True, compute="fast")
-            return dumps[f"input.{spec.num_convs}"].to(torch.int8)
-        if mode == "hybrid":
-            return integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
-                                        fast_layers=tuple(qp.fast_cert_layers))
-        if mode == "pe-exact":
-            return integer_forward_int8(spec, qp, x, corrected=True, compute="exact")
-        y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True)
-        return y, dumps["overflow_18"]
+    kernel_of = {m: mode_kernel(m) for m in ("sim", "fast", "k2", "hybrid", "pe-exact", "audit")}
 
     def instance(mode, spec, qp):
         """The instantiation (ptxas_line's name) a call of ``mode`` launches."""
@@ -3543,25 +3582,11 @@ def out_channels_phase(torch, dev, card):
         modes = ("hybrid", "pe-exact", "audit") if cname.endswith("_sat") else \
             ("sim", "fast" if qp.fast_cert_ok else "k2", "hybrid", "pe-exact", "audit")
         for mode in modes:
-            if mode == "sim" and (name, cname) in K1_REFUSED:
-                reset_launch_counts()
-                try:
-                    pe_exact_forward(spec, qp, frames[name][:1])
-                except NotImplementedError as e:
-                    made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
-                    if "no tile of the exact kernel fits" not in str(e) or made:
-                        fail(f"[15] {name} {cname} sim: refused otherwise than for shared "
-                             f"memory ({e}; launches {made})")
-                    print(f"[15] {name} {cname} sim: refused as expected, no launch: {e}",
-                          flush=True)
-                else:
-                    fail(f"[15] {name} {cname} sim: K1 took a network it should refuse")
-                continue
             hit.add(instance(mode, spec, qp))
             for batch in ((1,) if cname.endswith("_sat") else (1, 4)):
                 x = frames[name][:batch]
                 reset_launch_counts()
-                got = fwd[mode](spec, qp, x)
+                got = mode_forward(mode, spec, qp, x)
                 made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
                 if mode == "audit":
                     if made or corrected_net.audit_launches != 1:
@@ -3576,7 +3601,7 @@ def out_channels_phase(torch, dev, card):
                 entry = own.setdefault((name, cname, mode), [0, 0])
                 entry[0] += 1
                 entry[1] += batch
-                want = plain(mode, spec, qp, x)
+                want = mode_plain(mode, spec, qp, x)
                 if mode == "audit":
                     (got, counts), (want, want_counts) = got, want
                     if not torch.equal(counts, want_counts):
@@ -3595,12 +3620,9 @@ def out_channels_phase(torch, dev, card):
     print(f"[15] main path: launches {launches}; per network, config and mode (launches, "
           f"frames) {own}; corrected by split mask {dict(corrected_net.split_launches)} {tag}",
           flush=True)
-    out_sweep(torch, dev, {name: nets[name, "pe4"] for name in OUT_NETS}, hit, fwd, plain,
-              instance, tag)
+    out_sweep(torch, dev, {name: nets[name, "pe4"] for name in OUT_NETS}, hit, instance, tag)
 
     # each (kernel, network, config) at batch 1 and its default tile
-    lib_c = _build.load("sesr_corrected")
-    lib = _build.load("sesr_net")
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
     os.makedirs(cupti_dir, exist_ok=True)
     entries, jobs, plain_ms = [], [], {}
@@ -3613,25 +3635,17 @@ def out_channels_phase(torch, dev, card):
         kc = kernel_constants(spec, qp, kern.datapath, split)
         x1 = frames[name][:1]
         x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
-        tile = kern.tile(spec, kc.pe_split, kc.pe, kc.general)
-        plan = kern.smem_bytes(spec, tile, kc.pe_split, kc.pe, kc.general)
-        mask = sum(1 << i for i, f in enumerate(kc.pe_split) if f)
-        if kern is corrected_net:
+        (group, tile, plan), = chain_plans(kern, spec, kc, 15)
+        if group is not None:           # K1 on SESR-XL x4 RGB at pe16
+            how = ("one group of the layer-group form, its split last conv's B staged a PE "
+                   "pass at a time")
+        elif kern is corrected_net:
             cplan = corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels,
                                    tile, kc.pe_split, kc.pe, kc.width, kc.general)
-            built = lib_c.sesr_corrected_smem(spec.num_convs, spec.in_channels,
-                                              spec.conv_out_channels, *tile, mask, kc.pe,
-                                              int(kc.general), kc.width)
             how = ("B resident" if cplan.regions == 0 else
                    f"B staged in {cplan.regions} region(s){' in pieces' if cplan.pieces else ''}")
         else:
-            built = lib.sesr_net_smem(int(kern is pe_exact_net), spec.num_convs,
-                                      spec.in_channels, spec.conv_out_channels, *tile, mask,
-                                      kc.pe, int(kc.general), kc.width)
             how = f"{'general' if kc.general else 'shipped'} instantiation"
-        if built != plan:
-            fail(f"[15] {name} {cname} {mode}: the wrapper plans {plan} B of shared memory, the "
-                 f"library {built}")
         symbol = "sesr_corrected_audit" if audit else kern.symbol
         label = f"{symbol} {name} {cname}{f' {mode}' if kern is corrected_net else ''}"
         if audit:
@@ -3645,7 +3659,7 @@ def out_channels_phase(torch, dev, card):
             pkey = (name, cname, mode if mode in ("sim", "hybrid") else "fast"
                     if mode in ("fast", "k2") else "pe-exact")
             if pkey not in plain_ms:
-                plain_ms[pkey] = median_ms(lambda: plain(mode, spec, qp, x1), dev, 3)
+                plain_ms[pkey] = median_ms(lambda: mode_plain(mode, spec, qp, x1), dev, 3)
             weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
             n, h, w = x_q.shape[:3]
             macs = weights * n * h * w
@@ -3682,7 +3696,7 @@ def out_channels_phase(torch, dev, card):
     return entries, jobs
 
 
-def out_sweep(torch, dev, calibrated, hit, fwd, plain, instance, tag):
+def out_sweep(torch, dev, calibrated, hit, instance, tag):
     """Phase 15's sweep (SWEEP_NETS, SWEEP_HW): each network of
     ``calibrated`` (OUT_NETS at 4 PEs) and of SWEEP_NETS (calibrated here
     at 4 PEs on the card) at each config of SWEEP_HW (the artifact's
@@ -3723,7 +3737,7 @@ def out_sweep(torch, dev, calibrated, hit, fwd, plain, instance, tag):
             if spec.conv_out_channels > 16:
                 calls += [("pe-exact", hq), ("pe-exact", sat), ("audit", sat)]
             for mode, cqp in calls:
-                got, want = fwd[mode](spec, cqp, x), plain(mode, spec, cqp, x)
+                got, want = mode_forward(mode, spec, cqp, x), mode_plain(mode, spec, cqp, x)
                 if mode == "audit":
                     (got, counts), (want, want_counts) = got, want
                     if not torch.equal(counts, want_counts):
@@ -3754,14 +3768,530 @@ def out_sweep(torch, dev, calibrated, hit, fwd, plain, instance, tag):
         fail(f"[15] instantiations phase 15 never launched: {missing}")
 
 
+# phase 16: each deep network's convs at +127 (one in each group of its
+# partition), and the sweep config each also runs at
+DEEP_SATURATED = {"m16": (3, 12), "xl22": (3, 18)}
+DEEP_CONFIG = {"m16": "pe3_nondivisible", "xl22": "pe8_wide"}
+# phase 16's sweep of the layer-group instantiations on a small batch: a
+# 33-conv network at each padded count of its last conv (out_cols 8, 16,
+# 32, 48: 3, 12, 27 and 48 outputs) at widths 16 and 32, which the
+# partition rule runs in three groups or more (the first writes, a middle
+# one reads and writes, the last reads), calibrated at 4 PEs on the card
+# and run at SWEEP_HW's configs: K1 and K2 at 4 PEs (wide sums or not),
+# the corrected kernel's PE-exact mode and counting form at every config
+# (its group form takes 1 to 16 outputs)
+GROUP_NETS = {f"g{c}_{oc}": dict(name=f"g{c}_{oc}", in_channels=3, out_channels=3,
+                                 num_channels=c, num_lblocks=31, scaling_factor=s)
+              for c in (16, 32) for oc, s in ((3, 1), (12, 2), (27, 3), (48, 4))}
+
+
+def mode_kernel(mode):
+    """The wrapper a call of ``mode_forward(mode, ...)`` launches."""
+    from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, pe_exact_net
+
+    return {"sim": pe_exact_net, "fast": fast_net, "k2": fast_net}.get(mode, corrected_net)
+
+
+def mode_constants(mode, spec, qp):
+    """(wrapper, split mask, KernelConstants) of ``mode_forward(mode, ...)``'s
+    launch."""
+    from sesr_tpu_torch.convert import kernel_constants
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import corrected_net
+
+    kern = mode_kernel(mode)
+    split = split_layers(qp, "pe-exact" if mode == "audit" else mode) \
+        if kern is corrected_net else None
+    return kern, split, kernel_constants(spec, qp, kern.datapath, split)
+
+
+def mode_forward(mode, spec, qp, x):
+    """The main path's call of ``mode`` (phases 15 and 16): "sim" K1 behind
+    ``sim``, "fast" K2, "hybrid" / "pe-exact" the corrected kernel's modes,
+    "audit" its counting form ((output, counts)), "k2" K2's wrapper on the
+    quantized frame (a kernel check off the main path, for an artifact the
+    certificate does not serve fast)."""
+    import torch
+
+    from sesr_tpu_torch.ops.corrected import (audit_forward, hybrid_forward,
+                                              pe_exact_corrected_forward)
+    from sesr_tpu_torch.ops.fast import fast_forward
+    from sesr_tpu_torch.ops.kernels import fast_net
+    from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
+    from sesr_tpu_torch.quant.integer import quantize_input
+
+    if mode == "sim":
+        return pe_exact_forward(spec, qp, x)
+    if mode == "fast":
+        return fast_forward(spec, qp, x, out_dtype="int8")
+    if mode == "hybrid":
+        return hybrid_forward(spec, qp, x, out_dtype="int8")
+    if mode == "pe-exact":
+        return pe_exact_corrected_forward(spec, qp, x, out_dtype="int8")
+    if mode == "audit":
+        return audit_forward(spec, qp, x)
+    return fast_net(spec, qp, quantize_input(x, qp).to(torch.int8).contiguous())
+
+
+def mode_plain(mode, spec, qp, x):
+    """The plain interpreter's output of ``mode_forward(mode, ...)`` on the
+    card ("audit": (output, overflow_18))."""
+    import torch
+
+    from sesr_tpu_torch.quant.integer import integer_forward, integer_forward_int8
+
+    if mode == "sim":
+        return integer_forward(spec, qp, x)[0]
+    if mode == "fast":
+        return integer_forward_int8(spec, qp, x, corrected=True, compute="fast")
+    if mode == "k2":                    # the last conv's int8 output, before the shuffle
+        _, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True), x,
+                                   collect_dumps=True, corrected=True, compute="fast")
+        return dumps[f"input.{spec.num_convs}"].to(torch.int8)
+    if mode == "hybrid":
+        return integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
+                                    fast_layers=tuple(qp.fast_cert_layers))
+    if mode == "pe-exact":
+        return integer_forward_int8(spec, qp, x, corrected=True, compute="exact")
+    y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True)
+    return y, dumps["overflow_18"]
+
+
+def sweep_plain(mode, spec, qp, x, memo):
+    """(``mode_plain(mode, ...)``'s output, the plain interpreter's dumps)
+    in the sweep, from one run of the plain interpreter on the card a
+    datapath, kept in ``memo`` (one dict a network and config: the PE-exact
+    mode and the counting form share the corrected datapath's run)."""
+    import torch
+
+    from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
+    from sesr_tpu_torch.quant.integer import integer_forward
+
+    corrected, compute = {"sim": (False, "exact"), "k2": (True, "fast")}.get(mode, (True, "exact"))
+    if (corrected, compute) not in memo:
+        memo[corrected, compute] = integer_forward(
+            spec, dataclasses.replace(qp, fast_cert_ok=True), x, collect_dumps=True,
+            corrected=corrected, compute=compute)
+    y, dumps = memo[corrected, compute]
+    if mode == "sim":
+        return y, dumps
+    if mode == "audit":
+        return (y, dumps["overflow_18"]), dumps
+    out = dumps[f"input.{spec.num_convs}"].to(torch.int8)
+    if mode == "pe-exact" and spec.has_pixel_shuffle:
+        out = pixel_shuffle_nhwc(out, spec.scaling_factor)
+    return out, dumps
+
+
+def boundaries_held(torch, kern, spec, qp, x, dumps):
+    """The tensors that cross the layer-group boundaries of ``kern``'s chain
+    on x (``NetKernel.run``) against the plain interpreter's ``dumps`` (of
+    ``kern``'s datapath, ``sweep_plain``): each group's output its
+    ``input.{last + 1}`` (the real channels of the width), the shortcut
+    ``shortcut_term`` of its ``shortcut``. Returns the boundaries held."""
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.quant.integer import quantize_input, shortcut_term
+
+    split = split_layers(qp, "pe-exact") if kern.datapath == "corrected" else None
+    x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+    _, trail = kern.run(spec, qp, x_q, split=split)
+    c = spec.num_channels
+    for g, act, sc in trail:
+        if not torch.equal(act[..., :c], dumps[f"input.{g.last + 1}"].to(torch.int8)):
+            fail(f"[16] {kern.symbol} {spec.name} {qp.hw}: the activation after convs "
+                 f"{g.first}-{g.last} differs from the plain input.{g.last + 1}")
+    if trail and not torch.equal(trail[0][2][..., :c],
+                                 shortcut_term(dumps["shortcut"], qp, kern.datapath)):
+        fail(f"[16] {kern.symbol} {spec.name} {qp.hw}: the shortcut differs from the plain one")
+    return len(trail) + bool(trail)
+
+
+def chain_halo(spec, plans):
+    """MACs a call computes over the MACs the network needs, from the
+    extents of each launch (``halo_ratio``'s, per layer group: a group's
+    conv i computes the tile and the ring of the group's convs after it)."""
+    L = spec.num_convs
+    ks = spec.kernel_sizes
+    chans = [spec.in_channels] + [spec.num_channels] * (L - 1) + [spec.conv_out_channels]
+    done = need = 0.0
+    for g, (th, tw), _ in plans:
+        first, last = (0, L - 1) if g is None else (g.first, g.last)
+        for i in range(first, last + 1):
+            r = sum(k // 2 for k in ks[i + 1:last + 1])
+            macs = ks[i] ** 2 * chans[i] * chans[i + 1]
+            done += (th + 2 * r) * (tw + 2 * r) * macs / (th * tw)
+            need += macs
+    return done / need
+
+
+def boundary_bytes(spec, kc, plans, n, h, w, sc_bytes):
+    """(bytes written, bytes read) in device memory at the layer-group
+    boundaries of a call over (n, h, w): each group before the last writes
+    its activation (width bytes a pixel) once and the next group reads it
+    over every tile's extent (its ring); the first group writes the
+    shortcut (``sc_bytes`` a channel: K1 int8, the corrected datapath's
+    kernels int16) and the last reads it over its tiles' last-conv input
+    extents (a ring of 2)."""
+    written = read = 0
+    L = spec.num_convs
+    for g, (th, tw), _ in plans:
+        tiles = n * -(-h // th) * -(-w // tw)
+        if g.first > 0:
+            r = sum(k // 2 for k in spec.kernel_sizes[g.first:g.last + 1])
+            read += tiles * (th + 2 * r) * (tw + 2 * r) * kc.width
+            if g.last == L - 1:
+                read += tiles * (th + 4) * (tw + 4) * kc.width * sc_bytes
+        if g.last < L - 1:
+            written += n * h * w * kc.width * (1 + (sc_bytes if g.first == 0 else 0))
+    return written, read
+
+
+def group_sweep(torch, dev, tag, rng, hit):
+    """Phase 16's sweep of every layer-group instantiation: GROUP_NETS (33
+    convs, three groups or more a chain: a first, a middle and a last
+    group) calibrated on the card at 4 PEs and run on a SWEEP_BATCH batch
+    at SWEEP_HW's configs through K1 and K2 at 4 PEs, the corrected
+    kernel's PE-exact mode and counting form, one launch a group, each
+    output, count and boundary tensor torch.equal with the plain
+    interpreter's, each group's plan the library's; fails unless every
+    instantiation in the two libraries' ptxas reports was launched in the
+    phase (``hit``, which it extends). Returns a CUPTI job for a middle
+    group of each instantiation's first chain."""
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec
+    from sesr_tpu_torch.models.sesr import init_params
+    from sesr_tpu_torch.ops import _build
+    from sesr_tpu_torch.ops.kernels import NET_KERNELS, corrected_net, reset_launch_counts
+    from sesr_tpu_torch.quant.calibrate import calibrate
+
+    t0 = time.perf_counter()
+    cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
+    os.makedirs(cupti_dir, exist_ok=True)
+    runs = held = 0
+    jobs, swept = [], set()
+    for seed, (name, kw) in enumerate(GROUP_NETS.items()):
+        spec = SESRSpec(**kw)
+        params = init_params(spec, torch.Generator().manual_seed(160 + seed))
+        calib = [rng.random((1, 48, 64, 3), dtype=np.float32)]
+        qp = calibrate(spec, params, calib, safe_zero_floor=True, device="cuda")
+        x = torch.from_numpy(rng.random(SWEEP_BATCH + (3,), dtype=np.float32)).to(dev)
+        for hname, hw in SWEEP_HW.items():
+            hq = dataclasses.replace(qp, hw=HardwareConfig(**hw), fast_cert_layers=None,
+                                     fast_cert_ok=False)
+            calls = ["sim", "k2"] if hq.hw.pe == 4 else ["sim"]
+            if spec.conv_out_channels <= 16:
+                calls += ["pe-exact", "audit"]
+            memo = {}
+            for mode in calls:
+                kern, _, kc = mode_constants(mode, spec, hq)
+                reset_launch_counts()
+                # the plain interpreter once a datapath: outputs and boundaries
+                got = mode_forward(mode, spec, hq, x)
+                want, dumps = sweep_plain(mode, spec, hq, x, memo)
+                made = sum(k.launches for k in NET_KERNELS) + corrected_net.audit_launches
+                if mode == "audit":
+                    (got, counts), (want, want_counts) = got, want
+                    if not torch.equal(counts, want_counts):
+                        fail(f"[16] sweep {name} {hname} audit: counts {counts.tolist()} "
+                             f"against the plain {want_counts.tolist()}")
+                if len(kc.groups) < 3 or made != len(kc.groups) or got.shape != want.shape \
+                        or not torch.equal(got, want):
+                    fail(f"[16] sweep {name} {hname} {mode}: {len(kc.groups)} groups (want 3 or "
+                         f"more), {made} launches (want one a group), equal "
+                         f"{got.shape == want.shape and torch.equal(got, want)}")
+                ikey = ptxas_line(kern, spec, kc, mode == "audit")[0]
+                plans = chain_plans(kern, spec, kc, 16)     # each group's plan = the library's
+                if ikey not in swept:
+                    qp_path = os.path.join(cupti_dir, f"p16_sweep_{name}_{hname}.npz")
+                    if not os.path.exists(qp_path):
+                        hq.save(qp_path)
+                    g, t, b = plans[1]
+                    jobs.append(dict(label=f"{ikey} sweep {name} {hname} {mode} convs "
+                                           f"{g.first}-{g.last} (a middle group)",
+                                     spec=dataclasses.asdict(spec), qparams=qp_path,
+                                     symbol=kern.symbol, audit=mode == "audit", tile=list(t),
+                                     plan=b, index=1, groups=len(plans),
+                                     shape=list(SWEEP_BATCH),
+                                     mode="pe-exact" if kern is corrected_net else None,
+                                     pattern=kernel_family(kern, kc, mode == "audit")))
+                hit.add(ikey)
+                swept.add(ikey)
+                if mode != "audit":
+                    held += boundaries_held(torch, kern, spec, hq, x, dumps)
+                runs += 1
+    torch.cuda.synchronize()
+    want = set()
+    for lib, families in (("sesr_net_group", ("sesr_net_group_kernel",)),
+                          ("sesr_corrected_group", ("sesr_corrected_group_kernel",
+                                                    "sesr_corrected_group_audit_kernel"))):
+        log = _build.build(lib).log
+        for family in families:
+            want |= {f"{family}<{args}>" for args in _build.ptxas_report(log, family)}
+    missing = sorted(want - hit)
+    print(f"[16] sweep: {len(GROUP_NETS)} networks of {spec.num_convs} convs at "
+          f"{len(SWEEP_HW)} configs, {runs} chains on {SWEEP_BATCH} (three groups or more, "
+          f"one launch a group), each torch.equal with the plain interpreter (cuda), each "
+          f"group's plan the library's, {held} boundary tensors (activations and shortcuts) "
+          f"torch.equal with the plain interpreter's; layer-group instantiations launched in "
+          f"phase 16: {len(want & hit)} of {len(want)}, {len(jobs)} CUPTI jobs (a middle group "
+          f"each); {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if missing:
+        fail(f"[16] layer-group instantiations phase 16 never launched: {missing}")
+    return jobs
+
+
+def deep_phase(torch, dev, card):
+    """Phase 16, networks deeper than one launch runs (DEEP_NETS: 18 and 24
+    convs) on the card as chains of layer groups: each calibrated from
+    seeded weights and certified (``certify_fast``, its kernel equality run
+    through the chain) on the card at 4 PEs, at pe16 and at a sweep config
+    (DEEP_CONFIG), and a copy at 4 PEs with DEEP_SATURATED at +127 (a split
+    conv in each group). Then, with the launch counters at 0 before and read
+    after each call, at 540x960: K1 (``pe_exact_forward``), K2 (fast where
+    certified, else its wrapper against the plain fast datapath), both
+    corrected modes and the counting form, batch 1 and 4 at 4 PEs, batch 1
+    elsewhere; each call must launch its kernel once a group (the counting
+    form: once a group, counted in ``audit_launches``), each output
+    torch.equal with the plain interpreter on the card, each count array
+    with its overflow_18. ``serve`` with ``audit_every=1`` (``infer --audit
+    1``) on the saturated network, its audits on the counting chain held to
+    the plain interpreter; one network through ``virtual_rank_forward``'s
+    windows at 2 virtual ranks, equal to its monolithic chain. Then
+    ``group_sweep``. Then each (kernel, network, mode, config)'s device ms
+    per frame at batch 1, bound and share, launches per call, each group's
+    tile and plan (held to the library's; CUPTI's in phase 14's process
+    through the jobs returned, the sweep's among them), MACs computed over
+    needed (``chain_halo``) beside a single launch's at the largest tile its
+    plan fits (not run), the bytes crossing the boundaries, ptxas's
+    registers and spills. Returns (the kernels-line entries, the CUPTI
+    jobs)."""
+    from sesr_tpu_torch.cli import serve
+    from sesr_tpu_torch.config import HardwareConfig, SESRSpec
+    from sesr_tpu_torch.deploy import select_forward
+    from sesr_tpu_torch.models.sesr import init_params
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import (NET_KERNELS, SMEM_LIMIT, corrected_net,
+                                            pe_exact_net, reset_launch_counts)
+    from sesr_tpu_torch.parallel.tiling import virtual_rank_forward
+    from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.certify import certify_fast
+    from sesr_tpu_torch.quant.integer import quantize_input
+    from sesr_tpu_torch.timing import median_ms
+
+    tag = f"({card})"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    nets = {}
+    for seed, (key, kw) in enumerate(DEEP_NETS.items()):
+        spec = SESRSpec(**kw)
+        params = init_params(spec, torch.Generator().manual_seed(16 + seed))
+        calib = [rng.random((1, 96, 128, 3), dtype=np.float32) for _ in range(2)]
+        cert = [rng.random((1,) + CERT_FRAME + (3,), dtype=np.float32) for _ in range(2)]
+        for cname in ("pe4", "pe16", DEEP_CONFIG[key]):
+            t0 = time.perf_counter()
+            qp = calibrate(spec, params, calib, hw=HardwareConfig(**HW_CONFIGS.get(cname, {})),
+                           safe_zero_floor=True, device="cuda")
+            t1 = time.perf_counter()
+            reset_launch_counts()
+            qp = certify_fast(spec, qp, cert, device="cuda")
+            made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
+            print(f"[16] {spec.name} ({spec.num_convs} convs of {spec.num_channels}) at {cname}: "
+                  f"calibrate {t1 - t0:.2f} s, certify_fast {time.perf_counter() - t1:.2f} s on "
+                  f"the card ({made} launches: the kernel equality through the chain); "
+                  f"{qp.cert_grade} {qp.cert_stamps}, serves {select_forward(qp)[0]}", flush=True)
+            nets[key, cname] = (spec, qp, cert)
+        spec, qp, cert = nets[key, "pe4"]
+        sats = DEEP_SATURATED[key]
+        sat = dataclasses.replace(qp, w_int=[
+            np.full_like(np.asarray(w), 127) if i in sats else np.asarray(w)
+            for i, w in enumerate(qp.w_int)])
+        sat = certify_fast(spec, sat, cert, device="cuda")
+        hyb = split_layers(sat, "hybrid")
+        print(f"[16] {spec.name} with convs {sats} at +127: {sat.cert_grade} {sat.cert_stamps}, "
+              f"serves {select_forward(sat)[0]}; split hybrid "
+              f"{[i for i, f in enumerate(hyb) if f]}", flush=True)
+        if select_forward(sat)[0] != "hybrid" or not all(hyb[i] for i in sats):
+            fail(f"[16] the saturated {spec.name} should serve hybrid with convs {sats} split")
+        nets[key, "pe4_sat"] = (spec, sat, cert)
+
+    x4 = {key: torch.from_numpy(rng.random((4,) + FRAME + (3,), dtype=np.float32)).to(dev)
+          for key in DEEP_NETS}
+    # the main path: every (network, config, mode), counters at 0 before
+    # each call and read after
+    own, hit = {}, set()
+    launches = {k.symbol: 0 for k in NET_KERNELS}
+    launches["sesr_corrected_audit"] = 0
+    for (key, cname), (spec, qp, _) in nets.items():
+        served = select_forward(qp)[0]
+        k2 = "fast" if qp.fast_cert_ok else "k2"
+        modes, batches = {"pe4": (("sim", k2, "hybrid", "pe-exact", "audit"), (1, 4)),
+                          "pe4_sat": (("sim", "hybrid", "pe-exact", "audit"), (1,)),
+                          "pe16": (("sim", k2, "pe-exact", "audit"), (1,))}.get(
+                              cname, (("sim", "pe-exact"), (1,)))
+        modes += (served,) if served not in modes else ()
+        for mode in modes:
+            kern, split, kc = mode_constants(mode, spec, qp)
+            if len(kc.groups) < 2:
+                fail(f"[16] {key} {cname} {mode}: {len(kc.groups)} layer groups, want 2 or more")
+            hit.add(ptxas_line(kern, spec, kc, mode == "audit")[0])
+            for batch in batches:
+                x = x4[key][:batch]
+                reset_launch_counts()
+                got = mode_forward(mode, spec, qp, x)
+                made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
+                if mode == "audit":
+                    if made or corrected_net.audit_launches != len(kc.groups):
+                        fail(f"[16] {key} {cname} audit batch {batch} launched {made} and "
+                             f"{corrected_net.audit_launches} counting launches, want "
+                             f"{len(kc.groups)} counting launches")
+                    launches["sesr_corrected_audit"] += len(kc.groups)
+                elif made != {kern.symbol: len(kc.groups)} or corrected_net.audit_launches:
+                    fail(f"[16] {key} {cname} {mode} batch {batch} launched {made}, want "
+                         f"{len(kc.groups)} launches of {kern.symbol} (one a group)")
+                else:
+                    launches[kern.symbol] += len(kc.groups)
+                entry = own.setdefault((key, cname, mode), [0, 0])
+                entry[0] += len(kc.groups)
+                entry[1] += batch
+                want = mode_plain(mode, spec, qp, x)
+                counts = None
+                if mode == "audit":
+                    (got, counts), (want, want_counts) = got, want
+                    if not torch.equal(counts, want_counts):
+                        fail(f"[16] {key} {cname} audit batch {batch}: counts {counts.tolist()} "
+                             f"against the plain {want_counts.tolist()}")
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"[16] {key} {cname} {mode} batch {batch}: differs from the plain "
+                         f"interpreter")
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"[16] {key} {cname} {mode} batch {batch}: non-finite output")
+                print(f"[16] {spec.name} {cname} {mode} batch {batch}: "
+                      f"{len(kc.groups)} groups {[(g.first, g.last) for g in kc.groups]}, "
+                      f"{len(kc.groups)} launches, output {tuple(got.shape)} {got.dtype} "
+                      f"torch.equal with plain (cuda)"
+                      f"{'' if counts is None else f'; counts {counts.tolist()}'}", flush=True)
+                del got, want
+    torch.cuda.synchronize()
+    print(f"[16] main path: launches {launches}; per network, config and mode (launches, "
+          f"frames) {own} {tag}", flush=True)
+
+    # infer --audit 1 (cli.serve) on the saturated networks: the audits on
+    # the counting chain (the plain interpreter barred on the card), then
+    # held to it; the artifact's static proofs dropped, so that every layer
+    # stamped fast is trusted on empirical evidence and audited
+    for key in DEEP_NETS:
+        spec, sat, _ = nets[key, "pe4_sat"]
+        aqp = dataclasses.replace(sat, fast_cert_static=None)
+        data = [(x4[key][i:i + 1].cpu().numpy(),
+                 np.zeros((1, 2 * FRAME[0], 2 * FRAME[1], 3), np.float32)) for i in range(2)]
+        reset_launch_counts()
+        with audit_on_the_kernel(torch) as audits:
+            res = serve(spec, aqp, data, batch=1, device="cuda", audit_every=1)
+        made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
+        held = check_audits(torch, spec, aqp, audits, 16)
+        print(f"[16] infer --audit 1 {spec.name} (convs {DEEP_SATURATED[key]} at +127): "
+              f"{res.n} frames, mode {res.mode}, {len(audits)} audits on the counting chain "
+              f"({corrected_net.audit_launches} counting launches), counts {held}, equal to the "
+              f"plain interpreter; launches {made}", flush=True)
+        if not audits or corrected_net.audit_launches != len(audits) * len(
+                mode_constants("audit", spec, aqp)[2].groups):
+            fail(f"[16] infer --audit 1 on {spec.name}: {len(audits)} audits, "
+                 f"{corrected_net.audit_launches} counting launches")
+
+    # the sharded windows: m16 served at 2 virtual ranks (one window a rank,
+    # each a chain) against the monolithic chain
+    spec, qp, _ = nets["m16", "pe4"]
+    mode, fwd = select_forward(qp)
+    kern, _, kc = mode_constants(mode, spec, qp)
+    x = x4["m16"][:1]
+    want = fwd(spec, qp, x, out_dtype="int8")
+    reset_launch_counts()
+    got = virtual_rank_forward(spec, qp, x, (1, 2), fwd, "int8")
+    made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
+    if made != {kern.symbol: 2 * len(kc.groups)} or not torch.equal(got, want):
+        fail(f"[16] {spec.name} at 2 virtual ranks: launches {made} (want "
+             f"{2 * len(kc.groups)}), equal {torch.equal(got, want)}")
+    print(f"[16] {spec.name} {mode} at 2 virtual ranks ({tuple(x.shape)}): two windows, "
+          f"{made} launches, torch.equal with the monolithic chain", flush=True)
+
+    # the sweep: every layer-group instantiation on a small batch
+    jobs = group_sweep(torch, dev, tag, rng, hit)
+    cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
+
+    # each (kernel, network, config, mode) at batch 1: times, plans, work
+    entries, plain_ms = [], {}
+    for (key, cname, mode), (n_launch, n_frames) in own.items():
+        spec, qp, _ = nets[key, cname]
+        kern, split, kc = mode_constants(mode, spec, qp)
+        audit = mode == "audit"
+        x1 = x4[key][:1]
+        x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
+        plans = chain_plans(kern, spec, kc, 16)
+        n, h, w = x_q.shape[:3]
+        if audit:
+            ms = median_ms(lambda: corrected_net.audit(spec, qp, x_q, split), dev, 20, warmup=3,
+                           lead_ms=2.0)
+        else:
+            ms = median_ms(lambda: kern(spec, qp, x_q, split=split), dev, 20, warmup=3,
+                           lead_ms=2.0)
+        pkey = (key, cname, mode)
+        plain_ms[pkey] = median_ms(lambda: mode_plain(mode, spec, qp, x1), dev, 3)
+        weights = sum(int(np.prod(np.shape(wt))) for wt in qp.w_int)
+        macs = weights * n * h * w
+        moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
+        bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
+        ikey, (regs, spill) = ptxas_line(kern, spec, kc, audit)
+        # one launch's plan at the largest tile it fits (not run)
+        single = next((t for t in kern.tiles
+                       if kern.smem_bytes(spec, t, kc.pe_split, kc.pe, True) <= SMEM_LIMIT), None)
+        one = f"{chain_halo(spec, [(None, single, 0)]):.3f} at {single[0]}x{single[1]}" \
+            if single else "none: no tile fits one launch"
+        wrote, read = boundary_bytes(spec, kc, plans, n, h, w, 1 if kern is pe_exact_net else 2)
+        tiles = "; ".join(f"convs {g.first}-{g.last} {t[0]}x{t[1]} {b} B" for g, t, b in plans)
+        label = f"{'sesr_corrected_audit' if audit else kern.symbol} {spec.name} {cname} {mode}"
+        print(f"[16] {label} {h}x{w}: {ms:.4f} ms/frame, {len(plans)} launches a call "
+              f"({tiles}; plans = the library's); share of bound {bnd[0] / ms:.4f} (bound "
+              f"{bnd[0] * 1e3:.3f} us, {bnd[1]}: {2 * macs:.4g} int8 ops); MACs computed / "
+              f"needed {chain_halo(spec, plans):.3f} (one launch: {one}); boundaries "
+              f"(activations and the shortcut) {wrote} B written, {read} B read; {ikey} ptxas "
+              f"{regs} registers, {spill} B spill "
+              f"stores; split {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; plain "
+              f"{plain_ms[pkey]:.3f} ms; launches on the main path {n_launch} over {n_frames} "
+              f"frames {tag}", flush=True)
+        if mode != "k2":
+            entries.append(dict(
+                name=f"{'sesr_corrected_audit' if audit else kern.symbol}[{spec.name}, {cname}, "
+                     f"{mode}, layer groups]",
+                route="cuda", source="sesr_tpu_torch/csrc/" + (
+                    "sesr_corrected_group.cu" if kern is corrected_net else "sesr_net_group.cu"),
+                replaces=AUDIT_REPLACES if audit else REPLACES[kern.symbol],
+                launches=n_launch, launches_per_frame={"main path": n_launch / n_frames},
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms[pkey], bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=None, tiles=[list(t) for _, t, _ in plans],
+                smem_plan=[b for _, _, b in plans], ptxas=[regs, spill],
+                work=f"{spec.name}, {h}x{w} frame, batch 1, {mode}, {qp.hw.pe} PEs, "
+                     f"{len(plans)} layer groups"))
+        qp_path = os.path.join(cupti_dir, f"p16_{key}_{cname}.npz")
+        qp.save(qp_path)
+        for gi, (g, t, b) in enumerate(plans):
+            jobs.append(dict(label=f"{label} convs {g.first}-{g.last}",
+                             spec=dataclasses.asdict(spec), qparams=qp_path,
+                             symbol=kern.symbol, audit=audit, tile=list(t), plan=b, index=gi,
+                             groups=len(plans),
+                             mode=("pe-exact" if audit else mode) if kern is corrected_net
+                             else None, pattern=kernel_family(kern, kc, audit)))
+    print(f"[16] the deep phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    return entries, jobs
+
+
 def cupti_process(jobs_path):
     """``chip_smoke.py --cupti JOBS``: launch each kernel of JOBS (a JSON
-    list of phase 14's and 15's default-tile launches: the network, its
+    list of phases 14-16's default-tile launches: the network, its
     QuantParams file, the wrapper, the corrected kernel's mode, whether the
-    launch is its counting form, and the tile) once on a seeded 540x960
-    frame (phase 15's: out_frame) of the network's input channels, and print
-    {label: [registers, shared memory]} as CUPTI reports them
-    (``launch_attrs``)."""
+    launch is its counting form, and the tile; for a layer group its index
+    in the chain and the chain's groups) once on a seeded 540x960 frame
+    (phase 15's: out_frame; the sweep's: its ``shape``, batch first) of the
+    network's input channels, and print {label: [registers, shared memory]}
+    as CUPTI reports them (``launch_attrs``)."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -3779,11 +4309,16 @@ def cupti_process(jobs_path):
         spec, qp = SESRSpec(**job["spec"]), QuantParams.load(job["qparams"])
         kern = kernels[job["symbol"]]
         split = split_layers(qp, job["mode"]) if job["mode"] else None
-        frame = out_frame(spec) if job.get("out_frame") else FRAME
+        shape = job.get("shape") or (1, *(out_frame(spec) if job.get("out_frame") else FRAME))
         x = torch.from_numpy(np.random.default_rng(0).random(
-            (1,) + frame + (spec.in_channels,), dtype=np.float32)).to("cuda")
+            (*shape, spec.in_channels), dtype=np.float32)).to("cuda")
         x_q = quantize_input(x, qp).to(torch.int8).contiguous()
         tile = tuple(job["tile"])
+        # a layer group of a chain: the chain at each group's own tile, the
+        # group's kernel read from the trace (two chains a trace)
+        index, need = job.get("index", -1), 2 * job.get("groups", 1)
+        if job.get("groups"):
+            tile = None
         if job.get("audit"):
             def fn():
                 return corrected_net.audit(spec, qp, x_q, split, tile=tile)
@@ -3799,7 +4334,8 @@ def cupti_process(jobs_path):
             # trace, up to five traces
             fn()
             fn()
-        attrs.update(launch_attrs(torch, {job["label"]: twice}, pattern, tries=5))
+        attrs.update(launch_attrs(torch, {job["label"]: twice}, pattern, tries=5, index=index,
+                                  need=need))
     print(json.dumps(attrs), flush=True)
 
 
@@ -3922,12 +4458,26 @@ def main():
     torch.backends.cudnn.allow_tf32 = False       # the plain version's convs
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build every library, one nvcc per source, all started together
-    t0 = time.perf_counter()
-    for build in _build.build_all().values():
-        print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
-              f"\n{build.log.strip()}", flush=True)
-    print(f"[2] the builds took {time.perf_counter() - t0:.1f} s", flush=True)
+    # 2. build every library, one nvcc per source, all started together; the
+    # layer-group libraries (phases 15 and 16) at a lower priority, so that
+    # they take the cores the others and the phases before 15 leave, and
+    # waited for before phase 15
+    t0 = t_builds = time.perf_counter()
+    pool = ThreadPoolExecutor(len(_build.SIGNATURES))
+    later = ("sesr_net_group", "sesr_corrected_group")
+    builds = {name: pool.submit(_build.build, name, 10 if name in later else 0)
+              for name in (*[n for n in _build.SIGNATURES if n not in later], *later)}
+
+    def built(names):
+        for name in names:
+            build = builds[name].result()
+            print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
+                  f"(finished {time.perf_counter() - t_builds:.1f} s after the builds started)"
+                  f"\n{build.log.strip()}", flush=True)
+
+    built([n for n in builds if n not in later])
+    print(f"[2] the builds the phases before 15 use took {time.perf_counter() - t0:.1f} s; the "
+          f"layer-group libraries build on", flush=True)
 
     spec = spec_for_task(TASK)
     qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
@@ -4313,13 +4863,21 @@ def main():
     entries += hw_entries
     # 13. bench and profile (their launches stay out of the kernels line)
     bench_phase(torch, dev, card)
-    # 15. last convs of 1 to 48 output channels, before 14, whose CUPTI
-    # process reads its launches too
+    # the layer-group libraries, built beside phases 3-13
+    t0 = time.perf_counter()
+    built(later)
+    pool.shutdown()
+    print(f"[2] waited {time.perf_counter() - t0:.1f} s for the layer-group libraries",
+          flush=True)
+    # 15. last convs of 1 to 48 output channels, and 16. networks deeper
+    # than one launch runs, before 14, whose CUPTI process reads their
+    # launches too
     out_entries, out_jobs = out_channels_phase(torch, dev, card)
+    deep_entries, deep_jobs = deep_phase(torch, dev, card)
     # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode)
-    entries += family_phase(torch, dev, card, hw_jobs + out_jobs)
-    entries += out_entries
-    print(f"[15] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+    entries += family_phase(torch, dev, card, hw_jobs + out_jobs + deep_jobs)
+    entries += out_entries + deep_entries
+    print(f"[16] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -31,7 +31,8 @@ from sesr_tpu_torch.quant.params import QuantParams
 # block of an L-conv network holds L records: K1 and K2 copy the head and
 # the records (``net_words``) into shared memory, the corrected kernel all
 # of it (``block_words``).
-MAX_LAYERS = 16
+MAX_LAYERS = 16                    # the most convs one launch runs: a deeper network runs in groups
+GROUP_FIRST, GROUP_LAST = 1, 2     # a group's flags (sesr_common.cuh G_FIRST, G_LAST)
 WIDTHS = (16, 32)                  # the hidden widths every fused kernel runs
 MAX_PES = 16
 HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6, quant=7)
@@ -157,6 +158,28 @@ def quantparams_from_fields(fields: Mapping[str, Any]) -> QuantParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupConstants:
+    """One group of the layer-group form (csrc/sesr_net_group.cu,
+    csrc/sesr_corrected_group.cu): convs ``first`` .. ``first + convs - 1``
+    of the network, its flags (GROUP_FIRST: it starts at conv 0; GROUP_LAST:
+    it ends at the last conv) and its own parameter block: the head with
+    the group's split and clamp bits (its layer j is conv first + j), the
+    network's records of its convs and, before the last group, of the next
+    conv (``group_records``), their per-PE rows, and the last conv's own
+    rows past the hidden width, its "rows" word pointing at them."""
+
+    first: int
+    convs: int
+    flags: int
+    params: np.ndarray
+    split: int                   # the group's split bits
+
+    @property
+    def last(self) -> int:
+        return self.first + self.convs - 1
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelConstants:
     """What one fused kernel needs besides its input: the packed weight
     words of every layer, the parameter block, and the shapes."""
@@ -172,6 +195,7 @@ class KernelConstants:
     general: bool                # the instantiation for any PE count, widths and quan_bits
     width: int                   # the hidden width the network runs at (kernel_width)
     wide: bool = False           # general, and |pe_add + bias| may pass 2^22: the wide kernels
+    groups: tuple = ()           # GroupConstants of the layer-group form; () one launch
 
     def _own_rows(self, layer: int) -> bool:
         return layer == self.num_layers - 1 and self.out_channels > self.width
@@ -489,6 +513,72 @@ def shortcut_bound(qp: QuantParams, split0: bool = False) -> float:
     return float(np.rint(max(float(h.max()), 0.0)))
 
 
+def group_records(convs: int, flags: int) -> int:
+    """Records of a group's parameter block (sesr_common.cuh group_records):
+    its convs', and before the last group the next conv's (the zero and pad
+    of the activation the group writes)."""
+    return convs + (not flags & GROUP_LAST)
+
+
+def group_flags(first: int, last: int, num_layers: int) -> int:
+    return (GROUP_FIRST if first == 0 else 0) | (GROUP_LAST if last == num_layers - 1 else 0)
+
+
+def balanced_groups(num_layers: int, count: int) -> tuple:
+    """``count`` groups of consecutive convs, (first, last) each, with
+    lengths as equal as possible, the longer first."""
+    q, r = divmod(num_layers, count)
+    out, at = [], 0
+    for g in range(count):
+        n = q + (g < r)
+        out.append((at, at + n - 1))
+        at += n
+    return tuple(out)
+
+
+def layer_groups(num_layers: int, fits) -> tuple:
+    """The partition rule of the layer-group form: the fewest groups of at
+    most MAX_LAYERS convs (and at least two: the last group holds the conv
+    that adds the shortcut and the last conv) whose plans fit a block
+    (``fits(first, last)``), with lengths as equal as possible
+    (``balanced_groups``); None where no such partition fits. A network
+    that one launch runs is not partitioned (``kernel_constants``)."""
+    for count in range(-(-num_layers // MAX_LAYERS), num_layers // 2 + 1):
+        groups = balanced_groups(num_layers, count)
+        if all(fits(a, b) for a, b in groups):
+            return groups
+    return None
+
+
+def group_constants(prm: np.ndarray, num_layers: int, width: int, pe: int, out_ch: int,
+                    split, clamp, first: int, last: int) -> GroupConstants:
+    """The group of convs first..last of a network whose whole parameter
+    block is ``prm`` (``kernel_constants``), with the network's per-layer
+    ``split`` and ``clamp`` flags."""
+    L = num_layers
+    n = last - first + 1
+    flags = group_flags(first, last, L)
+    R = group_records(n, flags)
+    own = last == L - 1 and out_ch > width
+    blk = np.zeros(block_words(pe, R, width, out_ch if last == L - 1 else 0), np.int32)
+    blk[:HEAD_WORDS] = prm[:HEAD_WORDS]
+    bits = sum(1 << j for j in range(n) if split[first + j])
+    blk[HEAD["pe_split"]] = bits
+    blk[HEAD["clamp20"]] = sum(1 << j for j in range(n) if clamp[first + j])
+    at = param_at("w_off", first, width)
+    blk[HEAD_WORDS:net_words(R, width)] = prm[at:at + R * record_words(width)]
+    for j in range(R):
+        for p in range(pe):
+            src = zc_pe_at(L, width, pe, first + j, p)
+            blk[zc_pe_at(R, width, pe, j, p):][:width] = prm[src:src + width]
+    if own:
+        rows = param_words(pe, R, width)
+        src = int(prm[param_at("rows", L - 1, width)])
+        blk[rows:] = prm[src:src + (2 + pe) * out_ch]
+        blk[param_at("rows", n - 1, width)] = rows
+    return GroupConstants(first, n, flags, blk, bits)
+
+
 def _padded(w: np.ndarray, ic: int, oc: int) -> np.ndarray:
     """w (k, k, i, o) with zero weights for the input channels i..ic - 1 and
     output channels o..oc - 1: a network narrower than a kernel width runs
@@ -534,15 +624,22 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     1)); where a pe_add_bits sum plus a bias_bits bias can reach 2^22
     (``wide``) they run as the wide kernels, whose sums stay plain int32,
     converted to float32 once. Networks
-    of 3 to MAX_LAYERS convs run at hidden widths of 16 and 32, with 1 to
+    of 3 or more convs run at hidden widths of 16 and 32, with 1 to
     4 input channels and a last conv of 1 to MAX_OUT output channels, and a
     narrower network runs padded with zero channels (``_padded``). Raises
     NotImplementedError for a network or artifact outside that (quan_bits
-    above 8, more than MAX_PES PEs, more than MAX_LAYERS convs, a hidden
-    width above 32, convs other than 5x5 / 3x3 ... / 5x5, more than 4
-    input or MAX_OUT output channels, an int16 shortcut that may not hold round(s),
-    ``shortcut_bound``, or a network whose plan at the kernel's smallest
-    tile does not fit a block's shared memory).
+    above 8, more than MAX_PES PEs, a hidden width above 32, convs other
+    than 5x5 / 3x3 ... / 5x5, more than 4 input or MAX_OUT output channels,
+    an int16 shortcut that may not hold round(s), ``shortcut_bound``).
+
+    A network that one launch of the kernel runs (at most MAX_LAYERS convs,
+    and a plan that fits a block at the kernel's smallest tile) keeps that
+    one launch (``groups`` empty). Any other runs in the layer-group form:
+    a chain of launches of the general group kernels, one per group of
+    ``layer_groups`` (each group's plan fitting a block at the smallest
+    tile), its constants in ``groups`` (``group_constants``); the group
+    form of the corrected kernel takes a last conv of at most 16 output
+    channels. Raises NotImplementedError where no partition fits.
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -568,9 +665,8 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
             f"a {hw.pe_add_bits}-bit PE sum plus a {hw.bias_bits}-bit bias can pass the "
             f"kernels' int32 sums")
     wide = reach >= MAGIC_RANGE
-    if not 3 <= L <= MAX_LAYERS:
-        raise NotImplementedError(
-            f"the fused kernels run 3 to {MAX_LAYERS} convs; {spec.name} has {L}")
+    if L < 3:
+        raise NotImplementedError(f"the fused kernels run 3 or more convs; {spec.name} has {L}")
     width = kernel_width(spec.num_channels)
     out_ch = spec.conv_out_channels
     if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])):
@@ -608,30 +704,46 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         clamp = adder_clamp_layers(qp, qp.effective_zero, split)
         general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split)) or other \
             or out_ch > 16
-    if general:
-        clamp = (True,) * L
     if not exact and shortcut_bound(qp, split[0]) > 32767:
         raise NotImplementedError(
             f"the {datapath} kernel keeps the residual shortcut round(s) as int16; "
             f"this artifact bounds it only by {shortcut_bound(qp, split[0])}")
     # the kernels' shared-memory plans (ops/kernels.py; imported here, as
-    # that module builds on this one): a network that not even the
-    # smallest tile fits is refused before any constants are built
+    # that module builds on this one): a network that one launch runs at
+    # the kernel's smallest tile keeps one launch, any other runs in groups
     from sesr_tpu_torch.ops.kernels import SMEM_LIMIT, kernel_of
     kern = kernel_of(datapath)
-    need = kern.smem_bytes(spec, kern.tiles[-1], split, hw.pe, general)
-    if need > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"no tile of the {datapath} kernel fits {spec.name} at {hw.pe} PEs: the smallest, "
-            f"{kern.tiles[-1]}, needs {need} B of shared memory, more than a block's "
-            f"{SMEM_LIMIT}")
+    smallest = kern.tiles[-1]
+    if L <= MAX_LAYERS and kern.smem_bytes(spec, smallest, split, hw.pe, general) <= SMEM_LIMIT:
+        groups = ()
+    else:
+        general = True                   # the group kernels are general instantiations
+        if datapath == "corrected" and out_ch > 16:
+            raise NotImplementedError(
+                f"the corrected kernel's layer-group form runs a last conv of at most 16 output "
+                f"channels; {spec.name} has {L} convs and {out_ch} outputs")
+
+        def need(a, b):
+            return kern.group_smem_bytes(spec, a, b, split, hw.pe, smallest)
+
+        groups = layer_groups(L, lambda a, b: need(a, b) <= SMEM_LIMIT)
+        if groups is None:
+            raise NotImplementedError(
+                f"no tile of the {datapath} kernel fits {spec.name} at {hw.pe} PEs, in one "
+                f"launch or in groups of 2 to {MAX_LAYERS} convs: at the smallest tile "
+                f"{smallest} one launch needs "
+                f"{kern.smem_bytes(spec, smallest, split, hw.pe, general)} B of shared "
+                f"memory, a block has {SMEM_LIMIT}")
+    if general:
+        clamp = (True,) * L
 
     prm = np.zeros(block_words(hw.pe, L, width, out_ch), np.int32)
     rows = param_words(hw.pe, L, width)       # the last conv's own rows, if it has them
     chunks, off = [], 0
     hi16 = (1 << (hw.bias_bits - 1)) - 1
-    prm[HEAD["pe_split"]] = sum(1 << i for i in range(L) if split[i])
-    prm[HEAD["clamp20"]] = sum(1 << i for i in range(L) if clamp[i])
+    if L <= MAX_LAYERS:                  # a deeper network's masks are its groups'
+        prm[HEAD["pe_split"]] = sum(1 << i for i in range(L) if split[i])
+        prm[HEAD["clamp20"]] = sum(1 << i for i in range(L) if clamp[i])
     b_words = _wgmma_b_words if datapath == "corrected" else _fragment_words
     for i in range(L):
         w = np.asarray(qp.w_int[i])
@@ -676,20 +788,24 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     prm[HEAD["add_hi"]] = (1 << (hw.pe_add_bits - 1)) - 1
     prm[HEAD["quant"]] = -hw.quan_min
     return KernelConstants(np.concatenate(chunks), prm, L, spec.in_channels,
-                           out_ch, split, clamp, hw.pe, general, width, wide)
+                           out_ch, split, clamp, hw.pe, general, width, wide,
+                           tuple(group_constants(prm, L, width, hw.pe, out_ch, split, clamp, a, b)
+                                 for a, b in groups))
 
 
 def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                      device: torch.device, split=None):
     """(KernelConstants, weights, params) of kernel_constants, the last two
-    as int32 tensors on ``device``, built once per QuantParams instance,
-    datapath, split mask and device, and kept on the instance (a
-    ``dataclasses.replace`` copy builds its own)."""
+    as int32 tensors on ``device`` (params: the whole block, or in the
+    layer-group form a tuple of each group's block), built once per
+    QuantParams instance, datapath, split mask and device, and kept on the
+    instance (a ``dataclasses.replace`` copy builds its own)."""
     cache = qp.__dict__.setdefault("_kernel_constants", {})
     key = (spec.name, datapath, None if split is None else tuple(map(bool, split)),
            str(device))
     if key not in cache:
         kc = kernel_constants(spec, qp, datapath, split)
-        cache[key] = (kc, torch.as_tensor(kc.weights, device=device),
-                      torch.as_tensor(kc.params, device=device))
+        params = tuple(torch.as_tensor(g.params, device=device) for g in kc.groups) \
+            if kc.groups else torch.as_tensor(kc.params, device=device)
+        cache[key] = (kc, torch.as_tensor(kc.weights, device=device), params)
     return cache[key]

@@ -1,4 +1,4 @@
-"""python -m sesr_tpu_torch.corrected_ab [--base DIR] [--variants NAMES [--tiles TILES]] [--reps R]
+"""python -m sesr_tpu_torch.corrected_ab [--base DIR] [--variants NAMES [--tiles TILES]] [--one-group] [--reps R]
 
 An A/B of the corrected kernel (``sesr_corrected_net``) on the card: device
 time per 1080x1920 frame at batch 1 (CUDA events, the device kept busy
@@ -29,6 +29,14 @@ in turns in this process, each output held against the plain version, at
 the default tile or at each of ``--tiles`` (e.g. 32x64,32x48) that fits.
 ``no_epilogue`` and ``no_mma`` give a wrong output and say what the rest
 costs; the others must be equal.
+
+``--one-group``: each network that runs in one launch (ONE_GROUP_CASES:
+K1 and K2 on sr_x2, the corrected kernel on nr, and all four on the
+saturated SESR-M11 and SESR-XL x2) against the same network run as one
+group of the layer-group form (``sesr_net_group``, ``sesr_corrected_group``:
+the group kernels' instantiation with the group both first and last),
+timed in turns one launch, one group, one group, one launch in this
+process; the two outputs must be equal.
 
 Needs the card and nvcc; prints one JSON line per measurement.
 """
@@ -80,6 +88,9 @@ NETS = {"m11u": (dict(name="sesr_m11_x2", in_channels=3, out_channels=3, num_cha
         "xlu": (dict(name="sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32,
                      num_lblocks=11, scaling_factor=2), 1)}
 SATURATED = (3, 9)
+# --one-group: (network, kernel or corrected mode)
+ONE_GROUP_CASES = (("sr_x2", "K1"), ("sr_x2", "K2"), ("nr", "hybrid"), ("nr", "pe-exact"),
+                   *((net, m) for net in NETS for m in ("K1", "K2", "hybrid", "pe-exact")))
 
 # Times this tree's network kernels: run with ``python -c`` from a tree's
 # root, so that it imports that tree's package (whose wrapper API is
@@ -277,15 +288,82 @@ def variant_ab(names, reps: int, tiles=None) -> None:
         _build.load = load
 
 
+def one_group_ab(reps: int) -> None:
+    """ONE_GROUP_CASES: the one launch against one group (see the module
+    docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sesr_tpu_torch.config import SESRSpec, spec_for_task
+    from sesr_tpu_torch.convert import device_constants, group_constants
+    from sesr_tpu_torch.ops.corrected import split_layers
+    from sesr_tpu_torch.ops.kernels import corrected_net, fast_net, pe_exact_net
+    from sesr_tpu_torch.quant.integer import quantize_input
+    from sesr_tpu_torch.quant.params import QuantParams
+    from sesr_tpu_torch.timing import median_ms
+
+    dev = torch.device("cuda")
+    root = Path(__file__).resolve().parent.parent
+    for net, mode in ONE_GROUP_CASES:
+        spec = SESRSpec(**NETS[net][0]) if net in NETS else spec_for_task(net)
+        qp = QuantParams.load(str(artifact(net) if net in NETS
+                                  else root / "artifacts" / f"qparams_{net}.npz"))
+        if mode == "pe-exact":
+            qp = dataclasses.replace(qp, fast_cert_layers=None)
+        kern = {"K1": pe_exact_net, "K2": fast_net}.get(mode, corrected_net)
+        split = split_layers(qp, mode) if kern is corrected_net else None
+        frame = FRAME if net in ("nr", "nrdm_6") else SR_FRAME
+        x = torch.from_numpy(np.random.default_rng(0).random((1, *frame, 3),
+                                                             dtype=np.float32)).to(dev)
+        x_q = quantize_input(x, qp).to(torch.int8).contiguous()
+        kc, weights, _ = device_constants(spec, qp, kern.datapath, dev, split)
+        if kc.groups:
+            raise SystemExit(f"{net} {mode}: runs in {len(kc.groups)} groups, not one launch")
+        # the constants kernel_constants gives a group: the general
+        # instantiation, every sum clamped to pe_add_bits
+        L, clamp = kc.num_layers, (True,) * kc.num_layers
+        group = group_constants(kc.params, L, kc.width, kc.pe, kc.out_channels, kc.pe_split,
+                                clamp, 0, L - 1)
+        one = dataclasses.replace(kc, general=True, clamp20=clamp, groups=(group,))
+        params = (torch.as_tensor(group.params, device=dev),)
+        plans = kern.launch_plans(spec, one)
+
+        def launch():
+            return kern(spec, qp, x_q, split=split)
+
+        def grouped():
+            return kern._chain(one, weights, params, x_q, plans, None)[0]
+
+        equal = bool(torch.equal(launch(), grouped()))
+        ms = {"one launch": [], "one group": []}
+        for label, fn in (("one launch", launch), ("one group", grouped),
+                          ("one group", grouped), ("one launch", launch)):
+            ms[label].append(median_ms(fn, dev, reps, warmup=3, lead_ms=1.0))
+        print(json.dumps({"case": f"{net} {mode}", "convs": L, "pe": kc.pe,
+                          "split": [i for i, f in enumerate(kc.pe_split) if f],
+                          "one_launch_tile": list(kern.launch_plans(spec, kc)[0][1]),
+                          "one_group_tile": list(plans[0][1]),
+                          "one_launch_ms": ms["one launch"], "one_group_ms": ms["one group"],
+                          "ratio": min(ms["one group"]) / min(ms["one launch"]),
+                          "outputs_equal": equal,
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+        if not equal:
+            raise SystemExit(f"{net} {mode}: one group's output differs from one launch's")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
     ap.add_argument("--base", type=Path, help="another checkout to A/B against")
     ap.add_argument("--variants", help=f"comma-separated names of {sorted(VARIANTS)}")
     ap.add_argument("--tiles", help="comma-separated tiles, e.g. 32x64,32x48 (--variants)")
+    ap.add_argument("--one-group", action="store_true",
+                    help="one launch against one group of the layer-group form")
     ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args(argv)
-    if args.base is None and args.variants is None:
-        ap.error("give --base, --variants or both")
+    if args.base is None and args.variants is None and not args.one_group:
+        ap.error("give --base, --variants, --one-group or several")
     if args.base is not None:
         tree_ab(args.base.resolve(), args.reps)
     if args.variants is not None:
@@ -295,6 +373,8 @@ def main(argv=None) -> None:
             ap.error(f"unknown variants {sorted(unknown)}")
         tiles = args.tiles and [tuple(int(v) for v in t.split("x")) for t in args.tiles.split(",")]
         variant_ab(names, args.reps, tiles)
+    if args.one_group:
+        one_group_ab(args.reps)
 
 
 if __name__ == "__main__":

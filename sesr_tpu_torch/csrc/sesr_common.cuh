@@ -123,4 +123,42 @@ __host__ __device__ inline int extent(int layer, int L, int th, int tw) {
   return (th + 2 * r) * (tw + 2 * r);
 }
 
+// The layer-group form (sesr_net_group.cu, sesr_corrected_group.cu): a
+// network that no single launch runs goes as a chain of launches, one per
+// group of n consecutive convs, the int8 activation crossing each boundary
+// through device memory. A group's flags: G_FIRST, it starts at conv 0 (its
+// layer 0 reads the input image, 5x5) and writes the residual shortcut;
+// G_LAST, it ends at the last conv (5x5, the output) and reads the
+// shortcut; a group between holds 3x3 convs only. Its parameter block
+// holds its convs' records and, before the last group, the next conv's
+// (the zero and pad of the activation it writes): group_records. Layer j of
+// a group is its conv j; the kernels' layer indices, split and clamp bits
+// are the group's own (convert.py group_constants).
+constexpr int G_FIRST = 1;
+constexpr int G_LAST = 2;
+__host__ __device__ constexpr int group_records(int n, int fl) { return n + ((fl & G_LAST) == 0); }
+// Layer j's kind as the layer of a three-conv network: 0 FIRST, 1 MID, 2 LAST.
+__host__ __device__ constexpr int group_kind(int j, int n, int fl) { return (j == 0 && (fl & G_FIRST)) ? 0 : (j == n - 1 && (fl & G_LAST)) ? 2 : 1; }
+// Sum of k/2 over layers j..n-1 of the group (ring's, for a whole network).
+__host__ __device__ constexpr int group_ring(int j, int n, int fl) { return j >= n ? 0 : n - j + (j == 0 && (fl & G_FIRST)) + ((fl & G_LAST) != 0); }
+__host__ __device__ inline int group_extent(int j, int n, int fl, int th, int tw) {
+  const int r = group_ring(j, n, fl);
+  return (th + 2 * r) * (tw + 2 * r);
+}
+// The shortcut's ring around the tile: the last conv's input extent where
+// the group reads it (G_LAST), the tile where the first group writes it for
+// a later group.
+__host__ __device__ constexpr int group_sc_ring(int fl) { return (fl & G_LAST) ? 2 : 0; }
+
+// Four int8 words a..d -> word b of the result holds byte b of a, b, c, d:
+// a 4 x 4 byte transpose, its own inverse. K1 / K2 hold a pixel's channels
+// c, c + 4, c + 8, c + 12 in word c % 4 (of each 16 channels); device memory
+// holds them in order (channels 4 w .. 4 w + 3 in word w).
+__device__ __forceinline__ int4 transpose_bytes(int4 v) {
+  const int t0 = __byte_perm(v.x, v.y, 0x5140), t1 = __byte_perm(v.z, v.w, 0x5140);
+  const int t2 = __byte_perm(v.x, v.y, 0x7362), t3 = __byte_perm(v.z, v.w, 0x7362);
+  return make_int4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                   __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+}
+
 }  // namespace

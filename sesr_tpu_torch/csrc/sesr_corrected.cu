@@ -14,7 +14,8 @@
 // convert.py cannot rule that clamp out), or one pass over all channels;
 // the sum clamped to pe_add_bits (20 shipped) where that clamp can fire;
 // then the clipped bias, the float32 requantization, ReLU, the int16
-// residual shortcut and the int8 output. Networks of 3 to 16 convs at
+// residual shortcut and the int8 output. Networks of 3 to 16 convs (a
+// deeper one runs in layer groups, sesr_corrected_group.cu) at
 // hidden width 16 (the shipped tasks, SESR-M11) or 32 (SESR-XL), C a
 // template parameter; a narrower network runs padded to the next; a last
 // conv of 1 to 48 output channels (16 in the shipped instantiation). Any
@@ -489,6 +490,10 @@ struct Net {
   // changed, over the count region [cy0, cy1) x [cx0, cx1) in image pixels
   unsigned long long* counts;
   int cy0, cy1, cx0, cx1;
+  // the layer-group form (sesr_corrected_group.cu): the group's layer that
+  // adds the shortcut (-1: none), and the shortcut's offset from layer 1's
+  // input extent
+  int prelast, sc_off;
 };
 
 // One conv layer.
@@ -513,8 +518,10 @@ struct Layer {
 // clamped to pe_add_bits where CLAMP. GEN: the general instantiation (any
 // PE count, NG past it padded with zero groups; activations in [-half, half
 // - 1], quant_half); WIDE (GEN only): the sum a plain int32, converted to
-// float32 once, for sums that may pass 2^22. C: the hidden width.
-// Everything a warpgroup's m-tile needs is held here, and issue / epilogue
+// float32 once, for sums that may pass 2^22. C: the hidden width. GRP: a
+// group of the layer-group form, whose shortcut layer and offset are the
+// Net's (prelast, sc_off). Everything a warpgroup's m-tile needs is held
+// here, and issue / epilogue
 // are inlined, so the accumulators stay in registers; past four groups, and
 // at width 32, the PE zero terms are read from shared memory in the
 // epilogue; at width 32 a hidden layer's A descriptors are formed in issue,
@@ -522,7 +529,7 @@ struct Layer {
 // the counting form): each thread counts the partials the 18-bit clamp
 // changes at the outputs of its count window.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false, bool WIDE_SUM = false>
+          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false>
 struct Form {
   static_assert(GEN || !WIDE_SUM, "the wide form is the general instantiation's");
   static constexpr int WIDE = KIND == FIRST;
@@ -589,7 +596,8 @@ struct Form {
     rq_s = __fmul_rn(as_f32(prm[p_at(layer, R_RQM, C)]), as_f32(prm[p_at(layer, R_RQP, C)]));
     rq_c = -kMagic * rq_s;
     if constexpr (GEN) half_ = quant_half(prm);
-    prelast = KIND == MID && layer == L - 2;
+    if constexpr (GRP) prelast = KIND == MID && layer == net.prelast;
+    else prelast = KIND == MID && layer == L - 2;
     z_next = as_f32(prm[KIND == LAST ? P_ZOUT : p_at(layer + 1, R_ZIN, C)]);
     res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
     pad_next = KIND == LAST ? 0 : pad_word(prm[p_at(layer + 1, R_ZEFF, C)]);
@@ -597,7 +605,8 @@ struct Form {
     next_plane = ly.next_plane;
     sc = net.sc;
     scratch = net.scratch;
-    sc_off = ring(1, L) - ring(L - 1, L);
+    if constexpr (GRP) sc_off = net.sc_off;
+    else sc_off = ring(1, L) - ring(L - 1, L);
     sc_w = net.sc_w;
     sc_h = net.sc_h;
     out = net.out;
@@ -873,9 +882,9 @@ struct Form {
 // into the kernel: ptxas serializes every wgmma of a pipeline that crosses a
 // function call.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false, bool WIDE_SUM = false>
+          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false>
 __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM, GRP>;
   const F f(ly, net);
   const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
   // the warpgroup's index, uniform to the compiler as well
@@ -942,9 +951,9 @@ __device__ __forceinline__ void b_wait();
 // after it, and every round stages the layer's B anew. Whole, each
 // warpgroup runs its rounds on its own, as in conv_layer.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false, bool WIDE_SUM = false>
+          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false>
 __device__ __forceinline__ void conv_pieces(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM, GRP>;
   const F f(ly, net);
   constexpr int SP = piece_steps(F::S, F::NC), P = piece_count(F::S, F::NC);
   static_assert(P * SP == F::S, "the pieces divide the steps");
@@ -1014,34 +1023,34 @@ __device__ __forceinline__ void conv_pieces(const Layer& ly, const Net& net) {
 // (PF: conv_pieces, a split layer of piece_form); WIDE_SUM: its wide
 // form. COUNT: the
 // counting form of the split layers (a one-pass layer has no 18-bit clamp
-// to count).
+// to count). GRP: a group of the layer-group form (Form).
 template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT, bool WIDE_SUM,
-          bool PF>
+          bool PF, bool GRP = false>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
   constexpr bool W = WIDE_SUM;
   if ((prm[P_SPLIT] >> ly.layer) & 1) {
     if constexpr (KIND == FIRST) {
       switch (GEN ? min(in_ch, net.pe) : in_ch) {
-        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT, W>(ly, net); return;
-        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT, W>(ly, net); return;
-        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT, W>(ly, net); return;
-        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT, W>(ly, net); return;
+        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
       }
     } else {
-      using F = Form<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>;
+      using F = Form<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W, GRP>;
       if constexpr (PF && piece_form(F::S * F::N * 32, G, C))
-        conv_pieces<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>(ly, net);
+        conv_pieces<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W, GRP>(ly, net);
       else
-        conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W>(ly, net);
+        conv_layer<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W, GRP>(ly, net);
       return;
     }
   }
   if (GEN || ((prm[P_CLAMP] >> ly.layer) & 1)) {
-    conv_layer<KIND, K, OCP, 1, false, true, GEN, C, false, W>(ly, net);
+    conv_layer<KIND, K, OCP, 1, false, true, GEN, C, false, W, GRP>(ly, net);
     return;
   }
-  conv_layer<KIND, K, OCP, 1, false, false, GEN, C, false, W>(ly, net);
+  conv_layer<KIND, K, OCP, 1, false, false, GEN, C, false, W, GRP>(ly, net);
 }
 
 // cp.async of `bytes` (a multiple of 16) from device memory into shared
@@ -1234,6 +1243,10 @@ __device__ __forceinline__ void run_tiles(const int8_t* __restrict__ x, int8_t* 
     }
   }
 }
+
+#ifndef SESR_CORRECTED_BODY_ONLY
+// (sesr_corrected_group.cu includes this file for the body alone: the
+// kernels and entry points below are this library's.)
 
 // The served kernel; the shipped artifacts run <4, false, 16>.
 template <int G, bool GEN, int C>
@@ -1463,7 +1476,11 @@ int launch_net(const void* x, void* out, const void* weights, const void* params
   return static_cast<int>(err);
 }
 
+#endif  // SESR_CORRECTED_BODY_ONLY
+
 }  // namespace
+
+#ifndef SESR_CORRECTED_BODY_ONLY
 
 extern "C" {
 
@@ -1518,3 +1535,5 @@ const char* sesr_corrected_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // SESR_CORRECTED_BODY_ONLY

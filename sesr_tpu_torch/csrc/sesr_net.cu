@@ -14,8 +14,9 @@
 // datapath's kernel (the hybrid and corrected PE-exact modes) is
 // sesr_corrected.cu, on wgmma.
 //
-// Networks of 3 to 16 convs (kMaxL) at hidden width 16 or 32 (C, a
-// template parameter; a narrower network runs padded to the next): the
+// Networks of 3 to 16 convs (kMaxL; a deeper one, or one whose plan fits
+// no tile, runs in layer groups: sesr_net_group.cu) at hidden width 16 or
+// 32 (C, a template parameter; a narrower network runs padded to the next): the
 // shipped tasks and SESR-M11 at 16, SESR-XL at 32. The last conv has 1 to 48
 // output channels (kMaxOut): the shipped instantiations template on the
 // count (OCL = 3, 12 or 16), the general ones on the padded count out_cols
@@ -206,14 +207,23 @@ enum Passes { ONE = 0, FOUR = 1, WORDS = 2, MASKED = 3 };
 // channels, or (OC < 0, the general instantiations' last conv) -OC padded
 // columns, the count read from the layer's record; past C channels its bias
 // and z_eff * sum(W) rows are read from the block in device memory, gprm
-// (R_ROWS).
-template <int DP, int PS, bool CLAMP, bool GEN, bool WIDE, int K, Kind KIND, int OC, int C>
+// (R_ROWS). STAGE (a looped split form of the layer-group kernels,
+// sesr_net_group.cu): B a pass at a time, pass q of the layer's rounds of
+// m-tiles in buffer w (q even, or one buffer: w_alt == w) or w_alt, staged
+// from wg (the layer's B in device memory) while the pass before computes
+// (two buffers) or after it (one); every warp takes part in each round.
+__device__ __forceinline__ void stage_async(int* dst, const int* __restrict__ src, int words);
+__device__ __forceinline__ void wait_staged();
+
+template <int DP, int PS, bool CLAMP, bool GEN, bool WIDE, int K, Kind KIND, int OC, int C,
+          bool STAGE = false>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
     const int* __restrict__ prm, const int* __restrict__ gprm, int* __restrict__ next,
     int next_ps, int* __restrict__ sc, int sc_ps, int sc_off, int sc_w, int sc_h,
-    int8_t* __restrict__ out, int frame) {
+    int8_t* __restrict__ out, int frame, int* w_alt = nullptr,
+    const int* __restrict__ wg = nullptr) {
   constexpr int KK = K * K;
   constexpr int NT = (OC > 0 ? OC + 7 : -OC) / 8;    // n-tiles of 8 channels
   constexpr bool ROWS = OC < -C;                     // the last conv's rows past the record's
@@ -301,7 +311,11 @@ __device__ __forceinline__ void conv_layer(
       for (int c = 0; c < WC; ++c) load_frag<FW>(wr[p][c], w + ((p * NCH + c) * 32 + lane) * FW);
   }
 
-  for (int mt = warp; mt * 16 < npix; mt += kWarps) {
+  static_assert(!STAGE || PS == WORDS || PS == MASKED, "a staged layer loops over its passes");
+  constexpr int PW = NCH * 32 * FW;                  // words of one pass's B
+  const int rounds = (npix + 16 * kWarps - 1) / (16 * kWarps);
+  int q = 0;                                         // STAGE: passes computed so far
+  for (int mt = warp; STAGE ? mt < rounds * kWarps : mt * 16 < npix; mt += kWarps) {
     int ys[2], xs[2], bases[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -372,12 +386,23 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[n][i] = 0;
         const int* src = in + (PS == WORDS ? (p & 3) * in_ps : 0);
+        const int* wp = w;                   // STAGE: the buffer pass q lies in
+        if constexpr (STAGE) {
+          // pass q's B has landed and every warp is done with pass q - 1's
+          wait_staged();
+          __syncthreads();
+          const bool two = w_alt != w;
+          if (two && q + 1 < rounds * npass)
+            stage_async((q & 1) ? const_cast<int*>(w) : w_alt, wg + (q + 1) % npass * PW, PW);
+          wp = two && (q & 1) ? w_alt : w;
+        }
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           const int a0 = src[bases[0] + oa[c]], a1 = src[bases[1] + oa[c]];
           const int a2 = src[bases[0] + ob[c]], a3 = src[bases[1] + ob[c]];
           int b[FW];
-          load_frag<FW>(b, w + ((p * NCH + c) * 32 + lane) * FW);
+          if constexpr (STAGE) load_frag<FW>(b, wp + (c * 32 + lane) * FW);
+          else load_frag<FW>(b, w + ((p * NCH + c) * 32 + lane) * FW);
 #pragma unroll
           for (int n = 0; n < NT; ++n) mma_s8(acc[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
         }
@@ -385,6 +410,13 @@ __device__ __forceinline__ void conv_layer(
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[n][i], -acc_hi - 1), acc_hi);
+        if constexpr (STAGE) {
+          if (w_alt == w && q + 1 < rounds * npass) {
+            __syncthreads();
+            stage_async(const_cast<int*>(w), wg + (q + 1) % npass * PW, PW);
+          }
+          ++q;
+        }
       }
     } else {
 #pragma unroll
@@ -766,6 +798,10 @@ __device__ __forceinline__ void net_tile(const int8_t* __restrict__ x, int8_t* _
                                             frame);
 }
 
+#ifndef SESR_NET_BODY_ONLY
+// (sesr_net_group.cu includes this file for the body alone: the kernels
+// and entry points below are this library's.)
+
 // The served kernels: the shipped instantiation and the general one, and
 // the general one's wide form (sums past 2^22).
 template <int DP, int OCL, bool GEN, int C>
@@ -875,7 +911,11 @@ int launch(const void* x, void* out, const void* weights, const void* params, in
                                           split, pe, gen, s));
 }
 
+#endif  // SESR_NET_BODY_ONLY
+
 }  // namespace
+
+#ifndef SESR_NET_BODY_ONLY
 
 extern "C" {
 
@@ -917,3 +957,5 @@ const char* sesr_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // SESR_NET_BODY_ONLY

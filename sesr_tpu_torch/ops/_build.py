@@ -21,7 +21,9 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -29,7 +31,9 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 # --split-compile 0: the optimizer runs on every CPU at once, kernel by kernel
-# (sesr_net.cu holds 24 instantiations since the 32-channel ones)
+# (sesr_net.cu holds 24 instantiations since the 32-channel ones). The
+# layer-group libraries (sesr_net_group.cu, sesr_corrected_group.cu) include
+# sesr_net.cu / sesr_corrected.cu for their bodies and build beside them.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0")
@@ -61,6 +65,25 @@ SIGNATURES = {
         # memory bytes, 0: refused
         "sesr_corrected_smem": [_INT] * 9,
     },
+    "sesr_net_group": {
+        # (exact, x, out, weights, params, sc, nb, h, w, convs, flags, in_ch, out_ch, tile_h,
+        #  tile_w, split, pe, general, width, stream)
+        "sesr_net_group": [_INT] + [_PTR] * 5 + [_INT] * 13 + [_PTR],
+        # (exact, convs, flags, in_ch, out_ch, tile_h, tile_w, split, pe, width) -> shared
+        # memory bytes, 0: refused
+        "sesr_net_group_smem": [_INT] * 10,
+    },
+    "sesr_corrected_group": {
+        # (x, out, weights, params, sc, nb, h, w, convs, flags, in_ch, out_ch, tile_h, tile_w,
+        #  split, pe, general, width, stream)
+        "sesr_corrected_group": [_PTR] * 5 + [_INT] * 13 + [_PTR],
+        # the counting form: the same arguments but the stream, then (counts, y0, y1, x0,
+        # x1, stream)
+        "sesr_corrected_group_audit": [_PTR] * 5 + [_INT] * 13 + [_PTR] + [_INT] * 4 + [_PTR],
+        # (convs, flags, in_ch, out_ch, tile_h, tile_w, split, pe, width) -> shared memory
+        # bytes, 0: refused
+        "sesr_corrected_group_smem": [_INT] * 9,
+    },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)
         "probe_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
@@ -75,6 +98,8 @@ SIGNATURES = {
     },
 }
 ERROR_STRING = {"sesr_net": "sesr_error_string", "sesr_corrected": "sesr_corrected_error_string",
+                "sesr_net_group": "sesr_net_group_error_string",
+                "sesr_corrected_group": "sesr_corrected_group_error_string",
                 "probes": "probe_error_string"}
 
 
@@ -124,9 +149,20 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Build:
+_LOCKS = defaultdict(threading.Lock)       # one build of a library at a time
+
+
+def build(name: str, nice: int = 0) -> Build:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source and
-    flag set exists. Raises RuntimeError with nvcc's output on failure."""
+    flag set exists (a build of it in progress in another thread is waited
+    for). ``nice``: nvcc's scheduling priority, lowered by that much (a
+    build that may run beside other work). Raises RuntimeError with nvcc's
+    output on failure."""
+    with _LOCKS[name]:
+        return _build(name, nice)
+
+
+def _build(name: str, nice: int) -> Build:
     lib = library_path(name)
     log_path = lib.with_suffix(".log")
     if lib.exists():
@@ -138,7 +174,8 @@ def build(name: str) -> Build:
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                             preexec_fn=(lambda: os.nice(nice)) if nice else None)
         seconds = time.perf_counter() - t0
         log = res.stdout + res.stderr
         if res.returncode != 0:

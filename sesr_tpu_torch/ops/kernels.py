@@ -11,6 +11,14 @@ launch counter.
                    ``corrected_net.audit`` launches its counting form (the
                    runtime audit's shadow run, counted in ``audit_launches``)
 
+A network that no single launch runs (more than 16 convs, or no tile of
+its plan fits a block: convert.py ``kernel_constants``) runs in the
+layer-group form: each wrapper launches a chain, one launch per group of
+consecutive convs, of csrc/sesr_net_group.cu (K1, K2) or
+csrc/sesr_corrected_group.cu (the corrected kernel and its counting form),
+the int8 activation and the shortcut crossing each boundary in device
+memory; every launch of the chain is counted.
+
 A wrapper takes the quantized int8 input on the card and returns the int8
 output of the last conv (before the pixel shuffle); ``ops/pe_exact.py``,
 ``ops/fast.py`` and ``ops/corrected.py`` put the quantization,
@@ -27,7 +35,8 @@ from typing import NamedTuple
 import torch
 
 from sesr_tpu_torch.config import SESRSpec
-from sesr_tpu_torch.convert import (MAX_LAYERS, block_words, device_constants, kernel_width,
+from sesr_tpu_torch.convert import (GROUP_FIRST, GROUP_LAST, MAX_LAYERS, block_words,
+                                    device_constants, group_flags, group_records, kernel_width,
                                     layer_geometry, net_words, out_columns, pe_groups,
                                     wgmma_geometry)
 from sesr_tpu_torch.ops import _build
@@ -72,6 +81,20 @@ def _ring(i: int, L: int) -> int:
     return 0 if i >= L else L + 2 if i == 0 else L + 1 - i
 
 
+def _group_ring(j: int, n: int, flags: int) -> int:
+    """sum of k // 2 over layers j..n-1 of a group of n convs: csrc/sesr_common.cuh
+    group_ring (5x5 the network's first and last conv, 3x3 the others)."""
+    return 0 if j >= n else n - j + (j == 0 and bool(flags & GROUP_FIRST)) \
+        + bool(flags & GROUP_LAST)
+
+
+def _group_kind(j: int, n: int, flags: int) -> int:
+    """0 the network's first conv, 2 its last, 1 a 3x3 conv between
+    (sesr_common.cuh group_kind)."""
+    return 0 if j == 0 and flags & GROUP_FIRST else 2 if j == n - 1 and flags & GROUP_LAST \
+        else 1
+
+
 def _plane_stride(n: int) -> int:
     """csrc/sesr_net.cu plane_stride."""
     return ((n + 23) & ~31) + 8
@@ -105,6 +128,41 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
     sc = (width // 4 if exact else width // 2) * _plane_stride(ext[L - 1])
     two = 4 * (net_words(MAX_LAYERS, width) + 2 * w_words + sum(bufs) + sc)
     return two - 4 * w_words if exact and general and width == 32 and two > SMEM_LIMIT else two
+
+
+def net_group_smem_bytes(datapath: str, n: int, flags: int, in_ch: int, out_ch: int, tile,
+                         split, pe: int, width: int) -> int:
+    """Shared memory of one block of a group of the layer-group form of K1
+    ("exact") or K2 ("fast") (csrc/sesr_net_group.cu group_plan; chip_smoke.py
+    checks the two agree): ``net_smem_bytes``' terms with the group's
+    extents (``_group_ring``) and split flags ``split`` (one per conv of the
+    group), room for MAX_LAYERS + 1 records, the input of a group past conv
+    0 and the output of one before the last conv as width / 4 planes, the
+    shortcut where the group writes it (the tile) or reads it (the last
+    conv's input extent), and a split last conv of K1 off 4 PEs staged one
+    pass at a time (two pass buffers where they fit, else one)."""
+    th, tw = tile
+    exact = datapath == "exact"
+    w_words = 0
+    for j in range(n):
+        kind = _group_kind(j, n, flags)
+        k, ic = (3, width) if kind == 1 else (5, in_ch if kind == 0 else width)
+        passes, chunks, _ = layer_geometry(k, ic, bool(split[j]), pe)
+        cols = out_columns(out_ch) if kind == 2 else width
+        words = passes * chunks * 32 * 2 * (cols // 8)
+        if kind == 2 and split[j] and exact and pe != 4:
+            words //= passes                # staged a pass at a time
+        w_words = max(w_words, words)
+    ext = [(th + 2 * _group_ring(j, n, flags)) * (tw + 2 * _group_ring(j, n, flags))
+           for j in range(n + 1)]
+    bufs = [0, _round_up(ext[0], 4) if flags & GROUP_FIRST else 0]  # layer j reads bufs[j % 2 == 0]
+    for j in range(1 if flags & GROUP_FIRST else 0, n + 1 - bool(flags & GROUP_LAST)):
+        bufs[j % 2 == 0] = max(bufs[j % 2 == 0], width // 4 * _plane_stride(ext[j]))
+    rs = 2 if flags & GROUP_LAST else 0
+    sc = (width // 4 if exact else width // 2) * _plane_stride((th + 2 * rs) * (tw + 2 * rs)) \
+        if flags else 0
+    two = 4 * (net_words(MAX_LAYERS + 1, width) + 2 * w_words + sum(bufs) + sc)
+    return two - 4 * w_words if exact and width == 32 and two > SMEM_LIMIT else two
 
 
 def chunk_groups(groups: int, ocp: int) -> int:
@@ -212,6 +270,65 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
     return next((p for p in plans if p.bytes <= SMEM_LIMIT), plans[-1])
 
 
+def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, split, pe: int,
+                         width: int) -> CorrectedPlan:
+    """(shared memory bytes, B regions, pieces) of one block of a group of
+    the corrected kernel's layer-group form (csrc/sesr_corrected_group.cu
+    group_plan; chip_smoke.py checks the two agree): ``corrected_plan``'s
+    terms with the group's extents and records (``group_records``), split
+    flags ``split`` (one per conv of the group), the input of a group past
+    conv 0 and the output of one before the last conv as ``width``-byte
+    pixels, and the shortcut where the group writes it (the tile) or reads
+    it (the last conv's input extent); the instantiations at 16 PE groups
+    and width 32 have the piece forms."""
+    th, tw = tile
+    b_bytes, units = [], []
+    bufs = [0, (th + 2 * _group_ring(0, n, flags)) * (tw + 2 * _group_ring(0, n, flags)) * 4
+            if flags & GROUP_FIRST else 0]
+    for j in range(n + 1 - bool(flags & GROUP_LAST)):
+        kind = _group_kind(j, n, flags) if j < n else 1
+        r = _group_ring(j, n, flags)
+        ih, iw = th + 2 * r, tw + 2 * r
+        if j < n:
+            k = 3 if kind == 1 else 5
+            ic = in_ch if kind == 0 else width
+            oc = out_ch if kind == 2 else width
+            steps, _, cols = wgmma_geometry(k, ic, oc, bool(split[j]), kind == 2, pe)
+            b_bytes.append(steps * cols * 32)
+            units.append(layer_pieces(k, ic, oc, bool(split[j]), kind == 2, pe)[1])
+            if kind == 0:           # the widened pixels of the last step's second half
+                reach = 4 * iw + 4
+            elif width == 16:       # tap k * k - 1, and a pad tap one pixel on
+                reach = (k - 1) * (iw + 1) + (k * k) % 2
+            else:                   # tap k * k - 1, in each plane
+                reach = (k - 1) * (iw + 1)
+            cap = (_round_up((ih - k + 1) * iw, 64) + reach) * 16
+        else:                       # the group's output: the tile
+            cap = th * tw * 16
+        if kind != 0 and width == 32:
+            cap = 2 * _round_up(cap, 128)
+        bufs[j % 2] = max(bufs[j % 2], cap)
+    w_at = _round_up(block_words(pe, group_records(n, flags), width, 0) * 4, 128)
+    rs = 2 if flags & GROUP_LAST else 0
+    rest = (_round_up(bufs[0], 128) + _round_up(bufs[1], 128)
+            + ((th + 2 * rs) * (tw + 2 * rs) * 2 * width if flags else 0) + 16)
+
+    def total(w_bytes):
+        return _round_up(w_at + w_bytes, 128) + rest
+
+    groups = pe_groups(pe)
+    if not (width == 32 or groups == 16):                                  # staged_b
+        return CorrectedPlan(total(sum(b_bytes)), 0, False)
+    even, odd = max(b_bytes[0::2]), max(b_bytes[1::2], default=0)
+    plans = [CorrectedPlan(total(_round_up(even, 128) + odd), 2, False),
+             CorrectedPlan(total(max(even, odd)), 1, False)]
+    if groups == 16 and width == 32:                                       # the piece forms
+        unit = max(units)
+        plans += [CorrectedPlan(total(_round_up(unit, 128) + unit), 2, True),
+                  CorrectedPlan(total(unit), 1, True)]
+    return next((p for p in plans if p.bytes <= SMEM_LIMIT), plans[-1])
+
+
 def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
                          width: int = 16, general: bool = False) -> int:
     """Shared memory of one block of the corrected kernel (``corrected_plan``)."""
@@ -219,19 +336,24 @@ def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
 
 
 class NetKernel:
-    """One entry point of a kernel library (``csrc/<library>.cu``).
-    ``launches`` counts the launches this wrapper made, ``split_launches``
-    the same launches by their per-layer split mask (the corrected kernel's
-    modes; None for the other kernels). Its tile is the first of ``tiles``
-    whose shared memory (``smem_bytes``) fits a block, and a tile that does
-    not fit is refused before any launch."""
+    """One entry point of a kernel library (``csrc/<library>.cu``) and its
+    layer-group form (``group_symbol`` of ``group_library``).
+    ``launches`` counts the launches this wrapper made (each group's launch
+    of a chain), ``split_launches`` the same launches by their per-layer
+    split mask (the corrected kernel's modes; None for the other kernels).
+    Its tile is the first of ``tiles`` whose shared memory (``smem_bytes``;
+    a group's ``group_smem_bytes``) fits a block, and a tile that does not
+    fit is refused before any launch."""
 
     tiles = NET_TILES
 
-    def __init__(self, symbol: str, datapath: str, library: str = "sesr_net"):
+    def __init__(self, symbol: str, datapath: str, library: str = "sesr_net",
+                 group_symbol: str = "sesr_net_group", group_library: str = "sesr_net_group"):
         self.symbol = symbol
         self.datapath = datapath
         self.library = library
+        self.group_symbol = group_symbol
+        self.group_library = group_library
         self.launches = 0
         self.split_launches = collections.Counter()
         self._plans = {}
@@ -242,6 +364,16 @@ class NetKernel:
                               spec.conv_out_channels, tile, split, pe, general,
                               kernel_width(spec.num_channels))
 
+    def group_smem_bytes(self, spec: SESRSpec, first: int, last: int, split, pe: int,
+                         tile) -> int:
+        """Shared memory of one block of the group of convs first..last at
+        ``tile`` (``split``: the network's per-layer flags); K1 and K2:
+        ``net_group_smem_bytes``."""
+        flags = group_flags(first, last, spec.num_convs)
+        return net_group_smem_bytes(self.datapath, last - first + 1, flags, spec.in_channels,
+                                    spec.conv_out_channels, tile, split[first:last + 1], pe,
+                                    kernel_width(spec.num_channels))
+
     def tile(self, spec: SESRSpec, split, pe: int, general: bool = False) -> tuple:
         """The default output tile for ``spec``'s network at ``pe`` PEs in
         the ``general`` instantiation or the shipped one."""
@@ -251,34 +383,65 @@ class NetKernel:
                 return tile
         raise ValueError(f"{self.symbol}: no tile of {self.tiles} fits {spec.name}")
 
-    def check_tile(self, spec: SESRSpec, tile, split, pe: int, general: bool = False) -> int:
-        """The tile's shared memory (``smem_bytes``); raises ValueError for a
-        tile the kernel does not take."""
+    def group_tile(self, spec: SESRSpec, first: int, last: int, split, pe: int) -> tuple:
+        """The default tile of the group of convs first..last."""
+        for tile in self.tiles:
+            if self.group_smem_bytes(spec, first, last, split, pe, tile) <= SMEM_LIMIT:
+                return tile
+        raise ValueError(f"{self.symbol}: no tile of {self.tiles} fits convs {first}-{last} of "
+                         f"{spec.name}")
+
+    def check_tile(self, spec: SESRSpec, tile, split, pe: int, general: bool = False,
+                   group=None) -> int:
+        """The tile's shared memory (``smem_bytes``, or for ``group`` =
+        (first, last) ``group_smem_bytes``); raises ValueError for a tile
+        the kernel does not take."""
         if not (1 <= tile[0] <= 1024 and 1 <= tile[1] <= 1024):
             raise ValueError(f"{self.symbol}: tile {tuple(tile)} outside 1..1024")
-        need = self.smem_bytes(spec, tile, split, pe, general)
+        need = self.smem_bytes(spec, tile, split, pe, general) if group is None else \
+            self.group_smem_bytes(spec, *group, split, pe, tile)
         if need > SMEM_LIMIT:
             raise ValueError(f"{self.symbol}: tile {tuple(tile)} needs {need} B of shared "
-                             f"memory for {spec.name}, more than a block's {SMEM_LIMIT}")
+                             f"memory for {spec.name}"
+                             f"{'' if group is None else f' convs {group[0]}-{group[1]}'}, more "
+                             f"than a block's {SMEM_LIMIT}")
         return need
 
-    def plan(self, spec: SESRSpec, split, pe: int, general: bool = False, tile=None) -> tuple:
+    def plan(self, spec: SESRSpec, split, pe: int, general: bool = False, tile=None,
+             group=None) -> tuple:
         """(tile, shared memory bytes) of a launch at ``tile``, or at the
-        default tile (``self.tile``) when it is None; raises ValueError for a
-        tile the kernel does not take. Kept per (spec, split, pe, general,
-        tile), so that a call after the first costs a dict lookup."""
-        key = (spec, tuple(split), pe, general, None if tile is None else tuple(tile))
+        default tile (``self.tile``; ``group_tile`` for ``group`` = (first,
+        last), a group of the layer-group form) when it is None; raises
+        ValueError for a tile the kernel does not take. Kept per (spec,
+        split, pe, general, tile, group), so that a call after the first
+        costs a dict lookup."""
+        key = (spec, tuple(split), pe, general, None if tile is None else tuple(tile), group)
         if key not in self._plans:
-            tile = tuple(tile or self.tile(spec, split, pe, general))
-            self._plans[key] = (tile, self.check_tile(spec, tile, split, pe, general))
+            if tile is None:
+                tile = self.tile(spec, split, pe, general) if group is None else \
+                    self.group_tile(spec, *group, split, pe)
+            tile = tuple(tile)
+            self._plans[key] = (tile, self.check_tile(spec, tile, split, pe, general, group))
         return self._plans[key]
 
-    def extra_args(self, kc) -> tuple:
-        """The entry point's arguments after the tile: the split mask, the
-        PE count, the instantiation (0 shipped, 1 general, 2 the general
-        one's wide form: KernelConstants.general and .wide) and the hidden
-        width; K2 takes the last two only."""
+    def launch_plans(self, spec: SESRSpec, kc, tile=None) -> list:
+        """[(group, tile, shared memory bytes)] of a call with the constants
+        kc: one launch (group None), or one per group (GroupConstants) of the
+        layer-group form, each at its default tile or at ``tile``."""
+        if not kc.groups:
+            return [(None, *self.plan(spec, kc.pe_split, kc.pe, kc.general, tile))]
+        return [(g, *self.plan(spec, kc.pe_split, kc.pe, kc.general, tile, (g.first, g.last)))
+                for g in kc.groups]
+
+    def extra_args(self, kc, group=None) -> tuple:
+        """The entry point's arguments after the tile: the split mask (a
+        group's own), the PE count, the instantiation (0 shipped, 1 general,
+        2 the general one's wide form: KernelConstants.general and .wide)
+        and the hidden width; K2's one-launch entry point takes the last two
+        only."""
         gen = 2 if kc.wide else int(kc.general)
+        if group is not None:
+            return (group.split, kc.pe, gen, kc.width)
         if self.datapath == "fast":
             return (gen, kc.width)
         return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, gen, kc.width)
@@ -292,19 +455,24 @@ class NetKernel:
         """x_q: int8 (N, H, W, C_in) contiguous on a CUDA device. Returns the
         int8 output (N, H, W, C_out) of the last conv. ``tile``: the output
         tile (rows, columns) of one thread block (default ``self.tile(spec,
-        split, pe, general)``). ``split`` (the corrected kernel only, and
+        split, pe, general)``; in the layer-group form every group's, default
+        each group's own). ``split`` (the corrected kernel only, and
         required there): one flag per layer, set where the layer runs one
         pass per PE (ops/corrected.py ``split_layers``)."""
-        out, kc = self._launch(self.symbol, spec, qp, x_q, tile, split, ())
-        self.launches += 1
-        self.split_launches[None if split is None else tuple(kc.pe_split)] += 1
-        return out
+        return self.run(spec, qp, x_q, tile, split)[0]
 
-    def _launch(self, symbol: str, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, tile,
-                split, more: tuple):
-        """One launch of the library's entry point ``symbol`` with the
-        arguments of ``__call__`` and then ``more``: (int8 output,
-        KernelConstants). Counts nothing."""
+    def run(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, tile=None,
+            split=None) -> tuple:
+        """``__call__``'s output and the layer-group form's boundaries:
+        [(GroupConstants, its output, the shortcut tensor)] for each group
+        before the last ([] for one launch)."""
+        out, kc, trail = self._launch(spec, qp, x_q, tile, split)
+        made = max(1, len(kc.groups))
+        self.launches += made
+        self.split_launches[None if split is None else tuple(kc.pe_split)] += made
+        return out, trail
+
+    def _check(self, spec: SESRSpec, x_q: torch.Tensor, split) -> None:
         if x_q.device.type != "cuda":
             raise ValueError(f"{self.symbol} runs on a CUDA tensor, got {x_q.device}")
         if x_q.dtype != torch.int8 or x_q.dim() != 4 \
@@ -315,38 +483,88 @@ class NetKernel:
         if (split is None) != (self.datapath != "corrected"):
             raise ValueError(f"{self.symbol}: a split mask is "
                              f"{'required' if split is None else 'not taken'}")
+
+    def _launch(self, spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, tile, split,
+                count=None):
+        """One launch of the library's entry point, or the chain of the
+        layer-group form, with the arguments of ``run``; ``count`` = (int64
+        counts (L,), region) launches the counting form. Returns (int8
+        output, KernelConstants, boundaries). Counts nothing."""
+        self._check(spec, x_q, split)
         kc, weights, params = device_constants(spec, qp, self.datapath, x_q.device, split)
-        tile, _ = self.plan(spec, kc.pe_split, kc.pe, kc.general, tile)
         n, h, w, _ = x_q.shape
-        out = torch.empty((n, h, w, kc.out_channels), dtype=torch.int8,
-                          device=x_q.device)
+        plans = self.launch_plans(spec, kc, tile)
+        out = torch.empty((n, h, w, kc.out_channels), dtype=torch.int8, device=x_q.device)
         if out.numel() == 0:
-            return out, kc
+            return out, kc, []
+        if kc.groups:
+            y, trail = self._chain(kc, weights, params, x_q, plans, count)
+            return y, kc, trail
         lib = _build.load(self.library)
+        symbol = self.symbol if count is None else self.audit_symbol
+        more = () if count is None else (count[0].data_ptr(), *count[1])
         with torch.cuda.device(x_q.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = getattr(lib, symbol)(
                 x_q.data_ptr(), out.data_ptr(), weights.data_ptr(),
                 params.data_ptr(), n, h, w, kc.num_layers, kc.in_channels,
-                kc.out_channels, *tile, *self.extra_args(kc), *more, stream)
+                kc.out_channels, *plans[0][1], *self.extra_args(kc), *more, stream)
         if err != 0:
             raise RuntimeError(f"{symbol} launch failed: "
                                f"{_build.error_string(self.library, err)} ({err})")
-        return out, kc
+        return out, kc, []
+
+    def _chain(self, kc, weights, params, x_q, plans, count):
+        """The layer-group form: one launch per group, each group's output
+        the next one's input; the shortcut written by the first group and
+        read by the last. Returns (the network's int8 output, the
+        boundaries: ``run``'s)."""
+        n, h, w, _ = x_q.shape
+        lib = _build.load(self.group_library)
+        exact = self.datapath == "exact"
+        sc = torch.empty((n, h, w, kc.width), dtype=torch.int8 if exact else torch.int16,
+                         device=x_q.device) if len(kc.groups) > 1 else None
+        symbol = self.group_symbol if count is None else self.group_audit_symbol
+        lead = (int(exact),) if self.datapath != "corrected" else ()
+        cur, trail = x_q, []
+        with torch.cuda.device(x_q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for (g, tile, _), prm in zip(plans, params):
+                last = bool(g.flags & GROUP_LAST)
+                out = torch.empty((n, h, w, kc.out_channels if last else kc.width),
+                                  dtype=torch.int8, device=x_q.device)
+                more = () if count is None else \
+                    (count[0].data_ptr() + 8 * g.first, *count[1])
+                err = getattr(lib, symbol)(
+                    *lead, cur.data_ptr(), out.data_ptr(), weights.data_ptr(), prm.data_ptr(),
+                    0 if sc is None else sc.data_ptr(), n, h, w, g.convs, g.flags,
+                    kc.in_channels, kc.out_channels, *tile, *self.extra_args(kc, g), *more,
+                    stream)
+                if err != 0:
+                    raise RuntimeError(
+                        f"{symbol} launch failed (convs {g.first}-{g.last}): "
+                        f"{_build.error_string(self.group_library, err)} ({err})")
+                if not last:
+                    trail.append((g, out, sc))
+                cur = out
+        return cur, trail
 
 
 class CorrectedKernel(NetKernel):
     """The corrected kernel: its tiles are CORRECTED_TILES, its shared
     memory ``corrected_smem_bytes`` (the same in every instantiation of a
-    width, and in the counting form). ``audit`` launches the counting form
-    (``sesr_corrected_audit``), counted in ``audit_launches`` and not in
-    ``launches``."""
+    width, and in the counting form; a group's ``corrected_group_plan``).
+    ``audit`` launches the counting form (``sesr_corrected_audit``, or
+    ``sesr_corrected_group_audit`` a group), counted in ``audit_launches``
+    and not in ``launches``."""
 
     tiles = CORRECTED_TILES
     audit_symbol = "sesr_corrected_audit"
+    group_audit_symbol = "sesr_corrected_group_audit"
 
     def __init__(self, symbol: str, datapath: str, library: str):
-        super().__init__(symbol, datapath, library)
+        super().__init__(symbol, datapath, library, "sesr_corrected_group",
+                         "sesr_corrected_group")
         self.audit_launches = 0
 
     def reset(self) -> None:
@@ -357,6 +575,16 @@ class CorrectedKernel(NetKernel):
         return corrected_smem_bytes(spec.num_convs, spec.in_channels, spec.conv_out_channels,
                                     tile, split, pe, kernel_width(spec.num_channels), general)
 
+    def group_plan(self, spec: SESRSpec, first: int, last: int, split, pe: int,
+                   tile) -> CorrectedPlan:
+        return corrected_group_plan(last - first + 1, group_flags(first, last, spec.num_convs),
+                                    spec.in_channels, spec.conv_out_channels, tile,
+                                    split[first:last + 1], pe, kernel_width(spec.num_channels))
+
+    def group_smem_bytes(self, spec: SESRSpec, first: int, last: int, split, pe: int,
+                         tile) -> int:
+        return self.group_plan(spec, first, last, split, pe, tile).bytes
+
     def tile(self, spec: SESRSpec, split, pe: int, general: bool = False) -> tuple:
         """The first of ``tiles`` whose plan fits a block with every layer's
         B staged whole (or resident), else the first whose plan fits with B
@@ -365,6 +593,14 @@ class CorrectedKernel(NetKernel):
         plans = {t: corrected_plan(spec.num_convs, spec.in_channels, spec.conv_out_channels, t,
                                    split, pe, kernel_width(spec.num_channels), general)
                  for t in self.tiles}
+        return self._first_fit(plans, spec)
+
+    def group_tile(self, spec: SESRSpec, first: int, last: int, split, pe: int) -> tuple:
+        """``tile``'s rule for the group of convs first..last."""
+        return self._first_fit({t: self.group_plan(spec, first, last, split, pe, t)
+                                for t in self.tiles}, spec)
+
+    def _first_fit(self, plans: dict, spec: SESRSpec) -> tuple:
         for pieces in (False, True):
             for t, plan in plans.items():
                 if plan.bytes <= SMEM_LIMIT and plan.pieces == pieces:
@@ -378,15 +614,15 @@ class CorrectedKernel(NetKernel):
         the PE partials that the 18-bit clamp changed on layer i if
         ``split`` flags it (0 elsewhere) at the outputs of ``region`` = (y0,
         y1, x0, x1) in input pixels of every frame (default: the whole
-        frame). One launch."""
+        frame). One launch, or one per group of the layer-group form, each
+        counting its own convs."""
         n, h, w = x_q.shape[:3]
         y0, y1, x0, x1 = region or (0, h, 0, w)
         if not (0 <= y0 <= y1 <= h and 0 <= x0 <= x1 <= w):
             raise ValueError(f"{self.audit_symbol}: region {region} outside the {h}x{w} frame")
         counts = torch.zeros(spec.num_convs, dtype=torch.int64, device=x_q.device)
-        out, _ = self._launch(self.audit_symbol, spec, qp, x_q, tile, split,
-                              (counts.data_ptr(), y0, y1, x0, x1))
-        self.audit_launches += 1
+        out, kc, _ = self._launch(spec, qp, x_q, tile, split, (counts, (y0, y1, x0, x1)))
+        self.audit_launches += max(1, len(kc.groups))
         return out, counts
 
 

@@ -304,6 +304,77 @@ def integer_forward(spec: SESRSpec, qp: QuantParams, x,
     return h, dumps
 
 
+def group_forward(spec: SESRSpec, qp: QuantParams, x_q: torch.Tensor, shortcut,
+                  first: int, last: int, corrected: bool = False, dense=None,
+                  residual_mode: str = "sim", qat_add_bounds=None) -> tuple:
+    """The plain version of one group of the layer-group form
+    (csrc/sesr_net_group.cu, csrc/sesr_corrected_group.cu): convs
+    first..last of ``integer_forward`` from ``x_q`` = input.{first} (the int8
+    values, as float32) and ``shortcut`` (conv 0's ReLU output; None until
+    conv 0 has run). Returns (input.{last + 1}: the next group's input, or
+    the int8 output where ``last`` is the last conv; the shortcut; the
+    group's convs' overflow_18). ``dense``: per conv of the network, one
+    full-channel conv (integer_forward's fast and hybrid modes)."""
+    L = spec.num_convs
+    dense = dense or (False,) * L
+    counts, h, out_q = [], None, None
+    for i in range(first, last + 1):
+        if i == first:
+            x_shift = x_q - float(qp.effective_zero(i))
+        else:
+            if i == L - 1 and residual_mode != "sim":
+                h = graph_residual(h, shortcut, qp, residual_mode, qat_add_bounds)
+            _, x_shift = layer_input(h, i, L, qp, shortcut, corrected)
+        _, _, h, shortcut, out_q, ovf18, _ = layer_step(x_shift, i, L, qp, shortcut, corrected,
+                                                        dense[i])
+        counts.append(ovf18)
+    if last == L - 1:
+        return out_q, shortcut, torch.stack(counts)
+    if last + 1 == L - 1 and residual_mode != "sim":
+        h = graph_residual(h, shortcut, qp, residual_mode, qat_add_bounds)
+    return layer_input(h, last + 1, L, qp, shortcut, corrected)[0], shortcut, torch.stack(counts)
+
+
+def group_chain(spec: SESRSpec, qp: QuantParams, x, groups, corrected: bool = False,
+                compute: str = "exact", fast_layers=None, residual_mode: str = "sim",
+                qat_add_bounds=None, device=None, quantized: bool = False) -> tuple:
+    """``integer_forward`` run group by group (``group_forward``) over
+    ``groups`` ((first, last) pairs covering the convs in order), each group
+    starting from the activation and shortcut the one before left: (y as
+    integer_forward returns it, {"input.{first}" of each group and
+    "input.{L}": the int8 values crossing each boundary, "shortcut",
+    "overflow_18"})."""
+    L = spec.num_convs
+    dense = [compute == "fast" or bool(fast_layers and fast_layers[i]) for i in range(L)]
+    x_q = as_input(x, device)
+    if not quantized:
+        x_q = quantize_input(x_q, qp)
+    shortcut, seen, counts = None, {}, []
+    for first, last in groups:
+        seen[f"input.{first}"] = x_q
+        x_q, shortcut, c = group_forward(spec, qp, x_q, shortcut, first, last, corrected, dense,
+                                         residual_mode, qat_add_bounds)
+        counts.append(c)
+    seen[f"input.{L}"] = x_q
+    seen["shortcut"] = shortcut
+    seen["overflow_18"] = torch.cat(counts)
+    y = dequantize_output(x_q, qp)
+    if spec.has_pixel_shuffle:
+        y = pixel_shuffle_nhwc(y, spec.scaling_factor)
+    return y, seen
+
+
+def shortcut_term(shortcut: torch.Tensor, qp: QuantParams, datapath: str) -> torch.Tensor:
+    """The residual shortcut as the kernels keep it and the layer-group form
+    carries it from the first group to the last: the form the last conv's
+    domain-in consumes (``_domain_in``): K1 ("exact") clip(round(s - half))
+    as int8, the corrected datapath's kernels round(s) as int16."""
+    if datapath == "exact":
+        qmin, qmax = quant_limits(qp)
+        return torch.clamp(torch.round(shortcut - float(-qmin)), qmin, qmax).to(torch.int8)
+    return torch.round(shortcut).to(torch.int16)
+
+
 def integer_forward_int8(spec: SESRSpec, qp: QuantParams, x,
                          corrected: bool, compute: str, device=None,
                          fast_layers=None, quantized: bool = False):

@@ -50,7 +50,7 @@ from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.corrected import MODES, split_layers
 from sesr_tpu_torch.ops.kernels import (CORRECTED_TILES, SMEM_LIMIT, corrected_net,
                                         corrected_plan, corrected_smem_bytes, layer_pieces,
-                                        net_smem_bytes)
+                                        net_group_smem_bytes, net_smem_bytes, pe_exact_net)
 from sesr_tpu_torch.quant.integer import integer_forward, pe_channel_mask
 from sesr_tpu_torch.quant.params import QuantParams
 
@@ -761,17 +761,22 @@ def test_corrected_model_at_xl_width_and_48_outputs(pe):
 
 
 def test_k1_refuses_a_48_output_xl_at_16_pes():
-    """A corner still refused: at 16 PEs K1 runs a split conv in 16 passes,
-    and SESR-XL x4's split last conv of 48 columns fits no tile beside its
-    buffers (not even 8x8), so K1 refuses it with the shared-memory
-    message, while K2 and the corrected kernel take it."""
+    """The corner K1 refused until the layer-group form: at 16 PEs K1 runs a
+    split conv in 16 passes, and SESR-XL x4's split last conv of 48 columns
+    fits no tile of the one-launch kernel beside its buffers (not even
+    8x8). K1 now plans it as one group of csrc/sesr_net_group.cu, that
+    conv's B staged one PE pass at a time (net_group_smem_bytes), at a tile
+    that fits; K2 and the corrected kernel take it in one launch."""
     qp = _xl48_saturated(16)
     L = XL48.num_convs
-    with pytest.raises(NotImplementedError, match="no tile of the exact kernel fits"):
-        convert.kernel_constants(XL48, qp, "exact")
+    kc = convert.kernel_constants(XL48, qp, "exact")
     split = convert.pe_split_layers(qp)
-    assert split[L - 1]
+    assert split[L - 1] and kc.pe_split == split and kc.general
     assert net_smem_bytes("exact", L, 3, 48, (8, 8), split, 16, True, 32) > SMEM_LIMIT
+    (g, tile, need), = pe_exact_net.launch_plans(XL48, kc)
+    assert (g.first, g.last, g.flags) == (0, L - 1, convert.GROUP_FIRST | convert.GROUP_LAST)
+    assert need == net_group_smem_bytes("exact", L, 3, 3, 48, tile, split, 16, 32) <= SMEM_LIMIT
+    assert not convert.kernel_constants(XL48, qp, "fast").groups
     assert convert.kernel_constants(XL48, qp, "fast").general
     assert convert.kernel_constants(XL48, qp, "corrected", (True,) * L).general
 

@@ -58,6 +58,7 @@ from sesr_tpu_torch.ops.kernels import pe_exact_net
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
 from sesr_tpu_torch.quant.certify import certify_fast
 from sesr_tpu_torch.quant.integer import integer_forward
+from tests.test_torch_deep import deepened
 from tests.test_torch_params import _same
 from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 
@@ -238,12 +239,13 @@ def test_kernel_constants_take_the_family(net, datapath):
 
 
 def test_kernel_constants_refuse_past_the_limits():
-    """17 convs and a hidden width of 48 are refused, each with its own
-    message; XL with every conv split runs in the corrected kernel and in
-    K1 at every PE count from 1 to 8."""
+    """A hidden width of 48 is refused with its own message; 17 convs run
+    in two layer groups; XL with every conv split runs in the corrected
+    kernel and in K1 at every PE count from 1 to 8."""
     spec, _, _, qp = _calibrated("m11")
-    with pytest.raises(NotImplementedError, match="3 to 16 convs"):
-        convert.kernel_constants(dataclasses.replace(spec, num_lblocks=15), qp, "fast")
+    kc = convert.kernel_constants(dataclasses.replace(spec, num_lblocks=15), deepened(qp, 17),
+                                  "fast")
+    assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)]
     with pytest.raises(NotImplementedError, match="widths of at most 32"):
         convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "exact")
     # 16 convs are taken

@@ -30,6 +30,7 @@ from sesr_tpu_torch.ops.kernels import OUT_DTYPES
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
 from sesr_tpu_torch.quant.integer import integer_forward
 from sesr_tpu_torch.quant.params import QuantParams
+from tests.test_torch_deep import deepened
 from tests.test_integer_bitexact import _golden_qparams, _load_golden
 from tests.test_torch_params import ARTIFACTS, SIM_GOLDENS, _same
 from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
@@ -179,8 +180,8 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     with pytest.raises(NotImplementedError, match="does not fit int8"):
         convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), "exact")
     # any PE count from 1 to 16 runs (the general instantiation off 4 PEs);
-    # 2- to 8-bit activations, widths up to 32 and 3 to 16 convs are what
-    # the kernels hold
+    # 2- to 8-bit activations and widths up to 32 are what the kernels
+    # hold; past 16 convs a network runs in layer groups
     assert convert.kernel_constants(spec, dataclasses.replace(
         qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact").general
     for hw in (dataclasses.replace(qp.hw, pe=17), dataclasses.replace(qp.hw, quan_bits=16)):
@@ -189,8 +190,8 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     with pytest.raises(NotImplementedError, match="widths of at most 32"):
         convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "fast")
     deep = dataclasses.replace(spec, num_lblocks=15)
-    with pytest.raises(NotImplementedError, match="3 to 16 convs"):
-        convert.kernel_constants(deep, qp, "fast")
+    kc = convert.kernel_constants(deep, deepened(qp, 17), "fast")
+    assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)] and kc.general
     with pytest.raises(NotImplementedError, match="outside"):
         convert.kernel_constants(dataclasses.replace(spec, k_block=5), qp, "fast")
     with pytest.raises(ValueError, match="datapath"):

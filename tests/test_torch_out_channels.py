@@ -53,6 +53,7 @@ from sesr_tpu_torch.ops.kernels import NET_KERNELS
 from sesr_tpu_torch.ops.pe_exact import pe_exact_forward
 from sesr_tpu_torch.quant.certify import certify_fast
 from sesr_tpu_torch.quant.integer import integer_forward
+from tests.test_torch_deep import deepened
 from tests.test_torch_params import _same
 from tests.test_torch_params import one_torch_thread  # noqa: F401 (fixture)
 
@@ -259,10 +260,23 @@ def test_kernel_constants_take_every_count(datapath):
 @pytest.mark.parametrize("bad", ["quan_bits=9", "quan_bits=16", "width=48", "convs=17",
                                  "k_block=5", "in_channels=5", "out=49"])
 def test_kernel_constants_refuse_what_is_left(bad):
-    """The corners still to port are refused, each naming its limit."""
+    """The corners still to port are refused, each naming its limit. 17
+    convs, refused until the layer-group form, is taken: every kernel plans
+    it as two groups (convs 0-8 and 9-16) that fit a block and builds their
+    constants."""
     spec, _, _, qp = _calibrated(4)
+    if bad == "convs=17":
+        qp = deepened(qp, 17)
+        spec = dataclasses.replace(spec, num_lblocks=15)
+        for datapath in convert.DATAPATHS:
+            kc = convert.kernel_constants(spec, qp, datapath, (True,) * spec.num_convs
+                                          if datapath == "corrected" else None)
+            assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)] and kc.general
+            kern = {k.datapath: k for k in NET_KERNELS}[datapath]
+            assert all(need <= 232448 for _, _, need in kern.launch_plans(spec, kc))
+        return
     match = {"quan_bits=9": "quan_bits", "quan_bits=16": "quan_bits",
-             "width=48": "widths of at most 32", "convs=17": "3 to 16 convs",
+             "width=48": "widths of at most 32",
              "k_block=5": "5x5 / 3x3", "in_channels=5": "1-4 input",
              "out=49": "1-48 output"}[bad]
     if bad.startswith("quan_bits"):

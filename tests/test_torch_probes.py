@@ -427,13 +427,19 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert set(paths) == {"sesr_net", "sesr_corrected", "probes"}
+    assert set(paths) == {"sesr_net", "sesr_corrected", "sesr_net_group",
+                          "sesr_corrected_group", "probes"}
     for name, path in paths.items():
         assert path.parent == tmp_path / "kernels" and path.name.startswith(f"lib{name}-")
     assert _build.sources("probes") == [csrc / "probes.cu", csrc / "wgmma_gemm.cuh"]
     assert _build.sources("sesr_net") == [csrc / "sesr_net.cu", csrc / "sesr_common.cuh"]
     assert _build.sources("sesr_corrected") == [csrc / "sesr_corrected.cu",
                                                 csrc / "sesr_common.cuh"]
+    # the layer-group libraries build on the network kernels' sources
+    assert _build.sources("sesr_net_group") == [csrc / "sesr_net_group.cu", csrc / "sesr_net.cu",
+                                                csrc / "sesr_common.cuh"]
+    assert _build.sources("sesr_corrected_group") == [
+        csrc / "sesr_corrected_group.cu", csrc / "sesr_corrected.cu", csrc / "sesr_common.cuh"]
     with (csrc / "wgmma_gemm.cuh").open("a") as f:
         f.write("// edited\n")
     edited_header = _build.library_path("probes")
@@ -449,6 +455,7 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
         f.write("// edited\n")
     assert _build.library_path("sesr_net") != paths["sesr_net"]
     assert _build.library_path("sesr_corrected") != paths["sesr_corrected"]
+    assert _build.library_path("sesr_net_group") != paths["sesr_net_group"]
     assert _build.library_path("probes") == probes
     builds = _build.build_all()
     assert {n: b.path for n, b in builds.items()} == {
