@@ -13,8 +13,8 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 
 1. the card: nvidia-smi's name and power limit, torch's device name;
 2. build every kernel library from csrc/ (one nvcc per source, all started
-   together; the two layer-group libraries at a lower priority, beside
-   phases 3-13, waited for before phase 15), with the -Xptxas -v report;
+   together, phases 10 and 3 beside them in that order, all waited for
+   at 3's end; phase 7 after them), with the -Xptxas -v report;
 3. each kernel against its plain PyTorch version on numpy-seeded inputs
    (the int8 outputs must be equal): K1 (sesr_pe_exact_net) and K2
    (sesr_fast_net) on sr_x2 at 540x960, 27x45 and a ragged 37x53 at batch
@@ -226,7 +226,9 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    and share, MACs computed over MACs needed, registers and shared memory
    (ptxas, the wrapper's plan and the library's, and CUPTI, read at the
    default tile in a process of its own, ``chip_smoke.py --cupti``, whose
-   shared memory must be the plan's). One ``kernels`` entry per (kernel,
+   shared memory must be the plan's; the process of phases 12 and 15-17's
+   jobs runs beside this phase's main path and ends before its first
+   time is taken). One ``kernels`` entry per (kernel,
    network, mode, config), with its own launches; the counting form has an
    entry of its own for nr (phases 8 and 11) and for XL at 4 and 8 PEs.
 15. last convs of 1 to 48 output channels (``out_channels_phase``): the
@@ -243,14 +245,25 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    every output and count equal to the plain interpreter), ``infer --audit
    1``, two virtual ranks, then every layer-group instantiation launched
    on a small batch by 33-conv networks (three groups or more: first,
-   middle and last) with its boundary tensors held to the plain
-   interpreter's; each chain's device time, bound, groups' tiles and
-   plans (the library's; CUPTI's in phase 14's process, for every group
-   of the main path and a middle group of every instantiation), MACs
-   computed over needed beside one launch's, and the bytes crossing the
-   boundaries.
-   Phases 15 and 16 run before 14, whose CUPTI process reads their
-   launches too.
+   middle and last; the corrected kernel's tail instantiations by the last
+   group past 16 outputs) and two-conv networks (one group) with its
+   boundary tensors held to the plain interpreter's; each chain's device
+   time, bound, groups' tiles and plans (the library's; CUPTI's in phase
+   14's process, for every group of the main path and a middle, tail or
+   two-conv group of every instantiation), MACs computed over needed
+   beside one launch's, and the bytes crossing the boundaries;
+17. the layer-group form's corners (``corner_phase``, phase 16's
+   ``chain_phase``): sesr_m16_x4_rgb (18 convs, 48 outputs) and
+   sesr_xl22_x3_rgb (24, width 32, 27 outputs), whose corrected last group
+   runs the tail instantiations, and the two-conv sesr_m0_x2 and
+   sesr_xl0_x4_rgb (one group, its first conv adding the shortcut), from
+   seeded weights, calibrated and certified on the card at 4 PEs, 16 and
+   a sweep config and saturated at +127 in the last group; every mode at
+   batch 1 and 4 at every config, at the input whose output is 1080x1920,
+   torch.equal with the plain interpreter, one launch a group; ``infer
+   --audit 1``, sesr_m0_x2 at two virtual ranks; each chain's time, plans,
+   MACs computed over needed and ptxas. Phases 15-17 run before 14,
+   beside whose main path a CUPTI process reads their launches.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -258,6 +271,7 @@ The line before the last is the ``kernels`` JSON; the last is
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -457,16 +471,28 @@ def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1, index=-1, 
     return attrs
 
 
-def kernel_family(kern, kc, audit=False):
+def kernel_family(kern, kc, audit=False, group=None):
     """The name of the CUDA kernel ``kern`` launches for the constants kc:
     the served one or (``audit``) the counting form, and the general
     instantiation's wide form where kc.wide; the corrected kernel's
     instantiations of a last conv past 16 channels and those with piece
-    forms at width 32 and 16 PE groups (wide form or not)."""
+    forms at width 32 and 16 PE groups (wide form or not). In the
+    layer-group form the kernel of ``group`` (the two-conv group's and the
+    corrected kernel's tail instantiations: ops/kernels.py pair_group,
+    tail_group), or for ``group`` None the prefix every group's kernel
+    shares (a chain's launches, read from a trace in launch order)."""
+    from sesr_tpu_torch.ops.kernels import pair_group, tail_group
+
     wide = "_wide" if kc.wide else ""
     if kc.groups:                       # the layer-group form's kernels
-        return (f"sesr_corrected_group{'_audit' if audit else ''}_kernel"
-                if kern.datapath == "corrected" else "sesr_net_group_kernel")
+        corrected = kern.datapath == "corrected"
+        if group is None:
+            return "sesr_corrected_" if corrected else "sesr_net_"
+        if corrected:
+            form = "tail" if tail_group(group.convs, group.flags, kc.out_channels) else "group"
+            return f"sesr_corrected_{form}{'_audit' if audit else ''}_kernel"
+        return "sesr_net_pair_kernel" if pair_group(group.convs, group.flags) \
+            else "sesr_net_group_kernel"
     if kern.datapath == "corrected":
         if kc.out_channels > 16:
             return f"sesr_corrected{'_audit' if audit else ''}_wideout_kernel"
@@ -485,20 +511,25 @@ def piece_forms(kc):
     return kc.general and kc.width == 32 and pe_groups(kc.pe) == 16 and any(kc.pe_split[1:])
 
 
-def ptxas_line(kern, spec, kc, audit=False):
+def ptxas_line(kern, spec, kc, audit=False, group=None):
     """("family<template arguments>", (registers, spill store bytes)) of the
-    instantiation ``kern`` launches for kc, from ptxas's build log."""
+    instantiation ``kern`` launches for kc (in the layer-group form, for
+    ``group``, by default the first), from ptxas's build log."""
     from sesr_tpu_torch.convert import out_columns, pe_groups
-    from sesr_tpu_torch.ops import _build
 
-    family = kernel_family(kern, kc, audit)
+    if kc.groups:
+        group = group or kc.groups[0]
+    family = kernel_family(kern, kc, audit, group)
     gen = "" if kc.wide else f"ELb{int(kc.general)}"
     if kc.groups:
-        # sesr_net_group_kernel<DP, OCL, C, WIDE>, sesr_corrected_group(_audit)_kernel<G, C, WS>
-        lib, key = ("sesr_corrected_group", f"Li{pe_groups(kc.pe)}ELi{kc.width}ELb{int(kc.wide)}") \
+        # sesr_net_group_kernel<DP, OCL, C, WIDE>, sesr_corrected_group(_audit)_kernel<G, C, WS>;
+        # the two-conv and tail groups' sesr_net_pair_kernel<DP, OCL, C> and
+        # sesr_corrected_tail(_audit)_kernel<G, C>, each the wide form
+        ws = "" if "_group_" not in family else f"ELb{int(kc.wide)}"
+        lib, key = ("sesr_corrected_group", f"Li{pe_groups(kc.pe)}ELi{kc.width}{ws}") \
             if kern.datapath == "corrected" else \
             ("sesr_net_group", f"Li{int(kern.datapath == 'fast')}ELin{out_columns(kc.out_channels)}"
-                               f"ELi{kc.width}ELb{int(kc.wide)}")
+                               f"ELi{kc.width}{ws}")
     elif kern.datapath == "corrected":
         lib, key = "sesr_corrected", (f"Li{pe_groups(kc.pe) if kc.general else 4}{gen}"
                                       f"ELi{kc.width}")
@@ -512,8 +543,24 @@ def ptxas_line(kern, spec, kc, audit=False):
         ocl = f"n{out_columns(kc.out_channels)}" if kc.general else kc.out_channels
         lib, key = "sesr_net", (f"Li{int(kern.datapath == 'fast')}ELi{ocl}"
                                 f"{gen}ELi{kc.width}")
-    report = _build.ptxas_report(_build.build(lib).log, family)
-    return f"{family}<{key}>", report.get(key, (None, None))
+    return f"{family}<{key}>", ptxas_report(lib, family).get(key, (None, None))
+
+
+@functools.lru_cache(maxsize=None)
+def ptxas_report(lib, family):
+    """ptxas's report of the kernel ``family`` in library ``lib``'s build log
+    (read once: a library does not change within a run)."""
+    from sesr_tpu_torch.ops import _build
+
+    return _build.ptxas_report(_build.build(lib).log, family)
+
+
+def chain_lines(kern, spec, kc, audit=False):
+    """{"family<template arguments>": (registers, spill store bytes)} of every
+    instantiation a call with kc launches (``ptxas_line``): one, or in the
+    layer-group form each group's (a chain's last group may run in the
+    corrected kernel's tail instantiations, the others in its group ones)."""
+    return dict(ptxas_line(kern, spec, kc, audit, g) for g in (kc.groups or (None,)))
 
 
 def chain_plans(kern, spec, kc, phase, tile=None):
@@ -2708,11 +2755,15 @@ def hwconfig_phase(torch, dev, card):
     arts = {}
     with tempfile.TemporaryDirectory() as tmp:
         for cname, hw in {"pe4": HardwareConfig(), **configs}.items():
+            t_art = time.perf_counter()
             for task in ("sr_x2", "nr", "sweep"):
                 arts[cname, task] = artifact(task, cname, hw, tmp)
+            print(f"[12] {cname}: three artifacts built in {time.perf_counter() - t_art:.1f} s",
+                  flush=True)
             if cname == "pe4":
                 continue
             for task in ("sr_x2", "nr", "sweep"):
+                t_task = time.perf_counter()
                 spec, _, _, _, data = nets[task]
                 qp, path = arts[cname, task]
                 # the main path at this config, counters at 0 before it
@@ -2772,7 +2823,8 @@ def hwconfig_phase(torch, dev, card):
                       f"{tuple(x4.shape[1:3])} at batch 1 and 4, sim and sim --corrected: "
                       f"array_equal with plain (cuda); slabs of {slab_h} rows and 2 x 2 "
                       f"virtual ranks equal the served frame; launches {got}; K1 split "
-                      f"{kc1.pe_split}, general {kc1.general}{cli}", flush=True)
+                      f"{kc1.pe_split}, general {kc1.general}{cli}; "
+                      f"{time.perf_counter() - t_task:.1f} s", flush=True)
                 del x4
         # the forms the served paths may not reach at a config: the corrected
         # kernel with every layer split (its pe_groups column groups), and a
@@ -2885,9 +2937,8 @@ def hwconfig_phase(torch, dev, card):
                     ms4 = at_pe4[kern.symbol, task, mode]
                     ref = f"{ms / ms4:.4f} (at 4 PEs {ms4:.4f} ms)"
             kw = plain_kwargs(kern, qp, mode)
-            # (one timed call of the plain version at the sweep's configs)
-            plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev,
-                                 3 if cname in NEW_CONFIGS else 1)
+            # one timed call of the plain version, warm from the main path
+            plain_ms = median_ms(lambda: integer_forward(spec, qp, x, **kw), dev, 1, warmup=0)
             weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
             n, h, w = x.shape[:3]
             macs = weights * n * h * w
@@ -3028,7 +3079,7 @@ def halo_ratio(spec, tile):
     return chain_halo(spec, [(None, tile, 0)])
 
 
-def family_phase(torch, dev, card, hw_jobs=()):
+def family_phase(torch, dev, card, handed):
     """Phase 14, SESR-M11 x2 and SESR-XL x2 on the card: each calibrated
     from seeded collapsed weights and certified with the port's own
     ``calibrate`` and ``certify_fast``, an M11 and an XL whose convs
@@ -3054,8 +3105,10 @@ def family_phase(torch, dev, card, hw_jobs=()):
     registers and shared memory (CUPTI, the wrapper's plan and the
     library's, which must agree; the corrected kernel's B regions; CUPTI
     again at the default tile in ``cupti_process``, which must give the
-    plan) and ptxas's registers and spills of the instantiation. Returns the
-    kernels-line entries."""
+    plan) and ptxas's registers and spills of the instantiation. The CUPTI
+    process ``handed`` (``cupti_start`` of the earlier phases' jobs) runs
+    beside the main path and is waited for before the first time is taken.
+    Returns the kernels-line entries."""
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec, spec_for_task
     from sesr_tpu_torch.convert import kernel_constants
     from sesr_tpu_torch.deploy import select_forward
@@ -3252,12 +3305,12 @@ def family_phase(torch, dev, card, hw_jobs=()):
     # and 9 fire the 18-bit clamp; at 16 the split layers' B in pieces): one
     # counting launch a call, the counters at 0 before it, counts
     # array_equal with the plain interpreter's overflow_18 on the card and
-    # the output torch.equal
+    # the output torch.equal; timed after the CUPTI process has ended
     xl_spec, xlu_qp, _ = nets["xlu"]
     audited = {"xlu": xlu_qp,
                "xlu_pe8": dataclasses.replace(xlu_qp, hw=dataclasses.replace(xlu_qp.hw, pe=8)),
                "xlu_pe16": nets["xlu_pe16"][1]}
-    audit_entries = []
+    to_time = []
     for key, aqp in audited.items():
         reset_launch_counts()
         got = audit_check(torch, xl_spec, aqp, x1, f"{aqp.hw.pe} PEs, batch 1", 14)
@@ -3266,9 +3319,7 @@ def family_phase(torch, dev, card, hw_jobs=()):
                  f"{corrected_net.audit_launches} counting launches, want one counting launch")
         if not all(got[i] for i in SATURATED):
             fail(f"[14] the audit of {key}: convs {SATURATED} did not fire ({got.tolist()})")
-        audit_entries.append(audit_entry(
-            torch, dev, xl_spec, aqp, x1, f"sesr_corrected_audit[{xl_spec.name}, {aqp.hw.pe} PEs]",
-            tag, 14, (1, 1)))
+        to_time.append((xl_spec, aqp, f"sesr_corrected_audit[{xl_spec.name}, {aqp.hw.pe} PEs]"))
     # the wide form: the saturated M11 at pe16_wide, its largest |pe_add +
     # bias| per layer on x1 from the plain interpreter's dumps on the card,
     # on the corrected datapath (past 2^22 on conv 3 and the last conv, the
@@ -3301,10 +3352,14 @@ def family_phase(torch, dev, card, hw_jobs=()):
         fail(f"[14] the audit of m11w launched {counts()} and {corrected_net.audit_launches} "
              f"counting launches, want one counting launch")
     audited["m11w"] = wqp
-    audit_entries.append(audit_entry(
-        torch, dev, m11_spec, wqp, x1, f"sesr_corrected_audit[{m11_spec.name}, pe16_wide]", tag,
-        14, (1, 1)))
+    to_time.append((m11_spec, wqp, f"sesr_corrected_audit[{m11_spec.name}, pe16_wide]"))
 
+    # no time is taken beside the CUPTI process: it ends here
+    t0 = time.perf_counter()
+    cupti_check(handed, tag)
+    print(f"[14] waited {time.perf_counter() - t0:.1f} s for the CUPTI process", flush=True)
+    audit_entries = [audit_entry(torch, dev, aspec, aqp, x1, name, tag, 14, (1, 1))
+                     for aspec, aqp, name in to_time]
     # timing, each kernel batch 1 at its default tile and K1 / K2 over the sweep
     lib = _build.load("sesr_net")
     lib_c = _build.load("sesr_corrected")
@@ -3418,7 +3473,8 @@ def family_phase(torch, dev, card, hw_jobs=()):
                                plan=kern.smem_bytes(spec, tile0, kc.pe_split, kc.pe,
                                                     kc.general)))
         kw = plain_kwargs(kern, qp, mode)
-        plain_ms = median_ms(lambda: integer_forward(spec, qp, x1, **kw), dev, 3)
+        # one timed call of the plain version, warm from the main path
+        plain_ms = median_ms(lambda: integer_forward(spec, qp, x1, **kw), dev, 1, warmup=0)
         print(f"[14] {label}: {ms:.4f} ms/frame at tile {tile0[0]}x{tile0[1]}, "
               f"{'general' if kc.general else 'shipped'} instantiation {pkey}: ptxas {p_regs} "
               f"registers, {p_spill} B spill stores; per-PE passes on convs "
@@ -3459,23 +3515,43 @@ def family_phase(torch, dev, card, hw_jobs=()):
                                plan=corrected_net.smem_bytes(aspec, tile0, kc.pe_split, kc.pe,
                                                              kc.general)))
     entries += audit_entries
-    cupti_jobs += hw_jobs
-    labels = [job["label"] for job in cupti_jobs]
+    cupti_check(cupti_start(cupti_jobs, "jobs.json"), tag)
+    print(f"[14] the family phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    return entries
+
+
+def cupti_start(jobs, name):
+    """``chip_smoke.py --cupti`` on ``jobs`` (written to build/chip_smoke_cupti/
+    ``name``) in a process of its own, started and not waited for: (the
+    process, the jobs, its start time)."""
+    labels = [job["label"] for job in jobs]
     if len(set(labels)) != len(labels):
         fail(f"[14] CUPTI jobs share a label: {sorted({k for k in labels if labels.count(k) > 1})}")
-    jobs_path = os.path.join(cupti_dir, "jobs.json")
+    jobs_path = os.path.join(REPO, "build", "chip_smoke_cupti", name)
+    os.makedirs(os.path.dirname(jobs_path), exist_ok=True)
     with open(jobs_path, "w") as f:
-        json.dump(cupti_jobs, f)
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--cupti", jobs_path],
-                         capture_output=True, text=True, timeout=300)
-    if res.returncode != 0:
-        fail(f"[14] the CUPTI process failed:\n{res.stdout[-2000:]}{res.stderr[-4000:]}")
-    *notes, last = res.stdout.strip().splitlines()
+        json.dump(jobs, f)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cupti", jobs_path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, jobs, time.perf_counter()
+
+
+def cupti_check(run, tag):
+    """Wait for a CUPTI process of ``cupti_start`` and hold each job's shared
+    memory per block to its plan."""
+    proc, jobs, t0 = run
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("[14] the CUPTI process took more than 300 s")
+    if proc.returncode != 0:
+        fail(f"[14] the CUPTI process failed:\n{out[-2000:]}{err[-4000:]}")
+    *notes, last = out.strip().splitlines()
     for line in notes:
         print(f"[14] the CUPTI process: {line}", flush=True)
     attrs = json.loads(last)
-    for job in cupti_jobs:
+    for job in jobs:
         regs, smem = attrs[job["label"]]
         print(f"[14] {job['label']} tile {job['tile'][0]}x{job['tile'][1]}: CUPTI (a process "
               f"of its own) {regs} registers, {smem} B shared memory per block (plan "
@@ -3483,9 +3559,8 @@ def family_phase(torch, dev, card, hw_jobs=()):
         if smem != job["plan"]:
             fail(f"[14] {job['label']}: CUPTI reports {smem} B of shared memory, the plan "
                  f"{job['plan']}")
-    print(f"[14] the CUPTI process took {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"[14] the family phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
-    return entries
+    print(f"[14] the CUPTI process of {len(jobs)} jobs took {time.perf_counter() - t0:.1f} s "
+          f"after its start", flush=True)
 
 
 def out_channels_phase(torch, dev, card):
@@ -3659,7 +3734,9 @@ def out_channels_phase(torch, dev, card):
             pkey = (name, cname, mode if mode in ("sim", "hybrid") else "fast"
                     if mode in ("fast", "k2") else "pe-exact")
             if pkey not in plain_ms:
-                plain_ms[pkey] = median_ms(lambda: mode_plain(mode, spec, qp, x1), dev, 3)
+                # one timed call of the plain version, warm from the main path
+                plain_ms[pkey] = median_ms(lambda: mode_plain(mode, spec, qp, x1), dev, 1,
+                                           warmup=0)
             weights = sum(int(np.prod(np.shape(w))) for w in qp.w_int)
             n, h, w = x_q.shape[:3]
             macs = weights * n * h * w
@@ -3772,17 +3849,58 @@ def out_sweep(torch, dev, calibrated, hit, instance, tag):
 # partition), and the sweep config each also runs at
 DEEP_SATURATED = {"m16": (3, 12), "xl22": (3, 18)}
 DEEP_CONFIG = {"m16": "pe3_nondivisible", "xl22": "pe8_wide"}
+# the main path's modes ("K2": K2 where certified, else its wrapper) and
+# batches at each config ("config": the sweep config)
+DEEP_MODES = {"pe4": (("sim", "K2", "hybrid", "pe-exact", "audit"), (1, 4)),
+              "pe4_sat": (("sim", "hybrid", "pe-exact", "audit"), (1,)),
+              "pe16": (("sim", "K2", "pe-exact", "audit"), (1,)),
+              "config": (("sim", "pe-exact"), (1,))}
 # phase 16's sweep of the layer-group instantiations on a small batch: a
 # 33-conv network at each padded count of its last conv (out_cols 8, 16,
 # 32, 48: 3, 12, 27 and 48 outputs) at widths 16 and 32, which the
 # partition rule runs in three groups or more (the first writes, a middle
-# one reads and writes, the last reads), calibrated at 4 PEs on the card
-# and run at SWEEP_HW's configs: K1 and K2 at 4 PEs (wide sums or not),
-# the corrected kernel's PE-exact mode and counting form at every config
-# (its group form takes 1 to 16 outputs)
+# one reads and writes, the last reads), and a two-conv network at each
+# (one group, whose first conv also adds the shortcut), calibrated at 4
+# PEs on the card and run at SWEEP_HW's configs: K1 and K2 at 4 PEs (wide
+# sums or not), the corrected kernel's PE-exact mode and counting form at
+# every config (past 16 outputs, and the two-conv group, in its tail
+# instantiations)
+GROUP_NETS_CONVS = 33
 GROUP_NETS = {f"g{c}_{oc}": dict(name=f"g{c}_{oc}", in_channels=3, out_channels=3,
-                                 num_channels=c, num_lblocks=31, scaling_factor=s)
+                                 num_channels=c, num_lblocks=GROUP_NETS_CONVS - 2,
+                                 scaling_factor=s)
               for c in (16, 32) for oc, s in ((3, 1), (12, 2), (27, 3), (48, 4))}
+PAIR_NETS = {f"p{c}_{oc}": dict(name=f"p{c}_{oc}", in_channels=3, out_channels=3,
+                                num_channels=c, num_lblocks=0, scaling_factor=s)
+             for c in (16, 32) for oc, s in ((3, 1), (12, 2), (27, 3), (48, 4))}
+# phase 17: the layer-group form's corners (Bhardwaj et al., MLSys 2022:
+# depth, num_lblocks, is the family's own knob; widths 16 as SESR-M*, 32
+# as SESR-XL): RGB x4 at 18 convs and x3 at 24, whose last conv of 48 / 27
+# outputs runs in the corrected kernel's tail group past 16 convs, and two
+# convs (num_lblocks 0) at x2 and at RGB x4 (both corners at once), from
+# seeded weights, at the input whose output is 1080x1920 (out_frame)
+CORNER_NETS = {"m16_x4": dict(name="sesr_m16_x4_rgb", in_channels=3, out_channels=3,
+                              num_channels=16, num_lblocks=16, scaling_factor=4),
+               "xl22_x3": dict(name="sesr_xl22_x3_rgb", in_channels=3, out_channels=3,
+                               num_channels=32, num_lblocks=22, scaling_factor=3),
+               "m0_x2": dict(name="sesr_m0_x2", in_channels=3, out_channels=3,
+                             num_channels=16, num_lblocks=0, scaling_factor=2),
+               "xl0_x4": dict(name="sesr_xl0_x4_rgb", in_channels=3, out_channels=3,
+                              num_channels=32, num_lblocks=0, scaling_factor=4)}
+# each network's convs at +127 (a split conv in its last group; the
+# two-conv networks' last conv), and its sweep config
+CORNER_SATURATED = {"m16_x4": (3, 12), "xl22_x3": (3, 18), "m0_x2": (1,), "xl0_x4": (1,)}
+# the mode each saturated copy of phases 16 and 17 serves: hybrid, but
+# pe-exact for sesr_xl0_x4_rgb, whose certificate stamps neither of its two
+# convs once its last is at +127 (its 4-PE artifact, which must serve
+# hybrid, runs ``infer --audit 1`` instead)
+SATURATED_SERVES = {"m16": "hybrid", "xl22": "hybrid", "m16_x4": "hybrid",
+                    "xl22_x3": "hybrid", "m0_x2": "hybrid", "xl0_x4": "pe-exact"}
+CORNER_CONFIG = {"m16_x4": "pe3_nondivisible", "xl22_x3": "pe8_wide", "m0_x2": "pe2_servable",
+                 "xl0_x4": "pe2_narrow"}
+# every mode at batch 1 and 4 at each config
+CORNER_MODES = {"pe4_sat": (("sim", "hybrid", "pe-exact", "audit"), (1,)),
+                "config": (("sim", "K2", "hybrid", "pe-exact", "audit"), (1, 4))}
 
 
 def mode_kernel(mode):
@@ -3792,17 +3910,18 @@ def mode_kernel(mode):
     return {"sim": pe_exact_net, "fast": fast_net, "k2": fast_net}.get(mode, corrected_net)
 
 
-def mode_constants(mode, spec, qp):
+def mode_constants(mode, spec, qp, device="cpu"):
     """(wrapper, split mask, KernelConstants) of ``mode_forward(mode, ...)``'s
-    launch."""
-    from sesr_tpu_torch.convert import kernel_constants
+    launch on ``device``, from the wrappers' own cache on the QuantParams
+    (a call on that device then reuses it)."""
+    from sesr_tpu_torch.convert import device_constants
     from sesr_tpu_torch.ops.corrected import split_layers
     from sesr_tpu_torch.ops.kernels import corrected_net
 
     kern = mode_kernel(mode)
     split = split_layers(qp, "pe-exact" if mode == "audit" else mode) \
         if kern is corrected_net else None
-    return kern, split, kernel_constants(spec, qp, kern.datapath, split)
+    return kern, split, device_constants(spec, qp, kern.datapath, device, split)[0]
 
 
 def mode_forward(mode, spec, qp, x):
@@ -3836,25 +3955,45 @@ def mode_forward(mode, spec, qp, x):
 def mode_plain(mode, spec, qp, x):
     """The plain interpreter's output of ``mode_forward(mode, ...)`` on the
     card ("audit": (output, overflow_18))."""
+    return chain_plain(mode, spec, qp, x, len(x), {})
+
+
+def chain_plain(mode, spec, qp, x, batch, memo):
+    """``mode_plain(mode, spec, qp, x[:batch])`` from one run of the plain
+    interpreter on the card a datapath over the largest batch ``x`` (its
+    frames are independent, so a smaller batch's output is the first
+    frames'), kept in ``memo`` (one dict a network and config: K2's two
+    modes share the fast datapath's run, the PE-exact mode and the counting
+    form the corrected one's); the counting form's counts are a batch's
+    own, so its run is the batch's."""
     import torch
 
-    from sesr_tpu_torch.quant.integer import integer_forward, integer_forward_int8
+    from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
+    from sesr_tpu_torch.quant.integer import integer_forward
 
+    L = spec.num_convs
+    corrected, compute, fast_layers = {
+        "sim": (False, "exact", None), "fast": (True, "fast", None), "k2": (True, "fast", None),
+        "hybrid": (True, "exact", qp.fast_cert_layers and tuple(qp.fast_cert_layers))}.get(
+            mode, (True, "exact", None))
+    n = batch if mode == "audit" else len(x)
+    key = (corrected, compute, fast_layers, n)
+    if key not in memo:
+        # (the reference datapath's run serves "sim" alone: its output)
+        y, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True), x[:n],
+                                   collect_dumps=corrected, corrected=corrected,
+                                   compute=compute, fast_layers=fast_layers)
+        memo[key] = (y, dumps[f"input.{L}"].to(torch.int8), dumps["overflow_18"]) \
+            if corrected else (y, None, None)
+        del dumps
+    y, out, ovf18 = memo[key]
     if mode == "sim":
-        return integer_forward(spec, qp, x)[0]
-    if mode == "fast":
-        return integer_forward_int8(spec, qp, x, corrected=True, compute="fast")
-    if mode == "k2":                    # the last conv's int8 output, before the shuffle
-        _, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True), x,
-                                   collect_dumps=True, corrected=True, compute="fast")
-        return dumps[f"input.{spec.num_convs}"].to(torch.int8)
-    if mode == "hybrid":
-        return integer_forward_int8(spec, qp, x, corrected=True, compute="exact",
-                                    fast_layers=tuple(qp.fast_cert_layers))
-    if mode == "pe-exact":
-        return integer_forward_int8(spec, qp, x, corrected=True, compute="exact")
-    y, dumps = integer_forward(spec, qp, x, collect_dumps=True, corrected=True)
-    return y, dumps["overflow_18"]
+        return y[:batch]
+    if mode == "audit":
+        return y, ovf18
+    if mode != "k2" and spec.has_pixel_shuffle:
+        out = pixel_shuffle_nhwc(out, spec.scaling_factor)
+    return out[:batch]
 
 
 def sweep_plain(mode, spec, qp, x, memo):
@@ -3949,17 +4088,19 @@ def boundary_bytes(spec, kc, plans, n, h, w, sc_bytes):
 def group_sweep(torch, dev, tag, rng, hit):
     """Phase 16's sweep of every layer-group instantiation: GROUP_NETS (33
     convs, three groups or more a chain: a first, a middle and a last
-    group) calibrated on the card at 4 PEs and run on a SWEEP_BATCH batch
-    at SWEEP_HW's configs through K1 and K2 at 4 PEs, the corrected
-    kernel's PE-exact mode and counting form, one launch a group, each
-    output, count and boundary tensor torch.equal with the plain
-    interpreter's, each group's plan the library's; fails unless every
-    instantiation in the two libraries' ptxas reports was launched in the
-    phase (``hit``, which it extends). Returns a CUPTI job for a middle
-    group of each instantiation's first chain."""
+    group) and PAIR_NETS (two convs, one group whose first conv also adds
+    the shortcut) calibrated on the card at 4 PEs and run on a SWEEP_BATCH
+    batch at SWEEP_HW's configs through K1 and K2 at 4 PEs, the corrected
+    kernel's PE-exact mode and counting form (past 16 outputs the last
+    group in its tail instantiations), one launch a group, each output,
+    count and boundary tensor torch.equal with the plain interpreter's,
+    each group's plan the library's; fails unless every instantiation in
+    the two libraries' ptxas reports (the group, two-conv and tail kernels)
+    was launched in the phase (``hit``, which it extends). Returns a CUPTI
+    job for each instantiation's first group in the sweep: a middle group
+    of a 33-conv chain, or the tail or two-conv group that runs it."""
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec
     from sesr_tpu_torch.models.sesr import init_params
-    from sesr_tpu_torch.ops import _build
     from sesr_tpu_torch.ops.kernels import NET_KERNELS, corrected_net, reset_launch_counts
     from sesr_tpu_torch.quant.calibrate import calibrate
 
@@ -3968,8 +4109,9 @@ def group_sweep(torch, dev, tag, rng, hit):
     os.makedirs(cupti_dir, exist_ok=True)
     runs = held = 0
     jobs, swept = [], set()
-    for seed, (name, kw) in enumerate(GROUP_NETS.items()):
+    for seed, (name, kw) in enumerate((*GROUP_NETS.items(), *PAIR_NETS.items())):
         spec = SESRSpec(**kw)
+        pair = spec.num_convs == 2
         params = init_params(spec, torch.Generator().manual_seed(160 + seed))
         calib = [rng.random((1, 48, 64, 3), dtype=np.float32)]
         qp = calibrate(spec, params, calib, safe_zero_floor=True, device="cuda")
@@ -3978,11 +4120,10 @@ def group_sweep(torch, dev, tag, rng, hit):
             hq = dataclasses.replace(qp, hw=HardwareConfig(**hw), fast_cert_layers=None,
                                      fast_cert_ok=False)
             calls = ["sim", "k2"] if hq.hw.pe == 4 else ["sim"]
-            if spec.conv_out_channels <= 16:
-                calls += ["pe-exact", "audit"]
+            calls += ["pe-exact", "audit"]
             memo = {}
             for mode in calls:
-                kern, _, kc = mode_constants(mode, spec, hq)
+                kern, _, kc = mode_constants(mode, spec, hq, dev)
                 reset_launch_counts()
                 # the plain interpreter once a datapath: outputs and boundaries
                 got = mode_forward(mode, spec, hq, x)
@@ -3993,47 +4134,54 @@ def group_sweep(torch, dev, tag, rng, hit):
                     if not torch.equal(counts, want_counts):
                         fail(f"[16] sweep {name} {hname} audit: counts {counts.tolist()} "
                              f"against the plain {want_counts.tolist()}")
-                if len(kc.groups) < 3 or made != len(kc.groups) or got.shape != want.shape \
+                groups_ok = len(kc.groups) == 1 if pair else len(kc.groups) >= 3
+                if not groups_ok or made != len(kc.groups) or got.shape != want.shape \
                         or not torch.equal(got, want):
-                    fail(f"[16] sweep {name} {hname} {mode}: {len(kc.groups)} groups (want 3 or "
-                         f"more), {made} launches (want one a group), equal "
-                         f"{got.shape == want.shape and torch.equal(got, want)}")
-                ikey = ptxas_line(kern, spec, kc, mode == "audit")[0]
+                    fail(f"[16] sweep {name} {hname} {mode}: {len(kc.groups)} groups (want "
+                         f"{'1' if pair else '3 or more'}), {made} launches (want one a group), "
+                         f"equal {got.shape == want.shape and torch.equal(got, want)}")
                 plans = chain_plans(kern, spec, kc, 16)     # each group's plan = the library's
-                if ikey not in swept:
+                for gi, g in enumerate(kc.groups):
+                    ikey = ptxas_line(kern, spec, kc, mode == "audit", g)[0]
+                    hit.add(ikey)
+                    # a middle group of a chain of the group instantiations; the
+                    # group that runs a two-conv or tail one
+                    if ikey in swept or (gi in (0, len(kc.groups) - 1) and "_group_" in ikey):
+                        continue
+                    swept.add(ikey)
                     qp_path = os.path.join(cupti_dir, f"p16_sweep_{name}_{hname}.npz")
                     if not os.path.exists(qp_path):
                         hq.save(qp_path)
-                    g, t, b = plans[1]
+                    _, t, b = plans[gi]
                     jobs.append(dict(label=f"{ikey} sweep {name} {hname} {mode} convs "
-                                           f"{g.first}-{g.last} (a middle group)",
+                                           f"{g.first}-{g.last}",
                                      spec=dataclasses.asdict(spec), qparams=qp_path,
                                      symbol=kern.symbol, audit=mode == "audit", tile=list(t),
-                                     plan=b, index=1, groups=len(plans),
+                                     plan=b, index=gi, groups=len(plans),
                                      shape=list(SWEEP_BATCH),
                                      mode="pe-exact" if kern is corrected_net else None,
                                      pattern=kernel_family(kern, kc, mode == "audit")))
-                hit.add(ikey)
-                swept.add(ikey)
                 if mode != "audit":
                     held += boundaries_held(torch, kern, spec, hq, x, dumps)
                 runs += 1
     torch.cuda.synchronize()
     want = set()
-    for lib, families in (("sesr_net_group", ("sesr_net_group_kernel",)),
+    for lib, families in (("sesr_net_group", ("sesr_net_group_kernel", "sesr_net_pair_kernel")),
                           ("sesr_corrected_group", ("sesr_corrected_group_kernel",
-                                                    "sesr_corrected_group_audit_kernel"))):
-        log = _build.build(lib).log
+                                                    "sesr_corrected_group_audit_kernel",
+                                                    "sesr_corrected_tail_kernel",
+                                                    "sesr_corrected_tail_audit_kernel"))):
         for family in families:
-            want |= {f"{family}<{args}>" for args in _build.ptxas_report(log, family)}
+            want |= {f"{family}<{args}>" for args in ptxas_report(lib, family)}
     missing = sorted(want - hit)
-    print(f"[16] sweep: {len(GROUP_NETS)} networks of {spec.num_convs} convs at "
-          f"{len(SWEEP_HW)} configs, {runs} chains on {SWEEP_BATCH} (three groups or more, "
-          f"one launch a group), each torch.equal with the plain interpreter (cuda), each "
-          f"group's plan the library's, {held} boundary tensors (activations and shortcuts) "
-          f"torch.equal with the plain interpreter's; layer-group instantiations launched in "
-          f"phase 16: {len(want & hit)} of {len(want)}, {len(jobs)} CUPTI jobs (a middle group "
-          f"each); {time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    print(f"[16] sweep: {len(GROUP_NETS)} networks of {GROUP_NETS_CONVS} convs and "
+          f"{len(PAIR_NETS)} of 2 at {len(SWEEP_HW)} configs, {runs} chains on {SWEEP_BATCH} "
+          f"(three groups or more, or the two-conv group; one launch a group), each torch.equal "
+          f"with the plain interpreter (cuda), each group's plan the library's, {held} boundary "
+          f"tensors (activations and shortcuts) torch.equal with the plain interpreter's; "
+          f"layer-group instantiations launched in phase 16: {len(want & hit)} of {len(want)}, "
+          f"{len(jobs)} CUPTI jobs (a middle, tail or two-conv group each); "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
     if missing:
         fail(f"[16] layer-group instantiations phase 16 never launched: {missing}")
     return jobs
@@ -4041,29 +4189,59 @@ def group_sweep(torch, dev, tag, rng, hit):
 
 def deep_phase(torch, dev, card):
     """Phase 16, networks deeper than one launch runs (DEEP_NETS: 18 and 24
-    convs) on the card as chains of layer groups: each calibrated from
-    seeded weights and certified (``certify_fast``, its kernel equality run
-    through the chain) on the card at 4 PEs, at pe16 and at a sweep config
-    (DEEP_CONFIG), and a copy at 4 PEs with DEEP_SATURATED at +127 (a split
-    conv in each group). Then, with the launch counters at 0 before and read
-    after each call, at 540x960: K1 (``pe_exact_forward``), K2 (fast where
-    certified, else its wrapper against the plain fast datapath), both
-    corrected modes and the counting form, batch 1 and 4 at 4 PEs, batch 1
-    elsewhere; each call must launch its kernel once a group (the counting
-    form: once a group, counted in ``audit_launches``), each output
-    torch.equal with the plain interpreter on the card, each count array
-    with its overflow_18. ``serve`` with ``audit_every=1`` (``infer --audit
-    1``) on the saturated network, its audits on the counting chain held to
-    the plain interpreter; one network through ``virtual_rank_forward``'s
+    convs) on the card as chains of layer groups, at 540x960
+    (``chain_phase``: each calibrated and certified at 4 PEs, pe16 and
+    DEEP_CONFIG, a copy at 4 PEs with DEEP_SATURATED at +127, the main path
+    of DEEP_MODES, ``infer --audit 1``, two virtual ranks of m16, then
+    ``group_sweep``, then the times and plans). Returns (the kernels-line
+    entries, the CUPTI jobs)."""
+    return chain_phase(torch, dev, card, 16, DEEP_NETS, DEEP_CONFIG, DEEP_SATURATED, DEEP_MODES,
+                       lambda spec: FRAME, "m16", group_sweep)
+
+
+def corner_phase(torch, dev, card):
+    """Phase 17, the layer-group form's two corners on the card
+    (CORNER_NETS): RGB x3 / x4 networks past 16 convs, whose last group
+    runs the corrected kernel's tail instantiations, and two-conv networks,
+    one group whose first conv also adds the shortcut, each at the input
+    whose output is 1080x1920 (out_frame), through ``chain_phase``: every
+    mode at batch 1 and 4 at 4 PEs, pe16 and CORNER_CONFIG, a copy at 4 PEs
+    with CORNER_SATURATED at +127 (a split conv in the last group),
+    ``infer --audit 1``, sesr_m0_x2 at two virtual ranks, then the times
+    and plans (phase 16's sweep launches every two-conv and tail
+    instantiation). Returns (the kernels-line entries, the CUPTI jobs)."""
+    return chain_phase(torch, dev, card, 17, CORNER_NETS, CORNER_CONFIG, CORNER_SATURATED,
+                       CORNER_MODES, out_frame, "m0_x2", None)
+
+
+def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, frame_of,
+                sharded, sweep):
+    """Networks that run as chains of layer groups on the card (phases 16
+    and 17): each of ``nets_kw`` calibrated from seeded weights and
+    certified (``certify_fast``, its kernel equality run through the chain)
+    on the card at 4 PEs, at pe16 and at its sweep config (``configs``),
+    and a copy at 4 PEs with the convs ``saturated`` at +127 (a split conv
+    in the last group: it serves SATURATED_SERVES' mode). Then, with the
+    launch counters at
+    0 before and read after each call, at ``frame_of(spec)``: the modes and
+    batches of ``modes_of`` (K1 ``pe_exact_forward``; "K2": K2 where
+    certified, else its wrapper against the plain fast datapath; both
+    corrected modes; the counting form) at each config; each call must
+    launch its kernel once a group (the counting form: once a group,
+    counted in ``audit_launches``), each output torch.equal with the plain
+    interpreter on the card, each count array with its overflow_18.
+    ``serve`` with ``audit_every=1`` (``infer --audit 1``) on the saturated
+    networks, its audits on the counting chain held to the plain
+    interpreter; the network ``sharded`` through ``virtual_rank_forward``'s
     windows at 2 virtual ranks, equal to its monolithic chain. Then
-    ``group_sweep``. Then each (kernel, network, mode, config)'s device ms
-    per frame at batch 1, bound and share, launches per call, each group's
-    tile and plan (held to the library's; CUPTI's in phase 14's process
-    through the jobs returned, the sweep's among them), MACs computed over
-    needed (``chain_halo``) beside a single launch's at the largest tile its
-    plan fits (not run), the bytes crossing the boundaries, ptxas's
-    registers and spills. Returns (the kernels-line entries, the CUPTI
-    jobs)."""
+    ``sweep``. Then each (kernel, network, mode, config)'s device ms per
+    frame at batch 1, bound and share, launches per call, each group's tile
+    and plan (held to the library's; CUPTI's in phase 14's process through
+    the jobs returned, the sweep's among them), MACs computed over needed
+    (``chain_halo``) beside a single launch's at the largest tile its plan
+    fits (not run), the bytes crossing the boundaries, ptxas's registers
+    and spills of each instantiation. Returns (the kernels-line entries,
+    the CUPTI jobs)."""
     from sesr_tpu_torch.cli import serve
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec
     from sesr_tpu_torch.deploy import select_forward
@@ -4079,14 +4257,14 @@ def deep_phase(torch, dev, card):
 
     tag = f"({card})"
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(16)
+    rng = np.random.default_rng(phase)
     nets = {}
-    for seed, (key, kw) in enumerate(DEEP_NETS.items()):
+    for seed, (key, kw) in enumerate(nets_kw.items()):
         spec = SESRSpec(**kw)
-        params = init_params(spec, torch.Generator().manual_seed(16 + seed))
+        params = init_params(spec, torch.Generator().manual_seed(phase + seed))
         calib = [rng.random((1, 96, 128, 3), dtype=np.float32) for _ in range(2)]
         cert = [rng.random((1,) + CERT_FRAME + (3,), dtype=np.float32) for _ in range(2)]
-        for cname in ("pe4", "pe16", DEEP_CONFIG[key]):
+        for cname in ("pe4", "pe16", configs[key]):
             t0 = time.perf_counter()
             qp = calibrate(spec, params, calib, hw=HardwareConfig(**HW_CONFIGS.get(cname, {})),
                            safe_zero_floor=True, device="cuda")
@@ -4094,27 +4272,31 @@ def deep_phase(torch, dev, card):
             reset_launch_counts()
             qp = certify_fast(spec, qp, cert, device="cuda")
             made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
-            print(f"[16] {spec.name} ({spec.num_convs} convs of {spec.num_channels}) at {cname}: "
-                  f"calibrate {t1 - t0:.2f} s, certify_fast {time.perf_counter() - t1:.2f} s on "
-                  f"the card ({made} launches: the kernel equality through the chain); "
-                  f"{qp.cert_grade} {qp.cert_stamps}, serves {select_forward(qp)[0]}", flush=True)
+            print(f"[{phase}] {spec.name} ({spec.num_convs} convs of {spec.num_channels}, "
+                  f"{spec.conv_out_channels} outputs) at {cname}: calibrate {t1 - t0:.2f} s, "
+                  f"certify_fast {time.perf_counter() - t1:.2f} s on the card ({made} launches: "
+                  f"the kernel equality through the chain); {qp.cert_grade} {qp.cert_stamps}, "
+                  f"serves {select_forward(qp)[0]}", flush=True)
             nets[key, cname] = (spec, qp, cert)
         spec, qp, cert = nets[key, "pe4"]
-        sats = DEEP_SATURATED[key]
+        sats = saturated[key]
         sat = dataclasses.replace(qp, w_int=[
             np.full_like(np.asarray(w), 127) if i in sats else np.asarray(w)
             for i, w in enumerate(qp.w_int)])
         sat = certify_fast(spec, sat, cert, device="cuda")
         hyb = split_layers(sat, "hybrid")
-        print(f"[16] {spec.name} with convs {sats} at +127: {sat.cert_grade} {sat.cert_stamps}, "
-              f"serves {select_forward(sat)[0]}; split hybrid "
+        print(f"[{phase}] {spec.name} with convs {sats} at +127: {sat.cert_grade} "
+              f"{sat.cert_stamps}, serves {select_forward(sat)[0]}; split hybrid "
               f"{[i for i, f in enumerate(hyb) if f]}", flush=True)
-        if select_forward(sat)[0] != "hybrid" or not all(hyb[i] for i in sats):
-            fail(f"[16] the saturated {spec.name} should serve hybrid with convs {sats} split")
+        serves = SATURATED_SERVES[key]
+        if select_forward(sat)[0] != serves or not all(hyb[i] for i in sats):
+            fail(f"[{phase}] the saturated {spec.name} should serve {serves} with convs {sats} "
+                 f"split")
         nets[key, "pe4_sat"] = (spec, sat, cert)
 
-    x4 = {key: torch.from_numpy(rng.random((4,) + FRAME + (3,), dtype=np.float32)).to(dev)
-          for key in DEEP_NETS}
+    x4 = {key: torch.from_numpy(rng.random((4, *frame_of(SESRSpec(**kw)), 3),
+                                           dtype=np.float32)).to(dev)
+          for key, kw in nets_kw.items()}
     # the main path: every (network, config, mode), counters at 0 before
     # each call and read after
     own, hit = {}, set()
@@ -4123,16 +4305,17 @@ def deep_phase(torch, dev, card):
     for (key, cname), (spec, qp, _) in nets.items():
         served = select_forward(qp)[0]
         k2 = "fast" if qp.fast_cert_ok else "k2"
-        modes, batches = {"pe4": (("sim", k2, "hybrid", "pe-exact", "audit"), (1, 4)),
-                          "pe4_sat": (("sim", "hybrid", "pe-exact", "audit"), (1,)),
-                          "pe16": (("sim", k2, "pe-exact", "audit"), (1,))}.get(
-                              cname, (("sim", "pe-exact"), (1,)))
+        modes, batches = modes_of.get(cname, modes_of["config"])
+        modes = tuple(k2 if m == "K2" else m for m in modes)
         modes += (served,) if served not in modes else ()
+        least = 1 if spec.num_convs == 2 else 2
+        memo = {}
         for mode in modes:
-            kern, split, kc = mode_constants(mode, spec, qp)
-            if len(kc.groups) < 2:
-                fail(f"[16] {key} {cname} {mode}: {len(kc.groups)} layer groups, want 2 or more")
-            hit.add(ptxas_line(kern, spec, kc, mode == "audit")[0])
+            kern, split, kc = mode_constants(mode, spec, qp, dev)
+            if len(kc.groups) < least or (spec.num_convs == 2 and len(kc.groups) != 1):
+                fail(f"[{phase}] {key} {cname} {mode}: {len(kc.groups)} layer groups, want "
+                     f"{'1' if spec.num_convs == 2 else '2 or more'}")
+            hit.update(chain_lines(kern, spec, kc, mode == "audit"))
             for batch in batches:
                 x = x4[key][:batch]
                 reset_launch_counts()
@@ -4140,92 +4323,104 @@ def deep_phase(torch, dev, card):
                 made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
                 if mode == "audit":
                     if made or corrected_net.audit_launches != len(kc.groups):
-                        fail(f"[16] {key} {cname} audit batch {batch} launched {made} and "
+                        fail(f"[{phase}] {key} {cname} audit batch {batch} launched {made} and "
                              f"{corrected_net.audit_launches} counting launches, want "
                              f"{len(kc.groups)} counting launches")
                     launches["sesr_corrected_audit"] += len(kc.groups)
                 elif made != {kern.symbol: len(kc.groups)} or corrected_net.audit_launches:
-                    fail(f"[16] {key} {cname} {mode} batch {batch} launched {made}, want "
+                    fail(f"[{phase}] {key} {cname} {mode} batch {batch} launched {made}, want "
                          f"{len(kc.groups)} launches of {kern.symbol} (one a group)")
                 else:
                     launches[kern.symbol] += len(kc.groups)
                 entry = own.setdefault((key, cname, mode), [0, 0])
                 entry[0] += len(kc.groups)
                 entry[1] += batch
-                want = mode_plain(mode, spec, qp, x)
+                want = chain_plain(mode, spec, qp, x4[key][:max(batches)], batch, memo)
                 counts = None
                 if mode == "audit":
                     (got, counts), (want, want_counts) = got, want
                     if not torch.equal(counts, want_counts):
-                        fail(f"[16] {key} {cname} audit batch {batch}: counts {counts.tolist()} "
-                             f"against the plain {want_counts.tolist()}")
+                        fail(f"[{phase}] {key} {cname} audit batch {batch}: counts "
+                             f"{counts.tolist()} against the plain {want_counts.tolist()}")
                 if got.shape != want.shape or not torch.equal(got, want):
-                    fail(f"[16] {key} {cname} {mode} batch {batch}: differs from the plain "
+                    fail(f"[{phase}] {key} {cname} {mode} batch {batch}: differs from the plain "
                          f"interpreter")
                 if not bool(torch.isfinite(got.float()).all()):
-                    fail(f"[16] {key} {cname} {mode} batch {batch}: non-finite output")
-                print(f"[16] {spec.name} {cname} {mode} batch {batch}: "
+                    fail(f"[{phase}] {key} {cname} {mode} batch {batch}: non-finite output")
+                print(f"[{phase}] {spec.name} {cname} {mode} batch {batch}: "
                       f"{len(kc.groups)} groups {[(g.first, g.last) for g in kc.groups]}, "
                       f"{len(kc.groups)} launches, output {tuple(got.shape)} {got.dtype} "
                       f"torch.equal with plain (cuda)"
                       f"{'' if counts is None else f'; counts {counts.tolist()}'}", flush=True)
                 del got, want
     torch.cuda.synchronize()
-    print(f"[16] main path: launches {launches}; per network, config and mode (launches, "
+    print(f"[{phase}] main path: launches {launches}; per network, config and mode (launches, "
           f"frames) {own} {tag}", flush=True)
 
-    # infer --audit 1 (cli.serve) on the saturated networks: the audits on
-    # the counting chain (the plain interpreter barred on the card), then
-    # held to it; the artifact's static proofs dropped, so that every layer
-    # stamped fast is trusted on empirical evidence and audited
-    for key in DEEP_NETS:
+    # infer --audit 1 (cli.serve) on the saturated networks (or, where the
+    # saturated copy serves pe-exact, which audits nothing, the 4-PE
+    # artifact, which must serve hybrid): the audits on the counting chain
+    # (the plain interpreter barred on the card), then held to it; the
+    # artifact's static proofs dropped, so that every layer stamped fast is
+    # trusted on empirical evidence and audited
+    for key in nets_kw:
         spec, sat, _ = nets[key, "pe4_sat"]
+        if SATURATED_SERVES[key] == "pe-exact":
+            spec, sat, _ = nets[key, "pe4"]
+            if select_forward(sat)[0] != "hybrid":
+                fail(f"[{phase}] {spec.name}: the 4-PE artifact serves "
+                     f"{select_forward(sat)[0]}, not hybrid")
+            print(f"[{phase}] {spec.name}: the saturated copy serves pe-exact, the 4-PE "
+                  f"artifact {select_forward(sat)[0]} ({sat.cert_stamps}) runs --audit 1",
+                  flush=True)
         aqp = dataclasses.replace(sat, fast_cert_static=None)
+        s = spec.scaling_factor
         data = [(x4[key][i:i + 1].cpu().numpy(),
-                 np.zeros((1, 2 * FRAME[0], 2 * FRAME[1], 3), np.float32)) for i in range(2)]
+                 np.zeros((1, s * x4[key].shape[1], s * x4[key].shape[2], 3), np.float32))
+                for i in range(2)]
         reset_launch_counts()
         with audit_on_the_kernel(torch) as audits:
             res = serve(spec, aqp, data, batch=1, device="cuda", audit_every=1)
         made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
-        held = check_audits(torch, spec, aqp, audits, 16)
-        print(f"[16] infer --audit 1 {spec.name} (convs {DEEP_SATURATED[key]} at +127): "
+        held = check_audits(torch, spec, aqp, audits, phase)
+        print(f"[{phase}] infer --audit 1 {spec.name} (convs {saturated[key]} at +127): "
               f"{res.n} frames, mode {res.mode}, {len(audits)} audits on the counting chain "
               f"({corrected_net.audit_launches} counting launches), counts {held}, equal to the "
               f"plain interpreter; launches {made}", flush=True)
         if not audits or corrected_net.audit_launches != len(audits) * len(
-                mode_constants("audit", spec, aqp)[2].groups):
-            fail(f"[16] infer --audit 1 on {spec.name}: {len(audits)} audits, "
+                mode_constants("audit", spec, aqp, dev)[2].groups):
+            fail(f"[{phase}] infer --audit 1 on {spec.name}: {len(audits)} audits, "
                  f"{corrected_net.audit_launches} counting launches")
 
-    # the sharded windows: m16 served at 2 virtual ranks (one window a rank,
-    # each a chain) against the monolithic chain
-    spec, qp, _ = nets["m16", "pe4"]
+    # the sharded windows: one network served at 2 virtual ranks (one
+    # window a rank, each a chain) against the monolithic chain
+    spec, qp, _ = nets[sharded, "pe4"]
     mode, fwd = select_forward(qp)
-    kern, _, kc = mode_constants(mode, spec, qp)
-    x = x4["m16"][:1]
+    kern, _, kc = mode_constants(mode, spec, qp, dev)
+    x = x4[sharded][:1]
     want = fwd(spec, qp, x, out_dtype="int8")
     reset_launch_counts()
     got = virtual_rank_forward(spec, qp, x, (1, 2), fwd, "int8")
     made = {k.symbol: k.launches for k in NET_KERNELS if k.launches}
     if made != {kern.symbol: 2 * len(kc.groups)} or not torch.equal(got, want):
-        fail(f"[16] {spec.name} at 2 virtual ranks: launches {made} (want "
+        fail(f"[{phase}] {spec.name} at 2 virtual ranks: launches {made} (want "
              f"{2 * len(kc.groups)}), equal {torch.equal(got, want)}")
-    print(f"[16] {spec.name} {mode} at 2 virtual ranks ({tuple(x.shape)}): two windows, "
+    print(f"[{phase}] {spec.name} {mode} at 2 virtual ranks ({tuple(x.shape)}): two windows, "
           f"{made} launches, torch.equal with the monolithic chain", flush=True)
 
-    # the sweep: every layer-group instantiation on a small batch
-    jobs = group_sweep(torch, dev, tag, rng, hit)
+    # the sweep: every instantiation of the phase on a small batch
+    jobs = sweep(torch, dev, tag, rng, hit) if sweep else []
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
 
     # each (kernel, network, config, mode) at batch 1: times, plans, work
     entries, plain_ms = [], {}
     for (key, cname, mode), (n_launch, n_frames) in own.items():
         spec, qp, _ = nets[key, cname]
-        kern, split, kc = mode_constants(mode, spec, qp)
+        kern, split, kc = mode_constants(mode, spec, qp, dev)
         audit = mode == "audit"
         x1 = x4[key][:1]
         x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
-        plans = chain_plans(kern, spec, kc, 16)
+        plans = chain_plans(kern, spec, kc, phase)
         n, h, w = x_q.shape[:3]
         if audit:
             ms = median_ms(lambda: corrected_net.audit(spec, qp, x_q, split), dev, 20, warmup=3,
@@ -4234,27 +4429,31 @@ def deep_phase(torch, dev, card):
             ms = median_ms(lambda: kern(spec, qp, x_q, split=split), dev, 20, warmup=3,
                            lead_ms=2.0)
         pkey = (key, cname, mode)
-        plain_ms[pkey] = median_ms(lambda: mode_plain(mode, spec, qp, x1), dev, 3)
+        # one timed call of the plain version, warm from the main path
+        plain_ms[pkey] = median_ms(lambda: mode_plain(mode, spec, qp, x1), dev, 1, warmup=0)
         weights = sum(int(np.prod(np.shape(wt))) for wt in qp.w_int)
         macs = weights * n * h * w
         moved = x_q.numel() + n * h * w * spec.conv_out_channels + weights
         bnd = bound(2 * macs, moved, INT8_OPS_PER_S)
-        ikey, (regs, spill) = ptxas_line(kern, spec, kc, audit)
+        lines = chain_lines(kern, spec, kc, audit)
         # one launch's plan at the largest tile it fits (not run)
         single = next((t for t in kern.tiles
-                       if kern.smem_bytes(spec, t, kc.pe_split, kc.pe, True) <= SMEM_LIMIT), None)
+                       if kern.smem_bytes(spec, t, kc.pe_split, kc.pe, True) <= SMEM_LIMIT),
+                      None) if spec.num_convs >= 3 else None
         one = f"{chain_halo(spec, [(None, single, 0)]):.3f} at {single[0]}x{single[1]}" \
-            if single else "none: no tile fits one launch"
+            if single else "none: no tile fits one launch" if spec.num_convs >= 3 \
+            else "none: one launch runs 3 or more convs"
         wrote, read = boundary_bytes(spec, kc, plans, n, h, w, 1 if kern is pe_exact_net else 2)
         tiles = "; ".join(f"convs {g.first}-{g.last} {t[0]}x{t[1]} {b} B" for g, t, b in plans)
         label = f"{'sesr_corrected_audit' if audit else kern.symbol} {spec.name} {cname} {mode}"
-        print(f"[16] {label} {h}x{w}: {ms:.4f} ms/frame, {len(plans)} launches a call "
+        ptxas = "; ".join(f"{k} ptxas {r} registers, {sp} B spill stores"
+                          for k, (r, sp) in lines.items())
+        print(f"[{phase}] {label} {h}x{w}: {ms:.4f} ms/frame, {len(plans)} launches a call "
               f"({tiles}; plans = the library's); share of bound {bnd[0] / ms:.4f} (bound "
               f"{bnd[0] * 1e3:.3f} us, {bnd[1]}: {2 * macs:.4g} int8 ops); MACs computed / "
               f"needed {chain_halo(spec, plans):.3f} (one launch: {one}); boundaries "
-              f"(activations and the shortcut) {wrote} B written, {read} B read; {ikey} ptxas "
-              f"{regs} registers, {spill} B spill "
-              f"stores; split {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; plain "
+              f"(activations and the shortcut) {wrote} B written, {read} B read; {ptxas}; "
+              f"split {[i for i in range(spec.num_convs) if kc.pe_split[i]]}; plain "
               f"{plain_ms[pkey]:.3f} ms; launches on the main path {n_launch} over {n_frames} "
               f"frames {tag}", flush=True)
         if mode != "k2":
@@ -4267,19 +4466,21 @@ def deep_phase(torch, dev, card):
                 launches=n_launch, launches_per_frame={"main path": n_launch / n_frames},
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms[pkey], bound_ms=bnd[0],
                 bound_by=bnd[1], library_ms=None, tiles=[list(t) for _, t, _ in plans],
-                smem_plan=[b for _, _, b in plans], ptxas=[regs, spill],
+                smem_plan=[b for _, _, b in plans],
+                ptxas={k: list(v) for k, v in lines.items()},
                 work=f"{spec.name}, {h}x{w} frame, batch 1, {mode}, {qp.hw.pe} PEs, "
                      f"{len(plans)} layer groups"))
-        qp_path = os.path.join(cupti_dir, f"p16_{key}_{cname}.npz")
+        qp_path = os.path.join(cupti_dir, f"p{phase}_{key}_{cname}.npz")
         qp.save(qp_path)
         for gi, (g, t, b) in enumerate(plans):
             jobs.append(dict(label=f"{label} convs {g.first}-{g.last}",
                              spec=dataclasses.asdict(spec), qparams=qp_path,
                              symbol=kern.symbol, audit=audit, tile=list(t), plan=b, index=gi,
-                             groups=len(plans),
+                             groups=len(plans), shape=[1, h, w],
                              mode=("pe-exact" if audit else mode) if kern is corrected_net
                              else None, pattern=kernel_family(kern, kc, audit)))
-    print(f"[16] the deep phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    print(f"[{phase}] the {'deep' if phase == 16 else 'corners'} phase took "
+          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
     return entries, jobs
 
 
@@ -4458,26 +4659,32 @@ def main():
     torch.backends.cudnn.allow_tf32 = False       # the plain version's convs
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build every library, one nvcc per source, all started together; the
-    # layer-group libraries (phases 15 and 16) at a lower priority, so that
-    # they take the cores the others and the phases before 15 leave, and
-    # waited for before phase 15
-    t0 = t_builds = time.perf_counter()
+    # 2. build every library, one nvcc per source, all started together;
+    # phases 10 and 3 run beside them, in that order (a library's first use
+    # waits for its build: K1's, then the corrected kernel's), and they are
+    # all waited for at 3's end (a build left running beside the later
+    # phases slows them by more than it saves); phase 7, whose probes time
+    # host-issued library and plain calls, runs after them
+    t_builds = time.perf_counter()
     pool = ThreadPoolExecutor(len(_build.SIGNATURES))
-    later = ("sesr_net_group", "sesr_corrected_group")
-    builds = {name: pool.submit(_build.build, name, 10 if name in later else 0)
-              for name in (*[n for n in _build.SIGNATURES if n not in later], *later)}
+    builds = {name: pool.submit(_build.build, name) for name in _build.SIGNATURES}
 
-    def built(names):
-        for name in names:
-            build = builds[name].result()
-            print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s "
-                  f"(finished {time.perf_counter() - t_builds:.1f} s after the builds started)"
+    def built():
+        for job in builds.values():
+            build = job.result()
+            print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s"
                   f"\n{build.log.strip()}", flush=True)
+        pool.shutdown()
+        print(f"[2] the builds and phases 10 and 3 beside them took "
+              f"{time.perf_counter() - t_builds:.1f} s", flush=True)
 
-    built([n for n in builds if n not in later])
-    print(f"[2] the builds the phases before 15 use took {time.perf_counter() - t0:.1f} s; the "
-          f"layer-group libraries build on", flush=True)
+    # 10. the RTL vector export, hist and the experimental models (K1 only):
+    # K1's export launches join its entry
+    t0 = time.perf_counter()
+    export_launches = export_phase(torch, dev, card)
+    print(f"[10] the export phase took {time.perf_counter() - t0:.1f} s ({card}); it ran "
+          f"beside the nvcc builds: its host-side times (walls, formatting) include the "
+          f"builds' CPU load, its device times do not", flush=True)
 
     spec = spec_for_task(TASK)
     qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
@@ -4664,6 +4871,7 @@ def main():
     net_sass_check(_build)
 
     print(f"[3] the kernel checks took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    built()
     t0 = time.perf_counter()
     # 4. the main path, with the launch counters at 0: sr_x2 (infer through
     # K2, sim through K1)
@@ -4841,11 +5049,6 @@ def main():
     t0 = time.perf_counter()
     training_launches = training_phase(torch, dev, card)
     print(f"[9] the training phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
-    # 10. the RTL vector export, hist and the experimental models: K1's
-    # export launches join its entry
-    t0 = time.perf_counter()
-    export_launches = export_phase(torch, dev, card)
-    print(f"[10] the export phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
     # 11. sharded execution: the windows' and slabs' launches join K2's and
     # the corrected kernel's entries
     t0 = time.perf_counter()
@@ -4863,21 +5066,19 @@ def main():
     entries += hw_entries
     # 13. bench and profile (their launches stay out of the kernels line)
     bench_phase(torch, dev, card)
-    # the layer-group libraries, built beside phases 3-13
-    t0 = time.perf_counter()
-    built(later)
-    pool.shutdown()
-    print(f"[2] waited {time.perf_counter() - t0:.1f} s for the layer-group libraries",
-          flush=True)
-    # 15. last convs of 1 to 48 output channels, and 16. networks deeper
-    # than one launch runs, before 14, whose CUPTI process reads their
-    # launches too
+    # 15. last convs of 1 to 48 output channels, 16. networks deeper than
+    # one launch runs and 17. the layer-group form's corners (past 16 convs
+    # and 16 outputs; two convs), before 14
     out_entries, out_jobs = out_channels_phase(torch, dev, card)
     deep_entries, deep_jobs = deep_phase(torch, dev, card)
-    # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode)
-    entries += family_phase(torch, dev, card, hw_jobs + out_jobs + deep_jobs)
-    entries += out_entries + deep_entries
-    print(f"[16] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+    corner_entries, corner_jobs = corner_phase(torch, dev, card)
+    # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode); the
+    # CUPTI process of phases 12, 15, 16 and 17's jobs runs beside its main
+    # path, before its times
+    early = cupti_start(hw_jobs + out_jobs + deep_jobs + corner_jobs, "jobs_12_15_16_17.json")
+    entries += family_phase(torch, dev, card, early)
+    entries += out_entries + deep_entries + corner_entries
+    print(f"[17] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

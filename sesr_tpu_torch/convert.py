@@ -624,7 +624,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     1)); where a pe_add_bits sum plus a bias_bits bias can reach 2^22
     (``wide``) they run as the wide kernels, whose sums stay plain int32,
     converted to float32 once. Networks
-    of 3 or more convs run at hidden widths of 16 and 32, with 1 to
+    of 2 or more convs run at hidden widths of 16 and 32, with 1 to
     4 input channels and a last conv of 1 to MAX_OUT output channels, and a
     narrower network runs padded with zero channels (``_padded``). Raises
     NotImplementedError for a network or artifact outside that (quan_bits
@@ -632,14 +632,16 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     than 5x5 / 3x3 ... / 5x5, more than 4 input or MAX_OUT output channels,
     an int16 shortcut that may not hold round(s), ``shortcut_bound``).
 
-    A network that one launch of the kernel runs (at most MAX_LAYERS convs,
+    A network that one launch of the kernel runs (3 to MAX_LAYERS convs,
     and a plan that fits a block at the kernel's smallest tile) keeps that
     one launch (``groups`` empty). Any other runs in the layer-group form:
     a chain of launches of the general group kernels, one per group of
     ``layer_groups`` (each group's plan fitting a block at the smallest
-    tile), its constants in ``groups`` (``group_constants``); the group
-    form of the corrected kernel takes a last conv of at most 16 output
-    channels. Raises NotImplementedError where no partition fits.
+    tile), its constants in ``groups`` (``group_constants``), a last conv of
+    any 1 to MAX_OUT output channels included. A network of two convs
+    (``num_lblocks`` 0) is one group, GROUP_FIRST | GROUP_LAST, whose first
+    conv also adds the shortcut (the group kernels' two-conv form). Raises
+    NotImplementedError where no partition fits.
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -665,8 +667,6 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
             f"a {hw.pe_add_bits}-bit PE sum plus a {hw.bias_bits}-bit bias can pass the "
             f"kernels' int32 sums")
     wide = reach >= MAGIC_RANGE
-    if L < 3:
-        raise NotImplementedError(f"the fused kernels run 3 or more convs; {spec.name} has {L}")
     width = kernel_width(spec.num_channels)
     out_ch = spec.conv_out_channels
     if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])):
@@ -714,14 +714,11 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     from sesr_tpu_torch.ops.kernels import SMEM_LIMIT, kernel_of
     kern = kernel_of(datapath)
     smallest = kern.tiles[-1]
-    if L <= MAX_LAYERS and kern.smem_bytes(spec, smallest, split, hw.pe, general) <= SMEM_LIMIT:
+    if 3 <= L <= MAX_LAYERS \
+            and kern.smem_bytes(spec, smallest, split, hw.pe, general) <= SMEM_LIMIT:
         groups = ()
     else:
         general = True                   # the group kernels are general instantiations
-        if datapath == "corrected" and out_ch > 16:
-            raise NotImplementedError(
-                f"the corrected kernel's layer-group form runs a last conv of at most 16 output "
-                f"channels; {spec.name} has {L} convs and {out_ch} outputs")
 
         def need(a, b):
             return kern.group_smem_bytes(spec, a, b, split, hw.pe, smallest)

@@ -14,13 +14,18 @@ the shipped instantiation and in the general ones (sr_x2's artifact at 16
 PEs, with wide sums at 16 PEs, at 6- and 4-bit activations: CONFIGS), on
 SESR-M11 x2 with convs 3 and 9 at +127 in the hybrid and the PE-exact
 mode at 540x960, and K1 on it and on SESR-XL x2 (the same convs at +127)
-at 16 PEs (seeded weights calibrated and certified here on the card,
-saved under build/corrected_ab/ and loaded by both trees). Each
-tree's own wrappers and kernels run in their own process (``python -c``
-from the tree's root, which builds the tree's ``csrc/`` into its own
-``build/``), in turns base, this, this, base; each prints its times, a
-digest of its int8 outputs and ptxas's registers and spill stores of each
-network kernel it built, and the digests of the two trees must agree.
+at 16 PEs, and the layer-group form (chains of two groups) on
+chip_smoke.py phase 16's sesr_m16_x2 (convs 3 and 12 at +127: K1, K2 and
+both corrected modes) and sesr_xl22_x2 (convs 3 and 18: K1 and the
+PE-exact mode) (seeded weights calibrated and certified here on the card,
+saved under build/corrected_ab/ and loaded by both trees). Each tree's
+own wrappers and kernels run in their own process (``python -c`` from
+the tree's root, which builds the tree's ``csrc/`` into its own
+``build/``, every library at once), in turns base, this, this, base; each
+prints its times, a digest of its int8 outputs and ptxas's registers and
+spill stores of each network kernel family it built (PTXAS_FAMILIES), the
+digests of the two trees must agree, and each instantiation of the base
+tree is compared with this tree's ptxas line (``ptxas_equal``).
 
 ``--variants NAMES``: against edited copies of ``csrc/sesr_corrected.cu``,
 each with the text edits of VARIANTS, built side by side (one nvcc each,
@@ -64,8 +69,14 @@ VARIANTS = {
 }
 FRAME = (1080, 1920)
 CASES = (("nr", "hybrid"), ("nrdm_6", "hybrid"), ("nr", "pe-exact"))
-# each network library's kernel family, whose ptxas report --base prints
-PTXAS_FAMILIES = {"sesr_net": "sesr_net_kernel", "sesr_corrected": "sesr_corrected_kernel"}
+# each network library's kernel families, whose ptxas reports --base
+# prints and compares
+PTXAS_FAMILIES = {
+    "sesr_net": ("sesr_net_kernel", "sesr_net_wide_kernel"),
+    "sesr_corrected": tuple(f"sesr_corrected{a}{form}_kernel" for a in ("", "_audit")
+                            for form in ("", "_wide", "_wideout", "_pieces")),
+    "sesr_net_group": ("sesr_net_group_kernel",),
+    "sesr_corrected_group": ("sesr_corrected_group_kernel", "sesr_corrected_group_audit_kernel")}
 # --base only: the corrected kernel on nr's artifact at 3 and 8 PEs
 # ("nr@pe3", "nr@pe8": its instantiations <4, true, 16> and <8, true, 16>)
 # at 1080x1920, K1 and K2 on sr_x2, and the corrected kernel on the
@@ -74,23 +85,30 @@ TREE_CASES = CASES + (("nr@pe3", "pe-exact"), ("nr@pe8", "hybrid"), ("nr@pe8", "
                       ("sr_x2", "K1"), ("sr_x2", "K2"), ("m11u", "hybrid"), ("m11u", "pe-exact"),
                       ("sr_x2@pe16", "K1"), ("sr_x2@pe16w", "K1"), ("sr_x2@pe16w", "K2"),
                       ("sr_x2@q6", "K1"), ("sr_x2@q6", "K2"), ("sr_x2@q4", "K1"),
-                      ("nr@pe16", "K1"), ("m11u@pe16", "K1"), ("xlu@pe16", "K1"))
+                      ("nr@pe16", "K1"), ("m11u@pe16", "K1"), ("xlu@pe16", "K1"),
+                      ("m16u", "K1"), ("m16u", "K2"), ("m16u", "hybrid"), ("m16u", "pe-exact"),
+                      ("xl22u", "K1"), ("xl22u", "pe-exact"))
 # task@config: the artifact's HardwareConfig fields replaced (the same
 # weights and scales on another datapath)
 CONFIGS = {"pe3": dict(pe=3), "pe8": dict(pe=8), "pe16": dict(pe=16),
            "pe16w": dict(pe=16, pe_acc_bits=20, pe_add_bits=24), "q6": dict(quan_bits=6),
            "q4": dict(quan_bits=4)}
 SR_FRAME = (540, 960)
-# the SESR paper's M11 x2 and XL x2 (chip_smoke.py phase 14's seeds), convs
-# SATURATED at +127
+# the SESR paper's M11 x2 and XL x2 (chip_smoke.py phase 14's seeds), and
+# phase 16's 18- and 24-conv networks (SESR-M11's and SESR-XL's widths),
+# the convs named at +127: (spec, seed, convs at +127)
 NETS = {"m11u": (dict(name="sesr_m11_x2", in_channels=3, out_channels=3, num_channels=16,
-                      num_lblocks=11, scaling_factor=2), 0),
+                      num_lblocks=11, scaling_factor=2), 0, (3, 9)),
         "xlu": (dict(name="sesr_xl_x2", in_channels=3, out_channels=3, num_channels=32,
-                     num_lblocks=11, scaling_factor=2), 1)}
-SATURATED = (3, 9)
+                     num_lblocks=11, scaling_factor=2), 1, (3, 9)),
+        "m16u": (dict(name="sesr_m16_x2", in_channels=3, out_channels=3, num_channels=16,
+                      num_lblocks=16, scaling_factor=2), 16, (3, 12)),
+        "xl22u": (dict(name="sesr_xl22_x2", in_channels=3, out_channels=3, num_channels=32,
+                       num_lblocks=22, scaling_factor=2), 17, (3, 18))}
 # --one-group: (network, kernel or corrected mode)
 ONE_GROUP_CASES = (("sr_x2", "K1"), ("sr_x2", "K2"), ("nr", "hybrid"), ("nr", "pe-exact"),
-                   *((net, m) for net in NETS for m in ("K1", "K2", "hybrid", "pe-exact")))
+                   *((net, m) for net in ("m11u", "xlu") for m in ("K1", "K2", "hybrid",
+                                                                   "pe-exact")))
 
 # Times this tree's network kernels: run with ``python -c`` from a tree's
 # root, so that it imports that tree's package (whose wrapper API is
@@ -107,6 +125,7 @@ from sesr_tpu_torch.quant.integer import quantize_input
 from sesr_tpu_torch.quant.params import QuantParams
 from sesr_tpu_torch.timing import median_ms
 reps, frames, cases, nets, configs = json.loads(sys.argv[1])
+_build.build_all()
 dev = torch.device("cuda")
 out = {"device": torch.cuda.get_device_name(0)}
 for task, mode in cases:
@@ -134,8 +153,8 @@ print(json.dumps(out))
 
 def artifact(net: str) -> Path:
     """NETS[net] from seeded weights, calibrated on two seeded 96x128
-    images, convs SATURATED at +127, certified on two more (the card's
-    port), saved as a QuantParams file: built once, then reused."""
+    images, its convs named there at +127, certified on two more (the
+    card's port), saved as a QuantParams file: built once, then reused."""
     import dataclasses
 
     import numpy as np
@@ -146,7 +165,7 @@ def artifact(net: str) -> Path:
     from sesr_tpu_torch.quant.calibrate import calibrate
     from sesr_tpu_torch.quant.certify import certify_fast
 
-    kw, seed = NETS[net]
+    kw, seed, saturated = NETS[net]
     path = VARIANT_DIR.parent.parent / "corrected_ab" / f"{kw['name']}_saturated.npz"
     if not path.exists():
         spec = SESRSpec(**kw)
@@ -155,7 +174,7 @@ def artifact(net: str) -> Path:
         qp = calibrate(spec, init_params(spec, torch.Generator().manual_seed(seed)), images[:2],
                        safe_zero_floor=True, device="cuda")
         qp = dataclasses.replace(qp, w_int=[
-            np.full_like(np.asarray(w), 127) if i in SATURATED else np.asarray(w)
+            np.full_like(np.asarray(w), 127) if i in saturated else np.asarray(w)
             for i, w in enumerate(qp.w_int)])
         path.parent.mkdir(parents=True, exist_ok=True)
         certify_fast(spec, qp, images[2:], device="cuda").save(str(path))
@@ -175,7 +194,8 @@ def run_tree(tree: Path, reps: int) -> dict:
         raise RuntimeError(f"the worker in {tree} failed:\n{res.stderr[-4000:]}")
     out = json.loads(res.stdout.strip().splitlines()[-1])
     logs = out.pop("build_logs")
-    out["ptxas"] = {f"{family}<{args}>": list(v) for lib, family in PTXAS_FAMILIES.items()
+    out["ptxas"] = {f"{family}<{args}>": list(v) for lib, families in PTXAS_FAMILIES.items()
+                    for family in families
                     for args, v in _build.ptxas_report(logs[lib], family).items()}
     return out
 
@@ -197,6 +217,11 @@ def tree_ab(base: Path, reps: int) -> None:
         print(json.dumps({"case": key, "base_ms": ms["base"], "this_ms": ms["this"],
                           "ratio": min(ms["this"]) / min(ms["base"]),
                           "outputs_equal": True}), flush=True)
+    old, new = runs[0][1]["ptxas"], runs[1][1]["ptxas"]
+    print(json.dumps({"ptxas_equal": all(new.get(k) == v for k, v in old.items()),
+                      "instantiations": len(old),
+                      "differ": {k: [v, new.get(k)] for k, v in old.items() if new.get(k) != v},
+                      "new": sorted(set(new) - set(old))}), flush=True)
 
 
 def build_variant(name: str) -> Path:

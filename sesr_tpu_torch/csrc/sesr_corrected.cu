@@ -520,8 +520,11 @@ struct Layer {
 // - 1], quant_half); WIDE (GEN only): the sum a plain int32, converted to
 // float32 once, for sums that may pass 2^22. C: the hidden width. GRP: a
 // group of the layer-group form, whose shortcut layer and offset are the
-// Net's (prelast, sc_off). Everything a warpgroup's m-tile needs is held
-// here, and issue / epilogue
+// Net's (prelast, sc_off); PAIR (FIRST, the two-conv group of
+// sesr_corrected_group.cu): the first conv is also the one before the
+// last, so its epilogue writes the last conv's domain-in, the residual add
+// of its own ReLU output to itself (the shortcut), and keeps no shortcut.
+// Everything a warpgroup's m-tile needs is held here, and issue / epilogue
 // are inlined, so the accumulators stay in registers; past four groups, and
 // at width 32, the PE zero terms are read from shared memory in the
 // epilogue; at width 32 a hidden layer's A descriptors are formed in issue,
@@ -529,9 +532,10 @@ struct Layer {
 // the counting form): each thread counts the partials the 18-bit clamp
 // changes at the outputs of its count window.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false>
+          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false, bool PAIR = false>
 struct Form {
   static_assert(GEN || !WIDE_SUM, "the wide form is the general instantiation's");
+  static_assert(!PAIR || KIND == FIRST, "a pair's pre-last conv is its first");
   static constexpr int WIDE = KIND == FIRST;
   static constexpr int J = OCP / 8;                              // 8-column tiles of a group
   static constexpr int N = NG * OCP;                             // the layer's columns
@@ -819,7 +823,16 @@ struct Form {
 #pragma unroll
           for (int j = 0; j < V; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
         }
-        if (prelast) {
+        if constexpr (PAIR) {
+          // the last conv's domain-in from this conv's ReLU output h, which
+          // is the shortcut too: round(s) + round(h) with s = h, rescaled
+          // as below
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float r = rintf(hq[j]);
+            v[j] = qn_bits(__fadd_rn(__fmul_rn(__fadd_rn(r, r), res_s), z_next), q_lo(), q_hi());
+          }
+        } else if (prelast) {
           // the last conv's domain-in: the integer residual add, rescaled
           // by s_1 / s_{L-1}, into domain L-1 (this frame is the shortcut's)
 #pragma unroll
@@ -851,7 +864,7 @@ struct Form {
           int* word = kept ? next + w * next_plane + (y * ow + x) * 4 + tq : scratch;
           *word = inside ? pack_bytes(v[4 * w], v[4 * w + 1], v[4 * w + 2], v[4 * w + 3]) : pad_next;
         }
-        if (KIND == FIRST) {
+        if (KIND == FIRST && !PAIR) {
           // the residual shortcut, as the last conv's domain-in consumes it:
           // round(s) as int16 (0 <= round(s) <= 32767, convert.py
           // shortcut_bound), the low half of kMagicBits + round(s); the
@@ -882,9 +895,9 @@ struct Form {
 // into the kernel: ptxas serializes every wgmma of a pipeline that crosses a
 // function call.
 template <Kind KIND, int K, int OCP, int NG, bool SPLIT, bool CLAMP, bool GEN, int C,
-          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false>
+          bool COUNT = false, bool WIDE_SUM = false, bool GRP = false, bool PAIR = false>
 __device__ __forceinline__ void conv_layer(const Layer& ly, const Net& net) {
-  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM, GRP>;
+  using F = Form<KIND, K, OCP, NG, SPLIT, CLAMP, GEN, C, COUNT, WIDE_SUM, GRP, PAIR>;
   const F f(ly, net);
   const int nmt = (f.oh * f.iw + kRows - 1) / kRows;
   // the warpgroup's index, uniform to the compiler as well
@@ -1023,19 +1036,21 @@ __device__ __forceinline__ void conv_pieces(const Layer& ly, const Net& net) {
 // (PF: conv_pieces, a split layer of piece_form); WIDE_SUM: its wide
 // form. COUNT: the
 // counting form of the split layers (a one-pass layer has no 18-bit clamp
-// to count). GRP: a group of the layer-group form (Form).
+// to count). GRP: a group of the layer-group form; PAIR (FIRST): its
+// two-conv group (Form).
 template <Kind KIND, int K, int OCP, int G, bool GEN, int C, bool COUNT, bool WIDE_SUM,
-          bool PF, bool GRP = false>
+          bool PF, bool GRP = false, bool PAIR = false>
 __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int in_ch) {
   const int* prm = net.prm;
   constexpr bool W = WIDE_SUM;
   if ((prm[P_SPLIT] >> ly.layer) & 1) {
     if constexpr (KIND == FIRST) {
+      constexpr bool P = PAIR;
       switch (GEN ? min(in_ch, net.pe) : in_ch) {
-        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
-        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
-        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
-        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT, W, GRP>(ly, net); return;
+        case 1: conv_layer<KIND, K, OCP, 1, true, GEN, GEN, C, COUNT, W, GRP, P>(ly, net); return;
+        case 2: conv_layer<KIND, K, OCP, 2, true, GEN, GEN, C, COUNT, W, GRP, P>(ly, net); return;
+        case 3: conv_layer<KIND, K, OCP, 3, true, GEN, GEN, C, COUNT, W, GRP, P>(ly, net); return;
+        default: conv_layer<KIND, K, OCP, 4, true, GEN, GEN, C, COUNT, W, GRP, P>(ly, net); return;
       }
     } else {
       using F = Form<KIND, K, OCP, G, true, GEN, GEN, C, COUNT, W, GRP>;
@@ -1047,10 +1062,10 @@ __device__ __forceinline__ void conv_form(const Layer& ly, const Net& net, int i
     }
   }
   if (GEN || ((prm[P_CLAMP] >> ly.layer) & 1)) {
-    conv_layer<KIND, K, OCP, 1, false, true, GEN, C, false, W, GRP>(ly, net);
+    conv_layer<KIND, K, OCP, 1, false, true, GEN, C, false, W, GRP, PAIR>(ly, net);
     return;
   }
-  conv_layer<KIND, K, OCP, 1, false, false, GEN, C, false, W, GRP>(ly, net);
+  conv_layer<KIND, K, OCP, 1, false, false, GEN, C, false, W, GRP, PAIR>(ly, net);
 }
 
 // cp.async of `bytes` (a multiple of 16) from device memory into shared

@@ -33,9 +33,20 @@
 //
 // Instantiations: <G, C, WS> served and counting, G 4 / 8 / 16 PE groups,
 // width 16 or 32, wide sums or not: 24, each general; at G = 16 and width
-// 32 with the piece forms (B in pieces where the plan needs them). A last
-// conv past 16 output channels has no group form (kernel_constants
-// refuses it).
+// 32 with the piece forms (B in pieces where the plan needs them). The
+// tail groups run in instantiations of their own, so that the others keep
+// their code: a last group whose last conv has 17 to 48 output channels
+// (RGB x3 / x4 past 16 convs), which runs that conv as
+// sesr_corrected_wideout_kernel does (32 or 48 columns a PE group in chunks
+// of whole groups, its bias and zero rows past the block's records, B
+// staged at 8 PE groups too, the piece forms at every G), and the two-conv
+// group (num_lblocks 0: n = 2, G_FIRST | G_LAST), whose first conv is also
+// the one before the last (Form's PAIR: its epilogue writes the last conv's
+// domain-in, the residual add of its ReLU output to itself, and no
+// shortcut is kept): sesr_corrected_tail_kernel<G, C> and its counting form
+// sesr_corrected_tail_audit_kernel<G, C>, 12, each the wide form (a plain
+// int32 sum, exact for every sum the other form holds too), which no
+// shipped network runs. The entry points take them where tail_group says.
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (sesr_tpu_torch/ops/_build.py), beside sesr_corrected.cu's
@@ -88,17 +99,28 @@ __host__ __device__ inline int group_buf(int j, int n, int fl, int th, int tw, i
   return (j < n ? group_cap(j, n, fl, th, tw, C) : th * tw) * kPix;
 }
 
+// Whether a group runs in the tail instantiations: the last group of a
+// last conv past 16 output channels, and the two-conv group.
+__host__ __device__ constexpr bool tail_group(int n, int fl, int out_ch) {
+  return (fl & G_LAST) && (out_cols(out_ch) > 16 || (n == 2 && fl == (G_FIRST | G_LAST)));
+}
+
 // Shared memory of one block of a group of n convs (flags fl): smem_plan
 // with the group's extents and records (group_records), the input of a
 // group past conv 0 as C-byte pixels, the output of one before the last
 // conv, and the shortcut where the group writes (the tile) or reads it (the
-// last conv's input extent). pf: the instantiation has piece forms
-// (kernels.py corrected_group_plan mirrors it).
+// last conv's input extent). pf: the instantiation has piece forms; tail:
+// a tail instantiation (tail_group), whose block holds the last conv's own
+// rows past C channels (out_rows) and whose B is staged at 8 PE groups too
+// (staged_b's OW), and whose two-conv group keeps no shortcut (kernels.py
+// corrected_group_plan mirrors it).
 __host__ __device__ inline Plan group_plan(int G, bool pf, int split, int pe, int n, int fl,
-                                           int in_ch, int ocl, int th, int tw, int C) {
+                                           int in_ch, int ocl, int th, int tw, int C,
+                                           bool tail = false) {
   Plan p;
-  p.w_at = round_up(param_words(group_records(n, fl), C, pe) * 4, kAlign);
-  const bool staged = staged_b(G, C, false);
+  const int words = param_words(group_records(n, fl), C, pe) + (tail ? out_rows(ocl, C, pe) : 0);
+  p.w_at = round_up(words * 4, kAlign);
+  const bool staged = staged_b(G, C, tail);
   int all = 0, even = 0, odd = 0, unit = 0;
   for (int j = 0; j < n; ++j) {
     const int b = group_b_bytes(j, n, fl, in_ch, ocl, split, pe, C);
@@ -117,7 +139,8 @@ __host__ __device__ inline Plan group_plan(int G, bool pf, int split, int pe, in
     dst = dst > b ? dst : b;
   }
   const int rs = group_sc_ring(fl);
-  const int sc_bytes = fl ? (th + 2 * rs) * (tw + 2 * rs) * 2 * C : 0;
+  const bool pair = tail && n == 2 && fl == (G_FIRST | G_LAST);
+  const int sc_bytes = fl && !pair ? (th + 2 * rs) * (tw + 2 * rs) * 2 * C : 0;
   const bool in_pieces = pf && staged;
   p.w_bufs = staged ? 2 : 0;
   p.w_odd = staged ? round_up(even, kAlign) : 0;
@@ -146,8 +169,11 @@ __host__ __device__ inline Plan group_plan(int G, bool pf, int split, int pe, in
 
 // One group of n convs (flags fl) over every tile: run_tiles' steps from the
 // group's input (the image, or the activation the group before wrote) to
-// its output (the network's, or the next group's activation).
-template <int G, int C, bool COUNT, bool WIDE_SUM>
+// its output (the network's, or the next group's activation). TAIL: a tail
+// instantiation (tail_group): the last conv's forms of 8 to 48 columns a
+// PE group, the piece forms at every G, and the two-conv group's first conv
+// in its PAIR form.
+template <int G, int C, bool COUNT, bool WIDE_SUM, bool TAIL = false>
 __device__ __forceinline__ void run_group(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                                           const int* __restrict__ weights,
                                           const int* __restrict__ params, int16_t* scg, int nb,
@@ -155,19 +181,19 @@ __device__ __forceinline__ void run_group(const int8_t* __restrict__ x, int8_t* 
                                           int th, int tw, int split, int pe,
                                           unsigned long long* counts, int cy0, int cy1, int cx0,
                                           int cx1) {
-  constexpr bool PF = G == 16 && C == 32;
+  constexpr bool PF = TAIL || (G == 16 && C == 32);
   extern __shared__ __align__(128) uint8_t smem[];
   const bool first = fl & G_FIRST, last = fl & G_LAST;
-  const Plan pl = group_plan(G, PF, split, pe, n, fl, in_ch, out_ch, th, tw, C);
+  const Plan pl = group_plan(G, PF, split, pe, n, fl, in_ch, out_ch, th, tw, C, TAIL);
   const int R = group_records(n, fl);
   int* prm = reinterpret_cast<int*>(smem);
   uint8_t* wsm = smem + pl.w_at;
   uint8_t* bx = smem + pl.x_at;
   uint8_t* by = smem + pl.y_at;
 
-  constexpr bool kStaged = staged_b(G, C, false);
+  constexpr bool kStaged = staged_b(G, C, TAIL);
   constexpr bool kPieces = PF && kStaged;
-  const int words = param_words(R, C, pe);
+  const int words = param_words(R, C, pe) + (TAIL ? out_rows(out_ch, C, pe) : 0);
   for (int i = threadIdx.x; i < words; i += kThreads) prm[i] = __ldg(params + i);
   // resident B: the group's layers' B, from its first layer's
   const int woff0 = __ldg(params + p_at(0, R_WOFF, C));
@@ -306,14 +332,31 @@ __device__ __forceinline__ void run_group(const int8_t* __restrict__ x, int8_t* 
       ly.w_odd = pl.w_odd;
       ly.w_bufs = pl.w_bufs;
       const int kind = group_kind(j, n, fl);
-      if (kind == 0)
+      if constexpr (TAIL) {
+        constexpr bool W = WIDE_SUM;
+        if (kind == 0 && n == 2 && last)
+          conv_form<FIRST, 5, C, G, true, C, COUNT, W, PF, true, true>(ly, net, in_ch);
+        else if (kind == 0)
+          conv_form<FIRST, 5, C, G, true, C, COUNT, W, PF, true>(ly, net, in_ch);
+        else if (kind == 1)
+          conv_form<MID, 3, C, G, true, C, COUNT, W, PF, true>(ly, net, in_ch);
+        else if (out_ch <= 8)
+          conv_form<LAST, 5, 8, G, true, C, COUNT, W, PF, true>(ly, net, in_ch);
+        else if (out_ch <= 16)
+          conv_form<LAST, 5, 16, G, true, C, COUNT, W, PF, true>(ly, net, in_ch);
+        else if (out_ch <= 32)
+          conv_form<LAST, 5, 32, G, true, C, COUNT, W, PF, true>(ly, net, in_ch);
+        else
+          conv_form<LAST, 5, 48, G, true, C, COUNT, W, PF, true>(ly, net, in_ch);
+      } else if (kind == 0) {
         conv_form<FIRST, 5, C, G, true, C, COUNT, WIDE_SUM, PF, true>(ly, net, in_ch);
-      else if (kind == 1)
+      } else if (kind == 1) {
         conv_form<MID, 3, C, G, true, C, COUNT, WIDE_SUM, PF, true>(ly, net, in_ch);
-      else if (out_ch <= 8)
+      } else if (out_ch <= 8) {
         conv_form<LAST, 5, 8, G, true, C, COUNT, WIDE_SUM, PF, true>(ly, net, in_ch);
-      else
+      } else {
         conv_form<LAST, 5, 16, G, true, C, COUNT, WIDE_SUM, PF, true>(ly, net, in_ch);
+      }
       if constexpr (kStaged) b_wait();
       fence_proxy_async();
       __syncthreads();
@@ -373,26 +416,59 @@ sesr_corrected_group_audit_kernel(const int8_t* __restrict__ x, int8_t* __restri
                             split, pe, counts, cy0, cy1, cx0, cx1);
 }
 
+// The tail instantiations, served and counting (tail_group), each the wide
+// form.
+template <int G, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_tail_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                           const int* __restrict__ weights, const int* __restrict__ params,
+                           int16_t* sc, int nb, int H, int W, int n, int fl, int in_ch,
+                           int out_ch, int th, int tw, int split, int pe) {
+  run_group<G, C, false, true, true>(x, out, weights, params, sc, nb, H, W, n, fl, in_ch, out_ch,
+                                     th, tw, split, pe, nullptr, 0, 0, 0, 0);
+}
+
+template <int G, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sesr_corrected_tail_audit_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                                 const int* __restrict__ weights, const int* __restrict__ params,
+                                 int16_t* sc, int nb, int H, int W, int n, int fl, int in_ch,
+                                 int out_ch, int th, int tw, int split, int pe,
+                                 unsigned long long* counts, int cy0, int cy1, int cx0, int cx1) {
+  run_group<G, C, true, true, true>(x, out, weights, params, sc, nb, H, W, n, fl, in_ch, out_ch,
+                                    th, tw, split, pe, counts, cy0, cy1, cx0, cx1);
+}
+
+// The plan of the instantiation a group runs in.
+__host__ __device__ inline Plan launch_plan(int split, int pe, int n, int fl, int in_ch,
+                                            int out_ch, int th, int tw, int C) {
+  const int G = pe_groups(pe);
+  const bool tail = tail_group(n, fl, out_ch);
+  return group_plan(G, tail || (G == 16 && C == 32), split, pe, n, fl, in_ch, out_ch, th, tw, C,
+                    tail);
+}
+
 bool group_takes(int n, int fl, int in_ch, int out_ch, int th, int tw, int split, int pe,
                  int general, int width) {
   if (!(n >= 2 && n <= kMaxL && fl >= 0 && fl <= 3 && in_ch >= 1 && in_ch <= 4 && out_ch >= 1 &&
-        out_ch <= 16 && th >= 1 && tw >= 1 && th <= 1024 && tw <= 1024 && (split >> n) == 0 &&
-        pe >= 1 && pe <= kMaxPE && (general == 1 || general == 2) &&
+        out_ch <= kMaxOut && th >= 1 && tw >= 1 && th <= 1024 && tw <= 1024 &&
+        (split >> n) == 0 && pe >= 1 && pe <= kMaxPE && (general == 1 || general == 2) &&
         (width == 16 || width == kMaxC)))
     return false;
-  const int G = pe_groups(pe);
-  return group_plan(G, G == 16 && width == 32, split, pe, n, fl, in_ch, out_ch, th, tw, width)
-             .bytes <= kSmemLimit;
+  return launch_plan(split, pe, n, fl, in_ch, out_ch, th, tw, width).bytes <= kSmemLimit;
 }
 
 template <int G, int C, bool WS>
 cudaError_t launch_group(const int8_t* x, int8_t* out, const int* w, const int* prm, int16_t* sc,
                          int nb, int h, int wd, int n, int fl, int in_ch, int out_ch, int th,
                          int tw, int split, int pe, const GroupCount& cnt, cudaStream_t stream) {
-  const int bytes =
-      group_plan(G, G == 16 && C == 32, split, pe, n, fl, in_ch, out_ch, th, tw, C).bytes;
-  const void* fn = cnt.counts ? reinterpret_cast<const void*>(&sesr_corrected_group_audit_kernel<G, C, WS>)
-                              : reinterpret_cast<const void*>(&sesr_corrected_group_kernel<G, C, WS>);
+  const int bytes = launch_plan(split, pe, n, fl, in_ch, out_ch, th, tw, C).bytes;
+  const bool tail = tail_group(n, fl, out_ch);
+  const void* fn =
+      tail ? (cnt.counts ? reinterpret_cast<const void*>(&sesr_corrected_tail_audit_kernel<G, C>)
+                         : reinterpret_cast<const void*>(&sesr_corrected_tail_kernel<G, C>))
+           : (cnt.counts ? reinterpret_cast<const void*>(&sesr_corrected_group_audit_kernel<G, C, WS>)
+                         : reinterpret_cast<const void*>(&sesr_corrected_group_kernel<G, C, WS>));
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -404,7 +480,14 @@ cudaError_t launch_group(const int8_t* x, int8_t* out, const int* w, const int* 
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = static_cast<long long>(nb) * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
   const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
-  if (cnt.counts)
+  if (tail && cnt.counts)
+    sesr_corrected_tail_audit_kernel<G, C><<<grid, kThreads, bytes, stream>>>(
+        x, out, w, prm, sc, nb, h, wd, n, fl, in_ch, out_ch, th, tw, split, pe, cnt.counts,
+        cnt.y0, cnt.y1, cnt.x0, cnt.x1);
+  else if (tail)
+    sesr_corrected_tail_kernel<G, C><<<grid, kThreads, bytes, stream>>>(
+        x, out, w, prm, sc, nb, h, wd, n, fl, in_ch, out_ch, th, tw, split, pe);
+  else if (cnt.counts)
     sesr_corrected_group_audit_kernel<G, C, WS><<<grid, kThreads, bytes, stream>>>(
         x, out, w, prm, sc, nb, h, wd, n, fl, in_ch, out_ch, th, tw, split, pe, cnt.counts,
         cnt.y0, cnt.y1, cnt.x0, cnt.x1);
@@ -495,10 +578,7 @@ int sesr_corrected_group_audit(const void* x, void* out, const void* weights, co
 int sesr_corrected_group_smem(int n, int flags, int in_ch, int out_ch, int tile_h, int tile_w,
                               int split, int pe, int width) {
   if (!group_takes(n, flags, in_ch, out_ch, tile_h, tile_w, split, pe, 1, width)) return 0;
-  const int G = pe_groups(pe);
-  return group_plan(G, G == 16 && width == 32, split, pe, n, flags, in_ch, out_ch, tile_h, tile_w,
-                    width)
-      .bytes;
+  return launch_plan(split, pe, n, flags, in_ch, out_ch, tile_h, tile_w, width).bytes;
 }
 
 const char* sesr_corrected_group_error_string(int err) {

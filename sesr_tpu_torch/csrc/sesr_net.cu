@@ -212,11 +212,15 @@ enum Passes { ONE = 0, FOUR = 1, WORDS = 2, MASKED = 3 };
 // m-tiles in buffer w (q even, or one buffer: w_alt == w) or w_alt, staged
 // from wg (the layer's B in device memory) while the pass before computes
 // (two buffers) or after it (one); every warp takes part in each round.
+// PAIR (FIRST, the two-conv group of sesr_net_group.cu): the first conv is
+// also the one before the last, so its epilogue writes the last conv's
+// domain-in, the residual add of its own ReLU output to itself (the
+// shortcut), and keeps no shortcut.
 __device__ __forceinline__ void stage_async(int* dst, const int* __restrict__ src, int words);
 __device__ __forceinline__ void wait_staged();
 
 template <int DP, int PS, bool CLAMP, bool GEN, bool WIDE, int K, Kind KIND, int OC, int C,
-          bool STAGE = false>
+          bool STAGE = false, bool PAIR = false>
 __device__ __forceinline__ void conv_layer(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -235,6 +239,7 @@ __device__ __forceinline__ void conv_layer(
                 "a looped pass is a split hidden layer's");
   static_assert(C == 16 || C == 32, "the hidden widths are 16 and 32");
   static_assert(GEN || !WIDE, "the wide form is the general instantiation's");
+  static_assert(!PAIR || KIND == FIRST, "a pair's pre-last conv is its first");
   constexpr bool SPLIT = PS != ONE;
   constexpr bool TAPS = PS == FOUR || PS == WORDS || KIND == FIRST;   // a pass reads its own words
   // k-slot s of chunk c is word s % WPT of the pass's words (TAPS: its
@@ -499,7 +504,23 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
           for (int j = 0; j < NV; ++j) hq[j] = fmaxf(hq[j], 0.f);    // ReLU
         }
-        if (KIND == MID && prelast) {
+        if constexpr (PAIR) {
+          // the last conv's domain-in from this conv's ReLU output h, which
+          // is the shortcut too: s + h with s = h, rescaled as below
+          const float res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            float tr;
+            if constexpr (DP == REFERENCE) {
+              const float c = magic_to_f32(qn_bits(__fsub_rn(hq[j], half), q_lo, q_hi));
+              tr = __fadd_rn(__fadd_rn(c, c), 2.f * half);
+            } else {
+              const float c = rintf(hq[j]);
+              tr = __fadd_rn(c, c);
+            }
+            v[j] = qn_bits(__fadd_rn(__fmul_rn(tr, res_s), z_next), q_lo, q_hi);
+          }
+        } else if (KIND == MID && prelast) {
           // the last conv's domain-in: the integer residual add, rescaled
           // by s_1 / s_{L-1}, into domain L-1 (this frame is the shortcut's)
           const float res_s = __fmul_rn(as_f32(prm[P_RESM]), as_f32(prm[P_RESP]));
@@ -531,7 +552,7 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
         for (int m = 0; m < NV / 4; ++m)
           next[(tq + 4 * m) * next_ps + r] = pack_bytes(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
-        if (KIND == FIRST) {
+        if (KIND == FIRST && !PAIR) {
           // the residual shortcut, as the last conv's domain-in consumes it:
           // reference: clip(round(s - half)) as int8, plane tq + 4 m holding
           // values 4 m .. 4 m + 3; K2: round(s) as int16 (0 <= round(s) <=
@@ -630,8 +651,9 @@ __host__ __device__ inline Smem smem_plan(int dp, bool gen, int split, int pe, i
 // is set (K2 from conv 1 on, where convert.py proves conv 0's idle). The
 // general instantiation (GEN: any PE count, widths and activation width)
 // clamps every layer's sum to pe_add_bits, the identity where that clamp
-// cannot fire; WIDE: its wide form. The arguments are conv_layer's.
-template <int DP, bool GEN, int K, Kind KIND, int OC, int C, bool WIDE>
+// cannot fire; WIDE: its wide form; PAIR: conv_layer's. The arguments are
+// conv_layer's.
+template <int DP, bool GEN, int K, Kind KIND, int OC, int C, bool WIDE, bool PAIR = false>
 __device__ __forceinline__ void conv_form(
     const int* __restrict__ in, int in_ps, const int* __restrict__ w, int npass,
     int eh, int ew, const Tile& t, int layer, bool prelast,
@@ -641,10 +663,9 @@ __device__ __forceinline__ void conv_form(
   if constexpr (DP == REFERENCE) {
     if (pe_split(prm, layer)) {
       if (KIND == FIRST || npass == 4) {
-        conv_layer<DP, FOUR, GEN, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t,
-                                                             layer, prelast, prm, gprm, next, next_ps,
-                                                             sc, sc_ps, sc_off, sc_w, sc_h, out,
-                                                             frame);
+        conv_layer<DP, FOUR, GEN, GEN, WIDE, K, KIND, OC, C, false, PAIR>(
+            in, in_ps, w, npass, eh, ew, t, layer, prelast, prm, gprm, next, next_ps, sc, sc_ps,
+            sc_off, sc_w, sc_h, out, frame);
       } else if constexpr (GEN && KIND != FIRST) {
         if (npass % 4 == 0)
           conv_layer<DP, WORDS, true, true, WIDE, K, KIND, OC, C>(in, in_ps, w, npass, eh, ew, t,
@@ -662,15 +683,15 @@ __device__ __forceinline__ void conv_form(
   }
   if constexpr (GEN || (DP == FAST && KIND != FIRST)) {
     if (GEN || ((prm[P_CLAMP] >> layer) & 1)) {
-      conv_layer<DP, ONE, true, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
-                                                           prelast, prm, gprm, next, next_ps, sc, sc_ps,
-                                                           sc_off, sc_w, sc_h, out, frame);
+      conv_layer<DP, ONE, true, GEN, WIDE, K, KIND, OC, C, false, PAIR>(
+          in, in_ps, w, 1, eh, ew, t, layer, prelast, prm, gprm, next, next_ps, sc, sc_ps, sc_off,
+          sc_w, sc_h, out, frame);
       return;
     }
   }
-  conv_layer<DP, ONE, false, GEN, WIDE, K, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer,
-                                                        prelast, prm, gprm, next, next_ps, sc, sc_ps,
-                                                        sc_off, sc_w, sc_h, out, frame);
+  conv_layer<DP, ONE, false, GEN, WIDE, K, KIND, OC, C, false, PAIR>(
+      in, in_ps, w, 1, eh, ew, t, layer, prelast, prm, gprm, next, next_ps, sc, sc_ps, sc_off,
+      sc_w, sc_h, out, frame);
 }
 
 // The whole network over one tile, the body of both kernels. GEN: the

@@ -25,6 +25,11 @@
 // A split last conv whose B no block holds beside the buffers runs in the
 // staged form (conv_layer's STAGE: B one PE pass at a time, two buffers
 // where they fit): SESR-XL x4 RGB at 5-16 PEs in K1, one group.
+// A network of two convs (num_lblocks 0) is one group, G_FIRST | G_LAST,
+// its first conv also the one before the last: it runs in a kernel of its
+// own, sesr_net_pair_kernel, whose first conv's epilogue writes the last
+// conv's domain-in, the residual add of its ReLU output to itself
+// (conv_layer's PAIR), with no shortcut kept in shared or device memory.
 //
 // What bounds it on this card: operations, as sesr_net.cu; a group's tile
 // recomputes only its own ring, so a deep network's halo stays that of a
@@ -36,7 +41,11 @@
 // -16, -32, -48), width 16 or 32, wide sums or not: 32, each general (every
 // sum clamped to pe_add_bits, activations in [-half, half - 1]). A chain
 // takes one of them for all its groups (G_FIRST / G_LAST are run-time
-// flags).
+// flags). The two-conv group: sesr_net_pair_kernel<DP, OCL, C>, 16, each
+// the wide form (a plain int32 sum, exact for every sum the other form
+// holds too), so that a network of almost no work costs no more
+// instantiations than that; the entry point takes it for n = 2, G_FIRST |
+// G_LAST.
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (sesr_tpu_torch/ops/_build.py), beside sesr_net.cu's
@@ -54,9 +63,10 @@ namespace {
 // group before the last conv as C / 4 planes of the tile, the shortcut where
 // the group writes (the tile) or reads it (the last conv's input extent),
 // and a staged split last conv's B one pass (kernels.py
-// net_group_smem_bytes mirrors it).
+// net_group_smem_bytes mirrors it). pair: the two-conv group, which keeps
+// no shortcut.
 __host__ __device__ inline Smem group_plan(int dp, int split, int pe, int n, int fl, int in_ch,
-                                           int ocl, int th, int tw, int C) {
+                                           int ocl, int th, int tw, int C, bool pair = false) {
   Smem s;
   s.prm_words = net_words(kMaxL + 1, C);
   s.w_words = 0;
@@ -77,7 +87,7 @@ __host__ __device__ inline Smem group_plan(int dp, int split, int pe, int n, int
     dst = dst > words ? dst : words;
   }
   const int rs = group_sc_ring(fl);
-  s.sc_words = (fl & (G_FIRST | G_LAST)) ? (dp == REFERENCE ? C / 4 : C / 2) *
+  s.sc_words = (fl & (G_FIRST | G_LAST)) && !pair ? (dp == REFERENCE ? C / 4 : C / 2) *
                                                plane_stride((th + 2 * rs) * (tw + 2 * rs))
                                          : 0;
   const int two = s.prm_words + 2 * s.w_words + s.a_words + s.b_words + s.sc_words;
@@ -85,9 +95,14 @@ __host__ __device__ inline Smem group_plan(int dp, int split, int pe, int n, int
   return s;
 }
 
+// Whether a group is the two-conv group (sesr_net_pair_kernel).
+__host__ __device__ constexpr bool pair_group(int n, int fl) {
+  return n == 2 && fl == (G_FIRST | G_LAST);
+}
+
 size_t group_bytes(int dp, int split, int pe, int n, int fl, int in_ch, int ocl, int th, int tw,
                    int C) {
-  const Smem p = group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, C);
+  const Smem p = group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, C, pair_group(n, fl));
   return sizeof(int) * (static_cast<size_t>(p.prm_words) + p.w_bufs * p.w_words + p.a_words +
                         p.b_words + p.sc_words);
 }
@@ -172,8 +187,9 @@ __device__ __forceinline__ void group_last(const int* __restrict__ in, int in_ps
 // group's input (the image, or the activation the group before wrote) to
 // its output (the network's, or the activation of the next group), the
 // shortcut written (G_FIRST before the last group) or read (G_LAST past the
-// first) in device memory.
-template <int DP, int OCL, int C, bool WIDE>
+// first) in device memory. PAIR: the two-conv group (n = 2, G_FIRST |
+// G_LAST), its first conv in conv_layer's PAIR form, no shortcut.
+template <int DP, int OCL, int C, bool WIDE, bool PAIR = false>
 __device__ __forceinline__ void group_tile(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                                            const int* __restrict__ weights,
                                            const int* __restrict__ params,
@@ -182,7 +198,7 @@ __device__ __forceinline__ void group_tile(const int8_t* __restrict__ x, int8_t*
   extern __shared__ int4 smem4[];
   constexpr int OCW = -OCL;
   const bool first = fl & G_FIRST, last = fl & G_LAST;
-  const Smem plan = group_plan(DP, split, pe, n, fl, in_ch, OCW, th, tw, C);
+  const Smem plan = group_plan(DP, split, pe, n, fl, in_ch, OCW, th, tw, C, PAIR);
   int* prm = reinterpret_cast<int*>(smem4);
   int* wbuf = prm + plan.prm_words;
   int* buf_a = wbuf + plan.w_bufs * plan.w_words;
@@ -252,7 +268,7 @@ __device__ __forceinline__ void group_tile(const int8_t* __restrict__ x, int8_t*
   const int r_sc = group_sc_ring(fl);
   const int sc_h = th + 2 * r_sc, sc_w = tw + 2 * r_sc;
   const int sc_ps = plane_stride(sc_h * sc_w);
-  if (last && !first) {
+  if (!PAIR && last && !first) {
     // the shortcut the first group wrote, over the last conv's input
     // extent (0 outside the image, where the last conv never reads it)
     for (int i = threadIdx.x; i < sc_h * sc_w; i += blockDim.x) {
@@ -297,16 +313,17 @@ __device__ __forceinline__ void group_tile(const int8_t* __restrict__ x, int8_t*
   if (first) {
     if (!single && n > 1) stage_next(0);
     const int r1 = group_ring(1, n, fl);
-    conv_form<DP, true, 5, FIRST, C, C, WIDE>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1,
-                                              tw + 2 * r1, t, 0, false, prm, params, buf_a,
-                                              plane_stride(group_extent(1, n, fl, th, tw)), sc,
-                                              sc_ps, r1 - r_sc, sc_w, sc_h, nullptr, frame);
+    conv_form<DP, true, 5, FIRST, C, C, WIDE, PAIR>(buf_b, 0, wbuf, min(in_ch, pe), th + 2 * r1,
+                                                    tw + 2 * r1, t, 0, PAIR, prm, params, buf_a,
+                                                    plane_stride(group_extent(1, n, fl, th, tw)),
+                                                    sc, sc_ps, r1 - r_sc, sc_w, sc_h, nullptr,
+                                                    frame);
     after(0);
     cur = buf_a;
     nxt = buf_b;
     j = 1;
   }
-  for (; j < n - (last ? 1 : 0); ++j) {
+  for (; !PAIR && j < n - (last ? 1 : 0); ++j) {
     if (!single && j + 1 < n) stage_next(j);
     const int r = group_ring(j + 1, n, fl);
     conv_form<DP, true, 3, MID, C, C, WIDE>(
@@ -319,7 +336,7 @@ __device__ __forceinline__ void group_tile(const int8_t* __restrict__ x, int8_t*
     cur = nxt;
     nxt = tmp;
   }
-  if (last) {
+  if (PAIR || last) {
     const int jl = n - 1;
     int* w_last = wbuf + (single ? 0 : (jl & 1) * plan.w_words);
     int* w_alt = single ? w_last : wbuf + ((jl + 1) & 1) * plan.w_words;
@@ -354,6 +371,16 @@ sesr_net_group_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
   group_tile<DP, OCL, C, WIDE>(x, out, weights, params, sc, H, W, n, fl, in_ch, th, tw, split, pe);
 }
 
+// The two-conv group, its wide form (every sum a plain int32).
+template <int DP, int OCL, int C>
+__global__ void __launch_bounds__(kThreads, 2)
+sesr_net_pair_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
+                     const int* __restrict__ weights, const int* __restrict__ params, int H, int W,
+                     int in_ch, int th, int tw, int split, int pe) {
+  group_tile<DP, OCL, C, true, true>(x, out, weights, params, nullptr, H, W, 2,
+                                     G_FIRST | G_LAST, in_ch, th, tw, split, pe);
+}
+
 bool group_takes(int n, int fl, int in_ch, int out_ch, int th, int tw, int split, int pe,
                  int gen, int width) {
   return n >= 2 && n <= kMaxL && fl >= 0 && fl <= 3 && in_ch >= 1 && in_ch <= 4 && out_ch >= 1 &&
@@ -367,11 +394,19 @@ cudaError_t launch_group(const int8_t* x, int8_t* out, const int* w, const int* 
                          int nb, int h, int wd, int n, int fl, int in_ch, int th, int tw,
                          int split, int pe, cudaStream_t stream) {
   const size_t bytes = group_bytes(DP, split, pe, n, fl, in_ch, -OCL, th, tw, C);
+  const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, nb);
+  if (pair_group(n, fl)) {
+    const auto kernel = &sesr_net_pair_kernel<DP, OCL, C>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, h, wd, in_ch, th, tw, split, pe);
+    return cudaGetLastError();
+  }
   const auto kernel = &sesr_net_group_kernel<DP, OCL, C, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((wd + tw - 1) / tw, (h + th - 1) / th, nb);
   kernel<<<grid, kThreads, bytes, stream>>>(x, out, w, prm, sc, h, wd, n, fl, in_ch, th, tw, split,
                                             pe);
   return cudaGetLastError();

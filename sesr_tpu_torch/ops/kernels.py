@@ -140,7 +140,8 @@ def net_group_smem_bytes(datapath: str, n: int, flags: int, in_ch: int, out_ch: 
     0 and the output of one before the last conv as width / 4 planes, the
     shortcut where the group writes it (the tile) or reads it (the last
     conv's input extent), and a split last conv of K1 off 4 PEs staged one
-    pass at a time (two pass buffers where they fit, else one)."""
+    pass at a time (two pass buffers where they fit, else one). The
+    two-conv group (``pair_group``) keeps no shortcut."""
     th, tw = tile
     exact = datapath == "exact"
     w_words = 0
@@ -160,9 +161,25 @@ def net_group_smem_bytes(datapath: str, n: int, flags: int, in_ch: int, out_ch: 
         bufs[j % 2 == 0] = max(bufs[j % 2 == 0], width // 4 * _plane_stride(ext[j]))
     rs = 2 if flags & GROUP_LAST else 0
     sc = (width // 4 if exact else width // 2) * _plane_stride((th + 2 * rs) * (tw + 2 * rs)) \
-        if flags else 0
+        if flags and not pair_group(n, flags) else 0
     two = 4 * (net_words(MAX_LAYERS + 1, width) + 2 * w_words + sum(bufs) + sc)
     return two - 4 * w_words if exact and width == 32 and two > SMEM_LIMIT else two
+
+
+def pair_group(n: int, flags: int) -> bool:
+    """Whether a group is a two-conv network's one group (GROUP_FIRST |
+    GROUP_LAST, n = 2), whose first conv also adds the shortcut: the group
+    kernels' two-conv form (csrc/sesr_net_group.cu sesr_net_pair_kernel,
+    csrc/sesr_corrected_group.cu's tail instantiations), which keeps no
+    shortcut."""
+    return n == 2 and flags == GROUP_FIRST | GROUP_LAST
+
+
+def tail_group(n: int, flags: int, out_ch: int) -> bool:
+    """Whether a group of the corrected kernel runs in its tail
+    instantiations (csrc/sesr_corrected_group.cu tail_group): the last group
+    of a last conv past 16 output channels, or the two-conv group."""
+    return bool(flags & GROUP_LAST) and (out_columns(out_ch) > 16 or pair_group(n, flags))
 
 
 def chunk_groups(groups: int, ocp: int) -> int:
@@ -280,8 +297,13 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
     conv 0 and the output of one before the last conv as ``width``-byte
     pixels, and the shortcut where the group writes it (the tile) or reads
     it (the last conv's input extent); the instantiations at 16 PE groups
-    and width 32 have the piece forms."""
+    and width 32 have the piece forms. A tail group (``tail_group``) runs
+    in the tail instantiations: its block holds the last conv's own rows
+    past ``width`` channels (``out_rows``), its B is staged at 8 PE groups
+    too and may go in pieces at every PE group count, and the two-conv
+    group keeps no shortcut."""
     th, tw = tile
+    tail = tail_group(n, flags, out_ch)
     b_bytes, units = [], []
     bufs = [0, (th + 2 * _group_ring(0, n, flags)) * (tw + 2 * _group_ring(0, n, flags)) * 4
             if flags & GROUP_FIRST else 0]
@@ -308,21 +330,22 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
         if kind != 0 and width == 32:
             cap = 2 * _round_up(cap, 128)
         bufs[j % 2] = max(bufs[j % 2], cap)
-    w_at = _round_up(block_words(pe, group_records(n, flags), width, 0) * 4, 128)
+    w_at = _round_up(block_words(pe, group_records(n, flags), width, out_ch if tail else 0) * 4,
+                     128)
     rs = 2 if flags & GROUP_LAST else 0
-    rest = (_round_up(bufs[0], 128) + _round_up(bufs[1], 128)
-            + ((th + 2 * rs) * (tw + 2 * rs) * 2 * width if flags else 0) + 16)
+    sc = (th + 2 * rs) * (tw + 2 * rs) * 2 * width if flags and not pair_group(n, flags) else 0
+    rest = _round_up(bufs[0], 128) + _round_up(bufs[1], 128) + sc + 16
 
     def total(w_bytes):
         return _round_up(w_at + w_bytes, 128) + rest
 
     groups = pe_groups(pe)
-    if not (width == 32 or groups == 16):                                  # staged_b
+    if not (width == 32 or groups == 16 or (tail and groups == 8)):        # staged_b
         return CorrectedPlan(total(sum(b_bytes)), 0, False)
     even, odd = max(b_bytes[0::2]), max(b_bytes[1::2], default=0)
     plans = [CorrectedPlan(total(_round_up(even, 128) + odd), 2, False),
              CorrectedPlan(total(max(even, odd)), 1, False)]
-    if groups == 16 and width == 32:                                       # the piece forms
+    if tail or (groups == 16 and width == 32):                             # the piece forms
         unit = max(units)
         plans += [CorrectedPlan(total(_round_up(unit, 128) + unit), 2, True),
                   CorrectedPlan(total(unit), 1, True)]

@@ -760,7 +760,7 @@ def test_corrected_model_at_xl_width_and_48_outputs(pe):
     assert ovf18[L - 1] > 0
 
 
-def test_k1_refuses_a_48_output_xl_at_16_pes():
+def test_k1_takes_a_48_output_xl_at_16_pes_in_one_group():
     """The corner K1 refused until the layer-group form: at 16 PEs K1 runs a
     split conv in 16 passes, and SESR-XL x4's split last conv of 48 columns
     fits no tile of the one-launch kernel beside its buffers (not even

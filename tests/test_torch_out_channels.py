@@ -16,9 +16,10 @@ images and carried across with ``convert.quantparams_from_fields``:
   and ``packed_exact_forward(corrected=True)``;
 - ``convert.kernel_constants`` takes every count from 1 to 48 on all three
   datapaths, its parameter block decodes to the artifact's constants (the
-  last conv's own rows past the hidden width), and the corners still
-  refused (quan_bits 9-16, width 48, 17 convs, 5x5 hidden convs, 5 input
-  channels, 49 outputs) are refused by name;
+  last conv's own rows past the hidden width), the corners still refused
+  (quan_bits 9-16, width 48, 5x5 hidden convs, 5 input channels, 49
+  outputs) are refused by name, and 17 and 2 convs are taken as layer
+  groups;
 - ``costs.conv_macs`` and chip_smoke.py's ``halo_ratio`` and ``bound`` of
   the networks chip_smoke.py phase 15 runs.
 
@@ -258,20 +259,26 @@ def test_kernel_constants_take_every_count(datapath):
 
 
 @pytest.mark.parametrize("bad", ["quan_bits=9", "quan_bits=16", "width=48", "convs=17",
-                                 "k_block=5", "in_channels=5", "out=49"])
+                                 "convs=2", "k_block=5", "in_channels=5", "out=49"])
 def test_kernel_constants_refuse_what_is_left(bad):
     """The corners still to port are refused, each naming its limit. 17
     convs, refused until the layer-group form, is taken: every kernel plans
     it as two groups (convs 0-8 and 9-16) that fit a block and builds their
-    constants."""
+    constants. 2 convs (num_lblocks 0), refused until the two-conv group, is
+    taken too: every kernel plans it as one group of both convs, flags
+    GROUP_FIRST | GROUP_LAST, that fits a block."""
     spec, _, _, qp = _calibrated(4)
-    if bad == "convs=17":
-        qp = deepened(qp, 17)
-        spec = dataclasses.replace(spec, num_lblocks=15)
+    if bad in ("convs=17", "convs=2"):
+        convs = int(bad[6:])
+        qp = deepened(qp, convs)
+        spec = dataclasses.replace(spec, num_lblocks=convs - 2)
+        want = [(0, 8), (9, 16)] if convs == 17 else [(0, 1)]
         for datapath in convert.DATAPATHS:
             kc = convert.kernel_constants(spec, qp, datapath, (True,) * spec.num_convs
                                           if datapath == "corrected" else None)
-            assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)] and kc.general
+            assert [(g.first, g.last) for g in kc.groups] == want and kc.general
+            if convs == 2:
+                assert kc.groups[0].flags == convert.GROUP_FIRST | convert.GROUP_LAST
             kern = {k.datapath: k for k in NET_KERNELS}[datapath]
             assert all(need <= 232448 for _, _, need in kern.launch_plans(spec, kc))
         return
