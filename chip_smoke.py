@@ -3,8 +3,9 @@
 and nrdm_6 served and simulated, every task's infer, the probes, the
 artifact toolchain (eval-float, calibrate, certify, infer --audit),
 training, QAT, AdaRound and make_qparams, the RTL vector export, hist and
-the experimental models, sharded execution, and the HardwareConfig
-family, and the benchmark and cost analysis (``bench``, ``profile``).
+the experimental models, sharded execution, the HardwareConfig family,
+the benchmark and cost analysis (``bench``, ``profile``), and the SESR
+family's deep, wide, RGB, two-conv and other-conv-size networks.
 
     python3 chip_smoke.py
 
@@ -262,13 +263,22 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    batch 1 and 4 at every config, at the input whose output is 1080x1920,
    torch.equal with the plain interpreter, one launch a group; ``infer
    --audit 1``, sesr_m0_x2 at two virtual ranks; each chain's time, plans,
-   MACs computed over needed and ptxas. Phases 15-17 run before 14,
+   MACs computed over needed and ptxas;
+18. networks of other conv sizes (``ksize_phase``, ``chain_phase``):
+   sesr_m5_k3_x2 (7 convs, all 3x3), sesr_m5_k717_x2 (7x7 / 1x1 / 7x7),
+   sesr_xl_k5_x2 (13 convs of width 32, all 5x5) and sesr_m5_k939_x4_rgb
+   (9x9 / 3x3 / 9x9, 48 outputs), each in the forms of other conv sizes
+   (sesr_net_ksize.cu, sesr_corrected_ksize.cu), as phase 17 runs its
+   networks; then a sweep on a small batch (``ksize_sweep``) that puts each
+   of 1, 3, 5, 7 and 9 in each position at widths 16 and 32 and launches
+   every instantiation of the two libraries. Phases 15-18 run before 14,
    beside whose main path a CUPTI process reads their launches.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -480,7 +490,9 @@ def kernel_family(kern, kc, audit=False, group=None):
     layer-group form the kernel of ``group`` (the two-conv group's and the
     corrected kernel's tail instantiations: ops/kernels.py pair_group,
     tail_group), or for ``group`` None the prefix every group's kernel
-    shares (a chain's launches, read from a trace in launch order)."""
+    shares (a chain's launches, read from a trace in launch order). A
+    network of other conv sizes runs every group in the forms of other conv
+    sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu)."""
     from sesr_tpu_torch.ops.kernels import pair_group, tail_group
 
     wide = "_wide" if kc.wide else ""
@@ -488,6 +500,11 @@ def kernel_family(kern, kc, audit=False, group=None):
         corrected = kern.datapath == "corrected"
         if group is None:
             return "sesr_corrected_" if corrected else "sesr_net_"
+        if kc.other_sizes:
+            if corrected:
+                return f"sesr_corrected_ksize{'_audit' if audit else ''}_kernel"
+            return "sesr_net_ksize_pair_kernel" if pair_group(group.convs, group.flags) \
+                else "sesr_net_ksize_kernel"
         if corrected:
             form = "tail" if tail_group(group.convs, group.flags, kc.out_channels) else "group"
             return f"sesr_corrected_{form}{'_audit' if audit else ''}_kernel"
@@ -524,12 +541,15 @@ def ptxas_line(kern, spec, kc, audit=False, group=None):
     if kc.groups:
         # sesr_net_group_kernel<DP, OCL, C, WIDE>, sesr_corrected_group(_audit)_kernel<G, C, WS>;
         # the two-conv and tail groups' sesr_net_pair_kernel<DP, OCL, C> and
-        # sesr_corrected_tail(_audit)_kernel<G, C>, each the wide form
+        # sesr_corrected_tail(_audit)_kernel<G, C>, each the wide form; other
+        # conv sizes: sesr_net_ksize(_pair)_kernel<DP, OCL, C> and
+        # sesr_corrected_ksize(_audit)_kernel<G, C>, each the wide form
         ws = "" if "_group_" not in family else f"ELb{int(kc.wide)}"
-        lib, key = ("sesr_corrected_group", f"Li{pe_groups(kc.pe)}ELi{kc.width}{ws}") \
+        ksize = "ksize" if kc.other_sizes else "group"
+        lib, key = (f"sesr_corrected_{ksize}", f"Li{pe_groups(kc.pe)}ELi{kc.width}{ws}") \
             if kern.datapath == "corrected" else \
-            ("sesr_net_group", f"Li{int(kern.datapath == 'fast')}ELin{out_columns(kc.out_channels)}"
-                               f"ELi{kc.width}{ws}")
+            (f"sesr_net_{ksize}", f"Li{int(kern.datapath == 'fast')}ELin"
+                                  f"{out_columns(kc.out_channels)}ELi{kc.width}{ws}")
     elif kern.datapath == "corrected":
         lib, key = "sesr_corrected", (f"Li{pe_groups(kc.pe) if kc.general else 4}{gen}"
                                       f"ELi{kc.width}")
@@ -563,12 +583,21 @@ def chain_lines(kern, spec, kc, audit=False):
     return dict(ptxas_line(kern, spec, kc, audit, g) for g in (kc.groups or (None,)))
 
 
+def group_source(kern, kc):
+    """The source of the layer-group kernels ``kern`` launches for kc."""
+    return "sesr_tpu_torch/csrc/" + ("sesr_corrected_" if kern.datapath == "corrected"
+                                     else "sesr_net_") + \
+        ("ksize.cu" if kc.other_sizes else "group.cu")
+
+
 def chain_plans(kern, spec, kc, phase, tile=None):
     """[(group, tile, shared memory bytes)] of a call with the constants kc
     (``launch_plans``: one launch, or one per layer group), each plan held
     to the library's own (sesr_net_smem, sesr_corrected_smem, and the
-    layer-group libraries' sesr_net_group_smem, sesr_corrected_group_smem):
+    layer-group libraries' sesr_net_group_smem, sesr_corrected_group_smem,
+    and for other conv sizes sesr_net_ksize_smem, sesr_corrected_ksize_smem):
     the run fails where they differ."""
+    from sesr_tpu_torch.convert import pack_sizes
     from sesr_tpu_torch.ops import _build
 
     plans = kern.launch_plans(spec, kc, tile)
@@ -583,6 +612,16 @@ def chain_plans(kern, spec, kc, phase, tile=None):
             built = _build.load("sesr_net").sesr_net_smem(
                 exact, spec.num_convs, spec.in_channels, spec.conv_out_channels, *t, mask, kc.pe,
                 int(kc.general), kc.width)
+        elif kc.other_sizes:
+            ks = pack_sizes(kc.ksizes[g.first:g.last + 1])
+            if kern.datapath == "corrected":
+                built = _build.load("sesr_corrected_ksize").sesr_corrected_ksize_smem(
+                    g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t, g.split,
+                    kc.pe, kc.width, ks)
+            else:
+                built = _build.load("sesr_net_ksize").sesr_net_ksize_smem(
+                    exact, g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t,
+                    g.split, kc.pe, kc.width, ks)
         elif kern.datapath == "corrected":
             built = _build.load("sesr_corrected_group").sesr_corrected_group_smem(
                 g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t, g.split, kc.pe,
@@ -3890,12 +3929,58 @@ CORNER_NETS = {"m16_x4": dict(name="sesr_m16_x4_rgb", in_channels=3, out_channel
 # each network's convs at +127 (a split conv in its last group; the
 # two-conv networks' last conv), and its sweep config
 CORNER_SATURATED = {"m16_x4": (3, 12), "xl22_x3": (3, 18), "m0_x2": (1,), "xl0_x4": (1,)}
+# phase 18: networks of other conv sizes (each conv odd, 1 to 9, the first
+# conv, the block convs and the last conv each on its own: SESRSpec
+# k_first, k_block, k_last) at the SESR paper's widths and depths (SESR-M5:
+# 16 channels, 7 convs; SESR-XL: 32 and 13), x2 and RGB x4, from seeded
+# weights, at the input whose output is 1080x1920 (out_frame), each run as
+# layer groups in the forms of other conv sizes (one group where its plan
+# fits a block)
+KSIZE_NETS = {"m5_k3": dict(name="sesr_m5_k3_x2", in_channels=3, out_channels=3, num_channels=16,
+                            num_lblocks=5, scaling_factor=2, k_first=3, k_block=3, k_last=3),
+              "m5_k717": dict(name="sesr_m5_k717_x2", in_channels=3, out_channels=3,
+                              num_channels=16, num_lblocks=5, scaling_factor=2, k_first=7,
+                              k_block=1, k_last=7),
+              "xl_k5": dict(name="sesr_xl_k5_x2", in_channels=3, out_channels=3,
+                            num_channels=32, num_lblocks=11, scaling_factor=2, k_first=5,
+                            k_block=5, k_last=5),
+              "m5_k939_x4": dict(name="sesr_m5_k939_x4_rgb", in_channels=3, out_channels=3,
+                                 num_channels=16, num_lblocks=5, scaling_factor=4, k_first=9,
+                                 k_block=3, k_last=9)}
+# each network's convs at +127 (a split conv in its last group: a 3x3 or
+# 5x5 conv between, or sesr_m5_k717_x2's 7x7 last conv, whose 1x1 convs'
+# partials cannot reach 18 bits), and its sweep config
+KSIZE_SATURATED = {"m5_k3": (3,), "m5_k717": (6,), "xl_k5": (3, 9), "m5_k939_x4": (3,)}
+KSIZE_CONFIG = {"m5_k3": "pe3_nondivisible", "m5_k717": "pe8_wide", "xl_k5": "pe2_servable",
+                "m5_k939_x4": "pe2_narrow"}
+# every mode at batch 1 and 4 at each config
+KSIZE_MODES = {"pe4_sat": (("sim", "hybrid", "pe-exact", "audit"), (1,)),
+               "config": (("sim", "K2", "hybrid", "pe-exact", "audit"), (1, 4))}
+# phase 18's sweep of the forms of other conv sizes on a small batch: at
+# widths 16 and 32, five-conv networks whose (first, block, last) sizes put
+# each of 1, 3, 5, 7 and 9 in each position, at each padded count of the
+# last conv (3, 12, 27 and 48 outputs), and two-conv networks at each
+# count, at the configs that launch every instantiation (K2 at 4 PEs; K1's
+# split passes unrolled at 4 PEs, looped and staged at 3, 8 and 16; the
+# corrected kernel's 4, 8 and 16 PE groups)
+KSIZE_TRIPLES = ((1, 3, 5), (3, 5, 7), (5, 7, 9), (7, 9, 1), (9, 1, 3))
+KSIZE_SWEEP = {f"s{c}_{a}{b}{d}": dict(name=f"s{c}_{a}{b}{d}", in_channels=3, out_channels=3,
+                                       num_channels=c, num_lblocks=3, scaling_factor=sc,
+                                       k_first=a, k_block=b, k_last=d)
+               for c in (16, 32) for (a, b, d), sc in zip(KSIZE_TRIPLES, (1, 2, 3, 4, 1))}
+KSIZE_PAIRS = {f"q{c}_{a}{d}": dict(name=f"q{c}_{a}{d}", in_channels=3, out_channels=3,
+                                    num_channels=c, num_lblocks=0, scaling_factor=sc,
+                                    k_first=a, k_last=d)
+               for c in (16, 32) for (a, d), sc in zip(((9, 1), (1, 9), (3, 7), (7, 5)),
+                                                       (1, 2, 3, 4))}
+KSIZE_SWEEP_HW = {"pe4": {}, "pe3": dict(pe=3), "pe8": dict(pe=8), "pe16": dict(pe=16)}
 # the mode each saturated copy of phases 16 and 17 serves: hybrid, but
 # pe-exact for sesr_xl0_x4_rgb, whose certificate stamps neither of its two
 # convs once its last is at +127 (its 4-PE artifact, which must serve
 # hybrid, runs ``infer --audit 1`` instead)
 SATURATED_SERVES = {"m16": "hybrid", "xl22": "hybrid", "m16_x4": "hybrid",
-                    "xl22_x3": "hybrid", "m0_x2": "hybrid", "xl0_x4": "pe-exact"}
+                    "xl22_x3": "hybrid", "m0_x2": "hybrid", "xl0_x4": "pe-exact",
+                    **{key: "hybrid" for key in KSIZE_NETS}}
 CORNER_CONFIG = {"m16_x4": "pe3_nondivisible", "xl22_x3": "pe8_wide", "m0_x2": "pe2_servable",
                  "xl0_x4": "pe2_narrow"}
 # every mode at batch 1 and 4 at each config
@@ -3979,13 +4064,21 @@ def chain_plain(mode, spec, qp, x, batch, memo):
     n = batch if mode == "audit" else len(x)
     key = (corrected, compute, fast_layers, n)
     if key not in memo:
-        # (the reference datapath's run serves "sim" alone: its output)
-        y, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True), x[:n],
-                                   collect_dumps=corrected, corrected=corrected,
-                                   compute=compute, fast_layers=fast_layers)
-        memo[key] = (y, dumps[f"input.{L}"].to(torch.int8), dumps["overflow_18"]) \
-            if corrected else (y, None, None)
-        del dumps
+        # (the reference datapath's run serves "sim" alone: its output) frame
+        # by frame, so that one frame's dumps are held at a time (a 32-channel
+        # network's per-PE partials at 16 PEs are 1 GB a layer and frame)
+        ys, outs, ovf18 = [], [], 0
+        for i in range(n):
+            y, dumps = integer_forward(spec, dataclasses.replace(qp, fast_cert_ok=True),
+                                       x[i:i + 1], collect_dumps=corrected, corrected=corrected,
+                                       compute=compute, fast_layers=fast_layers)
+            ys.append(y)
+            if corrected:
+                outs.append(dumps[f"input.{L}"].to(torch.int8))
+                ovf18 = ovf18 + dumps["overflow_18"]
+            del dumps
+        memo[key] = (torch.cat(ys), torch.cat(outs), ovf18) if corrected \
+            else (torch.cat(ys), None, None)
     y, out, ovf18 = memo[key]
     if mode == "sim":
         return y[:batch]
@@ -4022,7 +4115,7 @@ def sweep_plain(mode, spec, qp, x, memo):
     return out, dumps
 
 
-def boundaries_held(torch, kern, spec, qp, x, dumps):
+def boundaries_held(torch, kern, spec, qp, x, dumps, phase=16):
     """The tensors that cross the layer-group boundaries of ``kern``'s chain
     on x (``NetKernel.run``) against the plain interpreter's ``dumps`` (of
     ``kern``'s datapath, ``sweep_plain``): each group's output its
@@ -4037,11 +4130,12 @@ def boundaries_held(torch, kern, spec, qp, x, dumps):
     c = spec.num_channels
     for g, act, sc in trail:
         if not torch.equal(act[..., :c], dumps[f"input.{g.last + 1}"].to(torch.int8)):
-            fail(f"[16] {kern.symbol} {spec.name} {qp.hw}: the activation after convs "
+            fail(f"[{phase}] {kern.symbol} {spec.name} {qp.hw}: the activation after convs "
                  f"{g.first}-{g.last} differs from the plain input.{g.last + 1}")
     if trail and not torch.equal(trail[0][2][..., :c],
                                  shortcut_term(dumps["shortcut"], qp, kern.datapath)):
-        fail(f"[16] {kern.symbol} {spec.name} {qp.hw}: the shortcut differs from the plain one")
+        fail(f"[{phase}] {kern.symbol} {spec.name} {qp.hw}: the shortcut differs from the plain "
+             f"one")
     return len(trail) + bool(trail)
 
 
@@ -4070,7 +4164,7 @@ def boundary_bytes(spec, kc, plans, n, h, w, sc_bytes):
     over every tile's extent (its ring); the first group writes the
     shortcut (``sc_bytes`` a channel: K1 int8, the corrected datapath's
     kernels int16) and the last reads it over its tiles' last-conv input
-    extents (a ring of 2)."""
+    extents (a ring of k // 2, the last conv's)."""
     written = read = 0
     L = spec.num_convs
     for g, (th, tw), _ in plans:
@@ -4079,7 +4173,8 @@ def boundary_bytes(spec, kc, plans, n, h, w, sc_bytes):
             r = sum(k // 2 for k in spec.kernel_sizes[g.first:g.last + 1])
             read += tiles * (th + 2 * r) * (tw + 2 * r) * kc.width
             if g.last == L - 1:
-                read += tiles * (th + 4) * (tw + 4) * kc.width * sc_bytes
+                rs = spec.kernel_sizes[-1] // 2
+                read += tiles * (th + 2 * rs) * (tw + 2 * rs) * kc.width * sc_bytes
         if g.last < L - 1:
             written += n * h * w * kc.width * (1 + (sc_bytes if g.first == 0 else 0))
     return written, read
@@ -4096,27 +4191,65 @@ def group_sweep(torch, dev, tag, rng, hit):
     count and boundary tensor torch.equal with the plain interpreter's,
     each group's plan the library's; fails unless every instantiation in
     the two libraries' ptxas reports (the group, two-conv and tail kernels)
-    was launched in the phase (``hit``, which it extends). Returns a CUPTI
-    job for each instantiation's first group in the sweep: a middle group
-    of a 33-conv chain, or the tail or two-conv group that runs it."""
+    was launched in the phase (``hit``, which it extends). Returns
+    (``chain_sweep``'s CUPTI jobs: a middle group of a 33-conv chain, or the
+    tail or two-conv group that runs it; no kernels-line entries)."""
+    return chain_sweep(torch, dev, tag, rng, hit, 16, {**GROUP_NETS, **PAIR_NETS}, SWEEP_HW,
+                       GROUP_FAMILIES, lambda spec: 1 if spec.num_convs == 2 else 3,
+                       f"{len(GROUP_NETS)} networks of {GROUP_NETS_CONVS} convs and "
+                       f"{len(PAIR_NETS)} of 2")
+
+
+# each sweep's libraries and the kernel families whose every instantiation
+# it must launch
+GROUP_FAMILIES = (("sesr_net_group", ("sesr_net_group_kernel", "sesr_net_pair_kernel")),
+                  ("sesr_corrected_group", ("sesr_corrected_group_kernel",
+                                            "sesr_corrected_group_audit_kernel",
+                                            "sesr_corrected_tail_kernel",
+                                            "sesr_corrected_tail_audit_kernel")))
+KSIZE_FAMILIES = (("sesr_net_ksize", ("sesr_net_ksize_kernel", "sesr_net_ksize_pair_kernel")),
+                  ("sesr_corrected_ksize", ("sesr_corrected_ksize_kernel",
+                                            "sesr_corrected_ksize_audit_kernel")))
+
+
+def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, least, what,
+                timed=False):
+    """A sweep of layer-group instantiations (phases 16 and 18): each of
+    ``nets_kw`` calibrated on the card at 4 PEs and run on a SWEEP_BATCH
+    batch at each of ``configs`` through K1, K2 at 4 PEs, the corrected
+    kernel's PE-exact mode and its counting form, in at least
+    ``least(spec)`` groups (a two-conv network: one), one launch a group,
+    each output, count and boundary tensor torch.equal with the plain
+    interpreter's, each group's plan the library's; fails unless every
+    instantiation of ``families`` ((library, kernel families) pairs, from
+    their ptxas reports) was launched in the phase (``hit``, which it
+    extends). Returns (a CUPTI job for each instantiation's first group in
+    the sweep that is not a chain's first or last, or runs a two-conv or
+    tail group, or a network of other conv sizes; with ``timed``, where
+    every call is one group, a kernels-line entry for each instantiation:
+    its launches in the sweep, and the device ms, plain ms and bound of the
+    call that first launched it)."""
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec
     from sesr_tpu_torch.models.sesr import init_params
     from sesr_tpu_torch.ops.kernels import NET_KERNELS, corrected_net, reset_launch_counts
     from sesr_tpu_torch.quant.calibrate import calibrate
+    from sesr_tpu_torch.quant.integer import quantize_input
+    from sesr_tpu_torch.timing import median_ms
 
     t0 = time.perf_counter()
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
     os.makedirs(cupti_dir, exist_ok=True)
     runs = held = 0
     jobs, swept = [], set()
-    for seed, (name, kw) in enumerate((*GROUP_NETS.items(), *PAIR_NETS.items())):
+    first, launched = {}, collections.Counter()      # timed: each instantiation's first call
+    for seed, (name, kw) in enumerate(nets_kw.items()):
         spec = SESRSpec(**kw)
-        pair = spec.num_convs == 2
-        params = init_params(spec, torch.Generator().manual_seed(160 + seed))
-        calib = [rng.random((1, 48, 64, 3), dtype=np.float32)]
+        params = init_params(spec, torch.Generator().manual_seed(10 * phase + seed))
+        calib = [rng.random((1, 48, 64, spec.in_channels), dtype=np.float32)]
         qp = calibrate(spec, params, calib, safe_zero_floor=True, device="cuda")
-        x = torch.from_numpy(rng.random(SWEEP_BATCH + (3,), dtype=np.float32)).to(dev)
-        for hname, hw in SWEEP_HW.items():
+        x = torch.from_numpy(rng.random(SWEEP_BATCH + (spec.in_channels,),
+                                        dtype=np.float32)).to(dev)
+        for hname, hw in configs.items():
             hq = dataclasses.replace(qp, hw=HardwareConfig(**hw), fast_cert_layers=None,
                                      fast_cert_ok=False)
             calls = ["sim", "k2"] if hq.hw.pe == 4 else ["sim"]
@@ -4132,24 +4265,32 @@ def group_sweep(torch, dev, tag, rng, hit):
                 if mode == "audit":
                     (got, counts), (want, want_counts) = got, want
                     if not torch.equal(counts, want_counts):
-                        fail(f"[16] sweep {name} {hname} audit: counts {counts.tolist()} "
+                        fail(f"[{phase}] sweep {name} {hname} audit: counts {counts.tolist()} "
                              f"against the plain {want_counts.tolist()}")
-                groups_ok = len(kc.groups) == 1 if pair else len(kc.groups) >= 3
+                want_groups = least(spec)
+                groups_ok = len(kc.groups) == 1 if want_groups == 1 and spec.num_convs == 2 \
+                    else len(kc.groups) >= want_groups
                 if not groups_ok or made != len(kc.groups) or got.shape != want.shape \
                         or not torch.equal(got, want):
-                    fail(f"[16] sweep {name} {hname} {mode}: {len(kc.groups)} groups (want "
-                         f"{'1' if pair else '3 or more'}), {made} launches (want one a group), "
+                    fail(f"[{phase}] sweep {name} {hname} {mode}: {len(kc.groups)} groups (want "
+                         f"{want_groups} or more), {made} launches (want one a group), "
                          f"equal {got.shape == want.shape and torch.equal(got, want)}")
-                plans = chain_plans(kern, spec, kc, 16)     # each group's plan = the library's
+                plans = chain_plans(kern, spec, kc, phase)  # each group's plan = the library's
                 for gi, g in enumerate(kc.groups):
                     ikey = ptxas_line(kern, spec, kc, mode == "audit", g)[0]
                     hit.add(ikey)
+                    if timed:
+                        if len(kc.groups) != 1:
+                            fail(f"[{phase}] sweep {name} {hname} {mode}: a timed sweep's calls "
+                                 f"are one group each, not {len(kc.groups)}")
+                        launched[ikey] += 1
+                        first.setdefault(ikey, (name, hname, mode, spec, hq, x, kern, kc))
                     # a middle group of a chain of the group instantiations; the
-                    # group that runs a two-conv or tail one
+                    # group that runs a two-conv, tail or other-sizes one
                     if ikey in swept or (gi in (0, len(kc.groups) - 1) and "_group_" in ikey):
                         continue
                     swept.add(ikey)
-                    qp_path = os.path.join(cupti_dir, f"p16_sweep_{name}_{hname}.npz")
+                    qp_path = os.path.join(cupti_dir, f"p{phase}_sweep_{name}_{hname}.npz")
                     if not os.path.exists(qp_path):
                         hq.save(qp_path)
                     _, t, b = plans[gi]
@@ -4162,29 +4303,52 @@ def group_sweep(torch, dev, tag, rng, hit):
                                      mode="pe-exact" if kern is corrected_net else None,
                                      pattern=kernel_family(kern, kc, mode == "audit")))
                 if mode != "audit":
-                    held += boundaries_held(torch, kern, spec, hq, x, dumps)
+                    held += boundaries_held(torch, kern, spec, hq, x, dumps, phase)
                 runs += 1
     torch.cuda.synchronize()
     want = set()
-    for lib, families in (("sesr_net_group", ("sesr_net_group_kernel", "sesr_net_pair_kernel")),
-                          ("sesr_corrected_group", ("sesr_corrected_group_kernel",
-                                                    "sesr_corrected_group_audit_kernel",
-                                                    "sesr_corrected_tail_kernel",
-                                                    "sesr_corrected_tail_audit_kernel"))):
-        for family in families:
+    for lib, fams in families:
+        for family in fams:
             want |= {f"{family}<{args}>" for args in ptxas_report(lib, family)}
     missing = sorted(want - hit)
-    print(f"[16] sweep: {len(GROUP_NETS)} networks of {GROUP_NETS_CONVS} convs and "
-          f"{len(PAIR_NETS)} of 2 at {len(SWEEP_HW)} configs, {runs} chains on {SWEEP_BATCH} "
-          f"(three groups or more, or the two-conv group; one launch a group), each torch.equal "
-          f"with the plain interpreter (cuda), each group's plan the library's, {held} boundary "
-          f"tensors (activations and shortcuts) torch.equal with the plain interpreter's; "
-          f"layer-group instantiations launched in phase 16: {len(want & hit)} of {len(want)}, "
-          f"{len(jobs)} CUPTI jobs (a middle, tail or two-conv group each); "
-          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    print(f"[{phase}] sweep: {what} at {len(configs)} configs, {runs} chains on {SWEEP_BATCH} "
+          f"(one launch a group), each torch.equal with the plain interpreter (cuda), each "
+          f"group's plan the library's, {held} boundary tensors (activations and shortcuts) "
+          f"torch.equal with the plain interpreter's; instantiations of "
+          f"{[lib for lib, _ in families]} launched in phase {phase}: {len(want & hit)} of "
+          f"{len(want)}, {len(jobs)} CUPTI jobs; {time.perf_counter() - t0:.1f} s {tag}",
+          flush=True)
     if missing:
-        fail(f"[16] layer-group instantiations phase 16 never launched: {missing}")
-    return jobs
+        fail(f"[{phase}] instantiations phase {phase} never launched: {missing}")
+    entries = []
+    for ikey, (name, hname, mode, spec, hq, x, kern, kc) in first.items():
+        _, split, _ = mode_constants(mode, spec, hq, dev)
+        x_q = quantize_input(x, hq).to(torch.int8).contiguous()
+        if mode == "audit":
+            ms = median_ms(lambda: corrected_net.audit(spec, hq, x_q, split), dev, 20, warmup=3,
+                           lead_ms=2.0)
+        else:
+            ms = median_ms(lambda: kern(spec, hq, x_q, split=split), dev, 20, warmup=3,
+                           lead_ms=2.0)
+        plain_ms = median_ms(lambda: mode_plain(mode, spec, hq, x), dev, 1, warmup=0)
+        weights = sum(int(np.prod(np.shape(wt))) for wt in hq.w_int)
+        pixels = int(np.prod(SWEEP_BATCH))
+        bnd = bound(2 * weights * pixels,
+                    x_q.numel() + pixels * spec.conv_out_channels + weights, INT8_OPS_PER_S)
+        print(f"[{phase}] sweep {ikey} ({name} {hname} {mode}, {SWEEP_BATCH}): {ms:.4f} ms a "
+              f"call, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}), plain {plain_ms:.3f} ms, "
+              f"{launched[ikey]} launches in the sweep {tag}", flush=True)
+        entries.append(dict(
+            name=f"{ikey}[{spec.name}, {hname}, {mode}, sweep]", route="cuda",
+            source=group_source(kern, kc),
+            replaces=AUDIT_REPLACES if mode == "audit" else REPLACES[kern.symbol],
+            launches=launched[ikey], launches_per_frame={"sweep": 1 / SWEEP_BATCH[0]},
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=None, ptxas=list(ptxas_line(kern, spec, kc, mode == "audit",
+                                                   kc.groups[0])[1]),
+            work=f"{spec.name} (sizes {spec.kernel_sizes}), {SWEEP_BATCH}, {mode}, {hq.hw.pe} PEs, "
+                 f"one group"))
+    return jobs, entries
 
 
 def deep_phase(torch, dev, card):
@@ -4212,6 +4376,29 @@ def corner_phase(torch, dev, card):
     instantiation). Returns (the kernels-line entries, the CUPTI jobs)."""
     return chain_phase(torch, dev, card, 17, CORNER_NETS, CORNER_CONFIG, CORNER_SATURATED,
                        CORNER_MODES, out_frame, "m0_x2", None)
+
+
+def ksize_sweep(torch, dev, tag, rng, hit):
+    """Phase 18's sweep of every instantiation of the forms of other conv
+    sizes (``chain_sweep``): KSIZE_SWEEP and KSIZE_PAIRS at KSIZE_SWEEP_HW,
+    every group launched in sesr_net_ksize.cu's and
+    sesr_corrected_ksize.cu's kernels."""
+    return chain_sweep(torch, dev, tag, rng, hit, 18, {**KSIZE_SWEEP, **KSIZE_PAIRS},
+                       KSIZE_SWEEP_HW, KSIZE_FAMILIES, lambda spec: 1,
+                       f"{len(KSIZE_SWEEP)} five-conv networks (sizes {KSIZE_TRIPLES}) and "
+                       f"{len(KSIZE_PAIRS)} two-conv ones", timed=True)
+
+
+def ksize_phase(torch, dev, card):
+    """Phase 18, networks of other conv sizes on the card (KSIZE_NETS), at
+    the input whose output is 1080x1920 (out_frame), through
+    ``chain_phase``: every mode at batch 1 and 4 at 4 PEs, pe16 and
+    KSIZE_CONFIG, a copy at 4 PEs with KSIZE_SATURATED at +127, ``infer
+    --audit 1``, sesr_m5_k3_x2 at two virtual ranks, then ``ksize_sweep``,
+    then the times and plans. Returns (the kernels-line entries, the CUPTI
+    jobs)."""
+    return chain_phase(torch, dev, card, 18, KSIZE_NETS, KSIZE_CONFIG, KSIZE_SATURATED,
+                       KSIZE_MODES, out_frame, "m5_k3", ksize_sweep)
 
 
 def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, frame_of,
@@ -4308,13 +4495,14 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
         modes, batches = modes_of.get(cname, modes_of["config"])
         modes = tuple(k2 if m == "K2" else m for m in modes)
         modes += (served,) if served not in modes else ()
-        least = 1 if spec.num_convs == 2 else 2
         memo = {}
         for mode in modes:
             kern, split, kc = mode_constants(mode, spec, qp, dev)
+            # a network of other conv sizes runs in groups from one on
+            least = 1 if spec.num_convs == 2 or kc.other_sizes else 2
             if len(kc.groups) < least or (spec.num_convs == 2 and len(kc.groups) != 1):
                 fail(f"[{phase}] {key} {cname} {mode}: {len(kc.groups)} layer groups, want "
-                     f"{'1' if spec.num_convs == 2 else '2 or more'}")
+                     f"{'1' if spec.num_convs == 2 else f'{least} or more'}")
             hit.update(chain_lines(kern, spec, kc, mode == "audit"))
             for batch in batches:
                 x = x4[key][:batch]
@@ -4408,12 +4596,13 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
     print(f"[{phase}] {spec.name} {mode} at 2 virtual ranks ({tuple(x.shape)}): two windows, "
           f"{made} launches, torch.equal with the monolithic chain", flush=True)
 
-    # the sweep: every instantiation of the phase on a small batch
-    jobs = sweep(torch, dev, tag, rng, hit) if sweep else []
+    # the sweep: every instantiation of the phase on a small batch (phase
+    # 18's with a kernels-line entry each)
+    jobs, entries = sweep(torch, dev, tag, rng, hit) if sweep else ([], [])
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
 
     # each (kernel, network, config, mode) at batch 1: times, plans, work
-    entries, plain_ms = [], {}
+    plain_ms = {}
     for (key, cname, mode), (n_launch, n_frames) in own.items():
         spec, qp, _ = nets[key, cname]
         kern, split, kc = mode_constants(mode, spec, qp, dev)
@@ -4439,9 +4628,10 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
         # one launch's plan at the largest tile it fits (not run)
         single = next((t for t in kern.tiles
                        if kern.smem_bytes(spec, t, kc.pe_split, kc.pe, True) <= SMEM_LIMIT),
-                      None) if spec.num_convs >= 3 else None
+                      None) if spec.num_convs >= 3 and not kc.other_sizes else None
         one = f"{chain_halo(spec, [(None, single, 0)]):.3f} at {single[0]}x{single[1]}" \
-            if single else "none: no tile fits one launch" if spec.num_convs >= 3 \
+            if single else "none: other conv sizes run in groups" if kc.other_sizes \
+            else "none: no tile fits one launch" if spec.num_convs >= 3 \
             else "none: one launch runs 3 or more convs"
         wrote, read = boundary_bytes(spec, kc, plans, n, h, w, 1 if kern is pe_exact_net else 2)
         tiles = "; ".join(f"convs {g.first}-{g.last} {t[0]}x{t[1]} {b} B" for g, t, b in plans)
@@ -4460,8 +4650,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
             entries.append(dict(
                 name=f"{'sesr_corrected_audit' if audit else kern.symbol}[{spec.name}, {cname}, "
                      f"{mode}, layer groups]",
-                route="cuda", source="sesr_tpu_torch/csrc/" + (
-                    "sesr_corrected_group.cu" if kern is corrected_net else "sesr_net_group.cu"),
+                route="cuda", source=group_source(kern, kc),
                 replaces=AUDIT_REPLACES if audit else REPLACES[kern.symbol],
                 launches=n_launch, launches_per_frame={"main path": n_launch / n_frames},
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms[pkey], bound_ms=bnd[0],
@@ -4479,7 +4668,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
                              groups=len(plans), shape=[1, h, w],
                              mode=("pe-exact" if audit else mode) if kern is corrected_net
                              else None, pattern=kernel_family(kern, kc, audit)))
-    print(f"[{phase}] the {'deep' if phase == 16 else 'corners'} phase took "
+    print(f"[{phase}] the {({16: 'deep', 17: 'corners'}).get(phase, 'conv sizes')} phase took "
           f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
     return entries, jobs
 
@@ -5072,13 +5261,16 @@ def main():
     out_entries, out_jobs = out_channels_phase(torch, dev, card)
     deep_entries, deep_jobs = deep_phase(torch, dev, card)
     corner_entries, corner_jobs = corner_phase(torch, dev, card)
+    # 18. networks of other conv sizes
+    ksize_entries, ksize_jobs = ksize_phase(torch, dev, card)
     # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode); the
-    # CUPTI process of phases 12, 15, 16 and 17's jobs runs beside its main
+    # CUPTI process of phases 12 and 15-18's jobs runs beside its main
     # path, before its times
-    early = cupti_start(hw_jobs + out_jobs + deep_jobs + corner_jobs, "jobs_12_15_16_17.json")
+    early = cupti_start(hw_jobs + out_jobs + deep_jobs + corner_jobs + ksize_jobs,
+                        "jobs_12_15_16_17_18.json")
     entries += family_phase(torch, dev, card, early)
-    entries += out_entries + deep_entries + corner_entries
-    print(f"[17] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+    entries += out_entries + deep_entries + corner_entries + ksize_entries
+    print(f"[18] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

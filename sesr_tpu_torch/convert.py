@@ -27,17 +27,18 @@ from sesr_tpu_torch.quant.params import QuantParams
 # its rows past those (``out_rows``): its bias, z_eff * sum(W) and each
 # PE's z_eff * sum(W_p), ``out_channels`` words each, its record's "rows"
 # word the first one's offset. The last record's "out" word is the last
-# conv's output channels. Float fields travel as their float32 bits. The
-# block of an L-conv network holds L records: K1 and K2 copy the head and
-# the records (``net_words``) into shared memory, the corrected kernel all
-# of it (``block_words``).
+# conv's output channels, each record's "k" word its conv's size. Float
+# fields travel as their float32 bits. The block of an L-conv network holds
+# L records: K1 and K2 copy the head and the records (``net_words``) into
+# shared memory, the corrected kernel all of it (``block_words``).
 MAX_LAYERS = 16                    # the most convs one launch runs: a deeper network runs in groups
 GROUP_FIRST, GROUP_LAST = 1, 2     # a group's flags (sesr_common.cuh G_FIRST, G_LAST)
 WIDTHS = (16, 32)                  # the hidden widths every fused kernel runs
 MAX_PES = 16
 HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6, quant=7)
 HEAD_WORDS = 8
-RECORD = dict(w_off=0, z_eff=1, z_in=2, rq_m=3, rq_p=4, rows=5, out=6, bias=8)  # zc: bias + width
+RECORD = dict(w_off=0, z_eff=1, z_in=2, rq_m=3, rq_p=4, rows=5, out=6, k=7,
+              bias=8)                                     # zc: bias + width
 # the last conv's output channels every fused kernel takes: 1 to 3 x 4^2
 # (an RGB network of scale 4), run as OUT_COLUMNS padded columns, the
 # first that holds them (``out_columns``); K1 and K2 serve 3, 12 and 16 in
@@ -47,11 +48,31 @@ MAX_OUT = 48
 OUT_COLUMNS = (8, 16, 32, 48)
 SHIPPED_OUT = (3, 12, 16)
 DATAPATHS = ("exact", "fast", "corrected")
+# the conv sizes every fused kernel runs, each position on its own (the
+# first conv, the block convs, the last conv): odd, 1 to 9. A network of the
+# shipped sizes (``shipped_sizes``) keeps its kernels; any other runs in the
+# layer-group form's forms of other conv sizes (KernelConstants.ksizes)
+KSIZES = (1, 3, 5, 7, 9)
+# the tile the groups of such a network must fit where any partition lets
+# them (kernel_constants), before the smallest
+OTHER_SIZES_TILE = (16, 16)
 # the kernels' magic-number conversions (sesr_common.cuh kMagic) hold an
 # integer exactly while |y| < 2^22; an artifact whose sums may pass it runs
 # the wide kernels (KernelConstants.wide: a plain int32, converted once)
 MAGIC_RANGE = 1 << 22
 QUAN_BITS = (2, 8)                 # the activation widths the kernels hold (int8 lanes)
+
+
+def shipped_sizes(num_layers: int) -> tuple:
+    """5x5 / 3x3 ... / 5x5: the conv sizes whose extents and B every
+    kernel but the forms of other conv sizes derives from the position."""
+    return (5,) + (3,) * (num_layers - 2) + (5,)
+
+
+def pack_sizes(sizes) -> int:
+    """A group's conv sizes as the kernels take them (sesr_common.cuh
+    ks_at): four bits a conv, conv j in bits 4 j .. 4 j + 3."""
+    return sum(int(k) << (4 * j) for j, k in enumerate(sizes))
 
 
 def kernel_width(num_channels: int) -> int:
@@ -196,6 +217,14 @@ class KernelConstants:
     width: int                   # the hidden width the network runs at (kernel_width)
     wide: bool = False           # general, and |pe_add + bias| may pass 2^22: the wide kernels
     groups: tuple = ()           # GroupConstants of the layer-group form; () one launch
+    ksizes: tuple = ()           # each conv's size
+
+    @property
+    def other_sizes(self) -> bool:
+        """Whether the network's conv sizes are not 5x5 / 3x3 ... / 5x5: it
+        runs in the forms of other conv sizes (csrc/sesr_net_ksize.cu,
+        csrc/sesr_corrected_ksize.cu), in groups."""
+        return tuple(self.ksizes) != shipped_sizes(self.num_layers)
 
     def _own_rows(self, layer: int) -> bool:
         return layer == self.num_layers - 1 and self.out_channels > self.width
@@ -353,13 +382,14 @@ def _wgmma_columns(oc: int, last: bool) -> np.ndarray:
 def wgmma_geometry(k: int, ic: int, oc: int, split: bool, last: bool, pe: int):
     """(k32 steps, PE groups of columns, N) of one layer's GEMM in the
     corrected kernel: layer 0 (ic <= 4, its pixels widened to four
-    horizontal neighbours) takes one step per kernel row, a 16-channel layer
+    horizontal neighbours, eight taps a step) takes one step per kernel row
+    (two past eight columns: a 9x9 conv), a 16-channel layer
     two taps a step, a 32-channel layer one (its two planes the two halves
     of k); a split layer has one group of columns per PE that owns an input
     channel (layer 0: min(ic, pe); a hidden layer ``pe_groups``), a
     one-pass layer one."""
     wide = ic <= 4
-    steps = k if wide else -(-k * k * ic // 32)
+    steps = k * -(-k // 8) if wide else -(-k * k * ic // 32)
     groups = (min(ic, pe) if wide else pe_groups(pe)) if split else 1
     return steps, groups, groups * len(_wgmma_columns(oc, last))
 
@@ -371,7 +401,8 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     ``_wgmma_columns[n % G]`` of PE group n // G (G columns a group); k byte
     16h + b of step s is channel b of tap 2s + h (a 16-channel layer),
     channel 16h + b of tap s (a 32-channel layer: plane h), or channel
-    b % 4 of tap (s, 4h + b // 4) (layer 0, widened pixels). A
+    b % 4 of tap (s // r, 8 (s % r) + 4h + b // 4) (layer 0, widened pixels,
+    r = ceil(k / 8) steps a kernel row). A
     split layer's group p holds only PE p's channels (c % pe == p); a
     padded tap or channel, a group past the PEs, or a column past OC, is
     zero."""
@@ -384,7 +415,8 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     s, kb, n = np.meshgrid(np.arange(steps), np.arange(32), np.arange(n_cols), indexing="ij")
     h, b = kb >> 4, kb & 15
     if wide:
-        dy, dx, ch = s, 4 * h + b // 4, b % 4
+        spr = -(-k // 8)
+        dy, dx, ch = s // spr, 8 * (s % spr) + 4 * h + b // 4, b % 4
         ok = (dx < k) & (ch < ic)
     else:
         tap = 32 // ic * s + (32 // ic - 1) * h
@@ -625,12 +657,14 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     (``wide``) they run as the wide kernels, whose sums stay plain int32,
     converted to float32 once. Networks
     of 2 or more convs run at hidden widths of 16 and 32, with 1 to
-    4 input channels and a last conv of 1 to MAX_OUT output channels, and a
-    narrower network runs padded with zero channels (``_padded``). Raises
-    NotImplementedError for a network or artifact outside that (quan_bits
-    above 8, more than MAX_PES PEs, a hidden width above 32, convs other
-    than 5x5 / 3x3 ... / 5x5, more than 4 input or MAX_OUT output channels,
-    an int16 shortcut that may not hold round(s), ``shortcut_bound``).
+    4 input channels and a last conv of 1 to MAX_OUT output channels, each
+    conv of any odd size from 1 to 9 (KSIZES: the first conv, the block
+    convs and the last conv each on its own), and a narrower network runs
+    padded with zero channels (``_padded``). Raises NotImplementedError for
+    a network or artifact outside that (quan_bits above 8, more than
+    MAX_PES PEs, a hidden width above 32, an even conv size or one past 9,
+    more than 4 input or MAX_OUT output channels, an int16 shortcut that may
+    not hold round(s), ``shortcut_bound``).
 
     A network that one launch of the kernel runs (3 to MAX_LAYERS convs,
     and a plan that fits a block at the kernel's smallest tile) keeps that
@@ -640,8 +674,11 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     tile), its constants in ``groups`` (``group_constants``), a last conv of
     any 1 to MAX_OUT output channels included. A network of two convs
     (``num_lblocks`` 0) is one group, GROUP_FIRST | GROUP_LAST, whose first
-    conv also adds the shortcut (the group kernels' two-conv form). Raises
-    NotImplementedError where no partition fits.
+    conv also adds the shortcut (the group kernels' two-conv form). A
+    network whose convs are not 5x5 / 3x3 ... / 5x5 always runs in groups,
+    in the forms of other conv sizes (``ksizes``; one group where its plan
+    fits a block). Raises NotImplementedError where no partition fits,
+    naming the shared memory the smallest groups need.
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -669,10 +706,16 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     wide = reach >= MAGIC_RANGE
     width = kernel_width(spec.num_channels)
     out_ch = spec.conv_out_channels
-    if not (ks[0] == 5 and ks[-1] == 5 and all(k == 3 for k in ks[1:-1])):
-        raise NotImplementedError(
-            f"the fused kernels run 5x5 / 3x3 ... / 5x5 convs; {spec.name} has {ks}, outside "
-            f"that")
+    for i, k in enumerate(ks):
+        if k not in KSIZES:
+            raise NotImplementedError(
+                f"the fused kernels run convs of odd sizes {KSIZES[0]} to {KSIZES[-1]}; conv {i} "
+                f"of {spec.name} is {k}x{k}" + (" (an even size: its SAME padding grows the "
+                                                 "frame)" if k % 2 == 0 else ""))
+        if np.shape(qp.w_int[i])[:2] != (k, k):
+            raise ValueError(f"conv {i} of {spec.name} is {k}x{k}, its weights "
+                             f"{np.shape(qp.w_int[i])[:2]}")
+    other = ks != shipped_sizes(L)
     if not (1 <= spec.in_channels <= 4 and 1 <= out_ch <= MAX_OUT):
         raise NotImplementedError(
             f"the fused kernels run 1-4 input channels and a last conv of 1-{MAX_OUT} output "
@@ -691,18 +734,18 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
                 f"m < 2^22 and |n| <= 64 keep every product a normal float")
     # the general instantiation: every config but the shipped one's int8
     # activations and sums the kMagic conversions hold
-    other = hw.quan_bits != 8 or wide
+    off_int8 = hw.quan_bits != 8 or wide
     if exact:
         split = pe_split_layers(qp)
         clamp = adder_clamp_layers(qp, lambda i: 0, split)
-        general = hw.pe != 4 or any(clamp) or other or out_ch not in SHIPPED_OUT
+        general = hw.pe != 4 or any(clamp) or off_int8 or out_ch not in SHIPPED_OUT
     elif datapath == "fast":
         split = (False,) * L
         clamp = clamp20_layers(qp)
-        general = clamp[0] or other or out_ch not in SHIPPED_OUT
+        general = clamp[0] or off_int8 or out_ch not in SHIPPED_OUT
     else:
         clamp = adder_clamp_layers(qp, qp.effective_zero, split)
-        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split)) or other \
+        general = hw.pe != 4 or any(c and f for c, f in zip(clamp, split)) or off_int8 \
             or out_ch > 16
     if not exact and shortcut_bound(qp, split[0]) > 32767:
         raise NotImplementedError(
@@ -714,23 +757,32 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     from sesr_tpu_torch.ops.kernels import SMEM_LIMIT, kernel_of
     kern = kernel_of(datapath)
     smallest = kern.tiles[-1]
-    if 3 <= L <= MAX_LAYERS \
+    if not other and 3 <= L <= MAX_LAYERS \
             and kern.smem_bytes(spec, smallest, split, hw.pe, general) <= SMEM_LIMIT:
         groups = ()
     else:
         general = True                   # the group kernels are general instantiations
 
-        def need(a, b):
-            return kern.group_smem_bytes(spec, a, b, split, hw.pe, smallest)
+        def need(a, b, tile=smallest):
+            return kern.group_smem_bytes(spec, a, b, split, hw.pe, tile)
 
-        groups = layer_groups(L, lambda a, b: need(a, b) <= SMEM_LIMIT)
+        # other conv sizes: the fewest groups that fit a block at 16x16 where
+        # there are such (a 13-conv 5x5 network of width 32 in one group fits
+        # only at 8x8, where it computes 18 times the MACs it needs)
+        for tile in ((OTHER_SIZES_TILE,) if other else ()) + (smallest,):
+            groups = layer_groups(L, lambda a, b: need(a, b, tile) <= SMEM_LIMIT)
+            if groups:
+                break
         if groups is None:
+            pairs = balanced_groups(L, L // 2)
             raise NotImplementedError(
-                f"no tile of the {datapath} kernel fits {spec.name} at {hw.pe} PEs, in one "
-                f"launch or in groups of 2 to {MAX_LAYERS} convs: at the smallest tile "
-                f"{smallest} one launch needs "
-                f"{kern.smem_bytes(spec, smallest, split, hw.pe, general)} B of shared "
-                f"memory, a block has {SMEM_LIMIT}")
+                f"no tile of the {datapath} kernel fits {spec.name} (convs {ks}) at {hw.pe} "
+                f"PEs, in one launch or in groups of 2 to {MAX_LAYERS} convs: at the smallest "
+                f"tile {smallest} "
+                + ("" if other else f"one launch needs "
+                   f"{kern.smem_bytes(spec, smallest, split, hw.pe, general)} B, ")
+                + f"the smallest groups {pairs} need {[need(a, b) for a, b in pairs]} B of "
+                f"shared memory, a block has {SMEM_LIMIT}")
     if general:
         clamp = (True,) * L
 
@@ -756,6 +808,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         m_f, p_f = requant_factors(qp.requant_m[i], qp.requant_n[i])
         prm[param_at("rq_m", i, width)] = _f32_bits(m_f)
         prm[param_at("rq_p", i, width)] = _f32_bits(p_f)
+        prm[param_at("k", i, width)] = ks[i]
         zc_pe = np.zeros((hw.pe, oc), np.int64)
         if exact:
             bias = qp.fused_bias(i)
@@ -787,7 +840,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     return KernelConstants(np.concatenate(chunks), prm, L, spec.in_channels,
                            out_ch, split, clamp, hw.pe, general, width, wide,
                            tuple(group_constants(prm, L, width, hw.pe, out_ch, split, clamp, a, b)
-                                 for a, b in groups))
+                                 for a, b in groups), ks)
 
 
 def device_constants(spec: SESRSpec, qp: QuantParams, datapath: str,

@@ -75,8 +75,9 @@ PTXAS_FAMILIES = {
     "sesr_net": ("sesr_net_kernel", "sesr_net_wide_kernel"),
     "sesr_corrected": tuple(f"sesr_corrected{a}{form}_kernel" for a in ("", "_audit")
                             for form in ("", "_wide", "_wideout", "_pieces")),
-    "sesr_net_group": ("sesr_net_group_kernel",),
-    "sesr_corrected_group": ("sesr_corrected_group_kernel", "sesr_corrected_group_audit_kernel")}
+    "sesr_net_group": ("sesr_net_group_kernel", "sesr_net_pair_kernel"),
+    "sesr_corrected_group": ("sesr_corrected_group_kernel", "sesr_corrected_group_audit_kernel",
+                             "sesr_corrected_tail_kernel", "sesr_corrected_tail_audit_kernel")}
 # --base only: the corrected kernel on nr's artifact at 3 and 8 PEs
 # ("nr@pe3", "nr@pe8": its instantiations <4, true, 16> and <8, true, 16>)
 # at 1080x1920, K1 and K2 on sr_x2, and the corrected kernel on the

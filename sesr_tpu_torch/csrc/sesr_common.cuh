@@ -45,6 +45,8 @@ constexpr int R_RQM = 3;                  // f32 bits: requant mantissa
 constexpr int R_RQP = 4;                  // f32 bits: 2^-n
 constexpr int R_ROWS = 5;                 // the last conv past C output channels: its rows' offset
 constexpr int R_OUT = 6;                  // the last conv: its output channels
+constexpr int R_K = 7;                    // the conv's size k (k x k, odd, 1 to 9; read by the
+                                          // forms of other conv sizes)
 constexpr int R_BIAS = 8;                 // [C] bias added after the adder clamp; then
                                           // [C] z_eff * sum(W), subtracted before it
 __host__ __device__ constexpr int rec_words(int C) { return R_BIAS + 2 * C; }
@@ -149,6 +151,22 @@ __host__ __device__ inline int group_extent(int j, int n, int fl, int th, int tw
 // the group reads it (G_LAST), the tile where the first group writes it for
 // a later group.
 __host__ __device__ constexpr int group_sc_ring(int fl) { return (fl & G_LAST) ? 2 : 0; }
+
+// The forms of other conv sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu):
+// a network whose convs are not 5x5 / 3x3 ... / 5x5 (any odd size from 1 to
+// 9 at each position) runs in the layer-group form, each conv's size read
+// from its record (R_K) and, on the host, from the group's sizes packed
+// four bits a conv, conv j in bits 4 j .. 4 j + 3 (ks).
+__host__ __device__ constexpr int ks_at(long long ks, int j) { return static_cast<int>((ks >> (4 * j)) & 15); }
+// Sum of k/2 over layers j..n-1 of a group of sizes ks (group_ring's).
+__host__ __device__ inline int ks_ring(int j, int n, long long ks) {
+  int r = 0;
+  for (int i = j; i < n; ++i) r += ks_at(ks, i) / 2;
+  return r;
+}
+// The shortcut's ring around the tile (group_sc_ring's): the last conv's
+// k/2 where the group reads it (G_LAST).
+__host__ __device__ inline int ks_sc_ring(int n, int fl, long long ks) { return (fl & G_LAST) ? ks_at(ks, n - 1) / 2 : 0; }
 
 // Four int8 words a..d -> word b of the result holds byte b of a, b, c, d:
 // a 4 x 4 byte transpose, its own inverse. K1 / K2 hold a pixel's channels

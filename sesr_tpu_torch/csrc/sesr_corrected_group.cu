@@ -537,6 +537,10 @@ int launch_chain_group(const void* x, void* out, const void* weights, const void
 
 }  // namespace
 
+#ifndef SESR_CORRECTED_GROUP_BODY_ONLY
+// (sesr_corrected_ksize.cu includes this file for its bodies alone: the
+// entry points below are this library's.)
+
 extern "C" {
 
 // One group's launch. x: the group's input, int8 (nb, h, w, in_ch) (G_FIRST)
@@ -586,3 +590,5 @@ const char* sesr_corrected_group_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // SESR_CORRECTED_GROUP_BODY_ONLY

@@ -451,6 +451,10 @@ int launch_dp(const void* x, void* out, const void* weights, const void* params,
 
 }  // namespace
 
+#ifndef SESR_NET_GROUP_BODY_ONLY
+// (sesr_net_ksize.cu includes this file for its bodies alone: the entry
+// points below are this library's.)
+
 extern "C" {
 
 // One group's launch. x: the group's input, int8 (nb, h, w, in_ch) (G_FIRST)
@@ -487,3 +491,5 @@ const char* sesr_net_group_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // SESR_NET_GROUP_BODY_ONLY

@@ -33,13 +33,16 @@ BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 # --split-compile 0: the optimizer runs on every CPU at once, kernel by kernel
 # (sesr_net.cu holds 24 instantiations since the 32-channel ones). The
 # layer-group libraries (sesr_net_group.cu, sesr_corrected_group.cu) include
-# sesr_net.cu / sesr_corrected.cu for their bodies and build beside them.
+# sesr_net.cu / sesr_corrected.cu for their bodies, and the libraries of
+# other conv sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu) the group
+# sources; each builds beside the others, one nvcc process a library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0")
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 # every entry point of each library, with its argument types; each returns
 # a cudaError_t as int, and each library exports <prefix>_error_string
 SIGNATURES = {
@@ -84,6 +87,23 @@ SIGNATURES = {
         # bytes, 0: refused
         "sesr_corrected_group_smem": [_INT] * 9,
     },
+    "sesr_net_ksize": {
+        # sesr_net_group's arguments but the stream, then (ks: the group's conv sizes, four
+        # bits a conv; stream)
+        "sesr_net_ksize": [_INT] + [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR],
+        # sesr_net_group_smem's arguments, then ks
+        "sesr_net_ksize_smem": [_INT] * 10 + [_LL],
+    },
+    "sesr_corrected_ksize": {
+        # sesr_corrected_group's arguments but the stream, then (ks, stream)
+        "sesr_corrected_ksize": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR],
+        # the counting form: the same arguments but the stream, then (counts, y0, y1, x0,
+        # x1, stream)
+        "sesr_corrected_ksize_audit": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR] + [_INT] * 4
+                                      + [_PTR],
+        # sesr_corrected_group_smem's arguments, then ks
+        "sesr_corrected_ksize_smem": [_INT] * 9 + [_LL],
+    },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)
         "probe_gemm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
@@ -100,6 +120,8 @@ SIGNATURES = {
 ERROR_STRING = {"sesr_net": "sesr_error_string", "sesr_corrected": "sesr_corrected_error_string",
                 "sesr_net_group": "sesr_net_group_error_string",
                 "sesr_corrected_group": "sesr_corrected_group_error_string",
+                "sesr_net_ksize": "sesr_net_ksize_error_string",
+                "sesr_corrected_ksize": "sesr_corrected_ksize_error_string",
                 "probes": "probe_error_string"}
 
 

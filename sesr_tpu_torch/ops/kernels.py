@@ -17,7 +17,10 @@ layer-group form: each wrapper launches a chain, one launch per group of
 consecutive convs, of csrc/sesr_net_group.cu (K1, K2) or
 csrc/sesr_corrected_group.cu (the corrected kernel and its counting form),
 the int8 activation and the shortcut crossing each boundary in device
-memory; every launch of the chain is counted.
+memory; every launch of the chain is counted. A network whose convs are not
+5x5 / 3x3 ... / 5x5 (KernelConstants.other_sizes) runs its chain in the
+forms of other conv sizes, csrc/sesr_net_ksize.cu and
+csrc/sesr_corrected_ksize.cu, each group's sizes passed with its launch.
 
 A wrapper takes the quantized int8 input on the card and returns the int8
 output of the last conv (before the pixel shuffle); ``ops/pe_exact.py``,
@@ -37,8 +40,8 @@ import torch
 from sesr_tpu_torch.config import SESRSpec
 from sesr_tpu_torch.convert import (GROUP_FIRST, GROUP_LAST, MAX_LAYERS, block_words,
                                     device_constants, group_flags, group_records, kernel_width,
-                                    layer_geometry, net_words, out_columns, pe_groups,
-                                    wgmma_geometry)
+                                    layer_geometry, net_words, out_columns, pack_sizes, pe_groups,
+                                    shipped_sizes, wgmma_geometry)
 from sesr_tpu_torch.ops import _build
 from sesr_tpu_torch.ops.conv import pixel_shuffle_nhwc
 from sesr_tpu_torch.quant.integer import dequantize_output, quantize_input
@@ -76,23 +79,25 @@ def _round_up(v: int, a: int) -> int:
     return -(-v // a) * a
 
 
-def _ring(i: int, L: int) -> int:
-    """sum of k // 2 over convs i..L-1 (5, 3, ..., 3, 5): csrc/sesr_common.cuh ring."""
-    return 0 if i >= L else L + 2 if i == 0 else L + 1 - i
-
-
-def _group_ring(j: int, n: int, flags: int) -> int:
-    """sum of k // 2 over layers j..n-1 of a group of n convs: csrc/sesr_common.cuh
-    group_ring (5x5 the network's first and last conv, 3x3 the others)."""
-    return 0 if j >= n else n - j + (j == 0 and bool(flags & GROUP_FIRST)) \
-        + bool(flags & GROUP_LAST)
+def _ring(i: int, ks) -> int:
+    """sum of k // 2 over convs i.. of a network of conv sizes ks:
+    csrc/sesr_common.cuh ring (at 5, 3, ..., 3, 5), group_ring and ks_ring."""
+    return sum(k // 2 for k in ks[i:])
 
 
 def _group_kind(j: int, n: int, flags: int) -> int:
-    """0 the network's first conv, 2 its last, 1 a 3x3 conv between
+    """0 the network's first conv, 2 its last, 1 a conv between
     (sesr_common.cuh group_kind)."""
     return 0 if j == 0 and flags & GROUP_FIRST else 2 if j == n - 1 and flags & GROUP_LAST \
         else 1
+
+
+def _group_sizes(n: int, flags: int, ks=None) -> tuple:
+    """The conv sizes of a group of n convs: ks, or (None) 5x5 the
+    network's first and last conv, 3x3 the others (csrc/sesr_common.cuh
+    group_ring)."""
+    return tuple(ks) if ks is not None else \
+        tuple(3 if _group_kind(j, n, flags) == 1 else 5 for j in range(n))
 
 
 def _plane_stride(n: int) -> int:
@@ -114,14 +119,15 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
     width / 2 of int16 pairs (K2)."""
     th, tw = tile
     exact = datapath == "exact"
+    ks = shipped_sizes(L)
     w_words = 0
     for i in range(L):
         sp = bool(split[i]) if general else exact
-        k, ic = (5 if i in (0, L - 1) else 3), (in_ch if i == 0 else width)
+        k, ic = ks[i], (in_ch if i == 0 else width)
         passes, chunks, _ = layer_geometry(k, ic, sp, pe)
         cols = out_columns(out_ch) if i == L - 1 else width
         w_words = max(w_words, passes * chunks * 32 * 2 * (cols // 8))
-    ext = [(th + 2 * _ring(i, L)) * (tw + 2 * _ring(i, L)) for i in range(L)]
+    ext = [(th + 2 * _ring(i, ks)) * (tw + 2 * _ring(i, ks)) for i in range(L)]
     bufs = [0, _round_up(ext[0], 4)]                 # layer i reads bufs[i % 2 == 0]
     for i in range(1, L):
         bufs[i % 2 == 0] = max(bufs[i % 2 == 0], width // 4 * _plane_stride(ext[i]))
@@ -131,39 +137,44 @@ def net_smem_bytes(datapath: str, L: int, in_ch: int, out_ch: int, tile, split, 
 
 
 def net_group_smem_bytes(datapath: str, n: int, flags: int, in_ch: int, out_ch: int, tile,
-                         split, pe: int, width: int) -> int:
+                         split, pe: int, width: int, ks=None) -> int:
     """Shared memory of one block of a group of the layer-group form of K1
     ("exact") or K2 ("fast") (csrc/sesr_net_group.cu group_plan; chip_smoke.py
     checks the two agree): ``net_smem_bytes``' terms with the group's
-    extents (``_group_ring``) and split flags ``split`` (one per conv of the
+    extents (``_ring`` of ``_group_sizes``) and split flags ``split`` (one per conv of the
     group), room for MAX_LAYERS + 1 records, the input of a group past conv
     0 and the output of one before the last conv as width / 4 planes, the
     shortcut where the group writes it (the tile) or reads it (the last
     conv's input extent), and a split last conv of K1 off 4 PEs staged one
     pass at a time (two pass buffers where they fit, else one). The
-    two-conv group (``pair_group``) keeps no shortcut."""
+    two-conv group (``pair_group``) keeps no shortcut. ``ks``: the group's
+    conv sizes in the forms of other conv sizes (csrc/sesr_net_ksize.cu),
+    which stage every split conv past layer 0 off 4 PEs a pass at a time
+    (K1) and keep one B buffer where two do not fit (K1 and K2); None: 5x5
+    / 3x3 / 5x5."""
     th, tw = tile
     exact = datapath == "exact"
+    sizes = _group_sizes(n, flags, ks)
     w_words = 0
     for j in range(n):
         kind = _group_kind(j, n, flags)
-        k, ic = (3, width) if kind == 1 else (5, in_ch if kind == 0 else width)
+        k, ic = sizes[j], (in_ch if kind == 0 else width)
         passes, chunks, _ = layer_geometry(k, ic, bool(split[j]), pe)
         cols = out_columns(out_ch) if kind == 2 else width
         words = passes * chunks * 32 * 2 * (cols // 8)
-        if kind == 2 and split[j] and exact and pe != 4:
+        if (kind == 2 or (ks is not None and kind == 1)) and split[j] and exact and pe != 4:
             words //= passes                # staged a pass at a time
         w_words = max(w_words, words)
-    ext = [(th + 2 * _group_ring(j, n, flags)) * (tw + 2 * _group_ring(j, n, flags))
-           for j in range(n + 1)]
+    ext = [(th + 2 * _ring(j, sizes)) * (tw + 2 * _ring(j, sizes)) for j in range(n + 1)]
     bufs = [0, _round_up(ext[0], 4) if flags & GROUP_FIRST else 0]  # layer j reads bufs[j % 2 == 0]
     for j in range(1 if flags & GROUP_FIRST else 0, n + 1 - bool(flags & GROUP_LAST)):
         bufs[j % 2 == 0] = max(bufs[j % 2 == 0], width // 4 * _plane_stride(ext[j]))
-    rs = 2 if flags & GROUP_LAST else 0
+    rs = sizes[-1] // 2 if flags & GROUP_LAST else 0
     sc = (width // 4 if exact else width // 2) * _plane_stride((th + 2 * rs) * (tw + 2 * rs)) \
         if flags and not pair_group(n, flags) else 0
     two = 4 * (net_words(MAX_LAYERS + 1, width) + 2 * w_words + sum(bufs) + sc)
-    return two - 4 * w_words if exact and width == 32 and two > SMEM_LIMIT else two
+    one = (exact and width == 32) or ks is not None
+    return two - 4 * w_words if one and two > SMEM_LIMIT else two
 
 
 def pair_group(n: int, flags: int) -> bool:
@@ -192,11 +203,13 @@ def chunk_groups(groups: int, ocp: int) -> int:
 
 def pieces(steps: int, cols: int) -> tuple:
     """(pieces, k32 steps of a piece) of a chunk of ``cols`` columns and
-    ``steps`` steps (5, 9, 13 or 25) staged in pieces of at most PIECE_MAX
-    bytes: the whole chunk where it fits, else five steps, so that the
-    pieces divide the steps (csrc/sesr_corrected.cu piece_count,
-    piece_steps)."""
-    per = steps if steps * cols * 32 <= PIECE_MAX else 5
+    ``steps`` steps staged in pieces of at most PIECE_MAX bytes: the whole
+    chunk where it fits, else the largest divisor of the steps whose piece
+    fits, so that the pieces divide the steps (csrc/sesr_corrected.cu
+    piece_count and piece_steps, five at 25 steps, the only count past one
+    piece of a 5x5 / 3x3 network; piece_span in the forms of other conv
+    sizes: 7 of 49, 9 of 81, 1 of 41, the steps of a 9x9 conv at width 16)."""
+    per = next(d for d in range(steps, 0, -1) if steps % d == 0 and d * cols * 32 <= PIECE_MAX)
     return steps // per, per
 
 
@@ -243,17 +256,18 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
     the largest piece or layer, one piece staged while the one before
     computes, where they fit, else 1."""
     th, tw = tile
+    ks = shipped_sizes(L)
     b_bytes, units = [], []
-    bufs = [0, (th + 2 * _ring(0, L)) * (tw + 2 * _ring(0, L)) * 4]
+    bufs = [0, (th + 2 * _ring(0, ks)) * (tw + 2 * _ring(0, ks)) * 4]
     for i in range(L):
         last = i == L - 1
-        k = 5 if i in (0, L - 1) else 3
+        k = ks[i]
         ic = in_ch if i == 0 else width
         oc = out_ch if last else width
         steps, _, n = wgmma_geometry(k, ic, oc, bool(split[i]), last, pe)
         b_bytes.append(steps * n * 32)
         units.append(layer_pieces(k, ic, oc, bool(split[i]), last, pe)[1])
-        r = _ring(i, L)
+        r = _ring(i, ks)
         ih, iw = th + 2 * r, tw + 2 * r
         if i == 0:                  # the widened pixels of the last step's second half
             reach = 4 * iw + 4
@@ -266,7 +280,7 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
             cap = 2 * _round_up(cap, 128)
         bufs[i % 2] = max(bufs[i % 2], cap)
     w_at = _round_up(block_words(pe, L, width, out_ch) * 4, 128)
-    r_sc = _ring(L - 1, L)
+    r_sc = _ring(L - 1, ks)
     rest = (_round_up(bufs[0], 128) + _round_up(bufs[1], 128)
             + (th + 2 * r_sc) * (tw + 2 * r_sc) * 2 * width + 16)     # + the scratch word
 
@@ -288,7 +302,7 @@ def corrected_plan(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
 
 
 def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, split, pe: int,
-                         width: int) -> CorrectedPlan:
+                         width: int, ks=None) -> CorrectedPlan:
     """(shared memory bytes, B regions, pieces) of one block of a group of
     the corrected kernel's layer-group form (csrc/sesr_corrected_group.cu
     group_plan; chip_smoke.py checks the two agree): ``corrected_plan``'s
@@ -301,25 +315,28 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
     in the tail instantiations: its block holds the last conv's own rows
     past ``width`` channels (``out_rows``), its B is staged at 8 PE groups
     too and may go in pieces at every PE group count, and the two-conv
-    group keeps no shortcut."""
+    group keeps no shortcut. ``ks``: the group's conv sizes in the forms of
+    other conv sizes (csrc/sesr_corrected_ksize.cu: every group in the tail
+    instantiations' forms, B always staged); None: 5x5 / 3x3 / 5x5."""
     th, tw = tile
-    tail = tail_group(n, flags, out_ch)
+    sizes = _group_sizes(n, flags, ks)
+    tail = tail_group(n, flags, out_ch) or ks is not None
     b_bytes, units = [], []
-    bufs = [0, (th + 2 * _group_ring(0, n, flags)) * (tw + 2 * _group_ring(0, n, flags)) * 4
+    bufs = [0, (th + 2 * _ring(0, sizes)) * (tw + 2 * _ring(0, sizes)) * 4
             if flags & GROUP_FIRST else 0]
     for j in range(n + 1 - bool(flags & GROUP_LAST)):
         kind = _group_kind(j, n, flags) if j < n else 1
-        r = _group_ring(j, n, flags)
+        r = _ring(j, sizes)
         ih, iw = th + 2 * r, tw + 2 * r
         if j < n:
-            k = 3 if kind == 1 else 5
+            k = sizes[j]
             ic = in_ch if kind == 0 else width
             oc = out_ch if kind == 2 else width
             steps, _, cols = wgmma_geometry(k, ic, oc, bool(split[j]), kind == 2, pe)
             b_bytes.append(steps * cols * 32)
             units.append(layer_pieces(k, ic, oc, bool(split[j]), kind == 2, pe)[1])
             if kind == 0:           # the widened pixels of the last step's second half
-                reach = 4 * iw + 4
+                reach = (k - 1) * iw + 8 * (-(-k // 8) - 1) + 4
             elif width == 16:       # tap k * k - 1, and a pad tap one pixel on
                 reach = (k - 1) * (iw + 1) + (k * k) % 2
             else:                   # tap k * k - 1, in each plane
@@ -330,9 +347,10 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
         if kind != 0 and width == 32:
             cap = 2 * _round_up(cap, 128)
         bufs[j % 2] = max(bufs[j % 2], cap)
-    w_at = _round_up(block_words(pe, group_records(n, flags), width, out_ch if tail else 0) * 4,
+    rows = tail and (ks is None or flags & GROUP_LAST)     # the last conv's own rows
+    w_at = _round_up(block_words(pe, group_records(n, flags), width, out_ch if rows else 0) * 4,
                      128)
-    rs = 2 if flags & GROUP_LAST else 0
+    rs = sizes[-1] // 2 if flags & GROUP_LAST else 0
     sc = (th + 2 * rs) * (tw + 2 * rs) * 2 * width if flags and not pair_group(n, flags) else 0
     rest = _round_up(bufs[0], 128) + _round_up(bufs[1], 128) + sc + 16
 
@@ -340,7 +358,7 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
         return _round_up(w_at + w_bytes, 128) + rest
 
     groups = pe_groups(pe)
-    if not (width == 32 or groups == 16 or (tail and groups == 8)):        # staged_b
+    if ks is None and not (width == 32 or groups == 16 or (tail and groups == 8)):   # staged_b
         return CorrectedPlan(total(sum(b_bytes)), 0, False)
     even, odd = max(b_bytes[0::2]), max(b_bytes[1::2], default=0)
     plans = [CorrectedPlan(total(_round_up(even, 128) + odd), 2, False),
@@ -352,6 +370,14 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
     return next((p for p in plans if p.bytes <= SMEM_LIMIT), plans[-1])
 
 
+def group_sizes(spec: SESRSpec, first: int, last: int):
+    """The conv sizes of the group of convs first..last of ``spec``'s
+    network where it runs in the forms of other conv sizes (its sizes not
+    5x5 / 3x3 ... / 5x5), else None."""
+    ks = spec.kernel_sizes
+    return None if ks == shipped_sizes(spec.num_convs) else ks[first:last + 1]
+
+
 def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
                          width: int = 16, general: bool = False) -> int:
     """Shared memory of one block of the corrected kernel (``corrected_plan``)."""
@@ -360,7 +386,8 @@ def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
 
 class NetKernel:
     """One entry point of a kernel library (``csrc/<library>.cu``) and its
-    layer-group form (``group_symbol`` of ``group_library``).
+    layer-group form (``group_symbol`` of ``group_library``), and the forms
+    of other conv sizes (``ksize_symbol`` of ``ksize_library``).
     ``launches`` counts the launches this wrapper made (each group's launch
     of a chain), ``split_launches`` the same launches by their per-layer
     split mask (the corrected kernel's modes; None for the other kernels).
@@ -371,12 +398,15 @@ class NetKernel:
     tiles = NET_TILES
 
     def __init__(self, symbol: str, datapath: str, library: str = "sesr_net",
-                 group_symbol: str = "sesr_net_group", group_library: str = "sesr_net_group"):
+                 group_symbol: str = "sesr_net_group", group_library: str = "sesr_net_group",
+                 ksize_symbol: str = "sesr_net_ksize", ksize_library: str = "sesr_net_ksize"):
         self.symbol = symbol
         self.datapath = datapath
         self.library = library
         self.group_symbol = group_symbol
         self.group_library = group_library
+        self.ksize_symbol = ksize_symbol
+        self.ksize_library = ksize_library
         self.launches = 0
         self.split_launches = collections.Counter()
         self._plans = {}
@@ -395,7 +425,8 @@ class NetKernel:
         flags = group_flags(first, last, spec.num_convs)
         return net_group_smem_bytes(self.datapath, last - first + 1, flags, spec.in_channels,
                                     spec.conv_out_channels, tile, split[first:last + 1], pe,
-                                    kernel_width(spec.num_channels))
+                                    kernel_width(spec.num_channels),
+                                    group_sizes(spec, first, last))
 
     def tile(self, spec: SESRSpec, split, pe: int, general: bool = False) -> tuple:
         """The default output tile for ``spec``'s network at ``pe`` PEs in
@@ -543,11 +574,14 @@ class NetKernel:
         read by the last. Returns (the network's int8 output, the
         boundaries: ``run``'s)."""
         n, h, w, _ = x_q.shape
-        lib = _build.load(self.group_library)
+        ksize = kc.other_sizes               # the forms of other conv sizes
+        library = self.ksize_library if ksize else self.group_library
+        lib = _build.load(library)
         exact = self.datapath == "exact"
         sc = torch.empty((n, h, w, kc.width), dtype=torch.int8 if exact else torch.int16,
                          device=x_q.device) if len(kc.groups) > 1 else None
-        symbol = self.group_symbol if count is None else self.group_audit_symbol
+        symbol = (self.ksize_symbol if ksize else self.group_symbol) if count is None else \
+            (self.ksize_audit_symbol if ksize else self.group_audit_symbol)
         lead = (int(exact),) if self.datapath != "corrected" else ()
         cur, trail = x_q, []
         with torch.cuda.device(x_q.device):
@@ -558,15 +592,16 @@ class NetKernel:
                                   dtype=torch.int8, device=x_q.device)
                 more = () if count is None else \
                     (count[0].data_ptr() + 8 * g.first, *count[1])
+                sizes = (pack_sizes(kc.ksizes[g.first:g.last + 1]),) if ksize else ()
                 err = getattr(lib, symbol)(
                     *lead, cur.data_ptr(), out.data_ptr(), weights.data_ptr(), prm.data_ptr(),
                     0 if sc is None else sc.data_ptr(), n, h, w, g.convs, g.flags,
-                    kc.in_channels, kc.out_channels, *tile, *self.extra_args(kc, g), *more,
-                    stream)
+                    kc.in_channels, kc.out_channels, *tile, *self.extra_args(kc, g), *sizes,
+                    *more, stream)
                 if err != 0:
                     raise RuntimeError(
                         f"{symbol} launch failed (convs {g.first}-{g.last}): "
-                        f"{_build.error_string(self.group_library, err)} ({err})")
+                        f"{_build.error_string(library, err)} ({err})")
                 if not last:
                     trail.append((g, out, sc))
                 cur = out
@@ -584,10 +619,11 @@ class CorrectedKernel(NetKernel):
     tiles = CORRECTED_TILES
     audit_symbol = "sesr_corrected_audit"
     group_audit_symbol = "sesr_corrected_group_audit"
+    ksize_audit_symbol = "sesr_corrected_ksize_audit"
 
     def __init__(self, symbol: str, datapath: str, library: str):
         super().__init__(symbol, datapath, library, "sesr_corrected_group",
-                         "sesr_corrected_group")
+                         "sesr_corrected_group", "sesr_corrected_ksize", "sesr_corrected_ksize")
         self.audit_launches = 0
 
     def reset(self) -> None:
@@ -602,7 +638,8 @@ class CorrectedKernel(NetKernel):
                    tile) -> CorrectedPlan:
         return corrected_group_plan(last - first + 1, group_flags(first, last, spec.num_convs),
                                     spec.in_channels, spec.conv_out_channels, tile,
-                                    split[first:last + 1], pe, kernel_width(spec.num_channels))
+                                    split[first:last + 1], pe, kernel_width(spec.num_channels),
+                                    group_sizes(spec, first, last))
 
     def group_smem_bytes(self, spec: SESRSpec, first: int, last: int, split, pe: int,
                          tile) -> int:

@@ -192,7 +192,11 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     deep = dataclasses.replace(spec, num_lblocks=15)
     kc = convert.kernel_constants(deep, deepened(qp, 17), "fast")
     assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)] and kc.general
-    with pytest.raises(NotImplementedError, match="outside"):
+    # any odd conv size from 1 to 9 runs (tests/test_torch_ksizes.py); an
+    # even one is refused, and weights of another size than the spec's
+    with pytest.raises(NotImplementedError, match=r"is 4x4 \(an even size"):
+        convert.kernel_constants(dataclasses.replace(spec, k_block=4), qp, "fast")
+    with pytest.raises(ValueError, match="is 5x5, its weights"):
         convert.kernel_constants(dataclasses.replace(spec, k_block=5), qp, "fast")
     with pytest.raises(ValueError, match="datapath"):
         convert.kernel_constants(spec, qp, True)

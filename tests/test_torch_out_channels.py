@@ -259,14 +259,16 @@ def test_kernel_constants_take_every_count(datapath):
 
 
 @pytest.mark.parametrize("bad", ["quan_bits=9", "quan_bits=16", "width=48", "convs=17",
-                                 "convs=2", "k_block=5", "in_channels=5", "out=49"])
+                                 "convs=2", "k_block=4", "in_channels=5", "out=49"])
 def test_kernel_constants_refuse_what_is_left(bad):
     """The corners still to port are refused, each naming its limit. 17
     convs, refused until the layer-group form, is taken: every kernel plans
     it as two groups (convs 0-8 and 9-16) that fit a block and builds their
     constants. 2 convs (num_lblocks 0), refused until the two-conv group, is
     taken too: every kernel plans it as one group of both convs, flags
-    GROUP_FIRST | GROUP_LAST, that fits a block."""
+    GROUP_FIRST | GROUP_LAST, that fits a block. Conv sizes other than 5x5 /
+    3x3 ... / 5x5 are taken (tests/test_torch_ksizes.py), but for an even
+    size, refused with its own message."""
     spec, _, _, qp = _calibrated(4)
     if bad in ("convs=17", "convs=2"):
         convs = int(bad[6:])
@@ -284,7 +286,7 @@ def test_kernel_constants_refuse_what_is_left(bad):
         return
     match = {"quan_bits=9": "quan_bits", "quan_bits=16": "quan_bits",
              "width=48": "widths of at most 32",
-             "k_block=5": "5x5 / 3x3", "in_channels=5": "1-4 input",
+             "k_block=4": r"conv 1 of \S+ is 4x4 \(an even size", "in_channels=5": "1-4 input",
              "out=49": "1-48 output"}[bad]
     if bad.startswith("quan_bits"):
         qp = dataclasses.replace(qp, hw=dataclasses.replace(qp.hw, quan_bits=int(bad[10:])))

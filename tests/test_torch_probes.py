@@ -428,7 +428,8 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert set(paths) == {"sesr_net", "sesr_corrected", "sesr_net_group",
-                          "sesr_corrected_group", "probes"}
+                          "sesr_corrected_group", "sesr_net_ksize", "sesr_corrected_ksize",
+                          "probes"}
     for name, path in paths.items():
         assert path.parent == tmp_path / "kernels" and path.name.startswith(f"lib{name}-")
     assert _build.sources("probes") == [csrc / "probes.cu", csrc / "wgmma_gemm.cuh"]
@@ -440,6 +441,11 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
                                                 csrc / "sesr_common.cuh"]
     assert _build.sources("sesr_corrected_group") == [
         csrc / "sesr_corrected_group.cu", csrc / "sesr_corrected.cu", csrc / "sesr_common.cuh"]
+    # and the libraries of other conv sizes on the layer-group sources
+    assert _build.sources("sesr_net_ksize") == [csrc / "sesr_net_ksize.cu",
+                                                *_build.sources("sesr_net_group")]
+    assert _build.sources("sesr_corrected_ksize") == [csrc / "sesr_corrected_ksize.cu",
+                                                      *_build.sources("sesr_corrected_group")]
     with (csrc / "wgmma_gemm.cuh").open("a") as f:
         f.write("// edited\n")
     edited_header = _build.library_path("probes")
@@ -456,6 +462,7 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
     assert _build.library_path("sesr_net") != paths["sesr_net"]
     assert _build.library_path("sesr_corrected") != paths["sesr_corrected"]
     assert _build.library_path("sesr_net_group") != paths["sesr_net_group"]
+    assert _build.library_path("sesr_corrected_ksize") != paths["sesr_corrected_ksize"]
     assert _build.library_path("probes") == probes
     builds = _build.build_all()
     assert {n: b.path for n, b in builds.items()} == {
