@@ -14,8 +14,13 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 
 1. the card: nvidia-smi's name and power limit, torch's device name;
 2. build every kernel library from csrc/ (one nvcc per source, all started
-   together, phases 10 and 3 beside them in that order, all waited for
-   at 3's end; phase 7 after them), with the -Xptxas -v report;
+   together; beside them the float parts of phases 8 and 9 (no kernel),
+   then phases 10, 3, the rest of 9 and 4, then the checks and main paths
+   of phases 8, 12 and 15 (8, 9, 12 and 15 are generators that yield
+   between their parts), all waited for before phase 5, the libraries
+   those phases use at full priority and the others at the lowest; phase
+   7 and every time in the kernels line after them), with the -Xptxas -v
+   report;
 3. each kernel against its plain PyTorch version on numpy-seeded inputs
    (the int8 outputs must be equal): K1 (sesr_pe_exact_net) and K2
    (sesr_fast_net) on sr_x2 at 540x960, 27x45 and a ragged 37x53 at batch
@@ -116,7 +121,8 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    and sound output held against the plain interpreter's on the card; the
    audit's device ms per frame beside the served PE-exact kernel's and its
    shadow ms per frame as the host issues it;
-9. training and make_qparams, with TF32 on around them: the STE
+9. (beside the builds, after 3) training and make_qparams, with TF32 on
+   around them: the STE
    round and fake-quant on the card against the CPU (values and
    gradients torch.equal, clip ties at 0.5); float training of the
    expanded sr_x4 through ``train`` (the first step's loss and gradients
@@ -179,8 +185,8 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    configs, copied here): the sr_x2 and nr golden float weights and the
    sweep's sparse 8-channel net calibrated, certified, saved and reloaded
    on the card at each config and at the reference point; with the
-   counters at 0 before and read after, each served at full frame size
-   at batch 1 and 4 in the mode its certificate selects, simulated (K1)
+   counters at 0 before and read after, each served at a 540x960 output
+   (``CUT_SIZE``) at batch 1 and 4 in the mode its certificate selects, simulated (K1)
    and simulated --corrected; every output array_equal with the plain
    interpreter, slabs and 2 x 2 virtual ranks equal to the served frame,
    ``infer --qparams`` cuda against cpu; the corrected kernel with every
@@ -235,14 +241,14 @@ Needs one CUDA card, nvcc and the repository around this file; fails
 15. last convs of 1 to 48 output channels (``out_channels_phase``): the
    SESR paper's Y-channel x2, RGB x3 and x4 networks through every kernel
    at 4 PEs and 16, plain and with the last conv at +127, every output
-   1080x1920 (K1 takes SESR-XL x4 RGB at 16 PEs as one layer group, its
+   540x960 (``CUT_SIZE``; K1 takes SESR-XL x4 RGB at 16 PEs as one layer group, its
    split last conv staged a PE pass at a time), then a sweep of every
    padded and past-16 instantiation on a small batch;
 16. networks deeper than one launch runs (``deep_phase``): sesr_m16_x2 (18
    convs) and sesr_xl22_x2 (24) from seeded weights, calibrated and
    certified on the card at 4 PEs, 16 and a sweep config and saturated at
    +127 in each group, through K1, K2, both corrected modes and the
-   counting form at 540x960 as chains of layer groups (one launch a group,
+   counting form at 270x480 as chains of layer groups (one launch a group,
    every output and count equal to the plain interpreter), ``infer --audit
    1``, two virtual ranks, then every layer-group instantiation launched
    on a small batch by 33-conv networks (three groups or more: first,
@@ -260,7 +266,7 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    sesr_xl0_x4_rgb (one group, its first conv adding the shortcut), from
    seeded weights, calibrated and certified on the card at 4 PEs, 16 and
    a sweep config and saturated at +127 in the last group; every mode at
-   batch 1 and 4 at every config, at the input whose output is 1080x1920,
+   batch 1 and 4 at every config, at the input whose output is 540x960,
    torch.equal with the plain interpreter, one launch a group; ``infer
    --audit 1``, sesr_m0_x2 at two virtual ranks; each chain's time, plans,
    MACs computed over needed and ptxas;
@@ -271,8 +277,17 @@ Needs one CUDA card, nvcc and the repository around this file; fails
    (sesr_net_ksize.cu, sesr_corrected_ksize.cu), as phase 17 runs its
    networks; then a sweep on a small batch (``ksize_sweep``) that puts each
    of 1, 3, 5, 7 and 9 in each position at widths 16 and 32 and launches
-   every instantiation of the two libraries. Phases 15-18 run before 14,
-   beside whose main path a CUPTI process reads their launches.
+   every instantiation of the two libraries;
+19. networks of hidden width 33 to 64 (``width_phase``, ``chain_phase``):
+   sesr_w64_m5_x2 (SESR-M5's 7 convs at width 64), sesr_w48_xl_x2 (SESR-XL's
+   13 convs at width 48, run padded to 64), sesr_w64_m5_x4_rgb (48 outputs)
+   and the two-conv sesr_w64_m0_x2, each in the width-64 instantiations of
+   the forms of other conv sizes (sesr_net_w64.cu, sesr_corrected_w64.cu,
+   sesr_corrected_w64_audit.cu), as phase 18 runs its networks but at the
+   input whose output is 1080x1920 (out_frame); then a sweep
+   on a small batch (``width_sweep``) that launches every width-64
+   instantiation. Phases 15-19 run before 14, beside whose main path a
+   CUPTI process reads their launches.
 
 The line before the last is the ``kernels`` JSON; the last is
 {"ok": true, "device": {...}}.
@@ -294,6 +309,12 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TASK = "sr_x2"
+# each library's nvcc priority (nice; LATE_NICE where not listed): the
+# libraries phases 10, 3, 9 and 4 use at full priority, K1's layer-group
+# one (phase 15's checks) next, the rest last; all are built before phase
+# 5. (Phase 10 waits for sesr_net's build and phase 3 for sesr_corrected's
+# whatever the priorities: a library's nvcc takes its own time.)
+BUILD_NICE, LATE_NICE = {"sesr_net": 0, "sesr_corrected": 0, "sesr_net_group": 10}, 19
 FRAME = (540, 960)                 # deployment input; 1080x1920 output
 INT8_OPS_PER_S = 1979e12           # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12              # H100 SXM HBM3
@@ -343,6 +364,16 @@ BF16_TOL = 2.0 ** -7               # within 2^-7 max|plain| elementwise
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+def finish(phase):
+    """Resume a phase that yielded (phases 8, 9, 12 and 15) for its last
+    part; returns what the phase returns."""
+    try:
+        next(phase)
+    except StopIteration as done:
+        return done.value
+    fail("a phase yielded twice")
 
 
 def card_line():
@@ -447,7 +478,7 @@ def launch_attrs(torch, launches, pattern="sesr_net_kernel", tries=1, index=-1, 
     from a trace that holds at least ``need`` of them (a chain of layer
     groups: one kernel a group)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    path = os.path.join(REPO, "build", "chip_smoke_trace.json")
+    path = os.path.join(REPO, "build", f"chip_smoke_trace_{os.getpid()}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     attrs = {}
     for key, fn in launches.items():
@@ -491,8 +522,10 @@ def kernel_family(kern, kc, audit=False, group=None):
     corrected kernel's tail instantiations: ops/kernels.py pair_group,
     tail_group), or for ``group`` None the prefix every group's kernel
     shares (a chain's launches, read from a trace in launch order). A
-    network of other conv sizes runs every group in the forms of other conv
-    sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu)."""
+    network of other conv sizes, or of width 64, runs every group in the
+    forms of other conv sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu;
+    at width 64 their instantiations in sesr_net_w64.cu,
+    sesr_corrected_w64.cu and sesr_corrected_w64_audit.cu)."""
     from sesr_tpu_torch.ops.kernels import pair_group, tail_group
 
     wide = "_wide" if kc.wide else ""
@@ -500,7 +533,7 @@ def kernel_family(kern, kc, audit=False, group=None):
         corrected = kern.datapath == "corrected"
         if group is None:
             return "sesr_corrected_" if corrected else "sesr_net_"
-        if kc.other_sizes:
+        if kc.ksize_form:
             if corrected:
                 return f"sesr_corrected_ksize{'_audit' if audit else ''}_kernel"
             return "sesr_net_ksize_pair_kernel" if pair_group(group.convs, group.flags) \
@@ -543,13 +576,12 @@ def ptxas_line(kern, spec, kc, audit=False, group=None):
         # the two-conv and tail groups' sesr_net_pair_kernel<DP, OCL, C> and
         # sesr_corrected_tail(_audit)_kernel<G, C>, each the wide form; other
         # conv sizes: sesr_net_ksize(_pair)_kernel<DP, OCL, C> and
-        # sesr_corrected_ksize(_audit)_kernel<G, C>, each the wide form
+        # sesr_corrected_ksize(_audit)_kernel<G, C>, each the wide form, in
+        # the library of the chain's form (ops/kernels.py chain_entry)
         ws = "" if "_group_" not in family else f"ELb{int(kc.wide)}"
-        ksize = "ksize" if kc.other_sizes else "group"
-        lib, key = (f"sesr_corrected_{ksize}", f"Li{pe_groups(kc.pe)}ELi{kc.width}{ws}") \
-            if kern.datapath == "corrected" else \
-            (f"sesr_net_{ksize}", f"Li{int(kern.datapath == 'fast')}ELin"
-                                  f"{out_columns(kc.out_channels)}ELi{kc.width}{ws}")
+        lib = kern.chain_entry(kc, audit)[0]
+        key = f"Li{pe_groups(kc.pe)}ELi{kc.width}{ws}" if kern.datapath == "corrected" else \
+            f"Li{int(kern.datapath == 'fast')}ELin{out_columns(kc.out_channels)}ELi{kc.width}{ws}"
     elif kern.datapath == "corrected":
         lib, key = "sesr_corrected", (f"Li{pe_groups(kc.pe) if kc.general else 4}{gen}"
                                       f"ELi{kc.width}")
@@ -583,11 +615,10 @@ def chain_lines(kern, spec, kc, audit=False):
     return dict(ptxas_line(kern, spec, kc, audit, g) for g in (kc.groups or (None,)))
 
 
-def group_source(kern, kc):
-    """The source of the layer-group kernels ``kern`` launches for kc."""
-    return "sesr_tpu_torch/csrc/" + ("sesr_corrected_" if kern.datapath == "corrected"
-                                     else "sesr_net_") + \
-        ("ksize.cu" if kc.other_sizes else "group.cu")
+def group_source(kern, kc, audit=False):
+    """The source of the layer-group kernels ``kern`` launches for kc (the
+    counting form's with ``audit``)."""
+    return f"sesr_tpu_torch/csrc/{kern.chain_entry(kc, audit)[0]}.cu"
 
 
 def chain_plans(kern, spec, kc, phase, tile=None):
@@ -595,8 +626,9 @@ def chain_plans(kern, spec, kc, phase, tile=None):
     (``launch_plans``: one launch, or one per layer group), each plan held
     to the library's own (sesr_net_smem, sesr_corrected_smem, and the
     layer-group libraries' sesr_net_group_smem, sesr_corrected_group_smem,
-    and for other conv sizes sesr_net_ksize_smem, sesr_corrected_ksize_smem):
-    the run fails where they differ."""
+    and for other conv sizes sesr_net_ksize_smem, sesr_corrected_ksize_smem,
+    at width 64 sesr_net_w64_smem, sesr_corrected_w64_smem): the run fails
+    where they differ."""
     from sesr_tpu_torch.convert import pack_sizes
     from sesr_tpu_torch.ops import _build
 
@@ -612,16 +644,13 @@ def chain_plans(kern, spec, kc, phase, tile=None):
             built = _build.load("sesr_net").sesr_net_smem(
                 exact, spec.num_convs, spec.in_channels, spec.conv_out_channels, *t, mask, kc.pe,
                 int(kc.general), kc.width)
-        elif kc.other_sizes:
+        elif kc.ksize_form:
             ks = pack_sizes(kc.ksizes[g.first:g.last + 1])
-            if kern.datapath == "corrected":
-                built = _build.load("sesr_corrected_ksize").sesr_corrected_ksize_smem(
-                    g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t, g.split,
-                    kc.pe, kc.width, ks)
-            else:
-                built = _build.load("sesr_net_ksize").sesr_net_ksize_smem(
-                    exact, g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t,
-                    g.split, kc.pe, kc.width, ks)
+            lib, symbol = kern.chain_entry(kc)
+            smem = getattr(_build.load(lib), f"{symbol}_smem")
+            lead = () if kern.datapath == "corrected" else (exact,)
+            built = smem(*lead, g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t,
+                         g.split, kc.pe, kc.width, ks)
         elif kern.datapath == "corrected":
             built = _build.load("sesr_corrected_group").sesr_corrected_group_smem(
                 g.convs, g.flags, spec.in_channels, spec.conv_out_channels, *t, g.split, kc.pe,
@@ -635,6 +664,30 @@ def chain_plans(kern, spec, kc, phase, tile=None):
                  f"{'' if g is None else f' convs {g.first}-{g.last}'} tile {t}: the wrapper "
                  f"plans {need} B of shared memory, the library {built}")
     return plans
+
+
+def first_in_pieces(spec, kc, plans):
+    """The groups of a corrected-kernel chain in the old group kernels
+    (csrc/sesr_corrected_group.cu) whose first conv goes in pieces (its
+    ``in_pieces(0)``: the plan's piece form and the conv's B in more than
+    one piece), which stage no whole layer 0 before a tile: [(index, first
+    conv)] of ``plans`` (``chain_plans``)."""
+    from sesr_tpu_torch.convert import GROUP_FIRST
+    from sesr_tpu_torch.ops.kernels import corrected_group_plan, layer_pieces
+
+    if kc.ksize_form or not kc.groups:
+        return []
+    out = []
+    for gi, (g, tile, _) in enumerate(plans):
+        split = [bool(g.split >> j & 1) for j in range(g.convs)]
+        first = bool(g.flags & GROUP_FIRST)
+        plan = corrected_group_plan(g.convs, g.flags, spec.in_channels, spec.conv_out_channels,
+                                    tile, split, kc.pe, kc.width)
+        ic = spec.in_channels if first else kc.width
+        if plan.pieces and layer_pieces(kc.ksizes[g.first], ic, kc.width, split[0], False,
+                                        kc.pe)[0] > 1:
+            out.append((gi, g.first))
+    return out
 
 
 def plain_kwargs(kern, qp, mode=None):
@@ -1613,8 +1666,11 @@ def toolchain_phase(torch, dev, card):
     """Phase 8, the artifact toolchain from float weights: eval-float,
     calibrate and certify, and infer --audit, each on the card against the
     port's CPU run. TF32 is left on (PyTorch's default) around the phase:
-    the float paths must turn it off for their own convs. Returns, per
-    network kernel and path, (launches, frames served)."""
+    the float paths must turn it off for their own convs. A generator: it
+    yields after its float part (eval-float, calibrate, the KL guardrail:
+    no kernel) and after its checks, and ``finish`` runs the audit's time
+    and returns, per network kernel and path, (launches, frames served), and
+    the audit's kernels-line entry."""
     import tempfile
     import warnings
 
@@ -1712,6 +1768,11 @@ def toolchain_phase(torch, dev, card):
     if decisions["cuda"] != decisions["cpu"]:
         fail(f"the KL guardrail decides differently on cuda and cpu: {decisions}")
     tf32_left_on("guarded_calibrate")
+    # the kernels' part after K2's and the corrected kernel's builds, with
+    # TF32 as the caller has it meanwhile
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = True
 
     # 8c. certify at full size on the card (launch counters at 0 around each
     # run), and on 96x128 crops on the card and the CPU
@@ -1813,6 +1874,10 @@ def toolchain_phase(torch, dev, card):
             fail("the degraded stream's output differs from the CPU interpreter's")
     print("[8] both frames of the degraded stream: torch.equal with integer_forward(corrected) "
           "on the CPU", flush=True)
+    # the times after the builds (``finish``), with TF32 as the caller has it
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = True
     # the audit's time on one frame: the counting launch against the served
     # PE-exact kernel, and the plain interpreter with its counters
     audit_e = audit_entry(torch, dev, nr_spec, qp, torch.from_numpy(adv).to(dev),
@@ -1843,8 +1908,9 @@ def training_phase(torch, dev, card):
     against cpu, determinism, save and resume), the QAT recipe from those
     weights, AdaRound and make_qparams from golden weights, each fresh
     artifact certified and served through the kernel its certificate
-    selects. TF32 is left on around the phase. Returns, per network kernel
-    and path, (launches, frames)."""
+    selects. TF32 is left on around the phase. A generator: it yields
+    after its float part (9a and 9b: no kernel), and ``finish`` runs the
+    rest and returns, per network kernel and path, (launches, frames)."""
     import tempfile
 
     from sesr_tpu_torch import make_qparams
@@ -2006,6 +2072,12 @@ def training_phase(torch, dev, card):
     for what, (fn, n) in steps_of.items():
         step_breakdown(what, fn, n, 10)
 
+    # the kernels' part after K2's and the corrected kernel's builds (its
+    # float part runs first, while they build), TF32 as the caller has it
+    # meanwhile
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = True
     # 9c. the QAT recipe from those weights: fine-tune, fake-quant-delta
     # collapse, calibrate (percentile, safe_zero_floor), certify, serve
     expanded = ExpandedParams([ExpandedBlock(*(v.detach().cpu() for v in blk))
@@ -2673,8 +2745,8 @@ def hwconfig_phase(torch, dev, card):
     configs, the sr_x2 and nr golden float weights and the sparse sweep net
     calibrated on the card (the goldens on their calibration images),
     certified on two 96x128 frames, saved and reloaded; then, with the
-    launch counters at 0 before and read after, served at full frame size
-    (sr_x2 540x960, nr and the sweep net 1080x1920) at batch 1 and 4
+    launch counters at 0 before and read after, served at CUT_SIZE (sr_x2
+    270x480 in, nr and the sweep net 540x960) at batch 1 and 4
     through the mode the certificate selects, simulated (K1) and simulated
     --corrected; every output array_equal with the plain interpreter on the
     card, and ``infer --qparams`` on the goldens cuda against cpu; nr
@@ -2684,9 +2756,10 @@ def hwconfig_phase(torch, dev, card):
     (K1 on sr_x2, the corrected kernel on nr, K2 on a network the config
     certifies fully), ptxas's registers and spills and its ratio to the
     same kernel on the same network calibrated at the reference point (4
-    PEs). Returns the kernels-line entries of every (kernel, config) pair
-    and, for CUPTI's registers and shared memory in phase 14's process of
-    its own, the new configs' timed launches as jobs."""
+    PEs). A generator: it yields after its checks, and ``finish`` runs the
+    times and returns the kernels-line entries of every (kernel, config)
+    pair and, for CUPTI's registers and shared memory in phase 14's
+    process of its own, the new configs' timed launches as jobs."""
     import tempfile
 
     from sesr_tpu_torch.cli import main as cli_main
@@ -2722,7 +2795,7 @@ def hwconfig_phase(torch, dev, card):
                          **{f"b_{i}": g[f"b_collapsed_{i}"] for i in range(L)})
                 calib = [g[f"calib_img_{j}"].transpose(0, 2, 3, 1)
                          for j in range(int(g["n_calib"]))]
-            out_hw = (2 * FRAME[0], 2 * FRAME[1]) if task == "sr_x2" else BAYER_FRAME
+            out_hw = CUT_SIZE                # sr_x2's output and nr's frame
             nets[task] = (spec_for_task(task), load_reference_checkpoint(task, path=path),
                           calib, False, list(SyntheticDataset(task, n=4, hw=out_hw)))
     # the sweep net (tests/test_hwconfig_sweep.py _params_sparse's recipe: the
@@ -2802,7 +2875,7 @@ def hwconfig_phase(torch, dev, card):
             if cname == "pe4":
                 continue
             for task in ("sr_x2", "nr", "sweep"):
-                t_task = time.perf_counter()
+                t_task, st = time.perf_counter(), Steps()
                 spec, _, _, _, data = nets[task]
                 qp, path = arts[cname, task]
                 # the main path at this config, counters at 0 before it
@@ -2812,6 +2885,7 @@ def hwconfig_phase(torch, dev, card):
                 sim = simulate(spec, qp, data[0][0], device="cuda")
                 sim_c = simulate(spec, qp, data[0][0], device="cuda", corrected=True)
                 torch.cuda.synchronize()
+                st("serve and sim")
                 got = {k.symbol: k.launches for k in NET_KERNELS}
                 mode = r1.mode
                 want = {"sesr_pe_exact_net": 1, "sesr_fast_net": 5 * (mode == "fast"),
@@ -2837,6 +2911,7 @@ def hwconfig_phase(torch, dev, card):
                 equal(sim_c.y.cpu().numpy(),
                       integer_forward(spec, qp, x0, corrected=True)[0].cpu().numpy(),
                       f"{task} {cname} sim --corrected")
+                st("plain")
                 # the same frame as four slabs and as a 2 x 2 grid of virtual
                 # ranks (each window R = spec.halo_width() past its cuts)
                 mono = select_forward(qp)[1](spec, qp, x0).cpu().numpy()
@@ -2845,6 +2920,7 @@ def hwconfig_phase(torch, dev, card):
                       f"{task} {cname} {mode} slabs of {slab_h} rows")
                 equal(virtual_rank_forward(spec, qp, x0, (2, 2)).cpu().numpy(), mono,
                       f"{task} {cname} {mode} 2 x 2 virtual ranks")
+                st("slabs and ranks")
                 cli = ""
                 if task != "sweep":
                     args = ["infer", "--task", task, "--qparams", path, "--n-images", "2"]
@@ -2854,8 +2930,10 @@ def hwconfig_phase(torch, dev, card):
                         fail(f"[12] infer --qparams {task} {cname}: cuda {a_gpu.mode} "
                              f"{a_gpu.psnr}, cpu {a_cpu.mode} {a_cpu.psnr}, served {mode}")
                     cli = f"; infer --qparams cuda == cpu ({mode}, psnr {a_gpu.mean_psnr:.4f})"
+                    st("infer cuda and cpu")
                 if task == "nr":
                     cli += audited_nr(spec, qp, data, mode, x0, cname)
+                    st("--audit 1")
                 kc1 = kernel_constants(spec, qp, "exact")
                 print(f"[12] {task} {cname} {qp.hw}: certificate {qp.cert_grade} "
                       f"{qp.cert_stamps}, mode {mode}; served 4 frames "
@@ -2863,7 +2941,7 @@ def hwconfig_phase(torch, dev, card):
                       f"array_equal with plain (cuda); slabs of {slab_h} rows and 2 x 2 "
                       f"virtual ranks equal the served frame; launches {got}; K1 split "
                       f"{kc1.pe_split}, general {kc1.general}{cli}; "
-                      f"{time.perf_counter() - t_task:.1f} s", flush=True)
+                      f"{time.perf_counter() - t_task:.1f} s ({st})", flush=True)
                 del x4
         # the forms the served paths may not reach at a config: the corrected
         # kernel with every layer split (its pe_groups column groups), and a
@@ -2937,6 +3015,9 @@ def hwconfig_phase(torch, dev, card):
     for sym in launches:
         if not launches[sym]:
             fail(f"[12] {sym} launched at no alternate config")
+    checks = time.perf_counter() - t_phase
+    yield                            # the times after the builds (``finish``)
+    t_phase = time.perf_counter()
 
     # timing: each kernel at each config, against the same kernel on the same
     # network at the reference point
@@ -3031,8 +3112,8 @@ def hwconfig_phase(torch, dev, card):
                              tile=list(tile),
                              plan=corrected_net.smem_bytes(spec, tile, kc.pe_split, kc.pe,
                                                            kc.general)))
-    print(f"[12] the hwconfig phase took {time.perf_counter() - t_phase:.1f} s {tag}",
-          flush=True)
+    print(f"[12] the hwconfig phase took {checks:.1f} s for its checks and "
+          f"{time.perf_counter() - t_phase:.1f} s for its times {tag}", flush=True)
     return entries, jobs
 
 
@@ -3094,7 +3175,7 @@ SWEEP_BATCH = (2, 27, 45)
 
 # phase 16: networks deeper than one launch of any kernel runs (Bhardwaj
 # et al., MLSys 2022: SESR-M11's width 16 at m = 16 linear blocks, and
-# SESR-XL's width 32 at m = 22), x2 RGB at the sr_x2 frame, from seeded
+# SESR-XL's width 32 at m = 22), x2 RGB at cut_frame's 270x480, from seeded
 # weights, each run as a chain of layer groups
 DEEP_NETS = {"m16": dict(name="sesr_m16_x2", in_channels=3, out_channels=3, num_channels=16,
                          num_lblocks=16, scaling_factor=2),
@@ -3105,6 +3186,17 @@ DEEP_NETS = {"m16": dict(name="sesr_m16_x2", in_channels=3, out_channels=3, num_
 def out_frame(spec):
     """The input frame whose output is OUT_SIZE."""
     return OUT_SIZE[0] // spec.scaling_factor, OUT_SIZE[1] // spec.scaling_factor
+
+
+# the output frame of phases 12 and 15-18 (half OUT_SIZE's height and
+# width), cut to keep the script within its time: their checks hold at any
+# frame, and phases 4-11, 13, 14 and 19 run the full one
+CUT_SIZE = (540, 960)
+
+
+def cut_frame(spec):
+    """The input frame whose output is CUT_SIZE."""
+    return CUT_SIZE[0] // spec.scaling_factor, CUT_SIZE[1] // spec.scaling_factor
 
 
 # phase 14's networks at the new configs: each network's config (their
@@ -3554,52 +3646,61 @@ def family_phase(torch, dev, card, handed):
                                plan=corrected_net.smem_bytes(aspec, tile0, kc.pe_split, kc.pe,
                                                              kc.general)))
     entries += audit_entries
-    cupti_check(cupti_start(cupti_jobs, "jobs.json"), tag)
+    cupti_check(cupti_start(cupti_jobs, "jobs.json", procs=2), tag)
     print(f"[14] the family phase took {time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
     return entries
 
 
-def cupti_start(jobs, name):
-    """``chip_smoke.py --cupti`` on ``jobs`` (written to build/chip_smoke_cupti/
-    ``name``) in a process of its own, started and not waited for: (the
-    process, the jobs, its start time)."""
+def cupti_start(jobs, name, procs=1):
+    """``chip_smoke.py --cupti`` on ``jobs`` in ``procs`` processes of their
+    own, each on every procs-th job (written to build/chip_smoke_cupti/
+    ``name`` with the process's index), started and not waited for: [(the
+    process, its jobs, its start time)]."""
     labels = [job["label"] for job in jobs]
     if len(set(labels)) != len(labels):
         fail(f"[14] CUPTI jobs share a label: {sorted({k for k in labels if labels.count(k) > 1})}")
-    jobs_path = os.path.join(REPO, "build", "chip_smoke_cupti", name)
-    os.makedirs(os.path.dirname(jobs_path), exist_ok=True)
-    with open(jobs_path, "w") as f:
-        json.dump(jobs, f)
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cupti", jobs_path],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, jobs, time.perf_counter()
+    runs = []
+    for i in range(procs):
+        share = jobs[i::procs]
+        stem, ext = os.path.splitext(name)
+        jobs_path = os.path.join(REPO, "build", "chip_smoke_cupti",
+                                 f"{stem}_{i}{ext}" if procs > 1 else name)
+        os.makedirs(os.path.dirname(jobs_path), exist_ok=True)
+        with open(jobs_path, "w") as f:
+            json.dump(share, f)
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cupti",
+                                 jobs_path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        runs.append((proc, share, time.perf_counter()))
+    return runs
 
 
-def cupti_check(run, tag):
-    """Wait for a CUPTI process of ``cupti_start`` and hold each job's shared
-    memory per block to its plan."""
-    proc, jobs, t0 = run
-    try:
-        out, err = proc.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        fail("[14] the CUPTI process took more than 300 s")
-    if proc.returncode != 0:
-        fail(f"[14] the CUPTI process failed:\n{out[-2000:]}{err[-4000:]}")
-    *notes, last = out.strip().splitlines()
-    for line in notes:
-        print(f"[14] the CUPTI process: {line}", flush=True)
-    attrs = json.loads(last)
-    for job in jobs:
-        regs, smem = attrs[job["label"]]
-        print(f"[14] {job['label']} tile {job['tile'][0]}x{job['tile'][1]}: CUPTI (a process "
-              f"of its own) {regs} registers, {smem} B shared memory per block (plan "
-              f"{job['plan']}) {tag}", flush=True)
-        if smem != job["plan"]:
-            fail(f"[14] {job['label']}: CUPTI reports {smem} B of shared memory, the plan "
-                 f"{job['plan']}")
-    print(f"[14] the CUPTI process of {len(jobs)} jobs took {time.perf_counter() - t0:.1f} s "
-          f"after its start", flush=True)
+def cupti_check(runs, tag):
+    """Wait for the CUPTI processes of ``cupti_start`` and hold each job's
+    shared memory per block to its plan."""
+    for proc, jobs, t0 in runs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for other, _, _ in runs:
+                other.kill()
+            fail("[14] a CUPTI process took more than 300 s")
+        if proc.returncode != 0:
+            fail(f"[14] a CUPTI process failed:\n{out[-2000:]}{err[-4000:]}")
+        *notes, last = out.strip().splitlines()
+        for line in notes:
+            print(f"[14] the CUPTI process: {line}", flush=True)
+        attrs = json.loads(last)
+        for job in jobs:
+            regs, smem = attrs[job["label"]]
+            print(f"[14] {job['label']} tile {job['tile'][0]}x{job['tile'][1]}: CUPTI (a "
+                  f"process of its own) {regs} registers, {smem} B shared memory per block "
+                  f"(plan {job['plan']}) {tag}", flush=True)
+            if smem != job["plan"]:
+                fail(f"[14] {job['label']}: CUPTI reports {smem} B of shared memory, the plan "
+                     f"{job['plan']}")
+        print(f"[14] the CUPTI process of {len(jobs)} jobs took "
+              f"{time.perf_counter() - t0:.1f} s after its start", flush=True)
 
 
 def out_channels_phase(torch, dev, card):
@@ -3611,7 +3712,7 @@ def out_channels_phase(torch, dev, card):
     both corrected modes split it per PE: 32 or 48 columns a PE group past
     16 outputs, B staged in pieces where a layer's does not fit). Then, with
     the launch counters at 0 before and read after each call, at the input
-    size whose output is 1080x1920 (out_frame): K1 (``pe_exact_forward``,
+    size whose output is 540x960 (cut_frame): K1 (``pe_exact_forward``,
     behind ``sim``), K2 where the network certifies fully (else its
     wrapper on the quantized frame against the plain fast datapath, "k2":
     the kernel's instantiation checked, the main path never takes it), the hybrid and
@@ -3628,8 +3729,9 @@ def out_channels_phase(torch, dev, card):
     library's, which must agree; CUPTI's in phase 14's process of its own
     through the jobs returned), the bound (the network's int8 MACs at
     1,979 TOP/s) and share, the plain interpreter's time, and ptxas's
-    registers and spills of the instantiation. Returns (the kernels-line
-    entries, the CUPTI jobs)."""
+    registers and spills of the instantiation. A generator: it yields
+    after the sweep, and ``finish`` runs the times and returns (the
+    kernels-line entries, the CUPTI jobs)."""
     from sesr_tpu_torch.config import HardwareConfig, SESRSpec
     from sesr_tpu_torch.convert import kernel_constants, out_columns
     from sesr_tpu_torch.deploy import select_forward
@@ -3676,7 +3778,7 @@ def out_channels_phase(torch, dev, card):
                 fail(f"[15] {name} at {cname}: the saturated last conv is not split")
             nets[name, cname] = (spec, qp)
             nets[name, f"{cname}_sat"] = (spec, sat)
-        frames[name] = torch.from_numpy(rng.random((4,) + out_frame(spec) + (spec.in_channels,),
+        frames[name] = torch.from_numpy(rng.random((4,) + cut_frame(spec) + (spec.in_channels,),
                                                    dtype=np.float32)).to(dev)
 
     kernel_of = {m: mode_kernel(m) for m in ("sim", "fast", "k2", "hybrid", "pe-exact", "audit")}
@@ -3735,6 +3837,9 @@ def out_channels_phase(torch, dev, card):
           f"frames) {own}; corrected by split mask {dict(corrected_net.split_launches)} {tag}",
           flush=True)
     out_sweep(torch, dev, {name: nets[name, "pe4"] for name in OUT_NETS}, hit, instance, tag)
+    checks = time.perf_counter() - t_phase
+    yield                            # the times after the builds (``finish``)
+    t_phase = time.perf_counter()
 
     # each (kernel, network, config) at batch 1 and its default tile
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
@@ -3807,8 +3912,8 @@ def out_channels_phase(torch, dev, card):
                          out_frame=True,
                          mode=("pe-exact" if audit else mode) if kern is corrected_net else None,
                          pattern=kernel_family(kern, kc, audit)))
-    print(f"[15] the output-channels phase took {time.perf_counter() - t_phase:.1f} s {tag}",
-          flush=True)
+    print(f"[15] the output-channels phase took {checks:.1f} s for its checks and "
+          f"{time.perf_counter() - t_phase:.1f} s for its times {tag}", flush=True)
     return entries, jobs
 
 
@@ -3917,7 +4022,7 @@ PAIR_NETS = {f"p{c}_{oc}": dict(name=f"p{c}_{oc}", in_channels=3, out_channels=3
 # as SESR-XL): RGB x4 at 18 convs and x3 at 24, whose last conv of 48 / 27
 # outputs runs in the corrected kernel's tail group past 16 convs, and two
 # convs (num_lblocks 0) at x2 and at RGB x4 (both corners at once), from
-# seeded weights, at the input whose output is 1080x1920 (out_frame)
+# seeded weights, at the input whose output is 540x960 (cut_frame)
 CORNER_NETS = {"m16_x4": dict(name="sesr_m16_x4_rgb", in_channels=3, out_channels=3,
                               num_channels=16, num_lblocks=16, scaling_factor=4),
                "xl22_x3": dict(name="sesr_xl22_x3_rgb", in_channels=3, out_channels=3,
@@ -3933,7 +4038,7 @@ CORNER_SATURATED = {"m16_x4": (3, 12), "xl22_x3": (3, 18), "m0_x2": (1,), "xl0_x
 # conv, the block convs and the last conv each on its own: SESRSpec
 # k_first, k_block, k_last) at the SESR paper's widths and depths (SESR-M5:
 # 16 channels, 7 convs; SESR-XL: 32 and 13), x2 and RGB x4, from seeded
-# weights, at the input whose output is 1080x1920 (out_frame), each run as
+# weights, at the input whose output is 540x960 (cut_frame), each run as
 # layer groups in the forms of other conv sizes (one group where its plan
 # fits a block)
 KSIZE_NETS = {"m5_k3": dict(name="sesr_m5_k3_x2", in_channels=3, out_channels=3, num_channels=16,
@@ -3974,13 +4079,49 @@ KSIZE_PAIRS = {f"q{c}_{a}{d}": dict(name=f"q{c}_{a}{d}", in_channels=3, out_chan
                for c in (16, 32) for (a, d), sc in zip(((9, 1), (1, 9), (3, 7), (7, 5)),
                                                        (1, 2, 3, 4))}
 KSIZE_SWEEP_HW = {"pe4": {}, "pe3": dict(pe=3), "pe8": dict(pe=8), "pe16": dict(pe=16)}
+# phase 19: networks of hidden width 33 to 64, which the SESR paper's
+# family does not publish (Bhardwaj et al., MLSys 2022: widths 16 and 32),
+# at SESR-M5's and SESR-XL's depths, x2 and RGB x4, and two convs, from
+# seeded weights, at the input whose output is 1080x1920 (out_frame), each
+# run in the width-64 instantiations of the forms of other conv sizes; a
+# network of width 48 runs padded with zero channels to 64
+W64_NETS = {"m5_w64": dict(name="sesr_w64_m5_x2", in_channels=3, out_channels=3,
+                           num_channels=64, num_lblocks=5, scaling_factor=2),
+            "xl_w48": dict(name="sesr_w48_xl_x2", in_channels=3, out_channels=3,
+                           num_channels=48, num_lblocks=11, scaling_factor=2),
+            "m5_w64_x4": dict(name="sesr_w64_m5_x4_rgb", in_channels=3, out_channels=3,
+                              num_channels=64, num_lblocks=5, scaling_factor=4),
+            "m0_w64": dict(name="sesr_w64_m0_x2", in_channels=3, out_channels=3,
+                           num_channels=64, num_lblocks=0, scaling_factor=2)}
+# each network's convs at +127 (a split conv in its last group; the
+# two-conv network's last conv), and its sweep config
+W64_SATURATED = {"m5_w64": (3,), "xl_w48": (3, 9), "m5_w64_x4": (3,), "m0_w64": (1,)}
+W64_CONFIG = {"m5_w64": "pe3_nondivisible", "xl_w48": "pe8_wide", "m5_w64_x4": "pe2_narrow",
+              "m0_w64": "pe2_servable"}
+# phase 19's sweep of the width-64 instantiations on a small batch: at
+# widths 64 and 48 (padded), networks of three convs at each padded count
+# of the last conv (3, 12, 27 and 48 outputs) and two-conv networks at each
+# count, one group each, with a 9x9 first conv (the corrected kernel's split
+# layer 0 in pieces), a 9x9 block conv and a 7x7 last conv (B in pieces in
+# every kernel), at KSIZE_SWEEP_HW (K2 at 4 PEs; K1's split passes staged
+# in pieces at 4, 3, 8 and 16; the corrected kernel's 4, 8 and 16 PE groups)
+W64_SWEEP = {f"w{c}_{a}{b}{d}": dict(name=f"w{c}_{a}{b}{d}", in_channels=3, out_channels=3,
+                                     num_channels=c, num_lblocks=nb, scaling_factor=sc,
+                                     k_first=a, k_block=b, k_last=d)
+             for c, (a, b, d), nb, sc in ((64, (5, 3, 5), 1, 1), (48, (3, 5, 3), 1, 2),
+                                         (64, (9, 1, 3), 1, 3), (64, (1, 9, 1), 1, 4))}
+W64_PAIRS = {f"v{c}_{a}{d}": dict(name=f"v{c}_{a}{d}", in_channels=3, out_channels=3,
+                                  num_channels=c, num_lblocks=0, scaling_factor=sc, k_first=a,
+                                  k_last=d)
+             for c, (a, d), sc in ((64, (5, 5), 1), (64, (3, 3), 2), (48, (9, 1), 3),
+                                   (64, (1, 7), 4))}
 # the mode each saturated copy of phases 16 and 17 serves: hybrid, but
 # pe-exact for sesr_xl0_x4_rgb, whose certificate stamps neither of its two
 # convs once its last is at +127 (its 4-PE artifact, which must serve
 # hybrid, runs ``infer --audit 1`` instead)
 SATURATED_SERVES = {"m16": "hybrid", "xl22": "hybrid", "m16_x4": "hybrid",
                     "xl22_x3": "hybrid", "m0_x2": "hybrid", "xl0_x4": "pe-exact",
-                    **{key: "hybrid" for key in KSIZE_NETS}}
+                    **{key: "hybrid" for key in {**KSIZE_NETS, **W64_NETS}}}
 CORNER_CONFIG = {"m16_x4": "pe3_nondivisible", "xl22_x3": "pe8_wide", "m0_x2": "pe2_servable",
                  "xl0_x4": "pe2_narrow"}
 # every mode at batch 1 and 4 at each config
@@ -4208,8 +4349,11 @@ GROUP_FAMILIES = (("sesr_net_group", ("sesr_net_group_kernel", "sesr_net_pair_ke
                                             "sesr_corrected_tail_kernel",
                                             "sesr_corrected_tail_audit_kernel")))
 KSIZE_FAMILIES = (("sesr_net_ksize", ("sesr_net_ksize_kernel", "sesr_net_ksize_pair_kernel")),
-                  ("sesr_corrected_ksize", ("sesr_corrected_ksize_kernel",
-                                            "sesr_corrected_ksize_audit_kernel")))
+                  ("sesr_corrected_ksize", ("sesr_corrected_ksize_kernel",)),
+                  ("sesr_corrected_ksize_audit", ("sesr_corrected_ksize_audit_kernel",)))
+W64_FAMILIES = (("sesr_net_w64", ("sesr_net_ksize_kernel", "sesr_net_ksize_pair_kernel")),
+                ("sesr_corrected_w64", ("sesr_corrected_ksize_kernel",)),
+                ("sesr_corrected_w64_audit", ("sesr_corrected_ksize_audit_kernel",)))
 
 
 def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, least, what,
@@ -4240,7 +4384,7 @@ def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, le
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
     os.makedirs(cupti_dir, exist_ok=True)
     runs = held = 0
-    jobs, swept = [], set()
+    jobs, swept, pieces0 = [], set(), []
     first, launched = {}, collections.Counter()      # timed: each instantiation's first call
     for seed, (name, kw) in enumerate(nets_kw.items()):
         spec = SESRSpec(**kw)
@@ -4276,6 +4420,9 @@ def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, le
                          f"{want_groups} or more), {made} launches (want one a group), "
                          f"equal {got.shape == want.shape and torch.equal(got, want)}")
                 plans = chain_plans(kern, spec, kc, phase)  # each group's plan = the library's
+                if kern is corrected_net:
+                    pieces0 += [f"{name} {hname} {mode} group {gi} (conv {c})"
+                                for gi, c in first_in_pieces(spec, kc, plans)]
                 for gi, g in enumerate(kc.groups):
                     ikey = ptxas_line(kern, spec, kc, mode == "audit", g)[0]
                     hit.add(ikey)
@@ -4318,6 +4465,9 @@ def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, le
           f"{[lib for lib, _ in families]} launched in phase {phase}: {len(want & hit)} of "
           f"{len(want)}, {len(jobs)} CUPTI jobs; {time.perf_counter() - t0:.1f} s {tag}",
           flush=True)
+    if pieces0:
+        print(f"[{phase}] sweep: groups of the old corrected group kernels whose first conv "
+              f"goes in pieces (no whole layer 0 staged): {pieces0}", flush=True)
     if missing:
         fail(f"[{phase}] instantiations phase {phase} never launched: {missing}")
     entries = []
@@ -4340,7 +4490,7 @@ def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, le
               f"{launched[ikey]} launches in the sweep {tag}", flush=True)
         entries.append(dict(
             name=f"{ikey}[{spec.name}, {hname}, {mode}, sweep]", route="cuda",
-            source=group_source(kern, kc),
+            source=group_source(kern, kc, mode == "audit"),
             replaces=AUDIT_REPLACES if mode == "audit" else REPLACES[kern.symbol],
             launches=launched[ikey], launches_per_frame={"sweep": 1 / SWEEP_BATCH[0]},
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
@@ -4353,14 +4503,14 @@ def chain_sweep(torch, dev, tag, rng, hit, phase, nets_kw, configs, families, le
 
 def deep_phase(torch, dev, card):
     """Phase 16, networks deeper than one launch runs (DEEP_NETS: 18 and 24
-    convs) on the card as chains of layer groups, at 540x960
-    (``chain_phase``: each calibrated and certified at 4 PEs, pe16 and
+    convs) on the card as chains of layer groups, at 270x480 (cut_frame;
+    ``chain_phase``: each calibrated and certified at 4 PEs, pe16 and
     DEEP_CONFIG, a copy at 4 PEs with DEEP_SATURATED at +127, the main path
     of DEEP_MODES, ``infer --audit 1``, two virtual ranks of m16, then
     ``group_sweep``, then the times and plans). Returns (the kernels-line
     entries, the CUPTI jobs)."""
     return chain_phase(torch, dev, card, 16, DEEP_NETS, DEEP_CONFIG, DEEP_SATURATED, DEEP_MODES,
-                       lambda spec: FRAME, "m16", group_sweep)
+                       cut_frame, "m16", group_sweep)
 
 
 def corner_phase(torch, dev, card):
@@ -4368,14 +4518,14 @@ def corner_phase(torch, dev, card):
     (CORNER_NETS): RGB x3 / x4 networks past 16 convs, whose last group
     runs the corrected kernel's tail instantiations, and two-conv networks,
     one group whose first conv also adds the shortcut, each at the input
-    whose output is 1080x1920 (out_frame), through ``chain_phase``: every
+    whose output is 540x960 (cut_frame), through ``chain_phase``: every
     mode at batch 1 and 4 at 4 PEs, pe16 and CORNER_CONFIG, a copy at 4 PEs
     with CORNER_SATURATED at +127 (a split conv in the last group),
     ``infer --audit 1``, sesr_m0_x2 at two virtual ranks, then the times
     and plans (phase 16's sweep launches every two-conv and tail
     instantiation). Returns (the kernels-line entries, the CUPTI jobs)."""
     return chain_phase(torch, dev, card, 17, CORNER_NETS, CORNER_CONFIG, CORNER_SATURATED,
-                       CORNER_MODES, out_frame, "m0_x2", None)
+                       CORNER_MODES, cut_frame, "m0_x2", None)
 
 
 def ksize_sweep(torch, dev, tag, rng, hit):
@@ -4391,14 +4541,36 @@ def ksize_sweep(torch, dev, tag, rng, hit):
 
 def ksize_phase(torch, dev, card):
     """Phase 18, networks of other conv sizes on the card (KSIZE_NETS), at
-    the input whose output is 1080x1920 (out_frame), through
+    the input whose output is 540x960 (cut_frame), through
     ``chain_phase``: every mode at batch 1 and 4 at 4 PEs, pe16 and
     KSIZE_CONFIG, a copy at 4 PEs with KSIZE_SATURATED at +127, ``infer
     --audit 1``, sesr_m5_k3_x2 at two virtual ranks, then ``ksize_sweep``,
     then the times and plans. Returns (the kernels-line entries, the CUPTI
     jobs)."""
     return chain_phase(torch, dev, card, 18, KSIZE_NETS, KSIZE_CONFIG, KSIZE_SATURATED,
-                       KSIZE_MODES, out_frame, "m5_k3", ksize_sweep)
+                       KSIZE_MODES, cut_frame, "m5_k3", ksize_sweep)
+
+
+def width_sweep(torch, dev, tag, rng, hit):
+    """Phase 19's sweep of every width-64 instantiation (``chain_sweep``):
+    W64_SWEEP and W64_PAIRS at KSIZE_SWEEP_HW, every group launched in
+    sesr_net_w64.cu's, sesr_corrected_w64.cu's and
+    sesr_corrected_w64_audit.cu's kernels."""
+    return chain_sweep(torch, dev, tag, rng, hit, 19, {**W64_SWEEP, **W64_PAIRS},
+                       KSIZE_SWEEP_HW, W64_FAMILIES, lambda spec: 1,
+                       f"{len(W64_SWEEP)} networks of 3 convs and {len(W64_PAIRS)} two-conv "
+                       f"ones at widths 48 and 64", timed=True)
+
+
+def width_phase(torch, dev, card):
+    """Phase 19, networks of hidden width 33 to 64 on the card (W64_NETS),
+    at the input whose output is 1080x1920 (out_frame), through
+    ``chain_phase``: every mode at batch 1 and 4 at 4 PEs, pe16 and
+    W64_CONFIG, a copy at 4 PEs with W64_SATURATED at +127, ``infer --audit
+    1``, sesr_w64_m0_x2 at two virtual ranks, then ``width_sweep``, then the
+    times and plans. Returns (the kernels-line entries, the CUPTI jobs)."""
+    return chain_phase(torch, dev, card, 19, W64_NETS, W64_CONFIG, W64_SATURATED, KSIZE_MODES,
+                       out_frame, "m0_w64", width_sweep)
 
 
 def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, frame_of,
@@ -4443,7 +4615,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
     from sesr_tpu_torch.timing import median_ms
 
     tag = f"({card})"
-    t_phase = time.perf_counter()
+    t_phase, st = time.perf_counter(), Steps()
     rng = np.random.default_rng(phase)
     nets = {}
     for seed, (key, kw) in enumerate(nets_kw.items()):
@@ -4481,6 +4653,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
                  f"split")
         nets[key, "pe4_sat"] = (spec, sat, cert)
 
+    st("artifacts")
     x4 = {key: torch.from_numpy(rng.random((4, *frame_of(SESRSpec(**kw)), 3),
                                            dtype=np.float32)).to(dev)
           for key, kw in nets_kw.items()}
@@ -4499,7 +4672,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
         for mode in modes:
             kern, split, kc = mode_constants(mode, spec, qp, dev)
             # a network of other conv sizes runs in groups from one on
-            least = 1 if spec.num_convs == 2 or kc.other_sizes else 2
+            least = 1 if spec.num_convs == 2 or kc.ksize_form else 2
             if len(kc.groups) < least or (spec.num_convs == 2 and len(kc.groups) != 1):
                 fail(f"[{phase}] {key} {cname} {mode}: {len(kc.groups)} layer groups, want "
                      f"{'1' if spec.num_convs == 2 else f'{least} or more'}")
@@ -4542,6 +4715,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
                       f"{'' if counts is None else f'; counts {counts.tolist()}'}", flush=True)
                 del got, want
     torch.cuda.synchronize()
+    st("main path")
     print(f"[{phase}] main path: launches {launches}; per network, config and mode (launches, "
           f"frames) {own} {tag}", flush=True)
 
@@ -4580,6 +4754,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
             fail(f"[{phase}] infer --audit 1 on {spec.name}: {len(audits)} audits, "
                  f"{corrected_net.audit_launches} counting launches")
 
+    st("--audit 1")
     # the sharded windows: one network served at 2 virtual ranks (one
     # window a rank, each a chain) against the monolithic chain
     spec, qp, _ = nets[sharded, "pe4"]
@@ -4598,11 +4773,13 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
 
     # the sweep: every instantiation of the phase on a small batch (phase
     # 18's with a kernels-line entry each)
+    st("virtual ranks")
     jobs, entries = sweep(torch, dev, tag, rng, hit) if sweep else ([], [])
+    st("sweep")
     cupti_dir = os.path.join(REPO, "build", "chip_smoke_cupti")
 
     # each (kernel, network, config, mode) at batch 1: times, plans, work
-    plain_ms = {}
+    plain_ms, pieces0 = {}, []
     for (key, cname, mode), (n_launch, n_frames) in own.items():
         spec, qp, _ = nets[key, cname]
         kern, split, kc = mode_constants(mode, spec, qp, dev)
@@ -4610,6 +4787,9 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
         x1 = x4[key][:1]
         x_q = quantize_input(x1, qp).to(torch.int8).contiguous()
         plans = chain_plans(kern, spec, kc, phase)
+        if kern is corrected_net:
+            pieces0 += [f"{spec.name} {cname} {mode} group {gi} (conv {c})"
+                        for gi, c in first_in_pieces(spec, kc, plans)]
         n, h, w = x_q.shape[:3]
         if audit:
             ms = median_ms(lambda: corrected_net.audit(spec, qp, x_q, split), dev, 20, warmup=3,
@@ -4628,9 +4808,10 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
         # one launch's plan at the largest tile it fits (not run)
         single = next((t for t in kern.tiles
                        if kern.smem_bytes(spec, t, kc.pe_split, kc.pe, True) <= SMEM_LIMIT),
-                      None) if spec.num_convs >= 3 and not kc.other_sizes else None
+                      None) if spec.num_convs >= 3 and not kc.ksize_form else None
         one = f"{chain_halo(spec, [(None, single, 0)]):.3f} at {single[0]}x{single[1]}" \
-            if single else "none: other conv sizes run in groups" if kc.other_sizes \
+            if single else "none: the forms of other conv sizes run in groups" \
+            if kc.ksize_form \
             else "none: no tile fits one launch" if spec.num_convs >= 3 \
             else "none: one launch runs 3 or more convs"
         wrote, read = boundary_bytes(spec, kc, plans, n, h, w, 1 if kern is pe_exact_net else 2)
@@ -4650,7 +4831,7 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
             entries.append(dict(
                 name=f"{'sesr_corrected_audit' if audit else kern.symbol}[{spec.name}, {cname}, "
                      f"{mode}, layer groups]",
-                route="cuda", source=group_source(kern, kc),
+                route="cuda", source=group_source(kern, kc, audit),
                 replaces=AUDIT_REPLACES if audit else REPLACES[kern.symbol],
                 launches=n_launch, launches_per_frame={"main path": n_launch / n_frames},
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms[pkey], bound_ms=bnd[0],
@@ -4668,9 +4849,29 @@ def chain_phase(torch, dev, card, phase, nets_kw, configs, saturated, modes_of, 
                              groups=len(plans), shape=[1, h, w],
                              mode=("pe-exact" if audit else mode) if kern is corrected_net
                              else None, pattern=kernel_family(kern, kc, audit)))
-    print(f"[{phase}] the {({16: 'deep', 17: 'corners'}).get(phase, 'conv sizes')} phase took "
-          f"{time.perf_counter() - t_phase:.1f} s {tag}", flush=True)
+    what = {16: "deep", 17: "corners", 19: "widths"}.get(phase, "conv sizes")
+    st("times and plans")
+    if pieces0:
+        print(f"[{phase}] groups of the old corrected group kernels whose first conv goes in "
+              f"pieces (no whole layer 0 staged): {pieces0}", flush=True)
+    print(f"[{phase}] the {what} phase took {time.perf_counter() - t_phase:.1f} s ({st}) {tag}",
+          flush=True)
     return entries, jobs
+
+
+class Steps:
+    """Seconds between marks, summed by name: a phase's breakdown line."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, what):
+        now = time.perf_counter()
+        self.s[what] = self.s.get(what, 0.0) + now - self.t
+        self.t = now
+
+    def __str__(self):
+        return ", ".join(f"{k} {v:.1f} s" for k, v in self.s.items())
 
 
 def cupti_process(jobs_path):
@@ -4840,6 +5041,15 @@ def main():
 
     # 1. the card
     t_start = time.perf_counter()
+    laps, lap_at = {}, [t_start]
+
+    def lap(phase):
+        """Keep the seconds since the last lap as ``phase``'s (the summary
+        line before the last lines)."""
+        now = time.perf_counter()
+        laps[phase] = round(now - lap_at[0], 1)
+        lap_at[0] = now
+
     card = card_line()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -4848,15 +5058,20 @@ def main():
     torch.backends.cudnn.allow_tf32 = False       # the plain version's convs
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build every library, one nvcc per source, all started together;
-    # phases 10 and 3 run beside them, in that order (a library's first use
-    # waits for its build: K1's, then the corrected kernel's), and they are
-    # all waited for at 3's end (a build left running beside the later
-    # phases slows them by more than it saves); phase 7, whose probes time
-    # host-issued library and plain calls, runs after them
+    # 2. build every library, one nvcc per source, all started together at
+    # BUILD_NICE's priorities; beside them the float parts of phases 8 and
+    # 9 (no kernel: they run while K1's library builds), then phases 10, 3,
+    # the rest of 9 and 4, in that order (a library's first use waits for
+    # its build: K1's, then the corrected kernel's), then the halves of
+    # phases 8, 12 and 15 that take no time (their checks and main paths),
+    # each phase after the last (one at a time). All the builds are waited
+    # for before phase 5: no time in the kernels line is taken beside nvcc
+    # (phase 7, whose probes time host-issued library and plain calls,
+    # runs after them too)
     t_builds = time.perf_counter()
     pool = ThreadPoolExecutor(len(_build.SIGNATURES))
-    builds = {name: pool.submit(_build.build, name) for name in _build.SIGNATURES}
+    builds = {name: pool.submit(_build.build, name, BUILD_NICE.get(name, LATE_NICE))
+              for name in _build.SIGNATURES}
 
     def built():
         for job in builds.values():
@@ -4864,8 +5079,21 @@ def main():
             print(f"[2] built {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.1f} s"
                   f"\n{build.log.strip()}", flush=True)
         pool.shutdown()
-        print(f"[2] the builds and phases 10 and 3 beside them took "
-              f"{time.perf_counter() - t_builds:.1f} s", flush=True)
+        print(f"[2] the builds and phases 10, 3, 9, 4 and the untimed halves of 8, 12 and 15 "
+              f"beside them took {time.perf_counter() - t_builds:.1f} s", flush=True)
+        laps["2 (the builds, nvcc's longest)"] = round(max(
+            job.result().seconds for job in builds.values()), 1)
+        lap("the wait for the builds after 15's first half")
+
+    # 8. and 9.: their float parts (no kernel) while K1's library builds
+    toolchain = toolchain_phase(torch, dev, card)
+    training = training_phase(torch, dev, card)
+    for phase, part in (("8", toolchain), ("9", training)):
+        t0 = time.perf_counter()
+        next(part)
+        print(f"[{phase}] the float part took {time.perf_counter() - t0:.1f} s ({card}), beside "
+              f"the nvcc builds", flush=True)
+        lap(f"{phase} (its float part, beside the builds)")
 
     # 10. the RTL vector export, hist and the experimental models (K1 only):
     # K1's export launches join its entry
@@ -4874,6 +5102,7 @@ def main():
     print(f"[10] the export phase took {time.perf_counter() - t0:.1f} s ({card}); it ran "
           f"beside the nvcc builds: its host-side times (walls, formatting) include the "
           f"builds' CPU load, its device times do not", flush=True)
+    lap("10 (beside the builds)")
 
     spec = spec_for_task(TASK)
     qp = QuantParams.load(os.path.join(REPO, "artifacts", f"qparams_{TASK}.npz"))
@@ -5060,10 +5289,18 @@ def main():
     net_sass_check(_build)
 
     print(f"[3] the kernel checks took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
-    built()
+    lap("3 (beside the builds)")
+    # 9. training, QAT, AdaRound and make_qparams (the libraries of phase 3
+    # only), beside the builds still running: their launches join too
+    t0 = time.perf_counter()
+    training_launches = finish(training)
+    print(f"[9] the training phase's kernels part took {time.perf_counter() - t0:.1f} s "
+          f"({card}); it ran beside the nvcc builds still running: its host-side times (walls, "
+          f"steps/s) include their CPU load, its device times do not", flush=True)
+    lap("9 (its kernels part, beside the builds)")
     t0 = time.perf_counter()
     # 4. the main path, with the launch counters at 0: sr_x2 (infer through
-    # K2, sim through K1)
+    # K2, sim through K1), beside the builds still running
     reset_launch_counts()
     sr_frames = SyntheticDataset(TASK, n=4, hw=(2 * FRAME[0], 2 * FRAME[1]))
     r1 = serve(spec, qp, sr_frames, batch=1, device="cuda")
@@ -5170,6 +5407,19 @@ def main():
           flush=True)
 
     print(f"[4] the main paths took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    lap("4 (beside the builds)")
+    # 8., 12. and 15.: their checks and main paths beside the builds still
+    # running (host-side times printed there include the builds' CPU load),
+    # their times after the builds
+    hwconfig = hwconfig_phase(torch, dev, card)
+    out_channels = out_channels_phase(torch, dev, card)
+    for phase, checks in (("8", toolchain), ("12", hwconfig), ("15", out_channels)):
+        t0 = time.perf_counter()
+        next(checks)
+        print(f"[{phase}] the checks and main paths took {time.perf_counter() - t0:.1f} s "
+              f"({card}), beside the nvcc builds still running", flush=True)
+        lap(f"{phase} (its checks, beside the builds)")
+    built()
     t0 = time.perf_counter()
     # 5. timing: K1 and K2 at sr_x2 540x960, the corrected kernel on nr's
     # and nrdm_6's 1080x1920 frame in their hybrid mode; batch 1
@@ -5204,6 +5454,7 @@ def main():
           f"dequantize): {fwd_ms:.4f} ms/frame", flush=True)
 
     print(f"[5] the timing phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    lap("5")
     t0 = time.perf_counter()
     # 6. where a served frame's time goes
     for task, tspec, tqp, fwd, frame in (
@@ -5224,27 +5475,30 @@ def main():
                     print(f"[6]     {t:.4f} ms  {k}", flush=True)
 
     print(f"[6] the breakdown phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    lap("6")
     # 7. the probes
     t0 = time.perf_counter()
     entries += probes_phase(torch, dev)
     print(f"[7] the probes phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    lap("7")
 
-    # 8. the artifact toolchain: its launches join the network kernels'
+    # 8. the artifact toolchain's times: its launches join the network
+    # kernels'
     t0 = time.perf_counter()
-    toolchain_launches, audit_e = toolchain_phase(torch, dev, card)
+    toolchain_launches, audit_e = finish(toolchain)
     entries.append(audit_e)
-    print(f"[8] the toolchain phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
-    # 9. training, QAT, AdaRound and make_qparams: their launches join too
-    t0 = time.perf_counter()
-    training_launches = training_phase(torch, dev, card)
-    print(f"[9] the training phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    print(f"[8] the toolchain phase's times took {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    lap("8 (its times)")
     # 11. sharded execution: the windows' and slabs' launches join K2's and
     # the corrected kernel's entries
     t0 = time.perf_counter()
     sharding_launches = sharding_phase(torch, dev, card)
     print(f"[11] the sharding phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
-    # 12. the HardwareConfig family: one entry per (kernel, config)
-    hw_entries, hw_jobs = hwconfig_phase(torch, dev, card)
+    lap("11")
+    # 12. the HardwareConfig family's times: one entry per (kernel, config)
+    hw_entries, hw_jobs = finish(hwconfig)
+    lap("12 (its times)")
     for e in entries:
         for phase in (toolchain_launches, training_launches, export_launches,
                       sharding_launches):
@@ -5255,22 +5509,32 @@ def main():
     entries += hw_entries
     # 13. bench and profile (their launches stay out of the kernels line)
     bench_phase(torch, dev, card)
-    # 15. last convs of 1 to 48 output channels, 16. networks deeper than
-    # one launch runs and 17. the layer-group form's corners (past 16 convs
-    # and 16 outputs; two convs), before 14
-    out_entries, out_jobs = out_channels_phase(torch, dev, card)
+    lap("13")
+    # 15. last convs of 1 to 48 output channels (its times), 16. networks
+    # deeper than one launch runs and 17. the layer-group form's corners
+    # (past 16 convs and 16 outputs; two convs), before 14
+    out_entries, out_jobs = finish(out_channels)
+    lap("15 (its times)")
     deep_entries, deep_jobs = deep_phase(torch, dev, card)
+    lap("16")
     corner_entries, corner_jobs = corner_phase(torch, dev, card)
-    # 18. networks of other conv sizes
+    lap("17")
+    # 18. networks of other conv sizes, 19. of hidden width 33 to 64
     ksize_entries, ksize_jobs = ksize_phase(torch, dev, card)
+    lap("18")
+    width_entries, width_jobs = width_phase(torch, dev, card)
+    lap("19")
     # 14. SESR-M11 and SESR-XL: one entry per (kernel, network, mode); the
-    # CUPTI process of phases 12 and 15-18's jobs runs beside its main
-    # path, before its times
-    early = cupti_start(hw_jobs + out_jobs + deep_jobs + corner_jobs + ksize_jobs,
-                        "jobs_12_15_16_17_18.json")
+    # CUPTI processes of phases 12 and 15-19's jobs (six, each on a sixth
+    # of them) run beside its main path, before its times
+    early = cupti_start(hw_jobs + out_jobs + deep_jobs + corner_jobs + ksize_jobs + width_jobs,
+                        "jobs_12_15_16_17_18_19.json", procs=6)
     entries += family_phase(torch, dev, card, early)
-    entries += out_entries + deep_entries + corner_entries + ksize_entries
-    print(f"[18] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+    lap("14")
+    entries += out_entries + deep_entries + corner_entries + ksize_entries + width_entries
+    print(f"[19] chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all ({card})",
+          flush=True)
+    print(json.dumps({"phase_seconds": laps, "total": round(time.perf_counter() - t_start, 1)}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

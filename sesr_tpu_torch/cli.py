@@ -55,11 +55,13 @@ builds artifacts.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import os
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -133,15 +135,56 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# serve and evaluate_float score their outputs on the host in this many
+# threads beside the next forwards (numpy frees the GIL)
+SCORE_THREADS = 4
+
+
+class _Scores:
+    """Each frame's (PSNR, SSIM) of ``evaluate_pair`` for ``task``, scored
+    SCORE_THREADS frames at once beside the caller's next forwards, at most
+    twice as many in flight, kept in the order the frames were added; all
+    in at the end of the ``with`` block."""
+
+    def __init__(self, task: str):
+        self.task = task
+        self.psnr, self.ssim = [], []
+        self._pending = collections.deque()
+        self._pool = ThreadPoolExecutor(SCORE_THREADS)
+
+    def __len__(self) -> int:
+        return len(self.psnr) + len(self._pending)
+
+    def add(self, pred, gt, inp) -> None:
+        self._pending.append(self._pool.submit(evaluate_pair, self.task, pred, gt, inp))
+        self._take(2 * SCORE_THREADS)
+
+    def _take(self, n_left: int) -> None:
+        while len(self._pending) > n_left:
+            p, s = self._pending.popleft().result()
+            self.psnr.append(float(p))
+            self.ssim.append(float(s))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, *_):
+        if kind is None:
+            self._take(0)
+        self._pool.shutdown(cancel_futures=True)
+
+
 def serve(spec: SESRSpec, qp: QuantParams, dataset, batch: int = 1,
           out_dtype: str = "f32", device="cuda", save_dir: Optional[str] = None,
           audit_every: int = 0, keep_outputs: bool = False) -> ServeResult:
     """Serve every (input, ground truth, ...) item of ``dataset`` through
     the deployment forward the artifact's certificate selects, ``batch``
     frames per dispatch (equal shapes batch together), and score each
-    output against its ground truth. With ``save_dir`` each output is
-    also written there as ``out_{n:04d}.png``; with ``keep_outputs`` the
-    float32 outputs are kept in the result.
+    output against its ground truth (on the host, SCORE_THREADS frames at
+    once beside the next dispatches; the scores in the stream's order).
+    With ``save_dir`` each output is also written there as
+    ``out_{n:04d}.png``; with ``keep_outputs`` the float32 outputs are kept
+    in the result.
 
     ``audit_every`` = N > 0: every Nth dispatch also runs ``audit_frame``
     (the PE-exact datapath with its counters: on the card one launch of
@@ -155,57 +198,56 @@ def serve(spec: SESRSpec, qp: QuantParams, dataset, batch: int = 1,
     mode, fwd = select_forward(qp)
     trusted = empirically_trusted_layers(qp, mode) if audit_every > 0 else ()
     data = list(dataset)
-    psnrs, ssims, shapes = [], [], []
+    shapes = []
     outputs = [] if keep_outputs else None
     finite = True
     seconds = audit_seconds = 0.0
     audited, violations = 0, []
     i = dispatch = 0
-    while i < len(data):
-        group = [data[i]]
-        while (len(group) < batch and i + len(group) < len(data)
-               and data[i + len(group)][0].shape == group[0][0].shape):
-            group.append(data[i + len(group)])
-        x = torch.from_numpy(np.concatenate([g[0] for g in group])).to(device)
-        _sync(device)
-        t0 = time.perf_counter()
-        y = fwd(spec, qp, x, out_dtype=out_dtype)
-        _sync(device)
-        seconds += time.perf_counter() - t0
-        if trusted and dispatch % audit_every == 0:
-            t0 = time.perf_counter()
-            res = audit_frame(spec, qp, x, y_served=y if out_dtype == "f32" else None,
-                              mode=mode, warn=False)
+    with _Scores(spec.name) as scores:
+        while i < len(data):
+            group = [data[i]]
+            while (len(group) < batch and i + len(group) < len(data)
+                   and data[i + len(group)][0].shape == group[0][0].shape):
+                group.append(data[i + len(group)])
+            x = torch.from_numpy(np.concatenate([g[0] for g in group])).to(device)
             _sync(device)
-            audit_seconds += time.perf_counter() - t0
-            audited += 1
-            if not res.ok:
-                violations.append((dispatch, res.violations))
-                print(f"audit: OOD saturation on dispatch {dispatch}: empirically stamped "
-                      f"layer(s) {list(res.violations)} fired 18-bit events (counts "
-                      f"{res.ovf18.tolist()}); degrading to pe-exact serving",
-                      file=sys.stderr)
-                mode, fwd, trusted = "pe-exact", pe_exact_corrected_forward, ()
-                y = fwd(spec, qp, x, out_dtype=out_dtype)
-        shapes.append(tuple(y.shape))
-        if out_dtype == "int8":
-            # the int8 contract: the consumer dequantizes
-            y = dequantize_output(y, qp)
-        y = y.cpu().numpy()
-        finite = finite and bool(np.isfinite(y).all())
-        for j, (inp, gt, *_) in enumerate(group):
-            p, s = evaluate_pair(spec.name, y[j], gt[0], inp[0])
-            if save_dir:
-                os.makedirs(save_dir, exist_ok=True)
-                save_png(y[j], os.path.join(save_dir, f"out_{len(psnrs):04d}.png"))
-            if keep_outputs:
-                outputs.append(y[j])
-            psnrs.append(float(p))
-            ssims.append(float(s))
-        i += len(group)
-        dispatch += 1
-    return ServeResult(mode, psnrs, ssims, shapes, finite, seconds, audited, violations,
-                       audit_seconds, outputs)
+            t0 = time.perf_counter()
+            y = fwd(spec, qp, x, out_dtype=out_dtype)
+            _sync(device)
+            seconds += time.perf_counter() - t0
+            if trusted and dispatch % audit_every == 0:
+                t0 = time.perf_counter()
+                res = audit_frame(spec, qp, x, y_served=y if out_dtype == "f32" else None,
+                                  mode=mode, warn=False)
+                _sync(device)
+                audit_seconds += time.perf_counter() - t0
+                audited += 1
+                if not res.ok:
+                    violations.append((dispatch, res.violations))
+                    print(f"audit: OOD saturation on dispatch {dispatch}: empirically stamped "
+                          f"layer(s) {list(res.violations)} fired 18-bit events (counts "
+                          f"{res.ovf18.tolist()}); degrading to pe-exact serving",
+                          file=sys.stderr)
+                    mode, fwd, trusted = "pe-exact", pe_exact_corrected_forward, ()
+                    y = fwd(spec, qp, x, out_dtype=out_dtype)
+            shapes.append(tuple(y.shape))
+            if out_dtype == "int8":
+                # the int8 contract: the consumer dequantizes
+                y = dequantize_output(y, qp)
+            y = y.cpu().numpy()
+            finite = finite and bool(np.isfinite(y).all())
+            for j, (inp, gt, *_) in enumerate(group):
+                if save_dir:
+                    os.makedirs(save_dir, exist_ok=True)
+                    save_png(y[j], os.path.join(save_dir, f"out_{len(scores):04d}.png"))
+                if keep_outputs:
+                    outputs.append(y[j])
+                scores.add(y[j], gt[0], inp[0])
+            i += len(group)
+            dispatch += 1
+    return ServeResult(mode, scores.psnr, scores.ssim, shapes, finite, seconds, audited,
+                       violations, audit_seconds, outputs)
 
 
 @dataclasses.dataclass
@@ -226,18 +268,16 @@ class FloatEvalResult:
 def evaluate_float(spec: SESRSpec, params: CollapsedParams, dataset, device="cuda",
                    keep_outputs: bool = False) -> FloatEvalResult:
     """Score the float32 network (``forward_float``, no TF32) on every
-    (input, ground truth, ...) item of ``dataset``."""
-    psnrs, ssims = [], []
+    (input, ground truth, ...) item of ``dataset`` (the scores on the host,
+    SCORE_THREADS frames at once beside the next forwards, as ``serve``)."""
     outputs = [] if keep_outputs else None
-    with torch.inference_mode():
+    with torch.inference_mode(), _Scores(spec.name) as scores:
         for inp, gt, *_ in dataset:
             y = forward_float(spec, params, inp, device=device).cpu().numpy()
-            p, s = evaluate_pair(spec.name, y[0], gt[0], inp[0])
-            psnrs.append(float(p))
-            ssims.append(float(s))
+            scores.add(y[0], gt[0], inp[0])
             if keep_outputs:
                 outputs.append(y[0])
-    return FloatEvalResult(psnrs, ssims, outputs)
+    return FloatEvalResult(scores.psnr, scores.ssim, outputs)
 
 
 @dataclasses.dataclass

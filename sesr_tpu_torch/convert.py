@@ -33,7 +33,7 @@ from sesr_tpu_torch.quant.params import QuantParams
 # shared memory, the corrected kernel all of it (``block_words``).
 MAX_LAYERS = 16                    # the most convs one launch runs: a deeper network runs in groups
 GROUP_FIRST, GROUP_LAST = 1, 2     # a group's flags (sesr_common.cuh G_FIRST, G_LAST)
-WIDTHS = (16, 32)                  # the hidden widths every fused kernel runs
+WIDTHS = (16, 32, 64)              # the hidden widths every fused kernel runs (64: in groups)
 MAX_PES = 16
 HEAD = dict(res_m=0, res_p=1, z_out=2, acc_hi=3, add_hi=4, pe_split=5, clamp20=6, quant=7)
 HEAD_WORDS = 8
@@ -78,7 +78,8 @@ def pack_sizes(sizes) -> int:
 def kernel_width(num_channels: int) -> int:
     """The hidden width a network of ``num_channels`` runs at in the
     kernels: the first of WIDTHS that holds it (padded with zero
-    channels, ``_padded``). Raises NotImplementedError past the widest."""
+    channels, ``_padded``; 33 to 64 run at 64, always in the forms of other
+    conv sizes). Raises NotImplementedError past the widest."""
     for width in WIDTHS:
         if num_channels <= width:
             return width
@@ -221,10 +222,17 @@ class KernelConstants:
 
     @property
     def other_sizes(self) -> bool:
-        """Whether the network's conv sizes are not 5x5 / 3x3 ... / 5x5: it
-        runs in the forms of other conv sizes (csrc/sesr_net_ksize.cu,
-        csrc/sesr_corrected_ksize.cu), in groups."""
+        """Whether the network's conv sizes are not 5x5 / 3x3 ... / 5x5."""
         return tuple(self.ksizes) != shipped_sizes(self.num_layers)
+
+    @property
+    def ksize_form(self) -> bool:
+        """Whether the network runs in the forms of other conv sizes, in
+        groups: other conv sizes (csrc/sesr_net_ksize.cu,
+        csrc/sesr_corrected_ksize.cu), or any sizes at width 64 (their
+        width-64 instantiations, csrc/sesr_net_w64.cu,
+        csrc/sesr_corrected_w64.cu)."""
+        return self.other_sizes or self.width == 64
 
     def _own_rows(self, layer: int) -> bool:
         return layer == self.num_layers - 1 and self.out_channels > self.width
@@ -257,10 +265,10 @@ def _f32_bits(v: float) -> int:
 def _act_word(ic: int, c: int) -> tuple:
     """(word, byte) of input channel c in a pixel's 32-bit activation
     words: a pixel of a <= 4-channel input is one word (channel c in byte
-    c); a 16- or 32-channel pixel is ic / 4 words, word w holding channels
-    w % 4 + 16 (w // 4) + 4 j in byte j, so that at a PE count that is a
-    multiple of four, PE p's channels (c % pe == p, so c % 4 == p % 4) lie in
-    words p % 4 and p % 4 + 4."""
+    c); a 16-, 32- or 64-channel pixel is ic / 4 words, word w holding
+    channels w % 4 + 16 (w // 4) + 4 j in byte j, so that at a PE count that
+    is a multiple of four, PE p's channels (c % pe == p, so c % 4 == p % 4)
+    lie in words p % 4 + 4 j."""
     return (0, c) if ic <= 4 else (c % 4 + 4 * (c // 16), (c // 4) % 4)
 
 
@@ -301,8 +309,7 @@ def pe_words(split: bool, pe: int) -> bool:
 def words_per_tap(ic: int, split: bool, pe: int) -> int:
     """Activation words one pass of a layer reads per tap in K1 and K2:
     one for a <= 4-channel input; a split layer at 4, 8, 12 or 16 PEs PE
-    p's own (words p % 4 and p % 4 + 4 at 32 channels: ic / 16); else all
-    ic / 4."""
+    p's own (words p % 4 + 4 j: ic / 16); else all ic / 4."""
     if ic <= 4:
         return 1
     return ic // 16 if pe_words(split, pe) else ic // 4
@@ -311,9 +318,10 @@ def words_per_tap(ic: int, split: bool, pe: int) -> int:
 def layer_geometry(k: int, ic: int, split: bool, pe: int):
     """(passes, k32 chunks, tap_major) of one layer's implicit GEMM in K1
     and K2, with one pass per PE (``split``) or one over all channels. A
-    pass reads ``words_per_tap`` words a tap (wpt), 8 / wpt taps a chunk:
-    k-slot s of chunk c is the pass's word s % wpt of tap (8 / wpt) c + s //
-    wpt. Tap-major (any layer that reads one word per pixel, and a split
+    pass reads ``words_per_tap`` words a tap (wpt): k-slot s of chunk c is
+    the pass's k word 8 c + s, its word (8 c + s) % wpt of tap (8 c + s) //
+    wpt (8 / wpt taps a chunk, or at 16 words a tap two chunks a tap).
+    Tap-major (any layer that reads one word per pixel, and a split
     hidden layer at a PE count that is a multiple of four, whose pass p
     reads PE p's words: word j is p % 4 + 4 j); else (one pass over all
     channels, or a split layer at another PE count, each pass over all
@@ -355,7 +363,7 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
     frag = np.zeros((npass, chunks, 32, cols.shape[0], 2), np.uint32)
     for p in range(npass):
         for c in range(chunks):
-            tap, j = (8 // wpt) * c + slot // wpt, slot % wpt
+            tap, j = (8 * c + slot) // wpt, (8 * c + slot) % wpt
             word = (0 if ic <= 4 else p % 4 + 4 * j) if tap_major else j
             for n in range(cols.shape[0]):
                 o = cols[n, g][:, None]                        # (lane, 1)
@@ -368,7 +376,7 @@ def _fragment_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.
 def _wgmma_columns(oc: int, last: bool) -> np.ndarray:
     """Output channel of each column of one PE group of the corrected
     kernel's B (csrc/sesr_corrected.cu ``col_chan``), -1 past OC: a hidden
-    layer's ``oc`` (its width, 16 or 32) columns, a last layer's
+    layer's ``oc`` (its width, 16, 32 or 64) columns, a last layer's
     ``out_columns(oc)``. The last layer's are in order; a hidden layer's are
     permuted so that the four accumulators a thread holds for one row in
     n-tiles 2w and 2w + 1 (wgmma columns 8j + 2t + e, j - 2w and e in
@@ -385,12 +393,15 @@ def wgmma_geometry(k: int, ic: int, oc: int, split: bool, last: bool, pe: int):
     horizontal neighbours, eight taps a step) takes one step per kernel row
     (two past eight columns: a 9x9 conv), a 16-channel layer
     two taps a step, a 32-channel layer one (its two planes the two halves
-    of k); a split layer has one group of columns per PE that owns an input
-    channel (layer 0: min(ic, pe); a hidden layer ``pe_groups``), a
-    one-pass layer one."""
+    of k), a 64-channel layer two a tap (planes 0-1, then 2-3); a split
+    layer has one group of columns per PE that owns an input channel
+    (layer 0: min(ic, pe), but 4 for 3 at width 64, whose chunks are two
+    groups: csrc/sesr_corrected_ksize.cu first_groups; a hidden layer
+    ``pe_groups``), a one-pass layer one."""
     wide = ic <= 4
     steps = k * -(-k // 8) if wide else -(-k * k * ic // 32)
-    groups = (min(ic, pe) if wide else pe_groups(pe)) if split else 1
+    groups = (min(ic, pe) + (oc == 64 and min(ic, pe) == 3) if wide else pe_groups(pe)) \
+        if split else 1
     return steps, groups, groups * len(_wgmma_columns(oc, last))
 
 
@@ -400,7 +411,8 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
     k byte kb of step s meets in column n. Column n is output channel
     ``_wgmma_columns[n % G]`` of PE group n // G (G columns a group); k byte
     16h + b of step s is channel b of tap 2s + h (a 16-channel layer),
-    channel 16h + b of tap s (a 32-channel layer: plane h), or channel
+    channel 16h + b of tap s (a 32-channel layer: plane h), channel 32 (s %
+    2) + 16h + b of tap s // 2 (a 64-channel layer: plane 2 (s % 2) + h), or channel
     b % 4 of tap (s // r, 8 (s % r) + 4h + b // 4) (layer 0, widened pixels,
     r = ceil(k / 8) steps a kernel row). A
     split layer's group p holds only PE p's channels (c % pe == p); a
@@ -418,6 +430,10 @@ def _wgmma_b_words(w_hwio: np.ndarray, split: bool, pe: int, last: bool) -> np.n
         spr = -(-k // 8)
         dy, dx, ch = s // spr, 8 * (s % spr) + 4 * h + b // 4, b % 4
         ok = (dx < k) & (ch < ic)
+    elif ic == 64:
+        tap = s // 2
+        dy, dx, ch = tap // k, tap % k, 32 * (s % 2) + 16 * h + b
+        ok = tap < k * k
     else:
         tap = 32 // ic * s + (32 // ic - 1) * h
         dy, dx, ch = tap // k, tap % k, b + 16 * h * (ic // 16 - 1)
@@ -660,9 +676,11 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     4 input channels and a last conv of 1 to MAX_OUT output channels, each
     conv of any odd size from 1 to 9 (KSIZES: the first conv, the block
     convs and the last conv each on its own), and a narrower network runs
-    padded with zero channels (``_padded``). Raises NotImplementedError for
-    a network or artifact outside that (quan_bits above 8, more than
-    MAX_PES PEs, a hidden width above 32, an even conv size or one past 9,
+    padded with zero channels (``_padded``); a network of 33 to 64 hidden
+    channels runs at 64, in the forms of other conv sizes. Raises
+    NotImplementedError for a network or artifact outside that (quan_bits
+    above 8, more than MAX_PES PEs, a hidden width above 64, an even conv
+    size or one past 9,
     more than 4 input or MAX_OUT output channels, an int16 shortcut that may
     not hold round(s), ``shortcut_bound``).
 
@@ -675,10 +693,11 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
     any 1 to MAX_OUT output channels included. A network of two convs
     (``num_lblocks`` 0) is one group, GROUP_FIRST | GROUP_LAST, whose first
     conv also adds the shortcut (the group kernels' two-conv form). A
-    network whose convs are not 5x5 / 3x3 ... / 5x5 always runs in groups,
-    in the forms of other conv sizes (``ksizes``; one group where its plan
-    fits a block). Raises NotImplementedError where no partition fits,
-    naming the shared memory the smallest groups need.
+    network whose convs are not 5x5 / 3x3 ... / 5x5, or of width 64, always
+    runs in groups, in the forms of other conv sizes (``ksizes``,
+    ``ksize_form``; one group where its plan fits a block). Raises
+    NotImplementedError where no partition fits, naming the shared memory
+    the smallest groups need.
     """
     if datapath not in DATAPATHS:
         raise ValueError(f"datapath must be one of {DATAPATHS}, got {datapath!r}")
@@ -715,7 +734,7 @@ def kernel_constants(spec: SESRSpec, qp: QuantParams, datapath: str,
         if np.shape(qp.w_int[i])[:2] != (k, k):
             raise ValueError(f"conv {i} of {spec.name} is {k}x{k}, its weights "
                              f"{np.shape(qp.w_int[i])[:2]}")
-    other = ks != shipped_sizes(L)
+    other = ks != shipped_sizes(L) or width > 32       # the forms of other conv sizes
     if not (1 <= spec.in_channels <= 4 and 1 <= out_ch <= MAX_OUT):
         raise NotImplementedError(
             f"the fused kernels run 1-4 input channels and a last conv of 1-{MAX_OUT} output "

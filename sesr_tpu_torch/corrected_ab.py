@@ -23,9 +23,10 @@ own wrappers and kernels run in their own process (``python -c`` from
 the tree's root, which builds the tree's ``csrc/`` into its own
 ``build/``, every library at once), in turns base, this, this, base; each
 prints its times, a digest of its int8 outputs and ptxas's registers and
-spill stores of each network kernel family it built (PTXAS_FAMILIES), the
-digests of the two trees must agree, and each instantiation of the base
-tree is compared with this tree's ptxas line (``ptxas_equal``).
+spill stores of each network kernel family it built (PTXAS_FAMILIES: the
+libraries the tree has), the digests of the two trees must agree, and each
+instantiation of the base tree is compared with this tree's ptxas line
+(``ptxas_equal``; ``new``: this tree's instantiations the base lacks).
 
 ``--variants NAMES``: against edited copies of ``csrc/sesr_corrected.cu``,
 each with the text edits of VARIANTS, built side by side (one nvcc each,
@@ -77,7 +78,15 @@ PTXAS_FAMILIES = {
                             for form in ("", "_wide", "_wideout", "_pieces")),
     "sesr_net_group": ("sesr_net_group_kernel", "sesr_net_pair_kernel"),
     "sesr_corrected_group": ("sesr_corrected_group_kernel", "sesr_corrected_group_audit_kernel",
-                             "sesr_corrected_tail_kernel", "sesr_corrected_tail_audit_kernel")}
+                             "sesr_corrected_tail_kernel", "sesr_corrected_tail_audit_kernel"),
+    "sesr_net_ksize": ("sesr_net_ksize_kernel", "sesr_net_ksize_pair_kernel"),
+    # the counting form of other conv sizes, in sesr_corrected_ksize's library
+    # or in a library of its own (a tree has one or the other)
+    "sesr_corrected_ksize": ("sesr_corrected_ksize_kernel", "sesr_corrected_ksize_audit_kernel"),
+    "sesr_corrected_ksize_audit": ("sesr_corrected_ksize_audit_kernel",),
+    "sesr_net_w64": ("sesr_net_ksize_kernel", "sesr_net_ksize_pair_kernel"),
+    "sesr_corrected_w64": ("sesr_corrected_ksize_kernel",),
+    "sesr_corrected_w64_audit": ("sesr_corrected_ksize_audit_kernel",)}
 # --base only: the corrected kernel on nr's artifact at 3 and 8 PEs
 # ("nr@pe3", "nr@pe8": its instantiations <4, true, 16> and <8, true, 16>)
 # at 1080x1920, K1 and K2 on sr_x2, and the corrected kernel on the
@@ -147,7 +156,8 @@ for task, mode in cases:
     ms = median_ms(lambda: kern(spec, qp, x_q, split=split), dev, reps, warmup=3, lead_ms=1.0)
     out[f"{task} {mode}"] = {"ms": ms,
                              "digest": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]}
-out["build_logs"] = {lib: _build.build(lib).log for lib in PTXAS_FAMILIES}
+out["build_logs"] = {lib: _build.build(lib).log for lib in PTXAS_FAMILIES
+                     if lib in _build.SIGNATURES}
 print(json.dumps(out))
 """.replace("PTXAS_FAMILIES", repr(tuple(PTXAS_FAMILIES)))
 
@@ -197,7 +207,7 @@ def run_tree(tree: Path, reps: int) -> dict:
     logs = out.pop("build_logs")
     out["ptxas"] = {f"{family}<{args}>": list(v) for lib, families in PTXAS_FAMILIES.items()
                     for family in families
-                    for args, v in _build.ptxas_report(logs[lib], family).items()}
+                    for args, v in _build.ptxas_report(logs.get(lib, ""), family).items()}
     return out
 
 

@@ -543,7 +543,7 @@ struct Form {
   static constexpr int NH = NG / GC;                             // chunks, one after another
   static constexpr int NC = GC * OCP;                            // columns of a chunk
   static constexpr int R = NC / 2;                               // accumulator registers
-  static constexpr int S = steps_of(K, WIDE, C);
+  static constexpr int S = steps_of(K, WIDE, C < 32 ? C : 32);   // width 64: FormKS's own steps
   static constexpr int V = 2 * J;                                // values a thread holds per row
   // a last layer past C channels: its bias and zero terms in its own rows (R_ROWS)
   static constexpr bool ROWS = KIND == LAST && OCP > C;

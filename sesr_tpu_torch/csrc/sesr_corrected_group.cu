@@ -247,7 +247,10 @@ __device__ __forceinline__ void run_group(const int8_t* __restrict__ x, int8_t* 
     const int rem = tile - net.frame * per_frame;
     net.t.oy0 = (rem / tiles_x) * th;
     net.t.ox0 = (rem % tiles_x) * tw;
-    if constexpr (kStaged) stage_layer(0);
+    // (conv_pieces stages a layer in pieces: its whole B fits no region)
+    if constexpr (kStaged) {
+      if (!in_pieces(0)) stage_layer(0);
+    }
     if (first) {
       // layer 0's input, one word a pixel, into y, widened into x
       int* raw = reinterpret_cast<int*>(by);
@@ -508,6 +511,15 @@ cudaError_t launch_pe(const int8_t* x, int8_t* out, const int* w, const int* prm
   }
 }
 
+}  // namespace
+
+#ifndef SESR_CORRECTED_GROUP_BODY_ONLY
+// (sesr_corrected_ksize.cu includes this file for its bodies alone: the
+// launcher and the entry points below are this library's, so that no other
+// library compiles its kernels.)
+
+namespace {
+
 int launch_chain_group(const void* x, void* out, const void* weights, const void* params, void* sc,
                        int nb, int h, int w, int n, int fl, int in_ch, int out_ch, int th, int tw,
                        int split, int pe, int general, int width, const GroupCount& cnt,
@@ -536,10 +548,6 @@ int launch_chain_group(const void* x, void* out, const void* weights, const void
 }
 
 }  // namespace
-
-#ifndef SESR_CORRECTED_GROUP_BODY_ONLY
-// (sesr_corrected_ksize.cu includes this file for its bodies alone: the
-// entry points below are this library's.)
 
 extern "C" {
 

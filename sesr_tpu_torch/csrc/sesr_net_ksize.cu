@@ -31,7 +31,10 @@
 // sesr_net_ksize_pair_kernel<DP, OCL, C>, DP K1 / K2, the last conv's padded
 // columns (OCL -8, -16, -32, -48), width 16 or 32: 32, each the general
 // instantiation's wide form (a plain int32 sum, exact for every sum the
-// other form holds too).
+// other form holds too). The forms also take width 64 (a one-pass tap two
+// k32 chunks, 8 n-tiles of B a hidden conv, load_frag_ks), instantiated in
+// sesr_net_w64.cu, which includes this file for its bodies alone
+// (SESR_NET_KSIZE_BODY_ONLY leaves out the entry points).
 //
 // Built with route (b): nvcc into a shared library with a plain C interface,
 // loaded with ctypes (sesr_tpu_torch/ops/_build.py), its own nvcc process.
@@ -41,6 +44,34 @@
 #include "sesr_net_group.cu"
 
 namespace {
+
+// Width 64: a conv past layer 0 whose B no block holds beside the buffers
+// goes in pieces of at most kPieceWords, staged one at a time (every split
+// one of K1, each PE pass in pieces; a one-pass one whose B passes
+// kWholeWords: conv_layer_ks's PIECES form, w64_piecewise).
+constexpr int PIECES = 4;             // Passes: one pass, its B in pieces
+constexpr int kPieceWords = 13312;    // most words of a piece (53,248 B)
+constexpr int kWholeWords = 26624;    // most words of a one-pass conv's B staged whole
+// Chunks of a piece of B of fw words a lane and chunk.
+__host__ __device__ constexpr int piece_chunks(int fw) { return kPieceWords / (32 * fw); }
+
+// load_frag (sesr_net.cu) up to 8 n-tiles: a hidden layer at width 64 holds
+// 16 B registers a (pass, chunk).
+template <int FW>
+__device__ __forceinline__ void load_frag_ks(int (&b)[FW], const int* p) {
+  if constexpr (FW == 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int4 v = *reinterpret_cast<const int4*>(p + 4 * i);
+      b[4 * i] = v.x;
+      b[4 * i + 1] = v.y;
+      b[4 * i + 2] = v.z;
+      b[4 * i + 3] = v.w;
+    }
+  } else {
+    load_frag<FW>(b, p);
+  }
+}
 
 // conv_layer of a conv whose size is its record's (R_K), in the general
 // instantiation's wide form (every sum clamped to pe_add_bits, a plain
@@ -66,11 +97,15 @@ __device__ __forceinline__ void conv_layer_ks(
   constexpr int NV = 2 * NT;                         // values a lane holds per pixel
   constexpr bool STAGE = PS == WORDS || PS == MASKED;
   static_assert(!STAGE || KIND != FIRST, "a looped pass is a split hidden layer's");
-  static_assert(C == 16 || C == 32, "the hidden widths are 16 and 32");
+  static_assert(PS != PIECES || (C == 64 && KIND != FIRST), "pieces are width 64's");
+  constexpr bool ROUNDS = STAGE || PS == PIECES;     // every warp in each round
+  static_assert(C == 16 || C == 32 || C == 64, "the hidden widths are 16, 32 and 64");
   static_assert(!PAIR || KIND == FIRST, "a pair's pre-last conv is its first");
   constexpr bool TAPS = PS == FOUR || PS == WORDS || KIND == FIRST;   // a pass reads its own words
   // k-slot s of chunk c is word s % WPT of the pass's words (TAPS: its
-  // word p % 4 + 4 j is j; else word j) at tap TPC c + s / WPT
+  // word p % 4 + 4 j is j; else word j) at tap TPC c + s / WPT; past 8
+  // words a tap (width 64, one pass over all 16 words) a tap is WPT / 8
+  // chunks, chunk c its words 8 (c % (WPT / 8)) .. of tap c / (WPT / 8)
   constexpr int WPT = KIND == FIRST ? 1 : (TAPS ? C / 16 : C / 4);
   constexpr int TPC = 8 / WPT;
   const int nch = chunks_of(k, WPT);
@@ -111,14 +146,20 @@ __device__ __forceinline__ void conv_layer_ks(
   const int pa = (TAPS ? 4 : 1) * (tq % WPT) * in_ps, pb = pa + 4 % WPT * in_ps;
   auto tap_pix = [&](int tap) { return tap < k * k ? (tap / k) * iw + tap % k : 0; };
   auto offs = [&](int c, int& a, int& b) {
-    const int ta = TPC * c + tq / WPT;
-    a = pa + tap_pix(ta);
-    b = pb + tap_pix(ta + 4 / WPT);
+    if constexpr (WPT > 8) {
+      const int at = tap_pix(c / (WPT / 8)) + 8 * (c % (WPT / 8)) * in_ps;
+      a = pa + at;
+      b = pb + at;
+    } else {
+      const int ta = TPC * c + tq / WPT;
+      a = pa + tap_pix(ta);
+      b = pb + tap_pix(ta + 4 / WPT);
+    }
   };
   const int pw = nch * 32 * FW;                      // words of one pass's B
   const int rounds = (npix + 16 * kWarps - 1) / (16 * kWarps);
   int q = 0;                                         // STAGE: passes computed so far
-  for (int mt = warp; STAGE ? mt < rounds * kWarps : mt * 16 < npix; mt += kWarps) {
+  for (int mt = warp; ROUNDS ? mt < rounds * kWarps : mt * 16 < npix; mt += kWarps) {
     int ys[2], xs[2], bases[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -140,7 +181,7 @@ __device__ __forceinline__ void conv_layer_ks(
         const int a0 = in[bases[0] + xa], a1 = in[bases[1] + xa];
         const int a2 = in[bases[0] + xb], a3 = in[bases[1] + xb];
         int b[FW];
-        load_frag<FW>(b, w + (c * 32 + lane) * FW);
+        load_frag_ks<FW>(b, w + (c * 32 + lane) * FW);
 #pragma unroll
         for (int n = 0; n < NT; ++n) mma_s8(tot[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
       }
@@ -162,7 +203,7 @@ __device__ __forceinline__ void conv_layer_ks(
         for (int p = 0; p < NP; ++p) {
           if (p < npass) {
             int b[FW];
-            load_frag<FW>(b, w + ((p * nch + c) * 32 + lane) * FW);
+            load_frag_ks<FW>(b, w + ((p * nch + c) * 32 + lane) * FW);
 #pragma unroll
             for (int n = 0; n < NT; ++n) mma_s8(acc[p][n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
           }
@@ -175,6 +216,56 @@ __device__ __forceinline__ void conv_layer_ks(
           for (int n = 0; n < NT; ++n)
 #pragma unroll
             for (int i = 0; i < 4; ++i) tot[n][i] += min(max(acc[p][n][i], -acc_hi - 1), acc_hi);
+    } else if constexpr (C == 64 && ROUNDS) {
+      // width 64: PE p's pass (WORDS, MASKED) or the one pass (PIECES), its
+      // chunks in pieces of piece_chunks (the last one shorter), staged one
+      // at a time from wg as the STAGE form below stages a pass: piece q of
+      // the layer's rounds in buffer w (q even, or one buffer) or w_alt; a
+      // pass's sum clamped once, at its end (split)
+      constexpr int CPP = piece_chunks(FW);
+      const int units = (nch + CPP - 1) / CPP;          // pieces a pass
+      const int np = PS == PIECES ? 1 : npass;
+      const int total = rounds * np * units;
+      // piece i of a round: pass i / units, its chunks from (i % units) CPP
+      auto stage_piece = [&](int qq, int* dst) {
+        const int i = qq % (np * units), c0 = i % units * CPP;
+        stage_async(dst, wg + (i / units * nch + c0) * 32 * FW, min(CPP, nch - c0) * 32 * FW);
+      };
+      for (int p = 0; p < np; ++p) {
+        int acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][i] = 0;
+        const int* src = in + (PS == WORDS ? (p & 3) * in_ps : 0);
+        for (int u = 0; u < units; ++u) {
+          wait_staged();
+          __syncthreads();
+          const bool two = w_alt != w;
+          if (two && q + 1 < total) stage_piece(q + 1, (q & 1) ? const_cast<int*>(w) : w_alt);
+          const int* wp = two && (q & 1) ? w_alt : w;
+          for (int c = u * CPP; c < min(nch, (u + 1) * CPP); ++c) {
+            int xa, xb;
+            offs(c, xa, xb);
+            const int a0 = src[bases[0] + xa], a1 = src[bases[1] + xa];
+            const int a2 = src[bases[0] + xb], a3 = src[bases[1] + xb];
+            int b[FW];
+            load_frag_ks<FW>(b, wp + ((c - u * CPP) * 32 + lane) * FW);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) mma_s8(acc[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
+          }
+          if (!two && q + 1 < total) {
+            __syncthreads();
+            stage_piece(q + 1, const_cast<int*>(w));
+          }
+          ++q;
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tot[n][i] += PS == PIECES ? acc[n][i] : min(max(acc[n][i], -acc_hi - 1), acc_hi);
+      }
     } else if constexpr (STAGE) {
       // PE p's pass reads its words p % 4 + 4 j (WORDS) or all C / 4 words
       // (MASKED) of each tap, against B holding its channels only, staged a
@@ -199,7 +290,7 @@ __device__ __forceinline__ void conv_layer_ks(
           const int a0 = src[bases[0] + xa], a1 = src[bases[1] + xa];
           const int a2 = src[bases[0] + xb], a3 = src[bases[1] + xb];
           int b[FW];
-          load_frag<FW>(b, wp + (c * 32 + lane) * FW);
+          load_frag_ks<FW>(b, wp + (c * 32 + lane) * FW);
 #pragma unroll
           for (int n = 0; n < NT; ++n) mma_s8(acc[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
         }
@@ -228,7 +319,7 @@ __device__ __forceinline__ void conv_layer_ks(
           const int a0 = src[bases[0] + xa], a1 = src[bases[1] + xa];
           const int a2 = src[bases[0] + xb], a3 = src[bases[1] + xb];
           int b[FW];
-          load_frag<FW>(b, w + ((p * nch + c) * 32 + lane) * FW);
+          load_frag_ks<FW>(b, w + ((p * nch + c) * 32 + lane) * FW);
 #pragma unroll
           for (int n = 0; n < NT; ++n) mma_s8(acc[n], a0, a1, a2, a3, b[2 * n], b[2 * n + 1]);
         }
@@ -392,8 +483,10 @@ __device__ __forceinline__ void conv_form_ks(
 }
 
 // A conv past layer 0 (KIND MID or LAST): conv_form_ks, or where it is
-// `staged` (K1, split, off 4 PEs) its passes a pass at a time from wg (two
-// buffers w and w_alt, or one). The arguments are conv_layer's.
+// `staged` (K1, split, off 4 PEs; at width 64 any split one) its passes a
+// pass at a time from wg (two buffers w and w_alt, or one; at width 64 in
+// pieces), or where it goes in `pieces` (width 64, one pass:
+// w64_piecewise) its one pass in pieces. The arguments are conv_layer's.
 template <int DP, int OC, int C, Kind KIND>
 __device__ __forceinline__ void group_conv_ks(bool staged, const int* __restrict__ in, int in_ps,
                                               const int* w, int* w_alt,
@@ -403,7 +496,16 @@ __device__ __forceinline__ void group_conv_ks(bool staged, const int* __restrict
                                               const int* __restrict__ gprm,
                                               int* __restrict__ next, int next_ps,
                                               int* __restrict__ sc, int sc_ps, int sc_w, int sc_h,
-                                              int8_t* __restrict__ out, int frame) {
+                                              int8_t* __restrict__ out, int frame,
+                                              bool pieces = false) {
+  if constexpr (C == 64) {
+    if (pieces) {
+      conv_layer_ks<DP, PIECES, KIND, OC, C>(in, in_ps, w, 1, eh, ew, t, layer, prelast, prm, gprm,
+                                             next, next_ps, sc, sc_ps, 0, sc_w, sc_h, out, frame,
+                                             w_alt, wg);
+      return;
+    }
+  }
   if constexpr (DP == REFERENCE) {
     if (staged) {
       if (npass % 4 == 0)
@@ -474,9 +576,85 @@ __host__ __device__ inline Smem ks_group_plan(int dp, int split, int pe, int n, 
   return s;
 }
 
+// Width 64 (sesr_net_w64.cu): K1 stages every split conv past layer 0 a
+// pass at a time, at any PE count, and a one-pass conv whose B (lw words)
+// passes kWholeWords goes in pieces (PIECES: w64_piecewise); a staged or
+// piecewise conv's B is staged a piece of at most kPieceWords at a time
+// (w64_unit_words: the words staged first; ocl the last conv's padded
+// columns).
+__host__ __device__ inline bool w64_staged(int dp, bool sp, int kind) {
+  return dp == REFERENCE && sp && kind != FIRST;
+}
+
+__host__ __device__ inline bool w64_piecewise(bool staged, int kind, int lw) {
+  return !staged && kind != FIRST && lw > kWholeWords;
+}
+
+__host__ __device__ inline int w64_unit_words(int dp, bool sp, int kind, int pe, int ocl,
+                                              int lw) {
+  const bool st = w64_staged(dp, sp, kind);
+  const int words = st ? lw / pe : lw;
+  if (!st && !w64_piecewise(st, kind, lw)) return words;
+  const int fw = 2 * ((kind == LAST ? out_cols(ocl) : 64) / 8);
+  const int unit = piece_chunks(fw) * 32 * fw;
+  return words < unit ? words : unit;
+}
+
+// ks_group_plan at width 64: a conv's B staged w64_unit_words at a time.
+__host__ __device__ inline Smem w64_group_plan(int dp, int split, int pe, int n, int fl, int in_ch,
+                                               int ocl, int th, int tw, long long ks) {
+  constexpr int C = 64;
+  Smem s;
+  s.prm_words = net_words(kMaxL + 1, C);
+  s.w_words = 0;
+  for (int j = 0; j < n; ++j) {
+    const int kind = group_kind(j, n, fl);
+    const bool sp = (split >> j) & 1;
+    const int lw = conv_words(sp, kind, ks_at(ks, j), in_ch, ocl, pe, C);
+    const int words = w64_unit_words(dp, sp, kind, pe, ocl, lw);
+    s.w_words = s.w_words > words ? s.w_words : words;
+  }
+  // layer j's input: buf_b for even j, buf_a for odd; the group's output
+  // (before the last conv) is "layer n's input"
+  auto ext = [&](int j) {
+    const int r = ks_ring(j, n, ks);
+    return (th + 2 * r) * (tw + 2 * r);
+  };
+  s.a_words = 0;
+  s.b_words = (fl & G_FIRST) ? (ext(0) + 3) & ~3 : 0;
+  for (int j = (fl & G_FIRST) ? 1 : 0; j <= n - ((fl & G_LAST) ? 1 : 0); ++j) {
+    const int words = C / 4 * plane_stride(ext(j));
+    int& dst = (j % 2) ? s.a_words : s.b_words;
+    dst = dst > words ? dst : words;
+  }
+  const int rs = ks_sc_ring(n, fl, ks);
+  s.sc_words = (fl & (G_FIRST | G_LAST)) && !pair_group(n, fl)
+                   ? (dp == REFERENCE ? C / 4 : C / 2) * plane_stride((th + 2 * rs) * (tw + 2 * rs))
+                   : 0;
+  const int two = s.prm_words + 2 * s.w_words + s.a_words + s.b_words + s.sc_words;
+  s.w_bufs = 4 * two > kSmemLimit ? 1 : 2;
+  return s;
+}
+
+// The plan at width C as group_tile_ks reads it (ks_group_plan at widths
+// 16 and 32, w64_group_plan at 64), and at a width known at run time.
+template <int C>
+__host__ __device__ __forceinline__ Smem group_plan_c(int dp, int split, int pe, int n, int fl,
+                                                      int in_ch, int ocl, int th, int tw,
+                                                      long long ks) {
+  if constexpr (C == 64) return w64_group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, ks);
+  else return ks_group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, C, ks);
+}
+
+inline Smem group_plan_at(int dp, int split, int pe, int n, int fl, int in_ch, int ocl, int th,
+                          int tw, int C, long long ks) {
+  return C == 64 ? w64_group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, ks)
+                 : ks_group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, C, ks);
+}
+
 size_t ks_group_bytes(int dp, int split, int pe, int n, int fl, int in_ch, int ocl, int th, int tw,
                       int C, long long ks) {
-  const Smem p = ks_group_plan(dp, split, pe, n, fl, in_ch, ocl, th, tw, C, ks);
+  const Smem p = group_plan_at(dp, split, pe, n, fl, in_ch, ocl, th, tw, C, ks);
   return sizeof(int) * (static_cast<size_t>(p.prm_words) + p.w_bufs * p.w_words + p.a_words +
                         p.b_words + p.sc_words);
 }
@@ -494,7 +672,7 @@ __device__ __forceinline__ void group_tile_ks(const int8_t* __restrict__ x, int8
   extern __shared__ int4 smem4[];
   constexpr int OCW = -OCL;
   const bool first = fl & G_FIRST, last = fl & G_LAST;
-  const Smem plan = ks_group_plan(DP, split, pe, n, fl, in_ch, OCW, th, tw, C, ks);
+  const Smem plan = group_plan_c<C>(DP, split, pe, n, fl, in_ch, OCW, th, tw, ks);
   int* prm = reinterpret_cast<int*>(smem4);
   int* wbuf = prm + plan.prm_words;
   int* buf_a = wbuf + plan.w_bufs * plan.w_words;
@@ -511,13 +689,37 @@ __device__ __forceinline__ void group_tile_ks(const int8_t* __restrict__ x, int8
   t.W = W;
   const int frame = blockIdx.z;
   auto staged = [&](const int* p, int j) {
-    return ks_staged(DP, DP == REFERENCE && pe_split(p, j), group_kind(j, n, fl), pe);
+    if constexpr (C == 64) {
+      // K1's split conv past layer 0 a pass at a time, or a one-pass conv
+      // in pieces: its B staged in turn while it runs (both buffers)
+      const int kind = group_kind(j, n, fl);
+      const bool st = w64_staged(DP, DP == REFERENCE && pe_split(p, j), kind);
+      return st || w64_piecewise(st, kind, conv_words(false, kind, ks_at(ks, j), in_ch, OCW, pe,
+                                                      C));
+    } else {
+      return ks_staged(DP, DP == REFERENCE && pe_split(p, j), group_kind(j, n, fl), pe);
+    }
   };
-  // the words of layer j's B to stage: a staged conv's first pass
+  // width 64: a one-pass conv whose B goes in pieces (w64_piecewise)
+  auto pieces_of = [&](const int* p, int j) {
+    if constexpr (C == 64) {
+      const int kind = group_kind(j, n, fl);
+      return !(DP == REFERENCE && pe_split(p, j)) &&
+             w64_piecewise(false, kind, conv_words(false, kind, ks_at(ks, j), in_ch, OCW, pe, C));
+    } else {
+      return false;
+    }
+  };
+  // the words of layer j's B to stage: a staged conv's first pass (at width
+  // 64 its first piece)
   auto words_of = [&](const int* p, int j) {
     const int lw = conv_words(DP == REFERENCE && pe_split(p, j), group_kind(j, n, fl),
                               ks_at(ks, j), in_ch, OCW, pe, C);
-    return staged(p, j) ? lw / pe : lw;
+    if constexpr (C == 64)
+      return w64_unit_words(DP, DP == REFERENCE && pe_split(p, j), group_kind(j, n, fl), pe, OCW,
+                            lw);
+    else
+      return staged(p, j) ? lw / pe : lw;
   };
   auto ext = [&](int j) { return (th + 2 * ks_ring(j, n, ks)) * (tw + 2 * ks_ring(j, n, ks)); };
 
@@ -629,7 +831,7 @@ __device__ __forceinline__ void group_tile_ks(const int8_t* __restrict__ x, int8
     group_conv_ks<DP, C, C, MID>(staged(prm, j), cur, plane_stride(ext(j)), w, w_alt,
                                  weights + prm[p_at(j, R_WOFF, C)], pe, th + 2 * r, tw + 2 * r, t,
                                  j, last && j == n - 2, prm, params, nxt, plane_stride(ext(j + 1)),
-                                 sc, sc_ps, sc_w, sc_h, nullptr, frame);
+                                 sc, sc_ps, sc_w, sc_h, nullptr, frame, pieces_of(prm, j));
     after(j);
     int* tmp = cur;
     cur = nxt;
@@ -642,7 +844,7 @@ __device__ __forceinline__ void group_tile_ks(const int8_t* __restrict__ x, int8
     group_conv_ks<DP, OCL, C, LAST>(staged(prm, jl), cur, plane_stride(ext(jl)), w_last, w_alt,
                                     weights + prm[p_at(jl, R_WOFF, C)], pe, t.th, t.tw, t, jl,
                                     false, prm, params, nullptr, 0, sc, sc_ps, sc_w, sc_h, out,
-                                    frame);
+                                    frame, pieces_of(prm, jl));
     return;
   }
   // the group's output, the tile's core: C channels a pixel in order
@@ -664,7 +866,7 @@ __device__ __forceinline__ void group_tile_ks(const int8_t* __restrict__ x, int8
 }
 
 template <int DP, int OCL, int C>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, C > 32 ? 1 : 2)
 sesr_net_ksize_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                       const int* __restrict__ weights, const int* __restrict__ params, void* sc,
                       int H, int W, int n, int fl, int in_ch, int th, int tw, int split, int pe,
@@ -674,7 +876,7 @@ sesr_net_ksize_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
 }
 
 template <int DP, int OCL, int C>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, C > 32 ? 1 : 2)
 sesr_net_ksize_pair_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out,
                            const int* __restrict__ weights, const int* __restrict__ params, int H,
                            int W, int in_ch, int th, int tw, int split, int pe, long long ks) {
@@ -726,22 +928,51 @@ cudaError_t launch_ksize_cols(const int8_t* x, int8_t* out, const int* w, const 
   }
 }
 
-template <int DP>
+template <int DP, int C>
 cudaError_t launch_ksize_dp(const void* x, void* out, const void* weights, const void* params,
                             void* sc, int nb, int h, int w, int n, int fl, int in_ch, int out_ch,
-                            int th, int tw, int split, int pe, int width, long long ks,
-                            cudaStream_t s) {
-  const int8_t* xi = static_cast<const int8_t*>(x);
-  int8_t* oi = static_cast<int8_t*>(out);
-  const int* wi = static_cast<const int*>(weights);
-  const int* pi = static_cast<const int*>(params);
-  return width == 16 ? launch_ksize_cols<DP, 16>(xi, oi, wi, pi, sc, nb, h, w, n, fl, in_ch, out_ch,
-                                                 th, tw, split, pe, ks, s)
-                     : launch_ksize_cols<DP, kMaxC>(xi, oi, wi, pi, sc, nb, h, w, n, fl, in_ch,
-                                                    out_ch, th, tw, split, pe, ks, s);
+                            int th, int tw, int split, int pe, long long ks, cudaStream_t s) {
+  return launch_ksize_cols<DP, C>(static_cast<const int8_t*>(x), static_cast<int8_t*>(out),
+                                  static_cast<const int*>(weights), static_cast<const int*>(params),
+                                  sc, nb, h, w, n, fl, in_ch, out_ch, th, tw, split, pe, ks, s);
+}
+
+// One group's launch at hidden width C (sesr_net_ksize's arguments, the
+// width C), or cudaErrorInvalidValue for arguments the forms refuse.
+template <int C>
+int launch_ksize_width(int exact, const void* x, void* out, const void* weights,
+                       const void* params, void* sc, int nb, int h, int w, int n, int flags,
+                       int in_ch, int out_ch, int tile_h, int tile_w, int split, int pe,
+                       int general, long long ks, void* stream) {
+  // (group_takes at width 16: the caller checks the width)
+  if (!group_takes(n, flags, in_ch, out_ch, tile_h, tile_w, split, pe, general, 16) ||
+      !sizes_take(n, ks) || (!exact && split != 0) ||
+      (flags != (G_FIRST | G_LAST) && sc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      exact ? launch_ksize_dp<REFERENCE, C>(x, out, weights, params, sc, nb, h, w, n, flags,
+                                            in_ch, out_ch, tile_h, tile_w, split, pe, ks, s)
+            : launch_ksize_dp<FAST, C>(x, out, weights, params, sc, nb, h, w, n, flags, in_ch,
+                                       out_ch, tile_h, tile_w, split, pe, ks, s));
+}
+
+// Shared memory of one block of a group at hidden width C in bytes, or 0
+// where the entry point refuses the arguments.
+int ksize_smem(int exact, int n, int flags, int in_ch, int out_ch, int tile_h, int tile_w,
+               int split, int pe, int width, long long ks) {
+  if (!group_takes(n, flags, in_ch, out_ch, tile_h, tile_w, split, pe, 1, 16) ||
+      !sizes_take(n, ks))
+    return 0;
+  return static_cast<int>(ks_group_bytes(exact ? REFERENCE : FAST, split, pe, n, flags, in_ch,
+                                         out_cols(out_ch), tile_h, tile_w, width, ks));
 }
 
 }  // namespace
+
+#ifndef SESR_NET_KSIZE_BODY_ONLY
+// (sesr_net_w64.cu includes this file for its bodies alone: the entry
+// points below are this library's, at widths 16 and 32.)
 
 extern "C" {
 
@@ -752,27 +983,21 @@ int sesr_net_ksize(int exact, const void* x, void* out, const void* weights, con
                    void* sc, int nb, int h, int w, int n, int flags, int in_ch, int out_ch,
                    int tile_h, int tile_w, int split, int pe, int general, int width,
                    long long ks, void* stream) {
-  if (!group_takes(n, flags, in_ch, out_ch, tile_h, tile_w, split, pe, general, width) ||
-      !sizes_take(n, ks) || (!exact && split != 0) ||
-      (flags != (G_FIRST | G_LAST) && sc == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      exact ? launch_ksize_dp<REFERENCE>(x, out, weights, params, sc, nb, h, w, n, flags, in_ch,
-                                         out_ch, tile_h, tile_w, split, pe, width, ks, s)
-            : launch_ksize_dp<FAST>(x, out, weights, params, sc, nb, h, w, n, flags, in_ch,
-                                    out_ch, tile_h, tile_w, split, pe, width, ks, s));
+  if (width != 16 && width != kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+  return width == 16 ? launch_ksize_width<16>(exact, x, out, weights, params, sc, nb, h, w, n,
+                                              flags, in_ch, out_ch, tile_h, tile_w, split, pe,
+                                              general, ks, stream)
+                     : launch_ksize_width<kMaxC>(exact, x, out, weights, params, sc, nb, h, w, n,
+                                                 flags, in_ch, out_ch, tile_h, tile_w, split, pe,
+                                                 general, ks, stream);
 }
 
 // Shared memory of one block of a group in bytes, or 0 where the entry
 // point refuses the arguments.
 int sesr_net_ksize_smem(int exact, int n, int flags, int in_ch, int out_ch, int tile_h, int tile_w,
                         int split, int pe, int width, long long ks) {
-  if (!group_takes(n, flags, in_ch, out_ch, tile_h, tile_w, split, pe, 1, width) ||
-      !sizes_take(n, ks))
-    return 0;
-  return static_cast<int>(ks_group_bytes(exact ? REFERENCE : FAST, split, pe, n, flags, in_ch,
-                                         out_cols(out_ch), tile_h, tile_w, width, ks));
+  if (width != 16 && width != kMaxC) return 0;
+  return ksize_smem(exact, n, flags, in_ch, out_ch, tile_h, tile_w, split, pe, width, ks);
 }
 
 const char* sesr_net_ksize_error_string(int err) {
@@ -780,3 +1005,5 @@ const char* sesr_net_ksize_error_string(int err) {
 }
 
 }  // extern "C"
+
+#endif  // SESR_NET_KSIZE_BODY_ONLY

@@ -33,9 +33,12 @@ BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 # --split-compile 0: the optimizer runs on every CPU at once, kernel by kernel
 # (sesr_net.cu holds 24 instantiations since the 32-channel ones). The
 # layer-group libraries (sesr_net_group.cu, sesr_corrected_group.cu) include
-# sesr_net.cu / sesr_corrected.cu for their bodies, and the libraries of
-# other conv sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu) the group
-# sources; each builds beside the others, one nvcc process a library.
+# sesr_net.cu / sesr_corrected.cu for their bodies, the libraries of other
+# conv sizes (sesr_net_ksize.cu, sesr_corrected_ksize.cu and its counting
+# form's, sesr_corrected_ksize_audit.cu) the group sources, and their
+# width-64 libraries (sesr_net_w64.cu, sesr_corrected_w64.cu,
+# sesr_corrected_w64_audit.cu) the ksize sources; each builds beside the
+# others, one nvcc process a library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0")
@@ -97,12 +100,27 @@ SIGNATURES = {
     "sesr_corrected_ksize": {
         # sesr_corrected_group's arguments but the stream, then (ks, stream)
         "sesr_corrected_ksize": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR],
-        # the counting form: the same arguments but the stream, then (counts, y0, y1, x0,
-        # x1, stream)
-        "sesr_corrected_ksize_audit": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR] + [_INT] * 4
-                                      + [_PTR],
         # sesr_corrected_group_smem's arguments, then ks
         "sesr_corrected_ksize_smem": [_INT] * 9 + [_LL],
+    },
+    "sesr_corrected_ksize_audit": {
+        # the counting form: sesr_corrected_ksize's arguments but the stream, then
+        # (counts, y0, y1, x0, x1, stream)
+        "sesr_corrected_ksize_audit": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR] + [_INT] * 4
+                                      + [_PTR],
+    },
+    # the forms of other conv sizes at width 64: the ksize libraries' arguments
+    "sesr_net_w64": {
+        "sesr_net_w64": [_INT] + [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR],
+        "sesr_net_w64_smem": [_INT] * 10 + [_LL],
+    },
+    "sesr_corrected_w64": {
+        "sesr_corrected_w64": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR],
+        "sesr_corrected_w64_smem": [_INT] * 9 + [_LL],
+    },
+    "sesr_corrected_w64_audit": {
+        "sesr_corrected_w64_audit": [_PTR] * 5 + [_INT] * 13 + [_LL, _PTR] + [_INT] * 4
+                                    + [_PTR],
     },
     "probes": {
         # (a, b, out, out_x, out_f32, m, n, k, in_bf16, epilogue, rep, stream)
@@ -122,6 +140,10 @@ ERROR_STRING = {"sesr_net": "sesr_error_string", "sesr_corrected": "sesr_correct
                 "sesr_corrected_group": "sesr_corrected_group_error_string",
                 "sesr_net_ksize": "sesr_net_ksize_error_string",
                 "sesr_corrected_ksize": "sesr_corrected_ksize_error_string",
+                "sesr_corrected_ksize_audit": "sesr_corrected_ksize_audit_error_string",
+                "sesr_net_w64": "sesr_net_w64_error_string",
+                "sesr_corrected_w64": "sesr_corrected_w64_error_string",
+                "sesr_corrected_w64_audit": "sesr_corrected_w64_audit_error_string",
                 "probes": "probe_error_string"}
 
 

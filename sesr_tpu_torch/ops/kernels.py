@@ -20,7 +20,11 @@ the int8 activation and the shortcut crossing each boundary in device
 memory; every launch of the chain is counted. A network whose convs are not
 5x5 / 3x3 ... / 5x5 (KernelConstants.other_sizes) runs its chain in the
 forms of other conv sizes, csrc/sesr_net_ksize.cu and
-csrc/sesr_corrected_ksize.cu, each group's sizes passed with its launch.
+csrc/sesr_corrected_ksize.cu (the counting form:
+csrc/sesr_corrected_ksize_audit.cu), each group's sizes passed with its
+launch; a network of width 64 (33 to 64 hidden channels) in those forms'
+width-64 instantiations, csrc/sesr_net_w64.cu and csrc/sesr_corrected_w64.cu
+(csrc/sesr_corrected_w64_audit.cu), whatever its sizes (``chain_form``).
 
 A wrapper takes the quantized int8 input on the card and returns the int8
 output of the last conv (before the pixel shuffle); ``ops/pe_exact.py``,
@@ -73,6 +77,9 @@ OUT_DTYPES = ("f32", "int8")
 MAX_N = 128                         # csrc/sesr_corrected.cu kMaxN: most columns of a wgmma
 PIECE_MAX = 53248                   # kPieceMax: most bytes of a piece of a layer's B
 WHOLE_MAX = 106496                  # kWholeMax: most bytes of a split layer's B run whole
+# K1 and K2 at width 64 (csrc/sesr_net_ksize.cu): most words of a piece of a
+# conv's B, and of a one-pass conv's B staged whole
+PIECE_WORDS, WHOLE_WORDS = 13312, 26624
 
 
 def _round_up(v: int, a: int) -> int:
@@ -150,8 +157,10 @@ def net_group_smem_bytes(datapath: str, n: int, flags: int, in_ch: int, out_ch: 
     two-conv group (``pair_group``) keeps no shortcut. ``ks``: the group's
     conv sizes in the forms of other conv sizes (csrc/sesr_net_ksize.cu),
     which stage every split conv past layer 0 off 4 PEs a pass at a time
-    (K1) and keep one B buffer where two do not fit (K1 and K2); None: 5x5
-    / 3x3 / 5x5."""
+    (K1) and keep one B buffer where two do not fit (K1 and K2); at width 64
+    a split conv past layer 0 at any PE count (K1), each pass in pieces of
+    at most PIECE_WORDS, and a one-pass conv whose B passes WHOLE_WORDS in
+    such pieces; None: 5x5 / 3x3 / 5x5."""
     th, tw = tile
     exact = datapath == "exact"
     sizes = _group_sizes(n, flags, ks)
@@ -162,8 +171,13 @@ def net_group_smem_bytes(datapath: str, n: int, flags: int, in_ch: int, out_ch: 
         passes, chunks, _ = layer_geometry(k, ic, bool(split[j]), pe)
         cols = out_columns(out_ch) if kind == 2 else width
         words = passes * chunks * 32 * 2 * (cols // 8)
-        if (kind == 2 or (ks is not None and kind == 1)) and split[j] and exact and pe != 4:
+        staged = (kind == 2 or (ks is not None and kind == 1)) and split[j] and exact \
+            and (pe != 4 or width == 64)
+        if staged:
             words //= passes                # staged a pass at a time
+        if width == 64 and kind != 0 and (staged or words > WHOLE_WORDS):
+            fw = 2 * (cols // 8)            # in pieces of at most PIECE_WORDS
+            words = min(words, PIECE_WORDS // (32 * fw) * 32 * fw)
         w_words = max(w_words, words)
     ext = [(th + 2 * _ring(j, sizes)) * (tw + 2 * _ring(j, sizes)) for j in range(n + 1)]
     bufs = [0, _round_up(ext[0], 4) if flags & GROUP_FIRST else 0]  # layer j reads bufs[j % 2 == 0]
@@ -218,8 +232,17 @@ def layer_pieces(k: int, ic: int, oc: int, split: bool, last: bool, pe: int) -> 
     kernel where B is staged in pieces: a split hidden or last layer whose
     B passes WHOLE_MAX, or any at width 32 and 16 PE groups (it runs the
     kernel's conv_pieces: piece_form), its chunks (``chunk_groups``), each
-    in ``pieces``; any other layer one piece, its whole B."""
+    in ``pieces``; at width 64 a one-pass layer or a split layer 0 whose B
+    passes WHOLE_MAX too (csrc/sesr_corrected_ksize.cu ks_whole_pieces,
+    ks_first_pieces); any other layer one piece, its whole B."""
     steps, groups, n = wgmma_geometry(k, ic, oc, split, last, pe)
+    if ic == 64 and not split and steps * n * 32 > WHOLE_MAX:
+        count, per = pieces(steps, n)      # width 64: a one-pass layer in pieces
+        return count, per * n * 32
+    if ic <= 4 and oc == 64 and split and steps * n * 32 > WHOLE_MAX:
+        nc = chunk_groups(groups, 64) * 64  # width 64: a split layer 0 in pieces
+        count, per = pieces(steps, nc)
+        return n // nc * count, per * nc * 32
     if not split or ic <= 4 or (steps * n * 32 <= WHOLE_MAX
                                 and not (ic == 32 and groups == 16)):
         return 1, steps * n * 32
@@ -344,8 +367,8 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
             cap = (_round_up((ih - k + 1) * iw, 64) + reach) * 16
         else:                       # the group's output: the tile
             cap = th * tw * 16
-        if kind != 0 and width == 32:
-            cap = 2 * _round_up(cap, 128)
+        if kind != 0 and width > 16:  # width / 16 planes
+            cap = width // 16 * _round_up(cap, 128)
         bufs[j % 2] = max(bufs[j % 2], cap)
     rows = tail and (ks is None or flags & GROUP_LAST)     # the last conv's own rows
     w_at = _round_up(block_words(pe, group_records(n, flags), width, out_ch if rows else 0) * 4,
@@ -373,9 +396,19 @@ def corrected_group_plan(n: int, flags: int, in_ch: int, out_ch: int, tile, spli
 def group_sizes(spec: SESRSpec, first: int, last: int):
     """The conv sizes of the group of convs first..last of ``spec``'s
     network where it runs in the forms of other conv sizes (its sizes not
-    5x5 / 3x3 ... / 5x5), else None."""
+    5x5 / 3x3 ... / 5x5, or its width 64), else None."""
     ks = spec.kernel_sizes
-    return None if ks == shipped_sizes(spec.num_convs) else ks[first:last + 1]
+    if ks == shipped_sizes(spec.num_convs) and kernel_width(spec.num_channels) <= 32:
+        return None
+    return ks[first:last + 1]
+
+
+def chain_form(kc) -> str:
+    """The layer-group form's kernels a call with the constants kc
+    launches: "group" (csrc/sesr_net_group.cu, csrc/sesr_corrected_group.cu),
+    "ksize" (the forms of other conv sizes at widths 16 and 32) or "w64"
+    (their width-64 instantiations)."""
+    return "w64" if kc.width == 64 else "ksize" if kc.other_sizes else "group"
 
 
 def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
@@ -386,8 +419,8 @@ def corrected_smem_bytes(L: int, in_ch: int, out_ch: int, tile, split, pe: int,
 
 class NetKernel:
     """One entry point of a kernel library (``csrc/<library>.cu``) and its
-    layer-group form (``group_symbol`` of ``group_library``), and the forms
-    of other conv sizes (``ksize_symbol`` of ``ksize_library``).
+    layer-group forms (``chain_entry``: the libraries and entry points
+    named ``<prefix>_group``, ``<prefix>_ksize`` and ``<prefix>_w64``).
     ``launches`` counts the launches this wrapper made (each group's launch
     of a chain), ``split_launches`` the same launches by their per-layer
     split mask (the corrected kernel's modes; None for the other kernels).
@@ -398,15 +431,11 @@ class NetKernel:
     tiles = NET_TILES
 
     def __init__(self, symbol: str, datapath: str, library: str = "sesr_net",
-                 group_symbol: str = "sesr_net_group", group_library: str = "sesr_net_group",
-                 ksize_symbol: str = "sesr_net_ksize", ksize_library: str = "sesr_net_ksize"):
+                 prefix: str = "sesr_net"):
         self.symbol = symbol
         self.datapath = datapath
         self.library = library
-        self.group_symbol = group_symbol
-        self.group_library = group_library
-        self.ksize_symbol = ksize_symbol
-        self.ksize_library = ksize_library
+        self.prefix = prefix
         self.launches = 0
         self.split_launches = collections.Counter()
         self._plans = {}
@@ -500,6 +529,15 @@ class NetKernel:
             return (gen, kc.width)
         return (sum(1 << i for i, f in enumerate(kc.pe_split) if f), kc.pe, gen, kc.width)
 
+    def chain_entry(self, kc, audit: bool = False) -> tuple:
+        """(library, entry point) of the layer-group form's launches for the
+        constants kc (``chain_form``); ``audit``: the counting form's, whose
+        entry point in the forms of other conv sizes has a library of its
+        own (csrc/sesr_corrected_ksize_audit.cu, sesr_corrected_w64_audit.cu)."""
+        form = chain_form(kc)
+        symbol = f"{self.prefix}_{form}{'_audit' if audit else ''}"
+        return (f"{self.prefix}_group" if form == "group" else symbol), symbol
+
     def reset(self) -> None:
         self.launches = 0
         self.split_launches.clear()
@@ -574,14 +612,12 @@ class NetKernel:
         read by the last. Returns (the network's int8 output, the
         boundaries: ``run``'s)."""
         n, h, w, _ = x_q.shape
-        ksize = kc.other_sizes               # the forms of other conv sizes
-        library = self.ksize_library if ksize else self.group_library
+        ksize = kc.ksize_form                # the forms of other conv sizes
+        library, symbol = self.chain_entry(kc, count is not None)
         lib = _build.load(library)
         exact = self.datapath == "exact"
         sc = torch.empty((n, h, w, kc.width), dtype=torch.int8 if exact else torch.int16,
                          device=x_q.device) if len(kc.groups) > 1 else None
-        symbol = (self.ksize_symbol if ksize else self.group_symbol) if count is None else \
-            (self.ksize_audit_symbol if ksize else self.group_audit_symbol)
         lead = (int(exact),) if self.datapath != "corrected" else ()
         cur, trail = x_q, []
         with torch.cuda.device(x_q.device):
@@ -618,12 +654,9 @@ class CorrectedKernel(NetKernel):
 
     tiles = CORRECTED_TILES
     audit_symbol = "sesr_corrected_audit"
-    group_audit_symbol = "sesr_corrected_group_audit"
-    ksize_audit_symbol = "sesr_corrected_ksize_audit"
 
     def __init__(self, symbol: str, datapath: str, library: str):
-        super().__init__(symbol, datapath, library, "sesr_corrected_group",
-                         "sesr_corrected_group", "sesr_corrected_ksize", "sesr_corrected_ksize")
+        super().__init__(symbol, datapath, library, "sesr_corrected")
         self.audit_launches = 0
 
     def reset(self) -> None:

@@ -316,6 +316,13 @@ def _smem_input(x_q, k, z_eff, wide, rng, width=16):
     return buf.reshape(-1), ih, iw, rows, plane
 
 
+def _a_desc(s, k, iw, wide, width, plane):
+    """(pixel of A's start from the buffer's, LBO in bytes) of step s of a k
+    x k layer: half_off and a_lbo's."""
+    o0, o1 = half_off(s, 0, k, iw, wide, width), half_off(s, 1, k, iw, wide, width)
+    return o0, a_lbo(o0, o1, wide, width, plane)
+
+
 def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None, pieces=False):
     """The corrected kernel's y = bias + pe_add of conv i over the int8
     input x_q (H, W, ic), from its constants: the layer's wide GEMM through
@@ -372,10 +379,8 @@ def _kernel_layer_sums(qp, kc, i, k, x_q, z_eff, last, rng, events=None, pieces=
     acc = np.zeros((chunks, rows, nc), np.int64)
     for mt in range(rows // 64):
         for s in range(steps):
-            o0 = half_off(s, 0, k, iw, int(wide), width)
-            o1 = half_off(s, 1, k, iw, int(wide), width)
-            a = _hw_a(buf, (mt * 64 + o0) * CONST["kPix"], a_lbo(o0, o1, int(wide), width, plane),
-                      CONST["kSboA"])
+            o0, lbo = _a_desc(s, k, iw, int(wide), width, plane)
+            a = _hw_a(buf, (mt * 64 + o0) * CONST["kPix"], lbo, CONST["kSboA"])
             for hc in range(chunks):
                 src, start = where[s, hc]
                 b = _hw_b(src, start, nc, CONST["kLboB"], CONST["kSboB"])

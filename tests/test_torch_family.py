@@ -15,8 +15,8 @@ across with ``convert.quantparams_from_fields``:
   the JAX package's;
 - ``convert.kernel_constants`` takes both networks for K1, K2 and the
   corrected kernel (in both of its modes), its parameter block decodes to
-  the artifact's per-layer constants at every conv, and it refuses 17
-  convs and a width of 48, each with its own message; XL with every conv
+  the artifact's per-layer constants at every conv, and it takes 17
+  convs in groups and refuses a width of 80 with its own message; XL with every conv
   split takes the corrected kernel's constants and a K1 tile at every PE
   count from 1 to 8;
 - ``costs.conv_macs`` and chip_smoke.py's ``halo_ratio``;
@@ -239,17 +239,17 @@ def test_kernel_constants_take_the_family(net, datapath):
 
 
 def test_kernel_constants_refuse_past_the_limits():
-    """A hidden width of 48 is refused with its own message; 17 convs run
+    """A hidden width of 80 is refused with its own message; 17 convs run
     in two layer groups; XL with every conv split runs in the corrected
     kernel and in K1 at every PE count from 1 to 8."""
     spec, _, _, qp = _calibrated("m11")
     kc = convert.kernel_constants(dataclasses.replace(spec, num_lblocks=15), deepened(qp, 17),
                                   "fast")
     assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)]
-    with pytest.raises(NotImplementedError, match="widths of at most 32"):
-        convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "exact")
+    with pytest.raises(NotImplementedError, match="widths of at most 64"):
+        convert.kernel_constants(dataclasses.replace(spec, num_channels=80), qp, "exact")
     # 16 convs are taken
-    assert convert.MAX_LAYERS == 16 and convert.WIDTHS == (16, 32)
+    assert convert.MAX_LAYERS == 16 and convert.WIDTHS == (16, 32, 64)
     xl, _, _, xqp = _calibrated("xl")
     L = xl.num_convs
     tiles = {}

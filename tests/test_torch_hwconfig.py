@@ -195,5 +195,5 @@ def test_kernel_constants_take_the_config(config, width):
     for bad in (dataclasses.replace(hw, quan_bits=16), dataclasses.replace(hw, pe=17)):
         with pytest.raises(NotImplementedError, match="quan_bits|PEs"):
             convert.kernel_constants(spec, dataclasses.replace(qp, hw=bad), "exact")
-    with pytest.raises(NotImplementedError, match="widths of at most 32"):
-        convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "exact")
+    with pytest.raises(NotImplementedError, match="widths of at most 64"):
+        convert.kernel_constants(dataclasses.replace(spec, num_channels=80), qp, "exact")

@@ -180,15 +180,15 @@ def test_kernel_constants_refuse_what_the_kernels_cannot_run():
     with pytest.raises(NotImplementedError, match="does not fit int8"):
         convert.kernel_constants(spec, dataclasses.replace(qp, a_zero=az), "exact")
     # any PE count from 1 to 16 runs (the general instantiation off 4 PEs);
-    # 2- to 8-bit activations and widths up to 32 are what the kernels
+    # 2- to 8-bit activations and widths up to 64 are what the kernels
     # hold; past 16 convs a network runs in layer groups
     assert convert.kernel_constants(spec, dataclasses.replace(
         qp, hw=dataclasses.replace(qp.hw, pe=2)), "exact").general
     for hw in (dataclasses.replace(qp.hw, pe=17), dataclasses.replace(qp.hw, quan_bits=16)):
         with pytest.raises(NotImplementedError, match="PEs|quan_bits"):
             convert.kernel_constants(spec, dataclasses.replace(qp, hw=hw), "exact")
-    with pytest.raises(NotImplementedError, match="widths of at most 32"):
-        convert.kernel_constants(dataclasses.replace(spec, num_channels=48), qp, "fast")
+    with pytest.raises(NotImplementedError, match="widths of at most 64"):
+        convert.kernel_constants(dataclasses.replace(spec, num_channels=80), qp, "fast")
     deep = dataclasses.replace(spec, num_lblocks=15)
     kc = convert.kernel_constants(deep, deepened(qp, 17), "fast")
     assert [(g.first, g.last) for g in kc.groups] == [(0, 8), (9, 16)] and kc.general

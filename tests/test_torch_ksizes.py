@@ -69,10 +69,14 @@ def _ks_expr(fn):
 
 
 ks_steps_of, ks_half_off = _ks_expr("ks_steps_of"), _ks_expr("ks_half_off")
+w64_steps_of, w64_half_off = _ks_expr("w64_steps_of"), _ks_expr("w64_half_off")
 # (k_first, k_block, k_last), hidden width, scale (x4: 48 outputs)
 NETS = {"k333": ((3, 3, 3), 16, 1), "k717": ((7, 1, 7), 16, 1), "k959": ((9, 5, 9), 16, 1),
         "k131": ((1, 3, 1), 16, 1), "k739_w32": ((7, 3, 9), 32, 1),
         "k939_x4": ((9, 3, 9), 16, 4)}
+# a network of width 64 (tests/test_torch_wide.py holds the width's own
+# networks), three convs: the corrected kernel's numpy model at width 64
+WIDE_NETS = {"k735_w64": ((7, 3, 5), 64, 1)}
 CERTIFIED = ("k333",)
 CONFIGS = {"pe4": HardwareConfig(), "pe16": HardwareConfig(pe=16),
            "pe3_nondivisible": HardwareConfig(**dataclasses.asdict(ALT_CONFIGS[2]))}
@@ -80,9 +84,10 @@ MODES = {"corrected": dict(corrected=True), "fast": dict(corrected=True, compute
 
 
 def _kw(net):
-    (kf, kb, kl), width, scale = NETS[net]
+    (kf, kb, kl), width, scale = {**NETS, **WIDE_NETS}[net]
     return dict(name=f"sesr_{net}", in_channels=3, out_channels=3, num_channels=width,
-                num_lblocks=3, scaling_factor=scale, k_first=kf, k_block=kb, k_last=kl)
+                num_lblocks=1 if net in WIDE_NETS else 3, scaling_factor=scale, k_first=kf,
+                k_block=kb, k_last=kl)
 
 
 def _images():
@@ -268,40 +273,61 @@ def test_pieces_divide_the_steps(steps, cols, want):
         assert per == piece_steps(steps, cols)
 
 
+@pytest.mark.parametrize("width", [16, 32, 64])
 @pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
 @pytest.mark.parametrize("layer", ["first", "hidden", "last"])
-def test_mma_fragments_at_every_size(k, layer):
+def test_mma_fragments_at_every_size(k, layer, width):
     """K1's and K2's B fragments of a k x k conv (convert.py
-    _fragment_words; conv_layer's K = 0 forms read the offsets the model
-    forms) through the numpy model of mma.sync: each PE's partial (4, 16
-    and 3 PEs) and the one-pass sum equal the plain conv, at widths 16 and
-    32 and a 48-output last conv."""
+    _fragment_words; conv_layer_ks reads the offsets the model forms)
+    through the numpy model of mma.sync: each PE's partial (4, 16 and 3
+    PEs) and the one-pass sum equal the plain conv, at widths 16, 32 and 64
+    (a one-pass tap of 16 words two k32 chunks) and a 48-output last
+    conv."""
     rng = np.random.default_rng(k)
-    for width in (16, 32):
-        ic, oc = {"first": (3, width), "hidden": (width, width), "last": (width, 48)}[layer]
-        w = rng.integers(-127, 128, (k, k, ic, oc)).astype(np.int8)
-        q = rng.integers(-128, 128, size=(5 + k - 1, 11 + k - 1, ic)).astype(np.int8)
-        words, ps = _pack(q)
-        for pe, split in ((4, True), (16, True), (3, True), (4, False)):
-            frag = convert._fragment_words(w, split, pe, last=layer == "last")
-            got, _ = _model_layer(words, ps, frag, k, ic, oc, split, layer == "last", 5, 11, pe)
-            got = got.reshape(-1, 5, 11, oc)
-            masks = [pe_channel_mask(ic, pe, p) for p in range(pe)] if split else \
-                [np.ones(ic, bool)]
-            want = [_valid_conv(q[..., m], w[:, :, m, :]) for m in masks if m.any()]
-            np.testing.assert_array_equal(got, np.stack(want), err_msg=f"{layer} {width} {pe}")
+    ic, oc = {"first": (3, width), "hidden": (width, width), "last": (width, 48)}[layer]
+    w = rng.integers(-127, 128, (k, k, ic, oc)).astype(np.int8)
+    q = rng.integers(-128, 128, size=(5 + k - 1, 11 + k - 1, ic)).astype(np.int8)
+    words, ps = _pack(q)
+    for pe, split in ((4, True), (16, True), (3, True), (4, False)):
+        frag = convert._fragment_words(w, split, pe, last=layer == "last")
+        got, _ = _model_layer(words, ps, frag, k, ic, oc, split, layer == "last", 5, 11, pe)
+        got = got.reshape(-1, 5, 11, oc)
+        masks = [pe_channel_mask(ic, pe, p) for p in range(pe)] if split else \
+            [np.ones(ic, bool)]
+        want = [_valid_conv(q[..., m], w[:, :, m, :]) for m in masks if m.any()]
+        np.testing.assert_array_equal(got, np.stack(want), err_msg=f"{layer} {width} {pe}")
+
+
+def _w64_desc(s, k, iw, wide, width, plane):
+    """FormKS::issue_run's A descriptor at width 64 (csrc/sesr_corrected_ksize.cu):
+    the start at w64_half_off's half 0 (its plane's offset in it), the LBO
+    the distance to half 1."""
+    o0, o1 = w64_half_off(s, 0, k, iw, wide, plane), w64_half_off(s, 1, k, iw, wide, plane)
+    return o0, (o1 - o0) * CONST["kPix"]
 
 
 @pytest.mark.parametrize("config", ["pe4", "pe16"])
-@pytest.mark.parametrize("net", ["k959", "k739_w32", "k131"])
+@pytest.mark.parametrize("net", ["k959", "k739_w32", "k131", "k735_w64"])
 def test_corrected_kernel_layers_at_other_sizes(net, config, monkeypatch, one_torch_thread):
     """The numpy model of the corrected kernel (tests/test_torch_corrected.py,
     its index maps read from csrc/sesr_corrected.cu, the steps and offsets
     from csrc/sesr_corrected_ksize.cu's ks_steps_of and ks_half_off: a 9x9
-    layer 0 two k32 steps a kernel row) on each layer of the network with
-    every conv split: y = bias + pe_add equals the plain interpreter's."""
-    monkeypatch.setattr(test_torch_corrected, "steps_of", ks_steps_of)
-    monkeypatch.setattr(test_torch_corrected, "half_off", ks_half_off)
+    layer 0 two k32 steps a kernel row; at width 64 w64_steps_of and
+    w64_half_off, each tap two steps over two of the four planes) on each
+    layer of the network with every conv split: y = bias + pe_add equals
+    the plain interpreter's."""
+    if net in WIDE_NETS:
+        # the buffer's extent per plane (ks_group_cap: a plane's pixels), the
+        # descriptors with the planes
+        monkeypatch.setattr(test_torch_corrected, "steps_of", lambda k, w, c: w64_steps_of(k, w))
+        monkeypatch.setattr(test_torch_corrected, "half_off",
+                            lambda s, h, k, iw, w, c: w64_half_off(s, h, k, iw, w, 0))
+        monkeypatch.setattr(test_torch_corrected, "_a_desc", _w64_desc)
+        monkeypatch.setattr(test_torch_corrected, "piece_steps", lambda s, nc: pieces(s, nc)[1])
+        monkeypatch.setattr(test_torch_corrected, "piece_count", lambda s, nc: pieces(s, nc)[0])
+    else:
+        monkeypatch.setattr(test_torch_corrected, "steps_of", ks_steps_of)
+        monkeypatch.setattr(test_torch_corrected, "half_off", ks_half_off)
     spec, _, qp, _ = _network(net)
     qp = dataclasses.replace(qp, hw=CONFIGS[config])
     L = spec.num_convs
@@ -313,14 +339,19 @@ def test_corrected_kernel_layers_at_other_sizes(net, config, monkeypatch, one_to
     rng = np.random.default_rng(4)
     for i, k in enumerate(spec.kernel_sizes):
         if i == 0:
-            assert ks_steps_of(k, 1, kc.width) == k * (2 if k == 9 else 1)
+            assert ks_steps_of(k, 1, 32) == w64_steps_of(k, 1) == k * (2 if k == 9 else 1)
         assert all(ks_steps_of(k, w, c) == FNS["steps_of"](k, w, c)
                    for w in (0, 1) for c in (16, 32) if k < 9 or not w)
+        assert w64_steps_of(k, 0) == 2 * ks_steps_of(k, 0, 32)
         x_q = dumps[f"input.{i}"][0].numpy().astype(np.int64)
-        got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng)
         want = dumps[f"pe_add.{i}"][0].numpy().astype(np.int64) + np.clip(
             np.asarray(qp.bias_int[i], np.int64), -32768, 32767)
-        np.testing.assert_array_equal(got, want, err_msg=f"{net} {config} layer {i}")
+        # at width 64 also with B in pieces of piece_span steps (conv_pieces_ks:
+        # every layer past a block's whole B, layer 0 too, in pieces)
+        for in_pieces in (False, True) if net in WIDE_NETS else (False,):
+            got = _kernel_layer_sums(qp, kc, i, k, x_q, qp.effective_zero(i), i == L - 1, rng,
+                                     pieces=in_pieces)
+            np.testing.assert_array_equal(got, want, err_msg=f"{net} {config} layer {i}")
 
 
 # chip_smoke.py phase 18's networks: MACs a pixel (costs.conv_macs), input

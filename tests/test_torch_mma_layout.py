@@ -105,12 +105,13 @@ def _model_layer(words, ps, frag, k, ic, oc, split, last, eh, ew, pe=4):
         for p in range(npass):
             acc = np.zeros((32, nt, 4), np.int64)
             for c in range(chunks):
-                # k-slot s: the pass's word s % wpt (tap-major: word p % 4 +
-                # 4 j is j) of tap (8 / wpt) c + s // wpt
+                # k-slot s: k word 8 c + s, the pass's word (8 c + s) % wpt
+                # (tap-major: word p % 4 + 4 j is j) of tap (8 c + s) // wpt
+                # (8 / wpt taps a chunk; at 16 words a tap, two chunks a tap)
                 def slot(s):
-                    j = s % wpt
+                    j = (8 * c + s) % wpt
                     plane = (p % 4 + 4 * j if ic > 4 else 0) if tap_major else j
-                    return plane * ps + off((8 // wpt) * c + s // wpt)
+                    return plane * ps + off((8 * c + s) // wpt)
                 oa, ob = slot(t), slot(t + 4)
                 a = np.stack([words[base[:, 0] + oa], words[base[:, 1] + oa],
                               words[base[:, 0] + ob], words[base[:, 1] + ob]], -1)

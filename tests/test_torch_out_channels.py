@@ -258,8 +258,8 @@ def test_kernel_constants_take_every_count(datapath):
                                  (True,) * L if datapath == "corrected" else None)
 
 
-@pytest.mark.parametrize("bad", ["quan_bits=9", "quan_bits=16", "width=48", "convs=17",
-                                 "convs=2", "k_block=4", "in_channels=5", "out=49"])
+@pytest.mark.parametrize("bad", ["quan_bits=9", "quan_bits=16", "width=48", "width=80",
+                                 "convs=17", "convs=2", "k_block=4", "in_channels=5", "out=49"])
 def test_kernel_constants_refuse_what_is_left(bad):
     """The corners still to port are refused, each naming its limit. 17
     convs, refused until the layer-group form, is taken: every kernel plans
@@ -268,8 +268,20 @@ def test_kernel_constants_refuse_what_is_left(bad):
     taken too: every kernel plans it as one group of both convs, flags
     GROUP_FIRST | GROUP_LAST, that fits a block. Conv sizes other than 5x5 /
     3x3 ... / 5x5 are taken (tests/test_torch_ksizes.py), but for an even
-    size, refused with its own message."""
+    size, refused with its own message. A hidden width of 48, refused until
+    the width-64 instantiations, is taken: every kernel plans it at width
+    64 in the forms of other conv sizes (tests/test_torch_wide.py); a width
+    past 64 is refused."""
     spec, _, _, qp = _calibrated(4)
+    if bad == "width=48":
+        spec = dataclasses.replace(spec, num_channels=48)   # the weights padded to 64
+        for datapath in convert.DATAPATHS:
+            kc = convert.kernel_constants(spec, qp, datapath, (True,) * spec.num_convs
+                                          if datapath == "corrected" else None)
+            assert kc.width == 64 and kc.ksize_form and len(kc.groups) >= 1 and kc.general
+            kern = {k.datapath: k for k in NET_KERNELS}[datapath]
+            assert all(need <= 232448 for _, _, need in kern.launch_plans(spec, kc))
+        return
     if bad in ("convs=17", "convs=2"):
         convs = int(bad[6:])
         qp = deepened(qp, convs)
@@ -285,7 +297,7 @@ def test_kernel_constants_refuse_what_is_left(bad):
             assert all(need <= 232448 for _, _, need in kern.launch_plans(spec, kc))
         return
     match = {"quan_bits=9": "quan_bits", "quan_bits=16": "quan_bits",
-             "width=48": "widths of at most 32",
+             "width=80": "widths of at most 64",
              "k_block=4": r"conv 1 of \S+ is 4x4 \(an even size", "in_channels=5": "1-4 input",
              "out=49": "1-48 output"}[bad]
     if bad.startswith("quan_bits"):

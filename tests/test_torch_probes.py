@@ -429,7 +429,8 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
     assert set(paths) == {"sesr_net", "sesr_corrected", "sesr_net_group",
                           "sesr_corrected_group", "sesr_net_ksize", "sesr_corrected_ksize",
-                          "probes"}
+                          "sesr_corrected_ksize_audit", "sesr_net_w64", "sesr_corrected_w64",
+                          "sesr_corrected_w64_audit", "probes"}
     for name, path in paths.items():
         assert path.parent == tmp_path / "kernels" and path.name.startswith(f"lib{name}-")
     assert _build.sources("probes") == [csrc / "probes.cu", csrc / "wgmma_gemm.cuh"]
@@ -446,6 +447,12 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
                                                 *_build.sources("sesr_net_group")]
     assert _build.sources("sesr_corrected_ksize") == [csrc / "sesr_corrected_ksize.cu",
                                                       *_build.sources("sesr_corrected_group")]
+    # the counting form's and the width-64 libraries on the ksize sources
+    for name, base in (("sesr_corrected_ksize_audit", "sesr_corrected_ksize"),
+                       ("sesr_net_w64", "sesr_net_ksize"),
+                       ("sesr_corrected_w64", "sesr_corrected_ksize"),
+                       ("sesr_corrected_w64_audit", "sesr_corrected_ksize")):
+        assert _build.sources(name) == [csrc / f"{name}.cu", *_build.sources(base)]
     with (csrc / "wgmma_gemm.cuh").open("a") as f:
         f.write("// edited\n")
     edited_header = _build.library_path("probes")
@@ -463,6 +470,7 @@ def test_build_is_keyed_by_library(monkeypatch, tmp_path):
     assert _build.library_path("sesr_corrected") != paths["sesr_corrected"]
     assert _build.library_path("sesr_net_group") != paths["sesr_net_group"]
     assert _build.library_path("sesr_corrected_ksize") != paths["sesr_corrected_ksize"]
+    assert _build.library_path("sesr_corrected_w64_audit") != paths["sesr_corrected_w64_audit"]
     assert _build.library_path("probes") == probes
     builds = _build.build_all()
     assert {n: b.path for n, b in builds.items()} == {
